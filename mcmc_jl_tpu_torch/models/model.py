@@ -1,0 +1,328 @@
+"""Log-density model layer (port of ``mcmc_jl_tpu/models/model.py``;
+reference: src/modellers/likmodel.jl:20-58, src/modellers/mcmcmodels.jl).
+
+The model is a frozen record of functions over a flat parameter vector:
+
+- ``eval(theta)``              log-target                      (likmodel.jl:21)
+- ``evalg / evalallg``         gradient / (logp, grad)         (likmodel.jl:22,25)
+- ``pmap``                     name -> (offset, shape), 1-based offsets
+- ``init`` / ``scale``         initial values and scaling hints
+
+Every function takes ``theta`` of shape (d,) or (C, d) — C chains on a
+leading dimension — and returns one log-target per chain.  The model holds
+its data on the ``device`` it was given, in ``dtype`` (default
+:func:`~mcmc_jl_tpu_torch.utils.dtypes.real_dtype`).
+
+Ported modes: callable (``f`` with ``grad=``, or
+``gradient=True`` through ``torch.func``) and ``glm=`` (logistic, linear,
+poisson or probit link, or a custom ``(ll, resid)`` pair; weights, offsets
+and a scalar prior precision).  The ``~`` DSL and ``tensor``/``dtensor`` are
+ROADMAP queue 1 item 3.
+
+Out-of-support semantics: the log-target is sanitized to ``-inf`` (NaN ->
+-inf) and the gradient to zero whenever the log-target is not finite
+(reference src/dsl/modelparser.jl:64-72).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..utils.dtypes import real_dtype
+
+
+def resolve_device(device):
+    """``device`` as a ``torch.device``; asking for CUDA without a card
+    raises instead of silently running elsewhere."""
+    dev = torch.device(device if device is not None else "cpu")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(dev)!r} requested but torch.cuda.is_available() is "
+            f"False: no CUDA device is visible")
+    return dev
+
+
+def _sanitize_logp(f):
+    def eval_(theta):
+        lp = f(theta)
+        return torch.where(torch.isnan(lp), -torch.inf, lp)
+
+    return eval_
+
+
+def _sanitize_allg(allg):
+    def evalallg(theta):
+        lp, g = allg(theta)
+        lp = torch.where(torch.isnan(lp), -torch.inf, lp)
+        ok = torch.isfinite(lp).unsqueeze(-1)
+        g = torch.where(ok, torch.nan_to_num(g, nan=0.0, posinf=0.0,
+                                             neginf=0.0), 0.0)
+        return lp, g
+
+    return evalallg
+
+
+def _batched(fn):
+    """Lift a per-vector function (d,) -> out to (..., d) inputs with
+    ``torch.func.vmap`` over the leading chain dimensions."""
+    def call(theta):
+        if theta.ndim == 1:
+            return fn(theta)
+        lead = theta.shape[:-1]
+        out = torch.func.vmap(fn)(theta.reshape(-1, theta.shape[-1]))
+        if isinstance(out, tuple):
+            return tuple(o.reshape(lead + o.shape[1:]) for o in out)
+        return out.reshape(lead + out.shape[1:])
+
+    return call
+
+
+@dataclasses.dataclass(frozen=True)
+class LogDensityModel:
+    """A likelihood-type model: differentiable log-target over R^size."""
+
+    eval: Callable  # theta -> logp
+    evalg: Optional[Callable]  # theta -> grad
+    evalallg: Optional[Callable]  # theta -> (logp, grad)
+    pmap: dict  # name -> (offset(1-based), shape)
+    size: int
+    init: torch.Tensor
+    scale: torch.Tensor
+    #: set for models built via model(glm=...): enables the fused GLM-HMC
+    #: routing in prun/run(chains=) (ops/glm_hmc.py)
+    glm_spec: Any = None
+
+    @property
+    def device(self):
+        return self.init.device
+
+    @property
+    def dtype(self):
+        return self.init.dtype
+
+    # -- capability predicates (reference mcmcmodels.jl:19-21) -------------
+    @property
+    def hasgradient(self):
+        return self.evalg is not None
+
+    @property
+    def hastensor(self):
+        return False
+
+    @property
+    def hasdtensor(self):
+        return False
+
+    def column_names(self):
+        """Column names 'k', 'k.i', 'k.i.j' (1-based) exactly as the
+        reference builds them (SerialMC.jl:70-79)."""
+        cn = [None] * self.size
+        for name, (off, shape) in self.pmap.items():
+            if len(shape) == 0:
+                cn[off - 1] = f"{name}"
+            elif len(shape) == 1:
+                for i in range(shape[0]):
+                    cn[off - 1 + i] = f"{name}.{i + 1}"
+            else:
+                # column-major like Julia's comprehension over (i, j)
+                k = 0
+                for j in range(shape[1]):
+                    for i in range(shape[0]):
+                        cn[off - 1 + k] = f"{name}.{i + 1}.{j + 1}"
+                        k += 1
+        return cn
+
+    def __mul__(self, other):
+        """``model * sampler`` composition sugar (reference MCMC.jl:87-98)."""
+        from ..core.task import product
+
+        return product(self, other)
+
+    def __repr__(self):
+        caps = " +grad" if self.hasgradient else ""
+        return (f"LogDensityModel(size={self.size}, params={list(self.pmap)}"
+                f"{caps}, device={self.device})")
+
+
+def _ispartition(pmap, n):
+    """Check pmap tiles [1, n] exactly (reference mcmcmodels.jl:9-15)."""
+    c = np.zeros(n)
+    for off, shape in pmap.values():
+        c[off - 1 : off - 1 + max(1, int(np.prod(shape)))] += 1
+    return bool(np.all(c == 1))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GLMSpec:
+    """Design/response data of a GLM-family posterior (model(glm=...)), as
+    tensors on the model's device and in its dtype.
+
+    Carried on the model so the multi-chain runners can route plain-HMC
+    sampling to the fused kernels (ops/glm_kernels.py).  ``eq=False``:
+    identity equality/hash, as in the JAX package."""
+
+    kind: Any  # link name or (ll, resid) callable pair
+    X: torch.Tensor  # (N, d) design
+    Y: torch.Tensor  # (N,) responses
+    weights: Optional[torch.Tensor] = None
+    offsets: Optional[torch.Tensor] = None
+    prior_prec: float = 1.0
+
+
+def _glm_functions(spec):
+    """(logp, grad, logp_grad) of a GLM posterior, batched over chains."""
+    from ..ops.glm_kernels import link_terms
+
+    ll_fn, resid_fn = link_terms(spec.kind)
+    X, Y, W, O, lam = (spec.X, spec.Y, spec.weights, spec.offsets,
+                       spec.prior_prec)
+
+    def predictor(th):
+        z = th @ X.T
+        return z + O if O is not None else z
+
+    def logp(th):
+        ll = ll_fn(predictor(th), Y)
+        if W is not None:
+            ll = W * ll
+        return ll.sum(-1) - 0.5 * lam * (th * th).sum(-1)
+
+    def grad(th):
+        r = resid_fn(predictor(th), Y)
+        if W is not None:
+            r = W * r
+        return r @ X - lam * th
+
+    def logp_grad(th):
+        z = predictor(th)
+        ll, r = ll_fn(z, Y), resid_fn(z, Y)
+        if W is not None:
+            ll, r = W * ll, W * r
+        return (ll.sum(-1) - 0.5 * lam * (th * th).sum(-1),
+                r @ X - lam * th)
+
+    return logp, grad, logp_grad
+
+
+def model(
+    f: Optional[Callable] = None,
+    *,
+    glm: Any = None,
+    weights: Any = None,
+    offsets: Any = None,
+    prior_prec: float = 1.0,
+    grad: Optional[Callable] = None,
+    tensor: Any = None,
+    dtensor: Any = None,
+    init: Any = None,
+    scale: Any = 1.0,
+    pmap: Optional[dict] = None,
+    gradient: bool = False,
+    mtype: str = "likelihood",
+    check_init: bool = True,
+    device: Any = None,
+    dtype: Optional[torch.dtype] = None,
+    **params,
+) -> LogDensityModel:
+    """The model factory — front door of the framework.
+
+    1. **Callable mode** — ``f`` maps a flat parameter vector (d,) to the
+       log-target; pass ``init=``.  Optional ``grad``;
+       ``gradient=True`` derives the gradient with ``torch.func``.  User
+       functions are written for one vector and lifted over chains with
+       ``torch.func.vmap``.
+    2. **GLM mode** — ``glm=(kind, X, Y)`` with optional ``weights``,
+       ``offsets`` and scalar ``prior_prec``: the Bayesian GLM
+       ``sum_i w_i ll(x_i'theta + o_i, y_i) - (lam/2)|theta|^2`` with an
+       analytic gradient.
+
+    ``device`` and ``dtype`` say where and in what precision the model's
+    data and functions live.
+    """
+    if mtype != "likelihood":
+        raise ValueError(f"unsupported model type {mtype!r}")
+    if params:
+        raise NotImplementedError(
+            "the ~ model DSL is not ported yet (ROADMAP queue 1 item 3)")
+    if tensor is not None or dtensor is not None:
+        raise NotImplementedError(
+            "tensor/dtensor models are not ported yet (ROADMAP queue 1 item 3)")
+
+    dtype = dtype or real_dtype()
+    dev = resolve_device(device)
+    as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=dev)  # noqa: E731
+
+    glm_spec_obj = None
+    glm_allg = None
+    if glm is not None:  # ---- GLM mode ---------------------------------
+        if f is not None:
+            raise ValueError("pass either f or glm=..., not both")
+        kind, X, Y = glm
+        glm_spec_obj = GLMSpec(
+            kind=kind, X=as_t(X), Y=as_t(Y),
+            weights=None if weights is None else as_t(weights),
+            offsets=None if offsets is None else as_t(offsets),
+            prior_prec=float(prior_prec),
+        )
+        f, glm_grad, glm_allg = _glm_functions(glm_spec_obj)
+        if grad is None and not gradient:
+            grad = glm_grad
+        else:
+            glm_allg = None
+        if init is None:
+            init = np.zeros(glm_spec_obj.X.shape[1])
+        raw_eval = f
+    else:
+        if weights is not None or offsets is not None:
+            raise ValueError("weights/offsets only apply to glm= models")
+        if f is None:
+            raise ValueError("model() needs a callable or glm=")
+        raw_eval = _batched(f)
+    if init is None:
+        init = [1.0]
+
+    init_vec = torch.atleast_1d(torch.as_tensor(
+        init.detach().cpu().numpy() if isinstance(init, torch.Tensor)
+        else np.asarray(init), dtype=dtype, device=dev))
+    size = int(init_vec.shape[0])
+    if pmap is None:
+        pmap = {"pars": (1, (size,))}  # likmodel.jl:139
+    if not _ispartition(pmap, size):
+        raise ValueError("param map is not a partition of parameter vector")
+    scale_vec = torch.broadcast_to(
+        torch.as_tensor(scale, dtype=dtype, device=dev), (size,)).clone()
+
+    eval_ = _sanitize_logp(raw_eval)
+
+    # ---- gradient family (likmodel.jl:121-136 synthesis, via torch.func) --
+    if glm_allg is not None:
+        evalallg = _sanitize_allg(glm_allg)
+        evalg = grad
+    elif grad is not None:
+        g_b = _batched(grad)
+        evalg = g_b
+        evalallg = _sanitize_allg(lambda th: (raw_eval(th), g_b(th)))
+    elif gradient:
+        def _vg(th):
+            g, lp = torch.func.grad_and_value(f)(th)
+            return lp, g
+
+        evalallg = _sanitize_allg(_batched(_vg))
+        evalg = lambda th: evalallg(th)[1]  # noqa: E731
+    else:
+        evalg = evalallg = None
+
+    mdl = LogDensityModel(
+        eval=eval_, evalg=evalg, evalallg=evalallg, pmap=pmap, size=size,
+        init=init_vec, scale=scale_vec, glm_spec=glm_spec_obj,
+    )
+
+    if check_init:
+        lp0 = float(mdl.eval(mdl.init))
+        if not np.isfinite(lp0):
+            raise ValueError("Initial values out of model support, try other values")
+
+    return mdl

@@ -1,0 +1,410 @@
+"""Fused GLM-HMC kernels: the port of ``mcmc_jl_tpu/ops/pallas_glm.py``.
+
+Three kernels, written in CUDA C++ for Hopper in ``csrc/glm_hmc.cu``, replace
+the three Pallas kernel bodies on the main path:
+
+============================  =========================================
+wrapper (this module)         Pallas kernel it replaces
+============================  =========================================
+:func:`glm_leapfrogs`         ``pallas_glm.py _kernel`` (the trajectory)
+:func:`glm_step`              ``pallas_glm.py _step_kernel`` (one transition)
+:func:`glm_multistep`         ``pallas_glm.py _multistep_kernel``,
+                              ``halton=False`` (k transitions, RNG inside)
+============================  =========================================
+
+Each has a plain PyTorch version beside it (``*_ref``) that does the same
+math.  A wrapper runs the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``, each call of a plain version one to
+``PLAIN_CALLS[name]``, so a run can show which of the two it went through.
+
+Layouts follow the JAX package at the public functions, minus its TPU
+padding: the transposed design ``XT`` is (d, N), ``Y``/weights/offsets are
+(N,) or (1, N), chain states are unpadded (C, d).  The prior is N(0, 1/lam I)
+with a scalar ``lam``.  The kernels take the four built-in links; the plain
+versions also take a custom ``(ll, resid)`` pair.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..samplers.integrators import SCHEDULES
+
+KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
+#: largest parameter count the kernels take (csrc/glm_hmc.cu bound_for)
+D_MAX = 32
+
+LAUNCHES = {"glm_leapfrogs": 0, "glm_step": 0, "glm_multistep": 0}
+PLAIN_CALLS = {"glm_leapfrogs": 0, "glm_step": 0, "glm_multistep": 0}
+
+
+def reset_counts():
+    """Zero the launch and plain-call counters."""
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def link_terms(kind):
+    """Per-observation log-lik and residual factor for a GLM link.
+
+    ``ll(z, y)`` is the elementwise log-likelihood of linear predictor z;
+    ``resid(z, y)`` is r such that d loglik / d theta = r @ X.  ``kind`` is
+    a link name or a ``(ll, resid)`` pair of elementwise torch callables.
+    Probit uses the exact ``torch.special.log_ndtr``.
+    """
+    if isinstance(kind, tuple):
+        ll_fn, resid_fn = kind
+        if not (callable(ll_fn) and callable(resid_fn)):
+            raise TypeError("custom link must be a (ll(z, y), resid(z, y)) "
+                            "pair of callables")
+        return ll_fn, resid_fn
+    if kind == "logistic":
+        return (
+            lambda z, y: z * y - torch.logaddexp(z, torch.zeros_like(z)),
+            lambda z, y: y - torch.sigmoid(z),
+        )
+    if kind == "linear":  # unit-variance Gaussian residuals
+        return (
+            lambda z, y: -0.5 * (y - z) * (y - z),
+            lambda z, y: y - z,
+        )
+    if kind == "poisson":  # log link; the lgamma(y+1) constant is dropped
+        return (
+            lambda z, y: y * z - torch.exp(z),
+            lambda z, y: y - torch.exp(z),
+        )
+    if kind == "probit":
+        log_ndtr = torch.special.log_ndtr
+
+        def _ll(z, y):
+            return y * log_ndtr(z) + (1.0 - y) * log_ndtr(-z)
+
+        def _resid(z, y):
+            log_phi = -0.5 * z * z - 0.5 * math.log(2.0 * math.pi)
+            w_pos = torch.exp(log_phi - log_ndtr(z))
+            w_neg = torch.exp(log_phi - log_ndtr(-z))
+            return y * w_pos - (1.0 - y) * w_neg
+
+        return _ll, _resid
+    raise ValueError(f"unknown GLM link {kind!r}")
+
+
+def _scalar_prior(prior_prec):
+    if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() != 1:
+        raise NotImplementedError(
+            "vector/matrix prior precisions (the warm-start mass folds) are "
+            "not ported yet (ROADMAP queue 1 item 12)")
+    return float(prior_prec)
+
+
+def _row(v):
+    return None if v is None else v.reshape(-1)
+
+
+# ---- plain PyTorch versions ----------------------------------------------
+
+
+def glm_funcs(XT, Y, W, O, lam, kind):
+    """(grad_only, logp_grad) over the GLM data (pallas_glm.py _glm_funcs)."""
+    ll_fn, resid_fn = link_terms(kind)
+    Y, W, O = _row(Y), _row(W), _row(O)
+
+    def predictor(theta):
+        z = theta @ XT
+        return z + O if O is not None else z
+
+    def grad_only(theta):
+        r = resid_fn(predictor(theta), Y)
+        if W is not None:
+            r = W * r
+        return r @ XT.T - lam * theta
+
+    def logp_grad(theta):
+        z = predictor(theta)
+        r, ll = resid_fn(z, Y), ll_fn(z, Y)
+        if W is not None:
+            r, ll = W * r, W * ll
+        pg = lam * theta
+        return ll.sum(-1) - 0.5 * (pg * theta).sum(-1), r @ XT.T - pg
+
+    return grad_only, logp_grad
+
+
+def _trajectory(theta, m, g, eps, grad_only, logp_grad, n_leaps, integrator):
+    """``n_leaps`` macro steps of the SCHEDULES integrator; the last drift
+    yields lp from the same pass as its gradient (pallas_glm.py _trajectory).
+    Returns (theta, m, g, lp)."""
+    schedule = SCHEDULES[integrator]
+    last_d = max(i for i, (op, _) in enumerate(schedule) if op == "A")
+    lp = None
+    for leap in range(n_leaps):
+        final = leap == n_leaps - 1
+        for j, (op, c) in enumerate(schedule):
+            if op == "B":
+                m = m + c * eps * g
+            else:
+                theta = theta + c * eps * m
+                if final and j == last_d:
+                    lp, g = logp_grad(theta)
+                else:
+                    g = grad_only(theta)
+    return theta, m, g, lp
+
+
+def accept_test(h0, h, logu):
+    """NaN-rejecting Metropolis test on per-chain Hamiltonians."""
+    ratio = h0 - h
+    ratio = torch.where(torch.isnan(ratio), -torch.inf, ratio)
+    return (ratio > 0) | (ratio > logu)
+
+
+def glm_leapfrogs_ref(XT, Y, theta, m, grad, eps, *, n_leaps=10,
+                      kind="logistic", weights=None, offsets=None,
+                      prior_prec=1.0, integrator="leapfrog"):
+    """Plain version of :func:`glm_leapfrogs`."""
+    PLAIN_CALLS["glm_leapfrogs"] += 1
+    grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
+                                     _scalar_prior(prior_prec), kind)
+    return _trajectory(theta, m, grad, eps, grad_only, logp_grad, n_leaps,
+                       integrator)
+
+
+def glm_step_ref(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
+                 kind="logistic", weights=None, offsets=None, prior_prec=1.0,
+                 integrator="leapfrog"):
+    """Plain version of :func:`glm_step`."""
+    PLAIN_CALLS["glm_step"] += 1
+    grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
+                                     _scalar_prior(prior_prec), kind)
+    lp0, logu = lp.reshape(-1), logu.reshape(-1)
+    h0 = -lp0 + 0.5 * (m0 * m0).sum(-1)
+    th, m, g, lp1 = _trajectory(theta, m0, grad, eps, grad_only, logp_grad,
+                                n_leaps, integrator)
+    acc = accept_test(h0, -lp1 + 0.5 * (m * m).sum(-1), logu)
+    a = acc[:, None]
+    return (torch.where(a, th, theta), torch.where(a, g, grad),
+            torch.where(acc, lp1, lp0)[:, None], a.to(theta.dtype))
+
+
+def glm_multistep_ref(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
+                      generator=None, noise=None, kind="logistic",
+                      weights=None, offsets=None, prior_prec=1.0,
+                      integrator="leapfrog"):
+    """Plain version of :func:`glm_multistep`: ``k_trans`` whole transitions.
+
+    The momenta and MH uniforms come from ``noise = (z (k, C, d), logu
+    (k, C))`` when given (exact comparisons), else from ``generator``
+    (another stream than the kernel's Philox: compare statistically).
+    Returns (theta, grad, lp (C,), accept rate (C,))."""
+    PLAIN_CALLS["glm_multistep"] += 1
+    grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
+                                     _scalar_prior(prior_prec), kind)
+    lp, g = logp_grad(theta)
+    n_acc = torch.zeros_like(lp)
+    for t in range(k_trans):
+        if noise is not None:
+            m0, logu = noise[0][t], noise[1][t]
+        else:
+            m0 = torch.randn(theta.shape, generator=generator,
+                             dtype=theta.dtype, device=theta.device)
+            logu = torch.log(1.0 - torch.rand(
+                theta.shape[:1], generator=generator, dtype=theta.dtype,
+                device=theta.device))
+        h0 = -lp + 0.5 * (m0 * m0).sum(-1)
+        th_p, m, g_p, lp_p = _trajectory(theta, m0, g, eps, grad_only,
+                                         logp_grad, n_leaps, integrator)
+        a = accept_test(h0, -lp_p + 0.5 * (m * m).sum(-1), logu)
+        theta = torch.where(a[:, None], th_p, theta)
+        g = torch.where(a[:, None], g_p, g)
+        lp = torch.where(a, lp_p, lp)
+        n_acc = n_acc + a.to(n_acc.dtype)
+    return theta, g, lp, n_acc / k_trans
+
+
+# ---- CUDA kernels ----------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I]
+_ARGTYPES = {
+    "glm_leapfrogs": [_P] * 4 + [_I] * 3 + [_P] * 7 + [_F, _F, _I, _I]
+    + _SCHED + [_P],
+    "glm_step": [_P] * 4 + [_I] * 3 + [_P] * 9 + [_F, _F, _I, _I]
+    + _SCHED + [_P],
+    "glm_multistep": [_P] * 4 + [_I] * 3 + [_P] * 5 + [_F, _F, _I, _I, _I,
+                                                       ctypes.c_ulonglong]
+    + _SCHED + [_P],
+}
+
+
+def load_kernels():
+    """Build (first use) and bind ``csrc/glm_hmc.cu``; returns the library."""
+    from .cuda_build import load
+
+    lib = load("glm_hmc")
+    if not getattr(lib, "_bound", False):
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.glm_error_string.argtypes = [ctypes.c_int]
+        lib.glm_error_string.restype = ctypes.c_char_p
+        lib.glm_max_dim.restype = ctypes.c_int
+        if lib.glm_max_dim() != D_MAX:
+            raise RuntimeError("csrc/glm_hmc.cu and glm_kernels.D_MAX disagree")
+        lib._bound = True
+    return lib
+
+
+def _sched(integrator):
+    schedule = SCHEDULES[integrator]
+    ops = (ctypes.c_int * len(schedule))(*[1 if op == "A" else 0
+                                            for op, _ in schedule])
+    cs = (ctypes.c_float * len(schedule))(*[c for _, c in schedule])
+    return ops, cs, len(schedule)
+
+
+def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
+    """Validate what the kernel takes: ``states`` (name -> tensor) must be
+    (C, d) and ``per_chain`` ones (C,), with C from ``theta``.
+    Returns (N, d, C, flat W, flat O)."""
+    if kind not in KIND_CODES:
+        raise ValueError(f"{name}: the CUDA kernel takes the links "
+                         f"{sorted(KIND_CODES)}, got {kind!r}")
+    dev = XT.device
+    if XT.ndim != 2:
+        raise ValueError(f"{name}: XT must be (d, N), got {tuple(XT.shape)}")
+    d, N = XT.shape
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{D_MAX}")
+    C = states["theta"].shape[0] if states["theta"].ndim else 0
+    per_chain = per_chain or {}
+    obs = {"Y": _row(Y), "weights": _row(weights), "offsets": _row(offsets)}
+    for label, t in {"XT": XT, **obs, **states, **per_chain}.items():
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {label} must be a contiguous float32 tensor on "
+                f"{dev}, got {t.dtype} on {t.device}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    want = {**{k: (N,) for k in obs}, **{k: (C, d) for k in states},
+            **{k: (C,) for k in per_chain}}
+    for label, t in {**obs, **states, **per_chain}.items():
+        if t is not None and tuple(t.shape) != want[label]:
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
+                             f"want {want[label]}")
+    return N, d, C, _row(weights), _row(offsets)
+
+
+def _ptr(t):
+    return _P(None if t is None else t.data_ptr())
+
+
+def _launch(name, *args):
+    lib = load_kernels()
+    code = getattr(lib, name)(*args,
+                              _P(torch.cuda.current_stream().cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.glm_error_string(code).decode()} ({code})")
+    LAUNCHES[name] += 1
+
+
+def _device_branch(name, theta):
+    """True for CUDA tensors; False for CPU tensors (plain version)."""
+    if theta.device.type == "cuda":
+        return True
+    if theta.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {theta.device}")
+
+
+def glm_leapfrogs(XT, Y, theta, m, grad, eps, *, n_leaps=10, kind="logistic",
+                  weights=None, offsets=None, prior_prec=1.0,
+                  integrator="leapfrog"):
+    """``n_leaps`` fused macro steps of ``integrator`` for all chains.
+
+    Args: ``XT`` (d, N); ``Y`` (N,); ``theta``, ``m``, ``grad`` (C, d)
+    with ``grad`` the gradient at ``theta``; scalar ``eps``.
+    Returns (theta, m, grad, logp (C,)) at the end of the trajectory."""
+    if not _device_branch("glm_leapfrogs", theta):
+        return glm_leapfrogs_ref(XT, Y, theta, m, grad, eps, n_leaps=n_leaps,
+                                 kind=kind, weights=weights, offsets=offsets,
+                                 prior_prec=prior_prec, integrator=integrator)
+    N, d, C, W, O = _check("glm_leapfrogs", XT, Y, weights, offsets, kind,
+                           {"theta": theta, "m": m, "grad": grad})
+    th_o, m_o, g_o = (torch.empty_like(theta) for _ in range(3))
+    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    with torch.cuda.device(theta.device):
+        _launch("glm_leapfrogs", _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                N, d, C, _ptr(theta), _ptr(m), _ptr(grad), _ptr(th_o),
+                _ptr(m_o), _ptr(g_o), _ptr(lp_o), float(eps),
+                _scalar_prior(prior_prec), int(n_leaps), KIND_CODES[kind],
+                *_sched(integrator))
+    return th_o, m_o, g_o, lp_o
+
+
+def glm_step(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
+             kind="logistic", weights=None, offsets=None, prior_prec=1.0,
+             integrator="leapfrog"):
+    """One whole HMC transition with pre-drawn momenta ``m0`` (C, d) and
+    log-uniforms ``logu`` (C, 1): trajectory, Hamiltonian, NaN-rejecting
+    accept.  ``lp`` (C, 1) is the log-target at ``theta``.
+    Returns (theta, grad, lp (C, 1), accept (C, 1) as float)."""
+    if not _device_branch("glm_step", theta):
+        return glm_step_ref(XT, Y, theta, grad, lp, m0, logu, eps,
+                            n_leaps=n_leaps, kind=kind, weights=weights,
+                            offsets=offsets, prior_prec=prior_prec,
+                            integrator=integrator)
+    lp, logu = lp.reshape(-1), logu.reshape(-1)
+    N, d, C, W, O = _check("glm_step", XT, Y, weights, offsets, kind,
+                           {"theta": theta, "grad": grad, "m0": m0},
+                           {"lp": lp, "logu": logu})
+    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
+    lp_o = torch.empty(C, 1, dtype=theta.dtype, device=theta.device)
+    acc_o = torch.empty(C, 1, dtype=theta.dtype, device=theta.device)
+    with torch.cuda.device(theta.device):
+        _launch("glm_step", _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                N, d, C, _ptr(theta), _ptr(grad), _ptr(lp), _ptr(m0),
+                _ptr(logu), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(acc_o),
+                float(eps), _scalar_prior(prior_prec), int(n_leaps),
+                KIND_CODES[kind], *_sched(integrator))
+    return th_o, g_o, lp_o, acc_o
+
+
+def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
+                  generator=None, seed=None, kind="logistic", weights=None,
+                  offsets=None, prior_prec=1.0, integrator="leapfrog"):
+    """``k_trans`` whole HMC transitions per launch, the momenta (Box-Muller)
+    and MH uniforms drawn inside the kernel from Philox4x32-10 keyed by
+    ``seed`` (drawn from ``generator`` when not given) and counted by
+    (chain, transition): one seed repeats a launch bitwise.
+    Returns (theta, grad, lp (C,), accept rate (C,))."""
+    if not _device_branch("glm_multistep", theta):
+        return glm_multistep_ref(XT, Y, theta, eps, k_trans=k_trans,
+                                 n_leaps=n_leaps, generator=generator,
+                                 kind=kind, weights=weights, offsets=offsets,
+                                 prior_prec=prior_prec, integrator=integrator)
+    N, d, C, W, O = _check("glm_multistep", XT, Y, weights, offsets, kind,
+                           {"theta": theta})
+    if seed is None:
+        if generator is None:
+            raise ValueError("glm_multistep needs a generator or a seed")
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device).item())
+    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
+    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    with torch.cuda.device(theta.device):
+        _launch("glm_multistep", _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
+                _ptr(acc_o), float(eps), _scalar_prior(prior_prec),
+                int(n_leaps), int(k_trans), KIND_CODES[kind], int(seed),
+                *_sched(integrator))
+    return th_o, g_o, lp_o, acc_o

@@ -1,0 +1,210 @@
+"""Parallel chain engine (port of ``mcmc_jl_tpu/parallel/pchains.py``).
+
+Replaces the reference's distributed backend — Julia ``pmap`` of whole
+chains over worker processes (reference: src/runners/runners.jl:35-42) —
+with chains on a leading tensor dimension, advanced together by one Python
+loop of batched tensor ops on one device.  Chains are independent, so the
+batch is embarrassingly parallel.  Multi-GPU meshes are ROADMAP queue 1
+item 15.
+
+``run_chains`` is the engine (returns stacked tensors, kept on the device);
+``prun_serialmc`` adapts it to the reference's ``prun`` surface (a list of
+per-task chains) and routes plain-HMC groups on GLM posteriors to the fused
+CUDA kernels (ops/glm_hmc.py).
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..core.chain import MCMCChain
+from ..core.task import MCMCTask
+from ..samplers.base import RunCtx, make_generator, tree_map
+from ..utils.table import Table
+
+#: above this many observations the JAX package switches to its N-tiled
+#: gradient kernel (ops/pallas_glm_bign.py), not ported yet: such groups run
+#: on the generic engine
+BIGN_THRESHOLD = 16384
+
+log = logging.getLogger(__name__)
+
+
+def init_chains(model, sampler, n_chains, generator, inits=None):
+    """Batched sampler state for ``n_chains`` chains.
+
+    ``inits``: (n_chains, size) initial positions; default: model.init
+    broadcast."""
+    if inits is None:
+        inits = model.init.expand(n_chains, model.size).clone()
+    else:
+        inits = torch.as_tensor(inits, dtype=model.dtype, device=model.device)
+    return sampler.init(model, inits, generator)
+
+
+def run_chains(model, sampler, runner, n_chains, generator=None, seed=0,
+               inits=None, states=None):
+    """Run ``n_chains`` identical chains; returns (infos, final_states,
+    generator).
+
+    ``infos`` tensors have shape (steps, n_chains, ...) and stay on the
+    model's device until the caller copies them."""
+    sampler.check(model)
+    if generator is None:
+        generator = make_generator(model.device, seed)
+    if states is None:
+        states = init_chains(model, sampler, n_chains, generator,
+                             inits=inits)
+    ctx = RunCtx(burnin=runner.burnin)
+    rows = {}
+    for _ in range(runner.len):
+        states, info = sampler.step(model, ctx, states, generator)
+        for k, v in info.items():
+            rows.setdefault(k, []).append(v)
+    infos = {k: torch.stack(v) for k, v in rows.items()}
+    return infos, states, generator
+
+
+def _plain_hmc(task):
+    from ..samplers.hmc import HMC
+
+    s = task.sampler
+    return (
+        type(s) is HMC
+        and s.tuner is None
+        and not s.store_leaps
+        and s._kind is None
+        # the kernels implement the whole integrator family
+        and s.integrator in ("leapfrog", "2stage", "3stage")
+    )
+
+
+def _fused_eligible(task):
+    """Plain fixed-step HMC on a model(glm=...) posterior can route to the
+    fused GLM kernels (ops/glm_hmc.py)."""
+    return getattr(task.model, "glm_spec", None) is not None \
+        and _plain_hmc(task)
+
+
+def _kernel_shape_ok(model):
+    """What the ported GLM kernels take: a built-in link, d <= D_MAX and
+    N <= BIGN_THRESHOLD; None when they do, else the reason."""
+    from ..ops.glm_kernels import D_MAX, KIND_CODES
+
+    spec = model.glm_spec
+    if not isinstance(spec.kind, str) or spec.kind not in KIND_CODES:
+        return "a custom (ll, resid) link has no CUDA kernel yet"
+    N, d = spec.X.shape
+    if N > BIGN_THRESHOLD:
+        return (f"N = {N} > {BIGN_THRESHOLD} needs the N-tiled kernel, "
+                f"not ported yet")
+    if d > D_MAX:
+        return f"d = {d} > {D_MAX}, the kernel's bound"
+    return None
+
+
+def _route(t, fused):
+    """Decide before any launch whether a group runs on the fused route.
+
+    ``fused=False``: never.  ``"auto"``: when the model lives on a CUDA
+    device in float32 and the kernels take its shape.  ``True``: whenever
+    the kernels take its shape (on the CPU the wrappers then run their
+    plain versions)."""
+    if fused is False or not _fused_eligible(t):
+        return False
+    m = t.model
+    if fused == "auto" and not (m.device.type == "cuda"
+                                and m.dtype == torch.float32):
+        return False
+    why = _kernel_shape_ok(m)
+    if why is not None:
+        log.info("prun: %s; running the generic torch engine", why)
+        return False
+    return True
+
+
+def prun_serialmc(tasks, seed: int = 0, fused="auto"):
+    """Reference-``prun`` surface: a list of SerialMC tasks -> list of chains.
+
+    Tasks with identical (model, sampler, runner) are batched into one run;
+    heterogeneous lists split into groups.  ``fused``: "auto" (default)
+    routes plain-HMC groups on ``model(glm=...)`` posteriors held in float32
+    on a CUDA device to the fused CUDA kernels; ``True`` forces the fused
+    driver (its plain versions on the CPU, for tests); ``False`` always uses
+    the generic engine.  A kernel that fails to build or launch raises."""
+    t0 = time.time()
+
+    groups = {}
+    for idx, t in enumerate(tasks):
+        sig = (id(t.model), t.sampler, t.runner)
+        groups.setdefault(sig, []).append(idx)
+
+    results = [None] * len(tasks)
+    for gi, (sig, idxs) in enumerate(groups.items()):
+        t = tasks[idxs[0]]
+        n = len(idxs)
+        # one generator per group, derived from (seed, group index)
+        gen = make_generator(t.model.device, seed * 1_000_003 + gi)
+        use_fused = _route(t, fused)
+        if use_fused and fused == "auto":
+            log.info("prun: routing %d plain-HMC chains to the fused CUDA "
+                     "GLM kernels (f32); pass fused=False for the generic "
+                     "engine", n)
+        if use_fused:
+            from ..ops.glm_hmc import fused_hmc_chains
+
+            infos, final_states = fused_hmc_chains(t.model, t.sampler,
+                                                   t.runner, n, gen)
+        else:
+            infos, final_states, _ = run_chains(t.model, t.sampler, t.runner,
+                                                n, generator=gen)
+        _package_group(t, t.runner, idxs, infos, final_states, gen, results,
+                       t0)
+    return results
+
+
+def _package_group(t, runner, idxs, infos, final_states, generator, results,
+                   t0):
+    """Slice kept rows on the device, copy once to the host, and build one
+    MCMCChain per task index.  Each chain's task carries its own slice of
+    the final state and its own generator state for an exact resume."""
+    keep_idx = torch.as_tensor(np.asarray(list(runner.r)) - 1,
+                               device=infos["plogtarget"].device)
+    drop = {"pars", "grads", "logtarget"}
+    host = {k: v[keep_idx].cpu().numpy() for k, v in infos.items()
+            if k not in drop}
+    cn = t.model.column_names()
+    # per-chain continuation streams: seeds drawn from the group's generator,
+    # stored as generator states (one re-seeded generator, no per-chain
+    # device allocation)
+    seeds = torch.randint(0, 2 ** 62, (len(idxs),), generator=generator,
+                          device=generator.device).tolist()
+    g = make_generator(generator.device)
+    steps = np.asarray(list(runner.r))
+    for ci, idx in enumerate(idxs):
+        samples = Table(host["ppars"][:, ci], cn)
+        if "pgrads" in host:
+            gradients = Table(host["pgrads"][:, ci], cn)
+        else:
+            gradients = Table(np.zeros((0, t.model.size)), cn)
+        skip = {"ppars", "pgrads", "plogtarget"}
+        diags = {"step": steps}
+        for k, v in host.items():
+            if k not in skip:
+                diags[k] = v[:, ci]
+        diags["logtarget"] = host["plogtarget"][:, ci]
+        state_i = tree_map(lambda a: a[ci], final_states)
+        g.manual_seed(seeds[ci])
+        new_task = MCMCTask(t.model, t.sampler, runner, state=state_i,
+                            key=g.get_state(), pos=t.pos + runner.len)
+        results[idx] = MCMCChain(
+            range=runner.r,
+            samples=samples,
+            gradients=gradients,
+            diagnostics=diags,
+            task=new_task,
+            run_time=time.time() - t0,
+        )

@@ -1,0 +1,244 @@
+"""The port's GLM kernels (mcmc_jl_tpu_torch/ops/glm_kernels.py) against the
+JAX package's Pallas kernels (mcmc_jl_tpu/ops/pallas_glm.py) run in
+interpret mode on the CPU, on the same numpy inputs and injected noise.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
+kernels themselves are held against those plain versions on the card
+(``test_kernels_match_plain_on_card`` here, and chip_smoke.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_jl_tpu.ops.pallas_glm import (glm_hmc_leapfrogs, glm_hmc_step,
+                                        pad_chains, pad_design)
+from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+torch.set_num_threads(1)
+
+LINKS = ["logistic", "linear", "poisson", "probit"]
+INTEGRATORS = ["leapfrog", "2stage", "3stage"]
+
+
+def _data(kind, n=64, d=5, seed=0):
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([np.ones(n), rng.standard_normal((n, d - 1))])
+    if kind == "poisson":
+        X = X * 0.3
+    beta = rng.standard_normal(d) * 0.5
+    z = X @ beta
+    if kind == "linear":
+        Y = z + rng.standard_normal(n)
+    elif kind == "poisson":
+        Y = rng.poisson(np.exp(z)).astype(np.float64)
+    else:
+        Y = (rng.random(n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def _state(C, d, seed):
+    rng = np.random.default_rng(seed)
+    theta = (0.2 * rng.standard_normal((C, d))).astype(np.float32)
+    m = rng.standard_normal((C, d)).astype(np.float32)
+    return theta, m
+
+
+def _jax_inputs(X, Y, *arrays):
+    XT, Y2, d_pad = pad_design(X, Y)
+    return (XT, Y2) + tuple(pad_chains(jnp.asarray(a, jnp.float32), d_pad)
+                            for a in arrays)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, dtype=np.float32))
+
+
+def _grad_at(XT, Y, theta, **kw):
+    """Port's plain (lp, grad) at theta through an eps=0 trajectory."""
+    _, _, g, lp = gk.glm_leapfrogs_ref(XT, Y, theta, torch.zeros_like(theta),
+                                       torch.zeros_like(theta), 0.0,
+                                       n_leaps=1, **kw)
+    return lp, g
+
+
+def _lp_atol(kind, n):
+    # the JAX kernels use the erf-free log_ndtr (abs err < 4e-6 per
+    # observation); the port uses the exact one
+    return n * 1e-5 if kind == "probit" else 2e-4
+
+
+def _close(a, b, rtol=2e-5, atol=2e-5):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol,
+                               atol=atol)
+
+
+CASES = [(k, i, False) for k in LINKS for i in INTEGRATORS] + [
+    ("logistic", "leapfrog", True)]
+
+
+@pytest.mark.parametrize("kind,integrator,extras", CASES)
+def test_leapfrogs_ref_matches_pallas(kind, integrator, extras):
+    """(a) plain trajectory == Pallas _kernel (interpret) on the same state."""
+    n, d, C, eps, nl = 64, 5, 8, 0.05, 4
+    X, Y = _data(kind, n, d, seed=1)
+    theta, m = _state(C, d, seed=2)
+    kw = {}
+    if extras:
+        rng = np.random.default_rng(3)
+        kw = dict(weights=rng.uniform(0.5, 2.0, n).astype(np.float32),
+                  offsets=(0.2 * rng.standard_normal(n)).astype(np.float32),
+                  prior_prec=2.5)
+    XTt, Yt = _t(X.T), _t(Y)
+    tkw = {k: (_t(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    _, g = _grad_at(XTt, Yt, _t(theta), kind=kind, **tkw)
+
+    XT, Y2, th_p, m_p, g_p = _jax_inputs(X, Y, theta, m, g.numpy())
+    jt, jm, jg, jlp = glm_hmc_leapfrogs(
+        XT, Y2, th_p, m_p, g_p, eps, n_leaps=nl, block_chains=C,
+        interpret=True, kind=kind, integrator=integrator, **kw)
+    pt, pm, pg, plp = gk.glm_leapfrogs(XTt, Yt, _t(theta), _t(m), g, eps,
+                                       n_leaps=nl, kind=kind,
+                                       integrator=integrator, **tkw)
+    _close(pt, np.asarray(jt)[:, :d])
+    _close(pm, np.asarray(jm)[:, :d])
+    _close(pg, np.asarray(jg)[:, :d])
+    _close(plp, jlp, atol=_lp_atol(kind, n))
+
+
+def test_step_ref_matches_pallas():
+    """(b) plain transition == Pallas _step_kernel with the same m0 and
+    logu, on a mix of accepts and rejects."""
+    n, d, C, eps, nl = 72, 5, 16, 0.42, 4
+    X, Y = _data("logistic", n, d, seed=9)
+    theta, m0 = _state(C, d, seed=4)
+    logu = np.log(np.random.default_rng(5).random((C, 1))).astype(np.float32)
+    XTt, Yt = _t(X.T), _t(Y)
+    lp, g = _grad_at(XTt, Yt, _t(theta))
+
+    XT, Y2, th_p, g_p, m_p = _jax_inputs(X, Y, theta, g.numpy(), m0)
+    jt, jg, jlp, jacc = glm_hmc_step(XT, Y2, th_p, g_p,
+                                     jnp.asarray(lp.numpy()[:, None]), m_p,
+                                     jnp.asarray(logu), eps, n_leaps=nl,
+                                     block_chains=C, interpret=True)
+    pt, pg, plp, pacc = gk.glm_step(XTt, Yt, _t(theta), g, lp[:, None],
+                                    _t(m0), _t(logu), eps, n_leaps=nl)
+    acc = np.asarray(jacc)[:, 0] > 0.5
+    assert acc.any() and not acc.all(), "want a mix of accepts and rejects"
+    np.testing.assert_array_equal(pacc.numpy()[:, 0] > 0.5, acc)
+    _close(pt, np.asarray(jt)[:, :d])
+    _close(pg, np.asarray(jg)[:, :d])
+    _close(plp, jlp, atol=2e-4)
+
+
+def test_multistep_ref_matches_successive_pallas_steps():
+    """(c) plain k-transition version with injected noise == k successive
+    Pallas glm_hmc_step calls."""
+    n, d, C, eps, nl, k = 60, 4, 8, 0.3, 3, 4
+    X, Y = _data("logistic", n, d, seed=6)
+    theta, _ = _state(C, d, seed=7)
+    rng = np.random.default_rng(8)
+    z = rng.standard_normal((k, C, d)).astype(np.float32)
+    logu = np.log(rng.random((k, C))).astype(np.float32)
+    XTt, Yt = _t(X.T), _t(Y)
+    lp, g = _grad_at(XTt, Yt, _t(theta))
+
+    XT, Y2, th_p, g_p = _jax_inputs(X, Y, theta, g.numpy())
+    jlp = jnp.asarray(lp.numpy()[:, None])
+    accs = []
+    for t in range(k):
+        th_p, g_p, jlp, jacc = glm_hmc_step(
+            XT, Y2, th_p, g_p, jlp, pad_chains(jnp.asarray(z[t]), XT.shape[0]),
+            jnp.asarray(logu[t][:, None]), eps, n_leaps=nl, block_chains=C,
+            interpret=True)
+        accs.append(np.asarray(jacc)[:, 0])
+    pt, pg, plp, prate = gk.glm_multistep_ref(
+        XTt, Yt, _t(theta), eps, k_trans=k, n_leaps=nl,
+        noise=(_t(z), _t(logu)))
+    rate = np.mean(accs, axis=0)
+    assert 0 < rate.mean() < 1, "want a mix of accepts and rejects"
+    np.testing.assert_allclose(prate.numpy(), rate)
+    _close(pt, np.asarray(th_p)[:, :d])
+    _close(pg, np.asarray(g_p)[:, :d])
+    _close(plp, np.asarray(jlp)[:, 0], atol=2e-4)
+
+
+def test_cpu_wrappers_run_plain_versions():
+    """On CPU tensors every wrapper runs its plain version and launches
+    nothing; the multistep wrapper draws from the generator it is given."""
+    X, Y = _data("logistic", 40, 3, seed=10)
+    theta, m = _state(4, 3, seed=11)
+    XTt, Yt, th = _t(X.T), _t(Y), _t(theta)
+    lp, g = _grad_at(XTt, Yt, th)
+    gk.reset_counts()
+    gk.glm_leapfrogs(XTt, Yt, th, _t(m), g, 0.1, n_leaps=2)
+    gk.glm_step(XTt, Yt, th, g, lp[:, None], _t(m), torch.zeros(4, 1), 0.1,
+                n_leaps=2)
+    gens = [torch.Generator().manual_seed(0) for _ in range(2)]
+    a = gk.glm_multistep(XTt, Yt, th, 0.1, k_trans=3, n_leaps=2,
+                         generator=gens[0])
+    b = gk.glm_multistep(XTt, Yt, th, 0.1, k_trans=3, n_leaps=2,
+                         generator=gens[1])
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert gk.PLAIN_CALLS == {"glm_leapfrogs": 1, "glm_step": 1,
+                              "glm_multistep": 2}
+    assert not any(gk.LAUNCHES.values())
+
+
+def test_wrapper_refuses_other_devices():
+    th = torch.zeros(2, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        gk.glm_leapfrogs(th.T, th[0], th, th, th, 0.1)
+
+
+@pytest.mark.parametrize("bad", ["float64", "noncontig", "wide", "link",
+                                 "shape", "flat", "flat_theta", "column",
+                                 "per_chain"])
+def test_kernel_input_checks(bad):
+    """What the CUDA wrappers refuse, checked before any launch: a state
+    that is not (C, d) would make the kernel read past its end."""
+    N, d, C = 20, 3, 4
+    XT, Y = torch.zeros(d, N), torch.zeros(N)
+    th, m, lp = torch.zeros(C, d), torch.zeros(C, d), torch.zeros(C)
+    kind = "logistic"
+    gk._check("glm_step", XT, Y, None, None, kind, {"theta": th, "m0": m},
+              {"lp": lp})
+    if bad == "float64":
+        th = th.double()
+    elif bad == "noncontig":
+        th = torch.zeros(d, C).T
+    elif bad == "wide":
+        XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
+    elif bad == "link":
+        kind = (lambda z, y: z, lambda z, y: y)
+    elif bad == "shape":
+        th = torch.zeros(C, d + 1)
+    elif bad == "flat":
+        m = torch.zeros(C)
+    elif bad == "flat_theta":
+        th = torch.zeros(C)
+    elif bad == "column":
+        th = torch.zeros(C, 1)
+    else:
+        lp = torch.zeros(C, d)
+    with pytest.raises(ValueError):
+        gk._check("glm_step", XT, Y, None, None, kind, {"theta": th, "m0": m},
+                  {"lp": lp})
+
+
+def test_kernels_match_plain_on_card():
+    """Each CUDA kernel against its plain version on a card (skips without
+    one; chip_smoke.py runs the same checks at the main path's shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    X, Y = _data("logistic", 300, 6, seed=12)
+    theta, m = _state(300, 6, seed=13)
+    cu = lambda a: _t(a).cuda()  # noqa: E731
+    XT, Yc, th, mm = cu(X.T), cu(Y), cu(theta), cu(m)
+    lp, g = _grad_at(XT, Yc, th)
+    for a, b in zip(gk.glm_leapfrogs(XT, Yc, th, mm, g, 0.05, n_leaps=5),
+                    gk.glm_leapfrogs_ref(XT, Yc, th, mm, g, 0.05, n_leaps=5)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    r1 = gk.glm_multistep(XT, Yc, th, 0.05, k_trans=5, n_leaps=5, seed=1)
+    r2 = gk.glm_multistep(XT, Yc, th, 0.05, k_trans=5, n_leaps=5, seed=1)
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
