@@ -1,14 +1,17 @@
 """GPU smoke run of the PyTorch/CUDA port (``mcmc_jl_tpu_torch``).
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the main path —
-Bayesian logistic regression (d = 10, N = 1000) sampled by ``HMC(10, 0.05)``
-under ``SerialMC`` across 4096 chains through ``run(..., chains=N)`` — checks
-it against the generic engine, runs the step and multi-transition kernels
-through their drivers, times the drivers at bench.py's shape, and prints one
-JSON line per phase.  The last three lines are the kernels' report (with
-each kernel's launches counted from zero over the one run that reaches it),
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
+source, started together), holds each kernel against its plain PyTorch
+version on the card, drives the main paths on Bayesian logistic regression
+(d = 10, N = 1000) across 4096 chains through ``run(..., chains=N)`` —
+``HMC(10, 0.05)`` under ``SerialMC``, checked against the generic engine,
+and exact ``NUTS(maxdoublings=6)`` (warmup on the generic engine, sampling
+through the NUTS kernels), checked against the HMC path — runs the HMC step
+and multi-transition kernels through their drivers, times the drivers, and
+prints one JSON line per phase.  The last three lines are the kernels'
+report (with each kernel's launches counted from zero over the one run that
+reaches it), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 
 Run with no arguments on a machine with one CUDA card::
 
@@ -16,18 +19,24 @@ Run with no arguments on a machine with one CUDA card::
 
 It exits non-zero without a CUDA device, and on any failed check.
 """
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-SOURCE = "mcmc_jl_tpu_torch/csrc/glm_hmc.cu"
+SOURCES = {"glm_hmc": "mcmc_jl_tpu_torch/csrc/glm_hmc.cu",
+           "glm_nuts": "mcmc_jl_tpu_torch/csrc/glm_nuts.cu"}
+# kernel -> (library, the Pallas kernel it replaces)
 REPLACES = {
-    "glm_leapfrogs": "mcmc_jl_tpu/ops/pallas_glm.py:244",
-    "glm_step": "mcmc_jl_tpu/ops/pallas_glm.py:282",
-    "glm_multistep": "mcmc_jl_tpu/ops/pallas_glm.py:344",
+    "glm_leapfrogs": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
+    "glm_step": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:282"),
+    "glm_multistep": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_nuts_transition": ("glm_nuts", "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep": ("glm_nuts", "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -46,6 +55,17 @@ ACC_BAND = 1e-4
 STEP_EPS = 0.12
 # statistical agreement, in Monte Carlo standard errors
 Z_MAX = 5.0
+# NUTS kernel vs plain version on the same pre-drawn noise: a slice, u-turn
+# or reservoir decision within float32 rounding of a tie may go the other
+# way (the kernel sums lp in double and the dot products in another order),
+# so at least this share of chains must take the same discrete path: equal
+# ndoublings and diverging, and the same chosen leaf (theta within
+# LEAF_ATOL; neighbouring leaves lie eps |m| ~ 1e-2 or more apart)
+PATH_AGREE = 0.995
+LEAF_ATOL = 1e-3
+# multistep NUTS kernel check: mean tree depth of the kernel and of its plain
+# version (or the per-transition driver) within this fraction of each other
+DEPTH_RTOL = 0.05
 
 CARD = {}
 
@@ -84,17 +104,33 @@ def phase_device():
 
 
 def phase_build():
-    from mcmc_jl_tpu_torch.ops import cuda_build
-    from mcmc_jl_tpu_torch.ops.glm_kernels import load_kernels
+    """Both libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mcmc_jl_tpu_torch.ops import cuda_build, glm_kernels, nuts_kernels
 
     t0 = time.perf_counter()
-    path, report = cuda_build.build("glm_hmc")
-    load_kernels()
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(path.relative_to(cuda_build.BUILD_ROOT.parent.parent)),
-          "ptxas": ptxas})
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
+    glm_kernels.load_kernels()
+    nuts_kernels.load_kernels()
+    for name, (path, report) in built.items():
+        ptxas, entry = [], "?"
+        for ln in report.splitlines():
+            # mangled '...<len><name>ILi<D>E...' -> name<D>
+            hit = re.search(r"Compiling entry function .*?\d+((?:[a-z]+_)+"
+                            r"kernel)ILi(\d+)E", ln)
+            if hit:
+                entry = f"{hit.group(1)}<{hit.group(2)}>"
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(f"{entry}: {ln.strip()}")
+        emit({"phase": "build", "source": SOURCES[name],
+              "seconds": time.perf_counter() - t0,
+              "library": str(path.relative_to(
+                  cuda_build.BUILD_ROOT.parent.parent)), "ptxas": ptxas})
+        for ln in ptxas:
+            if "spill" in ln:
+                print(f"ptxas {name} {ln}", flush=True)
 
 
 def _err(a, b):
@@ -222,10 +258,10 @@ def phase_kernels(C=4096, eps=0.05, n_leaps=10):
     # statistical agreement, and bitwise repeat for one seed
     k = 200
     gen = torch.Generator(device="cuda").manual_seed(3)
-    res_k = gk.glm_multistep(XT, Y, theta, eps, k_trans=k, n_leaps=n_leaps,
-                             seed=12345)
-    res_k2 = gk.glm_multistep(XT, Y, theta, eps, k_trans=k, n_leaps=n_leaps,
-                              seed=12345)
+    res_k, res_k2 = (gk.glm_multistep(
+        XT, Y, theta, eps, k_trans=k, n_leaps=n_leaps,
+        generator=torch.Generator(device="cuda").manual_seed(12345))
+        for _ in range(2))
     res_r = gk.glm_multistep_ref(XT, Y, theta, eps, k_trans=k,
                                  n_leaps=n_leaps, generator=gen)
     torch.cuda.synchronize()
@@ -258,12 +294,15 @@ def _counted(fn):
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 
     gk.reset_counts()
+    nk.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = dict(gk.LAUNCHES)
-    assert not any(gk.PLAIN_CALLS.values()), gk.PLAIN_CALLS
+    launches = {**gk.LAUNCHES, **nk.LAUNCHES}
+    plain = {**gk.PLAIN_CALLS, **nk.PLAIN_CALLS}
+    assert not any(plain.values()), plain
     return out, launches
 
 
@@ -281,8 +320,8 @@ def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
     cs, launches = _counted(lambda: mt.run(task, chains=chains, seed=0))
     dt = time.perf_counter() - t0
     rose = launches["glm_leapfrogs"]
-    assert launches == {"glm_leapfrogs": steps, "glm_step": 0,
-                        "glm_multistep": 0}, launches
+    assert launches == {**{k: 0 for k in launches},
+                        "glm_leapfrogs": steps}, launches
     assert len(cs) == chains
     samples = np.stack([c.samples.values for c in cs])  # (chains, kept, d)
     assert samples.shape == (chains, steps - burnin, m.size)
@@ -446,6 +485,7 @@ def phase_kernel_times(C=65536, n_leaps=10, eps=0.05, k_trans=200):
 
     XT, Yc, theta, m0, logu, lp, g = _inputs(C, seed=4)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    gen_k = torch.Generator(device="cuda").manual_seed(7)
     calls = {
         "glm_leapfrogs": (
             lambda: gk.glm_leapfrogs(XT, Yc, theta, m0, g, eps, n_leaps=n_leaps),
@@ -458,7 +498,7 @@ def phase_kernel_times(C=65536, n_leaps=10, eps=0.05, k_trans=200):
                                     n_leaps=n_leaps)),
         "glm_multistep": (
             lambda: gk.glm_multistep(XT, Yc, theta, eps, k_trans=k_trans,
-                                     n_leaps=n_leaps, seed=7),
+                                     n_leaps=n_leaps, generator=gen_k),
             lambda: gk.glm_multistep_ref(XT, Yc, theta, eps, k_trans=k_trans,
                                          n_leaps=n_leaps, generator=gen)),
     }
@@ -471,26 +511,394 @@ def phase_kernel_times(C=65536, n_leaps=10, eps=0.05, k_trans=200):
     return ms
 
 
+def _logistic_mode(X, Y, W=None, O=None, lam=1.0, iters=30):
+    """Posterior mode of a weighted, offset logistic GLM by Newton steps, so
+    that the kernel checks start where the chains sample."""
+    W = np.ones(len(Y)) if W is None else W
+    O = np.zeros(len(Y)) if O is None else O
+    b = np.zeros(X.shape[1])
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-(X @ b + O)))
+        g = X.T @ (W * (Y - p)) - lam * b
+        H = X.T @ (X * (W * p * (1 - p))[:, None]) + lam * np.eye(len(b))
+        b = b + np.linalg.solve(H, g)
+    return b
+
+
+def _laplace_scale(X, Y, lam=1.0):
+    """Posterior standard deviations of a logistic GLM from the Laplace
+    approximation at the mode: the scales ``s`` that the diagonal-metric
+    route folds into the design (``X s``, prior row ``lam s^2``)."""
+    b = _logistic_mode(X, Y, lam=lam)
+    p = 1.0 / (1.0 + np.exp(-X @ b))
+    H = X.T @ (X * (p * (1 - p))[:, None]) + lam * np.eye(len(b))
+    return np.sqrt(np.diag(np.linalg.inv(H)))
+
+
+def _nuts_inputs(C, md, seed, X, Y, W=None, O=None, lam=1.0, spread=0.05):
+    """A NUTS transition's inputs on the card: chains near the posterior
+    mode and one transition's pre-drawn noise, from numpy seed ``seed``."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
+
+    rng = np.random.default_rng(seed)
+    d = X.shape[1]
+    cuda = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        a, dtype=torch.float32, device="cuda").contiguous()
+    lam_t = cuda(lam) if np.ndim(lam) else float(lam)
+    theta = _logistic_mode(X, Y, W, O, lam) + spread * rng.standard_normal((C, d))
+    XT, Yc, Wc, Oc, th = cuda(X.T), cuda(Y), cuda(W), cuda(O), cuda(theta)
+    lp, g = glm_funcs(XT, Yc, Wc, Oc, lam_t, "logistic")[1](th)
+    noise = (rng.standard_normal((C, d)), np.log(rng.random(C)),
+             np.where(rng.random((C, md)) < 0.5, 1.0, -1.0),
+             rng.random((C, md)), rng.random((C, 1 << md)))
+    args = (XT, Yc, th, lp.contiguous(), g.contiguous())
+    kw = dict(maxdoublings=md, weights=Wc, offsets=Oc, prior_prec=lam_t)
+    return args, tuple(cuda(a) for a in noise), kw
+
+
+def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
+    """The transition kernel against its plain version on the same inputs;
+    ``full_depth``: some chain must build a tree of all maxdoublings
+    doublings (the deepest checkpoint slots and span checks).  Returns the
+    max abs error of theta on the chains on the same path."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    out_k = nk.glm_nuts_transition(*args, eps, *noise, **kw)
+    out_r = nk.glm_nuts_transition_ref(*args, eps, *noise, **kw)
+    torch.cuda.synchronize()
+    (thk, gk_, lpk, ndk, dvk), (thr, gr, lpr, ndr, dvr) = out_k, out_r
+    same = ((ndk == ndr) & (dvk == dvr)
+            & ((thk - thr).abs().amax(-1) <= LEAF_ATOL))
+    C = thk.shape[0]
+    rep = {n: _err(a[same], b[same]) for n, a, b in
+           zip(("theta", "g", "lp"), (thk, gk_, lpk), (thr, gr, lpr))}
+    md = kw["maxdoublings"]
+    ok = (float(same.float().mean()) >= PATH_AGREE
+          and (not full_depth or int(ndr.max()) == md)
+          and _close(thk[same], thr[same], RTOL, ATOL)
+          and _close(gk_[same], gr[same], RTOL, G_ATOL * scale)
+          and _close(lpk[same], lpr[same], LP_RTOL, LP_ATOL * scale))
+    emit({"phase": "kernel", "name": "glm_nuts_transition", "case": label,
+          "C": C, "eps": eps, "ok": ok, "path_differ": int(C - same.sum()),
+          "mean_ndoublings": float(ndr.float().mean()),
+          "chains_at_maxdoublings": int((ndr == md).sum()),
+          "diverging": int(dvr.sum()), **rep})
+    assert ok, f"glm_nuts_transition ({label}) disagrees with its plain version"
+    return rep["theta"]["max_abs"]
+
+
+def phase_nuts_kernels(C=4096, md=6):
+    """Both NUTS kernels against their plain versions on the card."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    X, Y = bench_data()
+    err = 0.0
+    for label, multinomial, eps in (
+            ("slice", False, 0.05), ("slice", False, 0.2),
+            ("multinomial", True, 0.05), ("multinomial", True, 0.2)):
+        args, noise, kw = _nuts_inputs(C, md, 21, X, Y)
+        err = max(err, _nuts_check(f"{label}, eps {eps}", args, noise, eps,
+                                   dict(kw, multinomial=multinomial)))
+    # deep trees, up to maxdoublings: at eps 0.01 (the posterior sds are
+    # about 0.09), and on the diagonal-metric route's folded inputs (design
+    # X s, (d,) prior row lam s^2, chains in z = theta / s) at eps 0.1
+    args, noise, kw = _nuts_inputs(C, md, 24, X, Y)
+    err = max(err, _nuts_check("slice, eps 0.01", args, noise, 0.01,
+                               dict(kw, multinomial=False), full_depth=True))
+    s = _laplace_scale(X, Y)
+    for multinomial in (False, True):
+        args, noise, kw = _nuts_inputs(C, md, 25, X * s, Y, lam=s * s,
+                                       spread=0.5)
+        err = max(err, _nuts_check(
+            f"{'multinomial' if multinomial else 'slice'}, folded diagonal "
+            f"metric (X s, (d,) prior row), eps 0.1", args, noise, 0.1,
+            dict(kw, multinomial=multinomial), full_depth=True))
+
+    # rows streamed through shared memory (N = 5000 past the budget: the
+    # lockstep path), a ragged last block (C = 300), weights and offsets
+    rng = np.random.default_rng(6)
+    N, d7 = 5000, 7
+    X7 = np.column_stack([np.ones(N), rng.standard_normal((N, d7 - 1))]) * 0.3
+    Y7 = (rng.random(N) < 1 / (1 + np.exp(-X7 @ rng.standard_normal(d7)))
+          ).astype(float)
+    W7, O7 = rng.uniform(0.5, 2.0, N), 0.1 * rng.standard_normal(N)
+    for multinomial in (False, True):
+        args, noise, kw = _nuts_inputs(300, md, 22, X7, Y7, W7, O7, lam=1.5)
+        err = max(err, _nuts_check(
+            f"N 5000 streamed, C 300, d 7, weights+offsets, "
+            f"{'multinomial' if multinomial else 'slice'}", args, noise, 0.03,
+            dict(kw, multinomial=multinomial), scale=N / 1000))
+
+    # multistep: bitwise repeat from one generator state; then held against
+    # its plain version from the same start, K transitions each (Philox
+    # streams in the kernel, torch.Generator streams in the plain version):
+    # final states of independent chains, per-chain accept rates and the
+    # mean tree depth; and, as an extra check, against the per-transition
+    # driver the same way
+    args, _, kw = _nuts_inputs(C, md, 23, X, Y)
+    XT, Yc, th, lp, g = args
+    eps, K, kt = 0.05, 64, 8
+    r1, r2 = (nk.glm_nuts_multistep(
+        *args, eps, torch.Generator(device="cuda").manual_seed(12345),
+        k_trans=kt, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    bitwise = (all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
+               and all(torch.equal(r1[3][k], r2[3][k]) for k in r1[3]))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    drv = dict(steps=K, maxdoublings=md)
+    (th_ms, _, _), inf_ms = nk._nuts_run_hw(XT, Yc, th, eps, gen, k_trans=kt,
+                                            **drv)
+    th_pl, _, _, inf_pl = nk.glm_nuts_multistep_ref(*args, eps, gen,
+                                                    k_trans=K, **kw)
+    (th_pt, _, _), inf_pt = nk._nuts_run(XT, Yc, th, eps, gen, **drv)
+    torch.cuda.synchronize()
+
+    def z(a, b):  # per-chain values a, b -> max |mean difference| / se
+        se = torch.sqrt(a.var(0) / a.shape[0] + b.var(0) / b.shape[0])
+        return float(((a.mean(0) - b.mean(0)).abs() / se.clamp_min(1e-12))
+                     .max())
+
+    def depth(inf):
+        return float(inf["ndoublings"].float().mean())
+
+    acc = {n: inf["accept"].float().mean(0)
+           for n, inf in (("kernel", inf_ms), ("plain", inf_pl))}
+    rep = {"z_theta_max": z(th_ms, th_pl),
+           "z_accept": z(acc["kernel"], acc["plain"]),
+           "accept_rate": float(acc["kernel"].mean()),
+           "accept_rate_plain": float(acc["plain"].mean()),
+           "mean_ndoublings": depth(inf_ms),
+           "mean_ndoublings_plain": depth(inf_pl),
+           "diverging": int(inf_ms["diverging"].sum()),
+           "diverging_plain": int(inf_pl["diverging"].sum()),
+           "z_theta_max_vs_per_transition": z(th_ms, th_pt),
+           "mean_ndoublings_per_transition": depth(inf_pt)}
+    ms_err = float((th_ms.mean(0) - th_pl.mean(0)).abs().max())
+    ok = (bitwise and rep["z_theta_max"] < Z_MAX and rep["z_accept"] < Z_MAX
+          and abs(depth(inf_ms) / depth(inf_pl) - 1) < DEPTH_RTOL
+          and rep["z_theta_max_vs_per_transition"] < Z_MAX
+          and abs(depth(inf_ms) / depth(inf_pt) - 1) < DEPTH_RTOL
+          and bool(torch.isfinite(inf_ms["plogtarget"]).all()))
+    emit({"phase": "kernel", "name": "glm_nuts_multistep", "C": C,
+          "k_trans": kt, "transitions": K, "ok": ok, "bitwise_repeat": bitwise,
+          **rep, "pooled_theta_max_abs_diff": ms_err})
+    assert ok, "glm_nuts_multistep disagrees with glm_nuts_multistep_ref"
+    return {"glm_nuts_transition": err, "glm_nuts_multistep": ms_err}
+
+
+@contextlib.contextmanager
+def _spans():
+    """Host seconds (to a synchronize) of the warm route's phases inside a
+    ``run``: warmup on the generic engine, the kernels' sampling phase, and
+    packaging into chains.  Wraps the module functions for the duration."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels, warmstart
+    from mcmc_jl_tpu_torch.parallel import pchains
+
+    spans, saved = {}, []
+    for mod, fn, label in ((warmstart, "_warmup", "warmup"),
+                           (nuts_kernels, "_nuts_run_hw", "sampling"),
+                           (nuts_kernels, "_nuts_run", "sampling"),
+                           (pchains, "_package_group", "packaging")):
+        orig = getattr(mod, fn)
+
+        def timed(*a, _orig=orig, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*a, **k)
+            torch.cuda.synchronize()
+            spans[_label] = spans.get(_label, 0.0) + time.perf_counter() - t0
+            return out
+
+        saved.append((mod, fn, orig))
+        setattr(mod, fn, timed)
+    try:
+        yield spans
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def phase_nuts_main_path(hmc_final, hmc_steps=2000):
+    """Exact NUTS through ``run``: the multistep kernel serves
+    SerialMC(1500, 500) (1000 = 125 launches of 8), the per-transition
+    kernel the diagonal-metric run with SerialMC(1497, 500) (997 is prime).
+
+    Each run's per-chain means must agree with the HMC main path's.  That
+    path's kept draws still carry the transient of its start at 0 (chain
+    0's autocorrelation times reach 190 of 1000 transitions), so it is
+    continued from its final states ``hmc_final`` (chains, d) for
+    ``hmc_steps`` more transitions, whose per-chain means are the reference.
+    Returns the kernels' launches and what the timing phase starts from."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_hmc import _run
+    from mcmc_jl_tpu_torch.samplers.base import tree_map
+
+    chains = len(hmc_final)
+    X, Y = bench_data()
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    spec = m.glm_spec
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    _, hmc = _run(spec.X.T.contiguous(), spec.Y,
+                  torch.as_tensor(hmc_final, device="cuda").contiguous(), 0.05,
+                  gen, steps=hmc_steps, n_leaps=10, collect=True)
+    hmc_means = hmc["ppars"].mean(0).double().cpu().numpy()
+    del hmc
+    runs = {
+        "glm_nuts_multistep": (mt.NUTS(maxdoublings=6), 1500, 125),
+        "glm_nuts_transition": (mt.NUTS(maxdoublings=6, mass_adapt="diag"),
+                                1497, 997),
+    }
+    counts, start = {}, None
+    for name, (sampler, steps, want) in runs.items():
+        origin = (f"run(model(glm=...) * {sampler!r} * SerialMC(steps={steps},"
+                  f" burnin=500), chains={chains})")
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=500)
+        t0 = time.perf_counter()
+        with _spans() as spans:
+            cs, launches = _counted(lambda: mt.run(task, chains=chains,
+                                                   seed=0))
+        dt = time.perf_counter() - t0
+        assert launches == {**{k: 0 for k in launches}, name: want}, launches
+        samples = np.stack([c.samples.values for c in cs])
+        assert samples.shape == (chains, steps - 500, m.size)
+        assert np.all(np.isfinite(samples))
+        dg = {k: np.stack([c.diagnostics[k] for c in cs])
+              for k in ("accept", "ndoublings", "diverging", "epsilon")}
+        eps = float(dg["epsilon"][0, 0])
+        assert np.all(dg["epsilon"] == eps), "eps not frozen after burn-in"
+        nm = samples.mean(axis=1)
+        z = (np.abs(nm.mean(0) - hmc_means.mean(0))
+             / np.sqrt(nm.var(0) / chains + hmc_means.var(0) / chains))
+        ok = bool(np.all(z < Z_MAX))
+        emit({"phase": "nuts_main_path", "kernel": name, "from": origin,
+              "chains": chains, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_eps": eps, "accept_rate": float(dg["accept"].mean()),
+              "mean_ndoublings": float(dg["ndoublings"].mean()),
+              "diverging_share": float(dg["diverging"].mean()),
+              "pooled_mean": nm.mean(0).tolist(),
+              "hmc_pooled_mean": hmc_means.mean(0).tolist(),
+              "z_max_vs_hmc_main_path": float(z.max()), "ok": ok, **CARD})
+        assert ok, f"{origin} disagrees with the HMC main path"
+        counts[name] = (launches[name], origin)
+        if start is None:  # the unit-metric run's end: timing starts there
+            c1 = mt.resume(cs[0], steps=50)  # one chain, generic engine
+            assert c1.samples.values.shape == (50, m.size)
+            assert np.all(np.isfinite(c1.samples.values))
+            states = tree_map(lambda *xs: torch.stack(xs),
+                              *[c.task.state for c in cs])
+            start = {"model": m, "sampler": sampler, "eps": eps,
+                     "states": states}
+    return counts, start
+
+
+def phase_nuts_timing(start, md=6, k_trans=8,
+                      sizes=((4096, 200), (65536, 40))):
+    """Sampling-phase rates of the NUTS drivers at the frozen step, from the
+    main path's final states (tiled to each (chains, transitions) of
+    ``sizes``): transitions/s, and gradient evaluations/s
+    bounded by the tree depths (a transition of depth n evaluates between
+    2^(n-1) and 2^n - 1 leaves).  Then each kernel's per-launch time beside
+    its plain version's.  Returns {kernel: (ms, plain ms)}."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.parallel.pchains import _scan_chains
+    from mcmc_jl_tpu_torch.samplers.base import RunCtx
+
+    m, sampler, eps = start["model"], start["sampler"], start["eps"]
+    states = start["states"]
+    XT = m.glm_spec.X.T.contiguous()
+    Y = m.glm_spec.Y
+    th4 = states.pars.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rate(driver, C, steps, fn):
+        last = {}
+        ms = _event_ms(lambda: last.update(out=fn()))
+        nd = last["out"][1]["ndoublings"].double()
+        sec = ms / 1e3
+        emit({"phase": "nuts_timing", "driver": driver, "C": C,
+              "transitions": steps, "seconds": sec,
+              "transitions_per_s": C * steps / sec,
+              "mean_ndoublings": float(nd.mean()),
+              "grad_evals_per_s_min": float((2.0 ** (nd - 1)).sum()) / sec,
+              "grad_evals_per_s_max": float((2.0 ** nd - 1).sum()) / sec,
+              **CARD})
+
+    for C, steps in sizes:
+        th = th4.repeat(C // th4.shape[0], 1)
+        kw = dict(steps=steps, maxdoublings=md)
+        rate("multistep", C, steps, lambda: nk._nuts_run_hw(
+            XT, Y, th, eps, gen, k_trans=k_trans, **kw))
+        rate("per-transition", C, steps, lambda: nk._nuts_run(
+            XT, Y, th, eps, gen, **kw))
+    lp, g = states.logtarget.contiguous(), states.grad.contiguous()
+    rate("plain glm_nuts_multistep_ref", th4.shape[0], k_trans, lambda: (
+        None, nk.glm_nuts_multistep_ref(XT, Y, th4, lp, g, eps, gen,
+                                        k_trans=k_trans, maxdoublings=md)[3]))
+    rate("generic engine", th4.shape[0], k_trans, lambda: _scan_chains(
+        m, sampler, RunCtx(burnin=0), states, gen, k_trans))
+
+    noise = nk.draw_noise(th4.shape[0], th4.shape[1], md, gen)
+    calls = {
+        "glm_nuts_transition": (
+            lambda: nk.glm_nuts_transition(XT, Y, th4, lp, g, eps, *noise,
+                                           maxdoublings=md),
+            lambda: nk.glm_nuts_transition_ref(XT, Y, th4, lp, g, eps, *noise,
+                                               maxdoublings=md)),
+        "glm_nuts_multistep": (
+            lambda: nk.glm_nuts_multistep(XT, Y, th4, lp, g, eps, gen,
+                                          k_trans=k_trans, maxdoublings=md),
+            lambda: nk.glm_nuts_multistep_ref(XT, Y, th4, lp, g, eps, gen,
+                                              k_trans=k_trans,
+                                              maxdoublings=md)),
+    }
+    ms = {}
+    for name, (kern, plain) in calls.items():
+        ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
+        emit({"phase": "kernel_time", "name": name, "C": th4.shape[0],
+              "k_trans": k_trans if name == "glm_nuts_multistep" else 1,
+              "ms": ms[name][0], "plain_ms": ms[name][1], **CARD})
+
+    return ms
+
+
 def main():
     phase_device()
     import torch
 
     phase_build()
     errors = phase_kernels()
+    errors.update(phase_nuts_kernels())
     # each kernel's launches, counted from zero over one run of the entry
-    # point that reaches it: run(..., chains=N) for the trajectory kernel,
-    # the bench drivers for the other two
+    # point that reaches it: run(..., chains=N) for the trajectory kernel and
+    # the two NUTS kernels, the bench drivers for the other two
     launches, final = phase_main_path()
     launches.update(phase_drivers(final))
+    nuts_launches, start = phase_nuts_main_path(final)
+    launches.update(nuts_launches)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     phase_timing()
     ms = phase_kernel_times()
+    ms.update(phase_nuts_timing(start))
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name][0],
+        {"name": name, "route": "cuda", "source": SOURCES[lib],
+         "replaces": replaces, "launches": launches[name][0],
          "from": launches[name][1], "max_abs_err": errors[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]} for name in REPLACES]})
+         "ms": ms[name][0], "plain_ms": ms[name][1]}
+        for name, (lib, replaces) in REPLACES.items()]})
     print(CARD["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": CARD["kind"],
                                  "count": CARD["count"]}})

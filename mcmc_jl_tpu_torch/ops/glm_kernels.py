@@ -379,12 +379,12 @@ def glm_step(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
 
 
 def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
-                  generator=None, seed=None, kind="logistic", weights=None,
+                  generator=None, kind="logistic", weights=None,
                   offsets=None, prior_prec=1.0, integrator="leapfrog"):
     """``k_trans`` whole HMC transitions per launch, the momenta (Box-Muller)
-    and MH uniforms drawn inside the kernel from Philox4x32-10 keyed by
-    ``seed`` (drawn from ``generator`` when not given) and counted by
-    (chain, transition): one seed repeats a launch bitwise.
+    and MH uniforms drawn inside the kernel from Philox4x32-10 keyed by a
+    seed drawn from ``generator`` and counted by (chain, transition): a
+    generator in the same state repeats a launch bitwise.
     Returns (theta, grad, lp (C,), accept rate (C,))."""
     if not _device_branch("glm_multistep", theta):
         return glm_multistep_ref(XT, Y, theta, eps, k_trans=k_trans,
@@ -393,11 +393,8 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
                                  prior_prec=prior_prec, integrator=integrator)
     N, d, C, W, O = _check("glm_multistep", XT, Y, weights, offsets, kind,
                            {"theta": theta})
-    if seed is None:
-        if generator is None:
-            raise ValueError("glm_multistep needs a generator or a seed")
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                 device=generator.device).item())
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)

@@ -1,0 +1,429 @@
+"""Fused exact-NUTS kernels for GLM posteriors: the port of
+``mcmc_jl_tpu/ops/pallas_nuts.py`` (GLM mode).
+
+Two kernels, written in CUDA C++ for Hopper in ``csrc/glm_nuts.cu``, replace
+the two Pallas kernel bodies:
+
+===============================  ==========================================
+wrapper (this module)            Pallas kernel it replaces
+===============================  ==========================================
+:func:`glm_nuts_transition`      ``pallas_nuts.py _nuts_kernel`` (one exact
+                                 NUTS transition, all noise pre-drawn)
+:func:`glm_nuts_multistep`       ``pallas_nuts.py _nuts_ms_kernel`` (k
+                                 transitions, noise drawn inside)
+===============================  ==========================================
+
+Each has a plain PyTorch version beside it (``*_ref``): batched tensor ops
+over all chains with per-chain masks, on the same pre-drawn buffers.  A
+wrapper runs the plain version only for tensors on the CPU; for CUDA tensors
+it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``, each call of a plain version one to
+``PLAIN_CALLS[name]``.
+
+Layouts follow the JAX package minus its TPU padding: chain states are
+(C, d); the directions and merge uniforms are (C, maxdoublings); the leaf
+uniforms are (C, 2^maxdoublings), column ``(1 << j) - 1 + k`` for leaf k of
+doubling j.  The prior precision is a scalar or a (d,) row (the diagonal
+metric fold of the warm-start pipeline).  The drivers :func:`_nuts_run` and
+:func:`_nuts_run_hw` return the NUTS info protocol (``ppars``, ``pgrads``,
+``plogtarget``, ``accept``, ``epsilon``, ``ndoublings``, ``diverging``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..samplers.base import _where
+from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
+from .glm_kernels import (KIND_CODES, _check, _device_branch, _ptr, _row,
+                          glm_funcs)
+
+#: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
+#: buffer has 2^maxdoublings columns per chain
+MAX_DOUBLINGS = 10
+
+LAUNCHES = {"glm_nuts_transition": 0, "glm_nuts_multistep": 0}
+PLAIN_CALLS = {"glm_nuts_transition": 0, "glm_nuts_multistep": 0}
+
+
+def reset_counts():
+    """Zero the launch and plain-call counters."""
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _prior(prior_prec):
+    """A scalar float or a (d,) tensor; a (d, d) matrix is the dense fold."""
+    if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() > 1:
+        if prior_prec.ndim == 2 and min(prior_prec.shape) > 1:
+            raise NotImplementedError(
+                "a (d, d) prior precision (the dense-metric fold) is not "
+                "ported yet (ROADMAP queue 1 item 9)")
+        return prior_prec.reshape(-1)
+    return float(prior_prec)
+
+
+def _check_md(maxdoublings):
+    if not 1 <= maxdoublings <= MAX_DOUBLINGS:
+        raise ValueError(f"maxdoublings = {maxdoublings} outside the "
+                         f"kernels' 1..{MAX_DOUBLINGS}")
+    return int(maxdoublings)
+
+
+# ---- plain PyTorch versions ----------------------------------------------
+
+
+def _transition(logp_grad, theta, lp, grad, eps, m0, logu, dirn, merge_u,
+                leaf_u, md, multinomial):
+    """One exact NUTS transition for all chains in lockstep, the Pallas
+    kernel's algorithm: per-chain masks ``s`` (trajectory running) and
+    ``ok`` (subtree running) hold the stopped chains.
+    Returns (theta, grad, lp, ndoublings, diverging)."""
+    C, d = theta.shape
+    dt, dev = theta.dtype, theta.device
+    H0 = -lp + 0.5 * _dot(m0, m0)
+    u_slice = -H0 if multinomial else logu - H0  # NUTS.jl:141
+    minus = plus = (theta, m0, grad, lp)
+    prop = (theta, grad, lp)
+    s = torch.ones(C, dtype=torch.bool, device=dev)
+    ntot = torch.ones(C, dtype=dt, device=dev)  # n: the initial point
+    lwtot = torch.zeros(C, dtype=dt, device=dev)  # lw: exp(H0 - H0)
+    nd = torch.zeros(C, dtype=torch.int32, device=dev)
+    dv = torch.zeros(C, dtype=torch.bool, device=dev)
+
+    for j in range(md):
+        if not bool(s.any()):
+            break
+        dirn_j = dirn[:, j]
+        go = dirn_j > 0
+        wp, wm, wg, wlp = (_where(go, a, b) for a, b in zip(plus, minus))
+        sp = (wp, wg, wlp)  # proposal seed: the first valid leaf always takes
+        n1 = torch.zeros(C, dtype=dt, device=dev)
+        lw1 = torch.full((C,), -math.inf, dtype=dt, device=dev)
+        ok = s.clone()
+        sdv = torch.zeros(C, dtype=torch.bool, device=dev)
+        ck_p = torch.zeros((C, md, d), dtype=dt, device=dev)
+        ck_m = torch.zeros((C, md, d), dtype=dt, device=dev)
+        esw = (dirn_j * eps)[:, None]
+
+        for k in range(1 << j):
+            if not bool(ok.any()):
+                break
+            run = ok
+            tm = wm + 0.5 * esw * wg
+            tp = wp + esw * tm
+            tlp, tg = logp_grad(tp)
+            tm = tm + 0.5 * esw * tg
+            wp, wm, wg, wlp = (_where(run, a, b) for a, b in
+                               zip((tp, tm, tg, tlp), (wp, wm, wg, wlp)))
+            H = -wlp + 0.5 * _dot(wm, wm)
+            H = torch.where(torch.isnan(H), math.inf, H)
+            diverged = u_slice >= DELTAMAX - H  # NUTS.jl:92
+            u_leaf = leaf_u[:, (1 << j) - 1 + k]
+            if multinomial:
+                lw_leaf = torch.where(diverged, -math.inf, H0 - H)
+                lw_new = torch.logaddexp(lw1, lw_leaf)
+                take = run & ~diverged & (torch.log(u_leaf) < lw_leaf - lw_new)
+                lw1 = torch.where(run, lw_new, lw1)
+                n1 = n1 + (run & ~diverged).to(dt)
+            else:
+                valid = u_slice <= -H  # NUTS.jl:91
+                nf = n1 + valid.to(dt)
+                take = run & valid & (u_leaf * nf < 1.0)
+                n1 = torch.where(run, nf, n1)
+            sp = tuple(_where(take, a, b) for a, b in zip((wp, wg, wlp), sp))
+            sdv = sdv | (run & diverged)
+            ok = ok & ~diverged
+            if k % 2 == 0:  # checkpoint store at slot popcount(k)
+                slot = _popcount(k)
+                ck_p[:, slot] = _where(run, wp, ck_p[:, slot])
+                ck_m[:, slot] = _where(run, wm, ck_m[:, slot])
+            else:  # spans ending at odd k (NUTS.jl:50)
+                hi = _popcount(k >> 1)
+                lo = hi - _trailing_ones(k) + 1
+                delta = dirn_j[:, None, None] * (wp[:, None]
+                                                 - ck_p[:, lo:hi + 1])
+                turned = ((_dot(delta, ck_m[:, lo:hi + 1]) < 0)
+                          | (_dot(delta, wm[:, None]) < 0)).any(-1)
+                ok = ok & ~(run & turned)
+
+        # the walker's end is the new edge of the running chains
+        walker = (wp, wm, wg, wlp)
+        plus = tuple(_where(s & go, a, b) for a, b in zip(walker, plus))
+        minus = tuple(_where(s & ~go, a, b) for a, b in zip(walker, minus))
+        u = merge_u[:, j]
+        if multinomial:
+            take = s & ok & (torch.log(u) < lw1 - lwtot)
+            lwtot = torch.where(s & ok, torch.logaddexp(lwtot, lw1), lwtot)
+        else:
+            take = s & ok & (u * ntot < n1)
+        prop = tuple(_where(take, a, b) for a, b in zip(sp, prop))
+        ntot = ntot + torch.where(s, n1, 0.0)
+        dp = plus[0] - minus[0]
+        turned = (_dot(dp, minus[1]) < 0) | (_dot(dp, plus[1]) < 0)
+        nd = nd + s.to(torch.int32)
+        dv = dv | (s & sdv)
+        s = s & ok & ~turned
+    return prop[0], prop[1], prop[2], nd, dv
+
+
+def draw_noise(C, d, maxdoublings, generator, dtype=torch.float32,
+               device=None):
+    """The pre-drawn noise of one transition for C chains, from
+    ``generator``: (m0 (C, d), logu (C,), dirn (C, md) in {-1, +1},
+    merge_u (C, md), leaf_u (C, 2^md))."""
+    device = generator.device if device is None else device
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    md = maxdoublings
+    m0 = torch.randn((C, d), **kw)
+    logu = torch.log(torch.rand((C,), **kw))
+    dirn = torch.where(torch.rand((C, md), **kw) < 0.5, 1.0, -1.0).to(dtype)
+    return m0, logu, dirn, torch.rand((C, md), **kw), \
+        torch.rand((C, 1 << md), **kw)
+
+
+def glm_nuts_transition_ref(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
+                            merge_u, leaf_u, *, maxdoublings=6,
+                            kind="logistic", weights=None, offsets=None,
+                            prior_prec=1.0, multinomial=False):
+    """Plain version of :func:`glm_nuts_transition`."""
+    PLAIN_CALLS["glm_nuts_transition"] += 1
+    _, logp_grad = glm_funcs(XT, Y, weights, offsets, _prior(prior_prec),
+                             kind)
+    return _transition(logp_grad, theta, lp.reshape(-1), grad, eps, m0,
+                       logu.reshape(-1), dirn, merge_u, leaf_u,
+                       _check_md(maxdoublings), multinomial)
+
+
+def _rows(th, g, lp, acc, nd, dv):
+    return {"ppars": th, "pgrads": g, "plogtarget": lp, "accept": acc,
+            "ndoublings": nd, "diverging": dv}
+
+
+def glm_nuts_multistep_ref(XT, Y, theta, lp, grad, eps, generator, *,
+                           k_trans=8, maxdoublings=6, kind="logistic",
+                           weights=None, offsets=None, prior_prec=1.0,
+                           multinomial=False):
+    """Plain version of :func:`glm_nuts_multistep`: the noise of each
+    transition comes from ``generator`` (:func:`draw_noise`; another stream
+    than the kernel's Philox, so compare statistically)."""
+    PLAIN_CALLS["glm_nuts_multistep"] += 1
+    md = _check_md(maxdoublings)
+    _, logp_grad = glm_funcs(XT, Y, weights, offsets, _prior(prior_prec),
+                             kind)
+    C, d = theta.shape
+    lp = lp.reshape(-1)
+    rows = []
+    for _ in range(k_trans):
+        noise = draw_noise(C, d, md, generator, theta.dtype, theta.device)
+        th2, g2, lp2, nd, dv = _transition(logp_grad, theta, lp, grad, eps,
+                                           *noise, md, multinomial)
+        rows.append(_rows(th2, g2, lp2, (th2 != theta).any(-1), nd, dv))
+        theta, grad, lp = th2, g2, lp2
+    return theta, grad, lp, {k: torch.stack([r[k] for r in rows])
+                             for k in rows[0]}
+
+
+# ---- CUDA kernels ----------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    "glm_nuts_transition": [_P] * 5 + [_I] * 3 + [_P] * 13
+    + [_F, _F, _I, _I, _I, _P],
+    "glm_nuts_multistep": [_P] * 5 + [_I] * 3 + [_P] * 12
+    + [_F, _F, _I, _I, _I, _I, ctypes.c_ulonglong, _P],
+}
+
+
+def load_kernels():
+    """Build (first use) and bind ``csrc/glm_nuts.cu``; returns the library."""
+    from .cuda_build import load
+
+    lib = load("glm_nuts")
+    if not getattr(lib, "_bound", False):
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.nuts_error_string.argtypes = [ctypes.c_int]
+        lib.nuts_error_string.restype = ctypes.c_char_p
+        lib.nuts_max_doublings.restype = ctypes.c_int
+        if lib.nuts_max_doublings() != MAX_DOUBLINGS:
+            raise RuntimeError(
+                "csrc/glm_nuts.cu and nuts_kernels.MAX_DOUBLINGS disagree")
+        lib._bound = True
+    return lib
+
+
+def _launch(name, *args):
+    lib = load_kernels()
+    code = getattr(lib, name)(*args,
+                              _P(torch.cuda.current_stream().cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.nuts_error_string(code).decode()} ({code})")
+    LAUNCHES[name] += 1
+
+
+def _prior_args(name, prior_prec, d, dev):
+    """(scalar lam, (d,) row or None) as the kernel takes them."""
+    lam = _prior(prior_prec)
+    if isinstance(lam, float):
+        return lam, None
+    if lam.shape != (d,):
+        raise ValueError(f"{name}: prior row has shape {tuple(lam.shape)}, "
+                         f"want ({d},)")
+    return 1.0, lam.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _check_noise(name, C, md, dev, **bufs):
+    want = {"dirn": (C, md), "merge_u": (C, md), "leaf_u": (C, 1 << md)}
+    for label, t in bufs.items():
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != want[label]):
+            raise ValueError(
+                f"{name}: {label} must be a contiguous float32 {want[label]} "
+                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+
+
+def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
+                        merge_u, leaf_u, *, maxdoublings=6, kind="logistic",
+                        weights=None, offsets=None, prior_prec=1.0,
+                        multinomial=False):
+    """One exact NUTS transition for all chains with pre-drawn noise.
+
+    Args: ``XT`` (d, N); ``Y`` (N,); ``theta``, ``grad``, ``m0`` (C, d);
+    ``lp``, ``logu`` (C,); ``dirn``, ``merge_u`` (C, maxdoublings);
+    ``leaf_u`` (C, 2^maxdoublings); scalar ``eps``.
+    Returns (theta, grad, lp (C,), ndoublings (C,) int32, diverging (C,)
+    bool)."""
+    name = "glm_nuts_transition"
+    if not _device_branch(name, theta):
+        return glm_nuts_transition_ref(
+            XT, Y, theta, lp, grad, eps, m0, logu, dirn, merge_u, leaf_u,
+            maxdoublings=maxdoublings, kind=kind, weights=weights,
+            offsets=offsets, prior_prec=prior_prec, multinomial=multinomial)
+    md = _check_md(maxdoublings)
+    lp, logu = lp.reshape(-1), logu.reshape(-1)
+    N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
+                           {"theta": theta, "grad": grad, "m0": m0},
+                           {"lp": lp, "logu": logu})
+    _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
+                 leaf_u=leaf_u)
+    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
+    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    nd_o = torch.empty(C, dtype=torch.int32, device=theta.device)
+    dv_o = torch.empty(C, dtype=torch.bool, device=theta.device)
+    with torch.cuda.device(theta.device):
+        _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
+                N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(m0),
+                _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
+                _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
+                float(eps), lam, md, KIND_CODES[kind], int(multinomial))
+    return th_o, g_o, lp_o, nd_o, dv_o
+
+
+def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
+                       maxdoublings=6, kind="logistic", weights=None,
+                       offsets=None, prior_prec=1.0, multinomial=False):
+    """``k_trans`` exact NUTS transitions per launch, every draw (momenta by
+    Box-Muller, slice, directions, merge and leaf uniforms) made inside the
+    kernel from Philox4x32-10 keyed by a seed drawn from ``generator`` and
+    counted by (chain, transition, draw): a generator in the same state
+    repeats a launch bitwise.
+    Returns (theta, grad, lp (C,), rows) with rows ``ppars``/``pgrads``
+    (k, C, d), ``plogtarget`` (k, C), ``accept``/``diverging`` (k, C) bool
+    and ``ndoublings`` (k, C) int32, each after its transition."""
+    name = "glm_nuts_multistep"
+    if not _device_branch(name, theta):
+        return glm_nuts_multistep_ref(
+            XT, Y, theta, lp, grad, eps, generator, k_trans=k_trans,
+            maxdoublings=maxdoublings, kind=kind, weights=weights,
+            offsets=offsets, prior_prec=prior_prec, multinomial=multinomial)
+    md = _check_md(maxdoublings)
+    if k_trans < 1:
+        raise ValueError(f"{name}: k_trans must be >= 1, got {k_trans}")
+    lp = lp.reshape(-1)
+    N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
+                           {"theta": theta, "grad": grad}, {"lp": lp})
+    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+    dev = theta.device
+    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
+    lp_o = torch.empty(C, dtype=theta.dtype, device=dev)
+    r_th = torch.empty((k_trans, C, d), dtype=theta.dtype, device=dev)
+    r_g = torch.empty((k_trans, C, d), dtype=theta.dtype, device=dev)
+    r_lp = torch.empty((k_trans, C), dtype=theta.dtype, device=dev)
+    r_acc = torch.empty((k_trans, C), dtype=torch.bool, device=dev)
+    r_nd = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
+    r_dv = torch.empty((k_trans, C), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
+                N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(th_o),
+                _ptr(g_o), _ptr(lp_o), _ptr(r_th), _ptr(r_g), _ptr(r_lp),
+                _ptr(r_acc), _ptr(r_nd), _ptr(r_dv), float(eps), lam, md,
+                KIND_CODES[kind], int(multinomial), int(k_trans), int(seed))
+    return th_o, g_o, lp_o, _rows(r_th, r_g, r_lp, r_acc, r_nd, r_dv)
+
+
+# ---- drivers ---------------------------------------------------------------
+
+
+def _stack(rows, eps):
+    infos = {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+    infos["epsilon"] = torch.full(infos["plogtarget"].shape, float(eps),
+                                  dtype=infos["plogtarget"].dtype,
+                                  device=infos["plogtarget"].device)
+    return infos
+
+
+def _nuts_run(XT, Y, theta0, eps, generator, *, steps, maxdoublings,
+              kind="logistic", W=None, O=None, lam=1.0, multinomial=False):
+    """``steps`` exact NUTS transitions, one launch of
+    :func:`glm_nuts_transition` each, the noise drawn from ``generator``
+    before each launch (pallas_nuts.py ``_nuts_run``).
+    Returns ((theta, lp, grad), infos stacked over steps)."""
+    C, d = theta0.shape
+    theta = theta0
+    lp, g = glm_funcs(XT, Y, W, O, _prior(lam), kind)[1](theta0)
+    rows = []
+    for _ in range(steps):
+        noise = draw_noise(C, d, maxdoublings, generator, theta.dtype,
+                           theta.device)
+        th2, g2, lp2, nd, dv = glm_nuts_transition(
+            XT, Y, theta, lp, g, eps, *noise, maxdoublings=maxdoublings,
+            kind=kind, weights=W, offsets=O, prior_prec=lam,
+            multinomial=multinomial)
+        rows.append({k: v[None] for k, v in _rows(
+            th2, g2, lp2, (th2 != theta).any(-1), nd, dv).items()})
+        theta, lp, g = th2, lp2, g2
+    return (theta, lp, g), _stack(rows, eps)
+
+
+def _nuts_run_hw(XT, Y, theta0, eps, generator, *, steps, k_trans,
+                 maxdoublings, kind="logistic", W=None, O=None, lam=1.0,
+                 multinomial=False):
+    """``steps`` exact NUTS transitions as ``steps // k_trans`` launches of
+    :func:`glm_nuts_multistep` (pallas_nuts.py ``_nuts_run_hw``); same
+    return as :func:`_nuts_run`, another random stream."""
+    if steps % k_trans:
+        raise ValueError(f"steps ({steps}) must be a multiple of k_trans "
+                         f"({k_trans})")
+    theta = theta0
+    lp, g = glm_funcs(XT, Y, W, O, _prior(lam), kind)[1](theta0)
+    rows = []
+    for _ in range(steps // k_trans):
+        theta, g, lp, r = glm_nuts_multistep(
+            XT, Y, theta, lp, g, eps, generator, k_trans=k_trans,
+            maxdoublings=maxdoublings, kind=kind, weights=W, offsets=O,
+            prior_prec=lam, multinomial=multinomial)
+        rows.append(r)
+    return (theta, lp, g), _stack(rows, eps)

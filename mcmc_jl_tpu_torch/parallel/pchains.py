@@ -10,7 +10,8 @@ item 15.
 ``run_chains`` is the engine (returns stacked tensors, kept on the device);
 ``prun_serialmc`` adapts it to the reference's ``prun`` surface (a list of
 per-task chains) and routes plain-HMC groups on GLM posteriors to the fused
-CUDA kernels (ops/glm_hmc.py).
+CUDA kernels (ops/glm_hmc.py), exact-NUTS groups to the warm-start pipeline
+(ops/warmstart.py).
 """
 from __future__ import annotations
 
@@ -58,14 +59,20 @@ def run_chains(model, sampler, runner, n_chains, generator=None, seed=0,
     if states is None:
         states = init_chains(model, sampler, n_chains, generator,
                              inits=inits)
-    ctx = RunCtx(burnin=runner.burnin)
+    states, infos = _scan_chains(model, sampler, RunCtx(burnin=runner.burnin),
+                                 states, generator, runner.len)
+    return infos, states, generator
+
+
+def _scan_chains(model, sampler, ctx, states, generator, steps):
+    """``steps`` transitions of a batched state; returns (final states,
+    infos stacked over steps)."""
     rows = {}
-    for _ in range(runner.len):
+    for _ in range(steps):
         states, info = sampler.step(model, ctx, states, generator)
         for k, v in info.items():
             rows.setdefault(k, []).append(v)
-    infos = {k: torch.stack(v) for k, v in rows.items()}
-    return infos, states, generator
+    return states, {k: torch.stack(v) for k, v in rows.items()}
 
 
 def _plain_hmc(task):
@@ -107,23 +114,45 @@ def _kernel_shape_ok(model):
 
 
 def _route(t, fused):
-    """Decide before any launch whether a group runs on the fused route.
+    """Decide before any launch which route a group takes: "hmc" (the fused
+    GLM-HMC kernels), "nuts" (generic warmup, then the fused exact-NUTS
+    kernels) or False (the generic engine).
 
-    ``fused=False``: never.  ``"auto"``: when the model lives on a CUDA
-    device in float32 and the kernels take its shape.  ``True``: whenever
-    the kernels take its shape (on the CPU the wrappers then run their
-    plain versions)."""
-    if fused is False or not _fused_eligible(t):
+    ``fused=False``: never fused.  ``"auto"``: when the model lives on a
+    CUDA device in float32 and the kernels take its shape.  ``True``:
+    whenever the kernels take its shape (on the CPU the wrappers then run
+    their plain versions)."""
+    from ..ops.warmstart import _warm_ok
+    from ..samplers.nuts import NUTS
+
+    if fused is False:
         return False
     m = t.model
     if fused == "auto" and not (m.device.type == "cuda"
                                 and m.dtype == torch.float32):
         return False
+    if isinstance(t.sampler, NUTS) and t.sampler.warm_handoff:
+        log.info("prun: NUTS(warm_handoff=True) needs the Halton multistep "
+                 "kernel, not ported yet; running exact NUTS on the generic "
+                 "torch engine")
+        return False
+    if _fused_eligible(t):
+        route = "hmc"
+    elif _warm_ok(t.model, t.sampler, t.runner):
+        route = "nuts"
+    else:
+        return False
     why = _kernel_shape_ok(m)
+    if why is None and route == "nuts":
+        from ..ops.nuts_kernels import MAX_DOUBLINGS
+
+        if t.sampler.maxdoublings > MAX_DOUBLINGS:
+            why = (f"maxdoublings = {t.sampler.maxdoublings} > "
+                   f"{MAX_DOUBLINGS}, the NUTS kernels' bound")
     if why is not None:
         log.info("prun: %s; running the generic torch engine", why)
         return False
-    return True
+    return route
 
 
 def prun_serialmc(tasks, seed: int = 0, fused="auto"):
@@ -131,10 +160,12 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
 
     Tasks with identical (model, sampler, runner) are batched into one run;
     heterogeneous lists split into groups.  ``fused``: "auto" (default)
-    routes plain-HMC groups on ``model(glm=...)`` posteriors held in float32
-    on a CUDA device to the fused CUDA kernels; ``True`` forces the fused
-    driver (its plain versions on the CPU, for tests); ``False`` always uses
-    the generic engine.  A kernel that fails to build or launch raises."""
+    routes plain-HMC groups, and exact-NUTS groups with a burn-in, on
+    ``model(glm=...)`` posteriors held in float32 on a CUDA device to the
+    fused CUDA kernels (see :func:`_route`); ``True`` forces the fused
+    drivers (their plain versions on the CPU, for tests); ``False`` always
+    uses the generic engine.  A kernel that fails to build or launch
+    raises."""
     t0 = time.time()
 
     groups = {}
@@ -148,16 +179,21 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
         n = len(idxs)
         # one generator per group, derived from (seed, group index)
         gen = make_generator(t.model.device, seed * 1_000_003 + gi)
-        use_fused = _route(t, fused)
-        if use_fused and fused == "auto":
-            log.info("prun: routing %d plain-HMC chains to the fused CUDA "
-                     "GLM kernels (f32); pass fused=False for the generic "
-                     "engine", n)
-        if use_fused:
+        route = _route(t, fused)
+        if route and fused == "auto":
+            log.info("prun: routing %d %s chains to the fused CUDA GLM "
+                     "kernels (f32); pass fused=False for the generic "
+                     "engine", n, "plain-HMC" if route == "hmc" else "NUTS")
+        if route == "hmc":
             from ..ops.glm_hmc import fused_hmc_chains
 
             infos, final_states = fused_hmc_chains(t.model, t.sampler,
                                                    t.runner, n, gen)
+        elif route == "nuts":
+            from ..ops.warmstart import warmfused_nuts_exact_chains
+
+            infos, final_states = warmfused_nuts_exact_chains(
+                t.model, t.sampler, t.runner, n, gen)
         else:
             infos, final_states, _ = run_chains(t.model, t.sampler, t.runner,
                                                 n, generator=gen)

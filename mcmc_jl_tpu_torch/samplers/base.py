@@ -73,6 +73,12 @@ def _bcast(mask, x):
     return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
 
 
+def _where(mask, a, b):
+    """Per-chain select: ``mask`` has the chain shape, ``a``/``b`` may carry
+    trailing dimensions."""
+    return torch.where(_bcast(mask, a), a, b)
+
+
 def mh_select(accept, proposed, current):
     """Select proposed/current fields per chain on acceptance (the
     `if accepted` branch of every reference sampler, as a select)."""

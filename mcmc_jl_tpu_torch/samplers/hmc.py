@@ -45,7 +45,7 @@ class HMC(Sampler):
     leap_step: float = 0.1
     store_leaps: bool = False
     tuner: Optional[EmpMCTuner] = None
-    #: only False is ported (samplers/massadapt.py)
+    #: only False is ported for HMC (samplers/massadapt.py)
     mass_adapt: object = False
     #: "leapfrog" (reference parity) | "2stage" | "3stage"
     integrator: str = "leapfrog"
@@ -88,7 +88,10 @@ class HMC(Sampler):
         object.__setattr__(self, "leap_step", float(leap_step))
         object.__setattr__(self, "store_leaps", bool(store_leaps))
         object.__setattr__(self, "tuner", tuner)
-        mass_kind(mass_adapt)  # validate early: only False is ported
+        if mass_kind(mass_adapt) is not None:
+            raise NotImplementedError(
+                f"HMC(mass_adapt={mass_adapt!r}) is not ported yet (ROADMAP "
+                f"queue 1 item 9); use mass_adapt=False")
         object.__setattr__(self, "mass_adapt", mass_adapt)
         get_integrator(integrator)  # validate early
         object.__setattr__(self, "integrator", integrator)

@@ -1,8 +1,9 @@
 """Carry models and sampler states over from the JAX package.
 
 Works on numpy arrays only, so neither package imports the other: take a JAX
-``GLMSpec``'s fields, or a JAX ``HMCState`` after ``jax.device_get`` turned
-into a (nested) dict of numpy arrays, and build the port's counterpart.
+``GLMSpec``'s fields, or a JAX ``HMCState``/``NUTSState`` after
+``jax.device_get`` turned into a (nested) dict of numpy arrays, and build the
+port's counterpart.
 """
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ from ..models.model import model, resolve_device
 from ..samplers.base import TuneState
 from ..samplers.hmc import HMCState
 from ..samplers.massadapt import MassAccum
+from ..samplers.nuts import NUTSState
+
+_NESTED = {"tune": TuneState, "mass": MassAccum}
 
 
 def glm_model_from_spec(kind, X, Y, weights=None, offsets=None,
@@ -32,10 +36,8 @@ def _build(cls, fields, dev, dtype):
     kw = {}
     for f in dataclasses.fields(cls):
         v = fields[f.name]
-        if f.name == "tune":
-            kw[f.name] = _build(TuneState, v, dev, dtype)
-        elif f.name == "mass":
-            kw[f.name] = _build(MassAccum, v, dev, dtype)
+        if f.name in _NESTED:
+            kw[f.name] = _build(_NESTED[f.name], v, dev, dtype)
         else:
             a = np.asarray(v)
             dt = torch.int32 if np.issubdtype(a.dtype, np.integer) else dtype
@@ -49,8 +51,19 @@ def hmc_state_from_numpy(state, device=None, dtype=None):
     numpy arrays, e.g. ``{**vars(jax.device_get(s))}`` with the nested
     states turned into dicts too.  Floats keep their precision unless
     ``dtype`` is given; a leading chain dimension is kept."""
+    return _state_from_numpy(HMCState, state, device, dtype)
+
+
+def nuts_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`NUTSState` from a JAX ``NUTSState`` given as a
+    dict (``pars, logtarget, grad, epsilon, mu, hbar, lebar, tlen, i`` and a
+    nested ``mass`` dict) of numpy arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(NUTSState, state, device, dtype)
+
+
+def _state_from_numpy(cls, state, device, dtype):
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.float64 if np.asarray(state["pars"]).dtype == np.float64 \
             else torch.float32
-    return _build(HMCState, state, dev, dtype)
+    return _build(cls, state, dev, dtype)
