@@ -2,16 +2,25 @@
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, started together), holds each kernel against its plain PyTorch
-version on the card, drives the main paths on Bayesian logistic regression
-(d = 10, N = 1000) across 4096 chains through ``run(..., chains=N)`` —
-``HMC(10, 0.05)`` under ``SerialMC``, checked against the generic engine,
-and exact ``NUTS(maxdoublings=6)`` (warmup on the generic engine, sampling
-through the NUTS kernels), checked against the HMC path — runs the HMC step
-and multi-transition kernels through their drivers, times the drivers, and
-prints one JSON line per phase.  The last three lines are the kernels'
-report (with each kernel's launches counted from zero over the one run that
-reaches it), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+version on the card, and drives the main paths on Bayesian logistic
+regression (d = 10; ``bench.py``'s data) through ``run(..., chains=N)``:
+
+- N = 1000, 4096 chains: ``HMC(10, 0.05)`` under ``SerialMC``, checked
+  against the generic engine; exact ``NUTS(maxdoublings=6)`` (warmup on the
+  generic engine, sampling through the NUTS kernels);
+- N = 100,000: plain ``HMC(10, 0.005)`` through the N-tiled gradient
+  kernel (4096 chains), checked against the generic engine, and adaptive
+  HMC through the tiled kernel (512 chains);
+- N = 1000: adaptive HMC with a diagonal metric (4096 chains), ``HMCDA``
+  and adaptive ``MALA`` (1024 chains) through the Halton multistep kernel;
+
+the warm-start runs checked against long continuations of plain HMC.  It
+also runs the HMC step and multi-transition kernels through their drivers,
+times drivers and kernels beside their plain versions and the least time
+the card could take for the same work, and prints one JSON line per phase.
+The last three lines are the kernels' report (with each kernel's launches
+counted from zero over the one run that reaches it), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 
 Run with no arguments on a machine with one CUDA card::
 
@@ -29,7 +38,8 @@ import time
 import numpy as np
 
 SOURCES = {"glm_hmc": "mcmc_jl_tpu_torch/csrc/glm_hmc.cu",
-           "glm_nuts": "mcmc_jl_tpu_torch/csrc/glm_nuts.cu"}
+           "glm_nuts": "mcmc_jl_tpu_torch/csrc/glm_nuts.cu",
+           "glm_bign": "mcmc_jl_tpu_torch/csrc/glm_bign.cu"}
 # kernel -> (library, the Pallas kernel it replaces)
 REPLACES = {
     "glm_leapfrogs": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
@@ -37,6 +47,10 @@ REPLACES = {
     "glm_multistep": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
     "glm_nuts_transition": ("glm_nuts", "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
     "glm_nuts_multistep": ("glm_nuts", "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    # the halton=True, collect_rows=True variant of the same kernel body
+    "glm_multistep_rows": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_logp_grad_tiled": ("glm_bign",
+                            "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -66,6 +80,15 @@ LEAF_ATOL = 1e-3
 # multistep NUTS kernel check: mean tree depth of the kernel and of its plain
 # version (or the per-transition driver) within this fraction of each other
 DEPTH_RTOL = 0.05
+# N-tiled kernel vs its plain version run in float64 on the same inputs: a
+# gradient component is a sum of N terms w_n r_n x_nj that cancel, so its
+# error is held to the L1 mass of the terms (plus the prior's), not to a
+# fixed atol
+TILED_G_L1, TILED_LP_L1 = 1e-5, 1e-6
+# the card's published peaks (one H100 SXM at 700 W): FP32 outside the
+# tensor cores, and HBM bandwidth; a kernel's bound is the larger of its
+# operations and its bytes over these
+FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
 CARD = {}
 
@@ -104,24 +127,27 @@ def phase_device():
 
 
 def phase_build():
-    """Both libraries, one nvcc each, started together."""
+    """Every library, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mcmc_jl_tpu_torch.ops import cuda_build, glm_kernels, nuts_kernels
+    from mcmc_jl_tpu_torch.ops import (cuda_build, glm_bign, glm_kernels,
+                                      nuts_kernels)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
     glm_kernels.load_kernels()
     nuts_kernels.load_kernels()
+    glm_bign.load_kernels()
     for name, (path, report) in built.items():
         ptxas, entry = [], "?"
         for ln in report.splitlines():
             # mangled '...<len><name>ILi<D>E...' -> name<D>
             hit = re.search(r"Compiling entry function .*?\d+((?:[a-z]+_)+"
-                            r"kernel)ILi(\d+)E", ln)
+                            r"kernel)(?:ILi(\d+)E)?", ln)
             if hit:
-                entry = f"{hit.group(1)}<{hit.group(2)}>"
+                entry = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
+                                        else "")
             elif "registers" in ln or "spill" in ln:
                 ptxas.append(f"{entry}: {ln.strip()}")
         emit({"phase": "build", "source": SOURCES[name],
@@ -139,24 +165,41 @@ def _err(a, b):
             "max_rel": float((d / b.abs().clamp_min(1e-6)).max())}
 
 
+def _cuda(a):
+    import torch
+
+    return None if a is None else torch.as_tensor(
+        a, dtype=torch.float32, device="cuda").contiguous()
+
+
+def _z_t(a, b):
+    """max |mean difference| / se of two sets of per-chain values (torch,
+    one row per chain)."""
+    se = (a.var(0) / a.shape[0] + b.var(0) / b.shape[0]).sqrt()
+    return float(((a.mean(0) - b.mean(0)).abs() / se.clamp_min(1e-12)).max())
+
+
+def _z_means(a, b):
+    """max |mean difference| / se of two sets of independent per-chain
+    means, one row per chain (numpy)."""
+    se = np.sqrt(a.var(0) / len(a) + b.var(0) / len(b))
+    return float(np.max(np.abs(a.mean(0) - b.mean(0)) / se))
+
+
 def _close(a, b, rtol, atol):
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
 
 
 def _inputs(C, seed):
-    import torch
-
     from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
 
     X, Y = bench_data()
     rng = np.random.default_rng(seed)
     d = X.shape[1]
-    cuda = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
-                                     device="cuda").contiguous()
-    XT, Yc = cuda(X.T), cuda(Y)
-    theta = cuda(0.1 * rng.standard_normal((C, d)))
-    m0 = cuda(rng.standard_normal((C, d)))
-    logu = cuda(np.log(rng.random(C)))
+    XT, Yc = _cuda(X.T), _cuda(Y)
+    theta = _cuda(0.1 * rng.standard_normal((C, d)))
+    m0 = _cuda(rng.standard_normal((C, d)))
+    logu = _cuda(np.log(rng.random(C)))
     lp, g = glm_funcs(XT, Yc, None, None, 1.0, "logistic")[1](theta)
     return XT, Yc, theta, m0, logu, lp.contiguous(), g.contiguous()
 
@@ -164,8 +207,6 @@ def _inputs(C, seed):
 def _other_inputs(kind, N=5000, d=7, C=300, seed=6):
     """A weighted, offset GLM of each link at N = 5000 (past the kernel's
     shared-memory budget) with C = 300 chains (a ragged last block)."""
-    import torch
-
     from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
 
     rng = np.random.default_rng(seed)
@@ -174,12 +215,10 @@ def _other_inputs(kind, N=5000, d=7, C=300, seed=6):
     Y = {"linear": z + rng.standard_normal(N),
          "poisson": rng.poisson(np.exp(z)).astype(float)}.get(
         kind, (rng.random(N) < 1 / (1 + np.exp(-z))).astype(float))
-    cuda = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
-                                     device="cuda").contiguous()
-    W, O = cuda(rng.uniform(0.5, 2.0, N)), cuda(0.1 * rng.standard_normal(N))
-    XT, Yc = cuda(X.T), cuda(Y)
-    theta = cuda(0.05 * rng.standard_normal((C, d)))
-    m0 = cuda(rng.standard_normal((C, d)))
+    W, O = _cuda(rng.uniform(0.5, 2.0, N)), _cuda(0.1 * rng.standard_normal(N))
+    XT, Yc = _cuda(X.T), _cuda(Y)
+    theta = _cuda(0.05 * rng.standard_normal((C, d)))
+    m0 = _cuda(rng.standard_normal((C, d)))
     _, g = glm_funcs(XT, Yc, W, O, 1.5, kind)[1](theta)
     kw = dict(n_leaps=3, kind=kind, weights=W, offsets=O, prior_prec=1.5,
               integrator="2stage")
@@ -266,13 +305,8 @@ def phase_kernels(C=4096, eps=0.05, n_leaps=10):
                                  n_leaps=n_leaps, generator=gen)
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(res_k, res_k2))
-
-    def z(a, b):  # per-chain samples a, b -> |mean difference| / se
-        se = torch.sqrt(a.var(0) / a.shape[0] + b.var(0) / b.shape[0])
-        return ((a.mean(0) - b.mean(0)).abs() / se).max().item()
-
-    z_acc = z(res_k[3], res_r[3])
-    z_theta = z(res_k[0], res_r[0])
+    z_acc = _z_t(res_k[3], res_r[3])
+    z_theta = _z_t(res_k[0], res_r[0])
     ok = (bitwise and z_acc < Z_MAX and z_theta < Z_MAX
           and bool(torch.isfinite(res_k[2]).all()))
     emit({"phase": "kernel", "name": "glm_multistep", "C": C, "k_trans": k,
@@ -293,15 +327,16 @@ def _counted(fn):
     it; returns (its result, the launch counts read just after it)."""
     import torch
 
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 
-    gk.reset_counts()
-    nk.reset_counts()
+    for mod in (gk, nk, gb):
+        mod.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = {**gk.LAUNCHES, **nk.LAUNCHES}
-    plain = {**gk.PLAIN_CALLS, **nk.PLAIN_CALLS}
+    launches = {**gk.LAUNCHES, **nk.LAUNCHES, **gb.LAUNCHES}
+    plain = {**gk.PLAIN_CALLS, **nk.PLAIN_CALLS, **gb.PLAIN_CALLS}
     assert not any(plain.values()), plain
     return out, launches
 
@@ -334,14 +369,12 @@ def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
     # the standard error of the pooled mean
     cg = mt.run(task, chains=generic_chains, seed=1, fused=False)
     gs = np.stack([c.samples.values for c in cg])
-    fm, gm = samples.mean(axis=1), gs.mean(axis=1)
-    z = (np.abs(pooled - gm.mean(0))
-         / np.sqrt(fm.var(0) / chains + gm.var(0) / generic_chains))
+    z = _z_means(samples.mean(axis=1), gs.mean(axis=1))
 
     c1 = mt.resume(c0, steps=100)
     assert c1.samples.values.shape == (100, m.size)
     assert np.all(np.isfinite(c1.samples.values))
-    ok = bool(np.all(z < Z_MAX))
+    ok = z < Z_MAX
     emit({"phase": "main_path", "chains": chains, "steps": steps,
           "seconds": dt, "trajectory_launches": rose,
           "chain0": {"acceptance": mt.acceptance(c0),
@@ -350,7 +383,7 @@ def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
                      "actime": mt.actime(c0).tolist()},
           "pooled_mean": pooled.tolist(),
           "generic_pooled_mean": gs.mean(axis=(0, 1)).tolist(),
-          "z_max_vs_generic": float(z.max()), "ok": ok,
+          "z_max_vs_generic": z, "ok": ok,
           "resume_acceptance": mt.acceptance(c1), **CARD})
     assert ok, "fused main path disagrees with the generic engine"
     return ({"glm_leapfrogs": (rose, f"run(..., chains={chains})")},
@@ -389,15 +422,14 @@ def phase_drivers(final, steps=1000, thin=200):
         assert launches == {**{k: 0 for k in launches}, name: want}, launches
         th = theta.double().cpu().numpy()
         assert th.shape == final.shape and np.all(np.isfinite(th))
-        z = (np.abs(th.mean(0) - final.mean(0))
-             / np.sqrt((th.var(0) + final.var(0)) / chains))
+        z = _z_means(th, final)
         acc = infos["accept" if name == "glm_step" else "accept_rate"]
-        ok = bool(np.all(z < Z_MAX))
+        ok = z < Z_MAX
         emit({"phase": "driver", "kernel": name, "from": origin,
               "chains": chains, "transitions": steps,
               "launches": launches[name],
               "accept_rate": float(acc.float().mean()),
-              "z_max_vs_main_path": float(z.max()), "ok": ok})
+              "z_max_vs_main_path": z, "ok": ok})
         assert ok, f"{origin} disagrees with the main path"
         counts[name] = (launches[name], origin)
     return counts
@@ -478,7 +510,8 @@ def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200):
 
 def phase_kernel_times(C=65536, n_leaps=10, eps=0.05, k_trans=200):
     """Per-launch device time of each kernel beside its plain version on the
-    same inputs, at bench.py's shape."""
+    same inputs, at bench.py's shape, and the bound of each launch's work.
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
@@ -502,13 +535,22 @@ def phase_kernel_times(C=65536, n_leaps=10, eps=0.05, k_trans=200):
             lambda: gk.glm_multistep_ref(XT, Yc, theta, eps, k_trans=k_trans,
                                          n_leaps=n_leaps, generator=gen)),
     }
-    ms = {}
+    d, N = XT.shape
+    inputs = {"glm_leapfrogs": (XT, Yc, theta, m0, g),
+              "glm_step": (XT, Yc, theta, g, lp, m0, logu),
+              "glm_multistep": (XT, Yc, theta)}
+    evals = {"glm_leapfrogs": C * n_leaps, "glm_step": C * n_leaps,
+             "glm_multistep": C * (1 + k_trans * n_leaps)}
+    ms, work = {}, {}
     for name, (kern, plain) in calls.items():
+        work[name] = _bound(evals[name], d, N,
+                            _nbytes(inputs[name], kern()))
         ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
         emit({"phase": "kernel_time", "name": name, "C": C,
               "k_trans": k_trans if name == "glm_multistep" else 1,
-              "ms": ms[name][0], "plain_ms": ms[name][1], **CARD})
-    return ms
+              "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
+              **CARD})
+    return ms, work
 
 
 def _logistic_mode(X, Y, W=None, O=None, lam=1.0, iters=30):
@@ -538,24 +580,20 @@ def _laplace_scale(X, Y, lam=1.0):
 def _nuts_inputs(C, md, seed, X, Y, W=None, O=None, lam=1.0, spread=0.05):
     """A NUTS transition's inputs on the card: chains near the posterior
     mode and one transition's pre-drawn noise, from numpy seed ``seed``."""
-    import torch
-
     from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
 
     rng = np.random.default_rng(seed)
     d = X.shape[1]
-    cuda = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
-        a, dtype=torch.float32, device="cuda").contiguous()
-    lam_t = cuda(lam) if np.ndim(lam) else float(lam)
+    lam_t = _cuda(lam) if np.ndim(lam) else float(lam)
     theta = _logistic_mode(X, Y, W, O, lam) + spread * rng.standard_normal((C, d))
-    XT, Yc, Wc, Oc, th = cuda(X.T), cuda(Y), cuda(W), cuda(O), cuda(theta)
+    XT, Yc, Wc, Oc, th = _cuda(X.T), _cuda(Y), _cuda(W), _cuda(O), _cuda(theta)
     lp, g = glm_funcs(XT, Yc, Wc, Oc, lam_t, "logistic")[1](th)
     noise = (rng.standard_normal((C, d)), np.log(rng.random(C)),
              np.where(rng.random((C, md)) < 0.5, 1.0, -1.0),
              rng.random((C, md)), rng.random((C, 1 << md)))
     args = (XT, Yc, th, lp.contiguous(), g.contiguous())
     kw = dict(maxdoublings=md, weights=Wc, offsets=Oc, prior_prec=lam_t)
-    return args, tuple(cuda(a) for a in noise), kw
+    return args, tuple(_cuda(a) for a in noise), kw
 
 
 def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
@@ -659,25 +697,20 @@ def phase_nuts_kernels(C=4096, md=6):
     (th_pt, _, _), inf_pt = nk._nuts_run(XT, Yc, th, eps, gen, **drv)
     torch.cuda.synchronize()
 
-    def z(a, b):  # per-chain values a, b -> max |mean difference| / se
-        se = torch.sqrt(a.var(0) / a.shape[0] + b.var(0) / b.shape[0])
-        return float(((a.mean(0) - b.mean(0)).abs() / se.clamp_min(1e-12))
-                     .max())
-
     def depth(inf):
         return float(inf["ndoublings"].float().mean())
 
     acc = {n: inf["accept"].float().mean(0)
            for n, inf in (("kernel", inf_ms), ("plain", inf_pl))}
-    rep = {"z_theta_max": z(th_ms, th_pl),
-           "z_accept": z(acc["kernel"], acc["plain"]),
+    rep = {"z_theta_max": _z_t(th_ms, th_pl),
+           "z_accept": _z_t(acc["kernel"], acc["plain"]),
            "accept_rate": float(acc["kernel"].mean()),
            "accept_rate_plain": float(acc["plain"].mean()),
            "mean_ndoublings": depth(inf_ms),
            "mean_ndoublings_plain": depth(inf_pl),
            "diverging": int(inf_ms["diverging"].sum()),
            "diverging_plain": int(inf_pl["diverging"].sum()),
-           "z_theta_max_vs_per_transition": z(th_ms, th_pt),
+           "z_theta_max_vs_per_transition": _z_t(th_ms, th_pt),
            "mean_ndoublings_per_transition": depth(inf_pt)}
     ms_err = float((th_ms.mean(0) - th_pl.mean(0)).abs().max())
     ok = (bitwise and rep["z_theta_max"] < Z_MAX and rep["z_accept"] < Z_MAX
@@ -694,18 +727,21 @@ def phase_nuts_kernels(C=4096, md=6):
 
 @contextlib.contextmanager
 def _spans():
-    """Host seconds (to a synchronize) of the warm route's phases inside a
+    """Host seconds (to a synchronize) of a route's phases inside a
     ``run``: warmup on the generic engine, the kernels' sampling phase, and
     packaging into chains.  Wraps the module functions for the duration."""
     import torch
 
-    from mcmc_jl_tpu_torch.ops import nuts_kernels, warmstart
+    from mcmc_jl_tpu_torch.ops import glm_bign, nuts_kernels, warmstart
     from mcmc_jl_tpu_torch.parallel import pchains
 
     spans, saved = {}, []
     for mod, fn, label in ((warmstart, "_warmup", "warmup"),
                            (nuts_kernels, "_nuts_run_hw", "sampling"),
                            (nuts_kernels, "_nuts_run", "sampling"),
+                           (warmstart, "_chees_run_ms", "sampling"),
+                           (warmstart, "_chees_run_bign", "sampling"),
+                           (glm_bign, "_run_bign", "sampling"),
                            (pchains, "_package_group", "packaging")):
         orig = getattr(mod, fn)
 
@@ -726,33 +762,39 @@ def _spans():
             setattr(mod, fn, orig)
 
 
-def phase_nuts_main_path(hmc_final, hmc_steps=2000):
+def _hmc_reference(hmc_final, hmc_steps=2000):
+    """Per-chain means (chains, d) of the HMC main path continued from its
+    final states ``hmc_final`` for ``hmc_steps`` more transitions: the
+    reference the NUTS and warm-start runs at N = 1000 are held against.
+    The main path's own kept draws still carry the transient of its start
+    at 0 (chain 0's autocorrelation times reach 190 of 1000 transitions)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops.glm_hmc import _run
+
+    X, Y = bench_data()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    _, hmc = _run(_cuda(X.T), _cuda(Y), _cuda(hmc_final), 0.05, gen,
+                  steps=hmc_steps, n_leaps=10, collect=True)
+    return hmc["ppars"].mean(0).double().cpu().numpy()
+
+
+def phase_nuts_main_path(hmc_means):
     """Exact NUTS through ``run``: the multistep kernel serves
     SerialMC(1500, 500) (1000 = 125 launches of 8), the per-transition
     kernel the diagonal-metric run with SerialMC(1497, 500) (997 is prime).
 
-    Each run's per-chain means must agree with the HMC main path's.  That
-    path's kept draws still carry the transient of its start at 0 (chain
-    0's autocorrelation times reach 190 of 1000 transitions), so it is
-    continued from its final states ``hmc_final`` (chains, d) for
-    ``hmc_steps`` more transitions, whose per-chain means are the reference.
+    Each run's per-chain means must agree with ``hmc_means``, the per-chain
+    means of the HMC main path's continuation (:func:`_hmc_reference`).
     Returns the kernels' launches and what the timing phase starts from."""
     import torch
 
     import mcmc_jl_tpu_torch as mt
-    from mcmc_jl_tpu_torch.ops.glm_hmc import _run
     from mcmc_jl_tpu_torch.samplers.base import tree_map
 
-    chains = len(hmc_final)
+    chains = len(hmc_means)
     X, Y = bench_data()
     m = mt.model(glm=("logistic", X, Y), device="cuda")
-    spec = m.glm_spec
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    _, hmc = _run(spec.X.T.contiguous(), spec.Y,
-                  torch.as_tensor(hmc_final, device="cuda").contiguous(), 0.05,
-                  gen, steps=hmc_steps, n_leaps=10, collect=True)
-    hmc_means = hmc["ppars"].mean(0).double().cpu().numpy()
-    del hmc
     runs = {
         "glm_nuts_multistep": (mt.NUTS(maxdoublings=6), 1500, 125),
         "glm_nuts_transition": (mt.NUTS(maxdoublings=6, mass_adapt="diag"),
@@ -777,9 +819,8 @@ def phase_nuts_main_path(hmc_final, hmc_steps=2000):
         eps = float(dg["epsilon"][0, 0])
         assert np.all(dg["epsilon"] == eps), "eps not frozen after burn-in"
         nm = samples.mean(axis=1)
-        z = (np.abs(nm.mean(0) - hmc_means.mean(0))
-             / np.sqrt(nm.var(0) / chains + hmc_means.var(0) / chains))
-        ok = bool(np.all(z < Z_MAX))
+        z = _z_means(nm, hmc_means)
+        ok = z < Z_MAX
         emit({"phase": "nuts_main_path", "kernel": name, "from": origin,
               "chains": chains, "seconds": dt, "spans_s": spans,
               "launches": launches[name],
@@ -788,7 +829,7 @@ def phase_nuts_main_path(hmc_final, hmc_steps=2000):
               "diverging_share": float(dg["diverging"].mean()),
               "pooled_mean": nm.mean(0).tolist(),
               "hmc_pooled_mean": hmc_means.mean(0).tolist(),
-              "z_max_vs_hmc_main_path": float(z.max()), "ok": ok, **CARD})
+              "z_max_vs_hmc_main_path": z, "ok": ok, **CARD})
         assert ok, f"{origin} disagrees with the HMC main path"
         counts[name] = (launches[name], origin)
         if start is None:  # the unit-metric run's end: timing starts there
@@ -809,7 +850,8 @@ def phase_nuts_timing(start, md=6, k_trans=8,
     ``sizes``): transitions/s, and gradient evaluations/s
     bounded by the tree depths (a transition of depth n evaluates between
     2^(n-1) and 2^n - 1 leaves).  Then each kernel's per-launch time beside
-    its plain version's.  Returns {kernel: (ms, plain ms)}."""
+    its plain version's, with the bound of each launch's work.
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
@@ -864,40 +906,563 @@ def phase_nuts_timing(start, md=6, k_trans=8,
                                               k_trans=k_trans,
                                               maxdoublings=md)),
     }
-    ms = {}
+    d, N = XT.shape
+    inputs = {"glm_nuts_transition": (XT, Y, th4, lp, g, noise),
+              "glm_nuts_multistep": (XT, Y, th4, lp, g)}
+    ms, work = {}, {}
     for name, (kern, plain) in calls.items():
+        out = kern()
+        nd = (out[3] if name == "glm_nuts_transition"
+              else out[3]["ndoublings"]).double()
+        # a transition of depth n evaluates at least 2^(n-1) leaves
+        work[name] = _bound(float((2.0 ** (nd - 1)).sum()), d, N,
+                            _nbytes(inputs[name], out))
         ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
         emit({"phase": "kernel_time", "name": name, "C": th4.shape[0],
               "k_trans": k_trans if name == "glm_nuts_multistep" else 1,
-              "ms": ms[name][0], "plain_ms": ms[name][1], **CARD})
+              "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
+              **CARD})
 
-    return ms
+    return ms, work
+
+
+def _nbytes(*objs):
+    """Bytes of every tensor in ``objs`` (tensors, or tuples and dicts of
+    them): each input read once, each output written once."""
+    import torch
+
+    n = 0
+    for o in objs:
+        if isinstance(o, dict):
+            n += _nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            n += _nbytes(*o)
+        elif isinstance(o, torch.Tensor):
+            n += o.numel() * o.element_size()
+    return n
+
+
+def _bound(evals, d, N, nbytes):
+    """The least time (ms) the card could take for ``evals`` GLM gradient
+    evaluations (summed over chains) at (d, N) that move ``nbytes``: the
+    4 d N FP32 operations of each evaluation's two products (theta . x_n
+    and r_n x_n; the link's special functions are not counted) over the
+    FP32 peak, or the bytes over the HBM bandwidth, whichever is larger."""
+    t_ops = 4.0 * d * N * float(evals) / FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+_MODES = {}
+
+
+def _bench_mode(n):
+    """bench.py's data at N = n and its posterior mode (cached)."""
+    if n not in _MODES:
+        X, Y = bench_data(n=n)
+        _MODES[n] = (X, Y, _logistic_mode(X, Y, iters=12))
+    return _MODES[n]
+
+
+def _np_leaps(i, eps, T, max_leaps):
+    """numpy's shared Halton leap count of transition i: the float32
+    radical inverse u of i, then clip(ceil(u T / eps), 1, max_leaps) in
+    float32 in that order."""
+    u = np.float32(int(f"{i:032b}"[::-1], 2)) * np.float32(2.0 ** -32)
+    nl = np.ceil(u * np.float32(T) / np.float32(eps))
+    return int(min(max(nl, 1), max_leaps))
+
+
+def phase_rows_kernel(C=4096, K=64, kt=8):
+    """The Halton multistep kernel against its plain version: K transitions
+    from one start near the posterior mode, as K/kt launches through the
+    warm route's driver and as one plain call of K transitions; on the
+    data as they are (eps 0.05, T 1.0) and on the diagonal-metric route's
+    folded inputs (design X s, (d,) prior row lam s^2, chains in z-space).
+    nleaps rows equal exactly, and equal numpy's Halton formula; pooled
+    final theta and per-chain accept rates within Z_MAX; a bitwise repeat."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops.warmstart import _chees_run_ms
+
+    X, Y, mode = _bench_mode(1000)
+    s = _laplace_scale(X, Y)
+    d = X.shape[1]
+    err = 0.0
+    for label, Xc, lam, start, spread, eps, T, ml in (
+            ("theta, eps 0.05, T 1.0", X, 1.0, mode, 0.05, 0.05, 1.0, 40),
+            ("folded diagonal metric (X s, (d,) prior row), eps 0.25, T 2.0",
+             X * s, _cuda(s * s), mode / s, 0.5, 0.25, 2.0, 16)):
+        rng = np.random.default_rng(31)
+        th0 = _cuda(start + spread * rng.standard_normal((C, d)))
+        XT, Yc = _cuda(Xc.T), _cuda(Y)
+        kw = dict(prior_prec=lam)
+        r1, r2 = (gk.glm_multistep_rows(
+            XT, Yc, th0, eps, T, 1, ml, k_trans=kt,
+            generator=torch.Generator(device="cuda").manual_seed(12345), **kw)
+            for _ in range(2))
+        torch.cuda.synchronize()
+        bitwise = (all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
+                   and all(torch.equal(r1[3][k], r2[3][k]) for k in r1[3]))
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        (th_k, _, _), rows_k = _chees_run_ms(XT, Yc, th0, eps, T, gen,
+                                             steps=K, i0=1, max_leaps=ml,
+                                             k_trans=kt, lam=lam)
+        th_p, _, _, rows_p = gk.glm_multistep_rows_ref(
+            XT, Yc, th0, eps, T, 1, ml, k_trans=K, generator=gen, **kw)
+        torch.cuda.synchronize()
+        want = [_np_leaps(i, eps, T, ml) for i in range(1, K + 1)]
+        nl_k = rows_k["nleaps"]
+        nl_ok = (torch.equal(nl_k, rows_p["nleaps"])
+                 and bool((nl_k == nl_k[:, :1]).all())
+                 and nl_k[:, 0].tolist() == want)
+        acc_k = rows_k["accept"].float().mean(0)
+        acc_p = rows_p["accept"].float().mean(0)
+        rep = {"z_theta_max": _z_t(th_k, th_p), "z_accept": _z_t(acc_k, acc_p),
+               "accept_rate": float(acc_k.mean()),
+               "accept_rate_plain": float(acc_p.mean()),
+               "mean_nleaps": float(np.mean(want)),
+               "pooled_theta_max_abs_diff": float(
+                   (th_k.mean(0) - th_p.mean(0)).abs().max())}
+        ok = (bitwise and nl_ok and rep["z_theta_max"] < Z_MAX
+              and rep["z_accept"] < Z_MAX
+              and bool(torch.isfinite(rows_k["plogtarget"]).all()))
+        emit({"phase": "kernel", "name": "glm_multistep_rows", "case": label,
+              "C": C, "k_trans": kt, "transitions": K, "ok": ok,
+              "bitwise_repeat": bitwise, "nleaps_exact": nl_ok, **rep})
+        assert ok, f"glm_multistep_rows ({label}) disagrees with its plain version"
+        err = max(err, rep["pooled_theta_max_abs_diff"])
+    return {"glm_multistep_rows": err}
+
+
+def _tiled_case(label, XT, Y, theta, kind="logistic", W=None, O=None,
+                lam=1.0, chunk=256):
+    """The N-tiled kernel against its plain version run in float64 on the
+    same inputs (chunk by chunk of chains), each error held to the L1 mass
+    of the terms it sums; and a bitwise repeat.  Returns the largest
+    absolute error of lp and g."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops.glm_kernels import link_terms
+
+    kw = dict(kind=kind, weights=W, offsets=O, prior_prec=lam)
+    lp, g = gb.glm_logp_grad_tiled(XT, Y, theta, **kw)
+    lp2, g2 = gb.glm_logp_grad_tiled(XT, Y, theta, **kw)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(lp, lp2) and torch.equal(g, g2)
+    f64 = lambda a: None if a is None else a.double()  # noqa: E731
+    XT64, Y64, W64, O64 = (f64(a) for a in (XT, Y, W, O))
+    lam64 = lam.double() if hasattr(lam, "double") else float(lam)
+    ll_fn, resid_fn = link_terms(kind)
+    rel = {"g": 0.0, "lp": 0.0}
+    err = {"g": 0.0, "lp": 0.0}
+    for c0 in range(0, theta.shape[0], chunk):
+        th = theta[c0:c0 + chunk].double()
+        lp_r, g_r = gb.glm_logp_grad_tiled_ref(
+            XT64, Y64, th, kind=kind, weights=W64, offsets=O64,
+            prior_prec=lam64)
+        z = th @ XT64
+        if O64 is not None:
+            z = z + O64
+        r, ll = resid_fn(z, Y64), ll_fn(z, Y64)
+        if W64 is not None:
+            r, ll = W64 * r, W64 * ll
+        pg = lam64 * th
+        mass = {"g": r.abs() @ XT64.abs().T + pg.abs(),
+                "lp": ll.abs().sum(-1) + 0.5 * (pg * th).abs().sum(-1)}
+        del z, r, ll
+        for key, a, b in (("g", g, g_r), ("lp", lp, lp_r)):
+            diff = (a[c0:c0 + chunk].double() - b).abs()
+            err[key] = max(err[key], float(diff.max()))
+            rel[key] = max(rel[key], float((diff / mass[key]).max()))
+    ok = (bitwise and rel["g"] <= TILED_G_L1 and rel["lp"] <= TILED_LP_L1
+          and bool(torch.isfinite(lp).all() and torch.isfinite(g).all()))
+    emit({"phase": "kernel", "name": "glm_logp_grad_tiled", "case": label,
+          "C": theta.shape[0], "N": XT.shape[1], "d": XT.shape[0], "ok": ok,
+          "bitwise_repeat": bitwise, "max_abs_err_g": err["g"],
+          "max_abs_err_lp": err["lp"], "max_err_over_l1_mass_g": rel["g"],
+          "max_err_over_l1_mass_lp": rel["lp"]})
+    assert ok, f"glm_logp_grad_tiled ({label}) disagrees with its plain version"
+    return max(err.values())
+
+
+def phase_bign_kernels(shapes=((4096, 100_000), (1024, 1_000_000)),
+                       ragged=(20_001, 7, 300)):
+    """The N-tiled kernel against its plain version: on bench.py's data at
+    each (C, N) of ``shapes``, chains near the mode; and every link with
+    weights, offsets and a (d,) prior row at ``ragged`` = (N 20,001, a
+    ragged last tile; d 7; C 300, a ragged last block of chains)."""
+    from mcmc_jl_tpu_torch.ops.glm_kernels import KIND_CODES
+
+    err = 0.0
+    for C, N in shapes:
+        X, Y, mode = _bench_mode(N)
+        rng = np.random.default_rng(41)
+        theta = mode + 0.05 * np.sqrt(1000 / N) * rng.standard_normal(
+            (C, X.shape[1]))
+        err = max(err, _tiled_case(f"bench data, C {C}, N {N}", _cuda(X.T),
+                                   _cuda(Y), _cuda(theta)))
+    rng = np.random.default_rng(42)
+    N, d, C = ragged
+    X = np.column_stack([np.ones(N), rng.standard_normal((N, d - 1))]) * 0.3
+    z = X @ rng.standard_normal(d)
+    W, O = rng.uniform(0.5, 2.0, N), 0.1 * rng.standard_normal(N)
+    lam = rng.uniform(0.5, 2.0, d)
+    theta = 0.05 * rng.standard_normal((C, d))
+    for kind in KIND_CODES:
+        Y = {"linear": z + rng.standard_normal(N),
+             "poisson": rng.poisson(np.exp(z)).astype(float)}.get(
+            kind, (rng.random(N) < 1 / (1 + np.exp(-z))).astype(float))
+        err = max(err, _tiled_case(
+            f"{kind}, weights+offsets, (d,) prior row, N {N}, d {d}, C {C}",
+            _cuda(X.T), _cuda(Y), _cuda(theta), kind, _cuda(W), _cuda(O),
+            _cuda(lam)))
+    return {"glm_logp_grad_tiled": err}
+
+
+def _replay_gap(XT, Y, state, m0, logu, eps, n_leaps):
+    """One transition of the chains in ``state`` = (theta, g, lp) with both
+    kernel families on the same momenta ``m0`` and log-uniforms ``logu``:
+    the smaller distance of the two MH ratios from log u, per chain."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops.glm_bign import _tiled_funcs
+    from mcmc_jl_tpu_torch.ops.glm_kernels import _trajectory, glm_leapfrogs
+
+    th, g, lp = state
+    h0 = -lp + 0.5 * (m0 * m0).sum(-1)
+    grad_only, logp_grad = _tiled_funcs(XT, Y, None, None, 1.0, "logistic")
+    _, ma, _, lpa = _trajectory(th, m0, g, eps, grad_only, logp_grad,
+                                n_leaps, "leapfrog")
+    _, mb, _, lpb = glm_leapfrogs(XT, Y, th, m0, g, eps, n_leaps=n_leaps)
+    gaps = [(h0 - (-lpx + 0.5 * (mx * mx).sum(-1)) - logu).abs()
+            for mx, lpx in ((ma, lpa), (mb, lpb))]
+    return torch.minimum(*gaps)
+
+
+def phase_cross_kernel(C=4096, N=10_000, steps=20, n_leaps=10):
+    """The two kernel families on one posterior: the tiled driver _run_bign
+    and the composed trajectory-kernel driver _run draw the same numbers
+    from one seed in the same order, so their chains must coincide.  A
+    chain may take another accept decision only where its MH ratio lies
+    within ACC_BAND * N / 1000 of log u (lp, a sum of N terms, carries
+    float32 rounding of its size): each such chain's first differing
+    transition is replayed with both families from the tiled run's state
+    on the same draws.  The chains with the same decisions end within
+    1e-4."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops.glm_bign import _run_bign, glm_logp_grad_tiled
+    from mcmc_jl_tpu_torch.ops.glm_hmc import _run
+    from mcmc_jl_tpu_torch.ops.glm_kernels import _draw
+
+    X, Y, mode = _bench_mode(N)
+    rng = np.random.default_rng(43)
+    th0 = _cuda(mode + 0.01 * rng.standard_normal((C, X.shape[1])))
+    XT, Yc = _cuda(X.T), _cuda(Y)
+    eps = 0.05 * np.sqrt(1000 / N)  # the posterior is sqrt(N / 1000) narrower
+    kw = dict(steps=steps, n_leaps=n_leaps, collect=True)
+    (a, _, _), ia = _run_bign(XT, Yc, th0, eps,
+                              torch.Generator(device="cuda").manual_seed(11),
+                              **kw)
+    (b, _, _), ib = _run(XT, Yc, th0, eps,
+                         torch.Generator(device="cuda").manual_seed(11), **kw)
+    torch.cuda.synchronize()
+    flips = ia["accept"] != ib["accept"]
+    same = ~flips.any(0)
+    err = float((a - b).abs()[same].max())
+    differ = (~same).nonzero().flatten().tolist()
+    gaps = []
+    if differ:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        draws = [_draw(th0, gen) for _ in range(steps)]
+        lp0, g0 = glm_logp_grad_tiled(XT, Yc, th0)
+        for c in differ:
+            t = int(flips[:, c].nonzero()[0])
+            sl = slice(c, c + 1)
+            state = ((th0[sl], g0[sl], lp0[sl]) if t == 0 else
+                     (ia["ppars"][t - 1, sl].contiguous(),
+                      ia["pgrads"][t - 1, sl].contiguous(),
+                      ia["plogtarget"][t - 1, sl]))
+            gaps.append(float(_replay_gap(XT, Yc, state, draws[t][0][sl],
+                                          draws[t][1][sl], eps, n_leaps)))
+    band = ACC_BAND * N / 1000
+    ok = err <= 1e-4 and all(gap < band for gap in gaps)
+    emit({"phase": "cross_kernel", "C": C, "N": N, "transitions": steps,
+          "eps": eps, "accept_rate": float(ia["accept"].float().mean()),
+          "chains_same_decisions": float(same.float().mean()),
+          "theta_max_abs_diff": err, "flip_ratio_gaps": gaps,
+          "acc_band": band, "ok": ok})
+    assert ok, "the tiled and the trajectory-kernel drivers disagree"
+
+
+def _path(label, task, chains, want, seed=0):
+    """``run(task, chains=...)`` with every count zeroed just before it and
+    read just after: each kernel launched as ``want`` says (a count, or a
+    predicate on it; 0 for the others), no plain version ran.  Returns
+    (chains, kept samples (chains, kept, d), launches, seconds, spans)."""
+    import mcmc_jl_tpu_torch as mt
+
+    t0 = time.perf_counter()
+    with _spans() as spans:
+        cs, launches = _counted(lambda: mt.run(task, chains=chains,
+                                               seed=seed))
+    dt = time.perf_counter() - t0
+    for k, n in launches.items():
+        w = want.get(k, 0)
+        assert (w(n) if callable(w) else n == w), (label, launches)
+    samples = np.stack([c.samples.values for c in cs])
+    assert samples.shape == (chains, len(task.runner.r), task.model.size)
+    assert np.all(np.isfinite(samples))
+    return cs, samples, launches, dt, spans
+
+
+def _origin(m, task, chains):
+    r = task.runner
+    return (f"run(model(glm=..., N={m.glm_spec.X.shape[0]}) * "
+            f"{task.sampler!r} * SerialMC(steps={r.len}, burnin={r.burnin}),"
+            f" chains={chains})")
+
+
+def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
+                        N=100_000, ref_steps=2000):
+    """N = 100,000 (bench.py's data; the posterior 10 times narrower than at
+    N = 1000), every chain starting at the posterior mode:
+
+    1. plain ``HMC(10, 0.005) * SerialMC(200, 50)`` at 4096 chains: the
+       tiled driver, once per drift; held against 512 generic-engine chains
+       from the same start over the same transitions;
+    2. adaptive ``HMC(10, 0.002, EmpMCTuner(0.8, adapt_step=50)) *
+       SerialMC(400, 100)`` at 512 chains: the warm route's sampling phase
+       through the tiled kernel; held against 512 of run 1's chains
+       continued ``ref_steps`` transitions.
+    Returns the tiled kernel's launches in run 1."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_bign import _run_bign
+
+    X, Y, mode = _bench_mode(N)
+    m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+    task = m * mt.HMC(10, 0.005) * mt.SerialMC(steps=200, burnin=50)
+    origin = _origin(m, task, chains)
+    cs, samples, launches, dt, spans = _path(
+        origin, task, chains, {"glm_logp_grad_tiled": 200 * 10 + 1})
+    acc = float(np.mean([mt.acceptance(c) for c in cs])) / 100
+    del cs
+    cg = mt.run(task, chains=generic_chains, seed=1, fused=False)
+    gs = np.stack([c.samples.values for c in cg])
+    z = _z_means(samples.mean(1), gs.mean(1))
+    emit({"phase": "large_n_path", "kernel": "glm_logp_grad_tiled",
+          "from": origin, "chains": chains, "seconds": dt, "spans_s": spans,
+          "launches": launches["glm_logp_grad_tiled"], "accept_rate": acc,
+          "generic_accept_rate": float(np.mean([mt.acceptance(c)
+                                                for c in cg])) / 100,
+          "pooled_mean": samples.mean((0, 1)).tolist(),
+          "generic_pooled_mean": gs.mean((0, 1)).tolist(),
+          "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+    counts = {"glm_logp_grad_tiled": (launches["glm_logp_grad_tiled"],
+                                      origin)}
+
+    spec = m.glm_spec
+    t0 = time.perf_counter()
+    _, ref = _run_bign(spec.X.T.contiguous(), spec.Y,
+                       _cuda(samples[:chains_adaptive, -1]), 0.005,
+                       torch.Generator(device="cuda").manual_seed(5),
+                       steps=ref_steps, n_leaps=10, collect=True)
+    ref_means = ref["ppars"].mean(0).double().cpu().numpy()
+    ref_s = time.perf_counter() - t0
+    del ref, samples, gs, cg
+
+    task = m * mt.HMC(10, 0.002, mt.EmpMCTuner(0.8, adapt_step=50)) \
+        * mt.SerialMC(steps=400, burnin=100)
+    origin = _origin(m, task, chains_adaptive)
+    cs, samples, launches, dt, spans = _path(
+        origin, task, chains_adaptive,
+        {"glm_logp_grad_tiled": lambda n: n >= 300 + 1})
+    st = cs[0].task.state
+    z = _z_means(samples.mean(1), ref_means)
+    emit({"phase": "large_n_path", "kernel": "glm_logp_grad_tiled",
+          "from": origin, "chains": chains_adaptive, "seconds": dt,
+          "spans_s": spans, "launches": launches["glm_logp_grad_tiled"],
+          "frozen_eps": st.tune.step_size.item(),
+          "frozen_n_leaps": st.tune.n_leaps.item(),
+          "accept_rate": float(np.mean([mt.acceptance(c) for c in cs])) / 100,
+          "reference": f"{chains_adaptive} chains of HMC(10, 0.005) "
+                       f"continued {ref_steps} transitions ({ref_s:.1f} s)",
+          "z_max_vs_reference": z, "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{origin} disagrees with the reference"
+    return counts
+
+
+def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
+    """N = 1000, every chain starting at the posterior mode, each run held
+    against ``hmc_means`` (:func:`_hmc_reference`):
+
+    - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
+      SerialMC(2000, 500)`` at 4096 chains (examples/warmstart_logistic.py):
+      1500 sampling transitions as 250 launches of 6 of the Halton
+      multistep kernel with the folded (d,) prior row;
+    - ``HMCDA()`` and ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50))``
+      under ``SerialMC(1000, 200)`` at 1024 chains: 100 launches of 8.
+    Returns the Halton kernel's launches in the first run."""
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, mode = _bench_mode(1000)
+    m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+    runs = (
+        (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
+                mass_adapt="diag"), 2000, 500, chains, 250),
+        (mt.HMCDA(), 1000, 200, chains_small, 100),
+        (mt.MALA(0.002, mt.EmpMCTuner(0.574, adapt_step=50)), 1000, 200,
+         chains_small, 100),
+    )
+    counts = {}
+    for sampler, steps, burnin, C, want in runs:
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = _origin(m, task, C)
+        cs, samples, launches, dt, spans = _path(
+            origin, task, C, {"glm_multistep_rows": want})
+        st = cs[0].task.state
+        frozen = ({"frozen_eps": st.leap_step.item()}
+                  if isinstance(sampler, mt.HMCDA) else
+                  {"frozen_step": st.tune.step_size.item(),
+                   "frozen_n_leaps": st.tune.n_leaps.item()})
+        z = _z_means(samples.mean(1), hmc_means)
+        emit({"phase": "warm_path", "kernel": "glm_multistep_rows",
+              "from": origin, "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches["glm_multistep_rows"], **frozen,
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs])) / 100,
+              "pooled_mean": samples.mean((0, 1)).tolist(),
+              "z_max_vs_hmc_reference": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the HMC reference"
+        counts.setdefault("glm_multistep_rows",
+                          (launches["glm_multistep_rows"], origin))
+    return counts
+
+
+def phase_new_kernel_times(C=4096, tiled=((4096, 100_000), (1024, 1_000_000)),
+                           family=(16_384, 100_000)):
+    """Per-launch device time of the Halton multistep kernel (the rows
+    check's shape: N 1000, k 8, eps 0.05, T 1.0) and of the N-tiled kernel
+    (C 4096 at N 100,000; C 1024 at N 1,000,000) beside their plain
+    versions and their bounds; the two products theta X^T and r X alone
+    (FP32, TF32 off) beside the tiled kernel, a yardstick that is not the
+    same function; and both kernel families per gradient at C 4096 and
+    N 16,384 and 100,000, where the route switches between them.
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    ms, work = {}, {}
+    X, Y, mode = _bench_mode(1000)
+    d = X.shape[1]
+    rng = np.random.default_rng(51)
+    XT, Yc = _cuda(X.T), _cuda(Y)
+    th = _cuda(mode + 0.05 * rng.standard_normal((C, d)))
+    gen_k = torch.Generator(device="cuda").manual_seed(7)
+    gen_p = torch.Generator(device="cuda").manual_seed(8)
+    args = (XT, Yc, th, 0.05, 1.0, 1, 40)
+    kern = lambda: gk.glm_multistep_rows(*args, k_trans=8,  # noqa: E731
+                                         generator=gen_k)
+    plain = lambda: gk.glm_multistep_rows_ref(*args, k_trans=8,  # noqa: E731
+                                              generator=gen_p)
+    out = kern()
+    evals = C * (1 + int(out[3]["nleaps"][:, 0].sum()))
+    work["glm_multistep_rows"] = _bound(evals, d, X.shape[0],
+                                        _nbytes((XT, Yc, th), out))
+    ms["glm_multistep_rows"] = (_event_ms(kern), _event_ms(plain, reps=2))
+    emit({"phase": "kernel_time", "name": "glm_multistep_rows", "C": C,
+          "N": X.shape[0], "k_trans": 8, "ms": ms["glm_multistep_rows"][0],
+          "plain_ms": ms["glm_multistep_rows"][1],
+          **work["glm_multistep_rows"], **CARD})
+
+    for C4, N4 in tiled:
+        X4, Y4, mode4 = _bench_mode(N4)
+        XT4, Y4c = _cuda(X4.T), _cuda(Y4)
+        th4 = _cuda(mode4 + 0.01 * rng.standard_normal((C4, d)))
+        r4 = torch.randn(C4, N4, device="cuda")
+        kern = lambda: gb.glm_logp_grad_tiled(XT4, Y4c, th4)  # noqa: E731
+        plain = lambda: gb.glm_logp_grad_tiled_ref(XT4, Y4c,  # noqa: E731
+                                                   th4)
+        bound = _bound(C4, d, N4, _nbytes((XT4, Y4c, th4), kern()))
+        t = (_event_ms(kern), _event_ms(plain, reps=2))
+        prod = (_event_ms(lambda: th4 @ XT4)
+                + _event_ms(lambda: r4 @ XT4.T))
+        del r4
+        emit({"phase": "kernel_time", "name": "glm_logp_grad_tiled",
+              "C": C4, "N": N4, "ms": t[0], "plain_ms": t[1], **bound,
+              "two_products_ms_not_the_same_function": prod, **CARD})
+        if (C4, N4) == tiled[0]:  # the large-N main path's shape
+            ms["glm_logp_grad_tiled"], work["glm_logp_grad_tiled"] = t, bound
+
+    for N5 in family:
+        X5, Y5, mode5 = _bench_mode(N5)
+        XT5, Y5c = _cuda(X5.T), _cuda(Y5)
+        th5 = _cuda(mode5 + 0.01 * rng.standard_normal((C, d)))
+        m5 = torch.randn(C, d, device="cuda")
+        _, g5 = gb.glm_logp_grad_tiled(XT5, Y5c, th5)
+        traj = _event_ms(lambda: gk.glm_leapfrogs(XT5, Y5c, th5, m5, g5,
+                                                  1e-3, n_leaps=10)) / 10
+        tiled = _event_ms(lambda: gb.glm_logp_grad_tiled(XT5, Y5c, th5))
+        emit({"phase": "family_per_gradient", "C": C, "N": N5,
+              "trajectory_kernel_ms_per_gradient": traj,
+              "tiled_kernel_ms_per_gradient": tiled, **CARD})
+    return ms, work
 
 
 def main():
     phase_device()
     import torch
 
-    phase_build()
-    errors = phase_kernels()
-    errors.update(phase_nuts_kernels())
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": "seconds", "of": name,
+              "seconds": time.perf_counter() - t0})
+        return out
+
+    step("build", phase_build)
+    errors = step("kernels", phase_kernels)
+    errors.update(step("nuts_kernels", phase_nuts_kernels))
+    errors.update(step("rows_kernel", phase_rows_kernel))
+    errors.update(step("bign_kernels", phase_bign_kernels))
+    step("cross_kernel", phase_cross_kernel)
     # each kernel's launches, counted from zero over one run of the entry
-    # point that reaches it: run(..., chains=N) for the trajectory kernel and
-    # the two NUTS kernels, the bench drivers for the other two
-    launches, final = phase_main_path()
-    launches.update(phase_drivers(final))
-    nuts_launches, start = phase_nuts_main_path(final)
+    # point that reaches it: run(..., chains=N) for the trajectory kernel,
+    # the two NUTS kernels, the Halton multistep kernel and the tiled
+    # kernel, the bench drivers for the step and multistep kernels
+    launches, final = step("main_path", phase_main_path)
+    launches.update(step("drivers", phase_drivers, final))
+    hmc_means = step("hmc_reference", _hmc_reference, final)
+    nuts_launches, start = step("nuts_main_path", phase_nuts_main_path,
+                                hmc_means)
     launches.update(nuts_launches)
+    launches.update(step("large_n_paths", phase_large_n_paths))
+    launches.update(step("warm_paths", phase_warm_paths, hmc_means))
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    phase_timing()
-    ms = phase_kernel_times()
-    ms.update(phase_nuts_timing(start))
+    step("timing", phase_timing)
+    ms, work = step("kernel_times", phase_kernel_times)
+    for more in (step("nuts_timing", phase_nuts_timing, start),
+                 step("new_kernel_times", phase_new_kernel_times)):
+        ms.update(more[0])
+        work.update(more[1])
+    # no single PyTorch call computes any of these functions: library_ms
+    # is null (the two products alone are timed in new_kernel_times)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[lib],
          "replaces": replaces, "launches": launches[name][0],
          "from": launches[name][1], "max_abs_err": errors[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
+         "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
+         "library_ms": None}
         for name, (lib, replaces) in REPLACES.items()]})
     print(CARD["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": CARD["kind"],

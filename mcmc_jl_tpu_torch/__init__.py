@@ -2,17 +2,21 @@
 
 The same ``chain = model * sampler * runner`` surface, on PyTorch tensors
 and hand-written CUDA kernels for the H100.  Ported so far:
-``model(glm=...)``/callable models, fixed-step ``HMC`` and exact ``NUTS``
-under ``SerialMC``, many chains through ``run(task, chains=N)``, the fused
-GLM-HMC kernels, the fused exact-NUTS kernels behind the warm-start
-pipeline, and the chain statistics.  It imports ``torch`` and never
+``model(glm=...)``/callable models; ``HMC`` (fixed step, EmpMCTuner,
+diagonal mass adaptation), ``HMCDA``, ``MALA`` and exact ``NUTS`` under
+``SerialMC``; many chains through ``run(task, chains=N)`` with the fused
+GLM-HMC kernels at any N (the N-tiled gradient kernel above 16384
+observations) and the warm-start pipeline (adaptive HMC/HMCDA/MALA through
+the Halton multistep kernel or the tiled kernel, exact NUTS through the
+NUTS kernels); and the chain statistics.  Models live on the CUDA card
+unless ``device="cpu"`` is given.  It imports ``torch`` and never
 ``jax``.
 
 Quick start::
 
     import mcmc_jl_tpu_torch as mt
 
-    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    m = mt.model(glm=("logistic", X, Y))  # on the card
     chains = mt.run(m * mt.HMC(10, 0.05) * mt.SerialMC(steps=1000, burnin=200),
                     chains=4096)
     mt.acceptance(chains[0]); mt.describe(chains[0])
@@ -22,22 +26,25 @@ Quick start::
 from .models.model import model, LogDensityModel, GLMSpec
 from .core.task import MCMCTask
 from .core.chain import MCMCChain
-from .samplers import HMC, HMCState, EmpMCTuner, NUTS, NUTSState
+from .samplers import (HMC, HMCState, HMCDA, HMCDAState, EmpMCTuner, MALA,
+                       MALAState, NUTS, NUTSState)
 from .runners.serialmc import SerialMC
 from .runners.api import run, resume, prun
 from .stats import (
     mean, mcvar, mcse, var, std, ess, actime, acceptance, describe,
 )
 from .utils.convert import (glm_model_from_spec, hmc_state_from_numpy,
+                            hmcda_state_from_numpy, mala_state_from_numpy,
                             nuts_state_from_numpy)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "model", "LogDensityModel", "GLMSpec", "MCMCTask", "MCMCChain",
-    "HMC", "HMCState", "EmpMCTuner", "NUTS", "NUTSState", "SerialMC", "run",
-    "resume", "prun",
+    "HMC", "HMCState", "HMCDA", "HMCDAState", "EmpMCTuner", "MALA",
+    "MALAState", "NUTS", "NUTSState", "SerialMC", "run", "resume", "prun",
     "mean", "mcvar", "mcse", "var", "std", "ess", "actime", "acceptance",
     "describe", "glm_model_from_spec", "hmc_state_from_numpy",
+    "hmcda_state_from_numpy", "mala_state_from_numpy",
     "nuts_state_from_numpy",
 ]

@@ -1,6 +1,7 @@
-// Device routines shared by the GLM kernels (glm_hmc.cu, glm_nuts.cu): the
-// link functions, the staging of observation rows in shared memory, the
-// fused log-target + gradient pass, and the Philox generator.
+// Device routines shared by the GLM kernels (glm_hmc.cu, glm_nuts.cu,
+// glm_bign.cu): the link functions, the staging of observation rows in
+// shared memory, the fused log-target + gradient pass, and the Philox
+// generator.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and

@@ -35,9 +35,14 @@ from ..utils.dtypes import real_dtype
 
 
 def resolve_device(device):
-    """``device`` as a ``torch.device``; asking for CUDA without a card
-    raises instead of silently running elsewhere."""
-    dev = torch.device(device if device is not None else "cpu")
+    """``device`` as a ``torch.device``.  ``None`` means the CUDA card; with
+    no card visible that raises and says to pass ``device="cpu"``, and so
+    does asking for CUDA: nothing runs on the CPU unasked."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible (torch.cuda.is_available() is False) "
+            "and no device was given: pass device=\"cpu\" to run on the CPU")
+    dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(dev)!r} requested but torch.cuda.is_available() is "
@@ -240,7 +245,8 @@ def model(
        analytic gradient.
 
     ``device`` and ``dtype`` say where and in what precision the model's
-    data and functions live.
+    data and functions live; the default device is the CUDA card (pass
+    ``device="cpu"`` to run on the CPU).
     """
     if mtype != "likelihood":
         raise ValueError(f"unsupported model type {mtype!r}")

@@ -10,6 +10,11 @@ reference HMC.jl:136-165).  Kernels compute in float32, as in the JAX
 package; :func:`final_hmc_states` re-evaluates the final states at the
 model's precision so a resume composes with the generic engine.
 
+Above ``glm_bign.BIGN_THRESHOLD`` observations :func:`fused_hmc_chains`
+runs the trajectory loop around the N-tiled gradient kernel instead
+(:mod:`.glm_bign`); plain MALA rides both through the one-leapfrog
+equivalence (:func:`fused_mala_chains`).
+
 On CPU tensors the kernel wrappers run their plain versions, which is what
 ``fused=True`` means off the card (the JAX package's ``interpret=True``).
 """
@@ -17,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .glm_kernels import (accept_test, glm_funcs, glm_leapfrogs,
+from .glm_kernels import (_draw, accept_test, glm_funcs, glm_leapfrogs,
                           glm_multistep, glm_step)
 
 
@@ -34,7 +39,6 @@ def _run(XT, Y, theta0, eps, generator, *, steps, n_leaps, kind="logistic",
     does refresh and accept here.  Both draw the same numbers from
     ``generator`` in the same order, so they give the same chains.
     Returns ((theta, lp, grad), infos stacked over steps)."""
-    C, d = theta0.shape
     kw = dict(n_leaps=n_leaps, kind=kind, weights=W, offsets=O,
               prior_prec=lam, integrator=integrator)
     theta = theta0
@@ -43,10 +47,7 @@ def _run(XT, Y, theta0, eps, generator, *, steps, n_leaps, kind="logistic",
     if collect:
         rows.update(ppars=[], pgrads=[])
     for _ in range(steps):
-        m0 = torch.randn((C, d), generator=generator, dtype=theta.dtype,
-                         device=theta.device)
-        logu = torch.log(torch.rand((C,), generator=generator,
-                                    dtype=theta.dtype, device=theta.device))
+        m0, logu = _draw(theta, generator)
         if fused_step:
             theta, g, lp2, acc = glm_step(XT, Y, theta, g, lp[:, None], m0,
                                           logu[:, None], eps, **kw)
@@ -181,24 +182,83 @@ def final_hmc_states(model, sampler, n_chains, steps_done, thetaF, lpF, gF):
     return sampler.reset(model, states, states.pars)
 
 
+def _glm_inputs(spec):
+    """The float32 kernel inputs of a GLM spec: (XT (d, N), Y, W, O)."""
+    f32 = lambda a: None if a is None else a.to(torch.float32).contiguous()  # noqa: E731
+    return (spec.X.T.to(torch.float32).contiguous(), f32(spec.Y),
+            f32(spec.weights), f32(spec.offsets))
+
+
 def fused_hmc_chains(model, sampler, runner, n_chains, generator,
                      fused_step="auto"):
     """Run ``n_chains`` plain-HMC chains on a ``model(glm=...)`` posterior
     through the fused kernels, returning ``(infos, final_states)`` in the
     protocol of :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`
-    (float32 compute; post-accept keys only)."""
+    (float32 compute; post-accept keys only).  Above
+    :data:`~mcmc_jl_tpu_torch.ops.glm_bign.BIGN_THRESHOLD` observations the
+    trajectory loop runs here around the N-tiled gradient kernel."""
+    from . import glm_bign
+
     spec = model.glm_spec
     if spec is None:
         raise ValueError("fused_hmc_chains requires a model(glm=...) model")
-    f32 = lambda a: None if a is None else a.to(torch.float32).contiguous()  # noqa: E731
-    XT = spec.X.T.to(torch.float32).contiguous()
+    XT, Y, W, O = _glm_inputs(spec)
     theta0 = model.init.to(torch.float32).expand(n_chains, -1).contiguous()
-    (thetaF, lpF, gF), infos = _run(
-        XT, f32(spec.Y), theta0, sampler.leap_step, generator,
-        steps=runner.len, n_leaps=sampler.n_leaps, kind=spec.kind,
-        W=f32(spec.weights), O=f32(spec.offsets), lam=spec.prior_prec,
-        collect=True, integrator=sampler.integrator,
-        fused_step=_choose_fused_step(fused_step))
+    kw = dict(steps=runner.len, n_leaps=sampler.n_leaps, kind=spec.kind,
+              W=W, O=O, lam=spec.prior_prec, collect=True,
+              integrator=sampler.integrator)
+    if spec.X.shape[0] > glm_bign.BIGN_THRESHOLD:
+        (thetaF, lpF, gF), infos = glm_bign._run_bign(
+            XT, Y, theta0, sampler.leap_step, generator, **kw)
+    else:
+        (thetaF, lpF, gF), infos = _run(
+            XT, Y, theta0, sampler.leap_step, generator,
+            fused_step=_choose_fused_step(fused_step), **kw)
     states = final_hmc_states(model, sampler, n_chains, runner.len,
                               thetaF, lpF, gF)
     return infos, states
+
+
+def fused_mala_chains(model, sampler, runner, n_chains, generator):
+    """Run plain-MALA chains on a ``model(glm=...)`` posterior through the
+    fused kernels (glm_hmc.py ``fused_mala_chains``).
+
+    MALA with drift step (variance) ``s`` is one-leapfrog HMC at
+    ``eps = sqrt(s)``: the leapfrog proposal ``theta + (eps^2/2) g + eps m``
+    is exactly ``N(theta + (s/2) g, s I)`` and the Hamiltonian MH ratio
+    equals MALA's q-corrected one (reference MALA.jl:65-126 vs
+    HMC.jl:93-102).  Up to ``BIGN_THRESHOLD`` observations the Halton rows
+    kernel runs k transitions per launch with ``T = eps`` and
+    ``max_leaps = 1``, which pins every leap count to 1; above it the tiled
+    driver runs ``HMC(1, eps)``.  Returns ``(infos, final_states)`` with
+    exact-resume MALAStates."""
+    import math
+
+    from ..samplers.base import tuner_init
+    from ..samplers.hmc import HMC
+    from ..samplers.mala import MALAState
+    from .warmstart import _chees_run_ms, _ms_route
+
+    spec = model.glm_spec
+    eps = math.sqrt(sampler.scale)
+    use_ms, kt = _ms_route(spec, runner.len)
+    if not use_ms:
+        infos, hst = fused_hmc_chains(model, HMC(1, eps), runner, n_chains,
+                                      generator)
+        pars, i = hst.pars, hst.i
+    else:
+        XT, Y, W, O = _glm_inputs(spec)
+        theta0 = model.init.to(torch.float32).expand(n_chains, -1).contiguous()
+        (thetaF, _, _), infos = _chees_run_ms(
+            XT, Y, theta0, eps, eps, generator, steps=runner.len, i0=1,
+            max_leaps=1, k_trans=kt, kind=spec.kind, W=W, O=O,
+            lam=spec.prior_prec)
+        infos = {k: infos[k] for k in ("ppars", "pgrads", "plogtarget",
+                                       "accept")}
+        pars = thetaF.to(model.device, model.dtype)
+        i = torch.full((n_chains,), runner.len + 1, dtype=torch.int32,
+                       device=model.device)
+    tune = tuner_init(sampler.scale, shape=(n_chains,), dtype=model.dtype,
+                      device=model.device)
+    lp, g = model.evalallg(pars)  # at model precision: an exact resume
+    return infos, MALAState(pars=pars, logtarget=lp, grad=g, tune=tune, i=i)

@@ -1,7 +1,7 @@
 """Fused GLM-HMC kernels: the port of ``mcmc_jl_tpu/ops/pallas_glm.py``.
 
-Three kernels, written in CUDA C++ for Hopper in ``csrc/glm_hmc.cu``, replace
-the three Pallas kernel bodies on the main path:
+Four kernels, written in CUDA C++ for Hopper in ``csrc/glm_hmc.cu``, replace
+the Pallas kernel bodies:
 
 ============================  =========================================
 wrapper (this module)         Pallas kernel it replaces
@@ -10,6 +10,9 @@ wrapper (this module)         Pallas kernel it replaces
 :func:`glm_step`              ``pallas_glm.py _step_kernel`` (one transition)
 :func:`glm_multistep`         ``pallas_glm.py _multistep_kernel``,
                               ``halton=False`` (k transitions, RNG inside)
+:func:`glm_multistep_rows`    the same body with ``halton=True,
+                              collect_rows=True`` (k transitions of shared
+                              Halton-jittered length, per-transition rows)
 ============================  =========================================
 
 Each has a plain PyTorch version beside it (``*_ref``) that does the same
@@ -21,8 +24,9 @@ CUDA tensors it launches the kernel or raises.  Each launch adds one to
 Layouts follow the JAX package at the public functions, minus its TPU
 padding: the transposed design ``XT`` is (d, N), ``Y``/weights/offsets are
 (N,) or (1, N), chain states are unpadded (C, d).  The prior is N(0, 1/lam I)
-with a scalar ``lam``.  The kernels take the four built-in links; the plain
-versions also take a custom ``(ll, resid)`` pair.
+with a scalar ``lam``, or for :func:`glm_multistep_rows` also a (d,) row.
+The kernels take the four built-in links; the plain versions also take a
+custom ``(ll, resid)`` pair.
 """
 from __future__ import annotations
 
@@ -31,14 +35,16 @@ import math
 
 import torch
 
+from ..samplers.chees import halton2
 from ..samplers.integrators import SCHEDULES
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: largest parameter count the kernels take (csrc/glm_hmc.cu bound_for)
 D_MAX = 32
 
-LAUNCHES = {"glm_leapfrogs": 0, "glm_step": 0, "glm_multistep": 0}
-PLAIN_CALLS = {"glm_leapfrogs": 0, "glm_step": 0, "glm_multistep": 0}
+_NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
+LAUNCHES = dict.fromkeys(_NAMES, 0)
+PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
 def reset_counts():
@@ -99,6 +105,37 @@ def _scalar_prior(prior_prec):
             "vector/matrix prior precisions (the warm-start mass folds) are "
             "not ported yet (ROADMAP queue 1 item 12)")
     return float(prior_prec)
+
+
+def _prior(prior_prec):
+    """A scalar float or a (d,) tensor; a (d, d) matrix is the dense fold."""
+    if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() > 1:
+        if prior_prec.ndim == 2 and min(prior_prec.shape) > 1:
+            raise NotImplementedError(
+                "a (d, d) prior precision (the dense-metric fold) is not "
+                "ported yet (ROADMAP queue 1 item 9)")
+        return prior_prec.reshape(-1)
+    return float(prior_prec)
+
+
+def _prior_args(name, prior_prec, d, dev):
+    """(scalar lam, (d,) row or None) as the kernels take them."""
+    lam = _prior(prior_prec)
+    if isinstance(lam, float):
+        return lam, None
+    if lam.shape != (d,):
+        raise ValueError(f"{name}: prior row has shape {tuple(lam.shape)}, "
+                         f"want ({d},)")
+    return 1.0, lam.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def halton_leaps(i, eps, T, max_leaps):
+    """The shared leap count of absolute transition ``i`` (warmstart.py
+    ``_chees_scan``): ``clip(ceil(halton2(i) * T / eps), 1, max_leaps)``,
+    in float32 in that order, as the kernel computes it."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    nl = torch.ceil(halton2(i) * f32(T) / f32(eps))
+    return int(torch.clamp(nl, 1, max_leaps))
 
 
 def _row(v):
@@ -225,6 +262,58 @@ def glm_multistep_ref(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
     return theta, g, lp, n_acc / k_trans
 
 
+def _draw(theta, generator):
+    """One transition's momenta and MH log-uniform from ``generator``."""
+    m0 = torch.randn(theta.shape, generator=generator, dtype=theta.dtype,
+                     device=theta.device)
+    logu = torch.log(torch.rand(theta.shape[:1], generator=generator,
+                                dtype=theta.dtype, device=theta.device))
+    return m0, logu
+
+
+def glm_multistep_rows_ref(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
+                           generator=None, noise=None, kind="logistic",
+                           weights=None, offsets=None, prior_prec=1.0,
+                           integrator="leapfrog"):
+    """Plain version of :func:`glm_multistep_rows`: ``k_trans`` whole
+    transitions, transition ``t`` integrating the shared leap count
+    :func:`halton_leaps` of ``i0 + t``.
+
+    The momenta and MH log-uniforms come from ``noise = (z (k, C, d), logu
+    (k, C))`` when given, else from ``generator`` (another stream than the
+    kernel's Philox: compare statistically).  Returns (theta, grad, lp (C,),
+    rows) with rows ``ppars``/``pgrads`` (k, C, d), ``plogtarget``/``alpha``
+    (k, C), ``accept`` (k, C) bool and ``nleaps`` (k, C) int32, each after
+    its transition."""
+    PLAIN_CALLS["glm_multistep_rows"] += 1
+    grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
+                                     _prior(prior_prec), kind)
+    lp, g = logp_grad(theta)
+    rows = {k: [] for k in ("ppars", "pgrads", "plogtarget", "accept",
+                            "alpha", "nleaps")}
+    for t in range(k_trans):
+        nl = halton_leaps(i0 + t, eps, T, max_leaps)
+        m0, logu = ((noise[0][t], noise[1][t]) if noise is not None
+                    else _draw(theta, generator))
+        h0 = -lp + 0.5 * (m0 * m0).sum(-1)
+        th_p, m, g_p, lp_p = _trajectory(theta, m0, g, eps, grad_only,
+                                         logp_grad, nl, integrator)
+        h1 = -lp_p + 0.5 * (m * m).sum(-1)
+        ratio = h0 - h1
+        a = accept_test(h0, h1, logu)
+        theta = torch.where(a[:, None], th_p, theta)
+        g = torch.where(a[:, None], g_p, g)
+        lp = torch.where(a, lp_p, lp)
+        for k, v in (("ppars", theta), ("pgrads", g), ("plogtarget", lp),
+                     ("accept", a),
+                     ("alpha", torch.where(torch.isnan(ratio), 0.0,
+                                           torch.exp(ratio.clamp(max=0.0)))),
+                     ("nleaps", torch.full(lp.shape, nl, dtype=torch.int32,
+                                           device=lp.device))):
+            rows[k].append(v)
+    return theta, g, lp, {k: torch.stack(v) for k, v in rows.items()}
+
+
 # ---- CUDA kernels ----------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -239,6 +328,8 @@ _ARGTYPES = {
     "glm_multistep": [_P] * 4 + [_I] * 3 + [_P] * 5 + [_F, _F, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
+    "glm_multistep_rows": [_P] * 5 + [_I] * 3 + [_P] * 10 + [_F] * 3
+    + [_I] * 4 + [ctypes.c_ulonglong] + _SCHED + [_P],
 }
 
 
@@ -405,3 +496,46 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
                 int(n_leaps), int(k_trans), KIND_CODES[kind], int(seed),
                 *_sched(integrator))
     return th_o, g_o, lp_o, acc_o
+
+
+def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
+                       generator=None, kind="logistic", weights=None,
+                       offsets=None, prior_prec=1.0, integrator="leapfrog"):
+    """``k_trans`` whole HMC transitions per launch, transition ``t``
+    integrating the shared Halton-jittered leap count of absolute transition
+    ``i0 + t`` (:func:`halton_leaps`), with per-transition post-accept rows.
+    The momenta and MH uniforms are drawn inside the kernel from
+    Philox4x32-10 keyed by a seed drawn from ``generator`` and counted by
+    (chain, absolute transition, draw): a generator in the same state repeats
+    a launch bitwise.  ``prior_prec`` is a scalar or a (d,) row.
+    Returns (theta, grad, lp (C,), rows) as :func:`glm_multistep_rows_ref`."""
+    name = "glm_multistep_rows"
+    if not _device_branch(name, theta):
+        return glm_multistep_rows_ref(
+            XT, Y, theta, eps, T, i0, max_leaps, k_trans=k_trans,
+            generator=generator, kind=kind, weights=weights, offsets=offsets,
+            prior_prec=prior_prec, integrator=integrator)
+    if k_trans < 1 or max_leaps < 1 or i0 < 0:
+        raise ValueError(f"{name}: need k_trans, max_leaps >= 1 and i0 >= 0, "
+                         f"got {k_trans}, {max_leaps}, {i0}")
+    N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
+                           {"theta": theta})
+    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+    dev = theta.device
+    f32 = lambda *shape: torch.empty(shape, dtype=theta.dtype, device=dev)  # noqa: E731
+    th_o, g_o, lp_o = f32(C, d), f32(C, d), f32(C)
+    r_th, r_g = f32(k_trans, C, d), f32(k_trans, C, d)
+    r_lp, r_acc, r_alpha = (f32(k_trans, C) for _ in range(3))
+    r_nl = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
+                N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
+                _ptr(r_th), _ptr(r_g), _ptr(r_lp), _ptr(r_acc), _ptr(r_alpha),
+                _ptr(r_nl), float(eps), float(T), lam, int(i0),
+                int(max_leaps), int(k_trans), KIND_CODES[kind], int(seed),
+                *_sched(integrator))
+    return th_o, g_o, lp_o, {"ppars": r_th, "pgrads": r_g, "plogtarget": r_lp,
+                             "accept": r_acc > 0.5, "alpha": r_alpha,
+                             "nleaps": r_nl}

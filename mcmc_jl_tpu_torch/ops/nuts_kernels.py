@@ -37,8 +37,8 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, _check, _device_branch, _ptr, _row,
-                          glm_funcs)
+from .glm_kernels import (KIND_CODES, _check, _device_branch, _prior,
+                          _prior_args, _ptr, _row, glm_funcs)
 
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
@@ -53,17 +53,6 @@ def reset_counts():
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
-
-
-def _prior(prior_prec):
-    """A scalar float or a (d,) tensor; a (d, d) matrix is the dense fold."""
-    if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() > 1:
-        if prior_prec.ndim == 2 and min(prior_prec.shape) > 1:
-            raise NotImplementedError(
-                "a (d, d) prior precision (the dense-metric fold) is not "
-                "ported yet (ROADMAP queue 1 item 9)")
-        return prior_prec.reshape(-1)
-    return float(prior_prec)
 
 
 def _check_md(maxdoublings):
@@ -268,17 +257,6 @@ def _launch(name, *args):
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.nuts_error_string(code).decode()} ({code})")
     LAUNCHES[name] += 1
-
-
-def _prior_args(name, prior_prec, d, dev):
-    """(scalar lam, (d,) row or None) as the kernel takes them."""
-    lam = _prior(prior_prec)
-    if isinstance(lam, float):
-        return lam, None
-    if lam.shape != (d,):
-        raise ValueError(f"{name}: prior row has shape {tuple(lam.shape)}, "
-                         f"want ({d},)")
-    return 1.0, lam.to(device=dev, dtype=torch.float32).contiguous()
 
 
 def _check_noise(name, C, md, dev, **bufs):

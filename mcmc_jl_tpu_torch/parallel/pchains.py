@@ -9,9 +9,11 @@ item 15.
 
 ``run_chains`` is the engine (returns stacked tensors, kept on the device);
 ``prun_serialmc`` adapts it to the reference's ``prun`` surface (a list of
-per-task chains) and routes plain-HMC groups on GLM posteriors to the fused
-CUDA kernels (ops/glm_hmc.py), exact-NUTS groups to the warm-start pipeline
-(ops/warmstart.py).
+per-task chains) and routes groups on GLM posteriors to the fused CUDA
+kernels: plain HMC and plain MALA to the HMC drivers (ops/glm_hmc.py; above
+``BIGN_THRESHOLD`` observations the N-tiled kernel, ops/glm_bign.py),
+adaptive HMC, HMCDA, adaptive MALA and exact NUTS to the warm-start
+pipeline (ops/warmstart.py).
 """
 from __future__ import annotations
 
@@ -24,12 +26,8 @@ import torch
 from ..core.chain import MCMCChain
 from ..core.task import MCMCTask
 from ..samplers.base import RunCtx, make_generator, tree_map
+from ..ops import glm_bign
 from ..utils.table import Table
-
-#: above this many observations the JAX package switches to its N-tiled
-#: gradient kernel (ops/pallas_glm_bign.py), not ported yet: such groups run
-#: on the generic engine
-BIGN_THRESHOLD = 16384
 
 log = logging.getLogger(__name__)
 
@@ -89,40 +87,56 @@ def _plain_hmc(task):
     )
 
 
+def _plain_mala(task):
+    from ..samplers.mala import MALA
+
+    s = task.sampler
+    # plain MALA is one-leapfrog HMC at eps = sqrt(drift step)
+    # (ops/glm_hmc.fused_mala_chains; reference MALA.jl:65-126)
+    return type(s) is MALA and s.tuner is None
+
+
 def _fused_eligible(task):
-    """Plain fixed-step HMC on a model(glm=...) posterior can route to the
-    fused GLM kernels (ops/glm_hmc.py)."""
+    """Plain fixed-step HMC, or plain MALA through the one-leapfrog
+    equivalence, on a model(glm=...) posterior can route to the fused GLM
+    kernels (ops/glm_hmc.py)."""
     return getattr(task.model, "glm_spec", None) is not None \
-        and _plain_hmc(task)
+        and (_plain_hmc(task) or _plain_mala(task))
 
 
-def _kernel_shape_ok(model):
-    """What the ported GLM kernels take: a built-in link, d <= D_MAX and
-    N <= BIGN_THRESHOLD; None when they do, else the reason."""
+def _kernel_shape_ok(model, route):
+    """What the ported GLM kernels take on ``route``: a built-in link,
+    d <= D_MAX, and for exact NUTS N <= BIGN_THRESHOLD; None when they do,
+    else the reason."""
     from ..ops.glm_kernels import D_MAX, KIND_CODES
 
     spec = model.glm_spec
     if not isinstance(spec.kind, str) or spec.kind not in KIND_CODES:
         return "a custom (ll, resid) link has no CUDA kernel yet"
     N, d = spec.X.shape
-    if N > BIGN_THRESHOLD:
-        return (f"N = {N} > {BIGN_THRESHOLD} needs the N-tiled kernel, "
-                f"not ported yet")
+    if route == "nuts" and N > glm_bign.BIGN_THRESHOLD:
+        return (f"exact NUTS at N = {N} > {glm_bign.BIGN_THRESHOLD} needs a "
+                f"large-N NUTS route, not ported yet (ROADMAP queue 1 item "
+                f"12)")
     if d > D_MAX:
         return f"d = {d} > {D_MAX}, the kernel's bound"
     return None
 
 
 def _route(t, fused):
-    """Decide before any launch which route a group takes: "hmc" (the fused
-    GLM-HMC kernels), "nuts" (generic warmup, then the fused exact-NUTS
-    kernels) or False (the generic engine).
+    """Decide before any launch which route a group takes: "hmc" (plain
+    HMC or plain MALA through the fused GLM-HMC drivers), "warm" (adaptive
+    HMC, HMCDA or adaptive MALA: generic warmup, then the Halton multistep
+    or the N-tiled kernel), "nuts" (generic warmup, then the exact-NUTS
+    kernels) or False (the generic engine).  Above ``BIGN_THRESHOLD``
+    observations the "hmc" and "warm" routes run the N-tiled gradient
+    kernel.
 
     ``fused=False``: never fused.  ``"auto"``: when the model lives on a
     CUDA device in float32 and the kernels take its shape.  ``True``:
     whenever the kernels take its shape (on the CPU the wrappers then run
     their plain versions)."""
-    from ..ops.warmstart import _warm_ok
+    from ..ops.warmstart import warm_eligible
     from ..samplers.nuts import NUTS
 
     if fused is False:
@@ -131,18 +145,13 @@ def _route(t, fused):
     if fused == "auto" and not (m.device.type == "cuda"
                                 and m.dtype == torch.float32):
         return False
-    if isinstance(t.sampler, NUTS) and t.sampler.warm_handoff:
-        log.info("prun: NUTS(warm_handoff=True) needs the Halton multistep "
-                 "kernel, not ported yet; running exact NUTS on the generic "
-                 "torch engine")
-        return False
     if _fused_eligible(t):
         route = "hmc"
-    elif _warm_ok(t.model, t.sampler, t.runner):
-        route = "nuts"
+    elif warm_eligible(t):
+        route = "nuts" if isinstance(t.sampler, NUTS) else "warm"
     else:
         return False
-    why = _kernel_shape_ok(m)
+    why = _kernel_shape_ok(m, route)
     if why is None and route == "nuts":
         from ..ops.nuts_kernels import MAX_DOUBLINGS
 
@@ -160,12 +169,12 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
 
     Tasks with identical (model, sampler, runner) are batched into one run;
     heterogeneous lists split into groups.  ``fused``: "auto" (default)
-    routes plain-HMC groups, and exact-NUTS groups with a burn-in, on
-    ``model(glm=...)`` posteriors held in float32 on a CUDA device to the
-    fused CUDA kernels (see :func:`_route`); ``True`` forces the fused
-    drivers (their plain versions on the CPU, for tests); ``False`` always
-    uses the generic engine.  A kernel that fails to build or launch
-    raises."""
+    routes plain HMC and MALA groups, and adaptive HMC, HMCDA, MALA and
+    exact-NUTS groups with a burn-in, on ``model(glm=...)`` posteriors held
+    in float32 on a CUDA device to the fused CUDA kernels (see
+    :func:`_route`); ``True`` forces the fused drivers (their plain
+    versions on the CPU, for tests); ``False`` always uses the generic
+    engine.  A kernel that fails to build or launch raises."""
     t0 = time.time()
 
     groups = {}
@@ -182,13 +191,18 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
         route = _route(t, fused)
         if route and fused == "auto":
             log.info("prun: routing %d %s chains to the fused CUDA GLM "
-                     "kernels (f32); pass fused=False for the generic "
-                     "engine", n, "plain-HMC" if route == "hmc" else "NUTS")
+                     "kernels (f32, %s route); pass fused=False for the "
+                     "generic engine", n, type(t.sampler).__name__, route)
         if route == "hmc":
-            from ..ops.glm_hmc import fused_hmc_chains
+            from ..ops.glm_hmc import fused_hmc_chains, fused_mala_chains
 
-            infos, final_states = fused_hmc_chains(t.model, t.sampler,
-                                                   t.runner, n, gen)
+            glm_fn = fused_mala_chains if _plain_mala(t) else fused_hmc_chains
+            infos, final_states = glm_fn(t.model, t.sampler, t.runner, n, gen)
+        elif route == "warm":
+            from ..ops.warmstart import warmfused_hmc_chains
+
+            infos, final_states = warmfused_hmc_chains(t.model, t.sampler,
+                                                       t.runner, n, gen)
         elif route == "nuts":
             from ..ops.warmstart import warmfused_nuts_exact_chains
 

@@ -1,8 +1,11 @@
-"""Samplers ported so far: fixed-metric HMC, exact NUTS and their
-machinery."""
+"""Samplers ported so far: HMC (fixed step, EmpMCTuner, diagonal mass
+adaptation), HMCDA, MALA, exact NUTS and their machinery."""
 from .base import EmpMCTuner, RunCtx, Sampler, TuneState, tuner_init, tuner_update
 from .hmc import HMC, HMCState
+from .hmcda import HMCDA, HMCDAState
+from .mala import MALA, MALAState
 from .nuts import NUTS, NUTSState
 
 __all__ = ["EmpMCTuner", "RunCtx", "Sampler", "TuneState", "tuner_init",
-           "tuner_update", "HMC", "HMCState", "NUTS", "NUTSState"]
+           "tuner_update", "HMC", "HMCState", "HMCDA", "HMCDAState", "MALA",
+           "MALAState", "NUTS", "NUTSState"]

@@ -8,6 +8,10 @@ Semantics matched to the reference:
   (HMC.jl:37-47, 167-173)
 - ``store_leaps`` records the whole trajectory for Rao-Blackwellized means
   (HMC.jl:144-151) — as (n_leaps+1) rows of (pars, H).
+- optional diagonal mass adaptation (``mass_adapt=True``/``"diag"`` or
+  ``"diag-win"``, samplers/massadapt.py) folded into the integrator as a
+  per-coordinate step ``eps * scale``; ``"dense"`` is ROADMAP queue 1 item
+  9 and raises.
 
 The state may hold one chain (``pars`` of shape (d,)) or C chains on a
 leading dimension; with a tuner every chain carries its own step and leap
@@ -26,7 +30,8 @@ from .base import (
     tuner_init, tuner_update,
 )
 from .integrators import get_integrator, hamiltonian
-from .massadapt import MassAccum, mass_init, mass_kind
+from .massadapt import (MassAccum, mass_init, mass_kind, mass_update,
+                        mass_vector_scale)
 
 
 @state_dataclass
@@ -45,7 +50,7 @@ class HMC(Sampler):
     leap_step: float = 0.1
     store_leaps: bool = False
     tuner: Optional[EmpMCTuner] = None
-    #: only False is ported for HMC (samplers/massadapt.py)
+    #: False | True/"diag" (continuous Welford) | "diag-win"
     mass_adapt: object = False
     #: "leapfrog" (reference parity) | "2stage" | "3stage"
     integrator: str = "leapfrog"
@@ -88,10 +93,7 @@ class HMC(Sampler):
         object.__setattr__(self, "leap_step", float(leap_step))
         object.__setattr__(self, "store_leaps", bool(store_leaps))
         object.__setattr__(self, "tuner", tuner)
-        if mass_kind(mass_adapt) is not None:
-            raise NotImplementedError(
-                f"HMC(mass_adapt={mass_adapt!r}) is not ported yet (ROADMAP "
-                f"queue 1 item 9); use mass_adapt=False")
+        mass_kind(mass_adapt)  # validate early ("dense" raises)
         object.__setattr__(self, "mass_adapt", mass_adapt)
         get_integrator(integrator)  # validate early
         object.__setattr__(self, "integrator", integrator)
@@ -129,6 +131,11 @@ class HMC(Sampler):
         else:
             eps = self.leap_step
             nl = None
+        kind = self._kind
+        if kind is not None:
+            # vector leapfrog step = eps * scale: diagonal mass
+            # preconditioning folded into the integrator
+            eps = eps * mass_vector_scale(kind, state.mass, pars0.dtype)
 
         m0 = torch.randn(pars0.shape, generator=generator, dtype=pars0.dtype,
                          device=pars0.device)
@@ -179,6 +186,8 @@ class HMC(Sampler):
 
         tune = tuner_update(self.tuner, state.tune, state.i, accept,
                             ctx.burnin, with_leaps=True)
+        # mass-warmup accumulator transition on the post-accept position
+        mass = mass_update(kind, state.mass, new_pars, state.i, ctx.burnin)
 
         info = {
             "ppars": new_pars,
@@ -192,6 +201,6 @@ class HMC(Sampler):
         }
         return (
             HMCState(pars=new_pars, logtarget=new_lp, grad=new_grad, tune=tune,
-                     i=state.i + 1, mass=state.mass),
+                     i=state.i + 1, mass=mass),
             info,
         )

@@ -1,9 +1,10 @@
 """Carry models and sampler states over from the JAX package.
 
 Works on numpy arrays only, so neither package imports the other: take a JAX
-``GLMSpec``'s fields, or a JAX ``HMCState``/``NUTSState`` after
-``jax.device_get`` turned into a (nested) dict of numpy arrays, and build the
-port's counterpart.
+``GLMSpec``'s fields, or a JAX ``HMCState``/``NUTSState``/``MALAState``/
+``HMCDAState`` after ``jax.device_get`` turned into a (nested) dict of numpy
+arrays, and build the port's counterpart.  ``device=None`` means the CUDA
+card, as everywhere in the port; pass ``device="cpu"`` to build on the CPU.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from ..models.model import model, resolve_device
 from ..samplers.base import TuneState
 from ..samplers.hmc import HMCState
+from ..samplers.hmcda import HMCDAState
+from ..samplers.mala import MALAState
 from ..samplers.massadapt import MassAccum
 from ..samplers.nuts import NUTSState
 
@@ -59,6 +62,21 @@ def nuts_state_from_numpy(state, device=None, dtype=None):
     dict (``pars, logtarget, grad, epsilon, mu, hbar, lebar, tlen, i`` and a
     nested ``mass`` dict) of numpy arrays; as :func:`hmc_state_from_numpy`."""
     return _state_from_numpy(NUTSState, state, device, dtype)
+
+
+def mala_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`MALAState` from a JAX ``MALAState`` given as a
+    dict (``pars, logtarget, grad, i`` and a nested ``tune`` dict) of numpy
+    arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(MALAState, state, device, dtype)
+
+
+def hmcda_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`HMCDAState` from a JAX ``HMCDAState`` given as a
+    dict (``pars, logtarget, grad, leap_step, dual_leap_step, dual_h, mu, i``
+    and a nested ``mass`` dict) of numpy arrays; as
+    :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(HMCDAState, state, device, dtype)
 
 
 def _state_from_numpy(cls, state, device, dtype):

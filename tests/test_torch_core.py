@@ -43,7 +43,7 @@ def test_glm_model_matches_jax(kind):
     o = 0.1 * rng.standard_normal(X.shape[0])
     jm = mc.model(glm=(kind, X, Y), weights=w, offsets=o, prior_prec=1.7)
     tm = mt.model(glm=(kind, X, Y), weights=w, offsets=o, prior_prec=1.7,
-                  dtype=F64)
+                  dtype=F64, device="cpu")
     th = 0.3 * rng.standard_normal((3, X.shape[1]))
     lp_t, g_t = tm.evalallg(torch.as_tensor(th))
     for c in range(3):
@@ -63,7 +63,8 @@ def test_callable_model_gradient_matches_jax():
                   gradient=True, init=jnp.zeros(3))
     At = torch.as_tensor(A)
     tm = mt.model(lambda v: -0.5 * v @ At @ v + torch.sin(v).sum(),
-                  gradient=True, init=np.zeros(3), dtype=F64)
+                  gradient=True, init=np.zeros(3), dtype=F64,
+                  device="cpu")
     th = np.random.default_rng(3).standard_normal((4, 3))
     lp_t, g_t = tm.evalallg(torch.as_tensor(th))
     for c in range(4):
@@ -78,7 +79,7 @@ def test_integrator_step_matches_jax(name):
     """(d) one step of each integrator on the same GLM model, float64."""
     X, Y = _data("logistic", seed=4)
     jm = mc.model(glm=("logistic", X, Y))
-    tm = mt.model(glm=("logistic", X, Y), dtype=F64)
+    tm = mt.model(glm=("logistic", X, Y), dtype=F64, device="cpu")
     rng = np.random.default_rng(5)
     th, m = 0.2 * rng.standard_normal(4), rng.standard_normal(4)
     _, g = jm.evalallg(jnp.asarray(th))
@@ -94,6 +95,7 @@ def test_integrator_step_matches_jax(name):
 def test_import_leaves_jax_out():
     """(h) the port never imports jax."""
     code = ("import sys, mcmc_jl_tpu_torch, mcmc_jl_tpu_torch.ops.glm_hmc, "
+            "mcmc_jl_tpu_torch.ops.glm_bign, mcmc_jl_tpu_torch.ops.warmstart, "
             "mcmc_jl_tpu_torch.parallel.pchains, mcmc_jl_tpu_torch.utils.convert;"
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('mcmc_jl_tpu.') for m in sys.modules) else 0)")
@@ -111,6 +113,30 @@ def test_cuda_device_without_card_raises():
         mt.model(glm=("logistic", X, Y), device="cuda")
 
 
+def test_default_device_is_the_card():
+    """(i) with no device given, models, drivers and state conversion go to
+    the CUDA card; with no card they raise and name device="cpu", which
+    works.  Nothing runs on the CPU unasked."""
+    X, Y = _data("logistic", seed=10)
+    if torch.cuda.is_available():
+        assert mt.model(glm=("logistic", X, Y)).device.type == "cuda"
+        return
+    from mcmc_jl_tpu_torch.ops.glm_bign import run_glm_hmc_bign
+    from mcmc_jl_tpu_torch.ops.glm_hmc import run_glm_hmc
+
+    for call in (lambda: mt.model(glm=("logistic", X, Y)),
+                 lambda: mt.glm_model_from_spec("logistic", X, Y),
+                 lambda: run_glm_hmc(X, Y, 4, 5),
+                 lambda: run_glm_hmc_bign(X, Y, 4, 5),
+                 lambda: mt.mala_state_from_numpy({})):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    m = mt.model(glm=("logistic", X, Y), device="cpu")
+    assert m.device.type == "cpu" and m.glm_spec.X.device.type == "cpu"
+    th, _ = run_glm_hmc(X, Y, 4, 5, device="cpu")
+    assert th.device.type == "cpu"
+
+
 @pytest.mark.parametrize("kw", [dict(steps=100, burnin=10),
                                 dict(steps=100, burnin=0, thinning=3),
                                 dict(steps=range(11, 60, 4))])
@@ -122,7 +148,7 @@ def test_serialmc_kept_range_matches_jax(kw):
 
 def test_task_composition():
     X, Y = _data("logistic", seed=7)
-    m = mt.model(glm=("logistic", X, Y))
+    m = mt.model(glm=("logistic", X, Y), device="cpu")
     t = m * mt.HMC(3, 0.1) * mt.SerialMC(steps=20)
     assert isinstance(t, mt.MCMCTask)
     ts = m * [mt.HMC(3, 0.1), mt.HMC(4, 0.1)] * mt.SerialMC(steps=20)
@@ -166,7 +192,7 @@ def test_hmc_tuner_and_store_leaps_run():
     """Adaptive-step HMC on a batch and store_leaps on one chain run through
     the generic engine; mean_rb is close to the plain mean."""
     X, Y = _data("logistic", seed=8)
-    m = mt.model(glm=("logistic", X, Y), dtype=F64)
+    m = mt.model(glm=("logistic", X, Y), dtype=F64, device="cpu")
     s = mt.HMC(5, 0.3, mt.EmpMCTuner(0.7, adapt_step=20))
     cs = mt.run(m * s * mt.SerialMC(steps=200, burnin=100), chains=4)
     steps = np.array([c.task.state.tune.step_size.item() for c in cs])
@@ -182,6 +208,6 @@ def test_hmc_tuner_and_store_leaps_run():
 def test_unported_options_raise():
     X, Y = _data("logistic", seed=9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.HMC(5, 0.1, mass_adapt=True)
+        mt.HMC(5, 0.1, mass_adapt="dense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.model(lambda v: 0.0, x=1.0)
+        mt.model(lambda v: 0.0, x=1.0, device="cpu")

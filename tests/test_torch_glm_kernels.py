@@ -181,7 +181,7 @@ def test_cpu_wrappers_run_plain_versions():
                          generator=gens[1])
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     assert gk.PLAIN_CALLS == {"glm_leapfrogs": 1, "glm_step": 1,
-                              "glm_multistep": 2}
+                              "glm_multistep": 2, "glm_multistep_rows": 0}
     assert not any(gk.LAUNCHES.values())
 
 

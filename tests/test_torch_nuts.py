@@ -33,7 +33,8 @@ def _data(n=80, d=3, seed=7):
 def _models():
     X, Y = _data()
     return (mc.model(glm=("logistic", X, Y)),
-            mt.model(glm=("logistic", X, Y), dtype=torch.float64))
+            mt.model(glm=("logistic", X, Y), dtype=torch.float64,
+                     device="cpu"))
 
 
 def test_popcount_and_trailing_ones():

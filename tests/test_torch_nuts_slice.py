@@ -46,7 +46,7 @@ def test_warm_route_matches_jax(mass_adapt):
     runner = dict(steps=240, burnin=80)
     s = dict(maxdoublings=5, mass_adapt=mass_adapt)
     jm = mc.model(glm=("logistic", X, Y))
-    tm = mt.model(glm=("logistic", X, Y), dtype=torch.float64)
+    tm = mt.model(glm=("logistic", X, Y), dtype=torch.float64, device="cpu")
     jc = mc.run(jm * mc.NUTS(**s) * mc.SerialMC(**runner), chains=8, seed=0,
                 fused=True)
     nk.reset_counts()
@@ -85,7 +85,7 @@ def test_generic_route_and_resume():
     resume of a chain from either route continues on the generic engine and
     repeats exactly from the same stored generator state."""
     X, Y = _data(seed=8)
-    tm = mt.model(glm=("logistic", X, Y), dtype=torch.float64)
+    tm = mt.model(glm=("logistic", X, Y), dtype=torch.float64, device="cpu")
     task = tm * mt.NUTS(maxdoublings=4) * mt.SerialMC(steps=120, burnin=40)
     nk.reset_counts()
     cg = mt.run(task, chains=4, seed=1, fused=False)
@@ -107,7 +107,7 @@ def test_routing():
     burn-in, a custom link, too deep a tree, or "auto" off the card; the
     dense metric raises at construction."""
     X, Y = _data()
-    m = mt.model(glm=("logistic", X, Y))
+    m = mt.model(glm=("logistic", X, Y), device="cpu")
     r = mt.SerialMC(steps=30, burnin=10)
     route = lambda s, rr=r, mm=m, f=True: pchains._route(  # noqa: E731
         MCMCTask(mm, s, rr), f)
@@ -121,8 +121,10 @@ def test_routing():
     assert not route(mt.NUTS(maxdoublings=nk.MAX_DOUBLINGS + 1))
     custom = (lambda z, y: z * y - torch.logaddexp(z, torch.zeros_like(z)),
               lambda z, y: y - torch.sigmoid(z))
-    assert not route(mt.NUTS(), mm=mt.model(glm=(custom, X, Y)))
-    gen = mt.model(lambda v: -(v * v).sum(), gradient=True, init=np.zeros(2))
+    assert not route(mt.NUTS(), mm=mt.model(glm=(custom, X, Y),
+                                            device="cpu"))
+    gen = mt.model(lambda v: -(v * v).sum(), gradient=True, init=np.zeros(2),
+                   device="cpu")
     assert not route(mt.NUTS(), mm=gen)
     assert warmstart._pick_k_trans(1000) == 8
     assert warmstart._pick_k_trans(997) == 1
@@ -155,8 +157,9 @@ def test_jax_nuts_state_carries_over():
     spec = jm.glm_spec
     tm = mt.glm_model_from_spec(spec.kind, spec.X, spec.Y, spec.weights,
                                 spec.offsets, spec.prior_prec,
-                                dtype=torch.float64)
-    st = mt.nuts_state_from_numpy(_as_dict(jax.device_get(jstates)))
+                                dtype=torch.float64, device="cpu")
+    st = mt.nuts_state_from_numpy(_as_dict(jax.device_get(jstates)),
+                                  device="cpu")
     assert isinstance(st, mt.NUTSState) and st.pars.shape == (8, 3)
     assert st.i.dtype == torch.int32 and st.mass.count.dtype == torch.int32
     lp, g = tm.evalallg(st.pars)

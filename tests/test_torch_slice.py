@@ -13,6 +13,7 @@ import mcmc_jl_tpu as mc
 import mcmc_jl_tpu_torch as mt
 from mcmc_jl_tpu.parallel import run_chains as jax_run_chains
 from mcmc_jl_tpu_torch.core.task import MCMCTask
+from mcmc_jl_tpu_torch.ops import glm_bign
 from mcmc_jl_tpu_torch.ops.glm_hmc import run_glm_hmc, run_glm_hmc_multistep
 from mcmc_jl_tpu_torch.parallel import pchains
 
@@ -38,7 +39,7 @@ def runs():
     runner_kw = dict(steps=800, burnin=200)
     jm = mc.model(glm=("logistic", X, Y))
     jtask = jm * mc.HMC(5, 0.1) * mc.SerialMC(**runner_kw)
-    tm = mt.model(glm=("logistic", X, Y), dtype=torch.float64)
+    tm = mt.model(glm=("logistic", X, Y), dtype=torch.float64, device="cpu")
     ttask = tm * mt.HMC(5, 0.1) * mt.SerialMC(**runner_kw)
     return {
         "jax": mc.run(jtask, chains=8, seed=0, fused=True),
@@ -97,7 +98,7 @@ def test_serial_resume_is_exact():
     """run(200) then resume(100) equals itself when repeated, and the
     generator state travels on the task."""
     X, Y = _data(seed=5)
-    m = mt.model(glm=("logistic", X, Y), dtype=torch.float64)
+    m = mt.model(glm=("logistic", X, Y), dtype=torch.float64, device="cpu")
     task = m * mt.HMC(3, 0.15) * mt.SerialMC(steps=200, burnin=50)
     a = mt.run(task, seed=4)
     b = mt.run(task, seed=4)
@@ -124,8 +125,9 @@ def test_jax_state_carries_over():
     spec = jm.glm_spec
     tm = mt.glm_model_from_spec(spec.kind, spec.X, spec.Y, spec.weights,
                                 spec.offsets, spec.prior_prec,
-                                dtype=torch.float64)
-    st = mt.hmc_state_from_numpy(_as_dict(jax.device_get(jstates)))
+                                dtype=torch.float64, device="cpu")
+    st = mt.hmc_state_from_numpy(_as_dict(jax.device_get(jstates)),
+                                 device="cpu")
     assert st.pars.shape == (4, 4) and st.i.dtype == torch.int32
     lp, g = tm.evalallg(st.pars)
     np.testing.assert_allclose(lp.numpy(), np.asarray(jstates.logtarget),
@@ -145,10 +147,10 @@ def test_jax_state_carries_over():
 
 def test_routing():
     """Up-front routing: fused=False never, "auto" only for float32 CUDA
-    models, True for what the kernels take; custom links and N above the
-    tiled-kernel threshold go to the generic engine."""
+    models, True for what the kernels take; custom links go to the generic
+    engine, N above the threshold to the N-tiled kernel's driver."""
     X, Y = _data()
-    m = mt.model(glm=("logistic", X, Y))
+    m = mt.model(glm=("logistic", X, Y), device="cpu")
     r = mt.SerialMC(steps=20)
     t = MCMCTask(m, mt.HMC(3, 0.1), r)
     assert pchains._fused_eligible(t)
@@ -159,12 +161,14 @@ def test_routing():
         assert not pchains._fused_eligible(MCMCTask(m, s, r))
     custom = (lambda z, y: z * y - torch.logaddexp(z, torch.zeros_like(z)),
               lambda z, y: y - torch.sigmoid(z))
-    mc_ = mt.model(glm=(custom, X, Y))
+    mc_ = mt.model(glm=(custom, X, Y), device="cpu")
     assert not pchains._route(MCMCTask(mc_, mt.HMC(3, 0.1), r), True)
-    n = pchains.BIGN_THRESHOLD + 1
-    big = mt.model(glm=("logistic", np.ones((n, 2)), np.zeros(n)))
-    assert not pchains._route(MCMCTask(big, mt.HMC(3, 0.1), r), True)
-    gen = mt.model(lambda v: -(v * v).sum(), gradient=True, init=np.zeros(2))
+    n = glm_bign.BIGN_THRESHOLD + 1
+    big = mt.model(glm=("logistic", np.ones((n, 2)), np.zeros(n)),
+                   device="cpu")
+    assert pchains._route(MCMCTask(big, mt.HMC(3, 0.1), r), True) == "hmc"
+    gen = mt.model(lambda v: -(v * v).sum(), gradient=True, init=np.zeros(2),
+                   device="cpu")
     assert not pchains._fused_eligible(MCMCTask(gen, mt.HMC(3, 0.1), r))
     # the JAX package's eligibility rule gives the same answers
     jm = mc.model(glm=("logistic", X, Y))
@@ -180,14 +184,14 @@ def test_glm_drivers_on_cpu(integrator):
     chains) and run_glm_hmc_multistep on the plain versions."""
     X, Y = _data(n=60, seed=7)
     a, ia = run_glm_hmc(X, Y, 8, 60, n_leaps=4, eps=0.1, seed=3,
-                        integrator=integrator)
+                        integrator=integrator, device="cpu")
     b, ib = run_glm_hmc(X, Y, 8, 60, n_leaps=4, eps=0.1, seed=3,
-                        integrator=integrator, fused_step=True)
+                        integrator=integrator, fused_step=True, device="cpu")
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     assert torch.equal(ia["accept"], ib["accept"])
     assert 0.5 < ia["accept"].float().mean() <= 1.0
     th, infos = run_glm_hmc_multistep(X, Y, 8, 60, thin=20, n_leaps=4,
                                       eps=0.1, seed=3, integrator=integrator,
-                                      collect=True)
+                                      collect=True, device="cpu")
     assert infos["ppars"].shape == (3, 8, 4) and th.shape == (8, 4)
     assert torch.all(torch.isfinite(infos["plogtarget"]))
