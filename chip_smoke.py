@@ -14,10 +14,16 @@ regression (d = 10; ``bench.py``'s data) through ``run(..., chains=N)``:
 - N = 1000: adaptive HMC with a diagonal metric (4096 chains), ``HMCDA``
   and adaptive ``MALA`` (1024 chains) through the Halton multistep kernel;
 
-the warm-start runs checked against long continuations of plain HMC.  It
-also runs the HMC step and multi-transition kernels through their drivers,
-times drivers and kernels beside their plain versions and the least time
-the card could take for the same work, and prints one JSON line per phase.
+the warm-start runs checked against long continuations of plain HMC; and
+the custom-target paths (d = 10, ``benchmarks/benchunits/fused_target.py``'s
+sizes): ``run(model(x ~ D) * HMC(10, eps) * SerialMC(300, 100),
+chains=4096)`` for Gamma(3, 0.2), Normal(1, 1) and Laplace(0, 1), plain
+``MALA`` on the Gamma model, ``run_target_hmc_multistep`` and
+``run_target_rwm``, each checked against the target's exact moments (the
+``run`` paths also against the generic engine).  It also runs the HMC step
+and multi-transition kernels through their drivers, times drivers and
+kernels beside their plain versions and the least time the card could take
+for the same work, and prints one JSON line per phase.
 The last three lines are the kernels' report (with each kernel's launches
 counted from zero over the one run that reaches it), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -39,7 +45,9 @@ import numpy as np
 
 SOURCES = {"glm_hmc": "mcmc_jl_tpu_torch/csrc/glm_hmc.cu",
            "glm_nuts": "mcmc_jl_tpu_torch/csrc/glm_nuts.cu",
-           "glm_bign": "mcmc_jl_tpu_torch/csrc/glm_bign.cu"}
+           "glm_bign": "mcmc_jl_tpu_torch/csrc/glm_bign.cu",
+           "target_hmc": "mcmc_jl_tpu_torch/csrc/target_hmc.cu",
+           "target_rwm": "mcmc_jl_tpu_torch/csrc/target_rwm.cu"}
 # kernel -> (library, the Pallas kernel it replaces)
 REPLACES = {
     "glm_leapfrogs": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
@@ -51,6 +59,10 @@ REPLACES = {
     "glm_multistep_rows": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
     "glm_logp_grad_tiled": ("glm_bign",
                             "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    "target_leapfrogs": ("target_hmc", "mcmc_jl_tpu/ops/pallas_target.py:67"),
+    "target_multistep": ("target_hmc",
+                         "mcmc_jl_tpu/ops/pallas_target.py:198"),
+    "target_rwm_steps": ("target_rwm", "mcmc_jl_tpu/ops/pallas_rwm.py:50"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -85,6 +97,32 @@ DEPTH_RTOL = 0.05
 # error is held to the L1 mass of the terms (plus the prior's), not to a
 # fixed atol
 TILED_G_L1, TILED_LP_L1 = 1e-5, 1e-6
+# custom-target kernels vs plain versions: every coordinate's derivative is
+# computed alone (no sums), the kick and drift round as the plain version
+# does, so theta, m and g differ by the family formulas' rounding (logf,
+# powf, a division written another way), grown over a 10-step trajectory;
+# lp is a sum of d terms in another order, so its atol grows with d
+T_RTOL, T_ATOL = 1e-4, 1e-4
+T_LP_RTOL, T_LP_ATOL_PER_COORD = 1e-5, 1e-5
+# multi-transition and RWM kernels from the same draws (given as input, or
+# the kernel's Philox draws replayed on the host to within a few float32
+# ulps): the trajectories and proposals round alike, so a chain may leave
+# the plain version's path only at a transition whose MH ratio lay this
+# close to log u (lp near -15 has a float32 ulp of 1e-6)
+T_BAND = 1e-4
+# the multi-transition kernel on its replayed draws: momenta a few ulps off
+# the kernel's grow over k x 10 leapfrogs, most where Gamma(3, 0.2)'s
+# gradient 2/x - 5 is stiff near 0 (a CPU rehearsal with the momenta moved
+# by up to 2 ulps, 6 x 4096 chains x 10 transitions: |dtheta| / (1 +
+# |theta|) at most 5.3e-5), so theta is held to MS_TOL (1 + |theta|); the
+# kernel's lp and gradient are held to the plain version's at the kernel's
+# own theta (where the lp and gradient amplify that drift)
+MS_TOL = 1e-3
+# FP32 operations the bound counts per coordinate: one leapfrog (two kicks
+# and a drift of 3 each, the family's derivative about 8, counting logf or
+# powf as one) and one RWM step (proposal 2, family log-density about 6,
+# the sum and the test 2)
+TARGET_LEAP_OPS, TARGET_STEP_OPS = 20, 10
 # the card's published peaks (one H100 SXM at 700 W): FP32 outside the
 # tensor cores, and HBM bandwidth; a kernel's bound is the larger of its
 # operations and its bytes over these
@@ -131,7 +169,8 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from mcmc_jl_tpu_torch.ops import (cuda_build, glm_bign, glm_kernels,
-                                      nuts_kernels)
+                                      nuts_kernels, rwm_kernels,
+                                      target_kernels)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -139,6 +178,8 @@ def phase_build():
     glm_kernels.load_kernels()
     nuts_kernels.load_kernels()
     glm_bign.load_kernels()
+    target_kernels.load_kernels()
+    rwm_kernels.load_kernels()
     for name, (path, report) in built.items():
         ptxas, entry = [], "?"
         for ln in report.splitlines():
@@ -330,13 +371,16 @@ def _counted(fn):
     from mcmc_jl_tpu_torch.ops import glm_bign as gb
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
-    for mod in (gk, nk, gb):
+    mods = (gk, nk, gb, tk, rk)
+    for mod in mods:
         mod.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = {**gk.LAUNCHES, **nk.LAUNCHES, **gb.LAUNCHES}
-    plain = {**gk.PLAIN_CALLS, **nk.PLAIN_CALLS, **gb.PLAIN_CALLS}
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
     assert not any(plain.values()), plain
     return out, launches
 
@@ -732,7 +776,8 @@ def _spans():
     packaging into chains.  Wraps the module functions for the duration."""
     import torch
 
-    from mcmc_jl_tpu_torch.ops import glm_bign, nuts_kernels, warmstart
+    from mcmc_jl_tpu_torch.ops import (glm_bign, nuts_kernels,
+                                      target_kernels, warmstart)
     from mcmc_jl_tpu_torch.parallel import pchains
 
     spans, saved = {}, []
@@ -742,6 +787,7 @@ def _spans():
                            (warmstart, "_chees_run_ms", "sampling"),
                            (warmstart, "_chees_run_bign", "sampling"),
                            (glm_bign, "_run_bign", "sampling"),
+                           (target_kernels, "_run", "sampling"),
                            (pchains, "_package_group", "packaging")):
         orig = getattr(mod, fn)
 
@@ -948,7 +994,13 @@ def _bound(evals, d, N, nbytes):
     4 d N FP32 operations of each evaluation's two products (theta . x_n
     and r_n x_n; the link's special functions are not counted) over the
     FP32 peak, or the bytes over the HBM bandwidth, whichever is larger."""
-    t_ops = 4.0 * d * N * float(evals) / FP32_FLOPS
+    return _bound_ops(4.0 * d * N * float(evals), nbytes)
+
+
+def _bound_ops(ops, nbytes):
+    """The least time (ms) for ``ops`` FP32 operations that move ``nbytes``:
+    the larger of the two over the card's peaks."""
+    t_ops = float(ops) / FP32_FLOPS
     t_bytes = nbytes / HBM_BYTES_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -1417,6 +1469,603 @@ def phase_new_kernel_times(C=4096, tiled=((4096, 100_000), (1024, 1_000_000)),
               "tiled_kernel_ms_per_gradient": tiled, **CARD})
     return ms, work
 
+def _target_cases():
+    """The reference's 17 bare-distribution configurations
+    (benchmarks/benchunits/bare_distribs.py:41-61) with their starting
+    points, and a spread s: the kernel checks start at x0 + 0.1 s N(0, 1)
+    and step 0.05 s."""
+    import math
+
+    import mcmc_jl_tpu_torch as mt
+
+    return [
+        ("Normal(1,1)", mt.Normal(1.0, 1.0), 1.0, 1.0),
+        ("Normal(3,12)", mt.Normal(3.0, 12.0), 3.0, 12.0),
+        ("Weibull(1,1)", mt.Weibull(1.0, 1.0), 1.0, 1.0),
+        ("Weibull(3,1)", mt.Weibull(3.0, 1.0), 0.8930, 0.3),
+        ("Uniform(0,2)", mt.Uniform(0.0, 2.0), 1.0, 0.5),
+        ("TDist(2.2)", mt.TDist(2.2), 1.0, 1.0),
+        ("TDist(4)", mt.TDist(4.0), 1.0, 1.0),
+        ("Beta(1,2)", mt.Beta(1.0, 2.0), 1.0 / 3.0, 0.2),
+        ("Beta(3,2)", mt.Beta(3.0, 2.0), 0.6, 0.2),
+        ("Gamma(1,2)", mt.Gamma(1.0, 2.0), 2.0, 2.0),
+        ("Gamma(3,0.2)", mt.Gamma(3.0, 0.2), 0.6, 0.35),
+        ("Cauchy(0,1)", mt.Cauchy(0.0, 1.0), 1.0, 1.0),
+        ("Cauchy(-1,0.2)", mt.Cauchy(-1.0, 0.2), 1.0, 0.2),
+        ("Exponential(3)", mt.Exponential(3.0), 3.0, 3.0),
+        ("Exponential(0.2)", mt.Exponential(0.2), 0.2, 0.2),
+        ("LogNormal(-1,1)", mt.LogNormal(-1.0, 1.0), math.exp(-0.5), 0.5),
+        ("LogNormal(2,0.1)", mt.LogNormal(2.0, 0.1), math.exp(2.005), 0.75),
+    ]
+
+
+def _mixed_target(d=10):
+    """One coordinate of each of the ten kernel families, cycled over d
+    coordinates; returns (target, a point near each coordinate's mean, a
+    per-coordinate scale)."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
+
+    fams = [(mt.Normal(0.0, 1.0), 0.0, 1.0), (mt.Uniform(-1.0, 3.0), 1.0, 1.0),
+            (mt.Exponential(2.0), 2.0, 2.0), (mt.Gamma(2.0, 1.5), 3.0, 2.0),
+            (mt.Weibull(1.5, 2.0), 1.8, 1.0), (mt.Cauchy(0.0, 1.0), 0.0, 1.0),
+            (mt.LogNormal(0.0, 0.5), 1.1, 0.5), (mt.Beta(2.0, 3.0), 0.4, 0.2),
+            (mt.Laplace(0.0, 1.0), 0.0, 1.0), (mt.TDist(5.0), 0.0, 1.0)]
+    pick = [fams[j % len(fams)] for j in range(d)]
+    return (coordwise_logp([f[0] for f in pick], d),
+            np.array([f[1] for f in pick]), np.array([f[2] for f in pick]))
+
+
+def _lp_close(a, b, d):
+    """Per-chain log-targets agree: -inf at the same chains, the finite
+    ones within T_LP_RTOL and an atol of T_LP_ATOL_PER_COORD per
+    coordinate (a sum of d terms in another order)."""
+    import torch
+
+    fin_a, fin_b = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fin_a, fin_b) or bool(
+            (a[~fin_a] != b[~fin_b]).any()):
+        return False
+    return _close(a[fin_a], b[fin_b], T_LP_RTOL, T_LP_ATOL_PER_COORD * d)
+
+
+def _traj_case(label, target, theta, m, eps, n_leaps=10,
+               integrator="leapfrog", want_inf=False):
+    """Kernel 5 against its plain version on the same inputs; ``grad`` at
+    theta from the plain version.  Returns (ok, report)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    _, g = tk.target_funcs(target)[1](theta)
+    g = g.contiguous()
+    kw = dict(n_leaps=n_leaps, integrator=integrator)
+    out_k = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
+    out_r = tk.fused_target_leapfrogs_ref(target, theta, m, g, eps, **kw)
+    torch.cuda.synchronize()
+    d = theta.shape[1]
+    rep = {n: _err(a, b) for n, a, b in zip(("theta", "m", "g"), out_k[:3],
+                                            out_r[:3])}
+    fin = torch.isfinite(out_r[3])
+    rep["lp"] = _err(out_k[3][fin], out_r[3][fin]) if bool(fin.any()) else {}
+    rep["lp_neg_inf"] = int((~fin).sum())
+    ok = (all(_close(a, b, T_RTOL, T_ATOL) for a, b in zip(out_k[:3],
+                                                            out_r[:3]))
+          and _lp_close(out_k[3], out_r[3], d)
+          and (not want_inf or not bool(fin.any())))
+    emit({"phase": "kernel", "name": "target_leapfrogs", "case": label,
+          "C": theta.shape[0], "d": d, "n_leaps": int(n_leaps),
+          "integrator": integrator, "ok": ok, **rep})
+    return ok, max([r["max_abs"] for r in rep.values()
+                    if isinstance(r, dict) and r] or [0.0])
+
+
+def _same_path(k, out_k, out_r):
+    """Per chain: the kernel's (theta, lp, accept rate) after ``k``
+    transitions end where the plain version's do.  Accept counts, not
+    rates: the plain version's n / k on the card multiplies by 1/k, which
+    may differ from the kernel's n / k by an ulp."""
+    import torch
+
+    (th_k, lp_k, acc_k), (th_r, lp_r, acc_r) = out_k, out_r
+    return ((torch.round(acc_k * k) == torch.round(acc_r * k))
+            & ((th_k - th_r).abs() <= T_ATOL + T_RTOL * th_r.abs()).all(1)
+            & (((lp_k - lp_r).abs() <= T_LP_ATOL_PER_COORD * th_r.shape[1]
+                + T_LP_RTOL * lp_r.abs()) | (lp_k == lp_r)))
+
+
+def _ratio(lp0, lp1):
+    """The MH log-ratio lp1 - lp0 (or -H1 + H0), NaN (-inf - -inf) as
+    -inf: a rejection, as both the kernels and the plain versions take
+    it."""
+    import torch
+
+    r = lp1 - lp0
+    return torch.where(torch.isnan(r), -torch.inf, r)
+
+
+def _same_path_err(th_k, th_r, same):
+    """max |theta difference| over the chains on the same path."""
+    diff = (th_k - th_r).abs().amax(1)[same]
+    return float(diff.max()) if diff.numel() else float("inf")
+
+
+def _parted_report(kernel, label, same, gaps, err, bitwise=None, held=True,
+                   **extra):
+    """Emit one same-draws check and return whether it passed: every parted
+    chain had a transition with |ratio - log u| < T_BAND, the bitwise
+    repeat (None: not made) and the caller's other checks (``held``)
+    held."""
+    share = float(same.float().mean())
+    ok = held and bitwise is not False and all(g < T_BAND for g in gaps)
+    emit({"phase": "kernel", "name": kernel, "case": label,
+          "chains_same_path": share, "parted_min_ratio_gaps": gaps[:20],
+          "band": T_BAND, "theta_max_abs_diff_same": err,
+          "bitwise_repeat": bitwise, **extra, "ok": ok})
+    return ok
+
+
+def _rwm_case(label, target, theta, scale, k, noise):
+    """Kernel 7 against its plain version on the same draws over ``k``
+    steps.  ``noise`` is (z (C, k, d), logu (C, k)), read by both
+    (noise="input"), or a seed: the kernel draws from Philox (noise="hw")
+    under the launch seed a generator seeded so gives, and the plain
+    version gets those draws replayed (``rwm_draws``); the kernel then also
+    repeats bitwise.  Every chain ends on the plain version's path, or had
+    a step whose MH ratio (replayed by the plain version) lay within T_BAND
+    of log u."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    if isinstance(noise, tuple):
+        z, logu = noise
+        outs = [rk.fused_target_rwm_steps(target, theta, scale, k_steps=k,
+                                          z=z, logu=logu, noise="input")]
+    else:
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(noise)
+
+        outs = [rk.fused_target_rwm_steps(target, theta, scale, k_steps=k,
+                                          noise="hw", generator=gen())
+                for _ in range(2)]
+        z, logu = rk.rwm_draws(tk._seed(gen()), *theta.shape, k,
+                               device="cuda")
+    out_k = outs[0]
+    out_r = rk.fused_target_rwm_steps_ref(target, theta, scale, k_steps=k,
+                                          z=z, logu=logu)
+    torch.cuda.synchronize()
+    bitwise = (all(torch.equal(a, b) for a, b in zip(*outs))
+               if len(outs) == 2 else None)
+    same = _same_path(k, out_k, out_r)
+    # replay the chains that parted: the smallest |ratio - log u| over steps
+    gaps = []
+    if not bool(same.all()):
+        idx = (~same).nonzero()[:, 0]
+        th, lp = theta[idx], target(theta[idx])[:, 0]
+        gap = torch.full((len(idx),), float("inf"), device=theta.device)
+        for s in range(k):
+            prop = th + scale * z[idx, s]
+            lp_p = target(prop)[:, 0]
+            ratio = _ratio(lp, lp_p)
+            gap = torch.minimum(gap, (ratio - logu[idx, s]).abs())
+            a = (ratio > 0) | (ratio > logu[idx, s])
+            th = torch.where(a[:, None], prop, th)
+            lp = torch.where(a, lp_p, lp)
+        gaps = gap.tolist()
+    err = _same_path_err(out_k[0], out_r[0], same)
+    ok = _parted_report("target_rwm_steps", label, same, gaps, err,
+                        bitwise=bitwise, C=theta.shape[0], k_steps=k,
+                        noise="hw" if bitwise is not None else "input",
+                        accept_rate=float(out_r[2].mean()))
+    return ok, err
+
+
+def _multistep_case(label, target, theta, eps, k, n_leaps, seed):
+    """Kernel 6 against its plain version on the kernel's own Philox draws
+    (the launch seed a generator seeded ``seed`` gives, replayed by
+    ``target_multistep_draws``): every chain ends on the plain version's
+    path (the same accept count, theta within MS_TOL), or had a transition
+    whose MH ratio (replayed by the plain version) lay within T_BAND of
+    log u.  The kernel's lp and gradient are the plain version's at the
+    kernel's theta, and the kernel repeats bitwise."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    C, d = theta.shape
+    out_k, out_k2 = (tk.target_multistep(target, theta, eps, k_trans=k,
+                                         n_leaps=n_leaps, generator=gen())
+                     for _ in range(2))
+    z, logu = tk.target_multistep_draws(tk._seed(gen()), C, d, k,
+                                        device="cuda")
+    out_r = tk.target_multistep_ref(target, theta, eps, k_trans=k,
+                                    n_leaps=n_leaps, noise=(z, logu))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    (th_k, g_k, lp_k, acc_k), (th_r, _, _, acc_r) = out_k, out_r
+    same = ((torch.round(acc_k * k) == torch.round(acc_r * k))
+            & ((th_k - th_r).abs() <= MS_TOL * (1 + th_r.abs())).all(1))
+    lp_at, g_at = tk.target_funcs(target)[1](th_k)
+    own = (_close(g_k, g_at, T_RTOL, T_ATOL)
+           and _lp_close(lp_k, lp_at, d))
+    gaps = []
+    if not bool(same.all()):
+        idx = (~same).nonzero()[:, 0]
+        lp, g = tk.target_funcs(target)[1](theta[idx])
+        th = theta[idx]
+        gap = torch.full((len(idx),), float("inf"), device=theta.device)
+        for t in range(k):
+            m0, lu = z[t, idx], logu[t, idx]
+            th_p, m, g_p, lp_p = tk.fused_target_leapfrogs_ref(
+                target, th, m0, g, eps, n_leaps=n_leaps)
+            h0 = -lp + 0.5 * (m0 * m0).sum(-1)
+            ratio = _ratio(-lp_p + 0.5 * (m * m).sum(-1), h0)  # h0 - h1
+            gap = torch.minimum(gap, (ratio - lu).abs())
+            a = (ratio > 0) | (ratio > lu)
+            th = torch.where(a[:, None], th_p, th)
+            g = torch.where(a[:, None], g_p, g)
+            lp = torch.where(a, lp_p, lp)
+        gaps = gap.tolist()
+    err = _same_path_err(th_k, th_r, same)
+    ok = _parted_report("target_multistep", label, same, gaps, err,
+                        bitwise=bitwise, held=own, C=C, k_trans=k,
+                        n_leaps=n_leaps, lp_grad_at_own_theta=own,
+                        accept_rate=float(acc_r.mean()))
+    return ok, err
+
+
+def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
+                         rwm_C=16_384, k_rwm=100):
+    """The custom-target kernels against their plain versions on the card,
+    at their paths' shapes (d 10; kernels 5 and 6 at C chains, 10
+    leapfrogs, kernel 6 with k_ms transitions per launch; kernel 7 at rwm_C
+    chains, k_rwm steps per launch).
+
+    Kernel 5 (trajectory): the gradient alone (eps 0) and a 10-leapfrog
+    trajectory for each of the 17 bare-distribution configurations; a
+    mixed target of all ten families with a (d,) step row, a leap count
+    given as a tensor, and the 2- and 3-stage integrators; the gradient at
+    Laplace's loc; a Gamma trajectory that leaves the support (lp -inf on
+    both); d = 1000 (32 coordinates per lane); a bitwise repeat.  Kernel 7
+    from the same input noise on Normal(1, 1) and the mixed target, and in
+    Philox mode on its own draws replayed for the plain version; kernel 6
+    likewise on its replayed draws (Gamma(3, 0.2)).  Kernels 6 (k_stat
+    transitions) and 7 in Philox mode against their plain versions drawing
+    from a torch generator, from one start: |z| < Z_MAX on pooled final
+    theta and on per-chain accept rates.  Returns {kernel: max abs
+    error}."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    rng = np.random.default_rng(21)
+    errors = {}
+    bad = []
+
+    def note(ok, label):
+        if not ok:
+            bad.append(label)
+
+    main = {"Normal(1,1)": 0.8, "Gamma(3,0.2)": 0.05}
+    err5 = 0.0
+    for label, dist, x0, s in _target_cases():
+        target = tk.coordwise_logp(dist, d)
+        theta = _cuda(x0 + 0.1 * s * rng.standard_normal((C, d)))
+        m = _cuda(rng.standard_normal((C, d)))
+        ok, _ = _traj_case(f"{label} gradient (eps 0)", target, theta, m, 0.0,
+                           n_leaps=1)
+        note(ok, f"{label} gradient")
+        eps = main.get(label, 0.05 * s)
+        ok, e = _traj_case(f"{label} eps {eps:g}", target, theta, m, eps)
+        note(ok, label)
+        if label in main:
+            err5 = max(err5, e)
+
+    target, x0, s = _mixed_target(d)
+    theta = _cuda(x0 + 0.05 * s * rng.standard_normal((C, d)))
+    theta[: C // 2, 8] = 0.0  # Laplace(0, 1) exactly at loc
+    m = _cuda(rng.standard_normal((C, d)))
+    ok, _ = _traj_case("mixed gradient (eps 0), Laplace at loc", target,
+                       theta, m, 0.0, n_leaps=1)
+    note(ok, "mixed gradient")
+    row = _cuda(0.02 * s)
+    for integ in ("leapfrog", "2stage", "3stage"):
+        ok, _ = _traj_case(f"mixed, (d,) eps row, n_leaps tensor, {integ}",
+                           target, theta, m, row,
+                           n_leaps=torch.tensor(7), integrator=integ)
+        note(ok, f"mixed {integ}")
+
+    gam = tk.coordwise_logp(_target_cases()[10][1], d)  # Gamma(3, 0.2)
+    th_out = _cuda(0.05 + 0.01 * np.abs(rng.standard_normal((C, d))))
+    m_out = _cuda(-4.0 - np.abs(rng.standard_normal((C, d))))
+    ok, _ = _traj_case("Gamma(3,0.2) leaving the support", gam, th_out, m_out,
+                       0.05, want_inf=True)
+    note(ok, "Gamma leaving the support")
+
+    big, xb, sb = _mixed_target(big_d)
+    th_b = _cuda(xb + 0.05 * sb * rng.standard_normal((C, big_d)))
+    m_b = _cuda(rng.standard_normal((C, big_d)))
+    ok, _ = _traj_case(f"mixed d = {big_d}", big, th_b, m_b, _cuda(0.01 * sb))
+    note(ok, f"mixed d={big_d}")
+    del th_b, m_b
+
+    # bitwise repeat of kernel 5 (no randomness: the same inputs)
+    g_main = tk.target_funcs(gam)[1](theta.abs() + 0.3)[1].contiguous()
+    r1, r2 = (tk.fused_target_leapfrogs(gam, theta.abs() + 0.3, m, g_main,
+                                        0.05) for _ in range(2))
+    note(all(torch.equal(a, b) for a, b in zip(r1, r2)), "kernel 5 repeat")
+    errors["target_leapfrogs"] = err5
+
+    # kernel 7 on the same draws: input noise, then its own Philox draws
+    normal = tk.coordwise_logp(_target_cases()[0][1], d)
+    scale = _cuda(np.full(d, 1.1))
+    err7 = 0.0
+    for label, tgt, th0, sc, noise in (
+            ("Normal(1,1), scale 1.1", normal,
+             _cuda(0.1 * rng.standard_normal((rwm_C, d))), scale, None),
+            ("mixed, per-coordinate scale", target,
+             _cuda(x0 + 0.05 * s * rng.standard_normal((rwm_C, d))),
+             _cuda(0.5 * s), None),
+            ("Normal(1,1), scale 1.1, Philox draws replayed", normal,
+             _cuda(0.1 * rng.standard_normal((rwm_C, d))), scale, 33)):
+        if noise is None:
+            noise = (_cuda(rng.standard_normal((rwm_C, k_rwm, d))),
+                     _cuda(np.log1p(-rng.random((rwm_C, k_rwm)))))
+        ok, e = _rwm_case(label, tgt, th0, sc, k_rwm, noise)
+        note(ok, f"rwm {label}")
+        err7 = max(err7, e)
+    errors["target_rwm_steps"] = err7
+
+    # kernel 6 on its own Philox draws
+    th0 = _cuda(0.6 + 0.05 * rng.standard_normal((C, d)))
+    ok, errors["target_multistep"] = _multistep_case(
+        "Gamma(3,0.2), eps 0.05, Philox draws replayed", gam, th0, 0.05,
+        k_ms, 10, 32)
+    note(ok, "target_multistep replayed")
+
+    # kernels 6 and 7 with Philox draws against their plain versions drawing
+    # from the torch generator: statistical agreement from one start
+    th_rw = _cuda(0.1 * rng.standard_normal((rwm_C, d)))
+    for name, k, kern, plain, acc in (
+            ("target_multistep", k_stat,
+             lambda g: tk.target_multistep(gam, th0, 0.05, k_trans=k_stat,
+                                           n_leaps=10, generator=g),
+             lambda g: tk.target_multistep_ref(gam, th0, 0.05,
+                                               k_trans=k_stat, n_leaps=10,
+                                               generator=g), 3),
+            ("target_rwm_steps", k_rwm,
+             lambda g: rk.fused_target_rwm_steps(
+                 normal, th_rw, scale, k_steps=k_rwm, noise="hw",
+                 generator=g),
+             lambda g: rk.fused_target_rwm_steps_ref(
+                 normal, th_rw, scale, k_steps=k_rwm, generator=g), 2)):
+        res_k = kern(torch.Generator(device="cuda").manual_seed(34))
+        res_r = plain(torch.Generator(device="cuda").manual_seed(35))
+        z_th = _z_t(res_k[0], res_r[0])
+        z_acc = _z_t(res_k[acc][:, None], res_r[acc][:, None])
+        ok = z_th < Z_MAX and z_acc < Z_MAX
+        emit({"phase": "kernel", "name": name, "case": "statistical",
+              "C": res_k[0].shape[0], "k": k, "ok": ok,
+              "accept_kernel": float(res_k[acc].mean()),
+              "accept_plain": float(res_r[acc].mean()), "z_accept": z_acc,
+              "z_theta_max": z_th})
+        note(ok, f"{name} statistical")
+    assert not bad, f"custom-target kernels disagree: {bad}"
+    return errors
+
+
+def _z_exact(a, want):
+    """max over columns of |mean - want| / se, with ``a`` one row per
+    independent chain (numpy)."""
+    se = a.std(0) / np.sqrt(len(a))
+    return float(np.max(np.abs(a.mean(0) - want) / se))
+
+
+def _moments_z(rows, dist):
+    """|z| of the per-chain first and second moments (one row per chain)
+    against the distribution's exact ones."""
+    mu, sd = float(dist.mean()), float(dist.std())
+    return max(_z_exact(rows[0], mu), _z_exact(rows[1], mu * mu + sd * sd))
+
+
+def phase_target_paths(chains=4096, generic_chains=512, rwm_chains=16_384):
+    """The custom-target paths at their full sizes (d = 10, float32), each
+    with every count zeroed just before it and read just after, no plain
+    call, and held against the exact moments of the target:
+
+    - ``run(model(ex, x=np.full(10, x0 + 0.5), gradient=True) * HMC(10, eps)
+      * SerialMC(300, 100), chains=4096)`` on ``tilde(x, D)`` for
+      Gamma(3, 0.2), Normal(1, 1), Laplace(0, 1) at eps 0.05, 0.8, 0.5
+      (benchmarks/benchunits/fused_target.py:46-49): 300 launches of the
+      trajectory kernel each; and plain ``MALA(0.02) * SerialMC(1000, 300)``
+      on the Gamma model (one leapfrog at eps sqrt(0.02)): 1000 launches;
+      each also held against 512 generic-engine chains;
+    - ``run_target_hmc_multistep`` on ``coordwise_logp(Gamma(3, 0.2), 10)``,
+      4096 chains, 300 transitions, thin 10, eps 0.05 (from 1.1, as
+      fused_target.py starts): 30 launches;
+    - ``run_target_rwm`` on ``coordwise_logp(Normal(1, 1), 10)``, 16,384
+      chains, 10,000 steps, scale 1.1, thin 100 (fused_target.py:93-103):
+      100 launches.
+    Returns {kernel: (launches, origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    counts = {}
+    gamma = None
+    runs = [("Gamma(3,0.2)", mt.Gamma(3.0, 0.2), 0.6, mt.HMC(10, 0.05),
+             300, 100),
+            ("Normal(1,1)", mt.Normal(1.0, 1.0), 1.0, mt.HMC(10, 0.8),
+             300, 100),
+            ("Laplace(0,1)", mt.Laplace(0.0, 1.0), 0.0, mt.HMC(10, 0.5),
+             300, 100),
+            ("Gamma(3,0.2)", mt.Gamma(3.0, 0.2), 0.6, mt.MALA(0.02),
+             1000, 300)]
+    for name, dist, x0, sampler, steps, burnin in runs:
+        m = mt.model(lambda x, _d=dist: mt.tilde(x, _d),
+                     x=np.full(10, x0 + 0.5), gradient=True, device="cuda")
+        assert m.target_spec is not None, name
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(model(x ~ {name}, x=fill({x0 + 0.5:g}, 10)) * "
+                  f"{sampler!r} * SerialMC({steps}, {burnin}), "
+                  f"chains={chains})")
+        cs, samples, launches, dt, spans = _path(
+            origin, task, chains, {"target_leapfrogs": steps})
+        acc = float(np.mean([mt.acceptance(c) for c in cs])) / 100
+        del cs
+        z_ex = _moments_z((samples.mean(1), (samples ** 2).mean(1)), dist)
+        cg = mt.run(task, chains=generic_chains, seed=1, fused=False)
+        gs = np.stack([c.samples.values for c in cg])
+        z_gen = max(_z_means(samples.mean(1), gs.mean(1)),
+                    _z_means((samples ** 2).mean(1), (gs ** 2).mean(1)))
+        ok = z_ex < Z_MAX and z_gen < Z_MAX
+        emit({"phase": "target_path", "kernel": "target_leapfrogs",
+              "from": origin, "chains": chains, "seconds": dt,
+              "spans_s": spans, "launches": launches["target_leapfrogs"],
+              "accept_rate": acc, "pooled_mean": float(samples.mean()),
+              "exact_mean": float(dist.mean()),
+              "pooled_sd": float(samples.std()),
+              "exact_sd": float(dist.std()), "z_max_vs_exact": z_ex,
+              "z_max_vs_generic": z_gen, "ok": ok, **CARD})
+        assert ok, f"{origin} disagrees with the exact moments or the " \
+                   f"generic engine"
+        counts.setdefault("target_leapfrogs",
+                          (launches["target_leapfrogs"], origin))
+        if name == "Gamma(3,0.2)":
+            gamma = dist
+
+    for kernel, origin, want, fn, dist in (
+            ("target_multistep",
+             "run_target_hmc_multistep(coordwise_logp(Gamma(3, 0.2), 10), "
+             f"10, {chains}, 300, thin=10, n_leaps=10, eps=0.05)", 30,
+             lambda: tk.run_target_hmc_multistep(
+                 tk.coordwise_logp(gamma, 10), 10, chains, 300, thin=10,
+                 n_leaps=10, eps=0.05, seed=3,
+                 inits=np.full((chains, 10), 1.1, np.float32),
+                 device="cuda"), gamma),
+            ("target_rwm_steps",
+             "run_target_rwm(coordwise_logp(Normal(1, 1), 10), 10, "
+             f"{rwm_chains}, 10000, scale=1.1, thin=100)", 100,
+             lambda: rk.run_target_rwm(
+                 tk.coordwise_logp(mt.Normal(1.0, 1.0), 10), 10, rwm_chains,
+                 10_000, scale=1.1, thin=100, seed=4, device="cuda"),
+             mt.Normal(1.0, 1.0))):
+        t0 = time.perf_counter()
+        (theta, infos), launches = _counted(fn)
+        dt = time.perf_counter() - t0
+        assert launches == {**{k: 0 for k in launches}, kernel: want}, \
+            launches
+        th = theta.double().cpu().numpy()
+        assert np.all(np.isfinite(th))
+        z_ex = _moments_z((th, th ** 2), dist)
+        ok = z_ex < Z_MAX
+        emit({"phase": "target_path", "kernel": kernel, "from": origin,
+              "seconds": dt, "launches": launches[kernel],
+              "accept_rate": float(infos["accept_rate"].mean()),
+              "pooled_mean": float(th.mean()),
+              "exact_mean": float(dist.mean()), "pooled_sd": float(th.std()),
+              "exact_sd": float(dist.std()), "z_max_vs_exact": z_ex,
+              "ok": ok, **CARD})
+        assert ok, f"{origin} disagrees with the exact moments"
+        counts[kernel] = (launches[kernel], origin)
+    return counts
+
+
+def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
+                       rwm_chains=16_384, k_rwm=100):
+    """Per-launch time of the custom-target kernels beside their plain
+    versions and their bounds, at the paths' shapes: kernel 5 on
+    Gamma(3, 0.2) (C 4096, d 10, 10 leapfrogs, eps 0.05), kernel 6 with
+    k = 10 transitions, kernel 7 in Philox mode on Normal(1, 1) (C 16,384,
+    k = 100).  ``ms`` is one call between CUDA events, as for the other
+    kernels; ``device_ms`` the kernel alone (:func:`_device_ms`).
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound and device_ms})."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    rng = np.random.default_rng(41)
+    gam = tk.coordwise_logp(mt.Gamma(3.0, 0.2), d)
+    th = _cuda(0.6 + 0.1 * rng.standard_normal((C, d)))
+    m0 = _cuda(rng.standard_normal((C, d)))
+    g = tk.target_funcs(gam)[1](th)[1].contiguous()
+    rows = gam.rows(th.device)
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in (1, 2)]
+    thr = _cuda(0.1 * rng.standard_normal((rwm_chains, d)))
+    scale = _cuda(np.full(d, 1.1))
+    normal = tk.coordwise_logp(mt.Normal(1.0, 1.0), d)
+    leap = TARGET_LEAP_OPS * d
+    calls = {
+        "target_leapfrogs": (
+            lambda: tk.fused_target_leapfrogs(gam, th, m0, g, 0.05,
+                                              n_leaps=n_leaps),
+            lambda: tk.fused_target_leapfrogs_ref(gam, th, m0, g, 0.05,
+                                                  n_leaps=n_leaps),
+            (th, m0, g, rows), C * n_leaps * leap),
+        "target_multistep": (
+            lambda: tk.target_multistep(gam, th, 0.05, k_trans=k_trans,
+                                        n_leaps=n_leaps, generator=gens[0]),
+            lambda: tk.target_multistep_ref(gam, th, 0.05, k_trans=k_trans,
+                                            n_leaps=n_leaps,
+                                            generator=gens[1]),
+            (th, rows), C * (1 + k_trans * n_leaps) * leap),
+        "target_rwm_steps": (
+            lambda: rk.fused_target_rwm_steps(normal, thr, scale,
+                                              k_steps=k_rwm, noise="hw",
+                                              generator=gens[0]),
+            lambda: rk.fused_target_rwm_steps_ref(normal, thr, scale,
+                                                  k_steps=k_rwm,
+                                                  generator=gens[1]),
+            (thr, scale, normal.rows(thr.device)),
+            rwm_chains * (1 + k_rwm) * TARGET_STEP_OPS * d),
+    }
+    ms, work = {}, {}
+    for name, (kern, plain, inputs, ops) in calls.items():
+        work[name] = {**_bound_ops(ops, _nbytes(inputs, kern())),
+                      "device_ms": _device_ms(kern, KERNEL_SYMBOL[name])}
+        ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
+        emit({"phase": "kernel_time", "name": name,
+              "C": rwm_chains if name == "target_rwm_steps" else C, "d": d,
+              "k": {"target_leapfrogs": 1, "target_multistep": k_trans,
+                    "target_rwm_steps": k_rwm}[name],
+              "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
+              **CARD})
+    return ms, work
+
+
+# each custom-target wrapper's __global__ function, as the profiler names it
+KERNEL_SYMBOL = {"target_leapfrogs": "leapfrogs_kernel",
+                 "target_multistep": "multistep_kernel",
+                 "target_rwm_steps": "rwm_kernel"}
+
+
+def _device_ms(fn, symbol, reps=10):
+    """Mean device milliseconds of the kernel named ``symbol`` over ``reps``
+    calls of ``fn``, from torch.profiler's CUDA activity: the kernel alone,
+    where ``_event_ms`` also counts the wrapper's host work between the two
+    events (a short kernel waits for it).  None when the profiler records
+    no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.key_averages()
+          if symbol in e.key]
+    return sum(us) / reps / 1e3 if us and sum(us) > 0 else None
+
 
 def main():
     phase_device()
@@ -1435,6 +2084,7 @@ def main():
     errors.update(step("rows_kernel", phase_rows_kernel))
     errors.update(step("bign_kernels", phase_bign_kernels))
     step("cross_kernel", phase_cross_kernel)
+    errors.update(step("target_kernels", phase_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
     # the two NUTS kernels, the Halton multistep kernel and the tiled
@@ -1447,12 +2097,14 @@ def main():
     launches.update(nuts_launches)
     launches.update(step("large_n_paths", phase_large_n_paths))
     launches.update(step("warm_paths", phase_warm_paths, hmc_means))
+    launches.update(step("target_paths", phase_target_paths))
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing)
     ms, work = step("kernel_times", phase_kernel_times)
     for more in (step("nuts_timing", phase_nuts_timing, start),
-                 step("new_kernel_times", phase_new_kernel_times)):
+                 step("new_kernel_times", phase_new_kernel_times),
+                 step("target_kernel_times", phase_target_times)):
         ms.update(more[0])
         work.update(more[1])
     # no single PyTorch call computes any of these functions: library_ms

@@ -1,7 +1,7 @@
 // Device routines shared by the GLM kernels (glm_hmc.cu, glm_nuts.cu,
 // glm_bign.cu): the link functions, the staging of observation rows in
-// shared memory, the fused log-target + gradient pass, and the Philox
-// generator.
+// shared memory and the fused log-target + gradient pass.  The Philox
+// generator lives in philox.cuh, shared with the custom-target kernels.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and
@@ -15,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -171,34 +173,6 @@ __device__ __forceinline__ void stage(const Glm& p, float* sm) {
     load_rows<D>(p, sm, 0, p.N);
     __syncthreads();
   }
-}
-
-// Philox4x32-10 (Salmon et al., SC'11): counter (chain, transition, draw, 0),
-// key = the launch seed.
-__device__ __forceinline__ uint4 philox(uint4 x, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    uint32_t hi0 = __umulhi(0xD2511F53u, x.x), lo0 = 0xD2511F53u * x.x;
-    uint32_t hi1 = __umulhi(0xCD9E8D57u, x.z), lo1 = 0xCD9E8D57u * x.z;
-    x = make_uint4(hi1 ^ x.y ^ k.x, lo1, hi0 ^ x.w ^ k.y, lo0);
-  }
-  return x;
-}
-
-// U[0, 1) with 24 random mantissa bits.
-__device__ __forceinline__ float u01(uint32_t b) {
-  return (float)(b >> 8) * (1.0f / 16777216.0f);
-}
-
-// Box-Muller on (1 - u1, u2), cosine branch (pallas_rwm.py _normal_hw).
-__device__ __forceinline__ float box_muller(uint32_t b1, uint32_t b2) {
-  float u1 = 1.f - u01(b1);
-  float u2 = u01(b2);
-  return sqrtf(-2.f * logf(u1)) * cospif(2.f * u2);
 }
 
 // ---- host side -------------------------------------------------------------

@@ -1,0 +1,234 @@
+// Fused HMC on catalog targets for Hopper (sm_90a): the trajectory, and k
+// whole transitions per launch with the RNG inside the kernel.
+//
+// Replaces the Pallas kernels of mcmc_jl_tpu/ops/pallas_target.py:
+//   target_leapfrogs <- _kernel           (fused_target_leapfrogs; vec_eps
+//                                           and dyn_len: the step is a scalar
+//                                           or a (d,) row, the leap count a
+//                                           launch argument)
+//   target_multistep <- _multistep_kernel (_multistep_inner /
+//                                           run_target_hmc_multistep)
+// The Pallas kernels differentiate the user's logp_block with jax.vjp inside
+// the kernel.  CUDA has no autodiff, so these kernels take a catalog target
+// (a product of the ten continuous families over the coordinates, with scalar
+// parameters) and evaluate each coordinate's (logp, dlogp/dx) pair
+// analytically (target_common.cuh); every other model runs on the generic
+// torch engine.
+//
+// What bounds it on the H100: one leapfrog of one chain is d independent
+// coordinate updates of a few tens of FP32 operations each (a division or
+// two, a logf or powf for some families), and one warp reduction when lp is
+// needed.  State lives in registers for the whole trajectory, so device
+// memory sees theta, m, g once in and once out per launch (12 d bytes per
+// chain in, 12 d + 4 out): at d = 10 and 10 leapfrogs, counting 20 FP32
+// operations per coordinate and leapfrog, that is about 8 FLOP per byte,
+// under the card's 20 FP32 FLOP per byte, so the bytes bound it on paper.
+// In practice lanes past d idle (22 of 32 at d = 10) and the per-coordinate
+// special functions run on the SFUs; a simple layout that is right comes
+// first.
+//
+// Design: one warp per chain, four chains per 128-thread block; lane l holds
+// coordinates l, l + 32, ... in registers (CPL per lane, a template bound,
+// so d <= 1024 runs one code path); the d family rows are staged in shared
+// memory once per block.  Kick and drift round each product and sum
+// separately (__fmul_rn / __fadd_rn), as the plain PyTorch version does.
+// Philox counters are (chain, absolute transition i0 + t, coordinate,
+// stream) with the momenta on stream 0 and the MH uniform on stream 1, keyed
+// by a seed drawn per launch, so no launch and no coordinate reuses a
+// counter.  ops/target_kernels.py target_multistep_draws replays these
+// draws on the host for the plain version: change both together.
+//
+// Every entry launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
+
+#include "target_common.cuh"
+
+namespace {
+
+// n_leaps macro steps of the schedule; returns lp at the end point, from
+// the last drift's gradient pass (pallas_glm.py _trajectory).
+template <int CPL>
+__device__ float trajectory(const Row* rows, int d, int lane, const Sched& s,
+                            const float (&e)[CPL], int n_leaps,
+                            float (&th)[CPL], float (&m)[CPL],
+                            float (&g)[CPL]) {
+  float lp = 0.f;
+  for (int l = 0; l < n_leaps; ++l) {
+    const bool final = l == n_leaps - 1;
+    for (int k = 0; k < s.n; ++k) {
+      if (s.op[k] == 0) {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i)
+          m[i] = __fadd_rn(m[i], __fmul_rn(__fmul_rn(s.c[k], e[i]), g[i]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i)
+          th[i] = __fadd_rn(th[i], __fmul_rn(__fmul_rn(s.c[k], e[i]), m[i]));
+        if (final && k == s.last_a)
+          lp = eval_grad<CPL, true>(rows, d, lane, th, g);
+        else
+          eval_grad<CPL, false>(rows, d, lane, th, g);
+      }
+    }
+  }
+  return lp;
+}
+
+// The step of each of this lane's coordinates: the scalar, or the row.
+template <int CPL>
+__device__ __forceinline__ void load_eps(float (&e)[CPL], float eps,
+                                         const float* eps_row, int d,
+                                         int lane) {
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int j = lane + kWarp * i;
+    e[i] = eps_row ? (j < d ? eps_row[j] : 0.f) : eps;
+  }
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+leapfrogs_kernel(Target t, Sched s, int C, float eps,
+                 const float* __restrict__ eps_row, int n_leaps,
+                 const float* __restrict__ th_in,
+                 const float* __restrict__ m_in,
+                 const float* __restrict__ g_in, float* th_out, float* m_out,
+                 float* g_out, float* lp_out) {
+  extern __shared__ Row rows[];
+  stage_rows(t, rows);
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (c >= C) return;  // the whole warp: no barrier follows
+  float th[CPL], m[CPL], g[CPL], e[CPL];
+  load_lane<CPL>(th, th_in, c, t.d, lane);
+  load_lane<CPL>(m, m_in, c, t.d, lane);
+  load_lane<CPL>(g, g_in, c, t.d, lane);
+  load_eps<CPL>(e, eps, eps_row, t.d, lane);
+  const float lp = trajectory<CPL>(rows, t.d, lane, s, e, n_leaps, th, m, g);
+  store_lane<CPL>(th_out, th, c, t.d, lane);
+  store_lane<CPL>(m_out, m, c, t.d, lane);
+  store_lane<CPL>(g_out, g, c, t.d, lane);
+  if (lane == 0) lp_out[c] = lp;
+}
+
+// k whole transitions per launch: Box-Muller momenta and the MH uniform from
+// Philox inside the kernel, the trajectory, the accept; lp and the gradient
+// at the start computed here (pallas_target.py:227-230).
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+multistep_kernel(Target t, Sched s, int C, float eps,
+                 const float* __restrict__ eps_row, int n_leaps, int k_trans,
+                 int i0, uint2 key, const float* __restrict__ th_in,
+                 float* th_out, float* g_out, float* lp_out, float* acc_out) {
+  extern __shared__ Row rows[];
+  stage_rows(t, rows);
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (c >= C) return;
+  const int d = t.d;
+  float th[CPL], g[CPL], e[CPL];
+  load_lane<CPL>(th, th_in, c, d, lane);
+  load_eps<CPL>(e, eps, eps_row, d, lane);
+  float lp = eval_grad<CPL, true>(rows, d, lane, th, g);
+  float n_acc = 0.f;
+  for (int t_ = 0; t_ < k_trans; ++t_) {
+    const uint32_t ti = (uint32_t)(i0 + t_);
+    float m[CPL], thp[CPL], gp[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int j = lane + kWarp * i;
+      uint4 b = philox(make_uint4((uint32_t)c, ti, (uint32_t)j, 0u), key);
+      m[i] = j < d ? box_muller(b.x, b.y) : 0.f;
+      thp[i] = th[i];
+      gp[i] = g[i];
+    }
+    const uint4 bu = philox(make_uint4((uint32_t)c, ti, 0u, 1u), key);
+    const float logu = logf(1.f - u01(bu.x));
+    const float h0 = -lp + half_sq<CPL>(m);
+    const float lpp = trajectory<CPL>(rows, d, lane, s, e, n_leaps, thp, m,
+                                      gp);
+    if (mh_accept(h0 - (-lpp + half_sq<CPL>(m)), logu)) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        th[i] = thp[i];
+        g[i] = gp[i];
+      }
+      lp = lpp;
+      n_acc += 1.f;
+    }
+  }
+  store_lane<CPL>(th_out, th, c, d, lane);
+  store_lane<CPL>(g_out, g, c, d, lane);
+  if (lane == 0) {
+    lp_out[c] = lp;
+    acc_out[c] = n_acc / (float)k_trans;
+  }
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+int target_leapfrogs(const int* codes, const float* params, int d, int C,
+                     const float* th_in, const float* m_in,
+                     const float* g_in, float* th_out, float* m_out,
+                     float* g_out, float* lp_out, float eps,
+                     const float* eps_row, int n_leaps, const int* sched_ops,
+                     const float* sched_c, int n_ops, void* stream) {
+  const int cpl = cpl_for(d);
+  Sched s;
+  if (!cpl || C < 1 || n_leaps < 1 || !make_sched(sched_ops, sched_c, n_ops,
+                                                  &s))
+    return (int)cudaErrorInvalidValue;
+  const Target t{codes, params, d};
+  const size_t smem = (size_t)d * sizeof(Row);
+  cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(CC)                                                          \
+  {                                                                         \
+    cudaError_t e = prepare(leapfrogs_kernel<CC>, smem);                    \
+    if (e != cudaSuccess) return (int)e;                                    \
+    leapfrogs_kernel<CC><<<blocks_for(C), kThreads, smem, st>>>(            \
+        t, s, C, eps, eps_row, n_leaps, th_in, m_in, g_in, th_out, m_out,   \
+        g_out, lp_out);                                                     \
+  }
+  TARGET_DISPATCH(cpl, LAUNCH)
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int target_multistep(const int* codes, const float* params, int d, int C,
+                     const float* th_in, float* th_out, float* g_out,
+                     float* lp_out, float* acc_out, float eps,
+                     const float* eps_row, int n_leaps, int k_trans, int i0,
+                     unsigned long long seed, const int* sched_ops,
+                     const float* sched_c, int n_ops, void* stream) {
+  const int cpl = cpl_for(d);
+  Sched s;
+  if (!cpl || C < 1 || n_leaps < 1 || k_trans < 1 || i0 < 0 ||
+      !make_sched(sched_ops, sched_c, n_ops, &s))
+    return (int)cudaErrorInvalidValue;
+  const Target t{codes, params, d};
+  const size_t smem = (size_t)d * sizeof(Row);
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(CC)                                                          \
+  {                                                                         \
+    cudaError_t e = prepare(multistep_kernel<CC>, smem);                    \
+    if (e != cudaSuccess) return (int)e;                                    \
+    multistep_kernel<CC><<<blocks_for(C), kThreads, smem, st>>>(            \
+        t, s, C, eps, eps_row, n_leaps, k_trans, i0, key, th_in, th_out,    \
+        g_out, lp_out, acc_out);                                            \
+  }
+  TARGET_DISPATCH(cpl, LAUNCH)
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

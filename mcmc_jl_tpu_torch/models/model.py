@@ -14,10 +14,11 @@ its data on the ``device`` it was given, in ``dtype`` (default
 :func:`~mcmc_jl_tpu_torch.utils.dtypes.real_dtype`).
 
 Ported modes: callable (``f`` with ``grad=``, or
-``gradient=True`` through ``torch.func``) and ``glm=`` (logistic, linear,
+``gradient=True`` through ``torch.func``), ``glm=`` (logistic, linear,
 poisson or probit link, or a custom ``(ll, resid)`` pair; weights, offsets
-and a scalar prior precision).  The ``~`` DSL and ``tensor``/``dtensor`` are
-ROADMAP queue 1 item 3.
+and a scalar prior precision) and the ``~`` DSL (named parameters, 1-based
+offsets, matrices column-major).  ``tensor``/``dtensor`` are ROADMAP queue
+1 item 3.
 
 Out-of-support semantics: the log-target is sanitized to ``-inf`` (NaN ->
 -inf) and the gradient to zero whenever the log-target is not finite
@@ -31,6 +32,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from . import dsl
+from .distributions import CatalogTarget
 from ..utils.dtypes import real_dtype
 
 
@@ -99,6 +102,10 @@ class LogDensityModel:
     #: set for models built via model(glm=...): enables the fused GLM-HMC
     #: routing in prun/run(chains=) (ops/glm_hmc.py)
     glm_spec: Any = None
+    #: set for DSL models that are a product of catalog densities over
+    #: their parameters: a ``CatalogTarget`` (models/distributions.py) that
+    #: enables the fused custom-target routing in prun/run(chains=)
+    target_spec: Any = None
 
     @property
     def device(self):
@@ -120,6 +127,22 @@ class LogDensityModel:
     @property
     def hasdtensor(self):
         return False
+
+    # -- parameter <-> named variables (reference expr_funcs.jl:39-91) -----
+    def unravel(self, theta):
+        """Flat (..., size) tensor -> dict of named parameter tensors
+        (matrices stored column-major, like Julia)."""
+        return _unravel(theta, self.pmap)
+
+    def ravel(self, values: dict):
+        """Dict of named parameter arrays -> flat (size,) tensor."""
+        theta = torch.zeros(self.size, dtype=self.dtype, device=self.device)
+        for name, (off, _) in self.pmap.items():
+            v = torch.as_tensor(values[name], dtype=self.dtype,
+                                device=self.device)
+            v = v.T.reshape(-1) if v.ndim == 2 else v.reshape(-1)
+            theta[off - 1 : off - 1 + v.numel()] = v
+        return theta
 
     def column_names(self):
         """Column names 'k', 'k.i', 'k.i.j' (1-based) exactly as the
@@ -158,6 +181,79 @@ def _ispartition(pmap, n):
     for off, shape in pmap.values():
         c[off - 1 : off - 1 + max(1, int(np.prod(shape)))] += 1
     return bool(np.all(c == 1))
+
+
+def _model_vars(params: dict):
+    """kwargs of initial values -> (size, pmap, init vector).
+
+    Mirrors ``modelVars`` (reference expr_funcs.jl:76-91): 1-based offsets in
+    declaration order; scalars keep shape (), matrices are stored flattened
+    column-major."""
+    pmap = {}
+    pos = 1
+    flat = []
+    for name, v in params.items():
+        arr = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                         else v, dtype=np.float64)
+        pmap[name] = (pos, arr.shape)
+        pos += max(1, arr.size)
+        flat.append(arr.reshape(-1, order="F") if arr.ndim == 2
+                    else arr.reshape(-1))
+    init = np.concatenate(flat) if flat else np.zeros((0,))
+    return pos - 1, pmap, init
+
+
+def _unravel(theta, pmap):
+    """Slices of ``theta`` (..., size) by name; shapes of two or more
+    dimensions read column-major, as the JAX package's ``unravel``."""
+    lead = tuple(theta.shape[:-1])
+    out = {}
+    for name, (off, shape) in pmap.items():
+        n = int(np.prod(shape)) if len(shape) else 1
+        sl = theta[..., off - 1 : off - 1 + n]
+        if len(shape) == 0:
+            out[name] = sl[..., 0]
+        elif len(shape) == 1:
+            out[name] = sl.reshape(lead + tuple(shape))
+        else:  # column-major: reversed shape, then the axes reversed
+            k = len(lead)
+            rev = sl.reshape(lead + tuple(shape)[::-1])
+            out[name] = rev.permute(*range(k),
+                                    *reversed(range(k, k + len(shape))))
+    return out
+
+
+def _catalog_spec(f, pmap, init, size):
+    """The ``CatalogTarget`` of a DSL model when one run of ``f`` at
+    ``init`` records only ``tilde(p, D)`` statements, each with ``p`` one
+    of the named parameters itself, ``D`` a family with a kernel row, and
+    every parameter once, and when that target's log-density equals the
+    model's at ``init``; else None."""
+    values = _unravel(init, pmap)
+    with dsl.trace() as tr:
+        f(**values)
+    by_id = {id(v): name for name, v in values.items()}
+    dists, seen = [None] * size, set()
+    for rec in tr.records:
+        if rec[0] != "tilde":
+            return None
+        _, x, dist = rec
+        name = by_id.get(id(x))
+        if (name is None or values[name] is not x or name in seen
+                or dist.kernel_row() is None):
+            return None
+        seen.add(name)
+        off, shape = pmap[name]
+        n = max(1, int(np.prod(shape)))
+        dists[off - 1 : off - 1 + n] = [dist] * n
+    if len(seen) != len(pmap):
+        return None
+    spec = CatalogTarget(dists)
+    lp_spec = spec(init[None])[0, 0]
+    lp = torch.as_tensor(tr.value, dtype=init.dtype, device=init.device)
+    if not bool(torch.isclose(lp_spec, lp, rtol=1e-5, atol=1e-6)):
+        return None
+    return spec
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -243,6 +339,13 @@ def model(
        ``offsets`` and scalar ``prior_prec``: the Bayesian GLM
        ``sum_i w_i ll(x_i'theta + o_i, y_i) - (lam/2)|theta|^2`` with an
        analytic gradient.
+    3. **DSL mode** — ``f`` is a function of *named* parameters using
+       :func:`~mcmc_jl_tpu_torch.models.dsl.tilde` statements; pass one
+       kwarg per parameter giving its initial value (the reference's
+       ``model(expr, v=ones(3), gradient=true)``).  A model that is a
+       product of catalog densities over its parameters gets a
+       ``target_spec``, which routes plain HMC and MALA to the
+       custom-target kernels.
 
     ``device`` and ``dtype`` say where and in what precision the model's
     data and functions live; the default device is the CUDA card (pass
@@ -250,9 +353,6 @@ def model(
     """
     if mtype != "likelihood":
         raise ValueError(f"unsupported model type {mtype!r}")
-    if params:
-        raise NotImplementedError(
-            "the ~ model DSL is not ported yet (ROADMAP queue 1 item 3)")
     if tensor is not None or dtensor is not None:
         raise NotImplementedError(
             "tensor/dtensor models are not ported yet (ROADMAP queue 1 item 3)")
@@ -285,7 +385,22 @@ def model(
         if weights is not None or offsets is not None:
             raise ValueError("weights/offsets only apply to glm= models")
         if f is None:
-            raise ValueError("model() needs a callable or glm=")
+            raise ValueError("model() needs a callable, DSL params or glm=")
+    dsl_f = None
+    if params:  # ---- DSL mode ------------------------------------------
+        if glm is not None:
+            raise ValueError("pass either DSL params or glm=..., not both")
+        if init is not None or pmap is not None:
+            raise ValueError("'init'/'pmap' are not allowed for DSL models "
+                             "(use named params)")
+        size, pmap, init = _model_vars(params)
+        dsl_f, pm = f, pmap
+
+        def f(theta):
+            lp = dsl.call_with_trace(dsl_f, _unravel(theta, pm))
+            return torch.as_tensor(lp, dtype=theta.dtype, device=theta.device)
+
+    if glm is None:
         raw_eval = _batched(f)
     if init is None:
         init = [1.0]
@@ -324,6 +439,8 @@ def model(
     mdl = LogDensityModel(
         eval=eval_, evalg=evalg, evalallg=evalallg, pmap=pmap, size=size,
         init=init_vec, scale=scale_vec, glm_spec=glm_spec_obj,
+        target_spec=(None if dsl_f is None
+                     else _catalog_spec(dsl_f, pmap, init_vec, size)),
     )
 
     if check_init:

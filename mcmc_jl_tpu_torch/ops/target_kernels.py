@@ -1,0 +1,472 @@
+"""Fused HMC on custom targets: the port of ``mcmc_jl_tpu/ops/pallas_target.py``.
+
+The Pallas kernels differentiate a user's ``logp_block`` inside the kernel
+with ``jax.vjp``.  CUDA has no autodiff, so the port splits custom targets
+in two (ROADMAP queue 2, "custom targets"):
+
+- a **catalog target** — a product of the ten continuous catalog families
+  over the coordinates, each with Python-scalar parameters
+  (:func:`coordwise_logp`, or a DSL model's ``target_spec``) — runs on
+  hand-written CUDA: each family is an analytic ``(logp, dlogp/dx)``
+  device-function pair (``csrc/target_common.cuh``);
+- every other model runs on the generic torch engine through
+  ``torch.func``; the route decides that up front
+  (``parallel/pchains.py``).
+
+Two kernels, in ``csrc/target_hmc.cu``, replace the Pallas kernel bodies:
+
+==============================  ==========================================
+wrapper (this module)           Pallas kernel it replaces
+==============================  ==========================================
+:func:`fused_target_leapfrogs`  ``pallas_target.py _kernel`` (the
+                                trajectory; a scalar or (d,) step, a leap
+                                count given at run time)
+:func:`target_multistep`        ``pallas_target.py _multistep_kernel`` (k
+                                transitions, RNG inside)
+==============================  ==========================================
+
+Each has a plain PyTorch version beside it (``*_ref``) that differentiates
+the distributions' ``logpdf`` with ``torch.func`` (never the kernels'
+hand-written derivatives).  A wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises —
+also for a target without kernel rows and for d above
+:data:`D_MAX`.  Launches count in ``LAUNCHES``, plain calls in
+``PLAIN_CALLS``.  Chain states are unpadded (C, d) float32 tensors.
+
+Not ported: ``lifted_model_block`` (data-bearing targets run generic),
+``target_kernel_supported`` (no compile probe: the route decides up front)
+and ``run_target_hmc_sharded`` (ROADMAP queue 1 item 15).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..models.distributions import FAMILY_CODES, CatalogTarget, Distribution
+from . import philox
+from .glm_kernels import _draw, _sched, _trajectory, accept_test
+
+#: largest dimension the kernels take: 32 lanes x 32 coordinates per lane
+D_MAX = 1024
+
+_NAMES = ("target_leapfrogs", "target_multistep")
+LAUNCHES = dict.fromkeys(_NAMES, 0)
+PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
+
+
+def reset_counts():
+    """Zero the launch and plain-call counters."""
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def coordwise_logp(dist, d, d_pad=None, safe=0.5):
+    """A target that sums a per-coordinate log-density over ``d``
+    coordinates (pallas_target.py ``coordwise_logp``).
+
+    ``dist`` is a catalog :class:`Distribution` (every coordinate), a
+    sequence of ``d`` of them (a mixed target), or an elementwise callable
+    ``logpdf(x)`` (no kernel rows: such a target runs only on the plain
+    version).  ``d_pad`` and ``safe`` are kept for the signature: the port
+    has no padded lanes."""
+    del d_pad, safe
+    if isinstance(dist, Distribution):
+        return CatalogTarget([dist] * d)
+    if isinstance(dist, (list, tuple)):
+        if len(dist) != d:
+            raise ValueError(f"{len(dist)} distributions for d = {d}")
+        return CatalogTarget(dist)
+    if callable(dist):
+        return CatalogTarget(d=d, block=lambda th: dist(th).sum(
+            -1, keepdim=True))
+    raise TypeError(f"coordwise_logp takes a Distribution, a sequence of "
+                    f"them or a callable, got {type(dist).__name__}")
+
+
+def model_block_fn(model):
+    """The target of a model (pallas_target.py ``model_block_fn``): its
+    ``target_spec`` when it has one, else a target without kernel rows
+    around ``model.eval``."""
+    if model.target_spec is not None:
+        return model.target_spec
+    return CatalogTarget(d=model.size,
+                         block=lambda th: model.eval(th).unsqueeze(-1))
+
+
+# ---- plain PyTorch versions ----------------------------------------------
+
+
+def target_funcs(target):
+    """(grad_only, logp_grad) of a target by ``torch.func`` (the JAX
+    kernel's ``jax.grad`` / ``jax.vjp`` pair); chains are independent, so
+    the gradient of the summed log-density is each chain's gradient."""
+    def grad_only(theta):
+        return torch.func.grad(lambda th: target(th).sum())(theta)
+
+    def logp_grad(theta):
+        lp, vjp = torch.func.vjp(target, theta)
+        (g,) = vjp(torch.ones_like(lp))
+        return lp[:, 0], g
+
+    return grad_only, logp_grad
+
+
+def _eps(eps, theta):
+    """The step as the kernels and plain versions take it: a Python float,
+    or a (d,) row on theta's device in its dtype (the diagonal-metric
+    fold)."""
+    if isinstance(eps, torch.Tensor) or hasattr(eps, "__len__"):
+        e = torch.as_tensor(eps, dtype=theta.dtype, device=theta.device)
+        if e.numel() == 1:
+            return float(e)
+        if e.numel() != theta.shape[-1]:
+            raise ValueError(f"the step row has {e.numel()} entries, want "
+                             f"{theta.shape[-1]}")
+        return e.reshape(-1).contiguous()
+    return float(eps)
+
+
+def _eps_args(eps, theta):
+    """(scalar eps, (d,) row or None) as the kernels take them."""
+    e = _eps(eps, theta)
+    return (1.0, e) if isinstance(e, torch.Tensor) else (e, None)
+
+
+def fused_target_leapfrogs_ref(target, theta, m, grad, eps, *, n_leaps=10,
+                               integrator="leapfrog"):
+    """Plain version of :func:`fused_target_leapfrogs`."""
+    PLAIN_CALLS["target_leapfrogs"] += 1
+    grad_only, logp_grad = target_funcs(target)
+    return _trajectory(theta, m, grad, _eps(eps, theta), grad_only,
+                       logp_grad, int(n_leaps), integrator)
+
+
+def target_multistep_ref(target, theta, eps, *, k_trans=10, n_leaps=10,
+                         generator=None, noise=None, integrator="leapfrog"):
+    """Plain version of :func:`target_multistep`: ``k_trans`` whole
+    transitions.  The momenta and MH log-uniforms come from ``noise = (z
+    (k, C, d), logu (k, C))`` when given, else from ``generator`` (another
+    stream than the kernel's Philox: compare statistically).
+    Returns (theta, grad, lp (C,), accept rate (C,))."""
+    PLAIN_CALLS["target_multistep"] += 1
+    grad_only, logp_grad = target_funcs(target)
+    eps = _eps(eps, theta)
+    lp, g = logp_grad(theta)
+    n_acc = torch.zeros_like(lp)
+    for t in range(k_trans):
+        if noise is not None:
+            m0, logu = noise[0][t], noise[1][t]
+        else:
+            m0 = torch.randn(theta.shape, generator=generator,
+                             dtype=theta.dtype, device=theta.device)
+            logu = torch.log(1.0 - torch.rand(
+                theta.shape[:1], generator=generator, dtype=theta.dtype,
+                device=theta.device))
+        h0 = -lp + 0.5 * (m0 * m0).sum(-1)
+        th_p, m, g_p, lp_p = _trajectory(theta, m0, g, eps, grad_only,
+                                         logp_grad, n_leaps, integrator)
+        a = accept_test(h0, -lp_p + 0.5 * (m * m).sum(-1), logu)
+        theta = torch.where(a[:, None], th_p, theta)
+        g = torch.where(a[:, None], g_p, g)
+        lp = torch.where(a, lp_p, lp)
+        n_acc = n_acc + a.to(n_acc.dtype)
+    return theta, g, lp, n_acc / k_trans
+
+
+# ---- CUDA kernels ----------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I]
+_ARGTYPES = {
+    "target_leapfrogs": [_P, _P, _I, _I] + [_P] * 7 + [_F, _P, _I] + _SCHED
+    + [_P],
+    "target_multistep": [_P, _P, _I, _I] + [_P] * 5 + [_F, _P, _I, _I, _I,
+                                                       ctypes.c_ulonglong]
+    + _SCHED + [_P],
+}
+
+
+def load_library(source, argtypes):
+    """Build (first use) and bind ``csrc/<source>.cu``, a custom-target
+    library (its entries ``argtypes``: name -> ctypes types, plus the
+    helpers of ``target_common.cuh``); returns the library."""
+    from .cuda_build import load
+
+    lib = load(source)
+    if not getattr(lib, "_bound", False):
+        for name, types in argtypes.items():
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+        lib.target_error_string.argtypes = [ctypes.c_int]
+        lib.target_error_string.restype = ctypes.c_char_p
+        if (lib.target_max_dim() != D_MAX
+                or lib.target_n_families() != len(FAMILY_CODES)):
+            raise RuntimeError(f"csrc/{source}.cu and ops/target_kernels.py "
+                               f"disagree on D_MAX or the family codes")
+        lib._bound = True
+    return lib
+
+
+def load_kernels():
+    """Build (first use) and bind ``csrc/target_hmc.cu``."""
+    return load_library("target_hmc", _ARGTYPES)
+
+
+def _ptr(t):
+    return _P(None if t is None else t.data_ptr())
+
+
+def _device_branch(name, theta):
+    """True for CUDA tensors; False for CPU tensors (plain version)."""
+    if theta.device.type == "cuda":
+        return True
+    if theta.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {theta.device}")
+
+
+def kernel_args(name, target, theta, states=()):
+    """Validate what the kernels take: a target with kernel rows at
+    1 <= d <= D_MAX and contiguous float32 (C, d) ``states`` on theta's
+    device.  Returns (codes, params, C, d)."""
+    if not isinstance(target, CatalogTarget) or not target.has_rows:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes a catalog target (coordwise_logp "
+            f"of the continuous families with scalar parameters, or a DSL "
+            f"model's target_spec); {target!r} has no kernel rows, so it "
+            f"runs on the generic torch engine")
+    dev = theta.device
+    C, d = theta.shape if theta.ndim == 2 else (0, 0)
+    if d != target.d or not 1 <= d <= D_MAX:
+        raise ValueError(f"{name}: theta is {tuple(theta.shape)}; the target "
+                         f"has d = {target.d} and the kernel takes "
+                         f"1..{D_MAX}")
+    for label, t in (("theta", theta),) + tuple(states):
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous() or tuple(t.shape) != (C, d):
+            raise ValueError(
+                f"{name}: {label} must be a contiguous float32 ({C}, {d}) "
+                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    codes, params = target.rows(dev)
+    return codes, params, C, d
+
+
+def _seed(generator):
+    """A launch seed drawn from the run's ``torch.Generator``."""
+    if generator is None:
+        raise ValueError("a kernel that draws inside needs a torch.Generator "
+                         "on the card for its launch seed")
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+
+
+def launch(lib, counts, name, *args):
+    """Call entry ``name`` of ``lib`` on the current stream; raise on a
+    CUDA error, else add one to ``counts[name]``."""
+    code = getattr(lib, name)(*args,
+                              _P(torch.cuda.current_stream().cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.target_error_string(code).decode()} "
+                           f"({code})")
+    counts[name] += 1
+
+
+def fused_target_leapfrogs(target, theta, m, grad, eps, *, n_leaps=10,
+                           integrator="leapfrog"):
+    """``n_leaps`` fused macro steps of ``integrator`` for all chains on a
+    catalog target.
+
+    ``theta``, ``m``, ``grad`` (C, d) with ``grad`` the gradient at
+    ``theta``; ``eps`` a scalar or a (d,) per-coordinate row (the
+    diagonal-metric fold); ``n_leaps`` an int given at run time.
+    Returns (theta, m, grad, logp (C,)) at the end of the trajectory."""
+    name = "target_leapfrogs"
+    if not _device_branch(name, theta):
+        return fused_target_leapfrogs_ref(target, theta, m, grad, eps,
+                                          n_leaps=n_leaps,
+                                          integrator=integrator)
+    codes, params, C, d = kernel_args(name, target, theta,
+                                      (("m", m), ("grad", grad)))
+    eps_s, eps_row = _eps_args(eps, theta)
+    th_o, m_o, g_o = (torch.empty_like(theta) for _ in range(3))
+    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    with torch.cuda.device(theta.device):
+        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
+               C, _ptr(theta), _ptr(m), _ptr(grad), _ptr(th_o), _ptr(m_o),
+               _ptr(g_o), _ptr(lp_o), eps_s, _ptr(eps_row), int(n_leaps),
+               *_sched(integrator))
+    return th_o, m_o, g_o, lp_o
+
+
+def target_multistep(target, theta, eps, *, k_trans=10, n_leaps=10,
+                     generator=None, integrator="leapfrog", i0=0):
+    """``k_trans`` whole HMC transitions per launch on a catalog target,
+    the momenta (Box-Muller) and MH uniforms drawn inside the kernel from
+    Philox4x32-10 keyed by a seed drawn from ``generator`` and counted by
+    (chain, absolute transition ``i0 + t``, coordinate): a generator in the
+    same state repeats a launch bitwise.
+    Returns (theta, grad, lp (C,), accept rate (C,))."""
+    name = "target_multistep"
+    if not _device_branch(name, theta):
+        return target_multistep_ref(target, theta, eps, k_trans=k_trans,
+                                    n_leaps=n_leaps, generator=generator,
+                                    integrator=integrator)
+    codes, params, C, d = kernel_args(name, target, theta)
+    eps_s, eps_row = _eps_args(eps, theta)
+    seed = _seed(generator)
+    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
+    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    with torch.cuda.device(theta.device):
+        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
+               C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
+               _ptr(acc_o), eps_s, _ptr(eps_row), int(n_leaps), int(k_trans),
+               int(i0), seed, *_sched(integrator))
+    return th_o, g_o, lp_o, acc_o
+
+
+def target_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
+    """The momenta (k, C, d) and MH log-uniforms (k, C) that
+    :func:`target_multistep` draws under the launch seed ``seed``, replayed
+    by :mod:`.philox` as ``noise`` for :func:`target_multistep_ref`."""
+    c = np.arange(C, dtype=np.uint32)[None, :, None]
+    t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
+    j = np.arange(d, dtype=np.uint32)
+    b = philox.philox4x32((c, t, j, 0), seed)
+    bu = philox.philox4x32((c[..., 0], t[..., 0], 0, 1), seed)
+    return (torch.from_numpy(philox.box_muller(b[0], b[1])).to(device),
+            torch.from_numpy(philox.log1m_u01(bu[0])).to(device))
+
+
+# ---- drivers ---------------------------------------------------------------
+
+
+def _run(target, theta0, eps, generator, *, steps, n_leaps,
+         integrator="leapfrog", collect=False):
+    """Run ``steps`` fused-HMC transitions on a target: the trajectory in
+    the kernel, momentum refresh and the NaN-rejecting accept here
+    (pallas_target.py ``_run``).  Records ``plogtarget``/``accept`` per step
+    (+ post-accept ``ppars``/``pgrads`` with ``collect``).
+    Returns ((theta, lp, grad), infos stacked over steps)."""
+    theta = theta0
+    lp, g = target_funcs(target)[1](theta0)
+    rows = {"plogtarget": [], "accept": []}
+    if collect:
+        rows.update(ppars=[], pgrads=[])
+    for _ in range(steps):
+        m0, logu = _draw(theta, generator)
+        p_th, p_m, p_g, p_lp = fused_target_leapfrogs(
+            target, theta, m0, g, eps, n_leaps=n_leaps, integrator=integrator)
+        accept = accept_test(-lp + 0.5 * (m0 * m0).sum(-1),
+                             -p_lp + 0.5 * (p_m * p_m).sum(-1), logu)
+        a = accept[:, None]
+        theta = torch.where(a, p_th, theta)
+        g = torch.where(a, p_g, g)
+        lp = torch.where(accept, p_lp, lp)
+        rows["plogtarget"].append(lp)
+        rows["accept"].append(accept)
+        if collect:
+            rows["ppars"].append(theta)
+            rows["pgrads"].append(g)
+    return (theta, lp, g), {k: torch.stack(v) for k, v in rows.items()}
+
+
+def _prepare(d, n_chains, seed, generator, inits, device):
+    """float32 initial states on ``device`` and the run's generator."""
+    from ..models.model import resolve_device
+    from ..samplers.base import make_generator
+
+    dev = resolve_device(device)
+    gen = generator if generator is not None else make_generator(dev, seed)
+    if inits is None:
+        inits = 0.1 * torch.randn((n_chains, d), generator=gen,
+                                  dtype=torch.float32, device=dev)
+    theta0 = torch.as_tensor(inits, dtype=torch.float32, device=dev)
+    return theta0.expand(n_chains, d).contiguous(), gen
+
+
+def run_target_hmc(target, d, n_chains, steps, n_leaps=10, eps=0.1, seed=0,
+                   generator=None, inits=None, device=None,
+                   integrator="leapfrog", collect=False):
+    """Sample a catalog target with the fused trajectory kernel
+    (pallas_target.py ``run_target_hmc``).  ``eps`` is a scalar or a (d,)
+    row.  Returns (theta (C, d), infos {plogtarget, accept} (+ ppars,
+    pgrads with ``collect``) stacked over steps)."""
+    theta0, gen = _prepare(d, n_chains, seed, generator, inits, device)
+    (theta, _, _), infos = _run(target, theta0, eps, gen, steps=steps,
+                                n_leaps=n_leaps, integrator=integrator,
+                                collect=collect)
+    return theta, infos
+
+
+def run_target_hmc_multistep(target, d, n_chains, steps, thin=10,
+                             n_leaps=10, eps=0.1, seed=0, generator=None,
+                             inits=None, device=None, integrator="leapfrog",
+                             collect=False):
+    """Sample a catalog target with the multi-transition kernel: ``steps``
+    transitions as ``steps // thin`` launches of ``thin``; infos carry one
+    row per launch (thinned chain): ``plogtarget``/``accept_rate``
+    (+ ``ppars``/``pgrads`` with ``collect``)."""
+    if steps % thin != 0:
+        raise ValueError("steps must be divisible by thin")
+    theta, gen = _prepare(d, n_chains, seed, generator, inits, device)
+    rows = {"plogtarget": [], "accept_rate": []}
+    if collect:
+        rows.update(ppars=[], pgrads=[])
+    for i in range(steps // thin):
+        theta, g, lp, acc = target_multistep(
+            target, theta, eps, k_trans=thin, n_leaps=n_leaps, generator=gen,
+            integrator=integrator, i0=i * thin)
+        rows["plogtarget"].append(lp)
+        rows["accept_rate"].append(acc)
+        if collect:
+            rows["ppars"].append(theta)
+            rows["pgrads"].append(g)
+    return theta, {k: torch.stack(v) for k, v in rows.items()}
+
+
+def fused_target_chains(model, sampler, runner, n_chains, generator):
+    """Run ``n_chains`` plain-HMC chains on a model with a ``target_spec``
+    through the fused trajectory kernel, returning ``(infos,
+    final_states)`` in the protocol of
+    :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains` (float32
+    compute, post-accept keys, exact-resume final states)."""
+    from .glm_hmc import final_hmc_states
+
+    target = model.target_spec
+    if target is None:
+        raise ValueError("fused_target_chains requires a model with a "
+                         "target_spec (a product of catalog densities)")
+    theta0 = model.init.to(torch.float32).expand(n_chains, -1).contiguous()
+    (thetaF, lpF, gF), infos = _run(
+        target, theta0, sampler.leap_step, generator, steps=runner.len,
+        n_leaps=sampler.n_leaps, integrator=sampler.integrator, collect=True)
+    states = final_hmc_states(model, sampler, n_chains, runner.len, thetaF,
+                              lpF, gF)
+    return infos, states
+
+
+def fused_mala_target_chains(model, sampler, runner, n_chains, generator):
+    """Plain MALA on a catalog target through the trajectory kernel: MALA
+    with drift step ``s`` is one-leapfrog HMC at ``eps = sqrt(s)``
+    (pallas_target.py ``fused_mala_target_chains``; MALA.jl:65-126).
+    Returns ``(infos, final_states)`` with exact-resume MALAStates."""
+    from ..samplers.base import tuner_init
+    from ..samplers.hmc import HMC
+    from ..samplers.mala import MALAState
+
+    infos, hst = fused_target_chains(model, HMC(1, math.sqrt(sampler.scale)),
+                                     runner, n_chains, generator)
+    tune = tuner_init(sampler.scale, shape=(n_chains,), dtype=model.dtype,
+                      device=model.device)
+    return infos, MALAState(pars=hst.pars, logtarget=hst.logtarget,
+                            grad=hst.grad, tune=tune, i=hst.i)

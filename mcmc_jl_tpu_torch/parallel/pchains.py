@@ -13,7 +13,10 @@ per-task chains) and routes groups on GLM posteriors to the fused CUDA
 kernels: plain HMC and plain MALA to the HMC drivers (ops/glm_hmc.py; above
 ``BIGN_THRESHOLD`` observations the N-tiled kernel, ops/glm_bign.py),
 adaptive HMC, HMCDA, adaptive MALA and exact NUTS to the warm-start
-pipeline (ops/warmstart.py).
+pipeline (ops/warmstart.py).  Plain HMC and plain MALA on a custom target
+that is a product of catalog densities (``model.target_spec``) go to the
+custom-target kernels (ops/target_kernels.py); other custom targets run on
+the generic engine.
 """
 from __future__ import annotations
 
@@ -104,6 +107,18 @@ def _fused_eligible(task):
         and (_plain_hmc(task) or _plain_mala(task))
 
 
+def _target_eligible(task):
+    """Plain fixed-step HMC or plain MALA on a non-GLM model of at most
+    1024 parameters can route to the fused custom-target kernels
+    (pchains.py ``_target_eligible``), when the model has a
+    ``target_spec``."""
+    from ..ops.target_kernels import D_MAX
+
+    return (getattr(task.model, "glm_spec", None) is None
+            and (_plain_hmc(task) or _plain_mala(task))
+            and task.model.size <= D_MAX)
+
+
 def _kernel_shape_ok(model, route):
     """What the ported GLM kernels take on ``route``: a built-in link,
     d <= D_MAX, and for exact NUTS N <= BIGN_THRESHOLD; None when they do,
@@ -125,7 +140,9 @@ def _kernel_shape_ok(model, route):
 
 def _route(t, fused):
     """Decide before any launch which route a group takes: "hmc" (plain
-    HMC or plain MALA through the fused GLM-HMC drivers), "warm" (adaptive
+    HMC or plain MALA through the fused GLM-HMC drivers), "target" (plain
+    HMC or plain MALA on a catalog target through the custom-target
+    trajectory kernel), "warm" (adaptive
     HMC, HMCDA or adaptive MALA: generic warmup, then the Halton multistep
     or the N-tiled kernel), "nuts" (generic warmup, then the exact-NUTS
     kernels) or False (the generic engine).  Above ``BIGN_THRESHOLD``
@@ -147,6 +164,15 @@ def _route(t, fused):
         return False
     if _fused_eligible(t):
         route = "hmc"
+    elif _target_eligible(t):
+        if m.target_spec is None:
+            log.info("prun: the model is not a product of catalog densities "
+                     "over its parameters (callable mode, derived "
+                     "quantities, acc(), data or tensor-valued parameters), "
+                     "so the custom-target kernels cannot take it; running "
+                     "the generic torch engine")
+            return False
+        return "target"
     elif warm_eligible(t):
         route = "nuts" if isinstance(t.sampler, NUTS) else "warm"
     else:
@@ -174,7 +200,9 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
     in float32 on a CUDA device to the fused CUDA kernels (see
     :func:`_route`); ``True`` forces the fused drivers (their plain
     versions on the CPU, for tests); ``False`` always uses the generic
-    engine.  A kernel that fails to build or launch raises."""
+    engine.  Plain HMC and MALA groups on a model with a ``target_spec``
+    take the custom-target kernels under the same rule.  A kernel that
+    fails to build or launch raises."""
     t0 = time.time()
 
     groups = {}
@@ -190,7 +218,7 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
         gen = make_generator(t.model.device, seed * 1_000_003 + gi)
         route = _route(t, fused)
         if route and fused == "auto":
-            log.info("prun: routing %d %s chains to the fused CUDA GLM "
+            log.info("prun: routing %d %s chains to the fused CUDA "
                      "kernels (f32, %s route); pass fused=False for the "
                      "generic engine", n, type(t.sampler).__name__, route)
         if route == "hmc":
@@ -198,6 +226,13 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
 
             glm_fn = fused_mala_chains if _plain_mala(t) else fused_hmc_chains
             infos, final_states = glm_fn(t.model, t.sampler, t.runner, n, gen)
+        elif route == "target":
+            from ..ops.target_kernels import (fused_mala_target_chains,
+                                              fused_target_chains)
+
+            tgt_fn = (fused_mala_target_chains if _plain_mala(t)
+                      else fused_target_chains)
+            infos, final_states = tgt_fn(t.model, t.sampler, t.runner, n, gen)
         elif route == "warm":
             from ..ops.warmstart import warmfused_hmc_chains
 

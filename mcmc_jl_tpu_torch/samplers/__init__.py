@@ -1,11 +1,12 @@
 """Samplers ported so far: HMC (fixed step, EmpMCTuner, diagonal mass
-adaptation), HMCDA, MALA, exact NUTS and their machinery."""
+adaptation), HMCDA, MALA, exact NUTS, RWM and their machinery."""
 from .base import EmpMCTuner, RunCtx, Sampler, TuneState, tuner_init, tuner_update
 from .hmc import HMC, HMCState
 from .hmcda import HMCDA, HMCDAState
 from .mala import MALA, MALAState
 from .nuts import NUTS, NUTSState
+from .rwm import RWM, RWMState
 
 __all__ = ["EmpMCTuner", "RunCtx", "Sampler", "TuneState", "tuner_init",
            "tuner_update", "HMC", "HMCState", "HMCDA", "HMCDAState", "MALA",
-           "MALAState", "NUTS", "NUTSState"]
+           "MALAState", "NUTS", "NUTSState", "RWM", "RWMState"]

@@ -1,8 +1,9 @@
-"""Carry models and sampler states over from the JAX package.
+"""Carry models, distributions and sampler states over from the JAX package.
 
 Works on numpy arrays only, so neither package imports the other: take a JAX
-``GLMSpec``'s fields, or a JAX ``HMCState``/``NUTSState``/``MALAState``/
-``HMCDAState`` after ``jax.device_get`` turned into a (nested) dict of numpy
+``GLMSpec``'s fields, a JAX catalog distribution's class name and fields,
+or a JAX ``HMCState``/``NUTSState``/``MALAState``/``HMCDAState``/
+``RWMState`` after ``jax.device_get`` turned into a (nested) dict of numpy
 arrays, and build the port's counterpart.  ``device=None`` means the CUDA
 card, as everywhere in the port; pass ``device="cpu"`` to build on the CPU.
 """
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models import distributions as dists
 from ..models.model import model, resolve_device
 from ..samplers.base import TuneState
 from ..samplers.hmc import HMCState
@@ -20,6 +22,7 @@ from ..samplers.hmcda import HMCDAState
 from ..samplers.mala import MALAState
 from ..samplers.massadapt import MassAccum
 from ..samplers.nuts import NUTSState
+from ..samplers.rwm import RWMState
 
 _NESTED = {"tune": TuneState, "mass": MassAccum}
 
@@ -33,6 +36,35 @@ def glm_model_from_spec(kind, X, Y, weights=None, offsets=None,
                  weights=None if weights is None else np.asarray(weights),
                  offsets=None if offsets is None else np.asarray(offsets),
                  prior_prec=float(prior_prec), device=device, dtype=dtype)
+
+
+def distribution_from_fields(name, device=None, dtype=None, **fields):
+    """The port's catalog distribution from a JAX distribution's class name
+    and its fields as numpy (``dataclasses.asdict`` after
+    ``jax.device_get``), e.g. ``distribution_from_fields("Gamma", shape=3.0,
+    scale=0.2)``.  Scalars become Python floats, so the ten continuous
+    families keep their kernel rows; arrays become tensors on ``device``
+    (the CUDA card by default) in ``dtype``.  A nested ``base`` (censoring,
+    ``Truncated``) is given as a ``(name, fields)`` pair or as a port
+    distribution."""
+    cls = dists._REGISTRY.get(name)
+    if cls is None:
+        raise ValueError(f"unknown distribution {name!r}; the catalog has "
+                         f"{sorted(dists._REGISTRY)}")
+    kw = {}
+    for key, v in fields.items():
+        if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], str):
+            v = distribution_from_fields(v[0], device=device, dtype=dtype,
+                                         **v[1])
+        elif v is not None and not isinstance(v, dists.Distribution):
+            a = np.asarray(v)
+            if a.ndim == 0:
+                v = float(a)
+            else:
+                v = torch.tensor(a, dtype=dtype or torch.get_default_dtype(),
+                                 device=resolve_device(device))
+        kw[key] = v
+    return cls(**kw)
 
 
 def _build(cls, fields, dev, dtype):
@@ -77,6 +109,13 @@ def hmcda_state_from_numpy(state, device=None, dtype=None):
     and a nested ``mass`` dict) of numpy arrays; as
     :func:`hmc_state_from_numpy`."""
     return _state_from_numpy(HMCDAState, state, device, dtype)
+
+
+def rwm_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`RWMState` from a JAX ``RWMState`` given as a dict
+    (``pars, logtarget, i``) of numpy arrays; as
+    :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(RWMState, state, device, dtype)
 
 
 def _state_from_numpy(cls, state, device, dtype):

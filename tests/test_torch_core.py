@@ -93,12 +93,15 @@ def test_integrator_step_matches_jax(name):
 
 
 def test_import_leaves_jax_out():
-    """(h) the port never imports jax."""
-    code = ("import sys, mcmc_jl_tpu_torch, mcmc_jl_tpu_torch.ops.glm_hmc, "
-            "mcmc_jl_tpu_torch.ops.glm_bign, mcmc_jl_tpu_torch.ops.warmstart, "
-            "mcmc_jl_tpu_torch.parallel.pchains, mcmc_jl_tpu_torch.utils.convert;"
+    """(h) no module of the port imports jax or the JAX package: every
+    module of the package is imported, then sys.modules is searched."""
+    code = ("import importlib, pkgutil, sys, mcmc_jl_tpu_torch as p;"
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "p.__path__, 'mcmc_jl_tpu_torch.')];"
+            "assert 'mcmc_jl_tpu_torch.ops.target_kernels' in sys.modules;"
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
-            "or m.startswith('mcmc_jl_tpu.') for m in sys.modules) else 0)")
+            "or m == 'mcmc_jl_tpu' or m.startswith('mcmc_jl_tpu.') "
+            "for m in sys.modules) else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -210,4 +213,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.HMC(5, 0.1, mass_adapt="dense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.model(lambda v: 0.0, x=1.0, device="cpu")
+        mt.model(lambda x: mt.tilde(x, mt.Normal(0.0, 1.0)), x=1.0,
+                 tensor=True, device="cpu")
+    # the ~ DSL itself is ported now
+    m = mt.model(lambda x: mt.tilde(x, mt.Normal(0.0, 1.0)), x=1.0,
+                 device="cpu")
+    assert m.size == 1 and m.pmap == {"x": (1, ())}
