@@ -12,15 +12,21 @@ regression (d = 10; ``bench.py``'s data) through ``run(..., chains=N)``:
   kernel (4096 chains), checked against the generic engine, and adaptive
   HMC through the tiled kernel (512 chains);
 - N = 1000: adaptive HMC with a diagonal metric (4096 chains), ``HMCDA``
-  and adaptive ``MALA`` (1024 chains) through the Halton multistep kernel;
+  and adaptive ``MALA`` (1024 chains) through the Halton multistep kernel,
+  and ``ChEESHMC`` (4096 chains, the pooled adaptation on the generic
+  engine);
 
-the warm-start runs checked against long continuations of plain HMC; and
-the custom-target paths (d = 10, ``benchmarks/benchunits/fused_target.py``'s
+the warm-start runs checked against long continuations of plain HMC; the
+custom-target paths (d = 10, ``benchmarks/benchunits/fused_target.py``'s
 sizes): ``run(model(x ~ D) * HMC(10, eps) * SerialMC(300, 100),
 chains=4096)`` for Gamma(3, 0.2), Normal(1, 1) and Laplace(0, 1), plain
 ``MALA`` on the Gamma model, ``run_target_hmc_multistep`` and
 ``run_target_rwm``, each checked against the target's exact moments (the
-``run`` paths also against the generic engine).  It also runs the HMC step
+``run`` paths also against the generic engine); and the adaptive samplers
+on a catalog model of ten bare distributions (exact NUTS with and without
+a diagonal metric through the target-mode NUTS kernel, adaptive HMC,
+MALA and ChEES through the trajectory kernel), checked against the exact
+moments.  It also runs the HMC step
 and multi-transition kernels through their drivers, times drivers and
 kernels beside their plain versions and the least time the card could take
 for the same work, and prints one JSON line per phase.
@@ -47,7 +53,8 @@ SOURCES = {"glm_hmc": "mcmc_jl_tpu_torch/csrc/glm_hmc.cu",
            "glm_nuts": "mcmc_jl_tpu_torch/csrc/glm_nuts.cu",
            "glm_bign": "mcmc_jl_tpu_torch/csrc/glm_bign.cu",
            "target_hmc": "mcmc_jl_tpu_torch/csrc/target_hmc.cu",
-           "target_rwm": "mcmc_jl_tpu_torch/csrc/target_rwm.cu"}
+           "target_rwm": "mcmc_jl_tpu_torch/csrc/target_rwm.cu",
+           "target_nuts": "mcmc_jl_tpu_torch/csrc/target_nuts.cu"}
 # kernel -> (library, the Pallas kernel it replaces)
 REPLACES = {
     "glm_leapfrogs": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
@@ -63,6 +70,12 @@ REPLACES = {
     "target_multistep": ("target_hmc",
                          "mcmc_jl_tpu/ops/pallas_target.py:198"),
     "target_rwm_steps": ("target_rwm", "mcmc_jl_tpu/ops/pallas_rwm.py:50"),
+    # _nuts_kernel in target mode (its pallas_call at pallas_nuts.py:695)
+    "target_nuts_transition": ("target_nuts",
+                               "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    # no Pallas kernel: the generic engine's gradient on a catalog model,
+    # which the JAX package leaves to XLA (jax.value_and_grad of the model)
+    "target_logp_grad": ("target_hmc", "mcmc_jl_tpu/models/model.py:361"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -81,6 +94,17 @@ ACC_BAND = 1e-4
 STEP_EPS = 0.12
 # statistical agreement, in Monte Carlo standard errors
 Z_MAX = 5.0
+# kernel 8b vs its plain version: a chosen theta that differs by more than
+# this (relative to 1 + |theta|) marks another path; on the chains on the
+# same path the gradient and lp are held to it as well (up to 63 leapfrogs
+# whose family formulas round apart by a few ulps, lp and the u-turn dots
+# summed in another order)
+NUTS_T_TOL = 1e-3
+# the warm target paths without a metric are held to the exact moments of
+# the coordinates with at most this sd (their step is set by the narrowest
+# coordinates, sd 0.2; Normal(3, 12) and Gamma(1, 2) are not crossed in
+# 800-1000 transitions at that step)
+NARROW_SD = 0.75
 # NUTS kernel vs plain version on the same pre-drawn noise: a slice, u-turn
 # or reservoir decision within float32 rounding of a tie may go the other
 # way (the kernel sums lp in double and the dot products in another order),
@@ -123,6 +147,9 @@ MS_TOL = 1e-3
 # powf as one) and one RWM step (proposal 2, family log-density about 6,
 # the sum and the test 2)
 TARGET_LEAP_OPS, TARGET_STEP_OPS = 20, 10
+# and one (logp, gradient) pass: the family's log-density and derivative,
+# about 10 per coordinate counting logf or powf as one
+TARGET_EVAL_OPS = 10
 # the card's published peaks (one H100 SXM at 700 W): FP32 outside the
 # tensor cores, and HBM bandwidth; a kernel's bound is the larger of its
 # operations and its bytes over these
@@ -180,6 +207,7 @@ def phase_build():
     glm_bign.load_kernels()
     target_kernels.load_kernels()
     rwm_kernels.load_kernels()
+    nuts_kernels.load_target_kernels()
     for name, (path, report) in built.items():
         ptxas, entry = [], "?"
         for ln in report.splitlines():
@@ -784,8 +812,10 @@ def _spans():
     for mod, fn, label in ((warmstart, "_warmup", "warmup"),
                            (nuts_kernels, "_nuts_run_hw", "sampling"),
                            (nuts_kernels, "_nuts_run", "sampling"),
+                           (nuts_kernels, "_nuts_target_run", "sampling"),
                            (warmstart, "_chees_run_ms", "sampling"),
                            (warmstart, "_chees_run_bign", "sampling"),
+                           (warmstart, "_chees_target_run", "sampling"),
                            (glm_bign, "_run_bign", "sampling"),
                            (target_kernels, "_run", "sampling"),
                            (pchains, "_package_group", "packaging")):
@@ -827,8 +857,9 @@ def _hmc_reference(hmc_final, hmc_steps=2000):
 
 def phase_nuts_main_path(hmc_means):
     """Exact NUTS through ``run``: the multistep kernel serves
-    SerialMC(1500, 500) (1000 = 125 launches of 8), the per-transition
-    kernel the diagonal-metric run with SerialMC(1497, 500) (997 is prime).
+    SerialMC(700, 200) (500 = 100 launches of 5), the per-transition
+    kernel the diagonal-metric run with SerialMC(699, 200) (499 is prime);
+    the burn-in is cut from the benchmark's 500 to keep the script short.
 
     Each run's per-chain means must agree with ``hmc_means``, the per-chain
     means of the HMC main path's continuation (:func:`_hmc_reference`).
@@ -842,15 +873,15 @@ def phase_nuts_main_path(hmc_means):
     X, Y = bench_data()
     m = mt.model(glm=("logistic", X, Y), device="cuda")
     runs = {
-        "glm_nuts_multistep": (mt.NUTS(maxdoublings=6), 1500, 125),
+        "glm_nuts_multistep": (mt.NUTS(maxdoublings=6), 700, 100),
         "glm_nuts_transition": (mt.NUTS(maxdoublings=6, mass_adapt="diag"),
-                                1497, 997),
+                                699, 499),
     }
     counts, start = {}, None
     for name, (sampler, steps, want) in runs.items():
         origin = (f"run(model(glm=...) * {sampler!r} * SerialMC(steps={steps},"
-                  f" burnin=500), chains={chains})")
-        task = m * sampler * mt.SerialMC(steps=steps, burnin=500)
+                  f" burnin=200), chains={chains})")
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=200)
         t0 = time.perf_counter()
         with _spans() as spans:
             cs, launches = _counted(lambda: mt.run(task, chains=chains,
@@ -858,7 +889,7 @@ def phase_nuts_main_path(hmc_means):
         dt = time.perf_counter() - t0
         assert launches == {**{k: 0 for k in launches}, name: want}, launches
         samples = np.stack([c.samples.values for c in cs])
-        assert samples.shape == (chains, steps - 500, m.size)
+        assert samples.shape == (chains, steps - 200, m.size)
         assert np.all(np.isfinite(samples))
         dg = {k: np.stack([c.diagnostics[k] for c in cs])
               for k in ("accept", "ndoublings", "diverging", "epsilon")}
@@ -1288,7 +1319,7 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
        tiled driver, once per drift; held against 512 generic-engine chains
        from the same start over the same transitions;
     2. adaptive ``HMC(10, 0.002, EmpMCTuner(0.8, adapt_step=50)) *
-       SerialMC(400, 100)`` at 512 chains: the warm route's sampling phase
+       SerialMC(200, 50)`` at 512 chains: the warm route's sampling phase
        through the tiled kernel; held against 512 of run 1's chains
        continued ``ref_steps`` transitions.
     Returns the tiled kernel's launches in run 1."""
@@ -1331,11 +1362,11 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
     del ref, samples, gs, cg
 
     task = m * mt.HMC(10, 0.002, mt.EmpMCTuner(0.8, adapt_step=50)) \
-        * mt.SerialMC(steps=400, burnin=100)
+        * mt.SerialMC(steps=200, burnin=50)
     origin = _origin(m, task, chains_adaptive)
     cs, samples, launches, dt, spans = _path(
         origin, task, chains_adaptive,
-        {"glm_logp_grad_tiled": lambda n: n >= 300 + 1})
+        {"glm_logp_grad_tiled": lambda n: n >= 150 + 1})
     st = cs[0].task.state
     z = _z_means(samples.mean(1), ref_means)
     emit({"phase": "large_n_path", "kernel": "glm_logp_grad_tiled",
@@ -1795,6 +1826,30 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
     note(ok, f"mixed d={big_d}")
     del th_b, m_b
 
+    # the gradient pass (the generic engine's evalallg on the card) on the
+    # ten bare distributions, with chains out of a support, and at d 1000
+    m10, bare = _ten_bare_model()
+    th10, _ = _bare_start(bare, C, rng)
+    th10[::8, 5] = -0.2  # Gamma(3, 0.2) out of its support: lp -inf
+    errg = 0.0
+    for label, tgt, th in (("ten bare distributions, one in eight chains "
+                            "out of a support", m10.target_spec, th10),
+                           (f"mixed d = {big_d}", big, _cuda(
+                               xb + 0.05 * sb
+                               * rng.standard_normal((C, big_d))))):
+        (lp_k, g_k), (lp_r, g_r) = (tk.target_logp_grad(tgt, th),
+                                    tk.target_logp_grad_ref(tgt, th))
+        torch.cuda.synchronize()
+        ok = _close(g_k, g_r, T_RTOL, T_ATOL) and _lp_close(lp_k, lp_r,
+                                                            th.shape[1])
+        rep = {"g": _err(g_k, g_r), "lp_neg_inf": int((~torch.isfinite(
+            lp_r)).sum())}
+        emit({"phase": "kernel", "name": "target_logp_grad", "case": label,
+              "C": C, "d": th.shape[1], "ok": ok, **rep})
+        note(ok, f"target_logp_grad {label}")
+        errg = max(errg, rep["g"]["max_abs"])
+    errors["target_logp_grad"] = errg
+
     # bitwise repeat of kernel 5 (no randomness: the same inputs)
     g_main = tk.target_funcs(gam)[1](theta.abs() + 0.3)[1].contiguous()
     r1, r2 = (tk.fused_target_leapfrogs(gam, theta.abs() + 0.3, m, g_main,
@@ -1915,8 +1970,10 @@ def phase_target_paths(chains=4096, generic_chains=512, rwm_chains=16_384):
         origin = (f"run(model(x ~ {name}, x=fill({x0 + 0.5:g}, 10)) * "
                   f"{sampler!r} * SerialMC({steps}, {burnin}), "
                   f"chains={chains})")
+        # the final states' lp and gradient: one gradient pass
         cs, samples, launches, dt, spans = _path(
-            origin, task, chains, {"target_leapfrogs": steps})
+            origin, task, chains, {"target_leapfrogs": steps,
+                                   "target_logp_grad": 1})
         acc = float(np.mean([mt.acceptance(c) for c in cs])) / 100
         del cs
         z_ex = _moments_z((samples.mean(1), (samples ** 2).mean(1)), dist)
@@ -2017,6 +2074,10 @@ def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
                                             n_leaps=n_leaps,
                                             generator=gens[1]),
             (th, rows), C * (1 + k_trans * n_leaps) * leap),
+        "target_logp_grad": (
+            lambda: tk.target_logp_grad(gam, th),
+            lambda: tk.target_logp_grad_ref(gam, th),
+            (th, rows), C * TARGET_EVAL_OPS * d),
         "target_rwm_steps": (
             lambda: rk.fused_target_rwm_steps(normal, thr, scale,
                                               k_steps=k_rwm, noise="hw",
@@ -2035,16 +2096,373 @@ def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
         emit({"phase": "kernel_time", "name": name,
               "C": rwm_chains if name == "target_rwm_steps" else C, "d": d,
               "k": {"target_leapfrogs": 1, "target_multistep": k_trans,
-                    "target_rwm_steps": k_rwm}[name],
+                    "target_rwm_steps": k_rwm, "target_logp_grad": 1}[name],
               "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
               **CARD})
     return ms, work
 
 
+def _ten_bare():
+    """The warm target paths' model: ten of the reference's
+    bare-distribution configurations (benchmarks/benchunits/bare_distribs.py
+    :41-61), one named parameter each, with their starting points: finite
+    fourth moments, standard deviations from 0.2 to 12."""
+    cases = {label: (dist, x0) for label, dist, x0, _ in _target_cases()}
+    return [(n, *cases[n]) for n in (
+        "Normal(3,12)", "Normal(1,1)", "Weibull(3,1)", "Uniform(0,2)",
+        "Beta(3,2)", "Gamma(3,0.2)", "Gamma(1,2)", "Exponential(0.2)",
+        "LogNormal(2,0.1)", "Weibull(1,1)")]
+
+
+def _ten_bare_model(device="cuda"):
+    """``model(ex, p0=x0, ..., p9=x9, gradient=True)`` with ``ex`` drawing
+    each named parameter from its distribution by ``~``; its target_spec is
+    the catalog target the kernels take.  Returns (model, _ten_bare())."""
+    import mcmc_jl_tpu_torch as mt
+
+    bare = _ten_bare()
+    keys = [f"p{j}" for j in range(len(bare))]
+
+    def ex(**p):
+        for k, (_, dist, _) in zip(keys, bare):
+            mt.tilde(p[k], dist)
+
+    m = mt.model(ex, gradient=True, device=device,
+                 **{k: x0 for k, (_, _, x0) in zip(keys, bare)})
+    assert m.target_spec is not None and m.target_spec.has_rows
+    return m, bare
+
+
+def _bare_start(bare, C, rng, spread=0.1):
+    """C chains at each coordinate's start plus ``spread`` of its sd times
+    N(0, 1), all inside the supports; and the sds."""
+    x0 = np.array([x for _, _, x in bare])
+    sd = np.array([float(dist.std()) for _, dist, _ in bare])
+    return _cuda(x0 + spread * sd * rng.standard_normal((C, len(bare)))), sd
+
+
+def _target_nuts_case(label, target, theta, eps, seed, md=6,
+                      multinomial=False, full_depth=False, want_div=False):
+    """Kernel 8b against its plain version on the same inputs and pre-drawn
+    noise (lp and gradient at theta from the plain evaluation): at least
+    PATH_AGREE of the chains on the same path (equal ndoublings and
+    diverging, the chosen theta within NUTS_T_TOL (1 + |theta|)), and on
+    those the gradient and lp within the same relative tolerance (-inf at
+    the same chains).  ``full_depth``: some chain builds all md doublings;
+    ``want_div``: some chain diverges.  Returns (ok, theta's max abs error
+    on the same-path chains)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    C, d = theta.shape
+    rng = np.random.default_rng(seed)
+    lp, g = tk.target_funcs(target)[1](theta)
+    noise = tuple(_cuda(a) for a in (
+        rng.standard_normal((C, d)), np.log(rng.random(C)),
+        np.where(rng.random((C, md)) < 0.5, 1.0, -1.0), rng.random((C, md)),
+        rng.random((C, 1 << md))))
+    args = (target, theta, lp.contiguous(), g.contiguous(), eps, *noise)
+    kw = dict(maxdoublings=md, multinomial=multinomial)
+    out_k = nk.target_nuts_transition(*args, **kw)
+    out_r = nk.target_nuts_transition_ref(*args, **kw)
+    out_k2 = nk.target_nuts_transition(*args, **kw)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    (thk, gk_, lpk, ndk, dvk), (thr, gr, lpr, ndr, dvr) = out_k, out_r
+
+    def near(a, b):
+        return (a - b).abs() <= NUTS_T_TOL * (1 + b.abs())
+
+    same = (ndk == ndr) & (dvk == dvr) & near(thk, thr).all(1)
+    fin = torch.isfinite(lpr)
+    lp_ok = torch.where(fin, near(lpk, lpr), lpk == lpr)
+    rep = {n: _err(a[same], b[same]) for n, a, b in
+           zip(("theta", "g"), (thk, gk_), (thr, gr))}
+    sf = same & fin
+    rep["lp"] = _err(lpk[sf], lpr[sf]) if bool(sf.any()) else {}
+    share = float(same.float().mean())
+    ok = (share >= PATH_AGREE and bitwise
+          and bool(near(gk_[same], gr[same]).all())
+          and bool(lp_ok[same].all())
+          and (not full_depth or int(ndr.max()) == md)
+          and (not want_div or int(dvr.sum()) > 0))
+    emit({"phase": "kernel", "name": "target_nuts_transition", "case": label,
+          "C": C, "d": d, "maxdoublings": md, "ok": ok,
+          "chains_same_path": share, "path_differ": int(C - same.sum()),
+          "bitwise_repeat": bitwise,
+          "mean_ndoublings": float(ndr.float().mean()),
+          "chains_at_maxdoublings": int((ndr == md).sum()),
+          "diverging": int(dvr.sum()), "lp_neg_inf": int((~fin).sum()),
+          **rep})
+    return ok, rep["theta"]["max_abs"]
+
+
+def phase_target_nuts_kernels(C=4096, md=6, big_d=1000):
+    """Kernel 8b (target_nuts_transition) against its plain version on the
+    card, at its path's shape (C chains, d = 10, maxdoublings md) on the
+    ten bare distributions: slice and multinomial, a scalar step and a (d,)
+    row (0.3 of each sd), a deep case (eps 0.01: trees of all md
+    doublings); then the ten-family mixed target with a row, an
+    out-of-support start (one chain in eight with Gamma(3, 0.2) at -0.2:
+    lp -inf, divergences), and d = big_d (32 coordinates per lane).
+    Returns {kernel: max abs theta error on the same-path chains}."""
+    m, bare = _ten_bare_model()
+    target = m.target_spec
+    rng = np.random.default_rng(51)
+    theta, sd = _bare_start(bare, C, rng)
+    row = _cuda(0.3 * sd)
+    cases = [
+        ("ten bare distributions, slice, eps 0.1", theta, 0.1, False, {}),
+        ("ten bare distributions, multinomial, eps 0.1", theta, 0.1, True,
+         {}),
+        ("ten bare distributions, slice, (d,) row 0.3 sd", theta, row, False,
+         {}),
+        ("ten bare distributions, multinomial, (d,) row 0.3 sd", theta, row,
+         True, {}),
+        ("ten bare distributions, slice, eps 0.01 (deep)", theta, 0.01, False,
+         {"full_depth": True}),
+    ]
+    out_theta = theta.clone()
+    out_theta[::8, 5] = -0.2  # Gamma(3, 0.2) out of its support
+    cases.append(("ten bare distributions, out-of-support start, eps 0.1",
+                  out_theta, 0.1, False, {"want_div": True}))
+    err, bad = 0.0, []
+    for seed, (label, th, eps, multi, extra) in enumerate(cases):
+        ok, e = _target_nuts_case(label, target, th, eps, 60 + seed, md=md,
+                                  multinomial=multi, **extra)
+        err = max(err, e)
+        if not ok:
+            bad.append(label)
+    for dd, seed in ((10, 70), (big_d, 71)):
+        mixed, x0, s = _mixed_target(dd)
+        th = _cuda(x0 + 0.05 * s * rng.standard_normal((C, dd)))
+        for multi in (False, True):
+            label = (f"mixed ten families, d = {dd}, (d,) row 0.1 s, "
+                     f"{'multinomial' if multi else 'slice'}")
+            ok, _ = _target_nuts_case(label, mixed, th, _cuda(0.1 * s),
+                                      seed + 10 * multi, md=md,
+                                      multinomial=multi)
+            if not ok:
+                bad.append(label)
+        del th
+    assert not bad, f"target_nuts_transition disagrees: {bad}"
+    return {"target_nuts_transition": err}
+
+
+def _bare_z(samples, bare, cols=None):
+    """max over coordinates ``cols`` (all by default) of |z| of the per-chain
+    first and second moments (samples (chains, kept, d)) against the exact
+    ones."""
+    cols = slice(None) if cols is None else cols
+    mu = np.array([float(dist.mean()) for _, dist, _ in bare])[cols]
+    sd = np.array([float(dist.std()) for _, dist, _ in bare])[cols]
+    x = samples[..., cols]
+    return max(_z_exact(x.mean(1), mu),
+               _z_exact((x ** 2).mean(1), mu * mu + sd * sd))
+
+
+def phase_warm_target_paths(chains=4096, chains_small=1024):
+    """The adaptive samplers on a catalog target through ``run(...,
+    chains=C)``, float32, on the ten bare distributions (d = 10), each with
+    every count zeroed just before it and read just after, no plain call,
+    and held against the target's exact first and second moments:
+
+    - ``NUTS(maxdoublings=6) * SerialMC(1500, 500)`` and ``NUTS(6,
+      mass_adapt="diag") * SerialMC(1500, 500)`` at 4096 chains
+      (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner):
+      1000 launches of kernel 8b each;
+    - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
+      SerialMC(2000, 500)`` at 4096 chains (examples/warmstart_logistic.py
+      :38's sampler): 1500 launches of kernel 5 with the (d,) step row;
+    - ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50)) * SerialMC(1000,
+      200)`` at 1024 chains, as the GLM warm path runs: 800 launches of
+      kernel 5;
+    - ``ChEESHMC(len0=0.5, max_leaps=64) * SerialMC(1000, 200)``
+      (benchmarks/benchunits/warmfused.py:223) at 4096 chains: 800
+      launches of kernel 5.
+
+    ``HMCDA()`` takes the same arm as MALA but is not driven here: on this
+    model its dual averaging drives the step toward 0.001 (the supports'
+    edges end trajectories) and its leap count ``round(2 / eps)`` has no
+    cap, so its generic warmup ran past 1000 s on one H100; it runs on the
+    GLM warm path and in the CPU tests.
+    The paths that adapt a diagonal metric are held on all ten
+    coordinates.  Without a metric (unit-metric NUTS, MALA, and ChEES,
+    whose JAX original never updates its mass accumulator) the step
+    is set by the narrowest coordinates and the edges of the supports, and
+    the chains do not cross Normal(3, 12) or Gamma(1, 2)'s tail in the
+    run: those paths are held on the coordinates with sd at most NARROW_SD
+    (six of ten); the z over all ten is reported for every path.
+    The generic warmups evaluate the model's gradient through
+    ``target_logp_grad``, once per leaf.
+    Returns ({kernel 8b and the gradient pass: (launches, origin)}, the
+    unit-metric NUTS run's final positions and frozen step, where its
+    timing starts)."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    m, bare = _ten_bare_model()
+    narrow = [j for j, (_, dist, _) in enumerate(bare)
+              if float(dist.std()) <= NARROW_SD]
+    runs = (
+        (mt.NUTS(maxdoublings=6), 1500, 500, chains,
+         "target_nuts_transition", narrow),
+        (mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains,
+         "target_nuts_transition", None),
+        (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
+                mass_adapt="diag"), 2000, 500, chains, "target_leapfrogs",
+         None),
+        (mt.MALA(0.002, mt.EmpMCTuner(0.574, adapt_step=50)), 1000, 200,
+         chains_small, "target_leapfrogs", narrow),
+        (mt.ChEESHMC(len0=0.5, max_leaps=64), 1000, 200, chains,
+         "target_leapfrogs", narrow),
+    )
+    counts, start, bad = {}, None, []
+    for sampler, steps, burnin, C, kernel, cols in runs:
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(model(ten bare distributions ~, d=10) * {sampler!r} "
+                  f"* SerialMC({steps}, {burnin}), chains={C})")
+        # the generic warmup's gradients: one pass per leaf
+        cs, samples, launches, dt, spans = _path(
+            origin, task, C, {kernel: steps - burnin,
+                              "target_logp_grad": lambda n: n > 0})
+        st = cs[0].task.state
+        dg = cs[0].diagnostics
+        frozen = {}
+        if "epsilon" in dg:
+            frozen["frozen_eps"] = float(dg["epsilon"][-1])
+        for name in ("leap_step", "dual_leap_step"):
+            if hasattr(st, name):
+                frozen[name] = float(getattr(st, name))
+        if hasattr(st, "tune"):
+            frozen.update(frozen_step=st.tune.step_size.item(),
+                          frozen_n_leaps=st.tune.n_leaps.item())
+        if hasattr(st, "log_len"):
+            frozen["frozen_T"] = float(np.exp(st.log_len.item()))
+        extra = {}
+        if "ndoublings" in dg:
+            nd = np.stack([c.diagnostics["ndoublings"] for c in cs])
+            dv = np.stack([c.diagnostics["diverging"] for c in cs])
+            extra = {"mean_ndoublings": float(nd.mean()),
+                     "diverging_share": float(dv.mean())}
+        if "nleaps" in dg:
+            extra["mean_nleaps"] = float(np.mean(dg["nleaps"]))
+        z_all = _bare_z(samples, bare)
+        z = z_all if cols is None else _bare_z(samples, bare, cols)
+        ok = z < Z_MAX
+        emit({"phase": "warm_target_path", "kernel": kernel, "from": origin,
+              "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches[kernel],
+              "gradient_pass_launches": launches["target_logp_grad"],
+              **frozen, **extra,
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs])) / 100,
+              "pooled_mean": samples.mean((0, 1)).tolist(),
+              "exact_mean": [float(dist.mean()) for _, dist, _ in bare],
+              "pooled_sd": samples.std((0, 1)).tolist(),
+              "exact_sd": [float(dist.std()) for _, dist, _ in bare],
+              "held_on": "all" if cols is None else [bare[j][0] for j in cols],
+              "z_max_vs_exact": z, "z_max_all_coordinates": z_all, "ok": ok,
+              **CARD})
+        if not ok:
+            bad.append(origin)
+        if kernel == "target_nuts_transition" and start is None:
+            counts[kernel] = (launches[kernel], origin)
+            counts["target_logp_grad"] = (launches["target_logp_grad"],
+                                          origin)
+            start = {"theta": torch.stack([c.task.state.pars for c in cs])
+                     .to(torch.float32).contiguous(),
+                     "eps": frozen["frozen_eps"]}
+        del cs, samples
+    assert not bad, f"warm target paths disagree with the exact moments: {bad}"
+    return counts, start
+
+
+def phase_chees_glm_path(hmc_means, chains=4096):
+    """``ChEESHMC(len0=0.5, max_leaps=64) * SerialMC(1000, 200)`` on the
+    logistic 10 x 1000 model from the posterior mode, through ``run(...,
+    chains=4096)``: the pooled adaptation on the generic engine, then 800
+    sampling transitions as 100 launches of 8 of the Halton multistep
+    kernel (3b) at the frozen eps and T; held against ``hmc_means``
+    (:func:`_hmc_reference`), as the other warm paths are."""
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, mode = _bench_mode(1000)
+    m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+    task = m * mt.ChEESHMC(len0=0.5, max_leaps=64) \
+        * mt.SerialMC(steps=1000, burnin=200)
+    origin = _origin(m, task, chains)
+    cs, samples, launches, dt, spans = _path(origin, task, chains,
+                                             {"glm_multistep_rows": 100})
+    st = cs[0].task.state
+    z = _z_means(samples.mean(1), hmc_means)
+    emit({"phase": "chees_glm_path", "kernel": "glm_multistep_rows",
+          "from": origin, "chains": chains, "seconds": dt, "spans_s": spans,
+          "launches": launches["glm_multistep_rows"],
+          "frozen_eps": st.dual_leap_step.item(),
+          "frozen_T": float(np.exp(st.log_len.item())),
+          "mean_nleaps": float(np.mean(cs[0].diagnostics["nleaps"])),
+          "accept_rate": float(np.mean([mt.acceptance(c) for c in cs])) / 100,
+          "pooled_mean": samples.mean((0, 1)).tolist(),
+          "z_max_vs_hmc_reference": z, "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{origin} disagrees with the HMC reference"
+
+
+def phase_target_nuts_time(start, md=6):
+    """Per-launch time of kernel 8b beside its plain version and its bound,
+    at its path's shape: the unit-metric NUTS path's final positions (4096
+    chains, d 10) at its frozen step, one transition's noise.  ``ms`` is
+    one call between CUDA events, ``device_ms`` the kernel alone.  The
+    bound counts 2^(n-1) leaves for a tree of depth n, each
+    TARGET_LEAP_OPS x d FP32 operations, or the call's bytes, whichever
+    takes longer.  Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    m, _ = _ten_bare_model()
+    target = m.target_spec
+    th = start["theta"]
+    C, d = th.shape
+    lp, g = tk.target_funcs(target)[1](th)
+    lp, g = lp.contiguous(), g.contiguous()
+    noise = nk.draw_noise(C, d, md, torch.Generator(
+        device="cuda").manual_seed(9))
+    eps = start["eps"]
+
+    def kern():
+        return nk.target_nuts_transition(target, th, lp, g, eps, *noise,
+                                         maxdoublings=md)
+
+    def plain():
+        return nk.target_nuts_transition_ref(target, th, lp, g, eps, *noise,
+                                             maxdoublings=md)
+
+    name = "target_nuts_transition"
+    out = kern()
+    nd = out[3].double()
+    leaves = float((2.0 ** (nd - 1)).sum())
+    work = {**_bound_ops(TARGET_LEAP_OPS * d * leaves,
+                         _nbytes((th, lp, g, noise, target.rows(th.device)),
+                                 out)),
+            "device_ms": _device_ms(kern, "nuts_kernel")}
+    ms = (_event_ms(kern), _event_ms(plain, reps=2))
+    emit({"phase": "kernel_time", "name": name, "C": C, "d": d,
+          "maxdoublings": md, "eps": eps,
+          "mean_ndoublings": float(nd.mean()), "leaves_min": leaves,
+          "ms": ms[0], "plain_ms": ms[1], **work, **CARD})
+    return {name: ms}, {name: work}
+
+
 # each custom-target wrapper's __global__ function, as the profiler names it
 KERNEL_SYMBOL = {"target_leapfrogs": "leapfrogs_kernel",
                  "target_multistep": "multistep_kernel",
-                 "target_rwm_steps": "rwm_kernel"}
+                 "target_rwm_steps": "rwm_kernel",
+                 "target_logp_grad": "logp_grad_kernel"}
 
 
 def _device_ms(fn, symbol, reps=10):
@@ -2085,6 +2503,7 @@ def main():
     errors.update(step("bign_kernels", phase_bign_kernels))
     step("cross_kernel", phase_cross_kernel)
     errors.update(step("target_kernels", phase_target_kernels))
+    errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
     # the two NUTS kernels, the Halton multistep kernel and the tiled
@@ -2098,13 +2517,17 @@ def main():
     launches.update(step("large_n_paths", phase_large_n_paths))
     launches.update(step("warm_paths", phase_warm_paths, hmc_means))
     launches.update(step("target_paths", phase_target_paths))
+    nuts_t, start_t = step("warm_target_paths", phase_warm_target_paths)
+    launches.update(nuts_t)
+    step("chees_glm_path", phase_chees_glm_path, hmc_means)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing)
     ms, work = step("kernel_times", phase_kernel_times)
     for more in (step("nuts_timing", phase_nuts_timing, start),
                  step("new_kernel_times", phase_new_kernel_times),
-                 step("target_kernel_times", phase_target_times)):
+                 step("target_kernel_times", phase_target_times),
+                 step("target_nuts_time", phase_target_nuts_time, start_t)):
         ms.update(more[0])
         work.update(more[1])
     # no single PyTorch call computes any of these functions: library_ms

@@ -4,13 +4,15 @@ The same ``chain = model * sampler * runner`` surface, on PyTorch tensors
 and hand-written CUDA kernels for the H100.  Ported so far:
 ``model(glm=...)``, callable and ``~`` DSL models over the distribution
 catalog; ``HMC`` (fixed step, EmpMCTuner, diagonal mass adaptation),
-``HMCDA``, ``MALA``, exact ``NUTS`` and ``RWM`` under ``SerialMC``; many
-chains through ``run(task, chains=N)`` with the fused GLM-HMC kernels at
-any N (the N-tiled gradient kernel above 16384 observations), the
-warm-start pipeline (adaptive HMC/HMCDA/MALA through the Halton multistep
-kernel or the tiled kernel, exact NUTS through the NUTS kernels) and the
-custom-target kernels for plain HMC and MALA on DSL models that are a
-product of catalog densities (``ops.target_kernels``; fused RWM in
+``HMCDA``, ``MALA``, exact ``NUTS``, ``ChEESHMC`` and ``RWM`` under
+``SerialMC``; many chains through ``run(task, chains=N)`` with the fused
+GLM-HMC kernels at any N (the N-tiled gradient kernel above 16384
+observations), the warm-start pipeline (adaptive HMC/HMCDA/MALA and ChEES
+through the Halton multistep kernel or the tiled kernel, exact NUTS through
+the NUTS kernels) and the custom-target kernels on DSL models that are a
+product of catalog densities (``ops.target_kernels``: plain HMC and MALA,
+and the warm sampling phases of adaptive HMC/HMCDA/MALA and ChEES; exact
+NUTS through ``ops.nuts_kernels.target_nuts_transition``; fused RWM in
 ``ops.rwm_kernels``); and the chain statistics.  Models live on the CUDA
 card unless ``device="cpu"`` is given.  It imports ``torch`` and never
 ``jax``.
@@ -40,30 +42,33 @@ from .models.dsl import tilde, observe, acc, factor
 from .core.task import MCMCTask
 from .core.chain import MCMCChain
 from .samplers import (HMC, HMCState, HMCDA, HMCDAState, EmpMCTuner, MALA,
-                       MALAState, NUTS, NUTSState, RWM, RWMState)
+                       MALAState, NUTS, NUTSState, RWM, RWMState, ChEESHMC,
+                       ChEESState)
 from .runners.serialmc import SerialMC
 from .runners.api import run, resume, prun
 from .stats import (
     mean, mcvar, mcse, var, std, ess, actime, acceptance, describe,
 )
-from .utils.convert import (distribution_from_fields, glm_model_from_spec,
-                            hmc_state_from_numpy, hmcda_state_from_numpy,
-                            mala_state_from_numpy, nuts_state_from_numpy,
-                            rwm_state_from_numpy)
+from .utils.convert import (chees_state_from_numpy, distribution_from_fields,
+                            glm_model_from_spec, hmc_state_from_numpy,
+                            hmcda_state_from_numpy, mala_state_from_numpy,
+                            nuts_state_from_numpy, rwm_state_from_numpy)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "model", "LogDensityModel", "GLMSpec", "MCMCTask", "MCMCChain",
     "HMC", "HMCState", "HMCDA", "HMCDAState", "EmpMCTuner", "MALA",
-    "MALAState", "NUTS", "NUTSState", "RWM", "RWMState", "SerialMC", "run",
+    "MALAState", "NUTS", "NUTSState", "RWM", "RWMState", "ChEESHMC",
+    "ChEESState", "SerialMC", "run",
     "resume", "prun", "mean", "mcvar", "mcse", "var", "std", "ess",
     "actime", "acceptance", "describe", "Normal", "Uniform", "Weibull",
     "Gamma", "Cauchy", "LogNormal", "Binomial", "Beta", "Laplace",
     "Bernoulli", "TDist", "Exponential", "Poisson", "MvNormal", "Truncated",
     "RightCensored", "LeftCensored", "Distribution", "logpdf", "logcdf",
     "logccdf", "tilde", "observe", "acc", "factor",
-    "distribution_from_fields", "glm_model_from_spec",
+    "chees_state_from_numpy", "distribution_from_fields",
+    "glm_model_from_spec",
     "hmc_state_from_numpy", "hmcda_state_from_numpy",
     "mala_state_from_numpy", "nuts_state_from_numpy",
     "rwm_state_from_numpy",

@@ -1,5 +1,6 @@
 // Fused HMC on catalog targets for Hopper (sm_90a): the trajectory, and k
-// whole transitions per launch with the RNG inside the kernel.
+// whole transitions per launch with the RNG inside the kernel; and one
+// (logp, gradient) pass.
 //
 // Replaces the Pallas kernels of mcmc_jl_tpu/ops/pallas_target.py:
 //   target_leapfrogs <- _kernel           (fused_target_leapfrogs; vec_eps
@@ -8,6 +9,10 @@
 //                                           launch argument)
 //   target_multistep <- _multistep_kernel (_multistep_inner /
 //                                           run_target_hmc_multistep)
+// and, with no Pallas counterpart, the XLA-compiled jax.value_and_grad of
+// the JAX model (mcmc_jl_tpu/models/model.py:361) that the generic engine
+// evaluates at every leaf:
+//   target_logp_grad <- one gradient pass (eval_grad) for all chains
 // The Pallas kernels differentiate the user's logp_block with jax.vjp inside
 // the kernel.  CUDA has no autodiff, so these kernels take a catalog target
 // (a product of the ten continuous families over the coordinates, with scalar
@@ -111,6 +116,25 @@ leapfrogs_kernel(Target t, Sched s, int C, float eps,
   if (lane == 0) lp_out[c] = lp;
 }
 
+// lp and the gradient at th for every chain: the generic engine's
+// model.evalallg on the card for a catalog DSL model in float32.  Device
+// memory sees theta once in and the gradient and lp once out.
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+logp_grad_kernel(Target t, int C, const float* __restrict__ th_in,
+                 float* g_out, float* lp_out) {
+  extern __shared__ Row rows[];
+  stage_rows(t, rows);
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (c >= C) return;
+  float th[CPL], g[CPL];
+  load_lane<CPL>(th, th_in, c, t.d, lane);
+  const float lp = eval_grad<CPL, true>(rows, t.d, lane, th, g);
+  store_lane<CPL>(g_out, g, c, t.d, lane);
+  if (lane == 0) lp_out[c] = lp;
+}
+
 // k whole transitions per launch: Box-Muller momenta and the MH uniform from
 // Philox inside the kernel, the trajectory, the accept; lp and the gradient
 // at the start computed here (pallas_target.py:227-230).
@@ -197,6 +221,26 @@ int target_leapfrogs(const int* codes, const float* params, int d, int C,
     leapfrogs_kernel<CC><<<blocks_for(C), kThreads, smem, st>>>(            \
         t, s, C, eps, eps_row, n_leaps, th_in, m_in, g_in, th_out, m_out,   \
         g_out, lp_out);                                                     \
+  }
+  TARGET_DISPATCH(cpl, LAUNCH)
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int target_logp_grad(const int* codes, const float* params, int d, int C,
+                     const float* th_in, float* g_out, float* lp_out,
+                     void* stream) {
+  const int cpl = cpl_for(d);
+  if (!cpl || C < 1) return (int)cudaErrorInvalidValue;
+  const Target t{codes, params, d};
+  const size_t smem = (size_t)d * sizeof(Row);
+  cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(CC)                                                          \
+  {                                                                         \
+    cudaError_t e = prepare(logp_grad_kernel<CC>, smem);                    \
+    if (e != cudaSuccess) return (int)e;                                    \
+    logp_grad_kernel<CC><<<blocks_for(C), kThreads, smem, st>>>(            \
+        t, C, th_in, g_out, lp_out);                                        \
   }
   TARGET_DISPATCH(cpl, LAUNCH)
 #undef LAUNCH

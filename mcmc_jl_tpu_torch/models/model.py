@@ -256,6 +256,20 @@ def _catalog_spec(f, pmap, init, size):
     return spec
 
 
+def _catalog_allg(target):
+    """(logp, grad) of a catalog DSL model on the card in float32: one
+    launch of the custom-target kernels' gradient pass for all chains
+    (autodiff of the traced DSL launches a few hundred small operations)."""
+    def allg(theta):
+        from ..ops.target_kernels import target_logp_grad
+
+        flat = theta.reshape(-1, theta.shape[-1]).contiguous()
+        lp, g = target_logp_grad(target, flat)
+        return lp.reshape(theta.shape[:-1]), g.reshape(theta.shape)
+
+    return allg
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class GLMSpec:
     """Design/response data of a GLM-family posterior (model(glm=...)), as
@@ -417,6 +431,8 @@ def model(
         torch.as_tensor(scale, dtype=dtype, device=dev), (size,)).clone()
 
     eval_ = _sanitize_logp(raw_eval)
+    target_spec = (None if dsl_f is None
+                   else _catalog_spec(dsl_f, pmap, init_vec, size))
 
     # ---- gradient family (likmodel.jl:121-136 synthesis, via torch.func) --
     if glm_allg is not None:
@@ -431,7 +447,14 @@ def model(
             g, lp = torch.func.grad_and_value(f)(th)
             return lp, g
 
-        evalallg = _sanitize_allg(_batched(_vg))
+        allg = _batched(_vg)
+        if target_spec is not None and dev.type == "cuda" \
+                and dtype == torch.float32:
+            from ..ops.target_kernels import D_MAX
+
+            if size <= D_MAX:
+                allg = _catalog_allg(target_spec)
+        evalallg = _sanitize_allg(allg)
         evalg = lambda th: evalallg(th)[1]  # noqa: E731
     else:
         evalg = evalallg = None
@@ -439,8 +462,7 @@ def model(
     mdl = LogDensityModel(
         eval=eval_, evalg=evalg, evalallg=evalallg, pmap=pmap, size=size,
         init=init_vec, scale=scale_vec, glm_spec=glm_spec_obj,
-        target_spec=(None if dsl_f is None
-                     else _catalog_spec(dsl_f, pmap, init_vec, size)),
+        target_spec=target_spec,
     )
 
     if check_init:

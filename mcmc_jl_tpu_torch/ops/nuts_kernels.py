@@ -1,17 +1,22 @@
-"""Fused exact-NUTS kernels for GLM posteriors: the port of
-``mcmc_jl_tpu/ops/pallas_nuts.py`` (GLM mode).
+"""Fused exact-NUTS kernels: the port of ``mcmc_jl_tpu/ops/pallas_nuts.py``.
 
-Two kernels, written in CUDA C++ for Hopper in ``csrc/glm_nuts.cu``, replace
-the two Pallas kernel bodies:
+Three kernels, written in CUDA C++ for Hopper, replace the Pallas kernel
+bodies (GLM mode in ``csrc/glm_nuts.cu``, target mode in
+``csrc/target_nuts.cu``):
 
-===============================  ==========================================
-wrapper (this module)            Pallas kernel it replaces
-===============================  ==========================================
-:func:`glm_nuts_transition`      ``pallas_nuts.py _nuts_kernel`` (one exact
-                                 NUTS transition, all noise pre-drawn)
-:func:`glm_nuts_multistep`       ``pallas_nuts.py _nuts_ms_kernel`` (k
-                                 transitions, noise drawn inside)
-===============================  ==========================================
+================================  =========================================
+wrapper (this module)             Pallas kernel it replaces
+================================  =========================================
+:func:`glm_nuts_transition`       ``pallas_nuts.py _nuts_kernel``, GLM mode
+                                  (one exact NUTS transition, all noise
+                                  pre-drawn)
+:func:`glm_nuts_multistep`        ``pallas_nuts.py _nuts_ms_kernel`` (k
+                                  transitions, noise drawn inside)
+:func:`target_nuts_transition`    ``pallas_nuts.py _nuts_kernel``, target
+                                  mode (``_target_transition_inner``): one
+                                  transition on a catalog target, a scalar
+                                  step or a (d,) step row
+================================  =========================================
 
 Each has a plain PyTorch version beside it (``*_ref``): batched tensor ops
 over all chains with per-chain masks, on the same pre-drawn buffers.  A
@@ -23,10 +28,16 @@ it launches the kernel or raises.  Each launch adds one to
 Layouts follow the JAX package minus its TPU padding: chain states are
 (C, d); the directions and merge uniforms are (C, maxdoublings); the leaf
 uniforms are (C, 2^maxdoublings), column ``(1 << j) - 1 + k`` for leaf k of
-doubling j.  The prior precision is a scalar or a (d,) row (the diagonal
-metric fold of the warm-start pipeline).  The drivers :func:`_nuts_run` and
-:func:`_nuts_run_hw` return the NUTS info protocol (``ppars``, ``pgrads``,
-``plogtarget``, ``accept``, ``epsilon``, ``ndoublings``, ``diverging``).
+doubling j.  The GLM prior precision is a scalar or a (d,) row (the diagonal
+metric fold of the warm-start pipeline); on a catalog target the frozen
+diagonal metric rides the step instead, as a (d,) row ``eps * s``.  The
+drivers :func:`_nuts_run`, :func:`_nuts_run_hw` and :func:`_nuts_target_run`
+return the NUTS info protocol (``ppars``, ``pgrads``, ``plogtarget``,
+``accept``, ``epsilon``, ``ndoublings``, ``diverging``).
+
+Not ported: ``nuts_target_kernel_supported`` (a compile probe: the route
+decides up front) and data-bearing targets (``consts``), which run on the
+generic engine.
 """
 from __future__ import annotations
 
@@ -39,13 +50,17 @@ from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
 from .glm_kernels import (KIND_CODES, _check, _device_branch, _prior,
                           _prior_args, _ptr, _row, glm_funcs)
+from .target_kernels import (_eps, _eps_args, kernel_args, launch,
+                             load_library, target_funcs)
 
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10
 
-LAUNCHES = {"glm_nuts_transition": 0, "glm_nuts_multistep": 0}
-PLAIN_CALLS = {"glm_nuts_transition": 0, "glm_nuts_multistep": 0}
+_NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
+          "target_nuts_transition")
+LAUNCHES = dict.fromkeys(_NAMES, 0)
+PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
 def reset_counts():
@@ -96,7 +111,7 @@ def _transition(logp_grad, theta, lp, grad, eps, m0, logu, dirn, merge_u,
         sdv = torch.zeros(C, dtype=torch.bool, device=dev)
         ck_p = torch.zeros((C, md, d), dtype=dt, device=dev)
         ck_m = torch.zeros((C, md, d), dtype=dt, device=dev)
-        esw = (dirn_j * eps)[:, None]
+        esw = dirn_j[:, None] * eps  # eps: a float or a (d,) step row
 
         for k in range(1 << j):
             if not bool(ok.any()):
@@ -187,6 +202,17 @@ def glm_nuts_transition_ref(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
                        _check_md(maxdoublings), multinomial)
 
 
+def target_nuts_transition_ref(target, theta, lp, grad, eps, m0, logu, dirn,
+                               merge_u, leaf_u, *, maxdoublings=6,
+                               multinomial=False):
+    """Plain version of :func:`target_nuts_transition`: the lockstep
+    transition with the target's ``torch.func`` gradient."""
+    PLAIN_CALLS["target_nuts_transition"] += 1
+    return _transition(target_funcs(target)[1], theta, lp.reshape(-1), grad,
+                       _eps(eps, theta), m0, logu.reshape(-1), dirn, merge_u,
+                       leaf_u, _check_md(maxdoublings), multinomial)
+
+
 def _rows(th, g, lp, acc, nd, dv):
     return {"ppars": th, "pgrads": g, "plogtarget": lp, "accept": acc,
             "ndoublings": nd, "diverging": dv}
@@ -260,7 +286,8 @@ def _launch(name, *args):
 
 
 def _check_noise(name, C, md, dev, **bufs):
-    want = {"dirn": (C, md), "merge_u": (C, md), "leaf_u": (C, 1 << md)}
+    want = {"dirn": (C, md), "merge_u": (C, md), "leaf_u": (C, 1 << md),
+            "lp": (C,), "logu": (C,)}
     for label, t in bufs.items():
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != want[label]):
@@ -305,6 +332,58 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
                 _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
                 _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
                 float(eps), lam, md, KIND_CODES[kind], int(multinomial))
+    return th_o, g_o, lp_o, nd_o, dv_o
+
+
+def load_target_kernels():
+    """Build (first use) and bind ``csrc/target_nuts.cu``."""
+    lib = load_library("target_nuts", {"target_nuts_transition": [_P] * 2 + [
+        _I, _I] + [_P] * 13 + [_F, _P, _I, _I, _P]})
+    if not getattr(lib, "_md_checked", False):
+        lib.target_nuts_max_doublings.restype = ctypes.c_int
+        if lib.target_nuts_max_doublings() != MAX_DOUBLINGS:
+            raise RuntimeError(
+                "csrc/target_nuts.cu and nuts_kernels.MAX_DOUBLINGS disagree")
+        lib._md_checked = True
+    return lib
+
+
+def target_nuts_transition(target, theta, lp, grad, eps, m0, logu, dirn,
+                           merge_u, leaf_u, *, maxdoublings=6,
+                           multinomial=False):
+    """One exact NUTS transition for all chains on a catalog target, with
+    pre-drawn noise.
+
+    Args: ``target`` a :class:`CatalogTarget` with kernel rows; ``theta``,
+    ``grad``, ``m0`` (C, d) with ``grad`` the gradient at ``theta``; ``lp``,
+    ``logu`` (C,); ``dirn``, ``merge_u`` (C, maxdoublings); ``leaf_u``
+    (C, 2^maxdoublings); ``eps`` a scalar or a (d,) per-coordinate step row
+    (the frozen diagonal metric).  d up to ``target_kernels.D_MAX``.
+    Returns (theta, grad, lp (C,), ndoublings (C,) int32, diverging (C,)
+    bool)."""
+    name = "target_nuts_transition"
+    if not _device_branch(name, theta):
+        return target_nuts_transition_ref(
+            target, theta, lp, grad, eps, m0, logu, dirn, merge_u, leaf_u,
+            maxdoublings=maxdoublings, multinomial=multinomial)
+    md = _check_md(maxdoublings)
+    codes, params, C, d = kernel_args(name, target, theta,
+                                      (("grad", grad), ("m0", m0)))
+    lp, logu = lp.reshape(-1), logu.reshape(-1)
+    _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
+                 leaf_u=leaf_u, lp=lp, logu=logu)
+    eps_s, eps_row = _eps_args(eps, theta)
+    dev = theta.device
+    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
+    lp_o = torch.empty(C, dtype=theta.dtype, device=dev)
+    nd_o = torch.empty(C, dtype=torch.int32, device=dev)
+    dv_o = torch.empty(C, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        launch(load_target_kernels(), LAUNCHES, name, _ptr(codes),
+               _ptr(params), d, C, _ptr(theta), _ptr(lp), _ptr(grad),
+               _ptr(m0), _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
+               _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
+               eps_s, _ptr(eps_row), md, int(multinomial))
     return th_o, g_o, lp_o, nd_o, dv_o
 
 
@@ -405,3 +484,30 @@ def _nuts_run_hw(XT, Y, theta0, eps, generator, *, steps, k_trans,
             prior_prec=lam, multinomial=multinomial)
         rows.append(r)
     return (theta, lp, g), _stack(rows, eps)
+
+
+def _nuts_target_run(target, theta0, eps_in, generator, *, steps,
+                     maxdoublings, multinomial=False):
+    """``steps`` exact NUTS transitions on a catalog target, one launch of
+    :func:`target_nuts_transition` each, the noise drawn from ``generator``
+    before each launch; lp and the gradient at the start from the target's
+    plain evaluation (pallas_nuts.py ``_nuts_target_run``).  ``eps_in`` is
+    the scalar step or the (d,) row ``eps * s``; as in the JAX package, the
+    ``epsilon`` rows then report the row's first entry, ``eps * s_0``.
+    Returns ((theta, lp, grad), infos stacked over steps)."""
+    C, d = theta0.shape
+    theta = theta0
+    lp, g = target_funcs(target)[1](theta0)
+    rows = []
+    for _ in range(steps):
+        noise = draw_noise(C, d, maxdoublings, generator, theta.dtype,
+                           theta.device)
+        th2, g2, lp2, nd, dv = target_nuts_transition(
+            target, theta, lp, g, eps_in, *noise, maxdoublings=maxdoublings,
+            multinomial=multinomial)
+        rows.append({k: v[None] for k, v in _rows(
+            th2, g2, lp2, (th2 != theta).any(-1), nd, dv).items()})
+        theta, lp, g = th2, lp2, g2
+    eps_diag = eps_in.reshape(-1)[0] if isinstance(eps_in, torch.Tensor) \
+        else eps_in
+    return (theta, lp, g), _stack(rows, eps_diag)

@@ -25,6 +25,11 @@ wrapper (this module)           Pallas kernel it replaces
                                 transitions, RNG inside)
 ==============================  ==========================================
 
+A third, :func:`target_logp_grad` (one (logp, gradient) pass), has no
+Pallas counterpart: it is the generic engine's ``model.evalallg`` on the
+card for a catalog DSL model in float32, where the JAX package's generic
+engine runs its model's ``jax.value_and_grad`` compiled by XLA.
+
 Each has a plain PyTorch version beside it (``*_ref``) that differentiates
 the distributions' ``logpdf`` with ``torch.func`` (never the kernels'
 hand-written derivatives).  A wrapper runs the plain version only for
@@ -52,7 +57,13 @@ from .glm_kernels import _draw, _sched, _trajectory, accept_test
 #: largest dimension the kernels take: 32 lanes x 32 coordinates per lane
 D_MAX = 1024
 
-_NAMES = ("target_leapfrogs", "target_multistep")
+#: why a model without a ``target_spec`` runs on the generic engine
+NOT_CATALOG = ("the model is not a product of catalog densities over its "
+               "parameters (callable mode, derived quantities, acc(), data or "
+               "tensor-valued parameters), so the custom-target kernels "
+               "cannot take it")
+
+_NAMES = ("target_leapfrogs", "target_multistep", "target_logp_grad")
 LAUNCHES = dict.fromkeys(_NAMES, 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
@@ -136,6 +147,12 @@ def _eps_args(eps, theta):
     return (1.0, e) if isinstance(e, torch.Tensor) else (e, None)
 
 
+def target_logp_grad_ref(target, theta):
+    """Plain version of :func:`target_logp_grad` (``torch.func``)."""
+    PLAIN_CALLS["target_logp_grad"] += 1
+    return target_funcs(target)[1](theta)
+
+
 def fused_target_leapfrogs_ref(target, theta, m, grad, eps, *, n_leaps=10,
                                integrator="leapfrog"):
     """Plain version of :func:`fused_target_leapfrogs`."""
@@ -189,6 +206,7 @@ _ARGTYPES = {
     "target_multistep": [_P, _P, _I, _I] + [_P] * 5 + [_F, _P, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
+    "target_logp_grad": [_P, _P, _I, _I] + [_P] * 4,
 }
 
 
@@ -278,6 +296,21 @@ def launch(lib, counts, name, *args):
                            f"{lib.target_error_string(code).decode()} "
                            f"({code})")
     counts[name] += 1
+
+
+def target_logp_grad(target, theta):
+    """(logp (C,), gradient (C, d)) of a catalog target at ``theta`` (C, d),
+    one pass of the custom-target kernels' family rules."""
+    name = "target_logp_grad"
+    if not _device_branch(name, theta):
+        return target_logp_grad_ref(target, theta)
+    codes, params, C, d = kernel_args(name, target, theta)
+    g_o = torch.empty_like(theta)
+    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
+    with torch.cuda.device(theta.device):
+        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
+               C, _ptr(theta), _ptr(g_o), _ptr(lp_o))
+    return lp_o, g_o
 
 
 def fused_target_leapfrogs(target, theta, m, grad, eps, *, n_leaps=10,

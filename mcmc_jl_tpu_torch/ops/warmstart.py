@@ -1,5 +1,6 @@
-"""Warm-start pipeline for adaptive samplers on GLM posteriors (port of the
-HMC, HMCDA, MALA and exact-NUTS parts of ``mcmc_jl_tpu/ops/warmstart.py``).
+"""Warm-start pipeline for adaptive samplers on GLM posteriors and catalog
+targets (port of the HMC, HMCDA, MALA, ChEES and exact-NUTS parts of
+``mcmc_jl_tpu/ops/warmstart.py``).
 
 The adaptive samplers stop adapting at the end of burn-in anyway (the
 EmpMCTuner is burn-in gated, HMC.jl:167-173; dual averaging freezes its
@@ -26,18 +27,26 @@ two phases, and the second is what the fused kernels run:
      ``T = 2 nl eps`` around the frozen ``nl`` (a pooled fixed length
      resonates on near-Gaussian posteriors; the jitter removes it);
    - adaptive MALA: one-leapfrog HMC at ``eps = sqrt(drift step)``
-     (``T = eps`` pins every leap count to 1).
+     (``T = eps`` pins every leap count to 1);
+   - ChEES-HMC: the same Halton rule at the pooled ``eps`` and ``T`` and
+     the sampler's ``max_leaps``.
 
-   Up to ``BIGN_THRESHOLD`` observations the Halton multistep kernel runs
-   the HMC-family phase, ``_pick_k_trans(steps)`` transitions per launch;
-   above it a trajectory loop around the N-tiled gradient kernel
-   (:mod:`.glm_bign`).  On the CPU the wrappers run their plain versions.
+   On a GLM, up to ``BIGN_THRESHOLD`` observations the Halton multistep
+   kernel runs the HMC-family phase, ``_pick_k_trans(steps)`` transitions
+   per launch; above it a trajectory loop around the N-tiled gradient
+   kernel (:mod:`.glm_bign`).  On a catalog target (a DSL model with a
+   ``target_spec``) the HMC-family phase loops around the custom-target
+   trajectory kernel with the leap count given at run time, and exact NUTS
+   runs the target-mode NUTS kernel; a diagonal metric needs no fold there,
+   it rides the kernels' per-coordinate step row ``eps * s``.  On the CPU
+   the wrappers run their plain versions.
 
 The only departure from running the generic engine end to end is the
 cross-chain pooling of the frozen hyper-parameters: the sampling phase is
-still exact MCMC for the model posterior.  Not ported yet (ROADMAP queue 1
-item 12): ChEES, custom targets, ``NUTS(warm_handoff=True)``, the dense
-metric and the fused continuation of a resumed chain.
+still exact MCMC for the model posterior.  Not ported yet (ROADMAP queue
+1): ``NUTS(warm_handoff=True)``, the dense metric with its z-space fold on
+targets (``dense_target_setup``), data-bearing targets and the fused
+continuation of a resumed chain.
 """
 from __future__ import annotations
 
@@ -55,13 +64,17 @@ _INTEGRATORS = ("leapfrog", "2stage", "3stage")
 def warm_eligible(task):
     """True when the task can take the warmup -> freeze -> fused pipeline:
     an adaptive HMC (EmpMCTuner and/or diagonal mass adaptation), an HMCDA,
-    an adaptive MALA or an exact NUTS, on a ``model(glm=...)`` posterior,
-    with a burn-in window.  What the JAX package also admits and the port
-    does not yet is refused with a logged reason."""
+    an adaptive MALA, a ChEES-HMC or an exact NUTS, with a burn-in window,
+    on a ``model(glm=...)`` posterior or on a model whose ``target_spec`` is
+    a catalog target of at most ``D_MAX`` parameters (warmstart.py
+    ``_warm_ok``).  Other models, and what the JAX package also admits and
+    the port does not yet, are refused with a logged reason."""
+    from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
     from ..samplers.hmcda import HMCDA
     from ..samplers.mala import MALA
     from ..samplers.nuts import NUTS
+    from .target_kernels import D_MAX, NOT_CATALOG
 
     runner = task.runner
     if runner.burnin < 1 or runner.len <= runner.burnin:
@@ -74,19 +87,26 @@ def warm_eligible(task):
         ok = not s.store_leaps and s.integrator in _INTEGRATORS
     elif type(s) is MALA:
         ok = s.tuner is not None
+    elif isinstance(s, ChEESHMC):
+        ok = s.integrator in _INTEGRATORS
     elif type(s) is NUTS:
         if s.warm_handoff:
             log.info("warm start: NUTS(warm_handoff=True) is not ported yet "
-                     "(ROADMAP queue 1 item 12); running the generic engine")
+                     "(ROADMAP queue 1); running the generic engine")
             return False
         ok = True
     else:
-        # ChEESHMC and the other samplers are not ported yet
         return False
-    if ok and getattr(task.model, "glm_spec", None) is None:
-        log.info("warm start: custom targets need the target-mode kernels, "
-                 "not ported yet (ROADMAP queue 2); running the generic engine")
-        return False
+    m = task.model
+    if ok and getattr(m, "glm_spec", None) is None:
+        if m.target_spec is None:
+            log.info("warm start: %s; running the generic torch engine",
+                     NOT_CATALOG)
+            return False
+        if m.size > D_MAX:
+            log.info("warm start: d = %d > %d, the custom-target kernels' "
+                     "bound; running the generic torch engine", m.size, D_MAX)
+            return False
     return ok
 
 
@@ -303,6 +323,48 @@ def _chees_run_ms(XT, Y, theta0, eps, T, generator, *, steps, i0, max_leaps,
                             for k in rows[0]}
 
 
+def _eps_row(eps, s):
+    """The step of the custom-target phases (warmstart.py ``_eps_row``,
+    unpadded): the scalar ``eps``, or under a frozen diagonal metric ``s``
+    the per-coordinate row ``eps * s``, computed in float64 and rounded once
+    to float32."""
+    if s is None:
+        return float(eps)
+    return (eps * s.to(torch.float64)).to(torch.float32)
+
+
+def _chees_target_run(target, theta0, eps_in, eps, T, generator, *, steps,
+                      i0, max_leaps, integrator="leapfrog"):
+    """The sampling phase on a catalog target: :func:`_chees_scan` around the
+    custom-target trajectory kernel, the Halton leap count given at run
+    time (warmstart.py ``_chees_target_run``).  ``eps_in`` is the kernel's
+    step (scalar, or the (d,) row carrying the diagonal metric), ``eps`` the
+    scalar the length rule uses.  lp and the gradient at the start come from
+    the target's plain evaluation, once."""
+    from .target_kernels import fused_target_leapfrogs, target_funcs
+
+    lp0, g0 = target_funcs(target)[1](theta0)
+
+    def trajectory(theta, m0, g, nl):
+        return fused_target_leapfrogs(target, theta, m0, g, eps_in,
+                                      n_leaps=nl, integrator=integrator)
+
+    return _chees_scan(trajectory, theta0, lp0, g0, eps, T, generator,
+                       steps=steps, i0=i0, max_leaps=max_leaps)
+
+
+def _dyn_target_phase(model, integrator, eps, T, max_leaps, s, states_w,
+                      steps2, i0, generator):
+    """The dynamic-length sampling phase on a catalog target, shared by the
+    HMC/HMCDA/MALA and ChEES pipelines (warmstart.py ``_dyn_target_phase``,
+    unit and diagonal metrics): positions stay in model coordinates, the
+    metric rides the step row.  Returns ((theta, lp, grad), rows)."""
+    theta0 = states_w.pars.to(torch.float32).contiguous()
+    return _chees_target_run(model.target_spec, theta0, _eps_row(eps, s),
+                             eps, T, generator, steps=steps2, i0=i0,
+                             max_leaps=max_leaps, integrator=integrator)
+
+
 def _frozen_states(model, sampler, states_w, theta, eps, nl, steps2):
     """Final states of the HMC/HMCDA/MALA pipeline: the warmup's states at
     the sampling phase's final positions (log-target and gradient at the
@@ -369,15 +431,86 @@ def warmfused_hmc_chains(model, sampler, runner, n_chains, generator):
     return infos, states
 
 
+def warmfused_target_chains(model, sampler, runner, n_chains, generator):
+    """Adaptive HMC, HMCDA or MALA on a catalog target: warmup on the
+    generic engine, then the sampling phase at the frozen step, leap count
+    and diagonal metric through the custom-target trajectory kernel
+    (warmstart.py ``warmfused_target_chains``), with the freeze rules of the
+    GLM pipeline.  Returns ``(infos, final_states)`` as
+    :func:`warmfused_hmc_chains` does."""
+    from ..samplers.mala import MALA
+
+    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
+    eps, nl, s = _freeze(sampler, states_w)
+    steps2 = runner.len - runner.burnin
+    mala = type(sampler) is MALA
+    T = eps if mala else 2.0 * nl * eps
+    max_leaps = 1 if mala else max(2 * nl, 2)
+    (thetaF, _, _), infos2 = _dyn_target_phase(
+        model, getattr(sampler, "integrator", "leapfrog"), eps, T, max_leaps,
+        s, states_w, steps2, runner.burnin + 1, generator)
+    infos, theta = _unfold_cat(infos_w, infos2, thetaF, None)
+    states = _frozen_states(model, sampler, states_w, theta, eps, nl, steps2)
+    return infos, states
+
+
+def warmfused_chees_chains(model, sampler, runner, n_chains, generator):
+    """ChEES-HMC: the pooled adaptation (dual averaging and Adam on log T
+    through the sampler's pool hook) on the generic engine for the burn-in,
+    then the sampling phase at the frozen ``eps = median(dual_leap_step)``
+    and ``T = exp(median(log_len))`` with the sampler's ``max_leaps``
+    (warmstart.py ``warmfused_chees_chains``): on a GLM through the Halton
+    multistep kernel (N up to ``BIGN_THRESHOLD``) or the N-tiled gradient
+    kernel, on a catalog target through the trajectory kernel.  Infos carry
+    ``alpha``/``epsilon``/``nleaps``; the final states are the warmup's,
+    reset at the last positions."""
+    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
+    # the median, as every freeze: after the pool hook the values are shared
+    eps = _median(states_w.dual_leap_step)
+    T = float(np.exp(np.median(states_w.log_len.double().cpu().numpy())))
+    s = _pool_mass(sampler._kind, states_w)
+    steps2 = runner.len - runner.burnin
+    i0 = runner.burnin + 1
+    spec = model.glm_spec
+    if spec is None:
+        (thetaF, _, _), infos2 = _dyn_target_phase(
+            model, sampler.integrator, eps, T, sampler.max_leaps, s, states_w,
+            steps2, i0, generator)
+        fold_s = None
+    else:
+        XT, Y, theta0, lam, W, O = _fold(spec, states_w, s)
+        kw = dict(steps=steps2, i0=i0, max_leaps=sampler.max_leaps,
+                  kind=spec.kind, W=W, O=O, lam=lam,
+                  integrator=sampler.integrator)
+        use_ms, kt = _ms_route(spec, steps2)
+        if use_ms:
+            (thetaF, _, _), infos2 = _chees_run_ms(XT, Y, theta0, eps, T,
+                                                   generator, k_trans=kt,
+                                                   **kw)
+        else:
+            (thetaF, _, _), infos2 = _chees_run_bign(XT, Y, theta0, eps, T,
+                                                     generator, **kw)
+        fold_s = s
+    infos2["epsilon"] = torch.full_like(infos2["plogtarget"], eps)
+    infos, theta = _unfold_cat(infos_w, infos2, thetaF, fold_s,
+                               extra_keys=("alpha", "epsilon", "nleaps"))
+    states = sampler.reset(model, states_w, theta.to(model.device,
+                                                     model.dtype))
+    return infos, states.replace(i=states.i + steps2)
+
+
 def warmfused_nuts_exact_chains(model, sampler, runner, n_chains, generator):
     """Exact No-U-Turn warm pipeline: adaptive warmup (dual averaging and an
     optional diagonal metric) on the generic engine; the sampling phase runs
     the same exact NUTS sampler (per-chain directions, slice or multinomial
     leaf selection, span and overall u-turn rules, divergence gate) through
-    the fused tree-build kernels at the frozen step, with the pooled metric
-    folded into the design.  Returns ``(infos, final_states)`` in the
-    protocol of :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`."""
-    from .nuts_kernels import _nuts_run, _nuts_run_hw
+    the fused tree-build kernels at the frozen step.  On a GLM the pooled
+    metric folds into the design; on a catalog target it rides the
+    target-mode kernel's step row ``eps * s`` (whose first entry the
+    ``epsilon`` rows then report, as in the JAX package).  Returns
+    ``(infos, final_states)`` in the protocol of
+    :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`."""
+    from .nuts_kernels import _nuts_run, _nuts_run_hw, _nuts_target_run
 
     spec = model.glm_spec
     states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
@@ -385,19 +518,28 @@ def warmfused_nuts_exact_chains(model, sampler, runner, n_chains, generator):
     eps = float(np.median(np.exp(states_w.lebar.double().cpu().numpy())))
     s = _pool_mass(sampler._kind, states_w)
     steps2 = runner.len - runner.burnin
-    XT, Y, theta0, lam, W, O = _fold(spec, states_w, s)
-    use_hw, kt = _nuts_hw_route(model, steps2)
-    kw = dict(steps=steps2, maxdoublings=sampler.maxdoublings,
-              kind=spec.kind, W=W, O=O, lam=lam,
-              multinomial=sampler.multinomial)
-    if use_hw:
-        (thetaF, _, _), infos2 = _nuts_run_hw(XT, Y, theta0, eps, generator,
-                                              k_trans=kt, **kw)
+    if spec is None:
+        (thetaF, _, _), infos2 = _nuts_target_run(
+            model.target_spec, states_w.pars.to(torch.float32).contiguous(),
+            _eps_row(eps, s), generator, steps=steps2,
+            maxdoublings=sampler.maxdoublings,
+            multinomial=sampler.multinomial)
+        fold_s = None
     else:
-        (thetaF, _, _), infos2 = _nuts_run(XT, Y, theta0, eps, generator,
-                                           **kw)
+        XT, Y, theta0, lam, W, O = _fold(spec, states_w, s)
+        use_hw, kt = _nuts_hw_route(model, steps2)
+        kw = dict(steps=steps2, maxdoublings=sampler.maxdoublings,
+                  kind=spec.kind, W=W, O=O, lam=lam,
+                  multinomial=sampler.multinomial)
+        if use_hw:
+            (thetaF, _, _), infos2 = _nuts_run_hw(XT, Y, theta0, eps,
+                                                  generator, k_trans=kt, **kw)
+        else:
+            (thetaF, _, _), infos2 = _nuts_run(XT, Y, theta0, eps, generator,
+                                               **kw)
+        fold_s = s
     infos, theta = _unfold_cat(
-        infos_w, infos2, thetaF, s,
+        infos_w, infos2, thetaF, fold_s,
         extra_keys=("epsilon", "ndoublings", "diverging"))
 
     states = sampler.reset(model, states_w, theta.to(model.dtype))

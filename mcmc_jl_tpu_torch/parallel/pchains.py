@@ -12,11 +12,14 @@ item 15.
 per-task chains) and routes groups on GLM posteriors to the fused CUDA
 kernels: plain HMC and plain MALA to the HMC drivers (ops/glm_hmc.py; above
 ``BIGN_THRESHOLD`` observations the N-tiled kernel, ops/glm_bign.py),
-adaptive HMC, HMCDA, adaptive MALA and exact NUTS to the warm-start
-pipeline (ops/warmstart.py).  Plain HMC and plain MALA on a custom target
-that is a product of catalog densities (``model.target_spec``) go to the
-custom-target kernels (ops/target_kernels.py); other custom targets run on
-the generic engine.
+adaptive HMC, HMCDA, adaptive MALA, ChEES-HMC and exact NUTS to the
+warm-start pipeline (ops/warmstart.py).  On a custom target that is a
+product of catalog densities (``model.target_spec``) plain HMC and plain
+MALA go to the custom-target kernels (ops/target_kernels.py), and the
+adaptive samplers and exact NUTS to the warm-start pipeline's target arms;
+other custom targets run on the generic engine.  Samplers that adapt from
+cross-chain statistics (ChEES-HMC) expose ``pool``, which the engine calls
+after every step.
 """
 from __future__ import annotations
 
@@ -67,10 +70,15 @@ def run_chains(model, sampler, runner, n_chains, generator=None, seed=0,
 
 def _scan_chains(model, sampler, ctx, states, generator, steps):
     """``steps`` transitions of a batched state; returns (final states,
-    infos stacked over steps)."""
+    infos stacked over steps).  A sampler with a ``pool(ctx, states,
+    info)`` hook (cross-chain adaptation, e.g. ChEES-HMC) has it called
+    after every step: it is the sampler's adaptation, not an option."""
+    pool = getattr(sampler, "pool", None)
     rows = {}
     for _ in range(steps):
         states, info = sampler.step(model, ctx, states, generator)
+        if pool is not None:
+            states = pool(ctx, states, info)
         for k, v in info.items():
             rows.setdefault(k, []).append(v)
     return states, {k: torch.stack(v) for k, v in rows.items()}
@@ -119,13 +127,27 @@ def _target_eligible(task):
             and task.model.size <= D_MAX)
 
 
-def _kernel_shape_ok(model, route):
-    """What the ported GLM kernels take on ``route``: a built-in link,
-    d <= D_MAX, and for exact NUTS N <= BIGN_THRESHOLD; None when they do,
-    else the reason."""
+def _kernel_shape_ok(model, route, sampler):
+    """What the ported kernels take on ``route``: on a GLM a built-in link,
+    d <= D_MAX, and for exact NUTS N <= BIGN_THRESHOLD; on a catalog target
+    d <= the target kernels' D_MAX; for exact NUTS maxdoublings <=
+    MAX_DOUBLINGS.  None when they do, else the reason."""
     from ..ops.glm_kernels import D_MAX, KIND_CODES
+    from ..ops.nuts_kernels import MAX_DOUBLINGS
 
+    if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
+        return (f"maxdoublings = {sampler.maxdoublings} > {MAX_DOUBLINGS}, "
+                f"the NUTS kernels' bound")
     spec = model.glm_spec
+    if spec is None:
+        from ..ops import target_kernels
+
+        if model.target_spec is None:
+            return target_kernels.NOT_CATALOG
+        if model.size > target_kernels.D_MAX:
+            return (f"d = {model.size} > {target_kernels.D_MAX}, the "
+                    f"custom-target kernels' bound")
+        return None
     if not isinstance(spec.kind, str) or spec.kind not in KIND_CODES:
         return "a custom (ll, resid) link has no CUDA kernel yet"
     N, d = spec.X.shape
@@ -142,10 +164,11 @@ def _route(t, fused):
     """Decide before any launch which route a group takes: "hmc" (plain
     HMC or plain MALA through the fused GLM-HMC drivers), "target" (plain
     HMC or plain MALA on a catalog target through the custom-target
-    trajectory kernel), "warm" (adaptive
-    HMC, HMCDA or adaptive MALA: generic warmup, then the Halton multistep
-    or the N-tiled kernel), "nuts" (generic warmup, then the exact-NUTS
-    kernels) or False (the generic engine).  Above ``BIGN_THRESHOLD``
+    trajectory kernel), "warm" (adaptive HMC, HMCDA, adaptive MALA or
+    ChEES-HMC: generic warmup, then the Halton multistep or the N-tiled
+    kernel on a GLM, the custom-target trajectory kernel on a catalog
+    target), "nuts" (generic warmup, then the exact-NUTS kernels, GLM or
+    target mode) or False (the generic engine).  Above ``BIGN_THRESHOLD``
     observations the "hmc" and "warm" routes run the N-tiled gradient
     kernel.
 
@@ -165,25 +188,12 @@ def _route(t, fused):
     if _fused_eligible(t):
         route = "hmc"
     elif _target_eligible(t):
-        if m.target_spec is None:
-            log.info("prun: the model is not a product of catalog densities "
-                     "over its parameters (callable mode, derived "
-                     "quantities, acc(), data or tensor-valued parameters), "
-                     "so the custom-target kernels cannot take it; running "
-                     "the generic torch engine")
-            return False
-        return "target"
+        route = "target"
     elif warm_eligible(t):
         route = "nuts" if isinstance(t.sampler, NUTS) else "warm"
     else:
         return False
-    why = _kernel_shape_ok(m, route)
-    if why is None and route == "nuts":
-        from ..ops.nuts_kernels import MAX_DOUBLINGS
-
-        if t.sampler.maxdoublings > MAX_DOUBLINGS:
-            why = (f"maxdoublings = {t.sampler.maxdoublings} > "
-                   f"{MAX_DOUBLINGS}, the NUTS kernels' bound")
+    why = _kernel_shape_ok(m, route, t.sampler)
     if why is not None:
         log.info("prun: %s; running the generic torch engine", why)
         return False
@@ -195,14 +205,13 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
 
     Tasks with identical (model, sampler, runner) are batched into one run;
     heterogeneous lists split into groups.  ``fused``: "auto" (default)
-    routes plain HMC and MALA groups, and adaptive HMC, HMCDA, MALA and
-    exact-NUTS groups with a burn-in, on ``model(glm=...)`` posteriors held
-    in float32 on a CUDA device to the fused CUDA kernels (see
-    :func:`_route`); ``True`` forces the fused drivers (their plain
-    versions on the CPU, for tests); ``False`` always uses the generic
-    engine.  Plain HMC and MALA groups on a model with a ``target_spec``
-    take the custom-target kernels under the same rule.  A kernel that
-    fails to build or launch raises."""
+    routes plain HMC and MALA groups, and adaptive HMC, HMCDA, MALA, ChEES
+    and exact-NUTS groups with a burn-in, on ``model(glm=...)`` posteriors
+    and on models with a ``target_spec``, held in float32 on a CUDA device,
+    to the fused CUDA kernels (see :func:`_route`); ``True`` forces the
+    fused drivers (their plain versions on the CPU, for tests); ``False``
+    always uses the generic engine.  A kernel that fails to build or launch
+    raises."""
     t0 = time.time()
 
     groups = {}
@@ -234,10 +243,17 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
                       else fused_target_chains)
             infos, final_states = tgt_fn(t.model, t.sampler, t.runner, n, gen)
         elif route == "warm":
-            from ..ops.warmstart import warmfused_hmc_chains
+            from ..ops import warmstart
+            from ..samplers.chees import ChEESHMC
 
-            infos, final_states = warmfused_hmc_chains(t.model, t.sampler,
-                                                       t.runner, n, gen)
+            if isinstance(t.sampler, ChEESHMC):
+                warm_fn = warmstart.warmfused_chees_chains
+            elif t.model.glm_spec is None:
+                warm_fn = warmstart.warmfused_target_chains
+            else:
+                warm_fn = warmstart.warmfused_hmc_chains
+            infos, final_states = warm_fn(t.model, t.sampler, t.runner, n,
+                                          gen)
         elif route == "nuts":
             from ..ops.warmstart import warmfused_nuts_exact_chains
 

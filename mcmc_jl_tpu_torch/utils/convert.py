@@ -3,8 +3,8 @@
 Works on numpy arrays only, so neither package imports the other: take a JAX
 ``GLMSpec``'s fields, a JAX catalog distribution's class name and fields,
 or a JAX ``HMCState``/``NUTSState``/``MALAState``/``HMCDAState``/
-``RWMState`` after ``jax.device_get`` turned into a (nested) dict of numpy
-arrays, and build the port's counterpart.  ``device=None`` means the CUDA
+``ChEESState``/``RWMState`` after ``jax.device_get`` turned into a (nested)
+dict of numpy arrays, and build the port's counterpart.  ``device=None`` means the CUDA
 card, as everywhere in the port; pass ``device="cpu"`` to build on the CPU.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from ..models import distributions as dists
 from ..models.model import model, resolve_device
 from ..samplers.base import TuneState
+from ..samplers.chees import ChEESState
 from ..samplers.hmc import HMCState
 from ..samplers.hmcda import HMCDAState
 from ..samplers.mala import MALAState
@@ -109,6 +110,14 @@ def hmcda_state_from_numpy(state, device=None, dtype=None):
     and a nested ``mass`` dict) of numpy arrays; as
     :func:`hmc_state_from_numpy`."""
     return _state_from_numpy(HMCDAState, state, device, dtype)
+
+
+def chees_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`ChEESState` from a JAX ``ChEESState`` given as a
+    dict (``pars, logtarget, grad, leap_step, dual_leap_step, dual_h, mu,
+    log_len, adam_m, adam_v, i``, the ``p_*`` stash and a nested ``mass``
+    dict) of numpy arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(ChEESState, state, device, dtype)
 
 
 def rwm_state_from_numpy(state, device=None, dtype=None):

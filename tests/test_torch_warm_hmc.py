@@ -180,8 +180,9 @@ def test_rows_ref_matches_successive_pallas_steps(prior):
 
 
 def test_warm_eligibility_matches_jax():
-    """warm_eligible agrees with the JAX package's on GLM posteriors; what
-    the port does not take yet (custom targets) is refused."""
+    """warm_eligible agrees with the JAX package's on GLM posteriors (ChEES
+    included); what the port does not take (custom targets that are not a
+    product of catalog densities) is refused."""
     jm, tm = _models()
     tun, ttun = mc.EmpMCTuner(0.8, adapt_step=50), mt.EmpMCTuner(0.8,
                                                                  adapt_step=50)
@@ -201,6 +202,7 @@ def test_warm_eligibility_matches_jax():
         (mc.HMC(5, 0.1, tun, store_leaps=True),
          mt.HMC(5, 0.1, ttun, store_leaps=True)),
         (mc.NUTS(), mt.NUTS()),
+        (mc.ChEESHMC(len0=0.5), mt.ChEESHMC(len0=0.5)),
     ]
     for js, ts in pairs:
         want = jws.warm_eligible(JTask(jm, js, r))
@@ -218,6 +220,7 @@ def test_warm_eligibility_matches_jax():
     assert route(mt.MALA(0.05, ttun)) == "warm"
     assert route(mt.MALA(0.05)) == "hmc"
     assert route(mt.NUTS()) == "nuts"
+    assert route(mt.ChEESHMC()) == "warm"
     assert not pchains._route(MCMCTask(tm, mt.HMCDA(), tr), "auto")
 
 
