@@ -39,9 +39,13 @@ Run with no arguments on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It exits non-zero without a CUDA device, and on any failed check.
+``python3 chip_smoke.py --times [ROOT]`` builds only the trajectory and
+N-tiled kernels (the chain-tile gradient) from the package under ROOT and
+times them and their two paths, to compare two trees on one card.
 """
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -191,23 +195,26 @@ def phase_device():
           "cuda": torch.version.cuda, "count": CARD["count"]})
 
 
-def phase_build():
-    """Every library, one nvcc each, started together."""
+def phase_build(names=None):
+    """Every library (or those named), one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mcmc_jl_tpu_torch.ops import (cuda_build, glm_bign, glm_kernels,
                                       nuts_kernels, rwm_kernels,
                                       target_kernels)
 
+    names = tuple(names or SOURCES)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        built = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
-    glm_kernels.load_kernels()
-    nuts_kernels.load_kernels()
-    glm_bign.load_kernels()
-    target_kernels.load_kernels()
-    rwm_kernels.load_kernels()
-    nuts_kernels.load_target_kernels()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(cuda_build.build, names)))
+    loaders = {"glm_hmc": glm_kernels.load_kernels,
+               "glm_nuts": nuts_kernels.load_kernels,
+               "glm_bign": glm_bign.load_kernels,
+               "target_hmc": target_kernels.load_kernels,
+               "target_rwm": rwm_kernels.load_kernels,
+               "target_nuts": nuts_kernels.load_target_kernels}
+    for name in names:
+        loaders[name]()
     for name, (path, report) in built.items():
         ptxas, entry = [], "?"
         for ln in report.splitlines():
@@ -424,7 +431,8 @@ def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
     task = m * mt.HMC(10, 0.05) * mt.SerialMC(steps=steps, burnin=burnin)
 
     t0 = time.perf_counter()
-    cs, launches = _counted(lambda: mt.run(task, chains=chains, seed=0))
+    with _spans() as spans:
+        cs, launches = _counted(lambda: mt.run(task, chains=chains, seed=0))
     dt = time.perf_counter() - t0
     rose = launches["glm_leapfrogs"]
     assert launches == {**{k: 0 for k in launches},
@@ -448,7 +456,7 @@ def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
     assert np.all(np.isfinite(c1.samples.values))
     ok = z < Z_MAX
     emit({"phase": "main_path", "chains": chains, "steps": steps,
-          "seconds": dt, "trajectory_launches": rose,
+          "seconds": dt, "spans_s": spans, "trajectory_launches": rose,
           "chain0": {"acceptance": mt.acceptance(c0),
                      "mean": mt.mean(c0).tolist(),
                      "ess": mt.ess(c0).tolist(),
@@ -804,12 +812,13 @@ def _spans():
     packaging into chains.  Wraps the module functions for the duration."""
     import torch
 
-    from mcmc_jl_tpu_torch.ops import (glm_bign, nuts_kernels,
+    from mcmc_jl_tpu_torch.ops import (glm_bign, glm_hmc, nuts_kernels,
                                       target_kernels, warmstart)
     from mcmc_jl_tpu_torch.parallel import pchains
 
     spans, saved = {}, []
     for mod, fn, label in ((warmstart, "_warmup", "warmup"),
+                           (glm_hmc, "_run", "sampling"),
                            (nuts_kernels, "_nuts_run_hw", "sampling"),
                            (nuts_kernels, "_nuts_run", "sampling"),
                            (nuts_kernels, "_nuts_target_run", "sampling"),
@@ -920,7 +929,7 @@ def phase_nuts_main_path(hmc_means):
     return counts, start
 
 
-def phase_nuts_timing(start, md=6, k_trans=8,
+def phase_nuts_timing(start, md=6, k_trans=5,
                       sizes=((4096, 200), (65536, 40))):
     """Sampling-phase rates of the NUTS drivers at the frozen step, from the
     main path's final states (tiled to each (chains, transitions) of
@@ -1206,6 +1215,224 @@ def phase_bign_kernels(shapes=((4096, 100_000), (1024, 1_000_000)),
     return {"glm_logp_grad_tiled": err}
 
 
+def _glm_case(kind, N, d, C, seed):
+    """A GLM of link ``kind`` (N observations, d parameters, C chains near
+    0) with weights and offsets: (XT, Y, W, O, theta, m)."""
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([np.ones(N), rng.standard_normal((N, d - 1))]) * 0.3
+    z = X @ rng.standard_normal(d)
+    Y = {"linear": z + rng.standard_normal(N),
+         "poisson": rng.poisson(np.exp(z)).astype(float)}.get(
+        kind, (rng.random(N) < 1 / (1 + np.exp(-z))).astype(float))
+    return (_cuda(X.T), _cuda(Y), _cuda(rng.uniform(0.5, 2.0, N)),
+            _cuda(0.1 * rng.standard_normal(N)),
+            _cuda(0.05 * rng.standard_normal((C, d))),
+            _cuda(rng.standard_normal((C, d))))
+
+
+def _traj_check(label, XT, Y, theta, m, eps, **kw):
+    """glm_leapfrogs against its plain version on the same inputs, at the
+    tolerances of phase_kernels (the sums' atol grows with N / 1000).
+    Returns the largest absolute error."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    lam = kw.get("prior_prec", 1.0)
+    _, g = gk.glm_funcs(XT, Y, kw.get("weights"), kw.get("offsets"), lam,
+                        kw.get("kind", "logistic"))[1](theta)
+    g = g.contiguous()
+    out_k = gk.glm_leapfrogs(XT, Y, theta, m, g, eps, **kw)
+    out_r = gk.glm_leapfrogs_ref(XT, Y, theta, m, g, eps, **kw)
+    torch.cuda.synchronize()
+    scale = max(1.0, XT.shape[1] / 1000)
+    ok = (all(_close(a, b, RTOL, ATOL) for a, b in zip(out_k[:2], out_r[:2]))
+          and _close(out_k[2], out_r[2], RTOL, G_ATOL * scale)
+          and _close(out_k[3], out_r[3], LP_RTOL, LP_ATOL * scale)
+          and all(bool(torch.isfinite(a).all()) for a in out_k))
+    rep = {n: _err(a, b) for n, a, b in zip(("theta", "m", "g", "lp"),
+                                            out_k, out_r)}
+    emit({"phase": "kernel", "name": "glm_leapfrogs", "case": label,
+          "C": theta.shape[0], "N": XT.shape[1], "d": XT.shape[0],
+          "integrator": kw.get("integrator", "leapfrog"), "ok": ok, **rep})
+    assert ok, f"glm_leapfrogs ({label}) disagrees with glm_leapfrogs_ref"
+    return max(r["max_abs"] for r in rep.values())
+
+
+def phase_tile_kernels(main_chains=(65536, 4099)):
+    """Kernels 1 and 4, redesigned on the chain-tile gradient, against their
+    plain versions at their paths' shapes and at their edges (the 4096-chain
+    main-path case and every link at N 5000 are in phase_kernels, the
+    tiled kernel's bench shapes and links in phase_bign_kernels):
+    kernel 1 on bench.py's data at 65536 chains and at 4099 (a ragged last
+    tile of 16 chains); d = 1 and 32; N 16,384 (rows streamed in cp.async
+    tiles); every integrator; kernel 4 at d = 1 and 32 with weights,
+    offsets and a (d,) prior row."""
+    traj, tiled = [], []
+    for C in main_chains:
+        XT, Y, theta, m0, _, _, _ = _inputs(C, seed=21)
+        traj.append(_traj_check(f"bench data, C {C}", XT, Y, theta, m0,
+                                0.05, n_leaps=10))
+    cases = [  # (label, kind, N, d, C, integrator, eps, n_leaps)
+        ("d 1", "logistic", 1000, 1, 300, "leapfrog", 0.05, 10),
+        ("d 32", "probit", 1000, 32, 300, "3stage", 0.02, 5),
+        ("d 32, rows streamed", "logistic", 2000, 32, 300, "2stage", 0.01, 4),
+        ("N 16384, rows streamed", "logistic", 16_384, 10, 4096, "leapfrog",
+         0.005, 10),
+        ("d 16, rows streamed", "poisson", 3000, 16, 333, "3stage", 0.005, 3),
+        ("d 8", "linear", 1000, 8, 1000, "leapfrog", 0.01, 6),
+    ]
+    for i, (label, kind, N, d, C, integ, eps, nl) in enumerate(cases):
+        XT, Y, W, O, theta, m = _glm_case(kind, N, d, C, seed=30 + i)
+        traj.append(_traj_check(
+            f"{label}, {kind}, weights+offsets", XT, Y, theta, m, eps,
+            n_leaps=nl, kind=kind, weights=W, offsets=O, prior_prec=1.3,
+            integrator=integ))
+    rng = np.random.default_rng(43)
+    for d, kind in ((1, "logistic"), (32, "probit"), (16, "poisson")):
+        N, C = 20_001, 300
+        XT, Y, W, O, theta, _ = _glm_case(kind, N, d, C, seed=44 + d)
+        lam = _cuda(rng.uniform(0.5, 2.0, d))
+        tiled.append(_tiled_case(
+            f"{kind}, weights+offsets, (d,) prior row, N {N}, d {d}, C {C}",
+            XT, Y, theta, kind, W, O, lam))
+    return {"glm_leapfrogs": max(traj), "glm_logp_grad_tiled": max(tiled)}
+
+
+def _sfu_floor_ms(links, per_link):
+    """The special-function floor (ms) of ``links`` link evaluations with
+    ``per_link`` special-function results each: results over 16 per clock
+    per SM on every SM at the card's maximum SM clock."""
+    import torch
+
+    if "sm_clock_hz" not in CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True)
+        CARD["sm_clock_hz"] = 1e6 * float(smi.stdout.split()[0])
+        CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * links * per_link / (16 * CARD["sms"] * CARD["sm_clock_hz"])
+
+
+# special-function results per logistic link: expf's exponential and the
+# reciprocal (the log term of ll needs none: csrc/glm_tile.cuh forms it by
+# a polynomial)
+SFU_PER_LINK = 2
+
+
+def _plan(mod, fn, *args):
+    """The occupancy plan a tile kernel's library (that of wrapper module
+    ``mod``) reports, or None for a library without one (the kernels
+    before the chain-tile redesign)."""
+    import ctypes
+
+    lib = mod.load_kernels()
+    if not hasattr(lib, fn):
+        return None
+    outs = [ctypes.c_int() for _ in range(3 if fn == "glm_leapfrogs_plan"
+                                          else 2)]
+    code = getattr(lib, fn)(*[ctypes.c_int(a) for a in args],
+                            *[ctypes.byref(o) for o in outs])
+    assert code == 0, f"{fn} failed ({code})"
+    keys = ("blocks_per_sm", "smem_bytes", "resident")
+    return dict(zip(keys, (o.value for o in outs)))
+
+
+def phase_tile_times(C1=(4096, 65536), C23=4096,
+                     tiled=((4096, 100_000), (1024, 1_000_000),
+                            (512, 100_000)),
+                     n_leaps=10, eps=0.05, k_trans=200):
+    """Per-launch time (CUDA events) of kernels 1-4 at the shapes whose
+    launches PERF.md counts, beside the plain version, the bound (the link's
+    special functions not counted), the special-function floor and the
+    occupancy plan: kernel 1 at C1 chains (4096: the main path; 65536:
+    bench.py's), kernels 2 and 3 at C23, kernel 4 at each (C, N) of
+    ``tiled`` (4096 x 1e5: the large-N path; 512 x 1e5: the adaptive
+    large-N path), with the two products alone beside it (FP32, TF32 off;
+    a yardstick, not the same function).  Runs on whichever package
+    ``mcmc_jl_tpu_torch`` resolves to, so one call can time a parent tree.
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at the paths'
+    shapes (kernel 1 at C1[0], kernel 4 at tiled[0])."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    ms, work = {}, {}
+
+    def report(name, shape, t, bound, floor, plan=None, **more):
+        emit({"phase": "tile_time", "name": name, **shape, "ms": t[0],
+              "plain_ms": t[1], **bound, "share_of_bound":
+              bound["bound_ms"] / t[0], "sfu_floor_ms": floor,
+              "plan": plan, **more, **CARD})
+
+    for C in C1:
+        XT, Yc, theta, m0, logu, lp, g = _inputs(C, seed=4)
+        d, N = XT.shape
+        kern = lambda: gk.glm_leapfrogs(XT, Yc, theta, m0, g, eps,  # noqa: E731
+                                        n_leaps=n_leaps)
+        plain = lambda: gk.glm_leapfrogs_ref(XT, Yc, theta, m0, g,  # noqa: E731
+                                             eps, n_leaps=n_leaps)
+        bound = _bound(C * n_leaps, d, N, _nbytes((XT, Yc, theta, m0, g),
+                                                  kern()))
+        t = (_event_ms(kern), _event_ms(plain, reps=2))
+        floor = _sfu_floor_ms(C * N * n_leaps, SFU_PER_LINK)
+        report("glm_leapfrogs", {"C": C, "N": N, "n_leaps": n_leaps}, t,
+               bound, floor, _plan(gk, "glm_leapfrogs_plan",
+                                   d, N))
+        if C == C1[0]:
+            ms["glm_leapfrogs"], work["glm_leapfrogs"] = t, bound
+    XT, Yc, theta, m0, logu, lp, g = _inputs(C23, seed=4)
+    d, N = XT.shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen_k = torch.Generator(device="cuda").manual_seed(7)
+    calls = {
+        "glm_step": (
+            lambda: gk.glm_step(XT, Yc, theta, g, lp, m0, logu, eps,
+                                n_leaps=n_leaps),
+            lambda: gk.glm_step_ref(XT, Yc, theta, g, lp, m0, logu, eps,
+                                    n_leaps=n_leaps),
+            (XT, Yc, theta, g, lp, m0, logu), C23 * n_leaps),
+        "glm_multistep": (
+            lambda: gk.glm_multistep(XT, Yc, theta, eps, k_trans=k_trans,
+                                     n_leaps=n_leaps, generator=gen_k),
+            lambda: gk.glm_multistep_ref(XT, Yc, theta, eps, k_trans=k_trans,
+                                         n_leaps=n_leaps, generator=gen),
+            (XT, Yc, theta), C23 * (1 + k_trans * n_leaps)),
+    }
+    for name, (kern, plain, inputs, evals) in calls.items():
+        bound = _bound(evals, d, N, _nbytes(inputs, kern()))
+        t = (_event_ms(kern), _event_ms(plain, reps=2))
+        floor = _sfu_floor_ms(evals * N, SFU_PER_LINK)
+        report(name, {"C": C23, "N": N, "k_trans": k_trans
+                      if name == "glm_multistep" else 1}, t, bound, floor)
+        ms[name], work[name] = t, bound
+
+    rng = np.random.default_rng(51)
+    for C4, N4 in tiled:
+        X4, Y4, mode4 = _bench_mode(N4)
+        XT4, Y4c = _cuda(X4.T), _cuda(Y4)
+        th4 = _cuda(mode4 + 0.01 * rng.standard_normal((C4, X4.shape[1])))
+        kern = lambda: gb.glm_logp_grad_tiled(XT4, Y4c, th4)  # noqa: E731
+        plain = lambda: gb.glm_logp_grad_tiled_ref(XT4, Y4c,  # noqa: E731
+                                                   th4)
+        bound = _bound(C4, X4.shape[1], N4, _nbytes((XT4, Y4c, th4), kern()))
+        t = (_event_ms(kern), _event_ms(plain, reps=2))
+        r4 = torch.randn(C4, N4, device="cuda")
+        prod = (_event_ms(lambda: th4 @ XT4)
+                + _event_ms(lambda: r4 @ XT4.T))
+        del r4
+        report("glm_logp_grad_tiled", {"C": C4, "N": N4}, t, bound,
+               _sfu_floor_ms(C4 * N4, SFU_PER_LINK),
+               _plan(gb, "glm_tiled_plan", X4.shape[1]),
+               splits=gb.splits_for(N4, C4),
+               two_products_ms_not_the_same_function=prod)
+        if (C4, N4) == tiled[0]:
+            ms["glm_logp_grad_tiled"], work["glm_logp_grad_tiled"] = t, bound
+    return ms, work
+
+
 def _replay_gap(XT, Y, state, m0, logu, eps, n_leaps):
     """One transition of the chains in ``state`` = (theta, g, lp) with both
     kernel families on the same momenta ``m0`` and log-uniforms ``logu``:
@@ -1429,15 +1656,12 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
     return counts
 
 
-def phase_new_kernel_times(C=4096, tiled=((4096, 100_000), (1024, 1_000_000)),
-                           family=(16_384, 100_000)):
-    """Per-launch device time of the Halton multistep kernel (the rows
-    check's shape: N 1000, k 8, eps 0.05, T 1.0) and of the N-tiled kernel
-    (C 4096 at N 100,000; C 1024 at N 1,000,000) beside their plain
-    versions and their bounds; the two products theta X^T and r X alone
-    (FP32, TF32 off) beside the tiled kernel, a yardstick that is not the
-    same function; and both kernel families per gradient at C 4096 and
-    N 16,384 and 100,000, where the route switches between them.
+def phase_new_kernel_times(C=4096, kt=6, family=(16_384, 100_000)):
+    """Per-launch device time of the Halton multistep kernel (N 1000, eps
+    0.05, T 1.0, ``kt`` transitions: the adaptive HMC path's launches
+    carry 6, ``_pick_k_trans``) beside its plain version and its bound;
+    and both kernel families per gradient at C 4096 and N 16,384 and
+    100,000, where the route switches between them.
     Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
     import torch
 
@@ -1453,9 +1677,9 @@ def phase_new_kernel_times(C=4096, tiled=((4096, 100_000), (1024, 1_000_000)),
     gen_k = torch.Generator(device="cuda").manual_seed(7)
     gen_p = torch.Generator(device="cuda").manual_seed(8)
     args = (XT, Yc, th, 0.05, 1.0, 1, 40)
-    kern = lambda: gk.glm_multistep_rows(*args, k_trans=8,  # noqa: E731
+    kern = lambda: gk.glm_multistep_rows(*args, k_trans=kt,  # noqa: E731
                                          generator=gen_k)
-    plain = lambda: gk.glm_multistep_rows_ref(*args, k_trans=8,  # noqa: E731
+    plain = lambda: gk.glm_multistep_rows_ref(*args, k_trans=kt,  # noqa: E731
                                               generator=gen_p)
     out = kern()
     evals = C * (1 + int(out[3]["nleaps"][:, 0].sum()))
@@ -1463,28 +1687,10 @@ def phase_new_kernel_times(C=4096, tiled=((4096, 100_000), (1024, 1_000_000)),
                                         _nbytes((XT, Yc, th), out))
     ms["glm_multistep_rows"] = (_event_ms(kern), _event_ms(plain, reps=2))
     emit({"phase": "kernel_time", "name": "glm_multistep_rows", "C": C,
-          "N": X.shape[0], "k_trans": 8, "ms": ms["glm_multistep_rows"][0],
+          "N": X.shape[0], "k_trans": kt, "ms": ms["glm_multistep_rows"][0],
           "plain_ms": ms["glm_multistep_rows"][1],
+          "leapfrogs": int(out[3]["nleaps"][:, 0].sum()),
           **work["glm_multistep_rows"], **CARD})
-
-    for C4, N4 in tiled:
-        X4, Y4, mode4 = _bench_mode(N4)
-        XT4, Y4c = _cuda(X4.T), _cuda(Y4)
-        th4 = _cuda(mode4 + 0.01 * rng.standard_normal((C4, d)))
-        r4 = torch.randn(C4, N4, device="cuda")
-        kern = lambda: gb.glm_logp_grad_tiled(XT4, Y4c, th4)  # noqa: E731
-        plain = lambda: gb.glm_logp_grad_tiled_ref(XT4, Y4c,  # noqa: E731
-                                                   th4)
-        bound = _bound(C4, d, N4, _nbytes((XT4, Y4c, th4), kern()))
-        t = (_event_ms(kern), _event_ms(plain, reps=2))
-        prod = (_event_ms(lambda: th4 @ XT4)
-                + _event_ms(lambda: r4 @ XT4.T))
-        del r4
-        emit({"phase": "kernel_time", "name": "glm_logp_grad_tiled",
-              "C": C4, "N": N4, "ms": t[0], "plain_ms": t[1], **bound,
-              "two_products_ms_not_the_same_function": prod, **CARD})
-        if (C4, N4) == tiled[0]:  # the large-N main path's shape
-            ms["glm_logp_grad_tiled"], work["glm_logp_grad_tiled"] = t, bound
 
     for N5 in family:
         X5, Y5, mode5 = _bench_mode(N5)
@@ -1499,6 +1705,7 @@ def phase_new_kernel_times(C=4096, tiled=((4096, 100_000), (1024, 1_000_000)),
               "trajectory_kernel_ms_per_gradient": traj,
               "tiled_kernel_ms_per_gradient": tiled, **CARD})
     return ms, work
+
 
 def _target_cases():
     """The reference's 17 bare-distribution configurations
@@ -2274,8 +2481,11 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
       (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner):
       1000 launches of kernel 8b each;
     - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
-      SerialMC(2000, 500)`` at 4096 chains (examples/warmstart_logistic.py
-      :38's sampler): 1500 launches of kernel 5 with the (d,) step row;
+      SerialMC(3500, 500)`` at 4096 chains (examples/warmstart_logistic.py
+      :38's sampler): 3000 launches of kernel 5 with the (d,) step row (the
+      sampling phase twice the reference's 1500: the step freezes near
+      0.001 and the chains mix slowly, in the JAX package as well,
+      tests/test_torch_warm_target.py);
     - ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50)) * SerialMC(1000,
       200)`` at 1024 chains, as the GLM warm path runs: 800 launches of
       kernel 5;
@@ -2313,7 +2523,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
         (mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains,
          "target_nuts_transition", None),
         (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
-                mass_adapt="diag"), 2000, 500, chains, "target_leapfrogs",
+                mass_adapt="diag"), 3500, 500, chains, "target_leapfrogs",
          None),
         (mt.MALA(0.002, mt.EmpMCTuner(0.574, adapt_step=50)), 1000, 200,
          chains_small, "target_leapfrogs", narrow),
@@ -2501,6 +2711,8 @@ def main():
     errors.update(step("nuts_kernels", phase_nuts_kernels))
     errors.update(step("rows_kernel", phase_rows_kernel))
     errors.update(step("bign_kernels", phase_bign_kernels))
+    for name, e in step("tile_kernels", phase_tile_kernels).items():
+        errors[name] = max(errors[name], e)
     step("cross_kernel", phase_cross_kernel)
     errors.update(step("target_kernels", phase_target_kernels))
     errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
@@ -2523,7 +2735,9 @@ def main():
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing)
-    ms, work = step("kernel_times", phase_kernel_times)
+    step("kernel_times", phase_kernel_times)  # kernels 1-3 at 65536 chains
+    # kernels 1-4 at the shapes whose launches are counted above
+    ms, work = step("tile_times", phase_tile_times)
     for more in (step("nuts_timing", phase_nuts_timing, start),
                  step("new_kernel_times", phase_new_kernel_times),
                  step("target_kernel_times", phase_target_times),
@@ -2545,5 +2759,52 @@ def main():
     torch.cuda.synchronize()
 
 
+def phase_path_spans(chains=4096):
+    """Host seconds (to a synchronize) of the two paths that run kernels 1
+    and 4, split into sampling and packaging, after a short warm-up run of
+    each: ``run(model(glm=logistic, N 1000) * HMC(10, 0.05) *
+    SerialMC(1000, 200), chains=4096)`` (the trajectory kernel) and the
+    large-N path ``HMC(10, 0.005) * SerialMC(200, 50)`` at N 100,000 from
+    the posterior mode (the tiled kernel).  No checks: the main phases hold
+    both paths."""
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y = bench_data()
+    Xb, Yb, mode = _bench_mode(100_000)
+    paths = (("main path", mt.model(glm=("logistic", X, Y), device="cuda"),
+              mt.HMC(10, 0.05), (1000, 200)),
+             ("large-N path", mt.model(glm=("logistic", Xb, Yb), init=mode,
+                                       device="cuda"),
+              mt.HMC(10, 0.005), (200, 50)))
+    out = {}
+    for label, m, sampler, (steps, burnin) in paths:
+        mt.run(m * sampler * mt.SerialMC(steps=20, burnin=5), chains=chains)
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        t0 = time.perf_counter()
+        with _spans() as spans:
+            mt.run(task, chains=chains, seed=0)
+        out[label] = {"total_s": time.perf_counter() - t0, **spans}
+        emit({"phase": "path_spans", "path": label, "chains": chains,
+              "steps": steps, "burnin": burnin, **out[label], **CARD})
+    return out
+
+
+def times_main():
+    """``python3 chip_smoke.py --times [ROOT]``: build glm_hmc and glm_bign
+    from the package under ROOT (default: this checkout) and time kernels
+    1-4 alone (phase_tile_times) and the spans of their two paths
+    (phase_path_spans), so that one call on one card can time a parent
+    tree and this one in turns."""
+    phase_device()
+    phase_build(("glm_hmc", "glm_bign"))
+    phase_tile_times()
+    phase_path_spans()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--times"]:
+        if len(sys.argv) > 2:  # before anything imports the package
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        times_main()
+    else:
+        main()

@@ -11,90 +11,111 @@
 // with z_cn = x_n . theta_c + o_n; lam is a scalar or a (d,) row (the
 // diagonal-metric fold of the warm-start pipeline).
 //
-// What bounds it on the H100: per chain and observation 2d FMAs (the two
-// skinny products theta X^T and r X) and one link evaluation (logistic:
-// expf, a reciprocal and log1pf, 3-4 special-function results at 16 per
-// clock per SM).  At C = 4096, N = 100,000, d = 10 that is 1.6e10 FLOP,
-// 0.25 ms at the 67 TFLOP/s FP32 peak, and 4.1e8 links, about 0.35-0.45 ms
-// on the special-function units; X (4 MB) stays in the 50 MB L2 across
-// chain blocks, so bytes do not bound it.  At C = 1024, N = 1,000,000 X is
-// 40 MB, read once per chain block: about 1 ms of links.
+// What bounds it on the H100: per chain and observation 2d multiply-adds
+// (the two skinny products theta X^T and r X) and one link evaluation with
+// its log-likelihood term.  At C = 4096, N = 100,000, d = 10 that is
+// 1.6e10 FLOP, 0.25 ms at the 67 TFLOP/s FP32 peak; the 4.1e8 links need
+// 1.2e9 special-function results (expf, the reciprocal, the log), 0.29 ms at
+// 16 per clock per SM; X (4 MB) stays in the 50 MB L2 across chain blocks,
+// so bytes do not bound it.  With the products on the tensor cores, what
+// is left is instruction issue on the CUDA cores: about 45 instructions per
+// chain and observation, over half of them the link's (expf, the
+// reciprocal, the log1p polynomial, the selects and the double sum of ll),
+// the rest the fragment loads and the TF32 splits.
 //
 // Design.  The TPU walks the observation tiles in order and accumulates into
 // output blocks that stay resident.  On Hopper blocks run in no order, so:
 // - the grid is (chain blocks of 128, splits of N): each CTA takes 128
-//   chains, one thread per chain with theta and the gradient accumulator in
-//   registers (d <= 32), and one contiguous range of observations; the
-//   wrapper picks the number of splits so that a few hundred CTAs fill the
-//   132 SMs even at 512 chains;
-// - each CTA stages its rows in shared memory tile by tile (every thread of
-//   a warp reads the same row: a broadcast), and the last, ragged tile is
-//   simply shorter: no padded rows, no zero weights;
+//   chains, 16 per warp, and one contiguous range of observations; the
+//   wrapper picks the splits so that up to 528 CTAs (two full waves of the
+//   two blocks each SM holds) fill the 132 SMs even at 512 chains;
+// - each CTA streams its rows through shared memory in tiles of 128 rows
+//   with cp.async, double-buffered: the next tile copies while the current
+//   one, split once into TF32 hi and lo parts, is computed; the last, ragged
+//   tile is simply shorter (no padded rows, no zero weights: the rows past
+//   its end are masked in registers);
+// - on each tile every warp runs the chain-tile gradient of glm_tile.cuh
+//   for its 16 chains: the two products on the tensor cores (mma.sync
+//   m16n8k8, 3xTF32, float32 accumulators) with the link between them in
+//   registers, two row groups at a time so that their latencies overlap;
 // - each CTA writes one partial (g, ll) per chain, in double, to scratch the
 //   wrapper allocates, and a second small kernel sums the partials of each
 //   chain over the splits in a fixed order and applies the prior once.
 // No float atomics, so two launches on the same inputs give the same bits.
 // The gradient accumulates in float within a tile and in double across
 // tiles; the log-likelihood in double throughout, as glm_eval does.
-// One thread per chain on the CUDA cores came first because it is simple;
-// wgmma for the two skinny products is later work.
+// wgmma with warp specialisation is later work; so is a cheaper link.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
-#include "glm_common.cuh"
+#include "glm_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // chains per block
-constexpr int kTile = 256;     // observation rows staged per tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChains = kWarps * kTileChains;  // chains per block: 128
+constexpr int kTile = 128;                     // rows per streamed tile
+
+size_t partial_smem(int D) {
+  return sizeof(float) * kTile * (2 * raw_row_floats(D) + tile_row_floats(D));
+}
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-partial_kernel(Glm p, int C, int rows_per_split,
-               const float* __restrict__ th_in, double* __restrict__ part) {
-  extern __shared__ float sm[];
-  const int S = stride_for(D);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;  // idle threads shadow the last chain
+// two blocks per SM where the registers allow (d <= 16)
+__global__ void __launch_bounds__(kThreads, D <= 16 ? 2 : 1)
+partial_tile_kernel(Glm p, int C, int rows_per_split,
+                    const float* __restrict__ th_in,
+                    double* __restrict__ part) {
+  extern __shared__ double tile_sm[];
+  float* raw = reinterpret_cast<float*>(tile_sm);
+  const Rows t = rows_at<D>(raw + 2 * raw_row_floats(D) * kTile, kTile);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int cw = blockIdx.x * kChains + warp * kTileChains;  // warp's chains
+  const bool active = cw < C;  // a warp past C still stages and syncs
   const int n0 = blockIdx.y * rows_per_split;
   const int n1 = min(p.N, n0 + rows_per_split);
-  float th[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  double gsum[D];
+  uint32_t ah[D / 8][4], al[D / 8][4];
+  theta_frags<D>(th_in + (size_t)min(cw + g, C - 1) * p.d,  // shadow past C
+                 th_in + (size_t)min(cw + g + 8, C - 1) * p.d, p.d, ah, al);
+  double gsum[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < D; ++j) gsum[j] = 0.0;
-  double ll_sum = 0.0;
-  for (int t0 = n0; t0 < n1; t0 += kTile) {
-    const int nt = min(kTile, n1 - t0);
-    __syncthreads();
-    load_rows<D>(p, sm, t0, nt);
-    __syncthreads();
-    float acc[D];
+  for (int nb = 0; nb < D / 8; ++nb)
 #pragma unroll
-    for (int j = 0; j < D; ++j) acc[j] = 0.f;
-    for (int i = 0; i < nt; ++i) {
-      const float* row = sm + i * S;
-      float z = row[D + 2];
+    for (int e = 0; e < 4; ++e) gsum[nb][e] = 0.0;
+  double ll[2] = {0.0, 0.0};
+  stream_begin<D>(p, raw, kTile, n0, n1);
+  for (int t0 = n0, buf = 0; t0 < n1; t0 += kTile, buf ^= 1) {
+    const int nt = stream_next<D>(p, raw, t, kTile, t0, n1, buf);
+    if (!active) continue;
+    float gb[D / 8][4], gs[D / 8][4];
 #pragma unroll
-      for (int j = 0; j < D; ++j) z = fmaf(th[j], row[j], z);
-      float r, ll;
-      link(p.kind, z, row[D], true, r, ll);
-      const float wn = row[D + 1];
-      r *= wn;
+    for (int nb = 0; nb < D / 8; ++nb)
 #pragma unroll
-      for (int j = 0; j < D; ++j) acc[j] = fmaf(r, row[j], acc[j]);
-      ll_sum += (double)(wn * ll);
-    }
+      for (int e = 0; e < 4; ++e) gb[nb][e] = gs[nb][e] = 0.f;
+    chain_tile_rows<D, true>(p.kind, t, nt, 0, 1, ah, al, gb, gs, ll);
 #pragma unroll
-    for (int j = 0; j < D; ++j) gsum[j] += (double)acc[j];
+    for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        gsum[nb][e] += (double)(gb[nb][e] + gs[nb][e]);
   }
-  if (c < C) {
+  if (!active) return;
+  const double lls[2] = {quad_sum(ll[0]), quad_sum(ll[1])};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = cw + g + 8 * h;
+    if (c >= C) continue;
     double* out = part + ((size_t)blockIdx.y * C + c) * (p.d + 1);
 #pragma unroll
-    for (int j = 0; j < D; ++j)
-      if (j < p.d) out[j] = gsum[j];
-    out[p.d] = ll_sum;
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int j = 8 * nb + 2 * q;
+      if (j < p.d) out[j] = gsum[nb][2 * h];
+      if (j + 1 < p.d) out[j + 1] = gsum[nb][2 * h + 1];
+    }
+    if (q == 0) out[p.d] = lls[h];
   }
 }
 
@@ -133,6 +154,27 @@ const char* bign_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// How partial_tile_kernel runs at d: blocks resident per SM (from the
+// occupancy calculator) and dynamic shared memory per block.  Returns a
+// CUDA error code.
+int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
+  const int D = tile_bound_for(d);
+  if (!D) return (int)cudaErrorInvalidValue;
+  *smem = (int)partial_smem(D);
+#define PLAN(DD)                                                            \
+  {                                                                         \
+    cudaError_t e = prepare(partial_tile_kernel<DD>, partial_smem(DD));     \
+    if (e == cudaSuccess)                                                   \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+          blocks_per_sm, partial_tile_kernel<DD>, kThreads,                 \
+          partial_smem(DD));                                                \
+    if (e != cudaSuccess) return (int)e;                                    \
+  }
+  TILE_DISPATCH(D, PLAN)
+#undef PLAN
+  return 0;
+}
+
 // part: (splits, C, d + 1) doubles of scratch.  Every split must hold at
 // least one observation: ceil(N / ceil(N / splits)) == splits.
 int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
@@ -140,22 +182,24 @@ int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
                         int C, const float* th_in, float* g_out,
                         float* lp_out, double* part, int splits, float lam,
                         int kind, void* stream) {
-  const int D = bound_for(d);
+  const int D = tile_bound_for(d);
   if (!D || C < 1 || N < 1 || kind < 0 || kind > 3 || splits < 1 ||
       splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int rows = (N + splits - 1) / splits;
   if ((N + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
   const Glm p{xt, y, w, o, lamv, N, d, kind, lam, kTile, false};
-  const dim3 grid((C + kThreads - 1) / kThreads, splits);
+  const dim3 grid((C + kChains - 1) / kChains, splits);
   cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(DD)                                                          \
   {                                                                         \
-    const size_t smem = (size_t)kTile * stride_for(DD) * sizeof(float);     \
-    partial_kernel<DD><<<grid, kThreads, smem, st>>>(p, C, rows, th_in,     \
-                                                     part);                 \
+    const size_t smem = partial_smem(DD);                                   \
+    cudaError_t e = prepare(partial_tile_kernel<DD>, smem);                 \
+    if (e != cudaSuccess) return (int)e;                                    \
+    partial_tile_kernel<DD><<<grid, kThreads, smem, st>>>(p, C, rows,       \
+                                                          th_in, part);     \
   }
-  GLM_DISPATCH(D, LAUNCH)
+  TILE_DISPATCH(D, LAUNCH)
 #undef LAUNCH
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

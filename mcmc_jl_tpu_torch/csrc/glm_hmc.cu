@@ -9,41 +9,65 @@
 //   glm_multistep      <- _multistep_kernel (halton=False, via _multistep_inner)
 //   glm_multistep_rows <- _multistep_kernel (halton=True, collect_rows=True,
 //                                            via _multistep_rows_inner)
-// all sharing _glm_funcs + _trajectory, which here are the device routines
-// glm_eval (glm_common.cuh, shared with glm_nuts.cu and glm_bign.cu) and
-// trajectory.
+// The Pallas kernels share _glm_funcs + _trajectory.  Here glm_leapfrogs
+// runs on the chain-tile gradient of glm_tile.cuh (shared with glm_bign.cu);
+// glm_step, glm_multistep and glm_multistep_rows run on the device routines
+// glm_eval (glm_common.cuh, shared with glm_nuts.cu) and trajectory.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and grad = sum_n w_n resid(z_n, y_n) x_n -
 // lam theta; lam is a scalar, or a (d,) row for glm_multistep_rows (the
 // diagonal-metric fold of the warm-start pipeline).
 //
-// What bounds it on the H100: at the main-path shape (d = 10, N = 1000) one
-// gradient is d*N = 10k FMAs for z plus 10k FMAs for r x per chain, and one
-// expf (plus a reciprocal) per observation for the link.  That is arithmetic
-// on values held in registers: the design matrix (40 KB) is read from shared
-// memory and never from device memory inside the trajectory, so the bound is
-// the FP32 FMA rate of the SMs and the SFU rate of expf, not bytes.
+// What bounds them on the H100: at the main-path shape (d = 10, N = 1000)
+// one gradient is d*N = 10k multiply-adds for z plus 10k for r x per chain,
+// and one link per observation (logistic: expf, a division, a select; with
+// ll also log1pf).  The design matrix (40 KB) is read from shared memory
+// and never from device memory inside the trajectory, so bytes do not bound
+// any of them: the products and the link's special functions do.
 //
-// Design: one thread per chain.  theta, m and g live in registers, the
-// parameter count is a template bound D (d <= D, unused lanes are zero and
-// stay zero), and the whole trajectory and accept run without touching device
-// memory.  The observations (x_n, y_n, w_n, o_n) are staged in shared memory
-// as rows of a fixed stride; all threads of a warp read the same row, which
-// the shared memory broadcasts.  When N rows do not fit in the shared memory
-// budget, the rows are streamed through shared memory tile by tile at every
-// gradient.  The log-likelihood sum is carried in double, so lp keeps full
-// float precision after a 1000-term sum.  A ragged last block of chains is
-// masked: its idle threads still load tiles and reach every barrier.
+// glm_leapfrogs (kernel 1): a block takes a tile of 16 chains and runs their
+// trajectory in lockstep (the leap count and schedule are the same for every
+// chain of a launch).  Each gradient is two block products on the tensor
+// cores (mma.sync m16n8k8, 3xTF32 for float32 accuracy) with the link in
+// registers between them; the 16 warps split the row groups, and their
+// partial gradients are summed in a fixed order through shared memory: two
+// barriers per gradient.  The kicks and drifts are per-element register
+// updates: thread e < 16 D owns one coordinate of one chain.  The rows, split
+// into TF32 hi and lo parts once, stay resident in shared memory while they
+// fit (N up to 1192 at d <= 16, 624 at d <= 32); above that they stream in
+// double-buffered cp.async tiles at every gradient.  The blocks are
+// persistent, one per SM (the resident rows take about 190 KB): each stages
+// the rows once and walks the chain tiles blockIdx.x + k gridDim.x, so 4096
+// chains (256 tiles) keep every SM busy.  What bounds it now is instruction
+// issue on the CUDA cores, about 30 instructions per chain and observation
+// (the link's expf and reciprocal, the fragment loads, the TF32 splits),
+// with 16 warps per SM to hide the latency of the mma and link chains.
+//
+// glm_step, glm_multistep, glm_multistep_rows (kernels 2, 3, 3b): one thread
+// per chain.  theta, m and g live in registers, the parameter count is a
+// template bound D (d <= D, unused lanes are zero and stay zero), and the
+// whole trajectory and accept run without touching device memory.  The
+// observations (x_n, y_n, w_n, o_n) are staged in shared memory as rows of a
+// fixed stride; all threads of a warp read the same row, which the shared
+// memory broadcasts.  When N rows do not fit in the shared memory budget,
+// the rows are streamed through shared memory tile by tile at every
+// gradient.  A ragged last block of chains is masked: its idle threads still
+// load tiles and reach every barrier.  These are bound by instruction issue:
+// every row is a dependent chain of d FMAs, then the link, on 128-chain
+// blocks that fill 32 of the 132 SMs at 4096 chains.
+//
+// In every kernel the log-likelihood sum is carried in double, so lp keeps
+// full float precision after a 1000-term sum.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
-#include "glm_common.cuh"
+#include "glm_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;          // chains per block
+constexpr int kThreads = 128;          // chains per block (kernels 2, 3, 3b)
 constexpr int kMaxOps = 8;             // longest kick/drift schedule
 
 // Kick ("B", op 0) / drift ("A", op 1) schedule, coefficients in units of eps
@@ -86,26 +110,165 @@ __device__ __forceinline__ bool mh_accept(float h0, float h, float logu) {
   return (ratio > 0.f) || (ratio > logu);
 }
 
+// ---- kernel 1: the trajectory on the chain-tile gradient ------------------
+
+constexpr int kTrajWarps = 16;                 // warps split a tile's rows
+constexpr int kTrajThreads = 32 * kTrajWarps;
+constexpr int kTrajStreamMax = 512;            // rows per streamed tile
+
+// Shared memory of leapfrogs_tile_kernel, in this order: per-warp ll
+// partials (kTrajWarps x 16 doubles), per-warp gradient partials
+// (kTrajWarps x 16 x D floats), the tile's theta (16 x D), then the rows:
+// all of them (resident), or two raw cp.async buffers and one staged tile.
+struct TrajPlan {
+  int rows;       // rows staged: round8(N) when resident, else the tile
+  bool resident;
+  size_t smem;    // bytes
+};
+
+TrajPlan traj_plan(int D, int N) {
+  const size_t fixed = sizeof(double) * kTrajWarps * kTileChains +
+                       sizeof(float) * (kTrajWarps + 1) * kTileChains * D;
+  const size_t row = sizeof(float) * tile_row_floats(D);
+  const size_t n8 = ((size_t)N + 7) & ~(size_t)7;
+  if (fixed + n8 * row <= (size_t)kTileSmemCap)
+    return {(int)n8, true, fixed + n8 * row};
+  const size_t per = row + 2 * sizeof(float) * raw_row_floats(D);
+  int R = (int)((kTileSmemCap - fixed) / per) & ~7;
+  if (R > kTrajStreamMax) R = kTrajStreamMax;
+  return {R, false, fixed + R * per};
+}
+
+// One gradient of the block's 16 chains at the theta in sth: the warps
+// split the row groups, each leaves its partial G in part and, with
+// want_ll, its ll partials in pll.  Starts and ends on a barrier.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-leapfrogs_kernel(Glm p, Sched s, int C, float eps, int n_leaps,
-                 const float* __restrict__ th_in, const float* __restrict__ m_in,
-                 const float* __restrict__ g_in, float* th_out, float* m_out,
-                 float* g_out, float* lp_out) {
-  extern __shared__ float sm[];
-  stage<D>(p, sm);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;  // idle threads shadow the last chain
-  float th[D], m[D], g[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  load_vec<D>(m, m_in, cc, p.d);
-  load_vec<D>(g, g_in, cc, p.d);
-  float lp = trajectory<D>(p, sm, s, eps, n_leaps, th, m, g);
-  if (c < C) {
-    store_vec<D>(th_out, th, c, p.d);
-    store_vec<D>(m_out, m, c, p.d);
-    store_vec<D>(g_out, g, c, p.d);
-    lp_out[c] = lp;
+__device__ __forceinline__ void traj_grad(const Glm& p, const Rows& t,
+                                          float* raw, const float* sth,
+                                          float* part, double* pll,
+                                          bool want_ll) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  __syncthreads();  // theta (and resident rows) written
+  uint32_t ah[D / 8][4], al[D / 8][4];
+  theta_frags<D>(sth + g * D, sth + (g + 8) * D, D, ah, al);
+  float gb[D / 8][4], gs[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gb[nb][e] = gs[nb][e] = 0.f;
+  double ll[2] = {0.0, 0.0};
+  // resident: one pass over all rows (p.tile >= N); else tile by tile
+  if (!p.resident) stream_begin<D>(p, raw, p.tile, 0, p.N);
+  for (int t0 = 0, buf = 0; t0 < p.N; t0 += p.tile, buf ^= 1) {
+    const int nt =
+        p.resident ? p.N : stream_next<D>(p, raw, t, p.tile, t0, p.N, buf);
+    if (want_ll)
+      chain_tile_rows<D, true>(p.kind, t, nt, warp, kTrajWarps, ah, al, gb,
+                               gs, ll);
+    else
+      chain_tile_rows<D, false>(p.kind, t, nt, warp, kTrajWarps, ah, al, gb,
+                                gs, ll);
+  }
+  float* pw = part + warp * kTileChains * D;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int j = 8 * nb + 2 * q;
+    pw[g * D + j] = gb[nb][0] + gs[nb][0];
+    pw[g * D + j + 1] = gb[nb][1] + gs[nb][1];
+    pw[(g + 8) * D + j] = gb[nb][2] + gs[nb][2];
+    pw[(g + 8) * D + j + 1] = gb[nb][3] + gs[nb][3];
+  }
+  if (want_ll) {
+    const double a = quad_sum(ll[0]), b = quad_sum(ll[1]);
+    if (q == 0) {
+      pll[warp * kTileChains + g] = a;
+      pll[warp * kTileChains + g + 8] = b;
+    }
+  }
+  __syncthreads();
+}
+
+// n_leaps macro steps of the schedule for a tile of 16 chains, in lockstep:
+// the leap count and schedule are the same for every chain of the launch.
+// Thread e < 16 D owns coordinate e % D of chain e / D and keeps its theta,
+// m and g in registers: the kicks and drifts touch nothing else, and each
+// gradient is the chain-tile routine with the rows split over the warps,
+// then a fixed-order sum of the warps' partials.  The last drift's pass
+// also gives lp (pallas_glm.py _trajectory), to threads e < 16.
+template <int D>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+leapfrogs_tile_kernel(Glm p, Sched s, int C, float eps, int n_leaps,
+                      const float* __restrict__ th_in,
+                      const float* __restrict__ m_in,
+                      const float* __restrict__ g_in, float* th_out,
+                      float* m_out, float* g_out, float* lp_out) {
+  extern __shared__ double tile_sm[];
+  double* pll = tile_sm;
+  float* part = reinterpret_cast<float*>(pll + kTrajWarps * kTileChains);
+  float* sth = part + kTrajWarps * kTileChains * D;
+  float* rest = sth + kTileChains * D;
+  float* raw = p.resident ? nullptr : rest;
+  const Rows t = rows_at<D>(
+      p.resident ? rest : rest + 2 * raw_row_floats(D) * p.tile, p.tile);
+  const int tid = threadIdx.x;
+  const bool own = tid < kTileChains * D;
+  const int oc = tid / D, oj = tid % D;
+  const bool live = own && oj < p.d;
+  const float lam = live ? p.lam : 0.f;
+  if (p.resident) stage_rows<D>(p, t, 0, p.N);  // once for all its tiles
+  // persistent blocks: each walks the chain tiles blockIdx.x + k gridDim.x
+  for (int c0 = blockIdx.x * kTileChains; c0 < C;
+       c0 += gridDim.x * kTileChains) {
+    const size_t at = (size_t)min(c0 + oc, C - 1) * p.d + oj;  // shadow
+    float th = live ? th_in[at] : 0.f;
+    float m = live ? m_in[at] : 0.f;
+    float gr = live ? g_in[at] : 0.f;
+    __syncthreads();  // the last tile's lp threads are done with sth
+    if (own) sth[tid] = th;
+    float lp = 0.f;
+    for (int l = 0; l < n_leaps; ++l) {
+      const bool final = l == n_leaps - 1;
+      for (int k = 0; k < s.n; ++k) {
+        const float ce = s.c[k] * eps;
+        if (s.op[k] == 0) {
+          m = m + ce * gr;
+          continue;
+        }
+        th = th + ce * m;
+        if (own) sth[tid] = th;
+        const bool want = final && k == s.last_a;
+        traj_grad<D>(p, t, raw, sth, part, pll, want);
+        if (own) {
+          float acc = 0.f;
+          for (int w = 0; w < kTrajWarps; ++w)
+            acc += part[w * kTileChains * D + tid];
+          gr = acc - lam * th;
+        }
+        // lp as glm_eval forms it; no drift follows the last one, so theta
+        // in sth stays put while these threads read it
+        if (want && tid < kTileChains) {
+          double ll = 0.0;
+          for (int w = 0; w < kTrajWarps; ++w)
+            ll += pll[w * kTileChains + tid];
+          float quad = 0.f;
+#pragma unroll
+          for (int j = 0; j < D; ++j) {
+            const float tj = sth[tid * D + j];
+            const float pg = (j < p.d ? p.lam : 0.f) * tj;
+            quad = fmaf(pg, tj, quad);
+          }
+          lp = (float)(ll - 0.5 * (double)quad);
+        }
+      }
+    }
+    if (live && c0 + oc < C) {
+      const size_t o = (size_t)(c0 + oc) * p.d + oj;
+      th_out[o] = th;
+      m_out[o] = m;
+      g_out[o] = gr;
+    }
+    if (tid < kTileChains && c0 + tid < C) lp_out[c0 + tid] = lp;
   }
 }
 
@@ -314,27 +477,60 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
                   float* m_out, float* g_out, float* lp_out, float eps,
                   float lam, int n_leaps, int kind, const int* sched_ops,
                   const float* sched_c, int n_ops, void* stream) {
-  const int D = bound_for(d);
-  Glm p;
+  const int D = tile_bound_for(d);
   Sched s;
-  size_t smem;
-  if (!D || C < 1 || n_leaps < 1 ||
-      !make_params(xt, y, w, o, nullptr, N, d, kind, lam, D, &p, &smem) ||
+  if (!D || C < 1 || N < 1 || n_leaps < 1 || kind < 0 || kind > 3 ||
       !make_sched(sched_ops, sched_c, n_ops, &s))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (C + kThreads - 1) / kThreads;
+  const TrajPlan tp = traj_plan(D, N);
+  const Glm p{xt, y, w, o, nullptr, N, d, kind, lam, tp.rows, tp.resident};
+  const int tiles = (C + kTileChains - 1) / kTileChains;
+  int dev, sms, per_sm;
+  cudaError_t e0 = cudaGetDevice(&dev);
+  if (e0 == cudaSuccess)
+    e0 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e0 != cudaSuccess) return (int)e0;
   cudaStream_t st = (cudaStream_t)stream;
+  // persistent blocks, as many as fit at once: the resident rows are
+  // staged once per block, not once per tile
 #define LAUNCH(DD)                                                          \
   {                                                                         \
-    cudaError_t e = prepare(leapfrogs_kernel<DD>, smem);                    \
+    cudaError_t e = prepare(leapfrogs_tile_kernel<DD>, tp.smem);            \
+    if (e == cudaSuccess)                                                   \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+          &per_sm, leapfrogs_tile_kernel<DD>, kTrajThreads, tp.smem);       \
     if (e != cudaSuccess) return (int)e;                                    \
-    leapfrogs_kernel<DD><<<blocks, kThreads, smem, st>>>(                   \
+    const int blocks = min(tiles, sms * max(per_sm, 1));                    \
+    leapfrogs_tile_kernel<DD><<<blocks, kTrajThreads, tp.smem, st>>>(       \
         p, s, C, eps, n_leaps, th_in, m_in, g_in, th_out, m_out, g_out,     \
         lp_out);                                                            \
   }
-  GLM_DISPATCH(D, LAUNCH)
+  TILE_DISPATCH(D, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+// How leapfrogs_tile_kernel runs at (d, N): blocks resident per SM (from
+// the occupancy calculator), dynamic shared memory per block, and whether
+// all rows stay resident.  Returns a CUDA error code.
+int glm_leapfrogs_plan(int d, int N, int* blocks_per_sm, int* smem,
+                       int* resident) {
+  const int D = tile_bound_for(d);
+  if (!D || N < 1) return (int)cudaErrorInvalidValue;
+  const TrajPlan tp = traj_plan(D, N);
+  *smem = (int)tp.smem;
+  *resident = tp.resident ? 1 : 0;
+#define PLAN(DD)                                                            \
+  {                                                                         \
+    cudaError_t e = prepare(leapfrogs_tile_kernel<DD>, tp.smem);            \
+    if (e == cudaSuccess)                                                   \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+          blocks_per_sm, leapfrogs_tile_kernel<DD>, kTrajThreads, tp.smem); \
+    if (e != cudaSuccess) return (int)e;                                    \
+  }
+  TILE_DISPATCH(D, PLAN)
+#undef PLAN
+  return 0;
 }
 
 int glm_step(const float* xt, const float* y, const float* w, const float* o,

@@ -39,11 +39,13 @@ BIGN_THRESHOLD = 16384
 LAUNCHES = {"glm_logp_grad_tiled": 0}
 PLAIN_CALLS = {"glm_logp_grad_tiled": 0}
 
-#: the kernel's grid aims at this many CTAs (4 of 128 threads per SM on 132
-#: SMs), splitting N into ranges of at least SPLIT_MIN_ROWS observations
+#: the kernel's grid aims at up to this many CTAs, two full waves of the two
+#: 256-thread blocks each of the 132 SMs holds (never a third wave of a few
+#: blocks, which costs nearly a wave), splitting N into ranges of at least
+#: SPLIT_MIN_ROWS observations
 SPLIT_CTAS = 528
 SPLIT_MIN_ROWS = 1024
-_CHAINS_PER_CTA = 128  # csrc/glm_bign.cu kThreads
+_CHAINS_PER_CTA = 128  # csrc/glm_bign.cu kChains
 
 
 def reset_counts():
@@ -63,10 +65,11 @@ def glm_logp_grad_tiled_ref(XT, Y, theta, *, kind="logistic", weights=None,
 
 def splits_for(N, C):
     """How many contiguous ranges of observations the kernel's grid splits
-    N into for C chains: enough for :data:`SPLIT_CTAS` CTAs, no range
-    shorter than :data:`SPLIT_MIN_ROWS`, and every range non-empty."""
+    N into for C chains: as many as fit in :data:`SPLIT_CTAS` CTAs (at
+    least one), no range shorter than :data:`SPLIT_MIN_ROWS`, and every
+    range non-empty."""
     blocks = -(-C // _CHAINS_PER_CTA)
-    s = max(1, min(-(-SPLIT_CTAS // blocks), -(-N // SPLIT_MIN_ROWS)))
+    s = max(1, min(SPLIT_CTAS // blocks, -(-N // SPLIT_MIN_ROWS)))
     rows = -(-N // s)
     return -(-N // rows)
 

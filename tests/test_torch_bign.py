@@ -97,16 +97,18 @@ def test_tiled_ref_matches_pallas(kind, extras):
 def test_splits_cover_every_observation(N, C):
     """The kernel's grid splits N into non-empty contiguous ranges that
     cover it (csrc/glm_bign.cu refuses anything else), enough of them to
-    fill the card at small C, and none shorter than SPLIT_MIN_ROWS unless
-    N itself is."""
+    fill the card at small C but no more CTAs than SPLIT_CTAS (two waves:
+    a third wave of a few CTAs costs nearly a whole one), and none shorter
+    than SPLIT_MIN_ROWS unless N itself is."""
     s = glm_bign.splits_for(N, C)
     rows = -(-N // s)
     assert 1 <= s <= 65535
     assert -(-N // rows) == s and (s - 1) * rows < N <= s * rows
     blocks = -(-C // 128)
+    assert blocks * s <= max(glm_bign.SPLIT_CTAS, blocks)
     if N >= glm_bign.SPLIT_MIN_ROWS * 2:
         assert rows >= glm_bign.SPLIT_MIN_ROWS // 2
-        assert blocks * s >= min(glm_bign.SPLIT_CTAS,
+        assert blocks * s >= min(glm_bign.SPLIT_CTAS - blocks + 1,
                                  blocks * (N // glm_bign.SPLIT_MIN_ROWS))
 
 
@@ -195,3 +197,23 @@ def test_tiled_kernel_matches_plain_on_card():
     assert torch.equal(lp, lp2) and torch.equal(g, g2)
     torch.testing.assert_close(lp, lpr, rtol=1e-5, atol=1e-2)
     torch.testing.assert_close(g, gr, rtol=1e-4, atol=5e-2)
+    # the chain-tile kernel at its edges: d = 1, 10, 16 and 32 (tile bounds
+    # 8, 16, 32), ragged last tiles of chains (128 per block, 16 per warp)
+    # and of rows (128 per tile, splits of N), every link with weights,
+    # offsets and a (d,) prior row; bitwise repeats
+    rng = np.random.default_rng(8)
+    edges = [("logistic", 1, 20_001, 300), ("linear", 10, 5000, 129),
+             ("poisson", 32, 12_345, 40), ("probit", 16, 3000, 513)]
+    for i, (kind, d, n, C) in enumerate(edges):
+        X, Y = _data(kind, n, d, seed=40 + i)
+        kw = dict(kind=kind, weights=cu(rng.uniform(0.5, 2.0, n)),
+                  offsets=cu(0.1 * rng.standard_normal(n)),
+                  prior_prec=cu(rng.uniform(0.5, 2.0, d)))
+        th = cu(0.05 * rng.standard_normal((C, d)))
+        XT, Yc = cu(X.T), cu(Y)
+        lp, g = glm_bign.glm_logp_grad_tiled(XT, Yc, th, **kw)
+        lp2, g2 = glm_bign.glm_logp_grad_tiled(XT, Yc, th, **kw)
+        lpr, gr = glm_bign.glm_logp_grad_tiled_ref(XT, Yc, th, **kw)
+        assert torch.equal(lp, lp2) and torch.equal(g, g2)
+        torch.testing.assert_close(lp, lpr, rtol=1e-5, atol=1e-2)
+        torch.testing.assert_close(g, gr, rtol=1e-4, atol=5e-2)

@@ -244,3 +244,52 @@ def test_kernels_match_plain_on_card():
         generator=torch.Generator(device="cuda").manual_seed(1))
         for _ in range(2))
     assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+    # the chain-tile trajectory kernel at its edges: ragged last tiles of
+    # 16 chains, d = 1, 10 and 32 (tile bounds 8, 16, 32), rows streamed in
+    # cp.async tiles (N past the resident budget: 3000 at d 10, 1500 at
+    # d 32), every link with weights and offsets, every integrator; the
+    # sums' atol grows with N / 1000
+    rng = np.random.default_rng(14)
+    edges = [("logistic", "leapfrog", 1, 700, 37),
+             ("linear", "2stage", 10, 3000, 300),
+             ("poisson", "3stage", 32, 1500, 40),
+             ("probit", "leapfrog", 10, 1000, 17)]
+    for i, (kind, integrator, d, n, C) in enumerate(edges):
+        X, Y = _data(kind, n, d, seed=20 + i)
+        theta, m = _state(C, d, seed=30 + i)
+        XT, Yc, th, mm = cu(X.T), cu(Y), cu(theta), cu(m)
+        kw = dict(kind=kind, weights=cu(rng.uniform(0.5, 2.0, n)),
+                  offsets=cu(0.1 * rng.standard_normal(n)), prior_prec=1.3)
+        _, g = _grad_at(XT, Yc, th, **kw)
+        kw.update(n_leaps=4, integrator=integrator)
+        atol = 1e-3 * max(1.0, n / 1000)
+        for a, b in zip(gk.glm_leapfrogs(XT, Yc, th, mm, g, 0.02, **kw),
+                        gk.glm_leapfrogs_ref(XT, Yc, th, mm, g, 0.02, **kw)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
+
+
+def test_tile_log1p_polynomial_within_two_ulps():
+    """The chain-tile kernels' log1p on [0, 1] (csrc/glm_tile.cuh
+    log1p_01: Horner's rule on the coefficients as written there, one
+    rounding per fused multiply-add) stays within 2 float32 ulps of
+    log1p over the whole interval, as the logistic link's e = exp(-|z|)
+    needs."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(gk.__file__).parent.parent / "csrc" /
+           "glm_tile.cuh").read_text()
+    body = src[src.index("float log1p_01(float e)"):]
+    body = body[:body.index("return p * e;")]
+    coef = [float(c) for c in re.findall(r"(-?\d\.\d+e[+-]\d+)f", body)]
+    assert len(coef) == 10 and coef[-1] == 1.0
+    x = np.linspace(0.0, 1.0, 200_001).astype(np.float32)
+    p = np.full(x.shape, coef[0], np.float64)
+    for c in coef[1:]:  # fmaf: exact product and sum, one float32 rounding
+        p = (p * x.astype(np.float64) + np.float32(c)).astype(np.float32)
+        p = p.astype(np.float64)
+    y = (p * x).astype(np.float32).astype(np.float64)
+    ref = np.log1p(x.astype(np.float64))
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    assert y[0] == 0.0
+    assert np.max(np.abs(y - ref)[1:] / ulp[1:]) < 2.0
