@@ -159,6 +159,12 @@ TARGET_EVAL_OPS = 10
 # operations and its bytes over these
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
+# the NUTS kernels' pinned timing shapes (phase_nuts_times): the step that
+# the unit-metric NUTS main path froze at (phase_nuts_main_path's
+# frozen_eps on an H100 80GB HBM3), and the numpy seed of the chains' start
+NUTS_TIME_EPS = 0.08426558971405029
+NUTS_TIME_SEED = 71
+
 CARD = {}
 
 
@@ -679,15 +685,18 @@ def _nuts_inputs(C, md, seed, X, Y, W=None, O=None, lam=1.0, spread=0.05):
 def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
     """The transition kernel against its plain version on the same inputs;
     ``full_depth``: some chain must build a tree of all maxdoublings
-    doublings (the deepest checkpoint slots and span checks).  Returns the
-    max abs error of theta on the chains on the same path."""
+    doublings (the deepest checkpoint slots and span checks).  The kernel
+    also repeats bitwise.  Returns the max abs error of theta on the
+    chains on the same path."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 
-    out_k = nk.glm_nuts_transition(*args, eps, *noise, **kw)
+    out_k, again = (nk.glm_nuts_transition(*args, eps, *noise, **kw)
+                    for _ in range(2))
     out_r = nk.glm_nuts_transition_ref(*args, eps, *noise, **kw)
     torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, again))
     (thk, gk_, lpk, ndk, dvk), (thr, gr, lpr, ndr, dvr) = out_k, out_r
     same = ((ndk == ndr) & (dvk == dvr)
             & ((thk - thr).abs().amax(-1) <= LEAF_ATOL))
@@ -695,13 +704,14 @@ def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
     rep = {n: _err(a[same], b[same]) for n, a, b in
            zip(("theta", "g", "lp"), (thk, gk_, lpk), (thr, gr, lpr))}
     md = kw["maxdoublings"]
-    ok = (float(same.float().mean()) >= PATH_AGREE
+    ok = (bitwise and float(same.float().mean()) >= PATH_AGREE
           and (not full_depth or int(ndr.max()) == md)
           and _close(thk[same], thr[same], RTOL, ATOL)
           and _close(gk_[same], gr[same], RTOL, G_ATOL * scale)
           and _close(lpk[same], lpr[same], LP_RTOL, LP_ATOL * scale))
     emit({"phase": "kernel", "name": "glm_nuts_transition", "case": label,
-          "C": C, "eps": eps, "ok": ok, "path_differ": int(C - same.sum()),
+          "C": C, "eps": eps, "ok": ok, "bitwise_repeat": bitwise,
+          "path_differ": int(C - same.sum()),
           "mean_ndoublings": float(ndr.float().mean()),
           "chains_at_maxdoublings": int((ndr == md).sum()),
           "diverging": int(dvr.sum()), **rep})
@@ -709,20 +719,82 @@ def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
     return rep["theta"]["max_abs"]
 
 
+def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
+                   full_depth=False):
+    """The multistep kernel against its plain version chain by chain, on
+    the kernel's own Philox draws (the launch seed a generator seeded
+    ``seed`` gives, replayed by ``glm_nuts_multistep_draws``) over ``k``
+    transitions: a chain is on the same path when every transition has
+    the same ndoublings and diverging and theta within LEAF_ATOL; on those
+    chains the final theta, gradient and lp are held to the transition
+    kernel's tolerances.  The kernel also repeats bitwise.  Returns the
+    max abs error of theta on the chains on the same path."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    C, d = args[2].shape
+    md = kw["maxdoublings"]
+    out_k, out_k2 = (nk.glm_nuts_multistep(*args, eps, gen(), k_trans=k,
+                                           **kw) for _ in range(2))
+    draws = nk.glm_nuts_multistep_draws(tk._seed(gen()), C, d, k, md,
+                                        device="cuda")
+    out_r = nk.glm_nuts_multistep_ref(*args, eps, None, k_trans=k,
+                                      draws=draws, **kw)
+    torch.cuda.synchronize()
+    bitwise = (all(torch.equal(a, b) for a, b in zip(out_k[:3], out_k2[:3]))
+               and all(torch.equal(out_k[3][n], out_k2[3][n])
+                       for n in out_k[3]))
+    rk, rr = out_k[3], out_r[3]
+    same = ((rk["ndoublings"] == rr["ndoublings"]).all(0)
+            & (rk["diverging"] == rr["diverging"]).all(0)
+            & ((rk["ppars"] - rr["ppars"]).abs().amax((0, 2)) <= LEAF_ATOL))
+    rep = {n: _err(a[same], b[same]) for n, a, b in
+           zip(("theta", "g", "lp"), out_k[:3], out_r[:3])}
+    nd = rr["ndoublings"]
+    ok = (bitwise and float(same.float().mean()) >= PATH_AGREE
+          and (not full_depth or int(nd.max()) == md)
+          and _close(out_k[0][same], out_r[0][same], RTOL, ATOL)
+          and _close(out_k[1][same], out_r[1][same], RTOL, G_ATOL * scale)
+          and _close(out_k[2][same], out_r[2][same], LP_RTOL,
+                     LP_ATOL * scale)
+          and bool((rk["accept"][:, same] == rr["accept"][:, same]).all()))
+    emit({"phase": "kernel", "name": "glm_nuts_multistep", "case": label,
+          "draws": "the kernel's, replayed", "C": C, "k_trans": k, "eps": eps,
+          "ok": ok, "bitwise_repeat": bitwise,
+          "path_differ": int(C - same.sum()),
+          "mean_ndoublings": float(nd.float().mean()),
+          "chains_at_maxdoublings": int((nd == md).any(0).sum()),
+          "diverging": int(rr["diverging"].sum()), **rep})
+    assert ok, (f"glm_nuts_multistep ({label}) disagrees with its plain "
+                f"version on its own draws")
+    return rep["theta"]["max_abs"]
+
+
 def phase_nuts_kernels(C=4096, md=6):
-    """Both NUTS kernels against their plain versions on the card."""
+    """Both NUTS kernels against their plain versions on the card: kernel
+    8 on the same pre-drawn noise, kernel 9 on its own draws replayed
+    (chain by chain) and statistically against the plain version and the
+    per-transition driver on other streams."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 
     X, Y = bench_data()
-    err = 0.0
+    err, ms_err = 0.0, 0.0
     for label, multinomial, eps in (
             ("slice", False, 0.05), ("slice", False, 0.2),
             ("multinomial", True, 0.05), ("multinomial", True, 0.2)):
         args, noise, kw = _nuts_inputs(C, md, 21, X, Y)
+        kw = dict(kw, multinomial=multinomial)
         err = max(err, _nuts_check(f"{label}, eps {eps}", args, noise, eps,
-                                   dict(kw, multinomial=multinomial)))
+                                   kw))
+        ms_err = max(ms_err, _nuts_ms_check(f"{label}, eps {eps}", args, eps,
+                                            kw, seed=31))
     # deep trees, up to maxdoublings: at eps 0.01 (the posterior sds are
     # about 0.09), and on the diagonal-metric route's folded inputs (design
     # X s, (d,) prior row lam s^2, chains in z = theta / s) at eps 0.1
@@ -733,13 +805,16 @@ def phase_nuts_kernels(C=4096, md=6):
     for multinomial in (False, True):
         args, noise, kw = _nuts_inputs(C, md, 25, X * s, Y, lam=s * s,
                                        spread=0.5)
-        err = max(err, _nuts_check(
-            f"{'multinomial' if multinomial else 'slice'}, folded diagonal "
-            f"metric (X s, (d,) prior row), eps 0.1", args, noise, 0.1,
-            dict(kw, multinomial=multinomial), full_depth=True))
+        label = (f"{'multinomial' if multinomial else 'slice'}, folded "
+                 f"diagonal metric (X s, (d,) prior row), eps 0.1")
+        kw = dict(kw, multinomial=multinomial)
+        err = max(err, _nuts_check(label, args, noise, 0.1, kw,
+                                   full_depth=True))
+        ms_err = max(ms_err, _nuts_ms_check(label, args, 0.1, kw, seed=32,
+                                            full_depth=True))
 
-    # rows streamed through shared memory (N = 5000 past the budget: the
-    # lockstep path), a ragged last block (C = 300), weights and offsets
+    # rows streamed through shared memory (N = 5000 past the budget), a
+    # ragged last tile (C = 300), weights and offsets
     rng = np.random.default_rng(6)
     N, d7 = 5000, 7
     X7 = np.column_stack([np.ones(N), rng.standard_normal((N, d7 - 1))]) * 0.3
@@ -748,10 +823,13 @@ def phase_nuts_kernels(C=4096, md=6):
     W7, O7 = rng.uniform(0.5, 2.0, N), 0.1 * rng.standard_normal(N)
     for multinomial in (False, True):
         args, noise, kw = _nuts_inputs(300, md, 22, X7, Y7, W7, O7, lam=1.5)
-        err = max(err, _nuts_check(
-            f"N 5000 streamed, C 300, d 7, weights+offsets, "
-            f"{'multinomial' if multinomial else 'slice'}", args, noise, 0.03,
-            dict(kw, multinomial=multinomial), scale=N / 1000))
+        label = (f"N 5000 streamed, C 300, d 7, weights+offsets, "
+                 f"{'multinomial' if multinomial else 'slice'}")
+        kw = dict(kw, multinomial=multinomial)
+        err = max(err, _nuts_check(label, args, noise, 0.03, kw,
+                                   scale=N / 1000))
+        ms_err = max(ms_err, _nuts_ms_check(label, args, 0.03, kw, seed=33,
+                                            scale=N / 1000))
 
     # multistep: bitwise repeat from one generator state; then held against
     # its plain version from the same start, K transitions each (Philox
@@ -792,7 +870,7 @@ def phase_nuts_kernels(C=4096, md=6):
            "diverging_plain": int(inf_pl["diverging"].sum()),
            "z_theta_max_vs_per_transition": _z_t(th_ms, th_pt),
            "mean_ndoublings_per_transition": depth(inf_pt)}
-    ms_err = float((th_ms.mean(0) - th_pl.mean(0)).abs().max())
+    pooled = float((th_ms.mean(0) - th_pl.mean(0)).abs().max())
     ok = (bitwise and rep["z_theta_max"] < Z_MAX and rep["z_accept"] < Z_MAX
           and abs(depth(inf_ms) / depth(inf_pl) - 1) < DEPTH_RTOL
           and rep["z_theta_max_vs_per_transition"] < Z_MAX
@@ -800,7 +878,7 @@ def phase_nuts_kernels(C=4096, md=6):
           and bool(torch.isfinite(inf_ms["plogtarget"]).all()))
     emit({"phase": "kernel", "name": "glm_nuts_multistep", "C": C,
           "k_trans": kt, "transitions": K, "ok": ok, "bitwise_repeat": bitwise,
-          **rep, "pooled_theta_max_abs_diff": ms_err})
+          **rep, "pooled_theta_max_abs_diff": pooled})
     assert ok, "glm_nuts_multistep disagrees with glm_nuts_multistep_ref"
     return {"glm_nuts_transition": err, "glm_nuts_multistep": ms_err}
 
@@ -978,38 +1056,123 @@ def phase_nuts_timing(start, md=6, k_trans=5,
     rate("generic engine", th4.shape[0], k_trans, lambda: _scan_chains(
         m, sampler, RunCtx(burnin=0), states, gen, k_trans))
 
-    noise = nk.draw_noise(th4.shape[0], th4.shape[1], md, gen)
-    calls = {
-        "glm_nuts_transition": (
-            lambda: nk.glm_nuts_transition(XT, Y, th4, lp, g, eps, *noise,
-                                           maxdoublings=md),
-            lambda: nk.glm_nuts_transition_ref(XT, Y, th4, lp, g, eps, *noise,
-                                               maxdoublings=md)),
-        "glm_nuts_multistep": (
-            lambda: nk.glm_nuts_multistep(XT, Y, th4, lp, g, eps, gen,
-                                          k_trans=k_trans, maxdoublings=md),
-            lambda: nk.glm_nuts_multistep_ref(XT, Y, th4, lp, g, eps, gen,
-                                              k_trans=k_trans,
-                                              maxdoublings=md)),
-    }
-    d, N = XT.shape
-    inputs = {"glm_nuts_transition": (XT, Y, th4, lp, g, noise),
-              "glm_nuts_multistep": (XT, Y, th4, lp, g)}
     ms, work = {}, {}
-    for name, (kern, plain) in calls.items():
+    for name, t in _nuts_kernel_times(XT, Y, th4, lp, g, eps, md, k_trans,
+                                      seed=10).items():
+        ms[name] = (t["ms"], t["plain_ms"])
+        work[name] = {k: t[k] for k in ("bound_ms", "bound_by")}
+    return ms, work
+
+
+def _nuts_leaves(XT, Y, th, lp, g, eps, md, noise_sets):
+    """Each chain's leaf count (int64, (C,)) over the transitions whose
+    noise ``noise_sets`` holds (one draw_noise tuple each), chained from
+    (th, lp, g), from the plain version's tree build: the work the NUTS
+    kernels' trees need (they build the same trees)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
+
+    logp_grad = glm_funcs(XT, Y, None, None, 1.0, "logistic")[1]
+    leaves = torch.zeros(th.shape[0], dtype=torch.int64, device=th.device)
+    lp = lp.reshape(-1)
+    for noise in noise_sets:
+        th, g, lp, _, _ = nk._transition(logp_grad, th, lp, g, eps, *noise,
+                                         md, False, leaves=leaves)
+    return leaves
+
+
+def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
+                       plain=True):
+    """Per-launch time of kernels 8 (one transition on draw_noise from a
+    generator seeded ``seed``) and 9 (``k_trans`` transitions, its launch
+    seed from a generator seeded ``seed + 1``) on the unit-metric logistic
+    GLM from (th, lp, g) at step ``eps``: CUDA events (the wrapper's host
+    work included) and torch.profiler's device time, beside the plain
+    version's (with ``plain``), the mean depth, the leaves the trees need
+    (from the plain version's tree build on the same draws) and the tile
+    passes (per tile of 16 chains the most leaves of one chain), the bound
+    and the special-function floor of those leaves, and the occupancy plan.
+    Emits one line per kernel; returns {kernel: that line}."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    C, d = th.shape
+    N = XT.shape[1]
+    lp = lp.reshape(-1)
+
+    def gen(k):
+        return torch.Generator(device="cuda").manual_seed(seed + k)
+
+    noise = nk.draw_noise(C, d, md, gen(0))
+    draws = nk.glm_nuts_multistep_draws(tk._seed(gen(1)), C, d, k_trans, md,
+                                        device="cuda")
+    replay = {"glm_nuts_transition": [noise],
+              "glm_nuts_multistep": [tuple(a[t] for a in draws)
+                                     for t in range(k_trans)]}
+    plan = nk.nuts_plan(d, N, md)
+    out_lines = {}
+    for name in ("glm_nuts_transition", "glm_nuts_multistep"):
+        leaves = _nuts_leaves(XT, Y, th, lp, g, eps, md, replay[name])
+        if name == "glm_nuts_transition":
+            kern = lambda: nk.glm_nuts_transition(  # noqa: E731
+                XT, Y, th, lp, g, eps, *noise, maxdoublings=md)
+            ref = lambda: nk.glm_nuts_transition_ref(  # noqa: E731
+                XT, Y, th, lp, g, eps, *noise, maxdoublings=md)
+            inputs = (XT, Y, th, lp, g, noise)
+        else:
+            kern = lambda: nk.glm_nuts_multistep(  # noqa: E731
+                XT, Y, th, lp, g, eps, gen(1), k_trans=k_trans,
+                maxdoublings=md)
+            ref = lambda: nk.glm_nuts_multistep_ref(  # noqa: E731
+                XT, Y, th, lp, g, eps, gen(2), k_trans=k_trans,
+                maxdoublings=md)
+            inputs = (XT, Y, th, lp, g)
         out = kern()
         nd = (out[3] if name == "glm_nuts_transition"
               else out[3]["ndoublings"]).double()
-        # a transition of depth n evaluates at least 2^(n-1) leaves
-        work[name] = _bound(float((2.0 ** (nd - 1)).sum()), d, N,
-                            _nbytes(inputs[name], out))
-        ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
-        emit({"phase": "kernel_time", "name": name, "C": th4.shape[0],
-              "k_trans": k_trans if name == "glm_nuts_multistep" else 1,
-              "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
-              **CARD})
+        n_leaves = int(leaves.sum())
+        per_tile = leaves.new_zeros(-(-C // 16) * 16)
+        per_tile[:C] = leaves
+        per_tile = per_tile.reshape(-1, 16).amax(1)
+        line = {"phase": "nuts_time", "name": name, "C": C, "N": N,
+                "k_trans": k_trans if name == "glm_nuts_multistep" else 1,
+                "eps": eps, "maxdoublings": md, "ms": _event_ms(kern),
+                "device_ms": _device_ms(kern, "nuts_tile_kernel"),
+                "plain_ms": _event_ms(ref, reps=2) if plain else None,
+                "mean_ndoublings": float(nd.mean()), "leaves": n_leaves,
+                "leaves_per_chain": n_leaves / C,
+                "tile_passes": int(per_tile.sum()),
+                **_bound(n_leaves, d, N, _nbytes(inputs, out)),
+                "sfu_floor_ms": _sfu_floor_ms(n_leaves * N, SFU_PER_LINK)}
+        emit({**line, "plan": plan, **CARD})
+        out_lines[name] = line
+    return out_lines
 
-    return ms, work
+
+def phase_nuts_times(Cs=(4096, 65536), md=6, k_trans=5):
+    """Kernels 8 and 9 at pinned shapes, so that two trees time the same
+    work (``--times``): bench.py's data, the unit metric, the step
+    NUTS_TIME_EPS, chains drawn from the Laplace approximation at the mode
+    (numpy seed NUTS_TIME_SEED; the first 4096 of the 65536 are the 4096),
+    maxdoublings 6, kernel 9 at 5 transitions a launch (the NUTS main
+    path's); at 4096 and 65536 chains, the plain version at 4096 only."""
+    from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
+
+    X, Y = bench_data()
+    mode, sc = _logistic_mode(X, Y), _laplace_scale(X, Y)
+    rng = np.random.default_rng(NUTS_TIME_SEED)
+    start = mode + sc * rng.standard_normal((max(Cs), X.shape[1]))
+    XT, Yc = _cuda(X.T), _cuda(Y)
+    for C in Cs:
+        th = _cuda(start[:C])
+        lp, g = glm_funcs(XT, Yc, None, None, 1.0, "logistic")[1](th)
+        _nuts_kernel_times(XT, Yc, th, lp.contiguous(), g.contiguous(),
+                           NUTS_TIME_EPS, md, k_trans, seed=74,
+                           plain=C == Cs[0])
 
 
 def _nbytes(*objs):
@@ -1619,7 +1782,8 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
       multistep kernel with the folded (d,) prior row;
     - ``HMCDA()`` and ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50))``
       under ``SerialMC(1000, 200)`` at 1024 chains: 100 launches of 8.
-    Returns the Halton kernel's launches in the first run."""
+    Returns the Halton kernel's launches in the first run, and the step
+    and leap count that run froze at."""
     import mcmc_jl_tpu_torch as mt
 
     X, Y, mode = _bench_mode(1000)
@@ -1651,17 +1815,26 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
               "pooled_mean": samples.mean((0, 1)).tolist(),
               "z_max_vs_hmc_reference": z, "ok": z < Z_MAX, **CARD})
         assert z < Z_MAX, f"{origin} disagrees with the HMC reference"
-        counts.setdefault("glm_multistep_rows",
-                          (launches["glm_multistep_rows"], origin))
-    return counts
+        if "glm_multistep_rows" not in counts:
+            counts["glm_multistep_rows"] = (launches["glm_multistep_rows"],
+                                            origin)
+            hmc_frozen = (frozen["frozen_step"], frozen["frozen_n_leaps"])
+    return counts, hmc_frozen
 
 
-def phase_new_kernel_times(C=4096, kt=6, family=(16_384, 100_000)):
-    """Per-launch device time of the Halton multistep kernel (N 1000, eps
-    0.05, T 1.0, ``kt`` transitions: the adaptive HMC path's launches
-    carry 6, ``_pick_k_trans``) beside its plain version and its bound;
-    and both kernel families per gradient at C 4096 and N 16,384 and
-    100,000, where the route switches between them.
+def phase_new_kernel_times(hmc_frozen, C=4096, kt=6, i0=501,
+                           family=(16_384, 100_000)):
+    """Per-launch device time of the Halton multistep kernel at the shape
+    its adaptive HMC path launches it (phase_warm_paths): the frozen step
+    and leap count ``hmc_frozen`` = (eps, nl), so T = 2 nl eps and
+    max_leaps 2 nl (warmstart.py warmfused_hmc_chains), on the folded
+    diagonal metric (design X s, (d,) prior row s^2, chains in z = theta /
+    s drawn from the Laplace approximation; s its scales), from absolute
+    transition ``i0`` (the first after a burn-in of 500), ``kt``
+    transitions (the path's launches carry 6, ``_pick_k_trans``); beside
+    its plain version, its bound and its special-function floor; and both
+    kernel families per gradient at C 4096 and N 16,384 and 100,000,
+    where the route switches between them.
     Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
     import torch
 
@@ -1672,25 +1845,33 @@ def phase_new_kernel_times(C=4096, kt=6, family=(16_384, 100_000)):
     X, Y, mode = _bench_mode(1000)
     d = X.shape[1]
     rng = np.random.default_rng(51)
-    XT, Yc = _cuda(X.T), _cuda(Y)
-    th = _cuda(mode + 0.05 * rng.standard_normal((C, d)))
+    sc = _laplace_scale(X, Y)
+    eps, nl = hmc_frozen
+    T, max_leaps = 2.0 * nl * eps, max(2 * nl, 2)
+    XT, Yc = _cuda((X * sc).T), _cuda(Y)
+    th = _cuda(mode / sc + rng.standard_normal((C, d)))
+    kw = dict(k_trans=kt, prior_prec=_cuda(sc * sc))
     gen_k = torch.Generator(device="cuda").manual_seed(7)
     gen_p = torch.Generator(device="cuda").manual_seed(8)
-    args = (XT, Yc, th, 0.05, 1.0, 1, 40)
-    kern = lambda: gk.glm_multistep_rows(*args, k_trans=kt,  # noqa: E731
-                                         generator=gen_k)
-    plain = lambda: gk.glm_multistep_rows_ref(*args, k_trans=kt,  # noqa: E731
-                                              generator=gen_p)
+    args = (XT, Yc, th, eps, T, i0, max_leaps)
+    kern = lambda: gk.glm_multistep_rows(*args, generator=gen_k,  # noqa: E731
+                                         **kw)
+    plain = lambda: gk.glm_multistep_rows_ref(  # noqa: E731
+        *args, generator=gen_p, **kw)
     out = kern()
-    evals = C * (1 + int(out[3]["nleaps"][:, 0].sum()))
+    leaps = int(out[3]["nleaps"][:, 0].sum())
+    evals = C * (1 + leaps)
     work["glm_multistep_rows"] = _bound(evals, d, X.shape[0],
                                         _nbytes((XT, Yc, th), out))
     ms["glm_multistep_rows"] = (_event_ms(kern), _event_ms(plain, reps=2))
     emit({"phase": "kernel_time", "name": "glm_multistep_rows", "C": C,
-          "N": X.shape[0], "k_trans": kt, "ms": ms["glm_multistep_rows"][0],
-          "plain_ms": ms["glm_multistep_rows"][1],
-          "leapfrogs": int(out[3]["nleaps"][:, 0].sum()),
-          **work["glm_multistep_rows"], **CARD})
+          "N": X.shape[0], "k_trans": kt, "eps": eps, "T": T,
+          "max_leaps": max_leaps, "i0": i0,
+          "ms": ms["glm_multistep_rows"][0],
+          "plain_ms": ms["glm_multistep_rows"][1], "leapfrogs": leaps,
+          **work["glm_multistep_rows"],
+          "sfu_floor_ms": _sfu_floor_ms(evals * X.shape[0], SFU_PER_LINK),
+          **CARD})
 
     for N5 in family:
         X5, Y5, mode5 = _bench_mode(N5)
@@ -2727,7 +2908,9 @@ def main():
                                 hmc_means)
     launches.update(nuts_launches)
     launches.update(step("large_n_paths", phase_large_n_paths))
-    launches.update(step("warm_paths", phase_warm_paths, hmc_means))
+    warm_launches, hmc_frozen = step("warm_paths", phase_warm_paths,
+                                     hmc_means)
+    launches.update(warm_launches)
     launches.update(step("target_paths", phase_target_paths))
     nuts_t, start_t = step("warm_target_paths", phase_warm_target_paths)
     launches.update(nuts_t)
@@ -2739,7 +2922,7 @@ def main():
     # kernels 1-4 at the shapes whose launches are counted above
     ms, work = step("tile_times", phase_tile_times)
     for more in (step("nuts_timing", phase_nuts_timing, start),
-                 step("new_kernel_times", phase_new_kernel_times),
+                 step("new_kernel_times", phase_new_kernel_times, hmc_frozen),
                  step("target_kernel_times", phase_target_times),
                  step("target_nuts_time", phase_target_nuts_time, start_t)):
         ms.update(more[0])
@@ -2760,22 +2943,27 @@ def main():
 
 
 def phase_path_spans(chains=4096):
-    """Host seconds (to a synchronize) of the two paths that run kernels 1
-    and 4, split into sampling and packaging, after a short warm-up run of
-    each: ``run(model(glm=logistic, N 1000) * HMC(10, 0.05) *
-    SerialMC(1000, 200), chains=4096)`` (the trajectory kernel) and the
+    """Host seconds (to a synchronize) of the paths that run kernels 1, 4,
+    8 and 9, split into warmup, sampling and packaging, after a short
+    warm-up run of each: ``run(model(glm=logistic, N 1000) * HMC(10, 0.05)
+    * SerialMC(1000, 200), chains=4096)`` (the trajectory kernel), the
     large-N path ``HMC(10, 0.005) * SerialMC(200, 50)`` at N 100,000 from
-    the posterior mode (the tiled kernel).  No checks: the main phases hold
-    both paths."""
+    the posterior mode (the tiled kernel), and the NUTS main paths
+    ``NUTS(6) * SerialMC(700, 200)`` (kernel 9) and ``NUTS(6,
+    mass_adapt="diag") * SerialMC(699, 200)`` (kernel 8).  No checks: the
+    main phases hold these paths."""
     import mcmc_jl_tpu_torch as mt
 
     X, Y = bench_data()
     Xb, Yb, mode = _bench_mode(100_000)
-    paths = (("main path", mt.model(glm=("logistic", X, Y), device="cuda"),
-              mt.HMC(10, 0.05), (1000, 200)),
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    paths = (("main path", m, mt.HMC(10, 0.05), (1000, 200)),
              ("large-N path", mt.model(glm=("logistic", Xb, Yb), init=mode,
                                        device="cuda"),
-              mt.HMC(10, 0.005), (200, 50)))
+              mt.HMC(10, 0.005), (200, 50)),
+             ("NUTS path, kernel 9", m, mt.NUTS(maxdoublings=6), (700, 200)),
+             ("NUTS diag path, kernel 8", m,
+              mt.NUTS(maxdoublings=6, mass_adapt="diag"), (699, 200)))
     out = {}
     for label, m, sampler, (steps, burnin) in paths:
         mt.run(m * sampler * mt.SerialMC(steps=20, burnin=5), chains=chains)
@@ -2790,14 +2978,16 @@ def phase_path_spans(chains=4096):
 
 
 def times_main():
-    """``python3 chip_smoke.py --times [ROOT]``: build glm_hmc and glm_bign
-    from the package under ROOT (default: this checkout) and time kernels
-    1-4 alone (phase_tile_times) and the spans of their two paths
-    (phase_path_spans), so that one call on one card can time a parent
-    tree and this one in turns."""
+    """``python3 chip_smoke.py --times [ROOT]``: build glm_hmc, glm_bign and
+    glm_nuts from the package under ROOT (default: this checkout) and time
+    kernels 1-4 alone (phase_tile_times), kernels 8 and 9 at pinned shapes
+    (phase_nuts_times) and the spans of their paths (phase_path_spans), so
+    that one call on one card can time a parent tree and this one in
+    turns."""
     phase_device()
-    phase_build(("glm_hmc", "glm_bign"))
+    phase_build(("glm_hmc", "glm_bign", "glm_nuts"))
     phase_tile_times()
+    phase_nuts_times()
     phase_path_spans()
 
 

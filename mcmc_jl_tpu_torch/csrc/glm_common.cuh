@@ -1,6 +1,8 @@
 // Device routines shared by the GLM kernels (glm_hmc.cu, glm_nuts.cu,
 // glm_bign.cu): the link functions, the staging of observation rows in
-// shared memory and the fused log-target + gradient pass.  The Philox
+// shared memory and the fused log-target + gradient pass of the kernels
+// that run one thread per chain (glm_step, glm_multistep and
+// glm_multistep_rows in glm_hmc.cu).  The Philox
 // generator lives in philox.cuh, shared with the custom-target kernels.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
@@ -101,9 +103,9 @@ __device__ void load_rows(const Glm& p, float* sm, int t0, int nt) {
 //
 // Barrier rule: when the rows stream (!p.resident), this routine loads each
 // tile with __syncthreads() before and after, so it may be called only where
-// every thread of the block makes the same number of calls.  A kernel whose
-// threads take different paths (one NUTS tree per thread) must then run its
-// calls in lockstep across the block; with resident rows it has no barrier.
+// every thread of the block makes the same number of calls (the leap
+// counts of glm_hmc.cu are the same for every chain of a launch); with
+// resident rows it has no barrier.
 template <int D>
 __device__ void glm_eval(const Glm& p, float* sm, const float (&th)[D],
                          float (&g)[D], float* lp) {

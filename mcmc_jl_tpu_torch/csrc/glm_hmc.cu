@@ -10,9 +10,10 @@
 //   glm_multistep_rows <- _multistep_kernel (halton=True, collect_rows=True,
 //                                            via _multistep_rows_inner)
 // The Pallas kernels share _glm_funcs + _trajectory.  Here glm_leapfrogs
-// runs on the chain-tile gradient of glm_tile.cuh (shared with glm_bign.cu);
-// glm_step, glm_multistep and glm_multistep_rows run on the device routines
-// glm_eval (glm_common.cuh, shared with glm_nuts.cu) and trajectory.
+// runs on the chain-tile gradient of glm_tile.cuh (traj_grad, shared with
+// the NUTS kernels of glm_nuts.cu; the tile routines also with
+// glm_bign.cu); glm_step, glm_multistep and glm_multistep_rows run on the
+// device routines glm_eval (glm_common.cuh) and trajectory.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and grad = sum_n w_n resid(z_n, y_n) x_n -
@@ -111,83 +112,6 @@ __device__ __forceinline__ bool mh_accept(float h0, float h, float logu) {
 }
 
 // ---- kernel 1: the trajectory on the chain-tile gradient ------------------
-
-constexpr int kTrajWarps = 16;                 // warps split a tile's rows
-constexpr int kTrajThreads = 32 * kTrajWarps;
-constexpr int kTrajStreamMax = 512;            // rows per streamed tile
-
-// Shared memory of leapfrogs_tile_kernel, in this order: per-warp ll
-// partials (kTrajWarps x 16 doubles), per-warp gradient partials
-// (kTrajWarps x 16 x D floats), the tile's theta (16 x D), then the rows:
-// all of them (resident), or two raw cp.async buffers and one staged tile.
-struct TrajPlan {
-  int rows;       // rows staged: round8(N) when resident, else the tile
-  bool resident;
-  size_t smem;    // bytes
-};
-
-TrajPlan traj_plan(int D, int N) {
-  const size_t fixed = sizeof(double) * kTrajWarps * kTileChains +
-                       sizeof(float) * (kTrajWarps + 1) * kTileChains * D;
-  const size_t row = sizeof(float) * tile_row_floats(D);
-  const size_t n8 = ((size_t)N + 7) & ~(size_t)7;
-  if (fixed + n8 * row <= (size_t)kTileSmemCap)
-    return {(int)n8, true, fixed + n8 * row};
-  const size_t per = row + 2 * sizeof(float) * raw_row_floats(D);
-  int R = (int)((kTileSmemCap - fixed) / per) & ~7;
-  if (R > kTrajStreamMax) R = kTrajStreamMax;
-  return {R, false, fixed + R * per};
-}
-
-// One gradient of the block's 16 chains at the theta in sth: the warps
-// split the row groups, each leaves its partial G in part and, with
-// want_ll, its ll partials in pll.  Starts and ends on a barrier.
-template <int D>
-__device__ __forceinline__ void traj_grad(const Glm& p, const Rows& t,
-                                          float* raw, const float* sth,
-                                          float* part, double* pll,
-                                          bool want_ll) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  __syncthreads();  // theta (and resident rows) written
-  uint32_t ah[D / 8][4], al[D / 8][4];
-  theta_frags<D>(sth + g * D, sth + (g + 8) * D, D, ah, al);
-  float gb[D / 8][4], gs[D / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gb[nb][e] = gs[nb][e] = 0.f;
-  double ll[2] = {0.0, 0.0};
-  // resident: one pass over all rows (p.tile >= N); else tile by tile
-  if (!p.resident) stream_begin<D>(p, raw, p.tile, 0, p.N);
-  for (int t0 = 0, buf = 0; t0 < p.N; t0 += p.tile, buf ^= 1) {
-    const int nt =
-        p.resident ? p.N : stream_next<D>(p, raw, t, p.tile, t0, p.N, buf);
-    if (want_ll)
-      chain_tile_rows<D, true>(p.kind, t, nt, warp, kTrajWarps, ah, al, gb,
-                               gs, ll);
-    else
-      chain_tile_rows<D, false>(p.kind, t, nt, warp, kTrajWarps, ah, al, gb,
-                                gs, ll);
-  }
-  float* pw = part + warp * kTileChains * D;
-#pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
-    const int j = 8 * nb + 2 * q;
-    pw[g * D + j] = gb[nb][0] + gs[nb][0];
-    pw[g * D + j + 1] = gb[nb][1] + gs[nb][1];
-    pw[(g + 8) * D + j] = gb[nb][2] + gs[nb][2];
-    pw[(g + 8) * D + j + 1] = gb[nb][3] + gs[nb][3];
-  }
-  if (want_ll) {
-    const double a = quad_sum(ll[0]), b = quad_sum(ll[1]);
-    if (q == 0) {
-      pll[warp * kTileChains + g] = a;
-      pll[warp * kTileChains + g + 8] = b;
-    }
-  }
-  __syncthreads();
-}
 
 // n_leaps macro steps of the schedule for a tile of 16 chains, in lockstep:
 // the leap count and schedule are the same for every chain of the launch.

@@ -1,45 +1,72 @@
 // Fused exact No-U-Turn kernels for GLM posteriors on Hopper (sm_90a): one
-// whole NUTS transition per launch with the noise drawn outside, and k whole
-// transitions per launch with the noise drawn inside from Philox.
+// whole NUTS transition per launch with the noise drawn outside (kernel 8),
+// and k whole transitions per launch with the noise drawn inside from
+// Philox (kernel 9).
 //
 // Replaces the Pallas kernels of mcmc_jl_tpu/ops/pallas_nuts.py (GLM mode):
 //   glm_nuts_transition <- _nuts_kernel    (via _transition_inner)
 //   glm_nuts_multistep  <- _nuts_ms_kernel (via _ms_transition_inner)
-// both sharing the tree build, here the device routine nuts_transition, and
-// _glm_funcs, here glm_eval (glm_common.cuh).
+// both sharing the tree build, here the body of nuts_tile_kernel, and
+// _glm_funcs, here traj_grad (glm_tile.cuh): the chain-tile gradient of the
+// trajectory kernel (glm_hmc.cu, kernel 1).
 //
-// What bounds it on the H100: every leaf of a tree is one leapfrog, i.e. one
-// gradient pass over the N observations (2 d N FMAs, one expf per
-// observation), read from shared memory as in the HMC kernels, so the bound
-// is again the FP32 FMA and SFU rate.  What NUTS adds is divergence: trees
-// of 1 to 2^md - 1 leaves, and the leaf count differs from chain to chain.
-// A warp runs as long as its deepest tree.
+// What bounds them on the H100: every leaf of a tree is one leapfrog, i.e.
+// one gradient and log-target pass over the N observations: 4 d N
+// multiply-adds in two products, and one link with its log-likelihood per
+// observation.  The products run on the tensor cores (mma.sync m16n8k8,
+// 3xTF32), so a leaf is bound, as in kernel 1, by the instructions of the
+// link.  What NUTS adds is divergence: trees of 1 to 2^md - 1 leaves whose
+// count differs from chain to chain, while the chains of a tile share each
+// gradient, so a tile runs as long as its deepest tree.  On an H100 80GB
+// HBM3 (700 W) at N 1000, d 10, a pass over the tile takes 6.7-7.5 us at
+// 65536 chains, about 1.9 us of it the row loop's instruction issue and
+// the rest serial per pass (barriers, the sums of the warps' partials, the
+// shuffle reductions); 39-63% of the tile's gradient lanes serve a tree.
 //
-// Design: one thread per chain builds its own tree, with the TPU kernel's
-// iterative form (doubling loop, reservoir proposal, popcount-addressed
-// checkpoint stacks, span checks at odd leaves, outer merge and u-turn).
-// The walker, the proposal and the trajectory state live in registers; the
-// two edges and the 2 x md checkpoint vectors are indexed at run time and sit
-// in local memory (L1), touched once per leaf beside a 2 d N FMA gradient.
-// While the rows are resident in shared memory, glm_eval has no barrier and
-// each thread stops when its own tree does; when they stream
-// (N x stride x 4 B > 100 KB), the block runs its leaves in lockstep: every
-// loop continues while __syncthreads_or of the block's flags holds, and a
-// stopped chain still calls glm_eval on its frozen state so that every
-// thread reaches every barrier.  The per-chain result is the same either
-// way.  A block holds 128 chains: at 4096 chains, blocks of 32 or 64 that
-// spread the warps over 128 SMs time within 2% of it, and at 65536 chains
-// they are 1.4 and 2.2 times slower (H100 80GB HBM3, 700 W).  lp is summed
-// in double.
+// Design: a block takes a tile of 16 chains and builds their trees in one
+// flattened loop, "while some chain of the tile has a leaf to take".  In
+// each pass every running chain takes one leaf: a half kick and a drift,
+// then one gradient of the tile (the 16 warps split the row groups, and
+// their partials are summed in a fixed order), then its own bookkeeping.
+// Each chain keeps its own cursor (doubling j, leaf k), so chains at
+// different doublings share a gradient; a chain whose tree has ended puts
+// its chosen state into the tile, and that gradient is thrown away.
+// Thread e < 16 D owns coordinate e % D of chain e / D and keeps that
+// coordinate of the walker, the subtree proposal, the chosen state and the
+// two edges in registers.  D is 8, 16 or 32, so the D lanes of a chain lie
+// in one warp: 1/2 |m|^2, the two dot products of each span check and the
+// two of the u-turn are __shfl_xor_sync sums over those lanes, and every
+// per-chain scalar (H, the weights, the ok and running flags, the cursor)
+// is the same in all of them.  The checkpoint stacks (2 x md x 16 x D
+// floats) sit in shared memory, indexed by slot.  The tree is the TPU
+// kernel's iterative form: the doubling loop, the reservoir proposal
+// indexed by the transition-global leaf number, the popcount-addressed
+// checkpoint slots, span checks at odd leaves, the outer merge, the overall
+// u-turn and the divergence gate.
+//
+// Kernel 9 does not wait at the end of a transition: a chain whose tree
+// ends writes that transition's rows, draws its next momenta and slice at
+// (chain, t + 1, .) and starts its next tree in the next pass.  A tile then
+// waits for its deepest chain once per launch, over the leaves of a
+// chain's k trees summed.  Every draw is counted by (chain, transition,
+// draw), so the schedule changes no result.
+//
+// Blocks are persistent, one per SM while the rows are resident in shared
+// memory (about 200 KB at N 1000, d <= 16), and take the tiles from a queue
+// (an atomic counter, one per stream, that the launch leaves at 0 for the
+// next).  Tiles take unequal times: with the queue kernel 8 took 11% less
+// device time than in the strided order blockIdx.x + k gridDim.x at 4096
+// chains (about two tiles per SM) and 3-11% less at 65536 (same card).
+// Rows that do not fit stream through double-buffered cp.async tiles at
+// every leaf, as in kernel 1.  lp is summed in double.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
-#include "glm_common.cuh"
+#include "glm_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;        // chains per block
 constexpr int kMaxDoublings = 10;    // leaf uniforms: 2^md columns per chain
 constexpr float kDeltaMax = 100.f;   // divergence gate (NUTS.jl:90-95)
 
@@ -48,6 +75,7 @@ constexpr float kDeltaMax = 100.f;   // divergence gate (NUTS.jl:90-95)
 constexpr uint32_t kDirDraw = 0x100u;      // + doubling j
 constexpr uint32_t kMergeDraw = 0x200u;    // + doubling j
 constexpr uint32_t kLeafDraw = 0x10000u;   // + leaf (1 << j) - 1 + k
+constexpr uint32_t kSliceDraw = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
@@ -55,287 +83,413 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-// Pre-drawn noise of one chain: dirn and merge are (C, md), leaf is
-// (C, 2^md).
-struct BufNoise {
-  const float* dirn;
-  const float* merge;
-  const float* leaf;
-  int md;
-  int c;
-  __device__ float direction(int j) const { return dirn[(size_t)c * md + j]; }
-  __device__ float merge_u(int j) const { return merge[(size_t)c * md + j]; }
-  __device__ float leaf_u(int l) const {
-    return leaf[((size_t)c << md) + l];
-  }
-};
-
-// Noise of one (chain, transition) from Philox; uniforms in (0, 1].
-struct PhiloxNoise {
+// A launch beyond the model.  Kernel 8 reads its noise from the buffers:
+// m0 (C, d), logu (C,), dirn and merge (C, md), leaf (C, 2^md); kernel 9
+// draws it and writes the rows of every transition.
+struct NutsArgs {
+  int C, md, multinomial, k_trans;
+  float eps;
   uint2 key;
-  uint32_t c, t;
-  __device__ float u(uint32_t draw) const {
-    return 1.f - u01(philox(make_uint4(c, t, draw, 0u), key).x);
-  }
-  __device__ float direction(int j) const {
-    return u(kDirDraw + j) < 0.5f ? -1.f : 1.f;
-  }
-  __device__ float merge_u(int j) const { return u(kMergeDraw + j); }
-  __device__ float leaf_u(int l) const { return u(kLeafDraw + l); }
+  const float *th_in, *lp_in, *g_in;
+  const float *m0, *logu, *dirn, *merge, *leaf;
+  float *th_out, *g_out, *lp_out;
+  int* nd_out;
+  unsigned char* div_out;
+  float *r_th, *r_g, *r_lp;  // (k, C, d), (k, C, d), (k, C)
+  unsigned char *r_acc, *r_div;
+  int* r_nd;
+  int* queue;  // tile queue: one int, 0 between launches
 };
 
-template <int D>
-__device__ __forceinline__ void copy(float (&dst)[D], const float (&src)[D]) {
-#pragma unroll
-  for (int j = 0; j < D; ++j) dst[j] = src[j];
+// Uniform in (0, 1] of draw `draw` of (chain c, transition t).
+__device__ __forceinline__ float philox_u(uint2 key, int c, int t,
+                                          uint32_t draw) {
+  return 1.f - u01(philox(make_uint4((uint32_t)c, (uint32_t)t, draw, 0u),
+                          key).x);
 }
 
-// One exact NUTS transition of one chain (pallas_nuts.py _nuts_kernel body,
-// samplers/nuts.py step).  (th, g, lp) enter as the current state and leave
-// as the chosen proposal; nd counts the doublings made, dv any divergence.
-// A chain with live == false builds nothing (ragged last block).
-template <int D, class Noise>
-__device__ void nuts_transition(const Glm& p, float* sm, float eps, int md,
-                                bool multinomial, bool live, float (&th)[D],
-                                float (&g)[D], float& lp, const float (&m0)[D],
-                                float logu, const Noise& nz, int& nd,
-                                bool& dv) {
-  const bool lockstep = !p.resident;
-  const float H0 = -lp + half_sq<D>(m0);
-  const float u_slice = multinomial ? -H0 : logu - H0;  // NUTS.jl:141
+template <bool MS>
+__device__ __forceinline__ float direction(const NutsArgs& a, int c, int t,
+                                           int j) {
+  if (MS) return philox_u(a.key, c, t, kDirDraw + j) < 0.5f ? -1.f : 1.f;
+  return a.dirn[(size_t)c * a.md + j];
+}
 
-  // trajectory edges, [0] = minus, [1] = plus
-  float e_p[2][D], e_m[2][D], e_g[2][D], e_lp[2];
-  for (int s = 0; s < 2; ++s) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      e_p[s][j] = th[j];
-      e_m[s][j] = m0[j];
-      e_g[s][j] = g[j];
-    }
-    e_lp[s] = lp;
-  }
-  float ck_p[kMaxDoublings][D], ck_m[kMaxDoublings][D];  // checkpoint stacks
-  bool s = live;
-  float ntot = 1.f, lwtot = 0.f;  // the initial point, weight exp(H0 - H0)
-  nd = 0;
-  dv = false;
+template <bool MS>
+__device__ __forceinline__ float merge_u(const NutsArgs& a, int c, int t,
+                                         int j) {
+  if (MS) return philox_u(a.key, c, t, kMergeDraw + j);
+  return a.merge[(size_t)c * a.md + j];
+}
 
-  for (int j = 0; j < md; ++j) {
-    if (!(lockstep ? __syncthreads_or(s) : s)) break;
-    const float dirn = nz.direction(j);
-    const int e = dirn > 0.f ? 1 : 0;
-    const float es = dirn * eps;
-    float wp[D], wm[D], wg[D], sp[D], sg[D];
-#pragma unroll
-    for (int jj = 0; jj < D; ++jj) {
-      wp[jj] = e_p[e][jj];
-      wm[jj] = e_m[e][jj];
-      wg[jj] = e_g[e][jj];
-    }
-    float wlp = e_lp[e];
-    copy<D>(sp, wp);  // proposal seed: the first valid leaf always takes
-    copy<D>(sg, wg);
-    float slp = wlp;
-    float n1 = 0.f, lw1 = -CUDART_INF_F;
-    bool ok = s, sdv = false;
-    const int n_leaves = 1 << j;
+template <bool MS>
+__device__ __forceinline__ float leaf_u(const NutsArgs& a, int c, int t,
+                                        int l) {
+  if (MS) return philox_u(a.key, c, t, kLeafDraw + l);
+  return a.leaf[((size_t)c << a.md) + l];
+}
 
-    for (int k = 0; k < n_leaves; ++k) {
-      if (!(lockstep ? __syncthreads_or(ok) : ok)) break;
-      float tp[D], tm[D], tg[D], tlp;
-#pragma unroll
-      for (int jj = 0; jj < D; ++jj) {
-        tm[jj] = wm[jj] + 0.5f * es * wg[jj];
-        tp[jj] = wp[jj] + es * tm[jj];
-      }
-      glm_eval<D>(p, sm, tp, tg, &tlp);
-      if (!ok) continue;  // lockstep: a stopped chain only kept the barriers
-#pragma unroll
-      for (int jj = 0; jj < D; ++jj) {
-        wm[jj] = tm[jj] + 0.5f * es * tg[jj];
-        wp[jj] = tp[jj];
-        wg[jj] = tg[jj];
-      }
-      wlp = tlp;
+// Coordinate j of the momentum of (chain c, transition t): two normals per
+// Philox draw, as in glm_multistep.
+__device__ __forceinline__ float momentum(uint2 key, int c, int t, int j) {
+  const uint4 b = philox(
+      make_uint4((uint32_t)c, (uint32_t)t, (uint32_t)(j / 2), 0u), key);
+  return (j & 1) ? box_muller(b.z, b.w) : box_muller(b.x, b.y);
+}
 
-      float H = -wlp + half_sq<D>(wm);
-      if (isnan(H)) H = CUDART_INF_F;
-      const bool diverged = u_slice >= kDeltaMax - H;  // NUTS.jl:92
-      // reservoir draw, indexed by the transition-global leaf number
-      const float u_leaf = nz.leaf_u(n_leaves - 1 + k);
-      bool take;
-      if (multinomial) {
-        const float lw_leaf = diverged ? -CUDART_INF_F : H0 - H;
-        const float lw_new = logaddexp(lw1, lw_leaf);
-        take = !diverged && logf(u_leaf) < lw_leaf - lw_new;
-        lw1 = lw_new;
-        if (!diverged) n1 += 1.f;
+// Sum of v over the D lanes of one chain: every lane gets the same bits
+// (each step adds the same two values in either order).  Every lane of
+// the warp must call it.
+template <int D>
+__device__ __forceinline__ float chain_sum(float v) {
+#pragma unroll
+  for (int o = D / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Whether b holds in some lane of the chain; every lane of the warp must
+// call it.
+template <int D>
+__device__ __forceinline__ bool chain_any(bool b) {
+  const unsigned m = __ballot_sync(0xffffffffu, b);
+  if (D == 32) return m != 0u;
+  const int base = (threadIdx.x & 31) & ~(D - 1);
+  return ((m >> base) & ((1u << (D & 31)) - 1u)) != 0u;
+}
+
+// One chain's transition as the lane that owns coordinate oj of it sees it:
+// the per-coordinate fields hold that coordinate, the others are per chain
+// and the same in all the chain's lanes.
+struct Tree {
+  float th, g, lp;                   // the chosen state
+  float ep0, ep1, em0, em1, eg0, eg1;  // the edges: minus (0), plus (1)
+  float elp0, elp1;
+  float wp, wm, wg, wlp;             // the walker
+  float sp, sg, slp;                 // the subtree's proposal
+  float H0, u_slice, dirn, n1, lw1, ntot, lwtot;
+  int t, j, k, nd;                   // transition, doubling, leaf
+  bool run, ok, sdv, dv;             // leaves to take; subtree running
+};
+
+// Doubling T.j starts from the edge its direction points to (NUTS.jl:150).
+template <bool MS>
+__device__ __forceinline__ void begin_doubling(Tree& T, const NutsArgs& a,
+                                               int c) {
+  T.dirn = direction<MS>(a, c, T.t, T.j);
+  const bool plus = T.dirn > 0.f;
+  T.wp = plus ? T.ep1 : T.ep0;
+  T.wm = plus ? T.em1 : T.em0;
+  T.wg = plus ? T.eg1 : T.eg0;
+  T.wlp = plus ? T.elp1 : T.elp0;
+  T.sp = T.wp;  // proposal seed: the first valid leaf always takes
+  T.sg = T.wg;
+  T.slp = T.wlp;
+  T.n1 = 0.f;
+  T.lw1 = -CUDART_INF_F;
+  T.ok = true;
+  T.sdv = false;
+  T.k = 0;
+}
+
+// A new tree at the chosen state with momentum m (this lane's coordinate),
+// hs = |m|^2 over the chain, and the slice's log-uniform.
+template <bool MS>
+__device__ __forceinline__ void start_tree(Tree& T, const NutsArgs& a, int c,
+                                           float m, float hs, float logu) {
+  T.H0 = -T.lp + 0.5f * hs;
+  T.u_slice = a.multinomial ? -T.H0 : logu - T.H0;  // NUTS.jl:141
+  T.ep0 = T.ep1 = T.th;
+  T.em0 = T.em1 = m;
+  T.eg0 = T.eg1 = T.g;
+  T.elp0 = T.elp1 = T.lp;
+  T.ntot = 1.f;  // the initial point, weight exp(H0 - H0)
+  T.lwtot = 0.f;
+  T.nd = 0;
+  T.dv = false;
+  T.j = 0;
+  begin_doubling<MS>(T, a, c);
+}
+
+// Kernel 8 (MS false): one transition of every chain.  Kernel 9 (MS true):
+// k_trans transitions of every chain, the rows of each written as it ends.
+template <int D, bool MS>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+nuts_tile_kernel(Glm p, NutsArgs a) {
+  extern __shared__ double tile_sm[];
+  __shared__ int next_tile;
+  constexpr int kSlot = kTileChains * D;  // floats of one checkpoint slot
+  double* pll = tile_sm;
+  float* part = reinterpret_cast<float*>(pll + kTrajWarps * kTileChains);
+  float* sth = part + kTrajWarps * kSlot;
+  float* ckp = sth + kSlot;  // checkpoint stacks, (md, 16, D) each
+  float* ckm = ckp + a.md * kSlot;
+  float* rest = ckm + a.md * kSlot;
+  float* raw = p.resident ? nullptr : rest;
+  const Rows rows = rows_at<D>(
+      p.resident ? rest : rest + 2 * raw_row_floats(D) * p.tile, p.tile);
+  const int tid = threadIdx.x;
+  const bool own = tid < kSlot;  // whole warps: 16 D is a multiple of 32
+  const int oc = tid / D, oj = tid % D;
+  const bool live = own && oj < p.d;
+  const float lam = live ? (p.lamv ? p.lamv[oj] : p.lam) : 0.f;
+  if (p.resident) stage_rows<D>(p, rows, 0, p.N);  // once for all its tiles
+  const int tiles = (a.C + kTileChains - 1) / kTileChains;
+  for (int tile = blockIdx.x; tile < tiles;) {
+    const int c = tile * kTileChains + oc;
+    const bool real = own && c < a.C;
+    const int cs = min(c, a.C - 1);  // idle lanes shadow the last chain
+    const size_t at = (size_t)cs * p.d + oj;
+    Tree T;
+    T.th = live ? a.th_in[at] : 0.f;
+    T.g = live ? a.g_in[at] : 0.f;
+    T.lp = a.lp_in[cs];
+    T.t = 0;
+    float th0 = T.th;  // kernel 9: where the transition started
+    if (own) {
+      float m, logu;
+      if (MS) {
+        m = live ? momentum(a.key, cs, 0, oj) : 0.f;
+        logu = logf(1.f - u01(philox(make_uint4((uint32_t)cs, 0u, kSliceDraw,
+                                                0u), a.key).x));
       } else {
-        const bool valid = u_slice <= -H;  // NUTS.jl:91
-        const float nf = n1 + (valid ? 1.f : 0.f);
-        take = valid && u_leaf * nf < 1.f;
-        n1 = nf;
+        m = live ? a.m0[at] : 0.f;
+        logu = a.logu[cs];
       }
-      if (take) {
-        copy<D>(sp, wp);
-        copy<D>(sg, wg);
-        slp = wlp;
+      start_tree<MS>(T, a, cs, m, chain_sum<D>(m * m), logu);
+    }
+    T.run = real;
+
+    for (;;) {
+      if (!__syncthreads_or(T.run)) break;
+      // a half kick and a drift; a chain without a leaf to take puts its
+      // chosen state in the tile
+      float es = 0.f, tm = 0.f, tp = 0.f;
+      if (own) {
+        es = T.dirn * a.eps;
+        tm = T.wm + 0.5f * es * T.wg;
+        tp = T.wp + es * tm;
+        sth[tid] = T.run ? tp : T.th;
       }
-      if (diverged) {
-        sdv = true;
-        ok = false;
-      }
-      if ((k & 1) == 0) {  // checkpoint store at slot popcount(k)
-        const int slot = __popc(k);
-#pragma unroll
-        for (int jj = 0; jj < D; ++jj) {
-          ck_p[slot][jj] = wp[jj];
-          ck_m[slot][jj] = wm[jj];
+      traj_grad<D>(p, rows, raw, sth, part, pll, true);
+      if (!own) continue;
+
+      // the leaf's gradient and lp as glm_eval forms them
+      const bool act = T.run;
+      float acc = 0.f;
+      for (int w = 0; w < kTrajWarps; ++w) acc += part[w * kSlot + tid];
+      const float tg = acc - lam * tp;
+      double ll = 0.0;
+      for (int w = 0; w < kTrajWarps; ++w) ll += pll[w * kTileChains + oc];
+      const float quad = chain_sum<D>(lam * tp * tp);
+      const float tlp = (float)(ll - 0.5 * (double)quad);
+      const float wm = tm + 0.5f * es * tg;
+      float H = -tlp + 0.5f * chain_sum<D>(wm * wm);
+      if (isnan(H)) H = CUDART_INF_F;
+      if (act) {
+        T.wp = tp;
+        T.wm = wm;
+        T.wg = tg;
+        T.wlp = tlp;
+        const bool diverged = T.u_slice >= kDeltaMax - H;  // NUTS.jl:92
+        // reservoir draw, indexed by the transition-global leaf number
+        const float u_leaf = leaf_u<MS>(a, c, T.t, (1 << T.j) - 1 + T.k);
+        bool take;
+        if (a.multinomial) {
+          const float lw_leaf = diverged ? -CUDART_INF_F : T.H0 - H;
+          const float lw_new = logaddexp(T.lw1, lw_leaf);
+          take = !diverged && logf(u_leaf) < lw_leaf - lw_new;
+          T.lw1 = lw_new;
+          if (!diverged) T.n1 += 1.f;
+        } else {
+          const bool valid = T.u_slice <= -H;  // NUTS.jl:91
+          const float nf = T.n1 + (valid ? 1.f : 0.f);
+          take = valid && u_leaf * nf < 1.f;
+          T.n1 = nf;
         }
-      } else {  // spans ending at k: slots popc(k>>1) - trailing_ones(k) + 1 ..
-        const int hi = __popc(k >> 1);
-        const int lo = hi - (__ffs(~k) - 1) + 1;
-        for (int i = lo; i <= hi; ++i) {
-          float a = 0.f, b = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < D; ++jj) {
-            const float dl = dirn * (wp[jj] - ck_p[i][jj]);
-            a = fmaf(dl, ck_m[i][jj], a);
-            b = fmaf(dl, wm[jj], b);
-          }
-          if (a < 0.f || b < 0.f) ok = false;  // NUTS.jl:50
+        if (take) {
+          T.sp = T.wp;
+          T.sg = T.wg;
+          T.slp = T.wlp;
+        }
+        if (diverged) {
+          T.sdv = true;
+          T.ok = false;
+        }
+        if ((T.k & 1) == 0) {  // checkpoint store at slot popcount(k)
+          const int s = __popc(T.k);
+          ckp[s * kSlot + tid] = T.wp;
+          ckm[s * kSlot + tid] = T.wm;
+        }
+      }
+      // spans ending at an odd leaf k: slots popc(k >> 1) - trailing_ones(k)
+      // + 1 .. popc(k >> 1) (NUTS.jl:50).  Their dot products are sums over
+      // the chain's lanes, so the warp runs its largest count of them.
+      int lo = 1, hi = 0;
+      if (act && (T.k & 1)) {
+        hi = __popc(T.k >> 1);
+        lo = hi - (__ffs(~T.k) - 1) + 1;
+      }
+      const int spans = (int)__reduce_max_sync(0xffffffffu,
+                                               (unsigned)(hi - lo + 1));
+      for (int i = 0; i < spans; ++i) {
+        const int s = min(lo + i, hi);
+        const float dl = T.dirn * (T.wp - ckp[s * kSlot + tid]);
+        const float da = chain_sum<D>(dl * ckm[s * kSlot + tid]);
+        const float db = chain_sum<D>(dl * T.wm);
+        if (lo + i <= hi && (da < 0.f || db < 0.f)) T.ok = false;
+      }
+      if (act) ++T.k;
+
+      // the doubling ends: the walker's end is the new edge, then the
+      // outer merge (NUTS.jl:160; biased progressive for multinomial)
+      const bool ends = act && (!T.ok || T.k == (1 << T.j));
+      if (ends) {
+        if (T.dirn > 0.f) {
+          T.ep1 = T.wp;
+          T.em1 = T.wm;
+          T.eg1 = T.wg;
+          T.elp1 = T.wlp;
+        } else {
+          T.ep0 = T.wp;
+          T.em0 = T.wm;
+          T.eg0 = T.wg;
+          T.elp0 = T.wlp;
+        }
+        const float u = merge_u<MS>(a, c, T.t, T.j);
+        bool take;
+        if (a.multinomial) {
+          take = T.ok && logf(u) < T.lw1 - T.lwtot;
+          if (T.ok) T.lwtot = logaddexp(T.lwtot, T.lw1);
+        } else {
+          take = T.ok && u * T.ntot < T.n1;
+        }
+        if (take) {
+          T.th = T.sp;
+          T.g = T.sg;
+          T.lp = T.slp;
+        }
+        T.ntot += T.n1;
+      }
+      // overall u-turn between the extreme states (NUTS.jl:165)
+      const float dp = T.ep1 - T.ep0;
+      const float ua = chain_sum<D>(dp * T.em0);
+      const float ub = chain_sum<D>(dp * T.em1);
+      if (ends) {
+        T.nd += 1;
+        T.dv = T.dv || T.sdv;
+        ++T.j;
+        if (T.ok && !(ua < 0.f || ub < 0.f) && T.j < a.md)
+          begin_doubling<MS>(T, a, c);
+        else
+          T.run = false;
+      }
+      if (!MS) continue;
+
+      // kernel 9: a tree that ended writes its transition's rows and, while
+      // transitions remain, starts the next one at once
+      const bool done = ends && !T.run;
+      const bool moved = chain_any<D>(T.th != th0);
+      if (done) {
+        const size_t row = (size_t)T.t * a.C + c;
+        if (live) {
+          a.r_th[row * p.d + oj] = T.th;
+          a.r_g[row * p.d + oj] = T.g;
+        }
+        if (oj == 0) {
+          a.r_lp[row] = T.lp;
+          a.r_acc[row] = moved ? 1 : 0;
+          a.r_nd[row] = T.nd;
+          a.r_div[row] = T.dv ? 1 : 0;
+        }
+        ++T.t;
+      }
+      const bool again = done && T.t < a.k_trans;
+      float m = 0.f, logu = 0.f;
+      if (again) {
+        if (live) m = momentum(a.key, c, T.t, oj);
+        logu = logf(1.f - u01(philox(make_uint4((uint32_t)c, (uint32_t)T.t,
+                                                kSliceDraw, 0u), a.key).x));
+      }
+      const float hs = chain_sum<D>(m * m);
+      if (again) {
+        th0 = T.th;
+        start_tree<MS>(T, a, c, m, hs, logu);
+        T.run = true;
+      }
+    }
+
+    if (real) {
+      if (live) {
+        a.th_out[(size_t)c * p.d + oj] = T.th;
+        a.g_out[(size_t)c * p.d + oj] = T.g;
+      }
+      if (oj == 0) {
+        a.lp_out[c] = T.lp;
+        if (!MS) {
+          a.nd_out[c] = T.nd;
+          a.div_out[c] = T.dv ? 1 : 0;
         }
       }
     }
-    if (!s) continue;  // lockstep: a finished chain keeps its tree
-
-    // the walker's end is the new edge
-#pragma unroll
-    for (int jj = 0; jj < D; ++jj) {
-      e_p[e][jj] = wp[jj];
-      e_m[e][jj] = wm[jj];
-      e_g[e][jj] = wg[jj];
+    // The first tile of every block is its blockIdx.x, the next ones come
+    // from the queue.  Each block takes one ticket past the last tile, so
+    // the launch hands out `tiles` tickets: the block holding the last has
+    // seen every other taken and puts the queue back to 0 for the next
+    // launch on this stream.
+    if (tid == 0) {
+      const int ticket = atomicAdd(a.queue, 1);
+      if (ticket == tiles - 1) *a.queue = 0;
+      next_tile = gridDim.x + ticket;
     }
-    e_lp[e] = wlp;
-
-    // outer merge (NUTS.jl:160; biased progressive for multinomial)
-    const float u = nz.merge_u(j);
-    bool take;
-    if (multinomial) {
-      take = ok && logf(u) < lw1 - lwtot;
-      if (ok) lwtot = logaddexp(lwtot, lw1);
-    } else {
-      take = ok && u * ntot < n1;
-    }
-    if (take) {
-      copy<D>(th, sp);
-      copy<D>(g, sg);
-      lp = slp;
-    }
-    ntot += n1;
-
-    // overall u-turn between the extreme states (NUTS.jl:165)
-    float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < D; ++jj) {
-      const float dp = e_p[1][jj] - e_p[0][jj];
-      a = fmaf(dp, e_m[0][jj], a);
-      b = fmaf(dp, e_m[1][jj], b);
-    }
-    nd += 1;
-    dv = dv || sdv;
-    s = ok && !(a < 0.f || b < 0.f);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-nuts_kernel(Glm p, int C, float eps, int md, int multinomial,
-            const float* __restrict__ th_in, const float* __restrict__ lp_in,
-            const float* __restrict__ g_in, const float* __restrict__ m0_in,
-            const float* __restrict__ logu_in, const float* __restrict__ dirn,
-            const float* __restrict__ merge, const float* __restrict__ leaf,
-            float* th_out, float* g_out, float* lp_out, int* nd_out,
-            unsigned char* div_out) {
-  extern __shared__ float sm[];
-  stage<D>(p, sm);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;  // idle threads shadow the last chain
-  float th[D], g[D], m0[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  load_vec<D>(g, g_in, cc, p.d);
-  load_vec<D>(m0, m0_in, cc, p.d);
-  float lp = lp_in[cc];
-  const BufNoise nz{dirn, merge, leaf, md, cc};
-  int nd;
-  bool dv;
-  nuts_transition<D>(p, sm, eps, md, multinomial != 0, c < C, th, g, lp, m0,
-                     logu_in[cc], nz, nd, dv);
-  if (c < C) {
-    store_vec<D>(th_out, th, c, p.d);
-    store_vec<D>(g_out, g, c, p.d);
-    lp_out[c] = lp;
-    nd_out[c] = nd;
-    div_out[c] = dv ? 1 : 0;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-nuts_multistep_kernel(Glm p, int C, float eps, int md, int multinomial,
-                      int k_trans, uint2 key, const float* __restrict__ th_in,
-                      const float* __restrict__ lp_in,
-                      const float* __restrict__ g_in, float* th_out,
-                      float* g_out, float* lp_out, float* r_th, float* r_g,
-                      float* r_lp, unsigned char* r_acc, int* r_nd,
-                      unsigned char* r_div) {
-  extern __shared__ float sm[];
-  stage<D>(p, sm);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;
-  float th[D], g[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  load_vec<D>(g, g_in, cc, p.d);
-  float lp = lp_in[cc];
-  for (int t = 0; t < k_trans; ++t) {
-    float m0[D], th0[D];
-    // two normals per Philox draw, as in glm_multistep
-#pragma unroll
-    for (int j = 0; j < D; j += 2) {
-      uint4 b = philox(make_uint4((uint32_t)cc, (uint32_t)t, (uint32_t)(j / 2), 0u), key);
-      m0[j] = j < p.d ? box_muller(b.x, b.y) : 0.f;
-      if (j + 1 < D) m0[j + 1] = j + 1 < p.d ? box_muller(b.z, b.w) : 0.f;
-    }
-    uint4 bu = philox(make_uint4((uint32_t)cc, (uint32_t)t, 0xFFFFFFFFu, 0u), key);
-    const float logu = logf(1.f - u01(bu.x));
-    copy<D>(th0, th);
-    const PhiloxNoise nz{key, (uint32_t)cc, (uint32_t)t};
-    int nd;
-    bool dv;
-    nuts_transition<D>(p, sm, eps, md, multinomial != 0, c < C, th, g, lp,
-                       m0, logu, nz, nd, dv);
-    bool acc = false;
-#pragma unroll
-    for (int j = 0; j < D; ++j) acc = acc || th[j] != th0[j];
-    if (c < C) {
-      const size_t row = (size_t)t * C;
-      store_vec<D>(r_th + row * p.d, th, c, p.d);
-      store_vec<D>(r_g + row * p.d, g, c, p.d);
-      r_lp[row + c] = lp;
-      r_acc[row + c] = acc ? 1 : 0;
-      r_nd[row + c] = nd;
-      r_div[row + c] = dv ? 1 : 0;
-    }
-  }
-  if (c < C) {
-    store_vec<D>(th_out, th, c, p.d);
-    store_vec<D>(g_out, g, c, p.d);
-    lp_out[c] = lp;
+    __syncthreads();
+    tile = next_tile;
   }
 }
 
 // ---- host side -------------------------------------------------------------
+
+// The shared-memory plan of nuts_tile_kernel: traj_grad's, with the two
+// checkpoint stacks of md slots as the kernel's own.
+TrajPlan nuts_plan(int D, int N, int md) {
+  return traj_plan(D, N, 2 * sizeof(float) * (size_t)md * kTileChains * D);
+}
+
+bool nuts_args_ok(int d, int N, int kind, const NutsArgs& a) {
+  return tile_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
+         a.md >= 1 && a.md <= kMaxDoublings && a.k_trans >= 1;
+}
+
+// Launch nuts_tile_kernel<D, MS>: persistent blocks, as many as fit at once.
+template <bool MS>
+int launch_nuts(const float* xt, const float* y, const float* w,
+                const float* o, const float* lamv, int N, int d, int kind,
+                float lam, const NutsArgs& a, void* stream) {
+  if (!nuts_args_ok(d, N, kind, a)) return (int)cudaErrorInvalidValue;
+  const int D = tile_bound_for(d);
+  const TrajPlan tp = nuts_plan(D, N, a.md);
+  const Glm p{xt, y, w, o, lamv, N, d, kind, lam, tp.rows, tp.resident};
+  const int tiles = (a.C + kTileChains - 1) / kTileChains;
+  int dev, sms, per_sm;
+  cudaError_t e0 = cudaGetDevice(&dev);
+  if (e0 == cudaSuccess)
+    e0 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e0 != cudaSuccess) return (int)e0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(DD)                                                          \
+  {                                                                         \
+    cudaError_t e = prepare(nuts_tile_kernel<DD, MS>, tp.smem);             \
+    if (e == cudaSuccess)                                                   \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+          &per_sm, nuts_tile_kernel<DD, MS>, kTrajThreads, tp.smem);        \
+    if (e != cudaSuccess) return (int)e;                                    \
+    const int blocks = min(tiles, sms * max(per_sm, 1));                    \
+    nuts_tile_kernel<DD, MS><<<blocks, kTrajThreads, tp.smem, st>>>(p, a);  \
+  }
+  TILE_DISPATCH(D, LAUNCH)
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -355,26 +509,28 @@ int glm_nuts_transition(const float* xt, const float* y, const float* w,
                         const float* leaf, float* th_out, float* g_out,
                         float* lp_out, int* nd_out, unsigned char* div_out,
                         float eps, float lam, int md, int kind,
-                        int multinomial, void* stream) {
-  const int D = bound_for(d);
-  Glm p;
-  size_t smem;
-  if (!D || C < 1 || md < 1 || md > kMaxDoublings ||
-      !make_params(xt, y, w, o, lamv, N, d, kind, lam, D, &p, &smem))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (C + kThreads - 1) / kThreads;
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(DD)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(nuts_kernel<DD>, smem);                         \
-    if (e != cudaSuccess) return (int)e;                                    \
-    nuts_kernel<DD><<<blocks, kThreads, smem, st>>>(                        \
-        p, C, eps, md, multinomial, th_in, lp_in, g_in, m0, logu, dirn,     \
-        merge, leaf, th_out, g_out, lp_out, nd_out, div_out);               \
-  }
-  GLM_DISPATCH(D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+                        int multinomial, int* queue, void* stream) {
+  NutsArgs a{};
+  a.C = C;
+  a.md = md;
+  a.multinomial = multinomial;
+  a.k_trans = 1;
+  a.eps = eps;
+  a.th_in = th_in;
+  a.lp_in = lp_in;
+  a.g_in = g_in;
+  a.m0 = m0;
+  a.logu = logu;
+  a.dirn = dirn;
+  a.merge = merge;
+  a.leaf = leaf;
+  a.th_out = th_out;
+  a.g_out = g_out;
+  a.lp_out = lp_out;
+  a.nd_out = nd_out;
+  a.div_out = div_out;
+  a.queue = queue;
+  return launch_nuts<false>(xt, y, w, o, lamv, N, d, kind, lam, a, stream);
 }
 
 int glm_nuts_multistep(const float* xt, const float* y, const float* w,
@@ -384,27 +540,54 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
                        float* lp_out, float* r_th, float* r_g, float* r_lp,
                        unsigned char* r_acc, int* r_nd, unsigned char* r_div,
                        float eps, float lam, int md, int kind, int multinomial,
-                       int k_trans, unsigned long long seed, void* stream) {
-  const int D = bound_for(d);
-  Glm p;
-  size_t smem;
-  if (!D || C < 1 || md < 1 || md > kMaxDoublings || k_trans < 1 ||
-      !make_params(xt, y, w, o, lamv, N, d, kind, lam, D, &p, &smem))
+                       int k_trans, unsigned long long seed, int* queue,
+                       void* stream) {
+  NutsArgs a{};
+  a.C = C;
+  a.md = md;
+  a.multinomial = multinomial;
+  a.k_trans = k_trans;
+  a.eps = eps;
+  a.key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  a.th_in = th_in;
+  a.lp_in = lp_in;
+  a.g_in = g_in;
+  a.th_out = th_out;
+  a.g_out = g_out;
+  a.lp_out = lp_out;
+  a.r_th = r_th;
+  a.r_g = r_g;
+  a.r_lp = r_lp;
+  a.r_acc = r_acc;
+  a.r_nd = r_nd;
+  a.r_div = r_div;
+  a.queue = queue;
+  return launch_nuts<true>(xt, y, w, o, lamv, N, d, kind, lam, a, stream);
+}
+
+// How nuts_tile_kernel runs at (d, N, md): blocks resident per SM (from
+// the occupancy calculator), dynamic shared memory per block, and whether
+// all rows stay resident.  Returns a CUDA error code.
+int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
+                  int* resident) {
+  const int D = tile_bound_for(d);
+  if (!D || N < 1 || md < 1 || md > kMaxDoublings)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (C + kThreads - 1) / kThreads;
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(DD)                                                          \
+  const TrajPlan tp = nuts_plan(D, N, md);
+  *smem = (int)tp.smem;
+  *resident = tp.resident ? 1 : 0;
+#define PLAN(DD)                                                            \
   {                                                                         \
-    cudaError_t e = prepare(nuts_multistep_kernel<DD>, smem);               \
+    cudaError_t e = prepare(nuts_tile_kernel<DD, false>, tp.smem);          \
+    if (e == cudaSuccess)                                                   \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+          blocks_per_sm, nuts_tile_kernel<DD, false>, kTrajThreads,         \
+          tp.smem);                                                         \
     if (e != cudaSuccess) return (int)e;                                    \
-    nuts_multistep_kernel<DD><<<blocks, kThreads, smem, st>>>(              \
-        p, C, eps, md, multinomial, k_trans, key, th_in, lp_in, g_in,       \
-        th_out, g_out, lp_out, r_th, r_g, r_lp, r_acc, r_nd, r_div);        \
   }
-  GLM_DISPATCH(D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  TILE_DISPATCH(D, PLAN)
+#undef PLAN
+  return 0;
 }
 
 }  // extern "C"

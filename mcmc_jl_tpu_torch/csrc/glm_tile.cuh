@@ -1,6 +1,9 @@
 // The chain-tile GLM gradient on the tensor cores, shared by the trajectory
-// kernel (glm_hmc.cu leapfrogs_tile_kernel) and the N-tiled kernel
-// (glm_bign.cu partial_tile_kernel).
+// kernel (glm_hmc.cu leapfrogs_tile_kernel), the N-tiled kernel
+// (glm_bign.cu partial_tile_kernel) and the two NUTS kernels (glm_nuts.cu
+// nuts_tile_kernel).  traj_grad, at the end, is one gradient of a tile's
+// 16 chains with the rows split over 16 warps: kernel 1 takes one per
+// drift, the NUTS kernels one per leaf.
 //
 // For a tile of 16 chains (one warp) and a group of 8 observation rows it
 // computes, as the Pallas kernels do (pallas_glm.py:164-181,
@@ -34,7 +37,7 @@
 // Rows are staged either once (resident) or streamed through shared memory
 // in tiles: cp.async copies the next tile (4 bytes a thread, any N and any
 // alignment) into one of two raw buffers while the current tile, already
-// split, is computed.  Everything here is inlined into the two kernels (no
+// split, is computed.  Everything here is inlined into the kernels (no
 // lambdas, no calls): a routine left out of line would take the staged
 // rows through generic pointers and the fragments through local memory.
 #pragma once
@@ -405,6 +408,87 @@ __device__ __forceinline__ double quad_sum(double v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
+}
+
+// ---- the tile gradient of 16 chains, shared by the tile kernels ----------
+
+constexpr int kTrajWarps = 16;                 // warps split a tile's rows
+constexpr int kTrajThreads = 32 * kTrajWarps;
+constexpr int kTrajStreamMax = 512;            // rows per streamed tile
+
+// Shared memory of a kernel that runs traj_grad, in this order: per-warp ll
+// partials (kTrajWarps x 16 doubles), per-warp gradient partials
+// (kTrajWarps x 16 x D floats), the tile's theta (16 x D), `extra` bytes of
+// the kernel's own (a multiple of 8), then the rows: all of them
+// (resident), or two raw cp.async buffers and one staged tile.
+struct TrajPlan {
+  int rows;       // rows staged: round8(N) when resident, else the tile
+  bool resident;
+  size_t smem;    // bytes
+};
+
+TrajPlan traj_plan(int D, int N, size_t extra = 0) {
+  const size_t fixed = sizeof(double) * kTrajWarps * kTileChains +
+                       sizeof(float) * (kTrajWarps + 1) * kTileChains * D +
+                       extra;
+  const size_t row = sizeof(float) * tile_row_floats(D);
+  const size_t n8 = ((size_t)N + 7) & ~(size_t)7;
+  if (fixed + n8 * row <= (size_t)kTileSmemCap)
+    return {(int)n8, true, fixed + n8 * row};
+  const size_t per = row + 2 * sizeof(float) * raw_row_floats(D);
+  int R = (int)((kTileSmemCap - fixed) / per) & ~7;
+  if (R > kTrajStreamMax) R = kTrajStreamMax;
+  return {R, false, fixed + R * per};
+}
+
+// One gradient of the block's 16 chains at the theta in sth: the warps
+// split the row groups, each leaves its partial G in part and, with
+// want_ll, its ll partials in pll.  Starts and ends on a barrier.
+template <int D>
+__device__ __forceinline__ void traj_grad(const Glm& p, const Rows& t,
+                                          float* raw, const float* sth,
+                                          float* part, double* pll,
+                                          bool want_ll) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  __syncthreads();  // theta (and resident rows) written
+  uint32_t ah[D / 8][4], al[D / 8][4];
+  theta_frags<D>(sth + g * D, sth + (g + 8) * D, D, ah, al);
+  float gb[D / 8][4], gs[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gb[nb][e] = gs[nb][e] = 0.f;
+  double ll[2] = {0.0, 0.0};
+  // resident: one pass over all rows (p.tile >= N); else tile by tile
+  if (!p.resident) stream_begin<D>(p, raw, p.tile, 0, p.N);
+  for (int t0 = 0, buf = 0; t0 < p.N; t0 += p.tile, buf ^= 1) {
+    const int nt =
+        p.resident ? p.N : stream_next<D>(p, raw, t, p.tile, t0, p.N, buf);
+    if (want_ll)
+      chain_tile_rows<D, true>(p.kind, t, nt, warp, kTrajWarps, ah, al, gb,
+                               gs, ll);
+    else
+      chain_tile_rows<D, false>(p.kind, t, nt, warp, kTrajWarps, ah, al, gb,
+                                gs, ll);
+  }
+  float* pw = part + warp * kTileChains * D;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int j = 8 * nb + 2 * q;
+    pw[g * D + j] = gb[nb][0] + gs[nb][0];
+    pw[g * D + j + 1] = gb[nb][1] + gs[nb][1];
+    pw[(g + 8) * D + j] = gb[nb][2] + gs[nb][2];
+    pw[(g + 8) * D + j + 1] = gb[nb][3] + gs[nb][3];
+  }
+  if (want_ll) {
+    const double a = quad_sum(ll[0]), b = quad_sum(ll[1]);
+    if (q == 0) {
+      pll[warp * kTileChains + g] = a;
+      pll[warp * kTileChains + g + 8] = b;
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace

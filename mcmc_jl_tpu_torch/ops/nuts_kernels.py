@@ -19,7 +19,9 @@ wrapper (this module)             Pallas kernel it replaces
 ================================  =========================================
 
 Each has a plain PyTorch version beside it (``*_ref``): batched tensor ops
-over all chains with per-chain masks, on the same pre-drawn buffers.  A
+over all chains with per-chain masks, on the same pre-drawn buffers
+(:func:`glm_nuts_multistep_draws` replays the draws the multistep kernel
+makes inside, so that its plain version can take them).  A
 wrapper runs the plain version only for tensors on the CPU; for CUDA tensors
 it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``, each call of a plain version one to
@@ -44,18 +46,27 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
 from .glm_kernels import (KIND_CODES, _check, _device_branch, _prior,
                           _prior_args, _ptr, _row, glm_funcs)
-from .target_kernels import (_eps, _eps_args, kernel_args, launch,
+from . import philox
+from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
                              load_library, target_funcs)
 
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10
+#: Philox draw numbers of one (chain, transition) in
+#: :func:`glm_nuts_multistep` (csrc/glm_nuts.cu): the momenta take
+#: 0 .. d/2 - 1 (two normals a draw) and the slice uniform ``SLICE_DRAW``;
+#: doubling j's direction and merge uniform ``DIR_DRAW + j`` and
+#: ``MERGE_DRAW + j``; leaf ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that
+DIR_DRAW, MERGE_DRAW, LEAF_DRAW, SLICE_DRAW = 0x100, 0x200, 0x10000, \
+    0xFFFFFFFF
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition")
@@ -81,10 +92,11 @@ def _check_md(maxdoublings):
 
 
 def _transition(logp_grad, theta, lp, grad, eps, m0, logu, dirn, merge_u,
-                leaf_u, md, multinomial):
+                leaf_u, md, multinomial, leaves=None):
     """One exact NUTS transition for all chains in lockstep, the Pallas
     kernel's algorithm: per-chain masks ``s`` (trajectory running) and
-    ``ok`` (subtree running) hold the stopped chains.
+    ``ok`` (subtree running) hold the stopped chains.  ``leaves``, a (C,)
+    tensor, gathers each chain's leaf count.
     Returns (theta, grad, lp, ndoublings, diverging)."""
     C, d = theta.shape
     dt, dev = theta.dtype, theta.device
@@ -117,6 +129,8 @@ def _transition(logp_grad, theta, lp, grad, eps, m0, logu, dirn, merge_u,
             if not bool(ok.any()):
                 break
             run = ok
+            if leaves is not None:
+                leaves += run
             tm = wm + 0.5 * esw * wg
             tp = wp + esw * tm
             tlp, tg = logp_grad(tp)
@@ -218,13 +232,46 @@ def _rows(th, g, lp, acc, nd, dv):
             "ndoublings": nd, "diverging": dv}
 
 
+def glm_nuts_multistep_draws(seed, C, d, k_trans, maxdoublings, i0=0,
+                             device="cpu"):
+    """The draws that :func:`glm_nuts_multistep` makes inside under the
+    launch seed ``seed``, replayed by :mod:`.philox` and laid out as
+    :func:`draw_noise` lays them out, one set per transition: (m0 (k, C, d),
+    logu (k, C), dirn (k, C, md) in {-1, +1}, merge_u (k, C, md), leaf_u
+    (k, C, 2^md)) for the transitions ``i0 .. i0 + k_trans - 1`` of the
+    Philox counter (chain, transition, draw).  The uniforms are exact; the
+    normals and log-uniforms lie within a few float32 ulps of the
+    kernel's."""
+    md = _check_md(maxdoublings)
+    c = np.arange(C, dtype=np.uint32)[None, :, None]
+    t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
+
+    def u(draws):  # 1 - U[0, 1): the kernel's uniform in (0, 1]
+        b = philox.philox4x32((c, t, np.asarray(draws, np.uint32), 0), seed)
+        return (1.0 - philox.u01(b[0])).astype(np.float32)
+
+    j = np.arange(d, dtype=np.uint32)
+    b = philox.philox4x32((c, t, j // 2, 0), seed)
+    m0 = np.where(j % 2 == 0, philox.box_muller(b[0], b[1]),
+                  philox.box_muller(b[2], b[3]))
+    logu = philox.log1m_u01(philox.philox4x32(
+        (c[..., 0], t[..., 0], SLICE_DRAW, 0), seed)[0])
+    steps = np.arange(md, dtype=np.uint32)
+    dirn = np.where(u(DIR_DRAW + steps) < 0.5, -1.0, 1.0).astype(np.float32)
+    out = (m0, logu, dirn, u(MERGE_DRAW + steps),
+           u(LEAF_DRAW + np.arange(1 << md, dtype=np.uint32)))
+    return tuple(torch.from_numpy(a).to(device) for a in out)
+
+
 def glm_nuts_multistep_ref(XT, Y, theta, lp, grad, eps, generator, *,
                            k_trans=8, maxdoublings=6, kind="logistic",
                            weights=None, offsets=None, prior_prec=1.0,
-                           multinomial=False):
+                           multinomial=False, draws=None):
     """Plain version of :func:`glm_nuts_multistep`: the noise of each
     transition comes from ``generator`` (:func:`draw_noise`; another stream
-    than the kernel's Philox, so compare statistically)."""
+    than the kernel's Philox, so compare statistically), or from ``draws``,
+    the kernel's own replayed by :func:`glm_nuts_multistep_draws` (then
+    chain by chain)."""
     PLAIN_CALLS["glm_nuts_multistep"] += 1
     md = _check_md(maxdoublings)
     _, logp_grad = glm_funcs(XT, Y, weights, offsets, _prior(prior_prec),
@@ -232,8 +279,9 @@ def glm_nuts_multistep_ref(XT, Y, theta, lp, grad, eps, generator, *,
     C, d = theta.shape
     lp = lp.reshape(-1)
     rows = []
-    for _ in range(k_trans):
-        noise = draw_noise(C, d, md, generator, theta.dtype, theta.device)
+    for t in range(k_trans):
+        noise = (draw_noise(C, d, md, generator, theta.dtype, theta.device)
+                 if draws is None else tuple(a[t] for a in draws))
         th2, g2, lp2, nd, dv = _transition(logp_grad, theta, lp, grad, eps,
                                            *noise, md, multinomial)
         rows.append(_rows(th2, g2, lp2, (th2 != theta).any(-1), nd, dv))
@@ -249,9 +297,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "glm_nuts_transition": [_P] * 5 + [_I] * 3 + [_P] * 13
-    + [_F, _F, _I, _I, _I, _P],
+    + [_F, _F, _I, _I, _I, _P, _P],
     "glm_nuts_multistep": [_P] * 5 + [_I] * 3 + [_P] * 12
-    + [_F, _F, _I, _I, _I, _I, ctypes.c_ulonglong, _P],
+    + [_F, _F, _I, _I, _I, _I, ctypes.c_ulonglong, _P, _P],
+    "glm_nuts_plan": [_I, _I, _I] + [ctypes.POINTER(_I)] * 3,
 }
 
 
@@ -283,6 +332,32 @@ def _launch(name, *args):
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.nuts_error_string(code).decode()} ({code})")
     LAUNCHES[name] += 1
+
+
+_QUEUES = {}
+
+
+def _queue(dev):
+    """The kernels' tile queue on ``dev``'s current stream: one int that
+    the blocks take their tiles from, zeroed once here and put back to 0 by
+    every launch (launches on one stream run in turn)."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _QUEUES:
+        _QUEUES[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _QUEUES[key]
+
+
+def nuts_plan(d, N, maxdoublings):
+    """How the NUTS kernels run at (d, N, maxdoublings) on the card:
+    {"blocks_per_sm", "smem_bytes", "resident"} (resident: every row stays
+    in shared memory)."""
+    outs = [ctypes.c_int() for _ in range(3)]
+    code = load_kernels().glm_nuts_plan(d, N, _check_md(maxdoublings),
+                                        *[ctypes.byref(o) for o in outs])
+    if code != 0:
+        raise RuntimeError(f"glm_nuts_plan failed ({code})")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "resident"),
+                    (o.value for o in outs)))
 
 
 def _check_noise(name, C, md, dev, **bufs):
@@ -331,7 +406,8 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
                 N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(m0),
                 _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
                 _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
-                float(eps), lam, md, KIND_CODES[kind], int(multinomial))
+                float(eps), lam, md, KIND_CODES[kind], int(multinomial),
+                _ptr(_queue(theta.device)))
     return th_o, g_o, lp_o, nd_o, dv_o
 
 
@@ -394,7 +470,8 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     Box-Muller, slice, directions, merge and leaf uniforms) made inside the
     kernel from Philox4x32-10 keyed by a seed drawn from ``generator`` and
     counted by (chain, transition, draw): a generator in the same state
-    repeats a launch bitwise.
+    repeats a launch bitwise, and :func:`glm_nuts_multistep_draws` replays
+    the draws.
     Returns (theta, grad, lp (C,), rows) with rows ``ppars``/``pgrads``
     (k, C, d), ``plogtarget`` (k, C), ``accept``/``diverging`` (k, C) bool
     and ``ndoublings`` (k, C) int32, each after its transition."""
@@ -411,8 +488,7 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad}, {"lp": lp})
     lam, lamv = _prior_args(name, prior_prec, d, theta.device)
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device).item())
+    seed = _seed(generator)
     dev = theta.device
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=dev)
@@ -427,7 +503,8 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
                 N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(th_o),
                 _ptr(g_o), _ptr(lp_o), _ptr(r_th), _ptr(r_g), _ptr(r_lp),
                 _ptr(r_acc), _ptr(r_nd), _ptr(r_dv), float(eps), lam, md,
-                KIND_CODES[kind], int(multinomial), int(k_trans), int(seed))
+                KIND_CODES[kind], int(multinomial), int(k_trans), int(seed),
+                _ptr(_queue(dev)))
     return th_o, g_o, lp_o, _rows(r_th, r_g, r_lp, r_acc, r_nd, r_dv)
 
 

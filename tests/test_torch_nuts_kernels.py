@@ -184,3 +184,197 @@ def test_wrappers_check_what_the_kernels_take():
     with pytest.raises(ValueError, match="multiple of k_trans"):
         nk._nuts_run_hw(XT, Yt, th, 0.2, gen, steps=5, k_trans=2,
                         maxdoublings=3)
+
+
+@pytest.mark.parametrize("d, md, i0", [(3, 4, 0), (4, 2, 5)])
+def test_multistep_draws_follow_the_kernel_counters(d, md, i0):
+    """glm_nuts_multistep_draws lays out the multistep kernel's Philox
+    draws as draw_noise does, one set per transition, each at its counter
+    (chain, transition, draw) as csrc/glm_nuts.cu forms it: momenta two
+    normals a draw at draw j // 2, the slice's log-uniform at 0xFFFFFFFF,
+    doubling j's direction (u < 0.5 -> -1) and merge uniform at 0x100 + j
+    and 0x200 + j, leaf l's at 0x10000 + l; uniforms are 1 - U[0, 1)."""
+    from mcmc_jl_tpu_torch.ops import philox
+
+    seed, Cs, k = 0x1234_5678_9ABC, 5, 3
+    m0, logu, dirn, merge, leaf = nk.glm_nuts_multistep_draws(
+        seed, Cs, d, k, md, i0=i0)
+    assert m0.shape == (k, Cs, d) and logu.shape == (k, Cs)
+    assert dirn.shape == merge.shape == (k, Cs, md)
+    assert leaf.shape == (k, Cs, 1 << md)
+    assert all(a.dtype == torch.float32 for a in (m0, logu, dirn, merge, leaf))
+
+    def words(c, t, draw):
+        return [int(w) for w in philox.philox4x32((c, i0 + t, draw, 0), seed)]
+
+    def u(c, t, draw):
+        return np.float32(1.0 - (words(c, t, draw)[0] >> 8) / 16777216.0)
+
+    for t in range(k):
+        for c in range(Cs):
+            for j in range(d):
+                w = np.array(words(c, t, j // 2), dtype=np.uint32)
+                want = (philox.box_muller(w[0], w[1]) if j % 2 == 0
+                        else philox.box_muller(w[2], w[3]))
+                assert m0[t, c, j].item() == float(want)
+            w = np.array(words(c, t, nk.SLICE_DRAW)[:1], dtype=np.uint32)
+            assert logu[t, c].item() == float(philox.log1m_u01(w)[0])
+            for j in range(md):
+                ud = u(c, t, nk.DIR_DRAW + j)
+                assert dirn[t, c, j].item() == (-1.0 if ud < 0.5 else 1.0)
+                assert merge[t, c, j].item() == float(u(c, t,
+                                                        nk.MERGE_DRAW + j))
+            for leaf_no in range(1 << md):
+                assert leaf[t, c, leaf_no].item() == float(
+                    u(c, t, nk.LEAF_DRAW + leaf_no))
+    assert bool(((merge > 0) & (merge <= 1)).all())
+    assert bool(((leaf > 0) & (leaf <= 1)).all())
+    # the transition counter is absolute: i0 shifts the sets
+    later = nk.glm_nuts_multistep_draws(seed, Cs, d, k - 1, md, i0=i0 + 1)
+    for a, b in zip(later, (m0, logu, dirn, merge, leaf)):
+        assert torch.equal(a, b[1:])
+
+
+@pytest.mark.parametrize("multinomial", [False, True],
+                         ids=["slice", "multinomial"])
+def test_multistep_ref_on_draws_is_the_transitions_chained(multinomial):
+    """The multistep plain version fed replayed draws is, bitwise, k calls
+    of the transition's plain version fed the same draws one set at a
+    time, its rows each call's outputs (accept: theta moved)."""
+    X, Y = _data()
+    d = X.shape[1]
+    Cs, k, md, eps = 12, 4, 5, 0.1
+    XT = torch.as_tensor(X.T, dtype=torch.float32).contiguous()
+    Yt = torch.as_tensor(Y, dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    theta = torch.as_tensor(0.3 * rng.standard_normal((Cs, d)),
+                            dtype=torch.float32)
+    W = torch.as_tensor(rng.uniform(0.5, 2.0, X.shape[0]),
+                        dtype=torch.float32)
+    lam = torch.as_tensor(rng.uniform(0.5, 2.0, d), dtype=torch.float32)
+    kw = dict(maxdoublings=md, weights=W, prior_prec=lam,
+              multinomial=multinomial)
+    lp, g = glm_funcs(XT, Yt, W, None, lam, "logistic")[1](theta)
+    draws = nk.glm_nuts_multistep_draws(99, Cs, d, k, md)
+    th_m, g_m, lp_m, rows = nk.glm_nuts_multistep_ref(
+        XT, Yt, theta, lp, g, eps, None, k_trans=k, draws=draws, **kw)
+    th, gg, ll = theta, g, lp
+    for t in range(k):
+        out = nk.glm_nuts_transition_ref(XT, Yt, th, ll, gg, eps,
+                                         *(a[t] for a in draws), **kw)
+        assert torch.equal(rows["ppars"][t], out[0])
+        assert torch.equal(rows["pgrads"][t], out[1])
+        assert torch.equal(rows["plogtarget"][t], out[2])
+        assert torch.equal(rows["ndoublings"][t], out[3])
+        assert torch.equal(rows["diverging"][t], out[4])
+        assert torch.equal(rows["accept"][t], (out[0] != th).any(-1))
+        th, gg, ll = out[:3]
+    assert torch.equal(th_m, th) and torch.equal(g_m, gg)
+    assert torch.equal(lp_m, ll)
+    assert rows["ndoublings"].max() > 1 and rows["accept"].any()
+
+
+def _card_glm(kind, n, d, seed):
+    """A GLM of link ``kind`` with weights, offsets and a (d,) prior row on
+    the card, and the coefficients its responses were drawn at:
+    (XT, Y, W, O, lam, beta)."""
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([np.ones(n), rng.standard_normal((n, d - 1))]) * 0.3
+    beta = rng.standard_normal(d)
+    z = X @ beta
+    Y = {"linear": z + rng.standard_normal(n),
+         "poisson": rng.poisson(np.exp(z)).astype(float)}.get(
+        kind, (rng.random(n) < 1 / (1 + np.exp(-z))).astype(float))
+    cu = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                   device="cuda").contiguous()
+    return (cu(X.T), cu(Y), cu(rng.uniform(0.5, 2.0, n)),
+            cu(0.1 * rng.standard_normal(n)), cu(rng.uniform(0.5, 2.0, d)),
+            beta)
+
+
+def test_nuts_kernels_match_plain_on_card():
+    """Both NUTS kernels against their plain versions at the chain tile's
+    edges on a card (skips without one; chip_smoke.py phase_nuts_kernels
+    runs the main-path cases): ragged tiles (C 17 and 300), d 1, 10 and 32
+    (tile bounds 8, 16, 32), maxdoublings 1 and 10, rows streamed through
+    shared memory, every link with weights, offsets and a (d,) prior row,
+    slice and multinomial.  Kernel 8 takes pre-drawn noise, kernel 9 its
+    own draws, replayed for its plain version; both repeat bitwise.  At
+    least 99.5% of the chains take the plain version's discrete path
+    (equal ndoublings and diverging, theta within 1e-3 at every
+    transition); on those, theta, the gradient and lp agree to float32
+    rounding of N-term sums, kernel 9's gradient and lp with the plain
+    version's at its own theta (over k transitions the Hessian amplifies
+    theta's float32 drift in them).  Chains start near the coefficients
+    the data were drawn at ("near") or at 0 (far from the posterior, large
+    gradients); a small step at the posterior builds trees of 2^9 leaves
+    and more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    cases = [  # (kind, N, d, C, md, multinomial, eps, near)
+        ("logistic", 700, 1, 17, 1, False, 0.1, False),
+        ("probit", 3000, 10, 300, 10, True, 0.02, False),   # rows streamed
+        ("poisson", 1000, 32, 17, 10, False, 0.005, False),  # rows streamed
+        ("poisson", 1000, 32, 17, 10, True, 0.0005, True),
+        ("linear", 1000, 10, 300, 6, True, 0.01, True),
+        ("logistic", 1000, 10, 300, 10, False, 0.002, True),
+    ]
+    for i, (kind, n, d, Cc, md, multinomial, eps, near) in enumerate(cases):
+        XT, Yc, W, O, lam, beta = _card_glm(kind, n, d, seed=60 + i)
+        rng = np.random.default_rng(70 + i)
+        th = torch.as_tensor((beta if near else 0.0)
+                             + 0.05 * rng.standard_normal((Cc, d)),
+                             dtype=torch.float32, device="cuda")
+        logp_grad = glm_funcs(XT, Yc, W, O, lam, kind)[1]
+        lp, g = logp_grad(th)
+        kw = dict(maxdoublings=md, kind=kind, weights=W, offsets=O,
+                  prior_prec=lam, multinomial=multinomial)
+        scale = max(1.0, n / 1000)
+        allowed = int(0.005 * Cc)
+
+        def held(out_k, want, same):
+            assert int((~same).sum()) <= allowed, (kind, d, md)
+            for a, b, atol in zip(out_k[:3], want,
+                                  (1e-4, 2e-3 * scale, 1e-3 * scale)):
+                torch.testing.assert_close(a[same], b[same], rtol=1e-4,
+                                           atol=atol)
+
+        noise = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                      for a in (rng.standard_normal((Cc, d)),
+                                np.log(rng.random(Cc)),
+                                np.where(rng.random((Cc, md)) < 0.5, 1.0,
+                                         -1.0),
+                                rng.random((Cc, md)),
+                                rng.random((Cc, 1 << md))))
+        out_k = nk.glm_nuts_transition(XT, Yc, th, lp, g, eps, *noise, **kw)
+        again = nk.glm_nuts_transition(XT, Yc, th, lp, g, eps, *noise, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+        out_r = nk.glm_nuts_transition_ref(XT, Yc, th, lp, g, eps, *noise,
+                                           **kw)
+        held(out_k, out_r[:3], (out_k[3] == out_r[3])
+             & (out_k[4] == out_r[4])
+             & ((out_k[0] - out_r[0]).abs().amax(-1) <= 1e-3))
+
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(80 + i)
+
+        k = 3
+        out_k = nk.glm_nuts_multistep(XT, Yc, th, lp, g, eps, gen(),
+                                      k_trans=k, **kw)
+        again = nk.glm_nuts_multistep(XT, Yc, th, lp, g, eps, gen(),
+                                      k_trans=k, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(out_k[:3], again[:3]))
+        draws = nk.glm_nuts_multistep_draws(tk._seed(gen()), Cc, d, k, md,
+                                            device="cuda")
+        out_r = nk.glm_nuts_multistep_ref(XT, Yc, th, lp, g, eps, None,
+                                          k_trans=k, draws=draws, **kw)
+        rk, rr = out_k[3], out_r[3]
+        lp_at, g_at = logp_grad(out_k[0])
+        held(out_k, (out_r[0], g_at, lp_at),
+             (rk["ndoublings"] == rr["ndoublings"]).all(0)
+             & (rk["diverging"] == rr["diverging"]).all(0)
+             & ((rk["ppars"] - rr["ppars"]).abs().amax((0, 2)) <= 1e-3))
+        if near and md == 10:
+            assert int(rr["ndoublings"].max()) >= 9, (kind, d)
