@@ -39,9 +39,11 @@ Run with no arguments on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It exits non-zero without a CUDA device, and on any failed check.
-``python3 chip_smoke.py --times [ROOT]`` builds only the trajectory and
-N-tiled kernels (the chain-tile gradient) from the package under ROOT and
-times them and their two paths, to compare two trees on one card.
+``python3 chip_smoke.py --times [ROOT]`` builds only the GLM HMC, N-tiled
+and GLM NUTS libraries from the package under ROOT and times their
+kernels (1-4 and 8, 9), the paths that run them and bench.py's drivers, to
+compare two trees on one card; ``python3 chip_smoke.py --sass`` prints the
+instruction mix of the HMC tile kernels' row loops.
 """
 import contextlib
 import json
@@ -350,33 +352,17 @@ def phase_kernels(C=4096, eps=0.05, n_leaps=10):
 
     # 2: whole transition, same m0 and logu, at a step size large enough
     # (STEP_EPS) that both accepts and rejects occur
-    _, m_r, _, lp_r = gk.glm_leapfrogs_ref(XT, Y, theta, m0, g, STEP_EPS,
-                                           n_leaps=n_leaps)
-    ratio = (-lp + 0.5 * (m0 * m0).sum(-1)) - (-lp_r + 0.5 * (m_r * m_r).sum(-1))
-    sk = gk.glm_step(XT, Y, theta, g, lp[:, None], m0, logu[:, None],
-                     STEP_EPS, n_leaps=n_leaps)
-    sr = gk.glm_step_ref(XT, Y, theta, g, lp[:, None], m0, logu[:, None],
-                         STEP_EPS, n_leaps=n_leaps)
-    torch.cuda.synchronize()
-    ak, ar = sk[3][:, 0] > 0.5, sr[3][:, 0] > 0.5
-    differ = ak != ar
-    near = (ratio - logu).abs() < ACC_BAND
-    same = ~differ
-    rep = {n: _err(a[same], b[same]) for n, a, b in
-           zip(("theta", "g", "lp"), sk[:3], sr[:3])}
-    ok = (bool((~differ | near).all())
-          and _close(sk[0][same], sr[0][same], RTOL, ATOL)
-          and _close(sk[1][same], sr[1][same], RTOL, G_ATOL)
-          and _close(sk[2][same], sr[2][same], LP_RTOL, LP_ATOL)
-          and 0 < int(ar.sum()) < C)
-    emit({"phase": "kernel", "name": "glm_step", "C": C, "ok": ok,
-          "accept_agree": int(same.sum()), "accept_differ": int(differ.sum()),
-          "accept_rate": float(ar.float().mean()), **rep})
-    assert ok, "glm_step disagrees with glm_step_ref"
-    errors["glm_step"] = max(r["max_abs"] for r in rep.values())
+    errors["glm_step"] = _step_check("bench data", XT, Y, theta, m0, logu,
+                                     STEP_EPS, mix=True, n_leaps=n_leaps)
 
-    # 3: k transitions, in-kernel Philox vs torch.Generator streams:
-    # statistical agreement, and bitwise repeat for one seed
+    # 3: k transitions chain by chain on the kernel's own Philox draws,
+    # replayed, against k successive glm_step_ref calls, at STEP_EPS
+    errors["glm_multistep"] = _multistep_check(
+        "bench data", XT, Y, theta, STEP_EPS, k=20, seed=41, mix=True,
+        n_leaps=n_leaps)
+
+    # 3, statistically: 200 transitions, in-kernel Philox vs
+    # torch.Generator streams, and bitwise repeat for one seed
     k = 200
     gen = torch.Generator(device="cuda").manual_seed(3)
     res_k, res_k2 = (gk.glm_multistep(
@@ -399,8 +385,6 @@ def phase_kernels(C=4096, eps=0.05, n_leaps=10):
               (res_k[0].mean(0) - res_r[0].mean(0)).abs().max()),
           "z_theta_max": z_theta})
     assert ok, "glm_multistep disagrees with glm_multistep_ref"
-    errors["glm_multistep"] = float(
-        (res_k[0].mean(0) - res_r[0].mean(0)).abs().max())
     return errors
 
 
@@ -592,51 +576,6 @@ def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200):
           "transitions": plain_k, "n_leaps": n_leaps, "seconds": sec,
           "leapfrog_per_s": C * plain_k * n_leaps / sec, **CARD})
     return rates
-
-
-def phase_kernel_times(C=65536, n_leaps=10, eps=0.05, k_trans=200):
-    """Per-launch device time of each kernel beside its plain version on the
-    same inputs, at bench.py's shape, and the bound of each launch's work.
-    Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
-    import torch
-
-    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
-
-    XT, Yc, theta, m0, logu, lp, g = _inputs(C, seed=4)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    gen_k = torch.Generator(device="cuda").manual_seed(7)
-    calls = {
-        "glm_leapfrogs": (
-            lambda: gk.glm_leapfrogs(XT, Yc, theta, m0, g, eps, n_leaps=n_leaps),
-            lambda: gk.glm_leapfrogs_ref(XT, Yc, theta, m0, g, eps,
-                                         n_leaps=n_leaps)),
-        "glm_step": (
-            lambda: gk.glm_step(XT, Yc, theta, g, lp, m0, logu, eps,
-                                n_leaps=n_leaps),
-            lambda: gk.glm_step_ref(XT, Yc, theta, g, lp, m0, logu, eps,
-                                    n_leaps=n_leaps)),
-        "glm_multistep": (
-            lambda: gk.glm_multistep(XT, Yc, theta, eps, k_trans=k_trans,
-                                     n_leaps=n_leaps, generator=gen_k),
-            lambda: gk.glm_multistep_ref(XT, Yc, theta, eps, k_trans=k_trans,
-                                         n_leaps=n_leaps, generator=gen)),
-    }
-    d, N = XT.shape
-    inputs = {"glm_leapfrogs": (XT, Yc, theta, m0, g),
-              "glm_step": (XT, Yc, theta, g, lp, m0, logu),
-              "glm_multistep": (XT, Yc, theta)}
-    evals = {"glm_leapfrogs": C * n_leaps, "glm_step": C * n_leaps,
-             "glm_multistep": C * (1 + k_trans * n_leaps)}
-    ms, work = {}, {}
-    for name, (kern, plain) in calls.items():
-        work[name] = _bound(evals[name], d, N,
-                            _nbytes(inputs[name], kern()))
-        ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
-        emit({"phase": "kernel_time", "name": name, "C": C,
-              "k_trans": k_trans if name == "glm_multistep" else 1,
-              "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
-              **CARD})
-    return ms, work
 
 
 def _logistic_mode(X, Y, W=None, O=None, lam=1.0, iters=30):
@@ -1393,6 +1332,16 @@ def _glm_case(kind, N, d, C, seed):
             _cuda(rng.standard_normal((C, d))))
 
 
+def _lp_grad(XT, Y, theta, **kw):
+    """The plain (lp (C,), grad (C, d)) at theta under a check's keywords."""
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    lp, g = gk.glm_funcs(XT, Y, kw.get("weights"), kw.get("offsets"),
+                         kw.get("prior_prec", 1.0),
+                         kw.get("kind", "logistic"))[1](theta)
+    return lp.contiguous(), g.contiguous()
+
+
 def _traj_check(label, XT, Y, theta, m, eps, **kw):
     """glm_leapfrogs against its plain version on the same inputs, at the
     tolerances of phase_kernels (the sums' atol grows with N / 1000).
@@ -1401,10 +1350,7 @@ def _traj_check(label, XT, Y, theta, m, eps, **kw):
 
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 
-    lam = kw.get("prior_prec", 1.0)
-    _, g = gk.glm_funcs(XT, Y, kw.get("weights"), kw.get("offsets"), lam,
-                        kw.get("kind", "logistic"))[1](theta)
-    g = g.contiguous()
+    _, g = _lp_grad(XT, Y, theta, **kw)
     out_k = gk.glm_leapfrogs(XT, Y, theta, m, g, eps, **kw)
     out_r = gk.glm_leapfrogs_ref(XT, Y, theta, m, g, eps, **kw)
     torch.cuda.synchronize()
@@ -1422,20 +1368,139 @@ def _traj_check(label, XT, Y, theta, m, eps, **kw):
     return max(r["max_abs"] for r in rep.values())
 
 
-def phase_tile_kernels(main_chains=(65536, 4099)):
-    """Kernels 1 and 4, redesigned on the chain-tile gradient, against their
+def _step_check(label, XT, Y, theta, m0, logu, eps, mix=False, **kw):
+    """glm_step against its plain version on the same injected noise (m0,
+    logu): accept decisions may differ only where the plain version's MH
+    ratio lies within ACC_BAND of log u; on the chains that agree theta, g
+    and lp are held to phase_kernels' tolerances (the sums' atol grows with
+    N / 1000).  With ``mix`` the plain version must both accept and reject.
+    Returns the largest absolute error."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    C = theta.shape[0]
+    lp, g = _lp_grad(XT, Y, theta, **kw)
+    _, m_r, _, lp_r = gk.glm_leapfrogs_ref(XT, Y, theta, m0, g, eps, **kw)
+    ratio = ((-lp + 0.5 * (m0 * m0).sum(-1))
+             - (-lp_r + 0.5 * (m_r * m_r).sum(-1)))
+    args = (XT, Y, theta, g, lp[:, None], m0, logu[:, None], eps)
+    sk = gk.glm_step(*args, **kw)
+    sr = gk.glm_step_ref(*args, **kw)
+    torch.cuda.synchronize()
+    ak, ar = sk[3][:, 0] > 0.5, sr[3][:, 0] > 0.5
+    differ = ak != ar
+    near = (ratio - logu).abs() < ACC_BAND
+    same = ~differ
+    scale = max(1.0, XT.shape[1] / 1000)
+    rep = {n: _err(a[same], b[same]) for n, a, b in
+           zip(("theta", "g", "lp"), sk[:3], sr[:3])}
+    ok = (bool((~differ | near).all())
+          and _close(sk[0][same], sr[0][same], RTOL, ATOL)
+          and _close(sk[1][same], sr[1][same], RTOL, G_ATOL * scale)
+          and _close(sk[2][same], sr[2][same], LP_RTOL, LP_ATOL * scale)
+          and all(bool(torch.isfinite(a).all()) for a in sk)
+          and (not mix or 0 < int(ar.sum()) < C))
+    emit({"phase": "kernel", "name": "glm_step", "case": label, "C": C,
+          "N": XT.shape[1], "d": XT.shape[0], "eps": eps,
+          "integrator": kw.get("integrator", "leapfrog"),
+          "kind": kw.get("kind", "logistic"), "ok": ok,
+          "accept_agree": int(same.sum()), "accept_differ": int(differ.sum()),
+          "accept_rate": float(ar.float().mean()), **rep})
+    assert ok, f"glm_step ({label}) disagrees with glm_step_ref"
+    return max(r["max_abs"] for r in rep.values())
+
+
+def _multistep_check(label, XT, Y, theta, eps, k, seed, mix=False, **kw):
+    """glm_multistep against k successive glm_step_ref calls chain by chain,
+    on the kernel's own Philox draws (the launch seed a generator seeded
+    ``seed`` gives, replayed by ``glm_multistep_draws``; the replayed
+    normals and log-uniforms lie within a few float32 ulps of the
+    kernel's).  A chain is on the plain version's accept path when its
+    accept count matches and its final theta lies within LEAF_ATOL (a
+    transition taken on one side only moves theta by a trajectory, eps |m|
+    or more); at least PATH_AGREE of the chains must be, and on those the
+    final theta is held to phase_kernels' tolerances, and the kernel's g
+    and lp to the plain version's at the kernel's own theta (over k x
+    n_leaps drifts the posterior's stiff directions amplify theta's
+    rounding into g and lp: a Hessian of some 300 turns 4e-5 of theta
+    into 1e-2 of g; their distance to the replayed run is reported).  The
+    kernel also repeats bitwise.  With ``mix`` the plain version must both
+    accept and reject.  Returns the largest absolute error of theta."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    C, d = theta.shape
+    out_k, out_k2 = (gk.glm_multistep(XT, Y, theta, eps, k_trans=k,
+                                      generator=gen(), **kw)
+                     for _ in range(2))
+    m0, logu = gk.glm_multistep_draws(gk._seed(gen()), C, d, k,
+                                      device="cuda")
+    lp, g = _lp_grad(XT, Y, theta, **kw)
+    th, lp = theta, lp[:, None]
+    n_acc = torch.zeros_like(lp)
+    for t in range(k):
+        th, g, lp, acc = gk.glm_step_ref(XT, Y, th, g, lp, m0[t],
+                                         logu[t][:, None], eps, **kw)
+        n_acc += acc
+    out_r = (th, g, lp[:, 0], n_acc[:, 0] / k)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    # accept counts, not rates: a float32 rate n / k rounds apart in the
+    # kernel (a division) and in PyTorch (a product with 1 / k on the card)
+    same = (((out_k[3] * k).round() == n_acc[:, 0])
+            & ((out_k[0] - out_r[0]).abs().amax(-1) <= LEAF_ATOL))
+    scale = max(1.0, XT.shape[1] / 1000)
+    lp_own, g_own = _lp_grad(XT, Y, out_k[0], **kw)
+    rep = {n: _err(a[same], b[same]) for n, a, b in
+           zip(("theta", "g", "lp", "g_at_own_theta", "lp_at_own_theta"),
+               out_k[:3] + out_k[1:3], out_r[:3] + (g_own, lp_own))}
+    rate = float(out_r[3].mean())
+    ok = (bitwise and float(same.float().mean()) >= PATH_AGREE
+          and _close(out_k[0][same], out_r[0][same], RTOL, ATOL)
+          and _close(out_k[1][same], g_own[same], RTOL, G_ATOL * scale)
+          and _close(out_k[2][same], lp_own[same], LP_RTOL, LP_ATOL * scale)
+          and all(bool(torch.isfinite(a).all()) for a in out_k)
+          and (not mix or 0 < rate < 1))
+    emit({"phase": "kernel", "name": "glm_multistep", "case": label,
+          "draws": "the kernel's, replayed", "C": C, "N": XT.shape[1],
+          "d": d, "k_trans": k, "eps": eps,
+          "integrator": kw.get("integrator", "leapfrog"),
+          "kind": kw.get("kind", "logistic"), "ok": ok,
+          "bitwise_repeat": bitwise, "path_differ": int(C - same.sum()),
+          "accept_rate": rate, **rep})
+    assert ok, (f"glm_multistep ({label}) disagrees with successive "
+                f"glm_step_ref calls on its own draws")
+    return rep["theta"]["max_abs"]
+
+
+def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
+    """Kernels 1-4, redesigned on the chain-tile gradient, against their
     plain versions at their paths' shapes and at their edges (the 4096-chain
-    main-path case and every link at N 5000 are in phase_kernels, the
+    main-path cases and every link at N 5000 are in phase_kernels, the
     tiled kernel's bench shapes and links in phase_bign_kernels):
-    kernel 1 on bench.py's data at 65536 chains and at 4099 (a ragged last
-    tile of 16 chains); d = 1 and 32; N 16,384 (rows streamed in cp.async
-    tiles); every integrator; kernel 4 at d = 1 and 32 with weights,
-    offsets and a (d,) prior row."""
-    traj, tiled = [], []
+    kernels 1, 2 and 3 on bench.py's data at 65536 chains and at 4099 (a
+    ragged last tile of 16 chains), 2 and 3 at STEP_EPS (both accepts and
+    rejects); d = 1, 8, 16 and 32; rows streamed in cp.async tiles (N 2000
+    at d 32, 3000 at d 16, 16,384 at d 10); every link with weights,
+    offsets and prior_prec 1.3; every integrator.  Kernel 2 on injected
+    noise, kernel 3 over ``k_edge`` transitions on its own draws replayed.
+    Kernel 4 at d = 1, 16 and 32 with weights, offsets and a (d,) prior
+    row."""
+    traj, step, multi, tiled = [], [], [], []
     for C in main_chains:
-        XT, Y, theta, m0, _, _, _ = _inputs(C, seed=21)
+        XT, Y, theta, m0, logu, _, _ = _inputs(C, seed=21)
         traj.append(_traj_check(f"bench data, C {C}", XT, Y, theta, m0,
                                 0.05, n_leaps=10))
+        step.append(_step_check(f"bench data, C {C}", XT, Y, theta, m0,
+                                logu, STEP_EPS, mix=True, n_leaps=10))
+        multi.append(_multistep_check(f"bench data, C {C}", XT, Y, theta,
+                                      STEP_EPS, k_edge, seed=C, mix=True,
+                                      n_leaps=10))
     cases = [  # (label, kind, N, d, C, integrator, eps, n_leaps)
         ("d 1", "logistic", 1000, 1, 300, "leapfrog", 0.05, 10),
         ("d 32", "probit", 1000, 32, 300, "3stage", 0.02, 5),
@@ -1447,10 +1512,14 @@ def phase_tile_kernels(main_chains=(65536, 4099)):
     ]
     for i, (label, kind, N, d, C, integ, eps, nl) in enumerate(cases):
         XT, Y, W, O, theta, m = _glm_case(kind, N, d, C, seed=30 + i)
-        traj.append(_traj_check(
-            f"{label}, {kind}, weights+offsets", XT, Y, theta, m, eps,
-            n_leaps=nl, kind=kind, weights=W, offsets=O, prior_prec=1.3,
-            integrator=integ))
+        label = f"{label}, {kind}, weights+offsets"
+        kw = dict(n_leaps=nl, kind=kind, weights=W, offsets=O,
+                  prior_prec=1.3, integrator=integ)
+        traj.append(_traj_check(label, XT, Y, theta, m, eps, **kw))
+        logu = _cuda(np.log(np.random.default_rng(50 + i).random(len(theta))))
+        step.append(_step_check(label, XT, Y, theta, m, logu, eps, **kw))
+        multi.append(_multistep_check(label, XT, Y, theta, eps, k_edge,
+                                      seed=60 + i, **kw))
     rng = np.random.default_rng(43)
     for d, kind in ((1, "logistic"), (32, "probit"), (16, "poisson")):
         N, C = 20_001, 300
@@ -1459,7 +1528,8 @@ def phase_tile_kernels(main_chains=(65536, 4099)):
         tiled.append(_tiled_case(
             f"{kind}, weights+offsets, (d,) prior row, N {N}, d {d}, C {C}",
             XT, Y, theta, kind, W, O, lam))
-    return {"glm_leapfrogs": max(traj), "glm_logp_grad_tiled": max(tiled)}
+    return {"glm_leapfrogs": max(traj), "glm_step": max(step),
+            "glm_multistep": max(multi), "glm_logp_grad_tiled": max(tiled)}
 
 
 def _sfu_floor_ms(links, per_link):
@@ -1493,8 +1563,8 @@ def _plan(mod, fn, *args):
     lib = mod.load_kernels()
     if not hasattr(lib, fn):
         return None
-    outs = [ctypes.c_int() for _ in range(3 if fn == "glm_leapfrogs_plan"
-                                          else 2)]
+    outs = [ctypes.c_int() for _ in range(2 if fn == "glm_tiled_plan"
+                                          else 3)]
     code = getattr(lib, fn)(*[ctypes.c_int(a) for a in args],
                             *[ctypes.byref(o) for o in outs])
     assert code == 0, f"{fn} failed ({code})"
@@ -1502,21 +1572,22 @@ def _plan(mod, fn, *args):
     return dict(zip(keys, (o.value for o in outs)))
 
 
-def phase_tile_times(C1=(4096, 65536), C23=4096,
+def phase_tile_times(C1=(4096, 65536),
                      tiled=((4096, 100_000), (1024, 1_000_000),
                             (512, 100_000)),
                      n_leaps=10, eps=0.05, k_trans=200):
-    """Per-launch time (CUDA events) of kernels 1-4 at the shapes whose
-    launches PERF.md counts, beside the plain version, the bound (the link's
-    special functions not counted), the special-function floor and the
-    occupancy plan: kernel 1 at C1 chains (4096: the main path; 65536:
-    bench.py's), kernels 2 and 3 at C23, kernel 4 at each (C, N) of
-    ``tiled`` (4096 x 1e5: the large-N path; 512 x 1e5: the adaptive
-    large-N path), with the two products alone beside it (FP32, TF32 off;
-    a yardstick, not the same function).  Runs on whichever package
-    ``mcmc_jl_tpu_torch`` resolves to, so one call can time a parent tree.
-    Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at the paths'
-    shapes (kernel 1 at C1[0], kernel 4 at tiled[0])."""
+    """Per-launch time of kernels 1-4 at the shapes whose launches PERF.md
+    counts, beside the plain version, the bound (the link's special
+    functions not counted), the special-function floor and the occupancy
+    plan: kernels 1, 2 and 3 at each of C1 chains (4096: the main path's
+    and the drivers'; 65536: bench.py's), with CUDA events (the wrapper's
+    host work included) and torch.profiler's device time; kernel 4 at each
+    (C, N) of ``tiled`` (4096 x 1e5: the large-N path; 512 x 1e5: the
+    adaptive large-N path), with the two products alone beside it (FP32,
+    TF32 off; a yardstick, not the same function).  Runs on whichever
+    package ``mcmc_jl_tpu_torch`` resolves to, so one call can time a
+    parent tree.  Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at
+    the paths' shapes (kernels 1-3 at C1[0], kernel 4 at tiled[0])."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_bign as gb
@@ -1533,44 +1604,46 @@ def phase_tile_times(C1=(4096, 65536), C23=4096,
     for C in C1:
         XT, Yc, theta, m0, logu, lp, g = _inputs(C, seed=4)
         d, N = XT.shape
-        kern = lambda: gk.glm_leapfrogs(XT, Yc, theta, m0, g, eps,  # noqa: E731
-                                        n_leaps=n_leaps)
-        plain = lambda: gk.glm_leapfrogs_ref(XT, Yc, theta, m0, g,  # noqa: E731
-                                             eps, n_leaps=n_leaps)
-        bound = _bound(C * n_leaps, d, N, _nbytes((XT, Yc, theta, m0, g),
-                                                  kern()))
-        t = (_event_ms(kern), _event_ms(plain, reps=2))
-        floor = _sfu_floor_ms(C * N * n_leaps, SFU_PER_LINK)
-        report("glm_leapfrogs", {"C": C, "N": N, "n_leaps": n_leaps}, t,
-               bound, floor, _plan(gk, "glm_leapfrogs_plan",
-                                   d, N))
-        if C == C1[0]:
-            ms["glm_leapfrogs"], work["glm_leapfrogs"] = t, bound
-    XT, Yc, theta, m0, logu, lp, g = _inputs(C23, seed=4)
-    d, N = XT.shape
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    gen_k = torch.Generator(device="cuda").manual_seed(7)
-    calls = {
-        "glm_step": (
-            lambda: gk.glm_step(XT, Yc, theta, g, lp, m0, logu, eps,
-                                n_leaps=n_leaps),
-            lambda: gk.glm_step_ref(XT, Yc, theta, g, lp, m0, logu, eps,
-                                    n_leaps=n_leaps),
-            (XT, Yc, theta, g, lp, m0, logu), C23 * n_leaps),
-        "glm_multistep": (
-            lambda: gk.glm_multistep(XT, Yc, theta, eps, k_trans=k_trans,
-                                     n_leaps=n_leaps, generator=gen_k),
-            lambda: gk.glm_multistep_ref(XT, Yc, theta, eps, k_trans=k_trans,
-                                         n_leaps=n_leaps, generator=gen),
-            (XT, Yc, theta), C23 * (1 + k_trans * n_leaps)),
-    }
-    for name, (kern, plain, inputs, evals) in calls.items():
-        bound = _bound(evals, d, N, _nbytes(inputs, kern()))
-        t = (_event_ms(kern), _event_ms(plain, reps=2))
-        floor = _sfu_floor_ms(evals * N, SFU_PER_LINK)
-        report(name, {"C": C23, "N": N, "k_trans": k_trans
-                      if name == "glm_multistep" else 1}, t, bound, floor)
-        ms[name], work[name] = t, bound
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        gen_k = torch.Generator(device="cuda").manual_seed(7)
+        kw = dict(n_leaps=n_leaps)
+        # kernel -> (kernel call, plain call, inputs, gradient evaluations,
+        # transitions, the __global__ names: this tree's and the
+        # one-thread-per-chain kernels' before the chain-tile redesign)
+        calls = {
+            "glm_leapfrogs": (
+                lambda: gk.glm_leapfrogs(XT, Yc, theta, m0, g, eps, **kw),
+                lambda: gk.glm_leapfrogs_ref(XT, Yc, theta, m0, g, eps,
+                                             **kw),
+                (XT, Yc, theta, m0, g), C * n_leaps, 1,
+                ("leapfrogs_tile_kernel",)),
+            "glm_step": (
+                lambda: gk.glm_step(XT, Yc, theta, g, lp, m0, logu, eps,
+                                    **kw),
+                lambda: gk.glm_step_ref(XT, Yc, theta, g, lp, m0, logu, eps,
+                                        **kw),
+                (XT, Yc, theta, g, lp, m0, logu), C * n_leaps, 1,
+                ("step_tile_kernel", "step_kernel")),
+            "glm_multistep": (
+                lambda: gk.glm_multistep(XT, Yc, theta, eps,
+                                         k_trans=k_trans, generator=gen_k,
+                                         **kw),
+                lambda: gk.glm_multistep_ref(XT, Yc, theta, eps,
+                                             k_trans=k_trans, generator=gen,
+                                             **kw),
+                (XT, Yc, theta), C * (1 + k_trans * n_leaps), k_trans,
+                ("multistep_tile_kernel", "multistep_kernel")),
+        }
+        for name, (kern, plain, inputs, evals, kt, symbols) in calls.items():
+            bound = _bound(evals, d, N, _nbytes(inputs, kern()))
+            t = (_event_ms(kern), _event_ms(plain, reps=2))
+            report(name, {"C": C, "N": N, "n_leaps": n_leaps,
+                          "k_trans": kt}, t, bound,
+                   _sfu_floor_ms(evals * N, SFU_PER_LINK),
+                   _plan(gk, f"{name}_plan", d, N),
+                   device_ms=_device_ms(kern, symbols, reps=3))
+            if C == C1[0]:
+                ms[name], work[name] = t, bound
 
     rng = np.random.default_rng(51)
     for C4, N4 in tiled:
@@ -2857,11 +2930,11 @@ KERNEL_SYMBOL = {"target_leapfrogs": "leapfrogs_kernel",
 
 
 def _device_ms(fn, symbol, reps=10):
-    """Mean device milliseconds of the kernel named ``symbol`` over ``reps``
-    calls of ``fn``, from torch.profiler's CUDA activity: the kernel alone,
-    where ``_event_ms`` also counts the wrapper's host work between the two
-    events (a short kernel waits for it).  None when the profiler records
-    no device time for it."""
+    """Mean device milliseconds of the kernel named ``symbol`` (or any of a
+    tuple of names) over ``reps`` calls of ``fn``, from torch.profiler's
+    CUDA activity: the kernel alone, where ``_event_ms`` also counts the
+    wrapper's host work between the two events (a short kernel waits for
+    it).  None when the profiler records no device time for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2871,8 +2944,9 @@ def _device_ms(fn, symbol, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (symbol,) if isinstance(symbol, str) else symbol
     us = [e.device_time_total for e in prof.key_averages()
-          if symbol in e.key]
+          if any(n in e.key for n in names)]
     return sum(us) / reps / 1e3 if us and sum(us) > 0 else None
 
 
@@ -2918,8 +2992,8 @@ def main():
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing)
-    step("kernel_times", phase_kernel_times)  # kernels 1-3 at 65536 chains
-    # kernels 1-4 at the shapes whose launches are counted above
+    # kernels 1-4 at the shapes whose launches are counted above (1-3 also
+    # at bench.py's 65536 chains)
     ms, work = step("tile_times", phase_tile_times)
     for more in (step("nuts_timing", phase_nuts_timing, start),
                  step("new_kernel_times", phase_new_kernel_times, hmc_frozen),
@@ -2950,9 +3024,15 @@ def phase_path_spans(chains=4096):
     large-N path ``HMC(10, 0.005) * SerialMC(200, 50)`` at N 100,000 from
     the posterior mode (the tiled kernel), and the NUTS main paths
     ``NUTS(6) * SerialMC(700, 200)`` (kernel 9) and ``NUTS(6,
-    mass_adapt="diag") * SerialMC(699, 200)`` (kernel 8).  No checks: the
-    main phases hold these paths."""
+    mass_adapt="diag") * SerialMC(699, 200)`` (kernel 8).  Then the
+    sampling spans of bench.py's drivers at the same chains, 1000
+    transitions of HMC(10, 0.05) from the model's init: the step kernel's
+    ``run_glm_hmc(fused_step=True)``, the composed ``run_glm_hmc`` (kernel
+    1 and the test in PyTorch) and the multistep kernel's
+    ``run_glm_hmc_multistep(thin=200)``.  No checks: the main phases hold
+    these paths."""
     import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_hmc import run_glm_hmc, run_glm_hmc_multistep
 
     X, Y = bench_data()
     Xb, Yb, mode = _bench_mode(100_000)
@@ -2974,25 +3054,114 @@ def phase_path_spans(chains=4096):
         out[label] = {"total_s": time.perf_counter() - t0, **spans}
         emit({"phase": "path_spans", "path": label, "chains": chains,
               "steps": steps, "burnin": burnin, **out[label], **CARD})
+    inits = np.zeros((chains, X.shape[1]))
+    drivers = {
+        "run_glm_hmc(fused_step=True), kernel 2": lambda steps: run_glm_hmc(
+            X, Y, chains, steps, seed=2, inits=inits, device="cuda",
+            fused_step=True),
+        "run_glm_hmc(fused_step=False), kernel 1": lambda steps: run_glm_hmc(
+            X, Y, chains, steps, seed=2, inits=inits, device="cuda",
+            fused_step=False),
+        "run_glm_hmc_multistep(thin=200), kernel 3":
+            lambda steps: run_glm_hmc_multistep(
+                X, Y, chains, steps, thin=200, seed=3, inits=inits,
+                device="cuda"),
+    }
+    for label, fn in drivers.items():
+        out[label] = {"sampling_s": _time(lambda: fn(1000), reps=2)}
+        emit({"phase": "path_spans", "path": label, "chains": chains,
+              "steps": 1000, **out[label], **CARD})
     return out
+
+
+def phase_sass(lib="glm_hmc", kernels=("leapfrogs_tile_kernel",
+                                       "step_tile_kernel",
+                                       "multistep_tile_kernel"), D=16):
+    """The instruction mix of the row loops of each named kernel<D> in the
+    built library (``cuobjdump -sass``): of the innermost loops (a
+    backward branch and its target) that hold tensor-core products, those
+    with the most, i.e. the loops of two row groups, one per link kind
+    with and without the log-likelihood.  Per loop: its instructions, the
+    counts of the classes that bound it (HMMA, MUFU by function, LDS,
+    FFMA, DADD, shuffles) and the warp-instructions per chain and
+    observation (a warp takes 16 chains of 16 rows per trip).  Emits one
+    line per kernel; it is how PERF.md reads what bounds the kernels, as
+    ``ncu`` does not run on the card's machine."""
+    from collections import Counter
+
+    from mcmc_jl_tpu_torch.ops import cuda_build
+
+    path, _ = cuda_build.build(lib)
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    for name in kernels:
+        body = next(f for f in funcs if re.match(
+            rf"\S*\d+{name}ILi{D}E", f))
+        # a branch names its target as a label (.L_x_n) or an address
+        ops, at, branches = [], {}, []
+        for ln in body.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", ln)
+            if lab:
+                at[lab.group(1)] = len(ops)
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?"
+                           r"([A-Z][\w.]*)(.*?);", ln)
+            if ins:
+                at[int(ins.group(1), 16)] = len(ops)
+                ops.append(ins.group(3))
+                tgt = re.search(r"BRA[\w.]*\s+(?:.*`\((\.L_x_\d+)\)|"
+                                r"(?:\S+,\s*)?(0x[0-9a-f]+))", ln)
+                if tgt:
+                    branches.append((len(ops) - 1, tgt.group(1)
+                                     or int(tgt.group(2), 16)))
+        spans = {(at[t], i) for i, t in branches if t in at and at[t] <= i}
+        spans = {sp for sp in spans
+                 if any(o.startswith("HMMA") for o in ops[sp[0]:sp[1] + 1])}
+        # innermost: no other loop with products inside
+        inner = [ops[a:b + 1] for a, b in spans
+                 if not any(a <= a2 and b2 <= b and (a2, b2) != (a, b)
+                            for a2, b2 in spans)]
+        most = max((sum(o.startswith("HMMA") for o in lp) for lp in inner),
+                   default=0)
+        mixes = []
+        for lp in inner:
+            c = Counter(o.split(".")[0] for o in lp)
+            if c["HMMA"] != most:
+                continue
+            mufu = Counter(o for o in lp if o.startswith("MUFU"))
+            mixes.append({"instructions": len(lp), "HMMA": c["HMMA"],
+                          "MUFU": dict(mufu), "LDS": c["LDS"],
+                          "FFMA": c["FFMA"], "DADD": c["DADD"],
+                          "SHFL": c["SHFL"],
+                          "per_chain_observation": len(lp) / (16 * 16)})
+        emit({"phase": "sass", "kernel": f"{name}<{D}>", "library": lib,
+              "instructions": len(ops), "row_loops": mixes,
+              **({} if mixes else {"branch_lines": [
+                  ln.strip() for ln in body.splitlines() if "BRA" in ln][:4]})})
 
 
 def times_main():
     """``python3 chip_smoke.py --times [ROOT]``: build glm_hmc, glm_bign and
     glm_nuts from the package under ROOT (default: this checkout) and time
     kernels 1-4 alone (phase_tile_times), kernels 8 and 9 at pinned shapes
-    (phase_nuts_times) and the spans of their paths (phase_path_spans), so
-    that one call on one card can time a parent tree and this one in
-    turns."""
+    (phase_nuts_times), the spans of their paths and of bench.py's drivers
+    (phase_path_spans) and the drivers' leapfrog/s at 65536 chains
+    (phase_timing), so that one call on one card can time a parent tree and
+    this one in turns."""
     phase_device()
     phase_build(("glm_hmc", "glm_bign", "glm_nuts"))
     phase_tile_times()
     phase_nuts_times()
     phase_path_spans()
+    phase_timing()
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--times"]:
+    if sys.argv[1:2] == ["--sass"]:
+        phase_sass()
+    elif sys.argv[1:2] == ["--times"]:
         if len(sys.argv) > 2:  # before anything imports the package
             sys.path.insert(0, os.path.abspath(sys.argv[2]))
         times_main()

@@ -1,8 +1,9 @@
 // Device routines shared by the GLM kernels (glm_hmc.cu, glm_nuts.cu,
 // glm_bign.cu): the link functions, the staging of observation rows in
-// shared memory and the fused log-target + gradient pass of the kernels
-// that run one thread per chain (glm_step, glm_multistep and
-// glm_multistep_rows in glm_hmc.cu).  The Philox
+// shared memory and the fused log-target + gradient pass of the kernel
+// that runs one thread per chain (glm_multistep_rows in glm_hmc.cu; the
+// other GLM kernels run on the chain-tile gradient of glm_tile.cuh, which
+// takes the link from here for probit).  The Philox
 // generator lives in philox.cuh, shared with the custom-target kernels.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2

@@ -9,11 +9,13 @@
 //   glm_multistep      <- _multistep_kernel (halton=False, via _multistep_inner)
 //   glm_multistep_rows <- _multistep_kernel (halton=True, collect_rows=True,
 //                                            via _multistep_rows_inner)
-// The Pallas kernels share _glm_funcs + _trajectory.  Here glm_leapfrogs
-// runs on the chain-tile gradient of glm_tile.cuh (traj_grad, shared with
-// the NUTS kernels of glm_nuts.cu; the tile routines also with
-// glm_bign.cu); glm_step, glm_multistep and glm_multistep_rows run on the
-// device routines glm_eval (glm_common.cuh) and trajectory.
+// The Pallas kernels share _glm_funcs + _trajectory.  Here glm_leapfrogs,
+// glm_step and glm_multistep share one lockstep trajectory (tile_trajectory)
+// on the chain-tile gradient of glm_tile.cuh (traj_grad, shared with the
+// NUTS kernels of glm_nuts.cu; the tile routines also with glm_bign.cu).
+// glm_multistep_rows alone still runs one thread per chain on the device
+// routines glm_eval (glm_common.cuh) and trajectory below, which serve
+// nothing else.
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and grad = sum_n w_n resid(z_n, y_n) x_n -
@@ -27,36 +29,48 @@
 // and never from device memory inside the trajectory, so bytes do not bound
 // any of them: the products and the link's special functions do.
 //
-// glm_leapfrogs (kernel 1): a block takes a tile of 16 chains and runs their
-// trajectory in lockstep (the leap count and schedule are the same for every
-// chain of a launch).  Each gradient is two block products on the tensor
-// cores (mma.sync m16n8k8, 3xTF32 for float32 accuracy) with the link in
-// registers between them; the 16 warps split the row groups, and their
-// partial gradients are summed in a fixed order through shared memory: two
-// barriers per gradient.  The kicks and drifts are per-element register
-// updates: thread e < 16 D owns one coordinate of one chain.  The rows, split
-// into TF32 hi and lo parts once, stay resident in shared memory while they
-// fit (N up to 1192 at d <= 16, 624 at d <= 32); above that they stream in
-// double-buffered cp.async tiles at every gradient.  The blocks are
-// persistent, one per SM (the resident rows take about 190 KB): each stages
-// the rows once and walks the chain tiles blockIdx.x + k gridDim.x, so 4096
-// chains (256 tiles) keep every SM busy.  What bounds it now is instruction
-// issue on the CUDA cores, about 30 instructions per chain and observation
-// (the link's expf and reciprocal, the fragment loads, the TF32 splits),
-// with 16 warps per SM to hide the latency of the mma and link chains.
+// Kernels 1, 2 and 3 (hmc_tiles): a block takes a tile of 16 chains and
+// runs their trajectories in lockstep (the leap count and schedule are the
+// same for every chain of a launch).  Each gradient is two block products
+// on the tensor cores (mma.sync m16n8k8, 3xTF32 for float32 accuracy) with
+// the link in registers between them; the 16 warps split the row groups,
+// and their partial gradients are summed in a fixed order through shared
+// memory: two barriers per gradient.  The kicks and drifts are per-element
+// register updates: thread e < 16 D owns one coordinate of one chain.  The
+// rows, split into TF32 hi and lo parts once, stay resident in shared
+// memory while they fit (N up to 1192 at d <= 16, 624 at d <= 32); above
+// that they stream in double-buffered cp.async tiles at every gradient.
+// The blocks are persistent, one per SM (the resident rows take about 190
+// KB): each stages the rows once and walks the chain tiles blockIdx.x + k
+// gridDim.x, so 4096 chains (256 tiles) keep every SM busy.  What bounds
+// them is instruction issue on the CUDA cores, about 30 instructions per
+// chain and observation (the link's expf and reciprocal, the fragment
+// loads, the TF32 splits), with 16 warps per SM to hide the latency of the
+// mma and link chains.
 //
-// glm_step, glm_multistep, glm_multistep_rows (kernels 2, 3, 3b): one thread
-// per chain.  theta, m and g live in registers, the parameter count is a
-// template bound D (d <= D, unused lanes are zero and stay zero), and the
-// whole trajectory and accept run without touching device memory.  The
-// observations (x_n, y_n, w_n, o_n) are staged in shared memory as rows of a
-// fixed stride; all threads of a warp read the same row, which the shared
-// memory broadcasts.  When N rows do not fit in the shared memory budget,
-// the rows are streamed through shared memory tile by tile at every
-// gradient.  A ragged last block of chains is masked: its idle threads still
-// load tiles and reach every barrier.  These are bound by instruction issue:
-// every row is a dependent chain of d FMAs, then the link, on 128-chain
-// blocks that fill 32 of the 132 SMs at 4096 chains.
+// Kernels 2 and 3 add the Metropolis test of each chain inside the tile.
+// Every lane of a chain selects its own coordinate of theta and g, so the
+// decision is made only from values that are the same bits in all the
+// chain's lanes: lp (the 16 warps' ll partials summed in one order, the
+// prior term and 1/2 |m|^2 as chain_sum butterflies over the chain's D
+// lanes) and log u.  Kernel 3 draws inside the tile: each lane its own
+// momentum coordinate and the chain's uniform, from Philox counted by
+// (chain, transition, draw) (glm_tile.cuh momentum, log_uniform, which the
+// multistep NUTS kernel draws through too): one Philox per lane and
+// transition beside ten tile gradients.
+//
+// glm_multistep_rows (kernel 3b): one thread per chain.  theta, m and g
+// live in registers, the parameter count is a template bound D (d <= D,
+// unused lanes are zero and stay zero), and the whole trajectory and accept
+// run without touching device memory.  The observations (x_n, y_n, w_n,
+// o_n) are staged in shared memory as rows of a fixed stride; all threads
+// of a warp read the same row, which the shared memory broadcasts.  When N
+// rows do not fit in the shared memory budget, the rows are streamed
+// through shared memory tile by tile at every gradient.  A ragged last
+// block of chains is masked: its idle threads still load tiles and reach
+// every barrier.  It is bound by instruction issue: every row is a
+// dependent chain of d FMAs, then the link, on 128-chain blocks that fill
+// 32 of the 132 SMs at 4096 chains.
 //
 // In every kernel the log-likelihood sum is carried in double, so lp keeps
 // full float precision after a 1000-term sum.
@@ -68,7 +82,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;          // chains per block (kernels 2, 3, 3b)
+constexpr int kThreads = 128;          // chains per block (kernel 3b)
 constexpr int kMaxOps = 8;             // longest kick/drift schedule
 
 // Kick ("B", op 0) / drift ("A", op 1) schedule, coefficients in units of eps
@@ -80,8 +94,9 @@ struct Sched {
   float c[kMaxOps];
 };
 
-// n_leaps macro steps of the schedule; returns lp at the end point, computed
-// by the last drift's gradient pass (pallas_glm.py _trajectory).
+// n_leaps macro steps of the schedule for one chain (kernel 3b); returns lp
+// at the end point, computed by the last drift's gradient pass
+// (pallas_glm.py _trajectory).
 template <int D>
 __device__ float trajectory(const Glm& p, float* sm, const Sched& s,
                             float eps, int n_leaps, float (&th)[D],
@@ -111,173 +126,210 @@ __device__ __forceinline__ bool mh_accept(float h0, float h, float logu) {
   return (ratio > 0.f) || (ratio > logu);
 }
 
-// ---- kernel 1: the trajectory on the chain-tile gradient ------------------
+// ---- kernels 1, 2 and 3 on the chain-tile gradient ------------------------
 
-// n_leaps macro steps of the schedule for a tile of 16 chains, in lockstep:
-// the leap count and schedule are the same for every chain of the launch.
-// Thread e < 16 D owns coordinate e % D of chain e / D and keeps its theta,
-// m and g in registers: the kicks and drifts touch nothing else, and each
-// gradient is the chain-tile routine with the rows split over the warps,
-// then a fixed-order sum of the warps' partials.  The last drift's pass
-// also gives lp (pallas_glm.py _trajectory), to threads e < 16.
+// A launch of the tile kernels beyond the model and the schedule.  Kernel 1
+// reads th, m, g and writes th, m, g, lp; kernel 2 reads th, g, lp and the
+// noise m0 (C, d), logu (C,), and writes th, g, lp, accept; kernel 3 reads
+// th, draws its noise from key and writes th, g, lp and the accept rate.
+struct HmcArgs {
+  int C, n_leaps, k_trans;
+  float eps;
+  uint2 key;
+  const float *th_in, *m_in, *g_in, *lp_in, *logu_in;
+  float *th_out, *m_out, *g_out, *lp_out, *acc_out;
+};
+
+// The tile's shared memory (traj_plan's layout) and this thread's place in
+// the tile: thread e < 16 D owns coordinate e % D of chain e / D.
 template <int D>
-__global__ void __launch_bounds__(kTrajThreads, 1)
-leapfrogs_tile_kernel(Glm p, Sched s, int C, float eps, int n_leaps,
-                      const float* __restrict__ th_in,
-                      const float* __restrict__ m_in,
-                      const float* __restrict__ g_in, float* th_out,
-                      float* m_out, float* g_out, float* lp_out) {
+struct TileCtx {
+  Rows t;
+  float* raw;    // streamed rows' cp.async buffers, or null (resident)
+  float* sth;    // (16, D) theta of the gradient in flight
+  float* part;   // the warps' gradient partials
+  double* pll;   // the warps' log-likelihood partials
+  bool own;      // whole warps: 16 D is a multiple of 32
+  int oc;        // chain in the tile
+  float lam;     // prior precision of this coordinate, 0 past d
+};
+
+template <int D>
+__device__ __forceinline__ TileCtx<D> tile_ctx(const Glm& p) {
   extern __shared__ double tile_sm[];
   double* pll = tile_sm;
   float* part = reinterpret_cast<float*>(pll + kTrajWarps * kTileChains);
   float* sth = part + kTrajWarps * kTileChains * D;
   float* rest = sth + kTileChains * D;
-  float* raw = p.resident ? nullptr : rest;
-  const Rows t = rows_at<D>(
-      p.resident ? rest : rest + 2 * raw_row_floats(D) * p.tile, p.tile);
   const int tid = threadIdx.x;
   const bool own = tid < kTileChains * D;
-  const int oc = tid / D, oj = tid % D;
-  const bool live = own && oj < p.d;
-  const float lam = live ? p.lam : 0.f;
-  if (p.resident) stage_rows<D>(p, t, 0, p.N);  // once for all its tiles
-  // persistent blocks: each walks the chain tiles blockIdx.x + k gridDim.x
-  for (int c0 = blockIdx.x * kTileChains; c0 < C;
-       c0 += gridDim.x * kTileChains) {
-    const size_t at = (size_t)min(c0 + oc, C - 1) * p.d + oj;  // shadow
-    float th = live ? th_in[at] : 0.f;
-    float m = live ? m_in[at] : 0.f;
-    float gr = live ? g_in[at] : 0.f;
-    __syncthreads();  // the last tile's lp threads are done with sth
-    if (own) sth[tid] = th;
-    float lp = 0.f;
-    for (int l = 0; l < n_leaps; ++l) {
-      const bool final = l == n_leaps - 1;
-      for (int k = 0; k < s.n; ++k) {
-        const float ce = s.c[k] * eps;
-        if (s.op[k] == 0) {
-          m = m + ce * gr;
-          continue;
-        }
+  return TileCtx<D>{
+      rows_at<D>(p.resident ? rest : rest + 2 * raw_row_floats(D) * p.tile,
+                    p.tile),
+      p.resident ? nullptr : rest, sth, part, pll, own, tid / D,
+      own && tid % D < p.d ? p.lam : 0.f};
+}
+
+// One tile gradient at this thread's theta coordinate th: returns its
+// gradient coordinate; with want_ll also the chain's lp, the same bits in
+// all its lanes (the 16 warps' ll partials summed in one order, the prior
+// term a chain_sum).  Every thread of the block calls it.
+template <int D>
+__device__ __forceinline__ float tile_grad(const Glm& p, const TileCtx<D>& x,
+                                           float th, bool want_ll,
+                                           float& lp) {
+  const int tid = threadIdx.x;
+  if (x.own) x.sth[tid] = th;
+  traj_grad<D>(p, x.t, x.raw, x.sth, x.part, x.pll, want_ll);
+  if (!x.own) return 0.f;
+  float acc = 0.f;
+  for (int w = 0; w < kTrajWarps; ++w)
+    acc += x.part[w * kTileChains * D + tid];
+  if (want_ll) {  // own is warp-uniform: the whole warp sums
+    double ll = 0.0;
+    for (int w = 0; w < kTrajWarps; ++w) ll += x.pll[w * kTileChains + x.oc];
+    const float quad = chain_sum<D>(x.lam * th * th);
+    lp = (float)(ll - 0.5 * (double)quad);
+  }
+  return acc - x.lam * th;
+}
+
+// n_leaps macro steps of the schedule for the tile's 16 chains in lockstep
+// (the leap count and schedule are the same for every chain of a launch):
+// the kicks and drifts are register updates of this thread's coordinate,
+// each drift takes one tile gradient.  Returns the chain's lp at the end,
+// from the last drift's pass (pallas_glm.py _trajectory).
+template <int D>
+__device__ __forceinline__ float tile_trajectory(const Glm& p,
+                                                 const TileCtx<D>& x,
+                                                 const Sched& s, float eps,
+                                                 int n_leaps, float& th,
+                                                 float& m, float& g) {
+  float lp = 0.f;
+  for (int l = 0; l < n_leaps; ++l) {
+    const bool final = l == n_leaps - 1;
+    for (int k = 0; k < s.n; ++k) {
+      const float ce = s.c[k] * eps;
+      if (s.op[k] == 0) {
+        m = m + ce * g;
+      } else {
         th = th + ce * m;
-        if (own) sth[tid] = th;
-        const bool want = final && k == s.last_a;
-        traj_grad<D>(p, t, raw, sth, part, pll, want);
-        if (own) {
-          float acc = 0.f;
-          for (int w = 0; w < kTrajWarps; ++w)
-            acc += part[w * kTileChains * D + tid];
-          gr = acc - lam * th;
-        }
-        // lp as glm_eval forms it; no drift follows the last one, so theta
-        // in sth stays put while these threads read it
-        if (want && tid < kTileChains) {
-          double ll = 0.0;
-          for (int w = 0; w < kTrajWarps; ++w)
-            ll += pll[w * kTileChains + tid];
-          float quad = 0.f;
-#pragma unroll
-          for (int j = 0; j < D; ++j) {
-            const float tj = sth[tid * D + j];
-            const float pg = (j < p.d ? p.lam : 0.f) * tj;
-            quad = fmaf(pg, tj, quad);
-          }
-          lp = (float)(ll - 0.5 * (double)quad);
-        }
+        g = tile_grad<D>(p, x, th, final && k == s.last_a, lp);
       }
     }
-    if (live && c0 + oc < C) {
-      const size_t o = (size_t)(c0 + oc) * p.d + oj;
-      th_out[o] = th;
-      m_out[o] = m;
-      g_out[o] = gr;
-    }
-    if (tid < kTileChains && c0 + tid < C) lp_out[c0 + tid] = lp;
   }
+  return lp;
 }
 
+// One HMC transition of the tile's chains from (th, g, lp) with momentum m
+// and log-uniform logu: the trajectory, then the NaN-rejecting test on
+// values that are the same bits in all the chain's lanes (lp, the
+// chain_sum of |m|^2, logu), so every lane selects alike.  Updates (th, g,
+// lp) to the accepted or the old state; returns the accept bit.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-step_kernel(Glm p, Sched s, int C, float eps, int n_leaps,
-            const float* __restrict__ th_in, const float* __restrict__ g_in,
-            const float* __restrict__ lp_in, const float* __restrict__ m0_in,
-            const float* __restrict__ logu_in, float* th_out, float* g_out,
-            float* lp_out, float* acc_out) {
-  extern __shared__ float sm[];
-  stage<D>(p, sm);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;
-  float th[D], m[D], g[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  load_vec<D>(m, m0_in, cc, p.d);
-  load_vec<D>(g, g_in, cc, p.d);
-  const float lp0 = lp_in[cc];
-  const float h0 = -lp0 + half_sq<D>(m);
-  float lp = trajectory<D>(p, sm, s, eps, n_leaps, th, m, g);
-  const bool a = mh_accept(h0, -lp + half_sq<D>(m), logu_in[cc]);
-  if (c < C) {
-    if (a) {
-      store_vec<D>(th_out, th, c, p.d);
-      store_vec<D>(g_out, g, c, p.d);
+__device__ __forceinline__ bool tile_transition(const Glm& p,
+                                                const TileCtx<D>& x,
+                                                const Sched& s, float eps,
+                                                int n_leaps, float& th,
+                                                float& g, float& lp, float m,
+                                                float logu) {
+  const float h0 = -lp + 0.5f * chain_sum<D>(m * m);
+  float thp = th, gp = g;
+  const float lpp = tile_trajectory<D>(p, x, s, eps, n_leaps, thp, m, gp);
+  const bool a = mh_accept(h0, -lpp + 0.5f * chain_sum<D>(m * m), logu);
+  if (a) {
+    th = thp;
+    g = gp;
+    lp = lpp;
+  }
+  return a;
+}
+
+// Kernels 1, 2 and 3: a block of kTrajThreads threads takes a tile of 16
+// chains at a time; the blocks are persistent and walk the tiles
+// blockIdx.x + k gridDim.x (every tile does the same work).  A ragged last
+// tile's lanes past C shadow chain C - 1 (its inputs and its draws, so
+// they follow its path) and write nothing.  Threads that own no
+// coordinate take part in every tile gradient.
+enum HmcMode { kTraj = 0, kStep = 1, kMulti = 2 };
+
+template <int D, int MODE>
+__device__ __forceinline__ void hmc_tiles(const Glm& p, const Sched& s,
+                                          const HmcArgs& a) {
+  const TileCtx<D> x = tile_ctx<D>(p);
+  const int oj = threadIdx.x % D;
+  const bool live = x.own && oj < p.d;
+  if (p.resident) stage_rows<D>(p, x.t, 0, p.N);  // once for all its tiles
+  for (int c0 = blockIdx.x * kTileChains; c0 < a.C;
+       c0 += gridDim.x * kTileChains) {
+    const int c = c0 + x.oc, cs = min(c, a.C - 1);
+    const size_t at = (size_t)cs * p.d + oj;
+    const bool out = live && c < a.C;               // writes a coordinate
+    const bool head = x.own && oj == 0 && c < a.C;  // writes a chain's scalars
+    float th = live ? a.th_in[at] : 0.f, g, lp = 0.f;
+    if constexpr (MODE == kTraj) {
+      float m = live ? a.m_in[at] : 0.f;
+      g = live ? a.g_in[at] : 0.f;
+      lp = tile_trajectory<D>(p, x, s, a.eps, a.n_leaps, th, m, g);
+      if (out) {
+        a.th_out[at] = th;
+        a.m_out[at] = m;
+        a.g_out[at] = g;
+      }
+      if (head) a.lp_out[c] = lp;
+    } else if constexpr (MODE == kStep) {
+      g = live ? a.g_in[at] : 0.f;
+      if (x.own) lp = a.lp_in[cs];
+      const float m = live ? a.m_in[at] : 0.f;
+      const float logu = x.own ? a.logu_in[cs] : 0.f;
+      const bool acc =
+          tile_transition<D>(p, x, s, a.eps, a.n_leaps, th, g, lp, m, logu);
+      if (out) {
+        a.th_out[at] = th;
+        a.g_out[at] = g;
+      }
+      if (head) {
+        a.lp_out[c] = lp;
+        a.acc_out[c] = acc ? 1.f : 0.f;
+      }
     } else {
-      for (int j = 0; j < p.d; ++j) {
-        th_out[(size_t)c * p.d + j] = th_in[(size_t)c * p.d + j];
-        g_out[(size_t)c * p.d + j] = g_in[(size_t)c * p.d + j];
+      g = tile_grad<D>(p, x, th, true, lp);  // lp and g at the start
+      float n_acc = 0.f;
+      for (int t = 0; t < a.k_trans; ++t) {
+        const float m = live ? momentum(a.key, cs, t, oj) : 0.f;
+        const float logu = x.own ? log_uniform(a.key, cs, t) : 0.f;
+        if (tile_transition<D>(p, x, s, a.eps, a.n_leaps, th, g, lp, m,
+                               logu))
+          n_acc += 1.f;
+      }
+      if (out) {
+        a.th_out[at] = th;
+        a.g_out[at] = g;
+      }
+      if (head) {
+        a.lp_out[c] = lp;
+        a.acc_out[c] = n_acc / (float)a.k_trans;
       }
     }
-    lp_out[c] = a ? lp : lp0;
-    acc_out[c] = a ? 1.f : 0.f;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-multistep_kernel(Glm p, Sched s, int C, float eps, int n_leaps, int k_trans,
-                 uint2 key, const float* __restrict__ th_in, float* th_out,
-                 float* g_out, float* lp_out, float* acc_out) {
-  extern __shared__ float sm[];
-  stage<D>(p, sm);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;
-  float th[D], g[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  float lp;
-  glm_eval<D>(p, sm, th, g, &lp);
-  float n_acc = 0.f;
-  for (int t = 0; t < k_trans; ++t) {
-    float m[D], thp[D], gp[D];
-    // two normals per Philox draw; the last draw also gives the MH uniform
-#pragma unroll
-    for (int j = 0; j < D; j += 2) {
-      uint4 b = philox(make_uint4((uint32_t)cc, (uint32_t)t, (uint32_t)(j / 2), 0u), key);
-      m[j] = j < p.d ? box_muller(b.x, b.y) : 0.f;
-      if (j + 1 < D) m[j + 1] = j + 1 < p.d ? box_muller(b.z, b.w) : 0.f;
-    }
-    uint4 bu = philox(make_uint4((uint32_t)cc, (uint32_t)t, 0xFFFFFFFFu, 0u), key);
-    const float logu = logf(1.f - u01(bu.x));
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      thp[j] = th[j];
-      gp[j] = g[j];
-    }
-    const float h0 = -lp + half_sq<D>(m);
-    float lpp = trajectory<D>(p, sm, s, eps, n_leaps, thp, m, gp);
-    if (mh_accept(h0, -lpp + half_sq<D>(m), logu)) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        th[j] = thp[j];
-        g[j] = gp[j];
-      }
-      lp = lpp;
-      n_acc += 1.f;
-    }
-  }
-  if (c < C) {
-    store_vec<D>(th_out, th, c, p.d);
-    store_vec<D>(g_out, g, c, p.d);
-    lp_out[c] = lp;
-    acc_out[c] = n_acc / (float)k_trans;
-  }
+__global__ void __launch_bounds__(kTrajThreads, 1)
+leapfrogs_tile_kernel(Glm p, Sched s, HmcArgs a) {
+  hmc_tiles<D, kTraj>(p, s, a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+step_tile_kernel(Glm p, Sched s, HmcArgs a) {
+  hmc_tiles<D, kStep>(p, s, a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+multistep_tile_kernel(Glm p, Sched s, HmcArgs a) {
+  hmc_tiles<D, kMulti>(p, s, a);
 }
 
 // Radical inverse base 2 of i (samplers/chees.py halton2): the reversed bits
@@ -304,8 +356,7 @@ __device__ __forceinline__ int halton_leaps(uint32_t i, float T, float eps,
 // launch, so with streamed rows every thread still makes the same glm_eval
 // calls (the barrier rule of glm_common.cuh).
 //
-// Bound: the arithmetic of multistep_kernel (2 d N FMAs and N links per
-// gradient) times the mean leap count; the rows add 2 (k C d) + 4 (k C)
+// Bound: 2 d N FMAs and N links per gradient, times the mean leap count; the rows add 2 (k C d) + 4 (k C)
 // floats of writes per launch, small beside it.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -385,6 +436,71 @@ bool make_sched(const int* ops, const float* cs, int n, Sched* s) {
   return s->last_a >= 0;
 }
 
+using HmcKernel = void (*)(Glm, Sched, HmcArgs);
+
+template <int D>
+HmcKernel hmc_kernel(int mode) {
+  return mode == kTraj   ? leapfrogs_tile_kernel<D>
+         : mode == kStep ? step_tile_kernel<D>
+                         : multistep_tile_kernel<D>;
+}
+
+HmcKernel hmc_kernel_for(int mode, int D) {
+  switch (D) {
+    case 8: return hmc_kernel<8>(mode);
+    case 16: return hmc_kernel<16>(mode);
+    case 32: return hmc_kernel<32>(mode);
+    default: return nullptr;
+  }
+}
+
+// How the tile kernel of `mode` runs at (d, N): blocks resident per SM
+// (from the occupancy calculator), dynamic shared memory per block, and
+// whether all rows stay resident (traj_plan).  Returns a CUDA error code.
+int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
+             int* resident) {
+  const int D = tile_bound_for(d);
+  if (!D || N < 1) return (int)cudaErrorInvalidValue;
+  const TrajPlan tp = traj_plan(D, N);
+  *smem = (int)tp.smem;
+  *resident = tp.resident ? 1 : 0;
+  const HmcKernel kernel = hmc_kernel_for(mode, D);
+  cudaError_t e = prepare(kernel, tp.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, kTrajThreads, tp.smem);
+  return (int)e;
+}
+
+// Launch the tile kernel of `mode` on persistent blocks, as many as fit at
+// once: the resident rows are staged once per block, not once per tile.
+int launch_hmc(int mode, const float* xt, const float* y, const float* w,
+               const float* o, int N, int d, int kind, float lam,
+               const int* sched_ops, const float* sched_c, int n_ops,
+               const HmcArgs& a, void* stream) {
+  const int D = tile_bound_for(d);
+  Sched s;
+  if (!D || a.C < 1 || N < 1 || a.n_leaps < 1 || a.k_trans < 1 ||
+      kind < 0 || kind > 3 || !make_sched(sched_ops, sched_c, n_ops, &s))
+    return (int)cudaErrorInvalidValue;
+  const TrajPlan tp = traj_plan(D, N);
+  const Glm p{xt, y, w, o, nullptr, N, d, kind, lam, tp.rows, tp.resident};
+  const HmcKernel kernel = hmc_kernel_for(mode, D);
+  int dev, sms, per_sm;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = prepare(kernel, tp.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kTrajThreads, tp.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (a.C + kTileChains - 1) / kTileChains;
+  kernel<<<min(tiles, sms * max(per_sm, 1)), kTrajThreads, tp.smem,
+           (cudaStream_t)stream>>>(p, s, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -401,60 +517,36 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
                   float* m_out, float* g_out, float* lp_out, float eps,
                   float lam, int n_leaps, int kind, const int* sched_ops,
                   const float* sched_c, int n_ops, void* stream) {
-  const int D = tile_bound_for(d);
-  Sched s;
-  if (!D || C < 1 || N < 1 || n_leaps < 1 || kind < 0 || kind > 3 ||
-      !make_sched(sched_ops, sched_c, n_ops, &s))
-    return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = traj_plan(D, N);
-  const Glm p{xt, y, w, o, nullptr, N, d, kind, lam, tp.rows, tp.resident};
-  const int tiles = (C + kTileChains - 1) / kTileChains;
-  int dev, sms, per_sm;
-  cudaError_t e0 = cudaGetDevice(&dev);
-  if (e0 == cudaSuccess)
-    e0 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e0 != cudaSuccess) return (int)e0;
-  cudaStream_t st = (cudaStream_t)stream;
-  // persistent blocks, as many as fit at once: the resident rows are
-  // staged once per block, not once per tile
-#define LAUNCH(DD)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(leapfrogs_tile_kernel<DD>, tp.smem);            \
-    if (e == cudaSuccess)                                                   \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
-          &per_sm, leapfrogs_tile_kernel<DD>, kTrajThreads, tp.smem);       \
-    if (e != cudaSuccess) return (int)e;                                    \
-    const int blocks = min(tiles, sms * max(per_sm, 1));                    \
-    leapfrogs_tile_kernel<DD><<<blocks, kTrajThreads, tp.smem, st>>>(       \
-        p, s, C, eps, n_leaps, th_in, m_in, g_in, th_out, m_out, g_out,     \
-        lp_out);                                                            \
-  }
-  TILE_DISPATCH(D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  HmcArgs a{};
+  a.C = C;
+  a.n_leaps = n_leaps;
+  a.k_trans = 1;
+  a.eps = eps;
+  a.th_in = th_in;
+  a.m_in = m_in;
+  a.g_in = g_in;
+  a.th_out = th_out;
+  a.m_out = m_out;
+  a.g_out = g_out;
+  a.lp_out = lp_out;
+  return launch_hmc(kTraj, xt, y, w, o, N, d, kind, lam, sched_ops, sched_c,
+                    n_ops, a, stream);
 }
 
-// How leapfrogs_tile_kernel runs at (d, N): blocks resident per SM (from
-// the occupancy calculator), dynamic shared memory per block, and whether
-// all rows stay resident.  Returns a CUDA error code.
+// The occupancy plans of kernels 1, 2 and 3 at (d, N) (plan_hmc).
 int glm_leapfrogs_plan(int d, int N, int* blocks_per_sm, int* smem,
                        int* resident) {
-  const int D = tile_bound_for(d);
-  if (!D || N < 1) return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = traj_plan(D, N);
-  *smem = (int)tp.smem;
-  *resident = tp.resident ? 1 : 0;
-#define PLAN(DD)                                                            \
-  {                                                                         \
-    cudaError_t e = prepare(leapfrogs_tile_kernel<DD>, tp.smem);            \
-    if (e == cudaSuccess)                                                   \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
-          blocks_per_sm, leapfrogs_tile_kernel<DD>, kTrajThreads, tp.smem); \
-    if (e != cudaSuccess) return (int)e;                                    \
-  }
-  TILE_DISPATCH(D, PLAN)
-#undef PLAN
-  return 0;
+  return plan_hmc(kTraj, d, N, blocks_per_sm, smem, resident);
+}
+
+int glm_step_plan(int d, int N, int* blocks_per_sm, int* smem,
+                  int* resident) {
+  return plan_hmc(kStep, d, N, blocks_per_sm, smem, resident);
+}
+
+int glm_multistep_plan(int d, int N, int* blocks_per_sm, int* smem,
+                       int* resident) {
+  return plan_hmc(kMulti, d, N, blocks_per_sm, smem, resident);
 }
 
 int glm_step(const float* xt, const float* y, const float* w, const float* o,
@@ -464,27 +556,22 @@ int glm_step(const float* xt, const float* y, const float* w, const float* o,
              float eps, float lam, int n_leaps, int kind,
              const int* sched_ops, const float* sched_c, int n_ops,
              void* stream) {
-  const int D = bound_for(d);
-  Glm p;
-  Sched s;
-  size_t smem;
-  if (!D || C < 1 || n_leaps < 1 ||
-      !make_params(xt, y, w, o, nullptr, N, d, kind, lam, D, &p, &smem) ||
-      !make_sched(sched_ops, sched_c, n_ops, &s))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (C + kThreads - 1) / kThreads;
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(DD)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(step_kernel<DD>, smem);                         \
-    if (e != cudaSuccess) return (int)e;                                    \
-    step_kernel<DD><<<blocks, kThreads, smem, st>>>(                        \
-        p, s, C, eps, n_leaps, th_in, g_in, lp_in, m0, logu, th_out, g_out, \
-        lp_out, acc_out);                                                   \
-  }
-  GLM_DISPATCH(D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  HmcArgs a{};
+  a.C = C;
+  a.n_leaps = n_leaps;
+  a.k_trans = 1;
+  a.eps = eps;
+  a.th_in = th_in;
+  a.g_in = g_in;
+  a.lp_in = lp_in;
+  a.m_in = m0;
+  a.logu_in = logu;
+  a.th_out = th_out;
+  a.g_out = g_out;
+  a.lp_out = lp_out;
+  a.acc_out = acc_out;
+  return launch_hmc(kStep, xt, y, w, o, N, d, kind, lam, sched_ops, sched_c,
+                    n_ops, a, stream);
 }
 
 int glm_multistep(const float* xt, const float* y, const float* w,
@@ -493,28 +580,19 @@ int glm_multistep(const float* xt, const float* y, const float* w,
                   float eps, float lam, int n_leaps, int k_trans, int kind,
                   unsigned long long seed, const int* sched_ops,
                   const float* sched_c, int n_ops, void* stream) {
-  const int D = bound_for(d);
-  Glm p;
-  Sched s;
-  size_t smem;
-  if (!D || C < 1 || n_leaps < 1 || k_trans < 1 ||
-      !make_params(xt, y, w, o, nullptr, N, d, kind, lam, D, &p, &smem) ||
-      !make_sched(sched_ops, sched_c, n_ops, &s))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (C + kThreads - 1) / kThreads;
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(DD)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(multistep_kernel<DD>, smem);                    \
-    if (e != cudaSuccess) return (int)e;                                    \
-    multistep_kernel<DD><<<blocks, kThreads, smem, st>>>(                   \
-        p, s, C, eps, n_leaps, k_trans, key, th_in, th_out, g_out, lp_out,  \
-        acc_out);                                                           \
-  }
-  GLM_DISPATCH(D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  HmcArgs a{};
+  a.C = C;
+  a.n_leaps = n_leaps;
+  a.k_trans = k_trans;
+  a.eps = eps;
+  a.key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  a.th_in = th_in;
+  a.th_out = th_out;
+  a.g_out = g_out;
+  a.lp_out = lp_out;
+  a.acc_out = acc_out;
+  return launch_hmc(kMulti, xt, y, w, o, N, d, kind, lam, sched_ops, sched_c,
+                    n_ops, a, stream);
 }
 
 int glm_multistep_rows(const float* xt, const float* y, const float* w,

@@ -70,12 +70,11 @@ namespace {
 constexpr int kMaxDoublings = 10;    // leaf uniforms: 2^md columns per chain
 constexpr float kDeltaMax = 100.f;   // divergence gate (NUTS.jl:90-95)
 
-// Philox draw numbers inside one (chain, transition): the momenta take
-// 0 .. D/2 - 1 and the slice uniform 0xFFFFFFFF, as in glm_multistep.
+// Philox draw numbers inside one (chain, transition) beside the momenta
+// and the slice uniform (glm_tile.cuh momentum, log_uniform).
 constexpr uint32_t kDirDraw = 0x100u;      // + doubling j
 constexpr uint32_t kMergeDraw = 0x200u;    // + doubling j
 constexpr uint32_t kLeafDraw = 0x10000u;   // + leaf (1 << j) - 1 + k
-constexpr uint32_t kSliceDraw = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
@@ -127,25 +126,6 @@ __device__ __forceinline__ float leaf_u(const NutsArgs& a, int c, int t,
                                         int l) {
   if (MS) return philox_u(a.key, c, t, kLeafDraw + l);
   return a.leaf[((size_t)c << a.md) + l];
-}
-
-// Coordinate j of the momentum of (chain c, transition t): two normals per
-// Philox draw, as in glm_multistep.
-__device__ __forceinline__ float momentum(uint2 key, int c, int t, int j) {
-  const uint4 b = philox(
-      make_uint4((uint32_t)c, (uint32_t)t, (uint32_t)(j / 2), 0u), key);
-  return (j & 1) ? box_muller(b.z, b.w) : box_muller(b.x, b.y);
-}
-
-// Sum of v over the D lanes of one chain: every lane gets the same bits
-// (each step adds the same two values in either order).  Every lane of
-// the warp must call it.
-template <int D>
-__device__ __forceinline__ float chain_sum(float v) {
-#pragma unroll
-  for (int o = D / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Whether b holds in some lane of the chain; every lane of the warp must
@@ -250,8 +230,7 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
       float m, logu;
       if (MS) {
         m = live ? momentum(a.key, cs, 0, oj) : 0.f;
-        logu = logf(1.f - u01(philox(make_uint4((uint32_t)cs, 0u, kSliceDraw,
-                                                0u), a.key).x));
+        logu = log_uniform(a.key, cs, 0);
       } else {
         m = live ? a.m0[at] : 0.f;
         logu = a.logu[cs];
@@ -408,8 +387,7 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
       float m = 0.f, logu = 0.f;
       if (again) {
         if (live) m = momentum(a.key, c, T.t, oj);
-        logu = logf(1.f - u01(philox(make_uint4((uint32_t)c, (uint32_t)T.t,
-                                                kSliceDraw, 0u), a.key).x));
+        logu = log_uniform(a.key, c, T.t);
       }
       const float hs = chain_sum<D>(m * m);
       if (again) {

@@ -1,9 +1,10 @@
-// The chain-tile GLM gradient on the tensor cores, shared by the trajectory
-// kernel (glm_hmc.cu leapfrogs_tile_kernel), the N-tiled kernel
+// The chain-tile GLM gradient on the tensor cores, shared by the three HMC
+// kernels (glm_hmc.cu: trajectory, step and multistep), the N-tiled kernel
 // (glm_bign.cu partial_tile_kernel) and the two NUTS kernels (glm_nuts.cu
-// nuts_tile_kernel).  traj_grad, at the end, is one gradient of a tile's
-// 16 chains with the rows split over 16 warps: kernel 1 takes one per
-// drift, the NUTS kernels one per leaf.
+// nuts_tile_kernel).  traj_grad is one gradient of a tile's 16 chains with
+// the rows split over 16 warps: the HMC kernels take one per drift, the
+// NUTS kernels one per leaf.  After it come the per-chain helpers of those
+// kernels: a chain's sum over its lanes and its Philox draws.
 //
 // For a tile of 16 chains (one warp) and a group of 8 observation rows it
 // computes, as the Pallas kernels do (pallas_glm.py:164-181,
@@ -489,6 +490,42 @@ __device__ __forceinline__ void traj_grad(const Glm& p, const Rows& t,
     }
   }
   __syncthreads();
+}
+
+// ---- per-chain values in a tile kernel ------------------------------------
+// Thread e < 16 D owns coordinate e % D of chain e / D.  D is 8, 16 or 32,
+// so the D lanes of a chain are contiguous lanes of one warp, and the
+// owning threads are whole warps.
+
+// Sum of v over the D lanes of one chain: every lane gets the same bits
+// (each step adds the same two values in either order).  Every lane of the
+// warp must call it.
+template <int D>
+__device__ __forceinline__ float chain_sum(float v) {
+#pragma unroll
+  for (int o = D / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Philox draws of (chain c, transition t), shared by the multistep HMC
+// kernel (glm_hmc.cu) and the multistep NUTS kernel (glm_nuts.cu): the
+// momenta take draws 0 .. D/2 - 1, the MH or slice uniform draw kSliceDraw.
+// ops/glm_kernels.py glm_multistep_draws replays them on the host.
+constexpr uint32_t kSliceDraw = 0xFFFFFFFFu;
+
+// Coordinate j of the momentum: two normals per Philox draw, counter
+// (c, t, j / 2, 0), Box-Muller on (x, y) for even j and (z, w) for odd j.
+__device__ __forceinline__ float momentum(uint2 key, int c, int t, int j) {
+  const uint4 b = philox(
+      make_uint4((uint32_t)c, (uint32_t)t, (uint32_t)(j / 2), 0u), key);
+  return (j & 1) ? box_muller(b.z, b.w) : box_muller(b.x, b.y);
+}
+
+// log u of the uniform u = 1 - U[0, 1), counter (c, t, kSliceDraw, 0).
+__device__ __forceinline__ float log_uniform(uint2 key, int c, int t) {
+  return logf(1.f - u01(philox(make_uint4((uint32_t)c, (uint32_t)t,
+                                          kSliceDraw, 0u), key).x));
 }
 
 }  // namespace

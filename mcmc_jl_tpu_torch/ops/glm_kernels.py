@@ -20,6 +20,9 @@ math.  A wrapper runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``, each call of a plain version one to
 ``PLAIN_CALLS[name]``, so a run can show which of the two it went through.
+:func:`glm_multistep_draws` replays the draws :func:`glm_multistep` makes
+inside (from the launch seed :func:`_seed` takes from the generator), so
+that its plain version can take them.
 
 Layouts follow the JAX package at the public functions, minus its TPU
 padding: the transposed design ``XT`` is (d, N), ``Y``/weights/offsets are
@@ -33,14 +36,21 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..samplers.chees import halton2
 from ..samplers.integrators import SCHEDULES
+from . import philox
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
-#: largest parameter count the kernels take (csrc/glm_hmc.cu bound_for)
+#: largest parameter count the kernels take (csrc/glm_tile.cuh
+#: tile_bound_for, csrc/glm_common.cuh bound_for)
 D_MAX = 32
+#: Philox draw number of the MH (or slice) uniform of one (chain,
+#: transition) of the multistep kernels (csrc/glm_tile.cuh kSliceDraw); the
+#: momenta take draws 0 .. d/2 - 1
+SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
 LAUNCHES = dict.fromkeys(_NAMES, 0)
@@ -262,6 +272,28 @@ def glm_multistep_ref(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
     return theta, g, lp, n_acc / k_trans
 
 
+def glm_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
+    """The momenta and MH log-uniforms that :func:`glm_multistep` draws
+    inside under the launch seed ``seed`` (:func:`_seed`), replayed by
+    :mod:`.philox`: (m0 (k, C, d), logu (k, C)) float32 for the transitions
+    ``i0 .. i0 + k_trans - 1``, laid out as ``noise`` of
+    :func:`glm_multistep_ref`.  The counter is (chain, transition, draw,
+    0): coordinate j is Box-Muller on words 0, 1 (even j) or 2, 3 (odd j)
+    of draw j // 2, log u is log(1 - u) of draw ``SLICE_DRAW``
+    (csrc/glm_tile.cuh ``momentum``, ``log_uniform``; the multistep NUTS
+    kernel draws its momenta and slice the same way).  Within a few float32
+    ulps of the kernel's values."""
+    c = np.arange(C, dtype=np.uint32)[None, :, None]
+    t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
+    j = np.arange(d, dtype=np.uint32)
+    b = philox.philox4x32((c, t, j // 2, 0), seed)
+    m0 = np.where(j % 2 == 0, philox.box_muller(b[0], b[1]),
+                  philox.box_muller(b[2], b[3]))
+    logu = philox.log1m_u01(philox.philox4x32(
+        (c[..., 0], t[..., 0], SLICE_DRAW, 0), seed)[0])
+    return tuple(torch.from_numpy(a).to(device) for a in (m0, logu))
+
+
 def _draw(theta, generator):
     """One transition's momenta and MH log-uniform from ``generator``."""
     m0 = torch.randn(theta.shape, generator=generator, dtype=theta.dtype,
@@ -397,6 +429,17 @@ def _ptr(t):
     return _P(None if t is None else t.data_ptr())
 
 
+def _seed(generator):
+    """A launch seed drawn from the run's ``torch.Generator``: a generator
+    in the same state gives the same seed, which is how a check replays a
+    launch's draws."""
+    if generator is None:
+        raise ValueError("a kernel that draws inside needs a torch.Generator "
+                         "on the card for its launch seed")
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+
+
 def _launch(name, *args):
     lib = load_kernels()
     code = getattr(lib, name)(*args,
@@ -475,7 +518,8 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
     """``k_trans`` whole HMC transitions per launch, the momenta (Box-Muller)
     and MH uniforms drawn inside the kernel from Philox4x32-10 keyed by a
     seed drawn from ``generator`` and counted by (chain, transition): a
-    generator in the same state repeats a launch bitwise.
+    generator in the same state repeats a launch bitwise, and
+    :func:`glm_multistep_draws` replays its draws.
     Returns (theta, grad, lp (C,), accept rate (C,))."""
     if not _device_branch("glm_multistep", theta):
         return glm_multistep_ref(XT, Y, theta, eps, k_trans=k_trans,
@@ -484,8 +528,7 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
                                  prior_prec=prior_prec, integrator=integrator)
     N, d, C, W, O = _check("glm_multistep", XT, Y, weights, offsets, kind,
                            {"theta": theta})
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device).item())
+    seed = _seed(generator)
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
@@ -521,8 +564,7 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta})
     lam, lamv = _prior_args(name, prior_prec, d, theta.device)
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device).item())
+    seed = _seed(generator)
     dev = theta.device
     f32 = lambda *shape: torch.empty(shape, dtype=theta.dtype, device=dev)  # noqa: E731
     th_o, g_o, lp_o = f32(C, d), f32(C, d), f32(C)

@@ -51,8 +51,9 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, _check, _device_branch, _prior,
-                          _prior_args, _ptr, _row, glm_funcs)
+from .glm_kernels import (KIND_CODES, SLICE_DRAW, _check, _device_branch,
+                          _prior, _prior_args, _ptr, _row, glm_funcs,
+                          glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
                              load_library, target_funcs)
@@ -62,11 +63,11 @@ from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
 MAX_DOUBLINGS = 10
 #: Philox draw numbers of one (chain, transition) in
 #: :func:`glm_nuts_multistep` (csrc/glm_nuts.cu): the momenta take
-#: 0 .. d/2 - 1 (two normals a draw) and the slice uniform ``SLICE_DRAW``;
-#: doubling j's direction and merge uniform ``DIR_DRAW + j`` and
-#: ``MERGE_DRAW + j``; leaf ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that
-DIR_DRAW, MERGE_DRAW, LEAF_DRAW, SLICE_DRAW = 0x100, 0x200, 0x10000, \
-    0xFFFFFFFF
+#: 0 .. d/2 - 1 (two normals a draw) and the slice uniform ``SLICE_DRAW``,
+#: as in :func:`.glm_kernels.glm_multistep_draws`; doubling j's direction
+#: and merge uniform ``DIR_DRAW + j`` and ``MERGE_DRAW + j``; leaf
+#: ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that
+DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x100, 0x200, 0x10000
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition")
@@ -250,17 +251,12 @@ def glm_nuts_multistep_draws(seed, C, d, k_trans, maxdoublings, i0=0,
         b = philox.philox4x32((c, t, np.asarray(draws, np.uint32), 0), seed)
         return (1.0 - philox.u01(b[0])).astype(np.float32)
 
-    j = np.arange(d, dtype=np.uint32)
-    b = philox.philox4x32((c, t, j // 2, 0), seed)
-    m0 = np.where(j % 2 == 0, philox.box_muller(b[0], b[1]),
-                  philox.box_muller(b[2], b[3]))
-    logu = philox.log1m_u01(philox.philox4x32(
-        (c[..., 0], t[..., 0], SLICE_DRAW, 0), seed)[0])
     steps = np.arange(md, dtype=np.uint32)
     dirn = np.where(u(DIR_DRAW + steps) < 0.5, -1.0, 1.0).astype(np.float32)
-    out = (m0, logu, dirn, u(MERGE_DRAW + steps),
+    out = (dirn, u(MERGE_DRAW + steps),
            u(LEAF_DRAW + np.arange(1 << md, dtype=np.uint32)))
-    return tuple(torch.from_numpy(a).to(device) for a in out)
+    return (glm_multistep_draws(seed, C, d, k_trans, i0, device)
+            + tuple(torch.from_numpy(a).to(device) for a in out))
 
 
 def glm_nuts_multistep_ref(XT, Y, theta, lp, grad, eps, generator, *,

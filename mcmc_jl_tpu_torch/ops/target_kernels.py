@@ -52,7 +52,7 @@ import torch
 
 from ..models.distributions import FAMILY_CODES, CatalogTarget, Distribution
 from . import philox
-from .glm_kernels import _draw, _sched, _trajectory, accept_test
+from .glm_kernels import _draw, _sched, _seed, _trajectory, accept_test
 
 #: largest dimension the kernels take: 32 lanes x 32 coordinates per lane
 D_MAX = 1024
@@ -275,15 +275,6 @@ def kernel_args(name, target, theta, states=()):
                 f"{t.device}")
     codes, params = target.rows(dev)
     return codes, params, C, d
-
-
-def _seed(generator):
-    """A launch seed drawn from the run's ``torch.Generator``."""
-    if generator is None:
-        raise ValueError("a kernel that draws inside needs a torch.Generator "
-                         "on the card for its launch seed")
-    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device).item())
 
 
 def launch(lib, counts, name, *args):

@@ -4,15 +4,15 @@ interpret mode on the CPU, on the same numpy inputs and injected noise.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
 kernels themselves are held against those plain versions on the card
-(``test_kernels_match_plain_on_card`` here, and chip_smoke.py)."""
-import jax.numpy as jnp
+(``test_kernels_match_plain_on_card`` here, and chip_smoke.py).  The tests
+that run the JAX package import it themselves, so that the card test runs
+where JAX is not installed."""
 import numpy as np
 import pytest
 import torch
 
-from mcmc_jl_tpu.ops.pallas_glm import (glm_hmc_leapfrogs, glm_hmc_step,
-                                        pad_chains, pad_design)
 from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 
 torch.set_num_threads(1)
 
@@ -43,9 +43,19 @@ def _state(C, d, seed):
     return theta, m
 
 
+def _pallas():
+    """(jax.numpy, the JAX package's pallas_glm module)."""
+    import jax.numpy as jnp
+
+    from mcmc_jl_tpu.ops import pallas_glm
+
+    return jnp, pallas_glm
+
+
 def _jax_inputs(X, Y, *arrays):
-    XT, Y2, d_pad = pad_design(X, Y)
-    return (XT, Y2) + tuple(pad_chains(jnp.asarray(a, jnp.float32), d_pad)
+    jnp, pg = _pallas()
+    XT, Y2, d_pad = pg.pad_design(X, Y)
+    return (XT, Y2) + tuple(pg.pad_chains(jnp.asarray(a, jnp.float32), d_pad)
                             for a in arrays)
 
 
@@ -94,7 +104,7 @@ def test_leapfrogs_ref_matches_pallas(kind, integrator, extras):
     _, g = _grad_at(XTt, Yt, _t(theta), kind=kind, **tkw)
 
     XT, Y2, th_p, m_p, g_p = _jax_inputs(X, Y, theta, m, g.numpy())
-    jt, jm, jg, jlp = glm_hmc_leapfrogs(
+    jt, jm, jg, jlp = _pallas()[1].glm_hmc_leapfrogs(
         XT, Y2, th_p, m_p, g_p, eps, n_leaps=nl, block_chains=C,
         interpret=True, kind=kind, integrator=integrator, **kw)
     pt, pm, pg, plp = gk.glm_leapfrogs(XTt, Yt, _t(theta), _t(m), g, eps,
@@ -116,11 +126,12 @@ def test_step_ref_matches_pallas():
     XTt, Yt = _t(X.T), _t(Y)
     lp, g = _grad_at(XTt, Yt, _t(theta))
 
+    jnp, pg = _pallas()
     XT, Y2, th_p, g_p, m_p = _jax_inputs(X, Y, theta, g.numpy(), m0)
-    jt, jg, jlp, jacc = glm_hmc_step(XT, Y2, th_p, g_p,
-                                     jnp.asarray(lp.numpy()[:, None]), m_p,
-                                     jnp.asarray(logu), eps, n_leaps=nl,
-                                     block_chains=C, interpret=True)
+    jt, jg, jlp, jacc = pg.glm_hmc_step(XT, Y2, th_p, g_p,
+                                        jnp.asarray(lp.numpy()[:, None]), m_p,
+                                        jnp.asarray(logu), eps, n_leaps=nl,
+                                        block_chains=C, interpret=True)
     pt, pg, plp, pacc = gk.glm_step(XTt, Yt, _t(theta), g, lp[:, None],
                                     _t(m0), _t(logu), eps, n_leaps=nl)
     acc = np.asarray(jacc)[:, 0] > 0.5
@@ -143,15 +154,8 @@ def test_multistep_ref_matches_successive_pallas_steps():
     XTt, Yt = _t(X.T), _t(Y)
     lp, g = _grad_at(XTt, Yt, _t(theta))
 
-    XT, Y2, th_p, g_p = _jax_inputs(X, Y, theta, g.numpy())
-    jlp = jnp.asarray(lp.numpy()[:, None])
-    accs = []
-    for t in range(k):
-        th_p, g_p, jlp, jacc = glm_hmc_step(
-            XT, Y2, th_p, g_p, jlp, pad_chains(jnp.asarray(z[t]), XT.shape[0]),
-            jnp.asarray(logu[t][:, None]), eps, n_leaps=nl, block_chains=C,
-            interpret=True)
-        accs.append(np.asarray(jacc)[:, 0])
+    th_p, g_p, jlp, accs = _pallas_steps(X, Y, theta, g, lp, z, logu, eps,
+                                         nl)
     pt, pg, plp, prate = gk.glm_multistep_ref(
         XTt, Yt, _t(theta), eps, k_trans=k, n_leaps=nl,
         noise=(_t(z), _t(logu)))
@@ -161,6 +165,75 @@ def test_multistep_ref_matches_successive_pallas_steps():
     _close(pt, np.asarray(th_p)[:, :d])
     _close(pg, np.asarray(g_p)[:, :d])
     _close(plp, np.asarray(jlp)[:, 0], atol=2e-4)
+
+
+def _pallas_steps(X, Y, theta, g, lp, z, logu, eps, nl):
+    """k successive Pallas glm_hmc_step calls (interpret mode) from (theta,
+    g, lp) on the momenta z (k, C, d) and log-uniforms logu (k, C).
+    Returns the padded (theta, g, lp (C, 1)) and the accepts per step."""
+    jnp, pg = _pallas()
+    XT, Y2, th_p, g_p = _jax_inputs(X, Y, theta, np.asarray(g))
+    jlp = jnp.asarray(np.asarray(lp)[:, None])
+    accs = []
+    for t in range(len(z)):
+        th_p, g_p, jlp, jacc = pg.glm_hmc_step(
+            XT, Y2, th_p, g_p, jlp,
+            pg.pad_chains(jnp.asarray(np.asarray(z[t])), XT.shape[0]),
+            jnp.asarray(np.asarray(logu[t])[:, None]), eps, n_leaps=nl,
+            block_chains=theta.shape[0], interpret=True)
+        accs.append(np.asarray(jacc)[:, 0])
+    return th_p, g_p, jlp, accs
+
+
+def test_multistep_draws_replay_the_nuts_layout():
+    """The replay of glm_multistep's in-kernel draws is the (m0, logu) part
+    of the multistep NUTS kernel's replay under the same seed (both kernels
+    draw through csrc/glm_tile.cuh momentum and log_uniform), and follows
+    the counter (chain, transition, draw): coordinate j from draw j // 2,
+    words (0, 1) for even j and (2, 3) for odd j, log u from draw
+    SLICE_DRAW."""
+    from mcmc_jl_tpu_torch.ops import philox
+
+    seed, C, d, k, i0 = 0x1234_5678_9ABC, 9, 5, 3, 7
+    m0, logu = gk.glm_multistep_draws(seed, C, d, k, i0=i0)
+    nuts = nk.glm_nuts_multistep_draws(seed, C, d, k, 4, i0=i0)
+    assert m0.shape == (k, C, d) and logu.shape == (k, C)
+    assert m0.dtype == logu.dtype == torch.float32
+    assert torch.equal(m0, nuts[0]) and torch.equal(logu, nuts[1])
+    t, c = 2, 6
+    for j in range(d):
+        b = philox.philox4x32((c, i0 + t, j // 2, 0), seed)
+        want = (philox.box_muller(b[0], b[1]) if j % 2 == 0
+                else philox.box_muller(b[2], b[3]))
+        assert m0[t, c, j].item() == float(want)
+    b = philox.philox4x32((c, i0 + t, gk.SLICE_DRAW, 0), seed)
+    assert logu[t, c].item() == float(philox.log1m_u01(b[0]))
+    assert torch.isfinite(m0).all() and (logu <= 0).all()
+
+
+def test_step_refs_on_replayed_draws_match_pallas_steps():
+    """k successive plain glm_step_ref calls fed the replayed draws of a
+    glm_multistep launch (how chip_smoke.py holds the kernel chain by
+    chain) == k successive Pallas glm_hmc_step calls (interpret mode) on
+    the same draws, on a mix of accepts and rejects."""
+    n, d, C, eps, nl, k = 60, 5, 8, 0.3, 3, 4
+    X, Y = _data("logistic", n, d, seed=15)
+    theta, _ = _state(C, d, seed=16)
+    XTt, Yt = _t(X.T), _t(Y)
+    lp, g = _grad_at(XTt, Yt, _t(theta))
+    z, logu = gk.glm_multistep_draws(0xC0FFEE, C, d, k)
+    th, gr, lpc, accs = _t(theta), g, lp[:, None], []
+    for t in range(k):
+        th, gr, lpc, acc = gk.glm_step_ref(XTt, Yt, th, gr, lpc, z[t],
+                                           logu[t][:, None], eps, n_leaps=nl)
+        accs.append(acc[:, 0].numpy())
+    th_p, g_p, jlp, jaccs = _pallas_steps(X, Y, theta, g.numpy(), lp.numpy(),
+                                          z.numpy(), logu.numpy(), eps, nl)
+    assert 0 < np.mean(jaccs) < 1, "want a mix of accepts and rejects"
+    np.testing.assert_array_equal(np.array(accs), np.array(jaccs))
+    _close(th, np.asarray(th_p)[:, :d])
+    _close(gr, np.asarray(g_p)[:, :d])
+    _close(lpc[:, 0], np.asarray(jlp)[:, 0], atol=2e-4)
 
 
 def test_cpu_wrappers_run_plain_versions():
@@ -233,7 +306,7 @@ def test_kernels_match_plain_on_card():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     X, Y = _data("logistic", 300, 6, seed=12)
     theta, m = _state(300, 6, seed=13)
-    cu = lambda a: _t(a).cuda()  # noqa: E731
+    cu = lambda a: _t(a).cuda().contiguous()  # noqa: E731
     XT, Yc, th, mm = cu(X.T), cu(Y), cu(theta), cu(m)
     lp, g = _grad_at(XT, Yc, th)
     for a, b in zip(gk.glm_leapfrogs(XT, Yc, th, mm, g, 0.05, n_leaps=5),
@@ -261,11 +334,54 @@ def test_kernels_match_plain_on_card():
         kw = dict(kind=kind, weights=cu(rng.uniform(0.5, 2.0, n)),
                   offsets=cu(0.1 * rng.standard_normal(n)), prior_prec=1.3)
         _, g = _grad_at(XT, Yc, th, **kw)
+        model = dict(kw)
         kw.update(n_leaps=4, integrator=integrator)
         atol = 1e-3 * max(1.0, n / 1000)
-        for a, b in zip(gk.glm_leapfrogs(XT, Yc, th, mm, g, 0.02, **kw),
-                        gk.glm_leapfrogs_ref(XT, Yc, th, mm, g, 0.02, **kw)):
+        out = gk.glm_leapfrogs(XT, Yc, th, mm, g, 0.02, **kw)
+        ref = gk.glm_leapfrogs_ref(XT, Yc, th, mm, g, 0.02, **kw)
+        for a, b in zip(out[:2], ref[:2]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
+        _held_at_own_theta(XT, Yc, out, atol, **model)
+    # the step and multistep kernels on the same tiles, a ragged last tile
+    # (C 37, d 6): the step on injected noise, the multistep chain by chain
+    # on its own Philox draws replayed, against successive plain steps, at
+    # a step size that both accepts and rejects
+    X, Y = _data("logistic", 300, 6, seed=17)
+    theta, m = _state(37, 6, seed=18)
+    XT, Yc, th, mm = cu(X.T), cu(Y), cu(theta), cu(m)
+    lp, g = _grad_at(XT, Yc, th)
+    logu = cu(np.log(np.random.default_rng(19).random((37, 1))))
+    eps, kw = 0.15, dict(n_leaps=5)
+    sk = gk.glm_step(XT, Yc, th, g, lp[:, None], mm, logu, eps, **kw)
+    sr = gk.glm_step_ref(XT, Yc, th, g, lp[:, None], mm, logu, eps, **kw)
+    assert 0 < sr[3].sum() < 37, "want a mix of accepts and rejects"
+    for a, b in zip(sk, sr):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    k = 6
+    gen = lambda: torch.Generator(device="cuda").manual_seed(4)  # noqa: E731
+    out = gk.glm_multistep(XT, Yc, th, eps, k_trans=k, generator=gen(), **kw)
+    z, lu = gk.glm_multistep_draws(gk._seed(gen()), 37, 6, k, device="cuda")
+    ts, gs, lps, n_acc = th, g, lp[:, None], 0.0
+    for t in range(k):
+        ts, gs, lps, acc = gk.glm_step_ref(XT, Yc, ts, gs, lps, z[t],
+                                           lu[t][:, None], eps, **kw)
+        n_acc = n_acc + acc[:, 0]
+    assert 0 < float(n_acc.sum()) < 37 * k, "want accepts and rejects"
+    # accept counts: the rate n / k rounds apart in the kernel and here
+    torch.testing.assert_close((out[3] * k).round(), n_acc, rtol=0, atol=0)
+    torch.testing.assert_close(out[0], ts, rtol=1e-4, atol=1e-3)
+    _held_at_own_theta(XT, Yc, out[:1] + (None,) + out[1:3], 1e-3)
+
+
+def _held_at_own_theta(XT, Y, out, atol, **kw):
+    """A kernel's g and lp (out[2], out[3]) against the plain (lp, g) at the
+    kernel's own theta (out[0]): over a trajectory the posterior's stiff
+    directions amplify theta's rounding into g and lp (a Hessian of n x
+    |x|^2, some 3000 for the linear case at n 3000, turns 1e-6 of theta
+    into 3e-3 of g), so these are held where they were computed."""
+    lp, g = _grad_at(XT, Y, out[0], **kw)
+    torch.testing.assert_close(out[2], g, rtol=1e-4, atol=atol)
+    torch.testing.assert_close(out[3], lp, rtol=1e-4, atol=atol)
 
 
 def test_tile_log1p_polynomial_within_two_ulps():
