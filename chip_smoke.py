@@ -39,9 +39,10 @@ Run with no arguments on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It exits non-zero without a CUDA device, and on any failed check.
-``python3 chip_smoke.py --times [ROOT]`` builds only the GLM HMC, N-tiled
-and GLM NUTS libraries from the package under ROOT and times their
-kernels (1-4 and 8, 9), the paths that run them and bench.py's drivers, to
+``python3 chip_smoke.py --times [ROOT] [--only g1,g2]`` builds only the
+libraries that the named timing groups need (TIME_GROUPS; default all)
+from the package under ROOT and times their kernels (1-4, 8, 9, 3b and
+8b) at pinned shapes, the paths that run them and bench.py's drivers, to
 compare two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
 """
@@ -166,6 +167,17 @@ FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 # frozen_eps on an H100 80GB HBM3), and the numpy seed of the chains' start
 NUTS_TIME_EPS = 0.08426558971405029
 NUTS_TIME_SEED = 71
+# kernel 3b's timing shape: the step and leap count that adaptive HMC with
+# a diagonal metric froze at on its path (phase_warm_paths' frozen_step and
+# frozen_n_leaps on an H100 80GB HBM3), so --times reaches it without the
+# warmup
+ROWS_TIME_FROZEN = (0.53101646900177, 2)
+# kernel 8b's timing shape: the step that unit-metric NUTS on the ten bare
+# distributions froze at (phase_warm_target_paths' frozen_eps on an H100
+# 80GB HBM3), and the seed of the chains' start (exact draws of each
+# coordinate's distribution)
+TARGET_NUTS_TIME_EPS = 0.008297648280858994
+TARGET_NUTS_TIME_SEED = 72
 
 CARD = {}
 
@@ -226,11 +238,12 @@ def phase_build(names=None):
     for name, (path, report) in built.items():
         ptxas, entry = [], "?"
         for ln in report.splitlines():
-            # mangled '...<len><name>ILi<D>E...' -> name<D>
+            # mangled '...<len><name>ILi<D>ELb0EE...' -> name<D, 0>
             hit = re.search(r"Compiling entry function .*?\d+((?:[a-z]+_)+"
-                            r"kernel)(?:ILi(\d+)E)?", ln)
+                            r"kernel)(?:I((?:L[ib]\d+E)+)E)?", ln)
             if hit:
-                entry = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
+                args = re.findall(r"\d+", hit.group(2) or "")
+                entry = hit.group(1) + (f"<{', '.join(args)}>" if args
                                         else "")
             elif "registers" in ln or "spill" in ln:
                 ptxas.append(f"{entry}: {ln.strip()}")
@@ -1168,14 +1181,17 @@ def _np_leaps(i, eps, T, max_leaps):
     return int(min(max(nl, 1), max_leaps))
 
 
-def phase_rows_kernel(C=4096, K=64, kt=8):
-    """The Halton multistep kernel against its plain version: K transitions
-    from one start near the posterior mode, as K/kt launches through the
-    warm route's driver and as one plain call of K transitions; on the
-    data as they are (eps 0.05, T 1.0) and on the diagonal-metric route's
-    folded inputs (design X s, (d,) prior row lam s^2, chains in z-space).
-    nleaps rows equal exactly, and equal numpy's Halton formula; pooled
-    final theta and per-chain accept rates within Z_MAX; a bitwise repeat."""
+def phase_rows_kernel(C=4096, K=64, kt=8, k_chain=8):
+    """The Halton multistep kernel against its plain version on the data
+    as they are (eps 0.05, T 1.0) and on the diagonal-metric route's folded
+    inputs (design X s, (d,) prior row lam s^2, chains in z-space): chain
+    by chain on its own replayed draws over ``k_chain`` transitions from
+    transition 1 (_rows_check); and statistically, K transitions from one
+    start near the posterior mode, as K/kt launches through the warm
+    route's driver and as one plain call of K transitions (nleaps rows
+    equal exactly, and equal numpy's Halton formula; pooled final theta
+    and per-chain accept rates within Z_MAX; a bitwise repeat).  Returns
+    the chain-by-chain checks' largest theta error."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
@@ -1193,6 +1209,8 @@ def phase_rows_kernel(C=4096, K=64, kt=8):
         th0 = _cuda(start + spread * rng.standard_normal((C, d)))
         XT, Yc = _cuda(Xc.T), _cuda(Y)
         kw = dict(prior_prec=lam)
+        err = max(err, _rows_check(label, XT, Yc, th0, eps, T, 1, ml,
+                                   k_chain, seed=77, **kw))
         r1, r2 = (gk.glm_multistep_rows(
             XT, Yc, th0, eps, T, 1, ml, k_trans=kt,
             generator=torch.Generator(device="cuda").manual_seed(12345), **kw)
@@ -1227,7 +1245,6 @@ def phase_rows_kernel(C=4096, K=64, kt=8):
               "C": C, "k_trans": kt, "transitions": K, "ok": ok,
               "bitwise_repeat": bitwise, "nleaps_exact": nl_ok, **rep})
         assert ok, f"glm_multistep_rows ({label}) disagrees with its plain version"
-        err = max(err, rep["pooled_theta_max_abs_diff"])
     return {"glm_multistep_rows": err}
 
 
@@ -1478,6 +1495,76 @@ def _multistep_check(label, XT, Y, theta, eps, k, seed, mix=False, **kw):
     return rep["theta"]["max_abs"]
 
 
+def _rows_check(label, XT, Y, theta, eps, T, i0, max_leaps, k, seed,
+                mix=False, **kw):
+    """glm_multistep_rows (kernel 3b) against its plain version chain by
+    chain, on the kernel's own Philox draws (the launch seed a generator
+    seeded ``seed`` gives, replayed by ``glm_multistep_draws`` from
+    absolute transition ``i0``; the replayed normals and log-uniforms lie
+    within a few float32 ulps of the kernel's) fed to
+    ``glm_multistep_rows_ref``.  The nleaps rows must equal the plain
+    version's and numpy's Halton formula exactly.  A chain is on the plain
+    version's accept path when its accept row matches at every transition
+    and its final theta lies within LEAF_ATOL; at least PATH_AGREE of the
+    chains must be, and on those the final theta is held to phase_kernels'
+    tolerances and the kernel's g and lp to the plain version's at the
+    kernel's own theta (as kernel 3's check holds them).  The kernel also
+    repeats bitwise.  With ``mix`` the plain version must both accept and
+    reject.  Returns the largest absolute error of theta."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    C, d = theta.shape
+    out_k, out_k2 = (gk.glm_multistep_rows(XT, Y, theta, eps, T, i0,
+                                           max_leaps, k_trans=k,
+                                           generator=gen(), **kw)
+                     for _ in range(2))
+    m0, logu = gk.glm_multistep_draws(gk._seed(gen()), C, d, k, i0=i0,
+                                      device="cuda")
+    out_r = gk.glm_multistep_rows_ref(XT, Y, theta, eps, T, i0, max_leaps,
+                                      k_trans=k, noise=(m0, logu), **kw)
+    torch.cuda.synchronize()
+    rk, rr = out_k[3], out_r[3]
+    bitwise = (all(torch.equal(a, b) for a, b in zip(out_k[:3], out_k2[:3]))
+               and all(torch.equal(rk[n], out_k2[3][n]) for n in rk))
+    want = [_np_leaps(i, eps, T, max_leaps) for i in range(i0, i0 + k)]
+    nl_ok = (torch.equal(rk["nleaps"], rr["nleaps"])
+             and rk["nleaps"].tolist() == [[nl] * C for nl in want])
+    same = ((rk["accept"] == rr["accept"]).all(0)
+            & ((out_k[0] - out_r[0]).abs().amax(-1) <= LEAF_ATOL))
+    scale = max(1.0, XT.shape[1] / 1000)
+    prior = kw.get("prior_prec", 1.0)
+    lp_own, g_own = _lp_grad(XT, Y, out_k[0], **kw)
+    rep = {n: _err(a[same], b[same]) for n, a, b in
+           zip(("theta", "g_at_own_theta", "lp_at_own_theta"),
+               (out_k[0], out_k[1], out_k[2]), (out_r[0], g_own, lp_own))}
+    rep["alpha"] = _err(rk["alpha"][:, same], rr["alpha"][:, same])
+    rate = float(rr["accept"].float().mean())
+    ok = (bitwise and nl_ok and float(same.float().mean()) >= PATH_AGREE
+          and _close(out_k[0][same], out_r[0][same], RTOL, ATOL)
+          and _close(out_k[1][same], g_own[same], RTOL, G_ATOL * scale)
+          and _close(out_k[2][same], lp_own[same], LP_RTOL, LP_ATOL * scale)
+          and all(bool(torch.isfinite(a).all()) for a in out_k[:3])
+          and bool(torch.isfinite(rk["plogtarget"]).all())
+          and (not mix or 0 < rate < 1))
+    emit({"phase": "kernel", "name": "glm_multistep_rows", "case": label,
+          "draws": "the kernel's, replayed", "C": C, "N": XT.shape[1],
+          "d": d, "k_trans": k, "i0": i0, "eps": eps, "T": T,
+          "max_leaps": max_leaps, "nleaps": want,
+          "prior": "(d,) row" if hasattr(prior, "shape") else prior,
+          "integrator": kw.get("integrator", "leapfrog"),
+          "kind": kw.get("kind", "logistic"), "ok": ok,
+          "bitwise_repeat": bitwise, "nleaps_exact": nl_ok,
+          "path_differ": int(C - same.sum()), "accept_rate": rate, **rep})
+    assert ok, (f"glm_multistep_rows ({label}) disagrees with its plain "
+                f"version on its own draws")
+    return rep["theta"]["max_abs"]
+
+
 def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
     """Kernels 1-4, redesigned on the chain-tile gradient, against their
     plain versions at their paths' shapes and at their edges (the 4096-chain
@@ -1488,10 +1575,12 @@ def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
     rejects); d = 1, 8, 16 and 32; rows streamed in cp.async tiles (N 2000
     at d 32, 3000 at d 16, 16,384 at d 10); every link with weights,
     offsets and prior_prec 1.3; every integrator.  Kernel 2 on injected
-    noise, kernel 3 over ``k_edge`` transitions on its own draws replayed.
+    noise, kernels 3 and 3b over ``k_edge`` transitions on their own draws
+    replayed (3b with a (d,) prior row at every edge, its Halton leap
+    counts from transition 501 with T n_leaps eps and max_leaps 2 n_leaps).
     Kernel 4 at d = 1, 16 and 32 with weights, offsets and a (d,) prior
     row."""
-    traj, step, multi, tiled = [], [], [], []
+    traj, step, multi, rows, tiled = [], [], [], [], []
     for C in main_chains:
         XT, Y, theta, m0, logu, _, _ = _inputs(C, seed=21)
         traj.append(_traj_check(f"bench data, C {C}", XT, Y, theta, m0,
@@ -1501,6 +1590,10 @@ def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
         multi.append(_multistep_check(f"bench data, C {C}", XT, Y, theta,
                                       STEP_EPS, k_edge, seed=C, mix=True,
                                       n_leaps=10))
+        rows.append(_rows_check(
+            f"bench data, C {C}, (d,) prior row", XT, Y, theta, STEP_EPS,
+            10 * STEP_EPS, 501, 20, k_edge, seed=C + 1, mix=True,
+            prior_prec=_cuda(np.linspace(0.5, 2.0, XT.shape[0]))))
     cases = [  # (label, kind, N, d, C, integrator, eps, n_leaps)
         ("d 1", "logistic", 1000, 1, 300, "leapfrog", 0.05, 10),
         ("d 32", "probit", 1000, 32, 300, "3stage", 0.02, 5),
@@ -1520,6 +1613,12 @@ def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
         step.append(_step_check(label, XT, Y, theta, m, logu, eps, **kw))
         multi.append(_multistep_check(label, XT, Y, theta, eps, k_edge,
                                       seed=60 + i, **kw))
+        kw.pop("n_leaps")
+        kw["prior_prec"] = _cuda(np.random.default_rng(70 + i).uniform(
+            0.5, 2.0, d))
+        rows.append(_rows_check(f"{label}, (d,) prior row", XT, Y, theta,
+                                eps, nl * eps, 501, 2 * nl, k_edge,
+                                seed=80 + i, **kw))
     rng = np.random.default_rng(43)
     for d, kind in ((1, "logistic"), (32, "probit"), (16, "poisson")):
         N, C = 20_001, 300
@@ -1529,7 +1628,8 @@ def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
             f"{kind}, weights+offsets, (d,) prior row, N {N}, d {d}, C {C}",
             XT, Y, theta, kind, W, O, lam))
     return {"glm_leapfrogs": max(traj), "glm_step": max(step),
-            "glm_multistep": max(multi), "glm_logp_grad_tiled": max(tiled)}
+            "glm_multistep": max(multi), "glm_multistep_rows": max(rows),
+            "glm_logp_grad_tiled": max(tiled)}
 
 
 def _sfu_floor_ms(links, per_link):
@@ -1904,10 +2004,11 @@ def phase_new_kernel_times(hmc_frozen, C=4096, kt=6, i0=501,
     diagonal metric (design X s, (d,) prior row s^2, chains in z = theta /
     s drawn from the Laplace approximation; s its scales), from absolute
     transition ``i0`` (the first after a burn-in of 500), ``kt``
-    transitions (the path's launches carry 6, ``_pick_k_trans``); beside
-    its plain version, its bound and its special-function floor; and both
-    kernel families per gradient at C 4096 and N 16,384 and 100,000,
-    where the route switches between them.
+    transitions (the path's launches carry 6, ``_pick_k_trans``), with
+    CUDA events and torch.profiler's device time; beside its plain
+    version, its bound, its special-function floor and its occupancy plan;
+    and both kernel families per gradient at C 4096 and N 16,384 and
+    100,000, where the route switches between them.
     Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
     import torch
 
@@ -1934,8 +2035,10 @@ def phase_new_kernel_times(hmc_frozen, C=4096, kt=6, i0=501,
     out = kern()
     leaps = int(out[3]["nleaps"][:, 0].sum())
     evals = C * (1 + leaps)
-    work["glm_multistep_rows"] = _bound(evals, d, X.shape[0],
-                                        _nbytes((XT, Yc, th), out))
+    work["glm_multistep_rows"] = {
+        **_bound(evals, d, X.shape[0], _nbytes((XT, Yc, th), out)),
+        "device_ms": _device_ms(kern, ("rows_tile_kernel",
+                                       "multistep_rows_kernel"), reps=3)}
     ms["glm_multistep_rows"] = (_event_ms(kern), _event_ms(plain, reps=2))
     emit({"phase": "kernel_time", "name": "glm_multistep_rows", "C": C,
           "N": X.shape[0], "k_trans": kt, "eps": eps, "T": T,
@@ -1944,6 +2047,7 @@ def phase_new_kernel_times(hmc_frozen, C=4096, kt=6, i0=501,
           "plain_ms": ms["glm_multistep_rows"][1], "leapfrogs": leaps,
           **work["glm_multistep_rows"],
           "sfu_floor_ms": _sfu_floor_ms(evals * X.shape[0], SFU_PER_LINK),
+          "plan": _plan(gk, "glm_multistep_rows_plan", d, X.shape[0]),
           **CARD})
 
     for N5 in family:
@@ -1991,18 +2095,25 @@ def _target_cases():
     ]
 
 
-def _mixed_target(d=10):
-    """One coordinate of each of the ten kernel families, cycled over d
-    coordinates; returns (target, a point near each coordinate's mean, a
-    per-coordinate scale)."""
+def _kernel_families():
+    """One distribution of each of the ten kernel families, with a point
+    near its mean and a scale: [(dist, x0, s)]."""
     import mcmc_jl_tpu_torch as mt
-    from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
 
-    fams = [(mt.Normal(0.0, 1.0), 0.0, 1.0), (mt.Uniform(-1.0, 3.0), 1.0, 1.0),
+    return [(mt.Normal(0.0, 1.0), 0.0, 1.0), (mt.Uniform(-1.0, 3.0), 1.0, 1.0),
             (mt.Exponential(2.0), 2.0, 2.0), (mt.Gamma(2.0, 1.5), 3.0, 2.0),
             (mt.Weibull(1.5, 2.0), 1.8, 1.0), (mt.Cauchy(0.0, 1.0), 0.0, 1.0),
             (mt.LogNormal(0.0, 0.5), 1.1, 0.5), (mt.Beta(2.0, 3.0), 0.4, 0.2),
             (mt.Laplace(0.0, 1.0), 0.0, 1.0), (mt.TDist(5.0), 0.0, 1.0)]
+
+
+def _mixed_target(d=10, fams=None):
+    """One coordinate of each of the ten kernel families (or of ``fams``),
+    cycled over d coordinates; returns (target, a point near each
+    coordinate's mean, a per-coordinate scale)."""
+    from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
+
+    fams = fams or _kernel_families()
     pick = [fams[j % len(fams)] for j in range(d)]
     return (coordwise_logp([f[0] for f in pick], d),
             np.array([f[1] for f in pick]), np.array([f[2] for f in pick]))
@@ -2650,7 +2761,8 @@ def _target_nuts_case(label, target, theta, eps, seed, md=6,
           and (not full_depth or int(ndr.max()) == md)
           and (not want_div or int(dvr.sum()) > 0))
     emit({"phase": "kernel", "name": "target_nuts_transition", "case": label,
-          "C": C, "d": d, "maxdoublings": md, "ok": ok,
+          "C": C, "d": d, "layout": nk.target_nuts_layout(d),
+          "maxdoublings": md, "ok": ok,
           "chains_same_path": share, "path_differ": int(C - same.sum()),
           "bitwise_repeat": bitwise,
           "mean_ndoublings": float(ndr.float().mean()),
@@ -2665,10 +2777,18 @@ def phase_target_nuts_kernels(C=4096, md=6, big_d=1000):
     card, at its path's shape (C chains, d = 10, maxdoublings md) on the
     ten bare distributions: slice and multinomial, a scalar step and a (d,)
     row (0.3 of each sd), a deep case (eps 0.01: trees of all md
-    doublings); then the ten-family mixed target with a row, an
+    doublings), md 1 and md 10 (the deep case again: trees up to 1023
+    leaves), C + 3 chains (a ragged last group of the lane layout), 65536
+    chains (its timing shape), an
     out-of-support start (one chain in eight with Gamma(3, 0.2) at -0.2:
-    lp -inf, divergences), and d = big_d (32 coordinates per lane).
-    Returns {kernel: max abs theta error on the same-path chains}."""
+    lp -inf, divergences); every kernel family alone (d 10, slice, a (d,)
+    row 0.1 s); then the ten-family mixed target with a row at d = 1, 10,
+    16 and 32 (one chain per lane, template bounds 8, 16, 32) and 33 and
+    big_d (one warp per chain, 4 and 32 coordinates per lane), slice and
+    multinomial.  Returns {kernel: max abs theta error on the same-path
+    chains}."""
+    import torch
+
     m, bare = _ten_bare_model()
     target = m.target_spec
     rng = np.random.default_rng(51)
@@ -2689,6 +2809,10 @@ def phase_target_nuts_kernels(C=4096, md=6, big_d=1000):
     out_theta[::8, 5] = -0.2  # Gamma(3, 0.2) out of its support
     cases.append(("ten bare distributions, out-of-support start, eps 0.1",
                   out_theta, 0.1, False, {"want_div": True}))
+    cases.append((f"ten bare distributions, C {C + 3}, eps 0.1",
+                  torch.cat([theta, theta[:3]]), 0.1, False, {}))
+    cases.append(("ten bare distributions, C 65536, multinomial, eps 0.1",
+                  torch.cat([theta] * 16), 0.1, True, {}))
     err, bad = 0.0, []
     for seed, (label, th, eps, multi, extra) in enumerate(cases):
         ok, e = _target_nuts_case(label, target, th, eps, 60 + seed, md=md,
@@ -2696,15 +2820,33 @@ def phase_target_nuts_kernels(C=4096, md=6, big_d=1000):
         err = max(err, e)
         if not ok:
             bad.append(label)
-    for dd, seed in ((10, 70), (big_d, 71)):
+    for mdx, eps in ((1, 0.1), (10, 0.01)):
+        label = f"ten bare distributions, slice, md {mdx}, eps {eps}"
+        ok, e = _target_nuts_case(label, target, theta, eps, 90 + mdx,
+                                  md=mdx)
+        err = max(err, e)
+        if not ok:
+            bad.append(label)
+    for i, fam in enumerate(_kernel_families()):
+        alone, x0, s = _mixed_target(10, [fam])
+        th = _cuda(x0 + 0.05 * s * rng.standard_normal((C, 10)))
+        label = f"{fam[0]!r} alone, d = 10, (d,) row 0.1 s, slice"
+        ok, e = _target_nuts_case(label, alone, th, _cuda(0.1 * s), 100 + i,
+                                  md=md)
+        err = max(err, e)
+        if not ok:
+            bad.append(label)
+    for dd, seed in ((1, 72), (10, 70), (16, 73), (32, 74), (33, 75),
+                     (big_d, 71)):
         mixed, x0, s = _mixed_target(dd)
         th = _cuda(x0 + 0.05 * s * rng.standard_normal((C, dd)))
         for multi in (False, True):
             label = (f"mixed ten families, d = {dd}, (d,) row 0.1 s, "
                      f"{'multinomial' if multi else 'slice'}")
-            ok, _ = _target_nuts_case(label, mixed, th, _cuda(0.1 * s),
+            ok, e = _target_nuts_case(label, mixed, th, _cuda(0.1 * s),
                                       seed + 10 * multi, md=md,
                                       multinomial=multi)
+            err = max(err, e)
             if not ok:
                 bad.append(label)
         del th
@@ -2875,51 +3017,171 @@ def phase_chees_glm_path(hmc_means, chains=4096):
     assert z < Z_MAX, f"{origin} disagrees with the HMC reference"
 
 
-def phase_target_nuts_time(start, md=6):
-    """Per-launch time of kernel 8b beside its plain version and its bound,
-    at its path's shape: the unit-metric NUTS path's final positions (4096
-    chains, d 10) at its frozen step, one transition's noise.  ``ms`` is
-    one call between CUDA events, ``device_ms`` the kernel alone.  The
-    bound counts 2^(n-1) leaves for a tree of depth n, each
-    TARGET_LEAP_OPS x d FP32 operations, or the call's bytes, whichever
-    takes longer.  Returns ({kernel: (ms, plain ms)}, {kernel: bound})."""
+def _target_nuts_plan(d, C, md):
+    """Kernel 8b's launch plan at (d, C, md), or None for a package without
+    one (before the lane layout)."""
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    return nk.target_nuts_plan(d, C, md) \
+        if hasattr(nk, "target_nuts_plan") else None
+
+
+def _target_nuts_kernel_time(target, th, eps, md, seed, plain=True):
+    """One launch of kernel 8b on ``target`` from ``th`` (C, d) at step
+    ``eps``, one transition's noise drawn from a generator seeded ``seed``:
+    ``ms`` one call between CUDA events (the wrapper's host work
+    included), ``device_ms`` the kernel alone (torch.profiler); each
+    chain's leaves counted by the plain version's lockstep transition on
+    the same noise, their sum and largest, and the leaf steps of a warp of
+    32 chains (its deepest tree's leaves, summed over the warps: what the
+    lane layout runs); the bound from the leaves (TARGET_LEAP_OPS x d FP32
+    operations each) or the call's bytes, whichever takes longer; the
+    plain version's time when ``plain``; the launch plan.  Returns a
+    dict."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
-    m, _ = _ten_bare_model()
-    target = m.target_spec
-    th = start["theta"]
     C, d = th.shape
     lp, g = tk.target_funcs(target)[1](th)
     lp, g = lp.contiguous(), g.contiguous()
     noise = nk.draw_noise(C, d, md, torch.Generator(
-        device="cuda").manual_seed(9))
-    eps = start["eps"]
+        device="cuda").manual_seed(seed))
 
     def kern():
         return nk.target_nuts_transition(target, th, lp, g, eps, *noise,
                                          maxdoublings=md)
 
-    def plain():
+    def plain_call():
         return nk.target_nuts_transition_ref(target, th, lp, g, eps, *noise,
                                              maxdoublings=md)
 
-    name = "target_nuts_transition"
     out = kern()
-    nd = out[3].double()
-    leaves = float((2.0 ** (nd - 1)).sum())
-    work = {**_bound_ops(TARGET_LEAP_OPS * d * leaves,
+    leaves = torch.zeros(C, dtype=torch.int64, device="cuda")
+    nk._transition(tk.target_funcs(target)[1], th, lp, g, tk._eps(eps, th),
+                   *noise, md, False, leaves=leaves)
+    warp = torch.nn.functional.pad(leaves, (0, (-C) % 32)).view(-1, 32)
+    n_leaves = int(leaves.sum())
+    return {"C": C, "d": d, "maxdoublings": md,
+            "eps": eps if isinstance(eps, float) else "(d,) row",
+            "mean_ndoublings": float(out[3].double().mean()),
+            "leaves": n_leaves, "max_leaves": int(leaves.max()),
+            "warp_leaf_steps": int(warp.amax(1).sum()),
+            "ms": _event_ms(kern), "plain_ms": (_event_ms(plain_call, reps=2)
+                                                if plain else None),
+            **_bound_ops(TARGET_LEAP_OPS * d * n_leaves,
                          _nbytes((th, lp, g, noise, target.rows(th.device)),
                                  out)),
-            "device_ms": _device_ms(kern, "nuts_kernel")}
-    ms = (_event_ms(kern), _event_ms(plain, reps=2))
-    emit({"phase": "kernel_time", "name": name, "C": C, "d": d,
-          "maxdoublings": md, "eps": eps,
-          "mean_ndoublings": float(nd.mean()), "leaves_min": leaves,
-          "ms": ms[0], "plain_ms": ms[1], **work, **CARD})
-    return {name: ms}, {name: work}
+            "device_ms": _device_ms(kern, ("nuts_lane_kernel", "nuts_kernel")),
+            "plan": _target_nuts_plan(d, C, md)}
+
+
+def phase_target_nuts_time(start, md=6):
+    """Per-launch time of kernel 8b beside its plain version and its bound,
+    at its path's shape: the unit-metric NUTS path's final positions (4096
+    chains, d 10) at its frozen step, one transition's noise
+    (_target_nuts_kernel_time).  Returns ({kernel: (ms, plain ms)},
+    {kernel: bound and device ms})."""
+    m, _ = _ten_bare_model()
+    name = "target_nuts_transition"
+    r = _target_nuts_kernel_time(m.target_spec, start["theta"], start["eps"],
+                                 md, seed=9)
+    emit({"phase": "kernel_time", "name": name, **r, **CARD})
+    return ({name: (r["ms"], r["plain_ms"])},
+            {name: {k: r[k] for k in ("bound_ms", "bound_by", "device_ms")}})
+
+
+def _bare_draws(bare, C, seed):
+    """C exact draws of each coordinate's distribution, a float32 (C, d)
+    tensor on the card: a start the NUTS path's chains reach."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.stack([dist.sample(gen, (C,)).to(torch.float32)
+                        for _, dist, _ in bare], 1).cuda().contiguous()
+
+
+def phase_target_nuts_times(Cs=(4096, 65536), md=6):
+    """Kernel 8b at its path's shape with a pinned step and start
+    (TARGET_NUTS_TIME_EPS; exact draws of the ten bare distributions,
+    seed TARGET_NUTS_TIME_SEED) at each of Cs chains, on the ten bare
+    distributions and on ten Normals with their means and standard
+    deviations (the same start and step; one family in every coordinate,
+    so that the family branch is the same in every lane of the
+    warp-per-chain layout too): what the family switch costs.  The plain
+    version is timed at Cs[0] only.  Runs on whichever package
+    ``mcmc_jl_tpu_torch`` resolves to, so one call can time a parent
+    tree."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
+
+    m, bare = _ten_bare_model()
+    normals = coordwise_logp([mt.Normal(float(dist.mean()),
+                                        float(dist.std()))
+                              for _, dist, _ in bare], len(bare))
+    for C in Cs:
+        th = _bare_draws(bare, C, TARGET_NUTS_TIME_SEED)
+        for label, target in (("ten bare distributions", m.target_spec),
+                              ("ten Normals, the same means and sds",
+                               normals)):
+            r = _target_nuts_kernel_time(target, th, TARGET_NUTS_TIME_EPS,
+                                         md, seed=9, plain=C == Cs[0])
+            emit({"phase": "target_nuts_time", "target": label, **r,
+                  **CARD})
+
+
+def _timed_paths(runs):
+    """Host seconds (to a synchronize) of ``run(model * sampler *
+    SerialMC(steps, burnin), chains=C)`` for each (name, model, sampler,
+    steps, burnin, C) of ``runs``, split into warmup, sampling and
+    packaging, after a short warm-up run of each.  No checks: the main
+    phases hold these paths."""
+    import mcmc_jl_tpu_torch as mt
+
+    out = {}
+    for name, model, sampler, steps, burnin, C in runs:
+        mt.run(model * sampler * mt.SerialMC(steps=60, burnin=50), chains=C)
+        task = model * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        t0 = time.perf_counter()
+        with _spans() as spans:
+            mt.run(task, chains=C, seed=0)
+        out[name] = {"total_s": time.perf_counter() - t0, **spans}
+        emit({"phase": "path_spans", "path": name, "chains": C,
+              "steps": steps, "burnin": burnin, **out[name], **CARD})
+    return out
+
+
+def phase_rows_spans(chains=4096, chains_small=1024):
+    """The spans of the four GLM paths whose sampling runs kernel 3b, at
+    the configurations of phase_warm_paths and phase_chees_glm_path (N
+    1000, every chain from the posterior mode)."""
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, mode = _bench_mode(1000)
+    m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+    return _timed_paths((
+        ("adaptive HMC diag (kernel 3b)", m, mt.HMC(10, 0.02, mt.EmpMCTuner(
+            0.8, adapt_step=50), mass_adapt="diag"), 2000, 500, chains),
+        ("HMCDA (kernel 3b)", m, mt.HMCDA(), 1000, 200, chains_small),
+        ("adaptive MALA (kernel 3b)", m, mt.MALA(0.002, mt.EmpMCTuner(
+            0.574, adapt_step=50)), 1000, 200, chains_small),
+        ("ChEES (kernel 3b)", m, mt.ChEESHMC(len0=0.5, max_leaps=64), 1000,
+         200, chains)))
+
+
+def phase_target_nuts_spans(chains=4096):
+    """The spans of the two paths whose sampling runs kernel 8b, at the
+    configurations of phase_warm_target_paths: NUTS(6) with and without a
+    diagonal metric on the ten bare distributions, SerialMC(1500, 500)."""
+    import mcmc_jl_tpu_torch as mt
+
+    m, _ = _ten_bare_model()
+    return _timed_paths((
+        ("NUTS(6) on the ten bare distributions (kernel 8b)", m,
+         mt.NUTS(maxdoublings=6), 1500, 500, chains),
+        ("NUTS(6, diag) on the ten bare distributions (kernel 8b)", m,
+         mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains)))
 
 
 # each custom-target wrapper's __global__ function, as the profiler names it
@@ -3037,23 +3299,14 @@ def phase_path_spans(chains=4096):
     X, Y = bench_data()
     Xb, Yb, mode = _bench_mode(100_000)
     m = mt.model(glm=("logistic", X, Y), device="cuda")
-    paths = (("main path", m, mt.HMC(10, 0.05), (1000, 200)),
-             ("large-N path", mt.model(glm=("logistic", Xb, Yb), init=mode,
-                                       device="cuda"),
-              mt.HMC(10, 0.005), (200, 50)),
-             ("NUTS path, kernel 9", m, mt.NUTS(maxdoublings=6), (700, 200)),
-             ("NUTS diag path, kernel 8", m,
-              mt.NUTS(maxdoublings=6, mass_adapt="diag"), (699, 200)))
-    out = {}
-    for label, m, sampler, (steps, burnin) in paths:
-        mt.run(m * sampler * mt.SerialMC(steps=20, burnin=5), chains=chains)
-        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
-        t0 = time.perf_counter()
-        with _spans() as spans:
-            mt.run(task, chains=chains, seed=0)
-        out[label] = {"total_s": time.perf_counter() - t0, **spans}
-        emit({"phase": "path_spans", "path": label, "chains": chains,
-              "steps": steps, "burnin": burnin, **out[label], **CARD})
+    out = _timed_paths((
+        ("main path", m, mt.HMC(10, 0.05), 1000, 200, chains),
+        ("large-N path", mt.model(glm=("logistic", Xb, Yb), init=mode,
+                                  device="cuda"), mt.HMC(10, 0.005), 200, 50,
+         chains),
+        ("NUTS path, kernel 9", m, mt.NUTS(maxdoublings=6), 700, 200, chains),
+        ("NUTS diag path, kernel 8", m,
+         mt.NUTS(maxdoublings=6, mass_adapt="diag"), 699, 200, chains)))
     inits = np.zeros((chains, X.shape[1]))
     drivers = {
         "run_glm_hmc(fused_step=True), kernel 2": lambda steps: run_glm_hmc(
@@ -3142,28 +3395,58 @@ def phase_sass(lib="glm_hmc", kernels=("leapfrogs_tile_kernel",
                   ln.strip() for ln in body.splitlines() if "BRA" in ln][:4]})})
 
 
-def times_main():
-    """``python3 chip_smoke.py --times [ROOT]``: build glm_hmc, glm_bign and
-    glm_nuts from the package under ROOT (default: this checkout) and time
-    kernels 1-4 alone (phase_tile_times), kernels 8 and 9 at pinned shapes
-    (phase_nuts_times), the spans of their paths and of bench.py's drivers
-    (phase_path_spans) and the drivers' leapfrog/s at 65536 chains
-    (phase_timing), so that one call on one card can time a parent tree and
-    this one in turns."""
+# --times groups: the libraries each builds and the phases it runs
+TIME_GROUPS = {
+    "tile": (("glm_hmc", "glm_bign"), ("phase_tile_times",)),
+    "nuts": (("glm_nuts",), ("phase_nuts_times",)),
+    "paths": (("glm_hmc", "glm_bign", "glm_nuts"), ("phase_path_spans",)),
+    "timing": (("glm_hmc",), ("phase_timing",)),
+    "rows": (("glm_hmc", "glm_bign"), ("phase_rows_times",)),
+    "rows_paths": (("glm_hmc",), ("phase_rows_spans",)),
+    "target_nuts": (("target_nuts",), ("phase_target_nuts_times",)),
+    "target_nuts_paths": (("target_nuts", "target_hmc"),
+                          ("phase_target_nuts_spans",)),
+}
+
+
+def phase_rows_times():
+    """Kernel 3b at its adaptive HMC path's shape, with the step and leap
+    count pinned (ROWS_TIME_FROZEN): phase_new_kernel_times."""
+    return phase_new_kernel_times(ROWS_TIME_FROZEN)
+
+
+def times_main(groups=tuple(TIME_GROUPS)):
+    """``python3 chip_smoke.py --times [ROOT] [--only g1,g2]``: build the
+    libraries of the named groups of TIME_GROUPS (default: all) from the
+    package under ROOT (default: this checkout) and time them: kernels 1-4
+    alone (tile: phase_tile_times), kernels 8 and 9 at pinned shapes
+    (nuts: phase_nuts_times), the spans of their paths and of bench.py's
+    drivers (paths: phase_path_spans), the drivers' leapfrog/s at 65536
+    chains (timing: phase_timing), kernel 3b at its pinned shape (rows)
+    and the spans of its four paths (rows_paths), kernel 8b at pinned
+    shapes on two targets (target_nuts) and the spans of its two paths
+    (target_nuts_paths); so that one call on one card can time a parent
+    tree and this one in turns."""
     phase_device()
-    phase_build(("glm_hmc", "glm_bign", "glm_nuts"))
-    phase_tile_times()
-    phase_nuts_times()
-    phase_path_spans()
-    phase_timing()
+    phase_build(tuple(dict.fromkeys(
+        lib for g in groups for lib in TIME_GROUPS[g][0])))
+    for g in groups:
+        for phase in TIME_GROUPS[g][1]:
+            globals()[phase]()
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sass"]:
         phase_sass()
     elif sys.argv[1:2] == ["--times"]:
-        if len(sys.argv) > 2:  # before anything imports the package
-            sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        times_main()
+        args = sys.argv[2:]
+        only = tuple(TIME_GROUPS)
+        if "--only" in args:
+            at = args.index("--only")
+            only = tuple(args[at + 1].split(","))
+            args = args[:at] + args[at + 2:]
+        if args:  # before anything imports the package
+            sys.path.insert(0, os.path.abspath(args[0]))
+        times_main(only)
     else:
         main()

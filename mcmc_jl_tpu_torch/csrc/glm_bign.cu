@@ -43,7 +43,7 @@
 //   chain over the splits in a fixed order and applies the prior once.
 // No float atomics, so two launches on the same inputs give the same bits.
 // The gradient accumulates in float within a tile and in double across
-// tiles; the log-likelihood in double throughout, as glm_eval does.
+// tiles; the log-likelihood in double throughout, as traj_grad does.
 // wgmma with warp specialisation is later work; so is a cheaper link.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
@@ -120,7 +120,8 @@ partial_tile_kernel(Glm p, int C, int rows_per_split,
 }
 
 // Sum each chain's partials over the splits in split order, then apply the
-// prior as glm_eval does: g = acc - lam theta, lp = ll - 1/2 sum lam theta^2.
+// prior as the HMC kernels do: g = acc - lam theta, lp = ll - 1/2 sum lam
+// theta^2.
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(int C, int d, int splits, float lam,
               const float* __restrict__ lamv, const float* __restrict__ th_in,

@@ -9,13 +9,10 @@
 //   glm_multistep      <- _multistep_kernel (halton=False, via _multistep_inner)
 //   glm_multistep_rows <- _multistep_kernel (halton=True, collect_rows=True,
 //                                            via _multistep_rows_inner)
-// The Pallas kernels share _glm_funcs + _trajectory.  Here glm_leapfrogs,
-// glm_step and glm_multistep share one lockstep trajectory (tile_trajectory)
-// on the chain-tile gradient of glm_tile.cuh (traj_grad, shared with the
-// NUTS kernels of glm_nuts.cu; the tile routines also with glm_bign.cu).
-// glm_multistep_rows alone still runs one thread per chain on the device
-// routines glm_eval (glm_common.cuh) and trajectory below, which serve
-// nothing else.
+// The Pallas kernels share _glm_funcs + _trajectory.  Here the four share one
+// body (hmc_tiles) and one lockstep trajectory (tile_trajectory) on the
+// chain-tile gradient of glm_tile.cuh (traj_grad, shared with the NUTS
+// kernels of glm_nuts.cu; the tile routines also with glm_bign.cu).
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and grad = sum_n w_n resid(z_n, y_n) x_n -
@@ -29,12 +26,12 @@
 // and never from device memory inside the trajectory, so bytes do not bound
 // any of them: the products and the link's special functions do.
 //
-// Kernels 1, 2 and 3 (hmc_tiles): a block takes a tile of 16 chains and
-// runs their trajectories in lockstep (the leap count and schedule are the
-// same for every chain of a launch).  Each gradient is two block products
-// on the tensor cores (mma.sync m16n8k8, 3xTF32 for float32 accuracy) with
-// the link in registers between them; the 16 warps split the row groups,
-// and their partial gradients are summed in a fixed order through shared
+// Design (hmc_tiles): a block takes a tile of 16 chains and runs their
+// trajectories in lockstep (the leap count and schedule are the same for
+// every chain of a launch).  Each gradient is two block products on the
+// tensor cores (mma.sync m16n8k8, 3xTF32 for float32 accuracy) with the
+// link in registers between them; the 16 warps split the row groups, and
+// their partial gradients are summed in a fixed order through shared
 // memory: two barriers per gradient.  The kicks and drifts are per-element
 // register updates: thread e < 16 D owns one coordinate of one chain.  The
 // rows, split into TF32 hi and lo parts once, stay resident in shared
@@ -48,29 +45,22 @@
 // loads, the TF32 splits), with 16 warps per SM to hide the latency of the
 // mma and link chains.
 //
-// Kernels 2 and 3 add the Metropolis test of each chain inside the tile.
-// Every lane of a chain selects its own coordinate of theta and g, so the
-// decision is made only from values that are the same bits in all the
-// chain's lanes: lp (the 16 warps' ll partials summed in one order, the
+// Kernels 2, 3 and 3b add the Metropolis test of each chain inside the
+// tile.  Every lane of a chain selects its own coordinate of theta and g,
+// so the decision is made only from values that are the same bits in all
+// the chain's lanes: lp (the 16 warps' ll partials summed in one order, the
 // prior term and 1/2 |m|^2 as chain_sum butterflies over the chain's D
-// lanes) and log u.  Kernel 3 draws inside the tile: each lane its own
-// momentum coordinate and the chain's uniform, from Philox counted by
+// lanes) and log u.  Kernels 3 and 3b draw inside the tile: each lane its
+// own momentum coordinate and the chain's uniform, from Philox counted by
 // (chain, transition, draw) (glm_tile.cuh momentum, log_uniform, which the
 // multistep NUTS kernel draws through too): one Philox per lane and
-// transition beside ten tile gradients.
-//
-// glm_multistep_rows (kernel 3b): one thread per chain.  theta, m and g
-// live in registers, the parameter count is a template bound D (d <= D,
-// unused lanes are zero and stay zero), and the whole trajectory and accept
-// run without touching device memory.  The observations (x_n, y_n, w_n,
-// o_n) are staged in shared memory as rows of a fixed stride; all threads
-// of a warp read the same row, which the shared memory broadcasts.  When N
-// rows do not fit in the shared memory budget, the rows are streamed
-// through shared memory tile by tile at every gradient.  A ragged last
-// block of chains is masked: its idle threads still load tiles and reach
-// every barrier.  It is bound by instruction issue: every row is a
-// dependent chain of d FMAs, then the link, on 128-chain blocks that fill
-// 32 of the 132 SMs at 4096 chains.
+// transition beside ten tile gradients.  Kernel 3b counts by the absolute
+// transition i0 + t, whose Halton leap count is the same for every chain
+// of the launch, takes each lane's prior precision from the (d,) row when
+// one is given, and writes every transition's rows after its test: theta
+// and g one coordinate per lane, lp, accept, alpha and the leap count from
+// the chain's head lane (alpha from the MH log-ratio, the same bits in all
+// the chain's lanes).
 //
 // In every kernel the log-likelihood sum is carried in double, so lp keeps
 // full float precision after a 1000-term sum.
@@ -82,7 +72,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;          // chains per block (kernel 3b)
 constexpr int kMaxOps = 8;             // longest kick/drift schedule
 
 // Kick ("B", op 0) / drift ("A", op 1) schedule, coefficients in units of eps
@@ -94,50 +83,53 @@ struct Sched {
   float c[kMaxOps];
 };
 
-// n_leaps macro steps of the schedule for one chain (kernel 3b); returns lp
-// at the end point, computed by the last drift's gradient pass
-// (pallas_glm.py _trajectory).
-template <int D>
-__device__ float trajectory(const Glm& p, float* sm, const Sched& s,
-                            float eps, int n_leaps, float (&th)[D],
-                            float (&m)[D], float (&g)[D]) {
-  float lp = 0.f;
-  for (int l = 0; l < n_leaps; ++l) {
-    const bool final = l == n_leaps - 1;
-    for (int k = 0; k < s.n; ++k) {
-      const float ce = s.c[k] * eps;
-      if (s.op[k] == 0) {
-#pragma unroll
-        for (int j = 0; j < D; ++j) m[j] = m[j] + ce * g[j];
-      } else {
-#pragma unroll
-        for (int j = 0; j < D; ++j) th[j] = th[j] + ce * m[j];
-        glm_eval<D>(p, sm, th, g, (final && k == s.last_a) ? &lp : nullptr);
-      }
-    }
-  }
-  return lp;
+// The MH log-ratio h0 - h with NaN as -inf (samplers/base.py
+// metropolis_accept rejects it), and the test on it.
+__device__ __forceinline__ float mh_ratio(float h0, float h) {
+  const float ratio = h0 - h;
+  return isnan(ratio) ? -CUDART_INF_F : ratio;
 }
 
-// NaN-rejecting Metropolis test (samplers/base.py metropolis_accept).
-__device__ __forceinline__ bool mh_accept(float h0, float h, float logu) {
-  float ratio = h0 - h;
-  if (isnan(ratio)) ratio = -CUDART_INF_F;
+__device__ __forceinline__ bool mh_accept(float ratio, float logu) {
   return (ratio > 0.f) || (ratio > logu);
 }
 
-// ---- kernels 1, 2 and 3 on the chain-tile gradient ------------------------
+// Radical inverse base 2 of i (samplers/chees.py halton2): the reversed bits
+// scaled by 2^-32, exact for i < 2^24 and rounded to nearest beyond, as the
+// float32 cast of the JAX package's float64 sum is.
+__device__ __forceinline__ float vdc2(uint32_t i) {
+  return __uint2float_rn(__brev(i)) * 2.3283064365386963e-10f;
+}
+
+// Shared leap count of absolute transition i, in float32 in the order of
+// pallas_glm.py _multistep_kernel and warmstart.py _chees_scan:
+// clip(ceil(vdc2(i) * T / eps), 1, max_leaps).
+__device__ __forceinline__ int halton_leaps(uint32_t i, float T, float eps,
+                                            int max_leaps) {
+  float nl = ceilf(__fdiv_rn(__fmul_rn(vdc2(i), T), eps));
+  return (int)fminf(fmaxf(nl, 1.f), (float)max_leaps);
+}
+
+// ---- the four kernels on the chain-tile gradient --------------------------
 
 // A launch of the tile kernels beyond the model and the schedule.  Kernel 1
 // reads th, m, g and writes th, m, g, lp; kernel 2 reads th, g, lp and the
 // noise m0 (C, d), logu (C,), and writes th, g, lp, accept; kernel 3 reads
-// th, draws its noise from key and writes th, g, lp and the accept rate.
+// th, draws its noise from key and writes th, g, lp and the accept rate;
+// kernel 3b reads th, draws its noise from key for the absolute transitions
+// i0 .. i0 + k_trans - 1, each of the Halton leap count of (T, eps,
+// max_leaps), and writes th, g, lp and the rows of every transition.
 struct HmcArgs {
   int C, n_leaps, k_trans;
   float eps;
   uint2 key;
   const float *th_in, *m_in, *g_in, *lp_in, *logu_in;
   float *th_out, *m_out, *g_out, *lp_out, *acc_out;
+  // kernel 3b
+  float T;
+  int i0, max_leaps;
+  float *r_th, *r_g, *r_lp, *r_acc, *r_alpha;
+  int* r_nl;
 };
 
 // The tile's shared memory (traj_plan's layout) and this thread's place in
@@ -151,7 +143,8 @@ struct TileCtx {
   double* pll;   // the warps' log-likelihood partials
   bool own;      // whole warps: 16 D is a multiple of 32
   int oc;        // chain in the tile
-  float lam;     // prior precision of this coordinate, 0 past d
+  float lam;     // prior precision of this coordinate (lamv[j] or lam), 0
+                 // past d
 };
 
 template <int D>
@@ -161,13 +154,13 @@ __device__ __forceinline__ TileCtx<D> tile_ctx(const Glm& p) {
   float* part = reinterpret_cast<float*>(pll + kTrajWarps * kTileChains);
   float* sth = part + kTrajWarps * kTileChains * D;
   float* rest = sth + kTileChains * D;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, oj = tid % D;
   const bool own = tid < kTileChains * D;
   return TileCtx<D>{
       rows_at<D>(p.resident ? rest : rest + 2 * raw_row_floats(D) * p.tile,
                     p.tile),
       p.resident ? nullptr : rest, sth, part, pll, own, tid / D,
-      own && tid % D < p.d ? p.lam : 0.f};
+      own && oj < p.d ? (p.lamv ? p.lamv[oj] : p.lam) : 0.f};
 }
 
 // One tile gradient at this thread's theta coordinate th: returns its
@@ -225,18 +218,20 @@ __device__ __forceinline__ float tile_trajectory(const Glm& p,
 // and log-uniform logu: the trajectory, then the NaN-rejecting test on
 // values that are the same bits in all the chain's lanes (lp, the
 // chain_sum of |m|^2, logu), so every lane selects alike.  Updates (th, g,
-// lp) to the accepted or the old state; returns the accept bit.
+// lp) to the accepted or the old state; returns the accept bit and sets
+// ratio to the MH log-ratio (the same bits in all the chain's lanes too).
 template <int D>
 __device__ __forceinline__ bool tile_transition(const Glm& p,
                                                 const TileCtx<D>& x,
                                                 const Sched& s, float eps,
                                                 int n_leaps, float& th,
                                                 float& g, float& lp, float m,
-                                                float logu) {
+                                                float logu, float& ratio) {
   const float h0 = -lp + 0.5f * chain_sum<D>(m * m);
   float thp = th, gp = g;
   const float lpp = tile_trajectory<D>(p, x, s, eps, n_leaps, thp, m, gp);
-  const bool a = mh_accept(h0, -lpp + 0.5f * chain_sum<D>(m * m), logu);
+  ratio = mh_ratio(h0, -lpp + 0.5f * chain_sum<D>(m * m));
+  const bool a = mh_accept(ratio, logu);
   if (a) {
     th = thp;
     g = gp;
@@ -245,13 +240,14 @@ __device__ __forceinline__ bool tile_transition(const Glm& p,
   return a;
 }
 
-// Kernels 1, 2 and 3: a block of kTrajThreads threads takes a tile of 16
+// The four kernels: a block of kTrajThreads threads takes a tile of 16
 // chains at a time; the blocks are persistent and walk the tiles
-// blockIdx.x + k gridDim.x (every tile does the same work).  A ragged last
-// tile's lanes past C shadow chain C - 1 (its inputs and its draws, so
-// they follow its path) and write nothing.  Threads that own no
-// coordinate take part in every tile gradient.
-enum HmcMode { kTraj = 0, kStep = 1, kMulti = 2 };
+// blockIdx.x + k gridDim.x (every tile does the same work: the leap counts
+// are the same for every chain of a launch).  A ragged last tile's lanes
+// past C shadow chain C - 1 (its inputs and its draws, so they follow its
+// path) and write nothing.  Threads that own no coordinate take part in
+// every tile gradient.
+enum HmcMode { kTraj = 0, kStep = 1, kMulti = 2, kRows = 3 };
 
 template <int D, int MODE>
 __device__ __forceinline__ void hmc_tiles(const Glm& p, const Sched& s,
@@ -282,8 +278,9 @@ __device__ __forceinline__ void hmc_tiles(const Glm& p, const Sched& s,
       if (x.own) lp = a.lp_in[cs];
       const float m = live ? a.m_in[at] : 0.f;
       const float logu = x.own ? a.logu_in[cs] : 0.f;
-      const bool acc =
-          tile_transition<D>(p, x, s, a.eps, a.n_leaps, th, g, lp, m, logu);
+      float ratio;
+      const bool acc = tile_transition<D>(p, x, s, a.eps, a.n_leaps, th, g,
+                                          lp, m, logu, ratio);
       if (out) {
         a.th_out[at] = th;
         a.g_out[at] = g;
@@ -296,11 +293,33 @@ __device__ __forceinline__ void hmc_tiles(const Glm& p, const Sched& s,
       g = tile_grad<D>(p, x, th, true, lp);  // lp and g at the start
       float n_acc = 0.f;
       for (int t = 0; t < a.k_trans; ++t) {
-        const float m = live ? momentum(a.key, cs, t, oj) : 0.f;
-        const float logu = x.own ? log_uniform(a.key, cs, t) : 0.f;
-        if (tile_transition<D>(p, x, s, a.eps, a.n_leaps, th, g, lp, m,
-                               logu))
-          n_acc += 1.f;
+        // kernel 3 counts its draws by the launch's transition t, kernel
+        // 3b by the absolute transition i0 + t, which also sets the leap
+        // count (the same for every chain: the barrier rule holds)
+        const int ti = MODE == kRows ? a.i0 + t : t;
+        const int nl = MODE == kRows
+                           ? halton_leaps((uint32_t)ti, a.T, a.eps,
+                                          a.max_leaps)
+                           : a.n_leaps;
+        const float m = live ? momentum(a.key, cs, ti, oj) : 0.f;
+        const float logu = x.own ? log_uniform(a.key, cs, ti) : 0.f;
+        float ratio;
+        const bool acc = tile_transition<D>(p, x, s, a.eps, nl, th, g, lp, m,
+                                            logu, ratio);
+        if (acc) n_acc += 1.f;
+        if constexpr (MODE == kRows) {  // the rows after the test
+          const size_t rt = (size_t)t * a.C;
+          if (out) {
+            a.r_th[(rt + c) * p.d + oj] = th;
+            a.r_g[(rt + c) * p.d + oj] = g;
+          }
+          if (head) {
+            a.r_lp[rt + c] = lp;
+            a.r_acc[rt + c] = acc ? 1.f : 0.f;
+            a.r_alpha[rt + c] = expf(fminf(ratio, 0.f));
+            a.r_nl[rt + c] = nl;
+          }
+        }
       }
       if (out) {
         a.th_out[at] = th;
@@ -308,7 +327,7 @@ __device__ __forceinline__ void hmc_tiles(const Glm& p, const Sched& s,
       }
       if (head) {
         a.lp_out[c] = lp;
-        a.acc_out[c] = n_acc / (float)a.k_trans;
+        if constexpr (MODE == kMulti) a.acc_out[c] = n_acc / (float)a.k_trans;
       }
     }
   }
@@ -332,94 +351,10 @@ multistep_tile_kernel(Glm p, Sched s, HmcArgs a) {
   hmc_tiles<D, kMulti>(p, s, a);
 }
 
-// Radical inverse base 2 of i (samplers/chees.py halton2): the reversed bits
-// scaled by 2^-32, exact for i < 2^24 and rounded to nearest beyond, as the
-// float32 cast of the JAX package's float64 sum is.
-__device__ __forceinline__ float vdc2(uint32_t i) {
-  return __uint2float_rn(__brev(i)) * 2.3283064365386963e-10f;
-}
-
-// Shared leap count of absolute transition i, in float32 in the order of
-// pallas_glm.py _multistep_kernel and warmstart.py _chees_scan:
-// clip(ceil(vdc2(i) * T / eps), 1, max_leaps).
-__device__ __forceinline__ int halton_leaps(uint32_t i, float T, float eps,
-                                            int max_leaps) {
-  float nl = ceilf(__fdiv_rn(__fmul_rn(vdc2(i), T), eps));
-  return (int)fminf(fmaxf(nl, 1.f), (float)max_leaps);
-}
-
-// k whole transitions per launch with the shared Halton-jittered leap count
-// of each absolute transition i0 + t, and the post-accept rows of every
-// transition: theta, g (k, C, d); lp, accept, alpha (k, C); nleaps (k, C).
-// Replaces pallas_glm.py _multistep_kernel with halton=True,
-// collect_rows=True.  The leap count is the same for every chain of the
-// launch, so with streamed rows every thread still makes the same glm_eval
-// calls (the barrier rule of glm_common.cuh).
-//
-// Bound: 2 d N FMAs and N links per gradient, times the mean leap count; the rows add 2 (k C d) + 4 (k C)
-// floats of writes per launch, small beside it.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-multistep_rows_kernel(Glm p, Sched s, int C, float eps, float T, int i0,
-                      int max_leaps, int k_trans, uint2 key,
-                      const float* __restrict__ th_in, float* th_out,
-                      float* g_out, float* lp_out, float* r_th, float* r_g,
-                      float* r_lp, float* r_acc, float* r_alpha, int* r_nl) {
-  extern __shared__ float sm[];
-  stage<D>(p, sm);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cc = c < C ? c : C - 1;
-  float th[D], g[D];
-  load_vec<D>(th, th_in, cc, p.d);
-  float lp;
-  glm_eval<D>(p, sm, th, g, &lp);
-  for (int t = 0; t < k_trans; ++t) {
-    const uint32_t ti = (uint32_t)(i0 + t);
-    const int nl = halton_leaps(ti, T, eps, max_leaps);
-    float m[D], thp[D], gp[D];
-    // draws counted by (chain, absolute transition, draw): two normals per
-    // Philox draw, the last draw gives the MH uniform
-#pragma unroll
-    for (int j = 0; j < D; j += 2) {
-      uint4 b = philox(make_uint4((uint32_t)cc, ti, (uint32_t)(j / 2), 0u), key);
-      m[j] = j < p.d ? box_muller(b.x, b.y) : 0.f;
-      if (j + 1 < D) m[j + 1] = j + 1 < p.d ? box_muller(b.z, b.w) : 0.f;
-    }
-    uint4 bu = philox(make_uint4((uint32_t)cc, ti, 0xFFFFFFFFu, 0u), key);
-    const float logu = logf(1.f - u01(bu.x));
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      thp[j] = th[j];
-      gp[j] = g[j];
-    }
-    const float h0 = -lp + half_sq<D>(m);
-    float lpp = trajectory<D>(p, sm, s, eps, nl, thp, m, gp);
-    float ratio = h0 - (-lpp + half_sq<D>(m));
-    if (isnan(ratio)) ratio = -CUDART_INF_F;
-    const bool a = (ratio > 0.f) || (ratio > logu);
-    if (a) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        th[j] = thp[j];
-        g[j] = gp[j];
-      }
-      lp = lpp;
-    }
-    if (c < C) {
-      const size_t at = (size_t)t * C;
-      store_vec<D>(r_th + at * p.d, th, c, p.d);
-      store_vec<D>(r_g + at * p.d, g, c, p.d);
-      r_lp[at + c] = lp;
-      r_acc[at + c] = a ? 1.f : 0.f;
-      r_alpha[at + c] = expf(fminf(ratio, 0.f));
-      r_nl[at + c] = nl;
-    }
-  }
-  if (c < C) {
-    store_vec<D>(th_out, th, c, p.d);
-    store_vec<D>(g_out, g, c, p.d);
-    lp_out[c] = lp;
-  }
+__global__ void __launch_bounds__(kTrajThreads, 1)
+rows_tile_kernel(Glm p, Sched s, HmcArgs a) {
+  hmc_tiles<D, kRows>(p, s, a);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -440,9 +375,10 @@ using HmcKernel = void (*)(Glm, Sched, HmcArgs);
 
 template <int D>
 HmcKernel hmc_kernel(int mode) {
-  return mode == kTraj   ? leapfrogs_tile_kernel<D>
-         : mode == kStep ? step_tile_kernel<D>
-                         : multistep_tile_kernel<D>;
+  return mode == kTraj    ? leapfrogs_tile_kernel<D>
+         : mode == kStep  ? step_tile_kernel<D>
+         : mode == kMulti ? multistep_tile_kernel<D>
+                          : rows_tile_kernel<D>;
 }
 
 HmcKernel hmc_kernel_for(int mode, int D) {
@@ -474,17 +410,22 @@ int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
 
 // Launch the tile kernel of `mode` on persistent blocks, as many as fit at
 // once: the resident rows are staged once per block, not once per tile.
+// lamv: the (d,) prior row of kernel 3b, or null (the scalar lam).
 int launch_hmc(int mode, const float* xt, const float* y, const float* w,
-               const float* o, int N, int d, int kind, float lam,
-               const int* sched_ops, const float* sched_c, int n_ops,
-               const HmcArgs& a, void* stream) {
+               const float* o, const float* lamv, int N, int d, int kind,
+               float lam, const int* sched_ops, const float* sched_c,
+               int n_ops, const HmcArgs& a, void* stream) {
   const int D = tile_bound_for(d);
   Sched s;
-  if (!D || a.C < 1 || N < 1 || a.n_leaps < 1 || a.k_trans < 1 ||
-      kind < 0 || kind > 3 || !make_sched(sched_ops, sched_c, n_ops, &s))
+  if (!D || a.C < 1 || N < 1 || a.k_trans < 1 || kind < 0 || kind > 3 ||
+      !make_sched(sched_ops, sched_c, n_ops, &s))
+    return (int)cudaErrorInvalidValue;
+  if (mode == kRows ? a.max_leaps < 1 || a.i0 < 0 || !(a.eps > 0.f) ||
+                          !(a.T >= 0.f)
+                    : a.n_leaps < 1)
     return (int)cudaErrorInvalidValue;
   const TrajPlan tp = traj_plan(D, N);
-  const Glm p{xt, y, w, o, nullptr, N, d, kind, lam, tp.rows, tp.resident};
+  const Glm p{xt, y, w, o, lamv, N, d, kind, lam, tp.rows, tp.resident};
   const HmcKernel kernel = hmc_kernel_for(mode, D);
   int dev, sms, per_sm;
   cudaError_t e = cudaGetDevice(&dev);
@@ -529,11 +470,11 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
   a.m_out = m_out;
   a.g_out = g_out;
   a.lp_out = lp_out;
-  return launch_hmc(kTraj, xt, y, w, o, N, d, kind, lam, sched_ops, sched_c,
-                    n_ops, a, stream);
+  return launch_hmc(kTraj, xt, y, w, o, nullptr, N, d, kind, lam, sched_ops,
+                    sched_c, n_ops, a, stream);
 }
 
-// The occupancy plans of kernels 1, 2 and 3 at (d, N) (plan_hmc).
+// The occupancy plans of kernels 1, 2, 3 and 3b at (d, N) (plan_hmc).
 int glm_leapfrogs_plan(int d, int N, int* blocks_per_sm, int* smem,
                        int* resident) {
   return plan_hmc(kTraj, d, N, blocks_per_sm, smem, resident);
@@ -547,6 +488,11 @@ int glm_step_plan(int d, int N, int* blocks_per_sm, int* smem,
 int glm_multistep_plan(int d, int N, int* blocks_per_sm, int* smem,
                        int* resident) {
   return plan_hmc(kMulti, d, N, blocks_per_sm, smem, resident);
+}
+
+int glm_multistep_rows_plan(int d, int N, int* blocks_per_sm, int* smem,
+                            int* resident) {
+  return plan_hmc(kRows, d, N, blocks_per_sm, smem, resident);
 }
 
 int glm_step(const float* xt, const float* y, const float* w, const float* o,
@@ -570,8 +516,8 @@ int glm_step(const float* xt, const float* y, const float* w, const float* o,
   a.g_out = g_out;
   a.lp_out = lp_out;
   a.acc_out = acc_out;
-  return launch_hmc(kStep, xt, y, w, o, N, d, kind, lam, sched_ops, sched_c,
-                    n_ops, a, stream);
+  return launch_hmc(kStep, xt, y, w, o, nullptr, N, d, kind, lam, sched_ops,
+                    sched_c, n_ops, a, stream);
 }
 
 int glm_multistep(const float* xt, const float* y, const float* w,
@@ -591,8 +537,8 @@ int glm_multistep(const float* xt, const float* y, const float* w,
   a.g_out = g_out;
   a.lp_out = lp_out;
   a.acc_out = acc_out;
-  return launch_hmc(kMulti, xt, y, w, o, N, d, kind, lam, sched_ops, sched_c,
-                    n_ops, a, stream);
+  return launch_hmc(kMulti, xt, y, w, o, nullptr, N, d, kind, lam,
+                    sched_ops, sched_c, n_ops, a, stream);
 }
 
 int glm_multistep_rows(const float* xt, const float* y, const float* w,
@@ -603,29 +549,26 @@ int glm_multistep_rows(const float* xt, const float* y, const float* w,
                        float T, float lam, int i0, int max_leaps, int k_trans,
                        int kind, unsigned long long seed, const int* sched_ops,
                        const float* sched_c, int n_ops, void* stream) {
-  const int D = bound_for(d);
-  Glm p;
-  Sched s;
-  size_t smem;
-  if (!D || C < 1 || max_leaps < 1 || k_trans < 1 || i0 < 0 ||
-      !(eps > 0.f) || !(T >= 0.f) ||
-      !make_params(xt, y, w, o, lamv, N, d, kind, lam, D, &p, &smem) ||
-      !make_sched(sched_ops, sched_c, n_ops, &s))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (C + kThreads - 1) / kThreads;
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(DD)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(multistep_rows_kernel<DD>, smem);               \
-    if (e != cudaSuccess) return (int)e;                                    \
-    multistep_rows_kernel<DD><<<blocks, kThreads, smem, st>>>(              \
-        p, s, C, eps, T, i0, max_leaps, k_trans, key, th_in, th_out, g_out, \
-        lp_out, r_th, r_g, r_lp, r_acc, r_alpha, r_nl);                     \
-  }
-  GLM_DISPATCH(D, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  HmcArgs a{};
+  a.C = C;
+  a.k_trans = k_trans;
+  a.eps = eps;
+  a.key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  a.th_in = th_in;
+  a.th_out = th_out;
+  a.g_out = g_out;
+  a.lp_out = lp_out;
+  a.T = T;
+  a.i0 = i0;
+  a.max_leaps = max_leaps;
+  a.r_th = r_th;
+  a.r_g = r_g;
+  a.r_lp = r_lp;
+  a.r_acc = r_acc;
+  a.r_alpha = r_alpha;
+  a.r_nl = r_nl;
+  return launch_hmc(kRows, xt, y, w, o, lamv, N, d, kind, lam, sched_ops,
+                    sched_c, n_ops, a, stream);
 }
 
 }  // extern "C"

@@ -253,7 +253,7 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
       traj_grad<D>(p, rows, raw, sth, part, pll, true);
       if (!own) continue;
 
-      // the leaf's gradient and lp as glm_eval forms them
+      // the leaf's gradient and lp as the HMC kernels form them (tile_grad)
       const bool act = T.run;
       float acc = 0.f;
       for (int w = 0; w < kTrajWarps; ++w) acc += part[w * kSlot + tid];

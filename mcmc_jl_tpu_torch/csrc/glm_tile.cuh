@@ -1,5 +1,6 @@
-// The chain-tile GLM gradient on the tensor cores, shared by the three HMC
-// kernels (glm_hmc.cu: trajectory, step and multistep), the N-tiled kernel
+// The chain-tile GLM gradient on the tensor cores, shared by the four HMC
+// kernels (glm_hmc.cu: trajectory, step, multistep and the Halton
+// multistep rows), the N-tiled kernel
 // (glm_bign.cu partial_tile_kernel) and the two NUTS kernels (glm_nuts.cu
 // nuts_tile_kernel).  traj_grad is one gradient of a tile's 16 chains with
 // the rows split over 16 warps: the HMC kernels take one per drift, the
@@ -381,7 +382,7 @@ __device__ __forceinline__ void tile_rows(const Rows& t, int nt, int rg0, int st
 // and a small part gs (their sum is G): lane 4g + q holds, for n-block nb,
 // G(g, 8nb + 2q), G(g, 8nb + 2q + 1), G(g + 8, 8nb + 2q), G(g + 8, 8nb +
 // 2q + 1).  With LL, ll[0] and ll[1] gather the lane's terms w ll of chains
-// g and g + 8 in double, as glm_eval does.
+// g and g + 8 in double.
 template <int D, bool LL>
 __device__ __forceinline__ void chain_tile_rows(
     int kind, const Rows& t, int nt, int rg0, int step,
@@ -509,8 +510,9 @@ __device__ __forceinline__ float chain_sum(float v) {
 }
 
 // Philox draws of (chain c, transition t), shared by the multistep HMC
-// kernel (glm_hmc.cu) and the multistep NUTS kernel (glm_nuts.cu): the
-// momenta take draws 0 .. D/2 - 1, the MH or slice uniform draw kSliceDraw.
+// kernels 3 and 3b (glm_hmc.cu) and the multistep NUTS kernel
+// (glm_nuts.cu): the momenta take draws 0 .. D/2 - 1, the MH or slice
+// uniform draw kSliceDraw.
 // ops/glm_kernels.py glm_multistep_draws replays them on the host.
 constexpr uint32_t kSliceDraw = 0xFFFFFFFFu;
 

@@ -1,7 +1,7 @@
 // Device routines shared by the custom-target kernels (target_hmc.cu,
-// target_rwm.cu): the log-density and its derivative for each of the ten
-// continuous catalog families, the staging of the per-coordinate rows in
-// shared memory, and warp reductions.
+// target_rwm.cu, target_nuts.cu): the log-density and its derivative for
+// each of the ten continuous catalog families, the staging of the
+// per-coordinate rows in shared memory, and warp reductions.
 //
 // A catalog target is log p(theta) = sum_j logpdf_j(theta_j): coordinate j
 // follows family code[j] with scalar parameters (p0, p1, p2) and the
@@ -19,7 +19,9 @@
 // Layout: one warp per chain.  Lane l holds coordinates l, l + 32, ...
 // (CPL of them, a template bound), so any d <= 32 * CPL runs one code path;
 // lp and |m|^2 are reduced with xor shuffles, which leave the same bits in
-// every lane, so every lane takes the same accept decision.
+// every lane, so every lane takes the same accept decision.  (The NUTS
+// kernel runs one chain per lane at d <= 32 and takes only the families
+// and the rows from here; target_nuts.cu.)
 //
 // Everything here sits in an anonymous namespace: each source that includes
 // it is built into a library of its own.

@@ -45,7 +45,7 @@ from . import philox
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: largest parameter count the kernels take (csrc/glm_tile.cuh
-#: tile_bound_for, csrc/glm_common.cuh bound_for)
+#: tile_bound_for: every GLM kernel runs on the chain-tile gradient)
 D_MAX = 32
 #: Philox draw number of the MH (or slice) uniform of one (chain,
 #: transition) of the multistep kernels (csrc/glm_tile.cuh kSliceDraw); the

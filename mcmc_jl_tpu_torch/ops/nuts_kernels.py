@@ -15,7 +15,9 @@ wrapper (this module)             Pallas kernel it replaces
 :func:`target_nuts_transition`    ``pallas_nuts.py _nuts_kernel``, target
                                   mode (``_target_transition_inner``): one
                                   transition on a catalog target, a scalar
-                                  step or a (d,) step row
+                                  step or a (d,) step row; one chain per
+                                  lane up to d = 32, one warp per chain
+                                  above
 ================================  =========================================
 
 Each has a plain PyTorch version beside it (``*_ref``): batched tensor ops
@@ -61,6 +63,9 @@ from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10
+#: largest d that :func:`target_nuts_transition` runs one chain per lane
+#: (csrc/target_nuts.cu kLaneDMax); above it, one warp per chain
+LANE_D_MAX = 32
 #: Philox draw numbers of one (chain, transition) in
 #: :func:`glm_nuts_multistep` (csrc/glm_nuts.cu): the momenta take
 #: 0 .. d/2 - 1 (two normals a draw) and the slice uniform ``SLICE_DRAW``,
@@ -409,15 +414,41 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
 
 def load_target_kernels():
     """Build (first use) and bind ``csrc/target_nuts.cu``."""
-    lib = load_library("target_nuts", {"target_nuts_transition": [_P] * 2 + [
-        _I, _I] + [_P] * 13 + [_F, _P, _I, _I, _P]})
+    lib = load_library("target_nuts", {
+        "target_nuts_transition": [_P] * 2 + [_I, _I] + [_P] * 13
+        + [_F, _P, _I, _I, _P],
+        "target_nuts_plan": [_I] * 3 + [ctypes.POINTER(_I)] * 3})
     if not getattr(lib, "_md_checked", False):
         lib.target_nuts_max_doublings.restype = ctypes.c_int
-        if lib.target_nuts_max_doublings() != MAX_DOUBLINGS:
-            raise RuntimeError(
-                "csrc/target_nuts.cu and nuts_kernels.MAX_DOUBLINGS disagree")
+        lib.target_nuts_lane_max_dim.restype = ctypes.c_int
+        if (lib.target_nuts_max_doublings() != MAX_DOUBLINGS
+                or lib.target_nuts_lane_max_dim() != LANE_D_MAX):
+            raise RuntimeError("csrc/target_nuts.cu and nuts_kernels "
+                               "disagree on MAX_DOUBLINGS or LANE_D_MAX")
         lib._md_checked = True
     return lib
+
+
+def target_nuts_plan(d, C, maxdoublings):
+    """How :func:`target_nuts_transition` runs at (d, C, maxdoublings) on
+    the card: {"layout", "blocks_per_sm", "threads", "smem_bytes"}; in the
+    lane layout a block of four warps serves 32 chains."""
+    outs = [ctypes.c_int() for _ in range(3)]
+    code = load_target_kernels().target_nuts_plan(
+        d, C, _check_md(maxdoublings), *[ctypes.byref(o) for o in outs])
+    if code != 0:
+        raise RuntimeError(f"target_nuts_plan failed ({code})")
+    return {"layout": target_nuts_layout(d),
+            **dict(zip(("blocks_per_sm", "threads", "smem_bytes"),
+                       (o.value for o in outs)))}
+
+
+def target_nuts_layout(d):
+    """The layout :func:`target_nuts_transition` launches at dimension
+    ``d``, decided up front from d alone: ``"lane"`` (one chain per lane,
+    32 chains a warp) for d <= :data:`LANE_D_MAX`, else ``"warp"`` (one
+    warp per chain, lanes over coordinates)."""
+    return "lane" if d <= LANE_D_MAX else "warp"
 
 
 def target_nuts_transition(target, theta, lp, grad, eps, m0, logu, dirn,
@@ -430,7 +461,8 @@ def target_nuts_transition(target, theta, lp, grad, eps, m0, logu, dirn,
     ``grad``, ``m0`` (C, d) with ``grad`` the gradient at ``theta``; ``lp``,
     ``logu`` (C,); ``dirn``, ``merge_u`` (C, maxdoublings); ``leaf_u``
     (C, 2^maxdoublings); ``eps`` a scalar or a (d,) per-coordinate step row
-    (the frozen diagonal metric).  d up to ``target_kernels.D_MAX``.
+    (the frozen diagonal metric).  d up to ``target_kernels.D_MAX``; the
+    kernel's layout follows from d (:func:`target_nuts_layout`).
     Returns (theta, grad, lp (C,), ndoublings (C,) int32, diverging (C,)
     bool)."""
     name = "target_nuts_transition"

@@ -4,7 +4,8 @@ interpret mode on the CPU, on the same numpy inputs and injected noise.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
 kernels themselves are held against those plain versions on the card
-(``test_kernels_match_plain_on_card`` here, and chip_smoke.py).  The tests
+(``test_kernels_match_plain_on_card`` and
+``test_rows_kernel_matches_plain_on_card`` here, and chip_smoke.py).  The tests
 that run the JAX package import it themselves, so that the card test runs
 where JAX is not installed."""
 import numpy as np
@@ -236,6 +237,53 @@ def test_step_refs_on_replayed_draws_match_pallas_steps():
     _close(lpc[:, 0], np.asarray(jlp)[:, 0], atol=2e-4)
 
 
+def test_rows_ref_on_replayed_draws_matches_pallas_steps():
+    """The plain version of the Halton multistep kernel fed the replayed
+    draws of a glm_multistep_rows launch from absolute transition i0 (how
+    chip_smoke.py holds kernel 3b chain by chain), with a (d,) prior row,
+    == successive Pallas glm_hmc_step calls (interpret mode) on the same
+    draws at the Halton leap count of each transition, on a mix of accepts
+    and rejects; its nleaps rows are those leap counts."""
+    n, d, C, k, i0 = 60, 5, 8, 6, 37
+    eps, T, max_leaps = 0.25, 0.9, 5
+    X, Y = _data("logistic", n, d, seed=21)
+    theta, _ = _state(C, d, seed=22)
+    lam = np.array([1.0, 2.0, 0.5, 1.5, 0.8], np.float32)
+    XTt, Yt, lam_t = _t(X.T), _t(Y), _t(lam)
+    z, logu = gk.glm_multistep_draws(0xBEEF_CAFE, C, d, k, i0=i0)
+    th, g, lp, rows = gk.glm_multistep_rows_ref(
+        XTt, Yt, _t(theta), eps, T, i0, max_leaps, k_trans=k,
+        noise=(z, logu), prior_prec=lam_t)
+    nls = [gk.halton_leaps(i0 + t, eps, T, max_leaps) for t in range(k)]
+    assert len(set(nls)) > 1
+    assert rows["nleaps"].tolist() == [[nl] * C for nl in nls]
+
+    jnp, pg = _pallas()
+    lp0, g0 = gk.glm_funcs(XTt, Yt, None, None, lam_t, "logistic")[1](
+        _t(theta))
+    XT, Y2, th_p, g_p = _jax_inputs(X, Y, theta, g0.numpy())
+    d_pad = XT.shape[0]
+    prior = jnp.asarray(np.concatenate(
+        [lam, np.ones(d_pad - d, np.float32)]).reshape(1, -1))
+    jlp = jnp.asarray(lp0.numpy()[:, None])
+    for t in range(k):
+        th_p, g_p, jlp, jacc = pg.glm_hmc_step(
+            XT, Y2, th_p, g_p, jlp,
+            pg.pad_chains(jnp.asarray(z[t].numpy()), d_pad),
+            jnp.asarray(logu[t].numpy()[:, None]), eps, n_leaps=nls[t],
+            block_chains=C, interpret=True, prior_prec=prior)
+        np.testing.assert_array_equal(rows["accept"][t].numpy(),
+                                      np.asarray(jacc)[:, 0] > 0.5)
+        _close(rows["ppars"][t], np.asarray(th_p)[:, :d])
+        _close(rows["pgrads"][t], np.asarray(g_p)[:, :d])
+        _close(rows["plogtarget"][t], np.asarray(jlp)[:, 0], atol=2e-4)
+    assert 0 < float(rows["accept"].float().mean()) < 1, \
+        "want a mix of accepts and rejects"
+    _close(th, np.asarray(th_p)[:, :d])
+    _close(g, np.asarray(g_p)[:, :d])
+    _close(lp, np.asarray(jlp)[:, 0], atol=2e-4)
+
+
 def test_cpu_wrappers_run_plain_versions():
     """On CPU tensors every wrapper runs its plain version and launches
     nothing; the multistep wrapper draws from the generator it is given."""
@@ -371,6 +419,50 @@ def test_kernels_match_plain_on_card():
     torch.testing.assert_close((out[3] * k).round(), n_acc, rtol=0, atol=0)
     torch.testing.assert_close(out[0], ts, rtol=1e-4, atol=1e-3)
     _held_at_own_theta(XT, Yc, out[:1] + (None,) + out[1:3], 1e-3)
+
+
+def test_rows_kernel_matches_plain_on_card():
+    """Kernel 3b (glm_multistep_rows) chain by chain on its own Philox
+    draws on a card (skips without one; chip_smoke.py holds it at the
+    paths' shapes and its edges): the draws replayed by
+    glm_multistep_draws from absolute transition i0 and fed to the plain
+    version, with the scalar prior and a (d,) prior row, on a ragged last
+    tile (C 333, d 6), at a step that both accepts and rejects.  The nleaps
+    rows equal exactly; at most one chain leaves the plain version's accept
+    path (a decision within rounding of a tie: the replayed normals lie
+    within a few float32 ulps of the kernel's); on the others theta is held
+    to rtol 1e-4 and atol 1e-4, and g and lp to the plain (lp, g) at the
+    kernel's own theta; a second launch repeats bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cu = lambda a: _t(a).cuda().contiguous()  # noqa: E731
+    C, d, k, i0, eps, T, max_leaps = 333, 6, 6, 41, 0.15, 0.6, 5
+    X, Y = _data("logistic", 300, d, seed=23)
+    theta, _ = _state(C, d, seed=24)
+    XT, Yc, th = cu(X.T), cu(Y), cu(theta)
+    for prior in (1.3, cu(np.random.default_rng(25).uniform(0.5, 2.0, d))):
+        gen = lambda: torch.Generator(device="cuda").manual_seed(5)  # noqa: E731
+        out, out2 = (gk.glm_multistep_rows(
+            XT, Yc, th, eps, T, i0, max_leaps, k_trans=k, generator=gen(),
+            prior_prec=prior) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], out2[:3]))
+        assert all(torch.equal(out[3][key], out2[3][key]) for key in out[3])
+        z, lu = gk.glm_multistep_draws(gk._seed(gen()), C, d, k, i0=i0,
+                                       device="cuda")
+        ref = gk.glm_multistep_rows_ref(XT, Yc, th, eps, T, i0, max_leaps,
+                                        k_trans=k, noise=(z, lu),
+                                        prior_prec=prior)
+        assert torch.equal(out[3]["nleaps"], ref[3]["nleaps"])
+        assert 0 < float(ref[3]["accept"].float().mean()) < 1
+        same = ((out[3]["accept"] == ref[3]["accept"]).all(0)
+                & ((out[0] - ref[0]).abs().amax(-1) <= 1e-3))
+        assert int((~same).sum()) <= 1, int((~same).sum())
+        torch.testing.assert_close(out[0][same], ref[0][same], rtol=1e-4,
+                                   atol=1e-4)
+        lp, g = gk.glm_funcs(XT, Yc, None, None, prior, "logistic")[1](
+            out[0])
+        torch.testing.assert_close(out[1], g, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(out[2], lp, rtol=1e-4, atol=1e-3)
 
 
 def _held_at_own_theta(XT, Y, out, atol, **kw):

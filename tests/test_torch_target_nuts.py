@@ -7,36 +7,35 @@ against JAX's statistically; the ``epsilon`` rows under a step row.
 
 On the CPU the wrapper runs its plain version (the lockstep ``_transition``
 with the target's ``torch.func`` gradient); the CUDA kernel is held against
-that on the card by chip_smoke.py.  JAX's inputs are padded to 128 lanes
-(the noise columns as well) and unpadded after.  Both sides run in float32
-(the suite turns on x64).  Tolerances: equal ``ndoublings`` and
-``diverging`` on every chain; theta and the gradient within 1e-5 absolute,
-lp within 1e-4 (sums of a few float32 terms in another order); statistical
-gates |z| < 5."""
+that on the card (``test_target_nuts_matches_plain_on_card`` here, and
+chip_smoke.py).  JAX's inputs are padded to 128 lanes (the noise columns
+as well) and unpadded after.  Both sides run in float32 (the suite turns
+on x64).  Tolerances: equal ``ndoublings`` and ``diverging`` on every
+chain; theta and the gradient within 1e-5 absolute, lp within 1e-4 (sums
+of a few float32 terms in another order); statistical gates |z| < 5.  The
+tests that run the JAX package import it themselves, so that the card
+test runs where JAX is not installed."""
 import math
+import pathlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mcmc_jl_tpu.models import distributions as jd
-from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
-from mcmc_jl_tpu.ops.pallas_nuts import _nuts_target_run as j_run
-from mcmc_jl_tpu.ops.pallas_nuts import _target_transition_inner as j_trans
 from mcmc_jl_tpu_torch.models import distributions as td
 from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
 torch.set_num_threads(1)
-f32 = jnp.float32
 Z_MAX = 5.0
 
 
 def _jax_block(dists, safes):
     """A JAX logp_block with coordinate j ~ dists[j] (lanes past d zero),
     in theta's dtype (some logpdfs promote to float64 under x64)."""
+    import jax
+    import jax.numpy as jnp
+
     def logp_block(theta):
         col = jax.lax.broadcasted_iota(jnp.int32, theta.shape, 1)
         total = jnp.zeros((theta.shape[0], 1), theta.dtype)
@@ -51,12 +50,19 @@ def _jax_block(dists, safes):
     return logp_block
 
 
+def _port_target(spec):
+    """The port's target for a list of (name, params, safe)."""
+    return tk.coordwise_logp([getattr(td, n)(*p) for n, p, _ in spec],
+                             len(spec))
+
+
 def _targets(spec):
     """(JAX logp_block, port target) for a list of (name, params, safe)."""
+    from mcmc_jl_tpu.models import distributions as jd
+
     return (_jax_block([getattr(jd, n)(*p) for n, p, _ in spec],
                        [s for _, _, s in spec]),
-            tk.coordwise_logp([getattr(td, n)(*p) for n, p, _ in spec],
-                              len(spec)))
+            _port_target(spec))
 
 
 def _pad_cols(a, width):
@@ -110,6 +116,13 @@ def _inputs(spec, step, row, C, md, seed):
 def _jax_transition(jblock, theta, eps, noise, md, multinomial):
     """JAX's _target_transition_inner (interpret) on the padded inputs;
     returns (theta, grad, lp, nd, div) unpadded, and (lp0, g0)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
+    from mcmc_jl_tpu.ops.pallas_nuts import _target_transition_inner as j_trans
+
+    f32 = jnp.float32
     C, d = theta.shape
     m0, logu, dirn, merge, leaf = noise
     th_j = pad_chains(jnp.asarray(theta, f32), LANE)
@@ -191,6 +204,13 @@ def test_run_matches_jax_statistically(row):
     per-coordinate means and second moments within |z| < 5 of each other,
     and of the exact moments; the epsilon rows report the scalar step, or
     the row's first entry (a property of the JAX package kept as it is)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
+    from mcmc_jl_tpu.ops.pallas_nuts import _nuts_target_run as j_run
+
+    f32 = jnp.float32
     spec = [("Normal", (0.5, 2.0), 0.5), ("Gamma", (3.0, 0.2), 0.5)]
     jblock, target = _targets(spec)
     d, md, steps = 2, 5, 25
@@ -225,3 +245,62 @@ def test_run_matches_jax_statistically(row):
     acc = float(infos["accept"].double().mean())
     jacc = float(np.mean(np.asarray(jinf["accept"])))
     assert abs(acc - jacc) < 0.1, (acc, jacc)
+
+
+def test_target_nuts_layout_by_d():
+    """Kernel 8b's layout is decided up front from d alone: one chain per
+    lane up to LANE_D_MAX, one warp per chain above; the CUDA source
+    draws the line at the same d (its library also reports it when it
+    loads, and load_target_kernels refuses a mismatch)."""
+    assert [nk.target_nuts_layout(d) for d in (1, 8, 10, 16, 32, 33, 1000)] \
+        == ["lane"] * 5 + ["warp"] * 2
+    src = (pathlib.Path(nk.__file__).parent.parent / "csrc" /
+           "target_nuts.cu").read_text()
+    assert f"constexpr int kLaneDMax = {nk.LANE_D_MAX};" in src
+
+
+def test_target_nuts_matches_plain_on_card():
+    """Kernel 8b against its plain version on injected noise on a card
+    (skips without one; chip_smoke.py runs the same checks at the path's
+    shape and its edges): the ten-family target at d 10 and 16 (one chain
+    per lane) and d 40 (one warp per chain), slice and multinomial, a
+    scalar step and a step row, md 1, 6 and 10, a ragged last group of
+    32 chains (C 397) and 20,000 chains.  Equal ndoublings and diverging
+    and the chosen theta within 1e-3 (1 + |theta|) on at least 99.5% of
+    the chains (a slice, u-turn or reservoir decision within rounding of
+    a tie may go the other way: the kernel sums lp and the dots in
+    another order), g and lp within the same on those, and a bitwise
+    repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    tol = 1e-3
+    cases = [  # spec, multinomial, step, row, md, C
+        (MIXED, False, 0.1, False, 6, 397), (MIXED, True, 0.1, True, 6, 397),
+        (MIXED, False, 0.3, True, 1, 397),
+        ((MIXED * 2)[:16], False, 0.02, True, 10, 397),
+        (MIXED, True, 0.1, True, 6, 20_000),
+        (MIXED * 4, False, 0.1, True, 6, 397),
+        (MIXED * 4, True, 0.1, False, 6, 397)]
+    for i, (spec, multinomial, step, row, md, C) in enumerate(cases):
+        target = _port_target(spec)
+        theta, eps, noise = _inputs(spec, step, row, C, md, seed=40 + i)
+        cu = lambda a: torch.as_tensor(a).cuda().contiguous()  # noqa: E731
+        th = cu(theta)
+        lp, g = tk.target_funcs(target)[1](th)
+        args = (target, th, lp.contiguous(), g.contiguous(),
+                cu(eps) if row else float(eps), *(cu(a) for a in noise))
+        kw = dict(maxdoublings=md, multinomial=multinomial)
+        out, out2 = (nk.target_nuts_transition(*args, **kw) for _ in range(2))
+        ref = nk.target_nuts_transition_ref(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(out, out2)), i
+
+        def near(a, b):
+            return (a - b).abs() <= tol * (1 + b.abs())
+
+        same = ((out[3] == ref[3]) & (out[4] == ref[4])
+                & near(out[0], ref[0]).all(1))
+        assert float(same.float().mean()) >= 0.995, (i, int((~same).sum()))
+        assert near(out[1][same], ref[1][same]).all(), i
+        fin = torch.isfinite(ref[2])
+        assert torch.where(fin, near(out[2], ref[2]),
+                           out[2] == ref[2])[same].all(), i
