@@ -41,9 +41,9 @@ Run with no arguments on a machine with one CUDA card::
 It exits non-zero without a CUDA device, and on any failed check.
 ``python3 chip_smoke.py --times [ROOT] [--only g1,g2]`` builds only the
 libraries that the named timing groups need (TIME_GROUPS; default all)
-from the package under ROOT and times their kernels (1-4, 8, 9, 3b and
-8b) at pinned shapes, the paths that run them and bench.py's drivers, to
-compare two trees on one card; ``python3 chip_smoke.py --sass`` prints the
+from the package under ROOT and times their kernels (1-4, 8, 9, 3b, 8b
+and 5-7) at pinned shapes, the paths that run them and bench.py's
+drivers, to compare two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
 """
 import contextlib
@@ -157,6 +157,18 @@ TARGET_LEAP_OPS, TARGET_STEP_OPS = 20, 10
 # and one (logp, gradient) pass: the family's log-density and derivative,
 # about 10 per coordinate counting logf or powf as one
 TARGET_EVAL_OPS = 10
+# the floor of the RWM kernel's random numbers: a Philox4x32-10 call is
+# ten rounds of two 32 x 32 -> 64-bit products, an IMAD for each word of
+# each (40), at 64 IMAD per clock on an SM (the integer pipe's rate)
+PHILOX_IMAD, IMAD_PER_CLOCK = 40, 64
+# special-function results the custom-target floors count (each logf, sqrtf
+# and IEEE division one): an RWM step of a Normal coordinate (half a logf
+# and half a sqrtf of its Box-Muller pair, the family's division) and of a
+# chain (a quarter of a logf: four log-uniforms a Philox call); a leapfrog
+# of a Gamma coordinate (its derivative's two divisions) and its final lp
+# (a logf and a division)
+RWM_SFU_COORD, RWM_SFU_CHAIN = 2, 0.25
+LEAP_SFU_COORD, LP_SFU_COORD = 2, 2
 # the card's published peaks (one H100 SXM at 700 W): FP32 outside the
 # tensor cores, and HBM bandwidth; a kernel's bound is the larger of its
 # operations and its bytes over these
@@ -178,6 +190,11 @@ ROWS_TIME_FROZEN = (0.53101646900177, 2)
 # coordinate's distribution)
 TARGET_NUTS_TIME_EPS = 0.008297648280858994
 TARGET_NUTS_TIME_SEED = 72
+# kernel 5's timing shape on the ten bare distributions: the step and leap
+# count that adaptive HMC with a diagonal metric froze at on its path
+# (phase_warm_target_paths' frozen_step and frozen_n_leaps on an H100 80GB
+# HBM3)
+TARGET_TIME_FROZEN = (0.001015600049868226, 200)
 
 CARD = {}
 
@@ -1632,10 +1649,8 @@ def phase_tile_kernels(main_chains=(65536, 4099), k_edge=5):
             "glm_logp_grad_tiled": max(tiled)}
 
 
-def _sfu_floor_ms(links, per_link):
-    """The special-function floor (ms) of ``links`` link evaluations with
-    ``per_link`` special-function results each: results over 16 per clock
-    per SM on every SM at the card's maximum SM clock."""
+def _sm_clocks():
+    """SMs times the card's maximum SM clock (Hz): clocks a second."""
     import torch
 
     if "sm_clock_hz" not in CARD:
@@ -1645,7 +1660,20 @@ def _sfu_floor_ms(links, per_link):
             text=True, check=True)
         CARD["sm_clock_hz"] = 1e6 * float(smi.stdout.split()[0])
         CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
-    return 1e3 * links * per_link / (16 * CARD["sms"] * CARD["sm_clock_hz"])
+    return CARD["sms"] * CARD["sm_clock_hz"]
+
+
+def _sfu_floor_ms(links, per_link):
+    """The special-function floor (ms) of ``links`` link evaluations with
+    ``per_link`` special-function results each: results over 16 per clock
+    per SM on every SM at the card's maximum SM clock."""
+    return 1e3 * links * per_link / (16 * _sm_clocks())
+
+
+def _rng_floor_ms(calls):
+    """The floor (ms) of ``calls`` Philox4x32-10 calls: their IMADs over
+    the integer pipe's rate on every SM at the maximum SM clock."""
+    return 1e3 * calls * PHILOX_IMAD / (IMAD_PER_CLOCK * _sm_clocks())
 
 
 # special-function results per logistic link: expf's exponential and the
@@ -2132,10 +2160,26 @@ def _lp_close(a, b, d):
     return _close(a[fin_a], b[fin_b], T_LP_RTOL, T_LP_ATOL_PER_COORD * d)
 
 
+def _layout(layout_fn, d, warps=0):
+    """The layout a launch at ``warps`` runs (as ``kernel_plan`` reads
+    ``warps``; ``layout_fn`` the kernel's layout function of d)."""
+    return "warp" if warps < 0 else layout_fn(d)
+
+
+def _lane_bound(d):
+    """The lane layout's template bound for d <= 32 (target_lane.cuh
+    lane_bound_for)."""
+    return 8 if d <= 8 else 16 if d <= 16 else 32
+
+
 def _traj_case(label, target, theta, m, eps, n_leaps=10,
-               integrator="leapfrog", want_inf=False):
+               integrator="leapfrog", want_inf=False, warps=0, outs=None):
     """Kernel 5 against its plain version on the same inputs; ``grad`` at
-    theta from the plain version.  Returns (ok, report)."""
+    theta from the plain version.  ``warps``: 0 for the public wrapper
+    (the layout decided from d), else the layout asked of
+    ``leapfrogs_launcher`` (4 or the lane bound D: one chain per lane with
+    that many warps a block; -1: one warp per chain).  The kernel's outputs
+    are appended to ``outs`` when given.  Returns (ok, report)."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
@@ -2143,7 +2187,13 @@ def _traj_case(label, target, theta, m, eps, n_leaps=10,
     _, g = tk.target_funcs(target)[1](theta)
     g = g.contiguous()
     kw = dict(n_leaps=n_leaps, integrator=integrator)
-    out_k = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
+    if warps:
+        out_k = tk.leapfrogs_launcher(target, theta, eps, integrator,
+                                      warps=warps)(theta, m, g, n_leaps)
+    else:
+        out_k = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
+    if outs is not None:
+        outs.append(out_k)
     out_r = tk.fused_target_leapfrogs_ref(target, theta, m, g, eps, **kw)
     torch.cuda.synchronize()
     d = theta.shape[1]
@@ -2158,7 +2208,9 @@ def _traj_case(label, target, theta, m, eps, n_leaps=10,
           and (not want_inf or not bool(fin.any())))
     emit({"phase": "kernel", "name": "target_leapfrogs", "case": label,
           "C": theta.shape[0], "d": d, "n_leaps": int(n_leaps),
-          "integrator": integrator, "ok": ok, **rep})
+          "integrator": integrator, "warps": warps,
+          "layout": _layout(tk.target_leapfrogs_layout, d, warps), "ok": ok,
+          **rep})
     return ok, max([r["max_abs"] for r in rep.values()
                     if isinstance(r, dict) and r] or [0.0])
 
@@ -2208,32 +2260,40 @@ def _parted_report(kernel, label, same, gaps, err, bitwise=None, held=True,
     return ok
 
 
-def _rwm_case(label, target, theta, scale, k, noise):
+def _rwm_case(label, target, theta, scale, k, noise, warps=0, i0=0):
     """Kernel 7 against its plain version on the same draws over ``k``
     steps.  ``noise`` is (z (C, k, d), logu (C, k)), read by both
     (noise="input"), or a seed: the kernel draws from Philox (noise="hw")
-    under the launch seed a generator seeded so gives, and the plain
-    version gets those draws replayed (``rwm_draws``); the kernel then also
-    repeats bitwise.  Every chain ends on the plain version's path, or had
-    a step whose MH ratio (replayed by the plain version) lay within T_BAND
-    of log u."""
+    from absolute step ``i0`` under the launch seed a generator seeded so
+    gives, and the plain version gets those draws replayed
+    (``rwm_draws``); the kernel then also repeats bitwise.  ``warps`` as
+    for :func:`_traj_case` (through ``rwm_launcher``).  Every chain ends on
+    the plain version's path, or had a step whose MH ratio (replayed by the
+    plain version) lay within T_BAND of log u."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
-    if isinstance(noise, tuple):
+    mode = "input" if isinstance(noise, tuple) else "hw"
+
+    def kernel(**kw):
+        if warps:
+            return rk.rwm_launcher(target, theta, scale, k_steps=k,
+                                   noise=mode, warps=warps)(theta, i0=i0,
+                                                            **kw)
+        return rk.fused_target_rwm_steps(target, theta, scale, k_steps=k,
+                                         noise=mode, i0=i0, **kw)
+
+    if mode == "input":
         z, logu = noise
-        outs = [rk.fused_target_rwm_steps(target, theta, scale, k_steps=k,
-                                          z=z, logu=logu, noise="input")]
+        outs = [kernel(z=z, logu=logu)]
     else:
         def gen():
             return torch.Generator(device="cuda").manual_seed(noise)
 
-        outs = [rk.fused_target_rwm_steps(target, theta, scale, k_steps=k,
-                                          noise="hw", generator=gen())
-                for _ in range(2)]
-        z, logu = rk.rwm_draws(tk._seed(gen()), *theta.shape, k,
+        outs = [kernel(generator=gen()) for _ in range(2)]
+        z, logu = rk.rwm_draws(tk._seed(gen()), *theta.shape, k, i0=i0,
                                device="cuda")
     out_k = outs[0]
     out_r = rk.fused_target_rwm_steps_ref(target, theta, scale, k_steps=k,
@@ -2259,8 +2319,10 @@ def _rwm_case(label, target, theta, scale, k, noise):
         gaps = gap.tolist()
     err = _same_path_err(out_k[0], out_r[0], same)
     ok = _parted_report("target_rwm_steps", label, same, gaps, err,
-                        bitwise=bitwise, C=theta.shape[0], k_steps=k,
-                        noise="hw" if bitwise is not None else "input",
+                        bitwise=bitwise, C=theta.shape[0], d=theta.shape[1],
+                        k_steps=k, i0=i0, noise=mode, warps=warps,
+                        layout=_layout(rk.target_rwm_layout, theta.shape[1],
+                                       warps),
                         accept_rate=float(out_r[2].mean()))
     return ok, err
 
@@ -2487,6 +2549,106 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
     return errors
 
 
+def phase_target_lane_kernels(C=4096, ragged=4099, k_rwm=20):
+    """Kernels 5 and 7 in both layouts against their plain versions on the
+    card: the ten-family mixed target with a (d,) step row at d = 1, 10,
+    16 and 32 (one chain per lane, template bounds 8, 16, 32) and 33 and
+    1000 (one warp per chain); at d <= 32 each kernel also with 4 and with
+    D warps a block (its default is one of them) and with one warp per
+    chain (``warps`` -1), and kernel 5's theta, m and g compared
+    bitwise across the layouts (the warp-per-chain kernel is the one that
+    ran d <= 32 before the lane layout; reported, not held); a ragged last
+    group (C = ``ragged``); every kernel family alone (d 10); the 2- and
+    3-stage integrators and a Gamma trajectory that leaves the support in
+    every layout.  Kernel 7 from input noise over ``k_rwm`` steps, and on
+    its own Philox draws replayed from an absolute step that is not a
+    multiple of four (the draws come four steps a Philox call).  Kernel 5
+    at C chains, kernel 7 at ``ragged``.  Returns {kernel: max abs
+    error}."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    rng = np.random.default_rng(22)
+    err5 = err7 = 0.0
+    bad = []
+
+    def note(ok, label):
+        if not ok:
+            bad.append(label)
+
+    def layouts(dd):
+        return (0, 4, _lane_bound(dd), -1) if dd <= 32 else (0,)
+
+    def traj(label, target, th, m, eps, ws, **kw):
+        nonlocal err5
+        outs = []
+        for w in ws:
+            ok, e = _traj_case(f"{label}, warps {w}", target, th, m, eps,
+                               warps=w, outs=outs, **kw)
+            note(ok, f"kernel 5 {label}, warps {w}")
+            err5 = max(err5, e)
+        if len(outs) > 1:
+            emit({"phase": "kernel", "name": "target_leapfrogs",
+                  "case": f"{label}: theta, m, g bitwise across warps {ws}",
+                  "bitwise": all(torch.equal(a, b) for o in outs[1:]
+                                 for a, b in zip(o[:3], outs[0][:3])),
+                  "max_abs_theta_m_g": max(
+                      float((a - b).abs().max()) for o in outs[1:]
+                      for a, b in zip(o[:3], outs[0][:3]))})
+
+    def rwm(label, target, th, scale, noise, ws, k=k_rwm, i0=0):
+        nonlocal err7
+        for w in ws:
+            ok, e = _rwm_case(f"{label}, warps {w}", target, th, scale, k,
+                              noise, warps=w, i0=i0)
+            note(ok, f"kernel 7 {label}, warps {w}")
+            err7 = max(err7, e)
+
+    def noise(Cn, dd):
+        return (_cuda(rng.standard_normal((Cn, k_rwm, dd))),
+                _cuda(np.log1p(-rng.random((Cn, k_rwm)))))
+
+    for dd in (1, 10, 16, 32, 33, 1000):
+        mixed, x0, sc = _mixed_target(dd)
+        th = _cuda(x0 + 0.05 * sc * rng.standard_normal((C, dd)))
+        m = _cuda(rng.standard_normal((C, dd)))
+        traj(f"mixed ten families, d = {dd}, (d,) row 0.02 s", mixed, th, m,
+             _cuda(0.02 * sc), layouts(dd))
+        thr = _cuda(x0 + 0.05 * sc * rng.standard_normal((ragged, dd)))
+        rwm(f"mixed ten families, d = {dd}, scale 0.5 s, input noise", mixed,
+            thr, _cuda(0.5 * sc), noise(ragged, dd), layouts(dd))
+        del th, m, thr
+
+    mixed, x0, sc = _mixed_target(10)
+    row = _cuda(0.02 * sc)
+    th = _cuda(x0 + 0.05 * sc * rng.standard_normal((ragged, 10)))
+    m = _cuda(rng.standard_normal((ragged, 10)))
+    traj(f"mixed ten families, C {ragged}", mixed, th, m, row, layouts(10))
+    for integ in ("2stage", "3stage"):
+        traj(f"mixed ten families, (d,) row, {integ}", mixed, th, m, row,
+             layouts(10), n_leaps=7, integrator=integ)
+    rwm("mixed ten families, Philox draws replayed from step 3", mixed, th,
+        _cuda(0.5 * sc), 36, layouts(10), k=k_rwm + 1, i0=3)
+
+    gam = tk.coordwise_logp(_target_cases()[10][1], 10)  # Gamma(3, 0.2)
+    th_out = _cuda(0.05 + 0.01 * np.abs(rng.standard_normal((C, 10))))
+    m_out = _cuda(-4.0 - np.abs(rng.standard_normal((C, 10))))
+    traj("Gamma(3,0.2) leaving the support", gam, th_out, m_out, 0.05,
+         layouts(10), want_inf=True)
+
+    for fam in _kernel_families():
+        alone, x0, sc = _mixed_target(10, [fam])
+        th = _cuda(x0 + 0.05 * sc * rng.standard_normal((C, 10)))
+        m = _cuda(rng.standard_normal((C, 10)))
+        traj(f"{fam[0]!r} alone, d = 10, (d,) row 0.05 s", alone, th, m,
+             _cuda(0.05 * sc), (0,))
+        rwm(f"{fam[0]!r} alone, d = 10, scale 0.5 s, input noise", alone, th,
+            _cuda(0.5 * sc), noise(C, 10), (0,))
+    assert not bad, f"kernels 5 and 7 disagree in the lane phase: {bad}"
+    return {"target_leapfrogs": err5, "target_rwm_steps": err7}
+
+
 def _z_exact(a, want):
     """max over columns of |mean - want| / se, with ``a`` one row per
     independent chain (numpy)."""
@@ -2555,6 +2717,7 @@ def phase_target_paths(chains=4096, generic_chains=512, rwm_chains=16_384):
                     _z_means((samples ** 2).mean(1), (gs ** 2).mean(1)))
         ok = z_ex < Z_MAX and z_gen < Z_MAX
         emit({"phase": "target_path", "kernel": "target_leapfrogs",
+              "layout": tk.target_leapfrogs_layout(10),
               "from": origin, "chains": chains, "seconds": dt,
               "spans_s": spans, "launches": launches["target_leapfrogs"],
               "accept_rate": acc, "pooled_mean": float(samples.mean()),
@@ -2595,6 +2758,8 @@ def phase_target_paths(chains=4096, generic_chains=512, rwm_chains=16_384):
         z_ex = _moments_z((th, th ** 2), dist)
         ok = z_ex < Z_MAX
         emit({"phase": "target_path", "kernel": kernel, "from": origin,
+              "layout": rk.target_rwm_layout(10)
+              if kernel == "target_rwm_steps" else "warp",
               "seconds": dt, "launches": launches[kernel],
               "accept_rate": float(infos["accept_rate"].mean()),
               "pooled_mean": float(th.mean()),
@@ -2660,18 +2825,63 @@ def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
             (thr, scale, normal.rows(thr.device)),
             rwm_chains * (1 + k_rwm) * TARGET_STEP_OPS * d),
     }
+    # the floors of kernels 5 and 7 (floor_ms: the larger of the two)
+    refills = -(-k_rwm // 4)
+    floors = {
+        "target_leapfrogs": {"sfu_floor_ms": _sfu_floor_ms(
+            C * d, LEAP_SFU_COORD * n_leaps + LP_SFU_COORD)},
+        "target_rwm_steps": {
+            "rng_floor_ms": _rng_floor_ms(rwm_chains * refills * (d + 1)),
+            "sfu_floor_ms": _sfu_floor_ms(
+                rwm_chains * k_rwm, RWM_SFU_COORD * d + RWM_SFU_CHAIN)}}
+    for f in floors.values():
+        f["floor_ms"] = max(f.values())
     ms, work = {}, {}
     for name, (kern, plain, inputs, ops) in calls.items():
         work[name] = {**_bound_ops(ops, _nbytes(inputs, kern())),
-                      "device_ms": _device_ms(kern, KERNEL_SYMBOL[name])}
+                      "device_ms": _device_ms(kern, KERNEL_SYMBOL[name]),
+                      **floors.get(name, {})}
         ms[name] = (_event_ms(kern), _event_ms(plain, reps=2))
+        extra = {}
+        if name == "target_leapfrogs":
+            extra = _lean_times(gam, th, m0, g, 0.05, n_leaps,
+                                work[name]["device_ms"])
+            extra["host_ms"] = (None if work[name]["device_ms"] is None
+                                else ms[name][0] - work[name]["device_ms"])
         emit({"phase": "kernel_time", "name": name,
               "C": rwm_chains if name == "target_rwm_steps" else C, "d": d,
               "k": {"target_leapfrogs": 1, "target_multistep": k_trans,
                     "target_rwm_steps": k_rwm, "target_logp_grad": 1}[name],
               "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
+              **extra, "plan": _lane_plan(
+                  name, d, rwm_chains if name == "target_rwm_steps" else C),
               **CARD})
     return ms, work
+
+
+def _lane_plan(name, d, C, warps=0):
+    """Kernel 5's or 7's launch plan at (d, C, warps), or None for another
+    kernel or a package without one (before the lane layout)."""
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    fn = {"target_leapfrogs": getattr(tk, "target_leapfrogs_plan", None),
+          "target_rwm_steps": getattr(rk, "target_rwm_plan", None)}.get(name)
+    return None if fn is None else fn(d, C, warps)
+
+
+def _lean_times(target, th, m0, g, eps, n_leaps, device_ms):
+    """Kernel 5 through ``leapfrogs_launcher`` as the drivers call it: one
+    call between CUDA events (``lean_ms``) and its host time beside the
+    kernel's ``device_ms``; empty for a package without the launcher."""
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    if not hasattr(tk, "leapfrogs_launcher"):
+        return {}
+    step = tk.leapfrogs_launcher(target, th, eps)
+    lean = _event_ms(lambda: step(th, m0, g, n_leaps))
+    return {"lean_ms": lean, "lean_host_ms": None if device_ms is None
+            else lean - device_ms}
 
 
 def _ten_bare():
@@ -2909,6 +3119,8 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     import torch
 
     import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
     m, bare = _ten_bare_model()
     narrow = [j for j, (_, dist, _) in enumerate(bare)
@@ -2960,6 +3172,9 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
         z = z_all if cols is None else _bare_z(samples, bare, cols)
         ok = z < Z_MAX
         emit({"phase": "warm_target_path", "kernel": kernel, "from": origin,
+              "layout": (nk.target_nuts_layout
+                         if kernel == "target_nuts_transition"
+                         else tk.target_leapfrogs_layout)(10),
               "chains": C, "seconds": dt, "spans_s": spans,
               "launches": launches[kernel],
               "gradient_pass_launches": launches["target_logp_grad"],
@@ -3131,6 +3346,187 @@ def phase_target_nuts_times(Cs=(4096, 65536), md=6):
                   **CARD})
 
 
+def _warps_to_time(d):
+    """The layouts timed beside the default: 4 and D warps a block and one
+    warp per chain, for a package with the lane layout (the launchers);
+    else the default alone."""
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    if not hasattr(tk, "leapfrogs_launcher"):
+        return (0,)
+    return (0, 4, _lane_bound(d), -1)
+
+
+def _traj_time(label, target, th, eps, n_leaps, warps, seed, plain=False):
+    """One launch of kernel 5 on ``target`` from ``th`` (C, d), momenta
+    N(0, 1) from numpy seed ``seed``: ``ms`` one call between CUDA events,
+    ``device_ms`` the kernel alone; at ``warps`` 0 the public wrapper (and
+    the lean launcher's host time), else the launcher at that layout; the
+    bound (TARGET_LEAP_OPS x d operations a leapfrog, or the bytes), device
+    ns per chain and leapfrog, and the plan.  Emits and returns a dict."""
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    C, d = th.shape
+    m0 = _cuda(np.random.default_rng(seed).standard_normal((C, d)))
+    g = tk.target_funcs(target)[1](th)[1].contiguous()
+    if warps:
+        step = tk.leapfrogs_launcher(target, th, eps, warps=warps)
+        kern = lambda: step(th, m0, g, n_leaps)  # noqa: E731
+    else:
+        kern = lambda: tk.fused_target_leapfrogs(  # noqa: E731
+            target, th, m0, g, eps, n_leaps=n_leaps)
+    dev = _device_ms(kern, KERNEL_SYMBOL["target_leapfrogs"])
+    r = {"target": label, "C": C, "d": d, "n_leaps": n_leaps,
+         "eps": eps if isinstance(eps, float) else "(d,) row",
+         "warps": warps, "ms": _event_ms(kern), "device_ms": dev,
+         "device_ns_per_chain_leapfrog": None if dev is None
+         else 1e6 * dev / (C * n_leaps),
+         **_bound_ops(TARGET_LEAP_OPS * d * C * n_leaps,
+                      _nbytes((th, m0, g, target.rows(th.device)), kern())),
+         "plan": _lane_plan("target_leapfrogs", d, C, warps)}
+    if not warps:
+        r.update(_lean_times(target, th, m0, g, eps, n_leaps, dev))
+    if plain:
+        r["plain_ms"] = _event_ms(lambda: tk.fused_target_leapfrogs_ref(
+            target, th, m0, g, eps, n_leaps=n_leaps), reps=2)
+    emit({"phase": "target_time", "name": "target_leapfrogs", **r, **CARD})
+    return r
+
+
+def _rwm_time(label, target, th, scale, k, warps, seed):
+    """One launch of kernel 7 in Philox mode on ``target`` from ``th``:
+    ``ms`` (events), ``device_ms``, the bound (TARGET_STEP_OPS x d
+    operations a step), the floors, device ns per chain and step, the
+    plan.  Emits and returns a dict."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+
+    C, d = th.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if warps:
+        step = rk.rwm_launcher(target, th, scale, k_steps=k, warps=warps)
+        kern = lambda: step(th, generator=gen)  # noqa: E731
+    else:
+        kern = lambda: rk.fused_target_rwm_steps(  # noqa: E731
+            target, th, scale, k_steps=k, noise="hw", generator=gen)
+    dev = _device_ms(kern, KERNEL_SYMBOL["target_rwm_steps"])
+    rng_ms = _rng_floor_ms(C * -(-k // 4) * (d + 1))
+    sfu_ms = _sfu_floor_ms(C * k, RWM_SFU_COORD * d + RWM_SFU_CHAIN)
+    r = {"target": label, "C": C, "d": d, "k": k, "warps": warps,
+         "ms": _event_ms(kern), "device_ms": dev,
+         "device_ns_per_chain_step": None if dev is None
+         else 1e6 * dev / (C * k),
+         **_bound_ops(C * (1 + k) * TARGET_STEP_OPS * d,
+                      _nbytes((th, scale, target.rows(th.device)), kern())),
+         "rng_floor_ms": rng_ms, "sfu_floor_ms": sfu_ms,
+         "floor_ms": max(rng_ms, sfu_ms),
+         "plan": _lane_plan("target_rwm_steps", d, C, warps)}
+    emit({"phase": "target_time", "name": "target_rwm_steps", **r, **CARD})
+    return r
+
+
+def phase_target_lane_times(C=4096, big_C=65_536, rwm_C=16_384, k_rwm=100,
+                            n_leaps=10):
+    """Kernels 5 and 7 at pinned shapes, each in its default layout and, on
+    a package with the lane layout, with 4 and D warps a block and one warp
+    per chain: kernel 5 on Gamma(3, 0.2) (eps 0.05, 10 leapfrogs) at C and
+    big_C chains; on the ten bare distributions at C chains from exact
+    draws (seed TARGET_NUTS_TIME_SEED) at the adaptive HMC-diag path's
+    frozen step and leap count (TARGET_TIME_FROZEN; the row eps times each
+    coordinate's sd, the metric the adaptation estimates), and at 10
+    leapfrogs of that row (the count of the Gamma shape), beside ten
+    Normals with the same means and sds (one family in every coordinate:
+    what the family branch costs); kernel 7 in Philox mode on Normal(1, 1)
+    (scale 1.1, k_rwm steps) at rwm_C and big_C chains.  The plain
+    versions at the first shapes only.  Runs on whichever package
+    ``mcmc_jl_tpu_torch`` resolves to, so one call can time a parent
+    tree."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
+
+    if len(_warps_to_time(8)) > 1:
+        for name in ("target_leapfrogs", "target_rwm_steps"):
+            for dd in (8, 10, 16, 32, 33):
+                for w in _warps_to_time(dd)[:1 if dd > 32 else None]:
+                    emit({"phase": "plan", "name": name, "d": dd, "C": C,
+                          "warps": w, **_lane_plan(name, dd, C, w)})
+    d = 10
+    rng = np.random.default_rng(42)
+    gam = coordwise_logp(mt.Gamma(3.0, 0.2), d)
+    for Cx in (C, big_C):
+        th = _cuda(0.6 + 0.1 * rng.standard_normal((Cx, d)))
+        for w in _warps_to_time(d):
+            _traj_time("Gamma(3,0.2)", gam, th, 0.05, n_leaps, w, 43,
+                       plain=Cx == C and not w)
+    m, bare = _ten_bare_model()
+    normals = coordwise_logp([mt.Normal(float(dist.mean()),
+                                        float(dist.std()))
+                              for _, dist, _ in bare], d)
+    eps, nl = TARGET_TIME_FROZEN
+    row = _cuda(eps * np.array([float(dist.std()) for _, dist, _ in bare]))
+    th = _bare_draws(bare, C, TARGET_NUTS_TIME_SEED)
+    for label, target in (("ten bare distributions", m.target_spec),
+                          ("ten Normals, the same means and sds", normals)):
+        for leaps in (nl, n_leaps):
+            for w in _warps_to_time(d):
+                _traj_time(label, target, th, row, leaps, w, 44,
+                           plain=leaps == nl and not w)
+    normal = coordwise_logp(mt.Normal(1.0, 1.0), d)
+    scale = _cuda(np.full(d, 1.1))
+    for Cx in (rwm_C, big_C):
+        thr = _cuda(0.1 * rng.standard_normal((Cx, d)))
+        for w in _warps_to_time(d):
+            _rwm_time("Normal(1,1)", normal, thr, scale, k_rwm, w, 45)
+
+
+def phase_target_path_spans(chains=4096, chains_small=1024,
+                            rwm_chains=16_384):
+    """The spans of the paths whose sampling runs kernels 5 and 7, at the
+    configurations of phase_target_paths and phase_warm_target_paths:
+    HMC on Gamma(3, 0.2), Normal(1, 1) and Laplace(0, 1) and plain MALA on
+    the Gamma model (d 10), adaptive HMC with a diagonal metric, adaptive
+    MALA and ChEES on the ten bare distributions, and run_target_rwm's
+    sampling (16,384 chains, 10,000 steps, thin 100)."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    def tilde(dist, x0):
+        return mt.model(lambda x, _d=dist: mt.tilde(x, _d),
+                        x=np.full(10, x0 + 0.5), gradient=True,
+                        device="cuda")
+
+    gamma = tilde(mt.Gamma(3.0, 0.2), 0.6)
+    bare, _ = _ten_bare_model()
+    out = _timed_paths((
+        ("HMC(10, 0.05) on Gamma(3,0.2) (kernel 5)", gamma, mt.HMC(10, 0.05),
+         300, 100, chains),
+        ("HMC(10, 0.8) on Normal(1,1) (kernel 5)",
+         tilde(mt.Normal(1.0, 1.0), 1.0), mt.HMC(10, 0.8), 300, 100, chains),
+        ("HMC(10, 0.5) on Laplace(0,1) (kernel 5)",
+         tilde(mt.Laplace(0.0, 1.0), 0.0), mt.HMC(10, 0.5), 300, 100,
+         chains),
+        ("MALA(0.02) on Gamma(3,0.2) (kernel 5)", gamma, mt.MALA(0.02), 1000,
+         300, chains),
+        ("adaptive HMC diag on the ten bare distributions (kernel 5)", bare,
+         mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
+                mass_adapt="diag"), 3500, 500, chains),
+        ("adaptive MALA on the ten bare distributions (kernel 5)", bare,
+         mt.MALA(0.002, mt.EmpMCTuner(0.574, adapt_step=50)), 1000, 200,
+         chains_small),
+        ("ChEES on the ten bare distributions (kernel 5)", bare,
+         mt.ChEESHMC(len0=0.5, max_leaps=64), 1000, 200, chains)))
+    label = "run_target_rwm(Normal(1,1), 16384 chains, 10000 steps) (kernel 7)"
+    normal = tk.coordwise_logp(mt.Normal(1.0, 1.0), 10)
+    out[label] = {"sampling_s": _time(lambda: rk.run_target_rwm(
+        normal, 10, rwm_chains, 10_000, scale=1.1, thin=100, seed=4,
+        device="cuda"), reps=3)}
+    emit({"phase": "path_spans", "path": label, "chains": rwm_chains,
+          "steps": 10_000, **out[label], **CARD})
+    return out
+
+
 def _timed_paths(runs):
     """Host seconds (to a synchronize) of ``run(model * sampler *
     SerialMC(steps, burnin), chains=C)`` for each (name, model, sampler,
@@ -3185,9 +3581,10 @@ def phase_target_nuts_spans(chains=4096):
 
 
 # each custom-target wrapper's __global__ function, as the profiler names it
-KERNEL_SYMBOL = {"target_leapfrogs": "leapfrogs_kernel",
+KERNEL_SYMBOL = {"target_leapfrogs": ("leapfrogs_lane_kernel",
+                                      "leapfrogs_kernel"),
                  "target_multistep": "multistep_kernel",
-                 "target_rwm_steps": "rwm_kernel",
+                 "target_rwm_steps": ("rwm_lane_kernel", "rwm_kernel"),
                  "target_logp_grad": "logp_grad_kernel"}
 
 
@@ -3232,6 +3629,9 @@ def main():
         errors[name] = max(errors[name], e)
     step("cross_kernel", phase_cross_kernel)
     errors.update(step("target_kernels", phase_target_kernels))
+    for name, e in step("target_lane_kernels",
+                        phase_target_lane_kernels).items():
+        errors[name] = max(errors[name], e)
     errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
@@ -3406,6 +3806,10 @@ TIME_GROUPS = {
     "target_nuts": (("target_nuts",), ("phase_target_nuts_times",)),
     "target_nuts_paths": (("target_nuts", "target_hmc"),
                           ("phase_target_nuts_spans",)),
+    "target": (("target_hmc", "target_rwm"),
+               ("phase_target_times", "phase_target_lane_times")),
+    "target_paths": (("target_hmc", "target_rwm"),
+                     ("phase_target_path_spans",)),
 }
 
 
@@ -3425,7 +3829,10 @@ def times_main(groups=tuple(TIME_GROUPS)):
     chains (timing: phase_timing), kernel 3b at its pinned shape (rows)
     and the spans of its four paths (rows_paths), kernel 8b at pinned
     shapes on two targets (target_nuts) and the spans of its two paths
-    (target_nuts_paths); so that one call on one card can time a parent
+    (target_nuts_paths), kernels 5-7 at their paths' shapes and 5 and 7
+    in each layout at pinned shapes (target: phase_target_times,
+    phase_target_lane_times) and the spans of the kernel-5 and kernel-7
+    paths (target_paths); so that one call on one card can time a parent
     tree and this one in turns."""
     phase_device()
     phase_build(tuple(dict.fromkeys(

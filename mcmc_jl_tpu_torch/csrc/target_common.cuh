@@ -19,9 +19,9 @@
 // Layout: one warp per chain.  Lane l holds coordinates l, l + 32, ...
 // (CPL of them, a template bound), so any d <= 32 * CPL runs one code path;
 // lp and |m|^2 are reduced with xor shuffles, which leave the same bits in
-// every lane, so every lane takes the same accept decision.  (The NUTS
-// kernel runs one chain per lane at d <= 32 and takes only the families
-// and the rows from here; target_nuts.cu.)
+// every lane, so every lane takes the same accept decision.  (At d <= 32
+// the trajectory, RWM and NUTS kernels run one chain per lane instead and
+// take only the families and the rows from here: target_lane.cuh.)
 //
 // Everything here sits in an anonymous namespace: each source that includes
 // it is built into a library of its own.

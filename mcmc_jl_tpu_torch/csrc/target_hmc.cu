@@ -22,21 +22,36 @@
 //
 // What bounds it on the H100: one leapfrog of one chain is d independent
 // coordinate updates of a few tens of FP32 operations each (a division or
-// two, a logf or powf for some families), and one warp reduction when lp is
-// needed.  State lives in registers for the whole trajectory, so device
-// memory sees theta, m, g once in and once out per launch (12 d bytes per
-// chain in, 12 d + 4 out): at d = 10 and 10 leapfrogs, counting 20 FP32
+// two, a logf or powf for some families), and one sum over the coordinates
+// when lp is needed.  State lives in registers for the whole trajectory, so
+// device memory sees theta, m, g once in and once out per launch (12 d bytes
+// per chain in, 12 d + 4 out): at d = 10 and 10 leapfrogs, counting 20 FP32
 // operations per coordinate and leapfrog, that is about 8 FLOP per byte,
-// under the card's 20 FP32 FLOP per byte, so the bytes bound it on paper.
-// In practice lanes past d idle (22 of 32 at d = 10) and the per-coordinate
-// special functions run on the SFUs; a simple layout that is right comes
-// first.
+// under the card's 20 FP32 FLOP per byte, so the bytes bound it on paper;
+// at 4096 chains that is a few microseconds, under a launch's fixed cost.
 //
-// Design: one warp per chain, four chains per 128-thread block; lane l holds
-// coordinates l, l + 32, ... in registers (CPL per lane, a template bound,
-// so d <= 1024 runs one code path); the d family rows are staged in shared
-// memory once per block.  Kick and drift round each product and sum
-// separately (__fmul_rn / __fadd_rn), as the plain PyTorch version does.
+// Two layouts for the trajectory kernel, chosen up front from d
+// (leapfrogs_launch_for):
+//
+// d <= 32 (leapfrogs_lane_kernel, target_lane.cuh): one chain per lane, 32
+// chains a block, W warps sharing their coordinates (coordinate j in warp
+// j % W; W from leapfrogs_lane_warps).  A leapfrog is coordinate-local, so
+// each warp runs its coordinates' kicks and drifts in registers and their
+// family derivatives in a loop over its coordinates that is the same for
+// every lane (the family branch and the step warp-uniform, one copy of the
+// families' code for the gradient and one for the final lp); the warps
+// exchange nothing until lp at the last drift, the one sum across warps,
+// after the one barrier of a launch.  Lanes past C shadow chain C - 1 and
+// store nothing.
+//
+// d > 32 and the other two kernels: one warp per chain, four chains per
+// 128-thread block; lane l holds coordinates l, l + 32, ... in registers
+// (CPL per lane, a template bound, so d <= 1024 runs one code path); the d
+// family rows are staged in shared memory once per block.
+//
+// Kick and drift round each product and sum separately (__fmul_rn /
+// __fadd_rn), as the plain PyTorch version does, in both layouts: theta, m
+// and g come out the same bits in both, lp summed in another order.
 // Philox counters are (chain, absolute transition i0 + t, coordinate,
 // stream) with the momenta on stream 0 and the MH uniform on stream 1, keyed
 // by a seed drawn per launch, so no launch and no coordinate reuses a
@@ -46,7 +61,7 @@
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
-#include "target_common.cuh"
+#include "target_lane.cuh"
 
 namespace {
 
@@ -114,6 +129,92 @@ leapfrogs_kernel(Target t, Sched s, int C, float eps,
   store_lane<CPL>(m_out, m, c, t.d, lane);
   store_lane<CPL>(g_out, g, c, t.d, lane);
   if (lane == 0) lp_out[c] = lp;
+}
+
+// Shared memory of the lane kernel after the rows: the family loop's
+// operands (D, 32), then each warp's lp partial (W, 32).
+size_t leapfrogs_lane_smem(int d, int D, int W) {
+  return lane_rows_bytes(d) + sizeof(float) * (size_t)(D + W) * kWarp;
+}
+
+// One chain per lane; the W warps of a block each run the trajectory of
+// their coordinates of the block's 32 chains (n_leaps macro steps of the
+// schedule, pallas_glm.py _trajectory), and sum lp from the last drift's
+// gradient pass across the warps at the end.
+template <int D, int W>
+__global__ void __launch_bounds__(W * kWarp)
+leapfrogs_lane_kernel(Target t, Sched s, int C, float eps,
+                      const float* __restrict__ eps_row, int n_leaps,
+                      const float* __restrict__ th_in,
+                      const float* __restrict__ m_in,
+                      const float* __restrict__ g_in, float* th_out,
+                      float* m_out, float* g_out, float* lp_out) {
+  constexpr int DW = lane_slots<W>(D);
+  extern __shared__ float4 lane_sm[];
+  const int d = t.d;
+  const Row* rows = lane_rows(t, lane_sm);
+  float* x = reinterpret_cast<float*>(reinterpret_cast<char*>(lane_sm) +
+                                      lane_rows_bytes(d));
+  float* xch = x + D * kWarp;  // [warp][lane]
+  const int w = threadIdx.x / kWarp;
+  const int nown = lane_owned<W>(d);
+  const int c0 = blockIdx.x * kWarp + (threadIdx.x & (kWarp - 1));
+  const int c = min(c0, C - 1);
+
+  float th[DW], m[DW], g[DW], e[DW];
+#pragma unroll
+  for (int jj = 0; jj < DW; ++jj) {
+    const int j = lane_coord<W>(jj);
+    const size_t at = (size_t)c * d + j;
+    th[jj] = j < d ? th_in[at] : 0.f;
+    m[jj] = j < d ? m_in[at] : 0.f;
+    g[jj] = j < d ? g_in[at] : 0.f;
+    e[jj] = j < d ? (eps_row ? eps_row[j] : eps) : 0.f;
+  }
+  __syncthreads();  // the rows
+
+  float part = 0.f;  // this warp's share of lp at the end point
+  for (int l = 0; l < n_leaps; ++l) {
+    const bool final = l == n_leaps - 1;
+    for (int k = 0; k < s.n; ++k) {
+      const float ck = s.c[k];
+      if (s.op[k] == 0) {
+#pragma unroll
+        for (int jj = 0; jj < DW; ++jj)
+          m[jj] = __fadd_rn(m[jj], __fmul_rn(__fmul_rn(ck, e[jj]), g[jj]));
+        continue;
+      }
+#pragma unroll
+      for (int jj = 0; jj < DW; ++jj) {
+        th[jj] = __fadd_rn(th[jj], __fmul_rn(__fmul_rn(ck, e[jj]), m[jj]));
+        if (lane_coord<W>(jj) < d)
+          *lane_at<D>(x, 0, lane_coord<W>(jj)) = th[jj];
+      }
+      if (final && k == s.last_a)
+        part = lane_family<D, W, true, true>(rows, x, nown);
+      else
+        lane_family<D, W, false, true>(rows, x, nown);
+#pragma unroll
+      for (int jj = 0; jj < DW; ++jj)
+        if (lane_coord<W>(jj) < d)
+          g[jj] = *lane_at<D>(x, 0, lane_coord<W>(jj));
+    }
+  }
+  *partial_at<W>(xch, 1, 0, w, 0) = part;
+  __syncthreads();
+  if (c0 < C) {
+#pragma unroll
+    for (int jj = 0; jj < DW; ++jj) {
+      const int j = lane_coord<W>(jj);
+      const size_t at = (size_t)c * d + j;
+      if (j < d) {
+        th_out[at] = th[jj];
+        m_out[at] = m[jj];
+        g_out[at] = g[jj];
+      }
+    }
+    if (w == 0) lp_out[c] = partial_sum<W>(xch, 1, 0, 0);
+  }
 }
 
 // lp and the gradient at th for every chain: the generic engine's
@@ -196,6 +297,60 @@ cudaError_t prepare(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// Warps a lane block of the trajectory kernel at bound D and C chains: one
+// coordinate per warp (W = D) while the groups fit in one wave of such
+// blocks (2048 threads an SM), else kLaneWarps.  A leapfrog needs no
+// exchange between warps, so at a wave or less more warps a group only add
+// warps to hide each other's latency: at 4096 chains D warps were 15-20%
+// faster; at 65,536 chains four were 2.2x faster, where the idle warps past
+// d (6 of 16 at d 10) take a block's slots (PERF.md section 6).
+int leapfrogs_lane_warps(int D, int C) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return kLaneWarps;
+  return (C + kWarp - 1) / kWarp <= sms * (2048 / (kWarp * D)) ? D
+                                                                : kLaneWarps;
+}
+
+using LeapfrogsKernel = void (*)(Target, Sched, int, float, const float*,
+                                 int, const float*, const float*,
+                                 const float*, float*, float*, float*,
+                                 float*);
+
+// The kernel, grid and shared memory of a trajectory launch at (d, C).
+// ``warps``: 0 for the layout decided from d alone (one chain per lane at
+// d <= 32 with leapfrogs_lane_warps warps a block, one warp per chain
+// above); 4 or the lane bound D of d for the lane layout with that many
+// warps; -1 for the warp-per-chain layout at any d (to time and check the
+// layouts against each other).  False when the kernels do not take it.
+bool leapfrogs_launch_for(int d, int C, int warps,
+                          LaneLaunch<LeapfrogsKernel>* L) {
+  if (d < 1 || d > kMaxDim || C < 1) return false;
+  const int D = lane_bound_for(d);
+  if (warps == 0) warps = D ? leapfrogs_lane_warps(D, C) : -1;
+  if (warps < 0) {
+    const int cpl = cpl_for(d);
+    L->kernel = cpl == 1   ? leapfrogs_kernel<1>
+                : cpl == 4 ? leapfrogs_kernel<4>
+                           : leapfrogs_kernel<32>;
+    L->blocks = blocks_for(C);
+    L->threads = kThreads;
+    L->smem = (size_t)d * sizeof(Row);
+    return true;
+  }
+  if (!D || (warps != 4 && warps != D)) return false;
+#define PICK(DD)                                                        \
+  (warps == 4 ? leapfrogs_lane_kernel<DD, 4> : leapfrogs_lane_kernel<DD, DD>)
+  L->kernel = D == 8 ? PICK(8) : D == 16 ? PICK(16) : PICK(32);
+#undef PICK
+  L->blocks = (C + kWarp - 1) / kWarp;
+  L->threads = warps * kWarp;
+  L->smem = leapfrogs_lane_smem(d, D, warps);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,26 +360,29 @@ int target_leapfrogs(const int* codes, const float* params, int d, int C,
                      const float* g_in, float* th_out, float* m_out,
                      float* g_out, float* lp_out, float eps,
                      const float* eps_row, int n_leaps, const int* sched_ops,
-                     const float* sched_c, int n_ops, void* stream) {
-  const int cpl = cpl_for(d);
+                     const float* sched_c, int n_ops, int warps,
+                     void* stream) {
+  LaneLaunch<LeapfrogsKernel> L;
   Sched s;
-  if (!cpl || C < 1 || n_leaps < 1 || !make_sched(sched_ops, sched_c, n_ops,
-                                                  &s))
+  if (!leapfrogs_launch_for(d, C, warps, &L) || n_leaps < 1 ||
+      !make_sched(sched_ops, sched_c, n_ops, &s))
     return (int)cudaErrorInvalidValue;
-  const Target t{codes, params, d};
-  const size_t smem = (size_t)d * sizeof(Row);
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(CC)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(leapfrogs_kernel<CC>, smem);                    \
-    if (e != cudaSuccess) return (int)e;                                    \
-    leapfrogs_kernel<CC><<<blocks_for(C), kThreads, smem, st>>>(            \
-        t, s, C, eps, eps_row, n_leaps, th_in, m_in, g_in, th_out, m_out,   \
-        g_out, lp_out);                                                     \
-  }
-  TARGET_DISPATCH(cpl, LAUNCH)
-#undef LAUNCH
+  cudaError_t e = lane_prepare(L);
+  if (e != cudaSuccess) return (int)e;
+  L.kernel<<<L.blocks, L.threads, L.smem, (cudaStream_t)stream>>>(
+      Target{codes, params, d}, s, C, eps, eps_row, n_leaps, th_in, m_in,
+      g_in, th_out, m_out, g_out, lp_out);
   return (int)cudaGetLastError();
+}
+
+// How a trajectory launch at (d, C, warps) runs: blocks resident per SM,
+// threads and dynamic shared memory per block.
+int target_leapfrogs_plan(int d, int C, int warps, int* blocks_per_sm,
+                          int* threads, int* smem) {
+  LaneLaunch<LeapfrogsKernel> L;
+  if (!leapfrogs_launch_for(d, C, warps, &L))
+    return (int)cudaErrorInvalidValue;
+  return lane_plan(L, blocks_per_sm, threads, smem);
 }
 
 int target_logp_grad(const int* codes, const float* params, int d, int C,

@@ -71,7 +71,7 @@
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
-#include "target_common.cuh"
+#include "target_lane.cuh"
 
 namespace {
 
@@ -293,14 +293,6 @@ nuts_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
 
 // ---- one chain per lane (d <= 32) ------------------------------------------
 
-constexpr int kLaneDMax = 32;  // largest d of the lane layout
-constexpr int kLaneWarps = 4;  // warps that share a group's coordinates
-
-// The lane layout's template bound for d: 8, 16 or 32.
-int lane_bound_for(int d) {
-  return d < 1 ? 0 : d <= 8 ? 8 : d <= 16 ? 16 : d <= kLaneDMax ? 32 : 0;
-}
-
 // The per-lane arrays of a block in shared memory, after the rows and the
 // step row, each (D, 32) floats indexed [coordinate][lane]: the
 // transition's proposal (th, g), the subtree's proposal (sp, sg), the edge
@@ -321,24 +313,12 @@ size_t lane_smem(int d, int D, int md) {
 }
 
 template <int D>
-__device__ __forceinline__ float* lane_at(float* arr, int which, int j) {
-  return arr + ((size_t)which * D + j) * kWarp + (threadIdx.x & (kWarp - 1));
-}
-
-// Warp w of a block owns coordinates j = w + kLaneWarps jj, jj < D /
-// kLaneWarps: its slots of the register rows and of the shared arrays.
-__host__ __device__ constexpr int lane_slots(int D) { return D / kLaneWarps; }
-
-__device__ __forceinline__ int lane_coord(int jj) {
-  return (int)(threadIdx.x / kWarp) + kLaneWarps * jj;
-}
-
-template <int D>
 __device__ __forceinline__ void lane_store(float* arr, int which, int d,
                                            const float (&v)[D / kLaneWarps]) {
 #pragma unroll
-  for (int jj = 0; jj < lane_slots(D); ++jj)
-    if (lane_coord(jj) < d) *lane_at<D>(arr, which, lane_coord(jj)) = v[jj];
+  for (int jj = 0; jj < lane_slots<kLaneWarps>(D); ++jj)
+    if (lane_coord<kLaneWarps>(jj) < d)
+      *lane_at<D>(arr, which, lane_coord<kLaneWarps>(jj)) = v[jj];
 }
 
 // Copy array ``from`` onto ``to`` in shared memory (this warp's
@@ -347,10 +327,10 @@ template <int D>
 __device__ __forceinline__ void lane_copy(float* arr, int to, int from,
                                           int d) {
 #pragma unroll
-  for (int jj = 0; jj < lane_slots(D); ++jj)
-    if (lane_coord(jj) < d)
-      *lane_at<D>(arr, to, lane_coord(jj)) =
-          *lane_at<D>(arr, from, lane_coord(jj));
+  for (int jj = 0; jj < lane_slots<kLaneWarps>(D); ++jj)
+    if (lane_coord<kLaneWarps>(jj) < d)
+      *lane_at<D>(arr, to, lane_coord<kLaneWarps>(jj)) =
+          *lane_at<D>(arr, from, lane_coord<kLaneWarps>(jj));
 }
 
 // Swap the register row v with array ``which`` in shared memory.
@@ -358,29 +338,13 @@ template <int D>
 __device__ __forceinline__ void lane_swap(float* arr, int which, int d,
                                           float (&v)[D / kLaneWarps]) {
 #pragma unroll
-  for (int jj = 0; jj < lane_slots(D); ++jj)
-    if (lane_coord(jj) < d) {
-      float* s = lane_at<D>(arr, which, lane_coord(jj));
+  for (int jj = 0; jj < lane_slots<kLaneWarps>(D); ++jj)
+    if (lane_coord<kLaneWarps>(jj) < d) {
+      float* s = lane_at<D>(arr, which, lane_coord<kLaneWarps>(jj));
       const float t = *s;
       *s = v[jj];
       v[jj] = t;
     }
-}
-
-// Warp v's partial q of this lane (buffer buf), and the sum of the
-// block's warps' partial q in warp order: the same bits in every warp.
-__device__ __forceinline__ float* partial_at(float* xch, int nq, int buf,
-                                             int v, int q) {
-  return xch + (((size_t)buf * kLaneWarps + v) * nq + q) * kWarp +
-         (threadIdx.x & (kWarp - 1));
-}
-
-__device__ __forceinline__ float partial_sum(float* xch, int nq, int buf,
-                                             int q) {
-  float s = *partial_at(xch, nq, buf, 0, q);
-#pragma unroll
-  for (int v = 1; v < kLaneWarps; ++v) s += *partial_at(xch, nq, buf, v, q);
-  return s;
 }
 
 // One chain per lane; the kLaneWarps warps of a block share the
@@ -401,7 +365,7 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
                  const float* __restrict__ leaf_in, float* th_out,
                  float* g_out, float* lp_out, int* nd_out,
                  unsigned char* div_out) {
-  constexpr int DW = lane_slots(D);
+  constexpr int DW = lane_slots<kLaneWarps>(D);
   extern __shared__ float4 lane_sm[];
   const int d = t.d, nq = kXq + 2 * md;
   Row* rows = reinterpret_cast<Row*>(lane_sm);
@@ -425,7 +389,7 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
   float msq = 0.f;
 #pragma unroll
   for (int jj = 0; jj < DW; ++jj) {
-    const int j = lane_coord(jj);
+    const int j = lane_coord<kLaneWarps>(jj);
     const size_t at = (size_t)c * d + j;
     wp[jj] = j < d ? th_in[at] : 0.f;
     wm[jj] = j < d ? m0_in[at] : 0.f;
@@ -439,9 +403,9 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
   lane_store<D>(arr, kOm, d, wm);
   lane_store<D>(arr, kOg, d, wg);
   int buf = 0;
-  *partial_at(xch, nq, buf, w, kPMsq) = msq;
+  *partial_at<kLaneWarps>(xch, nq, buf, w, kPMsq) = msq;
   __syncthreads();  // the rows, the step row and the partials
-  msq = partial_sum(xch, nq, buf, kPMsq);
+  msq = partial_sum<kLaneWarps>(xch, nq, buf, kPMsq);
   buf ^= 1;
   float lp = wlp, olp = wlp;  // the proposal's and the other edge's lp
   const float H0 = -lp + 0.5f * msq;
@@ -501,16 +465,16 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
     // through shared memory
 #pragma unroll
     for (int jj = 0; jj < DW; ++jj)
-      if (lane_coord(jj) < d) {
-        const float e = dirn * es[lane_coord(jj)];
+      if (lane_coord<kLaneWarps>(jj) < d) {
+        const float e = dirn * es[lane_coord<kLaneWarps>(jj)];
         wm[jj] = __fadd_rn(wm[jj], __fmul_rn(__fmul_rn(0.5f, e), wg[jj]));
         wp[jj] = __fadd_rn(wp[jj], __fmul_rn(e, wm[jj]));
-        *lane_at<D>(arr, kX, lane_coord(jj)) = wp[jj];
+        *lane_at<D>(arr, kX, lane_coord<kLaneWarps>(jj)) = wp[jj];
       }
     float part = 0.f;
 #pragma unroll 1
     for (int jj = 0; jj < nown; ++jj) {
-      const int j = lane_coord(jj);
+      const int j = lane_coord<kLaneWarps>(jj);
       float* x = lane_at<D>(arr, kX, j);
       float dl;
       part += family_eval<true, true>(rows[j], *x, dl);
@@ -526,8 +490,8 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
     msq = 0.f;
 #pragma unroll
     for (int jj = 0; jj < DW; ++jj)
-      if (lane_coord(jj) < d) {
-        const int j = lane_coord(jj);
+      if (lane_coord<kLaneWarps>(jj) < d) {
+        const int j = lane_coord<kLaneWarps>(jj);
         const float e = dirn * es[j];
         wg[jj] = *lane_at<D>(arr, kX, j);
         wm[jj] = __fadd_rn(wm[jj], __fmul_rn(__fmul_rn(0.5f, e), wg[jj]));
@@ -541,32 +505,32 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
         ub = fmaf(dp, wplus ? wm[jj] : om, ub);
       }
     if (live) {
-      *partial_at(xch, nq, buf, w, kPLp) = part;
-      *partial_at(xch, nq, buf, w, kPMsq) = msq;
-      *partial_at(xch, nq, buf, w, kPUa) = ua;
-      *partial_at(xch, nq, buf, w, kPUb) = ub;
+      *partial_at<kLaneWarps>(xch, nq, buf, w, kPLp) = part;
+      *partial_at<kLaneWarps>(xch, nq, buf, w, kPMsq) = msq;
+      *partial_at<kLaneWarps>(xch, nq, buf, w, kPUa) = ua;
+      *partial_at<kLaneWarps>(xch, nq, buf, w, kPUb) = ub;
     }
     if (span)
       for (int q = lo; q <= hi; ++q) {
         float a = 0.f, b = 0.f;
 #pragma unroll
         for (int jj = 0; jj < DW; ++jj)
-          if (lane_coord(jj) < d) {
-            const int j = lane_coord(jj);
+          if (lane_coord<kLaneWarps>(jj) < d) {
+            const int j = lane_coord<kLaneWarps>(jj);
             const float dl = dirn * (wp[jj] - *lane_at<D>(arr, kCk + q, j));
             a = fmaf(dl, *lane_at<D>(arr, kCk + md + q, j), a);
             b = fmaf(dl, wm[jj], b);
           }
-        *partial_at(xch, nq, buf, w, kXq + 2 * q) = a;
-        *partial_at(xch, nq, buf, w, kXq + 2 * q + 1) = b;
+        *partial_at<kLaneWarps>(xch, nq, buf, w, kXq + 2 * q) = a;
+        *partial_at<kLaneWarps>(xch, nq, buf, w, kXq + 2 * q + 1) = b;
       }
     __syncthreads();
     const int pb = buf;
     buf ^= 1;
     if (!live) continue;
 
-    wlp = partial_sum(xch, nq, pb, kPLp);
-    float H = -wlp + 0.5f * partial_sum(xch, nq, pb, kPMsq);
+    wlp = partial_sum<kLaneWarps>(xch, nq, pb, kPLp);
+    float H = -wlp + 0.5f * partial_sum<kLaneWarps>(xch, nq, pb, kPMsq);
     if (isnan(H)) H = CUDART_INF_F;
     const bool diverged = u_slice >= kDeltaMax - H;  // NUTS.jl:92
     bool take;
@@ -593,8 +557,8 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
     }
     if (span) {
       for (int q = lo; q <= hi && ok; ++q)
-        if (partial_sum(xch, nq, pb, kXq + 2 * q) < 0.f ||
-            partial_sum(xch, nq, pb, kXq + 2 * q + 1) < 0.f)
+        if (partial_sum<kLaneWarps>(xch, nq, pb, kXq + 2 * q) < 0.f ||
+            partial_sum<kLaneWarps>(xch, nq, pb, kXq + 2 * q + 1) < 0.f)
           ok = false;
     } else {  // checkpoint store at slot popcount(k)
       lane_store<D>(arr, kCk + __popc(k), d, wp);
@@ -617,8 +581,8 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
       lp = slp;
     }
     ntot += n1;
-    const bool turned = partial_sum(xch, nq, pb, kPUa) < 0.f ||
-                        partial_sum(xch, nq, pb, kPUb) < 0.f;
+    const bool turned = partial_sum<kLaneWarps>(xch, nq, pb, kPUa) < 0.f ||
+                        partial_sum<kLaneWarps>(xch, nq, pb, kPUb) < 0.f;
     nd += 1;
     dv = dv || sdv;
     live = start = ok && !turned && ++jd < md;
@@ -627,8 +591,8 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
   if (c0 < C) {
 #pragma unroll
     for (int jj = 0; jj < DW; ++jj)
-      if (lane_coord(jj) < d) {
-        const int j = lane_coord(jj);
+      if (lane_coord<kLaneWarps>(jj) < d) {
+        const int j = lane_coord<kLaneWarps>(jj);
         const size_t at = (size_t)c * d + j;
         th_out[at] = *lane_at<D>(arr, kTh, j);
         g_out[at] = *lane_at<D>(arr, kG, j);

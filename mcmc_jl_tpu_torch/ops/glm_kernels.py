@@ -34,6 +34,7 @@ custom ``(ll, resid)`` pair.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -384,7 +385,11 @@ def load_kernels():
     return lib
 
 
+@functools.cache
 def _sched(integrator):
+    """The kick/drift schedule of ``integrator`` as the kernels take it:
+    (ops, coefficients, length), ctypes arrays built once per integrator
+    (the kernels copy them at launch)."""
     schedule = SCHEDULES[integrator]
     ops = (ctypes.c_int * len(schedule))(*[1 if op == "A" else 0
                                             for op, _ in schedule])

@@ -1,5 +1,5 @@
 """Plain version of ``csrc/philox.cuh``: Philox4x32-10 (Salmon et al.,
-SC'11), the 24-bit uniform and the Box-Muller normal that the kernels draw
+SC'11), the 24-bit uniform and the Box-Muller normals that the kernels draw
 inside, computed on the host with numpy's uint64 arithmetic.
 
 It lets a check feed a kernel's own draws to the kernel's plain version:
@@ -7,7 +7,7 @@ It lets a check feed a kernel's own draws to the kernel's plain version:
 :func:`.rwm_kernels.rwm_draws` lay them out as those kernels count them.
 The normals and log-uniforms are computed in double and rounded to
 float32, so they lie within a few float32 ulps of the kernels' ``logf``,
-``sqrtf`` and ``cospif``.
+``sqrtf``, ``cospif`` and ``sinpif``.
 """
 from __future__ import annotations
 
@@ -47,6 +47,15 @@ def box_muller(b1, b2):
     u1, u2 = 1.0 - u01(b1), u01(b2)
     return (np.sqrt(-2.0 * np.log(u1)) * np.cos(2.0 * np.pi * u2)).astype(
         np.float32)
+
+
+def box_muller_pair(b1, b2):
+    """The cosine- and sine-branch normals of (1 - u1, u2), as float32:
+    the two independent normals of one Box-Muller pair."""
+    r = np.sqrt(-2.0 * np.log(1.0 - u01(b1)))
+    t = 2.0 * np.pi * u01(b2)
+    return ((r * np.cos(t)).astype(np.float32),
+            (r * np.sin(t)).astype(np.float32))
 
 
 def log1m_u01(b):

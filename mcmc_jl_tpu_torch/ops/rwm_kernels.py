@@ -10,6 +10,11 @@ JAX kernel takes them in its lane layout, (C, k * d_pad) and (C, k * 128);
 ``noise="hw"`` draws them inside the kernel from Philox.  Both modes give
 the same chain law.
 
+The kernel has two layouts, decided up front from d
+(:func:`target_rwm_layout`): one chain per lane up to
+``target_kernels.LANE_D_MAX``, one warp per chain above.  The driver takes
+it through :func:`rwm_launcher`, which validates a run once.
+
 The plain version :func:`fused_target_rwm_steps_ref` evaluates the
 distributions' ``logpdf``; on the CPU the wrapper runs it (with
 ``noise="hw"`` it draws from ``generator`` instead), on a CUDA tensor the
@@ -26,8 +31,9 @@ import numpy as np
 import torch
 
 from . import philox
-from .target_kernels import (_device_branch, _prepare, _ptr, _seed,
-                             kernel_args, launch, load_library)
+from .target_kernels import (_P, _device_branch, _prepare, _ptr, _seed,
+                             check_states, kernel_plan, kernel_rows,
+                             lane_layout, lean_launch, load_library)
 
 LAUNCHES = {"target_rwm_steps": 0}
 PLAIN_CALLS = {"target_rwm_steps": 0}
@@ -74,14 +80,85 @@ def fused_target_rwm_steps_ref(target, theta, scale_row, *, k_steps, z=None,
     return theta, lp, n_acc / k_steps
 
 
-_P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def load_kernels():
     """Build (first use) and bind ``csrc/target_rwm.cu``."""
-    return load_library("target_rwm", {"target_rwm_steps": (
-        [_P, _P, _I, _I] + [_P] * 7 + [_I, _I, ctypes.c_ulonglong, _I, _P])})
+    return load_library("target_rwm", {
+        "target_rwm_steps": [_P, _P, _I, _I] + [_P] * 7
+        + [_I, _I, ctypes.c_ulonglong, _I, _I, _P],
+        "target_rwm_plan": [_I] * 3 + [ctypes.POINTER(_I)] * 3})
+
+
+def target_rwm_layout(d):
+    """The layout :func:`fused_target_rwm_steps` launches at dimension
+    ``d``, decided up front from d alone
+    (:func:`~.target_kernels.lane_layout`)."""
+    return lane_layout("target_rwm_steps", d)
+
+
+def target_rwm_plan(d, C, warps=0):
+    """The RWM kernel's launch at (d, C)
+    (:func:`~.target_kernels.kernel_plan`)."""
+    return kernel_plan(load_kernels(), "target_rwm_plan", d, C, warps)
+
+
+def _check(name, theta, checks):
+    """Each (label, tensor, shape) of ``checks`` a contiguous float32
+    tensor of that shape on theta's device."""
+    for label, t, shape in checks:
+        if t.device != theta.device or t.dtype != torch.float32 \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {label} must be a contiguous float32 "
+                             f"{shape} tensor on {theta.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def rwm_launcher(target, theta, scale_row, *, k_steps, noise="hw", warps=0):
+    """The RWM kernel for a run of launches on states shaped as ``theta``
+    (the driver's loop): the target, theta and the scale are checked once,
+    and the returned ``step(theta, i0=0, generator=None, z=None,
+    logu=None) -> (theta, logp (C,), accept rate (C,))`` (as
+    :func:`fused_target_rwm_steps`) launches on the run's own tensors
+    without checking them again, on the stream current when the launcher
+    was made.  On the CPU ``step`` is the plain version.  ``warps`` picks
+    the kernel's layout as ``target_kernels.kernel_plan`` says (0: decided
+    from d)."""
+    name = "target_rwm_steps"
+    if noise not in ("input", "hw"):
+        raise ValueError(f"{name}: noise must be 'input' or 'hw', got "
+                         f"{noise!r}")
+    C, d = check_states(name, target.d, theta), target.d
+    hw = noise == "hw"
+    if not _device_branch(name, theta):
+        def plain(th, i0=0, generator=None, z=None, logu=None):
+            del i0
+            if hw:
+                z = logu = None
+            return fused_target_rwm_steps_ref(target, th, scale_row,
+                                              k_steps=k_steps, z=z, logu=logu,
+                                              generator=generator)
+        return plain
+    codes, params = kernel_rows(name, target, theta.device)
+    scale = scale_row.reshape(-1)
+    _check(name, theta, [("scale_row", scale, (d,))])
+    call = lean_launch(load_kernels(), LAUNCHES, name, theta.device)
+    head = (_ptr(codes), _ptr(params), d, C)
+    fill = dict(dtype=theta.dtype, device=theta.device)
+
+    def step(th, i0=0, generator=None, z=None, logu=None):
+        th_o = torch.empty_like(th)
+        lp_o, acc_o = torch.empty(C, **fill), torch.empty(C, **fill)
+        call(*head, _P(th.data_ptr()), _P(scale.data_ptr()),
+             _ptr(None if hw else z), _ptr(None if hw else logu),
+             _P(th_o.data_ptr()), _P(lp_o.data_ptr()), _P(acc_o.data_ptr()),
+             int(k_steps), int(i0), _seed(generator) if hw else 0, int(hw),
+             int(warps))
+        return th_o, lp_o, acc_o
+
+    step.inputs = (codes, params, scale)  # alive as long as the launcher
+    return step
 
 
 def fused_target_rwm_steps(target, theta, scale_row, *, k_steps, z=None,
@@ -92,6 +169,7 @@ def fused_target_rwm_steps(target, theta, scale_row, *, k_steps, z=None,
     "input" reads ``z`` (C, k, d) and ``logu`` (C, k); "hw" draws inside
     the kernel from Philox keyed by a seed drawn from ``generator`` and
     counted by (chain, absolute step ``i0 + s``, coordinate).
+    The kernel's layout follows from d (:func:`target_rwm_layout`).
     Returns (theta, logp (C,), accept rate (C,))."""
     name = "target_rwm_steps"
     if noise not in ("input", "hw"):
@@ -105,59 +183,55 @@ def fused_target_rwm_steps(target, theta, scale_row, *, k_steps, z=None,
         return fused_target_rwm_steps_ref(target, theta, scale_row,
                                           k_steps=k_steps, z=z, logu=logu,
                                           generator=generator)
-    codes, params, C, d = kernel_args(name, target, theta)
-    scale = scale_row.reshape(-1)
-    checks = [("scale_row", scale, (d,))]
+    step = rwm_launcher(target, theta, scale_row, k_steps=k_steps,
+                        noise=noise)
     if noise == "input":
-        checks += [("z", z, (C, k_steps, d)), ("logu", logu, (C, k_steps))]
-    for label, t, shape in checks:
-        if t.device != theta.device or t.dtype != torch.float32 \
-                or not t.is_contiguous() or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {label} must be a contiguous float32 "
-                             f"{shape} tensor on {theta.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    seed = _seed(generator) if noise == "hw" else 0
-    th_o = torch.empty_like(theta)
-    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
-    acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
-    with torch.cuda.device(theta.device):
-        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
-               C, _ptr(theta), _ptr(scale),
-               _ptr(z if noise == "input" else None),
-               _ptr(logu if noise == "input" else None), _ptr(th_o),
-               _ptr(lp_o), _ptr(acc_o), int(k_steps), int(i0), seed,
-               int(noise == "hw"))
-    return th_o, lp_o, acc_o
+        C, d = theta.shape
+        _check(name, theta, [("z", z, (C, k_steps, d)),
+                             ("logu", logu, (C, k_steps))])
+    return step(theta, i0=i0, generator=generator, z=z, logu=logu)
 
 
 def rwm_draws(seed, C, d, k_steps, i0=0, device="cpu"):
     """The normals ``z`` (C, k, d) and log-uniforms ``logu`` (C, k) that
     :func:`fused_target_rwm_steps` draws with ``noise="hw"`` under the
     launch seed ``seed``, replayed by :mod:`.philox` for its plain
-    version."""
+    version.  Absolute step t of coordinate j takes its normal from
+    counter (chain, t // 4, j, 2): words 0 and 1 for t % 4 in {0, 1},
+    words 2 and 3 for {2, 3}, the cosine branch at even t and the sine
+    branch at odd t; its log-uniform from word t % 4 of counter (chain,
+    t // 4, 0, 3)."""
     c = np.arange(C, dtype=np.uint32)[:, None, None]
-    s = np.arange(i0, i0 + k_steps, dtype=np.uint32)[None, :, None]
+    t = np.arange(i0, i0 + k_steps, dtype=np.uint32)[None, :, None]
     j = np.arange(d, dtype=np.uint32)
-    b = philox.philox4x32((c, s, j, 2), seed)
-    bu = philox.philox4x32((c[..., 0], s[..., 0], 0, 3), seed)
-    return (torch.from_numpy(philox.box_muller(b[0], b[1])).to(device),
-            torch.from_numpy(philox.log1m_u01(bu[0])).to(device))
+    b = philox.philox4x32((c, t >> 2, j, 2), seed)
+    hi = (t & 2) != 0
+    cos, sin = philox.box_muller_pair(np.where(hi, b[2], b[0]),
+                                      np.where(hi, b[3], b[1]))
+    z = np.where((t & 1) != 0, sin, cos)
+    tu = t[..., 0]
+    bu = philox.philox4x32((c[..., 0], tu >> 2, 0, 3), seed)
+    u = np.choose((tu & 3).astype(np.intp), bu)
+    return (torch.from_numpy(np.ascontiguousarray(z)).to(device),
+            torch.from_numpy(philox.log1m_u01(u)).to(device))
 
 
 def _run(target, theta0, scale_row, generator, *, n_launches, k_steps,
          noise):
-    """``n_launches`` launches of ``k_steps`` transitions; one thinned row
-    per launch (pallas_rwm.py ``_run``).  Returns (theta, infos)."""
+    """``n_launches`` launches of ``k_steps`` transitions through one
+    :func:`rwm_launcher`; one thinned row per launch (pallas_rwm.py
+    ``_run``).  Returns (theta, infos)."""
     theta = theta0
+    step = rwm_launcher(target, theta0, scale_row, k_steps=k_steps,
+                        noise=noise)
     rows = {"ppars": [], "plogtarget": [], "accept_rate": []}
     for i in range(n_launches):
         z = logu = None
         if noise == "input":
             z, logu = _noise((theta.shape[0], k_steps, theta.shape[1]),
                              generator, theta.dtype, theta.device)
-        theta, lp, acc = fused_target_rwm_steps(
-            target, theta, scale_row, k_steps=k_steps, z=z, logu=logu,
-            generator=generator, noise=noise, i0=i * k_steps)
+        theta, lp, acc = step(theta, i0=i * k_steps, generator=generator,
+                              z=z, logu=logu)
         rows["ppars"].append(theta)
         rows["plogtarget"].append(lp)
         rows["accept_rate"].append(acc)

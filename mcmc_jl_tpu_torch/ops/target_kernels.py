@@ -38,6 +38,12 @@ also for a target without kernel rows and for d above
 :data:`D_MAX`.  Launches count in ``LAUNCHES``, plain calls in
 ``PLAIN_CALLS``.  Chain states are unpadded (C, d) float32 tensors.
 
+The trajectory kernel has two layouts, decided up front from d
+(:func:`target_leapfrogs_layout`): one chain per lane up to
+:data:`LANE_D_MAX`, one warp per chain above.  The drivers that launch it
+in a loop take it through :func:`leapfrogs_launcher`, which validates a
+run's states once and then launches without the public wrapper's checks.
+
 Not ported: ``lifted_model_block`` (data-bearing targets run generic),
 ``target_kernel_supported`` (no compile probe: the route decides up front)
 and ``run_target_hmc_sharded`` (ROADMAP queue 1 item 15).
@@ -56,6 +62,9 @@ from .glm_kernels import _draw, _sched, _seed, _trajectory, accept_test
 
 #: largest dimension the kernels take: 32 lanes x 32 coordinates per lane
 D_MAX = 1024
+#: largest dimension of the lane layout (one chain per lane) of the
+#: trajectory and RWM kernels; above it, one warp per chain
+LANE_D_MAX = 32
 
 #: why a model without a ``target_spec`` runs on the generic engine
 NOT_CATALOG = ("the model is not a product of catalog densities over its "
@@ -202,7 +211,8 @@ _F = ctypes.c_float
 _SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I]
 _ARGTYPES = {
     "target_leapfrogs": [_P, _P, _I, _I] + [_P] * 7 + [_F, _P, _I] + _SCHED
-    + [_P],
+    + [_I, _P],
+    "target_leapfrogs_plan": [_I] * 3 + [ctypes.POINTER(_I)] * 3,
     "target_multistep": [_P, _P, _I, _I] + [_P] * 5 + [_F, _P, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
@@ -213,7 +223,8 @@ _ARGTYPES = {
 def load_library(source, argtypes):
     """Build (first use) and bind ``csrc/<source>.cu``, a custom-target
     library (its entries ``argtypes``: name -> ctypes types, plus the
-    helpers of ``target_common.cuh``); returns the library."""
+    helpers of ``target_common.cuh`` and ``target_lane.cuh``); returns the
+    library."""
     from .cuda_build import load
 
     lib = load(source)
@@ -225,9 +236,11 @@ def load_library(source, argtypes):
         lib.target_error_string.argtypes = [ctypes.c_int]
         lib.target_error_string.restype = ctypes.c_char_p
         if (lib.target_max_dim() != D_MAX
+                or lib.target_lane_max_dim() != LANE_D_MAX
                 or lib.target_n_families() != len(FAMILY_CODES)):
             raise RuntimeError(f"csrc/{source}.cu and ops/target_kernels.py "
-                               f"disagree on D_MAX or the family codes")
+                               f"disagree on D_MAX, LANE_D_MAX or the "
+                               f"family codes")
         lib._bound = True
     return lib
 
@@ -250,22 +263,15 @@ def _device_branch(name, theta):
     raise ValueError(f"{name}: no kernel for device {theta.device}")
 
 
-def kernel_args(name, target, theta, states=()):
-    """Validate what the kernels take: a target with kernel rows at
-    1 <= d <= D_MAX and contiguous float32 (C, d) ``states`` on theta's
-    device.  Returns (codes, params, C, d)."""
-    if not isinstance(target, CatalogTarget) or not target.has_rows:
-        raise ValueError(
-            f"{name}: the CUDA kernel takes a catalog target (coordwise_logp "
-            f"of the continuous families with scalar parameters, or a DSL "
-            f"model's target_spec); {target!r} has no kernel rows, so it "
-            f"runs on the generic torch engine")
+def check_states(name, d, theta, states=()):
+    """Validate a run's states: ``theta`` and each ``(label, tensor)`` of
+    ``states`` a contiguous float32 (C, d) tensor on theta's device, with
+    1 <= d <= D_MAX.  Returns C."""
     dev = theta.device
-    C, d = theta.shape if theta.ndim == 2 else (0, 0)
-    if d != target.d or not 1 <= d <= D_MAX:
+    C, dt = theta.shape if theta.ndim == 2 else (0, 0)
+    if dt != d or not 1 <= d <= D_MAX:
         raise ValueError(f"{name}: theta is {tuple(theta.shape)}; the target "
-                         f"has d = {target.d} and the kernel takes "
-                         f"1..{D_MAX}")
+                         f"has d = {d} and the kernel takes 1..{D_MAX}")
     for label, t in (("theta", theta),) + tuple(states):
         if t.device != dev or t.dtype != torch.float32 \
                 or not t.is_contiguous() or tuple(t.shape) != (C, d):
@@ -273,8 +279,73 @@ def kernel_args(name, target, theta, states=()):
                 f"{name}: {label} must be a contiguous float32 ({C}, {d}) "
                 f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
-    codes, params = target.rows(dev)
-    return codes, params, C, d
+    return C
+
+
+def kernel_rows(name, target, device):
+    """The kernel rows (codes, params) of a catalog target on ``device``;
+    raises for a target without them."""
+    if not isinstance(target, CatalogTarget) or not target.has_rows:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes a catalog target (coordwise_logp "
+            f"of the continuous families with scalar parameters, or a DSL "
+            f"model's target_spec); {target!r} has no kernel rows, so it "
+            f"runs on the generic torch engine")
+    return target.rows(device)
+
+
+def kernel_args(name, target, theta, states=()):
+    """Validate what the kernels take: a target with kernel rows at
+    1 <= d <= D_MAX and contiguous float32 (C, d) ``states`` on theta's
+    device (:func:`check_states`).  Returns (codes, params, C, d)."""
+    codes, params = kernel_rows(name, target, theta.device)
+    C = check_states(name, target.d, theta, states)
+    return codes, params, C, target.d
+
+
+def lane_layout(name, d):
+    """The layout the trajectory and RWM kernels launch at dimension ``d``,
+    decided up front from d alone: ``"lane"`` (one chain per lane, 32
+    chains a block) for 1 <= d <= :data:`LANE_D_MAX`, ``"warp"`` (one warp
+    per chain, lanes over coordinates) up to :data:`D_MAX`; raises
+    outside."""
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{D_MAX}")
+    return "lane" if d <= LANE_D_MAX else "warp"
+
+
+def target_leapfrogs_layout(d):
+    """The layout :func:`fused_target_leapfrogs` launches at dimension
+    ``d`` (:func:`lane_layout`)."""
+    return lane_layout("target_leapfrogs", d)
+
+
+def kernel_plan(lib, name, d, C, warps=0):
+    """How a launch of a lane-layout library runs at (d, C) on the card,
+    as its plan entry ``name`` reports it: {"layout", "blocks", "warps", "threads", "smem_bytes",
+    "blocks_per_sm"}.  ``warps`` as the entry takes it: 0 for the layout
+    decided from d, 4 or the lane bound of d for the lane layout with that
+    many warps a block, -1 for one warp per chain."""
+    outs = [ctypes.c_int() for _ in range(3)]
+    code = getattr(lib, name)(d, C, warps, *[ctypes.byref(o) for o in outs])
+    if code != 0:
+        raise RuntimeError(f"{name}({d}, {C}, {warps}) failed ({code})")
+    per_sm, threads, smem = (o.value for o in outs)
+    lane = warps >= 0 and lane_layout(name, d) == "lane"
+    return {"layout": "lane" if lane else "warp",
+            "blocks": -(-C // 32) if lane else -(-C // 4),
+            "warps": threads // 32, "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": per_sm}
+
+
+def target_leapfrogs_plan(d, C, warps=0):
+    """The trajectory kernel's launch at (d, C) (:func:`kernel_plan`)."""
+    return kernel_plan(load_kernels(), "target_leapfrogs_plan", d, C, warps)
+
+
+def _failed(lib, name, code):
+    return RuntimeError(f"{name} launch failed: "
+                        f"{lib.target_error_string(code).decode()} ({code})")
 
 
 def launch(lib, counts, name, *args):
@@ -283,10 +354,30 @@ def launch(lib, counts, name, *args):
     code = getattr(lib, name)(*args,
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.target_error_string(code).decode()} "
-                           f"({code})")
+        raise _failed(lib, name, code)
     counts[name] += 1
+
+
+def lean_launch(lib, counts, name, dev):
+    """``call(*args)``: entry ``name`` of ``lib`` on the stream current on
+    ``dev`` now, for a run of launches on one device; raises on a CUDA
+    error, else adds one to ``counts[name]``."""
+    fn = getattr(lib, name)
+    with torch.cuda.device(dev):
+        stream = _P(torch.cuda.current_stream().cuda_stream)
+    here = dev.index == torch.cuda.current_device()
+
+    def call(*args):
+        if here:
+            code = fn(*args, stream)
+        else:
+            with torch.cuda.device(dev):
+                code = fn(*args, stream)
+        if code != 0:
+            raise _failed(lib, name, code)
+        counts[name] += 1
+
+    return call
 
 
 def target_logp_grad(target, theta):
@@ -304,6 +395,44 @@ def target_logp_grad(target, theta):
     return lp_o, g_o
 
 
+def leapfrogs_launcher(target, theta, eps, integrator="leapfrog", warps=0):
+    """The trajectory kernel for a run of launches on states shaped as
+    ``theta`` (the drivers' loop): the target, theta, the step and the
+    schedule are checked once, and the returned ``step(theta, m, grad,
+    n_leaps) -> (theta, m, grad, logp)`` (as :func:`fused_target_leapfrogs`)
+    launches on the run's own tensors without checking them again: they
+    must be contiguous float32 (C, d) on theta's device.  On the card the
+    four outputs are buffers the launcher owns, written anew by each call
+    (a driver consumes them before its next call), on the stream current
+    when the launcher was made.  On the CPU ``step`` is the plain version.
+    ``warps`` picks the kernel's layout as :func:`kernel_plan` says (0:
+    decided from d)."""
+    name = "target_leapfrogs"
+    C, d = check_states(name, target.d, theta), target.d
+    if not _device_branch(name, theta):
+        def plain(th, m, grad, n_leaps):
+            return fused_target_leapfrogs_ref(target, th, m, grad, eps,
+                                              n_leaps=n_leaps,
+                                              integrator=integrator)
+        return plain
+    codes, params = kernel_rows(name, target, theta.device)
+    eps_s, eps_row = _eps_args(eps, theta)
+    outs = (*(torch.empty_like(theta) for _ in range(3)),
+            torch.empty(C, dtype=theta.dtype, device=theta.device))
+    call = lean_launch(load_kernels(), LAUNCHES, name, theta.device)
+    head = (_ptr(codes), _ptr(params), d, C)
+    tail = (*(_ptr(o) for o in outs), eps_s, _ptr(eps_row))
+    sched = (*_sched(integrator), int(warps))
+
+    def step(th, m, grad, n_leaps):
+        call(*head, _P(th.data_ptr()), _P(m.data_ptr()), _P(grad.data_ptr()),
+             *tail, int(n_leaps), *sched)
+        return outs
+
+    step.inputs = (codes, params, eps_row)  # alive as long as the launcher
+    return step
+
+
 def fused_target_leapfrogs(target, theta, m, grad, eps, *, n_leaps=10,
                            integrator="leapfrog"):
     """``n_leaps`` fused macro steps of ``integrator`` for all chains on a
@@ -311,24 +440,17 @@ def fused_target_leapfrogs(target, theta, m, grad, eps, *, n_leaps=10,
 
     ``theta``, ``m``, ``grad`` (C, d) with ``grad`` the gradient at
     ``theta``; ``eps`` a scalar or a (d,) per-coordinate row (the
-    diagonal-metric fold); ``n_leaps`` an int given at run time.
+    diagonal-metric fold); ``n_leaps`` an int given at run time.  The
+    kernel's layout follows from d (:func:`target_leapfrogs_layout`).
     Returns (theta, m, grad, logp (C,)) at the end of the trajectory."""
     name = "target_leapfrogs"
     if not _device_branch(name, theta):
         return fused_target_leapfrogs_ref(target, theta, m, grad, eps,
                                           n_leaps=n_leaps,
                                           integrator=integrator)
-    codes, params, C, d = kernel_args(name, target, theta,
-                                      (("m", m), ("grad", grad)))
-    eps_s, eps_row = _eps_args(eps, theta)
-    th_o, m_o, g_o = (torch.empty_like(theta) for _ in range(3))
-    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
-    with torch.cuda.device(theta.device):
-        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
-               C, _ptr(theta), _ptr(m), _ptr(grad), _ptr(th_o), _ptr(m_o),
-               _ptr(g_o), _ptr(lp_o), eps_s, _ptr(eps_row), int(n_leaps),
-               *_sched(integrator))
-    return th_o, m_o, g_o, lp_o
+    check_states(name, target.d, theta, (("m", m), ("grad", grad)))
+    return leapfrogs_launcher(target, theta, eps, integrator)(
+        theta, m, grad, n_leaps)
 
 
 def target_multistep(target, theta, eps, *, k_trans=10, n_leaps=10,
@@ -377,19 +499,21 @@ def target_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
 def _run(target, theta0, eps, generator, *, steps, n_leaps,
          integrator="leapfrog", collect=False):
     """Run ``steps`` fused-HMC transitions on a target: the trajectory in
-    the kernel, momentum refresh and the NaN-rejecting accept here
-    (pallas_target.py ``_run``).  Records ``plogtarget``/``accept`` per step
-    (+ post-accept ``ppars``/``pgrads`` with ``collect``).
+    the kernel (one :func:`leapfrogs_launcher` for the run), momentum
+    refresh and the NaN-rejecting accept here (pallas_target.py ``_run``).
+    Records ``plogtarget``/``accept`` per step (+ post-accept
+    ``ppars``/``pgrads`` with ``collect``).
     Returns ((theta, lp, grad), infos stacked over steps)."""
     theta = theta0
     lp, g = target_funcs(target)[1](theta0)
+    g = g.contiguous()
+    trajectory = leapfrogs_launcher(target, theta0, eps, integrator)
     rows = {"plogtarget": [], "accept": []}
     if collect:
         rows.update(ppars=[], pgrads=[])
     for _ in range(steps):
         m0, logu = _draw(theta, generator)
-        p_th, p_m, p_g, p_lp = fused_target_leapfrogs(
-            target, theta, m0, g, eps, n_leaps=n_leaps, integrator=integrator)
+        p_th, p_m, p_g, p_lp = trajectory(theta, m0, g, n_leaps)
         accept = accept_test(-lp + 0.5 * (m0 * m0).sum(-1),
                              -p_lp + 0.5 * (p_m * p_m).sum(-1), logu)
         a = accept[:, None]

@@ -337,20 +337,17 @@ def _chees_target_run(target, theta0, eps_in, eps, T, generator, *, steps,
                       i0, max_leaps, integrator="leapfrog"):
     """The sampling phase on a catalog target: :func:`_chees_scan` around the
     custom-target trajectory kernel, the Halton leap count given at run
-    time (warmstart.py ``_chees_target_run``).  ``eps_in`` is the kernel's
-    step (scalar, or the (d,) row carrying the diagonal metric), ``eps`` the
-    scalar the length rule uses.  lp and the gradient at the start come from
-    the target's plain evaluation, once."""
-    from .target_kernels import fused_target_leapfrogs, target_funcs
+    time (warmstart.py ``_chees_target_run``), through one
+    :func:`~.target_kernels.leapfrogs_launcher` for the phase.  ``eps_in``
+    is the kernel's step (scalar, or the (d,) row carrying the diagonal
+    metric), ``eps`` the scalar the length rule uses.  lp and the gradient
+    at the start come from the target's plain evaluation, once."""
+    from .target_kernels import leapfrogs_launcher, target_funcs
 
     lp0, g0 = target_funcs(target)[1](theta0)
-
-    def trajectory(theta, m0, g, nl):
-        return fused_target_leapfrogs(target, theta, m0, g, eps_in,
-                                      n_leaps=nl, integrator=integrator)
-
-    return _chees_scan(trajectory, theta0, lp0, g0, eps, T, generator,
-                       steps=steps, i0=i0, max_leaps=max_leaps)
+    trajectory = leapfrogs_launcher(target, theta0, eps_in, integrator)
+    return _chees_scan(trajectory, theta0, lp0, g0.contiguous(), eps, T,
+                       generator, steps=steps, i0=i0, max_leaps=max_leaps)
 
 
 def _dyn_target_phase(model, integrator, eps, T, max_leaps, s, states_w,

@@ -6,44 +6,41 @@ and injected noise; the multi-transition kernel (hardware PRNG in JAX) and
 the three entry points statistically; the host replay of the kernels'
 Philox draws (ops/philox.py) against Philox4x32-10's known answers; the
 "target" route of ``run(..., chains=N)``; RWM on the generic engine; the
-converters.
+converters; the kernels' layouts by d and their drivers' lean launch path.
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are held
-against those on the card by chip_smoke.py.  JAX's inputs are padded to
-128 lanes and unpadded after.  Tolerances: rtol 1e-5 and atol 1e-6 for
-theta, m and g, 1e-5 for lp (the JAX package's own gate,
+against those on the card by chip_smoke.py and by
+``test_target_lanes_on_card`` here.  JAX's inputs are padded to 128 lanes
+and unpadded after.  Tolerances: rtol 1e-5 and atol 1e-6 for theta, m and
+g, 1e-5 for lp (the JAX package's own gate,
 tests/test_pallas_target.py:53-60); RWM within tests/test_pallas_rwm.py's
-gates; statistical gates |z| < 5."""
+gates; statistical gates |z| < 5.  The tests that run the JAX package
+import it themselves, so that the card test runs where JAX is not
+installed."""
 import dataclasses
 import logging
 import math
+import pathlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import mcmc_jl_tpu as mc
 import mcmc_jl_tpu_torch as mt
-from mcmc_jl_tpu.models import distributions as jd
-from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
-from mcmc_jl_tpu.ops.pallas_rwm import fused_target_rwm_steps as j_rwm
-from mcmc_jl_tpu.ops.pallas_target import coordwise_logp as j_coordwise
-from mcmc_jl_tpu.ops.pallas_target import fused_target_leapfrogs as j_leaps
-from mcmc_jl_tpu.ops.pallas_target import run_target_hmc as j_run_hmc
 from mcmc_jl_tpu_torch.models import distributions as td
 from mcmc_jl_tpu_torch.ops import philox
 from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
 from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
 torch.set_num_threads(1)
-f32 = jnp.float32
 Z_MAX = 5.0
 
 
 def _jax_block(dists, safes):
     """A JAX logp_block with coordinate j ~ dists[j] (lanes past d zero)."""
+    import jax
+    import jax.numpy as jnp
+
     def logp_block(theta):
         col = jax.lax.broadcasted_iota(jnp.int32, theta.shape, 1)
         total = jnp.zeros((theta.shape[0], 1), theta.dtype)
@@ -60,6 +57,9 @@ def _jax_block(dists, safes):
 def _targets(spec, d):
     """(JAX logp_block, port target) for a (name, params, safe) spec or a
     list of them (mixed)."""
+    from mcmc_jl_tpu.models import distributions as jd
+    from mcmc_jl_tpu.ops.pallas_target import coordwise_logp as j_coordwise
+
     if isinstance(spec, list):
         jds = [getattr(jd, n)(*p) for n, p, _ in spec]
         return (_jax_block(jds, [s for _, _, s in spec]),
@@ -95,6 +95,12 @@ TRAJ = [
 
 @pytest.mark.parametrize("case", TRAJ, ids=[c[0] for c in TRAJ])
 def test_trajectory_matches_pallas_interpret(case):
+    import jax
+    import jax.numpy as jnp
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
+    from mcmc_jl_tpu.ops.pallas_target import fused_target_leapfrogs as j_leaps
+
+    f32 = jnp.float32
     label, spec, d, center, spread, eps, n_leaps, integ = case
     C = 8
     rng = np.random.default_rng(len(label))
@@ -131,6 +137,12 @@ def test_trajectory_matches_pallas_interpret(case):
 def test_trajectory_leaving_the_support_matches_pallas():
     """A Gamma trajectory that leaves the support: lp -inf in both, the
     gradient 0 outside, and theta, m, g as in the Pallas kernel."""
+    import jax
+    import jax.numpy as jnp
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
+    from mcmc_jl_tpu.ops.pallas_target import fused_target_leapfrogs as j_leaps
+
+    f32 = jnp.float32
     d, C = 4, 8
     rng = np.random.default_rng(9)
     theta = (0.05 + 0.01 * np.abs(rng.standard_normal((C, d)))).astype(
@@ -159,6 +171,11 @@ def test_trajectory_leaving_the_support_matches_pallas():
 def test_rwm_steps_match_pallas_interpret(spec, center):
     """The same z and log u: the port takes them as (C, k, d) and (C, k),
     JAX in its lane layout (C, k * 128) for both."""
+    import jax.numpy as jnp
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
+    from mcmc_jl_tpu.ops.pallas_rwm import fused_target_rwm_steps as j_rwm
+
+    f32 = jnp.float32
     d, C, K = 4, 8, 6
     rng = np.random.default_rng(0)
     theta = (center + 0.3 * rng.standard_normal((C, d))).astype(np.float32)
@@ -198,6 +215,10 @@ def test_multistep_statistics(name, params, x0, eps):
     PRNG and has no CPU lowering): run_target_hmc_multistep's final states
     against the exact first and second moments, and against JAX
     run_target_hmc (interpret mode) from the same start."""
+    from mcmc_jl_tpu.models import distributions as jd
+    from mcmc_jl_tpu.ops.pallas_target import coordwise_logp as j_coordwise
+    from mcmc_jl_tpu.ops.pallas_target import run_target_hmc as j_run_hmc
+
     d, C = 3, 256
     dist = getattr(td, name)(*params)
     mu, sd = float(dist.mean()), float(dist.std())
@@ -375,6 +396,8 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
 def test_rwm_generic_engine_matches_jax():
     """RWM on the generic engine against the JAX package's RWM: pooled
     per-chain means and acceptance within |z| < 5, and the exact mean."""
+    import mcmc_jl_tpu as mc
+
     C, steps, burnin = 64, 600, 100
     jm = mc.model(lambda x: mc.tilde(x, mc.Normal(1.0, 2.0)), x=np.zeros(2))
     tm = mt.model(lambda x: mt.tilde(x, mt.Normal(1.0, 2.0)), x=np.zeros(2),
@@ -399,6 +422,13 @@ def test_distribution_and_state_converters():
     """distribution_from_fields rebuilds a JAX catalog distribution from its
     class name and numpy fields (scalars stay Python floats, so kernel rows
     survive); rwm_state_from_numpy a JAX RWMState."""
+    import jax
+    import jax.numpy as jnp
+
+    import mcmc_jl_tpu as mc
+    from mcmc_jl_tpu.models import distributions as jd
+    from mcmc_jl_tpu.samplers.rwm import RWM as JRWM
+
     xs = np.linspace(0.05, 3.0, 9)
     for jdist in (jd.Gamma(3.0, 0.2), jd.Normal(jnp.asarray([0.0, 1.0]), 2.0),
                   jd.TDist(4.0), jd.Laplace(0.5, 1.5)):
@@ -422,10 +452,226 @@ def test_distribution_and_state_converters():
     with pytest.raises(ValueError, match="unknown distribution"):
         mt.distribution_from_fields("Nope")
 
-    from mcmc_jl_tpu.samplers.rwm import RWM as JRWM
     jm = mc.model(lambda x: mc.tilde(x, mc.Normal(0.0, 1.0)), x=np.zeros(2))
     st = jax.device_get(JRWM(0.5).init(jm, jnp.asarray([0.3, -0.2]), None))
     ts = mt.rwm_state_from_numpy({"pars": st.pars, "logtarget": st.logtarget,
                                   "i": st.i}, device="cpu")
     assert isinstance(ts, mt.RWMState) and ts.i.dtype == torch.int32
     np.testing.assert_allclose(ts.logtarget.numpy(), np.asarray(st.logtarget))
+
+
+@pytest.mark.parametrize("d", [0, 1, 10, 32, 33, 1000, 1024, 1025])
+@pytest.mark.parametrize("layout", [tk.target_leapfrogs_layout,
+                                    rk.target_rwm_layout],
+                         ids=["leapfrogs", "rwm"])
+def test_layout_by_d(layout, d):
+    """Kernels 5 and 7 choose their layout up front from d alone: one chain
+    per lane for 1 <= d <= LANE_D_MAX (32), one warp per chain up to D_MAX;
+    0 and D_MAX + 1 are refused.  The CUDA sources draw the line at the
+    same d (each library reports it when it loads, and load_library
+    refuses a mismatch)."""
+    if not 1 <= d <= tk.D_MAX:
+        with pytest.raises(ValueError, match="outside"):
+            layout(d)
+        return
+    assert layout(d) == ("lane" if d <= tk.LANE_D_MAX else "warp")
+    src = (pathlib.Path(tk.__file__).parent.parent / "csrc" /
+           "target_lane.cuh").read_text()
+    assert f"constexpr int kLaneDMax = {tk.LANE_D_MAX};" in src
+
+
+def _lean_run(kernel, lean):
+    """kernel 5's or 7's driver on the CPU, through its launcher (lean) or
+    through the public wrapper once per launch, from one generator state."""
+    d, C = 4, 16
+    target = tk.coordwise_logp([td.Normal(0.5, 2.0), td.Gamma(3.0, 0.2),
+                                td.Laplace(0.0, 1.0), td.TDist(4.0)], d)
+    theta0 = torch.as_tensor(np.full((C, d), 0.6, np.float32))
+    gen = torch.Generator().manual_seed(11)
+    if kernel == "leapfrogs":
+        if lean:
+            (th, lp, g), infos = tk._run(target, theta0, 0.05, gen, steps=6,
+                                         n_leaps=5, collect=True)
+            return th, lp, g, infos["accept"]
+        th, accepts = theta0, []
+        lp, g = tk.target_funcs(target)[1](th)
+        for _ in range(6):
+            m0, logu = tk._draw(th, gen)
+            p_th, p_m, p_g, p_lp = tk.fused_target_leapfrogs(
+                target, th, m0, g, 0.05, n_leaps=5)
+            a = tk.accept_test(-lp + 0.5 * (m0 * m0).sum(-1),
+                               -p_lp + 0.5 * (p_m * p_m).sum(-1), logu)
+            th = torch.where(a[:, None], p_th, th)
+            g = torch.where(a[:, None], p_g, g)
+            lp = torch.where(a, p_lp, lp)
+            accepts.append(a)
+        return th, lp, g, torch.stack(accepts)
+    scale = torch.full((d,), 0.8)
+    if lean:
+        th, infos = rk._run(target, theta0, scale, gen, n_launches=3,
+                            k_steps=4, noise="input")
+        return th, infos["plogtarget"], infos["accept_rate"]
+    th, lps, accs = theta0, [], []
+    for i in range(3):
+        z, logu = rk._noise((C, 4, d), gen, torch.float32, "cpu")
+        th, lp, acc = rk.fused_target_rwm_steps(target, th, scale, k_steps=4,
+                                                z=z, logu=logu,
+                                                noise="input", i0=4 * i)
+        lps.append(lp)
+        accs.append(acc)
+    return th, torch.stack(lps), torch.stack(accs)
+
+
+@pytest.mark.parametrize("kernel", ["leapfrogs", "rwm"])
+def test_lean_driver_matches_the_public_wrapper(kernel):
+    """The drivers launch through a launcher that validates a run once
+    (``leapfrogs_launcher``, ``rwm_launcher``): on the CPU, where both take
+    the plain version, a driver's run equals the same run made through the
+    public wrapper call by call, bitwise."""
+    lean, public = _lean_run(kernel, True), _lean_run(kernel, False)
+    assert all(torch.equal(a, b) for a, b in zip(lean, public))
+
+
+@pytest.mark.parametrize("bad", ["float64", "shape", "strided"])
+@pytest.mark.parametrize("kernel", ["leapfrogs", "rwm"])
+def test_lean_launchers_refuse_a_malformed_state(kernel, bad):
+    """The launchers check a run's state once, on the CPU too: a float64,
+    a (C, d + 1) or a non-contiguous theta is refused."""
+    target = tk.coordwise_logp(td.Normal(0.0, 1.0), 3)
+    theta = {"float64": torch.zeros((8, 3), dtype=torch.float64),
+             "shape": torch.zeros((8, 4)),
+             "strided": torch.zeros((3, 8)).t()}[bad]
+    with pytest.raises(ValueError, match="float32|d = 3"):
+        if kernel == "leapfrogs":
+            tk.leapfrogs_launcher(target, theta, 0.1)
+        else:
+            rk.rwm_launcher(target, theta, torch.ones(3), k_steps=2)
+
+
+@pytest.mark.parametrize("i0", [0, 1, 3, 6])
+def test_rwm_draws_known_answers(i0):
+    """rwm_draws lays out the RWM kernel's four-steps-a-call draws: the
+    normal of absolute step t and coordinate j is the Box-Muller pair of
+    words (0, 1) (t % 4 < 2) or (2, 3) of Philox4x32-10 at (chain, t // 4,
+    j, 2), its cosine branch at even t and its sine branch at odd t; the
+    log-uniform is log(1 - u) of word t % 4 at (chain, t // 4, 0, 3).  Held
+    entry by entry against the host Philox (itself held to Random123's
+    known answers) in double precision, and the cosine branch against
+    ``philox.box_muller``."""
+    C, d, k, seed = 5, 3, 7, 0x243F6A8885A308D3
+    z, logu = rk.rwm_draws(seed, C, d, k, i0=i0)
+    assert z.shape == (C, k, d) and logu.shape == (C, k)
+    for c in range(C):
+        for s in range(k):
+            t = i0 + s
+            u = philox.philox4x32((c, t // 4, 0, 3), seed)
+            want_u = math.log(1.0 - (int(u[t % 4]) >> 8) / 2.0 ** 24)
+            assert logu[c, s].item() == pytest.approx(want_u, rel=1e-6,
+                                                      abs=1e-7)
+            for j in range(d):
+                b = [int(w) for w in philox.philox4x32((c, t // 4, j, 2),
+                                                       seed)]
+                w1, w2 = (b[2], b[3]) if t % 4 >= 2 else (b[0], b[1])
+                r = math.sqrt(-2.0 * math.log(1.0 - (w1 >> 8) / 2.0 ** 24))
+                ang = 2.0 * math.pi * (w2 >> 8) / 2.0 ** 24
+                want = r * (math.sin(ang) if t % 2 else math.cos(ang))
+                assert z[c, s, j].item() == pytest.approx(want, rel=1e-6,
+                                                          abs=1e-6)
+                if t % 2 == 0:
+                    cos = philox.box_muller(np.uint32(w1), np.uint32(w2))
+                    assert z[c, s, j].item() == float(cos)
+
+
+def _min_gap(target, th, scale, z, logu):
+    """The smallest |MH ratio - log u| over the steps of the chains ``th``
+    on the draws ``z`` (C, k, d), ``logu`` (C, k), as the plain version
+    takes them (NaN ratios reject)."""
+    lp = target(th)[:, 0]
+    gap = torch.full(lp.shape, float("inf"), device=th.device)
+    for s in range(z.shape[1]):
+        prop = th + scale * z[:, s]
+        lp_p = target(prop)[:, 0]
+        ratio = lp_p - lp
+        ratio = torch.where(torch.isnan(ratio), -torch.inf, ratio)
+        gap = torch.minimum(gap, (ratio - logu[:, s]).abs())
+        a = (ratio > 0) | (ratio > logu[:, s])
+        th = torch.where(a[:, None], prop, th)
+        lp = torch.where(a, lp_p, lp)
+    return float(gap.max())
+
+
+def test_target_lanes_on_card():
+    """Kernels 5 and 7 in both layouts against their plain versions on a
+    card (skips without one; chip_smoke.py runs the same checks at the
+    paths' shapes and their edges): the ten families cycled over d 10 and
+    32 (one chain per lane, with its default warps and with 4 and D warps
+    a block) and d 40 (one warp per chain), and one warp per chain forced
+    at d 10 and 32; C 397 (a ragged last group).  Kernel 5: theta, m and g within
+    rtol and atol 1e-4 (the family formulas' rounding grown over 10
+    leapfrogs), lp within 1e-5 relative and 1e-5 per coordinate (a sum in
+    another order), -inf at the same chains.  Kernel 7 on input noise and
+    on its own Philox draws replayed from step 3 (``rwm_draws``): every
+    chain's theta within 1e-4 (1 + |theta|) with the same accept count, or
+    a step whose MH ratio lay within 1e-4 of log u; the Philox run repeats
+    bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    fams = [td.Normal(0.0, 1.0), td.Uniform(-1.0, 3.0), td.Exponential(2.0),
+            td.Gamma(2.0, 1.5), td.Weibull(1.5, 2.0), td.Cauchy(0.0, 1.0),
+            td.LogNormal(0.0, 0.5), td.Beta(2.0, 3.0), td.Laplace(0.0, 1.0),
+            td.TDist(5.0)]
+    x0 = np.array([0.0, 1.0, 2.0, 3.0, 1.8, 0.0, 1.1, 0.4, 0.0, 0.0])
+    sd = np.array([1.0, 1.0, 2.0, 2.0, 1.0, 1.0, 0.5, 0.2, 1.0, 1.0])
+    C, k, tol = 397, 12, 1e-4
+    rng = np.random.default_rng(5)
+
+    def cu(a):
+        return torch.as_tensor(a, dtype=torch.float32).cuda().contiguous()
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(77)
+
+    for d, layouts in ((10, (0, 4, 16, -1)), (32, (0, 4, 32, -1)),
+                       (40, (0,))):
+        target = tk.coordwise_logp([fams[j % 10] for j in range(d)], d)
+        c0, s = np.resize(x0, d), np.resize(sd, d)
+        th = cu(c0 + 0.05 * s * rng.standard_normal((C, d)))
+        m = cu(rng.standard_normal((C, d)))
+        g = tk.target_funcs(target)[1](th)[1].contiguous()
+        row = cu(0.02 * s)
+        ref = tk.fused_target_leapfrogs_ref(target, th, m, g, row,
+                                            n_leaps=10)
+        fin = torch.isfinite(ref[3])
+        for w in layouts:
+            out = tk.leapfrogs_launcher(target, th, row, warps=w)(th, m, g,
+                                                                  10)
+            for a, b in zip(out[:3], ref[:3]):
+                assert torch.allclose(a, b, rtol=tol, atol=tol), (d, w)
+            assert torch.equal(fin, torch.isfinite(out[3])), (d, w)
+            assert torch.allclose(out[3][fin], ref[3][fin], rtol=1e-5,
+                                  atol=1e-5 * d), (d, w)
+
+        scale = cu(0.5 * s)
+        noises = {"input": (cu(rng.standard_normal((C, k, d))),
+                            cu(np.log1p(-rng.random((C, k))))),
+                  "hw": rk.rwm_draws(tk._seed(gen()), C, d, k, i0=3,
+                                     device="cuda")}
+        for w in layouts:
+            for noise, (z, logu) in noises.items():
+                step = rk.rwm_launcher(target, th, scale, k_steps=k,
+                                       noise=noise, warps=w)
+                if noise == "input":
+                    out = step(th, z=z, logu=logu)
+                else:
+                    out = step(th, i0=3, generator=gen())
+                    again = step(th, i0=3, generator=gen())
+                    assert all(torch.equal(a, b) for a, b in zip(out, again))
+                ref = rk.fused_target_rwm_steps_ref(target, th, scale,
+                                                    k_steps=k, z=z, logu=logu)
+                same = ((torch.round(out[2] * k) == torch.round(ref[2] * k))
+                        & ((out[0] - ref[0]).abs()
+                           <= tol * (1 + ref[0].abs())).all(1))
+                parted = (~same).nonzero()[:, 0]
+                if len(parted):
+                    assert _min_gap(target, th[parted], scale, z[parted],
+                                    logu[parted]) < tol, (d, w, noise)

@@ -250,12 +250,13 @@ def test_run_matches_jax_statistically(row):
 def test_target_nuts_layout_by_d():
     """Kernel 8b's layout is decided up front from d alone: one chain per
     lane up to LANE_D_MAX, one warp per chain above; the CUDA source
-    draws the line at the same d (its library also reports it when it
+    (the lane layout's header, which target_nuts.cu includes) draws the
+    line at the same d (its library also reports it when it
     loads, and load_target_kernels refuses a mismatch)."""
     assert [nk.target_nuts_layout(d) for d in (1, 8, 10, 16, 32, 33, 1000)] \
         == ["lane"] * 5 + ["warp"] * 2
     src = (pathlib.Path(nk.__file__).parent.parent / "csrc" /
-           "target_nuts.cu").read_text()
+           "target_lane.cuh").read_text()
     assert f"constexpr int kLaneDMax = {nk.LANE_D_MAX};" in src
 
 
