@@ -2160,25 +2160,10 @@ def _lp_close(a, b, d):
     return _close(a[fin_a], b[fin_b], T_LP_RTOL, T_LP_ATOL_PER_COORD * d)
 
 
-def _layout(layout_fn, d, warps=0):
-    """The layout a launch at ``warps`` runs (as ``kernel_plan`` reads
-    ``warps``; ``layout_fn`` the kernel's layout function of d)."""
-    return "warp" if warps < 0 else layout_fn(d)
-
-
-def _lane_bound(d):
-    """The lane layout's template bound for d <= 32 (target_lane.cuh
-    lane_bound_for)."""
-    return 8 if d <= 8 else 16 if d <= 16 else 32
-
-
 def _traj_case(label, target, theta, m, eps, n_leaps=10,
-               integrator="leapfrog", want_inf=False, warps=0, outs=None):
-    """Kernel 5 against its plain version on the same inputs; ``grad`` at
-    theta from the plain version.  ``warps``: 0 for the public wrapper
-    (the layout decided from d), else the layout asked of
-    ``leapfrogs_launcher`` (4 or the lane bound D: one chain per lane with
-    that many warps a block; -1: one warp per chain).  The kernel's outputs
+               integrator="leapfrog", want_inf=False, outs=None):
+    """Kernel 5 (the public wrapper) against its plain version on the same
+    inputs; ``grad`` at theta from the plain version.  The kernel's outputs
     are appended to ``outs`` when given.  Returns (ok, report)."""
     import torch
 
@@ -2187,11 +2172,7 @@ def _traj_case(label, target, theta, m, eps, n_leaps=10,
     _, g = tk.target_funcs(target)[1](theta)
     g = g.contiguous()
     kw = dict(n_leaps=n_leaps, integrator=integrator)
-    if warps:
-        out_k = tk.leapfrogs_launcher(target, theta, eps, integrator,
-                                      warps=warps)(theta, m, g, n_leaps)
-    else:
-        out_k = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
+    out_k = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
     if outs is not None:
         outs.append(out_k)
     out_r = tk.fused_target_leapfrogs_ref(target, theta, m, g, eps, **kw)
@@ -2208,9 +2189,9 @@ def _traj_case(label, target, theta, m, eps, n_leaps=10,
           and (not want_inf or not bool(fin.any())))
     emit({"phase": "kernel", "name": "target_leapfrogs", "case": label,
           "C": theta.shape[0], "d": d, "n_leaps": int(n_leaps),
-          "integrator": integrator, "warps": warps,
-          "layout": _layout(tk.target_leapfrogs_layout, d, warps), "ok": ok,
-          **rep})
+          "integrator": integrator, **_lane_plan("target_leapfrogs", d,
+                                                   theta.shape[0]),
+          "ok": ok, **rep})
     return ok, max([r["max_abs"] for r in rep.values()
                     if isinstance(r, dict) and r] or [0.0])
 
@@ -2260,14 +2241,13 @@ def _parted_report(kernel, label, same, gaps, err, bitwise=None, held=True,
     return ok
 
 
-def _rwm_case(label, target, theta, scale, k, noise, warps=0, i0=0):
+def _rwm_case(label, target, theta, scale, k, noise, i0=0):
     """Kernel 7 against its plain version on the same draws over ``k``
     steps.  ``noise`` is (z (C, k, d), logu (C, k)), read by both
     (noise="input"), or a seed: the kernel draws from Philox (noise="hw")
     from absolute step ``i0`` under the launch seed a generator seeded so
     gives, and the plain version gets those draws replayed
-    (``rwm_draws``); the kernel then also repeats bitwise.  ``warps`` as
-    for :func:`_traj_case` (through ``rwm_launcher``).  Every chain ends on
+    (``rwm_draws``); the kernel then also repeats bitwise.  Every chain ends on
     the plain version's path, or had a step whose MH ratio (replayed by the
     plain version) lay within T_BAND of log u."""
     import torch
@@ -2278,10 +2258,6 @@ def _rwm_case(label, target, theta, scale, k, noise, warps=0, i0=0):
     mode = "input" if isinstance(noise, tuple) else "hw"
 
     def kernel(**kw):
-        if warps:
-            return rk.rwm_launcher(target, theta, scale, k_steps=k,
-                                   noise=mode, warps=warps)(theta, i0=i0,
-                                                            **kw)
         return rk.fused_target_rwm_steps(target, theta, scale, k_steps=k,
                                          noise=mode, i0=i0, **kw)
 
@@ -2320,9 +2296,9 @@ def _rwm_case(label, target, theta, scale, k, noise, warps=0, i0=0):
     err = _same_path_err(out_k[0], out_r[0], same)
     ok = _parted_report("target_rwm_steps", label, same, gaps, err,
                         bitwise=bitwise, C=theta.shape[0], d=theta.shape[1],
-                        k_steps=k, i0=i0, noise=mode, warps=warps,
-                        layout=_layout(rk.target_rwm_layout, theta.shape[1],
-                                       warps),
+                        k_steps=k, i0=i0, noise=mode,
+                        **_lane_plan("target_rwm_steps", theta.shape[1],
+                                     theta.shape[0]),
                         accept_rate=float(out_r[2].mean()))
     return ok, err
 
@@ -2549,22 +2525,20 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
     return errors
 
 
-def phase_target_lane_kernels(C=4096, ragged=4099, k_rwm=20):
-    """Kernels 5 and 7 in both layouts against their plain versions on the
-    card: the ten-family mixed target with a (d,) step row at d = 1, 10,
-    16 and 32 (one chain per lane, template bounds 8, 16, 32) and 33 and
-    1000 (one warp per chain); at d <= 32 each kernel also with 4 and with
-    D warps a block (its default is one of them) and with one warp per
-    chain (``warps`` -1), and kernel 5's theta, m and g compared
-    bitwise across the layouts (the warp-per-chain kernel is the one that
-    ran d <= 32 before the lane layout; reported, not held); a ragged last
-    group (C = ``ragged``); every kernel family alone (d 10); the 2- and
-    3-stage integrators and a Gamma trajectory that leaves the support in
-    every layout.  Kernel 7 from input noise over ``k_rwm`` steps, and on
-    its own Philox draws replayed from an absolute step that is not a
-    multiple of four (the draws come four steps a Philox call).  Kernel 5
-    at C chains, kernel 7 at ``ragged``.  Returns {kernel: max abs
-    error}."""
+def phase_target_lane_kernels(C=4096, big_C=65_536, ragged=4099, k_rwm=20):
+    """Kernels 5 and 7 in every layout they launch against their plain
+    versions on the card: the ten-family mixed target with a (d,) step row
+    at d = 1, 10, 16 and 32 (one chain per lane, template bounds 8, 16, 32)
+    and 33 and 1000 (one warp per chain); a ragged last group (C =
+    ``ragged``); every kernel family alone (d 10); the 2- and 3-stage
+    integrators and a Gamma trajectory that leaves the support.  At d <= 32
+    kernel 5 runs at C chains (D warps a block: no more groups than SMs)
+    and on the same chains tiled to ``big_C`` (four warps a block), and its
+    theta, m and g must come out bitwise the same in both.  Kernel 7 from
+    input noise over ``k_rwm`` steps, and on its own Philox draws replayed
+    from an absolute step that is not a multiple of four (the draws come
+    four steps a Philox call), at ``ragged`` chains.  Returns {kernel: max
+    abs error}."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
@@ -2577,33 +2551,36 @@ def phase_target_lane_kernels(C=4096, ragged=4099, k_rwm=20):
         if not ok:
             bad.append(label)
 
-    def layouts(dd):
-        return (0, 4, _lane_bound(dd), -1) if dd <= 32 else (0,)
-
-    def traj(label, target, th, m, eps, ws, **kw):
+    def traj(label, target, th, m, eps, **kw):
+        """At th's chains and, for d <= 32, tiled to big_C chains: another
+        W, the same theta, m and g."""
         nonlocal err5
+        Cs, d = th.shape
+        reps = -(-big_C // Cs) if d <= 32 else 0
         outs = []
-        for w in ws:
-            ok, e = _traj_case(f"{label}, warps {w}", target, th, m, eps,
-                               warps=w, outs=outs, **kw)
-            note(ok, f"kernel 5 {label}, warps {w}")
+        for r in (1, reps)[:1 + (reps > 0)]:
+            ok, e = _traj_case(f"{label}, C {r * Cs}", target,
+                               th.repeat(r, 1), m.repeat(r, 1), eps,
+                               outs=outs, **kw)
+            note(ok, f"kernel 5 {label}, C {r * Cs}")
             err5 = max(err5, e)
-        if len(outs) > 1:
+        if reps:
+            ws = [tk.target_leapfrogs_plan(d, r * Cs)["warps"]
+                  for r in (1, reps)]
+            same = all(torch.equal(a[:Cs], b)
+                       for a, b in zip(outs[1][:3], outs[0][:3]))
+            ok = same and ws[0] != ws[1]
             emit({"phase": "kernel", "name": "target_leapfrogs",
-                  "case": f"{label}: theta, m, g bitwise across warps {ws}",
-                  "bitwise": all(torch.equal(a, b) for o in outs[1:]
-                                 for a, b in zip(o[:3], outs[0][:3])),
-                  "max_abs_theta_m_g": max(
-                      float((a - b).abs().max()) for o in outs[1:]
-                      for a, b in zip(o[:3], outs[0][:3]))})
+                  "case": f"{label}: theta, m, g bitwise at C {Cs} and "
+                          f"{reps * Cs}", "warps": ws, "bitwise": same,
+                  "ok": ok})
+            note(ok, f"kernel 5 {label}: W {ws} bitwise")
 
-    def rwm(label, target, th, scale, noise, ws, k=k_rwm, i0=0):
+    def rwm(label, target, th, scale, noise, k=k_rwm, i0=0):
         nonlocal err7
-        for w in ws:
-            ok, e = _rwm_case(f"{label}, warps {w}", target, th, scale, k,
-                              noise, warps=w, i0=i0)
-            note(ok, f"kernel 7 {label}, warps {w}")
-            err7 = max(err7, e)
+        ok, e = _rwm_case(label, target, th, scale, k, noise, i0=i0)
+        note(ok, f"kernel 7 {label}")
+        err7 = max(err7, e)
 
     def noise(Cn, dd):
         return (_cuda(rng.standard_normal((Cn, k_rwm, dd))),
@@ -2614,37 +2591,37 @@ def phase_target_lane_kernels(C=4096, ragged=4099, k_rwm=20):
         th = _cuda(x0 + 0.05 * sc * rng.standard_normal((C, dd)))
         m = _cuda(rng.standard_normal((C, dd)))
         traj(f"mixed ten families, d = {dd}, (d,) row 0.02 s", mixed, th, m,
-             _cuda(0.02 * sc), layouts(dd))
+             _cuda(0.02 * sc))
         thr = _cuda(x0 + 0.05 * sc * rng.standard_normal((ragged, dd)))
         rwm(f"mixed ten families, d = {dd}, scale 0.5 s, input noise", mixed,
-            thr, _cuda(0.5 * sc), noise(ragged, dd), layouts(dd))
+            thr, _cuda(0.5 * sc), noise(ragged, dd))
         del th, m, thr
 
     mixed, x0, sc = _mixed_target(10)
     row = _cuda(0.02 * sc)
     th = _cuda(x0 + 0.05 * sc * rng.standard_normal((ragged, 10)))
     m = _cuda(rng.standard_normal((ragged, 10)))
-    traj(f"mixed ten families, C {ragged}", mixed, th, m, row, layouts(10))
+    traj(f"mixed ten families, C {ragged}", mixed, th, m, row)
     for integ in ("2stage", "3stage"):
         traj(f"mixed ten families, (d,) row, {integ}", mixed, th, m, row,
-             layouts(10), n_leaps=7, integrator=integ)
+             n_leaps=7, integrator=integ)
     rwm("mixed ten families, Philox draws replayed from step 3", mixed, th,
-        _cuda(0.5 * sc), 36, layouts(10), k=k_rwm + 1, i0=3)
+        _cuda(0.5 * sc), 36, k=k_rwm + 1, i0=3)
 
     gam = tk.coordwise_logp(_target_cases()[10][1], 10)  # Gamma(3, 0.2)
     th_out = _cuda(0.05 + 0.01 * np.abs(rng.standard_normal((C, 10))))
     m_out = _cuda(-4.0 - np.abs(rng.standard_normal((C, 10))))
     traj("Gamma(3,0.2) leaving the support", gam, th_out, m_out, 0.05,
-         layouts(10), want_inf=True)
+         want_inf=True)
 
     for fam in _kernel_families():
         alone, x0, sc = _mixed_target(10, [fam])
         th = _cuda(x0 + 0.05 * sc * rng.standard_normal((C, 10)))
         m = _cuda(rng.standard_normal((C, 10)))
         traj(f"{fam[0]!r} alone, d = 10, (d,) row 0.05 s", alone, th, m,
-             _cuda(0.05 * sc), (0,))
+             _cuda(0.05 * sc))
         rwm(f"{fam[0]!r} alone, d = 10, scale 0.5 s, input noise", alone, th,
-            _cuda(0.5 * sc), noise(C, 10), (0,))
+            _cuda(0.5 * sc), noise(C, 10))
     assert not bad, f"kernels 5 and 7 disagree in the lane phase: {bad}"
     return {"target_leapfrogs": err5, "target_rwm_steps": err7}
 
@@ -2859,15 +2836,15 @@ def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
     return ms, work
 
 
-def _lane_plan(name, d, C, warps=0):
-    """Kernel 5's or 7's launch plan at (d, C, warps), or None for another
-    kernel or a package without one (before the lane layout)."""
+def _lane_plan(name, d, C):
+    """Kernel 5's or 7's launch plan at (d, C), or {} for another kernel
+    or a package without one (before the lane layout)."""
     from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
     fn = {"target_leapfrogs": getattr(tk, "target_leapfrogs_plan", None),
           "target_rwm_steps": getattr(rk, "target_rwm_plan", None)}.get(name)
-    return None if fn is None else fn(d, C, warps)
+    return {} if fn is None else fn(d, C)
 
 
 def _lean_times(target, th, m0, g, eps, n_leaps, device_ms):
@@ -3346,46 +3323,30 @@ def phase_target_nuts_times(Cs=(4096, 65536), md=6):
                   **CARD})
 
 
-def _warps_to_time(d):
-    """The layouts timed beside the default: 4 and D warps a block and one
-    warp per chain, for a package with the lane layout (the launchers);
-    else the default alone."""
-    from mcmc_jl_tpu_torch.ops import target_kernels as tk
-
-    if not hasattr(tk, "leapfrogs_launcher"):
-        return (0,)
-    return (0, 4, _lane_bound(d), -1)
-
-
-def _traj_time(label, target, th, eps, n_leaps, warps, seed, plain=False):
+def _traj_time(label, target, th, eps, n_leaps, seed, plain=False):
     """One launch of kernel 5 on ``target`` from ``th`` (C, d), momenta
-    N(0, 1) from numpy seed ``seed``: ``ms`` one call between CUDA events,
-    ``device_ms`` the kernel alone; at ``warps`` 0 the public wrapper (and
-    the lean launcher's host time), else the launcher at that layout; the
-    bound (TARGET_LEAP_OPS x d operations a leapfrog, or the bytes), device
-    ns per chain and leapfrog, and the plan.  Emits and returns a dict."""
+    N(0, 1) from numpy seed ``seed``: ``ms`` one call of the public wrapper
+    between CUDA events, ``device_ms`` the kernel alone, the lean
+    launcher's host time; the bound (TARGET_LEAP_OPS x d operations a
+    leapfrog, or the bytes), device ns per chain and leapfrog, and the
+    plan.  Emits and returns a dict."""
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
     C, d = th.shape
     m0 = _cuda(np.random.default_rng(seed).standard_normal((C, d)))
     g = tk.target_funcs(target)[1](th)[1].contiguous()
-    if warps:
-        step = tk.leapfrogs_launcher(target, th, eps, warps=warps)
-        kern = lambda: step(th, m0, g, n_leaps)  # noqa: E731
-    else:
-        kern = lambda: tk.fused_target_leapfrogs(  # noqa: E731
-            target, th, m0, g, eps, n_leaps=n_leaps)
+    kern = lambda: tk.fused_target_leapfrogs(  # noqa: E731
+        target, th, m0, g, eps, n_leaps=n_leaps)
     dev = _device_ms(kern, KERNEL_SYMBOL["target_leapfrogs"])
     r = {"target": label, "C": C, "d": d, "n_leaps": n_leaps,
          "eps": eps if isinstance(eps, float) else "(d,) row",
-         "warps": warps, "ms": _event_ms(kern), "device_ms": dev,
+         "ms": _event_ms(kern), "device_ms": dev,
          "device_ns_per_chain_leapfrog": None if dev is None
          else 1e6 * dev / (C * n_leaps),
          **_bound_ops(TARGET_LEAP_OPS * d * C * n_leaps,
                       _nbytes((th, m0, g, target.rows(th.device)), kern())),
-         "plan": _lane_plan("target_leapfrogs", d, C, warps)}
-    if not warps:
-        r.update(_lean_times(target, th, m0, g, eps, n_leaps, dev))
+         "plan": _lane_plan("target_leapfrogs", d, C),
+         **_lean_times(target, th, m0, g, eps, n_leaps, dev)}
     if plain:
         r["plain_ms"] = _event_ms(lambda: tk.fused_target_leapfrogs_ref(
             target, th, m0, g, eps, n_leaps=n_leaps), reps=2)
@@ -3393,7 +3354,7 @@ def _traj_time(label, target, th, eps, n_leaps, warps, seed, plain=False):
     return r
 
 
-def _rwm_time(label, target, th, scale, k, warps, seed):
+def _rwm_time(label, target, th, scale, k, seed):
     """One launch of kernel 7 in Philox mode on ``target`` from ``th``:
     ``ms`` (events), ``device_ms``, the bound (TARGET_STEP_OPS x d
     operations a step), the floors, device ns per chain and step, the
@@ -3404,16 +3365,12 @@ def _rwm_time(label, target, th, scale, k, warps, seed):
 
     C, d = th.shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    if warps:
-        step = rk.rwm_launcher(target, th, scale, k_steps=k, warps=warps)
-        kern = lambda: step(th, generator=gen)  # noqa: E731
-    else:
-        kern = lambda: rk.fused_target_rwm_steps(  # noqa: E731
-            target, th, scale, k_steps=k, noise="hw", generator=gen)
+    kern = lambda: rk.fused_target_rwm_steps(  # noqa: E731
+        target, th, scale, k_steps=k, noise="hw", generator=gen)
     dev = _device_ms(kern, KERNEL_SYMBOL["target_rwm_steps"])
     rng_ms = _rng_floor_ms(C * -(-k // 4) * (d + 1))
     sfu_ms = _sfu_floor_ms(C * k, RWM_SFU_COORD * d + RWM_SFU_CHAIN)
-    r = {"target": label, "C": C, "d": d, "k": k, "warps": warps,
+    r = {"target": label, "C": C, "d": d, "k": k,
          "ms": _event_ms(kern), "device_ms": dev,
          "device_ns_per_chain_step": None if dev is None
          else 1e6 * dev / (C * k),
@@ -3421,44 +3378,44 @@ def _rwm_time(label, target, th, scale, k, warps, seed):
                       _nbytes((th, scale, target.rows(th.device)), kern())),
          "rng_floor_ms": rng_ms, "sfu_floor_ms": sfu_ms,
          "floor_ms": max(rng_ms, sfu_ms),
-         "plan": _lane_plan("target_rwm_steps", d, C, warps)}
+         "plan": _lane_plan("target_rwm_steps", d, C)}
     emit({"phase": "target_time", "name": "target_rwm_steps", **r, **CARD})
     return r
 
 
-def phase_target_lane_times(C=4096, big_C=65_536, rwm_C=16_384, k_rwm=100,
-                            n_leaps=10):
-    """Kernels 5 and 7 at pinned shapes, each in its default layout and, on
-    a package with the lane layout, with 4 and D warps a block and one warp
-    per chain: kernel 5 on Gamma(3, 0.2) (eps 0.05, 10 leapfrogs) at C and
-    big_C chains; on the ten bare distributions at C chains from exact
-    draws (seed TARGET_NUTS_TIME_SEED) at the adaptive HMC-diag path's
-    frozen step and leap count (TARGET_TIME_FROZEN; the row eps times each
-    coordinate's sd, the metric the adaptation estimates), and at 10
-    leapfrogs of that row (the count of the Gamma shape), beside ten
-    Normals with the same means and sds (one family in every coordinate:
-    what the family branch costs); kernel 7 in Philox mode on Normal(1, 1)
-    (scale 1.1, k_rwm steps) at rwm_C and big_C chains.  The plain
-    versions at the first shapes only.  Runs on whichever package
-    ``mcmc_jl_tpu_torch`` resolves to, so one call can time a parent
-    tree."""
+def phase_target_lane_times(Cs=(1024, 4096, 8192, 16_384, 65_536), C=4096,
+                            rwm_Cs=(16_384, 65_536), k_rwm=100, n_leaps=10):
+    """Kernels 5 and 7 at pinned shapes in the layouts they launch: kernel 5
+    on Gamma(3, 0.2) (eps 0.05, 10 leapfrogs) at each of ``Cs`` chains (on
+    both sides of the line where its W changes, one group an SM); on the ten
+    bare distributions at C chains from exact draws (seed
+    TARGET_NUTS_TIME_SEED) at the adaptive HMC-diag path's frozen step and
+    leap count (TARGET_TIME_FROZEN; the row eps times each coordinate's sd, the metric
+    the adaptation estimates), and at 10 leapfrogs of that row (the count
+    of the Gamma shape), beside ten Normals with the same means and sds
+    (one family in every coordinate: what the family branch costs); kernel
+    7 in Philox mode on Normal(1, 1) (scale 1.1, k_rwm steps) at d 10 and
+    each of ``rwm_Cs`` chains, and in the warp-per-chain layout at d 33
+    (16,384 chains) and d 1000 (4096).  The plain versions at the first
+    shapes only.  Runs on whichever package ``mcmc_jl_tpu_torch`` resolves
+    to, so one call can time a parent tree."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
 
-    if len(_warps_to_time(8)) > 1:
-        for name in ("target_leapfrogs", "target_rwm_steps"):
-            for dd in (8, 10, 16, 32, 33):
-                for w in _warps_to_time(dd)[:1 if dd > 32 else None]:
-                    emit({"phase": "plan", "name": name, "d": dd, "C": C,
-                          "warps": w, **_lane_plan(name, dd, C, w)})
+    for name in ("target_leapfrogs", "target_rwm_steps"):
+        for dd in (8, 10, 16, 32, 33, 1000):
+            for Cx in (C, Cs[-1]):
+                plan = _lane_plan(name, dd, Cx)
+                if plan:
+                    emit({"phase": "plan", "name": name, "d": dd, "C": Cx,
+                          **plan})
     d = 10
     rng = np.random.default_rng(42)
     gam = coordwise_logp(mt.Gamma(3.0, 0.2), d)
-    for Cx in (C, big_C):
+    for Cx in Cs:
         th = _cuda(0.6 + 0.1 * rng.standard_normal((Cx, d)))
-        for w in _warps_to_time(d):
-            _traj_time("Gamma(3,0.2)", gam, th, 0.05, n_leaps, w, 43,
-                       plain=Cx == C and not w)
+        _traj_time("Gamma(3,0.2)", gam, th, 0.05, n_leaps, 43,
+                   plain=Cx == C)
     m, bare = _ten_bare_model()
     normals = coordwise_logp([mt.Normal(float(dist.mean()),
                                         float(dist.std()))
@@ -3469,15 +3426,13 @@ def phase_target_lane_times(C=4096, big_C=65_536, rwm_C=16_384, k_rwm=100,
     for label, target in (("ten bare distributions", m.target_spec),
                           ("ten Normals, the same means and sds", normals)):
         for leaps in (nl, n_leaps):
-            for w in _warps_to_time(d):
-                _traj_time(label, target, th, row, leaps, w, 44,
-                           plain=leaps == nl and not w)
-    normal = coordwise_logp(mt.Normal(1.0, 1.0), d)
-    scale = _cuda(np.full(d, 1.1))
-    for Cx in (rwm_C, big_C):
-        thr = _cuda(0.1 * rng.standard_normal((Cx, d)))
-        for w in _warps_to_time(d):
-            _rwm_time("Normal(1,1)", normal, thr, scale, k_rwm, w, 45)
+            _traj_time(label, target, th, row, leaps, 44, plain=leaps == nl)
+    for dd, Cxs in ((d, rwm_Cs), (33, (16_384,)), (1000, (4096,))):
+        normal = coordwise_logp(mt.Normal(1.0, 1.0), dd)
+        scale = _cuda(np.full(dd, 1.1 if dd == d else 0.1))
+        for Cx in Cxs:
+            thr = _cuda(0.1 * rng.standard_normal((Cx, dd)))
+            _rwm_time("Normal(1,1)", normal, thr, scale, k_rwm, 45)
 
 
 def phase_target_path_spans(chains=4096, chains_small=1024,

@@ -35,14 +35,14 @@
 //
 // d <= 32 (leapfrogs_lane_kernel, target_lane.cuh): one chain per lane, 32
 // chains a block, W warps sharing their coordinates (coordinate j in warp
-// j % W; W from leapfrogs_lane_warps).  A leapfrog is coordinate-local, so
-// each warp runs its coordinates' kicks and drifts in registers and their
-// family derivatives in a loop over its coordinates that is the same for
-// every lane (the family branch and the step warp-uniform, one copy of the
-// families' code for the gradient and one for the final lp); the warps
-// exchange nothing until lp at the last drift, the one sum across warps,
-// after the one barrier of a launch.  Lanes past C shadow chain C - 1 and
-// store nothing.
+// j % W; W from leapfrogs_lane_warps: D up to one group an SM, 4 above).
+// A leapfrog is coordinate-local, so each warp runs its coordinates' kicks
+// and drifts in registers and their family derivatives in a loop over its
+// coordinates that is the same for every lane (the family branch and the
+// step warp-uniform, one copy of the families' code for the gradient and
+// one for the final lp); the warps exchange nothing until lp at the last
+// drift, the one sum across warps, after the one barrier of a launch.
+// Lanes past C shadow chain C - 1 and store nothing.
 //
 // d > 32 and the other two kernels: one warp per chain, four chains per
 // 128-thread block; lane l holds coordinates l, l + 32, ... in registers
@@ -298,20 +298,20 @@ cudaError_t prepare(K kernel, size_t smem) {
 }
 
 // Warps a lane block of the trajectory kernel at bound D and C chains: one
-// coordinate per warp (W = D) while the groups fit in one wave of such
-// blocks (2048 threads an SM), else kLaneWarps.  A leapfrog needs no
-// exchange between warps, so at a wave or less more warps a group only add
-// warps to hide each other's latency: at 4096 chains D warps were 15-20%
-// faster; at 65,536 chains four were 2.2x faster, where the idle warps past
-// d (6 of 16 at d 10) take a block's slots (PERF.md section 6).
+// coordinate per warp (W = D) while the groups are no more than the SMs,
+// else kLaneWarps.  A leapfrog needs no exchange between warps, so with one
+// block an SM or fewer D warps hide each other's latency where four leave
+// one warp a scheduler; with more blocks an SM four warps a block keep the
+// schedulers busy, and D warps only add the idle warps past d and each
+// warp's loop overhead.  At d 10 on one H100 (PERF.md section 6): D warps
+// 16-25% faster at 1024-4096 chains, four 1.1-1.8x faster at 6144-65,536.
 int leapfrogs_lane_warps(int D, int C) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     return kLaneWarps;
-  return (C + kWarp - 1) / kWarp <= sms * (2048 / (kWarp * D)) ? D
-                                                                : kLaneWarps;
+  return (C + kWarp - 1) / kWarp <= sms ? D : kLaneWarps;
 }
 
 using LeapfrogsKernel = void (*)(Target, Sched, int, float, const float*,
@@ -319,35 +319,29 @@ using LeapfrogsKernel = void (*)(Target, Sched, int, float, const float*,
                                  const float*, float*, float*, float*,
                                  float*);
 
-// The kernel, grid and shared memory of a trajectory launch at (d, C).
-// ``warps``: 0 for the layout decided from d alone (one chain per lane at
-// d <= 32 with leapfrogs_lane_warps warps a block, one warp per chain
-// above); 4 or the lane bound D of d for the lane layout with that many
-// warps; -1 for the warp-per-chain layout at any d (to time and check the
-// layouts against each other).  False when the kernels do not take it.
-bool leapfrogs_launch_for(int d, int C, int warps,
-                          LaneLaunch<LeapfrogsKernel>* L) {
+// The kernel, grid and shared memory of a trajectory launch at (d, C), the
+// layout decided from d alone: one chain per lane at d <= 32 with
+// leapfrogs_lane_warps warps a block, one warp per chain above.  False
+// when the kernels do not take it.
+bool leapfrogs_launch_for(int d, int C, LaneLaunch<LeapfrogsKernel>* L) {
   if (d < 1 || d > kMaxDim || C < 1) return false;
   const int D = lane_bound_for(d);
-  if (warps == 0) warps = D ? leapfrogs_lane_warps(D, C) : -1;
-  if (warps < 0) {
-    const int cpl = cpl_for(d);
-    L->kernel = cpl == 1   ? leapfrogs_kernel<1>
-                : cpl == 4 ? leapfrogs_kernel<4>
-                           : leapfrogs_kernel<32>;
+  if (!D) {
+    L->kernel = cpl_for(d) == 4 ? leapfrogs_kernel<4> : leapfrogs_kernel<32>;
     L->blocks = blocks_for(C);
     L->threads = kThreads;
     L->smem = (size_t)d * sizeof(Row);
     return true;
   }
-  if (!D || (warps != 4 && warps != D)) return false;
-#define PICK(DD)                                                        \
-  (warps == 4 ? leapfrogs_lane_kernel<DD, 4> : leapfrogs_lane_kernel<DD, DD>)
+  const int W = leapfrogs_lane_warps(D, C);
+#define PICK(DD)                              \
+  (W == DD ? leapfrogs_lane_kernel<DD, DD>    \
+           : leapfrogs_lane_kernel<DD, kLaneWarps>)
   L->kernel = D == 8 ? PICK(8) : D == 16 ? PICK(16) : PICK(32);
 #undef PICK
   L->blocks = (C + kWarp - 1) / kWarp;
-  L->threads = warps * kWarp;
-  L->smem = leapfrogs_lane_smem(d, D, warps);
+  L->threads = W * kWarp;
+  L->smem = leapfrogs_lane_smem(d, D, W);
   return true;
 }
 
@@ -360,11 +354,10 @@ int target_leapfrogs(const int* codes, const float* params, int d, int C,
                      const float* g_in, float* th_out, float* m_out,
                      float* g_out, float* lp_out, float eps,
                      const float* eps_row, int n_leaps, const int* sched_ops,
-                     const float* sched_c, int n_ops, int warps,
-                     void* stream) {
+                     const float* sched_c, int n_ops, void* stream) {
   LaneLaunch<LeapfrogsKernel> L;
   Sched s;
-  if (!leapfrogs_launch_for(d, C, warps, &L) || n_leaps < 1 ||
+  if (!leapfrogs_launch_for(d, C, &L) || n_leaps < 1 ||
       !make_sched(sched_ops, sched_c, n_ops, &s))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = lane_prepare(L);
@@ -375,14 +368,13 @@ int target_leapfrogs(const int* codes, const float* params, int d, int C,
   return (int)cudaGetLastError();
 }
 
-// How a trajectory launch at (d, C, warps) runs: blocks resident per SM,
+// How a trajectory launch at (d, C) runs: blocks, blocks resident per SM,
 // threads and dynamic shared memory per block.
-int target_leapfrogs_plan(int d, int C, int warps, int* blocks_per_sm,
+int target_leapfrogs_plan(int d, int C, int* blocks, int* blocks_per_sm,
                           int* threads, int* smem) {
   LaneLaunch<LeapfrogsKernel> L;
-  if (!leapfrogs_launch_for(d, C, warps, &L))
-    return (int)cudaErrorInvalidValue;
-  return lane_plan(L, blocks_per_sm, threads, smem);
+  if (!leapfrogs_launch_for(d, C, &L)) return (int)cudaErrorInvalidValue;
+  return lane_plan(L, blocks, blocks_per_sm, threads, smem);
 }
 
 int target_logp_grad(const int* codes, const float* params, int d, int C,

@@ -26,7 +26,7 @@ namespace {
 
 constexpr int kLaneDMax = 32;  // largest d of the lane layout
 // Warps that share a group's coordinates: always in the RWM and NUTS
-// kernels, in the trajectory kernel once its groups fill more than one wave
+// kernels, in the trajectory kernel once its groups outnumber the SMs
 // (target_hmc.cu leapfrogs_lane_warps; PERF.md section 6)
 constexpr int kLaneWarps = 4;
 
@@ -130,11 +130,12 @@ cudaError_t lane_prepare(const LaneLaunch<K>& L) {
                               (int)L.smem);
 }
 
-// The launch's plan: blocks resident per SM (from the occupancy
+// The launch's plan: blocks, blocks resident per SM (from the occupancy
 // calculator), threads and dynamic shared memory per block.
 template <typename K>
-int lane_plan(const LaneLaunch<K>& L, int* blocks_per_sm, int* threads,
-              int* smem) {
+int lane_plan(const LaneLaunch<K>& L, int* blocks, int* blocks_per_sm,
+              int* threads, int* smem) {
+  *blocks = L.blocks;
   *threads = L.threads;
   *smem = (int)L.smem;
   cudaError_t e = lane_prepare(L);

@@ -9,7 +9,7 @@
 // absolute steps ti = 4q .. 4q + 3 of a coordinate: counter (chain, q,
 // coordinate, stream 2) gives two Box-Muller pairs, the words (x, y) the
 // normals of steps 4q and 4q + 1 (cosine and sine branches), (z, w) those of
-// 4q + 2 and 4q + 3 (rwm_normal); the MH uniform of step ti is word ti % 4 of
+// 4q + 2 and 4q + 3 (rwm_normals); the MH uniform of step ti is word ti % 4 of
 // counter (chain, q, 0, stream 3), taken as log(1 - u) as pallas_rwm.py:72-73
 // does.  ops/rwm_kernels.py rwm_draws replays these draws on the host for
 // the plain version: change both together.
@@ -39,7 +39,8 @@
 //
 // d > 32 (rwm_kernel): one warp per chain, four chains per 128-thread
 // block, lanes over coordinates (target_common.cuh; CPL 4 or 32 per lane),
-// the draws made step by step.
+// the normals drawn four steps at a time into registers at CPL 4 and one
+// step at a time at CPL 32.
 //
 // Both round the proposal theta + scale z as the plain PyTorch version does
 // (__fmul_rn, then __fadd_rn), so from the same noise the two see the same
@@ -68,22 +69,25 @@ __device__ __forceinline__ float4 rwm_normals(uint32_t c, uint32_t q,
                      r1 * sinpif(t1));
 }
 
-// The normal of coordinate j at absolute step ti alone (one branch).
-__device__ __forceinline__ float rwm_normal(uint32_t c, uint32_t ti,
-                                            uint32_t j, uint2 key) {
-  const uint4 b = philox(make_uint4(c, ti >> 2, j, 2u), key);
-  const bool hi = ti & 2u;
-  const float r = sqrtf(-2.f * logf(1.f - u01(hi ? b.z : b.x)));
-  const float t = 2.f * u01(hi ? b.w : b.y);
-  return r * ((ti & 1u) ? sinpif(t) : cospif(t));
-}
-
 // The MH log-uniforms log(1 - u) of the absolute steps 4q .. 4q + 3.
 __device__ __forceinline__ float4 rwm_logus(uint32_t c, uint32_t q,
                                             uint2 key) {
   const uint4 b = philox(make_uint4(c, q, 0u, 3u), key);
   return make_float4(logf(1.f - u01(b.x)), logf(1.f - u01(b.y)),
                      logf(1.f - u01(b.z)), logf(1.f - u01(b.w)));
+}
+
+// The normal of coordinate j at absolute step ti alone (one branch): one
+// cospif, the sine branch as cos(pi (t - 1/2)).  t lies on the 2^-23 grid
+// in [0, 2), so t - 1/2 is exact and the result within cospif's ulp of
+// sinpif(t).
+__device__ __forceinline__ float rwm_normal(uint32_t c, uint32_t ti,
+                                            uint32_t j, uint2 key) {
+  const uint4 b = philox(make_uint4(c, ti >> 2, j, 2u), key);
+  const bool hi = ti & 2u;
+  const float r = sqrtf(-2.f * logf(1.f - u01(hi ? b.z : b.x)));
+  const float t = 2.f * u01(hi ? b.w : b.y);
+  return r * cospif((ti & 1u) ? t - 0.5f : t);
 }
 
 // The MH log-uniform of absolute step ti alone.
@@ -94,6 +98,11 @@ __device__ __forceinline__ float rwm_logu(uint32_t c, uint32_t ti,
   return logf(1.f - u01(r == 0 ? b.x : r == 1 ? b.y : r == 2 ? b.z : b.w));
 }
 
+// At CPL 4 the normals come four steps a Philox call, cached in registers
+// (rwm_normals); at CPL 32 one call a coordinate and step (rwm_normal): 32
+// cached float4 do not fit in registers, and cached in shared memory (64
+// KB a block, two blocks an SM) d 1000 ran 1.25x slower than drawing each
+// step (PERF.md section 6).
 template <int CPL>
 __global__ void __launch_bounds__(kThreads)
 rwm_kernel(Target t, int C, int k_steps, int i0, uint2 key, int noise_hw,
@@ -101,6 +110,7 @@ rwm_kernel(Target t, int C, int k_steps, int i0, uint2 key, int noise_hw,
            const float* __restrict__ scale_row,
            const float* __restrict__ z_in, const float* __restrict__ logu_in,
            float* th_out, float* lp_out, float* acc_out) {
+  constexpr bool kCache = CPL <= 4;
   extern __shared__ Row rows[];
   stage_rows(t, rows);
   const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
@@ -116,21 +126,43 @@ rwm_kernel(Target t, int C, int k_steps, int i0, uint2 key, int noise_hw,
   }
   float lp = eval_lp<CPL>(rows, d, lane, th);
   float n_acc = 0.f;
+  float4 nz[kCache ? CPL : 1], lu = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s = 0; s < k_steps; ++s) {
     const uint32_t ti = (uint32_t)(i0 + s);
     const size_t at = (size_t)c * k_steps + s;
+    if constexpr (kCache) {
+      if (noise_hw && (s == 0 || (ti & 3u) == 0)) {  // warp-uniform
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) {
+          const int j = lane + kWarp * i;
+          if (j < d)
+            nz[i] = rwm_normals((uint32_t)c, ti >> 2, (uint32_t)j, key);
+        }
+        lu = rwm_logus((uint32_t)c, ti >> 2, key);
+      }
+    }
     float prop[CPL];
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
       const int j = lane + kWarp * i;
       float z = 0.f;
-      if (j < d)
-        z = noise_hw ? rwm_normal((uint32_t)c, ti, (uint32_t)j, key)
-                     : z_in[at * d + j];
+      if (j < d) {
+        if (!noise_hw)
+          z = z_in[at * d + j];
+        else if constexpr (kCache)
+          z = pick(nz[i], ti & 3u);
+        else
+          z = rwm_normal((uint32_t)c, ti, (uint32_t)j, key);
+      }
       prop[i] = __fadd_rn(th[i], __fmul_rn(sc[i], z));
     }
-    const float logu =
-        noise_hw ? rwm_logu((uint32_t)c, ti, key) : logu_in[at];
+    float logu;
+    if (!noise_hw)
+      logu = logu_in[at];
+    else if constexpr (kCache)
+      logu = pick(lu, ti & 3u);
+    else
+      logu = rwm_logu((uint32_t)c, ti, key);
     const float lpp = eval_lp<CPL>(rows, d, lane, prop);
     if (mh_accept(lpp - lp, logu)) {
 #pragma unroll
@@ -249,33 +281,25 @@ using RwmKernel = void (*)(Target, int, int, int, uint2, int, const float*,
                            const float*, const float*, const float*, float*,
                            float*, float*);
 
-// The kernel, grid and shared memory of a launch at (d, C).  ``warps``: 0
-// for the layout decided from d alone (one chain per lane with kLaneWarps
-// warps a block at d <= 32, one warp per chain above); 4 or the lane bound
-// D of d for the lane layout with that many warps; -1 for the
-// warp-per-chain layout at any d (to time and check the layouts against
-// each other).  False when the kernels do not take it.
-bool rwm_launch_for(int d, int C, int warps, LaneLaunch<RwmKernel>* L) {
+// The kernel, grid and shared memory of a launch at (d, C), the layout
+// decided from d alone: one chain per lane with kLaneWarps warps a block at
+// d <= 32, one warp per chain above.  False when the kernels do not take it.
+bool rwm_launch_for(int d, int C, LaneLaunch<RwmKernel>* L) {
   if (d < 1 || d > kMaxDim || C < 1) return false;
   const int D = lane_bound_for(d);
-  if (warps == 0) warps = D ? kLaneWarps : -1;
-  if (warps < 0) {
-    const int cpl = cpl_for(d);
-    L->kernel = cpl == 1 ? rwm_kernel<1> : cpl == 4 ? rwm_kernel<4>
-                                                    : rwm_kernel<32>;
+  if (!D) {
+    L->kernel = cpl_for(d) == 4 ? rwm_kernel<4> : rwm_kernel<32>;
     L->blocks = blocks_for(C);
     L->threads = kThreads;
     L->smem = (size_t)d * sizeof(Row);
     return true;
   }
-  if (!D || (warps != 4 && warps != D)) return false;
-#define PICK(DD)                                                        \
-  (warps == 4 ? rwm_lane_kernel<DD, 4> : rwm_lane_kernel<DD, DD>)
-  L->kernel = D == 8 ? PICK(8) : D == 16 ? PICK(16) : PICK(32);
-#undef PICK
+  L->kernel = D == 8    ? rwm_lane_kernel<8, kLaneWarps>
+              : D == 16 ? rwm_lane_kernel<16, kLaneWarps>
+                        : rwm_lane_kernel<32, kLaneWarps>;
   L->blocks = (C + kWarp - 1) / kWarp;
-  L->threads = warps * kWarp;
-  L->smem = rwm_lane_smem(d, D, warps);
+  L->threads = kLaneWarps * kWarp;
+  L->smem = rwm_lane_smem(d, D, kLaneWarps);
   return true;
 }
 
@@ -287,10 +311,9 @@ int target_rwm_steps(const int* codes, const float* params, int d, int C,
                      const float* th_in, const float* scale_row,
                      const float* z, const float* logu, float* th_out,
                      float* lp_out, float* acc_out, int k_steps, int i0,
-                     unsigned long long seed, int noise_hw, int warps,
-                     void* stream) {
+                     unsigned long long seed, int noise_hw, void* stream) {
   LaneLaunch<RwmKernel> L;
-  if (!rwm_launch_for(d, C, warps, &L) || k_steps < 1 || i0 < 0 ||
+  if (!rwm_launch_for(d, C, &L) || k_steps < 1 || i0 < 0 ||
       (!noise_hw && (z == nullptr || logu == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = lane_prepare(L);
@@ -302,13 +325,13 @@ int target_rwm_steps(const int* codes, const float* params, int d, int C,
   return (int)cudaGetLastError();
 }
 
-// How a launch at (d, C, warps) runs: blocks resident per SM, threads and
+// How a launch at (d, C) runs: blocks, blocks resident per SM, threads and
 // dynamic shared memory per block.
-int target_rwm_plan(int d, int C, int warps, int* blocks_per_sm,
+int target_rwm_plan(int d, int C, int* blocks, int* blocks_per_sm,
                     int* threads, int* smem) {
   LaneLaunch<RwmKernel> L;
-  if (!rwm_launch_for(d, C, warps, &L)) return (int)cudaErrorInvalidValue;
-  return lane_plan(L, blocks_per_sm, threads, smem);
+  if (!rwm_launch_for(d, C, &L)) return (int)cudaErrorInvalidValue;
+  return lane_plan(L, blocks, blocks_per_sm, threads, smem);
 }
 
 }  // extern "C"

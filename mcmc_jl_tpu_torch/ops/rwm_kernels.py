@@ -87,8 +87,8 @@ def load_kernels():
     """Build (first use) and bind ``csrc/target_rwm.cu``."""
     return load_library("target_rwm", {
         "target_rwm_steps": [_P, _P, _I, _I] + [_P] * 7
-        + [_I, _I, ctypes.c_ulonglong, _I, _I, _P],
-        "target_rwm_plan": [_I] * 3 + [ctypes.POINTER(_I)] * 3})
+        + [_I, _I, ctypes.c_ulonglong, _I, _P],
+        "target_rwm_plan": [_I] * 2 + [ctypes.POINTER(_I)] * 4})
 
 
 def target_rwm_layout(d):
@@ -98,38 +98,26 @@ def target_rwm_layout(d):
     return lane_layout("target_rwm_steps", d)
 
 
-def target_rwm_plan(d, C, warps=0):
+def target_rwm_plan(d, C):
     """The RWM kernel's launch at (d, C)
     (:func:`~.target_kernels.kernel_plan`)."""
-    return kernel_plan(load_kernels(), "target_rwm_plan", d, C, warps)
+    return kernel_plan(load_kernels(), "target_rwm_plan", d, C)
 
 
-def _check(name, theta, checks):
-    """Each (label, tensor, shape) of ``checks`` a contiguous float32
-    tensor of that shape on theta's device."""
-    for label, t, shape in checks:
-        if t.device != theta.device or t.dtype != torch.float32 \
-                or not t.is_contiguous() or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {label} must be a contiguous float32 "
-                             f"{shape} tensor on {theta.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def rwm_launcher(target, theta, scale_row, *, k_steps, noise="hw", warps=0):
+def rwm_launcher(target, theta, scale_row, *, k_steps, noise="hw"):
     """The RWM kernel for a run of launches on states shaped as ``theta``
     (the driver's loop): the target, theta and the scale are checked once,
     and the returned ``step(theta, i0=0, generator=None, z=None,
     logu=None) -> (theta, logp (C,), accept rate (C,))`` (as
     :func:`fused_target_rwm_steps`) launches on the run's own tensors
     without checking them again, on the stream current when the launcher
-    was made.  On the CPU ``step`` is the plain version.  ``warps`` picks
-    the kernel's layout as ``target_kernels.kernel_plan`` says (0: decided
-    from d)."""
+    was made.  On the CPU ``step`` is the plain version."""
     name = "target_rwm_steps"
     if noise not in ("input", "hw"):
         raise ValueError(f"{name}: noise must be 'input' or 'hw', got "
                          f"{noise!r}")
-    C, d = check_states(name, target.d, theta), target.d
+    d, scale = target.d, scale_row.reshape(-1)
+    C = check_states(name, d, theta)
     hw = noise == "hw"
     if not _device_branch(name, theta):
         def plain(th, i0=0, generator=None, z=None, logu=None):
@@ -141,8 +129,7 @@ def rwm_launcher(target, theta, scale_row, *, k_steps, noise="hw", warps=0):
                                               generator=generator)
         return plain
     codes, params = kernel_rows(name, target, theta.device)
-    scale = scale_row.reshape(-1)
-    _check(name, theta, [("scale_row", scale, (d,))])
+    check_states(name, d, theta, (("scale_row", scale, (d,)),))
     call = lean_launch(load_kernels(), LAUNCHES, name, theta.device)
     head = (_ptr(codes), _ptr(params), d, C)
     fill = dict(dtype=theta.dtype, device=theta.device)
@@ -153,8 +140,7 @@ def rwm_launcher(target, theta, scale_row, *, k_steps, noise="hw", warps=0):
         call(*head, _P(th.data_ptr()), _P(scale.data_ptr()),
              _ptr(None if hw else z), _ptr(None if hw else logu),
              _P(th_o.data_ptr()), _P(lp_o.data_ptr()), _P(acc_o.data_ptr()),
-             int(k_steps), int(i0), _seed(generator) if hw else 0, int(hw),
-             int(warps))
+             int(k_steps), int(i0), _seed(generator) if hw else 0, int(hw))
         return th_o, lp_o, acc_o
 
     step.inputs = (codes, params, scale)  # alive as long as the launcher
@@ -187,8 +173,8 @@ def fused_target_rwm_steps(target, theta, scale_row, *, k_steps, z=None,
                         noise=noise)
     if noise == "input":
         C, d = theta.shape
-        _check(name, theta, [("z", z, (C, k_steps, d)),
-                             ("logu", logu, (C, k_steps))])
+        check_states(name, d, theta, (("z", z, (C, k_steps, d)),
+                                      ("logu", logu, (C, k_steps))))
     return step(theta, i0=i0, generator=generator, z=z, logu=logu)
 
 

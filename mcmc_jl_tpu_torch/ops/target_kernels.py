@@ -211,8 +211,8 @@ _F = ctypes.c_float
 _SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I]
 _ARGTYPES = {
     "target_leapfrogs": [_P, _P, _I, _I] + [_P] * 7 + [_F, _P, _I] + _SCHED
-    + [_I, _P],
-    "target_leapfrogs_plan": [_I] * 3 + [ctypes.POINTER(_I)] * 3,
+    + [_P],
+    "target_leapfrogs_plan": [_I] * 2 + [ctypes.POINTER(_I)] * 4,
     "target_multistep": [_P, _P, _I, _I] + [_P] * 5 + [_F, _P, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
@@ -264,19 +264,21 @@ def _device_branch(name, theta):
 
 
 def check_states(name, d, theta, states=()):
-    """Validate a run's states: ``theta`` and each ``(label, tensor)`` of
-    ``states`` a contiguous float32 (C, d) tensor on theta's device, with
-    1 <= d <= D_MAX.  Returns C."""
+    """Validate a run's states: ``theta`` a contiguous float32 (C, d)
+    tensor with 1 <= d <= D_MAX, and each ``(label, tensor)`` of ``states``
+    the same on theta's device, or of ``shape`` for a ``(label, tensor,
+    shape)``.  Returns C."""
     dev = theta.device
     C, dt = theta.shape if theta.ndim == 2 else (0, 0)
     if dt != d or not 1 <= d <= D_MAX:
         raise ValueError(f"{name}: theta is {tuple(theta.shape)}; the target "
                          f"has d = {d} and the kernel takes 1..{D_MAX}")
-    for label, t in (("theta", theta),) + tuple(states):
+    for label, t, *shape in (("theta", theta),) + tuple(states):
+        want = tuple(shape[0]) if shape else (C, d)
         if t.device != dev or t.dtype != torch.float32 \
-                or not t.is_contiguous() or tuple(t.shape) != (C, d):
+                or not t.is_contiguous() or tuple(t.shape) != want:
             raise ValueError(
-                f"{name}: {label} must be a contiguous float32 ({C}, {d}) "
+                f"{name}: {label} must be a contiguous float32 {want} "
                 f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
     return C
@@ -320,27 +322,24 @@ def target_leapfrogs_layout(d):
     return lane_layout("target_leapfrogs", d)
 
 
-def kernel_plan(lib, name, d, C, warps=0):
-    """How a launch of a lane-layout library runs at (d, C) on the card,
-    as its plan entry ``name`` reports it: {"layout", "blocks", "warps", "threads", "smem_bytes",
-    "blocks_per_sm"}.  ``warps`` as the entry takes it: 0 for the layout
-    decided from d, 4 or the lane bound of d for the lane layout with that
-    many warps a block, -1 for one warp per chain."""
-    outs = [ctypes.c_int() for _ in range(3)]
-    code = getattr(lib, name)(d, C, warps, *[ctypes.byref(o) for o in outs])
+def kernel_plan(lib, name, d, C):
+    """How a launch of kernel 5 or 7 runs at (d, C) on the card, as its
+    plan entry ``name`` reports it: {"layout" (:func:`lane_layout`),
+    "blocks", "warps" (a block), "threads", "smem_bytes",
+    "blocks_per_sm"}."""
+    outs = [ctypes.c_int() for _ in range(4)]
+    code = getattr(lib, name)(d, C, *[ctypes.byref(o) for o in outs])
     if code != 0:
-        raise RuntimeError(f"{name}({d}, {C}, {warps}) failed ({code})")
-    per_sm, threads, smem = (o.value for o in outs)
-    lane = warps >= 0 and lane_layout(name, d) == "lane"
-    return {"layout": "lane" if lane else "warp",
-            "blocks": -(-C // 32) if lane else -(-C // 4),
+        raise RuntimeError(f"{name}({d}, {C}) failed ({code})")
+    blocks, per_sm, threads, smem = (o.value for o in outs)
+    return {"layout": lane_layout(name, d), "blocks": blocks,
             "warps": threads // 32, "threads": threads, "smem_bytes": smem,
             "blocks_per_sm": per_sm}
 
 
-def target_leapfrogs_plan(d, C, warps=0):
+def target_leapfrogs_plan(d, C):
     """The trajectory kernel's launch at (d, C) (:func:`kernel_plan`)."""
-    return kernel_plan(load_kernels(), "target_leapfrogs_plan", d, C, warps)
+    return kernel_plan(load_kernels(), "target_leapfrogs_plan", d, C)
 
 
 def _failed(lib, name, code):
@@ -395,7 +394,7 @@ def target_logp_grad(target, theta):
     return lp_o, g_o
 
 
-def leapfrogs_launcher(target, theta, eps, integrator="leapfrog", warps=0):
+def leapfrogs_launcher(target, theta, eps, integrator="leapfrog"):
     """The trajectory kernel for a run of launches on states shaped as
     ``theta`` (the drivers' loop): the target, theta, the step and the
     schedule are checked once, and the returned ``step(theta, m, grad,
@@ -404,9 +403,7 @@ def leapfrogs_launcher(target, theta, eps, integrator="leapfrog", warps=0):
     must be contiguous float32 (C, d) on theta's device.  On the card the
     four outputs are buffers the launcher owns, written anew by each call
     (a driver consumes them before its next call), on the stream current
-    when the launcher was made.  On the CPU ``step`` is the plain version.
-    ``warps`` picks the kernel's layout as :func:`kernel_plan` says (0:
-    decided from d)."""
+    when the launcher was made.  On the CPU ``step`` is the plain version."""
     name = "target_leapfrogs"
     C, d = check_states(name, target.d, theta), target.d
     if not _device_branch(name, theta):
@@ -422,7 +419,7 @@ def leapfrogs_launcher(target, theta, eps, integrator="leapfrog", warps=0):
     call = lean_launch(load_kernels(), LAUNCHES, name, theta.device)
     head = (_ptr(codes), _ptr(params), d, C)
     tail = (*(_ptr(o) for o in outs), eps_s, _ptr(eps_row))
-    sched = (*_sched(integrator), int(warps))
+    sched = _sched(integrator)
 
     def step(th, m, grad, n_leaps):
         call(*head, _P(th.data_ptr()), _P(m.data_ptr()), _P(grad.data_ptr()),

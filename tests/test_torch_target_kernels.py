@@ -601,19 +601,21 @@ def _min_gap(target, th, scale, z, logu):
 
 
 def test_target_lanes_on_card():
-    """Kernels 5 and 7 in both layouts against their plain versions on a
-    card (skips without one; chip_smoke.py runs the same checks at the
-    paths' shapes and their edges): the ten families cycled over d 10 and
-    32 (one chain per lane, with its default warps and with 4 and D warps
-    a block) and d 40 (one warp per chain), and one warp per chain forced
-    at d 10 and 32; C 397 (a ragged last group).  Kernel 5: theta, m and g within
-    rtol and atol 1e-4 (the family formulas' rounding grown over 10
-    leapfrogs), lp within 1e-5 relative and 1e-5 per coordinate (a sum in
-    another order), -inf at the same chains.  Kernel 7 on input noise and
-    on its own Philox draws replayed from step 3 (``rwm_draws``): every
-    chain's theta within 1e-4 (1 + |theta|) with the same accept count, or
-    a step whose MH ratio lay within 1e-4 of log u; the Philox run repeats
-    bitwise."""
+    """Kernels 5 and 7 in every layout they launch against their plain
+    versions on a card (skips without one; chip_smoke.py runs the same
+    checks at the paths' shapes and their edges): the ten families cycled
+    over d 10 and 32 (one chain per lane) and d 40 (one warp per chain); C
+    397 (a ragged last group).  At d <= 32 kernel 5 also runs on the same
+    chains tiled to more groups of 32 than the card has SMs, where it takes
+    four warps a block in place of D, and its theta, m and g must come out
+    bitwise the same.
+    Kernel 5: theta, m and g within rtol and atol 1e-4 (the family
+    formulas' rounding grown over 10 leapfrogs), lp within 1e-5 relative
+    and 1e-5 per coordinate (a sum in another order), -inf at the same
+    chains.  Kernel 7 on input noise and on its own Philox draws replayed
+    from step 3 (``rwm_draws``): every chain's theta within 1e-4 (1 +
+    |theta|) with the same accept count, or a step whose MH ratio lay
+    within 1e-4 of log u; the Philox run repeats bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     fams = [td.Normal(0.0, 1.0), td.Uniform(-1.0, 3.0), td.Exponential(2.0),
@@ -622,7 +624,7 @@ def test_target_lanes_on_card():
             td.TDist(5.0)]
     x0 = np.array([0.0, 1.0, 2.0, 3.0, 1.8, 0.0, 1.1, 0.4, 0.0, 0.0])
     sd = np.array([1.0, 1.0, 2.0, 2.0, 1.0, 1.0, 0.5, 0.2, 1.0, 1.0])
-    C, k, tol = 397, 12, 1e-4
+    C, k, tol, tiles = 397, 12, 1e-4, 16  # 13 groups of 32; 16 x 397: 199
     rng = np.random.default_rng(5)
 
     def cu(a):
@@ -631,8 +633,7 @@ def test_target_lanes_on_card():
     def gen():
         return torch.Generator(device="cuda").manual_seed(77)
 
-    for d, layouts in ((10, (0, 4, 16, -1)), (32, (0, 4, 32, -1)),
-                       (40, (0,))):
+    for d in (10, 32, 40):
         target = tk.coordwise_logp([fams[j % 10] for j in range(d)], d)
         c0, s = np.resize(x0, d), np.resize(sd, d)
         th = cu(c0 + 0.05 * s * rng.standard_normal((C, d)))
@@ -642,36 +643,46 @@ def test_target_lanes_on_card():
         ref = tk.fused_target_leapfrogs_ref(target, th, m, g, row,
                                             n_leaps=10)
         fin = torch.isfinite(ref[3])
-        for w in layouts:
-            out = tk.leapfrogs_launcher(target, th, row, warps=w)(th, m, g,
-                                                                  10)
+        outs = []
+        for r in (1, tiles) if d <= tk.LANE_D_MAX else (1,):
+            out = tk.fused_target_leapfrogs(
+                target, th.repeat(r, 1), m.repeat(r, 1), g.repeat(r, 1),
+                row, n_leaps=10)
             for a, b in zip(out[:3], ref[:3]):
-                assert torch.allclose(a, b, rtol=tol, atol=tol), (d, w)
-            assert torch.equal(fin, torch.isfinite(out[3])), (d, w)
-            assert torch.allclose(out[3][fin], ref[3][fin], rtol=1e-5,
-                                  atol=1e-5 * d), (d, w)
+                assert torch.allclose(a, b.repeat(r, 1), rtol=tol,
+                                      atol=tol), (d, r)
+            assert torch.equal(fin.repeat(r), torch.isfinite(out[3])), (d, r)
+            assert torch.allclose(out[3][fin.repeat(r)], ref[3][fin].repeat(r),
+                                  rtol=1e-5, atol=1e-5 * d), (d, r)
+            outs.append(out)
+        if len(outs) == 2:
+            assert (tk.target_leapfrogs_plan(d, C)["warps"]
+                    != tk.target_leapfrogs_plan(d, C * tiles)["warps"])
+            assert all(torch.equal(a[:C], b)
+                       for a, b in zip(outs[1][:3], outs[0][:3])), d
 
         scale = cu(0.5 * s)
         noises = {"input": (cu(rng.standard_normal((C, k, d))),
                             cu(np.log1p(-rng.random((C, k))))),
                   "hw": rk.rwm_draws(tk._seed(gen()), C, d, k, i0=3,
                                      device="cuda")}
-        for w in layouts:
-            for noise, (z, logu) in noises.items():
-                step = rk.rwm_launcher(target, th, scale, k_steps=k,
-                                       noise=noise, warps=w)
-                if noise == "input":
-                    out = step(th, z=z, logu=logu)
-                else:
-                    out = step(th, i0=3, generator=gen())
-                    again = step(th, i0=3, generator=gen())
-                    assert all(torch.equal(a, b) for a, b in zip(out, again))
-                ref = rk.fused_target_rwm_steps_ref(target, th, scale,
-                                                    k_steps=k, z=z, logu=logu)
-                same = ((torch.round(out[2] * k) == torch.round(ref[2] * k))
-                        & ((out[0] - ref[0]).abs()
-                           <= tol * (1 + ref[0].abs())).all(1))
-                parted = (~same).nonzero()[:, 0]
-                if len(parted):
-                    assert _min_gap(target, th[parted], scale, z[parted],
-                                    logu[parted]) < tol, (d, w, noise)
+        for noise, (z, logu) in noises.items():
+            if noise == "input":
+                out = rk.fused_target_rwm_steps(target, th, scale, k_steps=k,
+                                                z=z, logu=logu, noise=noise)
+            else:
+                def run():
+                    return rk.fused_target_rwm_steps(
+                        target, th, scale, k_steps=k, noise=noise, i0=3,
+                        generator=gen())
+                out, again = run(), run()
+                assert all(torch.equal(a, b) for a, b in zip(out, again))
+            ref = rk.fused_target_rwm_steps_ref(target, th, scale, k_steps=k,
+                                                z=z, logu=logu)
+            same = ((torch.round(out[2] * k) == torch.round(ref[2] * k))
+                    & ((out[0] - ref[0]).abs()
+                       <= tol * (1 + ref[0].abs())).all(1))
+            parted = (~same).nonzero()[:, 0]
+            if len(parted):
+                assert _min_gap(target, th[parted], scale, z[parted],
+                                logu[parted]) < tol, (d, noise)
