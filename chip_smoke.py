@@ -1711,8 +1711,9 @@ def phase_tile_times(C1=(4096, 65536),
     and the drivers'; 65536: bench.py's), with CUDA events (the wrapper's
     host work included) and torch.profiler's device time; kernel 4 at each
     (C, N) of ``tiled`` (4096 x 1e5: the large-N path; 512 x 1e5: the
-    adaptive large-N path), with the two products alone beside it (FP32,
-    TF32 off; a yardstick, not the same function).  Runs on whichever
+    adaptive large-N path), with its two kernels' device time (partials
+    and their reduction) and the two products alone beside it (FP32, TF32
+    off; a yardstick, not the same function).  Runs on whichever
     package ``mcmc_jl_tpu_torch`` resolves to, so one call can time a
     parent tree.  Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at
     the paths' shapes (kernels 1-3 at C1[0], kernel 4 at tiled[0])."""
@@ -1791,7 +1792,9 @@ def phase_tile_times(C1=(4096, 65536),
                _sfu_floor_ms(C4 * N4, SFU_PER_LINK),
                _plan(gb, "glm_tiled_plan", X4.shape[1]),
                splits=gb.splits_for(N4, C4),
-               two_products_ms_not_the_same_function=prod)
+               two_products_ms_not_the_same_function=prod,
+               device_ms=_device_ms(kern, ("partial_tile_kernel",
+                                           "reduce_kernel"), reps=3))
         if (C4, N4) == tiled[0]:
             ms["glm_logp_grad_tiled"], work["glm_logp_grad_tiled"] = t, bound
     return ms, work
@@ -2306,11 +2309,12 @@ def _rwm_case(label, target, theta, scale, k, noise, i0=0):
 def _multistep_case(label, target, theta, eps, k, n_leaps, seed):
     """Kernel 6 against its plain version on the kernel's own Philox draws
     (the launch seed a generator seeded ``seed`` gives, replayed by
-    ``target_multistep_draws``): every chain ends on the plain version's
-    path (the same accept count, theta within MS_TOL), or had a transition
-    whose MH ratio (replayed by the plain version) lay within T_BAND of
-    log u.  The kernel's lp and gradient are the plain version's at the
-    kernel's theta, and the kernel repeats bitwise."""
+    ``target_multistep_draws``): at least PATH_AGREE of the chains end on
+    the plain version's path (the same accept count, theta within MS_TOL),
+    and every other chain had a transition whose MH ratio (replayed by the
+    plain version) lay within T_BAND of log u.  The kernel's lp and
+    gradient are the plain version's at the kernel's theta, and the kernel
+    repeats bitwise."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
@@ -2353,15 +2357,19 @@ def _multistep_case(label, target, theta, eps, k, n_leaps, seed):
             lp = torch.where(a, lp_p, lp)
         gaps = gap.tolist()
     err = _same_path_err(th_k, th_r, same)
+    agree = float(same.float().mean()) >= PATH_AGREE
     ok = _parted_report("target_multistep", label, same, gaps, err,
-                        bitwise=bitwise, held=own, C=C, k_trans=k,
-                        n_leaps=n_leaps, lp_grad_at_own_theta=own,
-                        accept_rate=float(acc_r.mean()))
+                        bitwise=bitwise, held=own and agree, C=C, d=d,
+                        k_trans=k, n_leaps=n_leaps, lp_grad_at_own_theta=own,
+                        path_agree=PATH_AGREE,
+                        chains_off_path=int((~same).sum()),
+                        accept_rate=float(acc_r.mean()),
+                        **_lane_plan("target_multistep", d, C))
     return ok, err
 
 
 def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
-                         rwm_C=16_384, k_rwm=100):
+                         rwm_C=16_384, k_rwm=100, ragged=4099):
     """The custom-target kernels against their plain versions on the card,
     at their paths' shapes (d 10; kernels 5 and 6 at C chains, 10
     leapfrogs, kernel 6 with k_ms transitions per launch; kernel 7 at rwm_C
@@ -2375,7 +2383,13 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
     both); d = 1000 (32 coordinates per lane); a bitwise repeat.  Kernel 7
     from the same input noise on Normal(1, 1) and the mixed target, and in
     Philox mode on its own draws replayed for the plain version; kernel 6
-    likewise on its replayed draws (Gamma(3, 0.2)).  Kernels 6 (k_stat
+    likewise on its replayed draws in both layouts: Gamma(3, 0.2) at d 10,
+    the mixed target with a (d,) step row at d 10 and 16 (one chain per
+    lane) at C and ``ragged`` chains and at d 33 (one warp per chain).
+    The gradient pass, sanitized as the model's gradient is, on the ten
+    bare distributions (some chains out of a support, some at a NaN) and
+    on the mixed target at d 1, 16, 32 and 33 (``ragged``
+    chains) and d 1000.  Kernels 6 (k_stat
     transitions) and 7 in Philox mode against their plain versions drawing
     from a torch generator, from one start: |z| < Z_MAX on pooled final
     theta and on per-chain accept rates.  Returns {kernel: max abs
@@ -2441,9 +2455,11 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
     m10, bare = _ten_bare_model()
     th10, _ = _bare_start(bare, C, rng)
     th10[::8, 5] = -0.2  # Gamma(3, 0.2) out of its support: lp -inf
+    th10[1::8, 0] = float("nan")  # lp NaN before the sanitizing: -inf
     errg = 0.0
     for label, tgt, th in (("ten bare distributions, one in eight chains "
-                            "out of a support", m10.target_spec, th10),
+                            "out of a support and one in eight at a NaN",
+                            m10.target_spec, th10),
                            (f"mixed d = {big_d}", big, _cuda(
                                xb + 0.05 * sb
                                * rng.standard_normal((C, big_d))))):
@@ -2458,6 +2474,19 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
               "C": C, "d": th.shape[1], "ok": ok, **rep})
         note(ok, f"target_logp_grad {label}")
         errg = max(errg, rep["g"]["max_abs"])
+    for dd in (1, 16, 32, 33):  # both layouts, a ragged last group
+        tgt, xg, sg = _mixed_target(dd)
+        th = _cuda(xg + 0.05 * sg * rng.standard_normal((ragged, dd)))
+        (lp_k, g_k), (lp_r, g_r) = (tk.target_logp_grad(tgt, th),
+                                    tk.target_logp_grad_ref(tgt, th))
+        torch.cuda.synchronize()
+        ok = _close(g_k, g_r, T_RTOL, T_ATOL) and _lp_close(lp_k, lp_r, dd)
+        emit({"phase": "kernel", "name": "target_logp_grad",
+              "case": f"mixed d = {dd}", "C": ragged, "d": dd,
+              "layout": tk.target_logp_grad_layout(dd), "ok": ok,
+              "g": _err(g_k, g_r)})
+        note(ok, f"target_logp_grad mixed d = {dd}")
+        errg = max(errg, _err(g_k, g_r)["max_abs"])
     errors["target_logp_grad"] = errg
 
     # bitwise repeat of kernel 5 (no randomness: the same inputs)
@@ -2487,12 +2516,21 @@ def phase_target_kernels(C=4096, d=10, big_d=1000, k_ms=10, k_stat=50,
         err7 = max(err7, e)
     errors["target_rwm_steps"] = err7
 
-    # kernel 6 on its own Philox draws
+    # kernel 6 on its own Philox draws, in both layouts
     th0 = _cuda(0.6 + 0.05 * rng.standard_normal((C, d)))
     ok, errors["target_multistep"] = _multistep_case(
         "Gamma(3,0.2), eps 0.05, Philox draws replayed", gam, th0, 0.05,
         k_ms, 10, 32)
     note(ok, "target_multistep replayed")
+    for dd, Cx in ((10, ragged), (16, C), (16, ragged), (33, C)):
+        tgt, xm, sm = _mixed_target(dd)
+        thm = _cuda(xm + 0.05 * sm * rng.standard_normal((Cx, dd)))
+        ok, e = _multistep_case(
+            f"mixed d = {dd}, (d,) row 0.05 s, Philox draws replayed", tgt,
+            thm, _cuda(0.05 * sm), k_ms, 10, 37)
+        note(ok, f"target_multistep mixed d = {dd}, C {Cx}")
+        errors["target_multistep"] = max(errors["target_multistep"], e)
+        del thm
 
     # kernels 6 and 7 with Philox draws against their plain versions drawing
     # from the torch generator: statistical agreement from one start
@@ -2736,7 +2774,8 @@ def phase_target_paths(chains=4096, generic_chains=512, rwm_chains=16_384):
         ok = z_ex < Z_MAX
         emit({"phase": "target_path", "kernel": kernel, "from": origin,
               "layout": rk.target_rwm_layout(10)
-              if kernel == "target_rwm_steps" else "warp",
+              if kernel == "target_rwm_steps"
+              else tk.target_multistep_layout(10),
               "seconds": dt, "launches": launches[kernel],
               "accept_rate": float(infos["accept_rate"].mean()),
               "pooled_mean": float(th.mean()),
@@ -2837,12 +2876,13 @@ def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
 
 
 def _lane_plan(name, d, C):
-    """Kernel 5's or 7's launch plan at (d, C), or {} for another kernel
-    or a package without one (before the lane layout)."""
+    """Kernel 5's, 6's or 7's launch plan at (d, C), or {} for another
+    kernel or a package without one (before the lane layout)."""
     from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
     fn = {"target_leapfrogs": getattr(tk, "target_leapfrogs_plan", None),
+          "target_multistep": getattr(tk, "target_multistep_plan", None),
           "target_rwm_steps": getattr(rk, "target_rwm_plan", None)}.get(name)
     return {} if fn is None else fn(d, C)
 
@@ -3089,7 +3129,9 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     run: those paths are held on the coordinates with sd at most NARROW_SD
     (six of ten); the z over all ten is reported for every path.
     The generic warmups evaluate the model's gradient through
-    ``target_logp_grad``, once per leaf.
+    ``target_logp_grad``, once per leaf; each path reports those launches,
+    and one call of the model's gradient at C chains is timed after the
+    runs (host ms a call, :func:`_grad_time`).
     Returns ({kernel 8b and the gradient pass: (launches, origin)}, the
     unit-metric NUTS run's final positions and frozen step, where its
     timing starts)."""
@@ -3175,6 +3217,9 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
                      .to(torch.float32).contiguous(),
                      "eps": frozen["frozen_eps"]}
         del cs, samples
+    th, _ = _bare_start(bare, chains, np.random.default_rng(73))
+    _grad_time("ten bare distributions, the warm target paths' model",
+               m.target_spec, th, model=m)
     assert not bad, f"warm target paths disagree with the exact moments: {bad}"
     return counts, start
 
@@ -3354,6 +3399,75 @@ def _traj_time(label, target, th, eps, n_leaps, seed, plain=False):
     return r
 
 
+def _ms_time(label, target, th, eps, k, n_leaps, seed, plain=False):
+    """One launch of kernel 6 on ``target`` from ``th`` (C, d), ``k``
+    transitions of ``n_leaps`` leapfrogs, the launch seed from a generator
+    seeded ``seed``: ``ms`` one call of the public wrapper between CUDA
+    events, ``device_ms`` the kernel alone, ``lean_ms`` one launch through
+    ``multistep_launcher`` (the driver's path; absent before it); the
+    bound (TARGET_LEAP_OPS x d operations a leapfrog and the start's
+    gradient, or the bytes), device ns per chain and leapfrog, and the
+    plan.  Emits and returns a dict."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    C, d = th.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kern = lambda: tk.target_multistep(  # noqa: E731
+        target, th, eps, k_trans=k, n_leaps=n_leaps, generator=gen)
+    dev = _device_ms(kern, KERNEL_SYMBOL["target_multistep"])
+    r = {"target": label, "C": C, "d": d, "k": k, "n_leaps": n_leaps,
+         "eps": eps if isinstance(eps, float) else "(d,) row",
+         "ms": _event_ms(kern), "device_ms": dev,
+         "device_ns_per_chain_leapfrog": None if dev is None
+         else 1e6 * dev / (C * k * n_leaps),
+         **_bound_ops(TARGET_LEAP_OPS * d * C * (1 + k * n_leaps),
+                      _nbytes((th, target.rows(th.device)), kern())),
+         "plan": _lane_plan("target_multistep", d, C)}
+    if hasattr(tk, "multistep_launcher"):
+        step = tk.multistep_launcher(target, th, eps)
+        r["lean_ms"] = _event_ms(lambda: step(th, k, n_leaps, gen, 0))
+    if plain:
+        r["plain_ms"] = _event_ms(lambda: tk.target_multistep_ref(
+            target, th, eps, k_trans=k, n_leaps=n_leaps, generator=gen),
+            reps=2)
+    emit({"phase": "target_time", "name": "target_multistep", **r, **CARD})
+    return r
+
+
+def _grad_time(label, target, th, model=None):
+    """One gradient pass on ``target`` at ``th`` (C, d): ``ms`` one call of
+    the public wrapper between CUDA events, ``device_ms`` the kernel
+    alone, ``lean_ms`` one call through ``logp_grad_launcher`` (absent
+    before it) and, for a ``model`` whose target this is, ``model_ms`` one
+    call of its ``evalallg`` (the generic engine's call, with its
+    sanitizing of -inf and NaN), each with its host ms (events - device);
+    the bound (TARGET_EVAL_OPS x d operations a chain, or the bytes) and
+    the layout.  Emits and returns a dict."""
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    C, d = th.shape
+    kern = lambda: tk.target_logp_grad(target, th)  # noqa: E731
+    dev = _device_ms(kern, KERNEL_SYMBOL["target_logp_grad"])
+    r = {"target": label, "C": C, "d": d, "ms": _event_ms(kern),
+         "device_ms": dev,
+         **_bound_ops(TARGET_EVAL_OPS * d * C,
+                      _nbytes((th, target.rows(th.device)), kern())),
+         "layout": "lane" if d <= 32 and hasattr(tk, "logp_grad_launcher")
+         else "warp"}
+    if hasattr(tk, "logp_grad_launcher"):
+        allg = tk.logp_grad_launcher(target, th.device)
+        r["lean_ms"] = _event_ms(lambda: allg(th))
+    if model is not None:
+        r["model_ms"] = _event_ms(lambda: model.evalallg(th))
+    for key in ("ms", "lean_ms", "model_ms"):
+        if key in r and dev is not None:
+            r[key.replace("ms", "host_ms")] = r[key] - dev
+    emit({"phase": "target_time", "name": "target_logp_grad", **r, **CARD})
+    return r
+
+
 def _rwm_time(label, target, th, scale, k, seed):
     """One launch of kernel 7 in Philox mode on ``target`` from ``th``:
     ``ms`` (events), ``device_ms``, the bound (TARGET_STEP_OPS x d
@@ -3384,7 +3498,8 @@ def _rwm_time(label, target, th, scale, k, seed):
 
 
 def phase_target_lane_times(Cs=(1024, 4096, 8192, 16_384, 65_536), C=4096,
-                            rwm_Cs=(16_384, 65_536), k_rwm=100, n_leaps=10):
+                            rwm_Cs=(16_384, 65_536), k_rwm=100, n_leaps=10,
+                            k_ms=10):
     """Kernels 5 and 7 at pinned shapes in the layouts they launch: kernel 5
     on Gamma(3, 0.2) (eps 0.05, 10 leapfrogs) at each of ``Cs`` chains (on
     both sides of the line where its W changes, one group an SM); on the ten
@@ -3396,13 +3511,20 @@ def phase_target_lane_times(Cs=(1024, 4096, 8192, 16_384, 65_536), C=4096,
     (one family in every coordinate: what the family branch costs); kernel
     7 in Philox mode on Normal(1, 1) (scale 1.1, k_rwm steps) at d 10 and
     each of ``rwm_Cs`` chains, and in the warp-per-chain layout at d 33
-    (16,384 chains) and d 1000 (4096).  The plain versions at the first
-    shapes only.  Runs on whichever package ``mcmc_jl_tpu_torch`` resolves
-    to, so one call can time a parent tree."""
+    (16,384 chains) and d 1000 (4096); kernel 6 (``k_ms`` transitions of
+    10 leapfrogs) on Gamma(3, 0.2) at each of ``Cs`` chains (both sides of
+    its W line) and at d 33 (one warp per chain, C chains), on the ten
+    bare distributions at the frozen row, and at d 32 (16,384 chains: four
+    warps of eight coordinates); the gradient pass on Gamma at each of
+    ``Cs`` chains and at d 32 and 33, and on the ten bare distributions
+    through the catalog model's ``evalallg`` as the generic engine calls
+    it.  The plain versions at the first shapes only.  Runs on whichever
+    package ``mcmc_jl_tpu_torch`` resolves to, so one call can time a
+    parent tree."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.target_kernels import coordwise_logp
 
-    for name in ("target_leapfrogs", "target_rwm_steps"):
+    for name in ("target_leapfrogs", "target_multistep", "target_rwm_steps"):
         for dd in (8, 10, 16, 32, 33, 1000):
             for Cx in (C, Cs[-1]):
                 plan = _lane_plan(name, dd, Cx)
@@ -3427,6 +3549,19 @@ def phase_target_lane_times(Cs=(1024, 4096, 8192, 16_384, 65_536), C=4096,
                           ("ten Normals, the same means and sds", normals)):
         for leaps in (nl, n_leaps):
             _traj_time(label, target, th, row, leaps, 44, plain=leaps == nl)
+    for Cx in Cs:
+        thg = _cuda(0.6 + 0.1 * rng.standard_normal((Cx, d)))
+        _ms_time("Gamma(3,0.2)", gam, thg, 0.05, k_ms, n_leaps, 46,
+                 plain=Cx == C)
+        _grad_time("Gamma(3,0.2)", gam, thg)
+    _ms_time("ten bare distributions", m.target_spec, th, row, k_ms,
+             n_leaps, 47)
+    _grad_time("ten bare distributions", m.target_spec, th, model=m)
+    for dd, Cx in ((32, 16_384), (33, C)):  # the widest lane block; warp
+        gam_d = coordwise_logp(mt.Gamma(3.0, 0.2), dd)
+        th_d = _cuda(0.6 + 0.1 * rng.standard_normal((Cx, dd)))
+        _ms_time("Gamma(3,0.2)", gam_d, th_d, 0.05, k_ms, n_leaps, 48)
+        _grad_time("Gamma(3,0.2)", gam_d, th_d)
     for dd, Cxs in ((d, rwm_Cs), (33, (16_384,)), (1000, (4096,))):
         normal = coordwise_logp(mt.Normal(1.0, 1.0), dd)
         scale = _cuda(np.full(dd, 1.1 if dd == d else 0.1))
@@ -3437,12 +3572,13 @@ def phase_target_lane_times(Cs=(1024, 4096, 8192, 16_384, 65_536), C=4096,
 
 def phase_target_path_spans(chains=4096, chains_small=1024,
                             rwm_chains=16_384):
-    """The spans of the paths whose sampling runs kernels 5 and 7, at the
+    """The spans of the paths whose sampling runs kernels 5, 6 and 7, at the
     configurations of phase_target_paths and phase_warm_target_paths:
     HMC on Gamma(3, 0.2), Normal(1, 1) and Laplace(0, 1) and plain MALA on
     the Gamma model (d 10), adaptive HMC with a diagonal metric, adaptive
-    MALA and ChEES on the ten bare distributions, and run_target_rwm's
-    sampling (16,384 chains, 10,000 steps, thin 100)."""
+    MALA and ChEES on the ten bare distributions, run_target_rwm's
+    sampling (16,384 chains, 10,000 steps, thin 100) and
+    run_target_hmc_multistep's (4096 chains, 300 transitions, thin 10)."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
@@ -3472,13 +3608,22 @@ def phase_target_path_spans(chains=4096, chains_small=1024,
          chains_small),
         ("ChEES on the ten bare distributions (kernel 5)", bare,
          mt.ChEESHMC(len0=0.5, max_leaps=64), 1000, 200, chains)))
-    label = "run_target_rwm(Normal(1,1), 16384 chains, 10000 steps) (kernel 7)"
-    normal = tk.coordwise_logp(mt.Normal(1.0, 1.0), 10)
-    out[label] = {"sampling_s": _time(lambda: rk.run_target_rwm(
-        normal, 10, rwm_chains, 10_000, scale=1.1, thin=100, seed=4,
-        device="cuda"), reps=3)}
-    emit({"phase": "path_spans", "path": label, "chains": rwm_chains,
-          "steps": 10_000, **out[label], **CARD})
+    for label, C, steps, fn in (
+            ("run_target_rwm(Normal(1,1), 16384 chains, 10000 steps) "
+             "(kernel 7)", rwm_chains, 10_000,
+             lambda: rk.run_target_rwm(
+                 tk.coordwise_logp(mt.Normal(1.0, 1.0), 10), 10, rwm_chains,
+                 10_000, scale=1.1, thin=100, seed=4, device="cuda")),
+            ("run_target_hmc_multistep(Gamma(3,0.2), 4096 chains, 300 "
+             "transitions) (kernel 6)", chains, 300,
+             lambda: tk.run_target_hmc_multistep(
+                 tk.coordwise_logp(mt.Gamma(3.0, 0.2), 10), 10, chains, 300,
+                 thin=10, n_leaps=10, eps=0.05, seed=3,
+                 inits=np.full((chains, 10), 1.1, np.float32),
+                 device="cuda"))):
+        out[label] = {"sampling_s": _time(fn, reps=3)}
+        emit({"phase": "path_spans", "path": label, "chains": C,
+              "steps": steps, **out[label], **CARD})
     return out
 
 
@@ -3538,9 +3683,11 @@ def phase_target_nuts_spans(chains=4096):
 # each custom-target wrapper's __global__ function, as the profiler names it
 KERNEL_SYMBOL = {"target_leapfrogs": ("leapfrogs_lane_kernel",
                                       "leapfrogs_kernel"),
-                 "target_multistep": "multistep_kernel",
+                 "target_multistep": ("multistep_lane_kernel",
+                                      "multistep_kernel"),
                  "target_rwm_steps": ("rwm_lane_kernel", "rwm_kernel"),
-                 "target_logp_grad": "logp_grad_kernel"}
+                 "target_logp_grad": ("logp_grad_lane_kernel",
+                                      "logp_grad_kernel")}
 
 
 def _device_ms(fn, symbol, reps=10):

@@ -20,8 +20,8 @@
 // (CPL of them, a template bound), so any d <= 32 * CPL runs one code path;
 // lp and |m|^2 are reduced with xor shuffles, which leave the same bits in
 // every lane, so every lane takes the same accept decision.  (At d <= 32
-// the trajectory, RWM and NUTS kernels run one chain per lane instead and
-// take only the families and the rows from here: target_lane.cuh.)
+// every custom-target kernel runs one chain per lane instead and takes only
+// the families and the rows from here: target_lane.cuh.)
 //
 // Everything here sits in an anonymous namespace: each source that includes
 // it is built into a library of its own.
@@ -276,11 +276,3 @@ const char* target_error_string(int code) {
 }
 
 }  // extern "C"
-
-#define TARGET_DISPATCH(CPL_, CALL)                    \
-  switch (CPL_) {                                      \
-    case 1: CALL(1); break;                            \
-    case 4: CALL(4); break;                            \
-    case 32: CALL(32); break;                          \
-    default: return (int)cudaErrorInvalidValue;        \
-  }

@@ -1,7 +1,8 @@
 // The lane layout of the custom-target kernels at d <= 32 (target_hmc.cu's
-// trajectory kernel, target_rwm.cu's RWM kernel, target_nuts.cu's NUTS
-// kernel): one chain per lane, 32 chains a group, W warps a block sharing
-// the group's coordinates (coordinate j in warp j % W).
+// trajectory, multistep and gradient kernels, target_rwm.cu's RWM kernel,
+// target_nuts.cu's NUTS kernel): one chain per lane, 32 chains a group, W
+// warps a block sharing the group's coordinates (coordinate j in warp
+// j % W).
 //
 // The loop over a warp's coordinates is outer and the same for every lane,
 // so each coordinate's family (code[j], read from the rows in shared memory)
@@ -26,8 +27,8 @@ namespace {
 
 constexpr int kLaneDMax = 32;  // largest d of the lane layout
 // Warps that share a group's coordinates: always in the RWM and NUTS
-// kernels, in the trajectory kernel once its groups outnumber the SMs
-// (target_hmc.cu leapfrogs_lane_warps; PERF.md section 6)
+// kernels, in target_hmc.cu's kernels once their groups outnumber the SMs
+// (target_hmc.cu lane_warps; PERF.md section 6)
 constexpr int kLaneWarps = 4;
 
 // The lane layout's template bound for d: 8, 16 or 32 (0 outside 1..32).

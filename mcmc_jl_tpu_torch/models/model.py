@@ -257,14 +257,24 @@ def _catalog_spec(f, pmap, init, size):
 
 
 def _catalog_allg(target):
-    """(logp, grad) of a catalog DSL model on the card in float32: one
-    launch of the custom-target kernels' gradient pass for all chains
-    (autodiff of the traced DSL launches a few hundred small operations)."""
-    def allg(theta):
-        from ..ops.target_kernels import target_logp_grad
+    """(logp, grad) of a catalog DSL model on the card in float32, already
+    sanitized as :func:`_sanitize_allg` does: one launch of the
+    custom-target kernels' gradient pass for all chains (autodiff of the
+    traced DSL launches a few hundred small operations, the sanitizing
+    six more), through a launcher built at the first call on each device
+    (``ops/target_kernels.py`` ``logp_grad_launcher``), which launches on
+    the stream current on that device at that first call."""
+    launchers = {}
 
+    def allg(theta):
         flat = theta.reshape(-1, theta.shape[-1]).contiguous()
-        lp, g = target_logp_grad(target, flat)
+        fn = launchers.get(flat.device)
+        if fn is None:
+            from ..ops.target_kernels import logp_grad_launcher
+
+            fn = launchers[flat.device] = logp_grad_launcher(target,
+                                                             flat.device)
+        lp, g = fn(flat)
         return lp.reshape(theta.shape[:-1]), g.reshape(theta.shape)
 
     return allg
@@ -447,14 +457,13 @@ def model(
             g, lp = torch.func.grad_and_value(f)(th)
             return lp, g
 
-        allg = _batched(_vg)
+        evalallg = _sanitize_allg(_batched(_vg))
         if target_spec is not None and dev.type == "cuda" \
                 and dtype == torch.float32:
             from ..ops.target_kernels import D_MAX
 
             if size <= D_MAX:
-                allg = _catalog_allg(target_spec)
-        evalallg = _sanitize_allg(allg)
+                evalallg = _catalog_allg(target_spec)
         evalg = lambda th: evalallg(th)[1]  # noqa: E731
     else:
         evalg = evalallg = None

@@ -25,10 +25,11 @@ wrapper (this module)           Pallas kernel it replaces
                                 transitions, RNG inside)
 ==============================  ==========================================
 
-A third, :func:`target_logp_grad` (one (logp, gradient) pass), has no
-Pallas counterpart: it is the generic engine's ``model.evalallg`` on the
-card for a catalog DSL model in float32, where the JAX package's generic
-engine runs its model's ``jax.value_and_grad`` compiled by XLA.
+A third, :func:`target_logp_grad` (one (logp, gradient) pass, sanitized as
+the model's gradient is), has no Pallas counterpart: it is the generic
+engine's ``model.evalallg`` on the card for a catalog DSL model in float32,
+where the JAX package's generic engine runs its model's
+``jax.value_and_grad`` compiled by XLA.
 
 Each has a plain PyTorch version beside it (``*_ref``) that differentiates
 the distributions' ``logpdf`` with ``torch.func`` (never the kernels'
@@ -38,11 +39,14 @@ also for a target without kernel rows and for d above
 :data:`D_MAX`.  Launches count in ``LAUNCHES``, plain calls in
 ``PLAIN_CALLS``.  Chain states are unpadded (C, d) float32 tensors.
 
-The trajectory kernel has two layouts, decided up front from d
-(:func:`target_leapfrogs_layout`): one chain per lane up to
-:data:`LANE_D_MAX`, one warp per chain above.  The drivers that launch it
-in a loop take it through :func:`leapfrogs_launcher`, which validates a
-run's states once and then launches without the public wrapper's checks.
+Each kernel has two layouts, decided up front from d
+(:func:`target_leapfrogs_layout`, :func:`target_multistep_layout`,
+:func:`target_logp_grad_layout`): one chain per lane up to
+:data:`LANE_D_MAX`, one warp per chain above.  Code that launches one in a
+loop takes it through a launcher (:func:`leapfrogs_launcher`,
+:func:`multistep_launcher`, :func:`logp_grad_launcher`), which validates
+once what stays fixed over the loop and then launches without the public
+wrapper's checks.
 
 Not ported: ``lifted_model_block`` (data-bearing targets run generic),
 ``target_kernel_supported`` (no compile probe: the route decides up front)
@@ -63,7 +67,7 @@ from .glm_kernels import _draw, _sched, _seed, _trajectory, accept_test
 #: largest dimension the kernels take: 32 lanes x 32 coordinates per lane
 D_MAX = 1024
 #: largest dimension of the lane layout (one chain per lane) of the
-#: trajectory and RWM kernels; above it, one warp per chain
+#: custom-target kernels; above it, one warp per chain
 LANE_D_MAX = 32
 
 #: why a model without a ``target_spec`` runs on the generic engine
@@ -157,9 +161,12 @@ def _eps_args(eps, theta):
 
 
 def target_logp_grad_ref(target, theta):
-    """Plain version of :func:`target_logp_grad` (``torch.func``)."""
+    """Plain version of :func:`target_logp_grad` (``torch.func``, then the
+    model's sanitizing)."""
+    from ..models.model import _sanitize_allg
+
     PLAIN_CALLS["target_logp_grad"] += 1
-    return target_funcs(target)[1](theta)
+    return _sanitize_allg(target_funcs(target)[1])(theta)
 
 
 def fused_target_leapfrogs_ref(target, theta, m, grad, eps, *, n_leaps=10,
@@ -216,6 +223,7 @@ _ARGTYPES = {
     "target_multistep": [_P, _P, _I, _I] + [_P] * 5 + [_F, _P, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
+    "target_multistep_plan": [_I] * 2 + [ctypes.POINTER(_I)] * 4,
     "target_logp_grad": [_P, _P, _I, _I] + [_P] * 4,
 }
 
@@ -306,7 +314,7 @@ def kernel_args(name, target, theta, states=()):
 
 
 def lane_layout(name, d):
-    """The layout the trajectory and RWM kernels launch at dimension ``d``,
+    """The layout the custom-target kernels launch at dimension ``d``,
     decided up front from d alone: ``"lane"`` (one chain per lane, 32
     chains a block) for 1 <= d <= :data:`LANE_D_MAX`, ``"warp"`` (one warp
     per chain, lanes over coordinates) up to :data:`D_MAX`; raises
@@ -322,8 +330,20 @@ def target_leapfrogs_layout(d):
     return lane_layout("target_leapfrogs", d)
 
 
+def target_multistep_layout(d):
+    """The layout :func:`target_multistep` launches at dimension ``d``
+    (:func:`lane_layout`)."""
+    return lane_layout("target_multistep", d)
+
+
+def target_logp_grad_layout(d):
+    """The layout :func:`target_logp_grad` launches at dimension ``d``
+    (:func:`lane_layout`)."""
+    return lane_layout("target_logp_grad", d)
+
+
 def kernel_plan(lib, name, d, C):
-    """How a launch of kernel 5 or 7 runs at (d, C) on the card, as its
+    """How a launch of kernel 5, 6 or 7 runs at (d, C) on the card, as its
     plan entry ``name`` reports it: {"layout" (:func:`lane_layout`),
     "blocks", "warps" (a block), "threads", "smem_bytes",
     "blocks_per_sm"}."""
@@ -340,6 +360,11 @@ def kernel_plan(lib, name, d, C):
 def target_leapfrogs_plan(d, C):
     """The trajectory kernel's launch at (d, C) (:func:`kernel_plan`)."""
     return kernel_plan(load_kernels(), "target_leapfrogs_plan", d, C)
+
+
+def target_multistep_plan(d, C):
+    """The multistep kernel's launch at (d, C) (:func:`kernel_plan`)."""
+    return kernel_plan(load_kernels(), "target_multistep_plan", d, C)
 
 
 def _failed(lib, name, code):
@@ -359,15 +384,15 @@ def launch(lib, counts, name, *args):
 
 def lean_launch(lib, counts, name, dev):
     """``call(*args)``: entry ``name`` of ``lib`` on the stream current on
-    ``dev`` now, for a run of launches on one device; raises on a CUDA
-    error, else adds one to ``counts[name]``."""
+    ``dev`` now, for a run of launches on one device (made current for the
+    launch when another is); raises on a CUDA error, else adds one to
+    ``counts[name]``."""
     fn = getattr(lib, name)
     with torch.cuda.device(dev):
         stream = _P(torch.cuda.current_stream().cuda_stream)
-    here = dev.index == torch.cuda.current_device()
 
     def call(*args):
-        if here:
+        if dev.index == torch.cuda.current_device():
             code = fn(*args, stream)
         else:
             with torch.cuda.device(dev):
@@ -381,17 +406,63 @@ def lean_launch(lib, counts, name, dev):
 
 def target_logp_grad(target, theta):
     """(logp (C,), gradient (C, d)) of a catalog target at ``theta`` (C, d),
-    one pass of the custom-target kernels' family rules."""
+    one pass of the custom-target kernels' family rules, sanitized as the
+    generic engine's model gradient is (``models/model.py``
+    ``_sanitize_allg``: a NaN logp is -inf, and the gradient is 0 where
+    logp is not finite and where it is not finite itself).  The kernel's
+    layout follows from d (:func:`target_logp_grad_layout`)."""
     name = "target_logp_grad"
     if not _device_branch(name, theta):
         return target_logp_grad_ref(target, theta)
-    codes, params, C, d = kernel_args(name, target, theta)
-    g_o = torch.empty_like(theta)
-    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
-    with torch.cuda.device(theta.device):
-        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
-               C, _ptr(theta), _ptr(g_o), _ptr(lp_o))
-    return lp_o, g_o
+    kernel_args(name, target, theta)
+    return logp_grad_launcher(target, theta.device)(theta)
+
+
+def logp_grad_launcher(target, device):
+    """The gradient pass for calls on one device (the generic engine's
+    model gradient, once per leaf): the target's kernel rows, the library
+    and the stream are resolved once, and the returned ``allg(theta) ->
+    (logp (C,), gradient (C, d))`` (as :func:`target_logp_grad`) checks only
+    what can change between calls: theta must be a contiguous float32
+    (C, d) tensor on ``device``.  Each call returns fresh outputs (the
+    NUTS tree keeps earlier leaves' gradients).  On the card it launches
+    on the stream that was current on ``device`` when the launcher was
+    made; on the CPU ``allg`` is the plain version."""
+    name = "target_logp_grad"
+    device = torch.device(device)
+    d = target.d
+
+    def check(theta):
+        if (theta.device != device or theta.dtype != torch.float32
+                or not theta.is_contiguous() or theta.ndim != 2
+                or theta.shape[1] != d):
+            raise ValueError(
+                f"{name}: theta must be a contiguous float32 (C, d = {d}) "
+                f"tensor on {device}, got {theta.dtype} "
+                f"{tuple(theta.shape)} on {theta.device}")
+
+    if device.type == "cpu":
+        def plain(theta):
+            check(theta)
+            return target_logp_grad_ref(target, theta)
+        return plain
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    codes, params = kernel_rows(name, target, device)
+    call = lean_launch(load_kernels(), LAUNCHES, name, device)
+    head = (_ptr(codes), _ptr(params), d)
+
+    def allg(theta):
+        check(theta)
+        C = theta.shape[0]
+        g = torch.empty_like(theta)
+        lp = torch.empty(C, dtype=theta.dtype, device=device)
+        call(*head, C, _P(theta.data_ptr()), _P(g.data_ptr()),
+             _P(lp.data_ptr()))
+        return lp, g
+
+    allg.inputs = (codes, params)  # alive as long as the launcher
+    return allg
 
 
 def leapfrogs_launcher(target, theta, eps, integrator="leapfrog"):
@@ -456,25 +527,58 @@ def target_multistep(target, theta, eps, *, k_trans=10, n_leaps=10,
     the momenta (Box-Muller) and MH uniforms drawn inside the kernel from
     Philox4x32-10 keyed by a seed drawn from ``generator`` and counted by
     (chain, absolute transition ``i0 + t``, coordinate): a generator in the
-    same state repeats a launch bitwise.
+    same state repeats a launch bitwise.  The kernel's layout follows from
+    d (:func:`target_multistep_layout`).
     Returns (theta, grad, lp (C,), accept rate (C,))."""
     name = "target_multistep"
     if not _device_branch(name, theta):
         return target_multistep_ref(target, theta, eps, k_trans=k_trans,
                                     n_leaps=n_leaps, generator=generator,
                                     integrator=integrator)
-    codes, params, C, d = kernel_args(name, target, theta)
+    kernel_args(name, target, theta)
+    return multistep_launcher(target, theta, eps, integrator)(
+        theta, k_trans, n_leaps, generator, i0)
+
+
+def multistep_launcher(target, theta, eps, integrator="leapfrog"):
+    """The multistep kernel for a run of launches on states shaped as
+    ``theta`` (:func:`run_target_hmc_multistep`'s loop): the target, theta,
+    the step and the schedule are checked once, and the returned
+    ``step(theta, k_trans, n_leaps, generator, i0) -> (theta, grad, lp,
+    accept rate)`` (as :func:`target_multistep`) launches on the run's own
+    theta without checking it again: it must be a contiguous float32
+    (C, d) tensor on the first theta's device.  Each launch returns fresh
+    outputs (the driver stacks them), on the stream current when the
+    launcher was made, and copies its seed to the host (the replay of its
+    draws depends on it).  On the CPU ``step`` is the plain version."""
+    name = "target_multistep"
+    C, d = check_states(name, target.d, theta), target.d
+    if not _device_branch(name, theta):
+        def plain(th, k_trans, n_leaps, generator, i0):
+            del i0  # the plain version's own draws have no counters
+            return target_multistep_ref(target, th, eps, k_trans=k_trans,
+                                        n_leaps=n_leaps, generator=generator,
+                                        integrator=integrator)
+        return plain
+    codes, params = kernel_rows(name, target, theta.device)
     eps_s, eps_row = _eps_args(eps, theta)
-    seed = _seed(generator)
-    th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
-    lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
-    acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
-    with torch.cuda.device(theta.device):
-        launch(load_kernels(), LAUNCHES, name, _ptr(codes), _ptr(params), d,
-               C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
-               _ptr(acc_o), eps_s, _ptr(eps_row), int(n_leaps), int(k_trans),
-               int(i0), seed, *_sched(integrator))
-    return th_o, g_o, lp_o, acc_o
+    call = lean_launch(load_kernels(), LAUNCHES, name, theta.device)
+    head = (_ptr(codes), _ptr(params), d, C)
+    sched = _sched(integrator)
+
+    def step(th, k_trans, n_leaps, generator, i0):
+        seed = _seed(generator)
+        th_o, g_o = torch.empty_like(th), torch.empty_like(th)
+        lp_o = torch.empty(C, dtype=th.dtype, device=th.device)
+        acc_o = torch.empty(C, dtype=th.dtype, device=th.device)
+        call(*head, _P(th.data_ptr()), _P(th_o.data_ptr()),
+             _P(g_o.data_ptr()), _P(lp_o.data_ptr()), _P(acc_o.data_ptr()),
+             eps_s, _ptr(eps_row), int(n_leaps), int(k_trans), int(i0), seed,
+             *sched)
+        return th_o, g_o, lp_o, acc_o
+
+    step.inputs = (codes, params, eps_row)  # alive as long as the launcher
+    return step
 
 
 def target_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
@@ -557,20 +661,20 @@ def run_target_hmc_multistep(target, d, n_chains, steps, thin=10,
                              n_leaps=10, eps=0.1, seed=0, generator=None,
                              inits=None, device=None, integrator="leapfrog",
                              collect=False):
-    """Sample a catalog target with the multi-transition kernel: ``steps``
-    transitions as ``steps // thin`` launches of ``thin``; infos carry one
+    """Sample a catalog target with the multi-transition kernel (one
+    :func:`multistep_launcher` for the run): ``steps`` transitions as
+    ``steps // thin`` launches of ``thin``; infos carry one
     row per launch (thinned chain): ``plogtarget``/``accept_rate``
     (+ ``ppars``/``pgrads`` with ``collect``)."""
     if steps % thin != 0:
         raise ValueError("steps must be divisible by thin")
     theta, gen = _prepare(d, n_chains, seed, generator, inits, device)
+    step = multistep_launcher(target, theta, eps, integrator)
     rows = {"plogtarget": [], "accept_rate": []}
     if collect:
         rows.update(ppars=[], pgrads=[])
     for i in range(steps // thin):
-        theta, g, lp, acc = target_multistep(
-            target, theta, eps, k_trans=thin, n_leaps=n_leaps, generator=gen,
-            integrator=integrator, i0=i * thin)
+        theta, g, lp, acc = step(theta, thin, n_leaps, gen, i * thin)
         rows["plogtarget"].append(lp)
         rows["accept_rate"].append(acc)
         if collect:

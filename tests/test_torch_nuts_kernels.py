@@ -6,16 +6,13 @@ The plain transition takes the same pre-drawn noise as JAX's
 discrete path on every chain and agree to float32 rounding.  The multistep
 kernel's plain version draws its own noise and is held statistically against
 JAX's per-transition driver.  Both sides compute in float32 (the suite turns
-on x64, so every JAX input is pinned to float32)."""
-import jax
-import jax.numpy as jnp
+on x64, so every JAX input is pinned to float32).  The tests that run the
+JAX package import it themselves, so that the card test runs where JAX is
+not installed."""
 import numpy as np
 import pytest
 import torch
 
-from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains, pad_design
-from mcmc_jl_tpu.ops.pallas_nuts import _nuts_run as jax_nuts_run
-from mcmc_jl_tpu.ops.pallas_nuts import glm_nuts_transition as jax_transition
 from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
 
@@ -35,6 +32,8 @@ def _data(n=80, d=3, seed=7):
 
 def _pad(a, width, fill=0.0):
     """(C, k) float32 -> (C, width), the extra columns filled (TPU layout)."""
+    import jax.numpy as jnp
+
     extra = np.full((a.shape[0], width - a.shape[1]), fill, np.float32)
     return jnp.asarray(np.concatenate([a, extra], axis=1))
 
@@ -61,6 +60,10 @@ def test_transition_matches_jax(case):
     relative: the JAX kernel evaluates log Phi with the erf-free
     approximation of ops/special.py (abs err < 4e-6 per observation), the
     port's plain version with torch.special.log_ndtr."""
+    import jax.numpy as jnp
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_design
+    from mcmc_jl_tpu.ops.pallas_nuts import glm_nuts_transition as jax_transition
+
     kind, eps, multinomial, extra = CASES[case]
     X, Y = _data()
     n, d = X.shape
@@ -118,6 +121,11 @@ def test_multistep_ref_matches_jax_driver(multinomial):
     driver, against JAX's per-transition driver at the same step: the gates
     of tests/test_pallas_nuts.py (pooled means |z| < 5, sd within 30%,
     depths in range, no divergences after burn-in)."""
+    import jax
+    import jax.numpy as jnp
+    from mcmc_jl_tpu.ops.pallas_glm import pad_chains, pad_design
+    from mcmc_jl_tpu.ops.pallas_nuts import _nuts_run as jax_nuts_run
+
     X, Y = _data()
     d = X.shape[1]
     Cs, steps, burn, eps = 8, 320, 80, 0.15

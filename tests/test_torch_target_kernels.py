@@ -6,7 +6,7 @@ and injected noise; the multi-transition kernel (hardware PRNG in JAX) and
 the three entry points statistically; the host replay of the kernels'
 Philox draws (ops/philox.py) against Philox4x32-10's known answers; the
 "target" route of ``run(..., chains=N)``; RWM on the generic engine; the
-converters; the kernels' layouts by d and their drivers' lean launch path.
+converters; the kernels' layouts by d and their launchers.
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are held
 against those on the card by chip_smoke.py and by
@@ -14,7 +14,11 @@ against those on the card by chip_smoke.py and by
 and unpadded after.  Tolerances: rtol 1e-5 and atol 1e-6 for theta, m and
 g, 1e-5 for lp (the JAX package's own gate,
 tests/test_pallas_target.py:53-60); RWM within tests/test_pallas_rwm.py's
-gates; statistical gates |z| < 5.  The tests that run the JAX package
+gates; the multi-transition kernel's plain version on injected noise
+against transitions composed from the Pallas trajectory kernel within
+rtol 1e-5 and atol 1e-5 (the same float32 operations, sums in another
+order, over four transitions); statistical gates |z| < 5.  The tests that
+run the JAX package
 import it themselves, so that the card test runs where JAX is not
 installed."""
 import dataclasses
@@ -251,6 +255,67 @@ def test_multistep_statistics(name, params, x0, eps):
     assert all(torch.equal(x, y) for x, y in zip(r1, r2))
 
 
+def test_multistep_ref_matches_pallas_transitions():
+    """Kernel 6's plain version on injected noise, chain by chain, against
+    k transitions composed from the JAX package's
+    ``fused_target_leapfrogs(interpret=True)`` and the accept rule of
+    ``pallas_target.py:232-251`` (H from lp and |m|^2, NaN rejected), on
+    the same float32 momenta and log-uniforms: d 10 over six families, 16
+    chains.  theta, grad and lp within rtol 1e-5 and atol 1e-5, the same
+    accept rate on every chain."""
+    import jax
+    import jax.numpy as jnp
+    from mcmc_jl_tpu.ops.pallas_glm import LANE, pad_chains
+    from mcmc_jl_tpu.ops.pallas_target import fused_target_leapfrogs as j_leaps
+
+    f32 = jnp.float32
+    d, C, k, n_leaps, eps = 10, 16, 4, 5, 0.15
+    spec = [MIXED[j % len(MIXED)] for j in range(d)]
+    center = np.resize([0.5, 0.6, 0.4, 0.0, 0.0, 1.8], d)
+    spread = np.resize([1.0, 0.05, 0.05, 1.0, 1.0, 0.3], d)
+    rng = np.random.default_rng(12)
+    theta = (center + spread * rng.standard_normal((C, d))).astype(np.float32)
+    z = rng.standard_normal((k, C, d)).astype(np.float32)
+    logu = np.log1p(-rng.random((k, C))).astype(np.float32)
+    jblock, target = _targets(spec, d)
+
+    def logp_grad(th):
+        lp, vjp = jax.vjp(jblock, th)
+        return lp[:, 0], vjp(jnp.ones_like(lp))[0]
+
+    th_j = pad_chains(jnp.asarray(theta, f32), LANE)
+    lp_j, g_j = logp_grad(th_j)
+    acc_j = jnp.zeros((C,), f32)
+    for t in range(k):
+        m0 = pad_chains(jnp.asarray(z[t], f32), LANE)
+        h0 = -lp_j + 0.5 * jnp.sum(m0 * m0, axis=1)
+        th_p, m, g_p, lp_p = j_leaps(jblock, th_j, m0, g_j, eps,
+                                     n_leaps=n_leaps, block_chains=C,
+                                     interpret=True)
+        ratio = h0 - (-lp_p + 0.5 * jnp.sum(m * m, axis=1))
+        ratio = jnp.where(jnp.isnan(ratio), -jnp.inf, ratio)
+        a = (ratio > 0) | (ratio > logu[t])
+        th_j = jnp.where(a[:, None], th_p, th_j)
+        g_j = jnp.where(a[:, None], g_p, g_j)
+        lp_j = jnp.where(a, lp_p, lp_j)
+        acc_j = acc_j + a.astype(f32)
+
+    tk.reset_counts()
+    out = tk.target_multistep_ref(target, torch.as_tensor(theta), eps,
+                                  k_trans=k, n_leaps=n_leaps,
+                                  noise=(torch.as_tensor(z),
+                                         torch.as_tensor(logu)))
+    assert tk.PLAIN_CALLS["target_multistep"] == 1
+    acc = np.asarray(acc_j) / k
+    assert 0.0 < acc.mean() < 1.0  # both outcomes of the test occur
+    np.testing.assert_array_equal(out[3].numpy(), acc)
+    for a, b in zip(out[:2], (th_j, g_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[:, :d],
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out[2].numpy(), np.asarray(lp_j), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_run_target_rwm_statistics():
     d, C = 3, 128
     target = tk.coordwise_logp(td.Normal(0.5, 2.0), d)
@@ -462,10 +527,13 @@ def test_distribution_and_state_converters():
 
 @pytest.mark.parametrize("d", [0, 1, 10, 32, 33, 1000, 1024, 1025])
 @pytest.mark.parametrize("layout", [tk.target_leapfrogs_layout,
-                                    rk.target_rwm_layout],
-                         ids=["leapfrogs", "rwm"])
+                                    rk.target_rwm_layout,
+                                    tk.target_multistep_layout,
+                                    tk.target_logp_grad_layout],
+                         ids=["leapfrogs", "rwm", "multistep", "logp_grad"])
 def test_layout_by_d(layout, d):
-    """Kernels 5 and 7 choose their layout up front from d alone: one chain
+    """Kernels 5, 7 and 6 and the gradient pass choose their layout up
+    front from d alone: one chain
     per lane for 1 <= d <= LANE_D_MAX (32), one warp per chain up to D_MAX;
     0 and D_MAX + 1 are refused.  The CUDA sources draw the line at the
     same d (each library reports it when it loads, and load_library
@@ -481,13 +549,41 @@ def test_layout_by_d(layout, d):
 
 
 def _lean_run(kernel, lean):
-    """kernel 5's or 7's driver on the CPU, through its launcher (lean) or
-    through the public wrapper once per launch, from one generator state."""
+    """kernel 5's, 7's or 6's driver on the CPU, through its launcher (lean)
+    or through the public wrapper once per launch, from one generator
+    state; the gradient pass through the model's launcher
+    (``models/model.py`` ``_catalog_allg``, which builds it at its first
+    call) or through the public wrapper."""
     d, C = 4, 16
     target = tk.coordwise_logp([td.Normal(0.5, 2.0), td.Gamma(3.0, 0.2),
                                 td.Laplace(0.0, 1.0), td.TDist(4.0)], d)
     theta0 = torch.as_tensor(np.full((C, d), 0.6, np.float32))
     gen = torch.Generator().manual_seed(11)
+    if kernel == "multistep":
+        if lean:
+            th, infos = tk.run_target_hmc_multistep(
+                target, d, C, 12, thin=4, n_leaps=5, eps=0.05, generator=gen,
+                inits=theta0, device="cpu", collect=True)
+            return (th, infos["plogtarget"], infos["accept_rate"],
+                    infos["pgrads"])
+        th, rows = theta0, []
+        for i in range(3):
+            th, g, lp, acc = tk.target_multistep(target, th, 0.05, k_trans=4,
+                                                 n_leaps=5, generator=gen,
+                                                 i0=4 * i)
+            rows.append((lp, acc, g))
+        return (th, *(torch.stack(r) for r in zip(*rows)))
+    if kernel == "logp_grad":
+        from mcmc_jl_tpu_torch.models.model import _catalog_allg
+
+        ths = [theta0 + 0.1 * torch.randn((C, d), generator=gen)
+               for _ in range(3)]
+        if lean:
+            allg = _catalog_allg(target)
+            return tuple(x for th in ths
+                         for x in allg(th.reshape(2, C // 2, d)))
+        return tuple(x.reshape((2, C // 2) + x.shape[1:]) for th in ths
+                     for x in tk.target_logp_grad(target, th))
     if kernel == "leapfrogs":
         if lean:
             (th, lp, g), infos = tk._run(target, theta0, 0.05, gen, steps=6,
@@ -522,21 +618,26 @@ def _lean_run(kernel, lean):
     return th, torch.stack(lps), torch.stack(accs)
 
 
-@pytest.mark.parametrize("kernel", ["leapfrogs", "rwm"])
+@pytest.mark.parametrize("kernel", ["leapfrogs", "rwm", "multistep",
+                                    "logp_grad"])
 def test_lean_driver_matches_the_public_wrapper(kernel):
     """The drivers launch through a launcher that validates a run once
-    (``leapfrogs_launcher``, ``rwm_launcher``): on the CPU, where both take
-    the plain version, a driver's run equals the same run made through the
-    public wrapper call by call, bitwise."""
+    (``leapfrogs_launcher``, ``rwm_launcher``, ``multistep_launcher``), and
+    the model's gradient through ``logp_grad_launcher``: on the CPU, where
+    both take the plain version, a driver's run (a model gradient's calls)
+    equals the same run made through the public wrapper call by call,
+    bitwise."""
     lean, public = _lean_run(kernel, True), _lean_run(kernel, False)
     assert all(torch.equal(a, b) for a, b in zip(lean, public))
 
 
 @pytest.mark.parametrize("bad", ["float64", "shape", "strided"])
-@pytest.mark.parametrize("kernel", ["leapfrogs", "rwm"])
+@pytest.mark.parametrize("kernel", ["leapfrogs", "rwm", "multistep",
+                                    "logp_grad"])
 def test_lean_launchers_refuse_a_malformed_state(kernel, bad):
-    """The launchers check a run's state once, on the CPU too: a float64,
-    a (C, d + 1) or a non-contiguous theta is refused."""
+    """The launchers check a run's state once, on the CPU too (the gradient
+    pass's launcher at each call, where theta can change): a float64, a
+    (C, d + 1) or a non-contiguous theta is refused."""
     target = tk.coordwise_logp(td.Normal(0.0, 1.0), 3)
     theta = {"float64": torch.zeros((8, 3), dtype=torch.float64),
              "shape": torch.zeros((8, 4)),
@@ -544,8 +645,12 @@ def test_lean_launchers_refuse_a_malformed_state(kernel, bad):
     with pytest.raises(ValueError, match="float32|d = 3"):
         if kernel == "leapfrogs":
             tk.leapfrogs_launcher(target, theta, 0.1)
-        else:
+        elif kernel == "rwm":
             rk.rwm_launcher(target, theta, torch.ones(3), k_steps=2)
+        elif kernel == "multistep":
+            tk.multistep_launcher(target, theta, 0.1)
+        else:
+            tk.logp_grad_launcher(target, "cpu")(theta)
 
 
 @pytest.mark.parametrize("i0", [0, 1, 3, 6])
@@ -600,6 +705,26 @@ def _min_gap(target, th, scale, z, logu):
     return float(gap.max())
 
 
+def _ms_min_gap(target, th, eps, z, logu, n_leaps):
+    """The smallest |MH ratio - log u| over the transitions of the chains
+    ``th`` on the momenta ``z`` (k, C, d) and ``logu`` (k, C), as the plain
+    version takes them (NaN ratios reject)."""
+    lp, g = tk.target_funcs(target)[1](th)
+    gap = torch.full(lp.shape, float("inf"), device=th.device)
+    for t in range(z.shape[0]):
+        th_p, m, g_p, lp_p = tk.fused_target_leapfrogs_ref(
+            target, th, z[t], g, eps, n_leaps=n_leaps)
+        ratio = (-lp + 0.5 * (z[t] * z[t]).sum(-1)) - (
+            -lp_p + 0.5 * (m * m).sum(-1))
+        ratio = torch.where(torch.isnan(ratio), -torch.inf, ratio)
+        gap = torch.minimum(gap, (ratio - logu[t]).abs())
+        a = (ratio > 0) | (ratio > logu[t])
+        th = torch.where(a[:, None], th_p, th)
+        g = torch.where(a[:, None], g_p, g)
+        lp = torch.where(a, lp_p, lp)
+    return float(gap.max())
+
+
 def test_target_lanes_on_card():
     """Kernels 5 and 7 in every layout they launch against their plain
     versions on a card (skips without one; chip_smoke.py runs the same
@@ -615,7 +740,14 @@ def test_target_lanes_on_card():
     chains.  Kernel 7 on input noise and on its own Philox draws replayed
     from step 3 (``rwm_draws``): every chain's theta within 1e-4 (1 +
     |theta|) with the same accept count, or a step whose MH ratio lay
-    within 1e-4 of log u; the Philox run repeats bitwise."""
+    within 1e-4 of log u; the Philox run repeats bitwise.
+    At C 4099 (a ragged last group and more groups than SMs): kernel 6 at
+    d 10 (one chain per lane) and 33 (one warp per chain) on its own Philox
+    draws replayed by ``target_multistep_draws``, every chain's theta within
+    1e-3 (1 + |theta|) with the same accept count, or a transition whose MH
+    ratio lay within 1e-4 of log u, and a bitwise repeat; the gradient pass
+    at d 1, 10, 32 and 33 within rtol and atol 1e-4 (g) and lp as kernel
+    5's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     fams = [td.Normal(0.0, 1.0), td.Uniform(-1.0, 3.0), td.Exponential(2.0),
@@ -686,3 +818,36 @@ def test_target_lanes_on_card():
             if len(parted):
                 assert _min_gap(target, th[parted], scale, z[parted],
                                 logu[parted]) < tol, (d, noise)
+
+    C2, k6 = 4099, 5
+    for d in (1, 10, 32, 33):
+        target = tk.coordwise_logp([fams[j % 10] for j in range(d)], d)
+        c0, s = np.resize(x0, d), np.resize(sd, d)
+        th = cu(c0 + 0.05 * s * rng.standard_normal((C2, d)))
+        lp_k, g_k = tk.target_logp_grad(target, th)
+        lp_r, g_r = tk.target_logp_grad_ref(target, th)
+        assert torch.allclose(g_k, g_r, rtol=tol, atol=tol), d
+        assert torch.equal(torch.isfinite(lp_k), torch.isfinite(lp_r)), d
+        fin = torch.isfinite(lp_r)
+        assert torch.allclose(lp_k[fin], lp_r[fin], rtol=1e-5,
+                              atol=1e-5 * d), d
+        if d not in (10, 33):
+            continue
+        row = cu(0.02 * s)
+
+        def run():
+            return tk.target_multistep(target, th, row, k_trans=k6,
+                                       n_leaps=10, generator=gen())
+        out, again = run(), run()
+        assert all(torch.equal(a, b) for a, b in zip(out, again)), d
+        z, logu = tk.target_multistep_draws(tk._seed(gen()), C2, d, k6,
+                                            device="cuda")
+        ref = tk.target_multistep_ref(target, th, row, k_trans=k6,
+                                      n_leaps=10, noise=(z, logu))
+        same = ((torch.round(out[3] * k6) == torch.round(ref[3] * k6))
+                & ((out[0] - ref[0]).abs()
+                   <= 1e-3 * (1 + ref[0].abs())).all(1))
+        parted = (~same).nonzero()[:, 0]
+        if len(parted):
+            assert _ms_min_gap(target, th[parted], row, z[:, parted],
+                               logu[:, parted], 10) < tol, d

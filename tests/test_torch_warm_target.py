@@ -132,8 +132,8 @@ def test_catalog_evalallg_matches_autodiff_and_jax(dtype):
     """The (logp, gradient) pass that serves a catalog DSL model's
     evalallg on the card (target_logp_grad; on the CPU its plain version)
     equals the model's evalallg and the JAX package's model gradient, for
-    all ten families, out of the support (-inf, zero gradient after the
-    model's sanitizing) and at Laplace's loc (-1/scale)."""
+    all ten families, out of the support (-inf and a zero gradient: the
+    pass sanitizes as the model does) and at Laplace's loc (-1/scale)."""
     fams = [(mt.Normal(0.5, 2.0), mc.Normal(0.5, 2.0)),
             (mt.Uniform(-1.0, 3.0), mc.Uniform(-1.0, 3.0)),
             (mt.Exponential(2.0), mc.Exponential(2.0)),
@@ -171,6 +171,7 @@ def test_catalog_evalallg_matches_autodiff_and_jax(dtype):
     out = ~torch.isfinite(lp_ad)
     assert out[8:16].all() and not out[16:].any()
     assert torch.equal(torch.isfinite(lp), ~out) and (g[out] == 0).all()
+    assert torch.equal(lp_ad[out], lp[out]) and (g_ad[out] == 0).all()
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(lp[~out], lp_ad[~out], **tol)
