@@ -26,13 +26,19 @@ chains=4096)`` for Gamma(3, 0.2), Normal(1, 1) and Laplace(0, 1), plain
 on a catalog model of ten bare distributions (exact NUTS with and without
 a diagonal metric through the target-mode NUTS kernel, adaptive HMC,
 MALA and ChEES through the trajectory kernel), checked against the exact
-moments.  It also runs the HMC step
+moments.  Then ``resume(chains, steps=S)`` continues the chains of seven
+of these runs, each as one batch through the kernels its frozen state
+takes (3b, 9, 8, 4, 5 and 8b), with the frozen hyper-parameters, ``pos``,
+the moments and repeatability checked and the time beside a chain-by-chain
+resume; a mixed list keeps its order, and a ``save_chain``/``load_chain``
+round trip resumes bit for bit.  It also runs the HMC step
 and multi-transition kernels through their drivers, times drivers and
 kernels beside their plain versions and the least time the card could take
 for the same work, and prints one JSON line per phase.
-The last three lines are the kernels' report (with each kernel's launches
-counted from zero over the one run that reaches it), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last four lines are the resume phase's summary, the kernels' report
+(with each kernel's launches counted from zero over the one run that
+reaches it), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 
 Run with no arguments on a machine with one CUDA card::
 
@@ -442,8 +448,8 @@ def _counted(fn):
 
 def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
     """The port's main path through its user entry points.  Returns the
-    trajectory kernel's launches in ``run`` and each chain's last state
-    (chains, d)."""
+    trajectory kernel's launches in ``run``, each chain's last state
+    (chains, d) and the chains' tasks (for phase_resume_paths)."""
     import mcmc_jl_tpu_torch as mt
 
     X, Y = bench_data()
@@ -487,7 +493,7 @@ def phase_main_path(chains=4096, steps=1000, burnin=200, generic_chains=512):
           "resume_acceptance": mt.acceptance(c1), **CARD})
     assert ok, "fused main path disagrees with the generic engine"
     return ({"glm_leapfrogs": (rose, f"run(..., chains={chains})")},
-            samples[:, -1])
+            samples[:, -1], [c.task for c in cs])
 
 
 def phase_drivers(final, steps=1000, thin=200):
@@ -919,7 +925,8 @@ def phase_nuts_main_path(hmc_means):
 
     Each run's per-chain means must agree with ``hmc_means``, the per-chain
     means of the HMC main path's continuation (:func:`_hmc_reference`).
-    Returns the kernels' launches and what the timing phase starts from."""
+    Returns the kernels' launches, what the timing phase starts from and the
+    unit-metric run's tasks (for phase_resume_paths)."""
     import torch
 
     import mcmc_jl_tpu_torch as mt
@@ -973,7 +980,8 @@ def phase_nuts_main_path(hmc_means):
                               *[c.task.state for c in cs])
             start = {"model": m, "sampler": sampler, "eps": eps,
                      "states": states}
-    return counts, start
+            tasks = [c.task for c in cs]
+    return counts, start, tasks
 
 
 def phase_nuts_timing(start, md=6, k_trans=5,
@@ -1916,7 +1924,8 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
        SerialMC(200, 50)`` at 512 chains: the warm route's sampling phase
        through the tiled kernel; held against 512 of run 1's chains
        continued ``ref_steps`` transitions.
-    Returns the tiled kernel's launches in run 1."""
+    Returns the tiled kernel's launches in run 1, and run 2's tasks with its
+    reference's per-chain means (for phase_resume_paths)."""
     import torch
 
     import mcmc_jl_tpu_torch as mt
@@ -1973,7 +1982,7 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
                        f"continued {ref_steps} transitions ({ref_s:.1f} s)",
           "z_max_vs_reference": z, "ok": z < Z_MAX, **CARD})
     assert z < Z_MAX, f"{origin} disagrees with the reference"
-    return counts
+    return counts, ([c.task for c in cs], ref_means)
 
 
 def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
@@ -1986,8 +1995,8 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
       multistep kernel with the folded (d,) prior row;
     - ``HMCDA()`` and ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50))``
       under ``SerialMC(1000, 200)`` at 1024 chains: 100 launches of 8.
-    Returns the Halton kernel's launches in the first run, and the step
-    and leap count that run froze at."""
+    Returns the Halton kernel's launches in the first run, the step and
+    leap count that run froze at, and its tasks (for phase_resume_paths)."""
     import mcmc_jl_tpu_torch as mt
 
     X, Y, mode = _bench_mode(1000)
@@ -2023,7 +2032,8 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
             counts["glm_multistep_rows"] = (launches["glm_multistep_rows"],
                                             origin)
             hmc_frozen = (frozen["frozen_step"], frozen["frozen_n_leaps"])
-    return counts, hmc_frozen
+            tasks = [c.task for c in cs]
+    return counts, hmc_frozen, tasks
 
 
 def phase_new_kernel_times(hmc_frozen, C=4096, kt=6, i0=501,
@@ -3134,7 +3144,8 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     runs (host ms a call, :func:`_grad_time`).
     Returns ({kernel 8b and the gradient pass: (launches, origin)}, the
     unit-metric NUTS run's final positions and frozen step, where its
-    timing starts)."""
+    timing starts, and {"nuts": that run's tasks, "hmc_diag": the adaptive
+    HMC-diag run's} for phase_resume_paths)."""
     import torch
 
     import mcmc_jl_tpu_torch as mt
@@ -3157,7 +3168,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
         (mt.ChEESHMC(len0=0.5, max_leaps=64), 1000, 200, chains,
          "target_leapfrogs", narrow),
     )
-    counts, start, bad = {}, None, []
+    counts, start, bad, held = {}, None, [], {}
     for sampler, steps, burnin, C, kernel, cols in runs:
         task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
         origin = (f"run(model(ten bare distributions ~, d=10) * {sampler!r} "
@@ -3216,12 +3227,15 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
             start = {"theta": torch.stack([c.task.state.pars for c in cs])
                      .to(torch.float32).contiguous(),
                      "eps": frozen["frozen_eps"]}
+            held["nuts"] = [c.task for c in cs]
+        if isinstance(sampler, mt.HMC):
+            held["hmc_diag"] = [c.task for c in cs]
         del cs, samples
     th, _ = _bare_start(bare, chains, np.random.default_rng(73))
     _grad_time("ten bare distributions, the warm target paths' model",
                m.target_spec, th, model=m)
     assert not bad, f"warm target paths disagree with the exact moments: {bad}"
-    return counts, start
+    return counts, start, held
 
 
 def phase_chees_glm_path(hmc_means, chains=4096):
@@ -3252,6 +3266,248 @@ def phase_chees_glm_path(hmc_means, chains=4096):
           "pooled_mean": samples.mean((0, 1)).tolist(),
           "z_max_vs_hmc_reference": z, "ok": z < Z_MAX, **CARD})
     assert z < Z_MAX, f"{origin} disagrees with the HMC reference"
+
+
+# resume(list)'s segment lengths (phase_resume_paths): 120 transitions are
+# 15 launches of 8 of kernels 3b and 9; 101 has no divisor in [2, 8], so
+# exact NUTS takes kernel 8, one launch a transition; the large-N path
+# integrates about 2 nl leapfrogs a transition through kernel 4, so it
+# resumes fewer; the chain-by-chain resume it is timed beside runs the
+# path's own segment on RESUME_OLD_CHAINS chains (each chain a run of the
+# generic engine), and one transition on each of them for the fixed cost
+# of a call
+RESUME_STEPS, RESUME_STEPS_PRIME, RESUME_STEPS_BIGN = 120, 101, 40
+RESUME_OLD_CHAINS = 4
+# the state fields a continuation freezes (whichever a sampler's state has)
+FROZEN_FIELDS = ("tune.step_size", "tune.n_leaps", "leap_step",
+                 "dual_leap_step", "log_len", "lebar", "mass.scale")
+
+
+def _frozen(tasks):
+    """{field: the chains' values stacked} of FROZEN_FIELDS."""
+    import torch
+
+    out = {}
+    for path in FROZEN_FIELDS:
+        vals = []
+        for t in tasks:
+            v = t.state
+            for name in path.split("."):
+                v = getattr(v, name, None)
+            vals.append(v)
+        if vals[0] is not None:
+            out[path] = torch.stack(vals)
+    return out
+
+
+def _halton_evals(task, steps):
+    """Kernel 4's launches on a large-N continuation: one at the start, one
+    a leapfrog of each transition's shared Halton leap count (the freeze of
+    warmstart.make_fused_continuation on ``task``'s frozen state)."""
+    from mcmc_jl_tpu_torch.ops.glm_kernels import halton_leaps
+
+    st = task.state
+    eps, nl = float(st.tune.step_size), int(st.tune.n_leaps)
+    i0 = int(st.i)
+    return 1 + sum(halton_leaps(i0 + t, eps, 2.0 * nl * eps, max(2 * nl, 2))
+                   for t in range(steps))
+
+
+def _resume_path(label, tasks, steps, want, moments):
+    """``resume(tasks, steps=...)`` with every count zeroed just before it
+    and read just after (each kernel launched as ``want`` says, no plain
+    call), and its checks: the frozen hyper-parameters are the run's bit
+    for bit (exact NUTS re-derives its step from ``lebar``, as the JAX
+    package does: ``epsilon`` is held to exp(lebar)), each chain's ``pos``
+    advanced by ``steps``, ``moments(samples)`` (chains, steps, d) < Z_MAX,
+    a repeat from the same list the same bits, a second resume other
+    samples.  Times the batched resume beside RESUME_OLD_CHAINS of the
+    chains resumed one by one for the same ``steps``, and for one
+    transition each (the fixed cost of a call).  Returns (the resumed
+    chains, the path's summary)."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    C = len(tasks)
+    before = _frozen(tasks)
+    t0 = time.perf_counter()
+    with _spans() as spans:
+        cs, launches = _counted(lambda: mt.resume(tasks, steps=steps))
+    dt = time.perf_counter() - t0
+    for k, n in launches.items():
+        assert n == want.get(k, 0), (label, launches)
+    samples = np.stack([c.samples.values for c in cs])
+    assert samples.shape == (C, steps, tasks[0].model.size)
+    assert np.all(np.isfinite(samples)), label
+    after = _frozen([c.task for c in cs])
+    assert set(after) == set(before), label
+    frozen_ok = all(torch.equal(after[k], before[k]) for k in before)
+    eps_rel = None
+    if "lebar" in before:
+        eps = torch.stack([c.task.state.epsilon for c in cs]).cpu().numpy()
+        lebar = after["lebar"].double().cpu().numpy()
+        frozen_ok &= np.array_equal(eps, np.exp(lebar).astype(eps.dtype))
+        eps0 = torch.stack([t.state.epsilon for t in tasks]).double()
+        eps_rel = float(np.max(np.abs(eps - eps0.cpu().numpy())
+                               / eps0.cpu().numpy()))
+    pos_ok = all(c.task.pos == t.pos + steps for c, t in zip(cs, tasks))
+    z = moments(samples)
+    again = mt.resume(tasks, steps=steps)
+    repeat_ok = np.array_equal(
+        samples, np.stack([c.samples.values for c in again]))
+    del again
+    second = mt.resume(cs, steps=steps)
+    second_differs = not np.array_equal(
+        samples, np.stack([c.samples.values for c in second]))
+    pos_ok &= all(c.task.pos == t.pos + 2 * steps
+                  for c, t in zip(second, tasks))
+    del second
+    old = tasks[:RESUME_OLD_CHAINS]
+    old_s = []
+    for n in (steps, 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in old:
+            mt.resume(t, steps=n)
+        torch.cuda.synchronize()
+        old_s.append(time.perf_counter() - t1)
+    ok = (frozen_ok and pos_ok and z < Z_MAX and repeat_ok
+          and second_differs)
+    row = {"path": label, "chains": C, "steps": steps, "seconds": dt,
+           "spans_s": spans,
+           "launches": {k: n for k, n in launches.items() if n},
+           "per_chain_transition_s": dt / (C * steps),
+           "chain_by_chain": {"chains": len(old), "steps": steps,
+                              "seconds": old_s[0],
+                              "per_chain_transition_s":
+                                  old_s[0] / (len(old) * steps),
+                              "one_transition_call_s": old_s[1] / len(old)}}
+    emit({"phase": "resume_path", **row, "frozen_bitwise": frozen_ok,
+          "nuts_eps_rel_change": eps_rel, "pos_advanced": pos_ok,
+          "z_max": z, "repeat_bitwise": repeat_ok,
+          "second_differs": second_differs, "ok": ok, **CARD})
+    assert ok, f"resume of {label} failed its checks"
+    return cs, row
+
+
+def _resume_checkpoint(cs, steps):
+    """``save_chain`` eight resumed GLM chains under the ignored build/,
+    ``load_chain`` them into fresh tasks, and require the loaded list's
+    resume to equal the live list's bit for bit on the card."""
+    import tempfile
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.utils.io import load_chain, save_chain
+
+    live = cs[:8]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        loaded = []
+        for i, c in enumerate(live):
+            path = os.path.join(tmp, f"chain{i}.npz")
+            save_chain(path, c)
+            t = c.task
+            loaded.append(load_chain(path, mt.MCMCTask(t.model, t.sampler,
+                                                       t.runner)))
+    a = mt.resume(live, steps=steps)
+    b = mt.resume(loaded, steps=steps)
+    ok = all(np.array_equal(x.samples.values, y.samples.values)
+             and np.array_equal(x.task.state.pars.cpu().numpy(),
+                                y.task.state.pars.cpu().numpy())
+             for x, y in zip(a, b))
+    emit({"phase": "resume_checkpoint", "chains": len(live), "steps": steps,
+          "device": str(loaded[0].task.state.pars.device),
+          "bitwise": ok, "ok": ok})
+    assert ok, "a checkpoint's resume differs from the live chains'"
+
+
+def _resume_mixed(hmc_tasks, steps=16, n=8):
+    """A mixed list, ``n`` adaptive HMC chains of the GLM batch interleaved
+    with ``n`` RWM chains of the same model (the generic engine), resumes
+    in its order: the HMC group through kernel 3b, the RWM group as one
+    generic batch."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
+
+    m = hmc_tasks[0].model
+    rwm = [c.task for c in mt.run(m * mt.RWM(0.05) * mt.SerialMC(steps=20),
+                                  chains=n, seed=3)]
+    mixed = [t for pair in zip(hmc_tasks[:n], rwm) for t in pair]
+    cs, launches = _counted(lambda: mt.resume(mixed, steps=steps))
+    want = steps // _pick_k_trans(steps)
+    ok = (launches["glm_multistep_rows"] == want
+          and sum(launches.values()) == want and len(cs) == 2 * n)
+    for c, t in zip(cs, mixed):
+        ok &= (c.task.sampler is t.sampler and c.task.pos == t.pos + steps
+               and type(c.task.state) is type(t.state)
+               and c.samples.shape == (steps, m.size))
+    emit({"phase": "resume_mixed", "chains": 2 * n, "steps": steps,
+          "launches": {k: v for k, v in launches.items() if v},
+          "order_kept": ok, "ok": ok})
+    assert ok, "a mixed list's resume lost its order or its route"
+
+
+def phase_resume_paths(held, hmc_means):
+    """``resume(chains, steps=S)`` (``presume_serialmc``) of the chains the
+    path phases ran, each once more re-batched onto the kernels its frozen
+    state takes, with the checks of :func:`_resume_path`:
+
+    - adaptive HMC diag on the GLM (4096 chains; phase_warm_paths) and the
+      main path's plain ``HMC(10, 0.05)`` (4096; the JAX package's Halton
+      leap counts in [1, 20]): kernel 3b, S 120;
+    - ``NUTS(6)`` (4096; phase_nuts_main_path): kernel 9 at S 120, kernel 8
+      at S 101; all four held against ``hmc_means``;
+    - adaptive HMC at N 100,000 (512; phase_large_n_paths): kernel 4, S 40,
+      held against that phase's reference;
+    - adaptive HMC diag and ``NUTS(6)`` on the ten bare distributions
+      (4096; phase_warm_target_paths): kernels 5 and 8b with one gradient
+      pass (``sampler.reset``), S 120, held against the exact moments (NUTS
+      on the coordinates of sd at most NARROW_SD, as its path is);
+
+    then a mixed list keeps its order, and eight resumed GLM chains go
+    through ``save_chain``/``load_chain`` and resume bit for bit as the live
+    ones.  Returns one summary row a path."""
+    from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
+
+    bare = _ten_bare()
+    narrow = [j for j, (_, dist, _) in enumerate(bare)
+              if float(dist.std()) <= NARROW_SD]
+    S, P, SB = RESUME_STEPS, RESUME_STEPS_PRIME, RESUME_STEPS_BIGN
+    glm_z = lambda s: _z_means(s.mean(1), hmc_means)  # noqa: E731
+    bign_tasks, bign_ref = held["bign"]
+    paths = [
+        ("adaptive HMC diag, N 1000, kernel 3b", held["warm"], S,
+         {"glm_multistep_rows": S // _pick_k_trans(S)}, glm_z),
+        ("HMC(10, 0.05), N 1000, kernel 3b", held["hmc"], S,
+         {"glm_multistep_rows": S // _pick_k_trans(S)}, glm_z),
+        ("NUTS(6), N 1000, kernel 9", held["nuts"], S,
+         {"glm_nuts_multistep": S // _pick_k_trans(S)}, glm_z),
+        ("NUTS(6), N 1000, kernel 8", held["nuts"], P,
+         {"glm_nuts_transition": P}, glm_z),
+        ("adaptive HMC, N 1e5, kernel 4", bign_tasks, SB,
+         {"glm_logp_grad_tiled": _halton_evals(bign_tasks[0], SB)},
+         lambda s: _z_means(s.mean(1), bign_ref)),
+        ("adaptive HMC diag, ten bare distributions, kernel 5",
+         held["target"]["hmc_diag"], S,
+         {"target_leapfrogs": S, "target_logp_grad": 1},
+         lambda s: _bare_z(s, bare)),
+        ("NUTS(6), ten bare distributions, kernel 8b",
+         held["target"]["nuts"], S,
+         {"target_nuts_transition": S, "target_logp_grad": 1},
+         lambda s: _bare_z(s, bare, narrow)),
+    ]
+    rows, glm_resumed = [], None
+    for label, tasks, steps, want, moments in paths:
+        cs, row = _resume_path(label, tasks, steps, want, moments)
+        rows.append(row)
+        if glm_resumed is None:
+            glm_resumed = cs
+        del cs
+    _resume_mixed(held["warm"])
+    _resume_checkpoint(glm_resumed, S)
+    return rows
 
 
 def _target_nuts_plan(d, C, md):
@@ -3739,20 +3995,26 @@ def main():
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
     # the two NUTS kernels, the Halton multistep kernel and the tiled
     # kernel, the bench drivers for the step and multistep kernels
-    launches, final = step("main_path", phase_main_path)
+    # the chains' tasks each path phase hands to phase_resume_paths
+    held = {}
+    launches, final, held["hmc"] = step("main_path", phase_main_path)
     launches.update(step("drivers", phase_drivers, final))
     hmc_means = step("hmc_reference", _hmc_reference, final)
-    nuts_launches, start = step("nuts_main_path", phase_nuts_main_path,
-                                hmc_means)
+    nuts_launches, start, held["nuts"] = step(
+        "nuts_main_path", phase_nuts_main_path, hmc_means)
     launches.update(nuts_launches)
-    launches.update(step("large_n_paths", phase_large_n_paths))
-    warm_launches, hmc_frozen = step("warm_paths", phase_warm_paths,
-                                     hmc_means)
+    bign_launches, held["bign"] = step("large_n_paths", phase_large_n_paths)
+    launches.update(bign_launches)
+    warm_launches, hmc_frozen, held["warm"] = step(
+        "warm_paths", phase_warm_paths, hmc_means)
     launches.update(warm_launches)
     launches.update(step("target_paths", phase_target_paths))
-    nuts_t, start_t = step("warm_target_paths", phase_warm_target_paths)
+    nuts_t, start_t, held["target"] = step("warm_target_paths",
+                                           phase_warm_target_paths)
     launches.update(nuts_t)
     step("chees_glm_path", phase_chees_glm_path, hmc_means)
+    resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
+    del held
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing)
@@ -3765,6 +4027,7 @@ def main():
                  step("target_nuts_time", phase_target_nuts_time, start_t)):
         ms.update(more[0])
         work.update(more[1])
+    emit({"resume": resume_rows})
     # no single PyTorch call computes any of these functions: library_ms
     # is null (the two products alone are timed in new_kernel_times)
     emit({"kernels": [

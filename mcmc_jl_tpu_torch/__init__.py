@@ -13,7 +13,10 @@ the NUTS kernels) and the custom-target kernels on DSL models that are a
 product of catalog densities (``ops.target_kernels``: plain HMC and MALA,
 and the warm sampling phases of adaptive HMC/HMCDA/MALA and ChEES; exact
 NUTS through ``ops.nuts_kernels.target_nuts_transition``; fused RWM in
-``ops.rwm_kernels``); and the chain statistics.  Models live on the CUDA
+``ops.rwm_kernels``); ``resume(list_of_chains)``, which re-batches a run's
+chains and continues frozen HMC-family and exact-NUTS groups on the same
+kernels; checkpoints (``utils.io``); and the chain statistics with the
+cross-chain diagnostics ``rhat``, ``ess_pooled`` and ``summarize_chains``.  Models live on the CUDA
 card unless ``device="cpu"`` is given.  It imports ``torch`` and never
 ``jax``.
 
@@ -47,7 +50,8 @@ from .samplers import (HMC, HMCState, HMCDA, HMCDAState, EmpMCTuner, MALA,
 from .runners.serialmc import SerialMC
 from .runners.api import run, resume, prun
 from .stats import (
-    mean, mcvar, mcse, var, std, ess, actime, acceptance, describe,
+    mean, mcvar, mcse, var, std, ess, actime, acceptance, describe, rhat,
+    ess_pooled, summarize_chains,
 )
 from .utils.convert import (chees_state_from_numpy, distribution_from_fields,
                             glm_model_from_spec, hmc_state_from_numpy,
@@ -62,7 +66,8 @@ __all__ = [
     "MALAState", "NUTS", "NUTSState", "RWM", "RWMState", "ChEESHMC",
     "ChEESState", "SerialMC", "run",
     "resume", "prun", "mean", "mcvar", "mcse", "var", "std", "ess",
-    "actime", "acceptance", "describe", "Normal", "Uniform", "Weibull",
+    "actime", "acceptance", "describe", "rhat", "ess_pooled",
+    "summarize_chains", "Normal", "Uniform", "Weibull",
     "Gamma", "Cauchy", "LogNormal", "Binomial", "Beta", "Laplace",
     "Bernoulli", "TDist", "Exponential", "Poisson", "MvNormal", "Truncated",
     "RightCensored", "LeftCensored", "Distribution", "logpdf", "logcdf",

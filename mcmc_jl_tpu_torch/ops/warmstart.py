@@ -43,10 +43,17 @@ two phases, and the second is what the fused kernels run:
 
 The only departure from running the generic engine end to end is the
 cross-chain pooling of the frozen hyper-parameters: the sampling phase is
-still exact MCMC for the model posterior.  Not ported yet (ROADMAP queue
-1): ``NUTS(warm_handoff=True)``, the dense metric with its z-space fold on
-targets (``dense_target_setup``), data-bearing targets and the fused
-continuation of a resumed chain.
+still exact MCMC for the model posterior.
+
+Phases 2 and 3 are the fused continuation (:func:`make_fused_continuation`)
+of the warmup's states (:func:`warmfused_chains`), and a resumed batch
+(``resume(list)``, through ``parallel.pchains.presume_serialmc``) runs
+them again from stored states: it has ``burnin=0``, so no adaptation fires
+and its frozen hyper-parameters are read back from the states with the
+same freeze rules.  Not ported yet (ROADMAP queue 1):
+``NUTS(warm_handoff=True)`` and its continuation, the dense metric with
+its z-space fold on targets (``dense_target_setup``), data-bearing
+targets and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -168,24 +175,27 @@ def _freeze(sampler, states_w):
 
 
 def _fold_theta(theta_w, s):
-    """Positions in the kernel's z-space: ``theta / s`` (float64)."""
+    """Positions in the kernel's z-space, ``theta / s``, rounded once to a
+    contiguous float32 (C, d) tensor."""
     theta_w = theta_w.to(torch.float64)
-    return theta_w if s is None else theta_w / s
+    return (theta_w if s is None else theta_w / s).to(torch.float32) \
+        .contiguous()
 
 
-def _fold(spec, states_w, s):
-    """Phase 2 fold ``theta = S z``: the kernel-side float32 quantities
-    ``(XT (d, N), Y, theta0 (C, d) in z-space, lam, W, O)``; ``lam`` is the
-    scalar prior precision, or the (d,) row ``lam s^2`` under a metric.
-    Nothing pads N, so one fold serves both kernel families."""
+def _fold(spec, s):
+    """Phase 2 fold ``theta = S z`` of the design: the kernel-side float32
+    quantities ``(XT (d, N), Y, lam, W, O)``; ``lam`` is the scalar prior
+    precision, or the (d,) row ``lam s^2`` under a metric.  Nothing pads N,
+    so one fold serves both kernel families; :func:`_fold_theta` folds the
+    positions."""
     f32 = lambda a: None if a is None else a.to(torch.float32).contiguous()  # noqa: E731
     X = spec.X.to(torch.float64)
     lam = float(spec.prior_prec)
     if s is not None:
         X = X * s
         lam = f32(lam * s * s)
-    return (f32(X.T), f32(spec.Y), f32(_fold_theta(states_w.pars, s)), lam,
-            f32(spec.weights), f32(spec.offsets))
+    return (f32(X.T), f32(spec.Y), lam, f32(spec.weights),
+            f32(spec.offsets))
 
 
 def _unfold(infos2, thetaF, s, extra_keys=()):
@@ -199,16 +209,6 @@ def _unfold(infos2, thetaF, s, extra_keys=()):
              "plogtarget": infos2["plogtarget"], "accept": infos2["accept"]}
     for k in extra_keys:
         infos[k] = infos2[k]
-    return infos, theta
-
-
-def _unfold_cat(infos_w, infos2, thetaF, s, extra_keys=()):
-    """Un-fold the metric and concatenate the warmup's and the sampling
-    phase's infos into the whole run's (len, C, ...) arrays, in the
-    warmup's types."""
-    infos2u, theta = _unfold(infos2, thetaF, s, extra_keys=extra_keys)
-    infos = {k: torch.cat([infos_w[k], v.to(infos_w[k].dtype)])
-             for k, v in infos2u.items()}
     return infos, theta
 
 
@@ -352,8 +352,8 @@ def _chees_target_run(target, theta0, eps_in, eps, T, generator, *, steps,
 
 def _dyn_target_phase(model, integrator, eps, T, max_leaps, s, states_w,
                       steps2, i0, generator):
-    """The dynamic-length sampling phase on a catalog target, shared by the
-    HMC/HMCDA/MALA and ChEES pipelines (warmstart.py ``_dyn_target_phase``,
+    """The dynamic-length sampling phase on a catalog target of the
+    HMC/HMCDA/MALA and ChEES families (warmstart.py ``_dyn_target_phase``,
     unit and diagonal metrics): positions stay in model coordinates, the
     metric rides the step row.  Returns ((theta, lp, grad), rows)."""
     theta0 = states_w.pars.to(torch.float32).contiguous()
@@ -393,155 +393,193 @@ def _frozen_states(model, sampler, states_w, theta, eps, nl, steps2):
     return states.replace(leap_step=epsv, dual_leap_step=epsv, i=i)
 
 
-def warmfused_hmc_chains(model, sampler, runner, n_chains, generator):
-    """Adaptive HMC, HMCDA or MALA: warmup on the generic engine, then the
-    sampling phase at the frozen step, leap count and metric through the
-    Halton multistep kernel (N up to ``BIGN_THRESHOLD``) or the N-tiled
-    gradient kernel (above it).  Returns ``(infos, final_states)`` in the
-    protocol of :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`:
-    infos cover all ``runner.len`` transitions with the post-accept keys
-    ``ppars/pgrads/plogtarget/accept``."""
+# ---- the fused sampling phase: warm pipeline and continuation ----------------
+
+
+def _continue_refusal(task, states=None):
+    """None when a stored task's state can continue through the fused
+    kernels, else the reason it cannot (warmstart.py ``continue_eligible``).
+    A continuation has ``burnin=0``, so no tuner or dual averaging adapts
+    again: the state is frozen and the run is the fixed kernel the fused
+    drivers execute.  Every ``_kind`` the port's samplers take (None,
+    "diag", "diag-win") continues, as in the JAX package; "dense" is
+    refused when the sampler is built.  ``states`` is the JAX package's
+    hook for the warm handoff's trajectory time, which the port does not
+    continue."""
+    from ..samplers.chees import ChEESHMC
+    from ..samplers.hmc import HMC
+    from ..samplers.hmcda import HMCDA
     from ..samplers.mala import MALA
+    from ..samplers.nuts import NUTS
+    from .target_kernels import D_MAX
 
-    spec = model.glm_spec
-    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
-    eps, nl, s = _freeze(sampler, states_w)
-    steps2 = runner.len - runner.burnin
-    XT, Y, theta0, lam, W, O = _fold(spec, states_w, s)
-    # shared per-transition Halton jitter around the frozen nl (uniform on
-    # [1, 2 nl], mean about nl); MALA pins the count to exactly 1
-    mala = type(sampler) is MALA
-    T = eps if mala else 2.0 * nl * eps
-    max_leaps = 1 if mala else max(2 * nl, 2)
-    kw = dict(steps=steps2, i0=runner.burnin + 1, max_leaps=max_leaps,
-              kind=spec.kind, W=W, O=O, lam=lam,
-              integrator=getattr(sampler, "integrator", "leapfrog"))
-    use_ms, kt = _ms_route(spec, steps2)
-    if use_ms:
-        (thetaF, _, _), infos2 = _chees_run_ms(XT, Y, theta0, eps, T,
-                                               generator, k_trans=kt, **kw)
-    else:
-        (thetaF, _, _), infos2 = _chees_run_bign(XT, Y, theta0, eps, T,
-                                                 generator, **kw)
-    infos, theta = _unfold_cat(infos_w, infos2, thetaF, s)
-    states = _frozen_states(model, sampler, states_w, theta, eps, nl, steps2)
-    return infos, states
+    model, s = task.model, task.sampler
+    name = type(s).__name__
+    if getattr(model, "glm_spec", None) is None and model.size > D_MAX:
+        return f"d = {model.size} > {D_MAX}, the custom-target kernels' bound"
+    if isinstance(s, (HMC, HMCDA)) and s.store_leaps:
+        return f"{name}(store_leaps=True) keeps every leapfrog"
+    if isinstance(s, (HMC, HMCDA, ChEESHMC)) \
+            and s.integrator not in _INTEGRATORS:
+        return f"the {s.integrator!r} integrator has no kernel"
+    if type(s) is NUTS and s.warm_handoff:
+        return ("NUTS(warm_handoff=True) has no fused continuation in the "
+                "port (ROADMAP queue 1: the warm handoff)")
+    if isinstance(s, (HMC, HMCDA, ChEESHMC)) or type(s) in (MALA, NUTS):
+        return None
+    return f"{name} has no fused continuation"
 
 
-def warmfused_target_chains(model, sampler, runner, n_chains, generator):
-    """Adaptive HMC, HMCDA or MALA on a catalog target: warmup on the
-    generic engine, then the sampling phase at the frozen step, leap count
-    and diagonal metric through the custom-target trajectory kernel
-    (warmstart.py ``warmfused_target_chains``), with the freeze rules of the
-    GLM pipeline.  Returns ``(infos, final_states)`` as
-    :func:`warmfused_hmc_chains` does."""
+def continue_eligible(task, states=None):
+    """True when a stored task's state can continue through the fused
+    kernels (warmstart.py ``continue_eligible``): HMC (fixed or adapted,
+    unit or diagonal metric), HMCDA, MALA, ChEES-HMC or exact NUTS, without
+    ``store_leaps`` and with a kernel integrator, on a GLM posterior or a
+    model of at most ``D_MAX`` parameters.  ``NUTS(warm_handoff=True)``
+    states are refused: the port has no handoff continuation."""
+    return _continue_refusal(task, states) is None
+
+
+def make_fused_continuation(model, sampler, states0):
+    """Freeze and fold once from ``states0``; returns ``continue_fn(states,
+    steps, generator, i0=None) -> (infos, new_states)``, which reuses the
+    folded design, prior and frozen hyper-parameters across segments of the
+    same frozen run (warmstart.py ``make_fused_continuation``).  It is the
+    sampling phase of the warm pipeline (:func:`warmfused_chains`) as well
+    as of a resumed batch.
+
+    The hyper-parameters are read from the states with the warm
+    pipeline's freeze: after a warm-fused run they are already pooled and
+    equal across chains; after a generic adaptive run the same median and
+    RMS pooling applies.
+    - HMC, HMCDA, MALA: :func:`_freeze`; ``T = 2 nl eps`` with
+      ``max_leaps = max(2 nl, 2)``, or ``T = eps`` and one leap for MALA.
+      A fixed-length ``HMC(nl, eps)`` continues with the same shared Halton
+      leap counts in ``[1, 2 nl]``, as the JAX package does.
+    - ChEES: the median ``dual_leap_step``, ``T = exp(median log_len)``,
+      the sampler's ``max_leaps``; rows ``alpha``/``epsilon``/``nleaps``.
+    - exact NUTS: ``eps = median(exp(lebar))``; rows
+      ``epsilon``/``ndoublings``/``diverging``.
+    A diagonal metric folds into the design on a GLM and rides the step row
+    on a catalog target.  Each segment's Halton index starts at ``i0``,
+    by default ``max(states.i)``, so successive segments extend one
+    sequence.  Routes:
+    on a GLM up to ``BIGN_THRESHOLD`` observations the Halton multistep
+    kernel (3b) or the NUTS kernels (9 when ``steps`` has a divisor in
+    [2, 8] on the card, else 8), above it the N-tiled gradient kernel (4);
+    on a catalog target the trajectory kernel (5) or target-mode NUTS (8b).
+    The dense metric and ``mesh=`` are not ported (ROADMAP queue 1)."""
+    from ..samplers.chees import ChEESHMC
     from ..samplers.mala import MALA
-
-    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
-    eps, nl, s = _freeze(sampler, states_w)
-    steps2 = runner.len - runner.burnin
-    mala = type(sampler) is MALA
-    T = eps if mala else 2.0 * nl * eps
-    max_leaps = 1 if mala else max(2 * nl, 2)
-    (thetaF, _, _), infos2 = _dyn_target_phase(
-        model, getattr(sampler, "integrator", "leapfrog"), eps, T, max_leaps,
-        s, states_w, steps2, runner.burnin + 1, generator)
-    infos, theta = _unfold_cat(infos_w, infos2, thetaF, None)
-    states = _frozen_states(model, sampler, states_w, theta, eps, nl, steps2)
-    return infos, states
-
-
-def warmfused_chees_chains(model, sampler, runner, n_chains, generator):
-    """ChEES-HMC: the pooled adaptation (dual averaging and Adam on log T
-    through the sampler's pool hook) on the generic engine for the burn-in,
-    then the sampling phase at the frozen ``eps = median(dual_leap_step)``
-    and ``T = exp(median(log_len))`` with the sampler's ``max_leaps``
-    (warmstart.py ``warmfused_chees_chains``): on a GLM through the Halton
-    multistep kernel (N up to ``BIGN_THRESHOLD``) or the N-tiled gradient
-    kernel, on a catalog target through the trajectory kernel.  Infos carry
-    ``alpha``/``epsilon``/``nleaps``; the final states are the warmup's,
-    reset at the last positions."""
-    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
-    # the median, as every freeze: after the pool hook the values are shared
-    eps = _median(states_w.dual_leap_step)
-    T = float(np.exp(np.median(states_w.log_len.double().cpu().numpy())))
-    s = _pool_mass(sampler._kind, states_w)
-    steps2 = runner.len - runner.burnin
-    i0 = runner.burnin + 1
-    spec = model.glm_spec
-    if spec is None:
-        (thetaF, _, _), infos2 = _dyn_target_phase(
-            model, sampler.integrator, eps, T, sampler.max_leaps, s, states_w,
-            steps2, i0, generator)
-        fold_s = None
-    else:
-        XT, Y, theta0, lam, W, O = _fold(spec, states_w, s)
-        kw = dict(steps=steps2, i0=i0, max_leaps=sampler.max_leaps,
-                  kind=spec.kind, W=W, O=O, lam=lam,
-                  integrator=sampler.integrator)
-        use_ms, kt = _ms_route(spec, steps2)
-        if use_ms:
-            (thetaF, _, _), infos2 = _chees_run_ms(XT, Y, theta0, eps, T,
-                                                   generator, k_trans=kt,
-                                                   **kw)
-        else:
-            (thetaF, _, _), infos2 = _chees_run_bign(XT, Y, theta0, eps, T,
-                                                     generator, **kw)
-        fold_s = s
-    infos2["epsilon"] = torch.full_like(infos2["plogtarget"], eps)
-    infos, theta = _unfold_cat(infos_w, infos2, thetaF, fold_s,
-                               extra_keys=("alpha", "epsilon", "nleaps"))
-    states = sampler.reset(model, states_w, theta.to(model.device,
-                                                     model.dtype))
-    return infos, states.replace(i=states.i + steps2)
-
-
-def warmfused_nuts_exact_chains(model, sampler, runner, n_chains, generator):
-    """Exact No-U-Turn warm pipeline: adaptive warmup (dual averaging and an
-    optional diagonal metric) on the generic engine; the sampling phase runs
-    the same exact NUTS sampler (per-chain directions, slice or multinomial
-    leaf selection, span and overall u-turn rules, divergence gate) through
-    the fused tree-build kernels at the frozen step.  On a GLM the pooled
-    metric folds into the design; on a catalog target it rides the
-    target-mode kernel's step row ``eps * s`` (whose first entry the
-    ``epsilon`` rows then report, as in the JAX package).  Returns
-    ``(infos, final_states)`` in the protocol of
-    :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`."""
+    from ..samplers.nuts import NUTS
     from .nuts_kernels import _nuts_run, _nuts_run_hw, _nuts_target_run
 
     spec = model.glm_spec
-    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
-    # frozen dual-averaged step (exp(log eps-bar)), pooled by the median
-    eps = float(np.median(np.exp(states_w.lebar.double().cpu().numpy())))
-    s = _pool_mass(sampler._kind, states_w)
-    steps2 = runner.len - runner.burnin
-    if spec is None:
-        (thetaF, _, _), infos2 = _nuts_target_run(
-            model.target_spec, states_w.pars.to(torch.float32).contiguous(),
-            _eps_row(eps, s), generator, steps=steps2,
-            maxdoublings=sampler.maxdoublings,
-            multinomial=sampler.multinomial)
-        fold_s = None
+    integrator = getattr(sampler, "integrator", "leapfrog")
+    chees = isinstance(sampler, ChEESHMC)
+    nuts = type(sampler) is NUTS
+    nl = T = max_leaps = None
+    if chees:
+        eps = _median(states0.dual_leap_step)
+        T = float(np.exp(np.median(states0.log_len.double().cpu().numpy())))
+        s = _pool_mass(sampler._kind, states0)
+        max_leaps = sampler.max_leaps
+        extras = ("alpha", "epsilon", "nleaps")
+    elif nuts:
+        eps = float(np.median(np.exp(states0.lebar.double().cpu().numpy())))
+        s = _pool_mass(sampler._kind, states0)
+        extras = ("epsilon", "ndoublings", "diverging")
     else:
-        XT, Y, theta0, lam, W, O = _fold(spec, states_w, s)
-        use_hw, kt = _nuts_hw_route(model, steps2)
-        kw = dict(steps=steps2, maxdoublings=sampler.maxdoublings,
-                  kind=spec.kind, W=W, O=O, lam=lam,
-                  multinomial=sampler.multinomial)
-        if use_hw:
-            (thetaF, _, _), infos2 = _nuts_run_hw(XT, Y, theta0, eps,
-                                                  generator, k_trans=kt, **kw)
-        else:
-            (thetaF, _, _), infos2 = _nuts_run(XT, Y, theta0, eps, generator,
-                                               **kw)
-        fold_s = s
-    infos, theta = _unfold_cat(
-        infos_w, infos2, thetaF, fold_s,
-        extra_keys=("epsilon", "ndoublings", "diverging"))
+        eps, nl, s = _freeze(sampler, states0)
+        mala = type(sampler) is MALA
+        T = eps if mala else 2.0 * nl * eps
+        max_leaps = 1 if mala else max(2 * nl, 2)
+        extras = ()
+    nuts_kw = (dict(maxdoublings=sampler.maxdoublings,
+                    multinomial=sampler.multinomial) if nuts else {})
 
-    states = sampler.reset(model, states_w, theta.to(model.dtype))
-    full = lambda v: torch.full((n_chains,), v, dtype=states.epsilon.dtype,  # noqa: E731
-                                device=states.epsilon.device)
-    states = states.replace(epsilon=full(eps), lebar=full(float(np.log(eps))),
-                            i=states.i + steps2)
+    if spec is not None:
+        XT, Y, lam, W, O = _fold(spec, s)
+        kw = dict(kind=spec.kind, W=W, O=O, lam=lam)
+
+        def run_phase(states, steps, i0, generator):
+            theta0 = _fold_theta(states.pars, s)
+            if nuts:
+                use_hw, kt = _nuts_hw_route(model, steps)
+                if use_hw:
+                    return _nuts_run_hw(XT, Y, theta0, eps, generator,
+                                        steps=steps, k_trans=kt, **nuts_kw,
+                                        **kw)
+                return _nuts_run(XT, Y, theta0, eps, generator, steps=steps,
+                                 **nuts_kw, **kw)
+            hkw = dict(steps=steps, i0=i0, max_leaps=max_leaps,
+                       integrator=integrator, **kw)
+            use_ms, kt = _ms_route(spec, steps)
+            if use_ms:
+                return _chees_run_ms(XT, Y, theta0, eps, T, generator,
+                                     k_trans=kt, **hkw)
+            return _chees_run_bign(XT, Y, theta0, eps, T, generator, **hkw)
+
+        fold_s = s
+    else:
+        eps_in = _eps_row(eps, s)
+
+        def run_phase(states, steps, i0, generator):
+            if nuts:
+                return _nuts_target_run(
+                    model.target_spec,
+                    states.pars.to(torch.float32).contiguous(), eps_in,
+                    generator, steps=steps, **nuts_kw)
+            return _dyn_target_phase(model, integrator, eps, T, max_leaps, s,
+                                     states, steps, i0, generator)
+
+        fold_s = None
+
+    def continue_fn(states, steps, generator, i0=None):
+        i0 = int(states.i.max()) if i0 is None else i0
+        (thetaF, _, _), infos2 = run_phase(states, steps, i0, generator)
+        if chees:
+            infos2["epsilon"] = torch.full_like(infos2["plogtarget"], eps)
+        infos, theta = _unfold(infos2, thetaF, fold_s, extra_keys=extras)
+        theta = theta.to(model.device, states.pars.dtype)
+        if not (chees or nuts):
+            return infos, _frozen_states(model, sampler, states, theta, eps,
+                                         nl, steps)
+        out = sampler.reset(model, states, theta)
+        if nuts:
+            out = out.replace(epsilon=torch.full_like(out.epsilon, eps),
+                              lebar=torch.full_like(out.lebar,
+                                                    float(np.log(eps))))
+        return infos, out.replace(i=out.i + steps)
+
+    return continue_fn
+
+
+def fused_continue_chains(model, sampler, states, steps, generator):
+    """One fused continuation of a batch of ``steps`` transitions from
+    ``states`` on ``generator`` (warmstart.py ``fused_continue_chains``):
+    :func:`make_fused_continuation` applied once.  Returns ``(infos,
+    final_states)`` in :func:`~..parallel.pchains.run_chains`'s protocol."""
+    return make_fused_continuation(model, sampler, states)(states, steps,
+                                                           generator)
+
+
+def warmfused_chains(model, sampler, runner, n_chains, generator):
+    """The warm pipeline of every family :func:`warm_eligible` admits
+    (warmstart.py ``warmfused_hmc_chains``, ``warmfused_target_chains``,
+    ``warmfused_chees_chains`` and ``warmfused_nuts_exact_chains``): the
+    adaptive warmup on the generic engine for the burn-in, then the
+    sampling phase at the frozen hyper-parameters through the fused
+    kernels, :func:`make_fused_continuation` of the warmup's states with
+    the Halton index starting at ``runner.burnin + 1``.  Returns ``(infos,
+    final_states)`` in the protocol of
+    :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`: infos cover all
+    ``runner.len`` transitions, the warmup's rows and then the sampling
+    phase's, in the warmup's types."""
+    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
+    infos2, states = make_fused_continuation(model, sampler, states_w)(
+        states_w, runner.len - runner.burnin, generator,
+        i0=runner.burnin + 1)
+    infos = {k: torch.cat([infos_w[k], v.to(infos_w[k].dtype)])
+             for k, v in infos2.items()}
     return infos, states

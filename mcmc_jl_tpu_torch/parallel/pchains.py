@@ -19,7 +19,10 @@ MALA go to the custom-target kernels (ops/target_kernels.py), and the
 adaptive samplers and exact NUTS to the warm-start pipeline's target arms;
 other custom targets run on the generic engine.  Samplers that adapt from
 cross-chain statistics (ChEES-HMC) expose ``pool``, which the engine calls
-after every step.
+after every step.  ``presume_serialmc`` is the batched resume: a list of
+chains re-batches by group, and frozen HMC-family and exact-NUTS groups
+continue through the same kernels (``continuation_route``,
+ops/warmstart.py ``fused_continue_chains``).
 """
 from __future__ import annotations
 
@@ -242,23 +245,11 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
             tgt_fn = (fused_mala_target_chains if _plain_mala(t)
                       else fused_target_chains)
             infos, final_states = tgt_fn(t.model, t.sampler, t.runner, n, gen)
-        elif route == "warm":
-            from ..ops import warmstart
-            from ..samplers.chees import ChEESHMC
+        elif route in ("warm", "nuts"):
+            from ..ops.warmstart import warmfused_chains
 
-            if isinstance(t.sampler, ChEESHMC):
-                warm_fn = warmstart.warmfused_chees_chains
-            elif t.model.glm_spec is None:
-                warm_fn = warmstart.warmfused_target_chains
-            else:
-                warm_fn = warmstart.warmfused_hmc_chains
-            infos, final_states = warm_fn(t.model, t.sampler, t.runner, n,
-                                          gen)
-        elif route == "nuts":
-            from ..ops.warmstart import warmfused_nuts_exact_chains
-
-            infos, final_states = warmfused_nuts_exact_chains(
-                t.model, t.sampler, t.runner, n, gen)
+            infos, final_states = warmfused_chains(t.model, t.sampler,
+                                                   t.runner, n, gen)
         else:
             infos, final_states, _ = run_chains(t.model, t.sampler, t.runner,
                                                 n, generator=gen)
@@ -268,10 +259,13 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
 
 
 def _package_group(t, runner, idxs, infos, final_states, generator, results,
-                   t0):
+                   t0, pos_list=None):
     """Slice kept rows on the device, copy once to the host, and build one
     MCMCChain per task index.  Each chain's task carries its own slice of
-    the final state and its own generator state for an exact resume."""
+    the final state and its own generator state for an exact resume.
+    ``pos_list`` (aligned with ``idxs``) gives each task's own step count
+    before this run: the chains of a resumed group may have been resumed a
+    different number of times."""
     keep_idx = torch.as_tensor(np.asarray(list(runner.r)) - 1,
                                device=infos["plogtarget"].device)
     drop = {"pars", "grads", "logtarget"}
@@ -299,8 +293,9 @@ def _package_group(t, runner, idxs, infos, final_states, generator, results,
         diags["logtarget"] = host["plogtarget"][:, ci]
         state_i = tree_map(lambda a: a[ci], final_states)
         g.manual_seed(seeds[ci])
+        pos0 = t.pos if pos_list is None else pos_list[ci]
         new_task = MCMCTask(t.model, t.sampler, runner, state=state_i,
-                            key=g.get_state(), pos=t.pos + runner.len)
+                            key=g.get_state(), pos=pos0 + runner.len)
         results[idx] = MCMCChain(
             range=runner.r,
             samples=samples,
@@ -309,3 +304,105 @@ def _package_group(t, runner, idxs, infos, final_states, generator, results,
             task=new_task,
             run_time=time.time() - t0,
         )
+
+
+def continuation_route(model, sampler, n, fused="auto", states=None):
+    """Decide before any launch how a batch of ``n`` stored states
+    continues (pchains.py ``continuation_route``): "warm" (HMC, HMCDA,
+    MALA or ChEES through the Halton multistep kernel, the N-tiled kernel
+    or the custom-target trajectory kernel), "nuts" (exact NUTS through the
+    GLM or target-mode NUTS kernels) or False (the generic engine), with the
+    reason logged.  ``fused`` as in :func:`prun_serialmc`: False never
+    fuses, "auto" fuses a model held in float32 on a CUDA device, True
+    whenever the kernels take the shape (their plain versions on the CPU).
+    Nothing is probed: a kernel that fails to build or launch raises."""
+    from ..ops.warmstart import _continue_refusal
+    from ..samplers.nuts import NUTS
+
+    def generic(why):
+        log.info("resume: %s; continuing %d %s chains on the generic torch "
+                 "engine", why, n, type(sampler).__name__)
+        return False
+
+    if fused is False:
+        return generic("fused=False")
+    why = _continue_refusal(MCMCTask(model, sampler, None), states)
+    if why is not None:
+        return generic(why)
+    if fused == "auto" and not (model.device.type == "cuda"
+                                and model.dtype == torch.float32):
+        return generic(f"the model is held in {model.dtype} on "
+                       f"{model.device.type}, and fused='auto' takes CUDA "
+                       f"float32 models")
+    route = "nuts" if type(sampler) is NUTS else "warm"
+    why = _kernel_shape_ok(model, route, sampler)
+    if why is not None:
+        return generic(why)
+    return route
+
+
+def presume_serialmc(chains, steps: int = 100, seed: int = 0, fused="auto"):
+    """Batched resume of a list of SerialMC chains or tasks
+    (pchains.py ``presume_serialmc``): the long-continuation workflow of
+    the reference (runners.jl:48-68) at prun scale.
+
+    The list splits into groups of one model, sampler, runner type and
+    thinning, in the list's order; each group's states stack into one
+    batch on the model's device and continue ``steps`` transitions under a
+    new ``SerialMC(steps=steps, thinning=...)``: frozen HMC-family and
+    exact-NUTS states through :func:`~..ops.warmstart.fused_continue_chains`
+    when :func:`continuation_route` allows it, every other group on the
+    generic engine (its adaptation is burn-in gated and does not fire).  A
+    task that has never run resumes alone through ``resume_serialmc``.
+    Each chain's ``pos`` advances from its own.
+
+    The group's generator comes from the first member's stored generator
+    state (the JAX package's ``fold_in(key, 7)``): one seed drawn from it
+    seeds the run, so resuming the same list twice gives the same bits, and
+    resuming the result, whose tasks carry new states, draws a new stream.
+    The other members' stored states are not used.  A group whose first
+    task has no stored generator state takes one from ``seed`` and the
+    group's index."""
+    from ..ops.warmstart import fused_continue_chains
+    from ..runners.serialmc import SerialMC, resume_serialmc
+
+    t0 = time.time()
+    tasks = [c.task if isinstance(c, MCMCChain) else c for c in chains]
+    groups = {}
+    for idx, t in enumerate(tasks):
+        sig = (id(t.model), t.sampler, type(t.runner), t.runner.thinning)
+        groups.setdefault(sig, []).append(idx)
+
+    results = [None] * len(tasks)
+    for gi, idxs in enumerate(groups.values()):
+        t = tasks[idxs[0]]
+        if any(tasks[i].state is None for i in idxs):
+            for i in idxs:
+                results[i] = resume_serialmc(tasks[i], steps=steps)
+            continue
+        n, dev = len(idxs), t.model.device
+        new_runner = SerialMC(steps=steps, thinning=t.runner.thinning)
+        states = tree_map(lambda *xs: torch.stack([x.to(dev) for x in xs]),
+                          *[tasks[i].state for i in idxs])
+        if t.key is None:
+            gen = make_generator(dev, seed * 1_000_003 + gi)
+        else:
+            base = make_generator(dev, state=t.key)
+            gen = make_generator(dev, torch.randint(
+                0, 2 ** 62, (1,), generator=base, device=dev).item())
+        route = continuation_route(t.model, t.sampler, n, fused,
+                                   states=states)
+        if route and fused == "auto":
+            log.info("resume: continuing %d %s chains on the fused CUDA "
+                     "kernels (f32, %s route); pass fused=False for the "
+                     "generic engine", n, type(t.sampler).__name__, route)
+        if route:
+            infos, final_states = fused_continue_chains(
+                t.model, t.sampler, states, steps, gen)
+        else:
+            infos, final_states, _ = run_chains(t.model, t.sampler,
+                                                new_runner, n, generator=gen,
+                                                states=states)
+        _package_group(t, new_runner, idxs, infos, final_states, gen,
+                       results, t0, pos_list=[tasks[i].pos for i in idxs])
+    return results

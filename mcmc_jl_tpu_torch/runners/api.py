@@ -5,7 +5,8 @@ reference: src/runners/runners.jl).
 ``resume`` continues a chain; ``prun`` is the multi-chain engine (the
 reference's Julia-``pmap`` backend, runners.jl:35-42, redesigned as chains
 on a leading tensor dimension — see :mod:`mcmc_jl_tpu_torch.parallel`).
-Only the SerialMC runner is ported; the others are ROADMAP queue 1 item 14.
+Only the SerialMC runner is ported; the others are ROADMAP queue 1's
+ensemble runners.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from .serialmc import SerialMC, run_serialmc, resume_serialmc
 
 def _not_ported(runner):
     return NotImplementedError(
-        f"runner {type(runner).__name__} is not ported yet (ROADMAP queue 1 "
-        f"item 14); the port runs SerialMC")
+        f"runner {type(runner).__name__} is not ported yet (ROADMAP queue 1: "
+        f"the ensemble runners); the port runs SerialMC")
 
 
 def _as_task(x, *rest):
@@ -65,14 +66,24 @@ def run(x, *rest, seed: int = 0, chains: Optional[int] = None, **kwargs):
     raise _not_ported(t.runner)
 
 
-def resume(x, *, steps: int = 100):
+def resume(x, *, steps: int = 100, **kwargs):
     """Continue a chain/task where it stopped (runners.jl:48-68) — exactly,
     since the sampler state and the generator state travel on the task.  A
-    list resumes chain by chain."""
+    list of SerialMC chains re-batches by group and continues each group as
+    one batch, through the fused kernels where the frozen state allows
+    (:func:`mcmc_jl_tpu_torch.parallel.pchains.presume_serialmc`;
+    ``fused=`` and ``seed=`` are passed on to it)."""
     if isinstance(x, MCMCChain):
-        return resume(x.task, steps=steps)
+        return resume(x.task, steps=steps, **kwargs)
     if isinstance(x, (list, tuple)):
-        return [resume(c, steps=steps) for c in x]
+        last = x[-1]
+        runner = last.task.runner if isinstance(last, MCMCChain) \
+            else last.runner
+        if not isinstance(runner, SerialMC):
+            raise _not_ported(runner)
+        from ..parallel.pchains import presume_serialmc
+
+        return presume_serialmc(list(x), steps=steps, **kwargs)
     if not isinstance(x, MCMCTask):
         raise TypeError(f"cannot resume {type(x).__name__}")
     if isinstance(x.runner, SerialMC):

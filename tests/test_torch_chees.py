@@ -2,10 +2,10 @@
 route against the JAX package's, on the CPU: the cross-chain ``pool``
 arithmetic on identical states in float64, the batched step with per-chain
 leap counts, the engine's pool hook, the generic run against JAX's
-statistically, and ``warmfused_chees_chains`` on a GLM (Halton multistep
-kernel; the N-tiled kernel above a lowered threshold) and on a catalog
-target (the trajectory kernel) against the generic engine, where the
-wrappers run their plain versions."""
+statistically, and the warm pipeline (``warmfused_chains``) on a GLM
+(Halton multistep kernel; the N-tiled kernel above a lowered threshold)
+and on a catalog target (the trajectory kernel) against the generic
+engine, where the wrappers run their plain versions."""
 import dataclasses
 import math
 
