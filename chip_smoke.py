@@ -26,7 +26,14 @@ chains=4096)`` for Gamma(3, 0.2), Normal(1, 1) and Laplace(0, 1), plain
 on a catalog model of ten bare distributions (exact NUTS with and without
 a diagonal metric through the target-mode NUTS kernel, adaptive HMC,
 MALA and ChEES through the trajectory kernel), checked against the exact
-moments.  Then ``resume(chains, steps=S)`` continues the chains of seven
+moments.  The dense metric (``mass_adapt="dense"``) runs through the
+matrix-prior variants of kernels 3b, 4, 8 and 9: adaptive HMC and NUTS on
+the logistic GLM at N = 1000 (4096 chains) and N = 100,000 (512 chains),
+the NUTS run's resume, and ``benchmarks/benchunits/mass_metric.py``'s
+correlated Gaussian as a linear GLM, held to its known covariance, with
+its ESS/s beside the diagonal metric's; the four variants are then held
+against their plain versions on those runs' own folds.  Then
+``resume(chains, steps=S)`` continues the chains of seven
 of these runs, each as one batch through the kernels its frozen state
 takes (3b, 9, 8, 4, 5 and 8b), with the frozen hyper-parameters, ``pos``,
 the moments and repeatability checked and the time beside a chain-by-chain
@@ -89,6 +96,18 @@ REPLACES = {
     # no Pallas kernel: the generic engine's gradient on a catalog model,
     # which the JAX package leaves to XLA (jax.value_and_grad of the model)
     "target_logp_grad": ("target_hmc", "mcmc_jl_tpu/models/model.py:361"),
+    # the mat_prior=True variants (the dense-metric fold's (d, d) prior;
+    # the Pallas prior term at pallas_glm.py:170, pallas_glm_bign.py:84,
+    # pallas_nuts.py:123-127 and :855-859): one kernel each, selected by a
+    # non-null matrix, counted apart
+    "glm_multistep_rows_mat": ("glm_hmc",
+                               "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_logp_grad_tiled_mat": ("glm_bign",
+                                "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    "glm_nuts_transition_mat": ("glm_nuts",
+                                "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_mat": ("glm_nuts",
+                               "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -277,6 +296,12 @@ def phase_build(names=None):
         for ln in ptxas:
             if "spill" in ln:
                 print(f"ptxas {name} {ln}", flush=True)
+
+
+def _mat_or_none(prior):
+    """``prior`` when it is a (d, d) matrix (the dense fold), else None: the
+    wrappers' ``_counted`` then names the variant a check ran."""
+    return prior if getattr(prior, "ndim", 0) == 2 else None
 
 
 def _err(a, b):
@@ -574,9 +599,11 @@ def _event_ms(fn, reps=3):
     return float(np.median(ts))
 
 
-def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200):
+def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200,
+                 reps=3):
     """Leapfrog/s of the drivers at bench.py's shape (bench.py phases 1-2
-    plus the step kernel's driver), beside the plain version's."""
+    plus the step kernel's driver; the median of ``reps`` runs after one
+    warm-up), beside the plain version's."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
@@ -596,7 +623,7 @@ def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200):
                                           fused_step=True),
     }
     for name, fn in runs.items():
-        sec = _time(fn)
+        sec = _time(fn, reps=reps)
         rates[name] = lf / sec
         emit({"phase": "timing", "driver": name, "C": C, "transitions": steps,
               "n_leaps": n_leaps, "seconds": sec,
@@ -616,14 +643,16 @@ def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200):
 
 def _logistic_mode(X, Y, W=None, O=None, lam=1.0, iters=30):
     """Posterior mode of a weighted, offset logistic GLM by Newton steps, so
-    that the kernel checks start where the chains sample."""
+    that the kernel checks start where the chains sample; ``lam`` a scalar,
+    a (d,) row or a (d, d) prior precision matrix."""
     W = np.ones(len(Y)) if W is None else W
     O = np.zeros(len(Y)) if O is None else O
     b = np.zeros(X.shape[1])
+    P = np.asarray(lam) if np.ndim(lam) == 2 else lam * np.eye(len(b))
     for _ in range(iters):
         p = 1.0 / (1.0 + np.exp(-(X @ b + O)))
-        g = X.T @ (W * (Y - p)) - lam * b
-        H = X.T @ (X * (W * p * (1 - p))[:, None]) + lam * np.eye(len(b))
+        g = X.T @ (W * (Y - p)) - P @ b
+        H = X.T @ (X * (W * p * (1 - p))[:, None]) + P
         b = b + np.linalg.solve(H, g)
     return b
 
@@ -684,8 +713,10 @@ def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
           and _close(thk[same], thr[same], RTOL, ATOL)
           and _close(gk_[same], gr[same], RTOL, G_ATOL * scale)
           and _close(lpk[same], lpr[same], LP_RTOL, LP_ATOL * scale))
-    emit({"phase": "kernel", "name": "glm_nuts_transition", "case": label,
-          "C": C, "eps": eps, "ok": ok, "bitwise_repeat": bitwise,
+    emit({"phase": "kernel", "name": nk._counted(
+        "glm_nuts_transition", _mat_or_none(kw.get("prior_prec"))),
+          "case": label, "C": C, "eps": eps, "ok": ok,
+          "bitwise_repeat": bitwise,
           "path_differ": int(C - same.sum()),
           "mean_ndoublings": float(ndr.float().mean()),
           "chains_at_maxdoublings": int((ndr == md).sum()),
@@ -738,8 +769,10 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
           and _close(out_k[2][same], out_r[2][same], LP_RTOL,
                      LP_ATOL * scale)
           and bool((rk["accept"][:, same] == rr["accept"][:, same]).all()))
-    emit({"phase": "kernel", "name": "glm_nuts_multistep", "case": label,
-          "draws": "the kernel's, replayed", "C": C, "k_trans": k, "eps": eps,
+    emit({"phase": "kernel", "name": nk._counted(
+        "glm_nuts_multistep", _mat_or_none(kw.get("prior_prec"))),
+          "case": label, "draws": "the kernel's, replayed", "C": C,
+          "k_trans": k, "eps": eps,
           "ok": ok, "bitwise_repeat": bitwise,
           "path_differ": int(C - same.sum()),
           "mean_ndoublings": float(nd.float().mean()),
@@ -1041,7 +1074,7 @@ def phase_nuts_timing(start, md=6, k_trans=5,
     return ms, work
 
 
-def _nuts_leaves(XT, Y, th, lp, g, eps, md, noise_sets):
+def _nuts_leaves(XT, Y, th, lp, g, eps, md, noise_sets, prior=1.0):
     """Each chain's leaf count (int64, (C,)) over the transitions whose
     noise ``noise_sets`` holds (one draw_noise tuple each), chained from
     (th, lp, g), from the plain version's tree build: the work the NUTS
@@ -1051,7 +1084,7 @@ def _nuts_leaves(XT, Y, th, lp, g, eps, md, noise_sets):
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
     from mcmc_jl_tpu_torch.ops.glm_kernels import glm_funcs
 
-    logp_grad = glm_funcs(XT, Y, None, None, 1.0, "logistic")[1]
+    logp_grad = glm_funcs(XT, Y, None, None, prior, "logistic")[1]
     leaves = torch.zeros(th.shape[0], dtype=torch.int64, device=th.device)
     lp = lp.reshape(-1)
     for noise in noise_sets:
@@ -1306,9 +1339,11 @@ def _tiled_case(label, XT, Y, theta, kind="logistic", W=None, O=None,
         r, ll = resid_fn(z, Y64), ll_fn(z, Y64)
         if W64 is not None:
             r, ll = W64 * r, W64 * ll
-        pg = lam64 * th
-        mass = {"g": r.abs() @ XT64.abs().T + pg.abs(),
-                "lp": ll.abs().sum(-1) + 0.5 * (pg * th).abs().sum(-1)}
+        # the prior's terms: lam theta, or with a (d, d) matrix theta A
+        pg = (th.abs() @ lam64.abs() if getattr(lam64, "ndim", 0) == 2
+              else (lam64 * th).abs())
+        mass = {"g": r.abs() @ XT64.abs().T + pg,
+                "lp": ll.abs().sum(-1) + 0.5 * (pg * th.abs()).sum(-1)}
         del z, r, ll
         for key, a, b in (("g", g, g_r), ("lp", lp, lp_r)):
             diff = (a[c0:c0 + chunk].double() - b).abs()
@@ -1316,7 +1351,9 @@ def _tiled_case(label, XT, Y, theta, kind="logistic", W=None, O=None,
             rel[key] = max(rel[key], float((diff / mass[key]).max()))
     ok = (bitwise and rel["g"] <= TILED_G_L1 and rel["lp"] <= TILED_LP_L1
           and bool(torch.isfinite(lp).all() and torch.isfinite(g).all()))
-    emit({"phase": "kernel", "name": "glm_logp_grad_tiled", "case": label,
+    emit({"phase": "kernel", "name": gb._counted("glm_logp_grad_tiled",
+                                               _mat_or_none(lam)),
+          "case": label,
           "C": theta.shape[0], "N": XT.shape[1], "d": XT.shape[0], "ok": ok,
           "bitwise_repeat": bitwise, "max_abs_err_g": err["g"],
           "max_abs_err_lp": err["lp"], "max_err_over_l1_mass_g": rel["g"],
@@ -1576,11 +1613,14 @@ def _rows_check(label, XT, Y, theta, eps, T, i0, max_leaps, k, seed,
           and all(bool(torch.isfinite(a).all()) for a in out_k[:3])
           and bool(torch.isfinite(rk["plogtarget"]).all())
           and (not mix or 0 < rate < 1))
-    emit({"phase": "kernel", "name": "glm_multistep_rows", "case": label,
-          "draws": "the kernel's, replayed", "C": C, "N": XT.shape[1],
+    emit({"phase": "kernel", "name": gk._counted("glm_multistep_rows",
+                                               _mat_or_none(prior)),
+          "case": label, "draws": "the kernel's, replayed", "C": C,
+          "N": XT.shape[1],
           "d": d, "k_trans": k, "i0": i0, "eps": eps, "T": T,
           "max_leaps": max_leaps, "nleaps": want,
-          "prior": "(d,) row" if hasattr(prior, "shape") else prior,
+          "prior": (("(d, d) matrix" if prior.ndim == 2 else "(d,) row")
+                    if hasattr(prior, "shape") else prior),
           "integrator": kw.get("integrator", "leapfrog"),
           "kind": kw.get("kind", "logistic"), "ok": ok,
           "bitwise_repeat": bitwise, "nleaps_exact": nl_ok,
@@ -3109,10 +3149,12 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     every count zeroed just before it and read just after, no plain call,
     and held against the target's exact first and second moments:
 
-    - ``NUTS(maxdoublings=6) * SerialMC(1500, 500)`` and ``NUTS(6,
+    - ``NUTS(maxdoublings=6) * SerialMC(1300, 300)`` and ``NUTS(6,
       mass_adapt="diag") * SerialMC(1500, 500)`` at 4096 chains
-      (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner):
-      1000 launches of kernel 8b each;
+      (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner, the
+      unit-metric run's burn-in cut to 300 to keep the script under 600 s;
+      the diagonal metric needs its 500: at 300 it missed the exact
+      moments at z 6.3): 1000 launches of kernel 8b each;
     - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
       SerialMC(3500, 500)`` at 4096 chains (examples/warmstart_logistic.py
       :38's sampler): 3000 launches of kernel 5 with the (d,) step row (the
@@ -3156,7 +3198,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     narrow = [j for j, (_, dist, _) in enumerate(bare)
               if float(dist.std()) <= NARROW_SD]
     runs = (
-        (mt.NUTS(maxdoublings=6), 1500, 500, chains,
+        (mt.NUTS(maxdoublings=6), 1300, 300, chains,
          "target_nuts_transition", narrow),
         (mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains,
          "target_nuts_transition", None),
@@ -3277,7 +3319,7 @@ def phase_chees_glm_path(hmc_means, chains=4096):
 # generic engine), and one transition on each of them for the fixed cost
 # of a call
 RESUME_STEPS, RESUME_STEPS_PRIME, RESUME_STEPS_BIGN = 120, 101, 40
-RESUME_OLD_CHAINS = 4
+RESUME_OLD_CHAINS = 1
 # the state fields a continuation freezes (whichever a sampler's state has)
 FROZEN_FIELDS = ("tune.step_size", "tune.n_leaps", "leap_step",
                  "dual_leap_step", "log_len", "lebar", "mass.scale")
@@ -3313,7 +3355,7 @@ def _halton_evals(task, steps):
                    for t in range(steps))
 
 
-def _resume_path(label, tasks, steps, want, moments):
+def _resume_path(label, tasks, steps, want, moments, by_chain=True):
     """``resume(tasks, steps=...)`` with every count zeroed just before it
     and read just after (each kernel launched as ``want`` says, no plain
     call), and its checks: the frozen hyper-parameters are the run's bit
@@ -3323,8 +3365,8 @@ def _resume_path(label, tasks, steps, want, moments):
     a repeat from the same list the same bits, a second resume other
     samples.  Times the batched resume beside RESUME_OLD_CHAINS of the
     chains resumed one by one for the same ``steps``, and for one
-    transition each (the fixed cost of a call).  Returns (the resumed
-    chains, the path's summary)."""
+    transition each (the fixed cost of a call), unless not ``by_chain``.
+    Returns (the resumed chains, the path's summary)."""
     import torch
 
     import mcmc_jl_tpu_torch as mt
@@ -3363,7 +3405,7 @@ def _resume_path(label, tasks, steps, want, moments):
     pos_ok &= all(c.task.pos == t.pos + 2 * steps
                   for c, t in zip(second, tasks))
     del second
-    old = tasks[:RESUME_OLD_CHAINS]
+    old = tasks[:RESUME_OLD_CHAINS if by_chain else 0]
     old_s = []
     for n in (steps, 1):
         torch.cuda.synchronize()
@@ -3382,7 +3424,8 @@ def _resume_path(label, tasks, steps, want, moments):
                               "seconds": old_s[0],
                               "per_chain_transition_s":
                                   old_s[0] / (len(old) * steps),
-                              "one_transition_call_s": old_s[1] / len(old)}}
+                              "one_transition_call_s": old_s[1] / len(old)}
+           if old else None}
     emit({"phase": "resume_path", **row, "frozen_bitwise": frozen_ok,
           "nuts_eps_rel_change": eps_rel, "pos_advanced": pos_ok,
           "z_max": z, "repeat_bitwise": repeat_ok,
@@ -3508,6 +3551,398 @@ def phase_resume_paths(held, hmc_means):
     _resume_mixed(held["warm"])
     _resume_checkpoint(glm_resumed, S)
     return rows
+
+
+# ---- the dense metric (mass_adapt="dense"): paths, kernels, times ---------
+
+# mass_metric.py's correlated Gaussian (benchmarks/benchunits/mass_metric.py:
+# 19-23): marginal sds SCALES, every correlation RHO
+GAUSS_SCALES, GAUSS_RHO = np.array([3.0, 1.0, 0.5, 2.0]), 0.95
+# chains of the ESS/s estimate (mass_metric.py's ess_chains), scaled to all
+ESS_CHAINS = 16
+
+
+def _gauss_glm():
+    """mass_metric.py:46-60: the correlated Gaussian as a linear-link GLM
+    with design G, Y = 0 and lam half of P's smallest eigenvalue, so that
+    loglik + prior = -1/2 v' P v with P = Sigma^-1 exactly.  Returns
+    (Sigma, G, lam)."""
+    d = len(GAUSS_SCALES)
+    sig = ((np.full((d, d), GAUSS_RHO) + (1 - GAUSS_RHO) * np.eye(d))
+           * np.outer(GAUSS_SCALES, GAUSS_SCALES))
+    P = np.linalg.inv(sig)
+    lam = 0.5 * float(np.linalg.eigvalsh(P).min())
+    G = np.linalg.cholesky(P - lam * np.eye(d)).T
+    return sig, G, lam
+
+
+def _pooled_factor(cs):
+    """The dense factor the warm pipeline freezes from the chains' states
+    (warmstart._pool_mass: the Cholesky factor of the chains' mean L_c L_c'),
+    as float64 numpy."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops.warmstart import _pool_mass
+    from mcmc_jl_tpu_torch.samplers.base import tree_map
+
+    states = tree_map(lambda *xs: torch.stack(xs),
+                      *[c.task.state for c in cs])
+    return _pool_mass("dense", states).cpu().numpy()
+
+
+def _min_ess_per_s(cs, seconds):
+    """mass_metric.py's ESS/s: the min-coordinate ESS of the first
+    ESS_CHAINS chains summed, scaled to all chains, over the run's
+    seconds.  Returns (min-coordinate ESS per chain, ESS/s)."""
+    import mcmc_jl_tpu_torch as mt
+
+    n = min(ESS_CHAINS, len(cs))
+    tot = sum(float(np.min(mt.ess(c))) for c in cs[:n])
+    return tot / n, tot * (len(cs) / n) / seconds
+
+
+def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
+                      gauss_chains=4096, gauss_steps=(3000, 1000)):
+    """The dense metric through ``run(..., chains=N)``: the adaptive warmup
+    on the generic engine, then the pooled factor L frozen and folded into
+    the design (X L, prior matrix lam L'L), the sampling phase on the
+    matrix-prior variants of kernels 3b, 4, 8 and 9; each run's launches
+    counted from zero (a run that takes the generic engine fails):
+
+    - bench.py's logistic GLM (d 10, N 1000, from the mode), 4096 chains:
+      ``HMC(10, 0.02, EmpMCTuner(0.8, 50), mass_adapt="dense") *
+      SerialMC(2000, 500)`` (3b: 250 launches of 6) and ``NUTS(6,
+      mass_adapt="dense") * SerialMC(699, 200)`` (8: 499), both held
+      against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
+      (9: 15 launches of 8) with _resume_path's checks;
+    - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
+      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(3000, 1000)``
+      (mass_metric.py's SerialMC(6000, 2000) cut by half to keep the
+      script under 600 s; 3b): the chains' means held to 0 and their
+      second moments (the
+      variances and the rho = 0.95 covariances) to the known Sigma by |z|
+      gates; its min-coordinate ESS and ESS/s beside the same run with
+      ``mass_adapt=True`` (3b with the (d,) row);
+    - N 100,000 (bench.py's data, from the mode), 512 chains, ``HMC(10,
+      0.002, EmpMCTuner(0.8, 50), mass_adapt="dense") * SerialMC(150, 50)``
+      (benchunits/bign.py:73's sampler, phase_large_n_paths' SerialMC(200,
+      50) cut to 150 transitions for the script's 600 s; 4), held against
+      ``bign_ref`` (phase_large_n_paths' reference).
+
+    Returns the variants' launches and the folds the kernel checks and
+    times take: {"n1000": (L, eps, n_leaps), "n1e5": (L,), "nuts_eps"}."""
+    import mcmc_jl_tpu_torch as mt
+
+    counts, folds = {}, {}
+    X, Y, mode = _bench_mode(1000)
+    m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+    for sampler, steps, burnin, name, want in (
+            (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
+                    mass_adapt="dense"), 2000, 500,
+             "glm_multistep_rows_mat", 250),
+            (mt.NUTS(6, mass_adapt="dense"), 699, 200,
+             "glm_nuts_transition_mat", 499)):
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = _origin(m, task, chains)
+        cs, samples, launches, dt, spans = _path(origin, task, chains,
+                                                 {name: want})
+        st = cs[0].task.state
+        L = _pooled_factor(cs)
+        if isinstance(sampler, mt.NUTS):
+            frozen = {"frozen_eps": float(cs[0].diagnostics["epsilon"][-1])}
+            folds["nuts_eps"] = frozen["frozen_eps"]
+            nuts_tasks = [c.task for c in cs]
+        else:
+            frozen = {"frozen_step": st.tune.step_size.item(),
+                      "frozen_n_leaps": st.tune.n_leaps.item()}
+            folds["n1000"] = (L, frozen["frozen_step"],
+                              frozen["frozen_n_leaps"])
+        z = _z_means(samples.mean(1), hmc_means)
+        emit({"phase": "dense_path", "kernel": name, "from": origin,
+              "chains": chains, "seconds": dt, "spans_s": spans,
+              "launches": launches[name], **frozen,
+              "pooled_factor_diag": np.diag(L).tolist(),
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs])) / 100,
+              "pooled_mean": samples.mean((0, 1)).tolist(),
+              "z_max_vs_hmc_reference": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the HMC reference"
+        counts[name] = (launches[name], origin)
+        del cs, samples
+    label = "NUTS(6, dense), N 1000, kernel 9"
+    _, row = _resume_path(label, nuts_tasks, RESUME_STEPS,
+                          {"glm_nuts_multistep_mat": RESUME_STEPS // 8},
+                          lambda s: _z_means(s.mean(1), hmc_means),
+                          by_chain=False)
+    counts["glm_nuts_multistep_mat"] = (
+        row["launches"]["glm_nuts_multistep_mat"],
+        f"resume(tasks, steps={RESUME_STEPS}) of the {chains} chains of "
+        f"run(model(glm=..., N=1000) * NUTS(6, mass_adapt='dense') * "
+        f"SerialMC(steps=699, burnin=200), chains={chains})")
+    del nuts_tasks
+
+    sig, G, lam = _gauss_glm()
+    d = len(sig)
+    mg = mt.model(glm=("linear", G, np.zeros(d)), prior_prec=lam,
+                  device="cuda")
+    steps, burnin = gauss_steps
+    kept = steps - burnin
+    ess = {}
+    for ma, name in (("dense", "glm_multistep_rows_mat"),
+                     (True, "glm_multistep_rows")):
+        task = mg * mt.HMC(10, 0.25, mass_adapt=ma) \
+            * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(model(glm=('linear', G, 0)) * {task.sampler!r} * "
+                  f"SerialMC(steps={steps}, burnin={burnin}), "
+                  f"chains={gauss_chains})")
+        cs, x, launches, dt, spans = _path(origin, task, gauss_chains,
+                                           {name: kept // 8})
+        per_chain, per_s = _min_ess_per_s(cs, dt)
+        ess[ma] = (per_chain, per_s)
+        mu = x.mean(1)  # (chains, d)
+        m2 = np.einsum("ctj,ctk->cjk", x, x) / x.shape[1]  # E[x x'] a chain
+        C = x.shape[0]
+        z_mean = float(np.max(np.abs(mu.mean(0))
+                              / (mu.std(0, ddof=1) / np.sqrt(C))))
+        z_cov = float(np.max(np.abs(m2.mean(0) - sig)
+                             / (m2.std(0, ddof=1) / np.sqrt(C))))
+        cov = m2.mean(0)
+        corr = cov / np.sqrt(np.outer(np.diag(cov), np.diag(cov)))
+        held = ma == "dense"
+        ok = not held or (z_mean < Z_MAX and z_cov < Z_MAX)
+        emit({"phase": "dense_gauss_path", "kernel": name, "from": origin,
+              "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs[:256]])) / 100,
+              "pooled_var": np.diag(cov).tolist(),
+              "want_var": np.diag(sig).tolist(),
+              "pooled_corr_min_max": [float(corr[np.triu_indices(d, 1)].min()),
+                                      float(corr[np.triu_indices(d, 1)].max())],
+              "want_corr": GAUSS_RHO, "z_max_mean_vs_0": z_mean,
+              "z_max_second_moments_vs_sigma": z_cov, "held": held,
+              "min_coord_ess_per_chain": per_chain,
+              "min_coord_ess_per_s": per_s, "ok": ok, **CARD})
+        assert ok, f"{origin} misses the known Sigma"
+        if held:
+            counts.setdefault(name, (launches[name], origin))
+        del cs, x
+    emit({"phase": "dense_vs_diag_ess", "target": "mass_metric.py's "
+          "correlated Gaussian as a linear GLM", "chains": gauss_chains,
+          "kept": kept,
+          "dense": {"min_coord_ess_per_chain": ess["dense"][0],
+                    "min_coord_ess_per_s": ess["dense"][1]},
+          "diag": {"min_coord_ess_per_chain": ess[True][0],
+                   "min_coord_ess_per_s": ess[True][1]},
+          "ess_per_s_ratio": ess["dense"][1] / ess[True][1], **CARD})
+
+    Xb, Yb, mode_b = _bench_mode(100_000)
+    mb = mt.model(glm=("logistic", Xb, Yb), init=mode_b, device="cuda")
+    task = mb * mt.HMC(10, 0.002, mt.EmpMCTuner(0.8, adapt_step=50),
+                       mass_adapt="dense") * mt.SerialMC(steps=150, burnin=50)
+    origin = _origin(mb, task, chains_bign)
+    cs, samples, launches, dt, spans = _path(
+        origin, task, chains_bign,
+        {"glm_logp_grad_tiled_mat": lambda n: n >= 100 + 1})
+    st = cs[0].task.state
+    folds["n1e5"] = (_pooled_factor(cs),)
+    z = _z_means(samples.mean(1), bign_ref)
+    emit({"phase": "dense_path", "kernel": "glm_logp_grad_tiled_mat",
+          "from": origin, "chains": chains_bign, "seconds": dt,
+          "spans_s": spans, "launches": launches["glm_logp_grad_tiled_mat"],
+          "frozen_step": st.tune.step_size.item(),
+          "frozen_n_leaps": st.tune.n_leaps.item(),
+          "accept_rate": float(np.mean([mt.acceptance(c) for c in cs])) / 100,
+          "z_max_vs_reference": z, "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{origin} disagrees with the reference"
+    counts["glm_logp_grad_tiled_mat"] = (
+        launches["glm_logp_grad_tiled_mat"], origin)
+    return counts, folds
+
+
+def _dense_fold(X, L, lam=1.0):
+    """The dense fold of a design by a factor L: (X L, A = lam L'L), float64
+    numpy (warmstart._fold)."""
+    return X @ L, lam * (L.T @ L)
+
+
+def _dense_start(L, mode, scale, C, seed):
+    """C chains in z = L^-1 theta with theta around ``mode``: each
+    coordinate ``scale`` times a normal."""
+    rng = np.random.default_rng(seed)
+    theta = mode + scale * rng.standard_normal((C, len(mode)))
+    return np.linalg.solve(L, theta.T).T
+
+
+def phase_dense_kernels(folds, C=4096, C_bign=512, md=6, k_chain=8):
+    """The matrix-prior variants of kernels 3b, 4, 8 and 9 against their
+    plain versions on the card, A = lam L'L from the dense paths' own folds
+    (phase_dense_paths): 3b chain by chain on its replayed draws
+    (_rows_check) at its path's shape (4096 chains, d 10, N 1000, the
+    path's frozen step and leap count); 4 at C 512, N 100,000 (_tiled_case,
+    errors over the terms' L1 mass); 8 on the same pre-drawn noise
+    (_nuts_check, PATH_AGREE) and 9 on its replayed draws (_nuts_ms_check,
+    k 5) at 4096 chains, slice and multinomial, at eps 0.1 (trees to
+    maxdoublings) and at the dense NUTS path's frozen step.  Also prints
+    the occupancy plans: A is read through the read-only path (4 KB at d
+    32), so the plans are the diagonal variants'.  Returns the variants'
+    largest errors."""
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    X, Y, mode = _bench_mode(1000)
+    d, N = X.shape[1], X.shape[0]
+    L, eps, nl = folds["n1000"]
+    XL, A = _dense_fold(X, L)
+    sc = _laplace_scale(X, Y)
+    emit({"phase": "dense_plan", "N": N, "d": d,
+          "rows": _plan(gk, "glm_multistep_rows_plan", d, N),
+          "nuts": nk.nuts_plan(d, N, md),
+          "tiled": _plan(gb, "glm_tiled_plan", d),
+          "matrix": "read through the read-only path, no shared memory"})
+    errors = {}
+    th0 = _cuda(_dense_start(L, mode, sc, C, 61))
+    errors["glm_multistep_rows_mat"] = _rows_check(
+        f"folded dense metric (X L, (d, d) prior), eps {eps}, {nl} leaps",
+        _cuda(XL.T), _cuda(Y), th0, eps, 2.0 * nl * eps, 1, max(2 * nl, 2),
+        k_chain, seed=79, prior_prec=_cuda(A))
+
+    Xb, Yb, mode_b = _bench_mode(100_000)
+    Lb = folds["n1e5"][0]
+    XLb, Ab = _dense_fold(Xb, Lb)
+    zb = _dense_start(Lb, mode_b, 0.05 * np.sqrt(1000 / 100_000), C_bign, 62)
+    errors["glm_logp_grad_tiled_mat"] = _tiled_case(
+        f"bench data, C {C_bign}, N 100000, folded dense metric "
+        f"(X L, (d, d) prior)", _cuda(XLb.T), _cuda(Yb), _cuda(zb),
+        lam=_cuda(Ab))
+
+    err8 = err9 = 0.0
+    for eps8 in (0.1, folds["nuts_eps"]):
+        for multinomial in (False, True):
+            args, noise, kw = _nuts_inputs(C, md, 26, XL, Y, lam=A,
+                                           spread=0.5)
+            kw = dict(kw, multinomial=multinomial)
+            label = (f"{'multinomial' if multinomial else 'slice'}, folded "
+                     f"dense metric (X L, (d, d) prior), eps {eps8}")
+            deep = eps8 == 0.1
+            err8 = max(err8, _nuts_check(label, args, noise, eps8, kw,
+                                         full_depth=deep))
+            err9 = max(err9, _nuts_ms_check(label, args, eps8, kw, seed=35,
+                                            full_depth=deep))
+    errors["glm_nuts_transition_mat"] = err8
+    errors["glm_nuts_multistep_mat"] = err9
+    return errors
+
+
+def phase_dense_times(folds, C=4096, C_bign=512, kt=6, i0=501, md=6,
+                      k_nuts=5):
+    """Per-launch time of each matrix-prior variant beside its diagonal-row
+    variant (the row diag(A)) at the same shape, with CUDA events (median
+    of 3) and torch.profiler's device time (median of 3 calls' mean):
+    3b at its dense path's shape (4096 chains, the frozen step and leap
+    count, ``kt`` transitions from transition ``i0``), 4 at C 512 and N
+    100,000, 8 and 9 at 4096 chains at the dense NUTS path's frozen step
+    (9 at ``k_nuts`` transitions); beside the plain version's time and the
+    variant's bound (its GLM gradients' 4 d N operations each plus the
+    prior's 2 d^2, or its bytes).  Returns ({variant: (ms, plain ms)},
+    {variant: bound and device ms})."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    ms, work = {}, {}
+
+    def device(fn, symbol):
+        runs = [t for t in (_device_ms(fn, symbol, reps=3) for _ in range(3))
+                if t is not None]
+        return float(np.median(runs)) if runs else None
+
+    def bound(evals, d, N, nbytes):
+        return _bound_ops((4.0 * d * N + 2.0 * d * d) * evals, nbytes)
+
+    def line(name, kern, row_kern, plain, symbol, evals, d, N, nbytes,
+             **extra):
+        t_mat, t_row = _event_ms(kern), _event_ms(row_kern)
+        dev_mat, dev_row = device(kern, symbol), device(row_kern, symbol)
+        ms[name] = (t_mat, _event_ms(plain, reps=2))
+        work[name] = {**bound(evals, d, N, nbytes), "device_ms": dev_mat}
+        emit({"phase": "dense_time", "name": name, "C": extra.pop("C"),
+              "N": N, "d": d, "ms": t_mat, "device_ms": dev_mat,
+              "row_variant_ms": t_row, "row_variant_device_ms": dev_row,
+              "plain_ms": ms[name][1], **work[name], **extra, **CARD})
+
+    X, Y, mode = _bench_mode(1000)
+    d, N = X.shape[1], X.shape[0]
+    L, eps, nl = folds["n1000"]
+    XL, A = _dense_fold(X, L)
+    XT, Yc, At, row = (_cuda(XL.T), _cuda(Y), _cuda(A),
+                       _cuda(np.diag(A).copy()))
+    th = _cuda(_dense_start(L, mode, _laplace_scale(X, Y), C, 63))
+    T, ml = 2.0 * nl * eps, max(2 * nl, 2)
+    gen = lambda k: torch.Generator(device="cuda").manual_seed(k)  # noqa: E731
+    args = (XT, Yc, th, eps, T, i0, ml)
+    out = gk.glm_multistep_rows(*args, k_trans=kt, generator=gen(7),
+                                prior_prec=At)
+    leaps = int(out[3]["nleaps"][:, 0].sum())
+    line("glm_multistep_rows_mat",
+         lambda: gk.glm_multistep_rows(*args, k_trans=kt, generator=gen(7),
+                                       prior_prec=At),
+         lambda: gk.glm_multistep_rows(*args, k_trans=kt, generator=gen(7),
+                                       prior_prec=row),
+         lambda: gk.glm_multistep_rows_ref(*args, k_trans=kt,
+                                           generator=gen(8), prior_prec=At),
+         "rows_tile_kernel", C * (1 + leaps), d, N,
+         _nbytes((XT, Yc, th, At), out), C=C, k_trans=kt, eps=eps, T=T,
+         max_leaps=ml, leapfrogs=leaps)
+
+    Xb, Yb, mode_b = _bench_mode(100_000)
+    Lb = folds["n1e5"][0]
+    XLb, Ab = _dense_fold(Xb, Lb)
+    XTb, Ybc, Abt = _cuda(XLb.T), _cuda(Yb), _cuda(Ab)
+    zb = _cuda(_dense_start(Lb, mode_b, 0.005, C_bign, 64))
+    out = gb.glm_logp_grad_tiled(XTb, Ybc, zb, prior_prec=Abt)
+    line("glm_logp_grad_tiled_mat",
+         lambda: gb.glm_logp_grad_tiled(XTb, Ybc, zb, prior_prec=Abt),
+         lambda: gb.glm_logp_grad_tiled(XTb, Ybc, zb,
+                                        prior_prec=_cuda(np.diag(Ab).copy())),
+         lambda: gb.glm_logp_grad_tiled_ref(XTb, Ybc, zb, prior_prec=Abt),
+         ("partial_tile_kernel", "reduce_kernel"), C_bign, d,
+         Xb.shape[0], _nbytes((XTb, Ybc, zb, Abt), out), C=C_bign)
+
+    eps8 = folds["nuts_eps"]
+    args, _, kw = _nuts_inputs(C, md, 27, XL, Y, lam=A, spread=0.5)
+    XTn, Yn, thn, lpn, gn = args
+    noise = nk.draw_noise(C, d, md, gen(9))
+    draws = nk.glm_nuts_multistep_draws(tk._seed(gen(10)), C, d, k_nuts, md,
+                                        device="cuda")
+    for name, fn, sets in (
+            ("glm_nuts_transition_mat", "transition", [noise]),
+            ("glm_nuts_multistep_mat", "multistep",
+             [tuple(a[t] for a in draws) for t in range(k_nuts)])):
+        leaves = int(_nuts_leaves(XTn, Yn, thn, lpn, gn, eps8, md, sets,
+                                  prior=At).sum())
+        if fn == "transition":
+            call = lambda p: nk.glm_nuts_transition(  # noqa: E731
+                *args, eps8, *noise, maxdoublings=md, prior_prec=p)
+            plain = lambda: nk.glm_nuts_transition_ref(  # noqa: E731
+                *args, eps8, *noise, maxdoublings=md, prior_prec=At)
+        else:
+            call = lambda p: nk.glm_nuts_multistep(  # noqa: E731
+                *args, eps8, gen(10), k_trans=k_nuts, maxdoublings=md,
+                prior_prec=p)
+            plain = lambda: nk.glm_nuts_multistep_ref(  # noqa: E731
+                *args, eps8, gen(11), k_trans=k_nuts, maxdoublings=md,
+                prior_prec=At)
+        out = call(At)
+        line(name, lambda: call(At), lambda: call(row), plain,
+             "nuts_tile_kernel", leaves, d, N, _nbytes(args, At, out), C=C,
+             eps=eps8, leaves=leaves,
+             k_trans=k_nuts if fn == "multistep" else 1)
+    return ms, work
 
 
 def _target_nuts_plan(d, C, md):
@@ -3971,9 +4406,9 @@ def main():
     phase_device()
     import torch
 
-    def step(name, fn, *args):
+    def step(name, fn, *args, **kw):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         emit({"phase": "seconds", "of": name,
               "seconds": time.perf_counter() - t0})
         return out
@@ -4013,18 +4448,25 @@ def main():
                                            phase_warm_target_paths)
     launches.update(nuts_t)
     step("chees_glm_path", phase_chees_glm_path, hmc_means)
+    # the dense metric's paths, then its four matrix-prior variants held
+    # against their plain versions on those paths' own folds
+    dense_launches, folds = step("dense_paths", phase_dense_paths, hmc_means,
+                                 held["bign"][1])
+    launches.update(dense_launches)
+    errors.update(step("dense_kernels", phase_dense_kernels, folds))
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    step("timing", phase_timing)
+    step("timing", phase_timing, steps=1000, reps=2)
     # kernels 1-4 at the shapes whose launches are counted above (1-3 also
     # at bench.py's 65536 chains)
     ms, work = step("tile_times", phase_tile_times)
     for more in (step("nuts_timing", phase_nuts_timing, start),
                  step("new_kernel_times", phase_new_kernel_times, hmc_frozen),
                  step("target_kernel_times", phase_target_times),
-                 step("target_nuts_time", phase_target_nuts_time, start_t)):
+                 step("target_nuts_time", phase_target_nuts_time, start_t),
+                 step("dense_times", phase_dense_times, folds)):
         ms.update(more[0])
         work.update(more[1])
     emit({"resume": resume_rows})

@@ -9,7 +9,9 @@
 //   lp_c = sum_n w_n ll(z_cn, y_n) - 1/2 sum_j lam_j theta_cj^2
 //   g_c  = sum_n w_n resid(z_cn, y_n) x_n - lam o theta_c
 // with z_cn = x_n . theta_c + o_n; lam is a scalar or a (d,) row (the
-// diagonal-metric fold of the warm-start pipeline).
+// diagonal-metric fold of the warm-start pipeline), or a symmetric (d, d)
+// matrix A (the dense-metric fold): then g_c ends in - theta_c A and lp_c in
+// - 1/2 theta_c' A theta_c.
 //
 // What bounds it on the H100: per chain and observation 2d multiply-adds
 // (the two skinny products theta X^T and r X) and one link evaluation with
@@ -120,23 +122,30 @@ partial_tile_kernel(Glm p, int C, int rows_per_split,
 }
 
 // Sum each chain's partials over the splits in split order, then apply the
-// prior as the HMC kernels do: g = acc - lam theta, lp = ll - 1/2 sum lam
-// theta^2.
+// prior as the HMC kernels do: g = acc - pg, lp = ll - 1/2 sum pg theta with
+// pg = lam theta, or (theta A)_j = sum_k theta_k A[k, j] with the matrix.
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(int C, int d, int splits, float lam,
-              const float* __restrict__ lamv, const float* __restrict__ th_in,
+              const float* __restrict__ lamv, const float* __restrict__ lamm,
+              const float* __restrict__ th_in,
               const double* __restrict__ part, float* __restrict__ g_out,
               float* __restrict__ lp_out) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   const size_t row = (size_t)C * (d + 1);
   const double* pc = part + (size_t)c * (d + 1);
+  const float* thc = th_in + (size_t)c * d;
   float quad = 0.f;
   for (int j = 0; j < d; ++j) {
     double s = 0.0;
     for (int k = 0; k < splits; ++k) s += pc[k * row + j];
-    const float th = th_in[(size_t)c * d + j];
-    const float pg = (lamv ? lamv[j] : lam) * th;
+    const float th = thc[j];
+    float pg = 0.f;
+    if (lamm) {
+      for (int k = 0; k < d; ++k) pg = fmaf(thc[k], lamm[k * d + j], pg);
+    } else {
+      pg = (lamv ? lamv[j] : lam) * th;
+    }
     g_out[(size_t)c * d + j] = (float)s - pg;
     quad = fmaf(pg, th, quad);
   }
@@ -179,8 +188,8 @@ int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
 // part: (splits, C, d + 1) doubles of scratch.  Every split must hold at
 // least one observation: ceil(N / ceil(N / splits)) == splits.
 int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
-                        const float* o, const float* lamv, int N, int d,
-                        int C, const float* th_in, float* g_out,
+                        const float* o, const float* lamv, const float* lamm,
+                        int N, int d, int C, const float* th_in, float* g_out,
                         float* lp_out, double* part, int splits, float lam,
                         int kind, void* stream) {
   const int D = tile_bound_for(d);
@@ -189,7 +198,7 @@ int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
     return (int)cudaErrorInvalidValue;
   const int rows = (N + splits - 1) / splits;
   if ((N + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
-  const Glm p{xt, y, w, o, lamv, N, d, kind, lam, kTile, false};
+  const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, kTile, false};
   const dim3 grid((C + kChains - 1) / kChains, splits);
   cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(DD)                                                          \
@@ -205,7 +214,7 @@ int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   reduce_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      C, d, splits, lam, lamv, th_in, part, g_out, lp_out);
+      C, d, splits, lam, lamv, lamm, th_in, part, g_out, lp_out);
   return (int)cudaGetLastError();
 }
 

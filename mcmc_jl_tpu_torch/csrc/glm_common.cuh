@@ -7,7 +7,9 @@
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and
 // grad = sum_n w_n resid(z_n, y_n) x_n - lam theta.  lam is a scalar, or a
-// (d,) row (the diagonal-metric fold of the warm-start pipeline).
+// (d,) row (the diagonal-metric fold of the warm-start pipeline), or a
+// symmetric (d, d) matrix A (the dense-metric fold lam L'L): then the prior
+// gradient is theta A and the prior term 1/2 theta' A theta.
 //
 // Everything here sits in an anonymous namespace: each source that includes
 // it is built into a library of its own.
@@ -29,6 +31,7 @@ struct Glm {
   const float* w;     // (N,) or null
   const float* o;     // (N,) or null
   const float* lamv;  // (d,) prior precision row, or null: scalar lam
+  const float* lamm;  // (d, d) prior precision matrix, or null
   int N, d, kind;
   float lam;
   int tile;           // rows per shared-memory tile

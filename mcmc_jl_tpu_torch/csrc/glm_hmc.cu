@@ -16,8 +16,9 @@
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and grad = sum_n w_n resid(z_n, y_n) x_n -
-// lam theta; lam is a scalar, or a (d,) row for glm_multistep_rows (the
-// diagonal-metric fold of the warm-start pipeline).
+// lam theta; lam is a scalar, or for glm_multistep_rows a (d,) row (the
+// diagonal-metric fold of the warm-start pipeline) or a (d, d) matrix A
+// (the dense-metric fold: prior gradient theta A, glm_tile.cuh prior_grad).
 //
 // What bounds them on the H100: at the main-path shape (d = 10, N = 1000)
 // one gradient is d*N = 10k multiply-adds for z plus 10k for r x per chain,
@@ -57,7 +58,9 @@
 // transition beside ten tile gradients.  Kernel 3b counts by the absolute
 // transition i0 + t, whose Halton leap count is the same for every chain
 // of the launch, takes each lane's prior precision from the (d,) row when
-// one is given, and writes every transition's rows after its test: theta
+// one is given (or, with the (d, d) matrix, the lane's coordinate of theta A
+// from its chain's lanes by shuffle), and writes every transition's rows
+// after its test: theta
 // and g one coordinate per lane, lp, accept, alpha and the leap count from
 // the chain's head lane (alpha from the MH log-ratio, the same bits in all
 // the chain's lanes).
@@ -178,13 +181,15 @@ __device__ __forceinline__ float tile_grad(const Glm& p, const TileCtx<D>& x,
   float acc = 0.f;
   for (int w = 0; w < kTrajWarps; ++w)
     acc += x.part[w * kTileChains * D + tid];
-  if (want_ll) {  // own is warp-uniform: the whole warp sums
+  // own is warp-uniform: the whole warp shuffles and sums
+  const float pg = prior_grad<D>(p, x.lam, th, tid % D);
+  if (want_ll) {
     double ll = 0.0;
     for (int w = 0; w < kTrajWarps; ++w) ll += x.pll[w * kTileChains + x.oc];
-    const float quad = chain_sum<D>(x.lam * th * th);
+    const float quad = chain_sum<D>(th * pg);
     lp = (float)(ll - 0.5 * (double)quad);
   }
-  return acc - x.lam * th;
+  return acc - pg;
 }
 
 // n_leaps macro steps of the schedule for the tile's 16 chains in lockstep
@@ -410,9 +415,11 @@ int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
 
 // Launch the tile kernel of `mode` on persistent blocks, as many as fit at
 // once: the resident rows are staged once per block, not once per tile.
-// lamv: the (d,) prior row of kernel 3b, or null (the scalar lam).
+// lamv, lamm: the (d,) prior row or the (d, d) prior matrix of kernel 3b,
+// or null (the scalar lam).
 int launch_hmc(int mode, const float* xt, const float* y, const float* w,
-               const float* o, const float* lamv, int N, int d, int kind,
+               const float* o, const float* lamv, const float* lamm, int N,
+               int d, int kind,
                float lam, const int* sched_ops, const float* sched_c,
                int n_ops, const HmcArgs& a, void* stream) {
   const int D = tile_bound_for(d);
@@ -425,7 +432,8 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                     : a.n_leaps < 1)
     return (int)cudaErrorInvalidValue;
   const TrajPlan tp = traj_plan(D, N);
-  const Glm p{xt, y, w, o, lamv, N, d, kind, lam, tp.rows, tp.resident};
+  const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
+              tp.resident};
   const HmcKernel kernel = hmc_kernel_for(mode, D);
   int dev, sms, per_sm;
   cudaError_t e = cudaGetDevice(&dev);
@@ -470,8 +478,8 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
   a.m_out = m_out;
   a.g_out = g_out;
   a.lp_out = lp_out;
-  return launch_hmc(kTraj, xt, y, w, o, nullptr, N, d, kind, lam, sched_ops,
-                    sched_c, n_ops, a, stream);
+  return launch_hmc(kTraj, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
+                    sched_ops, sched_c, n_ops, a, stream);
 }
 
 // The occupancy plans of kernels 1, 2, 3 and 3b at (d, N) (plan_hmc).
@@ -516,8 +524,8 @@ int glm_step(const float* xt, const float* y, const float* w, const float* o,
   a.g_out = g_out;
   a.lp_out = lp_out;
   a.acc_out = acc_out;
-  return launch_hmc(kStep, xt, y, w, o, nullptr, N, d, kind, lam, sched_ops,
-                    sched_c, n_ops, a, stream);
+  return launch_hmc(kStep, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
+                    sched_ops, sched_c, n_ops, a, stream);
 }
 
 int glm_multistep(const float* xt, const float* y, const float* w,
@@ -537,12 +545,13 @@ int glm_multistep(const float* xt, const float* y, const float* w,
   a.g_out = g_out;
   a.lp_out = lp_out;
   a.acc_out = acc_out;
-  return launch_hmc(kMulti, xt, y, w, o, nullptr, N, d, kind, lam,
+  return launch_hmc(kMulti, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
                     sched_ops, sched_c, n_ops, a, stream);
 }
 
 int glm_multistep_rows(const float* xt, const float* y, const float* w,
-                       const float* o, const float* lamv, int N, int d, int C,
+                       const float* o, const float* lamv, const float* lamm,
+                       int N, int d, int C,
                        const float* th_in, float* th_out, float* g_out,
                        float* lp_out, float* r_th, float* r_g, float* r_lp,
                        float* r_acc, float* r_alpha, int* r_nl, float eps,
@@ -567,8 +576,8 @@ int glm_multistep_rows(const float* xt, const float* y, const float* w,
   a.r_acc = r_acc;
   a.r_alpha = r_alpha;
   a.r_nl = r_nl;
-  return launch_hmc(kRows, xt, y, w, o, lamv, N, d, kind, lam, sched_ops,
-                    sched_c, n_ops, a, stream);
+  return launch_hmc(kRows, xt, y, w, o, lamv, lamm, N, d, kind, lam,
+                    sched_ops, sched_c, n_ops, a, stream);
 }
 
 }  // extern "C"

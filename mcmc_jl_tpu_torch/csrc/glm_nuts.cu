@@ -257,10 +257,11 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
       const bool act = T.run;
       float acc = 0.f;
       for (int w = 0; w < kTrajWarps; ++w) acc += part[w * kSlot + tid];
-      const float tg = acc - lam * tp;
+      const float pg = prior_grad<D>(p, lam, tp, oj);  // own: whole warps
+      const float tg = acc - pg;
       double ll = 0.0;
       for (int w = 0; w < kTrajWarps; ++w) ll += pll[w * kTileChains + oc];
-      const float quad = chain_sum<D>(lam * tp * tp);
+      const float quad = chain_sum<D>(tp * pg);
       const float tlp = (float)(ll - 0.5 * (double)quad);
       const float wm = tm + 0.5f * es * tg;
       float H = -tlp + 0.5f * chain_sum<D>(wm * wm);
@@ -441,12 +442,13 @@ bool nuts_args_ok(int d, int N, int kind, const NutsArgs& a) {
 // Launch nuts_tile_kernel<D, MS>: persistent blocks, as many as fit at once.
 template <bool MS>
 int launch_nuts(const float* xt, const float* y, const float* w,
-                const float* o, const float* lamv, int N, int d, int kind,
-                float lam, const NutsArgs& a, void* stream) {
+                const float* o, const float* lamv, const float* lamm, int N,
+                int d, int kind, float lam, const NutsArgs& a, void* stream) {
   if (!nuts_args_ok(d, N, kind, a)) return (int)cudaErrorInvalidValue;
   const int D = tile_bound_for(d);
   const TrajPlan tp = nuts_plan(D, N, a.md);
-  const Glm p{xt, y, w, o, lamv, N, d, kind, lam, tp.rows, tp.resident};
+  const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
+              tp.resident};
   const int tiles = (a.C + kTileChains - 1) / kTileChains;
   int dev, sms, per_sm;
   cudaError_t e0 = cudaGetDevice(&dev);
@@ -480,7 +482,8 @@ const char* nuts_error_string(int code) {
 }
 
 int glm_nuts_transition(const float* xt, const float* y, const float* w,
-                        const float* o, const float* lamv, int N, int d, int C,
+                        const float* o, const float* lamv,
+                        const float* lamm, int N, int d, int C,
                         const float* th_in, const float* lp_in,
                         const float* g_in, const float* m0, const float* logu,
                         const float* dirn, const float* merge,
@@ -508,11 +511,13 @@ int glm_nuts_transition(const float* xt, const float* y, const float* w,
   a.nd_out = nd_out;
   a.div_out = div_out;
   a.queue = queue;
-  return launch_nuts<false>(xt, y, w, o, lamv, N, d, kind, lam, a, stream);
+  return launch_nuts<false>(xt, y, w, o, lamv, lamm, N, d, kind, lam, a,
+                            stream);
 }
 
 int glm_nuts_multistep(const float* xt, const float* y, const float* w,
-                       const float* o, const float* lamv, int N, int d, int C,
+                       const float* o, const float* lamv, const float* lamm,
+                       int N, int d, int C,
                        const float* th_in, const float* lp_in,
                        const float* g_in, float* th_out, float* g_out,
                        float* lp_out, float* r_th, float* r_g, float* r_lp,
@@ -540,7 +545,8 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
   a.r_nd = r_nd;
   a.r_div = r_div;
   a.queue = queue;
-  return launch_nuts<true>(xt, y, w, o, lamv, N, d, kind, lam, a, stream);
+  return launch_nuts<true>(xt, y, w, o, lamv, lamm, N, d, kind, lam, a,
+                           stream);
 }
 
 // How nuts_tile_kernel runs at (d, N, md): blocks resident per SM (from

@@ -509,6 +509,25 @@ __device__ __forceinline__ float chain_sum(float v) {
   return v;
 }
 
+// The prior's gradient term of the lane's coordinate oj of its chain, whose
+// coordinate there is th: lam th, or with a (d, d) matrix A (the dense fold,
+// p.lamm) (theta A)_oj = sum_k theta_k A[k, oj], theta_k taken from lane k
+// of the chain by shuffle and A read through the read-only path (at most
+// 4 KB: it stays in L1, so the plans keep their shared memory).  The prior
+// term of lp is then chain_sum(th * prior_grad), the same bits in all the
+// chain's lanes.  0 past d.  Every lane of the warp must call it.
+template <int D>
+__device__ __forceinline__ float prior_grad(const Glm& p, float lam, float th,
+                                            int oj) {
+  if (!p.lamm) return lam * th;
+  float pg = 0.f;
+  for (int k = 0; k < p.d; ++k) {
+    const float tk = __shfl_sync(0xffffffffu, th, k, D);
+    if (oj < p.d) pg = fmaf(tk, __ldg(p.lamm + k * p.d + oj), pg);
+  }
+  return pg;
+}
+
 // Philox draws of (chain c, transition t), shared by the multistep HMC
 // kernels 3 and 3b (glm_hmc.cu) and the multistep NUTS kernel
 // (glm_nuts.cu): the momenta take draws 0 .. D/2 - 1, the MH or slice

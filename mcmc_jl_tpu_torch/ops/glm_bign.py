@@ -28,15 +28,16 @@ import ctypes
 
 import torch
 
-from .glm_kernels import (KIND_CODES, _check, _device_branch, _draw, _prior,
-                          _prior_args, _ptr, _row, _trajectory, accept_test,
-                          glm_funcs)
+from .glm_kernels import (KIND_CODES, _check, _counted, _device_branch,
+                          _draw, _prior, _prior_args, _ptr, _row, _trajectory,
+                          accept_test, glm_funcs)
 
 #: above this many observations a GLM run takes the N-tiled kernel, as in
 #: the JAX package (pallas_glm_bign.py BIGN_THRESHOLD)
 BIGN_THRESHOLD = 16384
 
-LAUNCHES = {"glm_logp_grad_tiled": 0}
+#: launches with a (d, d) prior (the dense fold) count as "..._mat"
+LAUNCHES = {"glm_logp_grad_tiled": 0, "glm_logp_grad_tiled_mat": 0}
 PLAIN_CALLS = {"glm_logp_grad_tiled": 0}
 
 #: the kernel's grid aims at up to this many CTAs, two full waves of the two
@@ -74,7 +75,7 @@ def splits_for(N, C):
     return -(-N // rows)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 \
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 \
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -102,7 +103,9 @@ def glm_logp_grad_tiled(XT, Y, theta, *, kind="logistic", weights=None,
     over the observations.
 
     Args: ``XT`` (d, N); ``Y`` and the optional ``weights``/``offsets``
-    (N,); ``theta`` (C, d); ``prior_prec`` a scalar or a (d,) row.
+    (N,); ``theta`` (C, d); ``prior_prec`` a scalar, a (d,) row or a
+    symmetric (d, d) matrix ``A`` (prior gradient ``theta A``; the launch
+    counts as ``glm_logp_grad_tiled_mat``).
     Returns (lp (C,), grad (C, d)).  Two launches on the same inputs give
     the same bits."""
     name = "glm_logp_grad_tiled"
@@ -112,7 +115,7 @@ def glm_logp_grad_tiled(XT, Y, theta, *, kind="logistic", weights=None,
                                        prior_prec=prior_prec)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta})
-    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     splits = splits_for(N, C)
     dev = theta.device
     g_o = torch.empty_like(theta)
@@ -121,14 +124,15 @@ def glm_logp_grad_tiled(XT, Y, theta, *, kind="logistic", weights=None,
     lib = load_kernels()
     with torch.cuda.device(dev):
         code = lib.glm_logp_grad_tiled(
-            _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv), N, d, C,
+            _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
+            _ptr(lamm), N, d, C,
             _ptr(theta), _ptr(g_o), _ptr(lp_o), _ptr(part), splits, lam,
             KIND_CODES[kind],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.bign_error_string(code).decode()} ({code})")
-    LAUNCHES[name] += 1
+    LAUNCHES[_counted(name, lamm)] += 1
     return lp_o, g_o
 
 

@@ -27,9 +27,12 @@ that its plain version can take them.
 Layouts follow the JAX package at the public functions, minus its TPU
 padding: the transposed design ``XT`` is (d, N), ``Y``/weights/offsets are
 (N,) or (1, N), chain states are unpadded (C, d).  The prior is N(0, 1/lam I)
-with a scalar ``lam``, or for :func:`glm_multistep_rows` also a (d,) row.
-The kernels take the four built-in links; the plain versions also take a
-custom ``(ll, resid)`` pair.
+with a scalar ``lam``; :func:`glm_multistep_rows` also takes a (d,) row (the
+diagonal-metric fold) or a symmetric (d, d) precision matrix ``A`` (the
+dense-metric fold ``lam L' L``: prior gradient ``-theta A``, prior term
+``-1/2 theta' A theta``).  A launch with a matrix counts under
+``<name>_mat`` in ``LAUNCHES``.  The kernels take the four built-in links;
+the plain versions also take a custom ``(ll, resid)`` pair.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ D_MAX = 32
 SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
-LAUNCHES = dict.fromkeys(_NAMES, 0)
+#: launches of the Halton multistep kernel with a (d, d) prior counted apart
+LAUNCHES = dict.fromkeys(_NAMES + ("glm_multistep_rows_mat",), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -111,33 +115,45 @@ def link_terms(kind):
 
 
 def _scalar_prior(prior_prec):
+    """The scalar prior of kernels 1, 2 and 3: the warm pipeline's metric
+    folds run kernels 3b, 4 and 8-9, so these take none."""
     if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() != 1:
         raise NotImplementedError(
-            "vector/matrix prior precisions (the warm-start mass folds) are "
-            "not ported yet (ROADMAP queue 1 item 12)")
+            "kernels 1, 2 and 3 take a scalar prior precision; the row and "
+            "matrix priors of the metric folds run on the Halton multistep, "
+            "tiled and NUTS kernels (ROADMAP queue 2: matrix prior on "
+            "kernels 1-3)")
     return float(prior_prec)
 
 
+def _is_mat(prior_prec):
+    """True for a (d, d) prior precision matrix with d > 1 (the dense fold;
+    at d = 1 it is a scalar)."""
+    return (isinstance(prior_prec, torch.Tensor) and prior_prec.ndim == 2
+            and prior_prec.shape[0] == prior_prec.shape[1] > 1)
+
+
 def _prior(prior_prec):
-    """A scalar float or a (d,) tensor; a (d, d) matrix is the dense fold."""
+    """A scalar float, a (d,) tensor, or a (d, d) matrix (the dense fold)."""
+    if _is_mat(prior_prec):
+        return prior_prec
     if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() > 1:
-        if prior_prec.ndim == 2 and min(prior_prec.shape) > 1:
-            raise NotImplementedError(
-                "a (d, d) prior precision (the dense-metric fold) is not "
-                "ported yet (ROADMAP queue 1 item 9)")
         return prior_prec.reshape(-1)
     return float(prior_prec)
 
 
 def _prior_args(name, prior_prec, d, dev):
-    """(scalar lam, (d,) row or None) as the kernels take them."""
+    """(scalar lam, (d,) row or None, (d, d) matrix or None) as the kernels
+    take them."""
     lam = _prior(prior_prec)
     if isinstance(lam, float):
-        return lam, None
-    if lam.shape != (d,):
-        raise ValueError(f"{name}: prior row has shape {tuple(lam.shape)}, "
-                         f"want ({d},)")
-    return 1.0, lam.to(device=dev, dtype=torch.float32).contiguous()
+        return lam, None, None
+    want = (d, d) if lam.ndim == 2 else (d,)
+    if tuple(lam.shape) != want:
+        raise ValueError(f"{name}: prior precision has shape "
+                         f"{tuple(lam.shape)}, want {want}")
+    lam_t = lam.to(device=dev, dtype=torch.float32).contiguous()
+    return (1.0, None, lam_t) if lam.ndim == 2 else (1.0, lam_t, None)
 
 
 def halton_leaps(i, eps, T, max_leaps):
@@ -157,9 +173,15 @@ def _row(v):
 
 
 def glm_funcs(XT, Y, W, O, lam, kind):
-    """(grad_only, logp_grad) over the GLM data (pallas_glm.py _glm_funcs)."""
+    """(grad_only, logp_grad) over the GLM data (pallas_glm.py _glm_funcs).
+    ``lam``: a scalar, a (d,) row, or a symmetric (d, d) matrix ``A``,
+    whose prior gradient is ``theta A``."""
     ll_fn, resid_fn = link_terms(kind)
     Y, W, O = _row(Y), _row(W), _row(O)
+    mat = isinstance(lam, torch.Tensor) and lam.ndim == 2
+
+    def prior_grad(theta):
+        return theta @ lam if mat else lam * theta
 
     def predictor(theta):
         z = theta @ XT
@@ -169,14 +191,14 @@ def glm_funcs(XT, Y, W, O, lam, kind):
         r = resid_fn(predictor(theta), Y)
         if W is not None:
             r = W * r
-        return r @ XT.T - lam * theta
+        return r @ XT.T - prior_grad(theta)
 
     def logp_grad(theta):
         z = predictor(theta)
         r, ll = resid_fn(z, Y), ll_fn(z, Y)
         if W is not None:
             r, ll = W * r, W * ll
-        pg = lam * theta
+        pg = prior_grad(theta)
         return ll.sum(-1) - 0.5 * (pg * theta).sum(-1), r @ XT.T - pg
 
     return grad_only, logp_grad
@@ -361,7 +383,7 @@ _ARGTYPES = {
     "glm_multistep": [_P] * 4 + [_I] * 3 + [_P] * 5 + [_F, _F, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
-    "glm_multistep_rows": [_P] * 5 + [_I] * 3 + [_P] * 10 + [_F] * 3
+    "glm_multistep_rows": [_P] * 6 + [_I] * 3 + [_P] * 10 + [_F] * 3
     + [_I] * 4 + [ctypes.c_ulonglong] + _SCHED + [_P],
 }
 
@@ -445,14 +467,20 @@ def _seed(generator):
                              device=generator.device).item())
 
 
-def _launch(name, *args):
+def _counted(name, lamm):
+    """The launch counter of kernel ``name``: its own, or ``<name>_mat`` for
+    the variant with a (d, d) prior."""
+    return name if lamm is None else name + "_mat"
+
+
+def _launch(name, *args, counted=None):
     lib = load_kernels()
     code = getattr(lib, name)(*args,
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.glm_error_string(code).decode()} ({code})")
-    LAUNCHES[name] += 1
+    LAUNCHES[counted or name] += 1
 
 
 def _device_branch(name, theta):
@@ -555,7 +583,8 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
     The momenta and MH uniforms are drawn inside the kernel from
     Philox4x32-10 keyed by a seed drawn from ``generator`` and counted by
     (chain, absolute transition, draw): a generator in the same state repeats
-    a launch bitwise.  ``prior_prec`` is a scalar or a (d,) row.
+    a launch bitwise.  ``prior_prec`` is a scalar, a (d,) row or a symmetric
+    (d, d) matrix (the launch then counts as ``glm_multistep_rows_mat``).
     Returns (theta, grad, lp (C,), rows) as :func:`glm_multistep_rows_ref`."""
     name = "glm_multistep_rows"
     if not _device_branch(name, theta):
@@ -568,7 +597,7 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
                          f"got {k_trans}, {max_leaps}, {i0}")
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta})
-    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     dev = theta.device
     f32 = lambda *shape: torch.empty(shape, dtype=theta.dtype, device=dev)  # noqa: E731
@@ -578,11 +607,11 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
     r_nl = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
-                N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
+                _ptr(lamm), N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
                 _ptr(r_th), _ptr(r_g), _ptr(r_lp), _ptr(r_acc), _ptr(r_alpha),
                 _ptr(r_nl), float(eps), float(T), lam, int(i0),
                 int(max_leaps), int(k_trans), KIND_CODES[kind], int(seed),
-                *_sched(integrator))
+                *_sched(integrator), counted=_counted(name, lamm))
     return th_o, g_o, lp_o, {"ppars": r_th, "pgrads": r_g, "plogtarget": r_lp,
                              "accept": r_acc > 0.5, "alpha": r_alpha,
                              "nleaps": r_nl}

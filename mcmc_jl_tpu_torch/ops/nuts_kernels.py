@@ -32,9 +32,10 @@ it launches the kernel or raises.  Each launch adds one to
 Layouts follow the JAX package minus its TPU padding: chain states are
 (C, d); the directions and merge uniforms are (C, maxdoublings); the leaf
 uniforms are (C, 2^maxdoublings), column ``(1 << j) - 1 + k`` for leaf k of
-doubling j.  The GLM prior precision is a scalar or a (d,) row (the diagonal
-metric fold of the warm-start pipeline); on a catalog target the frozen
-diagonal metric rides the step instead, as a (d,) row ``eps * s``.  The
+doubling j.  The GLM prior precision is a scalar, a (d,) row (the diagonal
+metric fold of the warm-start pipeline) or a symmetric (d, d) matrix (the
+dense fold; such launches count as ``<name>_mat``); on a catalog target the
+frozen diagonal metric rides the step instead, as a (d,) row ``eps * s``.  The
 drivers :func:`_nuts_run`, :func:`_nuts_run_hw` and :func:`_nuts_target_run`
 return the NUTS info protocol (``ppars``, ``pgrads``, ``plogtarget``,
 ``accept``, ``epsilon``, ``ndoublings``, ``diverging``).
@@ -53,9 +54,9 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, SLICE_DRAW, _check, _device_branch,
-                          _prior, _prior_args, _ptr, _row, glm_funcs,
-                          glm_multistep_draws)
+from .glm_kernels import (KIND_CODES, SLICE_DRAW, _check, _counted,
+                          _device_branch, _prior, _prior_args, _ptr, _row,
+                          glm_funcs, glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
                              load_library, target_funcs)
@@ -76,7 +77,8 @@ DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x100, 0x200, 0x10000
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition")
-LAUNCHES = dict.fromkeys(_NAMES, 0)
+LAUNCHES = dict.fromkeys(_NAMES + ("glm_nuts_transition_mat",
+                                    "glm_nuts_multistep_mat"), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -297,9 +299,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "glm_nuts_transition": [_P] * 5 + [_I] * 3 + [_P] * 13
+    "glm_nuts_transition": [_P] * 6 + [_I] * 3 + [_P] * 13
     + [_F, _F, _I, _I, _I, _P, _P],
-    "glm_nuts_multistep": [_P] * 5 + [_I] * 3 + [_P] * 12
+    "glm_nuts_multistep": [_P] * 6 + [_I] * 3 + [_P] * 12
     + [_F, _F, _I, _I, _I, _I, ctypes.c_ulonglong, _P, _P],
     "glm_nuts_plan": [_I, _I, _I] + [ctypes.POINTER(_I)] * 3,
 }
@@ -325,14 +327,14 @@ def load_kernels():
     return lib
 
 
-def _launch(name, *args):
+def _launch(name, lamm, *args):
     lib = load_kernels()
     code = getattr(lib, name)(*args,
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.nuts_error_string(code).decode()} ({code})")
-    LAUNCHES[name] += 1
+    LAUNCHES[_counted(name, lamm)] += 1
 
 
 _QUEUES = {}
@@ -397,14 +399,14 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
                            {"lp": lp, "logu": logu})
     _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
                  leaf_u=leaf_u)
-    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     nd_o = torch.empty(C, dtype=torch.int32, device=theta.device)
     dv_o = torch.empty(C, dtype=torch.bool, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
-                N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(m0),
+        _launch(name, lamm, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(m0),
                 _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
                 _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
                 float(eps), lam, md, KIND_CODES[kind], int(multinomial),
@@ -515,7 +517,7 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     lp = lp.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad}, {"lp": lp})
-    lam, lamv = _prior_args(name, prior_prec, d, theta.device)
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     dev = theta.device
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
@@ -527,10 +529,11 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     r_nd = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
     r_dv = torch.empty((k_trans, C), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
-                N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(th_o),
-                _ptr(g_o), _ptr(lp_o), _ptr(r_th), _ptr(r_g), _ptr(r_lp),
-                _ptr(r_acc), _ptr(r_nd), _ptr(r_dv), float(eps), lam, md,
+        _launch(name, lamm, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
+                _ptr(grad), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(r_th),
+                _ptr(r_g), _ptr(r_lp), _ptr(r_acc), _ptr(r_nd), _ptr(r_dv),
+                float(eps), lam, md,
                 KIND_CODES[kind], int(multinomial), int(k_trans), int(seed),
                 _ptr(_queue(dev)))
     return th_o, g_o, lp_o, _rows(r_th, r_g, r_lp, r_acc, r_nd, r_dv)

@@ -9,16 +9,19 @@ two phases, and the second is what the fused kernels run:
 
 1. **Warmup** (``runner.burnin`` transitions): the generic engine runs the
    sampler as it is, with its per-chain adaptation (EmpMCTuner, dual
-   averaging, optional diagonal mass adaptation).
+   averaging, optional diagonal or dense mass adaptation).
 2. **Freeze**: the per-chain adapted step is pooled by the median across
    chains, the trajectory length likewise; a diagonal metric is pooled as
-   the across-chain RMS of the per-chain scales.
+   the across-chain RMS of the per-chain scales, a dense one as the
+   Cholesky factor of the chains' mean covariance ``L_c L_c'``.
 3. **Fused sampling** (``len - burnin`` transitions) at the frozen values.
-   A diagonal metric folds in exactly: with ``theta = S z`` the posterior
-   in ``z`` is again a GLM with design ``X S`` and per-coordinate prior
-   precision ``lam s_j^2``, and unit-metric dynamics in ``z`` are
-   diagonal-metric dynamics in ``theta``.  Samples and gradients map back
-   as ``theta = s z``, ``g_theta = g_z / s``; the log-target is invariant.
+   A metric folds in exactly: with ``theta = S z`` the posterior in ``z``
+   is again a GLM with design ``X S`` and per-coordinate prior precision
+   ``lam s_j^2`` (diagonal ``S``), or with design ``X L`` and the prior
+   precision matrix ``A = lam L' L`` (dense ``S = L``), and unit-metric
+   dynamics in ``z`` are dynamics with that metric in ``theta``.  Samples
+   and gradients map back as ``theta = S z``, ``g_theta = S'^-1 g_z``; the
+   log-target is invariant.
 
    - exact NUTS: the same sampler through the NUTS kernels
      (:mod:`.nuts_kernels`);
@@ -38,8 +41,9 @@ two phases, and the second is what the fused kernels run:
    ``target_spec``) the HMC-family phase loops around the custom-target
    trajectory kernel with the leap count given at run time, and exact NUTS
    runs the target-mode NUTS kernel; a diagonal metric needs no fold there,
-   it rides the kernels' per-coordinate step row ``eps * s``.  On the CPU
-   the wrappers run their plain versions.
+   it rides the kernels' per-coordinate step row ``eps * s``, and a dense
+   metric is refused (the z-space wrapper of those kernels is not ported).
+   On the CPU the wrappers run their plain versions.
 
 The only departure from running the generic engine end to end is the
 cross-chain pooling of the frozen hyper-parameters: the sampling phase is
@@ -51,9 +55,9 @@ of the warmup's states (:func:`warmfused_chains`), and a resumed batch
 them again from stored states: it has ``burnin=0``, so no adaptation fires
 and its frozen hyper-parameters are read back from the states with the
 same freeze rules.  Not ported yet (ROADMAP queue 1):
-``NUTS(warm_handoff=True)`` and its continuation, the dense metric with
-its z-space fold on targets (``dense_target_setup``), data-bearing
-targets and ``mesh=``.
+``NUTS(warm_handoff=True)`` and its continuation, the dense metric on
+catalog targets (the z-space wrapper ``dense_target_setup`` on kernels 5
+and 8b), data-bearing targets and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -66,16 +70,21 @@ import torch
 log = logging.getLogger(__name__)
 
 _INTEGRATORS = ("leapfrog", "2stage", "3stage")
+#: why a dense metric on a catalog target takes the generic engine
+DENSE_TARGET = ("the dense metric on a catalog target needs the z-space "
+                "wrapper of the target kernels 5 and 8b (dense_target_setup), "
+                "not ported yet (ROADMAP queue 2: the z-space dense wrapper)")
 
 
 def warm_eligible(task):
     """True when the task can take the warmup -> freeze -> fused pipeline:
-    an adaptive HMC (EmpMCTuner and/or diagonal mass adaptation), an HMCDA,
-    an adaptive MALA, a ChEES-HMC or an exact NUTS, with a burn-in window,
-    on a ``model(glm=...)`` posterior or on a model whose ``target_spec`` is
-    a catalog target of at most ``D_MAX`` parameters (warmstart.py
-    ``_warm_ok``).  Other models, and what the JAX package also admits and
-    the port does not yet, are refused with a logged reason."""
+    an adaptive HMC (EmpMCTuner and/or diagonal or dense mass adaptation),
+    an HMCDA, an adaptive MALA, a ChEES-HMC or an exact NUTS, with a
+    burn-in window, on a ``model(glm=...)`` posterior or on a model whose
+    ``target_spec`` is a catalog target of at most ``D_MAX`` parameters
+    (warmstart.py ``_warm_ok``).  Other models, and what the JAX package
+    also admits and the port does not yet (the dense metric on a catalog
+    target), are refused with a logged reason."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
     from ..samplers.hmcda import HMCDA
@@ -114,6 +123,10 @@ def warm_eligible(task):
             log.info("warm start: d = %d > %d, the custom-target kernels' "
                      "bound; running the generic torch engine", m.size, D_MAX)
             return False
+        if getattr(s, "_kind", None) == "dense":
+            log.info("warm start: %s; running the generic torch engine",
+                     DENSE_TARGET)
+            return False
     return ok
 
 
@@ -130,13 +143,22 @@ def _warmup(model, sampler, runner, n_chains, generator):
 
 
 def _pool_mass(kind, states_w):
-    """The pooled frozen metric: the across-chain RMS of the per-chain
-    scales, a (d,) float64 tensor; None for the unit metric (no adaptation,
-    or one that never armed)."""
+    """The pooled frozen metric, float64: the across-chain RMS of the
+    per-chain scales, a (d,) tensor; for the dense kind the lower-triangular
+    Cholesky factor (d, d) of the mean of the per-chain covariances
+    ``L_c L_c'``.  None for the unit metric (no adaptation, or one that
+    never armed)."""
     from ..samplers.massadapt import mass_vector_scale
 
     if kind is None:
         return None
+    if kind == "dense":
+        Ls = states_w.mass.scale.to(torch.float64)  # (C, d, d)
+        sig = (Ls @ Ls.transpose(-1, -2)).mean(0)
+        if torch.allclose(sig, torch.eye(sig.shape[0], dtype=sig.dtype,
+                                         device=sig.device)):
+            return None
+        return torch.linalg.cholesky(sig)
     s_c = mass_vector_scale(kind, states_w.mass, states_w.pars.dtype)
     s = torch.sqrt(torch.mean(s_c.to(torch.float64) ** 2, dim=0))
     return None if torch.allclose(s, torch.ones_like(s)) else s
@@ -175,23 +197,33 @@ def _freeze(sampler, states_w):
 
 
 def _fold_theta(theta_w, s):
-    """Positions in the kernel's z-space, ``theta / s``, rounded once to a
-    contiguous float32 (C, d) tensor."""
+    """Positions in the kernel's z-space, ``theta / s`` (diagonal) or
+    ``L^-1 theta`` (dense, a triangular solve), in float64 and rounded once
+    to a contiguous float32 (C, d) tensor."""
     theta_w = theta_w.to(torch.float64)
-    return (theta_w if s is None else theta_w / s).to(torch.float32) \
-        .contiguous()
+    if s is not None and s.ndim == 2:
+        theta_w = torch.linalg.solve_triangular(s, theta_w.T,
+                                                upper=False).T
+    elif s is not None:
+        theta_w = theta_w / s
+    return theta_w.to(torch.float32).contiguous()
 
 
 def _fold(spec, s):
     """Phase 2 fold ``theta = S z`` of the design: the kernel-side float32
     quantities ``(XT (d, N), Y, lam, W, O)``; ``lam`` is the scalar prior
-    precision, or the (d,) row ``lam s^2`` under a metric.  Nothing pads N,
-    so one fold serves both kernel families; :func:`_fold_theta` folds the
+    precision, the (d,) row ``lam s^2`` under a diagonal metric, or the
+    (d, d) matrix ``A = lam L' L`` (built in float64, then rounded) under a
+    dense one, whose design is ``X L``.  Nothing pads N or d, so one fold
+    serves both kernel families; :func:`_fold_theta` folds the
     positions."""
     f32 = lambda a: None if a is None else a.to(torch.float32).contiguous()  # noqa: E731
     X = spec.X.to(torch.float64)
     lam = float(spec.prior_prec)
-    if s is not None:
+    if s is not None and s.ndim == 2:
+        X = X @ s
+        lam = f32(lam * (s.T @ s))
+    elif s is not None:
         X = X * s
         lam = f32(lam * s * s)
     return (f32(X.T), f32(spec.Y), lam, f32(spec.weights),
@@ -200,9 +232,15 @@ def _fold(spec, s):
 
 def _unfold(infos2, thetaF, s, extra_keys=()):
     """Un-fold the metric from the kernel outputs; returns the sampling
-    phase's (infos, theta (C, d)) in model coordinates."""
+    phase's (infos, theta (C, d)) in model coordinates: ``theta = s z``,
+    ``g = g_z / s`` (diagonal) or, in float32 as the JAX package does,
+    ``theta_row = z_row L'``, ``g_row = g_z_row L^-1`` (dense)."""
     ppars, pgrads, theta = infos2["ppars"], infos2["pgrads"], thetaF
-    if s is not None:
+    if s is not None and s.ndim == 2:
+        L = s.to(torch.float32)
+        Linv = torch.linalg.inv(s).to(torch.float32)
+        ppars, pgrads, theta = ppars @ L.T, pgrads @ Linv, theta @ L.T
+    elif s is not None:
         sj = s.to(torch.float32)
         ppars, pgrads, theta = ppars * sj, pgrads / sj, theta * sj
     infos = {"ppars": ppars, "pgrads": pgrads,
@@ -402,9 +440,10 @@ def _continue_refusal(task, states=None):
     A continuation has ``burnin=0``, so no tuner or dual averaging adapts
     again: the state is frozen and the run is the fixed kernel the fused
     drivers execute.  Every ``_kind`` the port's samplers take (None,
-    "diag", "diag-win") continues, as in the JAX package; "dense" is
-    refused when the sampler is built.  ``states`` is the JAX package's
-    hook for the warm handoff's trajectory time, which the port does not
+    "diag", "diag-win", "dense") continues on a GLM, as in the JAX package;
+    the dense metric on a catalog target is refused (the z-space wrapper of
+    kernels 5 and 8b is not ported).  ``states`` is the JAX package's hook
+    for the warm handoff's trajectory time, which the port does not
     continue."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
@@ -425,6 +464,9 @@ def _continue_refusal(task, states=None):
     if type(s) is NUTS and s.warm_handoff:
         return ("NUTS(warm_handoff=True) has no fused continuation in the "
                 "port (ROADMAP queue 1: the warm handoff)")
+    if getattr(model, "glm_spec", None) is None \
+            and getattr(s, "_kind", None) == "dense":
+        return DENSE_TARGET
     if isinstance(s, (HMC, HMCDA, ChEESHMC)) or type(s) in (MALA, NUTS):
         return None
     return f"{name} has no fused continuation"
@@ -433,10 +475,11 @@ def _continue_refusal(task, states=None):
 def continue_eligible(task, states=None):
     """True when a stored task's state can continue through the fused
     kernels (warmstart.py ``continue_eligible``): HMC (fixed or adapted,
-    unit or diagonal metric), HMCDA, MALA, ChEES-HMC or exact NUTS, without
-    ``store_leaps`` and with a kernel integrator, on a GLM posterior or a
-    model of at most ``D_MAX`` parameters.  ``NUTS(warm_handoff=True)``
-    states are refused: the port has no handoff continuation."""
+    unit, diagonal or dense metric), HMCDA, MALA, ChEES-HMC or exact NUTS,
+    without ``store_leaps`` and with a kernel integrator, on a GLM posterior
+    or a model of at most ``D_MAX`` parameters.  ``NUTS(warm_handoff=True)``
+    states and a dense metric on a catalog target are refused: the port has
+    no handoff continuation and no z-space wrapper."""
     return _continue_refusal(task, states) is None
 
 
@@ -461,14 +504,16 @@ def make_fused_continuation(model, sampler, states0):
     - exact NUTS: ``eps = median(exp(lebar))``; rows
       ``epsilon``/``ndoublings``/``diverging``.
     A diagonal metric folds into the design on a GLM and rides the step row
-    on a catalog target.  Each segment's Halton index starts at ``i0``,
-    by default ``max(states.i)``, so successive segments extend one
-    sequence.  Routes:
+    on a catalog target; a dense metric folds into the design and the
+    matrix prior ``lam L' L`` on a GLM.  Each segment's Halton index starts
+    at ``i0``, by default ``max(states.i)``, so successive segments extend
+    one sequence.  Routes:
     on a GLM up to ``BIGN_THRESHOLD`` observations the Halton multistep
     kernel (3b) or the NUTS kernels (9 when ``steps`` has a divisor in
     [2, 8] on the card, else 8), above it the N-tiled gradient kernel (4);
     on a catalog target the trajectory kernel (5) or target-mode NUTS (8b).
-    The dense metric and ``mesh=`` are not ported (ROADMAP queue 1)."""
+    The dense metric on a catalog target and ``mesh=`` are not ported
+    (ROADMAP queue 1)."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.mala import MALA
     from ..samplers.nuts import NUTS
@@ -522,6 +567,8 @@ def make_fused_continuation(model, sampler, states0):
 
         fold_s = s
     else:
+        if s is not None and s.ndim == 2:
+            raise ValueError(DENSE_TARGET)
         eps_in = _eps_row(eps, s)
 
         def run_phase(states, steps, i0, generator):

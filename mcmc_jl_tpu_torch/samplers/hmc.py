@@ -8,10 +8,10 @@ Semantics matched to the reference:
   (HMC.jl:37-47, 167-173)
 - ``store_leaps`` records the whole trajectory for Rao-Blackwellized means
   (HMC.jl:144-151) — as (n_leaps+1) rows of (pars, H).
-- optional diagonal mass adaptation (``mass_adapt=True``/``"diag"`` or
-  ``"diag-win"``, samplers/massadapt.py) folded into the integrator as a
-  per-coordinate step ``eps * scale``; ``"dense"`` is ROADMAP queue 1 item
-  9 and raises.
+- optional mass adaptation (samplers/massadapt.py): a diagonal metric
+  (``mass_adapt=True``/``"diag"`` or ``"diag-win"``) folded into the
+  integrator as a per-coordinate step ``eps * scale``, or a dense one
+  (``"dense"``) as unit-metric dynamics in ``z = L^-1 theta``.
 
 The state may hold one chain (``pars`` of shape (d,)) or C chains on a
 leading dimension; with a tuner every chain carries its own step and leap
@@ -30,8 +30,8 @@ from .base import (
     tuner_init, tuner_update,
 )
 from .integrators import get_integrator, hamiltonian
-from .massadapt import (MassAccum, mass_init, mass_kind, mass_update,
-                        mass_vector_scale)
+from .massadapt import (MassAccum, dense_transforms, mass_init, mass_kind,
+                        mass_update, mass_vector_scale, z_model)
 
 
 @state_dataclass
@@ -50,7 +50,7 @@ class HMC(Sampler):
     leap_step: float = 0.1
     store_leaps: bool = False
     tuner: Optional[EmpMCTuner] = None
-    #: False | True/"diag" (continuous Welford) | "diag-win"
+    #: False | True/"diag" (continuous Welford) | "diag-win" | "dense"
     mass_adapt: object = False
     #: "leapfrog" (reference parity) | "2stage" | "3stage"
     integrator: str = "leapfrog"
@@ -93,7 +93,7 @@ class HMC(Sampler):
         object.__setattr__(self, "leap_step", float(leap_step))
         object.__setattr__(self, "store_leaps", bool(store_leaps))
         object.__setattr__(self, "tuner", tuner)
-        mass_kind(mass_adapt)  # validate early ("dense" raises)
+        mass_kind(mass_adapt)  # validate early
         object.__setattr__(self, "mass_adapt", mass_adapt)
         get_integrator(integrator)  # validate early
         object.__setattr__(self, "integrator", integrator)
@@ -132,7 +132,15 @@ class HMC(Sampler):
             eps = self.leap_step
             nl = None
         kind = self._kind
-        if kind is not None:
+        work_model, z0, g0, to_theta = model, pars0, state.grad, None
+        if kind == "dense":
+            # standardized coordinates theta = L z: unit-metric dynamics in
+            # z are dynamics with the dense inverse mass L L' in theta
+            fwd, inv, gfwd, ginv = dense_transforms(
+                state.mass.scale.to(pars0.dtype))
+            work_model, z0, g0, to_theta = (z_model(model, fwd, gfwd),
+                                            inv(pars0), gfwd(state.grad), fwd)
+        elif kind is not None:
             # vector leapfrog step = eps * scale: diagonal mass
             # preconditioning folded into the integrator
             eps = eps * mass_vector_scale(kind, state.mass, pars0.dtype)
@@ -142,10 +150,10 @@ class HMC(Sampler):
         H0 = hamiltonian(state.logtarget, m0)
         step_fn, _ = get_integrator(self.integrator)
 
-        carry = (pars0, state.logtarget, state.grad, m0)
+        carry = (z0, state.logtarget, g0, m0)
 
         def advance(carry, j):
-            new = step_fn(model, carry[0], carry[3], carry[2], eps)
+            new = step_fn(work_model, carry[0], carry[3], carry[2], eps)
             if nl is None:
                 return new
             live = j < nl  # chains whose trajectory is still running
@@ -163,7 +171,9 @@ class HMC(Sampler):
             traj_pars, traj_H = [], []
             for j in range(self._max_leaps()):
                 carry = advance(carry, j)
-                traj_pars.append(carry[0])
+                # dense: trajectories back to theta-space
+                traj_pars.append(carry[0] if to_theta is None
+                                 else to_theta(carry[0]))
                 traj_H.append(hamiltonian(carry[1], carry[3]))
             # rows are stacked on a new axis after the chain dimension, the
             # per-chain layout of the JAX package's (n_leaps+1, d) buffers
@@ -176,6 +186,8 @@ class HMC(Sampler):
                     device=H0.device)),
             }
         pars, lp, g, m = carry
+        if kind == "dense":  # back to theta-space
+            pars, g = fwd(pars), ginv(g)
 
         ratio = H0 - hamiltonian(lp, m)
         accept = metropolis_accept(generator, ratio)

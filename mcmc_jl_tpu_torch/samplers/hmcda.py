@@ -8,8 +8,8 @@ Hoffman & Gelman 2011, Algorithm 5).
 - dual-averaging update during burn-in, frozen ``exp(log eps-bar)`` after
   (HMCDA.jl:133-141); defaults rate=0.65, len=2, shrinkage=0.05, t0=10,
   step=0.75 (HMCDA.jl:42-43)
-- the diagonal mass adaptation of HMC (``mass_adapt``), side by side with
-  the step size; ``"dense"`` is ROADMAP queue 1 item 9 and raises.
+- the mass adaptation of HMC (``mass_adapt``: diagonal or dense), side
+  by side with the step size.
 
 Every chain of a batch carries its own step and leap count; the trajectory
 loop runs to the largest count with the finished chains held still.
@@ -23,8 +23,8 @@ import torch
 
 from .base import RunCtx, Sampler, _where, state_dataclass
 from .integrators import get_integrator, hamiltonian, leapfrog
-from .massadapt import (MassAccum, mass_init, mass_kind, mass_update,
-                        mass_vector_scale)
+from .massadapt import (MassAccum, dense_transforms, mass_init, mass_kind,
+                        mass_update, mass_vector_scale, z_model)
 
 
 @state_dataclass
@@ -79,7 +79,7 @@ class HMCDA(Sampler):
     #: "leapfrog" | "2stage" | "3stage" (samplers/integrators.py); trajectory
     #: length `len` still counts macro steps of size eps
     integrator: str = "leapfrog"
-    #: False | True/"diag" | "diag-win" (massadapt.py)
+    #: False | True/"diag" | "diag-win" | "dense" (massadapt.py)
     mass_adapt: object = False
 
     needs_gradient = True
@@ -132,10 +132,17 @@ class HMCDA(Sampler):
         dtype = pars0.dtype
         eps = state.leap_step
         kind = self._kind
-        # diag kinds: vector integrator step eps * scale; the length rule
-        # below keeps counting scalar-eps time
         eps_step = eps.unsqueeze(-1)
-        if kind is not None:
+        work_model, z0, g0 = model, pars0, state.grad
+        if kind == "dense":
+            # standardized coordinates theta = L z (the HMC dense path)
+            fwd, inv, gfwd, ginv = dense_transforms(
+                state.mass.scale.to(dtype))
+            work_model, z0, g0 = (z_model(model, fwd, gfwd), inv(pars0),
+                                  gfwd(state.grad))
+        elif kind is not None:
+            # diag kinds: vector integrator step eps * scale; the length
+            # rule below keeps counting scalar-eps time
             eps_step = eps_step * mass_vector_scale(kind, state.mass, dtype)
 
         m0 = torch.randn(pars0.shape, generator=generator, dtype=dtype,
@@ -144,12 +151,14 @@ class HMCDA(Sampler):
         nl = torch.clamp(torch.round(self.len / eps), min=1).to(torch.int32)
         step_fn, _ = get_integrator(self.integrator)
 
-        carry = (pars0, state.logtarget, state.grad, m0)
+        carry = (z0, state.logtarget, g0, m0)
         for j in range(int(nl.max())):
-            new = step_fn(model, carry[0], carry[3], carry[2], eps_step)
+            new = step_fn(work_model, carry[0], carry[3], carry[2], eps_step)
             live = j < nl  # chains whose trajectory is still running
             carry = tuple(_where(live, b, a) for a, b in zip(carry, new))
         pars, lp, g, m = carry
+        if kind == "dense":  # back to theta-space
+            pars, g = fwd(pars), ginv(g)
 
         p = torch.clamp(torch.exp(H0 - hamiltonian(lp, m)), max=1.0)
         p = torch.where(torch.isnan(p), torch.zeros_like(p), p)

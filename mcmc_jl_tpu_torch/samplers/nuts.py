@@ -31,15 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import types
 
 import torch
 
 from .base import RunCtx, Sampler, _where, state_dataclass, tree_map
 from .hmcda import find_reasonable_step
 from .integrators import hamiltonian, leapfrog
-from .massadapt import (MassAccum, mass_init, mass_kind, mass_update,
-                        mass_vector_scale)
+from .massadapt import (MassAccum, dense_transforms, mass_init, mass_kind,
+                        mass_update, mass_vector_scale, z_model)
 
 DELTAMAX = 100.0
 # dual-averaging constants (NUTS.jl:121-125)
@@ -100,8 +99,7 @@ def dual_average(state, avg_alpha):
 @dataclasses.dataclass(frozen=True, repr=False)
 class NUTS(Sampler):
     maxdoublings: int = 5
-    #: False | True/"diag" (continuous Welford) | "diag-win"; "dense" is
-    #: not ported (ROADMAP queue 1 item 9)
+    #: False | True/"diag" (continuous Welford) | "diag-win" | "dense"
     mass_adapt: object = False
     #: False = reference-parity slice NUTS (Hoffman-Gelman Alg. 6);
     #: True = multinomial state selection (Betancourt 2017): leaves weighted
@@ -265,17 +263,20 @@ class NUTS(Sampler):
         kind = self._kind
         if kind is not None:
             # Preconditioned NUTS in standardized coordinates theta = S z:
-            # a unit-metric tree on lp_z(z) = lp(S z) (grad_z = S grad_theta)
-            # is exactly NUTS with mass M = S^-2.  S is per chain here.
-            s_vec = model.scale.to(dtype) * mass_vector_scale(
-                kind, state.mass, dtype)
-
-            def evalallg_z(z):
-                lp, g = model.evalallg(z * s_vec)
-                return lp, g * s_vec
-
-            tree_model = types.SimpleNamespace(evalallg=evalallg_z)
-            pars_t, grad_t = state.pars / s_vec, state.grad * s_vec
+            # a unit-metric tree on lp_z(z) = lp(S z) (grad_z = S' grad_theta)
+            # is exactly NUTS with mass M = (S S')^-1.  S is per chain: a
+            # vector for the diagonal kinds, the windowed covariance's
+            # Cholesky factor (seeded with diag(model.scale)) for "dense".
+            if kind == "dense":
+                fwd, inv, gfwd, ginv = dense_transforms(
+                    state.mass.scale.to(dtype))
+            else:
+                s_vec = model.scale.to(dtype) * mass_vector_scale(
+                    kind, state.mass, dtype)
+                fwd = gfwd = lambda v: v * s_vec  # noqa: E731
+                inv = ginv = lambda v: v / s_vec  # noqa: E731
+            tree_model = z_model(model, fwd, gfwd)
+            pars_t, grad_t = inv(state.pars), gfwd(state.grad)
             scale = torch.ones(d, dtype=dtype, device=dev)
         else:
             tree_model = model
@@ -346,7 +347,7 @@ class NUTS(Sampler):
 
         new_pars, new_lp, new_grad = prop
         if kind is not None:  # back to theta-space
-            new_pars, new_grad = new_pars * s_vec, new_grad / s_vec
+            new_pars, new_grad = fwd(new_pars), ginv(new_grad)
 
         avg_alpha = alpha / torch.clamp(nalpha, min=1).to(dtype)
         new_eps, new_hbar, new_lebar = dual_average(state, avg_alpha)

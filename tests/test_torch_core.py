@@ -210,8 +210,13 @@ def test_hmc_tuner_and_store_leaps_run():
 
 def test_unported_options_raise():
     X, Y = _data("logistic", seed=9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.HMC(5, 0.1, mass_adapt="dense")
+    # the dense metric is ported: it constructs, and runs on a GLM
+    s = mt.HMC(5, 0.1, mass_adapt="dense")
+    assert s._kind == "dense"
+    m = mt.model(glm=("logistic", X, Y), dtype=torch.float64, device="cpu")
+    c = mt.run(m * s * mt.SerialMC(steps=60, burnin=30), seed=0)
+    assert c.task.state.mass.scale.shape == (m.size, m.size)
+    assert np.all(np.isfinite(c.samples.values))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.model(lambda x: mt.tilde(x, mt.Normal(0.0, 1.0)), x=1.0,
                  tensor=True, device="cpu")

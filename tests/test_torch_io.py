@@ -151,6 +151,8 @@ JAX_LAYOUT = {
               mt.chees_state_from_numpy),
     "nuts_diag": (lambda p: p.NUTS(maxdoublings=4, mass_adapt="diag"),
                   mt.nuts_state_from_numpy),
+    "hmc_dense": (lambda p: p.HMC(4, 0.1, mass_adapt="dense"),
+                  mt.hmc_state_from_numpy),
 }
 
 
@@ -173,6 +175,11 @@ def test_files_match_the_jax_package(tmp_path, name):
     jc = mc.run(jm * make(mc) * runner, seed=3)
     ts, truns = make(mt), mt.SerialMC(steps=40, burnin=20)
     state = convert(_as_dict(jax.device_get(jc.task.state)), device="cpu")
+    if ts._kind == "dense":  # the dense accumulator carries its matrices
+        assert state.mass.scale.shape == state.mass.m2.shape == (3, 3)
+        np.testing.assert_array_equal(state.mass.scale.numpy(),
+                                      np.asarray(jc.task.state.mass.scale))
+        assert not np.allclose(state.mass.scale.numpy(), np.eye(3))
     task = mt.MCMCTask(tm, ts, truns, state=state,
                        key=make_generator("cpu", 0).get_state(),
                        pos=jc.task.pos)

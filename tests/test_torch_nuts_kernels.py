@@ -162,8 +162,9 @@ def test_multistep_ref_matches_jax_driver(multinomial):
 
 def test_wrappers_check_what_the_kernels_take():
     """Depth outside 1..MAX_DOUBLINGS raises; a (d, d) prior (the dense
-    fold) raises naming the ROADMAP; the per-transition driver runs the plain
-    version on the CPU and keeps the info protocol."""
+    fold) runs the plain version on the CPU, as the plain version with that
+    prior computes it; the per-transition driver runs the plain version on
+    the CPU and keeps the info protocol."""
     X, Y = _data()
     d = X.shape[1]
     XT = torch.as_tensor(X.T, dtype=torch.float32).contiguous()
@@ -175,9 +176,16 @@ def test_wrappers_check_what_the_kernels_take():
     with pytest.raises(ValueError, match="maxdoublings"):
         nk.glm_nuts_transition(XT, Yt, th, lp, g, 0.1, *noise,
                                maxdoublings=nk.MAX_DOUBLINGS + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nk.glm_nuts_transition(XT, Yt, th, lp, g, 0.1, *noise, maxdoublings=3,
-                               prior_prec=torch.eye(d))
+    A = torch.eye(d) + 0.1 * torch.ones(d, d)
+    nk.reset_counts()
+    out = nk.glm_nuts_transition(XT, Yt, th, lp, g, 0.1, *noise,
+                                 maxdoublings=3, prior_prec=A)
+    assert nk.PLAIN_CALLS["glm_nuts_transition"] == 1
+    assert not any(nk.LAUNCHES.values())
+    ref = nk.glm_nuts_transition_ref(XT, Yt, th, lp, g, 0.1, *noise,
+                                     maxdoublings=3, prior_prec=A)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     nk.reset_counts()
     (thF, lpF, gF), infos = nk._nuts_run(XT, Yt, th, 0.2, gen, steps=5,
                                          maxdoublings=3)

@@ -129,8 +129,8 @@ def test_routing():
     assert warmstart._pick_k_trans(1000) == 8
     assert warmstart._pick_k_trans(997) == 1
     assert warmstart._nuts_hw_route(m, 1000) == (False, 1)  # CPU model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.NUTS(mass_adapt="dense")
+    # the dense metric folds into the NUTS kernels' matrix prior
+    assert route(mt.NUTS(mass_adapt="dense")) == "nuts"
     # the warm handoff still samples, as exact NUTS on the generic engine
     nk.reset_counts()
     cs = mt.run(m * mt.NUTS(maxdoublings=3, warm_handoff=True)
