@@ -32,7 +32,14 @@ the logistic GLM at N = 1000 (4096 chains) and N = 100,000 (512 chains),
 the NUTS run's resume, and ``benchmarks/benchunits/mass_metric.py``'s
 correlated Gaussian as a linear GLM, held to its known covariance, with
 its ESS/s beside the diagonal metric's; the four variants are then held
-against their plain versions on those runs' own folds.  Then
+against their plain versions on those runs' own folds.  GLMs wider than 32
+parameters run kernels 1, 2, 3, 3b and 4 (and the _mat variants) on the
+wide chain tile: each is held against its plain version at d 33, 64, 150
+and 256 (``phase_wide_kernels``), and a logistic regression of d 150
+(``wide_data``) drives plain HMC, the drivers of 2 and 3, adaptive HMC with
+a diagonal and a dense metric at N 1000 and N 100,000, and one resume,
+each held against the generic engine (``phase_wide_paths``; exact NUTS on
+it takes the generic engine with its reason).  Then
 ``resume(chains, steps=S)`` continues the chains of seven
 of these runs, each as one batch through the kernels its frozen state
 takes (3b, 9, 8, 4, 5 and 8b), with the frozen hyper-parameters, ``pos``,
@@ -55,8 +62,10 @@ It exits non-zero without a CUDA device, and on any failed check.
 ``python3 chip_smoke.py --times [ROOT] [--only g1,g2]`` builds only the
 libraries that the named timing groups need (TIME_GROUPS; default all)
 from the package under ROOT and times their kernels (1-4, 8, 9, 3b, 8b
-and 5-7) at pinned shapes, the paths that run them and bench.py's
-drivers, to compare two trees on one card; ``python3 chip_smoke.py --sass`` prints the
+and 5-7; the wide tile's at d 150 and 256 with the group ``wide``, its
+paths against the generic engine with ``wide_paths``) at
+pinned shapes, the paths that run them and bench.py's drivers, to compare
+two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
 """
 import contextlib
@@ -108,6 +117,20 @@ REPLACES = {
                                 "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
     "glm_nuts_multistep_mat": ("glm_nuts",
                                "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    # the same kernels on the wide tile (32 < d <= 256; the Pallas kernels
+    # pad d to 128 lanes and take any d whose design fits in VMEM), counted
+    # apart
+    "glm_leapfrogs_wide": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
+    "glm_step_wide": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:282"),
+    "glm_multistep_wide": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_multistep_rows_wide": ("glm_hmc",
+                                "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_multistep_rows_mat_wide": ("glm_hmc",
+                                    "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_logp_grad_tiled_wide": ("glm_bign",
+                                 "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    "glm_logp_grad_tiled_mat_wide": ("glm_bign",
+                                     "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -1396,11 +1419,13 @@ def phase_bign_kernels(shapes=((4096, 100_000), (1024, 1_000_000)),
     return {"glm_logp_grad_tiled": err}
 
 
-def _glm_case(kind, N, d, C, seed):
+def _glm_case(kind, N, d, C, seed, scale=0.3):
     """A GLM of link ``kind`` (N observations, d parameters, C chains near
-    0) with weights and offsets: (XT, Y, W, O, theta, m)."""
+    0) with weights and offsets, the design scaled by ``scale``: (XT, Y, W,
+    O, theta, m)."""
     rng = np.random.default_rng(seed)
-    X = np.column_stack([np.ones(N), rng.standard_normal((N, d - 1))]) * 0.3
+    X = np.column_stack([np.ones(N), rng.standard_normal((N, d - 1))]) \
+        * scale
     z = X @ rng.standard_normal(d)
     Y = {"linear": z + rng.standard_normal(N),
          "poisson": rng.poisson(np.exp(z)).astype(float)}.get(
@@ -4402,6 +4427,478 @@ def _device_ms(fn, symbol, reps=10):
     return sum(us) / reps / 1e3 if us and sum(us) > 0 else None
 
 
+# ---- GLMs wider than 32 parameters: the wide tile's kernels, paths, times --
+
+# the wide paths' width (tests/test_pallas_glm.py's wide case) and the widths
+# the kernel checks take: the narrow tile's edge + 1, two wide tiles, the
+# paths', and the bound (glm_kernels.D_MAX)
+WIDE_D = 150
+WIDE_CHECK_D = (33, 64, 150, 256)
+# HMC step of the wide paths at N 1000 (posterior sds about 0.6) and of the
+# kernel checks that want both accepts and rejects; at N 100,000 (sds about
+# 0.06) the adaptive runs' initial step
+WIDE_EPS, WIDE_STEP_EPS, WIDE_BIGN_EPS = 0.1, 0.3, 0.01
+# the wide kernels' launch counters, each beside its narrow one
+WIDE_KERNELS = ("glm_leapfrogs_wide", "glm_step_wide", "glm_multistep_wide",
+                "glm_multistep_rows_wide", "glm_multistep_rows_mat_wide",
+                "glm_logp_grad_tiled_wide", "glm_logp_grad_tiled_mat_wide")
+_WIDE_MODES = {}
+
+
+def wide_data(n=1000, d=WIDE_D):
+    """bench.py's ``_data`` at d parameters, scaled as
+    tests/test_pallas_glm.py's wide case: an intercept and d - 1 standard
+    normal columns, all divided by sqrt(d), and a response drawn at
+    standard normal coefficients, from numpy seed 1."""
+    rng = np.random.default_rng(1)
+    X = np.column_stack([np.ones(n), rng.standard_normal((n, d - 1))]) \
+        / np.sqrt(d)
+    beta0 = rng.standard_normal(d)
+    Y = (rng.random(n) < 1.0 / (1.0 + np.exp(-X @ beta0))).astype(np.float64)
+    return X, Y
+
+
+def _wide_mode(n, d=WIDE_D, iters=12):
+    """wide_data(n, d), its posterior mode (Newton steps in float64 on the
+    card: numpy takes seconds a step at N 100,000) and the Laplace
+    approximation's Cholesky factor of the covariance there (cached)."""
+    import torch
+
+    if (n, d) not in _WIDE_MODES:
+        X, Y = wide_data(n, d)
+        Xt = torch.as_tensor(X, device="cuda")
+        Yt = torch.as_tensor(Y, device="cuda")
+        b = torch.zeros(d, dtype=torch.float64, device="cuda")
+        eye = torch.eye(d, dtype=torch.float64, device="cuda")
+        for it in range(iters + 1):
+            p = torch.sigmoid(Xt @ b)
+            H = Xt.T @ (Xt * (p * (1 - p))[:, None]) + eye
+            if it < iters:
+                b = b + torch.linalg.solve(H, Xt.T @ (Yt - p) - b)
+        L = torch.linalg.cholesky(torch.linalg.inv(H))
+        _WIDE_MODES[n, d] = (X, Y, b.cpu().numpy(), L.cpu().numpy())
+    return _WIDE_MODES[n, d]
+
+
+def _wide_folds(n, d, C, seed, spread=0.1):
+    """The three priors the wide kernels take, each on its own design, with
+    C chains near the mode (``spread`` posterior sds): the scalar on X,
+    the diagonal fold (X s, row s^2; s the Laplace sds) and the dense fold
+    (X L, matrix L'L), chains in z.  {name: (XT, Y, theta, prior)}."""
+    X, Y, mode, L = _wide_mode(n, d)
+    rng = np.random.default_rng(seed)
+    s = np.sqrt(np.sum(L * L, axis=1))
+    theta = mode + spread * s * rng.standard_normal((C, d))
+    XL, A = _dense_fold(X, L)
+    Yc = _cuda(Y)
+    return {"scalar": (_cuda(X.T), Yc, _cuda(theta), 1.0),
+            "row": (_cuda((X * s).T), Yc, _cuda(theta / s), _cuda(s * s)),
+            "matrix": (_cuda(XL.T), Yc,
+                       _cuda(np.linalg.solve(L, theta.T).T), _cuda(A))}
+
+
+def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
+                       k=8, i0=501):
+    """Kernels 1, 2, 3, 3b (and _mat) and 4 (and _mat) on the wide tile
+    against their plain versions at d 33, 64, 150 and 256 (WIDE_CHECK_D):
+    at d 150 at the wide paths' shapes (4096 chains at N 1000, 512 at N
+    100,000), at the other widths on a ragged chain count (1027, and 300
+    for kernel 4) and a ragged N (100,003 for kernel 4); rows streamed at
+    N 1000 at every width, resident at d 33, N 300.  Chains start near
+    the posterior mode of wide_data; 2, 3 and 3b at WIDE_STEP_EPS, where
+    the plain versions both accept and reject; 3b with the diagonal fold's
+    (d,) row and the dense fold's (d, d) matrix; kernel 1 also on every
+    link with weights and offsets at d 64.  The tolerances are the narrow
+    kernels' (phase_kernels, phase_tile_kernels, _tiled_case).  Returns
+    the largest absolute error of each wide kernel."""
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    err = dict.fromkeys(WIDE_KERNELS, 0.0)
+
+    def keep(name, e):
+        err[name] = max(err[name], e)
+
+    for d in WIDE_CHECK_D:
+        Cd = C if d == WIDE_D else ragged
+        f = _wide_folds(N, d, Cd, seed=d)
+        XT, Yc, th, _ = f["scalar"]
+        rng = np.random.default_rng(d + 1)
+        m0 = _cuda(rng.standard_normal((Cd, d)))
+        logu = _cuda(np.log(rng.random(Cd)))
+        label = f"wide tile, d {d}, N {N}, C {Cd}"
+        keep("glm_leapfrogs_wide", _traj_check(label, XT, Yc, th, m0,
+                                               WIDE_EPS, n_leaps=10))
+        keep("glm_step_wide", _step_check(label, XT, Yc, th, m0, logu,
+                                          WIDE_STEP_EPS, mix=True,
+                                          n_leaps=10))
+        keep("glm_multistep_wide", _multistep_check(
+            label, XT, Yc, th, WIDE_STEP_EPS, k=k, seed=d, mix=True,
+            n_leaps=10))
+        for prior, name in (("row", "glm_multistep_rows_wide"),
+                            ("matrix", "glm_multistep_rows_mat_wide")):
+            XTf, _, thf, lam = f[prior]
+            keep(name, _rows_check(f"{label}, {prior} fold", XTf, Yc, thf,
+                                   WIDE_STEP_EPS, 10 * WIDE_STEP_EPS, i0,
+                                   20, k, seed=d + 2, mix=True,
+                                   prior_prec=lam))
+        del f, XT, th, m0
+    # kernel 1: every link with weights and offsets, the design scaled so
+    # that z spreads as in phase_tile_kernels' d 7 cases (0.3 sqrt(7 / d)):
+    # at 0.3 the d 64 Poisson posterior is so stiff (counts to 4415) that
+    # the 2stage step 0.01 is unstable and any two roundings part in
+    # overflow; then rows resident
+    for kind in gk.KIND_CODES:
+        XT, Yc, W, O, th, m = _glm_case(kind, N, 64, 300, seed=7,
+                                        scale=0.3 * np.sqrt(7 / 64))
+        keep("glm_leapfrogs_wide", _traj_check(
+            f"wide tile, {kind}, weights+offsets, d 64", XT, Yc, th, m, 0.01,
+            n_leaps=3, kind=kind, weights=W, offsets=O, prior_prec=1.5,
+            integrator="2stage"))
+    f = _wide_folds(300, 33, ragged, seed=3)
+    XT, Yc, th, _ = f["scalar"]
+    keep("glm_leapfrogs_wide", _traj_check(
+        "wide tile, rows resident, d 33, N 300", XT, Yc, th,
+        _cuda(np.random.default_rng(4).standard_normal((ragged, 33))),
+        WIDE_EPS, n_leaps=10))
+    # kernel 4
+    for d in WIDE_CHECK_D:
+        n4, c4 = (Nb, Cb) if d == WIDE_D else (Nb + 3, 300)
+        f = _wide_folds(n4, d, c4, seed=d + 5, spread=0.3)
+        for prior, name in (("scalar", "glm_logp_grad_tiled_wide"),
+                            ("matrix", "glm_logp_grad_tiled_mat_wide")):
+            XT, Yc, th, lam = f[prior]
+            keep(name, _tiled_case(f"wide tile, d {d}, {prior} prior, "
+                                   f"N {n4}, C {c4}", XT, Yc, th, lam=lam))
+        del f
+    return err
+
+
+def _wide_nuts_refused(m, runner):
+    """The route of exact NUTS on the wide model: the generic engine, with
+    the logged reason naming the item that lifts the exact-NUTS kernels'
+    bound.  Returns the reason."""
+    import logging
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.core.task import MCMCTask
+    from mcmc_jl_tpu_torch.parallel import pchains
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    log = logging.getLogger(pchains.__name__)
+    level = log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        route = pchains._route(MCMCTask(m, mt.NUTS(6), runner), "auto")
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    why = [s for s in seen if "exact NUTS on GLMs wider than 32" in s]
+    assert route is False and why, (route, seen)
+    return why[0]
+
+
+def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
+                     steps=1000, burnin=200, bign_steps=(100, 50),
+                     thin=200, n=1000, n_bign=100_000):
+    """A logistic regression of d = 150 (wide_data) through the port's entry
+    points, every launch counted from zero over one run and every run held
+    within Z_MAX standard errors of per-chain means against the generic
+    engine (the route such a GLM took before the wide tile):
+
+    - N 1000 from the model's init: ``run(HMC(10, WIDE_EPS) *
+      SerialMC(1000, 200), chains=4096)`` (kernel 1, once a transition),
+      against the same task on 512 generic-engine chains;
+      ``run_glm_hmc(fused_step=True)`` (2) and
+      ``run_glm_hmc_multistep(thin=200)`` (3) from the same start for as
+      many transitions, against that run's final states (phase_drivers);
+      adaptive HMC with a diagonal and with a dense metric, ``HMC(10,
+      WIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(1000,
+      200)`` at 4096 chains (3b, 3b_mat: 800 sampling transitions as 100
+      launches of 8), against the generic run; ``resume(chains, steps=120)``
+      of the diagonal run (3b: 15 launches of 8);
+    - N 100,000 from the posterior mode: ``HMC(10, WIDE_BIGN_EPS,
+      EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(100, 50)`` at 512
+      chains, diagonal and dense (4, 4_mat; phase_large_n_paths'
+      SerialMC(200, 50) cut to 50 sampling transitions, for the script's
+      600 s), against plain ``HMC(10, WIDE_BIGN_EPS)`` on
+      512 generic-engine chains from the same start;
+    - exact NUTS on the N 1000 model is asserted to take the generic
+      engine with its reason (kernels 8 and 9 keep d <= 32).
+
+    The generic reference runs are timed in full at 512 chains
+    (phase_wide_path_times times each task through both routes at the
+    same chains).  Returns the wide kernels' launches {name: (count,
+    origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_hmc import (run_glm_hmc,
+                                              run_glm_hmc_multistep)
+
+    X, Y, _, _ = _wide_mode(n)
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    d = m.size
+    counts = {}
+    task = m * mt.HMC(10, WIDE_EPS) * mt.SerialMC(steps=steps, burnin=burnin)
+    origin = _origin(m, task, chains)
+    cs, samples, launches, dt, spans = _path(
+        origin, task, chains, {"glm_leapfrogs_wide": steps})
+    acc = float(np.mean([mt.acceptance(c) for c in cs[:512]])) / 100
+    final = samples[:, -1]
+    del cs
+    t0 = time.perf_counter()
+    cg = mt.run(task, chains=generic_chains, seed=1, fused=False)
+    gen_s = time.perf_counter() - t0
+    gmeans = np.stack([c.samples.values for c in cg]).mean(1)
+    del cg
+    z = _z_means(samples.mean(1), gmeans)
+    emit({"phase": "wide_path", "kernel": "glm_leapfrogs_wide",
+          "from": origin, "d": d, "chains": chains, "seconds": dt,
+          "spans_s": spans, "launches": launches["glm_leapfrogs_wide"],
+          "accept_rate": acc, "generic": {"chains": generic_chains,
+                                          "seconds": gen_s},
+          "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+    counts["glm_leapfrogs_wide"] = (launches["glm_leapfrogs_wide"], origin)
+    del samples
+
+    inits = np.zeros_like(final)
+    for name, origin_d, want, fn in (
+            ("glm_step_wide", "run_glm_hmc(fused_step=True)", steps,
+             lambda: run_glm_hmc(X, Y, chains, steps, n_leaps=10,
+                                 eps=WIDE_EPS, seed=2, inits=inits,
+                                 device="cuda", fused_step=True)),
+            ("glm_multistep_wide", f"run_glm_hmc_multistep(thin={thin})",
+             steps // thin,
+             lambda: run_glm_hmc_multistep(X, Y, chains, steps, thin=thin,
+                                           n_leaps=10, eps=WIDE_EPS, seed=3,
+                                           inits=inits, device="cuda"))):
+        t0 = time.perf_counter()
+        (theta, _), launches = _counted(fn)
+        dt = time.perf_counter() - t0
+        assert launches == {**{k: 0 for k in launches}, name: want}, launches
+        th = theta.double().cpu().numpy()
+        assert th.shape == final.shape and np.all(np.isfinite(th))
+        z = _z_means(th, final)
+        origin_d = f"{origin_d} at d {d}, N {n}, {chains} chains"
+        emit({"phase": "wide_driver", "kernel": name, "from": origin_d,
+              "transitions": steps, "seconds": dt,
+              "launches": launches[name], "z_max_vs_main_path": z,
+              "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin_d} disagrees with the main path"
+        counts[name] = (launches[name], origin_d)
+
+    held = None
+    for ma, name in (("diag", "glm_multistep_rows_wide"),
+                     ("dense", "glm_multistep_rows_mat_wide")):
+        sampler = mt.HMC(10, WIDE_EPS, mt.EmpMCTuner(0.8, adapt_step=50),
+                         mass_adapt=ma)
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = _origin(m, task, chains)
+        cs, samples, launches, dt, spans = _path(
+            origin, task, chains, {name: (steps - burnin) // 8})
+        st = cs[0].task.state
+        z = _z_means(samples.mean(1), gmeans)
+        emit({"phase": "wide_path", "kernel": name, "from": origin, "d": d,
+              "chains": chains, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_step": st.tune.step_size.item(),
+              "frozen_n_leaps": st.tune.n_leaps.item(),
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs[:512]])) / 100,
+              "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+        counts[name] = (launches[name], origin)
+        if held is None:
+            held = [c.task for c in cs]
+        del cs, samples
+    label = f"adaptive HMC diag, d {d}, N {n}, kernel 3b wide"
+    _resume_path(label, held, RESUME_STEPS,
+                 {"glm_multistep_rows_wide": RESUME_STEPS // 8},
+                 lambda s: _z_means(s.mean(1), gmeans), by_chain=False)
+    del held
+    why = _wide_nuts_refused(m, mt.SerialMC(steps=steps, burnin=burnin))
+    emit({"phase": "wide_nuts_route", "d": d, "route": "generic engine",
+          "reason": why})
+
+    nb, bb = bign_steps
+    Xb, Yb, mode_b, _ = _wide_mode(n_bign)
+    mb = mt.model(glm=("logistic", Xb, Yb), init=mode_b, device="cuda")
+    ref_task = mb * mt.HMC(10, WIDE_BIGN_EPS) * mt.SerialMC(steps=nb,
+                                                            burnin=bb)
+    t0 = time.perf_counter()
+    cg = mt.run(ref_task, chains=generic_chains, seed=1, fused=False)
+    gen_b = time.perf_counter() - t0
+    bmeans = np.stack([c.samples.values for c in cg]).mean(1)
+    del cg
+    for ma, name in (("diag", "glm_logp_grad_tiled_wide"),
+                     ("dense", "glm_logp_grad_tiled_mat_wide")):
+        task = mb * mt.HMC(10, WIDE_BIGN_EPS,
+                           mt.EmpMCTuner(0.8, adapt_step=50),
+                           mass_adapt=ma) * mt.SerialMC(steps=nb, burnin=bb)
+        origin = _origin(mb, task, chains_bign)
+        cs, samples, launches, dt, spans = _path(
+            origin, task, chains_bign,
+            {name: lambda n: n >= nb - bb + 1})
+        st = cs[0].task.state
+        z = _z_means(samples.mean(1), bmeans)
+        emit({"phase": "wide_path", "kernel": name, "from": origin, "d": d,
+              "chains": chains_bign, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_step": st.tune.step_size.item(),
+              "frozen_n_leaps": st.tune.n_leaps.item(),
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs])) / 100,
+              "generic_reference": {"task": _origin(mb, ref_task,
+                                                    generic_chains),
+                                    "seconds": gen_b},
+              "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+        counts[name] = (launches[name], origin)
+        del cs, samples
+    return counts
+
+
+def phase_wide_path_times(chains=4096, chains_bign=512, steps=60, burnin=20,
+                          n=1000, n_bign=100_000):
+    """Host seconds (to a synchronize) of each wide path's task over a
+    shortened SerialMC(60, 20), through the kernels and through the
+    generic engine at the same chains, d and N: what the width cost before
+    the wide tile (every such GLM took the generic engine).  Returns
+    {path: {"fused_s", "generic_s"}}."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, _, _ = _wide_mode(n)
+    Xb, Yb, mode_b, _ = _wide_mode(n_bign)
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    mb = mt.model(glm=("logistic", Xb, Yb), init=mode_b, device="cuda")
+    runner = mt.SerialMC(steps=steps, burnin=burnin)
+    ad = lambda eps, ma: mt.HMC(10, eps, mt.EmpMCTuner(  # noqa: E731
+        0.8, adapt_step=50), mass_adapt=ma)
+    out = {}
+    for label, model, sampler, C in (
+            ("HMC(10), N 1000, kernel 1", m, mt.HMC(10, WIDE_EPS), chains),
+            ("adaptive HMC diag, N 1000, kernel 3b", m, ad(WIDE_EPS, "diag"),
+             chains),
+            ("adaptive HMC dense, N 1000, kernel 3b_mat", m,
+             ad(WIDE_EPS, "dense"), chains),
+            ("adaptive HMC diag, N 1e5, kernel 4", mb,
+             ad(WIDE_BIGN_EPS, "diag"), chains_bign),
+            ("adaptive HMC dense, N 1e5, kernel 4_mat", mb,
+             ad(WIDE_BIGN_EPS, "dense"), chains_bign)):
+        task = model * sampler * runner
+        row = {}
+        for key, fused in (("fused_s", "auto"), ("generic_s", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mt.run(task, chains=C, seed=0, fused=fused)
+            torch.cuda.synchronize()
+            row[key] = time.perf_counter() - t0
+        out[label] = row
+        emit({"phase": "wide_path_time", "path": label,
+              "task": _origin(model, task, C), "d": model.size, **row,
+              **CARD})
+    return out
+
+
+def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
+                     i0=501):
+    """Per-call time of each wide kernel at d 150 (WIDE_D) and at the bound
+    (256), at the wide paths' shapes: kernels 1, 2, 3 (k_trans 8) and 3b
+    (and _mat; 8 transitions from i0 at WIDE_STEP_EPS and T 10 eps, so
+    about 10 leaps each) at N 1000 and 4096 chains, kernel 4 (and _mat) at
+    N 100,000 and 512 chains; with CUDA events (the wrapper's host work
+    included), torch.profiler's device time, the plain version on the card,
+    the bound (the repo's: 4 d N FP32 operations a chain-gradient, or the
+    bytes) and the padding waste D / d.  Returns ({kernel: (ms, plain
+    ms)}, {kernel: bound}) at d 150."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    ms, work = {}, {}
+    for d in (WIDE_D, gk.D_MAX):
+        D = -(-d // 32) * 32
+        f = _wide_folds(Ns[0], d, C, seed=d + 9)
+        XT, Yc, th, _ = f["scalar"]
+        N = XT.shape[1]
+        rng = np.random.default_rng(d)
+        m0 = _cuda(rng.standard_normal((C, d)))
+        logu = _cuda(np.log(rng.random(C)))
+        lp, g = _lp_grad(XT, Yc, th)
+        lp = lp[:, None].contiguous()
+        gen = lambda: torch.Generator(device="cuda").manual_seed(3)  # noqa: E731
+        eps = WIDE_STEP_EPS
+        T, ml = 10 * eps, 20
+        nls = sum(_np_leaps(i, eps, T, ml) for i in range(i0, i0 + kt))
+        calls = {
+            "glm_leapfrogs_wide": (
+                lambda: gk.glm_leapfrogs(XT, Yc, th, m0, g, eps,
+                                         n_leaps=n_leaps),
+                lambda: gk.glm_leapfrogs_ref(XT, Yc, th, m0, g, eps,
+                                             n_leaps=n_leaps),
+                (XT, Yc, th, m0, g), C * n_leaps),
+            "glm_step_wide": (
+                lambda: gk.glm_step(XT, Yc, th, g, lp, m0, logu[:, None],
+                                    eps, n_leaps=n_leaps),
+                lambda: gk.glm_step_ref(XT, Yc, th, g, lp, m0,
+                                        logu[:, None], eps, n_leaps=n_leaps),
+                (XT, Yc, th, g, lp, m0, logu), C * n_leaps),
+            "glm_multistep_wide": (
+                lambda: gk.glm_multistep(XT, Yc, th, eps, k_trans=kt,
+                                         n_leaps=n_leaps, generator=gen()),
+                lambda: gk.glm_multistep_ref(XT, Yc, th, eps, k_trans=kt,
+                                             n_leaps=n_leaps,
+                                             generator=gen()),
+                (XT, Yc, th), C * (1 + kt * n_leaps)),
+        }
+        for prior, name in (("row", "glm_multistep_rows_wide"),
+                            ("matrix", "glm_multistep_rows_mat_wide")):
+            XTf, _, thf, lam = f[prior]
+            calls[name] = (
+                lambda XTf=XTf, thf=thf, lam=lam: gk.glm_multistep_rows(
+                    XTf, Yc, thf, eps, T, i0, ml, k_trans=kt,
+                    generator=gen(), prior_prec=lam),
+                lambda XTf=XTf, thf=thf, lam=lam: gk.glm_multistep_rows_ref(
+                    XTf, Yc, thf, eps, T, i0, ml, k_trans=kt,
+                    generator=gen(), prior_prec=lam),
+                (XTf, Yc, thf, lam), C * (1 + nls))
+        fb = _wide_folds(Ns[1], d, Cb, seed=d + 11, spread=0.3)
+        for prior, name in (("scalar", "glm_logp_grad_tiled_wide"),
+                            ("matrix", "glm_logp_grad_tiled_mat_wide")):
+            XTb, Yb, thb, lam = fb[prior]
+            calls[name] = (
+                lambda XTb=XTb, Yb=Yb, thb=thb, lam=lam:
+                    gb.glm_logp_grad_tiled(XTb, Yb, thb, prior_prec=lam),
+                lambda XTb=XTb, Yb=Yb, thb=thb, lam=lam:
+                    gb.glm_logp_grad_tiled_ref(XTb, Yb, thb, prior_prec=lam),
+                (XTb, Yb, thb, lam), Cb)
+        for name, (kern, plain, inputs, evals) in calls.items():
+            n_obs = Ns[1] if "tiled" in name else N
+            nbytes = _nbytes(inputs, kern())
+            bound = _bound(evals, d, n_obs, nbytes)
+            t = (_event_ms(kern), _event_ms(plain, reps=2))
+            symbols = (("partial_wide_kernel", "reduce_kernel")
+                       if "tiled" in name else ("hmc_wide_kernel",))
+            emit({"phase": "wide_time", "name": name, "d": d, "D": D,
+                  "padding_waste": D / d, "N": n_obs,
+                  "C": Cb if "tiled" in name else C, "evals": evals,
+                  "ms": t[0], "plain_ms": t[1], **bound,
+                  "share_of_bound": bound["bound_ms"] / t[0],
+                  "device_ms": _device_ms(kern, symbols, reps=3),
+                  "plan": (_plan(gb, "glm_tiled_plan", d) if "tiled" in name
+                           else _plan(gk, "glm_leapfrogs_plan", d, n_obs)),
+                  **CARD})
+            if d == WIDE_D:
+                ms[name], work[name] = t, bound
+        del f, fb, calls
+    return ms, work
+
+
 def main():
     phase_device()
     import torch
@@ -4426,6 +4923,7 @@ def main():
                         phase_target_lane_kernels).items():
         errors[name] = max(errors[name], e)
     errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
+    errors.update(step("wide_kernels", phase_wide_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
     # the two NUTS kernels, the Halton multistep kernel and the tiled
@@ -4454,6 +4952,7 @@ def main():
                                  held["bign"][1])
     launches.update(dense_launches)
     errors.update(step("dense_kernels", phase_dense_kernels, folds))
+    launches.update(step("wide_paths", phase_wide_paths))
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
@@ -4466,9 +4965,11 @@ def main():
                  step("new_kernel_times", phase_new_kernel_times, hmc_frozen),
                  step("target_kernel_times", phase_target_times),
                  step("target_nuts_time", phase_target_nuts_time, start_t),
-                 step("dense_times", phase_dense_times, folds)):
+                 step("dense_times", phase_dense_times, folds),
+                 step("wide_times", phase_wide_times)):
         ms.update(more[0])
         work.update(more[1])
+    step("wide_path_times", phase_wide_path_times)
     emit({"resume": resume_rows})
     # no single PyTorch call computes any of these functions: library_ms
     # is null (the two products alone are timed in new_kernel_times)
@@ -4617,6 +5118,8 @@ TIME_GROUPS = {
                ("phase_target_times", "phase_target_lane_times")),
     "target_paths": (("target_hmc", "target_rwm"),
                      ("phase_target_path_spans",)),
+    "wide": (("glm_hmc", "glm_bign"), ("phase_wide_times",)),
+    "wide_paths": (("glm_hmc", "glm_bign"), ("phase_wide_path_times",)),
 }
 
 

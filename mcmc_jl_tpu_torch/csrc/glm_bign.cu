@@ -48,6 +48,11 @@
 // tiles; the log-likelihood in double throughout, as traj_grad does.
 // wgmma with warp specialisation is later work; so is a cheaper link.
 //
+// Above d = 32 partial_wide_kernel runs the same sums on the wide tile of
+// glm_tile.cuh.  At d 150, N 100,000, 512 chains: 3.1e10 FLOP, 0.46 ms at
+// the FP32 peak; X (60 MB) is read by the 32 chain tiles of a split while
+// they run together, so mostly once from memory (0.018 ms).
+//
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
@@ -121,34 +126,89 @@ partial_tile_kernel(Glm p, int C, int rows_per_split,
   }
 }
 
+// Above d = 32: the wide tile of glm_tile.cuh on one tile of 16 chains (a
+// warp a chain) and one contiguous range of observations a CTA, streamed
+// in tiles of the wide plan's rows (120 at d 150).  The warps split each
+// tile's row groups for Z and the link, then G's columns for R X
+// (wide_stage2); after every tile the owners of the coordinates add the
+// row splits' float sums into their double accumulators (as the narrow
+// kernel's per-tile gsum), so the partial a CTA writes is the same bits on
+// every launch.  The grid is (tiles of 16 chains, splits of N): at 512
+// chains, 32 tiles by 8 splits, two waves of the one block an SM holds.
+__global__ void __launch_bounds__(kTrajThreads, 1)
+partial_wide_kernel(Glm p, int C, int rows_per_split,
+                    const float* __restrict__ th_in,
+                    double* __restrict__ part) {
+  const Wide w = wide_at(p);
+  wide_init(p, w);
+  const int ct = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kTileChains + ct;
+  const int n0 = blockIdx.y * rows_per_split;
+  const int n1 = min(p.N, n0 + rows_per_split);
+  float th[kWideRegs];
+  wide_load(th, th_in, min(c, C - 1), p.d);  // a warp past C shadows C - 1
+  wide_put_theta(w, ct, th);
+  float gb[kWideUnits][4], gs[kWideUnits][4];
+  wide_zero(gb, gs);
+  double ll[2] = {0.0, 0.0}, gacc[kWideRegs];
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) gacc[i] = 0.0;
+  wide_begin(p, w, n0, n1);
+  for (int t0 = n0, b = 0; t0 < n1; t0 += w.R, b ^= 1) {
+    const int nt = wide_next(p, w, t0, n1, b);
+    const float* xb = wide_buffer(w, b);
+    wide_stage1<true>(p.kind, w, xb, nt, ll);
+    __syncthreads();
+    wide_stage2(w, xb, nt, gb, gs);
+    wide_flush(w, gb, gs);
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i)
+      if (lane + 32 * i < p.d) gacc[i] += (double)wide_gsum(w, ct, lane + 32 * i);
+  }
+  put_ll(w.pll, ll);
+  __syncthreads();
+  if (c >= C) return;
+  double* out = part + ((size_t)blockIdx.y * C + c) * (p.d + 1);
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i)
+    if (lane + 32 * i < p.d) out[lane + 32 * i] = gacc[i];
+  if (lane == 0) out[p.d] = sum_ll(w.pll, ct, kTrajWarps);
+}
+
 // Sum each chain's partials over the splits in split order, then apply the
 // prior as the HMC kernels do: g = acc - pg, lp = ll - 1/2 sum pg theta with
 // pg = lam theta, or (theta A)_j = sum_k theta_k A[k, j] with the matrix.
+// One warp a chain: lane l takes the coordinates l + 32 i (the d^2 of the
+// matrix term spread over the lanes, A's rows read coalesced), and the
+// lanes' shares of sum pg theta meet in a butterfly of fixed order.
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(int C, int d, int splits, float lam,
               const float* __restrict__ lamv, const float* __restrict__ lamm,
               const float* __restrict__ th_in,
               const double* __restrict__ part, float* __restrict__ g_out,
               float* __restrict__ lp_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= C) return;  // whole warps
   const size_t row = (size_t)C * (d + 1);
   const double* pc = part + (size_t)c * (d + 1);
   const float* thc = th_in + (size_t)c * d;
   float quad = 0.f;
-  for (int j = 0; j < d; ++j) {
+  for (int j = lane; j < d; j += 32) {
     double s = 0.0;
     for (int k = 0; k < splits; ++k) s += pc[k * row + j];
     const float th = thc[j];
     float pg = 0.f;
     if (lamm) {
-      for (int k = 0; k < d; ++k) pg = fmaf(thc[k], lamm[k * d + j], pg);
+      for (int k = 0; k < d; ++k) pg = fmaf(thc[k], lamm[(size_t)k * d + j], pg);
     } else {
       pg = (lamv ? lamv[j] : lam) * th;
     }
     g_out[(size_t)c * d + j] = (float)s - pg;
     quad = fmaf(pg, th, quad);
   }
+  for (int o = 16; o > 0; o >>= 1) quad += __shfl_xor_sync(0xffffffffu, quad, o);
+  if (lane) return;
   double ll = 0.0;
   for (int k = 0; k < splits; ++k) ll += pc[k * row + d];
   lp_out[c] = (float)(ll - 0.5 * (double)quad);
@@ -158,18 +218,28 @@ reduce_kernel(int C, int d, int splits, float lam,
 
 extern "C" {
 
-int bign_max_dim() { return 32; }
+int bign_max_dim() { return kWideMax; }
 
 const char* bign_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// How partial_tile_kernel runs at d: blocks resident per SM (from the
-// occupancy calculator) and dynamic shared memory per block.  Returns a
-// CUDA error code.
+// How partial_tile_kernel (d <= 32) or partial_wide_kernel runs at d:
+// blocks resident per SM (from the occupancy calculator) and dynamic shared
+// memory per block.  Returns a CUDA error code.
 int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
   const int D = tile_bound_for(d);
   if (!D) return (int)cudaErrorInvalidValue;
+  if (D > kNarrowMax) {
+    const TrajPlan tp = wide_plan(D, 0, false);
+    if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
+    *smem = (int)tp.smem;
+    cudaError_t e = prepare(partial_wide_kernel, tp.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, partial_wide_kernel, kTrajThreads, tp.smem);
+    return (int)e;
+  }
   *smem = (int)partial_smem(D);
 #define PLAN(DD)                                                            \
   {                                                                         \
@@ -186,7 +256,9 @@ int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
 }
 
 // part: (splits, C, d + 1) doubles of scratch.  Every split must hold at
-// least one observation: ceil(N / ceil(N / splits)) == splits.
+// least one observation: ceil(N / ceil(N / splits)) == splits.  The grid
+// takes chains 128 a CTA for d <= 32, 16 above (ops/glm_bign.py
+// splits_for).
 int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
                         const float* o, const float* lamv, const float* lamm,
                         int N, int d, int C, const float* th_in, float* g_out,
@@ -198,9 +270,19 @@ int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
     return (int)cudaErrorInvalidValue;
   const int rows = (N + splits - 1) / splits;
   if ((N + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
-  const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, kTile, false};
-  const dim3 grid((C + kChains - 1) / kChains, splits);
   cudaStream_t st = (cudaStream_t)stream;
+  if (D > kNarrowMax) {
+    const TrajPlan tp = wide_plan(D, N, false);
+    if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
+    const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows, false};
+    const dim3 grid((C + kTileChains - 1) / kTileChains, splits);
+    cudaError_t e = prepare(partial_wide_kernel, tp.smem);
+    if (e != cudaSuccess) return (int)e;
+    partial_wide_kernel<<<grid, kTrajThreads, tp.smem, st>>>(p, C, rows,
+                                                             th_in, part);
+  } else {
+    const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, kTile, false};
+    const dim3 grid((C + kChains - 1) / kChains, splits);
 #define LAUNCH(DD)                                                          \
   {                                                                         \
     const size_t smem = partial_smem(DD);                                   \
@@ -209,11 +291,12 @@ int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
     partial_tile_kernel<DD><<<grid, kThreads, smem, st>>>(p, C, rows,       \
                                                           th_in, part);     \
   }
-  TILE_DISPATCH(D, LAUNCH)
+    TILE_DISPATCH(D, LAUNCH)
 #undef LAUNCH
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  reduce_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+  reduce_kernel<<<(C + kWarps - 1) / kWarps, kThreads, 0, st>>>(
       C, d, splits, lam, lamv, lamm, th_in, part, g_out, lp_out);
   return (int)cudaGetLastError();
 }

@@ -65,6 +65,13 @@
 // the chain's head lane (alpha from the MH log-ratio, the same bits in all
 // the chain's lanes).
 //
+// Above d = 32 the four kernels run the same transitions on the wide tile
+// (glm_tile.cuh: one warp a chain, D / 32 coordinates a lane, the columns
+// of G split over the warps), up to d = kWideMax (hmc_wide).  At d = 150,
+// N = 1000 one gradient of a chain is 4 d N = 6e5 operations, the rows
+// (600 KB) stream through shared memory from L2 at every gradient, and
+// theta's fragments are read from shared memory for every row group.
+//
 // In every kernel the log-likelihood sum is carried in double, so lp keeps
 // full float precision after a 1000-term sum.
 //
@@ -184,10 +191,8 @@ __device__ __forceinline__ float tile_grad(const Glm& p, const TileCtx<D>& x,
   // own is warp-uniform: the whole warp shuffles and sums
   const float pg = prior_grad<D>(p, x.lam, th, tid % D);
   if (want_ll) {
-    double ll = 0.0;
-    for (int w = 0; w < kTrajWarps; ++w) ll += x.pll[w * kTileChains + x.oc];
     const float quad = chain_sum<D>(th * pg);
-    lp = (float)(ll - 0.5 * (double)quad);
+    lp = (float)(sum_ll(x.pll, x.oc, kTrajWarps) - 0.5 * (double)quad);
   }
   return acc - pg;
 }
@@ -362,6 +367,189 @@ rows_tile_kernel(Glm p, Sched s, HmcArgs a) {
   hmc_tiles<D, kRows>(p, s, a);
 }
 
+// ---- the four kernels on the wide tile (32 < d <= kWideMax) ---------------
+// The same transitions as hmc_tiles on glm_tile.cuh's wide layout: warp c
+// holds chain c of the tile and lane l its coordinates l + 32 i (i <
+// D / 32) in registers; every lane of the block takes part in every
+// gradient.  The Metropolis decision is made from values that are the same
+// bits in all the chain's lanes (lp from the warps' ll partials in one
+// order and a wide_chain_sum, log u from the chain's own draw).
+
+// One gradient at theta th for the tile's chains: g = G - prior term
+// (0 past d); with want_ll also lp, the same bits in all the chain's lanes.
+__device__ __forceinline__ void wide_grad(const Glm& p, const Wide& w,
+                                          const float (&th)[kWideRegs],
+                                          float (&g)[kWideRegs], bool want_ll,
+                                          float& lp) {
+  const int c = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  wide_put_theta(w, c, th);
+  wide_rows(p, w, want_ll);
+  float pg[kWideRegs];
+  wide_prior_grad(p, w, th, pg);
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) {
+    const int j = lane + 32 * i;
+    g[i] = j < p.d ? wide_gsum(w, c, j) - pg[i] : 0.f;
+  }
+  if (want_ll) {
+    float v[kWideRegs];
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i) v[i] = th[i] * pg[i];
+    lp = (float)(sum_ll(w.pll, c, kTrajWarps) -
+                 0.5 * (double)wide_chain_sum(w, v));
+  }
+}
+
+// tile_trajectory on the wide tile.
+__device__ __forceinline__ float wide_trajectory(const Glm& p, const Wide& w,
+                                                 const Sched& s, float eps,
+                                                 int n_leaps,
+                                                 float (&th)[kWideRegs],
+                                                 float (&m)[kWideRegs],
+                                                 float (&g)[kWideRegs]) {
+  float lp = 0.f;
+  for (int l = 0; l < n_leaps; ++l) {
+    const bool final = l == n_leaps - 1;
+    for (int k = 0; k < s.n; ++k) {
+      const float ce = s.c[k] * eps;
+      if (s.op[k] == 0) {
+#pragma unroll
+        for (int i = 0; i < kWideRegs; ++i) m[i] = m[i] + ce * g[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < kWideRegs; ++i) th[i] = th[i] + ce * m[i];
+        wide_grad(p, w, th, g, final && k == s.last_a, lp);
+      }
+    }
+  }
+  return lp;
+}
+
+__device__ __forceinline__ float wide_sq(const Wide& w,
+                                         const float (&m)[kWideRegs]) {
+  float v[kWideRegs];
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) v[i] = m[i] * m[i];
+  return wide_chain_sum(w, v);
+}
+
+// tile_transition on the wide tile.
+__device__ __forceinline__ bool wide_transition(
+    const Glm& p, const Wide& w, const Sched& s, float eps, int n_leaps,
+    float (&th)[kWideRegs], float (&g)[kWideRegs], float& lp,
+    float (&m)[kWideRegs], float logu, float& ratio) {
+  const float h0 = -lp + 0.5f * wide_sq(w, m);
+  float thp[kWideRegs], gp[kWideRegs];
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) {
+    thp[i] = th[i];
+    gp[i] = g[i];
+  }
+  const float lpp = wide_trajectory(p, w, s, eps, n_leaps, thp, m, gp);
+  ratio = mh_ratio(h0, -lpp + 0.5f * wide_sq(w, m));
+  const bool a = mh_accept(ratio, logu);
+  if (a) {
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i) {
+      th[i] = thp[i];
+      g[i] = gp[i];
+    }
+    lp = lpp;
+  }
+  return a;
+}
+
+// hmc_tiles on the wide tile: the blocks are persistent and walk the tiles
+// blockIdx.x + k gridDim.x; a ragged last tile's warps past C shadow chain
+// C - 1 and write nothing.
+template <int MODE>
+__device__ __forceinline__ void hmc_wide(const Glm& p, const Sched& s,
+                                         const HmcArgs& a) {
+  const Wide w = wide_at(p);
+  wide_init(p, w);  // resident rows staged once for all its tiles
+  for (int c0 = blockIdx.x * kTileChains; c0 < a.C;
+       c0 += gridDim.x * kTileChains) {
+    const int c = c0 + (threadIdx.x >> 5), cs = min(c, a.C - 1);
+    const bool out = c < a.C, head = out && (threadIdx.x & 31) == 0;
+    float th[kWideRegs], g[kWideRegs], m[kWideRegs], lp = 0.f;
+    wide_load(th, a.th_in, cs, p.d);
+    if constexpr (MODE == kTraj) {
+      wide_load(m, a.m_in, cs, p.d);
+      wide_load(g, a.g_in, cs, p.d);
+      lp = wide_trajectory(p, w, s, a.eps, a.n_leaps, th, m, g);
+      if (out) {
+        wide_store(a.th_out, th, c, p.d);
+        wide_store(a.m_out, m, c, p.d);
+        wide_store(a.g_out, g, c, p.d);
+      }
+      if (head) a.lp_out[c] = lp;
+    } else if constexpr (MODE == kStep) {
+      wide_load(g, a.g_in, cs, p.d);
+      wide_load(m, a.m_in, cs, p.d);
+      lp = a.lp_in[cs];
+      float ratio;
+      const bool acc = wide_transition(p, w, s, a.eps, a.n_leaps, th, g, lp,
+                                       m, a.logu_in[cs], ratio);
+      if (out) {
+        wide_store(a.th_out, th, c, p.d);
+        wide_store(a.g_out, g, c, p.d);
+      }
+      if (head) {
+        a.lp_out[c] = lp;
+        a.acc_out[c] = acc ? 1.f : 0.f;
+      }
+    } else {
+      wide_grad(p, w, th, g, true, lp);  // lp and g at the start
+      float n_acc = 0.f;
+      for (int t = 0; t < a.k_trans; ++t) {
+        // draws by the launch's transition (3) or the absolute one (3b),
+        // which also sets the shared Halton leap count
+        const int ti = MODE == kRows ? a.i0 + t : t;
+        const int nl = MODE == kRows
+                           ? halton_leaps((uint32_t)ti, a.T, a.eps,
+                                          a.max_leaps)
+                           : a.n_leaps;
+#pragma unroll
+        for (int i = 0; i < kWideRegs; ++i) {
+          const int j = (threadIdx.x & 31) + 32 * i;
+          m[i] = j < p.d ? momentum(a.key, cs, ti, j) : 0.f;
+        }
+        float ratio;
+        const bool acc = wide_transition(p, w, s, a.eps, nl, th, g, lp, m,
+                                         log_uniform(a.key, cs, ti), ratio);
+        if (acc) n_acc += 1.f;
+        if constexpr (MODE == kRows) {  // the rows after the test
+          const size_t rt = (size_t)t * a.C;
+          if (out) {
+            wide_store(a.r_th, th, rt + c, p.d);
+            wide_store(a.r_g, g, rt + c, p.d);
+          }
+          if (head) {
+            a.r_lp[rt + c] = lp;
+            a.r_acc[rt + c] = acc ? 1.f : 0.f;
+            a.r_alpha[rt + c] = expf(fminf(ratio, 0.f));
+            a.r_nl[rt + c] = nl;
+          }
+        }
+      }
+      if (out) {
+        wide_store(a.th_out, th, c, p.d);
+        wide_store(a.g_out, g, c, p.d);
+      }
+      if (head) {
+        a.lp_out[c] = lp;
+        if constexpr (MODE == kMulti) a.acc_out[c] = n_acc / (float)a.k_trans;
+      }
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+hmc_wide_kernel(Glm p, Sched s, HmcArgs a) {
+  hmc_wide<MODE>(p, s, a);
+}
+
 // ---- host side -------------------------------------------------------------
 
 bool make_sched(const int* ops, const float* cs, int n, Sched* s) {
@@ -386,23 +574,36 @@ HmcKernel hmc_kernel(int mode) {
                           : rows_tile_kernel<D>;
 }
 
+// The kernel of `mode` at bound D: the narrow tile's instantiation for D
+// <= 32, the wide tile's above (D a run-time value there).
 HmcKernel hmc_kernel_for(int mode, int D) {
   switch (D) {
     case 8: return hmc_kernel<8>(mode);
     case 16: return hmc_kernel<16>(mode);
     case 32: return hmc_kernel<32>(mode);
-    default: return nullptr;
+    default:
+      return mode == kTraj    ? hmc_wide_kernel<kTraj>
+             : mode == kStep  ? hmc_wide_kernel<kStep>
+             : mode == kMulti ? hmc_wide_kernel<kMulti>
+                              : hmc_wide_kernel<kRows>;
   }
+}
+
+// The shared-memory plan at (D, N): traj_plan's for the narrow tile,
+// wide_plan's for the wide one.
+TrajPlan hmc_plan(int D, int N) {
+  return D <= kNarrowMax ? traj_plan(D, N) : wide_plan(D, N);
 }
 
 // How the tile kernel of `mode` runs at (d, N): blocks resident per SM
 // (from the occupancy calculator), dynamic shared memory per block, and
-// whether all rows stay resident (traj_plan).  Returns a CUDA error code.
+// whether all rows stay resident.  Returns a CUDA error code.
 int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
              int* resident) {
   const int D = tile_bound_for(d);
   if (!D || N < 1) return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = traj_plan(D, N);
+  const TrajPlan tp = hmc_plan(D, N);
+  if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   *smem = (int)tp.smem;
   *resident = tp.resident ? 1 : 0;
   const HmcKernel kernel = hmc_kernel_for(mode, D);
@@ -431,7 +632,8 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                           !(a.T >= 0.f)
                     : a.n_leaps < 1)
     return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = traj_plan(D, N);
+  const TrajPlan tp = hmc_plan(D, N);
+  if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
               tp.resident};
   const HmcKernel kernel = hmc_kernel_for(mode, D);
@@ -454,7 +656,7 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
 
 extern "C" {
 
-int glm_max_dim() { return 32; }
+int glm_max_dim() { return kWideMax; }
 
 const char* glm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -259,10 +259,9 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
       for (int w = 0; w < kTrajWarps; ++w) acc += part[w * kSlot + tid];
       const float pg = prior_grad<D>(p, lam, tp, oj);  // own: whole warps
       const float tg = acc - pg;
-      double ll = 0.0;
-      for (int w = 0; w < kTrajWarps; ++w) ll += pll[w * kTileChains + oc];
       const float quad = chain_sum<D>(tp * pg);
-      const float tlp = (float)(ll - 0.5 * (double)quad);
+      const float tlp =
+          (float)(sum_ll(pll, oc, kTrajWarps) - 0.5 * (double)quad);
       const float wm = tm + 0.5f * es * tg;
       float H = -tlp + 0.5f * chain_sum<D>(wm * wm);
       if (isnan(H)) H = CUDART_INF_F;
@@ -428,6 +427,11 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
 
 // ---- host side -------------------------------------------------------------
 
+// Parameter bound of the NUTS kernels: the narrow tile's (d <= 32).  The
+// two checkpoint stacks take 2 md 16 D floats of shared memory, 327 KB at
+// md 10 and D 256, so the wide tile needs them moved elsewhere first.
+int nuts_bound_for(int d) { return d <= kNarrowMax ? tile_bound_for(d) : 0; }
+
 // The shared-memory plan of nuts_tile_kernel: traj_grad's, with the two
 // checkpoint stacks of md slots as the kernel's own.
 TrajPlan nuts_plan(int D, int N, int md) {
@@ -435,7 +439,7 @@ TrajPlan nuts_plan(int D, int N, int md) {
 }
 
 bool nuts_args_ok(int d, int N, int kind, const NutsArgs& a) {
-  return tile_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
+  return nuts_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
          a.md >= 1 && a.md <= kMaxDoublings && a.k_trans >= 1;
 }
 
@@ -445,7 +449,7 @@ int launch_nuts(const float* xt, const float* y, const float* w,
                 const float* o, const float* lamv, const float* lamm, int N,
                 int d, int kind, float lam, const NutsArgs& a, void* stream) {
   if (!nuts_args_ok(d, N, kind, a)) return (int)cudaErrorInvalidValue;
-  const int D = tile_bound_for(d);
+  const int D = nuts_bound_for(d);
   const TrajPlan tp = nuts_plan(D, N, a.md);
   const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
               tp.resident};
@@ -476,6 +480,8 @@ int launch_nuts(const float* xt, const float* y, const float* w,
 extern "C" {
 
 int nuts_max_doublings() { return kMaxDoublings; }
+
+int nuts_max_dim() { return kNarrowMax; }
 
 const char* nuts_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -554,7 +560,7 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
 // all rows stay resident.  Returns a CUDA error code.
 int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
                   int* resident) {
-  const int D = tile_bound_for(d);
+  const int D = nuts_bound_for(d);
   if (!D || N < 1 || md < 1 || md > kMaxDoublings)
     return (int)cudaErrorInvalidValue;
   const TrajPlan tp = nuts_plan(D, N, md);

@@ -42,6 +42,11 @@
 // split, is computed.  Everything here is inlined into the kernels (no
 // lambdas, no calls): a routine left out of line would take the staged
 // rows through generic pointers and the fragments through local memory.
+//
+// That layout holds for d <= 32 (the narrow tile, D = 8, 16 or 32, a
+// template parameter).  Above 32 the wide tile at the end of this file
+// takes d up to kWideMax with D, d padded to a multiple of 32, a run-time
+// value: one instantiation serves every width.
 #pragma once
 
 #include "glm_common.cuh"
@@ -52,10 +57,15 @@ constexpr int kTileChains = 16;        // chains of one warp's m16 tile
 // dynamic shared memory a tile kernel plans for (the card allows 227 KB)
 constexpr int kTileSmemCap = 220 * 1024;
 
-// Parameter bound of the tile kernels: d padded to a multiple of the mma
-// depth (8), as 8, 16 or 32.
+constexpr int kNarrowMax = 32;   // the narrow tile: D = 8, 16, 32
+constexpr int kWideMax = 256;    // the wide tile: D = 64, 96, ..., 256
+
+// Parameter bound of the tile kernels: d padded to 8, 16 or 32 (the narrow
+// tile), above 32 to a multiple of 32 up to kWideMax (the wide tile); 0
+// where no tile takes d.
 int tile_bound_for(int d) {
-  return d < 1 ? 0 : d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : 0;
+  return d < 1 ? 0 : d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32
+         : d <= kWideMax ? (d + 31) & ~31 : 0;
 }
 
 __host__ __device__ constexpr int tile_stride(int D) { return D + 4; }
@@ -293,6 +303,30 @@ __device__ __forceinline__ void tile_link(float z, float y, float& r,
   }
 }
 
+// The link on a row group's Z in registers (element e: chain g + 8 (e >> 1),
+// row r0 + 2q + (e & 1)) with its y and w at yr, wr (the group's rows):
+// R = w resid, zero past nt, and with LL the w ll terms of chains g and
+// g + 8 into ll.
+template <int KIND, bool LL, bool FULL>
+__device__ __forceinline__ void group_link(const float (&z)[4],
+                                           const float* yr, const float* wr,
+                                           int nt, int r0, float (&r)[4],
+                                           double (&ll)[2]) {
+  const int q = threadIdx.x & 3;
+  const float2 y2 = *reinterpret_cast<const float2*>(yr + r0 + 2 * q);
+  const float2 w2 = *reinterpret_cast<const float2*>(wr + r0 + 2 * q);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool odd = e & 1;
+    const bool valid = FULL || r0 + 2 * q + (int)odd < nt;
+    const float yn = odd ? y2.y : y2.x, wn = odd ? w2.y : w2.x;
+    float rr, l = 0.f;
+    tile_link<KIND, LL>(z[e], yn, rr, l);
+    r[e] = valid ? rr * wn : 0.f;
+    if (LL && valid) ll[e >> 1] += (double)(wn * l);
+  }
+}
+
 // One group of 8 rows (r0 .. r0 + 7) of a staged tile of nt rows for the
 // warp's 16 chains; see chain_tile_rows.
 template <int D, bool LL, int KIND, bool FULL>
@@ -318,21 +352,11 @@ __device__ __forceinline__ void row_group(
     mma_tf32(zs, ah[kb], bl0, bl1);
     mma_tf32(zb, ah[kb], bh0, bh1);
   }
-  // 2. the link on Z in registers: element e is (chain g + 8 (e >> 1),
-  // row r0 + 2q + (e & 1))
-  const float2 y2 = *reinterpret_cast<const float2*>(t.y + r0 + 2 * q);
-  const float2 w2 = *reinterpret_cast<const float2*>(t.w + r0 + 2 * q);
+  // 2. the link on Z in registers
+  const float z[4] = {zb[0] + zs[0], zb[1] + zs[1], zb[2] + zs[2],
+                      zb[3] + zs[3]};
   float r[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const bool odd = e & 1;
-    const bool valid = FULL || r0 + 2 * q + (int)odd < nt;
-    const float yn = odd ? y2.y : y2.x, wn = odd ? w2.y : w2.x;
-    float rr, l = 0.f;
-    tile_link<KIND, LL>(zb[e] + zs[e], yn, rr, l);
-    r[e] = valid ? rr * wn : 0.f;
-    if (LL && valid) ll[e >> 1] += (double)(wn * l);
-  }
+  group_link<KIND, LL, FULL>(z, t.y, t.w, nt, r0, r, ll);
   // 3. G += R X with k = q <-> row 2q and k = q + 4 <-> row 2q + 1: the A
   // fragment is (r[0], r[2], r[1], r[3])
   uint32_t rh[4], rl[4];
@@ -412,6 +436,24 @@ __device__ __forceinline__ double quad_sum(double v) {
   return v;
 }
 
+// The warp's ll partials of its 16 chains into pll[warp][16] (lane 4g holds
+// chains g and g + 8 after the quad sum); every lane calls it.
+__device__ __forceinline__ void put_ll(double* pll, const double (&ll)[2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const double a = quad_sum(ll[0]), b = quad_sum(ll[1]);
+  if ((lane & 3) == 0) {
+    pll[warp * kTileChains + (lane >> 2)] = a;
+    pll[warp * kTileChains + (lane >> 2) + 8] = b;
+  }
+}
+
+// Chain c's log-likelihood from the nw warps' partials, in warp order.
+__device__ __forceinline__ double sum_ll(const double* pll, int c, int nw) {
+  double ll = 0.0;
+  for (int k = 0; k < nw; ++k) ll += pll[k * kTileChains + c];
+  return ll;
+}
+
 // ---- the tile gradient of 16 chains, shared by the tile kernels ----------
 
 constexpr int kTrajWarps = 16;                 // warps split a tile's rows
@@ -424,7 +466,8 @@ constexpr int kTrajStreamMax = 512;            // rows per streamed tile
 // the kernel's own (a multiple of 8), then the rows: all of them
 // (resident), or two raw cp.async buffers and one staged tile.
 struct TrajPlan {
-  int rows;       // rows staged: round8(N) when resident, else the tile
+  int rows;       // rows staged: round8(N) when resident, else the tile;
+                  // 0 when not even 8 rows fit (a launch then refuses)
   bool resident;
   size_t smem;    // bytes
 };
@@ -438,6 +481,7 @@ TrajPlan traj_plan(int D, int N, size_t extra = 0) {
   if (fixed + n8 * row <= (size_t)kTileSmemCap)
     return {(int)n8, true, fixed + n8 * row};
   const size_t per = row + 2 * sizeof(float) * raw_row_floats(D);
+  if (fixed + 8 * per > (size_t)kTileSmemCap) return {0, false, 0};
   int R = (int)((kTileSmemCap - fixed) / per) & ~7;
   if (R > kTrajStreamMax) R = kTrajStreamMax;
   return {R, false, fixed + R * per};
@@ -483,13 +527,7 @@ __device__ __forceinline__ void traj_grad(const Glm& p, const Rows& t,
     pw[(g + 8) * D + j] = gb[nb][2] + gs[nb][2];
     pw[(g + 8) * D + j + 1] = gb[nb][3] + gs[nb][3];
   }
-  if (want_ll) {
-    const double a = quad_sum(ll[0]), b = quad_sum(ll[1]);
-    if (q == 0) {
-      pll[warp * kTileChains + g] = a;
-      pll[warp * kTileChains + g + 8] = b;
-    }
-  }
+  if (want_ll) put_ll(pll, ll);
   __syncthreads();
 }
 
@@ -547,6 +585,491 @@ __device__ __forceinline__ float momentum(uint2 key, int c, int t, int j) {
 __device__ __forceinline__ float log_uniform(uint2 key, int c, int t) {
   return logf(1.f - u01(philox(make_uint4((uint32_t)c, (uint32_t)t,
                                           kSliceDraw, 0u), key).x));
+}
+
+// ---- the wide tile: 32 < d <= kWideMax -------------------------------------
+// Above 32 parameters the narrow layout breaks in four places: theta's
+// fragments and G's accumulators in registers (2 D a lane: 512 at D 256),
+// the 16 warps' gradient partials in shared memory (16 x 16 x D floats: 256
+// KB at D 256), the rows (2 KB each at D 256) and the ownership of one
+// coordinate a thread.  The wide tile keeps the block (16 warps, 512
+// threads, a tile of 16 chains, persistent blocks walking the tiles) and
+// changes all four:
+//
+// - Ownership: warp c holds chain c of the tile, lane l its coordinates
+//   l, l + 32, ..., l + D - 32 (D / 32 <= kWideRegs registers an array).
+//   wide_chain_sum adds a lane's registers in order, then the full-warp
+//   butterfly: every lane gets the same bits.
+// - Stage 1, Z = Theta X^T + o and the link: the warps split the row groups
+//   of a tile as traj_grad does; theta's A fragments come by k-block from
+//   the tile's shared copy, split once into hi and lo and stored in
+//   fragment order (one 16-byte load a lane for each of hi and lo), so
+//   nothing of width D lives in registers.  Each group's R (16 x 8) goes to
+//   shared memory (rbuf), its ll to the warp's double registers.
+// - Stage 2, G += R X: the warps split the columns of G, not the rows: warp
+//   w takes n-blocks w / S + (16 / S) i of D / 8 (at most kWideUnits, with
+//   gb and gs in registers: 8 a unit) over the row groups rg = w % S + S k.
+//   S (1, 2 or 4: wide_split) row splits balance the n-blocks over the 16
+//   warps where D / 8 is not a multiple of 16 (D 64, 96, 160, 192; D 224
+//   keeps 28 n-blocks over 16 warps, 7/8 of the work of the busiest).
+//   The partials then number S x 16 x D floats, not 16 x 16 x D, and are
+//   summed by the coordinate's owner in split order: the same bits on
+//   every launch, with no atomics.  The cost against splitting the rows
+//   (as the narrow tile does): one barrier and a 16 x 8 round trip of R
+//   through shared memory per row group; the gain is registers and shared
+//   memory that do not grow with D.  The other way, the rows split over
+//   the warps and G's n-blocks taken in chunks that fit in registers,
+//   either keeps each warp's whole 16 x D partial somewhere (16 x 16 x D
+//   floats of shared memory again) or recomputes Z and the link once a
+//   chunk (D / chunk times the first product).
+// - Rows: stored as plain float32, row-major with stride D + 4, and split
+//   into TF32 hi and lo where a fragment is loaded (three operations an
+//   element): half the shared memory of the narrow tile's split copy, so a
+//   streamed tile holds 120 rows at D 160 and 72 at D 256.  cp.async writes
+//   them straight into one of two buffers: a warp copies a block of 8 rows
+//   x 4 columns, whose reads are four full 32-byte sectors of XT and whose
+//   writes hit 32 distinct banks (4 i + j for stride D + 4).  Row-major
+//   with stride D + 4 the fragment loads are conflict-free too: stage 1
+//   reads x(r0 + g, 8 kb + q), bank 4 g + q; stage 2 x(r0 + 2 q (+1),
+//   8 nb + g), bank 8 q + g (+4).  Rows never copied are zero (the
+//   buffers are zeroed once a launch, so columns past d are exact zeros);
+//   the rows past a ragged tile's end hold finite values of an earlier
+//   tile, and their residual is masked to zero in registers.
+//
+// Each streamed tile costs three barriers (copy landed, stage 1 done,
+// compute done before its buffer is refilled).
+constexpr int kWideRegs = kWideMax / 32;  // coordinates a lane holds
+constexpr int kWideUnits = 4;             // stage-2 n-blocks a warp holds
+
+// Stage 2's split of the n-blocks: S row splits and nbw = ceil(NB S / 16)
+// n-blocks a warp, S in {1, 2, 4} the one that balances the n-blocks best
+// with nbw <= kWideUnits (the smallest such S on a tie).
+struct WideSplit {
+  int S, nbw;
+};
+
+__host__ __device__ inline int wide_width(int d) { return (d + 31) & ~31; }
+
+__host__ __device__ inline WideSplit wide_split(int D) {
+  const int NB = D / 8;
+  WideSplit best{1, (NB + 15) / 16};
+  for (int S = 2; S <= 4; S *= 2) {
+    const int nbw = (NB * S + 15) / 16;
+    if (nbw > kWideUnits) break;
+    // balance NB S / (16 nbw): strictly better than best's
+    if (S * best.nbw > best.S * nbw) best = WideSplit{S, nbw};
+  }
+  return best;
+}
+
+// floats of one buffered row: x (stride D + 4), then y, w, o
+__host__ __device__ constexpr int wide_row_floats(int D) { return D + 7; }
+// rbuf's row stride (one row a chain): 8 mod 32, so that the float2 loads
+// of a half-warp (8 g + 2 q) hit distinct banks
+__host__ __device__ inline int wide_rstride(int R) { return ((R + 31) & ~31) + 8; }
+// gpart's row stride (one row a split and chain): 8 mod 32, as rbuf's
+__host__ __device__ constexpr int wide_gstride(int D) { return D + 8; }
+
+// Shared memory of a wide-tile kernel, in this order: the warps' ll
+// partials (kTrajWarps x 16 doubles), theta's A fragments hi and lo (16 D
+// floats each), the stage-2 partials gpart (S x 16 x (D + 8)), rbuf (16 x
+// RS), then one buffer of all rows (resident) or two of R rows (streamed).
+size_t wide_smem(int D, int R, int nbuf) {
+  const WideSplit ws = wide_split(D);
+  return sizeof(double) * kTrajWarps * kTileChains +
+         sizeof(float) * ((size_t)2 * kTileChains * D +
+                          (size_t)ws.S * kTileChains * wide_gstride(D) +
+                          (size_t)kTileChains * wide_rstride(R) +
+                          (size_t)nbuf * R * wide_row_floats(D));
+}
+
+// The plan of a wide-tile kernel at (D, N): all rows resident when they fit
+// (and `resident` allows), else the largest streamed tile (a multiple of 8,
+// at most kTrajStreamMax rows).  rows = 0 when not even 8 rows fit.
+TrajPlan wide_plan(int D, int N, bool resident = true) {
+  const int n8 = (N + 7) & ~7;
+  if (resident && wide_smem(D, n8, 1) <= (size_t)kTileSmemCap)
+    return {n8, true, wide_smem(D, n8, 1)};
+  int R = kTrajStreamMax;
+  while (R >= 8 && wide_smem(D, R, 2) > (size_t)kTileSmemCap) R -= 8;
+  if (R < 8) return {0, false, 0};
+  return {R, false, wide_smem(D, R, 2)};
+}
+
+// The block's view of that shared memory.
+struct Wide {
+  int D, S, R, RS;       // width, stage-2 split, rows a buffer, rbuf stride
+  double* pll;           // (kTrajWarps, 16)
+  float* thf;            // hi (16 D) then lo (16 D), fragment order
+  float* gpart;          // (S, 16, D + 8)
+  float* rbuf;           // (16, RS): R of the tile in flight
+  float* buf;            // one or two buffers of R rows
+};
+
+__device__ __forceinline__ Wide wide_at(const Glm& p) {
+  extern __shared__ double tile_sm[];
+  Wide w;
+  w.D = wide_width(p.d);
+  w.S = wide_split(w.D).S;
+  w.R = p.tile;
+  w.RS = wide_rstride(p.tile);
+  w.pll = tile_sm;
+  w.thf = reinterpret_cast<float*>(w.pll + kTrajWarps * kTileChains);
+  w.gpart = w.thf + 2 * kTileChains * w.D;
+  w.rbuf = w.gpart + w.S * kTileChains * wide_gstride(w.D);
+  w.buf = w.rbuf + kTileChains * w.RS;
+  return w;
+}
+
+__device__ __forceinline__ float* wide_buffer(const Wide& w, int b) {
+  return w.buf + (size_t)b * w.R * wide_row_floats(w.D);
+}
+
+// Start copying rows [n0, n0 + nt) into buffer dst: warp w takes the
+// column blocks w, w + 16, ... of 4 columns, 8 rows a copy.
+__device__ __forceinline__ void wide_issue(const Glm& p, const Wide& w,
+                                           float* dst, int n0, int nt) {
+  const int XS = w.D + 4, lane = threadIdx.x & 31;
+  float* yb = dst + w.R * XS;
+  for (int j = 4 * (threadIdx.x >> 5) + (lane >> 3); j < (p.d + 3) / 4 * 4;
+       j += 4 * (blockDim.x >> 5)) {
+    if (j >= p.d) continue;
+    const float* src = p.xt + (size_t)j * p.N + n0;
+    for (int i = lane & 7; i < nt; i += 8) cp_async4(dst + i * XS + j, src + i);
+  }
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    cp_async4(yb + i, p.y + n0 + i);
+    if (p.w) cp_async4(yb + w.R + i, p.w + n0 + i);
+    if (p.o) cp_async4(yb + 2 * w.R + i, p.o + n0 + i);
+  }
+}
+
+// Zero the buffers (w = 1 without weights), then, resident, stage all rows.
+// Every thread calls it, once a launch; ends on a barrier.
+__device__ __forceinline__ void wide_init(const Glm& p, const Wide& w) {
+  const int per = w.R * wide_row_floats(w.D), wat = w.R * (w.D + 5);
+  const int n = (p.resident ? 1 : 2) * per;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int k = e % per;
+    w.buf[e] = (!p.w && k >= wat && k < wat + w.R) ? 1.f : 0.f;
+  }
+  __syncthreads();
+  if (p.resident) {
+    wide_issue(p, w, w.buf, 0, p.N);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+}
+
+// Streaming rows [n0, n1) in tiles of R rows, as stream_begin/stream_next:
+//   wide_begin(p, w, n0, n1);
+//   for (int t0 = n0, b = 0; t0 < n1; t0 += w.R, b ^= 1) {
+//     const int nt = wide_next(p, w, t0, n1, b);
+//     ... compute on wide_buffer(w, b), nt rows ...
+//   }
+__device__ __forceinline__ void wide_begin(const Glm& p, const Wide& w, int n0,
+                                           int n1) {
+  wide_issue(p, w, w.buf, n0, min(w.R, n1 - n0));
+  cp_async_commit();
+}
+
+// Starts on a barrier (every warp is done with the other buffer and with
+// rbuf), starts copying the next tile into the other buffer, and waits for
+// this one: returns its row count.
+__device__ __forceinline__ int wide_next(const Glm& p, const Wide& w, int t0,
+                                         int n1, int b) {
+  const int nt = min(w.R, n1 - t0), t1 = t0 + w.R;
+  __syncthreads();
+  if (t1 < n1) {
+    wide_issue(p, w, wide_buffer(w, b ^ 1), t1, min(w.R, n1 - t1));
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  return nt;
+}
+
+// Write chain c's theta (lane l's coordinates l + 32 i) into the tile's A
+// fragments: column j of chain c is element 2 (j % 8 / 4) + c / 8 of lane
+// 4 (c % 8) + j % 4 in k-block j / 8.  Coordinates past d must be 0.
+__device__ __forceinline__ void wide_put_theta(const Wide& w, int c,
+                                               const float (&th)[kWideRegs]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) {
+    if (32 * i >= w.D) break;
+    const int j = lane + 32 * i, k = j & 7;
+    const int at = 4 * (32 * (j >> 3) + 4 * (c & 7) + (k & 3)) +
+                   2 * (k >> 2) + (c >> 3);
+    uint32_t hi, lo;
+    split_tf32(th[i], hi, lo);
+    w.thf[at] = __uint_as_float(hi);
+    w.thf[kTileChains * w.D + at] = __uint_as_float(lo);
+  }
+}
+
+// One k-block of Z += Theta X^T: theta's A fragments (hi h, lo l) and x's
+// columns 8 kb + q, + 4 of the row at xr, into the pair (zb, zs).
+__device__ __forceinline__ void wide_kblock(const float4& h, const float4& l,
+                                            const float* xr, float (&zb)[4],
+                                            float (&zs)[4]) {
+  const uint32_t ah[4] = {__float_as_uint(h.x), __float_as_uint(h.y),
+                          __float_as_uint(h.z), __float_as_uint(h.w)};
+  const uint32_t al[4] = {__float_as_uint(l.x), __float_as_uint(l.y),
+                          __float_as_uint(l.z), __float_as_uint(l.w)};
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(xr[0], bh0, bl0);
+  split_tf32(xr[4], bh1, bl1);
+  mma_tf32(zs, al, bh0, bh1);
+  mma_tf32(zs, ah, bl0, bl1);
+  mma_tf32(zb, ah, bh0, bh1);
+}
+
+// Stage 1 on one group of 8 rows (r0 .. r0 + 7) of buffer xb holding nt
+// rows: Z of the tile's 16 chains, the link, R into rbuf and, with LL, the
+// lane's w ll terms of chains g and g + 8 into ll (as row_group).  The
+// k-blocks go in pairs into two accumulator pairs (D / 8 is a multiple of
+// 4), so that two chains of dependent products overlap.
+template <int KIND, bool LL, bool FULL>
+__device__ __forceinline__ void wide_z(const Wide& w, const float* xb, int nt,
+                                       int r0, double (&ll)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int XS = w.D + 4;
+  const float* yb = xb + w.R * XS;
+  const float2 o2 = *reinterpret_cast<const float2*>(yb + 2 * w.R + r0 + 2 * q);
+  float zb[4] = {o2.x, o2.y, o2.x, o2.y};
+  float zs[4] = {0.f, 0.f, 0.f, 0.f};
+  float zb1[4] = {0.f, 0.f, 0.f, 0.f}, zs1[4] = {0.f, 0.f, 0.f, 0.f};
+  const float* xr = xb + (r0 + g) * XS + q;
+  const float4* fh = reinterpret_cast<const float4*>(w.thf) + lane;
+  const float4* fl = fh + 4 * w.D;
+#pragma unroll 2
+  for (int kb = 0; kb < w.D / 8; kb += 2) {
+    wide_kblock(fh[32 * kb], fl[32 * kb], xr + 8 * kb, zb, zs);
+    wide_kblock(fh[32 * kb + 32], fl[32 * kb + 32], xr + 8 * kb + 8, zb1,
+                zs1);
+  }
+  const float z[4] = {(zb[0] + zb1[0]) + (zs[0] + zs1[0]),
+                      (zb[1] + zb1[1]) + (zs[1] + zs1[1]),
+                      (zb[2] + zb1[2]) + (zs[2] + zs1[2]),
+                      (zb[3] + zb1[3]) + (zs[3] + zs1[3])};
+  float r[4];
+  group_link<KIND, LL, FULL>(z, yb, yb + w.R, nt, r0, r, ll);
+  float* rp = w.rbuf + g * w.RS + r0 + 2 * q;
+  *reinterpret_cast<float2*>(rp) = make_float2(r[0], r[1]);
+  *reinterpret_cast<float2*>(rp + 8 * w.RS) = make_float2(r[2], r[3]);
+}
+
+template <int KIND, bool LL>
+__device__ __forceinline__ void wide_stage1_k(const Wide& w, const float* xb,
+                                              int nt, double (&ll)[2]) {
+  const int full = nt >> 3, groups = (nt + 7) >> 3;
+  for (int rg = threadIdx.x >> 5; rg < groups; rg += kTrajWarps) {
+    if (rg < full)
+      wide_z<KIND, LL, true>(w, xb, nt, 8 * rg, ll);
+    else  // the ragged last group: rows past nt masked
+      wide_z<KIND, LL, false>(w, xb, nt, 8 * rg, ll);
+  }
+}
+
+// Stage 1 of a tile: the warps split its row groups.
+template <bool LL>
+__device__ __forceinline__ void wide_stage1(int kind, const Wide& w,
+                                            const float* xb, int nt,
+                                            double (&ll)[2]) {
+  switch (kind) {
+    case kLogistic: wide_stage1_k<kLogistic, LL>(w, xb, nt, ll); break;
+    case kLinear: wide_stage1_k<kLinear, LL>(w, xb, nt, ll); break;
+    case kPoisson: wide_stage1_k<kPoisson, LL>(w, xb, nt, ll); break;
+    default: wide_stage1_k<kProbit, LL>(w, xb, nt, ll); break;
+  }
+}
+
+// Stage 2 of a tile (after stage 1's barrier): G += R X for the warp's
+// n-blocks over its row split's groups.  The A fragment reads row 2q as
+// k = q and row 2q + 1 as k = q + 4, as row_group's third step does; gb
+// and gs hold unit i's G(g, 8 nb + 2q (+1)), G(g + 8, 8 nb + 2q (+1)).
+__device__ __forceinline__ void wide_stage2(const Wide& w, const float* xb,
+                                            int nt,
+                                            float (&gb)[kWideUnits][4],
+                                            float (&gs)[kWideUnits][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int nb0 = warp / w.S, step = kTrajWarps / w.S, NB = w.D / 8;
+  const int XS = w.D + 4, groups = (nt + 7) >> 3;
+#pragma unroll 2
+  for (int rg = warp % w.S; rg < groups; rg += w.S) {
+    const int r0 = 8 * rg;
+    const float2 a = *reinterpret_cast<const float2*>(w.rbuf + g * w.RS + r0 +
+                                                      2 * q);
+    const float2 b = *reinterpret_cast<const float2*>(
+        w.rbuf + (g + 8) * w.RS + r0 + 2 * q);
+    uint32_t rh[4], rl[4];
+    split_tf32(a.x, rh[0], rl[0]);
+    split_tf32(b.x, rh[1], rl[1]);
+    split_tf32(a.y, rh[2], rl[2]);
+    split_tf32(b.y, rh[3], rl[3]);
+    const float* x0 = xb + (r0 + 2 * q) * XS + g;
+#pragma unroll
+    for (int i = 0; i < kWideUnits; ++i) {
+      const int nb = nb0 + step * i;
+      if (nb < NB) {  // unit warp + 16 i < S NB
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(x0[8 * nb], bh0, bl0);
+        split_tf32(x0[XS + 8 * nb], bh1, bl1);
+        mma_tf32(gs[i], rl, bh0, bh1);
+        mma_tf32(gs[i], rh, bl0, bl1);
+        mma_tf32(gb[i], rh, bh0, bh1);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void wide_zero(float (&gb)[kWideUnits][4],
+                                          float (&gs)[kWideUnits][4]) {
+#pragma unroll
+  for (int i = 0; i < kWideUnits; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gb[i][e] = gs[i][e] = 0.f;
+}
+
+// Put the warp's stage-2 sums into its row split's slice of gpart and zero
+// them; ends on a barrier, after which wide_gsum reads G.
+__device__ __forceinline__ void wide_flush(const Wide& w,
+                                           float (&gb)[kWideUnits][4],
+                                           float (&gs)[kWideUnits][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, GS = wide_gstride(w.D);
+  const int nb0 = warp / w.S, step = kTrajWarps / w.S, NB = w.D / 8;
+  float* base = w.gpart + ((warp % w.S) * kTileChains + g) * GS + 2 * q;
+#pragma unroll
+  for (int i = 0; i < kWideUnits; ++i) {
+    const int nb = nb0 + step * i;
+    if (nb < NB) {
+      *reinterpret_cast<float2*>(base + 8 * nb) =
+          make_float2(gb[i][0] + gs[i][0], gb[i][1] + gs[i][1]);
+      *reinterpret_cast<float2*>(base + 8 * GS + 8 * nb) =
+          make_float2(gb[i][2] + gs[i][2], gb[i][3] + gs[i][3]);
+    }
+  }
+  wide_zero(gb, gs);
+  __syncthreads();
+}
+
+// G(chain c, column j) after wide_flush: the row splits' sums in order.
+__device__ __forceinline__ float wide_gsum(const Wide& w, int c, int j) {
+  const float* pc = w.gpart + c * wide_gstride(w.D) + j;
+  float acc = pc[0];
+  for (int s = 1; s < w.S; ++s)
+    acc += pc[s * kTileChains * wide_gstride(w.D)];
+  return acc;
+}
+
+// One pass over all N rows for the block's 16 chains at the theta in thf
+// (written before the call): leaves G in gpart (wide_gsum) and, with
+// want_ll, the warps' ll partials in pll (sum_ll).  Every thread calls it;
+// ends on a barrier.
+__device__ __forceinline__ void wide_rows(const Glm& p, const Wide& w,
+                                          bool want_ll) {
+  float gb[kWideUnits][4], gs[kWideUnits][4];
+  wide_zero(gb, gs);
+  double ll[2] = {0.0, 0.0};
+  if (p.resident)
+    __syncthreads();  // theta written
+  else
+    wide_begin(p, w, 0, p.N);  // wide_next's first barrier: theta written
+  for (int t0 = 0, b = 0; t0 < p.N; t0 += w.R, b ^= 1) {
+    const int nt = p.resident ? p.N : wide_next(p, w, t0, p.N, b);
+    const float* xb = wide_buffer(w, b);
+    if (want_ll)
+      wide_stage1<true>(p.kind, w, xb, nt, ll);
+    else
+      wide_stage1<false>(p.kind, w, xb, nt, ll);
+    __syncthreads();
+    wide_stage2(w, xb, nt, gb, gs);
+  }
+  if (want_ll) put_ll(w.pll, ll);
+  wide_flush(w, gb, gs);
+}
+
+// Row `row` of a (rows, d) array into the lane's coordinates (0 past d),
+// and back.
+__device__ __forceinline__ void wide_load(float (&dst)[kWideRegs],
+                                          const float* src, size_t row,
+                                          int d) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) {
+    const int j = lane + 32 * i;
+    dst[i] = j < d ? src[row * d + j] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void wide_store(float* dst,
+                                           const float (&src)[kWideRegs],
+                                           size_t row, int d) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) {
+    const int j = lane + 32 * i;
+    if (j < d) dst[row * d + j] = src[i];
+  }
+}
+
+// Sum of v over a chain's coordinates: the lane's registers in order, then
+// the full-warp butterfly (each step adds the same two values in either
+// order), so every lane gets the same bits.  Every lane of the warp must
+// call it.
+__device__ __forceinline__ float wide_chain_sum(const Wide& w,
+                                                const float (&v)[kWideRegs]) {
+  float s = v[0];
+#pragma unroll
+  for (int i = 1; i < kWideRegs; ++i)
+    if (32 * i < w.D) s += v[i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// The prior's gradient term of the lane's coordinates (prior_grad on the
+// wide ownership): lam th, with lam the (d,) row's or the scalar; with a
+// (d, d) matrix A, (theta A)_j = sum_k theta_k A[k, j] in k order, theta_k
+// taken from lane k % 32, register k / 32.  A is read through the
+// read-only path, row k coalesced over the lanes; at d 256 it is 256 KB
+// and no longer stays in L1, so every warp reads it from L2: 4 d^2 bytes
+// and 2 d^2 operations a chain and gradient, against the likelihood's
+// 4 d N operations (d / 2N of them: 7.5% at d 150, N 1000).  0 past d.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void wide_prior_grad(const Glm& p, const Wide& w,
+                                                const float (&th)[kWideRegs],
+                                                float (&pg)[kWideRegs]) {
+  const int lane = threadIdx.x & 31;
+  if (!p.lamm) {
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i) {
+      const int j = lane + 32 * i;
+      pg[i] = j < p.d ? (p.lamv ? __ldg(p.lamv + j) : p.lam) * th[i] : 0.f;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) pg[i] = 0.f;
+#pragma unroll
+  for (int kr = 0; kr < kWideRegs; ++kr) {
+    if (32 * kr >= p.d) break;
+    for (int kl = 0; kl < 32; ++kl) {
+      const float tk = __shfl_sync(0xffffffffu, th[kr], kl);
+      const int k = 32 * kr + kl;
+      if (k >= p.d) break;  // warp-uniform
+      const float* ak = p.lamm + (size_t)k * p.d + lane;
+#pragma unroll
+      for (int i = 0; i < kWideRegs; ++i)
+        if (lane + 32 * i < p.d) pg[i] = fmaf(tk, __ldg(ak + 32 * i), pg[i]);
+    }
+  }
 }
 
 }  // namespace

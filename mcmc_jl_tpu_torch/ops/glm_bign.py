@@ -20,7 +20,10 @@ of the plain version one to ``PLAIN_CALLS[name]``.
 
 The kernel masks the ragged last tile of observations itself, so unlike the
 JAX package nothing pads N (a padded row would need weight 0: the logistic
-``resid(0, 0)`` is -0.5, not 0) and nothing pads d.
+``resid(0, 0)`` is -0.5, not 0) and nothing pads d.  It takes d up to
+``glm_kernels.D_MAX``: 128 chains a CTA on the narrow chain tile (d <= 32),
+16 a CTA on the wide tile above, whose launches count as
+``glm_logp_grad_tiled_wide`` (``_mat_wide`` with a matrix prior).
 """
 from __future__ import annotations
 
@@ -28,25 +31,30 @@ import ctypes
 
 import torch
 
-from .glm_kernels import (KIND_CODES, _check, _counted, _device_branch,
-                          _draw, _prior, _prior_args, _ptr, _row, _trajectory,
-                          accept_test, glm_funcs)
+from .glm_kernels import (KIND_CODES, NARROW_D_MAX, _check, _counted,
+                          _device_branch, _draw, _prior, _prior_args, _ptr,
+                          _row, _trajectory, accept_test, glm_funcs)
 
 #: above this many observations a GLM run takes the N-tiled kernel, as in
 #: the JAX package (pallas_glm_bign.py BIGN_THRESHOLD)
 BIGN_THRESHOLD = 16384
 
-#: launches with a (d, d) prior (the dense fold) count as "..._mat"
-LAUNCHES = {"glm_logp_grad_tiled": 0, "glm_logp_grad_tiled_mat": 0}
+#: launches with a (d, d) prior (the dense fold) count as "..._mat", and
+#: launches on the wide tile (d > 32) with "_wide" appended
+LAUNCHES = {"glm_logp_grad_tiled": 0, "glm_logp_grad_tiled_mat": 0,
+            "glm_logp_grad_tiled_wide": 0, "glm_logp_grad_tiled_mat_wide": 0}
 PLAIN_CALLS = {"glm_logp_grad_tiled": 0}
 
 #: the kernel's grid aims at up to this many CTAs, two full waves of the two
 #: 256-thread blocks each of the 132 SMs holds (never a third wave of a few
 #: blocks, which costs nearly a wave), splitting N into ranges of at least
-#: SPLIT_MIN_ROWS observations
+#: SPLIT_MIN_ROWS observations; on the wide tile (d > 32) two waves of the
+#: one 512-thread block an SM holds
 SPLIT_CTAS = 528
+SPLIT_CTAS_WIDE = 264
 SPLIT_MIN_ROWS = 1024
 _CHAINS_PER_CTA = 128  # csrc/glm_bign.cu kChains
+_CHAINS_PER_CTA_WIDE = 16  # csrc/glm_tile.cuh kTileChains
 
 
 def reset_counts():
@@ -64,13 +72,16 @@ def glm_logp_grad_tiled_ref(XT, Y, theta, *, kind="logistic", weights=None,
         theta)
 
 
-def splits_for(N, C):
+def splits_for(N, C, d=1):
     """How many contiguous ranges of observations the kernel's grid splits
-    N into for C chains: as many as fit in :data:`SPLIT_CTAS` CTAs (at
+    N into for C chains of d parameters: as many as fit in
+    :data:`SPLIT_CTAS` CTAs (:data:`SPLIT_CTAS_WIDE` above d = 32; at
     least one), no range shorter than :data:`SPLIT_MIN_ROWS`, and every
     range non-empty."""
-    blocks = -(-C // _CHAINS_PER_CTA)
-    s = max(1, min(SPLIT_CTAS // blocks, -(-N // SPLIT_MIN_ROWS)))
+    wide = d > NARROW_D_MAX
+    blocks = -(-C // (_CHAINS_PER_CTA_WIDE if wide else _CHAINS_PER_CTA))
+    ctas = SPLIT_CTAS_WIDE if wide else SPLIT_CTAS
+    s = max(1, min(ctas // blocks, -(-N // SPLIT_MIN_ROWS)))
     rows = -(-N // s)
     return -(-N // rows)
 
@@ -116,7 +127,7 @@ def glm_logp_grad_tiled(XT, Y, theta, *, kind="logistic", weights=None,
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta})
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
-    splits = splits_for(N, C)
+    splits = splits_for(N, C, d)
     dev = theta.device
     g_o = torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=dev)
@@ -132,7 +143,7 @@ def glm_logp_grad_tiled(XT, Y, theta, *, kind="logistic", weights=None,
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.bign_error_string(code).decode()} ({code})")
-    LAUNCHES[_counted(name, lamm)] += 1
+    LAUNCHES[_counted(name, lamm, d)] += 1
     return lp_o, g_o
 
 

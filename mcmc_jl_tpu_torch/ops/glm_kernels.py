@@ -33,6 +33,13 @@ dense-metric fold ``lam L' L``: prior gradient ``-theta A``, prior term
 ``-1/2 theta' A theta``).  A launch with a matrix counts under
 ``<name>_mat`` in ``LAUNCHES``.  The kernels take the four built-in links;
 the plain versions also take a custom ``(ll, resid)`` pair.
+
+The kernels take d up to :data:`D_MAX`: up to :data:`NARROW_D_MAX` on the
+narrow chain tile (one thread a coordinate), above it on the wide tile (one
+warp a chain, the columns of the gradient split over the warps;
+csrc/glm_tile.cuh).  A launch on the wide tile counts under
+``<name>_wide`` (``<name>_mat_wide`` with a matrix), so a run shows which
+tile it went through.
 """
 from __future__ import annotations
 
@@ -48,17 +55,23 @@ from ..samplers.integrators import SCHEDULES
 from . import philox
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
-#: largest parameter count the kernels take (csrc/glm_tile.cuh
-#: tile_bound_for: every GLM kernel runs on the chain-tile gradient)
-D_MAX = 32
+#: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
+#: kernel (4) take (csrc/glm_tile.cuh kWideMax: the wide tile's bound)
+D_MAX = 256
+#: largest parameter count of the narrow chain tile (csrc/glm_tile.cuh
+#: kNarrowMax), which is also the exact-NUTS kernels' bound
+NARROW_D_MAX = 32
 #: Philox draw number of the MH (or slice) uniform of one (chain,
 #: transition) of the multistep kernels (csrc/glm_tile.cuh kSliceDraw); the
 #: momenta take draws 0 .. d/2 - 1
 SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
-#: launches of the Halton multistep kernel with a (d, d) prior counted apart
-LAUNCHES = dict.fromkeys(_NAMES + ("glm_multistep_rows_mat",), 0)
+#: launches of the Halton multistep kernel with a (d, d) prior, and launches
+#: on the wide tile (d > NARROW_D_MAX), counted apart
+LAUNCHES = dict.fromkeys(
+    _NAMES + ("glm_multistep_rows_mat",)
+    + tuple(n + "_wide" for n in _NAMES + ("glm_multistep_rows_mat",)), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -419,9 +432,11 @@ def _sched(integrator):
     return ops, cs, len(schedule)
 
 
-def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
+def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None,
+           d_max=D_MAX):
     """Validate what the kernel takes: ``states`` (name -> tensor) must be
-    (C, d) and ``per_chain`` ones (C,), with C from ``theta``.
+    (C, d) and ``per_chain`` ones (C,), with C from ``theta``, and d at most
+    the kernel's bound ``d_max``.
     Returns (N, d, C, flat W, flat O)."""
     if kind not in KIND_CODES:
         raise ValueError(f"{name}: the CUDA kernel takes the links "
@@ -430,8 +445,8 @@ def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
     if XT.ndim != 2:
         raise ValueError(f"{name}: XT must be (d, N), got {tuple(XT.shape)}")
     d, N = XT.shape
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{D_MAX}")
+    if not 1 <= d <= d_max:
+        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{d_max}")
     C = states["theta"].shape[0] if states["theta"].ndim else 0
     per_chain = per_chain or {}
     obs = {"Y": _row(Y), "weights": _row(weights), "offsets": _row(offsets)}
@@ -467,10 +482,12 @@ def _seed(generator):
                              device=generator.device).item())
 
 
-def _counted(name, lamm):
-    """The launch counter of kernel ``name``: its own, or ``<name>_mat`` for
-    the variant with a (d, d) prior."""
-    return name if lamm is None else name + "_mat"
+def _counted(name, lamm, d=0):
+    """The launch counter of kernel ``name``: its own, ``<name>_mat`` for
+    the variant with a (d, d) prior, and either with ``_wide`` appended for
+    a launch on the wide tile (d > NARROW_D_MAX)."""
+    return (name + ("" if lamm is None else "_mat")
+            + ("_wide" if d > NARROW_D_MAX else ""))
 
 
 def _launch(name, *args, counted=None):
@@ -513,7 +530,8 @@ def glm_leapfrogs(XT, Y, theta, m, grad, eps, *, n_leaps=10, kind="logistic",
                 N, d, C, _ptr(theta), _ptr(m), _ptr(grad), _ptr(th_o),
                 _ptr(m_o), _ptr(g_o), _ptr(lp_o), float(eps),
                 _scalar_prior(prior_prec), int(n_leaps), KIND_CODES[kind],
-                *_sched(integrator))
+                *_sched(integrator),
+                counted=_counted("glm_leapfrogs", None, d))
     return th_o, m_o, g_o, lp_o
 
 
@@ -541,7 +559,8 @@ def glm_step(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
                 N, d, C, _ptr(theta), _ptr(grad), _ptr(lp), _ptr(m0),
                 _ptr(logu), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(acc_o),
                 float(eps), _scalar_prior(prior_prec), int(n_leaps),
-                KIND_CODES[kind], *_sched(integrator))
+                KIND_CODES[kind], *_sched(integrator),
+                counted=_counted("glm_step", None, d))
     return th_o, g_o, lp_o, acc_o
 
 
@@ -570,7 +589,8 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
                 N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
                 _ptr(acc_o), float(eps), _scalar_prior(prior_prec),
                 int(n_leaps), int(k_trans), KIND_CODES[kind], int(seed),
-                *_sched(integrator))
+                *_sched(integrator),
+                counted=_counted("glm_multistep", None, d))
     return th_o, g_o, lp_o, acc_o
 
 
@@ -611,7 +631,7 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
                 _ptr(r_th), _ptr(r_g), _ptr(r_lp), _ptr(r_acc), _ptr(r_alpha),
                 _ptr(r_nl), float(eps), float(T), lam, int(i0),
                 int(max_leaps), int(k_trans), KIND_CODES[kind], int(seed),
-                *_sched(integrator), counted=_counted(name, lamm))
+                *_sched(integrator), counted=_counted(name, lamm, d))
     return th_o, g_o, lp_o, {"ppars": r_th, "pgrads": r_g, "plogtarget": r_lp,
                              "accept": r_acc > 0.5, "alpha": r_alpha,
                              "nleaps": r_nl}

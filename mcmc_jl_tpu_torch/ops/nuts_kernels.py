@@ -34,7 +34,9 @@ Layouts follow the JAX package minus its TPU padding: chain states are
 uniforms are (C, 2^maxdoublings), column ``(1 << j) - 1 + k`` for leaf k of
 doubling j.  The GLM prior precision is a scalar, a (d,) row (the diagonal
 metric fold of the warm-start pipeline) or a symmetric (d, d) matrix (the
-dense fold; such launches count as ``<name>_mat``); on a catalog target the
+dense fold; such launches count as ``<name>_mat``).  The GLM kernels take
+d up to ``glm_kernels.NARROW_D_MAX`` (32): their tree checkpoints live in
+shared memory, which the wide tile's widths outgrow.  On a catalog target the
 frozen diagonal metric rides the step instead, as a (d,) row ``eps * s``.  The
 drivers :func:`_nuts_run`, :func:`_nuts_run_hw` and :func:`_nuts_target_run`
 return the NUTS info protocol (``ppars``, ``pgrads``, ``plogtarget``,
@@ -54,9 +56,9 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, SLICE_DRAW, _check, _counted,
-                          _device_branch, _prior, _prior_args, _ptr, _row,
-                          glm_funcs, glm_multistep_draws)
+from .glm_kernels import (KIND_CODES, NARROW_D_MAX, SLICE_DRAW, _check,
+                          _counted, _device_branch, _prior, _prior_args, _ptr,
+                          _row, glm_funcs, glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
                              load_library, target_funcs)
@@ -320,9 +322,11 @@ def load_kernels():
         lib.nuts_error_string.argtypes = [ctypes.c_int]
         lib.nuts_error_string.restype = ctypes.c_char_p
         lib.nuts_max_doublings.restype = ctypes.c_int
-        if lib.nuts_max_doublings() != MAX_DOUBLINGS:
-            raise RuntimeError(
-                "csrc/glm_nuts.cu and nuts_kernels.MAX_DOUBLINGS disagree")
+        lib.nuts_max_dim.restype = ctypes.c_int
+        if (lib.nuts_max_doublings() != MAX_DOUBLINGS
+                or lib.nuts_max_dim() != NARROW_D_MAX):
+            raise RuntimeError("csrc/glm_nuts.cu and nuts_kernels disagree "
+                               "on MAX_DOUBLINGS or NARROW_D_MAX")
         lib._bound = True
     return lib
 
@@ -396,7 +400,7 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     lp, logu = lp.reshape(-1), logu.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad, "m0": m0},
-                           {"lp": lp, "logu": logu})
+                           {"lp": lp, "logu": logu}, d_max=NARROW_D_MAX)
     _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
                  leaf_u=leaf_u)
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
@@ -516,7 +520,8 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
         raise ValueError(f"{name}: k_trans must be >= 1, got {k_trans}")
     lp = lp.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
-                           {"theta": theta, "grad": grad}, {"lp": lp})
+                           {"theta": theta, "grad": grad}, {"lp": lp},
+                           d_max=NARROW_D_MAX)
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     dev = theta.device

@@ -132,10 +132,11 @@ def _target_eligible(task):
 
 def _kernel_shape_ok(model, route, sampler):
     """What the ported kernels take on ``route``: on a GLM a built-in link,
-    d <= D_MAX, and for exact NUTS N <= BIGN_THRESHOLD; on a catalog target
-    d <= the target kernels' D_MAX; for exact NUTS maxdoublings <=
-    MAX_DOUBLINGS.  None when they do, else the reason."""
-    from ..ops.glm_kernels import D_MAX, KIND_CODES
+    d <= D_MAX on the "hmc" and "warm" routes (kernels 1-4), d <=
+    NARROW_D_MAX and N <= BIGN_THRESHOLD for exact NUTS (kernels 8 and 9);
+    on a catalog target d <= the target kernels' D_MAX; for exact NUTS
+    maxdoublings <= MAX_DOUBLINGS.  None when they do, else the reason."""
+    from ..ops.glm_kernels import D_MAX, KIND_CODES, NARROW_D_MAX
     from ..ops.nuts_kernels import MAX_DOUBLINGS
 
     if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
@@ -156,10 +157,14 @@ def _kernel_shape_ok(model, route, sampler):
     N, d = spec.X.shape
     if route == "nuts" and N > glm_bign.BIGN_THRESHOLD:
         return (f"exact NUTS at N = {N} > {glm_bign.BIGN_THRESHOLD} needs a "
-                f"large-N NUTS route, not ported yet (ROADMAP queue 1 item "
-                f"12)")
+                f"large-N NUTS route, not ported yet (ROADMAP: exact NUTS "
+                f"above BIGN_THRESHOLD)")
+    if route == "nuts" and d > NARROW_D_MAX:
+        return (f"d = {d} > {NARROW_D_MAX}, the exact-NUTS kernels' bound "
+                f"(ROADMAP: exact NUTS on GLMs wider than 32 parameters)")
     if d > D_MAX:
-        return f"d = {d} > {D_MAX}, the kernel's bound"
+        return (f"d = {d} > {D_MAX}, the GLM kernels' bound (ROADMAP: GLMs "
+                f"wider than {D_MAX} parameters)")
     return None
 
 

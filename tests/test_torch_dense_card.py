@@ -81,7 +81,7 @@ def test_mat_prior_kernels_match_plain_on_card():
         # kernel 4 against float64
         gb.reset_counts()
         lp, g = gb.glm_logp_grad_tiled(XT, Y, th, prior_prec=A)
-        assert gb.LAUNCHES == {"glm_logp_grad_tiled": 0,
+        assert gb.LAUNCHES == {**dict.fromkeys(gb.LAUNCHES, 0),
                                "glm_logp_grad_tiled_mat": 1}
         lp_r, g_r = gb.glm_logp_grad_tiled_ref(
             XT.double(), Y.double(), th.double(), prior_prec=A.double())

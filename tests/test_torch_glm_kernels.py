@@ -314,14 +314,17 @@ def test_wrapper_refuses_other_devices():
 
 @pytest.mark.parametrize("bad", ["float64", "noncontig", "wide", "link",
                                  "shape", "flat", "flat_theta", "column",
-                                 "per_chain"])
+                                 "per_chain", "nuts_wide"])
 def test_kernel_input_checks(bad):
     """What the CUDA wrappers refuse, checked before any launch: a state
-    that is not (C, d) would make the kernel read past its end."""
+    that is not (C, d) would make the kernel read past its end; d past the
+    kernel's bound (256 for kernels 1-4, whose wide tile takes d 33 to 256;
+    32 for the exact-NUTS kernels) has no instantiation."""
     N, d, C = 20, 3, 4
     XT, Y = torch.zeros(d, N), torch.zeros(N)
     th, m, lp = torch.zeros(C, d), torch.zeros(C, d), torch.zeros(C)
     kind = "logistic"
+    name, d_max = "glm_step", gk.D_MAX
     gk._check("glm_step", XT, Y, None, None, kind, {"theta": th, "m0": m},
               {"lp": lp})
     if bad == "float64":
@@ -329,7 +332,17 @@ def test_kernel_input_checks(bad):
     elif bad == "noncontig":
         th = torch.zeros(d, C).T
     elif bad == "wide":
+        assert gk.D_MAX == 256
+        gk._check(name, torch.zeros(gk.D_MAX, N), Y, None, None, kind,
+                  {"theta": torch.zeros(C, gk.D_MAX),
+                   "m0": torch.zeros(C, gk.D_MAX)}, {"lp": lp})
         XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
+        m = torch.zeros(C, gk.D_MAX + 1)
+    elif bad == "nuts_wide":  # the HMC kernels take d 33, NUTS does not
+        XT, th, m = torch.zeros(33, N), torch.zeros(C, 33), torch.zeros(C, 33)
+        gk._check(name, XT, Y, None, None, kind, {"theta": th, "m0": m},
+                  {"lp": lp})
+        name, d_max = "glm_nuts_transition", nk.NARROW_D_MAX
     elif bad == "link":
         kind = (lambda z, y: z, lambda z, y: y)
     elif bad == "shape":
@@ -343,8 +356,8 @@ def test_kernel_input_checks(bad):
     else:
         lp = torch.zeros(C, d)
     with pytest.raises(ValueError):
-        gk._check("glm_step", XT, Y, None, None, kind, {"theta": th, "m0": m},
-                  {"lp": lp})
+        gk._check(name, XT, Y, None, None, kind, {"theta": th, "m0": m},
+                  {"lp": lp}, d_max=d_max)
 
 
 def test_kernels_match_plain_on_card():
