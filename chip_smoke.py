@@ -38,8 +38,13 @@ wide chain tile: each is held against its plain version at d 33, 64, 150
 and 256 (``phase_wide_kernels``), and a logistic regression of d 150
 (``wide_data``) drives plain HMC, the drivers of 2 and 3, adaptive HMC with
 a diagonal and a dense metric at N 1000 and N 100,000, and one resume,
-each held against the generic engine (``phase_wide_paths``; exact NUTS on
-it takes the generic engine with its reason).  Then
+each held against the generic engine (``phase_wide_paths``).  Exact NUTS
+runs there too: kernels 8 and 9 (and _mat) on the wide tile are held
+against their plain versions at d 33, 64, 150 and 256
+(``phase_wide_nuts_kernels``), and the d 150 model drives ``NUTS(6)``
+with the unit, diagonal and dense metrics and two resumes, each held
+against the generic engine; NUTS at d 257 takes the generic engine with
+its reason (``phase_wide_nuts_paths``).  Then
 ``resume(chains, steps=S)`` continues the chains of seven
 of these runs, each as one batch through the kernels its frozen state
 takes (3b, 9, 8, 4, 5 and 8b), with the frozen hyper-parameters, ``pos``,
@@ -63,7 +68,8 @@ It exits non-zero without a CUDA device, and on any failed check.
 libraries that the named timing groups need (TIME_GROUPS; default all)
 from the package under ROOT and times their kernels (1-4, 8, 9, 3b, 8b
 and 5-7; the wide tile's at d 150 and 256 with the group ``wide``, its
-paths against the generic engine with ``wide_paths``) at
+paths against the generic engine with ``wide_paths``, the wide NUTS
+kernels with ``wide_nuts`` and their paths with ``wide_nuts_paths``) at
 pinned shapes, the paths that run them and bench.py's drivers, to compare
 two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
@@ -131,6 +137,14 @@ REPLACES = {
                                  "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
     "glm_logp_grad_tiled_mat_wide": ("glm_bign",
                                      "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    "glm_nuts_transition_wide": ("glm_nuts",
+                                 "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_wide": ("glm_nuts",
+                                "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    "glm_nuts_transition_mat_wide": ("glm_nuts",
+                                     "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_mat_wide": ("glm_nuts",
+                                    "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -737,7 +751,8 @@ def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
           and _close(gk_[same], gr[same], RTOL, G_ATOL * scale)
           and _close(lpk[same], lpr[same], LP_RTOL, LP_ATOL * scale))
     emit({"phase": "kernel", "name": nk._counted(
-        "glm_nuts_transition", _mat_or_none(kw.get("prior_prec"))),
+        "glm_nuts_transition", _mat_or_none(kw.get("prior_prec")),
+        thk.shape[1]),
           "case": label, "C": C, "eps": eps, "ok": ok,
           "bitwise_repeat": bitwise,
           "path_differ": int(C - same.sum()),
@@ -793,7 +808,7 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
                      LP_ATOL * scale)
           and bool((rk["accept"][:, same] == rr["accept"][:, same]).all()))
     emit({"phase": "kernel", "name": nk._counted(
-        "glm_nuts_multistep", _mat_or_none(kw.get("prior_prec"))),
+        "glm_nuts_multistep", _mat_or_none(kw.get("prior_prec")), d),
           "case": label, "draws": "the kernel's, replayed", "C": C,
           "k_trans": k, "eps": eps,
           "ok": ok, "bitwise_repeat": bitwise,
@@ -973,11 +988,12 @@ def _hmc_reference(hmc_final, hmc_steps=2000):
     return hmc["ppars"].mean(0).double().cpu().numpy()
 
 
-def phase_nuts_main_path(hmc_means):
+def phase_nuts_main_path(hmc_means, burnin=100):
     """Exact NUTS through ``run``: the multistep kernel serves
-    SerialMC(700, 200) (500 = 100 launches of 5), the per-transition
-    kernel the diagonal-metric run with SerialMC(699, 200) (499 is prime);
-    the burn-in is cut from the benchmark's 500 to keep the script short.
+    SerialMC(600, 100) (500 = 100 launches of 5), the per-transition
+    kernel the diagonal-metric run with SerialMC(599, 100) (499 is prime);
+    the burn-in is cut from the benchmark's 500 to 100 to keep the script
+    under 600 s.
 
     Each run's per-chain means must agree with ``hmc_means``, the per-chain
     means of the HMC main path's continuation (:func:`_hmc_reference`).
@@ -992,15 +1008,15 @@ def phase_nuts_main_path(hmc_means):
     X, Y = bench_data()
     m = mt.model(glm=("logistic", X, Y), device="cuda")
     runs = {
-        "glm_nuts_multistep": (mt.NUTS(maxdoublings=6), 700, 100),
+        "glm_nuts_multistep": (mt.NUTS(maxdoublings=6), burnin + 500, 100),
         "glm_nuts_transition": (mt.NUTS(maxdoublings=6, mass_adapt="diag"),
-                                699, 499),
+                                burnin + 499, 499),
     }
     counts, start = {}, None
     for name, (sampler, steps, want) in runs.items():
         origin = (f"run(model(glm=...) * {sampler!r} * SerialMC(steps={steps},"
-                  f" burnin=200), chains={chains})")
-        task = m * sampler * mt.SerialMC(steps=steps, burnin=200)
+                  f" burnin={burnin}), chains={chains})")
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
         t0 = time.perf_counter()
         with _spans() as spans:
             cs, launches = _counted(lambda: mt.run(task, chains=chains,
@@ -1008,7 +1024,7 @@ def phase_nuts_main_path(hmc_means):
         dt = time.perf_counter() - t0
         assert launches == {**{k: 0 for k in launches}, name: want}, launches
         samples = np.stack([c.samples.values for c in cs])
-        assert samples.shape == (chains, steps - 200, m.size)
+        assert samples.shape == (chains, steps - burnin, m.size)
         assert np.all(np.isfinite(samples))
         dg = {k: np.stack([c.diagnostics[k] for c in cs])
               for k in ("accept", "ndoublings", "diverging", "epsilon")}
@@ -1117,53 +1133,60 @@ def _nuts_leaves(XT, Y, th, lp, g, eps, md, noise_sets, prior=1.0):
 
 
 def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
-                       plain=True):
+                       plain=True, prior=1.0, multistep=True, device_reps=10):
     """Per-launch time of kernels 8 (one transition on draw_noise from a
     generator seeded ``seed``) and 9 (``k_trans`` transitions, its launch
-    seed from a generator seeded ``seed + 1``) on the unit-metric logistic
-    GLM from (th, lp, g) at step ``eps``: CUDA events (the wrapper's host
-    work included) and torch.profiler's device time, beside the plain
-    version's (with ``plain``), the mean depth, the leaves the trees need
-    (from the plain version's tree build on the same draws) and the tile
-    passes (per tile of 16 chains the most leaves of one chain), the bound
-    and the special-function floor of those leaves, and the occupancy plan.
-    Emits one line per kernel; returns {kernel: that line}."""
+    seed from a generator seeded ``seed + 1``) on the logistic GLM with
+    prior ``prior`` (a matrix runs the _mat variants) from (th, lp, g) at
+    step ``eps``: CUDA events (the wrapper's host work included) and
+    torch.profiler's device time (the narrow tile's kernel, or the wide
+    one's above d 32: the line's phase says which), beside the plain
+    version's (with ``plain``), the mean depth, the leaves the trees
+    need (from the plain version's tree build on the same draws) and the
+    tile passes (per tile of 16 chains the most leaves of one chain), the
+    bound and the special-function floor of those leaves, and the occupancy
+    plan; kernel 9 only with ``multistep``.  Emits one line per kernel;
+    returns {counted name: that line}."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
+    from mcmc_jl_tpu_torch.ops.glm_kernels import NARROW_D_MAX
 
     C, d = th.shape
     N = XT.shape[1]
     lp = lp.reshape(-1)
+    wide = d > NARROW_D_MAX
+    symbol = "nuts_wide_kernel" if wide else "nuts_tile_kernel"
 
     def gen(k):
         return torch.Generator(device="cuda").manual_seed(seed + k)
 
     noise = nk.draw_noise(C, d, md, gen(0))
-    draws = nk.glm_nuts_multistep_draws(tk._seed(gen(1)), C, d, k_trans, md,
-                                        device="cuda")
-    replay = {"glm_nuts_transition": [noise],
-              "glm_nuts_multistep": [tuple(a[t] for a in draws)
-                                     for t in range(k_trans)]}
+    replay = {"glm_nuts_transition": [noise]}
+    if multistep:
+        draws = nk.glm_nuts_multistep_draws(tk._seed(gen(1)), C, d, k_trans,
+                                            md, device="cuda")
+        replay["glm_nuts_multistep"] = [tuple(a[t] for a in draws)
+                                        for t in range(k_trans)]
     plan = nk.nuts_plan(d, N, md)
     out_lines = {}
-    for name in ("glm_nuts_transition", "glm_nuts_multistep"):
-        leaves = _nuts_leaves(XT, Y, th, lp, g, eps, md, replay[name])
+    for name in replay:
+        leaves = _nuts_leaves(XT, Y, th, lp, g, eps, md, replay[name],
+                              prior=prior)
+        kw = dict(maxdoublings=md, prior_prec=prior)
         if name == "glm_nuts_transition":
             kern = lambda: nk.glm_nuts_transition(  # noqa: E731
-                XT, Y, th, lp, g, eps, *noise, maxdoublings=md)
+                XT, Y, th, lp, g, eps, *noise, **kw)
             ref = lambda: nk.glm_nuts_transition_ref(  # noqa: E731
-                XT, Y, th, lp, g, eps, *noise, maxdoublings=md)
-            inputs = (XT, Y, th, lp, g, noise)
+                XT, Y, th, lp, g, eps, *noise, **kw)
+            inputs = (XT, Y, th, lp, g, noise, prior)
         else:
             kern = lambda: nk.glm_nuts_multistep(  # noqa: E731
-                XT, Y, th, lp, g, eps, gen(1), k_trans=k_trans,
-                maxdoublings=md)
+                XT, Y, th, lp, g, eps, gen(1), k_trans=k_trans, **kw)
             ref = lambda: nk.glm_nuts_multistep_ref(  # noqa: E731
-                XT, Y, th, lp, g, eps, gen(2), k_trans=k_trans,
-                maxdoublings=md)
-            inputs = (XT, Y, th, lp, g)
+                XT, Y, th, lp, g, eps, gen(2), k_trans=k_trans, **kw)
+            inputs = (XT, Y, th, lp, g, prior)
         out = kern()
         nd = (out[3] if name == "glm_nuts_transition"
               else out[3]["ndoublings"]).double()
@@ -1171,10 +1194,12 @@ def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
         per_tile = leaves.new_zeros(-(-C // 16) * 16)
         per_tile[:C] = leaves
         per_tile = per_tile.reshape(-1, 16).amax(1)
-        line = {"phase": "nuts_time", "name": name, "C": C, "N": N,
+        counted = nk._counted(name, _mat_or_none(prior), d)
+        line = {"phase": "wide_nuts_time" if wide else "nuts_time",
+                "name": counted, "C": C, "N": N, "d": d,
                 "k_trans": k_trans if name == "glm_nuts_multistep" else 1,
                 "eps": eps, "maxdoublings": md, "ms": _event_ms(kern),
-                "device_ms": _device_ms(kern, "nuts_tile_kernel"),
+                "device_ms": _device_ms(kern, symbol, reps=device_reps),
                 "plain_ms": _event_ms(ref, reps=2) if plain else None,
                 "mean_ndoublings": float(nd.mean()), "leaves": n_leaves,
                 "leaves_per_chain": n_leaves / C,
@@ -1182,7 +1207,7 @@ def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
                 **_bound(n_leaves, d, N, _nbytes(inputs, out)),
                 "sfu_floor_ms": _sfu_floor_ms(n_leaves * N, SFU_PER_LINK)}
         emit({**line, "plan": plan, **CARD})
-        out_lines[name] = line
+        out_lines[counted] = line
     return out_lines
 
 
@@ -3345,6 +3370,9 @@ def phase_chees_glm_path(hmc_means, chains=4096):
 # of a call
 RESUME_STEPS, RESUME_STEPS_PRIME, RESUME_STEPS_BIGN = 120, 101, 40
 RESUME_OLD_CHAINS = 1
+# ... over at most this many transitions (fewer than the path's own S, to
+# keep the script under 600 s)
+RESUME_OLD_STEPS = 20
 # the state fields a continuation freezes (whichever a sampler's state has)
 FROZEN_FIELDS = ("tune.step_size", "tune.n_leaps", "leap_step",
                  "dual_leap_step", "log_len", "lebar", "mass.scale")
@@ -3431,8 +3459,9 @@ def _resume_path(label, tasks, steps, want, moments, by_chain=True):
                   for c, t in zip(second, tasks))
     del second
     old = tasks[:RESUME_OLD_CHAINS if by_chain else 0]
+    old_steps = min(steps, RESUME_OLD_STEPS)
     old_s = []
-    for n in (steps, 1):
+    for n in (old_steps, 1):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for t in old:
@@ -3445,10 +3474,10 @@ def _resume_path(label, tasks, steps, want, moments, by_chain=True):
            "spans_s": spans,
            "launches": {k: n for k, n in launches.items() if n},
            "per_chain_transition_s": dt / (C * steps),
-           "chain_by_chain": {"chains": len(old), "steps": steps,
+           "chain_by_chain": {"chains": len(old), "steps": old_steps,
                               "seconds": old_s[0],
                               "per_chain_transition_s":
-                                  old_s[0] / (len(old) * steps),
+                                  old_s[0] / (len(old) * old_steps),
                               "one_transition_call_s": old_s[1] / len(old)}
            if old else None}
     emit({"phase": "resume_path", **row, "frozen_bitwise": frozen_ok,
@@ -3627,7 +3656,7 @@ def _min_ess_per_s(cs, seconds):
 
 
 def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
-                      gauss_chains=4096, gauss_steps=(3000, 1000)):
+                      gauss_chains=4096, gauss_steps=(2100, 700)):
     """The dense metric through ``run(..., chains=N)``: the adaptive warmup
     on the generic engine, then the pooled factor L frozen and folded into
     the design (X L, prior matrix lam L'L), the sampling phase on the
@@ -3637,13 +3666,15 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
     - bench.py's logistic GLM (d 10, N 1000, from the mode), 4096 chains:
       ``HMC(10, 0.02, EmpMCTuner(0.8, 50), mass_adapt="dense") *
       SerialMC(2000, 500)`` (3b: 250 launches of 6) and ``NUTS(6,
-      mass_adapt="dense") * SerialMC(699, 200)`` (8: 499), both held
+      mass_adapt="dense") * SerialMC(599, 100)`` (8: 499; the burn-in cut
+      to 100 for the script's 600 s), both held
       against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
       (9: 15 launches of 8) with _resume_path's checks;
     - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
-      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(3000, 1000)``
-      (mass_metric.py's SerialMC(6000, 2000) cut by half to keep the
-      script under 600 s; 3b): the chains' means held to 0 and their
+      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(2100, 700)``
+      (mass_metric.py's SerialMC(6000, 2000) cut to about a third to keep
+      the script under 600 s; 3b): the chains' means
+      held to 0 and their
       second moments (the
       variances and the rho = 0.95 covariances) to the known Sigma by |z|
       gates; its min-coordinate ESS and ESS/s beside the same run with
@@ -3665,7 +3696,7 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
             (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
                     mass_adapt="dense"), 2000, 500,
              "glm_multistep_rows_mat", 250),
-            (mt.NUTS(6, mass_adapt="dense"), 699, 200,
+            (mt.NUTS(6, mass_adapt="dense"), 599, 100,
              "glm_nuts_transition_mat", 499)):
         task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
         origin = _origin(m, task, chains)
@@ -3703,7 +3734,7 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
         row["launches"]["glm_nuts_multistep_mat"],
         f"resume(tasks, steps={RESUME_STEPS}) of the {chains} chains of "
         f"run(model(glm=..., N=1000) * NUTS(6, mass_adapt='dense') * "
-        f"SerialMC(steps=699, burnin=200), chains={chains})")
+        f"SerialMC(steps=599, burnin=100), chains={chains})")
     del nuts_tasks
 
     sig, G, lam = _gauss_glm()
@@ -4573,35 +4604,8 @@ def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
     return err
 
 
-def _wide_nuts_refused(m, runner):
-    """The route of exact NUTS on the wide model: the generic engine, with
-    the logged reason naming the item that lifts the exact-NUTS kernels'
-    bound.  Returns the reason."""
-    import logging
-
-    import mcmc_jl_tpu_torch as mt
-    from mcmc_jl_tpu_torch.core.task import MCMCTask
-    from mcmc_jl_tpu_torch.parallel import pchains
-
-    seen = []
-    handler = logging.Handler()
-    handler.emit = lambda rec: seen.append(rec.getMessage())
-    log = logging.getLogger(pchains.__name__)
-    level = log.level
-    log.addHandler(handler)
-    log.setLevel(logging.INFO)
-    try:
-        route = pchains._route(MCMCTask(m, mt.NUTS(6), runner), "auto")
-    finally:
-        log.removeHandler(handler)
-        log.setLevel(level)
-    why = [s for s in seen if "exact NUTS on GLMs wider than 32" in s]
-    assert route is False and why, (route, seen)
-    return why[0]
-
-
 def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
-                     steps=1000, burnin=200, bign_steps=(100, 50),
+                     steps=600, burnin=200, bign_steps=(100, 50),
                      thin=200, n=1000, n_bign=100_000):
     """A logistic regression of d = 150 (wide_data) through the port's entry
     points, every launch counted from zero over one run and every run held
@@ -4609,14 +4613,15 @@ def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
     engine (the route such a GLM took before the wide tile):
 
     - N 1000 from the model's init: ``run(HMC(10, WIDE_EPS) *
-      SerialMC(1000, 200), chains=4096)`` (kernel 1, once a transition),
+      SerialMC(600, 200), chains=4096)`` (kernel 1, once a transition;
+      the sampling cut to 400 transitions for the script's 600 s),
       against the same task on 512 generic-engine chains;
       ``run_glm_hmc(fused_step=True)`` (2) and
       ``run_glm_hmc_multistep(thin=200)`` (3) from the same start for as
       many transitions, against that run's final states (phase_drivers);
       adaptive HMC with a diagonal and with a dense metric, ``HMC(10,
-      WIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(1000,
-      200)`` at 4096 chains (3b, 3b_mat: 800 sampling transitions as 100
+      WIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(600,
+      200)`` at 4096 chains (3b, 3b_mat: 400 sampling transitions as 50
       launches of 8), against the generic run; ``resume(chains, steps=120)``
       of the diagonal run (3b: 15 launches of 8);
     - N 100,000 from the posterior mode: ``HMC(10, WIDE_BIGN_EPS,
@@ -4624,14 +4629,13 @@ def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
       chains, diagonal and dense (4, 4_mat; phase_large_n_paths'
       SerialMC(200, 50) cut to 50 sampling transitions, for the script's
       600 s), against plain ``HMC(10, WIDE_BIGN_EPS)`` on
-      512 generic-engine chains from the same start;
-    - exact NUTS on the N 1000 model is asserted to take the generic
-      engine with its reason (kernels 8 and 9 keep d <= 32).
+      512 generic-engine chains from the same start.
 
     The generic reference runs are timed in full at 512 chains
     (phase_wide_path_times times each task through both routes at the
     same chains).  Returns the wide kernels' launches {name: (count,
-    origin)}."""
+    origin)} and the generic engine's per-chain means at N 1000 (the
+    reference of phase_wide_nuts_paths)."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.glm_hmc import (run_glm_hmc,
                                               run_glm_hmc_multistep)
@@ -4718,9 +4722,6 @@ def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
                  {"glm_multistep_rows_wide": RESUME_STEPS // 8},
                  lambda s: _z_means(s.mean(1), gmeans), by_chain=False)
     del held
-    why = _wide_nuts_refused(m, mt.SerialMC(steps=steps, burnin=burnin))
-    emit({"phase": "wide_nuts_route", "d": d, "route": "generic engine",
-          "reason": why})
 
     nb, bb = bign_steps
     Xb, Yb, mode_b, _ = _wide_mode(n_bign)
@@ -4757,7 +4758,7 @@ def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
         assert z < Z_MAX, f"{origin} disagrees with the generic engine"
         counts[name] = (launches[name], origin)
         del cs, samples
-    return counts
+    return counts, gmeans
 
 
 def phase_wide_path_times(chains=4096, chains_bign=512, steps=60, burnin=20,
@@ -4899,6 +4900,280 @@ def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
     return ms, work
 
 
+# ---- exact NUTS on the wide tile (kernels 8 and 9, 32 < d <= 256) ----------
+
+# the wide NUTS kernels' launch counters
+WIDE_NUTS_KERNELS = ("glm_nuts_transition_wide", "glm_nuts_multistep_wide",
+                     "glm_nuts_transition_mat_wide",
+                     "glm_nuts_multistep_mat_wide")
+# step of the wide NUTS checks and times, in the coordinates of each fold
+# (posterior sds about 0.65 unfolded, 1 folded): trees of 3-6 doublings
+# and both slice outcomes; the deep check at md 10 takes WIDE_NUTS_DEEP_EPS,
+# where most trees run to the bound
+WIDE_NUTS_EPS, WIDE_NUTS_DEEP_EPS = 0.1, 0.002
+# the wide NUTS paths: SerialMC(steps, burnin) for kernel 9 (the sampling
+# transitions split into launches of WIDE_NUTS_K) and steps - 3 for kernel
+# 8 (a prime count of sampling transitions: one launch a transition)
+WIDE_NUTS_RUN = (150, 50)
+
+
+def _wide_nuts_inputs(XT, Y, th, md, seed, **kw):
+    """A NUTS transition's inputs at (XT, Y, th) under a check's keywords
+    (prior, link, weights, offsets): (XT, Y, th, lp, g) and one
+    transition's pre-drawn noise from numpy seed ``seed``."""
+    C, d = th.shape
+    lp, g = _lp_grad(XT, Y, th, **kw)
+    rng = np.random.default_rng(seed)
+    noise = (rng.standard_normal((C, d)), np.log(rng.random(C)),
+             np.where(rng.random((C, md)) < 0.5, 1.0, -1.0),
+             rng.random((C, md)), rng.random((C, 1 << md)))
+    return (XT, Y, th, lp, g), tuple(_cuda(a) for a in noise)
+
+
+def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
+    """Kernels 8 and 9 (and their _mat forms) on the wide tile against
+    their plain versions, held to the narrow checks' rules (_nuts_check,
+    _nuts_ms_check: PATH_AGREE of the chains on the plain version's
+    discrete path, theta, g and lp within the narrow tolerances there,
+    bitwise repeats): kernel 8 on shared pre-drawn noise, kernel 9 chain by
+    chain on its own Philox draws replayed by glm_nuts_multistep_draws.  At
+    d 33, 64, 150 and 256 (WIDE_CHECK_D) with chains near the posterior
+    mode of wide_data, N 1000 (rows streamed), slice and multinomial at md
+    6: 4096 chains at d 150 with the scalar prior, the diagonal fold's (d,)
+    row and the dense fold's (d, d) matrix; a ragged 1027 chains at the
+    other widths; at d 256 also md 10 (the largest scratch) at
+    WIDE_NUTS_DEEP_EPS, where trees reach the bound; every link with
+    weights and offsets at d 64 (phase_wide_kernels' design scale).
+    Returns the largest theta error of each wide NUTS kernel."""
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    err = dict.fromkeys(WIDE_NUTS_KERNELS, 0.0)
+
+    def check(label, args, noise, eps, kw, seed, k=k, full_depth=False):
+        suffix = "_mat_wide" if _mat_or_none(kw.get("prior_prec")) is not \
+            None else "_wide"
+        e8 = _nuts_check(label, args, noise, eps, kw, full_depth=full_depth)
+        e9 = _nuts_ms_check(label, args, eps, kw, seed=seed, k=k,
+                            full_depth=full_depth)
+        for name, e in (("glm_nuts_transition", e8),
+                        ("glm_nuts_multistep", e9)):
+            err[name + suffix] = max(err[name + suffix], e)
+
+    for d in WIDE_CHECK_D:
+        Cd = C if d == WIDE_D else ragged
+        f = _wide_folds(N, d, Cd, seed=d + 20)
+        priors = ("scalar", "row", "matrix") if d == WIDE_D else ("scalar",)
+        for prior in priors:
+            XT, Yc, th, lam = f[prior]
+            args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + 21,
+                                            prior_prec=lam)
+            for multinomial in ((False,) if prior == "row"
+                                else (False, True)):
+                label = (f"wide tile, d {d}, C {Cd}, {prior} prior, "
+                         f"{'multinomial' if multinomial else 'slice'}, "
+                         f"md {md}")
+                kw = dict(maxdoublings=md, prior_prec=lam,
+                          multinomial=multinomial)
+                check(label, args, noise, WIDE_NUTS_EPS, kw, seed=d + 22)
+        if d == gk.D_MAX:  # the deepest trees: md 10, the largest scratch
+            XT, Yc, th, _ = f["scalar"]
+            args, noise = _wide_nuts_inputs(XT, Yc, th, 10, d + 23)
+            check(f"wide tile, d {d}, C {Cd}, slice, md 10, eps "
+                  f"{WIDE_NUTS_DEEP_EPS}", args, noise, WIDE_NUTS_DEEP_EPS,
+                  dict(maxdoublings=10), seed=d + 24, k=2, full_depth=True)
+        del f
+    for i, kind in enumerate(gk.KIND_CODES):
+        XT, Yc, W, O, th, _ = _glm_case(kind, N, 64, 300, seed=7,
+                                        scale=0.3 * np.sqrt(7 / 64))
+        kw = dict(kind=kind, weights=W, offsets=O, prior_prec=1.5)
+        args, noise = _wide_nuts_inputs(XT, Yc, th, md, 30 + i, **kw)
+        multinomial = kind in ("linear", "probit")
+        check(f"wide tile, {kind}, weights+offsets, d 64, C 300, "
+              f"{'multinomial' if multinomial else 'slice'}", args, noise,
+              0.02, dict(kw, maxdoublings=md, multinomial=multinomial),
+              seed=40 + i)
+    return err
+
+
+def _wide_nuts_routes(n=1000):
+    """The route of NUTS on wide_data at d 150 and 256 (the exact-NUTS
+    kernels, "nuts", for a run and a continuation) and at d 257 (the
+    generic engine, with the reason naming the item that lifts the GLM
+    kernels' bound, for both).  Returns {d: (route, reason or None)}."""
+    import logging
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.core.task import MCMCTask
+    from mcmc_jl_tpu_torch.parallel import pchains
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    log = logging.getLogger(pchains.__name__)
+    level = log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    out = {}
+    try:
+        for d, want in ((WIDE_D, "nuts"), (256, "nuts"), (257, False)):
+            X, Y = wide_data(n, d)
+            m = mt.model(glm=("logistic", X, Y), device="cuda")
+            sampler = mt.NUTS(6)
+            seen.clear()
+            route = pchains._route(MCMCTask(m, sampler, mt.SerialMC(
+                steps=WIDE_NUTS_RUN[0], burnin=WIDE_NUTS_RUN[1])), "auto")
+            cont = pchains.continuation_route(m, sampler, 4, "auto")
+            why = [t for t in seen if "GLMs wider than 256 parameters" in t]
+            assert route == cont == want, (d, route, cont, seen)
+            assert bool(why) == (want is False) and len(why) in (0, 2), seen
+            out[d] = (route or "generic engine", why[0] if why else None)
+            emit({"phase": "wide_nuts_route", "d": d, "route": out[d][0],
+                  "continuation_route": cont or "generic engine",
+                  "reason": out[d][1]})
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    return out
+
+
+def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
+    """Exact NUTS on the d 150 logistic regression (wide_data, N 1000, from
+    the model's init) through the port's entry points, every launch
+    counted from zero over one run, each run's per-chain means held within
+    Z_MAX standard errors of ``gmeans`` (the generic engine's, 512 chains,
+    phase_wide_paths): ``NUTS(6) * SerialMC(*run)`` (kernel 9 on the wide
+    tile), ``NUTS(6, mass_adapt="diag")`` with three steps fewer (a prime
+    count of sampling transitions: kernel 8), ``NUTS(6,
+    mass_adapt="dense") * SerialMC(*run)`` (9 mat), then
+    ``resume(chains, steps=120)`` of the unit-metric run (9) and
+    ``resume(chains, steps=101)`` of the dense run (8 mat), with
+    _resume_path's checks.  The warmups run on the generic engine (cut to
+    50 transitions, for the script's 600 s).  First the routes at d 150,
+    256 and 257 (_wide_nuts_routes).  Returns the wide NUTS kernels'
+    launches {name: (count, origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
+
+    _wide_nuts_routes(n)
+    X, Y, _, _ = _wide_mode(n)
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    d = m.size
+    steps, burnin = run
+    kept = steps - burnin
+    counts, held = {}, {}
+    for label, sampler, S, name, want in (
+            ("unit", mt.NUTS(6), steps, "glm_nuts_multistep_wide",
+             kept // _pick_k_trans(kept)),
+            ("diag", mt.NUTS(6, mass_adapt="diag"), steps - 3,
+             "glm_nuts_transition_wide", kept - 3),
+            ("dense", mt.NUTS(6, mass_adapt="dense"), steps,
+             "glm_nuts_multistep_mat_wide", kept // _pick_k_trans(kept))):
+        assert name != "glm_nuts_transition_wide" or \
+            _pick_k_trans(kept - 3) == 1
+        task = m * sampler * mt.SerialMC(steps=S, burnin=burnin)
+        origin = _origin(m, task, chains)
+        cs, samples, launches, dt, spans = _path(origin, task, chains,
+                                                 {name: want})
+        dg = {k: np.stack([c.diagnostics[k] for c in cs])
+              for k in ("accept", "ndoublings", "diverging", "epsilon")}
+        z = _z_means(samples.mean(1), gmeans)
+        emit({"phase": "wide_nuts_path", "kernel": name, "from": origin,
+              "d": d, "chains": chains, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_eps": float(dg["epsilon"][0, -1]),
+              "accept_rate": float(dg["accept"].mean()),
+              "mean_ndoublings": float(dg["ndoublings"].mean()),
+              "diverging_share": float(dg["diverging"].mean()),
+              "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+        counts[name] = (launches[name], origin)
+        if label != "diag":
+            held[label] = [c.task for c in cs]
+        del cs, samples
+    moments = lambda s: _z_means(s.mean(1), gmeans)  # noqa: E731
+    for label, name, S in (
+            ("unit", "glm_nuts_multistep_wide", RESUME_STEPS),
+            ("dense", "glm_nuts_transition_mat_wide", RESUME_STEPS_PRIME)):
+        want = S // _pick_k_trans(S) if "multistep" in name else S
+        origin = f"resume(NUTS(6{', dense' if label == 'dense' else ''}) " \
+                 f"chains of d {d}, steps={S})"
+        _resume_path(origin, held.pop(label), S, {name: want}, moments,
+                     by_chain=False)
+        counts.setdefault(name, (want, origin))
+    return counts
+
+
+def phase_wide_nuts_times(C=4096, N=1000, md=6, k_trans=5):
+    """Per-launch time of kernels 8 and 9 (k_trans 5) and their _mat forms
+    on the wide tile at d 150 (WIDE_D) and 256, N 1000, 4096 chains drawn
+    from the Laplace approximation at the mode (the scalar prior; the
+    dense fold's matrix with chains in z), at WIDE_NUTS_EPS and md 6, with
+    _nuts_kernel_times' columns (events, device ms, plain version, leaves,
+    tile passes, bound, occupancy and scratch plan); then kernel 8 at d 256
+    and md 10 at WIDE_NUTS_DEEP_EPS (the deepest trees, 65 MB of scratch:
+    what L2 contention costs a tile pass), without its plain version.
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at d 150."""
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    ms, work = {}, {}
+    for d in (WIDE_D, gk.D_MAX):
+        f = _wide_folds(N, d, C, seed=d + 31, spread=1.0)
+        for prior in ("scalar", "matrix"):
+            XT, Yc, th, lam = f[prior]
+            lp, g = _lp_grad(XT, Yc, th, prior_prec=lam)
+            lines = _nuts_kernel_times(
+                XT, Yc, th, lp, g, WIDE_NUTS_EPS, md, k_trans, seed=d + 32,
+                prior=lam, device_reps=3)
+            if d == WIDE_D:
+                for name, t in lines.items():
+                    ms[name] = (t["ms"], t["plain_ms"])
+                    work[name] = {k: t[k] for k in ("bound_ms", "bound_by")}
+        if d == gk.D_MAX:
+            XT, Yc, th, _ = f["scalar"]
+            lp, g = _lp_grad(XT, Yc, th)
+            _nuts_kernel_times(XT, Yc, th, lp, g, WIDE_NUTS_DEEP_EPS, 10, 1,
+                               seed=d + 33, plain=False, multistep=False,
+                               device_reps=3)
+        del f
+    return ms, work
+
+
+def phase_wide_nuts_path_times(chains=4096, steps=60, burnin=20, n=1000):
+    """Host seconds (to a synchronize) of each wide NUTS path's task over a
+    shortened SerialMC(60, 20) (kernel 8's: 59), through the kernels and
+    through the generic engine at the same chains: what the width cost
+    before the wide NUTS kernels (every such GLM under NUTS took the
+    generic engine).  Returns {path: {"fused_s", "generic_s"}}."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, _, _ = _wide_mode(n)
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    out = {}
+    for label, sampler, S in (
+            ("NUTS(6), kernel 9", mt.NUTS(6), steps),
+            ("NUTS(6, diag), kernel 8", mt.NUTS(6, mass_adapt="diag"),
+             steps - 1),
+            ("NUTS(6, dense), kernel 9 mat", mt.NUTS(6, mass_adapt="dense"),
+             steps)):
+        task = m * sampler * mt.SerialMC(steps=S, burnin=burnin)
+        row = {}
+        for key, fused in (("fused_s", "auto"), ("generic_s", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _spans() as spans:
+                mt.run(task, chains=chains, seed=0, fused=fused)
+            torch.cuda.synchronize()
+            row[key] = time.perf_counter() - t0
+            row[key.replace("_s", "_spans_s")] = dict(spans)
+        out[label] = row
+        emit({"phase": "wide_nuts_path_time", "path": label,
+              "task": _origin(m, task, chains), "d": m.size, **row,
+              **CARD})
+    return out
+
+
 def main():
     phase_device()
     import torch
@@ -4924,6 +5199,7 @@ def main():
         errors[name] = max(errors[name], e)
     errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
     errors.update(step("wide_kernels", phase_wide_kernels))
+    errors.update(step("wide_nuts_kernels", phase_wide_nuts_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
     # the two NUTS kernels, the Halton multistep kernel and the tiled
@@ -4952,12 +5228,15 @@ def main():
                                  held["bign"][1])
     launches.update(dense_launches)
     errors.update(step("dense_kernels", phase_dense_kernels, folds))
-    launches.update(step("wide_paths", phase_wide_paths))
+    wide_launches, gmeans = step("wide_paths", phase_wide_paths)
+    launches.update(wide_launches)
+    launches.update(step("wide_nuts_paths", phase_wide_nuts_paths, gmeans))
+    del gmeans
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    step("timing", phase_timing, steps=1000, reps=2)
+    step("timing", phase_timing, steps=600, reps=2)
     # kernels 1-4 at the shapes whose launches are counted above (1-3 also
     # at bench.py's 65536 chains)
     ms, work = step("tile_times", phase_tile_times)
@@ -4966,10 +5245,13 @@ def main():
                  step("target_kernel_times", phase_target_times),
                  step("target_nuts_time", phase_target_nuts_time, start_t),
                  step("dense_times", phase_dense_times, folds),
-                 step("wide_times", phase_wide_times)):
+                 step("wide_times", phase_wide_times),
+                 step("wide_nuts_times", phase_wide_nuts_times)):
         ms.update(more[0])
         work.update(more[1])
-    step("wide_path_times", phase_wide_path_times)
+    # the wide paths' generic-against-fused seconds (phase_wide_path_times,
+    # phase_wide_nuts_path_times) run in the --times groups wide_paths and
+    # wide_nuts_paths, out of this run for its 600 s
     emit({"resume": resume_rows})
     # no single PyTorch call computes any of these functions: library_ms
     # is null (the two products alone are timed in new_kernel_times)
@@ -5120,6 +5402,8 @@ TIME_GROUPS = {
                      ("phase_target_path_spans",)),
     "wide": (("glm_hmc", "glm_bign"), ("phase_wide_times",)),
     "wide_paths": (("glm_hmc", "glm_bign"), ("phase_wide_path_times",)),
+    "wide_nuts": (("glm_nuts",), ("phase_wide_nuts_times",)),
+    "wide_nuts_paths": (("glm_nuts",), ("phase_wide_nuts_path_times",)),
 }
 
 

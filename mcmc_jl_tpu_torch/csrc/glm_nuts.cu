@@ -8,7 +8,10 @@
 //   glm_nuts_multistep  <- _nuts_ms_kernel (via _ms_transition_inner)
 // both sharing the tree build, here the body of nuts_tile_kernel, and
 // _glm_funcs, here traj_grad (glm_tile.cuh): the chain-tile gradient of the
-// trajectory kernel (glm_hmc.cu, kernel 1).
+// trajectory kernel (glm_hmc.cu, kernel 1).  That is the narrow tile, d <=
+// 32; above it, up to kWideMax = 256, nuts_wide_kernel builds the same tree
+// on the wide tile (glm_tile.cuh wide_rows), with the tree's state out of
+// shared memory (see its own note).  The launcher picks one from d alone.
 //
 // What bounds them on the H100: every leaf of a tree is one leapfrog, i.e.
 // one gradient and log-target pass over the N observations: 4 d N
@@ -60,8 +63,9 @@
 // Rows that do not fit stream through double-buffered cp.async tiles at
 // every leaf, as in kernel 1.  lp is summed in double.
 //
-// Every entry launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// Every entry launches on the caller's stream, allocates nothing (the wide
+// tile's tree state lives in a scratch buffer the caller passes in, sized by
+// glm_nuts_plan) and returns cudaGetLastError().
 
 #include "glm_tile.cuh"
 
@@ -98,6 +102,7 @@ struct NutsArgs {
   unsigned char *r_acc, *r_div;
   int* r_nd;
   int* queue;  // tile queue: one int, 0 between launches
+  float* scratch;  // the wide tile's tree state (nuts_wide_kernel)
 };
 
 // Uniform in (0, 1] of draw `draw` of (chain c, transition t).
@@ -425,16 +430,388 @@ nuts_tile_kernel(Glm p, NutsArgs a) {
   }
 }
 
+// ---- the wide tile: 32 < d <= kWideMax -------------------------------------
+// The same tree on glm_tile.cuh's wide layout, as hmc_wide (glm_hmc.cu)
+// runs the HMC transitions: warp c holds chain c of the tile and lane l its
+// coordinates l + 32 i (i < D / 32); each leaf's gradient is one wide_rows
+// pass of the whole block.  Every per-chain value (H, the weights, the
+// flags, the cursor) comes from values that are the same bits in all 32
+// lanes: lp from the warps' ll partials summed in one order, the dot
+// products from wide_chain_sum, the draws from the chain's own counters.
+// So a warp takes every branch of its chain together, and the span checks
+// loop over the chain's own spans with no shadow slots.
+//
+// Where the tree's state lives.  The walker (position, momentum, gradient:
+// 3 D / 32 floats a lane) stays in registers: every leaf reads and writes
+// it.  Everything else a chain keeps per coordinate goes to a scratch
+// buffer in device memory that the caller allocates once and passes in:
+// the chosen state (theta, g), the two edges (p, m, g each), the subtree's
+// proposal (p, g) and the two checkpoint stacks (md slots each).  Those
+// 10 + 2 md arrays of D floats are 491 KB a block at md 10 and D 256,
+// beyond the 227 KB of shared memory (which the row buffers of wide_plan
+// already fill) and beyond registers: with three more arrays live across
+// the gradient the wide HMC kernels already spill at the 128-register cap
+// of a 512-thread block.  A leaf touches little of it: a checkpoint store
+// (2 D floats) on even leaves, at most md span reads (2 D each) on odd
+// ones, a proposal store (2 D) when the leaf is taken, and the edges and
+// the merge once a doubling; against the leaf's gradient, 4 d N
+// multiply-adds a chain (600 K at d 150, N 1000).  The buffer is sized by
+// resident block, not by chain: block b's slice serves every tile it takes
+// from the queue.  It is laid out [chain of the tile][array][coordinate
+// block][lane], so that a warp's load or store of one register is one
+// 128-byte line, and only the thread that wrote a value reads it back (no
+// fence).
+//
+// What bounds it, as the narrow kernel: the tile's passes, each one
+// wide_rows (latency-bound, glm_tile.cuh).  On an H100 80GB HBM3 (700 W)
+// at d 150, N 1000, 4096 chains, md 6 a pass takes about 78 us (kernel 8:
+// 4.69 ms for 60 passes a block), 24-26% of the 4 d N bound of the leaves
+// the trees need; the (d, d) prior's serial loop makes a pass 1.6x dearer.
+// ptxas gives it 128 registers and 602 (kernel 8) or 820 (kernel 9) bytes
+// of spill stores.  The scratch costs no measurable time: at d 256 a pass
+// took 115 us at md 10 (65 MB of scratch, more than L2) and 124 us at md 6.
+constexpr int kWideFixed = 10;  // scratch arrays besides the two stacks
+enum WideArray { kTh, kG, kEp0, kEp1, kEm0, kEm1, kEg0, kEg1, kSp, kSg };
+
+size_t wide_scratch_per_block(int D, int md) {
+  return sizeof(float) * kTileChains * (size_t)(kWideFixed + 2 * md) * D;
+}
+
+// One chain's scratch as its lanes see it: array k's register i of lane l
+// lies at at[k D + 32 i] (at already offset by l).
+struct Scratch {
+  float* at;
+  int D;
+  __device__ __forceinline__ void load(int k, float (&v)[kWideRegs]) const {
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i)
+      v[i] = 32 * i < D ? at[(size_t)k * D + 32 * i] : 0.f;
+  }
+  __device__ __forceinline__ void store(int k,
+                                        const float (&v)[kWideRegs]) const {
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i)
+      if (32 * i < D) at[(size_t)k * D + 32 * i] = v[i];
+  }
+  __device__ __forceinline__ void copy(int to, int from) const {
+#pragma unroll
+    for (int i = 0; i < kWideRegs; ++i)
+      if (32 * i < D)
+        at[(size_t)to * D + 32 * i] = at[(size_t)from * D + 32 * i];
+  }
+  __device__ __forceinline__ int ckp(int s) const { return kWideFixed + s; }
+  __device__ __forceinline__ int ckm(int s, int md) const {
+    return kWideFixed + md + s;
+  }
+};
+
+// The per-chain scalars of one transition: the same bits in all 32 lanes.
+struct WideTree {
+  float lp, elp0, elp1, wlp, slp;
+  float H0, u_slice, dirn, n1, lw1, ntot, lwtot;
+  int t, j, k, nd;
+  bool run, ok, sdv, dv;
+};
+
+// Doubling T.j starts from the edge its direction points to (NUTS.jl:150):
+// the walker loads it, and the proposal seed is the walker.
+template <bool MS>
+__device__ __forceinline__ void wide_begin_doubling(
+    WideTree& T, const NutsArgs& a, const Scratch& S, int c,
+    float (&wp)[kWideRegs], float (&wm)[kWideRegs], float (&wg)[kWideRegs]) {
+  T.dirn = direction<MS>(a, c, T.t, T.j);
+  const bool plus = T.dirn > 0.f;
+  S.load(plus ? kEp1 : kEp0, wp);
+  S.load(plus ? kEm1 : kEm0, wm);
+  S.load(plus ? kEg1 : kEg0, wg);
+  T.wlp = plus ? T.elp1 : T.elp0;
+  S.store(kSp, wp);
+  S.store(kSg, wg);
+  T.slp = T.wlp;
+  T.n1 = 0.f;
+  T.lw1 = -CUDART_INF_F;
+  T.ok = true;
+  T.sdv = false;
+  T.k = 0;
+}
+
+// A new tree at the chosen state (kTh, kG, T.lp) with momentum m and the
+// slice's log-uniform.  Every lane of the warp calls it.
+template <bool MS>
+__device__ __forceinline__ void wide_start_tree(
+    WideTree& T, const NutsArgs& a, const Wide& w, const Scratch& S, int c,
+    const float (&m)[kWideRegs], float logu, float (&wp)[kWideRegs],
+    float (&wm)[kWideRegs], float (&wg)[kWideRegs]) {
+  float v[kWideRegs];
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) v[i] = m[i] * m[i];
+  T.H0 = -T.lp + 0.5f * wide_chain_sum(w, v);
+  T.u_slice = a.multinomial ? -T.H0 : logu - T.H0;  // NUTS.jl:141
+  S.copy(kEp0, kTh);
+  S.copy(kEp1, kTh);
+  S.store(kEm0, m);
+  S.store(kEm1, m);
+  S.copy(kEg0, kG);
+  S.copy(kEg1, kG);
+  T.elp0 = T.elp1 = T.lp;
+  T.ntot = 1.f;  // the initial point, weight exp(H0 - H0)
+  T.lwtot = 0.f;
+  T.nd = 0;
+  T.dv = false;
+  T.j = 0;
+  wide_begin_doubling<MS>(T, a, S, c, wp, wm, wg);
+}
+
+// Kernel 9's draws of transition t of chain c: the momenta (0 past d) and
+// the slice's log-uniform.
+__device__ __forceinline__ float wide_draw(const NutsArgs& a, int d, int c,
+                                           int t, float (&m)[kWideRegs]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kWideRegs; ++i) {
+    const int j = lane + 32 * i;
+    m[i] = j < d ? momentum(a.key, c, t, j) : 0.f;
+  }
+  return log_uniform(a.key, c, t);
+}
+
+// nuts_tile_kernel on the wide tile.  a.scratch holds gridDim.x slices of
+// wide_scratch_per_block(D, md) bytes.
+template <bool MS>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+nuts_wide_kernel(Glm p, NutsArgs a) {
+  __shared__ int next_tile;
+  const Wide w = wide_at(p);
+  const int oc = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Scratch S{a.scratch +
+                      ((size_t)blockIdx.x * kTileChains + oc) *
+                          (kWideFixed + 2 * a.md) * w.D +
+                      lane,
+                  w.D};
+  wide_init(p, w);  // resident rows staged once for all its tiles
+  const int tiles = (a.C + kTileChains - 1) / kTileChains;
+  for (int tile = blockIdx.x; tile < tiles;) {
+    const int c = tile * kTileChains + oc;
+    const bool real = c < a.C;
+    const int cs = min(c, a.C - 1);  // warps past C shadow the last chain
+    float wp[kWideRegs], wm[kWideRegs], wg[kWideRegs];
+    WideTree T;
+    wide_load(wp, a.th_in, cs, p.d);
+    S.store(kTh, wp);
+    wide_load(wg, a.g_in, cs, p.d);
+    S.store(kG, wg);
+    T.lp = a.lp_in[cs];
+    T.t = 0;
+    {
+      float m[kWideRegs], logu;
+      if (MS) {
+        logu = wide_draw(a, p.d, cs, 0, m);
+      } else {
+        wide_load(m, a.m0, cs, p.d);
+        logu = a.logu[cs];
+      }
+      wide_start_tree<MS>(T, a, w, S, cs, m, logu, wp, wm, wg);
+    }
+    T.run = real;
+
+    for (;;) {
+      if (!__syncthreads_or(T.run)) break;
+      // a half kick and a drift of the walker; a chain without a leaf to
+      // take puts its chosen state in the tile
+      const float es = T.dirn * a.eps;
+      if (T.run) {
+#pragma unroll
+        for (int i = 0; i < kWideRegs; ++i) {
+          wm[i] = wm[i] + 0.5f * es * wg[i];
+          wp[i] = wp[i] + es * wm[i];
+        }
+        wide_put_theta(w, oc, wp);
+      } else {
+        float th[kWideRegs];
+        S.load(kTh, th);
+        wide_put_theta(w, oc, th);
+      }
+      wide_rows(p, w, true);
+      if (!T.run) continue;  // the warp's chain: uniform
+
+      // the leaf's gradient and lp as wide_grad forms them (glm_hmc.cu)
+      float pg[kWideRegs], v[kWideRegs];
+      wide_prior_grad(p, w, wp, pg);
+#pragma unroll
+      for (int i = 0; i < kWideRegs; ++i) {
+        const int j = lane + 32 * i;
+        wg[i] = j < p.d ? wide_gsum(w, oc, j) - pg[i] : 0.f;
+        v[i] = wp[i] * pg[i];
+      }
+      T.wlp = (float)(sum_ll(w.pll, oc, kTrajWarps) -
+                      0.5 * (double)wide_chain_sum(w, v));
+#pragma unroll
+      for (int i = 0; i < kWideRegs; ++i) {
+        wm[i] = wm[i] + 0.5f * es * wg[i];
+        v[i] = wm[i] * wm[i];
+      }
+      float H = -T.wlp + 0.5f * wide_chain_sum(w, v);
+      if (isnan(H)) H = CUDART_INF_F;
+      const bool diverged = T.u_slice >= kDeltaMax - H;  // NUTS.jl:92
+      // reservoir draw, indexed by the transition-global leaf number
+      const float u_leaf = leaf_u<MS>(a, c, T.t, (1 << T.j) - 1 + T.k);
+      bool take;
+      if (a.multinomial) {
+        const float lw_leaf = diverged ? -CUDART_INF_F : T.H0 - H;
+        const float lw_new = logaddexp(T.lw1, lw_leaf);
+        take = !diverged && logf(u_leaf) < lw_leaf - lw_new;
+        T.lw1 = lw_new;
+        if (!diverged) T.n1 += 1.f;
+      } else {
+        const bool valid = T.u_slice <= -H;  // NUTS.jl:91
+        const float nf = T.n1 + (valid ? 1.f : 0.f);
+        take = valid && u_leaf * nf < 1.f;
+        T.n1 = nf;
+      }
+      if (take) {
+        S.store(kSp, wp);
+        S.store(kSg, wg);
+        T.slp = T.wlp;
+      }
+      if (diverged) {
+        T.sdv = true;
+        T.ok = false;
+      }
+      if ((T.k & 1) == 0) {  // checkpoint store at slot popcount(k)
+        const int s = __popc(T.k);
+        S.store(S.ckp(s), wp);
+        S.store(S.ckm(s, a.md), wm);
+      } else {  // spans ending at odd k: slots popc(k >> 1) -
+                // trailing_ones(k) + 1 .. popc(k >> 1) (NUTS.jl:50)
+        const int hi = __popc(T.k >> 1);
+        for (int s = hi - (__ffs(~T.k) - 1) + 1; s <= hi; ++s) {
+          float cp[kWideRegs], cm[kWideRegs], da[kWideRegs], db[kWideRegs];
+          S.load(S.ckp(s), cp);
+          S.load(S.ckm(s, a.md), cm);
+#pragma unroll
+          for (int i = 0; i < kWideRegs; ++i) {
+            const float dl = T.dirn * (wp[i] - cp[i]);
+            da[i] = dl * cm[i];
+            db[i] = dl * wm[i];
+          }
+          if (wide_chain_sum(w, da) < 0.f || wide_chain_sum(w, db) < 0.f)
+            T.ok = false;
+        }
+      }
+      ++T.k;
+      if (T.ok && T.k < (1 << T.j)) continue;
+
+      // the doubling ends: the walker's end is the new edge, then the outer
+      // merge (NUTS.jl:160; biased progressive for multinomial)
+      const bool plus = T.dirn > 0.f;
+      S.store(plus ? kEp1 : kEp0, wp);
+      S.store(plus ? kEm1 : kEm0, wm);
+      S.store(plus ? kEg1 : kEg0, wg);
+      (plus ? T.elp1 : T.elp0) = T.wlp;
+      const float u = merge_u<MS>(a, c, T.t, T.j);
+      bool merge;
+      if (a.multinomial) {
+        merge = T.ok && logf(u) < T.lw1 - T.lwtot;
+        if (T.ok) T.lwtot = logaddexp(T.lwtot, T.lw1);
+      } else {
+        merge = T.ok && u * T.ntot < T.n1;
+      }
+      if (merge) {
+        S.copy(kTh, kSp);
+        S.copy(kG, kSg);
+        T.lp = T.slp;
+      }
+      T.ntot += T.n1;
+      // overall u-turn between the extreme states (NUTS.jl:165); the walker
+      // is the edge it just wrote
+      float op[kWideRegs], om[kWideRegs], ua[kWideRegs], ub[kWideRegs];
+      S.load(plus ? kEp0 : kEp1, op);
+      S.load(plus ? kEm0 : kEm1, om);
+#pragma unroll
+      for (int i = 0; i < kWideRegs; ++i) {
+        const float dp = plus ? wp[i] - op[i] : op[i] - wp[i];
+        ua[i] = dp * (plus ? om[i] : wm[i]);
+        ub[i] = dp * (plus ? wm[i] : om[i]);
+      }
+      const bool turned =
+          wide_chain_sum(w, ua) < 0.f || wide_chain_sum(w, ub) < 0.f;
+      T.nd += 1;
+      T.dv = T.dv || T.sdv;
+      ++T.j;
+      if (T.ok && !turned && T.j < a.md) {
+        wide_begin_doubling<MS>(T, a, S, c, wp, wm, wg);
+        continue;
+      }
+      T.run = false;
+      if (!MS) continue;
+
+      // kernel 9: the tree ended; write its transition's rows and, while
+      // transitions remain, start the next one at once.  The transition
+      // started where the last one's row (or th_in) stands.
+      const size_t row = (size_t)T.t * a.C + c;
+      const float* th0 =
+          T.t ? a.r_th + (row - a.C) * p.d : a.th_in + (size_t)c * p.d;
+      float th[kWideRegs];
+      S.load(kTh, th);
+      bool moved = false;
+#pragma unroll
+      for (int i = 0; i < kWideRegs; ++i) {
+        const int j = lane + 32 * i;
+        if (j < p.d) moved = moved || th[i] != th0[j];
+      }
+      moved = __any_sync(0xffffffffu, moved);
+      wide_store(a.r_th, th, row, p.d);
+      S.load(kG, th);
+      wide_store(a.r_g, th, row, p.d);
+      if (lane == 0) {
+        a.r_lp[row] = T.lp;
+        a.r_acc[row] = moved ? 1 : 0;
+        a.r_nd[row] = T.nd;
+        a.r_div[row] = T.dv ? 1 : 0;
+      }
+      if (++T.t < a.k_trans) {
+        float m[kWideRegs];
+        const float logu = wide_draw(a, p.d, c, T.t, m);
+        wide_start_tree<MS>(T, a, w, S, c, m, logu, wp, wm, wg);
+        T.run = true;
+      }
+    }
+
+    if (real) {
+      S.load(kTh, wp);
+      wide_store(a.th_out, wp, c, p.d);
+      S.load(kG, wg);
+      wide_store(a.g_out, wg, c, p.d);
+      if (lane == 0) {
+        a.lp_out[c] = T.lp;
+        if (!MS) {
+          a.nd_out[c] = T.nd;
+          a.div_out[c] = T.dv ? 1 : 0;
+        }
+      }
+    }
+    // the tile queue, as nuts_tile_kernel takes it
+    if (threadIdx.x == 0) {
+      const int ticket = atomicAdd(a.queue, 1);
+      if (ticket == tiles - 1) *a.queue = 0;
+      next_tile = gridDim.x + ticket;
+    }
+    __syncthreads();
+    tile = next_tile;
+  }
+}
+
 // ---- host side -------------------------------------------------------------
 
-// Parameter bound of the NUTS kernels: the narrow tile's (d <= 32).  The
-// two checkpoint stacks take 2 md 16 D floats of shared memory, 327 KB at
-// md 10 and D 256, so the wide tile needs them moved elsewhere first.
-int nuts_bound_for(int d) { return d <= kNarrowMax ? tile_bound_for(d) : 0; }
+// Parameter bound of the NUTS kernels: the tile's (glm_tile.cuh), the
+// narrow tile up to d 32, the wide one up to kWideMax.
+int nuts_bound_for(int d) { return tile_bound_for(d); }
 
-// The shared-memory plan of nuts_tile_kernel: traj_grad's, with the two
-// checkpoint stacks of md slots as the kernel's own.
+// The shared-memory plan at (D, N, md): on the narrow tile traj_grad's,
+// with the two checkpoint stacks of md slots as the kernel's own; on the
+// wide tile wide_plan's (the stacks live in the scratch buffer).
 TrajPlan nuts_plan(int D, int N, int md) {
+  if (D > kNarrowMax) return wide_plan(D, N);
   return traj_plan(D, N, 2 * sizeof(float) * (size_t)md * kTileChains * D);
 }
 
@@ -443,35 +820,66 @@ bool nuts_args_ok(int d, int N, int kind, const NutsArgs& a) {
          a.md >= 1 && a.md <= kMaxDoublings && a.k_trans >= 1;
 }
 
-// Launch nuts_tile_kernel<D, MS>: persistent blocks, as many as fit at once.
+template <bool MS>
+using NutsKernel = void (*)(Glm, NutsArgs);
+
+// The kernel at bound D: the narrow tile's instantiation for D <= 32, the
+// wide tile's above (D a run-time value there).
+template <bool MS>
+NutsKernel<MS> nuts_kernel_for(int D) {
+  switch (D) {
+    case 8: return nuts_tile_kernel<8, MS>;
+    case 16: return nuts_tile_kernel<16, MS>;
+    case 32: return nuts_tile_kernel<32, MS>;
+    default: return nuts_wide_kernel<MS>;
+  }
+}
+
+// Blocks resident per SM of the kernel at (D, N, md) and its plan.
+template <bool MS>
+cudaError_t nuts_occupancy(int D, const TrajPlan& tp, int* per_sm) {
+  const NutsKernel<MS> kernel = nuts_kernel_for<MS>(D);
+  cudaError_t e = prepare(kernel, tp.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      kTrajThreads, tp.smem);
+  return e;
+}
+
+cudaError_t sm_count(int* sms) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+// Launch the kernel of bound D: persistent blocks, as many as fit at once
+// (and, on the wide tile, as many as the scratch buffer of scratch_bytes
+// holds slices for).
 template <bool MS>
 int launch_nuts(const float* xt, const float* y, const float* w,
                 const float* o, const float* lamv, const float* lamm, int N,
-                int d, int kind, float lam, const NutsArgs& a, void* stream) {
+                int d, int kind, float lam, const NutsArgs& a,
+                long long scratch_bytes, void* stream) {
   if (!nuts_args_ok(d, N, kind, a)) return (int)cudaErrorInvalidValue;
   const int D = nuts_bound_for(d);
   const TrajPlan tp = nuts_plan(D, N, a.md);
+  if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
               tp.resident};
   const int tiles = (a.C + kTileChains - 1) / kTileChains;
-  int dev, sms, per_sm;
-  cudaError_t e0 = cudaGetDevice(&dev);
-  if (e0 == cudaSuccess)
-    e0 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e0 != cudaSuccess) return (int)e0;
-  cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(DD)                                                          \
-  {                                                                         \
-    cudaError_t e = prepare(nuts_tile_kernel<DD, MS>, tp.smem);             \
-    if (e == cudaSuccess)                                                   \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
-          &per_sm, nuts_tile_kernel<DD, MS>, kTrajThreads, tp.smem);        \
-    if (e != cudaSuccess) return (int)e;                                    \
-    const int blocks = min(tiles, sms * max(per_sm, 1));                    \
-    nuts_tile_kernel<DD, MS><<<blocks, kTrajThreads, tp.smem, st>>>(p, a);  \
-  }
-  TILE_DISPATCH(D, LAUNCH)
-#undef LAUNCH
+  int sms, per_sm;
+  cudaError_t e = sm_count(&sms);
+  if (e == cudaSuccess) e = nuts_occupancy<MS>(D, tp, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = min(tiles, sms * max(per_sm, 1));
+  if (D > kNarrowMax &&
+      (!a.scratch || (size_t)scratch_bytes <
+                         blocks * wide_scratch_per_block(D, a.md)))
+    return (int)cudaErrorInvalidValue;
+  nuts_kernel_for<MS>(D)<<<blocks, kTrajThreads, tp.smem,
+                           (cudaStream_t)stream>>>(p, a);
   return (int)cudaGetLastError();
 }
 
@@ -481,7 +889,7 @@ extern "C" {
 
 int nuts_max_doublings() { return kMaxDoublings; }
 
-int nuts_max_dim() { return kNarrowMax; }
+int nuts_max_dim() { return kWideMax; }
 
 const char* nuts_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -496,7 +904,8 @@ int glm_nuts_transition(const float* xt, const float* y, const float* w,
                         const float* leaf, float* th_out, float* g_out,
                         float* lp_out, int* nd_out, unsigned char* div_out,
                         float eps, float lam, int md, int kind,
-                        int multinomial, int* queue, void* stream) {
+                        int multinomial, int* queue, float* scratch,
+                        long long scratch_bytes, void* stream) {
   NutsArgs a{};
   a.C = C;
   a.md = md;
@@ -517,8 +926,9 @@ int glm_nuts_transition(const float* xt, const float* y, const float* w,
   a.nd_out = nd_out;
   a.div_out = div_out;
   a.queue = queue;
+  a.scratch = scratch;
   return launch_nuts<false>(xt, y, w, o, lamv, lamm, N, d, kind, lam, a,
-                            stream);
+                            scratch_bytes, stream);
 }
 
 int glm_nuts_multistep(const float* xt, const float* y, const float* w,
@@ -530,6 +940,7 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
                        unsigned char* r_acc, int* r_nd, unsigned char* r_div,
                        float eps, float lam, int md, int kind, int multinomial,
                        int k_trans, unsigned long long seed, int* queue,
+                       float* scratch, long long scratch_bytes,
                        void* stream) {
   NutsArgs a{};
   a.C = C;
@@ -551,32 +962,34 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
   a.r_nd = r_nd;
   a.r_div = r_div;
   a.queue = queue;
+  a.scratch = scratch;
   return launch_nuts<true>(xt, y, w, o, lamv, lamm, N, d, kind, lam, a,
-                           stream);
+                           scratch_bytes, stream);
 }
 
-// How nuts_tile_kernel runs at (d, N, md): blocks resident per SM (from
-// the occupancy calculator), dynamic shared memory per block, and whether
-// all rows stay resident.  Returns a CUDA error code.
+// How the kernels run at (d, N, md): blocks of kernel 8 resident per SM
+// (from the occupancy calculator), dynamic shared memory per block, whether
+// all rows stay resident, and the bytes of scratch a launch of either
+// kernel needs on this device at most (0 on the narrow tile).  Returns a
+// CUDA error code.
 int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
-                  int* resident) {
+                  int* resident, long long* scratch_bytes) {
   const int D = nuts_bound_for(d);
   if (!D || N < 1 || md < 1 || md > kMaxDoublings)
     return (int)cudaErrorInvalidValue;
   const TrajPlan tp = nuts_plan(D, N, md);
+  if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   *smem = (int)tp.smem;
   *resident = tp.resident ? 1 : 0;
-#define PLAN(DD)                                                            \
-  {                                                                         \
-    cudaError_t e = prepare(nuts_tile_kernel<DD, false>, tp.smem);          \
-    if (e == cudaSuccess)                                                   \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
-          blocks_per_sm, nuts_tile_kernel<DD, false>, kTrajThreads,         \
-          tp.smem);                                                         \
-    if (e != cudaSuccess) return (int)e;                                    \
-  }
-  TILE_DISPATCH(D, PLAN)
-#undef PLAN
+  int sms, per_ms;
+  cudaError_t e = sm_count(&sms);
+  if (e == cudaSuccess) e = nuts_occupancy<false>(D, tp, blocks_per_sm);
+  if (e == cudaSuccess) e = nuts_occupancy<true>(D, tp, &per_ms);
+  if (e != cudaSuccess) return (int)e;
+  *scratch_bytes =
+      D > kNarrowMax ? (long long)sms * max(max(*blocks_per_sm, per_ms), 1) *
+                           (long long)wide_scratch_per_block(D, md)
+                     : 0;
   return 0;
 }
 

@@ -2,9 +2,10 @@
 // kernels (glm_hmc.cu: trajectory, step, multistep and the Halton
 // multistep rows), the N-tiled kernel
 // (glm_bign.cu partial_tile_kernel) and the two NUTS kernels (glm_nuts.cu
-// nuts_tile_kernel).  traj_grad is one gradient of a tile's 16 chains with
-// the rows split over 16 warps: the HMC kernels take one per drift, the
-// NUTS kernels one per leaf.  After it come the per-chain helpers of those
+// nuts_tile_kernel; above d 32 nuts_wide_kernel on the wide tile).
+// traj_grad is one gradient of a tile's 16 chains with the rows split over
+// 16 warps: the HMC kernels take one per drift, the NUTS kernels one per
+// leaf.  After it come the per-chain helpers of those
 // kernels: a chain's sum over its lanes and its Philox draws.
 //
 // For a tile of 16 chains (one warp) and a group of 8 observation rows it

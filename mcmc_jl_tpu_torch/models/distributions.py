@@ -29,8 +29,8 @@ the folded normalizer, which the custom-target CUDA kernels evaluate
 such distributions over the coordinates, with their rows.
 
 The cdfs of ``Beta``, ``TDist`` and ``Binomial`` need the regularized
-incomplete beta function, which torch lacks: they raise (ROADMAP queue 1
-item 2).
+incomplete beta function, which torch lacks: they raise (ROADMAP: the
+Beta, TDist and Binomial cdfs).
 """
 from __future__ import annotations
 
@@ -174,7 +174,7 @@ class Distribution:
 def _betainc_missing(name):
     raise NotImplementedError(
         f"{name} needs the regularized incomplete beta function, which torch "
-        f"lacks (ROADMAP queue 1 item 2)")
+        f"lacks (ROADMAP: the Beta, TDist and Binomial cdfs)")
 
 
 @distribution

@@ -17,8 +17,8 @@ Ported modes: callable (``f`` with ``grad=``, or
 ``gradient=True`` through ``torch.func``), ``glm=`` (logistic, linear,
 poisson or probit link, or a custom ``(ll, resid)`` pair; weights, offsets
 and a scalar prior precision) and the ``~`` DSL (named parameters, 1-based
-offsets, matrices column-major).  ``tensor``/``dtensor`` are ROADMAP queue
-1 item 3.
+offsets, matrices column-major).  ``tensor``/``dtensor`` are the ROADMAP
+item "tensor=/dtensor= models".
 
 Out-of-support semantics: the log-target is sanitized to ``-inf`` (NaN ->
 -inf) and the gradient to zero whenever the log-target is not finite
@@ -379,7 +379,8 @@ def model(
         raise ValueError(f"unsupported model type {mtype!r}")
     if tensor is not None or dtensor is not None:
         raise NotImplementedError(
-            "tensor/dtensor models are not ported yet (ROADMAP queue 1 item 3)")
+            "tensor/dtensor models are not ported yet (ROADMAP: "
+            "tensor=/dtensor= models)")
 
     dtype = dtype or real_dtype()
     dev = resolve_device(device)

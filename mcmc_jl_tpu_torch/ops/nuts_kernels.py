@@ -35,12 +35,15 @@ uniforms are (C, 2^maxdoublings), column ``(1 << j) - 1 + k`` for leaf k of
 doubling j.  The GLM prior precision is a scalar, a (d,) row (the diagonal
 metric fold of the warm-start pipeline) or a symmetric (d, d) matrix (the
 dense fold; such launches count as ``<name>_mat``).  The GLM kernels take
-d up to ``glm_kernels.NARROW_D_MAX`` (32): their tree checkpoints live in
-shared memory, which the wide tile's widths outgrow.  On a catalog target the
-frozen diagonal metric rides the step instead, as a (d,) row ``eps * s``.  The
-drivers :func:`_nuts_run`, :func:`_nuts_run_hw` and :func:`_nuts_target_run`
-return the NUTS info protocol (``ppars``, ``pgrads``, ``plogtarget``,
-``accept``, ``epsilon``, ``ndoublings``, ``diverging``).
+d up to ``glm_kernels.D_MAX``: on the narrow tile up to ``NARROW_D_MAX``,
+above it on the wide tile, whose launches count as ``<name>_wide`` (and
+``<name>_mat_wide``) and keep the tree's state in a scratch buffer that
+:func:`_scratch` allocates once for each device, stream, width and depth.
+On a catalog target the frozen diagonal metric rides the step instead, as a
+(d,) row ``eps * s``.  The drivers :func:`_nuts_run`, :func:`_nuts_run_hw`
+and :func:`_nuts_target_run` return the NUTS info protocol (``ppars``,
+``pgrads``, ``plogtarget``, ``accept``, ``epsilon``, ``ndoublings``,
+``diverging``).
 
 Not ported: ``nuts_target_kernel_supported`` (a compile probe: the route
 decides up front) and data-bearing targets (``consts``), which run on the
@@ -56,9 +59,10 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, NARROW_D_MAX, SLICE_DRAW, _check,
-                          _counted, _device_branch, _prior, _prior_args, _ptr,
-                          _row, glm_funcs, glm_multistep_draws)
+from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
+                          _check, _counted, _device_branch, _prior,
+                          _prior_args, _ptr, _row, glm_funcs,
+                          glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
                              load_library, target_funcs)
@@ -79,8 +83,9 @@ DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x100, 0x200, 0x10000
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition")
-LAUNCHES = dict.fromkeys(_NAMES + ("glm_nuts_transition_mat",
-                                    "glm_nuts_multistep_mat"), 0)
+_GLM = ("glm_nuts_transition", "glm_nuts_multistep")
+LAUNCHES = dict.fromkeys(_NAMES + tuple(n + v for n in _GLM for v in (
+    "_mat", "_wide", "_mat_wide")), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -300,12 +305,14 @@ def glm_nuts_multistep_ref(XT, Y, theta, lp, grad, eps, generator, *,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _ARGTYPES = {
     "glm_nuts_transition": [_P] * 6 + [_I] * 3 + [_P] * 13
-    + [_F, _F, _I, _I, _I, _P, _P],
+    + [_F, _F, _I, _I, _I, _P, _P, _LL, _P],
     "glm_nuts_multistep": [_P] * 6 + [_I] * 3 + [_P] * 12
-    + [_F, _F, _I, _I, _I, _I, ctypes.c_ulonglong, _P, _P],
-    "glm_nuts_plan": [_I, _I, _I] + [ctypes.POINTER(_I)] * 3,
+    + [_F, _F, _I, _I, _I, _I, ctypes.c_ulonglong, _P, _P, _LL, _P],
+    "glm_nuts_plan": [_I, _I, _I] + [ctypes.POINTER(_I)] * 3
+    + [ctypes.POINTER(_LL)],
 }
 
 
@@ -324,21 +331,21 @@ def load_kernels():
         lib.nuts_max_doublings.restype = ctypes.c_int
         lib.nuts_max_dim.restype = ctypes.c_int
         if (lib.nuts_max_doublings() != MAX_DOUBLINGS
-                or lib.nuts_max_dim() != NARROW_D_MAX):
+                or lib.nuts_max_dim() != D_MAX):
             raise RuntimeError("csrc/glm_nuts.cu and nuts_kernels disagree "
-                               "on MAX_DOUBLINGS or NARROW_D_MAX")
+                               "on MAX_DOUBLINGS or glm_kernels.D_MAX")
         lib._bound = True
     return lib
 
 
-def _launch(name, lamm, *args):
+def _launch(name, lamm, d, *args):
     lib = load_kernels()
     code = getattr(lib, name)(*args,
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.nuts_error_string(code).decode()} ({code})")
-    LAUNCHES[_counted(name, lamm)] += 1
+    LAUNCHES[_counted(name, lamm, d)] += 1
 
 
 _QUEUES = {}
@@ -354,17 +361,39 @@ def _queue(dev):
     return _QUEUES[key]
 
 
+_SCRATCH = {}
+
+
+def _scratch(dev, d, N, md):
+    """(buffer, bytes) of the wide tile's tree state on ``dev``'s current
+    stream: one float32 buffer for each (device, stream, D, md), allocated
+    once and grown when a plan needs more (the kernel checks its size).
+    (None, 0) on the narrow tile, which keeps the tree in shared memory."""
+    if d <= NARROW_D_MAX:
+        return None, 0
+    need = nuts_plan(d, N, md)["scratch_bytes"]
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, (d + 31) // 32,
+           md)
+    buf = _SCRATCH.get(key)
+    if buf is None or 4 * buf.numel() < need:
+        buf = _SCRATCH[key] = torch.empty(-(-need // 4), dtype=torch.float32,
+                                          device=dev)
+    return buf, 4 * buf.numel()
+
+
 def nuts_plan(d, N, maxdoublings):
     """How the NUTS kernels run at (d, N, maxdoublings) on the card:
-    {"blocks_per_sm", "smem_bytes", "resident"} (resident: every row stays
-    in shared memory)."""
-    outs = [ctypes.c_int() for _ in range(3)]
+    {"blocks_per_sm", "smem_bytes", "resident", "scratch_bytes"} (resident:
+    every row stays in shared memory; scratch_bytes: the wide tile's tree
+    state for as many blocks as a launch runs at once, 0 on the narrow
+    tile)."""
+    outs = [ctypes.c_int() for _ in range(3)] + [_LL()]
     code = load_kernels().glm_nuts_plan(d, N, _check_md(maxdoublings),
                                         *[ctypes.byref(o) for o in outs])
     if code != 0:
         raise RuntimeError(f"glm_nuts_plan failed ({code})")
-    return dict(zip(("blocks_per_sm", "smem_bytes", "resident"),
-                    (o.value for o in outs)))
+    return dict(zip(("blocks_per_sm", "smem_bytes", "resident",
+                     "scratch_bytes"), (o.value for o in outs)))
 
 
 def _check_noise(name, C, md, dev, **bufs):
@@ -400,7 +429,7 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     lp, logu = lp.reshape(-1), logu.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad, "m0": m0},
-                           {"lp": lp, "logu": logu}, d_max=NARROW_D_MAX)
+                           {"lp": lp, "logu": logu})
     _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
                  leaf_u=leaf_u)
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
@@ -409,12 +438,14 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     nd_o = torch.empty(C, dtype=torch.int32, device=theta.device)
     dv_o = torch.empty(C, dtype=torch.bool, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch(name, lamm, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
-                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp), _ptr(grad), _ptr(m0),
-                _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
-                _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
-                float(eps), lam, md, KIND_CODES[kind], int(multinomial),
-                _ptr(_queue(theta.device)))
+        scratch, nbytes = _scratch(theta.device, d, N, md)
+        _launch(name, lamm, d, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
+                _ptr(grad), _ptr(m0), _ptr(logu), _ptr(dirn), _ptr(merge_u),
+                _ptr(leaf_u), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o),
+                _ptr(dv_o), float(eps), lam, md, KIND_CODES[kind],
+                int(multinomial), _ptr(_queue(theta.device)), _ptr(scratch),
+                nbytes)
     return th_o, g_o, lp_o, nd_o, dv_o
 
 
@@ -520,8 +551,7 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
         raise ValueError(f"{name}: k_trans must be >= 1, got {k_trans}")
     lp = lp.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
-                           {"theta": theta, "grad": grad}, {"lp": lp},
-                           d_max=NARROW_D_MAX)
+                           {"theta": theta, "grad": grad}, {"lp": lp})
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     dev = theta.device
@@ -534,13 +564,14 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     r_nd = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
     r_dv = torch.empty((k_trans, C), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        _launch(name, lamm, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+        scratch, nbytes = _scratch(dev, d, N, md)
+        _launch(name, lamm, d, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
                 _ptr(grad), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(r_th),
                 _ptr(r_g), _ptr(r_lp), _ptr(r_acc), _ptr(r_nd), _ptr(r_dv),
                 float(eps), lam, md,
                 KIND_CODES[kind], int(multinomial), int(k_trans), int(seed),
-                _ptr(_queue(dev)))
+                _ptr(_queue(dev)), _ptr(scratch), nbytes)
     return th_o, g_o, lp_o, _rows(r_th, r_g, r_lp, r_acc, r_nd, r_dv)
 
 

@@ -50,7 +50,7 @@ wrapper's checks.
 
 Not ported: ``lifted_model_block`` (data-bearing targets run generic),
 ``target_kernel_supported`` (no compile probe: the route decides up front)
-and ``run_target_hmc_sharded`` (ROADMAP queue 1 item 15).
+and ``run_target_hmc_sharded`` (ROADMAP: the distributed drivers).
 """
 from __future__ import annotations
 

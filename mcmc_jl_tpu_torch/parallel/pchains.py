@@ -4,8 +4,8 @@ Replaces the reference's distributed backend — Julia ``pmap`` of whole
 chains over worker processes (reference: src/runners/runners.jl:35-42) —
 with chains on a leading tensor dimension, advanced together by one Python
 loop of batched tensor ops on one device.  Chains are independent, so the
-batch is embarrassingly parallel.  Multi-GPU meshes are ROADMAP queue 1
-item 15.
+batch is embarrassingly parallel.  Multi-GPU meshes are the ROADMAP item
+"the distributed drivers".
 
 ``run_chains`` is the engine (returns stacked tensors, kept on the device);
 ``prun_serialmc`` adapts it to the reference's ``prun`` surface (a list of
@@ -131,12 +131,13 @@ def _target_eligible(task):
 
 
 def _kernel_shape_ok(model, route, sampler):
-    """What the ported kernels take on ``route``: on a GLM a built-in link,
-    d <= D_MAX on the "hmc" and "warm" routes (kernels 1-4), d <=
-    NARROW_D_MAX and N <= BIGN_THRESHOLD for exact NUTS (kernels 8 and 9);
-    on a catalog target d <= the target kernels' D_MAX; for exact NUTS
-    maxdoublings <= MAX_DOUBLINGS.  None when they do, else the reason."""
-    from ..ops.glm_kernels import D_MAX, KIND_CODES, NARROW_D_MAX
+    """What the ported kernels take on ``route``: on a GLM a built-in link
+    and d <= D_MAX on every route (kernels 1-4, 8 and 9: the narrow tile up
+    to NARROW_D_MAX, the wide tile above), and N <= BIGN_THRESHOLD for
+    exact NUTS; on a catalog target d <= the target kernels' D_MAX; for
+    exact NUTS maxdoublings <= MAX_DOUBLINGS.  None when they do, else the
+    reason."""
+    from ..ops.glm_kernels import D_MAX, KIND_CODES
     from ..ops.nuts_kernels import MAX_DOUBLINGS
 
     if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
@@ -159,9 +160,6 @@ def _kernel_shape_ok(model, route, sampler):
         return (f"exact NUTS at N = {N} > {glm_bign.BIGN_THRESHOLD} needs a "
                 f"large-N NUTS route, not ported yet (ROADMAP: exact NUTS "
                 f"above BIGN_THRESHOLD)")
-    if route == "nuts" and d > NARROW_D_MAX:
-        return (f"d = {d} > {NARROW_D_MAX}, the exact-NUTS kernels' bound "
-                f"(ROADMAP: exact NUTS on GLMs wider than 32 parameters)")
     if d > D_MAX:
         return (f"d = {d} > {D_MAX}, the GLM kernels' bound (ROADMAP: GLMs "
                 f"wider than {D_MAX} parameters)")

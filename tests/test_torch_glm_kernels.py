@@ -318,8 +318,8 @@ def test_wrapper_refuses_other_devices():
 def test_kernel_input_checks(bad):
     """What the CUDA wrappers refuse, checked before any launch: a state
     that is not (C, d) would make the kernel read past its end; d past the
-    kernel's bound (256 for kernels 1-4, whose wide tile takes d 33 to 256;
-    32 for the exact-NUTS kernels) has no instantiation."""
+    kernel's bound (256 for kernels 1-4, 8 and 9, whose wide tile takes d
+    33 to 256) has no instantiation."""
     N, d, C = 20, 3, 4
     XT, Y = torch.zeros(d, N), torch.zeros(N)
     th, m, lp = torch.zeros(C, d), torch.zeros(C, d), torch.zeros(C)
@@ -338,11 +338,14 @@ def test_kernel_input_checks(bad):
                    "m0": torch.zeros(C, gk.D_MAX)}, {"lp": lp})
         XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
         m = torch.zeros(C, gk.D_MAX + 1)
-    elif bad == "nuts_wide":  # the HMC kernels take d 33, NUTS does not
-        XT, th, m = torch.zeros(33, N), torch.zeros(C, 33), torch.zeros(C, 33)
-        gk._check(name, XT, Y, None, None, kind, {"theta": th, "m0": m},
-                  {"lp": lp})
-        name, d_max = "glm_nuts_transition", nk.NARROW_D_MAX
+    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33, refuses 257
+        name = "glm_nuts_transition"
+        for dd in (33, gk.D_MAX):
+            gk._check(name, torch.zeros(dd, N), Y, None, None, kind,
+                      {"theta": torch.zeros(C, dd), "m0": torch.zeros(C, dd)},
+                      {"lp": lp})
+        XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
+        m = torch.zeros(C, gk.D_MAX + 1)
     elif bad == "link":
         kind = (lambda z, y: z, lambda z, y: y)
     elif bad == "shape":

@@ -202,14 +202,20 @@ def test_wrappers_check_what_the_kernels_take():
                         maxdoublings=3)
 
 
-@pytest.mark.parametrize("d, md, i0", [(3, 4, 0), (4, 2, 5)])
+@pytest.mark.parametrize("d, md, i0", [(3, 4, 0), (4, 2, 5), (256, 10, 0)])
 def test_multistep_draws_follow_the_kernel_counters(d, md, i0):
     """glm_nuts_multistep_draws lays out the multistep kernel's Philox
     draws as draw_noise does, one set per transition, each at its counter
     (chain, transition, draw) as csrc/glm_nuts.cu forms it: momenta two
     normals a draw at draw j // 2, the slice's log-uniform at 0xFFFFFFFF,
     doubling j's direction (u < 0.5 -> -1) and merge uniform at 0x100 + j
-    and 0x200 + j, leaf l's at 0x10000 + l; uniforms are 1 - U[0, 1)."""
+    and 0x200 + j, leaf l's at 0x10000 + l; uniforms are 1 - U[0, 1).  At
+    d 256 and md 10 (the wide kernel's bounds) the momenta's draw numbers
+    stay below the directions' and the five ranges are disjoint."""
+    assert (d - 1) // 2 < nk.DIR_DRAW
+    assert nk.DIR_DRAW + md <= nk.MERGE_DRAW
+    assert nk.MERGE_DRAW + md <= nk.LEAF_DRAW
+    assert nk.LEAF_DRAW + (1 << md) <= nk.SLICE_DRAW
     from mcmc_jl_tpu_torch.ops import philox
 
     seed, Cs, k = 0x1234_5678_9ABC, 5, 3

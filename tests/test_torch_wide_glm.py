@@ -393,27 +393,24 @@ def test_wide_adaptive_hmc_takes_warm_and_resumes_fused(monkeypatch):
 
 
 def test_wide_routes_and_reasons(caplog):
-    """NUTS at d 40 takes the generic engine with the reason naming the
-    item that lifts it, for a run and for a continuation; HMC at d 256
-    still takes the kernels, at d 257 the generic engine with its own
-    reason."""
-    m = _wide_model()
+    """NUTS at d 40 and 256 takes the exact-NUTS kernels ("nuts") for a run
+    and for a continuation, HMC at d 256 the HMC kernels; at d 257 both
+    take the generic engine with the reason naming the item that lifts
+    it, the continuation too."""
     runner = mt.SerialMC(steps=60, burnin=20)
-    with caplog.at_level(logging.INFO):
-        assert pchains._route(MCMCTask(m, mt.NUTS(), runner), True) is False
-        assert pchains.continuation_route(m, mt.NUTS(), 4, True) is False
-    want = ("d = 40 > 32, the exact-NUTS kernels' bound (ROADMAP: exact NUTS "
-            "on GLMs wider than 32 parameters)")
-    assert sum(want in r.getMessage() for r in caplog.records) == 2
-    for d, route in ((256, "hmc"), (257, False)):
+    want = "the GLM kernels' bound (ROADMAP: GLMs wider than 256 parameters)"
+    for d, hmc, nuts in ((40, "hmc", "nuts"), (256, "hmc", "nuts"),
+                         (257, False, False)):
         mw = _wide_model(n=40, d=d, seed=d)
         caplog.clear()
         with caplog.at_level(logging.INFO):
             got = pchains._route(MCMCTask(mw, mt.HMC(5, 0.1), runner), True)
-        assert got == route
-        if not route:
-            assert any("the GLM kernels' bound (ROADMAP: GLMs wider than 256"
-                       in r.getMessage() for r in caplog.records)
+            assert got == hmc
+            got = pchains._route(MCMCTask(mw, mt.NUTS(), runner), True)
+            assert got == nuts
+            assert pchains.continuation_route(mw, mt.NUTS(), 4, True) == nuts
+        said = sum(want in r.getMessage() for r in caplog.records)
+        assert said == (0 if nuts else 3)
 
 
 # ---- one whole path from the JAX package's states ---------------------------
