@@ -44,10 +44,17 @@ against their plain versions at d 33, 64, 150 and 256
 (``phase_wide_nuts_kernels``), and the d 150 model drives ``NUTS(6)``
 with the unit, diagonal and dense metrics and two resumes, each held
 against the generic engine; NUTS at d 257 takes the generic engine with
-its reason (``phase_wide_nuts_paths``).  Then
-``resume(chains, steps=S)`` continues the chains of seven
+its reason (``phase_wide_nuts_paths``).  The dense metric on catalog
+targets runs kernels 5 and 8b on the z-space target ``z -> target(z L')``
+(their DENSE instantiations): each is held against its plain version at d
+1-1024 (``phase_dense_target_kernels``), and dense ``NUTS(6)`` on the ten
+bare distributions and dense adaptive HMC on Gamma(3, 0.2) run through
+``run(..., chains=4096)``, held against the exact moments and the generic
+engine (``phase_dense_target_paths``).  Then
+``resume(chains, steps=S)`` continues the chains of nine
 of these runs, each as one batch through the kernels its frozen state
-takes (3b, 9, 8, 4, 5 and 8b), with the frozen hyper-parameters, ``pos``,
+takes (3b, 9, 8, 4, 5 and 8b, and 5 and 8b dense), with the frozen
+hyper-parameters, ``pos``,
 the moments and repeatability checked and the time beside a chain-by-chain
 resume; a mixed list keeps its order, and a ``save_chain``/``load_chain``
 round trip resumes bit for bit.  It also runs the HMC step
@@ -145,6 +152,14 @@ REPLACES = {
                                      "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
     "glm_nuts_multistep_mat_wide": ("glm_nuts",
                                     "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    # kernels 5 and 8b on the z-space target of a frozen dense metric (the
+    # JAX package's _dense_wrap, mcmc_jl_tpu/ops/warmstart.py:581-624, which
+    # feeds the same two Pallas kernels): the DENSE instantiations, counted
+    # apart
+    "target_leapfrogs_dense": ("target_hmc",
+                               "mcmc_jl_tpu/ops/pallas_target.py:67"),
+    "target_nuts_transition_dense": ("target_nuts",
+                                     "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
 }
 # kernel vs plain version on the same inputs: both are float32 with sums in
 # another order (sequential per chain in the kernel, blocked matmuls in the
@@ -2011,7 +2026,8 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
        tiled driver, once per drift; held against 512 generic-engine chains
        from the same start over the same transitions;
     2. adaptive ``HMC(10, 0.002, EmpMCTuner(0.8, adapt_step=50)) *
-       SerialMC(200, 50)`` at 512 chains: the warm route's sampling phase
+       SerialMC(150, 50)`` at 512 chains (``bign.py:73``'s (200, 50) cut
+       to keep the script under 600 s): the warm route's sampling phase
        through the tiled kernel; held against 512 of run 1's chains
        continued ``ref_steps`` transitions.
     Returns the tiled kernel's launches in run 1, and run 2's tasks with its
@@ -2055,11 +2071,11 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
     del ref, samples, gs, cg
 
     task = m * mt.HMC(10, 0.002, mt.EmpMCTuner(0.8, adapt_step=50)) \
-        * mt.SerialMC(steps=200, burnin=50)
+        * mt.SerialMC(steps=150, burnin=50)
     origin = _origin(m, task, chains_adaptive)
     cs, samples, launches, dt, spans = _path(
         origin, task, chains_adaptive,
-        {"glm_logp_grad_tiled": lambda n: n >= 150 + 1})
+        {"glm_logp_grad_tiled": lambda n: n >= 100 + 1})
     st = cs[0].task.state
     z = _z_means(samples.mean(1), ref_means)
     emit({"phase": "large_n_path", "kernel": "glm_logp_grad_tiled",
@@ -2264,21 +2280,28 @@ def _lp_close(a, b, d):
 
 
 def _traj_case(label, target, theta, m, eps, n_leaps=10,
-               integrator="leapfrog", want_inf=False, outs=None):
+               integrator="leapfrog", want_inf=False, outs=None,
+               repeat=False, grad=None):
     """Kernel 5 (the public wrapper) against its plain version on the same
-    inputs; ``grad`` at theta from the plain version.  The kernel's outputs
-    are appended to ``outs`` when given.  Returns (ok, report)."""
+    inputs; ``grad`` at theta from the plain version unless given.  The
+    kernel's outputs are appended to ``outs`` when given; with ``repeat`` a
+    second launch must give the same bits.  Returns (ok, report)."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
-    _, g = tk.target_funcs(target)[1](theta)
-    g = g.contiguous()
+    g = grad
+    if g is None:
+        g = tk.target_funcs(target)[1](theta)[1].contiguous()
     kw = dict(n_leaps=n_leaps, integrator=integrator)
     out_k = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
     if outs is not None:
         outs.append(out_k)
     out_r = tk.fused_target_leapfrogs_ref(target, theta, m, g, eps, **kw)
+    bitwise = None
+    if repeat:
+        again = tk.fused_target_leapfrogs(target, theta, m, g, eps, **kw)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out_k, again))
     torch.cuda.synchronize()
     d = theta.shape[1]
     rep = {n: _err(a, b) for n, a, b in zip(("theta", "m", "g"), out_k[:3],
@@ -2289,14 +2312,27 @@ def _traj_case(label, target, theta, m, eps, n_leaps=10,
     ok = (all(_close(a, b, T_RTOL, T_ATOL) for a, b in zip(out_k[:3],
                                                             out_r[:3]))
           and _lp_close(out_k[3], out_r[3], d)
-          and (not want_inf or not bool(fin.any())))
-    emit({"phase": "kernel", "name": "target_leapfrogs", "case": label,
-          "C": theta.shape[0], "d": d, "n_leaps": int(n_leaps),
-          "integrator": integrator, **_lane_plan("target_leapfrogs", d,
-                                                   theta.shape[0]),
+          and (not want_inf or not bool(fin.any())) and bitwise is not False)
+    if repeat:
+        rep["bitwise_repeat"] = bitwise
+    emit({"phase": "kernel", "name": _dense_name("target_leapfrogs", target),
+          "case": label, "C": theta.shape[0], "d": d,
+          "n_leaps": int(n_leaps),
+          "integrator": integrator, **_lane_plan(
+              _dense_name("target_leapfrogs", target), d, theta.shape[0]),
           "ok": ok, **rep})
     return ok, max([r["max_abs"] for r in rep.values()
                     if isinstance(r, dict) and r] or [0.0])
+
+
+def _dense_name(name, target):
+    """The name a kernel's launches on ``target`` count under: ``_dense``
+    added for a dense target (target_kernels.dense_name; the name alone for
+    a package without it)."""
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    fn = getattr(tk, "dense_name", None)
+    return name if fn is None else fn(name, target)
 
 
 def _same_path(k, out_k, out_r):
@@ -2976,12 +3012,15 @@ def phase_target_times(C=4096, d=10, n_leaps=10, k_trans=10,
 
 
 def _lane_plan(name, d, C):
-    """Kernel 5's, 6's or 7's launch plan at (d, C), or {} for another
-    kernel or a package without one (before the lane layout)."""
+    """Kernel 5's (and its dense instantiation's), 6's or 7's launch plan
+    at (d, C), or {} for another kernel or a package without one (before
+    the lane layout)."""
     from mcmc_jl_tpu_torch.ops import rwm_kernels as rk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
 
     fn = {"target_leapfrogs": getattr(tk, "target_leapfrogs_plan", None),
+          "target_leapfrogs_dense": lambda d, C: tk.target_leapfrogs_plan(
+              d, C, dense=True),
           "target_multistep": getattr(tk, "target_multistep_plan", None),
           "target_rwm_steps": getattr(rk, "target_rwm_plan", None)}.get(name)
     return {} if fn is None else fn(d, C)
@@ -3087,8 +3126,9 @@ def _target_nuts_case(label, target, theta, eps, seed, md=6,
           and bool(lp_ok[same].all())
           and (not full_depth or int(ndr.max()) == md)
           and (not want_div or int(dvr.sum()) > 0))
-    emit({"phase": "kernel", "name": "target_nuts_transition", "case": label,
-          "C": C, "d": d, "layout": nk.target_nuts_layout(d),
+    emit({"phase": "kernel",
+          "name": _dense_name("target_nuts_transition", target),
+          "case": label, "C": C, "d": d, "layout": nk.target_nuts_layout(d),
           "maxdoublings": md, "ok": ok,
           "chains_same_path": share, "path_differ": int(C - same.sum()),
           "bitwise_repeat": bitwise,
@@ -3199,10 +3239,11 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     every count zeroed just before it and read just after, no plain call,
     and held against the target's exact first and second moments:
 
-    - ``NUTS(maxdoublings=6) * SerialMC(1300, 300)`` and ``NUTS(6,
+    - ``NUTS(maxdoublings=6) * SerialMC(1200, 200)`` and ``NUTS(6,
       mass_adapt="diag") * SerialMC(1500, 500)`` at 4096 chains
       (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner, the
-      unit-metric run's burn-in cut to 300 to keep the script under 600 s;
+      unit-metric run's burn-in cut to 200 to keep the script under
+      600 s;
       the diagonal metric needs its 500: at 300 it missed the exact
       moments at z 6.3): 1000 launches of kernel 8b each;
     - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
@@ -3248,7 +3289,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     narrow = [j for j, (_, dist, _) in enumerate(bare)
               if float(dist.std()) <= NARROW_SD]
     runs = (
-        (mt.NUTS(maxdoublings=6), 1300, 300, chains,
+        (mt.NUTS(maxdoublings=6), 1200, 200, chains,
          "target_nuts_transition", narrow),
         (mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains,
          "target_nuts_transition", None),
@@ -3372,7 +3413,7 @@ RESUME_STEPS, RESUME_STEPS_PRIME, RESUME_STEPS_BIGN = 120, 101, 40
 RESUME_OLD_CHAINS = 1
 # ... over at most this many transitions (fewer than the path's own S, to
 # keep the script under 600 s)
-RESUME_OLD_STEPS = 20
+RESUME_OLD_STEPS = 5
 # the state fields a continuation freezes (whichever a sampler's state has)
 FROZEN_FIELDS = ("tune.step_size", "tune.n_leaps", "leap_step",
                  "dual_leap_step", "log_len", "lebar", "mass.scale")
@@ -3562,6 +3603,11 @@ def phase_resume_paths(held, hmc_means):
       (4096; phase_warm_target_paths): kernels 5 and 8b with one gradient
       pass (``sampler.reset``), S 120, held against the exact moments (NUTS
       on the coordinates of sd at most NARROW_SD, as its path is);
+    - with ``held["dense_target"]`` (phase_dense_target_paths), dense
+      ``NUTS(6)`` on the ten bare distributions and dense adaptive HMC on
+      Gamma(3, 0.2) (4096): the dense instantiations of kernels 8b and 5
+      with one gradient pass, S 120, held as their paths are, without the
+      chain-by-chain timing;
 
     then a mixed list keeps its order, and eight resumed GLM chains go
     through ``save_chain``/``load_chain`` and resume bit for bit as the live
@@ -3602,6 +3648,23 @@ def phase_resume_paths(held, hmc_means):
         if glm_resumed is None:
             glm_resumed = cs
         del cs
+    dense = held.get("dense_target")
+    if dense is not None:
+        import mcmc_jl_tpu_torch as mt
+
+        gamma = mt.Gamma(3.0, 0.2)
+        for label, tasks, want, moments in (
+                ("dense NUTS(6), ten bare distributions, kernel 8b dense",
+                 dense["nuts"], {"target_nuts_transition_dense": S,
+                                 "target_logp_grad": 1},
+                 lambda s: _bare_z(s, bare, narrow)),
+                ("dense adaptive HMC, Gamma(3, 0.2), kernel 5 dense",
+                 dense["hmc"], {"target_leapfrogs_dense": S,
+                                "target_logp_grad": 1},
+                 lambda s: _moments_z((s.mean(1), (s ** 2).mean(1)),
+                                      gamma))):
+            rows.append(_resume_path(label, tasks, S, want, moments,
+                                     by_chain=False)[1])
     _resume_mixed(held["warm"])
     _resume_checkpoint(glm_resumed, S)
     return rows
@@ -3656,7 +3719,7 @@ def _min_ess_per_s(cs, seconds):
 
 
 def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
-                      gauss_chains=4096, gauss_steps=(2100, 700)):
+                      gauss_chains=4096, gauss_steps=(1500, 500)):
     """The dense metric through ``run(..., chains=N)``: the adaptive warmup
     on the generic engine, then the pooled factor L frozen and folded into
     the design (X L, prior matrix lam L'L), the sampling phase on the
@@ -3671,9 +3734,9 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
       against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
       (9: 15 launches of 8) with _resume_path's checks;
     - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
-      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(2100, 700)``
-      (mass_metric.py's SerialMC(6000, 2000) cut to about a third to keep
-      the script under 600 s; 3b): the chains' means
+      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(1500, 500)``
+      (mass_metric.py's SerialMC(6000, 2000) cut to a quarter to keep the
+      script under 600 s; 3b): the chains' means
       held to 0 and their
       second moments (the
       variances and the rho = 0.95 covariances) to the known Sigma by |z|
@@ -4019,7 +4082,8 @@ def _target_nuts_kernel_time(target, th, eps, md, seed, plain=True):
     the same noise, their sum and largest, and the leaf steps of a warp of
     32 chains (its deepest tree's leaves, summed over the warps: what the
     lane layout runs); the bound from the leaves (TARGET_LEAP_OPS x d FP32
-    operations each) or the call's bytes, whichever takes longer; the
+    operations each, plus the z-space pass's on a dense target,
+    _dense_pass_ops) or the call's bytes, whichever takes longer; the
     plain version's time when ``plain``; the launch plan.  Returns a
     dict."""
     import torch
@@ -4045,6 +4109,7 @@ def _target_nuts_kernel_time(target, th, eps, md, seed, plain=True):
     leaves = torch.zeros(C, dtype=torch.int64, device="cuda")
     nk._transition(tk.target_funcs(target)[1], th, lp, g, tk._eps(eps, th),
                    *noise, md, False, leaves=leaves)
+    leaf_ops = TARGET_LEAP_OPS * d + _dense_pass_ops(target, d)
     warp = torch.nn.functional.pad(leaves, (0, (-C) % 32)).view(-1, 32)
     n_leaves = int(leaves.sum())
     return {"C": C, "d": d, "maxdoublings": md,
@@ -4054,9 +4119,9 @@ def _target_nuts_kernel_time(target, th, eps, md, seed, plain=True):
             "warp_leaf_steps": int(warp.amax(1).sum()),
             "ms": _event_ms(kern), "plain_ms": (_event_ms(plain_call, reps=2)
                                                 if plain else None),
-            **_bound_ops(TARGET_LEAP_OPS * d * n_leaves,
-                         _nbytes((th, lp, g, noise, target.rows(th.device)),
-                                 out)),
+            **_bound_ops(leaf_ops * n_leaves,
+                         _nbytes((th, lp, g, noise,
+                                  _target_inputs(target, th)), out)),
             "device_ms": _device_ms(kern, ("nuts_lane_kernel", "nuts_kernel")),
             "plan": _target_nuts_plan(d, C, md)}
 
@@ -4115,6 +4180,22 @@ def phase_target_nuts_times(Cs=(4096, 65536), md=6):
                   **CARD})
 
 
+def _dense_pass_ops(target, d):
+    """FP32 operations a gradient pass of a dense target adds for each
+    chain: the two triangular products theta = z L' and g_z = g_theta L,
+    d (d + 1) multiply-adds each, counted as two operations (0 for a
+    catalog target)."""
+    return 2 * d * (d + 1) if hasattr(target, "factor") else 0
+
+
+def _target_inputs(target, th):
+    """The target's inputs to a kernel on th's device: its rows, and a dense
+    target's factor (L and L')."""
+    rows = target.rows(th.device)
+    return (rows, target.factor(th.device)) if hasattr(target, "factor") \
+        else rows
+
+
 def _traj_time(label, target, th, eps, n_leaps, seed, plain=False):
     """One launch of kernel 5 on ``target`` from ``th`` (C, d), momenta
     N(0, 1) from numpy seed ``seed``: ``ms`` one call of the public wrapper
@@ -4129,20 +4210,23 @@ def _traj_time(label, target, th, eps, n_leaps, seed, plain=False):
     g = tk.target_funcs(target)[1](th)[1].contiguous()
     kern = lambda: tk.fused_target_leapfrogs(  # noqa: E731
         target, th, m0, g, eps, n_leaps=n_leaps)
+    name = _dense_name("target_leapfrogs", target)
     dev = _device_ms(kern, KERNEL_SYMBOL["target_leapfrogs"])
     r = {"target": label, "C": C, "d": d, "n_leaps": n_leaps,
          "eps": eps if isinstance(eps, float) else "(d,) row",
          "ms": _event_ms(kern), "device_ms": dev,
          "device_ns_per_chain_leapfrog": None if dev is None
          else 1e6 * dev / (C * n_leaps),
-         **_bound_ops(TARGET_LEAP_OPS * d * C * n_leaps,
-                      _nbytes((th, m0, g, target.rows(th.device)), kern())),
-         "plan": _lane_plan("target_leapfrogs", d, C),
+         **_bound_ops((TARGET_LEAP_OPS * d + _dense_pass_ops(target, d))
+                      * C * n_leaps,
+                      _nbytes((th, m0, g, _target_inputs(target, th)),
+                              kern())),
+         "plan": _lane_plan(name, d, C),
          **_lean_times(target, th, m0, g, eps, n_leaps, dev)}
     if plain:
         r["plain_ms"] = _event_ms(lambda: tk.fused_target_leapfrogs_ref(
             target, th, m0, g, eps, n_leaps=n_leaps), reps=2)
-    emit({"phase": "target_time", "name": "target_leapfrogs", **r, **CARD})
+    emit({"phase": "target_time", "name": name, **r, **CARD})
     return r
 
 
@@ -5103,9 +5187,10 @@ def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
     return counts
 
 
-def phase_wide_nuts_times(C=4096, N=1000, md=6, k_trans=5):
+def phase_wide_nuts_times(C=4096, N=1000, md=6, k_trans=5, ds=None):
     """Per-launch time of kernels 8 and 9 (k_trans 5) and their _mat forms
-    on the wide tile at d 150 (WIDE_D) and 256, N 1000, 4096 chains drawn
+    on the wide tile at each d of ``ds`` (default d 150 (WIDE_D) and 256;
+    the full run takes d 150 alone), N 1000, 4096 chains drawn
     from the Laplace approximation at the mode (the scalar prior; the
     dense fold's matrix with chains in z), at WIDE_NUTS_EPS and md 6, with
     _nuts_kernel_times' columns (events, device ms, plain version, leaves,
@@ -5116,7 +5201,7 @@ def phase_wide_nuts_times(C=4096, N=1000, md=6, k_trans=5):
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 
     ms, work = {}, {}
-    for d in (WIDE_D, gk.D_MAX):
+    for d in (WIDE_D, gk.D_MAX) if ds is None else ds:
         f = _wide_folds(N, d, C, seed=d + 31, spread=1.0)
         for prior in ("scalar", "matrix"):
             XT, Yc, th, lam = f[prior]
@@ -5174,6 +5259,324 @@ def phase_wide_nuts_path_times(chains=4096, steps=60, burnin=20, n=1000):
     return out
 
 
+# ---- the dense metric on catalog targets: kernels 5 and 8b in z-space -----
+
+# the widths the dense kernel checks take: the lane layout's (template
+# bounds 8 and 32) and the warp layout's (4 and 32 coordinates a lane, the
+# wide paths' width, the kernels' bound D_MAX)
+DENSE_TARGET_D = (1, 10, 32, 33, 150, 1024)
+# the widths the dense kernels are timed at beside the non-dense
+# instantiation and the plain version
+DENSE_TARGET_TIME_D = (10, 33, 150, 1024)
+
+
+def _dense_factor(s, seed, mix=0.3):
+    """A seeded lower-triangular Cholesky factor (float64 numpy) of the SPD
+    matrix diag(s) ((1 - mix) I + mix A A' / d) diag(s), A (d, d) standard
+    normal: the scales s, with correlations of about mix / sqrt(d) between
+    every pair of coordinates."""
+    d = len(s)
+    A = np.random.default_rng(seed).standard_normal((d, d))
+    corr = (1 - mix) * np.eye(d) + mix * (A @ A.T) / d
+    return np.linalg.cholesky(corr * np.outer(s, s))
+
+
+def _dense_mixed(dd, seed):
+    """The ten-family mixed target at dd coordinates seen through a seeded
+    dense factor of its scales (_dense_factor): (the DenseTarget on the
+    card, each coordinate's point and scale, L as float64 numpy)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.models.distributions import DenseTarget
+
+    mixed, x0, sc = _mixed_target(dd)
+    L = _dense_factor(sc, seed)
+    return DenseTarget(mixed, torch.as_tensor(L, device="cuda")), x0, sc, L
+
+
+def phase_dense_target_kernels(C=4096, ragged=4099, big_C=65_536, md=6):
+    """Kernels 5 and 8b on dense targets (their DENSE instantiations, which
+    count as target_leapfrogs_dense and target_nuts_transition_dense)
+    against their plain versions on the card: the ten-family mixed target
+    at each d of DENSE_TARGET_D (1, 10 and 32 one chain per lane; 33, 150
+    and 1024 one warp per chain) through a seeded non-identity factor
+    (_dense_mixed), C chains from z = L^-1 theta, theta each coordinate's
+    point plus 0.05 of its scale times a normal.
+
+    Kernel 5: 10 leapfrogs at the scalar step 0.02 (the lane phase's row
+    0.02 s, in theta), theta, m and g within T_RTOL and T_ATOL, lp within
+    T_LP_RTOL and T_LP_ATOL_PER_COORD a coordinate (-inf at the same
+    chains), a bitwise repeat (_traj_case); at d 10 also on the same chains
+    and gradient tiled to big_C (four warps a block where C takes D warps),
+    theta, m and g bitwise the same (the gradient is given: the plain
+    version's z @ L' rounds by the batch's size), and with the 2stage
+    integrator; at d 10 and 33 at ``ragged`` chains (a ragged last group).
+    Kernel 8b on injected noise: slice at step 0.01 at every d (trees of
+    all md doublings) and at ``ragged`` chains at d 10 and 33, multinomial
+    at 0.1 at d 10 and 150 (most trees diverge: the factor moves every
+    coordinate, and the narrow supports end them); PATH_AGREE of the
+    chains on the plain path, a bitwise repeat (_target_nuts_case).  A step row on a
+    dense target raises (d > 1).  Returns {kernel: max abs error}."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    rng = np.random.default_rng(81)
+    err5 = err8 = 0.0
+    bad = []
+
+    def note(ok, label):
+        if not ok:
+            bad.append(label)
+
+    def traj(label, target, th, m, **kw):
+        nonlocal err5
+        outs = []
+        ok, e = _traj_case(label, target, th, m, 0.02, outs=outs,
+                           repeat=True, **kw)
+        note(ok, f"kernel 5 dense {label}")
+        err5 = max(err5, e)
+        return outs[0]
+
+    def nuts(label, target, th, eps, seed, multinomial=False, **kw):
+        nonlocal err8
+        ok, e = _target_nuts_case(f"{label}, eps {eps}", target, th, eps,
+                                  seed, md=md, multinomial=multinomial, **kw)
+        note(ok, f"kernel 8b dense {label}")
+        err8 = max(err8, e)
+
+    for i, dd in enumerate(DENSE_TARGET_D):
+        target, x0, sc, L = _dense_mixed(dd, seed=dd)
+        label = f"mixed ten families through a dense factor, d = {dd}"
+        th = _cuda(_dense_start(L, x0, 0.05 * sc, C, seed=200 + i))
+        m = _cuda(rng.standard_normal((C, dd)))
+        g = tk.target_funcs(target)[1](th)[1].contiguous()
+        out = traj(f"{label}, C {C}", target, th, m, grad=g)
+        nuts(f"{label}, C {C}, slice", target, th, 0.01, 210 + i,
+             full_depth=True)
+        if dd in (10, 150):
+            nuts(f"{label}, C {C}, multinomial", target, th, 0.1, 220 + i,
+                 multinomial=True, want_div=True)
+        if dd == 10:
+            reps = big_C // C
+            tiled = traj(f"{label}, C {big_C}", target, th.repeat(reps, 1),
+                         m.repeat(reps, 1), grad=g.repeat(reps, 1))
+            ws = [tk.target_leapfrogs_plan(dd, c, dense=True)["warps"]
+                  for c in (C, big_C)]
+            same = all(torch.equal(a[:C], b)
+                       for a, b in zip(tiled[:3], out[:3]))
+            ok = same and ws[0] != ws[1]
+            emit({"phase": "kernel", "name": "target_leapfrogs_dense",
+                  "case": f"{label}: theta, m, g bitwise at C {C} and "
+                          f"{big_C}", "warps": ws, "bitwise": same,
+                  "ok": ok})
+            note(ok, f"kernel 5 dense d {dd}: W {ws} bitwise")
+            traj(f"{label}, C {C}, 2stage", target, th, m, n_leaps=7,
+                 integrator="2stage")
+        if dd in (10, 33):
+            thr = _cuda(_dense_start(L, x0, 0.05 * sc, ragged, seed=230 + i))
+            traj(f"{label}, C {ragged}", target, thr,
+                 _cuda(rng.standard_normal((ragged, dd))))
+            nuts(f"{label}, C {ragged}, slice", target, thr, 0.01, 240 + i)
+        if dd > 1:  # (a (1,) row is the scalar)
+            try:
+                tk.fused_target_leapfrogs(target, th, m, g, _cuda(0.02 * sc))
+                note(False, f"kernel 5 dense d {dd}: a step row was taken")
+            except ValueError:
+                pass
+        del th, m, out, g
+    assert not bad, f"the dense kernels disagree: {bad}"
+    return {"target_leapfrogs_dense": err5,
+            "target_nuts_transition_dense": err8}
+
+
+def phase_dense_target_paths(chains=4096, generic_chains=512,
+                             generic_steps=50):
+    """The dense metric on catalog targets through ``run(..., chains=C)``,
+    float32, each with every count zeroed just before it and read just
+    after, no plain call:
+
+    - ``NUTS(maxdoublings=6, mass_adapt="dense") * SerialMC(1200, 200)`` on
+      the ten bare distributions (the unit-metric 8b path's model and
+      runner): 1000 launches of target_nuts_transition_dense;
+    - ``HMC(10, 0.05, EmpMCTuner(0.8, adapt_step=50), mass_adapt="dense")
+      * SerialMC(600, 200)`` on ``model(x ~ Gamma(3, 0.2))`` at d 10 (the
+      kernel-5 path's target, phase_target_paths): 400 launches of
+      target_leapfrogs_dense;
+
+    the generic warmups' gradients on target_logp_grad.  Each is held
+    against the target's exact first and second moments (the ten bare
+    distributions on the six coordinates of sd at most NARROW_SD, as the
+    unit-metric path is, and the z over all ten reported) and against the
+    generic engine's dense run: ``generic_chains`` of the run's chains
+    continued ``generic_steps`` transitions by ``resume(...,
+    fused=False)`` from the same frozen state (the fused run's warmup is
+    the generic engine's own, so the sampling phase is what the routes do
+    apart; a whole generic run of the NUTS task at 512 chains would take
+    about 90 s), per-chain moments within Z_MAX on the same coordinates.
+    Returns ({kernel and the gradient pass: (launches, origin)}, {"nuts":
+    the NUTS run's tasks, "hmc": the HMC run's} for phase_resume_paths,
+    the folds the dense times take: {"nuts": (L, frozen eps, None, the
+    run's final theta), "hmc": (L, frozen eps, frozen leap count, the run's
+    final theta)})."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    m_bare, bare = _ten_bare_model()
+    narrow = [j for j, (_, dist, _) in enumerate(bare)
+              if float(dist.std()) <= NARROW_SD]
+    gamma = mt.Gamma(3.0, 0.2)
+    m_gamma = mt.model(lambda x: mt.tilde(x, gamma), x=np.full(10, 1.1),
+                       gradient=True, device="cuda")
+    assert m_gamma.target_spec is not None
+
+    def gamma_z(s):
+        return _moments_z((s.mean(1), (s ** 2).mean(1)), gamma)
+
+    runs = (
+        ("nuts", "ten bare distributions ~, d=10", m_bare,
+         mt.NUTS(maxdoublings=6, mass_adapt="dense"), 1200, 200,
+         "target_nuts_transition_dense", narrow,
+         lambda s, cols=None: _bare_z(s, bare, cols)),
+        ("hmc", "x ~ Gamma(3,0.2), x=fill(1.1, 10)", m_gamma,
+         mt.HMC(10, 0.05, mt.EmpMCTuner(0.8, adapt_step=50),
+                mass_adapt="dense"), 600, 200, "target_leapfrogs_dense",
+         None, lambda s, cols=None: gamma_z(s)),
+    )
+    counts, held, folds, bad = {}, {}, {}, []
+    for key, label, m, sampler, steps, burnin, kernel, cols, exact in runs:
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(model({label}) * {sampler!r} * SerialMC({steps}, "
+                  f"{burnin}), chains={chains})")
+        cs, samples, launches, dt, spans = _path(
+            origin, task, chains, {kernel: steps - burnin,
+                                   "target_logp_grad": lambda n: n > 0})
+        L = _pooled_factor(cs)
+        st = cs[0].task.state
+        if key == "nuts":
+            eps, nl = float(cs[0].diagnostics["epsilon"][-1]), None
+        else:
+            eps, nl = st.tune.step_size.item(), st.tune.n_leaps.item()
+        z_all = exact(samples)
+        z_ex = exact(samples, cols)
+        t0 = time.perf_counter()
+        gcs = mt.resume([c.task for c in cs[:generic_chains]],
+                        steps=generic_steps, fused=False)
+        gen_s = time.perf_counter() - t0
+        gs = np.stack([c.samples.values for c in gcs])
+        sel = slice(None) if cols is None else cols
+        a, b = samples[..., sel], gs[..., sel]
+        z_gen = max(_z_means(a.mean(1), b.mean(1)),
+                    _z_means((a ** 2).mean(1), (b ** 2).mean(1)))
+        ok = z_ex < Z_MAX and z_gen < Z_MAX
+        extra = {}
+        if "ndoublings" in cs[0].diagnostics:
+            extra["mean_ndoublings"] = float(np.mean(
+                [c.diagnostics["ndoublings"] for c in cs]))
+        emit({"phase": "dense_target_path", "kernel": kernel, "from": origin,
+              "chains": chains, "seconds": dt, "spans_s": spans,
+              "launches": launches[kernel],
+              "gradient_pass_launches": launches["target_logp_grad"],
+              "frozen_eps": eps, "frozen_n_leaps": nl,
+              "factor_diag": np.diag(L).tolist(),
+              "factor_offdiag_max": float(np.abs(np.tril(L, -1)).max()),
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs])) / 100,
+              **extra, "pooled_mean": samples.mean((0, 1)).tolist(),
+              "held_on": "all" if cols is None
+              else [bare[j][0] for j in cols],
+              "z_max_vs_exact": z_ex, "z_max_all_coordinates": z_all,
+              "generic": {"chains": generic_chains, "steps": generic_steps,
+                          "seconds": gen_s}, "z_max_vs_generic": z_gen,
+              "ok": ok, **CARD})
+        if not ok:
+            bad.append(origin)
+        counts[kernel] = (launches[kernel], origin)
+        held[key] = [c.task for c in cs]
+        folds[key] = (L, eps, nl, torch.stack(
+            [c.task.state.pars for c in cs]).double().cpu().numpy())
+        del cs, gcs, samples, gs
+    assert not bad, f"dense target paths disagree: {bad}"
+    return counts, held, folds
+
+
+def phase_dense_target_times(folds=None, C=4096, md=6,
+                             ds=DENSE_TARGET_TIME_D):
+    """Per-launch times of kernels 5 and 8b on dense targets beside their
+    plain versions and the non-dense instantiation on the base target at
+    the same states (theta = z L') and step (what the z-space pass costs),
+    with the bound: the catalog kernel's operations (TARGET_LEAP_OPS d a
+    leapfrog or leaf) plus the z-space pass's 2 d (d + 1) a gradient pass
+    (_dense_pass_ops), or the bytes (the factor's L and L' among the
+    inputs).  With ``folds`` (phase_dense_target_paths) first at the paths'
+    shapes, which the kernels line reports: kernel 5 on the dense HMC
+    path's Gamma target through its frozen factor, at its frozen step and
+    leap count from its final positions, and kernel 8b on the ten bare
+    distributions through the dense NUTS path's factor at its frozen step
+    from its final positions; then both on the mixed ten-family target
+    through a seeded factor (_dense_mixed) at each d of ``ds`` (the full
+    run takes none, --times all of DENSE_TARGET_TIME_D), C
+    chains, kernel 5 10 leapfrogs at 0.02 and 8b at 0.01 (on the dense
+    target trees of all md doublings; a tree's leaves differ between the
+    two targets: compare 8b by its ms a leaf).  Returns ({kernel: (ms,
+    plain ms)}, {kernel: bound and device ms}) at the paths' shapes (empty
+    without folds)."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.models.distributions import DenseTarget
+
+    def pair(base, L, theta):
+        """(dense target, its start z; the base target, its start)."""
+        z = np.linalg.solve(L, np.asarray(theta, np.float64).T).T
+        return ((DenseTarget(base, torch.as_tensor(L, device="cuda")),
+                 _cuda(z)), (base, _cuda(theta)))
+
+    def nuts_time(label, target, th, eps, seed):
+        r = _target_nuts_kernel_time(target, th, eps, md, seed=seed,
+                                     plain=hasattr(target, "factor"))
+        r["ms_per_leaf"] = r["ms"] / max(r["leaves"], 1)
+        emit({"phase": "kernel_time",
+              "name": _dense_name("target_nuts_transition", target),
+              "target": label, **r, **CARD})
+        return r
+
+    ms, work = {}, {}
+    keep = ("bound_ms", "bound_by", "device_ms")
+    if folds is not None:
+        L, eps, nl, theta = folds["hmc"]
+        gam = mt.model(lambda x: mt.tilde(x, mt.Gamma(3.0, 0.2)),
+                       x=np.full(10, 1.1), gradient=True,
+                       device="cuda").target_spec
+        label = ("x ~ Gamma(3,0.2) through the dense HMC path's factor, its "
+                 "frozen step and leap count")
+        (dt, z), (bt, th) = pair(gam, L, theta[:C])
+        r = _traj_time(label, dt, z, eps, nl, seed=5, plain=True)
+        _traj_time(label, bt, th, eps, nl, seed=5)
+        ms["target_leapfrogs_dense"] = (r["ms"], r["plain_ms"])
+        work["target_leapfrogs_dense"] = {k: r[k] for k in keep}
+        L, eps, _, theta = folds["nuts"]
+        m, _ = _ten_bare_model()
+        label = ("ten bare distributions through the dense NUTS path's "
+                 "factor, its frozen step")
+        (dt, z), (bt, th) = pair(m.target_spec, L, theta[:C])
+        r = nuts_time(label, dt, z, eps, 9)
+        nuts_time(label, bt, th, eps, 9)
+        ms["target_nuts_transition_dense"] = (r["ms"], r["plain_ms"])
+        work["target_nuts_transition_dense"] = {k: r[k] for k in keep}
+    for dd in ds:
+        target, x0, sc, L = _dense_mixed(dd, seed=dd)
+        rng = np.random.default_rng(300 + dd)
+        theta = x0 + 0.05 * sc * rng.standard_normal((C, dd))
+        label = f"mixed ten families through a dense factor, d = {dd}"
+        for t, th in pair(target.base, L, theta):
+            _traj_time(label, t, th, 0.02, 10, seed=6,
+                       plain=hasattr(t, "factor"))
+            nuts_time(label, t, th, 0.01, 10)
+    return ms, work
+
+
 def main():
     phase_device()
     import torch
@@ -5200,6 +5603,7 @@ def main():
     errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
     errors.update(step("wide_kernels", phase_wide_kernels))
     errors.update(step("wide_nuts_kernels", phase_wide_nuts_kernels))
+    errors.update(step("dense_target_kernels", phase_dense_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
     # the two NUTS kernels, the Halton multistep kernel and the tiled
@@ -5228,6 +5632,10 @@ def main():
                                  held["bign"][1])
     launches.update(dense_launches)
     errors.update(step("dense_kernels", phase_dense_kernels, folds))
+    # the dense metric on catalog targets (kernels 5 and 8b in z-space)
+    dense_t_launches, held["dense_target"], dense_t_folds = step(
+        "dense_target_paths", phase_dense_target_paths)
+    launches.update(dense_t_launches)
     wide_launches, gmeans = step("wide_paths", phase_wide_paths)
     launches.update(wide_launches)
     launches.update(step("wide_nuts_paths", phase_wide_nuts_paths, gmeans))
@@ -5236,7 +5644,7 @@ def main():
     del held
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    step("timing", phase_timing, steps=600, reps=2)
+    step("timing", phase_timing, steps=400, reps=2)
     # kernels 1-4 at the shapes whose launches are counted above (1-3 also
     # at bench.py's 65536 chains)
     ms, work = step("tile_times", phase_tile_times)
@@ -5245,13 +5653,18 @@ def main():
                  step("target_kernel_times", phase_target_times),
                  step("target_nuts_time", phase_target_nuts_time, start_t),
                  step("dense_times", phase_dense_times, folds),
+                 step("dense_target_times", phase_dense_target_times,
+                      dense_t_folds, ds=()),
                  step("wide_times", phase_wide_times),
-                 step("wide_nuts_times", phase_wide_nuts_times)):
+                 step("wide_nuts_times", phase_wide_nuts_times,
+                      ds=(WIDE_D,))):
         ms.update(more[0])
         work.update(more[1])
     # the wide paths' generic-against-fused seconds (phase_wide_path_times,
     # phase_wide_nuts_path_times) run in the --times groups wide_paths and
-    # wide_nuts_paths, out of this run for its 600 s
+    # wide_nuts_paths, the wide NUTS kernels at d 256 in wide_nuts and the
+    # dense catalog kernels across d in dense_target, out of this run for
+    # its 600 s
     emit({"resume": resume_rows})
     # no single PyTorch call computes any of these functions: library_ms
     # is null (the two products alone are timed in new_kernel_times)
@@ -5404,6 +5817,8 @@ TIME_GROUPS = {
     "wide_paths": (("glm_hmc", "glm_bign"), ("phase_wide_path_times",)),
     "wide_nuts": (("glm_nuts",), ("phase_wide_nuts_times",)),
     "wide_nuts_paths": (("glm_nuts",), ("phase_wide_nuts_path_times",)),
+    "dense_target": (("target_hmc", "target_nuts"),
+                     ("phase_dense_target_times",)),
 }
 
 
@@ -5425,9 +5840,10 @@ def times_main(groups=tuple(TIME_GROUPS)):
     shapes on two targets (target_nuts) and the spans of its two paths
     (target_nuts_paths), kernels 5-7 at their paths' shapes and 5 and 7
     in each layout at pinned shapes (target: phase_target_times,
-    phase_target_lane_times) and the spans of the kernel-5 and kernel-7
-    paths (target_paths); so that one call on one card can time a parent
-    tree and this one in turns."""
+    phase_target_lane_times), the spans of the kernel-5 and kernel-7
+    paths (target_paths), and kernels 5 and 8b on dense targets beside
+    their non-dense instantiation at d 10-1024 (dense_target); so that one
+    call on one card can time a parent tree and this one in turns."""
     phase_device()
     phase_build(tuple(dict.fromkeys(
         lib for g in groups for lib in TIME_GROUPS[g][0])))

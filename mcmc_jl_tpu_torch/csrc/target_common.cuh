@@ -16,6 +16,16 @@
 //   - Laplace at x = loc has the derivative -1/scale, since
 //     jax.grad(jnp.abs)(0.0) is 1.
 //
+// A dense target (ops/target_kernels.py, models/distributions.py
+// DenseTarget; the JAX package's _dense_wrap) is a catalog target seen
+// through a frozen dense metric: the chain's state is z, the families are
+// evaluated at theta = z L' (L the (d, d) lower-triangular Cholesky factor
+// of the metric), lp is the target's at theta and the gradient is the one
+// in z, g_z = g_theta L.  Target.L is then the factor as (2, d, d) floats,
+// L and L' each row-major (null for a catalog target); kernels 5 and 8b
+// take a bool DENSE template parameter whose false instantiations read no
+// L, and every other kernel keeps L null.
+//
 // Layout: one warp per chain.  Lane l holds coordinates l, l + 32, ...
 // (CPL of them, a template bound), so any d <= 32 * CPL runs one code path;
 // lp and |m|^2 are reduced with xor shuffles, which leave the same bits in
@@ -57,6 +67,7 @@ struct Target {
   const int* codes;     // (d,)
   const float* params;  // (d, 4): p0, p1, p2, c
   int d;
+  const float* L;       // dense target: (2, d, d), L then L'; else null
 };
 
 // Kick ("B", op 0) / drift ("A", op 1) schedule, coefficients in units of eps
@@ -204,6 +215,90 @@ __device__ __forceinline__ float eval_grad(const Row* rows, int d, int lane,
     }
   }
   return WANT_LP ? warp_sum(part) : 0.f;
+}
+
+// The z-space pass of a dense target, one warp a chain: the gradient in z
+// at z into g (zero past d) and, with WANT_LP, the log-target at theta =
+// z L', summed over the warp.  z passes through the warp's slice zs of
+// shared memory (d floats), each lane forms its coordinates of theta
+// (theta_j = sum over k <= j of L_jk z_k, k ascending, reading row k of L'
+// from L2: a warp's read is one row segment), the families give g_theta,
+// which passes through zs again for g_z,k = sum over j >= k of L_jk
+// g_theta,j (j ascending, row j of L).  The sums run in the lane layout's
+// order (target_lane.cuh lane_dense_theta), so both layouts give the same
+// bits.
+template <int CPL, bool WANT_LP>
+__device__ __forceinline__ float dense_eval_grad(const Row* rows,
+                                                 const float* __restrict__ L,
+                                                 float* zs, int d, int lane,
+                                                 const float (&z)[CPL],
+                                                 float (&g)[CPL]) {
+  const float* __restrict__ Lt = L + (size_t)d * d;
+  float th[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int j = lane + kWarp * i;
+    if (j < d) zs[j] = z[i];
+    th[i] = 0.f;
+  }
+  __syncwarp();
+  for (int k = 0; k < d; ++k) {
+    const float zk = zs[k];
+    const float* __restrict__ row = Lt + (size_t)k * d;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      if (kWarp * i >= d) break;  // warp-uniform: no slot past d
+      const int j = lane + kWarp * i;
+      if (j >= k && j < d) th[i] = fmaf(__ldg(row + j), zk, th[i]);
+    }
+  }
+  __syncwarp();  // every lane has read z
+  const float lp = eval_grad<CPL, WANT_LP>(rows, d, lane, th, g);
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int j = lane + kWarp * i;
+    if (j < d) zs[j] = g[i];
+    g[i] = 0.f;
+  }
+  __syncwarp();
+  for (int j = 0; j < d; ++j) {
+    const float gj = zs[j];
+    const float* __restrict__ row = L + (size_t)j * d;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      if (kWarp * i > j) break;  // warp-uniform: no slot k <= j left
+      const int k = lane + kWarp * i;
+      if (k <= j) g[i] = fmaf(__ldg(row + k), gj, g[i]);
+    }
+  }
+  __syncwarp();  // zs is free for the next pass
+  return lp;
+}
+
+// The gradient (and with WANT_LP the log-target) of a chain in the warp
+// layout: eval_grad at th, or with DENSE the z-space pass at z = th
+// (dense_eval_grad; zs the warp's slice of shared memory).
+template <int CPL, bool WANT_LP, bool DENSE>
+__device__ __forceinline__ float grad_at(const Row* rows, const float* L,
+                                         float* zs, int d, int lane,
+                                         const float (&th)[CPL],
+                                         float (&g)[CPL]) {
+  if constexpr (DENSE)
+    return dense_eval_grad<CPL, WANT_LP>(rows, L, zs, d, lane, th, g);
+  else
+    return eval_grad<CPL, WANT_LP>(rows, d, lane, th, g);
+}
+
+// Dynamic shared memory of a warp-layout kernel: the d rows, and with DENSE
+// each warp's slice for the z-space pass (d floats a warp).
+size_t warp_smem(int d, bool dense) {
+  return (size_t)d * sizeof(Row) +
+         (dense ? sizeof(float) * (size_t)kChainsPerBlock * d : 0);
+}
+
+// This warp's slice of a warp-layout kernel's shared memory after the rows.
+__device__ __forceinline__ float* warp_slice(Row* rows, int d) {
+  return reinterpret_cast<float*>(rows + d) + (threadIdx.x / kWarp) * d;
 }
 
 // The log-target at th alone, summed over the warp.

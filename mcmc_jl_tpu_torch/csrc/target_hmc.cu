@@ -55,6 +55,15 @@
 // bound, so d <= 1024 runs one code path); the d family rows are staged in
 // shared memory once per block.
 //
+// Kernel 5 also takes a dense target (target_common.cuh): its DENSE
+// instantiations run the same trajectory on z at a scalar step, each
+// gradient pass the z-space pass (two triangular products around the
+// families); in the lane layout that pass is the one exchange between warps
+// besides lp, two block barriers a pass (target_lane.cuh lane_dense_theta,
+// lane_dense_grad).  L costs 2 d (d + 1) FP32 operations a pass and chain
+// (at d 1024 it is 4 MB, read from L2 by every chain's warp: those reads
+// bound the warp layout there).
+//
 // Kick and drift round each product and sum separately (__fmul_rn /
 // __fadd_rn), as the plain PyTorch version does, in both layouts: theta, m
 // and g come out the same bits in both, lp summed in another order.
@@ -73,12 +82,15 @@
 namespace {
 
 // n_leaps macro steps of the schedule; returns lp at the end point, from
-// the last drift's gradient pass (pallas_glm.py _trajectory).
-template <int CPL>
+// the last drift's gradient pass (pallas_glm.py _trajectory).  With DENSE
+// th is z and each gradient pass the z-space pass (L the factor, zs this
+// warp's slice of shared memory).
+template <int CPL, bool DENSE = false>
 __device__ float trajectory(const Row* rows, int d, int lane, const Sched& s,
                             const float (&e)[CPL], int n_leaps,
                             float (&th)[CPL], float (&m)[CPL],
-                            float (&g)[CPL]) {
+                            float (&g)[CPL], const float* L = nullptr,
+                            float* zs = nullptr) {
   float lp = 0.f;
   for (int l = 0; l < n_leaps; ++l) {
     const bool final = l == n_leaps - 1;
@@ -92,9 +104,9 @@ __device__ float trajectory(const Row* rows, int d, int lane, const Sched& s,
         for (int i = 0; i < CPL; ++i)
           th[i] = __fadd_rn(th[i], __fmul_rn(__fmul_rn(s.c[k], e[i]), m[i]));
         if (final && k == s.last_a)
-          lp = eval_grad<CPL, true>(rows, d, lane, th, g);
+          lp = grad_at<CPL, true, DENSE>(rows, L, zs, d, lane, th, g);
         else
-          eval_grad<CPL, false>(rows, d, lane, th, g);
+          grad_at<CPL, false, DENSE>(rows, L, zs, d, lane, th, g);
       }
     }
   }
@@ -113,7 +125,7 @@ __device__ __forceinline__ void load_eps(float (&e)[CPL], float eps,
   }
 }
 
-template <int CPL>
+template <int CPL, bool DENSE>
 __global__ void __launch_bounds__(kThreads)
 leapfrogs_kernel(Target t, Sched s, int C, float eps,
                  const float* __restrict__ eps_row, int n_leaps,
@@ -123,6 +135,7 @@ leapfrogs_kernel(Target t, Sched s, int C, float eps,
                  float* g_out, float* lp_out) {
   extern __shared__ Row rows[];
   stage_rows(t, rows);
+  float* zs = DENSE ? warp_slice(rows, t.d) : nullptr;
   const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (c >= C) return;  // the whole warp: no barrier follows
@@ -131,7 +144,8 @@ leapfrogs_kernel(Target t, Sched s, int C, float eps,
   load_lane<CPL>(m, m_in, c, t.d, lane);
   load_lane<CPL>(g, g_in, c, t.d, lane);
   load_eps<CPL>(e, eps, eps_row, t.d, lane);
-  const float lp = trajectory<CPL>(rows, t.d, lane, s, e, n_leaps, th, m, g);
+  const float lp = trajectory<CPL, DENSE>(rows, t.d, lane, s, e, n_leaps, th,
+                                         m, g, t.L, zs);
   store_lane<CPL>(th_out, th, c, t.d, lane);
   store_lane<CPL>(m_out, m, c, t.d, lane);
   store_lane<CPL>(g_out, g, c, t.d, lane);
@@ -143,13 +157,16 @@ leapfrogs_kernel(Target t, Sched s, int C, float eps,
 // coordinates of its lane's chain, th, m and g in registers and the family
 // operands through x (D, 32) in shared memory.  Returns this warp's share of
 // lp at the end point, from the last drift's gradient pass.  No exchange
-// between warps: a leapfrog is coordinate-local.
-template <int D, int W>
+// between warps: a leapfrog is coordinate-local.  With DENSE th is z, which
+// each drift writes to z (D, 32), and each gradient pass is the z-space pass
+// (Ls the factor L in shared memory): two block barriers, every warp.
+template <int D, int W, bool DENSE = false>
 __device__ __forceinline__ float lane_trajectory(
     const Row* rows, float* x, int d, int nown, const Sched& s,
     const float (&e)[lane_slots<W>(D)], int n_leaps,
     float (&th)[lane_slots<W>(D)], float (&m)[lane_slots<W>(D)],
-    float (&g)[lane_slots<W>(D)]) {
+    float (&g)[lane_slots<W>(D)], const float* Ls = nullptr,
+    float* z = nullptr) {
   constexpr int DW = lane_slots<W>(D);
   float part = 0.f;
   for (int l = 0; l < n_leaps; ++l) {
@@ -166,16 +183,21 @@ __device__ __forceinline__ float lane_trajectory(
       for (int jj = 0; jj < DW; ++jj) {
         th[jj] = __fadd_rn(th[jj], __fmul_rn(__fmul_rn(ck, e[jj]), m[jj]));
         if (lane_coord<W>(jj) < d)
-          *lane_at<D>(x, 0, lane_coord<W>(jj)) = th[jj];
+          *lane_at<D>(DENSE ? z : x, 0, lane_coord<W>(jj)) = th[jj];
       }
+      if constexpr (DENSE) lane_dense_theta<D, W>(Ls, z, x, d, nown);
       if (final && k == s.last_a)
         part = lane_family<D, W, true, true>(rows, x, nown);
       else
         lane_family<D, W, false, true>(rows, x, nown);
+      if constexpr (DENSE) {
+        lane_dense_grad<D, W>(Ls, x, d, g);
+      } else {
 #pragma unroll
-      for (int jj = 0; jj < DW; ++jj)
-        if (lane_coord<W>(jj) < d)
-          g[jj] = *lane_at<D>(x, 0, lane_coord<W>(jj));
+        for (int jj = 0; jj < DW; ++jj)
+          if (lane_coord<W>(jj) < d)
+            g[jj] = *lane_at<D>(x, 0, lane_coord<W>(jj));
+      }
     }
   }
   return part;
@@ -187,10 +209,16 @@ size_t leapfrogs_lane_smem(int d, int D, int W) {
   return lane_rows_bytes(d) + sizeof(float) * (size_t)(D + W) * kWarp;
 }
 
+// The dense kernel's: then z (D, 32) and L (d, d).
+size_t leapfrogs_lane_dense_smem(int d, int D, int W) {
+  return leapfrogs_lane_smem(d, D, W) +
+         sizeof(float) * ((size_t)D * kWarp + (size_t)d * d);
+}
+
 // One chain per lane; the W warps of a block each run the trajectory of
 // their coordinates of the block's 32 chains, and sum lp from the last
 // drift's gradient pass across the warps at the end.
-template <int D, int W>
+template <int D, int W, bool DENSE>
 __global__ void __launch_bounds__(W * kWarp)
 leapfrogs_lane_kernel(Target t, Sched s, int C, float eps,
                       const float* __restrict__ eps_row, int n_leaps,
@@ -205,6 +233,9 @@ leapfrogs_lane_kernel(Target t, Sched s, int C, float eps,
   float* x = reinterpret_cast<float*>(reinterpret_cast<char*>(lane_sm) +
                                       lane_rows_bytes(d));
   float* xch = x + D * kWarp;  // [warp][lane]
+  float* z = xch + W * kWarp;  // dense: z (D, 32), then L (d, d)
+  float* Ls = z + D * kWarp;
+  if (DENSE) lane_stage_factor(t.L, Ls, d);
   const int w = threadIdx.x / kWarp;
   const int nown = lane_owned<W>(d);
   const int c0 = blockIdx.x * kWarp + (threadIdx.x & (kWarp - 1));
@@ -220,10 +251,10 @@ leapfrogs_lane_kernel(Target t, Sched s, int C, float eps,
     g[jj] = j < d ? g_in[at] : 0.f;
     e[jj] = j < d ? (eps_row ? eps_row[j] : eps) : 0.f;
   }
-  __syncthreads();  // the rows
+  __syncthreads();  // the rows (and L)
 
-  *partial_at<W>(xch, 1, 0, w, 0) =
-      lane_trajectory<D, W>(rows, x, d, nown, s, e, n_leaps, th, m, g);
+  *partial_at<W>(xch, 1, 0, w, 0) = lane_trajectory<D, W, DENSE>(
+      rows, x, d, nown, s, e, n_leaps, th, m, g, Ls, z);
   __syncthreads();
   if (c0 < C) {
 #pragma unroll
@@ -544,9 +575,33 @@ using MultistepKernel = void (*)(Target, Sched, int, float, const float*,
                                  int, int, int, uint2, const float*, float*,
                                  float*, float*, float*);
 
+// Kernel 5's launch (LAUNCH_FOR with the DENSE instantiations and their
+// shared memory).
+template <bool DENSE>
 bool leapfrogs_launch_for(int d, int C, LaneLaunch<LeapfrogsKernel>* L) {
-  LAUNCH_FOR(L, d, C, leapfrogs_lane_kernel, leapfrogs_kernel,
-             leapfrogs_lane_smem);
+  if (d < 1 || d > kMaxDim || C < 1) return false;
+  const int D = lane_bound_for(d);
+  if (!D) {
+    L->kernel = cpl_for(d) == 4 ? leapfrogs_kernel<4, DENSE>
+                                : leapfrogs_kernel<32, DENSE>;
+    L->blocks = blocks_for(C);
+    L->threads = kThreads;
+    L->smem = warp_smem(d, DENSE);
+    return true;
+  }
+  const int W = lane_warps(D, C);
+  L->kernel =
+      D == 8 ? (W == 8 ? leapfrogs_lane_kernel<8, 8, DENSE>
+                       : leapfrogs_lane_kernel<8, kLaneWarps, DENSE>)
+      : D == 16 ? (W == 16 ? leapfrogs_lane_kernel<16, 16, DENSE>
+                           : leapfrogs_lane_kernel<16, kLaneWarps, DENSE>)
+                : (W == 32 ? leapfrogs_lane_kernel<32, 32, DENSE>
+                           : leapfrogs_lane_kernel<32, kLaneWarps, DENSE>);
+  L->blocks = (C + kWarp - 1) / kWarp;
+  L->threads = W * kWarp;
+  L->smem = DENSE ? leapfrogs_lane_dense_smem(d, D, W)
+                  : leapfrogs_lane_smem(d, D, W);
+  return true;
 }
 
 bool logp_grad_launch_for(int d, int C, LaneLaunch<LogpGradKernel>* L) {
@@ -561,6 +616,29 @@ bool multistep_launch_for(int d, int C, LaneLaunch<MultistepKernel>* L) {
 
 #undef LAUNCH_FOR
 
+// Kernel 5 on a catalog target (factor null) or, with DENSE, on a dense
+// target at a scalar step (factor: L and L', (2, d, d)).
+template <bool DENSE>
+int leapfrogs_entry(const float* factor, const int* codes,
+                    const float* params, int d, int C, const float* th_in,
+                    const float* m_in, const float* g_in, float* th_out,
+                    float* m_out, float* g_out, float* lp_out, float eps,
+                    const float* eps_row, int n_leaps, const int* sched_ops,
+                    const float* sched_c, int n_ops, void* stream) {
+  LaneLaunch<LeapfrogsKernel> L;
+  Sched s;
+  if (!leapfrogs_launch_for<DENSE>(d, C, &L) || n_leaps < 1 ||
+      !make_sched(sched_ops, sched_c, n_ops, &s) ||
+      (DENSE && (factor == nullptr || eps_row != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = lane_prepare(L);
+  if (e != cudaSuccess) return (int)e;
+  L.kernel<<<L.blocks, L.threads, L.smem, (cudaStream_t)stream>>>(
+      Target{codes, params, d, factor}, s, C, eps, eps_row, n_leaps, th_in,
+      m_in, g_in, th_out, m_out, g_out, lp_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -571,25 +649,44 @@ int target_leapfrogs(const int* codes, const float* params, int d, int C,
                      float* g_out, float* lp_out, float eps,
                      const float* eps_row, int n_leaps, const int* sched_ops,
                      const float* sched_c, int n_ops, void* stream) {
-  LaneLaunch<LeapfrogsKernel> L;
-  Sched s;
-  if (!leapfrogs_launch_for(d, C, &L) || n_leaps < 1 ||
-      !make_sched(sched_ops, sched_c, n_ops, &s))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = lane_prepare(L);
-  if (e != cudaSuccess) return (int)e;
-  L.kernel<<<L.blocks, L.threads, L.smem, (cudaStream_t)stream>>>(
-      Target{codes, params, d}, s, C, eps, eps_row, n_leaps, th_in, m_in,
-      g_in, th_out, m_out, g_out, lp_out);
-  return (int)cudaGetLastError();
+  return leapfrogs_entry<false>(nullptr, codes, params, d, C, th_in, m_in,
+                                g_in, th_out, m_out, g_out, lp_out, eps,
+                                eps_row, n_leaps, sched_ops, sched_c, n_ops,
+                                stream);
+}
+
+// The same trajectory on a dense target: factor holds L and L' ((2, d, d)
+// floats), the step is the scalar eps (eps_row must be null).
+int target_leapfrogs_dense(const float* factor, const int* codes,
+                           const float* params, int d, int C,
+                           const float* th_in, const float* m_in,
+                           const float* g_in, float* th_out, float* m_out,
+                           float* g_out, float* lp_out, float eps,
+                           const float* eps_row, int n_leaps,
+                           const int* sched_ops, const float* sched_c,
+                           int n_ops, void* stream) {
+  return leapfrogs_entry<true>(factor, codes, params, d, C, th_in, m_in,
+                               g_in, th_out, m_out, g_out, lp_out, eps,
+                               eps_row, n_leaps, sched_ops, sched_c, n_ops,
+                               stream);
 }
 
 // How a trajectory launch at (d, C) runs: blocks, blocks resident per SM,
-// threads and dynamic shared memory per block.
+// threads and dynamic shared memory per block; the same for the dense
+// instantiation (target_leapfrogs_dense_plan).
 int target_leapfrogs_plan(int d, int C, int* blocks, int* blocks_per_sm,
                           int* threads, int* smem) {
   LaneLaunch<LeapfrogsKernel> L;
-  if (!leapfrogs_launch_for(d, C, &L)) return (int)cudaErrorInvalidValue;
+  if (!leapfrogs_launch_for<false>(d, C, &L))
+    return (int)cudaErrorInvalidValue;
+  return lane_plan(L, blocks, blocks_per_sm, threads, smem);
+}
+
+int target_leapfrogs_dense_plan(int d, int C, int* blocks, int* blocks_per_sm,
+                                int* threads, int* smem) {
+  LaneLaunch<LeapfrogsKernel> L;
+  if (!leapfrogs_launch_for<true>(d, C, &L))
+    return (int)cudaErrorInvalidValue;
   return lane_plan(L, blocks, blocks_per_sm, threads, smem);
 }
 

@@ -17,6 +17,16 @@
 // partial_sum): the same bits in every warp, so the W warps keep the same
 // per-chain state and take the same decisions.
 //
+// A dense target (target_common.cuh) mixes the coordinates: each gradient
+// pass is an exchange between the W warps.  Every warp writes its
+// coordinates of z into a (D, 32) array; after a block barrier each forms
+// its coordinates of theta = z L' into the family loop's array
+// (lane_dense_theta, L staged in shared memory, a broadcast read); the
+// family loop runs on theta in place; after a second barrier each forms its
+// coordinates of g_z = g_theta L from every warp's g_theta
+// (lane_dense_grad).  Two barriers a pass, which every warp of the block
+// reaches, those that own no coordinate too.
+//
 // Everything here sits in an anonymous namespace: each source that includes
 // it is built into a library of its own.
 #pragma once
@@ -101,6 +111,50 @@ __device__ __forceinline__ float lane_family(const Row* rows, float* x,
     if (WANT_LP) part += l;
   }
   return part;
+}
+
+// Dense targets: theta_j = sum over k <= j of L_jk z_k (k ascending) for
+// this warp's coordinates j, into x (D, 32), from every warp's z (D, 32),
+// after the block barrier that publishes z.  Ls is L, (d, d) row-major in
+// shared memory.
+template <int D, int W>
+__device__ __forceinline__ void lane_dense_theta(const float* Ls, float* z,
+                                                 float* x, int d, int nown) {
+  __syncthreads();
+#pragma unroll 1
+  for (int jj = 0; jj < nown; ++jj) {
+    const int j = lane_coord<W>(jj);
+    const float* row = Ls + j * d;
+    float t = 0.f;
+    for (int k = 0; k <= j; ++k) t = fmaf(row[k], *lane_at<D>(z, 0, k), t);
+    *lane_at<D>(x, 0, j) = t;
+  }
+}
+
+// Dense targets: g_z,k = sum over j >= k of L_jk g_theta,j (j ascending)
+// for this warp's coordinates k, into g (zero past d), from every warp's
+// g_theta in x, after the block barrier that publishes it.
+template <int D, int W>
+__device__ __forceinline__ void lane_dense_grad(const float* Ls, float* x,
+                                                int d,
+                                                float (&g)[lane_slots<W>(D)]) {
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < lane_slots<W>(D); ++jj) {
+    const int k = lane_coord<W>(jj);
+    float t = 0.f;
+    for (int j = k; j < d; ++j)
+      t = fmaf(Ls[j * d + k], *lane_at<D>(x, 0, j), t);
+    g[jj] = t;
+  }
+}
+
+// Stage L, (d, d) from the head of a dense target's factor, at Ls in
+// shared memory (every thread calls it; the caller's first barrier
+// publishes it).
+__device__ __forceinline__ void lane_stage_factor(const float* L, float* Ls,
+                                                  int d) {
+  for (int i = threadIdx.x; i < d * d; i += blockDim.x) Ls[i] = L[i];
 }
 
 // Stage the d rows at the head of the block's shared memory (every thread

@@ -60,6 +60,14 @@
 // is a warp_sum whose xor shuffles leave the same bits in every lane, so
 // every lane takes the same branch.
 //
+// A dense target (target_common.cuh; the JAX kernel runs on _dense_wrap's
+// block) takes the DENSE instantiations: the chain's state is z, each
+// leaf's gradient pass the z-space pass, and the tree (U-turns, spans,
+// energies) stays in z with a unit metric, as the JAX kernel computes it.
+// In the lane layout the pass adds two block barriers a leaf (the leaf's
+// family loop becomes lane_dense_theta, the loop, lane_dense_grad); in the
+// warp layout it is the warp's own (dense_eval_grad).
+//
 // Both follow the TPU kernel's iterative form: the doubling loop, the
 // reservoir or multinomial proposal drawn by the transition-global leaf
 // number, popcount-addressed checkpoint stores and the span checks at odd
@@ -119,7 +127,7 @@ __device__ __forceinline__ bool span_turned(const float (&ckp)[CPL],
   return warp_sum(a) < 0.f || warp_sum(b) < 0.f;
 }
 
-template <int CPL>
+template <int CPL, bool DENSE>
 __global__ void __launch_bounds__(kThreads)
 nuts_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
             int md, int multinomial, const float* __restrict__ th_in,
@@ -132,6 +140,7 @@ nuts_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
             float* lp_out, int* nd_out, unsigned char* div_out) {
   extern __shared__ Row rows[];
   stage_rows(t, rows);
+  float* zs = DENSE ? warp_slice(rows, t.d) : nullptr;
   const int c = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (c >= C) return;  // the whole warp: no barrier follows
@@ -192,7 +201,7 @@ nuts_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
         wm[i] = __fadd_rn(wm[i], __fmul_rn(__fmul_rn(0.5f, es[i]), wg[i]));
         wp[i] = __fadd_rn(wp[i], __fmul_rn(es[i], wm[i]));
       }
-      wlp = eval_grad<CPL, true>(rows, d, lane, wp, wg);
+      wlp = grad_at<CPL, true, DENSE>(rows, t.L, zs, d, lane, wp, wg);
 #pragma unroll
       for (int i = 0; i < CPL; ++i)
         wm[i] = __fadd_rn(wm[i], __fmul_rn(__fmul_rn(0.5f, es[i]), wg[i]));
@@ -305,11 +314,13 @@ nuts_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
 enum LaneArray { kTh = 0, kG, kSp, kSg, kOp, kOm, kOg, kX, kCk };
 enum LanePartial { kPLp = 0, kPMsq, kPUa, kPUb, kXq };
 
-size_t lane_smem(int d, int D, int md) {
+// A dense target's kernel adds z (D, 32) and L (d, d) at the end.
+size_t lane_smem(int d, int D, int md, bool dense) {
   const size_t rows = ((size_t)d * sizeof(Row) + 15) & ~(size_t)15;
   return rows + sizeof(float) *
                     ((size_t)D + (size_t)(kCk + 2 * md) * D * kWarp +
-                     (size_t)2 * kLaneWarps * (kXq + 2 * md) * kWarp);
+                     (size_t)2 * kLaneWarps * (kXq + 2 * md) * kWarp +
+                     (dense ? (size_t)D * kWarp + (size_t)d * d : 0));
 }
 
 template <int D>
@@ -351,8 +362,8 @@ __device__ __forceinline__ void lane_swap(float* arr, int which, int d,
 // coordinates of the block's 32 chains.  Every per-chain decision is made
 // from sums of the warps' partials that are the same bits in every warp,
 // so the warps keep the same per-chain state and take the same branches;
-// one barrier a leaf.
-template <int D>
+// one barrier a leaf (three on a dense target).
+template <int D, bool DENSE>
 __global__ void __launch_bounds__(kLaneWarps * kWarp)
 nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
                  int md, int multinomial, const float* __restrict__ th_in,
@@ -373,11 +384,15 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
               (((size_t)d * sizeof(Row) + 15) & ~(size_t)15) / sizeof(float);
   float* arr = es + D;
   float* xch = arr + (size_t)(kCk + 2 * md) * D * kWarp;
+  float* z = xch + (size_t)2 * kLaneWarps * nq * kWarp;  // dense: z, L
+  float* Ls = z + D * kWarp;
+  float* x = arr + (size_t)kX * D * kWarp;  // the family loop's operands
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
     rows[j] = Row{t.codes[j], t.params[4 * j], t.params[4 * j + 1],
                   t.params[4 * j + 2], t.params[4 * j + 3]};
     es[j] = eps_row ? eps_row[j] : eps;
   }
+  if (DENSE) lane_stage_factor(t.L, Ls, d);
   const int w = threadIdx.x / kWarp;
   const int nown = (d - w + kLaneWarps - 1) / kLaneWarps;  // its coordinates
   // lanes past C shadow chain C - 1 with their tree already ended
@@ -404,7 +419,7 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
   lane_store<D>(arr, kOg, d, wg);
   int buf = 0;
   *partial_at<kLaneWarps>(xch, nq, buf, w, kPMsq) = msq;
-  __syncthreads();  // the rows, the step row and the partials
+  __syncthreads();  // the rows, the step row, the partials (and L)
   msq = partial_sum<kLaneWarps>(xch, nq, buf, kPMsq);
   buf ^= 1;
   float lp = wlp, olp = wlp;  // the proposal's and the other edge's lp
@@ -462,24 +477,28 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
     // over the coordinates, the same for every lane, so that each family
     // branch is warp-uniform; the loop is not unrolled, so that the kernel
     // holds one copy of the ten families' code, and its operands pass
-    // through shared memory
+    // through shared memory; a dense target's walker is z, and its pass
+    // forms theta from every warp's z first
 #pragma unroll
     for (int jj = 0; jj < DW; ++jj)
       if (lane_coord<kLaneWarps>(jj) < d) {
         const float e = dirn * es[lane_coord<kLaneWarps>(jj)];
         wm[jj] = __fadd_rn(wm[jj], __fmul_rn(__fmul_rn(0.5f, e), wg[jj]));
         wp[jj] = __fadd_rn(wp[jj], __fmul_rn(e, wm[jj]));
-        *lane_at<D>(arr, kX, lane_coord<kLaneWarps>(jj)) = wp[jj];
+        *lane_at<D>(DENSE ? z : x, 0, lane_coord<kLaneWarps>(jj)) = wp[jj];
       }
+    if constexpr (DENSE) lane_dense_theta<D, kLaneWarps>(Ls, z, x, d, nown);
     float part = 0.f;
 #pragma unroll 1
     for (int jj = 0; jj < nown; ++jj) {
       const int j = lane_coord<kLaneWarps>(jj);
-      float* x = lane_at<D>(arr, kX, j);
+      float* xp = lane_at<D>(arr, kX, j);
       float dl;
-      part += family_eval<true, true>(rows[j], *x, dl);
-      *x = dl;
+      part += family_eval<true, true>(rows[j], *xp, dl);
+      *xp = dl;
     }
+    // a dense target's gradient in z, from every warp's g_theta
+    if constexpr (DENSE) lane_dense_grad<D, kLaneWarps>(Ls, x, d, wg);
     // this warp's partials: lp, |m|^2, the u-turn dots of the walker as the
     // new edge (read only when the doubling ends here), the span checks'
     // dots at odd leaves (slots popc(k>>1) - trailing_ones(k) + 1 ..
@@ -493,7 +512,7 @@ nuts_lane_kernel(Target t, int C, float eps, const float* __restrict__ eps_row,
       if (lane_coord<kLaneWarps>(jj) < d) {
         const int j = lane_coord<kLaneWarps>(jj);
         const float e = dirn * es[j];
-        wg[jj] = *lane_at<D>(arr, kX, j);
+        if constexpr (!DENSE) wg[jj] = *lane_at<D>(arr, kX, j);
         wm[jj] = __fadd_rn(wm[jj], __fmul_rn(__fmul_rn(0.5f, e), wg[jj]));
         msq = fmaf(wm[jj], wm[jj], msq);
         // the overall u-turn between the extreme states (NUTS.jl:165): the
@@ -619,24 +638,50 @@ struct NutsLaunch {
   size_t smem;
 };
 
+template <bool DENSE>
 bool nuts_launch_for(int d, int C, int md, NutsLaunch* L) {
   if (d < 1 || d > kMaxDim || C < 1 || md < 1 || md > kMaxDoublings)
     return false;
   const int D = lane_bound_for(d);
   if (D) {  // one chain per lane, a block of kLaneWarps warps per 32
-    L->kernel = D == 8    ? nuts_lane_kernel<8>
-                : D == 16 ? nuts_lane_kernel<16>
-                          : nuts_lane_kernel<32>;
+    L->kernel = D == 8    ? nuts_lane_kernel<8, DENSE>
+                : D == 16 ? nuts_lane_kernel<16, DENSE>
+                          : nuts_lane_kernel<32, DENSE>;
     L->blocks = (C + kWarp - 1) / kWarp;
     L->threads = kLaneWarps * kWarp;
-    L->smem = lane_smem(d, D, md);
+    L->smem = lane_smem(d, D, md, DENSE);
   } else {  // one warp per chain: CPL 4 or 32
-    L->kernel = cpl_for(d) == 4 ? nuts_kernel<4> : nuts_kernel<32>;
+    L->kernel = cpl_for(d) == 4 ? nuts_kernel<4, DENSE>
+                                : nuts_kernel<32, DENSE>;
     L->blocks = blocks_for(C);
     L->threads = kThreads;
-    L->smem = (size_t)d * sizeof(Row);
+    L->smem = warp_smem(d, DENSE);
   }
   return true;
+}
+
+// One transition on a catalog target (factor null) or, with DENSE, on a
+// dense target at a scalar step (factor: L and L', (2, d, d)).
+template <bool DENSE>
+int nuts_entry(const float* factor, const int* codes, const float* params,
+               int d, int C, const float* th_in, const float* lp_in,
+               const float* g_in, const float* m0, const float* logu,
+               const float* dirn, const float* merge, const float* leaf,
+               float* th_out, float* g_out, float* lp_out, int* nd_out,
+               unsigned char* div_out, float eps, const float* eps_row,
+               int md, int multinomial, void* stream) {
+  NutsLaunch L;
+  if (!nuts_launch_for<DENSE>(d, C, md, &L) ||
+      (DENSE && (factor == nullptr || eps_row != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      L.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
+  if (e != cudaSuccess) return (int)e;
+  L.kernel<<<L.blocks, L.threads, L.smem, (cudaStream_t)stream>>>(
+      Target{codes, params, d, factor}, C, eps, eps_row, md, multinomial,
+      th_in, lp_in, g_in, m0, logu, dirn, merge, leaf, th_out, g_out, lp_out,
+      nd_out, div_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -658,16 +703,25 @@ int target_nuts_transition(const int* codes, const float* params, int d,
                            int* nd_out, unsigned char* div_out, float eps,
                            const float* eps_row, int md, int multinomial,
                            void* stream) {
-  NutsLaunch L;
-  if (!nuts_launch_for(d, C, md, &L)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      L.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
-  if (e != cudaSuccess) return (int)e;
-  L.kernel<<<L.blocks, L.threads, L.smem, (cudaStream_t)stream>>>(
-      Target{codes, params, d}, C, eps, eps_row, md, multinomial, th_in,
-      lp_in, g_in, m0, logu, dirn, merge, leaf, th_out, g_out, lp_out,
-      nd_out, div_out);
-  return (int)cudaGetLastError();
+  return nuts_entry<false>(nullptr, codes, params, d, C, th_in, lp_in, g_in,
+                           m0, logu, dirn, merge, leaf, th_out, g_out, lp_out,
+                           nd_out, div_out, eps, eps_row, md, multinomial,
+                           stream);
+}
+
+// The same transition on a dense target: factor holds L and L' ((2, d, d)
+// floats), the step is the scalar eps (eps_row must be null).
+int target_nuts_transition_dense(
+    const float* factor, const int* codes, const float* params, int d, int C,
+    const float* th_in, const float* lp_in, const float* g_in,
+    const float* m0, const float* logu, const float* dirn,
+    const float* merge, const float* leaf, float* th_out, float* g_out,
+    float* lp_out, int* nd_out, unsigned char* div_out, float eps,
+    const float* eps_row, int md, int multinomial, void* stream) {
+  return nuts_entry<true>(factor, codes, params, d, C, th_in, lp_in, g_in,
+                          m0, logu, dirn, merge, leaf, th_out, g_out, lp_out,
+                          nd_out, div_out, eps, eps_row, md, multinomial,
+                          stream);
 }
 
 // How a launch at (d, C, md) runs: blocks resident per SM (from the
@@ -675,7 +729,8 @@ int target_nuts_transition(const int* codes, const float* params, int d,
 int target_nuts_plan(int d, int C, int md, int* blocks_per_sm, int* threads,
                      int* smem) {
   NutsLaunch L;
-  if (!nuts_launch_for(d, C, md, &L)) return (int)cudaErrorInvalidValue;
+  if (!nuts_launch_for<false>(d, C, md, &L))
+    return (int)cudaErrorInvalidValue;
   *threads = L.threads;
   *smem = (int)L.smem;
   cudaError_t e = cudaFuncSetAttribute(

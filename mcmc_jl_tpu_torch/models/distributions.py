@@ -26,7 +26,9 @@ Kernel rows: the ten continuous families with Python-scalar parameters
 give :meth:`Distribution.kernel_row`, a family code, three parameters and
 the folded normalizer, which the custom-target CUDA kernels evaluate
 (``csrc/target_common.cuh``).  A :class:`CatalogTarget` is a product of
-such distributions over the coordinates, with their rows.
+such distributions over the coordinates, with their rows; a
+:class:`DenseTarget` is one seen through a frozen dense metric,
+``z -> target(z L')``, which kernels 5 and 8b take with the factor.
 
 The cdfs of ``Beta``, ``TDist`` and ``Binomial`` need the regularized
 incomplete beta function, which torch lacks: they raise (ROADMAP: the
@@ -1012,6 +1014,56 @@ class CatalogTarget:
         return f"CatalogTarget(d={self.d}, {kind})"
 
 
+class DenseTarget:
+    """A catalog target seen through a frozen dense metric: ``target(z) =
+    base(z L')`` over (C, d) chain blocks (the JAX package's ``_dense_wrap``
+    in ``ops/warmstart.py``), with ``L`` the (d, d) lower-triangular
+    Cholesky factor of the pooled metric, so that unit-metric dynamics in
+    ``z`` are dense-metric dynamics in ``theta = z L'``.
+
+    Its value is the base target's log-density at ``theta`` (no log-det
+    term), its gradient in ``z`` the row ``g_theta L``.  The kernels take
+    the base target's rows and the factor (:meth:`factor`); the plain
+    versions differentiate ``__call__`` with ``torch.func``."""
+
+    def __init__(self, base, L):
+        if not isinstance(base, CatalogTarget):
+            raise TypeError(f"DenseTarget wraps a CatalogTarget, got "
+                            f"{type(base).__name__}")
+        L = torch.as_tensor(L)
+        if tuple(L.shape) != (base.d, base.d):
+            raise ValueError(f"the factor is {tuple(L.shape)}, want "
+                             f"({base.d}, {base.d})")
+        self.base, self.d = base, base.d
+        self.L = torch.tril(L.to(torch.float32)).contiguous()
+        self._factors = {}
+
+    def __call__(self, z):
+        L = self.L.to(device=z.device, dtype=z.dtype)
+        return self.base(z @ L.T)
+
+    @property
+    def has_rows(self):
+        return self.base.has_rows
+
+    def rows(self, device):
+        """The base target's kernel rows on ``device``."""
+        return self.base.rows(device)
+
+    def factor(self, device):
+        """The kernels' copy of the factor on ``device``: a contiguous
+        float32 (2, d, d) tensor holding ``L`` and ``L'``, each row-major
+        (a warp reads a row of either in one pass)."""
+        dev = torch.device(device)
+        if dev not in self._factors:
+            L = self.L.to(dev)
+            self._factors[dev] = torch.stack([L, L.T]).contiguous()
+        return self._factors[dev]
+
+    def __repr__(self):
+        return f"DenseTarget({self.base!r})"
+
+
 ALL_DISTRIBUTIONS = [
     Normal, Uniform, Weibull, Gamma, Cauchy, LogNormal, Binomial, Beta,
     Laplace, Bernoulli, TDist, Exponential, Poisson,
@@ -1020,4 +1072,5 @@ ALL_DISTRIBUTIONS = [
 __all__ = [d.__name__ for d in ALL_DISTRIBUTIONS] + [
     "MvNormal", "Distribution", "RightCensored", "LeftCensored", "Truncated",
     "logpdf", "logcdf", "logccdf", "FAMILY_CODES", "CatalogTarget",
+    "DenseTarget",
 ]

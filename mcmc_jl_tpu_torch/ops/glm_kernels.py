@@ -134,8 +134,8 @@ def _scalar_prior(prior_prec):
         raise NotImplementedError(
             "kernels 1, 2 and 3 take a scalar prior precision; the row and "
             "matrix priors of the metric folds run on the Halton multistep, "
-            "tiled and NUTS kernels (ROADMAP queue 2: matrix prior on "
-            "kernels 1-3)")
+            "tiled and NUTS kernels (ROADMAP: matrix prior on kernels "
+            "1-3)")
     return float(prior_prec)
 
 

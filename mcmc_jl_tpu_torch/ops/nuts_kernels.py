@@ -15,9 +15,11 @@ wrapper (this module)             Pallas kernel it replaces
 :func:`target_nuts_transition`    ``pallas_nuts.py _nuts_kernel``, target
                                   mode (``_target_transition_inner``): one
                                   transition on a catalog target, a scalar
-                                  step or a (d,) step row; one chain per
-                                  lane up to d = 32, one warp per chain
-                                  above
+                                  step or a (d,) step row, or on a dense
+                                  target (``z -> target(z L')``, the JAX
+                                  package's ``_dense_wrap``) at a scalar
+                                  step; one chain per lane up to d = 32,
+                                  one warp per chain above
 ================================  =========================================
 
 Each has a plain PyTorch version beside it (``*_ref``): batched tensor ops
@@ -40,7 +42,10 @@ above it on the wide tile, whose launches count as ``<name>_wide`` (and
 ``<name>_mat_wide``) and keep the tree's state in a scratch buffer that
 :func:`_scratch` allocates once for each device, stream, width and depth.
 On a catalog target the frozen diagonal metric rides the step instead, as a
-(d,) row ``eps * s``.  The drivers :func:`_nuts_run`, :func:`_nuts_run_hw`
+(d,) row ``eps * s``, and a dense one is the factor of a
+:class:`~..models.distributions.DenseTarget`, whose launches count as
+``target_nuts_transition_dense``: the tree runs in ``z`` with a unit metric,
+the families at ``theta = z L'``.  The drivers :func:`_nuts_run`, :func:`_nuts_run_hw`
 and :func:`_nuts_target_run` return the NUTS info protocol (``ppars``,
 ``pgrads``, ``plogtarget``, ``accept``, ``epsilon``, ``ndoublings``,
 ``diverging``).
@@ -64,8 +69,8 @@ from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
                           _prior_args, _ptr, _row, glm_funcs,
                           glm_multistep_draws)
 from . import philox
-from .target_kernels import (_eps, _eps_args, _seed, kernel_args, launch,
-                             load_library, target_funcs)
+from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
+                             launch, load_library, step_for, target_funcs)
 
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
@@ -82,7 +87,7 @@ LANE_D_MAX = 32
 DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x100, 0x200, 0x10000
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
-          "target_nuts_transition")
+          "target_nuts_transition", "target_nuts_transition_dense")
 _GLM = ("glm_nuts_transition", "glm_nuts_multistep")
 LAUNCHES = dict.fromkeys(_NAMES + tuple(n + v for n in _GLM for v in (
     "_mat", "_wide", "_mat_wide")), 0)
@@ -236,10 +241,12 @@ def target_nuts_transition_ref(target, theta, lp, grad, eps, m0, logu, dirn,
                                multinomial=False):
     """Plain version of :func:`target_nuts_transition`: the lockstep
     transition with the target's ``torch.func`` gradient."""
-    PLAIN_CALLS["target_nuts_transition"] += 1
+    name = "target_nuts_transition"
+    eps = step_for(name, target, eps, theta)
+    PLAIN_CALLS[dense_name(name, target)] += 1
     return _transition(target_funcs(target)[1], theta, lp.reshape(-1), grad,
-                       _eps(eps, theta), m0, logu.reshape(-1), dirn, merge_u,
-                       leaf_u, _check_md(maxdoublings), multinomial)
+                       eps, m0, logu.reshape(-1), dirn, merge_u, leaf_u,
+                       _check_md(maxdoublings), multinomial)
 
 
 def _rows(th, g, lp, acc, nd, dv):
@@ -454,6 +461,8 @@ def load_target_kernels():
     lib = load_library("target_nuts", {
         "target_nuts_transition": [_P] * 2 + [_I, _I] + [_P] * 13
         + [_F, _P, _I, _I, _P],
+        "target_nuts_transition_dense": [_P] * 3 + [_I, _I] + [_P] * 13
+        + [_F, _P, _I, _I, _P],
         "target_nuts_plan": [_I] * 3 + [ctypes.POINTER(_I)] * 3})
     if not getattr(lib, "_md_checked", False):
         lib.target_nuts_max_doublings.restype = ctypes.c_int
@@ -498,7 +507,9 @@ def target_nuts_transition(target, theta, lp, grad, eps, m0, logu, dirn,
     ``grad``, ``m0`` (C, d) with ``grad`` the gradient at ``theta``; ``lp``,
     ``logu`` (C,); ``dirn``, ``merge_u`` (C, maxdoublings); ``leaf_u``
     (C, 2^maxdoublings); ``eps`` a scalar or a (d,) per-coordinate step row
-    (the frozen diagonal metric).  d up to ``target_kernels.D_MAX``; the
+    (the frozen diagonal metric).  On a :class:`DenseTarget` the states are
+    in ``z``, lp is the base target's at ``theta = z L'`` and the step a
+    scalar.  d up to ``target_kernels.D_MAX``; the
     kernel's layout follows from d (:func:`target_nuts_layout`).
     Returns (theta, grad, lp (C,), ndoublings (C,) int32, diverging (C,)
     bool)."""
@@ -509,18 +520,21 @@ def target_nuts_transition(target, theta, lp, grad, eps, m0, logu, dirn,
             maxdoublings=maxdoublings, multinomial=multinomial)
     md = _check_md(maxdoublings)
     codes, params, C, d = kernel_args(name, target, theta,
-                                      (("grad", grad), ("m0", m0)))
+                                      (("grad", grad), ("m0", m0)), dense=True)
     lp, logu = lp.reshape(-1), logu.reshape(-1)
     _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
                  leaf_u=leaf_u, lp=lp, logu=logu)
+    step_for(name, target, eps, theta)
     eps_s, eps_row = _eps_args(eps, theta)
     dev = theta.device
+    entry = dense_name(name, target)
+    head = () if entry == name else (_ptr(target.factor(dev)),)
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=dev)
     nd_o = torch.empty(C, dtype=torch.int32, device=dev)
     dv_o = torch.empty(C, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        launch(load_target_kernels(), LAUNCHES, name, _ptr(codes),
+        launch(load_target_kernels(), LAUNCHES, entry, *head, _ptr(codes),
                _ptr(params), d, C, _ptr(theta), _ptr(lp), _ptr(grad),
                _ptr(m0), _ptr(logu), _ptr(dirn), _ptr(merge_u), _ptr(leaf_u),
                _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(nd_o), _ptr(dv_o),
@@ -635,9 +649,11 @@ def _nuts_target_run(target, theta0, eps_in, generator, *, steps,
     """``steps`` exact NUTS transitions on a catalog target, one launch of
     :func:`target_nuts_transition` each, the noise drawn from ``generator``
     before each launch; lp and the gradient at the start from the target's
-    plain evaluation (pallas_nuts.py ``_nuts_target_run``).  ``eps_in`` is
-    the scalar step or the (d,) row ``eps * s``; as in the JAX package, the
-    ``epsilon`` rows then report the row's first entry, ``eps * s_0``.
+    plain evaluation (pallas_nuts.py ``_nuts_target_run``; on a dense target
+    in ``z``: the base target at ``theta = z L'``, the gradient
+    ``g_theta L``).  ``eps_in`` is the scalar step or the (d,) row
+    ``eps * s``; as in the JAX package, the ``epsilon`` rows then report the
+    row's first entry, ``eps * s_0``, and the scalar under a dense target.
     Returns ((theta, lp, grad), infos stacked over steps)."""
     C, d = theta0.shape
     theta = theta0

@@ -33,7 +33,8 @@ import torch
 from . import philox
 from .target_kernels import (_P, _device_branch, _prepare, _ptr, _seed,
                              check_states, kernel_plan, kernel_rows,
-                             lane_layout, lean_launch, load_library)
+                             lane_layout, lean_launch, load_library,
+                             refuse_dense)
 
 LAUNCHES = {"target_rwm_steps": 0}
 PLAIN_CALLS = {"target_rwm_steps": 0}
@@ -60,6 +61,7 @@ def fused_target_rwm_steps_ref(target, theta, scale_row, *, k_steps, z=None,
     """Plain version of :func:`fused_target_rwm_steps`: the noise is ``z``
     and ``logu`` when given, else drawn from ``generator``.
     Returns (theta, logp (C,), accept rate (C,))."""
+    refuse_dense("target_rwm_steps", target)
     PLAIN_CALLS["target_rwm_steps"] += 1
     if z is None:
         z, logu = _noise(theta.shape[:1] + (k_steps,) + theta.shape[1:],

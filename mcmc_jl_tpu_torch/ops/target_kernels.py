@@ -2,7 +2,7 @@
 
 The Pallas kernels differentiate a user's ``logp_block`` inside the kernel
 with ``jax.vjp``.  CUDA has no autodiff, so the port splits custom targets
-in two (ROADMAP queue 2, "custom targets"):
+in two (ROADMAP: custom targets):
 
 - a **catalog target** — a product of the ten continuous catalog families
   over the coordinates, each with Python-scalar parameters
@@ -24,6 +24,13 @@ wrapper (this module)           Pallas kernel it replaces
 :func:`target_multistep`        ``pallas_target.py _multistep_kernel`` (k
                                 transitions, RNG inside)
 ==============================  ==========================================
+
+The trajectory kernel also takes a :class:`DenseTarget`, a catalog target
+seen through a frozen dense metric (``z -> target(z L')``, the JAX
+package's ``_dense_wrap``): with a scalar step it evaluates the families at
+``theta = z L'`` and returns the gradient in ``z``, ``g_theta L``; such
+launches count as ``target_leapfrogs_dense``.  The other kernels refuse a
+dense target.
 
 A third, :func:`target_logp_grad` (one (logp, gradient) pass, sanitized as
 the model's gradient is), has no Pallas counterpart: it is the generic
@@ -60,7 +67,8 @@ import math
 import numpy as np
 import torch
 
-from ..models.distributions import FAMILY_CODES, CatalogTarget, Distribution
+from ..models.distributions import (FAMILY_CODES, CatalogTarget, DenseTarget,
+                                    Distribution)
 from . import philox
 from .glm_kernels import _draw, _sched, _seed, _trajectory, accept_test
 
@@ -76,7 +84,8 @@ NOT_CATALOG = ("the model is not a product of catalog densities over its "
                "tensor-valued parameters), so the custom-target kernels "
                "cannot take it")
 
-_NAMES = ("target_leapfrogs", "target_multistep", "target_logp_grad")
+_NAMES = ("target_leapfrogs", "target_leapfrogs_dense", "target_multistep",
+          "target_logp_grad")
 LAUNCHES = dict.fromkeys(_NAMES, 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
@@ -160,11 +169,37 @@ def _eps_args(eps, theta):
     return (1.0, e) if isinstance(e, torch.Tensor) else (e, None)
 
 
+def dense_name(name, target):
+    """``name`` of a kernel with ``_dense`` added for a :class:`DenseTarget`:
+    the launches and plain calls of its z-space pass count apart."""
+    return name + "_dense" if isinstance(target, DenseTarget) else name
+
+
+def step_for(name, target, eps, theta):
+    """The step as :func:`_eps` gives it; a dense target takes a scalar
+    (its metric is the factor), so a step row raises."""
+    e = _eps(eps, theta)
+    if isinstance(target, DenseTarget) and isinstance(e, torch.Tensor):
+        raise ValueError(f"{name}: a dense target takes a scalar step, not a "
+                         f"step row: its metric is the factor L")
+    return e
+
+
+def refuse_dense(name, target):
+    """Raise for a :class:`DenseTarget` on a kernel without the z-space
+    pass (every kernel but 5 and 8b)."""
+    if isinstance(target, DenseTarget):
+        raise ValueError(f"{name}: the kernel has no z-space pass for a dense "
+                         f"target (kernels 5 and 8b, target_leapfrogs and "
+                         f"target_nuts_transition, have one)")
+
+
 def target_logp_grad_ref(target, theta):
     """Plain version of :func:`target_logp_grad` (``torch.func``, then the
     model's sanitizing)."""
     from ..models.model import _sanitize_allg
 
+    refuse_dense("target_logp_grad", target)
     PLAIN_CALLS["target_logp_grad"] += 1
     return _sanitize_allg(target_funcs(target)[1])(theta)
 
@@ -172,10 +207,12 @@ def target_logp_grad_ref(target, theta):
 def fused_target_leapfrogs_ref(target, theta, m, grad, eps, *, n_leaps=10,
                                integrator="leapfrog"):
     """Plain version of :func:`fused_target_leapfrogs`."""
-    PLAIN_CALLS["target_leapfrogs"] += 1
+    name = "target_leapfrogs"
+    eps = step_for(name, target, eps, theta)
+    PLAIN_CALLS[dense_name(name, target)] += 1
     grad_only, logp_grad = target_funcs(target)
-    return _trajectory(theta, m, grad, _eps(eps, theta), grad_only,
-                       logp_grad, int(n_leaps), integrator)
+    return _trajectory(theta, m, grad, eps, grad_only, logp_grad,
+                       int(n_leaps), integrator)
 
 
 def target_multistep_ref(target, theta, eps, *, k_trans=10, n_leaps=10,
@@ -185,6 +222,7 @@ def target_multistep_ref(target, theta, eps, *, k_trans=10, n_leaps=10,
     (k, C, d), logu (k, C))`` when given, else from ``generator`` (another
     stream than the kernel's Philox: compare statistically).
     Returns (theta, grad, lp (C,), accept rate (C,))."""
+    refuse_dense("target_multistep", target)
     PLAIN_CALLS["target_multistep"] += 1
     grad_only, logp_grad = target_funcs(target)
     eps = _eps(eps, theta)
@@ -219,7 +257,10 @@ _SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I]
 _ARGTYPES = {
     "target_leapfrogs": [_P, _P, _I, _I] + [_P] * 7 + [_F, _P, _I] + _SCHED
     + [_P],
+    "target_leapfrogs_dense": [_P, _P, _P, _I, _I] + [_P] * 7
+    + [_F, _P, _I] + _SCHED + [_P],
     "target_leapfrogs_plan": [_I] * 2 + [ctypes.POINTER(_I)] * 4,
+    "target_leapfrogs_dense_plan": [_I] * 2 + [ctypes.POINTER(_I)] * 4,
     "target_multistep": [_P, _P, _I, _I] + [_P] * 5 + [_F, _P, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED + [_P],
@@ -292,9 +333,15 @@ def check_states(name, d, theta, states=()):
     return C
 
 
-def kernel_rows(name, target, device):
+def kernel_rows(name, target, device, dense=False):
     """The kernel rows (codes, params) of a catalog target on ``device``;
-    raises for a target without them."""
+    raises for a target without them.  A :class:`DenseTarget` gives its base
+    target's rows where ``dense`` (the kernels with a z-space pass) and
+    raises elsewhere."""
+    if isinstance(target, DenseTarget):
+        if not dense:
+            refuse_dense(name, target)
+        target = target.base
     if not isinstance(target, CatalogTarget) or not target.has_rows:
         raise ValueError(
             f"{name}: the CUDA kernel takes a catalog target (coordwise_logp "
@@ -304,11 +351,12 @@ def kernel_rows(name, target, device):
     return target.rows(device)
 
 
-def kernel_args(name, target, theta, states=()):
+def kernel_args(name, target, theta, states=(), dense=False):
     """Validate what the kernels take: a target with kernel rows at
-    1 <= d <= D_MAX and contiguous float32 (C, d) ``states`` on theta's
-    device (:func:`check_states`).  Returns (codes, params, C, d)."""
-    codes, params = kernel_rows(name, target, theta.device)
+    1 <= d <= D_MAX (a dense target where ``dense``, :func:`kernel_rows`)
+    and contiguous float32 (C, d) ``states`` on theta's device
+    (:func:`check_states`).  Returns (codes, params, C, d)."""
+    codes, params = kernel_rows(name, target, theta.device, dense)
     C = check_states(name, target.d, theta, states)
     return codes, params, C, target.d
 
@@ -357,9 +405,11 @@ def kernel_plan(lib, name, d, C):
             "blocks_per_sm": per_sm}
 
 
-def target_leapfrogs_plan(d, C):
-    """The trajectory kernel's launch at (d, C) (:func:`kernel_plan`)."""
-    return kernel_plan(load_kernels(), "target_leapfrogs_plan", d, C)
+def target_leapfrogs_plan(d, C, dense=False):
+    """The trajectory kernel's launch at (d, C) (:func:`kernel_plan`), on a
+    dense target with ``dense``."""
+    return kernel_plan(load_kernels(), "target_leapfrogs_dense_plan" if dense
+                       else "target_leapfrogs_plan", d, C)
 
 
 def target_multistep_plan(d, C):
@@ -474,21 +524,29 @@ def leapfrogs_launcher(target, theta, eps, integrator="leapfrog"):
     must be contiguous float32 (C, d) on theta's device.  On the card the
     four outputs are buffers the launcher owns, written anew by each call
     (a driver consumes them before its next call), on the stream current
-    when the launcher was made.  On the CPU ``step`` is the plain version."""
+    when the launcher was made.  On the CPU ``step`` is the plain version.
+    A :class:`DenseTarget` (a scalar step) launches the z-space pass,
+    counted as ``target_leapfrogs_dense``."""
     name = "target_leapfrogs"
     C, d = check_states(name, target.d, theta), target.d
+    step_for(name, target, eps, theta)
     if not _device_branch(name, theta):
         def plain(th, m, grad, n_leaps):
             return fused_target_leapfrogs_ref(target, th, m, grad, eps,
                                               n_leaps=n_leaps,
                                               integrator=integrator)
         return plain
-    codes, params = kernel_rows(name, target, theta.device)
+    codes, params = kernel_rows(name, target, theta.device, dense=True)
     eps_s, eps_row = _eps_args(eps, theta)
     outs = (*(torch.empty_like(theta) for _ in range(3)),
             torch.empty(C, dtype=theta.dtype, device=theta.device))
-    call = lean_launch(load_kernels(), LAUNCHES, name, theta.device)
+    entry = dense_name(name, target)
+    call = lean_launch(load_kernels(), LAUNCHES, entry, theta.device)
     head = (_ptr(codes), _ptr(params), d, C)
+    factor = None
+    if entry != name:
+        factor = target.factor(theta.device)
+        head = (_ptr(factor),) + head
     tail = (*(_ptr(o) for o in outs), eps_s, _ptr(eps_row))
     sched = _sched(integrator)
 
@@ -497,7 +555,8 @@ def leapfrogs_launcher(target, theta, eps, integrator="leapfrog"):
              *tail, int(n_leaps), *sched)
         return outs
 
-    step.inputs = (codes, params, eps_row)  # alive as long as the launcher
+    # alive as long as the launcher
+    step.inputs = (codes, params, eps_row, factor)
     return step
 
 
@@ -508,8 +567,10 @@ def fused_target_leapfrogs(target, theta, m, grad, eps, *, n_leaps=10,
 
     ``theta``, ``m``, ``grad`` (C, d) with ``grad`` the gradient at
     ``theta``; ``eps`` a scalar or a (d,) per-coordinate row (the
-    diagonal-metric fold); ``n_leaps`` an int given at run time.  The
-    kernel's layout follows from d (:func:`target_leapfrogs_layout`).
+    diagonal-metric fold); ``n_leaps`` an int given at run time.  On a
+    :class:`DenseTarget` the states are in ``z``, the step a scalar, and lp
+    the base target's at ``theta = z L'``.  The kernel's layout follows from
+    d (:func:`target_leapfrogs_layout`).
     Returns (theta, m, grad, logp (C,)) at the end of the trajectory."""
     name = "target_leapfrogs"
     if not _device_branch(name, theta):

@@ -42,8 +42,10 @@ two phases, and the second is what the fused kernels run:
    trajectory kernel with the leap count given at run time, and exact NUTS
    runs the target-mode NUTS kernel; a diagonal metric needs no fold there,
    it rides the kernels' per-coordinate step row ``eps * s``, and a dense
-   metric is refused (the z-space wrapper of those kernels is not ported).
-   On the CPU the wrappers run their plain versions.
+   metric folds the positions, not the target: the kernels run the z-space
+   target ``z -> target(z L')`` at the scalar step
+   (:func:`dense_target_setup`).  On the CPU the wrappers run their plain
+   versions.
 
 The only departure from running the generic engine end to end is the
 cross-chain pooling of the frozen hyper-parameters: the sampling phase is
@@ -54,10 +56,9 @@ of the warmup's states (:func:`warmfused_chains`), and a resumed batch
 (``resume(list)``, through ``parallel.pchains.presume_serialmc``) runs
 them again from stored states: it has ``burnin=0``, so no adaptation fires
 and its frozen hyper-parameters are read back from the states with the
-same freeze rules.  Not ported yet (ROADMAP queue 1):
-``NUTS(warm_handoff=True)`` and its continuation, the dense metric on
-catalog targets (the z-space wrapper ``dense_target_setup`` on kernels 5
-and 8b), data-bearing targets and ``mesh=``.
+same freeze rules.  Not ported yet: ``NUTS(warm_handoff=True)`` and its
+continuation (ROADMAP: the warm handoff), data-bearing targets (custom
+targets) and ``mesh=`` (the distributed drivers).
 """
 from __future__ import annotations
 
@@ -70,10 +71,6 @@ import torch
 log = logging.getLogger(__name__)
 
 _INTEGRATORS = ("leapfrog", "2stage", "3stage")
-#: why a dense metric on a catalog target takes the generic engine
-DENSE_TARGET = ("the dense metric on a catalog target needs the z-space "
-                "wrapper of the target kernels 5 and 8b (dense_target_setup), "
-                "not ported yet (ROADMAP queue 2: the z-space dense wrapper)")
 
 
 def warm_eligible(task):
@@ -82,9 +79,10 @@ def warm_eligible(task):
     an HMCDA, an adaptive MALA, a ChEES-HMC or an exact NUTS, with a
     burn-in window, on a ``model(glm=...)`` posterior or on a model whose
     ``target_spec`` is a catalog target of at most ``D_MAX`` parameters
-    (warmstart.py ``_warm_ok``).  Other models, and what the JAX package
-    also admits and the port does not yet (the dense metric on a catalog
-    target), are refused with a logged reason."""
+    (warmstart.py ``_warm_ok``), with a unit, diagonal or dense metric.
+    Other models, and ``NUTS(warm_handoff=True)``, which the JAX package
+    also admits and the port does not yet, are refused with a logged
+    reason."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
     from ..samplers.hmcda import HMCDA
@@ -108,7 +106,8 @@ def warm_eligible(task):
     elif type(s) is NUTS:
         if s.warm_handoff:
             log.info("warm start: NUTS(warm_handoff=True) is not ported yet "
-                     "(ROADMAP queue 1); running the generic engine")
+                     "(ROADMAP: the warm handoff); running the generic "
+                     "engine")
             return False
         ok = True
     else:
@@ -122,10 +121,6 @@ def warm_eligible(task):
         if m.size > D_MAX:
             log.info("warm start: d = %d > %d, the custom-target kernels' "
                      "bound; running the generic torch engine", m.size, D_MAX)
-            return False
-        if getattr(s, "_kind", None) == "dense":
-            log.info("warm start: %s; running the generic torch engine",
-                     DENSE_TARGET)
             return False
     return ok
 
@@ -388,16 +383,42 @@ def _chees_target_run(target, theta0, eps_in, eps, T, generator, *, steps,
                        generator, steps=steps, i0=i0, max_leaps=max_leaps)
 
 
+def dense_target_setup(model, s):
+    """The kernels' target under a frozen metric ``s`` (None, a (d,)
+    diagonal or a (d, d) dense Cholesky factor) (warmstart.py
+    ``dense_target_setup``).  Returns ``(target, fold_s)``: for the dense
+    kind the z-space target ``z -> target(z L')`` and ``fold_s = s``
+    (positions fold through :func:`_fold_theta` and unfold through
+    :func:`_unfold`, and the step is the scalar ``eps``); otherwise the
+    model's catalog target and None (a diagonal metric rides the step row,
+    positions stay in model coordinates)."""
+    from ..models.distributions import DenseTarget
+
+    if s is None or s.ndim != 2:
+        return model.target_spec, None
+    return DenseTarget(model.target_spec, s.to(model.device)), s
+
+
+def _target_step(eps, s, fold_s):
+    """The custom-target kernels' step: the scalar under a dense fold, else
+    :func:`_eps_row`."""
+    return float(eps) if fold_s is not None else _eps_row(eps, s)
+
+
 def _dyn_target_phase(model, integrator, eps, T, max_leaps, s, states_w,
                       steps2, i0, generator):
     """The dynamic-length sampling phase on a catalog target of the
-    HMC/HMCDA/MALA and ChEES families (warmstart.py ``_dyn_target_phase``,
-    unit and diagonal metrics): positions stay in model coordinates, the
-    metric rides the step row.  Returns ((theta, lp, grad), rows)."""
-    theta0 = states_w.pars.to(torch.float32).contiguous()
-    return _chees_target_run(model.target_spec, theta0, _eps_row(eps, s),
-                             eps, T, generator, steps=steps2, i0=i0,
-                             max_leaps=max_leaps, integrator=integrator)
+    HMC/HMCDA/MALA and ChEES families (warmstart.py ``_dyn_target_phase``):
+    under a unit or diagonal metric positions stay in model coordinates and
+    the metric rides the step row; under a dense one they fold into ``z``
+    through :func:`dense_target_setup`, and the outputs stay in ``z`` (the
+    caller unfolds them through the same factor).
+    Returns ((theta, lp, grad), rows)."""
+    target, fold_s = dense_target_setup(model, s)
+    return _chees_target_run(target, _fold_theta(states_w.pars, fold_s),
+                             _target_step(eps, s, fold_s), eps, T, generator,
+                             steps=steps2, i0=i0, max_leaps=max_leaps,
+                             integrator=integrator)
 
 
 def _frozen_states(model, sampler, states_w, theta, eps, nl, steps2):
@@ -440,9 +461,8 @@ def _continue_refusal(task, states=None):
     A continuation has ``burnin=0``, so no tuner or dual averaging adapts
     again: the state is frozen and the run is the fixed kernel the fused
     drivers execute.  Every ``_kind`` the port's samplers take (None,
-    "diag", "diag-win", "dense") continues on a GLM, as in the JAX package;
-    the dense metric on a catalog target is refused (the z-space wrapper of
-    kernels 5 and 8b is not ported).  ``states`` is the JAX package's hook
+    "diag", "diag-win", "dense") continues, on a GLM and on a catalog
+    target, as in the JAX package.  ``states`` is the JAX package's hook
     for the warm handoff's trajectory time, which the port does not
     continue."""
     from ..samplers.chees import ChEESHMC
@@ -463,10 +483,7 @@ def _continue_refusal(task, states=None):
         return f"the {s.integrator!r} integrator has no kernel"
     if type(s) is NUTS and s.warm_handoff:
         return ("NUTS(warm_handoff=True) has no fused continuation in the "
-                "port (ROADMAP queue 1: the warm handoff)")
-    if getattr(model, "glm_spec", None) is None \
-            and getattr(s, "_kind", None) == "dense":
-        return DENSE_TARGET
+                "port (ROADMAP: the warm handoff)")
     if isinstance(s, (HMC, HMCDA, ChEESHMC)) or type(s) in (MALA, NUTS):
         return None
     return f"{name} has no fused continuation"
@@ -478,8 +495,7 @@ def continue_eligible(task, states=None):
     unit, diagonal or dense metric), HMCDA, MALA, ChEES-HMC or exact NUTS,
     without ``store_leaps`` and with a kernel integrator, on a GLM posterior
     or a model of at most ``D_MAX`` parameters.  ``NUTS(warm_handoff=True)``
-    states and a dense metric on a catalog target are refused: the port has
-    no handoff continuation and no z-space wrapper."""
+    states are refused: the port has no handoff continuation."""
     return _continue_refusal(task, states) is None
 
 
@@ -505,15 +521,16 @@ def make_fused_continuation(model, sampler, states0):
       ``epsilon``/``ndoublings``/``diverging``.
     A diagonal metric folds into the design on a GLM and rides the step row
     on a catalog target; a dense metric folds into the design and the
-    matrix prior ``lam L' L`` on a GLM.  Each segment's Halton index starts
+    matrix prior ``lam L' L`` on a GLM, and into the positions on a catalog
+    target, whose kernels run ``z -> target(z L')`` at the scalar step
+    (:func:`dense_target_setup`).  Each segment's Halton index starts
     at ``i0``, by default ``max(states.i)``, so successive segments extend
     one sequence.  Routes:
     on a GLM up to ``BIGN_THRESHOLD`` observations the Halton multistep
     kernel (3b) or the NUTS kernels (9 when ``steps`` has a divisor in
     [2, 8] on the card, else 8), above it the N-tiled gradient kernel (4);
     on a catalog target the trajectory kernel (5) or target-mode NUTS (8b).
-    The dense metric on a catalog target and ``mesh=`` are not ported
-    (ROADMAP queue 1)."""
+    ``mesh=`` is not ported (ROADMAP: the distributed drivers)."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.mala import MALA
     from ..samplers.nuts import NUTS
@@ -567,20 +584,16 @@ def make_fused_continuation(model, sampler, states0):
 
         fold_s = s
     else:
-        if s is not None and s.ndim == 2:
-            raise ValueError(DENSE_TARGET)
-        eps_in = _eps_row(eps, s)
+        target, fold_s = dense_target_setup(model, s)
+        eps_in = _target_step(eps, s, fold_s)
 
         def run_phase(states, steps, i0, generator):
             if nuts:
                 return _nuts_target_run(
-                    model.target_spec,
-                    states.pars.to(torch.float32).contiguous(), eps_in,
+                    target, _fold_theta(states.pars, fold_s), eps_in,
                     generator, steps=steps, **nuts_kw)
             return _dyn_target_phase(model, integrator, eps, T, max_leaps, s,
                                      states, steps, i0, generator)
-
-        fold_s = None
 
     def continue_fn(states, steps, generator, i0=None):
         i0 = int(states.i.max()) if i0 is None else i0

@@ -5,8 +5,8 @@ reference: src/runners/runners.jl).
 ``resume`` continues a chain; ``prun`` is the multi-chain engine (the
 reference's Julia-``pmap`` backend, runners.jl:35-42, redesigned as chains
 on a leading tensor dimension — see :mod:`mcmc_jl_tpu_torch.parallel`).
-Only the SerialMC runner is ported; the others are ROADMAP queue 1's
-ensemble runners.
+Only the SerialMC runner is ported; the others are the ensemble runners
+of the ROADMAP.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from .serialmc import SerialMC, run_serialmc, resume_serialmc
 
 def _not_ported(runner):
     return NotImplementedError(
-        f"runner {type(runner).__name__} is not ported yet (ROADMAP queue 1: "
-        f"the ensemble runners); the port runs SerialMC")
+        f"runner {type(runner).__name__} is not ported yet (ROADMAP: the "
+        f"ensemble runners); the port runs SerialMC")
 
 
 def _as_task(x, *rest):

@@ -4,7 +4,8 @@ tests/test_mass_adapt.py (a rho = 0.95 Gaussian of mixed scales), the warm
 pipeline on GLMs (the pooled factor folded into the design and the matrix
 prior of kernels 3b, 4 and 8, whose plain versions run here) against the
 generic engine and the JAX package's warm route, the fused continuation of
-such runs, and the refusal of a dense catalog target."""
+such runs, and the routes of a dense catalog target (the z-space target on
+kernels 5 and 8b, tests/test_torch_dense_target.py)."""
 import logging
 
 import numpy as np
@@ -243,15 +244,19 @@ def test_dense_warm_route_matches_jax():
     np.testing.assert_allclose(np.diag(sig), np.diag(jsig), rtol=0.5)
 
 
-# ---- what the port refuses ---------------------------------------------------
+# ---- the dense metric on catalog targets --------------------------------------
 
 
-def test_dense_catalog_target_is_refused_with_a_reason(caplog):
-    """A dense metric on a catalog target needs the z-space wrapper of
-    kernels 5 and 8b, which is not ported: warm_eligible and the
-    continuation refuse it with a logged reason, and run(fused=True) samples
-    it on the generic engine (no kernel and no plain version runs); the
-    diagonal metric on the same model still takes the warm route."""
+def test_dense_catalog_target_takes_the_kernels(caplog):
+    """A dense metric on a catalog target runs the z-space target (``z ->
+    target(z L')``) on kernels 5 and 8b: warm_eligible admits HMC, HMCDA
+    and NUTS with mass_adapt="dense", _route sends them to the warm and
+    NUTS routes and continuation_route continues them there, and no
+    refusal is logged; run(fused=True) runs the dense kernels' plain
+    versions and keeps each chain's dense accumulator; the continuation
+    takes any stored factor (a scaled one here).  The diagonal metric on
+    the same model still takes the warm route, and a dense catalog target
+    above D_MAX takes the generic engine with its reason."""
     def ex(a, b):
         mt.tilde(a, mt.Gamma(3.0, 0.2))
         mt.tilde(b, mt.Normal(1.0, 2.0))
@@ -260,27 +265,48 @@ def test_dense_catalog_target_is_refused_with_a_reason(caplog):
                  b=np.array([1.0]))
     assert m.target_spec is not None
     r = mt.SerialMC(steps=60, burnin=30)
-    hmc = mt.HMC(5, 0.05, mass_adapt="dense")
-    for s in (hmc, mt.HMCDA(mass_adapt="dense"),
-              mt.NUTS(4, mass_adapt="dense")):
+    cases = ((mt.HMC(5, 0.05, mass_adapt="dense"), "warm",
+              "target_leapfrogs_dense"),
+             (mt.HMCDA(mass_adapt="dense"), "warm", "target_leapfrogs_dense"),
+             (mt.NUTS(4, mass_adapt="dense"), "nuts",
+              "target_nuts_transition_dense"))
+    for s, route, kernel in cases:
         caplog.clear()
         with caplog.at_level(logging.INFO):
-            assert not tws.warm_eligible(MCMCTask(m, s, r))
-            assert pchains._route(MCMCTask(m, s, r), True) is False
-            assert pchains.continuation_route(m, s, 4, True) is False
-        assert caplog.text.count("z-space wrapper") == 3, caplog.text
-        assert tws._continue_refusal(MCMCTask(m, s, None)) == tws.DENSE_TARGET
+            assert tws.warm_eligible(MCMCTask(m, s, r))
+            assert pchains._route(MCMCTask(m, s, r), True) == route
+            assert pchains.continuation_route(m, s, 4, True) == route
+        assert "z-space wrapper" not in caplog.text, caplog.text
+        assert "generic" not in caplog.text, caplog.text
+        assert tws._continue_refusal(MCMCTask(m, s, None)) is None
         _reset()
         cs = mt.run(m * s * r, chains=2, seed=0, fused=True)
-        assert not _plain_calls() and len(cs) == 2
+        assert _plain_calls() == {kernel: 30} and len(cs) == 2
         assert cs[0].task.state.mass.scale.shape == (3, 3)
-        if s is hmc:
-            states = tree_map(lambda *xs: torch.stack(xs),
-                              *[c.task.state for c in cs])
+        states = tree_map(lambda *xs: torch.stack(xs),
+                          *[c.task.state for c in cs])
+        states = states.replace(mass=states.mass.replace(
+            scale=2.0 * states.mass.scale))
+        _reset()
+        infos, out = tws.make_fused_continuation(m, s, states)(
+            states, 5, torch.Generator().manual_seed(1))
+        assert _plain_calls() == {kernel: 5}
+        assert torch.isfinite(infos["ppars"]).all()
+        assert torch.equal(out.i, states.i + 5)
     assert pchains._route(MCMCTask(m, mt.HMC(5, 0.05, mass_adapt="diag"), r),
                           True) == "warm"
-    # the continuation itself refuses a dense factor on a catalog target
-    states = states.replace(mass=states.mass.replace(
-        scale=2.0 * states.mass.scale))
-    with pytest.raises(ValueError, match="z-space wrapper"):
-        tws.make_fused_continuation(m, hmc, states)
+
+    def ex_big(x):
+        mt.tilde(x, mt.Normal(0.0, 1.0))
+
+    big = mt.model(ex_big, gradient=True, device="cpu",
+                   x=np.zeros(tk.D_MAX + 1))
+    assert big.target_spec is not None
+    for s, _, _ in cases:
+        caplog.clear()
+        with caplog.at_level(logging.INFO):
+            assert not tws.warm_eligible(MCMCTask(big, s, r))
+            assert pchains._route(MCMCTask(big, s, r), True) is False
+            assert pchains.continuation_route(big, s, 4, True) is False
+        assert caplog.text.count(f"d = {tk.D_MAX + 1} > {tk.D_MAX}") == 3, \
+            caplog.text
