@@ -57,7 +57,12 @@ takes (3b, 9, 8, 4, 5 and 8b, and 5 and 8b dense), with the frozen
 hyper-parameters, ``pos``,
 the moments and repeatability checked and the time beside a chain-by-chain
 resume; a mixed list keeps its order, and a ``save_chain``/``load_chain``
-round trip resumes bit for bit.  It also runs the HMC step
+round trip resumes bit for bit.  Then the samplers that run on the
+generic engine in both packages: Barker and WALNUTS on a Gamma catalog
+model (every gradient one launch of the gradient pass, never a NUTS
+kernel), IMH and RAM on a Normal one, and ``slice_sample``, each held to
+its target's exact moments, and WAIC and PSIS-LOO of the HMC main path's
+last draws (``phase_generic_samplers``).  It also runs the HMC step
 and multi-transition kernels through their drivers, times drivers and
 kernels beside their plain versions and the least time the card could take
 for the same work, and prints one JSON line per phase.
@@ -683,7 +688,7 @@ def phase_timing(C=65536, steps=2000, n_leaps=10, eps=0.05, k_trans=200,
 
     XT, Yc, theta, m0, logu, lp, g = _inputs(C, seed=4)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    plain_k = 200
+    plain_k = 100
     sec = _time(lambda: gk.glm_multistep_ref(
         XT, Yc, theta, eps, k_trans=plain_k, n_leaps=n_leaps, generator=gen),
         reps=2)
@@ -2018,7 +2023,7 @@ def _origin(m, task, chains):
 
 
 def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
-                        N=100_000, ref_steps=2000):
+                        N=100_000, ref_steps=1000):
     """N = 100,000 (bench.py's data; the posterior 10 times narrower than at
     N = 1000), every chain starting at the posterior mode:
 
@@ -2026,7 +2031,7 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
        tiled driver, once per drift; held against 512 generic-engine chains
        from the same start over the same transitions;
     2. adaptive ``HMC(10, 0.002, EmpMCTuner(0.8, adapt_step=50)) *
-       SerialMC(150, 50)`` at 512 chains (``bign.py:73``'s (200, 50) cut
+       SerialMC(110, 50)`` at 512 chains (``bign.py:73``'s (200, 50) cut
        to keep the script under 600 s): the warm route's sampling phase
        through the tiled kernel; held against 512 of run 1's chains
        continued ``ref_steps`` transitions.
@@ -2071,11 +2076,11 @@ def phase_large_n_paths(chains=4096, chains_adaptive=512, generic_chains=512,
     del ref, samples, gs, cg
 
     task = m * mt.HMC(10, 0.002, mt.EmpMCTuner(0.8, adapt_step=50)) \
-        * mt.SerialMC(steps=150, burnin=50)
+        * mt.SerialMC(steps=110, burnin=50)
     origin = _origin(m, task, chains_adaptive)
     cs, samples, launches, dt, spans = _path(
         origin, task, chains_adaptive,
-        {"glm_logp_grad_tiled": lambda n: n >= 100 + 1})
+        {"glm_logp_grad_tiled": lambda n: n >= 60 + 1})
     st = cs[0].task.state
     z = _z_means(samples.mean(1), ref_means)
     emit({"phase": "large_n_path", "kernel": "glm_logp_grad_tiled",
@@ -3743,9 +3748,9 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
       gates; its min-coordinate ESS and ESS/s beside the same run with
       ``mass_adapt=True`` (3b with the (d,) row);
     - N 100,000 (bench.py's data, from the mode), 512 chains, ``HMC(10,
-      0.002, EmpMCTuner(0.8, 50), mass_adapt="dense") * SerialMC(150, 50)``
+      0.002, EmpMCTuner(0.8, 50), mass_adapt="dense") * SerialMC(110, 50)``
       (benchunits/bign.py:73's sampler, phase_large_n_paths' SerialMC(200,
-      50) cut to 150 transitions for the script's 600 s; 4), held against
+      50) cut to 110 transitions for the script's 600 s; 4), held against
       ``bign_ref`` (phase_large_n_paths' reference).
 
     Returns the variants' launches and the folds the kernel checks and
@@ -3858,11 +3863,11 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
     Xb, Yb, mode_b = _bench_mode(100_000)
     mb = mt.model(glm=("logistic", Xb, Yb), init=mode_b, device="cuda")
     task = mb * mt.HMC(10, 0.002, mt.EmpMCTuner(0.8, adapt_step=50),
-                       mass_adapt="dense") * mt.SerialMC(steps=150, burnin=50)
+                       mass_adapt="dense") * mt.SerialMC(steps=110, burnin=50)
     origin = _origin(mb, task, chains_bign)
     cs, samples, launches, dt, spans = _path(
         origin, task, chains_bign,
-        {"glm_logp_grad_tiled_mat": lambda n: n >= 100 + 1})
+        {"glm_logp_grad_tiled_mat": lambda n: n >= 60 + 1})
     st = cs[0].task.state
     folds["n1e5"] = (_pooled_factor(cs),)
     z = _z_means(samples.mean(1), bign_ref)
@@ -4689,7 +4694,7 @@ def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
 
 
 def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
-                     steps=600, burnin=200, bign_steps=(100, 50),
+                     steps=600, burnin=200, bign_steps=(80, 50),
                      thin=200, n=1000, n_bign=100_000):
     """A logistic regression of d = 150 (wide_data) through the port's entry
     points, every launch counted from zero over one run and every run held
@@ -4709,9 +4714,9 @@ def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
       launches of 8), against the generic run; ``resume(chains, steps=120)``
       of the diagonal run (3b: 15 launches of 8);
     - N 100,000 from the posterior mode: ``HMC(10, WIDE_BIGN_EPS,
-      EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(100, 50)`` at 512
+      EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(80, 50)`` at 512
       chains, diagonal and dense (4, 4_mat; phase_large_n_paths'
-      SerialMC(200, 50) cut to 50 sampling transitions, for the script's
+      SerialMC(200, 50) cut to 30 sampling transitions, for the script's
       600 s), against plain ``HMC(10, WIDE_BIGN_EPS)`` on
       512 generic-engine chains from the same start.
 
@@ -5391,7 +5396,7 @@ def phase_dense_target_kernels(C=4096, ragged=4099, big_C=65_536, md=6):
 
 
 def phase_dense_target_paths(chains=4096, generic_chains=512,
-                             generic_steps=50):
+                             generic_steps=30):
     """The dense metric on catalog targets through ``run(..., chains=C)``,
     float32, each with every count zeroed just before it and read just
     after, no plain call:
@@ -5642,9 +5647,12 @@ def main():
     del gmeans
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
+    # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
+    # on the generic engine (Barker and WALNUTS through the gradient pass)
+    step("generic_samplers", phase_generic_samplers, final)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    step("timing", phase_timing, steps=400, reps=2)
+    step("timing", phase_timing, steps=200, reps=2)
     # kernels 1-4 at the shapes whose launches are counted above (1-3 also
     # at bench.py's 65536 chains)
     ms, work = step("tile_times", phase_tile_times)
@@ -5679,6 +5687,157 @@ def main():
     emit({"ok": True, "device": {"platform": "gpu", "kind": CARD["kind"],
                                  "count": CARD["count"]}})
     torch.cuda.synchronize()
+
+
+def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
+                           slice_iters=2000):
+    """The samplers that run on the generic engine in both packages, at
+    d = 10 in float32 on the card, each through ``run(..., chains=N)`` with
+    every count zeroed just before it and read just after, and each held
+    to the exact moments of its target (every coordinate's mean and second
+    moment, |z| < Z_MAX over the per-chain means):
+
+    - ``Barker(0.3, EmpMCTuner(0.57, adapt_step=25)) * SerialMC(400, 100)``
+      on ``x ~ Gamma(3, 0.2)``, 4096 chains: every (logp, grad) is one
+      launch of the gradient pass ``target_logp_grad`` (one a transition
+      and one at init); ``linear_zv`` of chain 0 lowers its variance;
+    - ``WALNUTS(multinomial=True, maxdoublings=5) * SerialMC(150, 50)`` on
+      the same model, 1024 chains: gradient-pass launches counted, and no
+      launch of the NUTS kernels 8, 8b or 9 (WALNUTS takes the generic
+      engine, pchains._route);
+    - ``IMH(MvNormal(1, 4 I))`` and ``RAM(1.0, 0.3)`` with
+      ``SerialMC(1000, 200)`` on ``x ~ Normal(1, 1)`` from x = 0, 4096
+      chains (they take no gradient).  The IMH proposal is centred on the
+      target: off centre, MvNormal(0, 4 I) has an importance weight that
+      peaks at 2.36^10 ~ 5300, and independence chains from it are still
+      biased after 1000 steps (the same chains simulated in numpy: pooled
+      mean 0.968, |z| 6.3 at 4096 chains); centred, the peak is 2^10;
+    - ``slice_sample`` on a correlated 2-D Gaussian, 2000 iterations on a
+      CUDA tensor: each mean within Z_MAX standard errors (from its ESS);
+    - ``pointwise_loglik`` of the logistic GLM (N 1000) over the HMC main
+      path's last draws ``final`` (chains, 10) on the card; ``waic`` and
+      ``psis_loo`` of it are finite, the largest k-hat printed.
+
+    Returns {path: seconds}."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    seconds = {}
+    gamma, normal = mt.Gamma(3.0, 0.2), mt.Normal(1.0, 1.0)
+    grad_pass = {"target_logp_grad": lambda n: n > 0}
+    runs = [
+        ("barker", gamma, 1.1, mt.Barker(0.3, mt.EmpMCTuner(0.57,
+                                                            adapt_step=25)),
+         400, 100, chains, grad_pass),
+        ("walnuts", gamma, 1.1, mt.WALNUTS(multinomial=True, maxdoublings=5),
+         150, 50, walnuts_chains, grad_pass),
+        ("imh", normal, 0.0, mt.IMH(mt.MvNormal(
+            torch.ones(10, device="cuda"),
+            4.0 * torch.eye(10, device="cuda"))), 1000, 200, chains, {}),
+        ("ram", normal, 0.0, mt.RAM(1.0, 0.3), 1000, 200, chains, {})]
+    for name, dist, x0, sampler, steps, burnin, n, want in runs:
+        m = mt.model(lambda x, _d=dist: mt.tilde(x, _d), x=np.full(10, x0),
+                     gradient=True, device="cuda")
+        assert m.target_spec is not None, name
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(model(x ~ {dist!r}, x=fill({x0:g}, 10)) * "
+                  f"{sampler!r} * SerialMC({steps}, {burnin}), chains={n})")
+        cs, samples, launches, dt, _ = _path(origin, task, n, want)
+        z_ex = _moments_z((samples.mean(1), (samples ** 2).mean(1)), dist)
+        grads = launches["target_logp_grad"]
+        row = {"phase": "generic_sampler", "sampler": name, "from": origin,
+               "chains": n, "seconds": dt, "grad_pass_launches": grads,
+               "grad_pass_per_transition": grads / steps,
+               "accept_rate": float(np.mean([mt.acceptance(c)
+                                             for c in cs])) / 100,
+               "pooled_mean": float(samples.mean()),
+               "exact_mean": float(dist.mean()),
+               "pooled_sd": float(samples.std()),
+               "exact_sd": float(dist.std()), "z_max_vs_exact": z_ex}
+        if name == "barker":
+            assert grads == steps + 1, launches
+            zv, _ = mt.linear_zv(cs[0])
+            raw = cs[0].samples.values.astype(np.float64).var(0)
+            row["zv_var_ratio_max"] = float(np.max(zv.var(0) / raw))
+            assert np.all(zv.var(0) <= raw), (zv.var(0), raw)
+        if name == "walnuts":
+            for k in ("glm_nuts_transition", "glm_nuts_multistep",
+                      "target_nuts_transition",
+                      "target_nuts_transition_dense"):
+                assert launches.get(k, 0) == 0, launches
+            row["irreversible_share"] = float(np.mean(np.concatenate(
+                [c.diagnostics["irreversible"] for c in cs])))
+            row["mean_ndoublings"] = float(np.mean(np.concatenate(
+                [c.diagnostics["ndoublings"] for c in cs])))
+        ok = z_ex < Z_MAX
+        emit({**row, "ok": ok, **CARD})
+        assert ok, f"{origin} disagrees with the exact moments"
+        seconds[name] = dt
+        print(f"generic_samplers {name}: {dt:.3f} s, {grads} gradient-pass "
+              f"launches ({grads / steps:.3f} a transition); {CARD['card']}",
+              flush=True)
+
+    # the standalone slice sampler on a CUDA tensor
+    mu = torch.tensor([1.0, -2.0], device="cuda")
+    prec = torch.linalg.inv(torch.tensor([[1.0, 0.6], [0.6, 2.0]],
+                                         device="cuda"))
+
+    def gauss(q):
+        r = q - mu
+        return -0.5 * (r @ prec @ r)
+
+    t0 = time.perf_counter()
+    hist = mt.slice_sample(gauss, torch.zeros(2, device="cuda"),
+                           slice_iters, widths=2.0, seed=5)
+    dt = time.perf_counter() - t0
+    assert hist.shape == (slice_iters, 2) and np.all(np.isfinite(hist))
+    se = hist.std(0) / np.sqrt(mt.ess(hist))
+    z = float(np.max(np.abs(hist.mean(0) - mu.cpu().numpy()) / se))
+    ok = z < Z_MAX
+    emit({"phase": "generic_sampler", "sampler": "slice_sample",
+          "from": f"slice_sample(2-D Gaussian, zeros(2), {slice_iters}, "
+                  f"widths=2.0)", "seconds": dt, "mean": hist.mean(0).tolist(),
+          "exact_mean": mu.tolist(), "ess": mt.ess(hist).tolist(),
+          "z_max_vs_exact": z, "ok": ok, **CARD})
+    assert ok, "slice_sample disagrees with its target's mean"
+    seconds["slice_sample"] = dt
+    print(f"generic_samplers slice_sample: {dt:.3f} s; {CARD['card']}",
+          flush=True)
+
+    # information criteria over the HMC main path's last draws
+    X, Y = bench_data()
+    Xt = torch.tensor(X, dtype=torch.float32, device="cuda")
+    Yt = torch.tensor(Y, dtype=torch.float32, device="cuda")
+
+    def loglik_pw(theta):
+        z = Xt @ theta
+        return Yt * z - torch.nn.functional.softplus(z)
+
+    t0 = time.perf_counter()
+    ll = mt.pointwise_loglik(loglik_pw, torch.as_tensor(final,
+                                                        device="cuda"))
+    w, loo = mt.waic(ll), mt.psis_loo(ll)
+    dt = time.perf_counter() - t0
+    assert ll.shape == (len(final), X.shape[0]) and np.all(np.isfinite(ll))
+    ok = (all(np.isfinite(w[k]) for k in ("elpd_waic", "p_waic", "waic",
+                                          "se"))
+          and all(np.isfinite(loo[k]) for k in ("elpd_loo", "p_loo", "looic",
+                                                "se"))
+          and np.all(np.isfinite(loo["pareto_k"])))
+    emit({"phase": "generic_sampler", "sampler": "pointwise_loglik",
+          "from": f"pointwise_loglik(logistic GLM N {X.shape[0]}, the HMC "
+                  f"main path's last draws ({len(final)}, {X.shape[1]}))",
+          "seconds": dt, "waic": w["waic"], "p_waic": w["p_waic"],
+          "looic": loo["looic"], "p_loo": loo["p_loo"],
+          "max_pareto_k": float(np.max(loo["pareto_k"])), "ok": bool(ok),
+          **CARD})
+    assert ok, "waic / psis_loo of the main path's draws are not finite"
+    seconds["pointwise_loglik"] = dt
+    print(f"generic_samplers pointwise_loglik + waic + psis_loo: {dt:.3f} s,"
+          f" max k-hat {float(np.max(loo['pareto_k'])):.4f}; {CARD['card']}",
+          flush=True)
+    return seconds
 
 
 def phase_path_spans(chains=4096):

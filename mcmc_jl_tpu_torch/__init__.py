@@ -3,9 +3,11 @@
 The same ``chain = model * sampler * runner`` surface, on PyTorch tensors
 and hand-written CUDA kernels for the H100.  Ported so far:
 ``model(glm=...)``, callable and ``~`` DSL models over the distribution
-catalog; ``HMC`` (fixed step, EmpMCTuner, diagonal mass adaptation),
-``HMCDA``, ``MALA``, exact ``NUTS``, ``ChEESHMC`` and ``RWM`` under
-``SerialMC``; many chains through ``run(task, chains=N)`` with the fused
+catalog, with the metric tensors of ``tensor=``/``dtensor=``; ``HMC``
+(fixed step, EmpMCTuner, diagonal and dense mass adaptation), ``HMCDA``,
+``MALA``, exact ``NUTS``, ``WALNUTS``, ``ChEESHMC``, ``RWM``, ``Barker``,
+``IMH`` and ``RAM`` under ``SerialMC``, and the standalone
+``slice_sample``; many chains through ``run(task, chains=N)`` with the fused
 GLM-HMC kernels at any N (the N-tiled gradient kernel above 16384
 observations), the warm-start pipeline (adaptive HMC/HMCDA/MALA and ChEES
 through the Halton multistep kernel or the tiled kernel, exact NUTS through
@@ -16,7 +18,11 @@ NUTS through ``ops.nuts_kernels.target_nuts_transition``; fused RWM in
 ``ops.rwm_kernels``); ``resume(list_of_chains)``, which re-batches a run's
 chains and continues frozen HMC-family and exact-NUTS groups on the same
 kernels; checkpoints (``utils.io``); and the chain statistics with the
-cross-chain diagnostics ``rhat``, ``ess_pooled`` and ``summarize_chains``.  Models live on the CUDA
+cross-chain diagnostics ``rhat``, ``ess_pooled`` and ``summarize_chains``,
+the zero-variance estimators, WAIC and PSIS-LOO, and the evidence
+estimators.  Barker, WALNUTS, IMH and RAM run on the generic engine; on a
+float32 catalog model on the card every gradient they take is one launch
+of the custom-target gradient pass.  Models live on the CUDA
 card unless ``device="cpu"`` is given.  It imports ``torch`` and never
 ``jax``.
 
@@ -41,40 +47,56 @@ from .models.distributions import (
     Laplace, Bernoulli, TDist, Exponential, Poisson, MvNormal, Truncated,
     RightCensored, LeftCensored, Distribution, logpdf, logcdf, logccdf,
 )
+from .models import distributions
 from .models.dsl import tilde, observe, acc, factor
 from .core.task import MCMCTask
 from .core.chain import MCMCChain
 from .samplers import (HMC, HMCState, HMCDA, HMCDAState, EmpMCTuner, MALA,
                        MALAState, NUTS, NUTSState, RWM, RWMState, ChEESHMC,
-                       ChEESState)
+                       ChEESState, Barker, BarkerState, IMH, IMHState, RAM,
+                       RAMState, WALNUTS, slice_sample)
 from .runners.serialmc import SerialMC
 from .runners.api import run, resume, prun
 from .stats import (
-    mean, mcvar, mcse, var, std, ess, actime, acceptance, describe, rhat,
-    ess_pooled, summarize_chains,
+    mean, mean_rb, mcvar, mcse, var, std, ess, actime, acceptance, describe,
+    wsample, linear_zv, quadratic_zv, linearZv, quadraticZv, rhat,
+    ess_pooled, summarize_chains, mcmc_quantile, logz_ti, logz_ss,
+    pointwise_loglik, waic, psis_loo,
 )
-from .utils.convert import (chees_state_from_numpy, distribution_from_fields,
-                            glm_model_from_spec, hmc_state_from_numpy,
-                            hmcda_state_from_numpy, mala_state_from_numpy,
-                            nuts_state_from_numpy, rwm_state_from_numpy)
+from .stats import compare as compare_elpd
+from .utils.convert import (barker_state_from_numpy, chees_state_from_numpy,
+                            distribution_from_fields, glm_model_from_spec,
+                            hmc_state_from_numpy, hmcda_state_from_numpy,
+                            imh_state_from_numpy, mala_state_from_numpy,
+                            nuts_state_from_numpy, ram_state_from_numpy,
+                            rwm_state_from_numpy)
+
+# legacy alias matching the reference's MCMCLikModel typealias (likmodel.jl:69)
+MCMCLikModel = LogDensityModel
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "model", "LogDensityModel", "GLMSpec", "MCMCTask", "MCMCChain",
+    "model", "LogDensityModel", "MCMCLikModel", "GLMSpec", "MCMCTask",
+    "MCMCChain", "distributions",
     "HMC", "HMCState", "HMCDA", "HMCDAState", "EmpMCTuner", "MALA",
     "MALAState", "NUTS", "NUTSState", "RWM", "RWMState", "ChEESHMC",
-    "ChEESState", "SerialMC", "run",
-    "resume", "prun", "mean", "mcvar", "mcse", "var", "std", "ess",
-    "actime", "acceptance", "describe", "rhat", "ess_pooled",
-    "summarize_chains", "Normal", "Uniform", "Weibull",
+    "ChEESState", "Barker", "BarkerState", "IMH", "IMHState", "RAM",
+    "RAMState", "WALNUTS", "slice_sample", "SerialMC", "run",
+    "resume", "prun", "mean", "mean_rb", "mcvar", "mcse", "var", "std",
+    "ess", "actime", "acceptance", "describe", "wsample", "linear_zv",
+    "quadratic_zv", "linearZv", "quadraticZv", "rhat", "ess_pooled",
+    "summarize_chains", "mcmc_quantile", "logz_ti", "logz_ss",
+    "pointwise_loglik", "waic", "psis_loo", "compare_elpd",
+    "Normal", "Uniform", "Weibull",
     "Gamma", "Cauchy", "LogNormal", "Binomial", "Beta", "Laplace",
     "Bernoulli", "TDist", "Exponential", "Poisson", "MvNormal", "Truncated",
     "RightCensored", "LeftCensored", "Distribution", "logpdf", "logcdf",
     "logccdf", "tilde", "observe", "acc", "factor",
-    "chees_state_from_numpy", "distribution_from_fields",
-    "glm_model_from_spec",
+    "barker_state_from_numpy", "chees_state_from_numpy",
+    "distribution_from_fields", "glm_model_from_spec",
     "hmc_state_from_numpy", "hmcda_state_from_numpy",
-    "mala_state_from_numpy", "nuts_state_from_numpy",
+    "imh_state_from_numpy", "mala_state_from_numpy",
+    "nuts_state_from_numpy", "ram_state_from_numpy",
     "rwm_state_from_numpy",
 ]

@@ -30,9 +30,9 @@ such distributions over the coordinates, with their rows; a
 :class:`DenseTarget` is one seen through a frozen dense metric,
 ``z -> target(z L')``, which kernels 5 and 8b take with the factor.
 
-The cdfs of ``Beta``, ``TDist`` and ``Binomial`` need the regularized
-incomplete beta function, which torch lacks: they raise (ROADMAP: the
-Beta, TDist and Binomial cdfs).
+The cdfs of ``Beta``, ``TDist`` and ``Binomial`` go through the
+regularized incomplete beta function of ``ops/betainc.py`` (torch has
+none), which is differentiable in ``x`` only, as JAX's ``betainc`` is.
 """
 from __future__ import annotations
 
@@ -41,6 +41,8 @@ import math
 import numbers
 
 import torch
+
+from ..ops.betainc import betainc
 
 _REGISTRY = {}
 
@@ -171,12 +173,6 @@ class Distribution:
 
     def __neg__(self):
         return LeftCensored(self)
-
-
-def _betainc_missing(name):
-    raise NotImplementedError(
-        f"{name} needs the regularized incomplete beta function, which torch "
-        f"lacks (ROADMAP: the Beta, TDist and Binomial cdfs)")
 
 
 @distribution
@@ -639,13 +635,14 @@ class Beta(Distribution):
         return torch.where(inside, lp, -_INF)
 
     def cdf(self, x):
-        _betainc_missing("Beta.cdf")
+        x, a, b = _prep(x, self.a, self.b)
+        return betainc(a, b, torch.clamp(x, 0.0, 1.0))
 
     def logcdf(self, x):
-        _betainc_missing("Beta.logcdf")
+        return _log_of(self.cdf(x))
 
     def logccdf(self, x):
-        _betainc_missing("Beta.logccdf")
+        return _log_of(1.0 - self.cdf(x))
 
     def sample(self, generator, shape=()):
         ga = Gamma(self.a, 1.0).sample(generator, shape)
@@ -743,13 +740,15 @@ class TDist(Distribution):
         return torch.where(ok, lp, -_INF)
 
     def cdf(self, x):
-        _betainc_missing("TDist.cdf")
+        x, v = _prep(x, self.df)
+        ib = betainc(0.5 * v, 0.5, v / (v + x * x))
+        return torch.where(x > 0, 1.0 - 0.5 * ib, 0.5 * ib)
 
     def logcdf(self, x):
-        _betainc_missing("TDist.logcdf")
+        return _log_of(self.cdf(x))
 
     def logccdf(self, x):
-        _betainc_missing("TDist.logccdf")
+        return _log_of(1.0 - self.cdf(x))
 
     def sample(self, generator, shape=()):
         z = Normal(0.0, 1.0).sample(generator, _shape(shape, self.df))
@@ -835,13 +834,19 @@ class Binomial(Distribution):
         return torch.where(ok & sup, lp, -_INF)
 
     def cdf(self, x):
-        _betainc_missing("Binomial.cdf")
+        x, n, p = _prep(x, self.n, self.p)
+        # floor has a zero derivative: detached, so that the cdf's gradient
+        # in x is zero rather than a gradient in betainc's b, which raises
+        k = torch.floor(torch.minimum(torch.clamp(x, min=-1.0), n)).detach()
+        # P(X <= k) = I_{1-p}(n-k, k+1)
+        c = betainc(torch.clamp(n - k, min=1e-12), k + 1.0, 1.0 - p)
+        return torch.where(k < 0, 0.0, torch.where(k >= n, 1.0, c))
 
     def logcdf(self, x):
-        _betainc_missing("Binomial.logcdf")
+        return _log_of(self.cdf(x))
 
     def logccdf(self, x):
-        _betainc_missing("Binomial.logccdf")
+        return _log_of(1.0 - self.cdf(x))
 
     def sample(self, generator, shape=()):
         def fn(s, dt, dev):

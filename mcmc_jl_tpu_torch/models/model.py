@@ -5,6 +5,8 @@ The model is a frozen record of functions over a flat parameter vector:
 
 - ``eval(theta)``              log-target                      (likmodel.jl:21)
 - ``evalg / evalallg``         gradient / (logp, grad)         (likmodel.jl:22,25)
+- ``evalt / evalallt``         metric tensor / (logp, grad, G) (likmodel.jl:23,26)
+- ``evaldt / evalalldt``       tensor derivatives / all four   (likmodel.jl:24,27)
 - ``pmap``                     name -> (offset, shape), 1-based offsets
 - ``init`` / ``scale``         initial values and scaling hints
 
@@ -17,8 +19,9 @@ Ported modes: callable (``f`` with ``grad=``, or
 ``gradient=True`` through ``torch.func``), ``glm=`` (logistic, linear,
 poisson or probit link, or a custom ``(ll, resid)`` pair; weights, offsets
 and a scalar prior precision) and the ``~`` DSL (named parameters, 1-based
-offsets, matrices column-major).  ``tensor``/``dtensor`` are the ROADMAP
-item "tensor=/dtensor= models".
+offsets, matrices column-major); the manifold samplers' tensors
+(``tensor=``/``dtensor=``, derived with ``torch.func`` or given), and
+``debug=True``, which returns the traced log-target.
 
 Out-of-support semantics: the log-target is sanitized to ``-inf`` (NaN ->
 -inf) and the gradient to zero whenever the log-target is not finite
@@ -106,6 +109,13 @@ class LogDensityModel:
     #: their parameters: a ``CatalogTarget`` (models/distributions.py) that
     #: enables the fused custom-target routing in prun/run(chains=)
     target_spec: Any = None
+    #: the tensor family (reference likmodel.jl:23-27): metric tensor G(theta)
+    #: (d, d) per chain, its derivatives dG[i, j, k] = dG_ij/dtheta_k, and
+    #: the tuples (logp, grad, G) and (logp, grad, G, dG)
+    evalt: Optional[Callable] = None
+    evaldt: Optional[Callable] = None
+    evalallt: Optional[Callable] = None
+    evalalldt: Optional[Callable] = None
 
     @property
     def device(self):
@@ -122,11 +132,11 @@ class LogDensityModel:
 
     @property
     def hastensor(self):
-        return False
+        return self.evalt is not None
 
     @property
     def hasdtensor(self):
-        return False
+        return self.evaldt is not None
 
     # -- parameter <-> named variables (reference expr_funcs.jl:39-91) -----
     def unravel(self, theta):
@@ -342,12 +352,15 @@ def model(
     grad: Optional[Callable] = None,
     tensor: Any = None,
     dtensor: Any = None,
+    alltensor: Optional[Callable] = None,
+    alldtensor: Optional[Callable] = None,
     init: Any = None,
     scale: Any = 1.0,
     pmap: Optional[dict] = None,
     gradient: bool = False,
     mtype: str = "likelihood",
     check_init: bool = True,
+    debug: bool = False,
     device: Any = None,
     dtype: Optional[torch.dtype] = None,
     **params,
@@ -371,16 +384,24 @@ def model(
        ``target_spec``, which routes plain HMC and MALA to the
        custom-target kernels.
 
+    ``tensor=True`` derives the metric tensor as the negative Hessian of
+    the log-target (``torch.func.hessian``) and ``dtensor=True`` its
+    derivatives (``torch.func.jacfwd``, ``dG[i, j, k] = dG_ij/dtheta_k``);
+    a callable gives them for one vector, and ``alltensor``/``alldtensor``
+    give ``(logp, grad, G)`` / ``(logp, grad, G, dG)`` at once.  A tensor
+    needs a gradient, and ``dtensor=True`` a tensor.
+
+    ``debug=True`` returns the traced log-target instead of a model: the
+    ``torch.fx.GraphModule`` that ``make_fx`` records at zeros, whose
+    ``.code`` names the operations (the JAX package returns the jaxpr; the
+    reference, the generated expression, modelparser.jl:103).
+
     ``device`` and ``dtype`` say where and in what precision the model's
     data and functions live; the default device is the CUDA card (pass
     ``device="cpu"`` to run on the CPU).
     """
     if mtype != "likelihood":
         raise ValueError(f"unsupported model type {mtype!r}")
-    if tensor is not None or dtensor is not None:
-        raise NotImplementedError(
-            "tensor/dtensor models are not ported yet (ROADMAP: "
-            "tensor=/dtensor= models)")
 
     dtype = dtype or real_dtype()
     dev = resolve_device(device)
@@ -438,6 +459,10 @@ def model(
         pmap = {"pars": (1, (size,))}  # likmodel.jl:139
     if not _ispartition(pmap, size):
         raise ValueError("param map is not a partition of parameter vector")
+    if debug:
+        from torch.fx.experimental.proxy_tensor import make_fx
+
+        return make_fx(raw_eval)(torch.zeros(size, dtype=dtype, device=dev))
     scale_vec = torch.broadcast_to(
         torch.as_tensor(scale, dtype=dtype, device=dev), (size,)).clone()
 
@@ -469,10 +494,14 @@ def model(
     else:
         evalg = evalallg = None
 
+    evalt, evaldt, evalallt, evalalldt = _tensor_family(
+        f, evalallg, tensor, dtensor, alltensor, alldtensor)
+
     mdl = LogDensityModel(
         eval=eval_, evalg=evalg, evalallg=evalallg, pmap=pmap, size=size,
         init=init_vec, scale=scale_vec, glm_spec=glm_spec_obj,
-        target_spec=target_spec,
+        target_spec=target_spec, evalt=evalt, evaldt=evaldt,
+        evalallt=evalallt, evalalldt=evalalldt,
     )
 
     if check_init:
@@ -481,3 +510,48 @@ def model(
             raise ValueError("Initial values out of model support, try other values")
 
     return mdl
+
+
+def _tensor_family(f, evalallg, tensor, dtensor, alltensor, alldtensor):
+    """(evalt, evaldt, evalallt, evalalldt), batched over chains, from the
+    per-vector log-target ``f`` and the ``model()`` options (the JAX
+    package's model.py:367-410)."""
+    if tensor is True:  # observed information G = -H(logp)
+        t1 = lambda th: -torch.func.hessian(f)(th)  # noqa: E731
+    elif callable(tensor):
+        t1 = tensor
+    elif alltensor is not None:
+        t1 = lambda th: alltensor(th)[-1]  # noqa: E731
+    else:
+        t1 = None
+    evalt = None if t1 is None else _batched(t1)
+
+    if alltensor is not None:
+        evalallt = _batched(alltensor)
+    elif evalt is not None:
+        assert evalallg is not None, (
+            "tensor requires a gradient (pass grad=... or gradient=True)")
+        evalallt = lambda th: (*evalallg(th), evalt(th))  # noqa: E731
+    else:
+        evalallt = None
+
+    if dtensor is True:
+        assert t1 is not None, "dtensor=True requires a tensor"
+        # jacfwd gives dG[i, j, k] = dG_ij/dtheta_k, the reference layout
+        # (PMALA.jl:77-80 indexes dG[:, :, i])
+        evaldt = _batched(torch.func.jacfwd(t1))
+    elif callable(dtensor):
+        evaldt = _batched(dtensor)
+    elif alldtensor is not None:
+        evaldt = lambda th: evalalldt(th)[-1]  # noqa: E731
+    else:
+        evaldt = None
+
+    if alldtensor is not None:
+        evalalldt = _batched(alldtensor)
+    elif evaldt is not None:
+        assert evalallt is not None, "dtensor requires tensor"
+        evalalldt = lambda th: (*evalallt(th), evaldt(th))  # noqa: E731
+    else:
+        evalalldt = None
+    return evalt, evaldt, evalallt, evalalldt

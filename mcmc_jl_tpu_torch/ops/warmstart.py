@@ -80,8 +80,9 @@ def warm_eligible(task):
     burn-in window, on a ``model(glm=...)`` posterior or on a model whose
     ``target_spec`` is a catalog target of at most ``D_MAX`` parameters
     (warmstart.py ``_warm_ok``), with a unit, diagonal or dense metric.
-    Other models, and ``NUTS(warm_handoff=True)``, which the JAX package
-    also admits and the port does not yet, are refused with a logged
+    Other models, ``NUTS(warm_handoff=True)``, which the JAX package
+    also admits and the port does not yet, and subclasses of NUTS
+    (WALNUTS), which the JAX package refuses too, are refused with a logged
     reason."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
@@ -110,6 +111,10 @@ def warm_eligible(task):
                      "engine")
             return False
         ok = True
+    elif isinstance(s, NUTS):
+        log.info("warm start: %s; running the generic torch engine",
+                 _walnuts_refusal(s))
+        return False
     else:
         return False
     m = task.model
@@ -484,9 +489,19 @@ def _continue_refusal(task, states=None):
     if type(s) is NUTS and s.warm_handoff:
         return ("NUTS(warm_handoff=True) has no fused continuation in the "
                 "port (ROADMAP: the warm handoff)")
+    if isinstance(s, NUTS) and type(s) is not NUTS:
+        return _walnuts_refusal(s)
     if isinstance(s, (HMC, HMCDA, ChEESHMC)) or type(s) in (MALA, NUTS):
         return None
     return f"{name} has no fused continuation"
+
+
+def _walnuts_refusal(s):
+    """Why a NUTS subclass (WALNUTS) takes no NUTS kernel: the kernels
+    integrate fixed-step orbits, and its macro steps adapt their micro
+    steps."""
+    return (f"{type(s).__name__} adapts each macro step's micro steps, "
+            f"which the fixed-step NUTS kernels do not")
 
 
 def continue_eligible(task, states=None):

@@ -196,8 +196,12 @@ def _route(t, fused):
     elif _target_eligible(t):
         route = "target"
     elif warm_eligible(t):
-        route = "nuts" if isinstance(t.sampler, NUTS) else "warm"
+        # NUTS itself, not a subclass: WALNUTS's adaptive micro-steps are
+        # not what the NUTS kernels integrate (warm_eligible refuses it)
+        route = "nuts" if type(t.sampler) is NUTS else "warm"
     else:
+        log.info("prun: no fused CUDA route takes %s on this model; running "
+                 "the generic torch engine", type(t.sampler).__name__)
         return False
     why = _kernel_shape_ok(m, route, t.sampler)
     if why is not None:

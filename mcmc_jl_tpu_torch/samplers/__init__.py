@@ -1,14 +1,21 @@
-"""Samplers ported so far: HMC (fixed step, EmpMCTuner, diagonal mass
-adaptation), HMCDA, MALA, exact NUTS, ChEES-HMC, RWM and their machinery."""
+"""Samplers ported so far: HMC (fixed step, EmpMCTuner, diagonal and dense
+mass adaptation), HMCDA, MALA, exact NUTS, WALNUTS, ChEES-HMC, RWM, Barker,
+IMH, RAM, the standalone slice sampler, and their machinery."""
 from .base import EmpMCTuner, RunCtx, Sampler, TuneState, tuner_init, tuner_update
+from .barker import Barker, BarkerState
 from .chees import ChEESHMC, ChEESState
 from .hmc import HMC, HMCState
 from .hmcda import HMCDA, HMCDAState
+from .imh import IMH, IMHState
 from .mala import MALA, MALAState
 from .nuts import NUTS, NUTSState
+from .ram import RAM, RAMState
 from .rwm import RWM, RWMState
+from .slice import slice_sample
+from .walnuts import WALNUTS
 
 __all__ = ["EmpMCTuner", "RunCtx", "Sampler", "TuneState", "tuner_init",
-           "tuner_update", "ChEESHMC", "ChEESState", "HMC", "HMCState",
-           "HMCDA", "HMCDAState", "MALA", "MALAState", "NUTS", "NUTSState",
-           "RWM", "RWMState"]
+           "tuner_update", "Barker", "BarkerState", "ChEESHMC", "ChEESState",
+           "HMC", "HMCState", "HMCDA", "HMCDAState", "IMH", "IMHState",
+           "MALA", "MALAState", "NUTS", "NUTSState", "RAM", "RAMState",
+           "RWM", "RWMState", "WALNUTS", "slice_sample"]

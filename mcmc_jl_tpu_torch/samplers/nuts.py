@@ -151,12 +151,15 @@ class NUTS(Sampler):
     #: "halvings" (WALNUTS: fraction of macro steps integrable un-halved)
     _adapt_stat = "accept"
 
-    def _leaf_advance(self, model, pars, lp, m, grad, eps_signed, generator):
+    def _leaf_advance(self, model, pars, lp, m, grad, eps_signed, generator,
+                      active=None):
         """Advance the orbit by one macro-grid state from (pars, lp, grad).
         Returns (pars, lp, grad, m, bad, halved): ``bad`` marks a leaf whose
         construction failed beyond the energy gate (always False for plain
         NUTS; WALNUTS uses it for irreversible adaptive steps); ``halved``
-        feeds the "halvings" adaptation statistic."""
+        feeds the "halvings" adaptation statistic.  ``active`` marks the
+        chains still building their subtree (the others' results are
+        discarded): plain NUTS steps every chain, WALNUTS only those."""
         pars, lp, g, m = leapfrog(model, pars, m, grad, eps_signed)
         no = torch.zeros(pars.shape[:-1], dtype=torch.bool, device=pars.device)
         return pars, lp, g, m, no, no
@@ -191,7 +194,8 @@ class NUTS(Sampler):
             if not bool(ok.any()):
                 break
             run = ok
-            new = self._leaf_advance(model, pars, lp, m, grad, es, generator)
+            new = self._leaf_advance(model, pars, lp, m, grad, es, generator,
+                                     active=run)
             pars, lp, grad, m = (_where(run, a, b)
                                  for a, b in zip(new[:4], (pars, lp, grad, m)))
             bad, halved = new[4], new[5]

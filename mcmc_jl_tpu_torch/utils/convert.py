@@ -3,8 +3,9 @@
 Works on numpy arrays only, so neither package imports the other: take a JAX
 ``GLMSpec``'s fields, a JAX catalog distribution's class name and fields,
 or a JAX ``HMCState``/``NUTSState``/``MALAState``/``HMCDAState``/
-``ChEESState``/``RWMState`` after ``jax.device_get`` turned into a (nested)
-dict of numpy arrays, and build the port's counterpart.  ``device=None`` means the CUDA
+``ChEESState``/``RWMState``/``BarkerState``/``IMHState``/``RAMState`` after
+``jax.device_get`` turned into a (nested) dict of numpy arrays, and build
+the port's counterpart (a ``WALNUTS`` state is a ``NUTSState``).  ``device=None`` means the CUDA
 card, as everywhere in the port; pass ``device="cpu"`` to build on the CPU.
 """
 from __future__ import annotations
@@ -16,13 +17,16 @@ import torch
 
 from ..models import distributions as dists
 from ..models.model import model, resolve_device
+from ..samplers.barker import BarkerState
 from ..samplers.base import TuneState
 from ..samplers.chees import ChEESState
 from ..samplers.hmc import HMCState
 from ..samplers.hmcda import HMCDAState
+from ..samplers.imh import IMHState
 from ..samplers.mala import MALAState
 from ..samplers.massadapt import MassAccum
 from ..samplers.nuts import NUTSState
+from ..samplers.ram import RAMState
 from ..samplers.rwm import RWMState
 
 _NESTED = {"tune": TuneState, "mass": MassAccum}
@@ -125,6 +129,27 @@ def rwm_state_from_numpy(state, device=None, dtype=None):
     (``pars, logtarget, i``) of numpy arrays; as
     :func:`hmc_state_from_numpy`."""
     return _state_from_numpy(RWMState, state, device, dtype)
+
+
+def barker_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`BarkerState` from a JAX ``BarkerState`` given as
+    a dict (``pars, logtarget, grad, i`` and a nested ``tune`` dict) of
+    numpy arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(BarkerState, state, device, dtype)
+
+
+def imh_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`IMHState` from a JAX ``IMHState`` given as a dict
+    (``pars, logtarget, logcandidate, i``) of numpy arrays; as
+    :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(IMHState, state, device, dtype)
+
+
+def ram_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`RAMState` from a JAX ``RAMState`` given as a dict
+    (``pars, logtarget, S, i``; ``S`` the (..., d, d) factor) of numpy
+    arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(RAMState, state, device, dtype)
 
 
 def _state_from_numpy(cls, state, device, dtype):

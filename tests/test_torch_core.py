@@ -217,9 +217,11 @@ def test_unported_options_raise():
     c = mt.run(m * s * mt.SerialMC(steps=60, burnin=30), seed=0)
     assert c.task.state.mass.scale.shape == (m.size, m.size)
     assert np.all(np.isfinite(c.samples.values))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.model(lambda x: mt.tilde(x, mt.Normal(0.0, 1.0)), x=1.0,
-                 tensor=True, device="cpu")
+    # tensor= models are ported: the model builds and has its tensor
+    m = mt.model(lambda x: mt.tilde(x, mt.Normal(0.0, 1.0)), x=1.0,
+                 gradient=True, tensor=True, device="cpu")
+    assert m.hastensor and not m.hasdtensor
+    np.testing.assert_allclose(m.evalt(m.init).numpy(), [[1.0]])
     # the ~ DSL itself is ported now
     m = mt.model(lambda x: mt.tilde(x, mt.Normal(0.0, 1.0)), x=1.0,
                  device="cpu")

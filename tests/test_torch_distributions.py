@@ -163,12 +163,25 @@ def test_logcdf_logccdf_match_jax(name, params):
 @pytest.mark.parametrize("name,params", [("Beta", (2.0, 3.0)), ("TDist", (3.0,)),
                                          ("Binomial", (10, 0.3))])
 def test_betainc_cdfs_raise(name, params):
-    """torch has no regularized incomplete beta function: these cdfs raise
-    and name the ROADMAP item."""
-    dist = getattr(td, name)(*params)
+    """The cdfs on the port's regularized incomplete beta function
+    (ops/betainc.py) equal the JAX package's on the grid, and a gradient in
+    a distribution parameter that reaches betainc's a or b raises as JAX's
+    does (tests/test_torch_betainc.py holds the function itself)."""
+    jdist, tdist = _pair(name, params)
+    xs = _grid(name)
     for meth in ("cdf", "logcdf", "logccdf"):
-        with pytest.raises(NotImplementedError, match="the Beta, TDist and Binomial cdfs"):
-            getattr(dist, meth)(torch.tensor([0.5]))
+        want = getattr(jdist, meth)(jnp.asarray(xs, jnp.float64))
+        got = getattr(tdist, meth)(torch.as_tensor(xs, dtype=torch.float64))
+        _same(got.numpy(), want, 1e-10, atol=1e-300)
+    field = {"Beta": "a", "TDist": "df", "Binomial": "n"}[name]
+    with pytest.raises(ValueError, match="Betainc gradient"):
+        jax.grad(lambda v: getattr(jd, name)(
+            **{**vars(jdist), field: v}).cdf(0.5))(3.0)
+    with pytest.raises(ValueError, match="Betainc gradient"):
+        torch.func.grad(lambda v: getattr(td, name)(
+            **{**vars(tdist), field: v}).cdf(
+                torch.tensor(0.5, dtype=torch.float64)))(
+            torch.tensor(3.0, dtype=torch.float64))
 
 
 def test_censoring_truncated_mvnormal_match_jax():
