@@ -62,7 +62,11 @@ generic engine in both packages: Barker and WALNUTS on a Gamma catalog
 model (every gradient one launch of the gradient pass, never a NUTS
 kernel), IMH and RAM on a Normal one, and ``slice_sample``, each held to
 its target's exact moments, and WAIC and PSIS-LOO of the HMC main path's
-last draws (``phase_generic_samplers``).  It also runs the HMC step
+last draws (``phase_generic_samplers``); and the manifold tier (SMMALA,
+PMALA, RMHMC, ERMLMC, RMLMC) on ``benchmarks/benchunits/manifold.py``'s
+Fisher-metric logistic model, held against kernel 1's HMC on the same
+data, with SMMALA and RMHMC on a Gamma catalog model through the gradient
+pass, held to its exact moments (``phase_manifold_samplers``).  It also runs the HMC step
 and multi-transition kernels through their drivers, times drivers and
 kernels beside their plain versions and the least time the card could take
 for the same work, and prints one JSON line per phase.
@@ -3724,7 +3728,7 @@ def _min_ess_per_s(cs, seconds):
 
 
 def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
-                      gauss_chains=4096, gauss_steps=(1500, 500)):
+                      gauss_chains=4096, gauss_steps=(1200, 400)):
     """The dense metric through ``run(..., chains=N)``: the adaptive warmup
     on the generic engine, then the pooled factor L frozen and folded into
     the design (X L, prior matrix lam L'L), the sampling phase on the
@@ -3739,8 +3743,8 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
       against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
       (9: 15 launches of 8) with _resume_path's checks;
     - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
-      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(1500, 500)``
-      (mass_metric.py's SerialMC(6000, 2000) cut to a quarter to keep the
+      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(1200, 400)``
+      (mass_metric.py's SerialMC(6000, 2000) cut to a fifth to keep the
       script under 600 s; 3b): the chains' means
       held to 0 and their
       second moments (the
@@ -5650,6 +5654,10 @@ def main():
     # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
     # on the generic engine (Barker and WALNUTS through the gradient pass)
     step("generic_samplers", phase_generic_samplers, final)
+    # SMMALA, PMALA, RMHMC, ERMLMC and RMLMC on the generic engine: the
+    # Fisher-metric logistic model against kernel 1's HMC, and SMMALA and
+    # RMHMC through the gradient pass on a catalog model
+    step("manifold_samplers", phase_manifold_samplers)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing, steps=200, reps=2)
@@ -5690,7 +5698,7 @@ def main():
 
 
 def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
-                           slice_iters=2000):
+                           slice_iters=1000, walnuts_run=(50, 15)):
     """The samplers that run on the generic engine in both packages, at
     d = 10 in float32 on the card, each through ``run(..., chains=N)`` with
     every count zeroed just before it and read just after, and each held
@@ -5701,8 +5709,9 @@ def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
       on ``x ~ Gamma(3, 0.2)``, 4096 chains: every (logp, grad) is one
       launch of the gradient pass ``target_logp_grad`` (one a transition
       and one at init); ``linear_zv`` of chain 0 lowers its variance;
-    - ``WALNUTS(multinomial=True, maxdoublings=5) * SerialMC(150, 50)`` on
-      the same model, 1024 chains: gradient-pass launches counted, and no
+    - ``WALNUTS(multinomial=True, maxdoublings=5) * SerialMC(*walnuts_run)``
+      (50, 15) on the same model, 1024 chains: gradient-pass launches
+      counted, and no
       launch of the NUTS kernels 8, 8b or 9 (WALNUTS takes the generic
       engine, pchains._route);
     - ``IMH(MvNormal(1, 4 I))`` and ``RAM(1.0, 0.3)`` with
@@ -5712,8 +5721,8 @@ def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
       peaks at 2.36^10 ~ 5300, and independence chains from it are still
       biased after 1000 steps (the same chains simulated in numpy: pooled
       mean 0.968, |z| 6.3 at 4096 chains); centred, the peak is 2^10;
-    - ``slice_sample`` on a correlated 2-D Gaussian, 2000 iterations on a
-      CUDA tensor: each mean within Z_MAX standard errors (from its ESS);
+    - ``slice_sample`` on a correlated 2-D Gaussian, ``slice_iters``
+      iterations on a CUDA tensor: each mean within Z_MAX standard errors (from its ESS);
     - ``pointwise_loglik`` of the logistic GLM (N 1000) over the HMC main
       path's last draws ``final`` (chains, 10) on the card; ``waic`` and
       ``psis_loo`` of it are finite, the largest k-hat printed.
@@ -5731,7 +5740,7 @@ def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
                                                             adapt_step=25)),
          400, 100, chains, grad_pass),
         ("walnuts", gamma, 1.1, mt.WALNUTS(multinomial=True, maxdoublings=5),
-         150, 50, walnuts_chains, grad_pass),
+         *walnuts_run, walnuts_chains, grad_pass),
         ("imh", normal, 0.0, mt.IMH(mt.MvNormal(
             torch.ones(10, device="cuda"),
             4.0 * torch.eye(10, device="cuda"))), 1000, 200, chains, {}),
@@ -5837,6 +5846,181 @@ def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
     print(f"generic_samplers pointwise_loglik + waic + psis_loo: {dt:.3f} s,"
           f" max k-hat {float(np.max(loo['pareto_k'])):.4f}; {CARD['card']}",
           flush=True)
+    return seconds
+
+
+# the manifold workload: benchmarks/benchunits/manifold.py's Fisher-metric
+# logistic model (D 8, N 200, seed 11, prior precision 1), and the HMC step
+# of its reference run through kernel 1 (its Laplace sds are 0.15-0.28, so
+# ten leapfrogs of 0.1 cross them)
+MANIFOLD_D, MANIFOLD_N, MANIFOLD_HMC_EPS = 8, 200, 0.1
+# the manifold steps on x ~ Gamma(3, 0.2) (d 10, G = 2 / x^2): SMMALA at
+# 0.1 accepts about 38%; RMHMC's generalized leapfrog stops converging on
+# this metric above a leap of 0.2 (its fixed-point sweeps, the JAX
+# package's alike: at 0.3 both accept 89% and the mean is 0.608, |z| 7.2
+# at 2048 chains in a CPU run), so RMHMC runs at 0.2 and accepts about 96%
+GAMMA_SMMALA_EPS, GAMMA_RMHMC_EPS = 0.1, 0.2
+
+
+def manifold_data():
+    """benchmarks/benchunits/manifold.py ``_posterior``'s data: D 8 (an
+    intercept and 7 standard normal covariates), N 200, seed 11."""
+    rng = np.random.default_rng(11)
+    X = np.column_stack([np.ones(MANIFOLD_N),
+                         rng.standard_normal((MANIFOLD_N, MANIFOLD_D - 1))])
+    beta = rng.standard_normal(MANIFOLD_D) * 0.6
+    Y = (rng.random(MANIFOLD_N) < 1.0 / (1.0 + np.exp(-X @ beta))).astype(
+        np.float64)
+    return X, Y
+
+
+def _fisher_logistic(X, Y):
+    """The Girolami-Calderhead logistic posterior (prior precision 1) with
+    the unit's closed forms (manifold.py:38-64): the gradient, the Fisher
+    metric ``X' diag(p(1-p)) X + I`` and its derivative ``dG_k = X'
+    diag(p(1-p)(1-2p) x_k) X``, float32 on the card."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    Xt, Yt = _cuda(X), _cuda(Y)
+    eye = torch.eye(X.shape[1], device="cuda")
+
+    def logp(t):
+        z = Xt @ t
+        return (Yt * z - torch.nn.functional.softplus(z)).sum() - 0.5 * t @ t
+
+    def grad(t):
+        return Xt.T @ (Yt - torch.sigmoid(Xt @ t)) - t
+
+    def tensor(t):
+        p = torch.sigmoid(Xt @ t)
+        return (Xt * (p * (1.0 - p))[:, None]).T @ Xt + eye
+
+    def dtensor(t):
+        p = torch.sigmoid(Xt @ t)
+        wp = p * (1.0 - p) * (1.0 - 2.0 * p)
+        return torch.einsum("n,na,nb,nk->abk", wp, Xt, Xt, Xt)
+
+    return mt.model(logp, grad=grad, tensor=tensor, dtensor=dtensor,
+                    init=np.zeros(X.shape[1]), check_init=False,
+                    device="cuda")
+
+
+def _per_chain(samples):
+    """(pooled mean, its standard error from the spread of the per-chain
+    means, pooled sd), each (d,), of samples (chains, kept, d)."""
+    m = samples.astype(np.float64).mean(1)
+    return (m.mean(0), m.std(0, ddof=1) / np.sqrt(len(m)),
+            samples.reshape(-1, samples.shape[-1]).astype(np.float64).std(0))
+
+
+def phase_manifold_samplers(chains=4096, heavy_chains=1024,
+                            gamma_chains=1024):
+    """The manifold tier (SMMALA, PMALA, RMHMC, ERMLMC, RMLMC) on the
+    generic engine, float32 on the card, each through ``run(...,
+    chains=N)`` with every count zeroed just before it and read just after:
+
+    - (a) benchmarks/benchunits/manifold.py's Fisher-metric logistic model
+      (``manifold_data``, closed-form metric) at the unit's settings:
+      ``SMMALA(1.0)`` and ``PMALA(1.0)`` with ``SerialMC(400, 100)`` at
+      ``chains``; ``RMHMC(4, 0.5)``, ``ERMLMC(4, 0.3)`` and ``RMLMC(4,
+      0.3)`` with ``SerialMC(120, 30)`` at ``heavy_chains``; no kernel
+      launches.  Each is held to the reference ``run(model(glm=("logistic",
+      X, Y)) * HMC(10, MANIFOLD_HMC_EPS) * SerialMC(600, 200),
+      chains=chains)`` through kernel 1 (its launches counted): pooled
+      means within Z_MAX standard errors (from the spread of the per-chain
+      means in each run), sds within 20%, acceptance above 5%;
+    - (b) ``x ~ Gamma(3, 0.2)``, d 10, a float32 catalog model with
+      ``gradient=True, tensor=True, dtensor=True``: ``SMMALA *
+      SerialMC(400, 150)`` and ``RMHMC(4) * SerialMC(30, 10)`` at
+      ``gamma_chains`` (steps GAMMA_SMMALA_EPS, GAMMA_RMHMC_EPS), held to
+      the exact moments; every (logp, grad) is
+      one launch of the gradient pass ``target_logp_grad`` (SMMALA one a
+      transition, RMHMC one a leap), counted and printed a transition.
+
+    Returns {path: seconds}."""
+    import mcmc_jl_tpu_torch as mt
+
+    seconds = {}
+    X, Y = manifold_data()
+    ref_m = mt.model(glm=("logistic", X, Y), device="cuda")
+    ref_task = (ref_m * mt.HMC(10, MANIFOLD_HMC_EPS)
+                * mt.SerialMC(steps=600, burnin=200))
+    origin = _origin(ref_m, ref_task, chains)
+    cs, ref, launches, dt, _ = _path(origin, ref_task, chains,
+                                     {"glm_leapfrogs": lambda n: n > 0})
+    ref_mean, ref_se, ref_sd = _per_chain(ref)
+    ref_acc = float(np.mean([mt.acceptance(c) for c in cs])) / 100
+    emit({"phase": "manifold_reference", "from": origin, "chains": chains,
+          "seconds": dt, "glm_leapfrogs_launches": launches["glm_leapfrogs"],
+          "accept_rate": ref_acc, "pooled_mean": ref_mean.tolist(),
+          "pooled_sd": ref_sd.tolist(), **CARD})
+    seconds["hmc_reference"] = dt
+    del cs, ref
+
+    fisher = _fisher_logistic(X, Y)
+    runs = [(mt.SMMALA(1.0), chains, 400, 100),
+            (mt.PMALA(1.0), chains, 400, 100),
+            (mt.RMHMC(4, 0.5), heavy_chains, 120, 30),
+            (mt.ERMLMC(4, 0.3), heavy_chains, 120, 30),
+            (mt.RMLMC(4, 0.3), heavy_chains, 120, 30)]
+    for sampler, n, steps, burnin in runs:
+        task = fisher * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(Fisher-metric logistic (D {MANIFOLD_D}, N "
+                  f"{MANIFOLD_N}) * {sampler!r} * SerialMC({steps}, "
+                  f"{burnin}), chains={n})")
+        cs, samples, _, dt, _ = _path(origin, task, n, {})
+        mean, se, sd = _per_chain(samples)
+        z = float(np.max(np.abs(mean - ref_mean) / np.hypot(se, ref_se)))
+        sd_err = float(np.max(np.abs(sd / ref_sd - 1.0)))
+        acc = float(np.mean([mt.acceptance(c) for c in cs])) / 100
+        name = type(sampler).__name__
+        ok = z < Z_MAX and sd_err < 0.2 and acc > 0.05
+        emit({"phase": "manifold_sampler", "sampler": name, "from": origin,
+              "chains": n, "seconds": dt, "transitions_per_s": n * steps / dt,
+              "accept_rate": acc, "z_max_vs_hmc": z, "sd_rel_err_max": sd_err,
+              "pooled_mean": mean.tolist(), "ok": ok, **CARD})
+        assert ok, f"{origin} disagrees with kernel 1's HMC"
+        seconds[name] = dt
+        print(f"manifold_samplers {name}: {dt:.3f} s, {n * steps / dt:.0f} "
+              f"transitions/s, acceptance {acc:.3f}, |z| {z:.2f}; "
+              f"{CARD['card']}", flush=True)
+        del cs, samples
+
+    gamma = mt.Gamma(3.0, 0.2)
+    gm = mt.model(lambda x: mt.tilde(x, gamma), x=np.full(10, 0.6),
+                  gradient=True, tensor=True, dtensor=True, device="cuda")
+    assert gm.target_spec is not None
+    for sampler, steps, burnin in ((mt.SMMALA(GAMMA_SMMALA_EPS), 400, 150),
+                                   (mt.RMHMC(4, GAMMA_RMHMC_EPS), 30, 10)):
+        task = gm * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = (f"run(model(x ~ {gamma!r}, x=fill(0.6, 10)) * {sampler!r}"
+                  f" * SerialMC({steps}, {burnin}), chains={gamma_chains})")
+        cs, samples, launches, dt, _ = _path(
+            origin, task, gamma_chains, {"target_logp_grad": lambda k: k > 0})
+        z_ex = _moments_z((samples.mean(1), (samples ** 2).mean(1)), gamma)
+        grads = launches["target_logp_grad"]
+        acc = float(np.mean([mt.acceptance(c) for c in cs])) / 100
+        name = "gamma_" + type(sampler).__name__
+        ok = z_ex < Z_MAX
+        emit({"phase": "manifold_sampler", "sampler": name, "from": origin,
+              "chains": gamma_chains, "seconds": dt,
+              "transitions_per_s": gamma_chains * steps / dt,
+              "accept_rate": acc, "grad_pass_launches": grads,
+              "grad_pass_per_transition": grads / steps,
+              "pooled_mean": float(samples.mean()),
+              "exact_mean": float(gamma.mean()),
+              "pooled_sd": float(samples.std()),
+              "exact_sd": float(gamma.std()), "z_max_vs_exact": z_ex,
+              "ok": ok, **CARD})
+        assert ok, f"{origin} disagrees with the exact moments"
+        seconds[name] = dt
+        print(f"manifold_samplers {name}: {dt:.3f} s, "
+              f"{gamma_chains * steps / dt:.0f} transitions/s, acceptance "
+              f"{acc:.3f}, |z| {z_ex:.2f}, {grads} gradient-pass launches "
+              f"({grads / steps:.3f} a transition); {CARD['card']}",
+              flush=True)
     return seconds
 
 

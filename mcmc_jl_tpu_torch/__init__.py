@@ -6,7 +6,8 @@ and hand-written CUDA kernels for the H100.  Ported so far:
 catalog, with the metric tensors of ``tensor=``/``dtensor=``; ``HMC``
 (fixed step, EmpMCTuner, diagonal and dense mass adaptation), ``HMCDA``,
 ``MALA``, exact ``NUTS``, ``WALNUTS``, ``ChEESHMC``, ``RWM``, ``Barker``,
-``IMH`` and ``RAM`` under ``SerialMC``, and the standalone
+``IMH`` and ``RAM``, and the manifold tier ``SMMALA``, ``PMALA``,
+``RMHMC``, ``ERMLMC`` and ``RMLMC`` under ``SerialMC``, and the standalone
 ``slice_sample``; many chains through ``run(task, chains=N)`` with the fused
 GLM-HMC kernels at any N (the N-tiled gradient kernel above 16384
 observations), the warm-start pipeline (adaptive HMC/HMCDA/MALA and ChEES
@@ -20,9 +21,10 @@ chains and continues frozen HMC-family and exact-NUTS groups on the same
 kernels; checkpoints (``utils.io``); and the chain statistics with the
 cross-chain diagnostics ``rhat``, ``ess_pooled`` and ``summarize_chains``,
 the zero-variance estimators, WAIC and PSIS-LOO, and the evidence
-estimators.  Barker, WALNUTS, IMH and RAM run on the generic engine; on a
-float32 catalog model on the card every gradient they take is one launch
-of the custom-target gradient pass.  Models live on the CUDA
+estimators.  Barker, WALNUTS, IMH, RAM and the manifold tier run on the
+generic engine (the manifold tier's metric algebra as batched
+``torch.linalg`` over chains); on a float32 catalog model on the card every
+gradient they take is one launch of the custom-target gradient pass.  Models live on the CUDA
 card unless ``device="cpu"`` is given.  It imports ``torch`` and never
 ``jax``.
 
@@ -54,7 +56,9 @@ from .core.chain import MCMCChain
 from .samplers import (HMC, HMCState, HMCDA, HMCDAState, EmpMCTuner, MALA,
                        MALAState, NUTS, NUTSState, RWM, RWMState, ChEESHMC,
                        ChEESState, Barker, BarkerState, IMH, IMHState, RAM,
-                       RAMState, WALNUTS, slice_sample)
+                       RAMState, WALNUTS, SMMALA, SMMALAState, PMALA,
+                       PMALAState, RMHMC, RMHMCState, ERMLMC, RMLMC, LMCState,
+                       slice_sample)
 from .runners.serialmc import SerialMC
 from .runners.api import run, resume, prun
 from .stats import (
@@ -67,9 +71,11 @@ from .stats import compare as compare_elpd
 from .utils.convert import (barker_state_from_numpy, chees_state_from_numpy,
                             distribution_from_fields, glm_model_from_spec,
                             hmc_state_from_numpy, hmcda_state_from_numpy,
-                            imh_state_from_numpy, mala_state_from_numpy,
-                            nuts_state_from_numpy, ram_state_from_numpy,
-                            rwm_state_from_numpy)
+                            imh_state_from_numpy, lmc_state_from_numpy,
+                            mala_state_from_numpy, nuts_state_from_numpy,
+                            pmala_state_from_numpy, ram_state_from_numpy,
+                            rmhmc_state_from_numpy, rwm_state_from_numpy,
+                            smmala_state_from_numpy)
 
 # legacy alias matching the reference's MCMCLikModel typealias (likmodel.jl:69)
 MCMCLikModel = LogDensityModel
@@ -82,7 +88,9 @@ __all__ = [
     "HMC", "HMCState", "HMCDA", "HMCDAState", "EmpMCTuner", "MALA",
     "MALAState", "NUTS", "NUTSState", "RWM", "RWMState", "ChEESHMC",
     "ChEESState", "Barker", "BarkerState", "IMH", "IMHState", "RAM",
-    "RAMState", "WALNUTS", "slice_sample", "SerialMC", "run",
+    "RAMState", "WALNUTS", "SMMALA", "SMMALAState", "PMALA", "PMALAState",
+    "RMHMC", "RMHMCState", "ERMLMC", "RMLMC", "LMCState", "slice_sample",
+    "SerialMC", "run",
     "resume", "prun", "mean", "mean_rb", "mcvar", "mcse", "var", "std",
     "ess", "actime", "acceptance", "describe", "wsample", "linear_zv",
     "quadratic_zv", "linearZv", "quadraticZv", "rhat", "ess_pooled",
@@ -98,5 +106,7 @@ __all__ = [
     "hmc_state_from_numpy", "hmcda_state_from_numpy",
     "imh_state_from_numpy", "mala_state_from_numpy",
     "nuts_state_from_numpy", "ram_state_from_numpy",
-    "rwm_state_from_numpy",
+    "rwm_state_from_numpy", "smmala_state_from_numpy",
+    "pmala_state_from_numpy", "rmhmc_state_from_numpy",
+    "lmc_state_from_numpy",
 ]

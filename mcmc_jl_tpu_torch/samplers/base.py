@@ -65,7 +65,14 @@ def metropolis_accept(generator, ratio):
     One uniform per entry of ``ratio`` (one per chain)."""
     u = torch.log(torch.rand(ratio.shape, generator=generator,
                              dtype=ratio.dtype, device=ratio.device))
-    return torch.where(torch.isnan(ratio), False, (ratio > 0) | (ratio > u))
+    return accept_given(ratio, u)
+
+
+def accept_given(ratio, log_u):
+    """:func:`metropolis_accept` on a given ``log_u`` (log of the uniform
+    draw), for samplers whose transition is a function of its draws."""
+    return torch.where(torch.isnan(ratio), False,
+                       (ratio > 0) | (ratio > log_u))
 
 
 def _bcast(mask, x):

@@ -3,7 +3,9 @@
 Works on numpy arrays only, so neither package imports the other: take a JAX
 ``GLMSpec``'s fields, a JAX catalog distribution's class name and fields,
 or a JAX ``HMCState``/``NUTSState``/``MALAState``/``HMCDAState``/
-``ChEESState``/``RWMState``/``BarkerState``/``IMHState``/``RAMState`` after
+``ChEESState``/``RWMState``/``BarkerState``/``IMHState``/``RAMState``, or
+a manifold sampler's ``SMMALAState``/``PMALAState``/``RMHMCState``/
+``LMCState`` after
 ``jax.device_get`` turned into a (nested) dict of numpy arrays, and build
 the port's counterpart (a ``WALNUTS`` state is a ``NUTSState``).  ``device=None`` means the CUDA
 card, as everywhere in the port; pass ``device="cpu"`` to build on the CPU.
@@ -23,11 +25,15 @@ from ..samplers.chees import ChEESState
 from ..samplers.hmc import HMCState
 from ..samplers.hmcda import HMCDAState
 from ..samplers.imh import IMHState
+from ..samplers.lagrangian import LMCState
 from ..samplers.mala import MALAState
 from ..samplers.massadapt import MassAccum
 from ..samplers.nuts import NUTSState
+from ..samplers.pmala import PMALAState
 from ..samplers.ram import RAMState
+from ..samplers.rmhmc import RMHMCState
 from ..samplers.rwm import RWMState
+from ..samplers.smmala import SMMALAState
 
 _NESTED = {"tune": TuneState, "mass": MassAccum}
 
@@ -150,6 +156,35 @@ def ram_state_from_numpy(state, device=None, dtype=None):
     (``pars, logtarget, S, i``; ``S`` the (..., d, d) factor) of numpy
     arrays; as :func:`hmc_state_from_numpy`."""
     return _state_from_numpy(RAMState, state, device, dtype)
+
+
+def smmala_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`SMMALAState` from a JAX ``SMMALAState`` given as a
+    dict (``pars, logtarget, grad, chol, drift, i`` and a nested ``tune``
+    dict) of numpy arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(SMMALAState, state, device, dtype)
+
+
+def pmala_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`PMALAState` from a JAX ``PMALAState`` given as a
+    dict (``pars, logtarget, grad, chol, drift, i`` and a nested ``tune``
+    dict) of numpy arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(PMALAState, state, device, dtype)
+
+
+def rmhmc_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`RMHMCState` from a JAX ``RMHMCState`` given as a
+    dict (``pars, logtarget, grad, G, i`` and a nested ``tune`` dict) of
+    numpy arrays; as :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(RMHMCState, state, device, dtype)
+
+
+def lmc_state_from_numpy(state, device=None, dtype=None):
+    """The port's :class:`LMCState` (ERMLMC, RMLMC) from a JAX ``LMCState``
+    given as a dict (``pars, logtarget, grad, G, invG, cholG, dphi, C, i``
+    and a nested ``tune`` dict) of numpy arrays; as
+    :func:`hmc_state_from_numpy`."""
+    return _state_from_numpy(LMCState, state, device, dtype)
 
 
 def _state_from_numpy(cls, state, device, dtype):

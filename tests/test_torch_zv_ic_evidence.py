@@ -27,10 +27,9 @@ RTOL = 1e-10
 F64 = torch.float64
 
 #: names of the JAX package's surface that the port does not have yet: the
-#: manifold samplers, the ensemble and tempering runners, run_until
-STILL_TO_PORT = {"SMMALA", "PMALA", "RMHMC", "ERMLMC", "RMLMC", "SeqMC",
-                 "SerialTempMC", "PTMC", "AIES", "ASMC", "run_until",
-                 "ConvergenceResult"}
+#: ensemble and tempering runners, run_until
+STILL_TO_PORT = {"SeqMC", "SerialTempMC", "PTMC", "AIES", "ASMC",
+                 "run_until", "ConvergenceResult"}
 
 
 def _gauss_draws(n=600, d=3, seed=0):
