@@ -66,7 +66,15 @@ last draws (``phase_generic_samplers``); and the manifold tier (SMMALA,
 PMALA, RMHMC, ERMLMC, RMLMC) on ``benchmarks/benchunits/manifold.py``'s
 Fisher-metric logistic model, held against kernel 1's HMC on the same
 data, with SMMALA and RMHMC on a Gamma catalog model through the gradient
-pass, held to its exact moments (``phase_manifold_samplers``).  It also runs the HMC step
+pass, held to its exact moments (``phase_manifold_samplers``); and the
+ensemble runners (``phase_ensemble_runners``): ``run_until`` with NUTS
+and adaptive HMC on the main path's model at 4096 chains (its frozen
+blocks through kernels 9 and 3b), ``benchmarks/benchunits/
+population.py``'s PTMC and ASMC and an AIES ensemble held against kernel
+1's HMC, ``examples/model_comparison.py``'s evidence by ASMC and by the
+prior-tempered PTMC against the exact logZ, ``SeqMC`` and
+``SerialTempMC`` on their test gates, and a PTMC ladder on a catalog
+model through the gradient pass.  It also runs the HMC step
 and multi-transition kernels through their drivers, times drivers and
 kernels beside their plain versions and the least time the card could take
 for the same work, and prints one JSON line per phase.
@@ -2108,8 +2116,9 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
       SerialMC(2000, 500)`` at 4096 chains (examples/warmstart_logistic.py):
       1500 sampling transitions as 250 launches of 6 of the Halton
       multistep kernel with the folded (d,) prior row;
-    - ``HMCDA()`` and ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50))``
-      under ``SerialMC(1000, 200)`` at 1024 chains: 100 launches of 8.
+    - ``HMCDA() * SerialMC(900, 100)`` (its burn-in cut from 200 for the
+      script's time) and ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50)) *
+      SerialMC(1000, 200)`` at 1024 chains: 100 launches of 8 each.
     Returns the Halton kernel's launches in the first run, the step and
     leap count that run froze at, and its tasks (for phase_resume_paths)."""
     import mcmc_jl_tpu_torch as mt
@@ -2119,7 +2128,7 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
     runs = (
         (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
                 mass_adapt="diag"), 2000, 500, chains, 250),
-        (mt.HMCDA(), 1000, 200, chains_small, 100),
+        (mt.HMCDA(), 900, 100, chains_small, 100),
         (mt.MALA(0.002, mt.EmpMCTuner(0.574, adapt_step=50)), 1000, 200,
          chains_small, 100),
     )
@@ -3248,11 +3257,11 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     every count zeroed just before it and read just after, no plain call,
     and held against the target's exact first and second moments:
 
-    - ``NUTS(maxdoublings=6) * SerialMC(1200, 200)`` and ``NUTS(6,
+    - ``NUTS(maxdoublings=6) * SerialMC(1100, 100)`` and ``NUTS(6,
       mass_adapt="diag") * SerialMC(1500, 500)`` at 4096 chains
       (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner, the
-      unit-metric run's burn-in cut to 200 to keep the script under
-      600 s;
+      unit-metric run's burn-in cut to 200, then 100, for the script's
+      time;
       the diagonal metric needs its 500: at 300 it missed the exact
       moments at z 6.3): 1000 launches of kernel 8b each;
     - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
@@ -3298,7 +3307,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     narrow = [j for j, (_, dist, _) in enumerate(bare)
               if float(dist.std()) <= NARROW_SD]
     runs = (
-        (mt.NUTS(maxdoublings=6), 1200, 200, chains,
+        (mt.NUTS(maxdoublings=6), 1100, 100, chains,
          "target_nuts_transition", narrow),
         (mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains,
          "target_nuts_transition", None),
@@ -5405,7 +5414,7 @@ def phase_dense_target_paths(chains=4096, generic_chains=512,
     float32, each with every count zeroed just before it and read just
     after, no plain call:
 
-    - ``NUTS(maxdoublings=6, mass_adapt="dense") * SerialMC(1200, 200)`` on
+    - ``NUTS(maxdoublings=6, mass_adapt="dense") * SerialMC(1100, 100)`` on
       the ten bare distributions (the unit-metric 8b path's model and
       runner): 1000 launches of target_nuts_transition_dense;
     - ``HMC(10, 0.05, EmpMCTuner(0.8, adapt_step=50), mass_adapt="dense")
@@ -5445,7 +5454,7 @@ def phase_dense_target_paths(chains=4096, generic_chains=512,
 
     runs = (
         ("nuts", "ten bare distributions ~, d=10", m_bare,
-         mt.NUTS(maxdoublings=6, mass_adapt="dense"), 1200, 200,
+         mt.NUTS(maxdoublings=6, mass_adapt="dense"), 1100, 100,
          "target_nuts_transition_dense", narrow,
          lambda s, cols=None: _bare_z(s, bare, cols)),
         ("hmc", "x ~ Gamma(3,0.2), x=fill(1.1, 10)", m_gamma,
@@ -5658,6 +5667,10 @@ def main():
     # Fisher-metric logistic model against kernel 1's HMC, and SMMALA and
     # RMHMC through the gradient pass on a catalog model
     step("manifold_samplers", phase_manifold_samplers)
+    # PTMC, ASMC, AIES, SeqMC, SerialTempMC and run_until (its frozen blocks
+    # through kernels 9 and 3b; the tempered runners' gradients through the
+    # gradient pass on a catalog model)
+    step("ensemble_runners", phase_ensemble_runners, hmc_means)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing, steps=200, reps=2)
@@ -5698,7 +5711,7 @@ def main():
 
 
 def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
-                           slice_iters=1000, walnuts_run=(50, 15)):
+                           slice_iters=1000, walnuts_run=(40, 12)):
     """The samplers that run on the generic engine in both packages, at
     d = 10 in float32 on the card, each through ``run(..., chains=N)`` with
     every count zeroed just before it and read just after, and each held
@@ -5710,7 +5723,8 @@ def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
       launch of the gradient pass ``target_logp_grad`` (one a transition
       and one at init); ``linear_zv`` of chain 0 lowers its variance;
     - ``WALNUTS(multinomial=True, maxdoublings=5) * SerialMC(*walnuts_run)``
-      (50, 15) on the same model, 1024 chains: gradient-pass launches
+      (40, 12; (150, 50) cut for the script's time) on the same
+      model, 1024 chains: gradient-pass launches
       counted, and no
       launch of the NUTS kernels 8, 8b or 9 (WALNUTS takes the generic
       engine, pchains._route);
@@ -5925,7 +5939,8 @@ def phase_manifold_samplers(chains=4096, heavy_chains=1024,
       (``manifold_data``, closed-form metric) at the unit's settings:
       ``SMMALA(1.0)`` and ``PMALA(1.0)`` with ``SerialMC(400, 100)`` at
       ``chains``; ``RMHMC(4, 0.5)``, ``ERMLMC(4, 0.3)`` and ``RMLMC(4,
-      0.3)`` with ``SerialMC(120, 30)`` at ``heavy_chains``; no kernel
+      0.3)`` with ``SerialMC(80, 20)`` (the unit's (120, 30), cut for the
+      script's time) at ``heavy_chains``; no kernel
       launches.  Each is held to the reference ``run(model(glm=("logistic",
       X, Y)) * HMC(10, MANIFOLD_HMC_EPS) * SerialMC(600, 200),
       chains=chains)`` through kernel 1 (its launches counted): pooled
@@ -5962,9 +5977,9 @@ def phase_manifold_samplers(chains=4096, heavy_chains=1024,
     fisher = _fisher_logistic(X, Y)
     runs = [(mt.SMMALA(1.0), chains, 400, 100),
             (mt.PMALA(1.0), chains, 400, 100),
-            (mt.RMHMC(4, 0.5), heavy_chains, 120, 30),
-            (mt.ERMLMC(4, 0.3), heavy_chains, 120, 30),
-            (mt.RMLMC(4, 0.3), heavy_chains, 120, 30)]
+            (mt.RMHMC(4, 0.5), heavy_chains, 80, 20),
+            (mt.ERMLMC(4, 0.3), heavy_chains, 80, 20),
+            (mt.RMLMC(4, 0.3), heavy_chains, 80, 20)]
     for sampler, n, steps, burnin in runs:
         task = fisher * sampler * mt.SerialMC(steps=steps, burnin=burnin)
         origin = (f"run(Fisher-metric logistic (D {MANIFOLD_D}, N "
@@ -6021,6 +6036,257 @@ def phase_manifold_samplers(chains=4096, heavy_chains=1024,
               f"{acc:.3f}, |z| {z_ex:.2f}, {grads} gradient-pass launches "
               f"({grads / steps:.3f} a transition); {CARD['card']}",
               flush=True)
+    return seconds
+
+
+#: examples/model_comparison.py's prior-tempered PTMC ladder (ten rungs
+#: (k/9)^5): its (steps, burnin) of (6000, 1000) cut to (400, 100) for the
+#: script's time: a step takes twelve vmapped gradients of the callable
+#: model, 20-31 ms on one H100 80GB HBM3 at 700 W (a gradient 1.45-2.6 ms
+#: a call from one host to another); CPU runs at (400, 100), seeds 0-3,
+#: came within 0.12 (TI) and 0.08 (SS) of the exact logZ
+EVIDENCE_PTMC = (400, 100)
+
+
+def population_model():
+    """benchmarks/benchunits/population.py's callable logistic model (d 10,
+    N 1000, its ``logprior`` N(0, I)), float32 on the card, with that
+    ``logprior``.  Its data are ``bench_data()``'s: the unit draws them
+    with the same generator, seed and order."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y = bench_data()
+    Xt, Yt = _cuda(X), _cuda(Y)
+    d = X.shape[1]
+    l2pi = float(np.log(2 * np.pi))
+
+    def logprior(th):
+        return -0.5 * (th * th).sum() - d / 2 * l2pi
+
+    def logp(th):
+        z = Xt @ th
+        return ((Yt * z).sum() - torch.logaddexp(torch.zeros_like(z), z).sum()
+                + logprior(th))
+
+    return (mt.model(logp, gradient=True, init=np.zeros(d), check_init=False,
+                     device="cuda"), logprior)
+
+
+def conjugate_model():
+    """examples/model_comparison.py's M1: y_i ~ N(theta, 1), theta ~ N(0,
+    1), n 40 draws of N(0.8, 1) (seed 7), float32 on the card; returns
+    (model, logprior, its exact logZ)."""
+    import mcmc_jl_tpu_torch as mt
+
+    rng = np.random.default_rng(7)
+    n = 40
+    y = rng.standard_normal(n) + 0.8
+    yd = _cuda(y)
+    l2pi = float(np.log(2 * np.pi))
+
+    def logprior(th):
+        return -0.5 * th[0] ** 2 - 0.5 * l2pi
+
+    def logp(th):
+        return -0.5 * ((yd - th[0]) ** 2).sum() - n / 2 * l2pi + logprior(th)
+
+    sy, yy = y.sum(), (y * y).sum()
+    exact = -n / 2 * l2pi - 0.5 * np.log(1.0 + n) \
+        - 0.5 * (yy - sy ** 2 / (1.0 + n))
+    return (mt.model(logp, gradient=True, init=np.zeros(1), device="cuda"),
+            logprior, float(exact))
+
+
+def _pooled_z(mean, se, ref_mean, ref_se):
+    return float(np.max(np.abs(mean - ref_mean) / np.hypot(se, ref_se)))
+
+
+def phase_ensemble_runners(hmc_means, chains=4096):
+    """The ensemble runners (PTMC, ASMC, AIES, SeqMC, SerialTempMC) and
+    ``run_until`` through the port's entry points, float32 on the card,
+    each with every count zeroed just before it and read just after:
+
+    1. ``run_until(model(glm=logistic, N 1000), NUTS(6), n_chains=chains,
+       check_every=100, warmup=100, rhat_target=1.01, min_ess=400,
+       max_steps=600)``: the blocks after the warmup run through
+       ``make_fused_continuation``, kernel 9 (or 8); it must converge and
+       its retained per-chain means lie within Z_MAX standard errors of
+       ``hmc_means`` (``_hmc_reference``, kernel 1's HMC);
+    2. the same with ``HMC(10, 0.02, EmpMCTuner(0.8, 50),
+       mass_adapt="diag")``, ``check_every=200, warmup=200,
+       max_steps=1000``: the frozen blocks through kernel 3b;
+    3. population.py's ``HMC(5, 0.1) * PTMC(steps=400, swap_period=5,
+       betas=((k+1)/8)^2, walkers=32)`` (256 chains) on its callable
+       model: the 32 cold rungs, pooled past their first 100 steps,
+       against ``hmc_means`` (population.py's data are bench.py's), and
+       swaps happen;
+    4. its ``ASMC(particles=2048, moves=2, target_ess=0.5)`` with ``HMC(5,
+       0.1)``: beta reaches 1, the particle means against ``hmc_means``
+       (standard error from target_ess * particles);
+    5. model_comparison.py's conjugate model: ``ASMC(particles=4096)``
+       with ``HMC(5, 0.3)``, |logZ - exact| < 0.25; the prior-tempered
+       ``PTMC`` of ten rungs (k/9)^5, EVIDENCE_PTMC, |TI - exact| < 0.35
+       and |SS - exact| < 0.25 (tests/test_evidence.py's tolerances);
+    6. ``AIES(steps=1000, burnin=500, walkers=64)`` on population.py's
+       model against ``hmc_means`` (standard error from the pooled ESS);
+       tests/test_runners.py's SeqMC README example 2 and SerialTempMC
+       ladder on their gates; ``HMC(5, 0.05) * PTMC(steps=200, burnin=50,
+       betas=(0.25, 0.5, 1.0), walkers=64)`` on ``x ~ Gamma(3, 0.2)``, d
+       10, a float32 catalog model: every gradient one launch of the
+       gradient pass ``target_logp_grad`` (1 + 5 a step), the cold rungs
+       against the exact moments.
+
+    Prints one line for the phase (launches of kernels 9 and 8, 3b and
+    the gradient pass over its runs, each run's seconds, each gate);
+    returns {run: seconds}."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    seconds, gates, counts = {}, {}, {}
+    ref_mean = hmc_means.mean(0)
+    ref_se = hmc_means.std(0, ddof=1) / np.sqrt(len(hmc_means))
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out, launches = _counted(fn)
+        seconds[name] = time.perf_counter() - t0
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        return out, launches
+
+    def chain_means(x):  # (kept, chains, d) -> pooled mean, se
+        m = x.astype(np.float64).mean(0)
+        return m.mean(0), m.std(0, ddof=1) / np.sqrt(len(m))
+
+    X, Y = bench_data()
+    glm = mt.model(glm=("logistic", X, Y), device="cuda")
+    until = {"run_until_nuts": (mt.NUTS(maxdoublings=6), 100, 100, 600,
+                                ("glm_nuts_multistep",
+                                 "glm_nuts_transition")),
+             "run_until_hmc": (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, 50),
+                                      mass_adapt="diag"), 200, 200, 1000,
+                               ("glm_multistep_rows",))}
+    for name, (sampler, every, warmup, most, kernels) in until.items():
+        res, launches = timed(name, lambda: mt.run_until(
+            glm, sampler, n_chains=chains, check_every=every, warmup=warmup,
+            rhat_target=1.01, min_ess=400, max_steps=most, seed=0))
+        fused = sum(launches[k] for k in kernels)
+        z = _pooled_z(*chain_means(res.samples), ref_mean, ref_se)
+        gates[name] = {"z": z, "converged": res.converged,
+                       "steps_run": res.steps_run,
+                       "max_rhat": res.max_rhat, "min_ess": res.min_ess,
+                       "fused_launches": fused}
+        assert fused > 0, (name, launches)
+        assert res.converged and z < Z_MAX, (name, gates[name])
+
+    pm, logprior = population_model()
+    K = 8
+    betas = tuple(float(((k + 1) / K) ** 2) for k in range(K))
+    cs, _ = timed("ptmc_population", lambda: mt.run(
+        pm * mt.HMC(5, 0.1) * mt.PTMC(steps=400, swap_period=5, betas=betas,
+                                      walkers=32), seed=0))
+    x = np.stack([c.samples.values[100:] for c in cs], axis=1)
+    nswaps = float(sum(c.diagnostics["nswaps"].sum() for c in cs))
+    z = _pooled_z(*chain_means(x), ref_mean, ref_se)
+    gates["ptmc_population"] = {"z": z, "nswaps": nswaps}
+    assert np.all(np.isfinite(x)) and nswaps > 0 and z < Z_MAX, gates
+
+    N = 2048
+    prior_sample = lambda g, n: torch.randn((n, 10), generator=g,  # noqa: E731
+                                            device="cuda")
+    c, _ = timed("asmc_population", lambda: mt.run(
+        pm * mt.HMC(5, 0.1) * mt.ASMC(particles=N, moves=2, target_ess=0.5,
+                                      logprior=logprior,
+                                      prior_sample=prior_sample), seed=0))
+    p = c.samples.values.astype(np.float64)
+    z = _pooled_z(p.mean(0), p.std(0) / np.sqrt(0.5 * N), ref_mean, ref_se)
+    gates["asmc_population"] = {"z": z,
+                                "n_stages": c.diagnostics["n_stages"],
+                                "logz": c.diagnostics["logz"]}
+    assert z < Z_MAX, gates
+
+    cm, cprior, exact = conjugate_model()
+    c, _ = timed("asmc_evidence", lambda: mt.run(
+        cm * mt.HMC(5, 0.3) * mt.ASMC(
+            particles=4096, moves=2, logprior=cprior,
+            prior_sample=lambda g, n: torch.randn((n, 1), generator=g,
+                                                  device="cuda")), seed=1))
+    steps, burnin = EVIDENCE_PTMC
+    ladder = tuple(float((k / 9) ** 5) for k in range(10))
+    pc, _ = timed("ptmc_evidence", lambda: mt.run(
+        cm * mt.HMC(5, 0.3) * mt.PTMC(steps=steps, burnin=burnin,
+                                      betas=ladder, logprior=cprior),
+        seed=0))
+    ti, ss = mt.logz_ti(pc, burnin=burnin), mt.logz_ss(pc, burnin=burnin)
+    gates["evidence"] = {"exact": exact, "asmc": c.diagnostics["logz"],
+                         "ti": ti, "ss": ss,
+                         "asmc_stages": c.diagnostics["n_stages"]}
+    assert (abs(c.diagnostics["logz"] - exact) < 0.25
+            and abs(ti - exact) < 0.35 and abs(ss - exact) < 0.25), gates
+
+    cs, _ = timed("aies_population", lambda: mt.run(
+        pm * mt.AIES(steps=1000, burnin=500, walkers=64), seed=0))
+    x = np.stack([c.samples.values for c in cs], axis=1)  # (500, 64, 10)
+    ess = mt.ess_pooled(x)
+    flat = x.reshape(-1, x.shape[-1]).astype(np.float64)
+    z = _pooled_z(flat.mean(0), flat.std(0) / np.sqrt(ess), ref_mean, ref_se)
+    acc = float(np.mean([np.mean(c.diagnostics["accept"]) for c in cs]))
+    gates["aies_population"] = {"z": z, "min_ess": float(ess.min()),
+                                "accept": acc}
+    assert z < Z_MAX and 0.05 < acc < 0.9, gates
+
+    def abs_normal(st, x0):
+        def ex(x, _st=st):
+            mt.tilde(torch.abs(x), mt.Normal(1.0, _st))
+        return mt.model(ex, x=x0, device="cuda")
+
+    sts = np.logspace(1, -1, 6)
+    particles = np.random.default_rng(0).standard_normal((300, 1))
+    c, _ = timed("seqmc", lambda: mt.run(
+        [abs_normal(st, 0.0) * mt.RWM(float(st)) * mt.SeqMC(steps=10)
+         for st in sts], particles=particles))
+    w = c.diagnostics["weigths"].astype(np.float64)
+    est = float(np.abs(np.sum(w / w.sum() * np.abs(c.samples["x"]))))
+    gates["seqmc"] = {"weighted_abs_x": est}
+    assert c.samples.shape == (3000, 1) and 0.5 < est < 1.5, gates
+
+    sts = np.logspace(0.5, -0.5, 4)
+    c, _ = timed("serialtempmc", lambda: mt.run(
+        [abs_normal(st, 0.5) * mt.RWM(float(st))
+         * mt.SerialTempMC(steps=2000, burnin=200, swap_period=5)
+         for st in sts]))
+    rungs = c.diagnostics["mod"]
+    gates["serialtempmc"] = {"rungs_visited": int(len(np.unique(rungs)))}
+    assert (c.samples.shape == (1800, 1) and np.all(np.isfinite(
+        c.samples.values)) and len(np.unique(rungs)) > 1), gates
+
+    gamma = mt.Gamma(3.0, 0.2)
+    gm = mt.model(lambda x: mt.tilde(x, gamma), x=np.full(10, 0.6),
+                  gradient=True, device="cuda")
+    assert gm.target_spec is not None
+    cs, launches = timed("ptmc_catalog", lambda: mt.run(
+        gm * mt.HMC(5, 0.05) * mt.PTMC(steps=200, burnin=50,
+                                       betas=(0.25, 0.5, 1.0), walkers=64),
+        seed=0))
+    x = np.stack([c.samples.values for c in cs])  # (64, 150, 10)
+    z = _moments_z((x.mean(1), (x ** 2).mean(1)), gamma)
+    gates["ptmc_catalog"] = {"z": z,
+                             "grad_pass": launches["target_logp_grad"]}
+    assert launches["target_logp_grad"] == 1 + 5 * 200, launches
+    assert z < Z_MAX, gates
+
+    kept = ("glm_nuts_multistep", "glm_nuts_transition",
+            "glm_multistep_rows", "target_logp_grad")
+    emit({"phase": "ensemble_runners",
+          "launches": {k: counts.get(k, 0) for k in kept},
+          "seconds": seconds, "total_s": sum(seconds.values()),
+          "gates": gates, **CARD})
+    print(f"ensemble_runners: {sum(seconds.values()):.2f} s; " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in seconds.items()) + f"; {CARD['card']}",
+        flush=True)
     return seconds
 
 

@@ -7,9 +7,11 @@ catalog, with the metric tensors of ``tensor=``/``dtensor=``; ``HMC``
 (fixed step, EmpMCTuner, diagonal and dense mass adaptation), ``HMCDA``,
 ``MALA``, exact ``NUTS``, ``WALNUTS``, ``ChEESHMC``, ``RWM``, ``Barker``,
 ``IMH`` and ``RAM``, and the manifold tier ``SMMALA``, ``PMALA``,
-``RMHMC``, ``ERMLMC`` and ``RMLMC`` under ``SerialMC``, and the standalone
-``slice_sample``; many chains through ``run(task, chains=N)`` with the fused
-GLM-HMC kernels at any N (the N-tiled gradient kernel above 16384
+``RMHMC``, ``ERMLMC`` and ``RMLMC`` under ``SerialMC``, the ensemble
+runners ``SeqMC``, ``SerialTempMC``, ``PTMC``, ``AIES`` and ``ASMC``, the
+convergence-gated ``run_until`` (its frozen blocks through the fused
+continuation), and the standalone ``slice_sample``; many chains through
+``run(task, chains=N)`` with the fused GLM-HMC kernels at any N (the N-tiled gradient kernel above 16384
 observations), the warm-start pipeline (adaptive HMC/HMCDA/MALA and ChEES
 through the Halton multistep kernel or the tiled kernel, exact NUTS through
 the NUTS kernels) and the custom-target kernels on DSL models that are a
@@ -59,8 +61,8 @@ from .samplers import (HMC, HMCState, HMCDA, HMCDAState, EmpMCTuner, MALA,
                        RAMState, WALNUTS, SMMALA, SMMALAState, PMALA,
                        PMALAState, RMHMC, RMHMCState, ERMLMC, RMLMC, LMCState,
                        slice_sample)
-from .runners.serialmc import SerialMC
-from .runners.api import run, resume, prun
+from .runners import (SerialMC, SeqMC, SerialTempMC, PTMC, AIES, ASMC, run,
+                      resume, prun, run_until, ConvergenceResult)
 from .stats import (
     mean, mean_rb, mcvar, mcse, var, std, ess, actime, acceptance, describe,
     wsample, linear_zv, quadratic_zv, linearZv, quadraticZv, rhat,
@@ -69,7 +71,9 @@ from .stats import (
 )
 from .stats import compare as compare_elpd
 from .utils.convert import (barker_state_from_numpy, chees_state_from_numpy,
-                            distribution_from_fields, glm_model_from_spec,
+                            distribution_from_fields, ensemble_from_numpy,
+                            glm_model_from_spec, seqmc_state_from_numpy,
+                            serialtempmc_state_from_numpy,
                             hmc_state_from_numpy, hmcda_state_from_numpy,
                             imh_state_from_numpy, lmc_state_from_numpy,
                             mala_state_from_numpy, nuts_state_from_numpy,
@@ -90,8 +94,8 @@ __all__ = [
     "ChEESState", "Barker", "BarkerState", "IMH", "IMHState", "RAM",
     "RAMState", "WALNUTS", "SMMALA", "SMMALAState", "PMALA", "PMALAState",
     "RMHMC", "RMHMCState", "ERMLMC", "RMLMC", "LMCState", "slice_sample",
-    "SerialMC", "run",
-    "resume", "prun", "mean", "mean_rb", "mcvar", "mcse", "var", "std",
+    "SerialMC", "SeqMC", "SerialTempMC", "PTMC", "AIES", "ASMC",
+    "run_until", "ConvergenceResult", "run", "resume", "prun", "mean", "mean_rb", "mcvar", "mcse", "var", "std",
     "ess", "actime", "acceptance", "describe", "wsample", "linear_zv",
     "quadratic_zv", "linearZv", "quadraticZv", "rhat", "ess_pooled",
     "summarize_chains", "mcmc_quantile", "logz_ti", "logz_ss",
@@ -108,5 +112,6 @@ __all__ = [
     "nuts_state_from_numpy", "ram_state_from_numpy",
     "rwm_state_from_numpy", "smmala_state_from_numpy",
     "pmala_state_from_numpy", "rmhmc_state_from_numpy",
-    "lmc_state_from_numpy",
+    "lmc_state_from_numpy", "ensemble_from_numpy", "seqmc_state_from_numpy",
+    "serialtempmc_state_from_numpy",
 ]

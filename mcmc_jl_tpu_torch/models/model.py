@@ -173,6 +173,13 @@ class LogDensityModel:
                         k += 1
         return cn
 
+    def with_scale(self, scale):
+        """A copy whose ``scale`` (the proposal and initial-ball scale) is
+        ``scale`` broadcast to (size,)."""
+        scale = torch.broadcast_to(torch.as_tensor(
+            scale, dtype=self.dtype, device=self.device), (self.size,))
+        return dataclasses.replace(self, scale=scale.clone())
+
     def __mul__(self, other):
         """``model * sampler`` composition sugar (reference MCMC.jl:87-98)."""
         from ..core.task import product

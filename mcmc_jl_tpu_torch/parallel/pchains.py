@@ -41,13 +41,19 @@ from ..utils.table import Table
 log = logging.getLogger(__name__)
 
 
-def init_chains(model, sampler, n_chains, generator, inits=None):
+def init_chains(model, sampler, n_chains, generator, inits=None,
+                jitter=0.0):
     """Batched sampler state for ``n_chains`` chains.
 
     ``inits``: (n_chains, size) initial positions; default: model.init
-    broadcast."""
+    broadcast, plus ``jitter`` times standard normals when ``jitter > 0``
+    (drawn from ``generator`` before the sampler's init)."""
     if inits is None:
         inits = model.init.expand(n_chains, model.size).clone()
+        if jitter > 0:
+            inits = inits + jitter * torch.randn(
+                inits.shape, generator=generator, dtype=inits.dtype,
+                device=inits.device)
     else:
         inits = torch.as_tensor(inits, dtype=model.dtype, device=model.device)
     return sampler.init(model, inits, generator)

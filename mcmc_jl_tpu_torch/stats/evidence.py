@@ -4,8 +4,8 @@
 They take the per-rung log-likelihood draws ``ll[t, k]`` from the power
 posteriors ``p_k(theta) ∝ prior(theta) * lik(theta)^beta_k`` as a
 (steps, K) array with its ``betas``, or a chain whose diagnostics hold
-``replica_ll`` and ``betas`` (the prior-tempered ladder of ``PTMC``, which
-the port does not have yet: such a chain raises ``ValueError``).
+``replica_ll`` and ``betas`` (the prior-tempered ladder of
+``PTMC(logprior=...)``; a chain without them raises ``ValueError``).
 
 - :func:`logz_ti` — thermodynamic integration with the variance-corrected
   trapezoid of Friel & Pettitt (2008) / Friel, Hurn & Wyse (2014):

@@ -57,7 +57,10 @@ def _rank_normalize(x):
     z = Phi^-1((r - 3/8) / (S + 1/4)))."""
     n, m, d = x.shape
     flat = x.reshape(n * m, d)
-    r = np.argsort(np.argsort(flat, axis=0), axis=0) + 1.0
+    # ordinal ranks: the inverse permutation of one argsort per column
+    order = np.argsort(flat, axis=0)
+    r = np.empty(flat.shape)
+    np.put_along_axis(r, order, np.arange(1.0, n * m + 1)[:, None], axis=0)
     z = torch.special.ndtri(torch.from_numpy((r - 0.375) / (n * m + 0.25)))
     return z.numpy().reshape(n, m, d)
 
@@ -86,13 +89,12 @@ def rhat(x, split: bool = True, method: str = "split"):
 
 
 def ess_pooled(x):
-    """Sum of per-chain Geyer-IMSE ESS, per parameter."""
+    """Sum of per-chain Geyer-IMSE ESS, per parameter (every chain's
+    columns in one estimator call)."""
     x = _as_block(x)
     n, m, d = x.shape
-    out = np.zeros(d)
-    for c in range(m):
-        out += n * mcvar_iid(x[:, c]) / mcvar_imse(x[:, c])
-    return out
+    cols = x.reshape(n, m * d)
+    return (n * mcvar_iid(cols) / mcvar_imse(cols)).reshape(m, d).sum(axis=0)
 
 
 def summarize_chains(x, param_names=None):

@@ -68,34 +68,29 @@ def mcse_bm(x, pars=None, batchlen: int = 100):
 
 def _geyer(x, maxlag=None, monotone=True):
     """Shared IMSE/IPSE core (var.jl:45-91 vs 95-132: the only difference is
-    the monotonization loop)."""
+    the monotonization), over every column at once: the pair sums
+    ``g_j = acv_2j + acv_2j+1`` up to the first that is not positive, made
+    non-increasing by a running minimum (IMSE)."""
     x = _columns(x)
     n, p = x.shape
     if maxlag is None:
         maxlag = n - 1
     acv = autocov(x, maxlag).numpy()  # (maxlag+1, p)
     k = int(np.floor((maxlag - 1) / 2))
-    out = np.empty(p)
-    for c in range(p):
-        g = np.empty(k + 1)
-        m = k + 1
-        for j in range(k + 1):
-            g[j] = acv[2 * j, c] + acv[2 * j + 1, c]
-            if g[j] <= 0:
-                m = j
-                break
-        if monotone and m > 1:
-            for j in range(1, m):
-                if g[j] > g[j - 1]:
-                    g[j] = g[j - 1]
-        v = (-acv[0, c] + 2 * np.sum(g[:m])) / n
-        # Antithetic chains (pair sum Gamma_0 <= 0) can drive the estimate
-        # negative — the reference's identical formula would report negative
-        # variance/ESS there (var.jl:45-91 has no guard).  Floor it so that
-        # ESS <= n*log10(n), the usual super-efficiency cap (cf. Stan).
-        floor = acv[0, c] / (n * max(np.log10(max(n, 10)), 1.0))
-        out[c] = max(v, floor)
-    return out
+    g = acv[0:2 * k + 1:2] + acv[1:2 * k + 2:2]  # (k+1, p)
+    pos = g > 0
+    # m: the number of leading positive pair sums in each column
+    m = np.where(pos.all(axis=0), k + 1, np.argmin(pos, axis=0))
+    if monotone:
+        g = np.minimum.accumulate(g, axis=0)
+    keep = np.arange(k + 1)[:, None] < m[None, :]
+    v = (-acv[0] + 2 * np.where(keep, g, 0.0).sum(axis=0)) / n
+    # Antithetic chains (pair sum Gamma_0 <= 0) can drive the estimate
+    # negative — the reference's identical formula would report negative
+    # variance/ESS there (var.jl:45-91 has no guard).  Floor it so that
+    # ESS <= n*log10(n), the usual super-efficiency cap (cf. Stan).
+    floor = acv[0] / (n * max(np.log10(max(n, 10)), 1.0))
+    return np.maximum(v, floor)
 
 
 def mcvar_imse(x, pars=None, maxlag=None):

@@ -9,6 +9,15 @@ a manifold sampler's ``SMMALAState``/``PMALAState``/``RMHMCState``/
 ``jax.device_get`` turned into a (nested) dict of numpy arrays, and build
 the port's counterpart (a ``WALNUTS`` state is a ``NUTSState``).  ``device=None`` means the CUDA
 card, as everywhere in the port; pass ``device="cpu"`` to build on the CPU.
+
+The ensemble runners' states continue too.  The sampler converters keep a
+leading dimension, so a PTMC walker's ladder (``task.state``, (K,)) and
+``ConvergenceResult.states`` (n_chains,) convert with the sampler's own
+converter; :func:`ensemble_from_numpy` takes AIES's ``(pars, lp)``
+ensemble and ASMC's final particles, :func:`seqmc_state_from_numpy` a
+SeqMC ladder's particles, weights and per-target sampler states, and
+:func:`serialtempmc_state_from_numpy` a SerialTempMC ladder's rung states
+and walker.
 """
 from __future__ import annotations
 
@@ -193,3 +202,67 @@ def _state_from_numpy(cls, state, device, dtype):
         dtype = torch.float64 if np.asarray(state["pars"]).dtype == np.float64 \
             else torch.float32
     return _build(cls, state, dev, dtype)
+
+
+def ensemble_from_numpy(*arrays, device=None, dtype=None):
+    """Tensors on ``device`` from numpy arrays: AIES's ``(pars (W, d), lp
+    (W,))`` ensemble (``ensemble_from_numpy(pars, lp)``, the state every
+    walker's task carries) or ASMC's final particles ``(N, d)``
+    (``ensemble_from_numpy(pars)``).  Floats keep the first array's
+    precision unless ``dtype`` is given.  One array gives one tensor."""
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.float64 if np.asarray(arrays[0]).dtype == np.float64 \
+            else torch.float32
+    out = tuple(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+                for a in arrays)
+    return out[0] if len(out) == 1 else out
+
+
+def _per_target(convert, n):
+    return list(convert) if isinstance(convert, (list, tuple)) \
+        else [convert] * n
+
+
+def _rungs(states):
+    """Per-rung state dicts from a list of them, or from one dict stacked
+    on a leading rung axis (the JAX package's homogeneous ladder)."""
+    if isinstance(states, dict):
+        n = np.asarray(states["pars"]).shape[0]
+        take = lambda t, k: ({f: take(v, k) for f, v in t.items()}  # noqa: E731
+                             if isinstance(t, dict) else np.asarray(t)[k])
+        return [take(states, k) for k in range(n)]
+    return list(states)
+
+
+def seqmc_state_from_numpy(carry, convert, device=None, dtype=None):
+    """The state a finished SeqMC run's tasks carry, from the JAX package's
+    (``chain.task[-1].state``: ``pars`` (npart, d), ``logW`` (npart,) and
+    ``states``, one per target, each a dict of numpy arrays with a leading
+    particle dimension).  ``convert``: the sampler converter above for
+    every target, or a list of one a target."""
+    pars, logW = ensemble_from_numpy(carry["pars"], carry["logW"],
+                                     device=device, dtype=dtype)
+    states = carry["states"]
+    fns = _per_target(convert, len(states))
+    return {"pars": pars, "logW": logW,
+            "states": tuple(f(s, device=device, dtype=pars.dtype)
+                            for f, s in zip(fns, states))}
+
+
+def serialtempmc_state_from_numpy(states, convert, at, pars, logtarget,
+                                  logW, device=None, dtype=None):
+    """The state a finished SerialTempMC run's tasks carry, from the JAX
+    package's ``_temp_scan`` (its rung states, one dict a rung or one dict
+    stacked on the rung axis, and its ``logW``) and the walker: ``at``
+    (0-based rung), ``pars`` (d,) and ``logtarget`` (rung ``at``'s
+    log-target there).  ``convert``: the sampler converter above for every
+    rung, or a list of one a rung."""
+    pars, logtarget, logW = ensemble_from_numpy(
+        pars, logtarget, logW, device=device, dtype=dtype)
+    rungs = _rungs(states)
+    fns = _per_target(convert, len(rungs))
+    return {"states": tuple(f(s, device=device, dtype=pars.dtype)
+                            for f, s in zip(fns, rungs)),
+            "at": int(at), "pars": pars, "logtarget": logtarget,
+            "logW": logW}

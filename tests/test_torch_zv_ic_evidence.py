@@ -26,10 +26,9 @@ torch.set_num_threads(1)
 RTOL = 1e-10
 F64 = torch.float64
 
-#: names of the JAX package's surface that the port does not have yet: the
-#: ensemble and tempering runners, run_until
-STILL_TO_PORT = {"SeqMC", "SerialTempMC", "PTMC", "AIES", "ASMC",
-                 "run_until", "ConvergenceResult"}
+#: names of the JAX package's surface that the port does not have yet:
+#: none, the port exports every one
+STILL_TO_PORT = set()
 
 
 def _gauss_draws(n=600, d=3, seed=0):
@@ -194,9 +193,8 @@ def test_evidence_matches_jax(burnin):
 
 
 def test_evidence_refusals_match_jax():
-    """A chain without the ladder's diagnostics raises the reference's
-    ValueError (PTMC is not ported yet), and stepping-stone needs beta_0 =
-    0."""
+    """A chain without the ladder's diagnostics (a SerialMC chain) raises
+    the reference's ValueError, and stepping-stone needs beta_0 = 0."""
     m = mt.model(lambda v: -0.5 * (v * v).sum(), init=np.zeros(1),
                  dtype=F64, device="cpu")
     c = mt.run(m * mt.RWM(0.5) * mt.SerialMC(steps=20), seed=0)
@@ -211,7 +209,7 @@ def test_evidence_refusals_match_jax():
 
 
 def test_top_level_surface_covers_jax():
-    """Every name the JAX package exports, less the list still to port, is
+    """Every name the JAX package exports (STILL_TO_PORT is empty) is
     exported by the port and present on it."""
     want = set(mc.__all__) - STILL_TO_PORT
     missing = sorted(want - set(mt.__all__))
