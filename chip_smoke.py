@@ -1020,12 +1020,12 @@ def _hmc_reference(hmc_final, hmc_steps=2000):
     return hmc["ppars"].mean(0).double().cpu().numpy()
 
 
-def phase_nuts_main_path(hmc_means, burnin=100):
+def phase_nuts_main_path(hmc_means, burnin=80):
     """Exact NUTS through ``run``: the multistep kernel serves
-    SerialMC(600, 100) (500 = 100 launches of 5), the per-transition
-    kernel the diagonal-metric run with SerialMC(599, 100) (499 is prime);
-    the burn-in is cut from the benchmark's 500 to 100 to keep the script
-    under 600 s.
+    SerialMC(580, 80) (500 = 100 launches of 5), the per-transition
+    kernel the diagonal-metric run with SerialMC(579, 80) (499 is prime);
+    the burn-in is cut from the benchmark's 500 to 80 for the script's
+    time.
 
     Each run's per-chain means must agree with ``hmc_means``, the per-chain
     means of the HMC main path's continuation (:func:`_hmc_reference`).
@@ -2116,9 +2116,10 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
       SerialMC(2000, 500)`` at 4096 chains (examples/warmstart_logistic.py):
       1500 sampling transitions as 250 launches of 6 of the Halton
       multistep kernel with the folded (d,) prior row;
-    - ``HMCDA() * SerialMC(900, 100)`` (its burn-in cut from 200 for the
-      script's time) and ``MALA(0.002, EmpMCTuner(0.574, adapt_step=50)) *
-      SerialMC(1000, 200)`` at 1024 chains: 100 launches of 8 each.
+    - ``HMCDA() * SerialMC(800, 80)`` (cut from (1000, 200) for the
+      script's time: 90 launches of 8) and ``MALA(0.002, EmpMCTuner(0.574,
+      adapt_step=50)) * SerialMC(1000, 200)`` (100 launches of 8) at 1024
+      chains.
     Returns the Halton kernel's launches in the first run, the step and
     leap count that run froze at, and its tasks (for phase_resume_paths)."""
     import mcmc_jl_tpu_torch as mt
@@ -2128,7 +2129,7 @@ def phase_warm_paths(hmc_means, chains=4096, chains_small=1024):
     runs = (
         (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
                 mass_adapt="diag"), 2000, 500, chains, 250),
-        (mt.HMCDA(), 900, 100, chains_small, 100),
+        (mt.HMCDA(), 800, 80, chains_small, 90),
         (mt.MALA(0.002, mt.EmpMCTuner(0.574, adapt_step=50)), 1000, 200,
          chains_small, 100),
     )
@@ -3747,8 +3748,8 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
     - bench.py's logistic GLM (d 10, N 1000, from the mode), 4096 chains:
       ``HMC(10, 0.02, EmpMCTuner(0.8, 50), mass_adapt="dense") *
       SerialMC(2000, 500)`` (3b: 250 launches of 6) and ``NUTS(6,
-      mass_adapt="dense") * SerialMC(599, 100)`` (8: 499; the burn-in cut
-      to 100 for the script's 600 s), both held
+      mass_adapt="dense") * SerialMC(579, 80)`` (8: 499; the burn-in cut
+      to 80 for the script's time), both held
       against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
       (9: 15 launches of 8) with _resume_path's checks;
     - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
@@ -3777,7 +3778,7 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
             (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
                     mass_adapt="dense"), 2000, 500,
              "glm_multistep_rows_mat", 250),
-            (mt.NUTS(6, mass_adapt="dense"), 599, 100,
+            (mt.NUTS(6, mass_adapt="dense"), 579, 80,
              "glm_nuts_transition_mat", 499)):
         task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
         origin = _origin(m, task, chains)
@@ -5016,7 +5017,7 @@ WIDE_NUTS_EPS, WIDE_NUTS_DEEP_EPS = 0.1, 0.002
 # the wide NUTS paths: SerialMC(steps, burnin) for kernel 9 (the sampling
 # transitions split into launches of WIDE_NUTS_K) and steps - 3 for kernel
 # 8 (a prime count of sampling transitions: one launch a transition)
-WIDE_NUTS_RUN = (150, 50)
+WIDE_NUTS_RUN = (116, 40)
 
 
 def _wide_nuts_inputs(XT, Y, th, md, seed, **kw):
@@ -5150,7 +5151,7 @@ def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
     ``resume(chains, steps=120)`` of the unit-metric run (9) and
     ``resume(chains, steps=101)`` of the dense run (8 mat), with
     _resume_path's checks.  The warmups run on the generic engine (cut to
-    50 transitions, for the script's 600 s).  First the routes at d 150,
+    40 transitions, and the runs to (116, 40), for the script's time).  First the routes at d 150,
     256 and 257 (_wide_nuts_routes).  Returns the wide NUTS kernels'
     launches {name: (count, origin)}."""
     import mcmc_jl_tpu_torch as mt
@@ -5671,6 +5672,10 @@ def main():
     # through kernels 9 and 3b; the tempered runners' gradients through the
     # gradient pass on a catalog model)
     step("ensemble_runners", phase_ensemble_runners, hmc_means)
+    # the distributed drivers on meshes of virtual shards of the one card:
+    # kernels 1, 5 and 4 sharded, run (3b, 9, 8 and 8b a shard), PTMC,
+    # ASMC and run_until with mesh=
+    mesh_launches = step("mesh_paths", phase_mesh_paths, hmc_means)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing, steps=200, reps=2)
@@ -5700,7 +5705,9 @@ def main():
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[lib],
          "replaces": replaces, "launches": launches[name][0],
-         "from": launches[name][1], "max_abs_err": errors[name],
+         "from": launches[name][1],
+         "mesh_launches": mesh_launches.get(name, 0),
+         "max_abs_err": errors[name],
          "ms": ms[name][0], "plain_ms": ms[name][1], **work[name],
          "library_ms": None}
         for name, (lib, replaces) in REPLACES.items()]})
@@ -5711,7 +5718,7 @@ def main():
 
 
 def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
-                           slice_iters=1000, walnuts_run=(40, 12)):
+                           slice_iters=1000, walnuts_run=(30, 10)):
     """The samplers that run on the generic engine in both packages, at
     d = 10 in float32 on the card, each through ``run(..., chains=N)`` with
     every count zeroed just before it and read just after, and each held
@@ -5723,7 +5730,7 @@ def phase_generic_samplers(final, chains=4096, walnuts_chains=1024,
       launch of the gradient pass ``target_logp_grad`` (one a transition
       and one at init); ``linear_zv`` of chain 0 lowers its variance;
     - ``WALNUTS(multinomial=True, maxdoublings=5) * SerialMC(*walnuts_run)``
-      (40, 12; (150, 50) cut for the script's time) on the same
+      (30, 10; (150, 50) cut for the script's time) on the same
       model, 1024 chains: gradient-pass launches
       counted, and no
       launch of the NUTS kernels 8, 8b or 9 (WALNUTS takes the generic
@@ -6115,8 +6122,8 @@ def phase_ensemble_runners(hmc_means, chains=4096):
        its retained per-chain means lie within Z_MAX standard errors of
        ``hmc_means`` (``_hmc_reference``, kernel 1's HMC);
     2. the same with ``HMC(10, 0.02, EmpMCTuner(0.8, 50),
-       mass_adapt="diag")``, ``check_every=200, warmup=200,
-       max_steps=1000``: the frozen blocks through kernel 3b;
+       mass_adapt="diag")``, ``check_every=100, warmup=100,
+       max_steps=600``: the frozen blocks through kernel 3b;
     3. population.py's ``HMC(5, 0.1) * PTMC(steps=400, swap_period=5,
        betas=((k+1)/8)^2, walkers=32)`` (256 chains) on its callable
        model: the 32 cold rungs, pooled past their first 100 steps,
@@ -6167,7 +6174,7 @@ def phase_ensemble_runners(hmc_means, chains=4096):
                                 ("glm_nuts_multistep",
                                  "glm_nuts_transition")),
              "run_until_hmc": (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, 50),
-                                      mass_adapt="diag"), 200, 200, 1000,
+                                      mass_adapt="diag"), 100, 100, 600,
                                ("glm_multistep_rows",))}
     for name, (sampler, every, warmup, most, kernels) in until.items():
         res, launches = timed(name, lambda: mt.run_until(
@@ -6288,6 +6295,262 @@ def phase_ensemble_runners(hmc_means, chains=4096):
         f"{k} {v:.2f} s" for k, v in seconds.items()) + f"; {CARD['card']}",
         flush=True)
     return seconds
+
+
+MESH_SHARDS = 4  # virtual shards: entries that repeat cuda:0
+
+
+def _mesh_counted(fn):
+    """``_counted`` with the port's reduction counter zeroed too; returns
+    (result, kernel launches, psums {(axis, shape, dtype): count})."""
+    from mcmc_jl_tpu_torch.parallel import collectives
+
+    collectives.reset_counts()
+    out, launches = _counted(fn)
+    return out, launches, dict(collectives.PSUMS)
+
+
+def _direct_lp(X, Y, theta):
+    """The logistic posterior's float64 log-density (N(0, I) prior) at the
+    rows of ``theta``, in numpy."""
+    z = X @ theta.T
+    return (z * Y[:, None] - np.logaddexp(0.0, z)).sum(0) \
+        - 0.5 * (theta * theta).sum(1)
+
+
+def phase_mesh_paths(hmc_means, chains=4096):
+    """The distributed drivers on meshes whose entries repeat ``cuda:0``
+    (virtual shards: one card, shards in turn on it), each through its
+    entry point with every count zeroed just before it and read just after:
+
+    1. kernel 1: ``run_glm_hmc_sharded`` on the main path's logistic 10 x
+       1000, 4096 chains over 4 shards, HMC(10, 0.05), 100 steps: each
+       shard's rows bitwise ``run_glm_hmc`` on 1024 chains with that
+       shard's stream (``shard_seed(seed, i)``), no reduction;
+    2. kernel 5: ``run_target_hmc_sharded`` on ``x ~ Gamma(3, 0.2)``, d 10,
+       the same layout and bitwise rule;
+    3. kernel 4: ``run_glm_hmc_bign_sharded`` at N 1e5 from the posterior
+       mode, 512 chains on a (2, 2) ``(chains, data)`` mesh, HMC(10,
+       0.005), 10 steps, against the (1, 1) run: on the chains whose accept
+       decisions agree (at most 2% may not: see the comment below), theta
+       within rtol 2e-4, atol 2e-5 and the log-targets within 2e-4; every
+       chain's last log-target within 1e-4 of a float64 direct evaluation;
+       4 x (1 + steps n_leaps) launches and 2 x (1 + steps n_leaps)
+       data-axis psums, each float32 (256, 11);
+    4. ``run(..., chains=4096, mesh=make_mesh(4, 1))`` with adaptive HMC
+       diag (SerialMC(400, 100), kernel 3b a shard) and NUTS(6)
+       (SerialMC(110, 20), kernel 9 a shard) from the posterior mode,
+       their per-chain means within Z_MAX of ``hmc_means`` (the generic
+       warmups run each shard in turn on the one card, four times the host
+       work of one batch: short burn-ins); then ``resume(chains,
+       steps=101, mesh=)`` of the NUTS run, kernel 8 a shard; then NUTS(4)
+       on ``x ~ Gamma(3, 0.2)``, d 10 (SerialMC(70, 30), target-mode NUTS
+       8b a shard; depth 4 as its generic warmup's trees reach depth 6 at
+       its small adapted steps, four times the gradient passes), its
+       per-chain first and second moments within Z_MAX of the exact ones;
+    5. ``HMC(5, 0.05) * PTMC(steps=200, burnin=50, betas=(0.25, 0.5, 1),
+       walkers=8)`` on the Gamma model (2 ladders a shard, the gradient
+       pass), ``ASMC(particles=4096)`` with ``HMC(5, 0.3)`` on
+       model_comparison.py's conjugate model (|logZ - exact| < 0.25) and
+       ``run_until`` with ``HMC(10, 0.05, EmpMCTuner(0.8, 25),
+       mass_adapt="diag")``, ``check_every=50, warmup=50,
+       rhat_target=1.05, max_steps=600`` (kernel 3b a shard in its frozen
+       blocks; R-hat 1.01 takes about 450 steps from the mode, eight
+       gates of host statistics at 4096 chains), all with
+       ``mesh=``.
+
+    No plain version runs.  Prints one line a path (its launches and
+    psums) and one for the phase; returns the launches of each kernel on
+    the mesh paths."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_bign import run_glm_hmc_bign_sharded
+    from mcmc_jl_tpu_torch.ops.glm_hmc import run_glm_hmc, run_glm_hmc_sharded
+    from mcmc_jl_tpu_torch.ops.target_kernels import (
+        coordwise_logp, run_target_hmc, run_target_hmc_sharded)
+    from mcmc_jl_tpu_torch.parallel.mesh import Mesh, shard_seed
+    from mcmc_jl_tpu_torch.parallel.sharded import make_mesh
+    from mcmc_jl_tpu_torch.samplers.base import make_generator
+
+    n = MESH_SHARDS
+    mesh = Mesh(["cuda:0"] * n, ("chains",))
+    seconds, gates, mesh_launches = {}, {}, {}
+
+    def path(name, fn, want_kernels):
+        t0 = time.perf_counter()
+        out, launches, psums = _mesh_counted(fn)
+        seconds[name] = time.perf_counter() - t0
+        fired = {k: v for k, v in launches.items() if v}
+        for k, v in fired.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+        emit({"phase": "mesh_path", "path": name, "seconds": seconds[name],
+              "launches": fired,
+              "psums": {f"{a} {list(sh)} {dt}": c
+                        for (a, sh, dt), c in psums.items()}, **CARD})
+        for k in want_kernels:
+            assert launches.get(k, 0) > 0, (name, k, launches)
+        return out, launches, psums
+
+    X, Y = bench_data()
+    steps, C = 100, chains
+    inits = torch.zeros((C, X.shape[1]), device="cuda")
+    (th, inf), launches, psums = path("kernel1_sharded", lambda:
+                                      run_glm_hmc_sharded(
+                                          X, Y, C, steps, mesh=mesh,
+                                          n_leaps=10, eps=0.05, seed=11,
+                                          inits=inits), ("glm_leapfrogs",))
+    assert launches["glm_leapfrogs"] == n * steps and not psums, launches
+    per = C // n
+    for i in range(n):
+        th_i, inf_i = run_glm_hmc(
+            X, Y, per, steps, n_leaps=10, eps=0.05, inits=inits[:per],
+            generator=make_generator("cuda", shard_seed(11, i)),
+            device="cuda")
+        assert torch.equal(th_i, th[i * per:(i + 1) * per]), i
+        assert torch.equal(inf_i["plogtarget"],
+                           inf["plogtarget"][:, i * per:(i + 1) * per]), i
+    gates["kernel1_bitwise_shards"] = n
+
+    gamma = mt.Gamma(3.0, 0.2)
+    target = coordwise_logp(gamma, 10)
+    t_inits = torch.full((C, 10), 0.6, device="cuda")
+    (th, inf), launches, psums = path("kernel5_sharded", lambda:
+                                      run_target_hmc_sharded(
+                                          target, 10, C, steps, mesh=mesh,
+                                          n_leaps=10, eps=0.05, seed=12,
+                                          inits=t_inits),
+                                      ("target_leapfrogs",))
+    assert launches["target_leapfrogs"] == n * steps and not psums, launches
+    for i in range(n):
+        th_i, _ = run_target_hmc(
+            target, 10, per, steps, n_leaps=10, eps=0.05,
+            inits=t_inits[:per], device="cuda",
+            generator=make_generator("cuda", shard_seed(12, i)))
+        assert torch.equal(th_i, th[i * per:(i + 1) * per]), i
+    gates["kernel5_bitwise_shards"] = n
+
+    Xb, Yb, mode = _bench_mode(100_000)
+    bsteps, bleaps, bC = 10, 10, 512
+    b_inits = torch.tensor(mode, dtype=torch.float32,
+                           device="cuda").expand(bC, -1).contiguous()
+    kw = dict(n_chains=bC, steps=bsteps, n_leaps=bleaps, eps=0.005, seed=13,
+              inits=b_inits)
+    mesh22 = make_mesh(2, 2, devices=["cuda:0"] * 4)
+    (th_s, inf_s), launches, psums = path(
+        "kernel4_data_axis", lambda: run_glm_hmc_bign_sharded(
+            Xb, Yb, mesh=mesh22, **kw), ("glm_logp_grad_tiled",))
+    evals = 1 + bsteps * bleaps
+    assert launches["glm_logp_grad_tiled"] == 4 * evals, launches
+    assert psums == {("data", (bC // 2, 11), "float32"): 2 * evals}, psums
+    th_1, inf_1 = run_glm_hmc_bign_sharded(
+        Xb, Yb, mesh=make_mesh(1, 1, devices=["cuda:0"]), **kw)
+    # a chain whose accept decisions differ between the two runs has left
+    # the other's path: at N 1e5 the float32 log-targets (about -4e4, an
+    # ulp 0.004) of the two reduction orders differ by a few ulps, and a
+    # ratio that close to its log-uniform decides the other way (about 0.4%
+    # of the decisions); the others are held at the stated tolerances
+    same = (inf_s["accept"] == inf_1["accept"]).all(0).cpu()
+    lp_s = inf_s["plogtarget"].double().cpu().numpy()[:, same]
+    lp_1 = inf_1["plogtarget"].double().cpu().numpy()[:, same]
+    th_err = float((th_s - th_1).abs()[same.to(th_s.device)].max())
+    lp_rel = float(np.max(np.abs(lp_s - lp_1) / np.abs(lp_1)))
+    direct = _direct_lp(Xb, Yb, th_s.double().cpu().numpy())
+    lp_last = inf_s["plogtarget"][-1].double().cpu().numpy()
+    lp_direct = float(np.max(np.abs(lp_last - direct) / np.abs(direct)))
+    flipped = int((~same).sum())
+    gates["kernel4_vs_1x1"] = {"theta_max_abs": th_err, "lp_max_rel": lp_rel,
+                               "last_lp_vs_f64_rel": lp_direct,
+                               "chains_with_a_flipped_decision": flipped}
+    assert _close(th_s[same.to(th_s.device)], th_1[same.to(th_1.device)],
+                  2e-4, 2e-5), gates["kernel4_vs_1x1"]
+    assert lp_rel < 2e-4 and lp_direct < 1e-4, gates["kernel4_vs_1x1"]
+    assert flipped <= 0.02 * bC, gates["kernel4_vs_1x1"]
+
+    Xm, Ym, mode_m = _bench_mode(1000)
+    m = mt.model(glm=("logistic", Xm, Ym), init=mode_m, device="cuda")
+    mesh41 = make_mesh(n, 1, devices=["cuda:0"] * n)
+    runs = {"warm_hmc_diag": (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, 50),
+                                     mass_adapt="diag"), 400, 100,
+                              "glm_multistep_rows"),
+            "nuts_kernel9": (mt.NUTS(maxdoublings=6), 110, 20,
+                             "glm_nuts_multistep")}
+    for name, (sampler, st, burn, kernel) in runs.items():
+        task = m * sampler * mt.SerialMC(steps=st, burnin=burn)
+        cs, launches, psums = path(name, lambda: mt.run(
+            task, chains=chains, seed=0, mesh=mesh41), (kernel,))
+        samples = np.stack([c.samples.values for c in cs])
+        assert samples.shape == (chains, st - burn, m.size)
+        z = _z_means(samples.mean(1), hmc_means)
+        gates[name] = {"z": z, "launches": launches[kernel]}
+        assert np.all(np.isfinite(samples)) and z < Z_MAX, (name, z)
+    # the NUTS chains resumed on the mesh for a prime count of transitions:
+    # the fused continuation's per-transition kernel 8, a shard an entry
+    more, launches, _ = path("resume_kernel8", lambda: mt.resume(
+        cs, steps=101, mesh=mesh41), ("glm_nuts_transition",))
+    samples = np.stack([c.samples.values for c in more])
+    z = _z_means(samples.mean(1), hmc_means)
+    gates["resume_kernel8"] = {"z": z,
+                               "launches": launches["glm_nuts_transition"]}
+    assert launches["glm_nuts_transition"] == n * 101 and z < Z_MAX, gates
+
+    gm = mt.model(lambda x: mt.tilde(x, gamma), x=np.full(10, 0.6),
+                  gradient=True, device="cuda")
+    # the warm pipeline on a catalog target: the sampling phase's
+    # target-mode NUTS transition (8b), one launch a transition a shard
+    tst, tburn = 70, 30
+    cs, launches, _ = path("target_nuts_kernel8b", lambda: mt.run(
+        gm * mt.NUTS(maxdoublings=4) * mt.SerialMC(steps=tst, burnin=tburn),
+        chains=chains, seed=0, mesh=mesh41), ("target_nuts_transition",))
+    x = np.stack([c.samples.values for c in cs])
+    assert x.shape == (chains, tst - tburn, 10) and np.all(np.isfinite(x))
+    z = _moments_z((x.mean(1), (x ** 2).mean(1)), gamma)
+    gates["target_nuts_kernel8b"] = {
+        "z": z, "launches": launches["target_nuts_transition"]}
+    assert launches["target_nuts_transition"] == n * (tst - tburn) \
+        and z < Z_MAX, gates["target_nuts_kernel8b"]
+    cs, launches, _ = path("ptmc_mesh", lambda: mt.run(
+        gm * mt.HMC(5, 0.05) * mt.PTMC(steps=200, burnin=50,
+                                       betas=(0.25, 0.5, 1.0), walkers=8),
+        seed=0, mesh=mesh), ("target_logp_grad",))
+    x = np.stack([c.samples.values for c in cs])
+    z = _moments_z((x.mean(1), (x ** 2).mean(1)), gamma)
+    gates["ptmc_mesh"] = {"z": z, "grad_pass": launches["target_logp_grad"],
+                          "nswaps": float(sum(c.diagnostics["nswaps"].sum()
+                                              for c in cs))}
+    assert z < Z_MAX and gates["ptmc_mesh"]["nswaps"] > 0, gates["ptmc_mesh"]
+
+    cm, cprior, exact = conjugate_model()
+    c, _, psums = path("asmc_mesh", lambda: mt.run(
+        cm * mt.HMC(5, 0.3) * mt.ASMC(
+            particles=4096, moves=2, logprior=cprior,
+            prior_sample=lambda g, k: torch.randn((k, 1), generator=g,
+                                                  device="cuda")),
+        seed=1, mesh=mesh), ())
+    gates["asmc_mesh"] = {"logz": c.diagnostics["logz"], "exact": exact,
+                          "n_stages": c.diagnostics["n_stages"],
+                          "psums": sum(psums.values())}
+    assert abs(c.diagnostics["logz"] - exact) < 0.25, gates["asmc_mesh"]
+    assert sum(psums.values()) > 0, psums
+
+    res, launches, _ = path("run_until_mesh", lambda: mt.run_until(
+        m, mt.HMC(10, 0.05, mt.EmpMCTuner(0.8, 25), mass_adapt="diag"),
+        n_chains=chains, check_every=50, warmup=50, rhat_target=1.05,
+        min_ess=400, max_steps=600, seed=0, mesh=mesh41),
+        ("glm_multistep_rows",))
+    z = _z_means(res.samples.astype(np.float64).mean(0), hmc_means)
+    gates["run_until_mesh"] = {"z": z, "converged": res.converged,
+                               "steps_run": res.steps_run,
+                               "max_rhat": res.max_rhat}
+    assert res.converged and z < Z_MAX, gates["run_until_mesh"]
+
+    emit({"phase": "mesh_paths", "shards": n, "launches": mesh_launches,
+          "seconds": seconds, "total_s": sum(seconds.values()),
+          "gates": gates, **CARD})
+    print(f"mesh_paths: {sum(seconds.values()):.2f} s; " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in seconds.items()) + f"; {CARD['card']}",
+        flush=True)
+    return mesh_launches
 
 
 def phase_path_spans(chains=4096):

@@ -17,6 +17,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "mcmc_jl_tpu_torch"
@@ -24,6 +25,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count(counts, name):
+    """Add one launch to ``counts[name]``; the wrappers of a mesh's shards
+    on distinct devices launch from one host thread a device."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def find_nvcc():

@@ -34,6 +34,7 @@ import torch
 from .glm_kernels import (KIND_CODES, NARROW_D_MAX, _check, _counted,
                           _device_branch, _draw, _prior, _prior_args, _ptr,
                           _row, _trajectory, accept_test, glm_funcs)
+from .cuda_build import count
 
 #: above this many observations a GLM run takes the N-tiled kernel, as in
 #: the JAX package (pallas_glm_bign.py BIGN_THRESHOLD)
@@ -143,7 +144,7 @@ def glm_logp_grad_tiled(XT, Y, theta, *, kind="logistic", weights=None,
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.bign_error_string(code).decode()} ({code})")
-    LAUNCHES[_counted(name, lamm, d)] += 1
+    count(LAUNCHES, _counted(name, lamm, d))
     return lp_o, g_o
 
 
@@ -165,14 +166,25 @@ def _run_bign(XT, Y, theta0, eps, generator, *, steps, n_leaps,
     ``generator`` in the same order as glm_hmc._run, so on the same seed
     the two give the same chains up to the gradients' rounding.
     Returns ((theta, lp, grad), infos stacked over steps)."""
-    grad_only, logp_grad = _tiled_funcs(XT, Y, W, O, lam, kind)
+    return _hmc_loop(theta0, eps, lambda theta: _draw(theta, generator),
+                     *_tiled_funcs(XT, Y, W, O, lam, kind), steps=steps,
+                     n_leaps=n_leaps, integrator=integrator, collect=collect)
+
+
+def _hmc_loop(theta0, eps, draw, grad_only, logp_grad, *, steps, n_leaps,
+              integrator, collect):
+    """The HMC transitions of :func:`_run_bign` and
+    :func:`run_glm_hmc_bign_sharded`: ``draw(theta) -> (momenta,
+    log-uniforms)`` a transition and the trajectory on ``(grad_only,
+    logp_grad)``.  Returns ((theta, lp, grad), infos stacked over
+    steps)."""
     theta = theta0
     lp, g = logp_grad(theta0)
     rows = {"plogtarget": [], "accept": []}
     if collect:
         rows.update(ppars=[], pgrads=[])
     for _ in range(steps):
-        m0, logu = _draw(theta, generator)
+        m0, logu = draw(theta)
         p_th, p_m, p_g, p_lp = _trajectory(theta, m0, g, eps, grad_only,
                                            logp_grad, n_leaps, integrator)
         accept = accept_test(-lp + 0.5 * (m0 * m0).sum(-1),
@@ -205,3 +217,116 @@ def run_glm_hmc_bign(X, Y, n_chains, steps, n_leaps=10, eps=0.05, seed=0,
         kind=kind, W=W, O=O, lam=float(prior_prec), integrator=integrator,
         collect=collect)
     return theta, infos
+
+
+def _prior_term(prior_prec, d, device):
+    """``theta -> P theta`` rows of the prior's precision ``P`` (a scalar, a
+    (d,) row or a (d, d) matrix), float32 on ``device``: the prior's
+    gradient is ``-P theta`` and its log-density ``-0.5 theta' P theta``."""
+    from .glm_kernels import _is_mat
+
+    p = torch.as_tensor(prior_prec)
+    if _is_mat(p):
+        A = p.to(device=device, dtype=torch.float32)
+        return lambda theta: theta @ A
+    if p.numel() > 1:
+        v = p.reshape(-1).to(device=device, dtype=torch.float32)
+        return lambda theta: v * theta
+    lam = float(p)
+    return lambda theta: lam * theta
+
+
+def run_glm_hmc_bign_sharded(X, Y, n_chains, steps, mesh=None,
+                             chain_axis="chains", data_axis="data",
+                             n_leaps=10, eps=0.05, seed=0, generator=None,
+                             inits=None, kind="logistic", weights=None,
+                             offsets=None, prior_prec=1.0,
+                             integrator="leapfrog", collect=False):
+    """Large-N GLM HMC over a 2-D ``(chains, data)`` mesh
+    (pallas_glm_bign.py ``run_glm_hmc_bign_sharded``): both scale axes
+    reach kernel 4.
+
+    The observations are split over ``mesh[data_axis]`` (contiguous
+    ranges; the last may be shorter, the kernel takes a ragged last tile,
+    so nothing pads N) and the chains over ``mesh[chain_axis]``.  Every
+    entry runs :func:`glm_logp_grad_tiled` on its rows with
+    ``prior_prec=0``, and the entries of a chain group join their (logp,
+    gradient) in ONE :func:`~..parallel.collectives.psum` over the data
+    axis a gradient: ``[g | lp]``, (C_loc, d + 1) float32.  The prior (a
+    scalar, a (d,) row or a (d, d) matrix) is applied once after it.
+
+    Momenta and log-uniforms come from one stream over the global chain
+    axis (each chain group holds a copy of the generator and takes its own
+    rows of each draw), so every data entry of a chain takes the same
+    numbers and the sharded run is the (1, 1) run, and
+    :func:`run_glm_hmc_bign` on the same seed, up to the sums' order.
+    ``inits`` default to ``0.1`` standard normals drawn first from that
+    stream.  Returns the :func:`run_glm_hmc_bign` surface, ``(theta (C,
+    d), infos)``, joined on the first chain group's device."""
+    from ..parallel.collectives import psum
+    from ..parallel.mesh import (Mesh, axis_groups, concat_chains,
+                                 default_devices, for_each, gather,
+                                 local_groups)
+    from ..samplers.base import make_generator
+    from .glm_hmc import _prepare
+
+    if mesh is None:
+        mesh = Mesh([default_devices()], (chain_axis, data_axis))
+    n_c, n_d = mesh.shape[chain_axis], mesh.shape[data_axis]
+    assert n_chains % n_c == 0, (
+        f"n_chains ({n_chains}) must divide the '{chain_axis}' axis ({n_c})")
+    c_loc = n_chains // n_c
+    items = local_groups(mesh, chain_axis)
+    dev0 = items[0][1]
+    XT, Y2, theta0, gen, W, O = _prepare(X, Y, n_chains, seed, generator,
+                                         inits, dev0, weights, offsets)
+    d, N = XT.shape
+    state = gen.get_state()
+    bounds = [(int(r[0]), int(r[-1]) + 1) if len(r) else (0, 0)
+              for r in torch.tensor_split(torch.arange(N), n_d)]
+    a_d = mesh.axis_names.index(data_axis)
+    groups = axis_groups(mesh, chain_axis)
+    eps = float(eps)
+    f32 = torch.float32
+
+    def one(c, dev):
+        g_c = make_generator(dev, state=state)
+        shards = {}
+        for m in groups[c]:
+            if not mesh.is_local(m):
+                continue
+            lo, hi = bounds[m[a_d]]
+            edev = mesh.devices[m]
+            shards[m] = (XT[:, lo:hi].to(edev).contiguous(),
+                         *(None if v is None else v[lo:hi].to(edev)
+                           for v in (Y2, W, O)))
+        first = next(iter(shards))
+        prior = _prior_term(prior_prec, d, dev)
+
+        def logp_grad(theta):
+            parts = {}
+            for m, (xt, y, w, o) in shards.items():
+                lp_l, g_l = glm_logp_grad_tiled(
+                    xt, y, theta.to(mesh.devices[m]).contiguous(), kind=kind,
+                    weights=w, offsets=o, prior_prec=0.0)
+                parts[m] = torch.cat([g_l, lp_l[:, None]], dim=1)
+            packed = psum(parts, mesh, data_axis)[first]
+            pt = prior(theta)
+            return (packed[:, d] - 0.5 * (pt * theta).sum(1),
+                    packed[:, :d] - pt)
+
+        sl = slice(c * c_loc, (c + 1) * c_loc)
+
+        def draw(theta):  # the global chain axis's numbers, this group's rows
+            m0 = torch.randn((n_chains, d), generator=g_c, dtype=f32,
+                             device=dev)[sl]
+            return m0, torch.log(torch.rand((n_chains,), generator=g_c,
+                                            dtype=f32, device=dev))[sl]
+
+        (theta, _, _), infos = _hmc_loop(
+            theta0[sl].to(dev).contiguous(), eps, draw,
+            lambda th: logp_grad(th)[1], logp_grad, steps=steps,
+            n_leaps=n_leaps, integrator=integrator, collect=collect)
+        return theta, infos
+
+    return concat_chains(gather(for_each(one, items), n_c), dev0, (0, 1))

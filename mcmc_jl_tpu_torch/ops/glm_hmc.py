@@ -150,6 +150,51 @@ def run_glm_hmc_multistep(X, Y, n_chains, steps, thin=10, n_leaps=10,
         lam=float(prior_prec), integrator=integrator, collect=collect)
 
 
+def run_glm_hmc_sharded(X, Y, n_chains, steps, mesh=None, axis="chains",
+                        n_leaps=10, eps=0.05, seed=0, generator=None,
+                        inits=None, kind="logistic", weights=None,
+                        offsets=None, prior_prec=1.0, integrator="leapfrog"):
+    """Mesh-sharded fused GLM-HMC: chains split over ``mesh[axis]``
+    (glm_hmc.py ``run_glm_hmc_sharded``).
+
+    The multi-device version of :func:`run_glm_hmc`, the reference's
+    ``prun`` process pool (runners.jl:35-42): shard ``i`` runs the
+    trajectory kernel on its ``n_chains / mesh.shape[axis]`` chains on its
+    entry's device, with the design replicated there, from its own
+    generator (:func:`~..parallel.mesh.shard_seed` of ``seed`` and ``i``,
+    the counterpart of ``fold_in(k_run, i)``; seeds drawn from
+    ``generator`` when one is given).  Chains are independent, so nothing
+    joins the shards until the results are.  Layout-independent in law,
+    not bitwise across mesh sizes.
+
+    ``mesh`` defaults to a 1-D mesh over the visible CUDA devices;
+    ``n_chains`` must be divisible by the axis size.  ``inits`` default to
+    ``0.1`` standard normals drawn first from ``generator`` (or from one
+    seeded with ``seed`` on the first shard's device).  Returns the :func:`run_glm_hmc` surface,
+    ``(theta (C, d), infos)``, rows ``[i C/n : (i+1) C/n]`` from shard
+    ``i``, joined on the first shard's device."""
+    from ..parallel.mesh import (default_mesh, local_groups,
+                                 map_chain_shards, on_devices, split_sizes)
+
+    mesh = default_mesh(axis) if mesh is None else mesh
+    split_sizes(n_chains, mesh.shape[axis], axis=axis)
+    dev0 = local_groups(mesh, axis)[0][1]
+    XT, Y2, theta0, _, W, O = _prepare(X, Y, n_chains, seed, generator,
+                                       inits, dev0, weights, offsets)
+    put = on_devices()
+
+    def one(i, dev, th0, gen):
+        (theta, _, _), infos = _run(
+            put(XT, dev), put(Y2, dev), th0.contiguous(), float(eps), gen,
+            steps=steps, n_leaps=n_leaps, kind=kind, W=put(W, dev),
+            O=put(O, dev), lam=float(prior_prec), integrator=integrator,
+            fused_step=False)
+        return theta, infos
+
+    return map_chain_shards(one, theta0, mesh, dev0, axis=axis, seed=seed,
+                            generator=generator, dim=(0, 1))
+
+
 def _choose_fused_step(fused_step):
     """Resolve a user ``fused_step`` policy to a bool.
 

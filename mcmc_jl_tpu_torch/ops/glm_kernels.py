@@ -53,6 +53,7 @@ import torch
 from ..samplers.chees import halton2
 from ..samplers.integrators import SCHEDULES
 from . import philox
+from .cuda_build import count
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
@@ -497,7 +498,7 @@ def _launch(name, *args, counted=None):
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.glm_error_string(code).decode()} ({code})")
-    LAUNCHES[counted or name] += 1
+    count(LAUNCHES, counted or name)
 
 
 def _device_branch(name, theta):

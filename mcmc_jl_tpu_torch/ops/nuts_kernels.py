@@ -71,6 +71,7 @@ from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
+from .cuda_build import count
 
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
@@ -352,7 +353,7 @@ def _launch(name, lamm, d, *args):
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.nuts_error_string(code).decode()} ({code})")
-    LAUNCHES[_counted(name, lamm, d)] += 1
+    count(LAUNCHES, _counted(name, lamm, d))
 
 
 _QUEUES = {}

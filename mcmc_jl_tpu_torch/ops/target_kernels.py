@@ -55,9 +55,10 @@ loop takes it through a launcher (:func:`leapfrogs_launcher`,
 once what stays fixed over the loop and then launches without the public
 wrapper's checks.
 
-Not ported: ``lifted_model_block`` (data-bearing targets run generic),
-``target_kernel_supported`` (no compile probe: the route decides up front)
-and ``run_target_hmc_sharded`` (ROADMAP: the distributed drivers).
+Not ported: ``lifted_model_block`` (data-bearing targets run generic) and
+``target_kernel_supported`` (no compile probe: the route decides up
+front).  :func:`run_target_hmc_sharded` runs the trajectory kernel shard by
+shard over a device mesh.
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ from ..models.distributions import (FAMILY_CODES, CatalogTarget, DenseTarget,
                                     Distribution)
 from . import philox
 from .glm_kernels import _draw, _sched, _seed, _trajectory, accept_test
+from .cuda_build import count
 
 #: largest dimension the kernels take: 32 lanes x 32 coordinates per lane
 D_MAX = 1024
@@ -429,7 +431,7 @@ def launch(lib, counts, name, *args):
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
         raise _failed(lib, name, code)
-    counts[name] += 1
+    count(counts, name)
 
 
 def lean_launch(lib, counts, name, dev):
@@ -449,7 +451,7 @@ def lean_launch(lib, counts, name, dev):
                 code = fn(*args, stream)
         if code != 0:
             raise _failed(lib, name, code)
-        counts[name] += 1
+        count(counts, name)
 
     return call
 
@@ -742,6 +744,38 @@ def run_target_hmc_multistep(target, d, n_chains, steps, thin=10,
             rows["ppars"].append(theta)
             rows["pgrads"].append(g)
     return theta, {k: torch.stack(v) for k, v in rows.items()}
+
+
+def run_target_hmc_sharded(target, d, n_chains, steps, mesh=None,
+                           axis="chains", n_leaps=10, eps=0.1, seed=0,
+                           generator=None, inits=None, integrator="leapfrog"):
+    """Mesh-sharded fused custom-target HMC: chains split over
+    ``mesh[axis]`` (pallas_target.py ``run_target_hmc_sharded``), as
+    :func:`~.glm_hmc.run_glm_hmc_sharded` does on a GLM: shard ``i`` runs
+    the trajectory kernel on its chains on its entry's device from its own
+    generator (:func:`~..parallel.mesh.shard_seed` of ``seed`` and ``i``;
+    seeds drawn from ``generator`` when one is given), and nothing joins
+    the shards until the results are.  ``inits`` default to ``0.1``
+    standard normals drawn first from ``generator`` (or one seeded with
+    ``seed`` on the first shard's device).  Returns the
+    :func:`run_target_hmc` surface, joined on the first shard's device."""
+    from ..parallel.mesh import (default_mesh, local_groups,
+                                 map_chain_shards, split_sizes)
+
+    mesh = default_mesh(axis) if mesh is None else mesh
+    split_sizes(n_chains, mesh.shape[axis], axis=axis)
+    dev0 = local_groups(mesh, axis)[0][1]
+    theta0, _ = _prepare(d, n_chains, seed, generator, inits, dev0)
+
+    def one(i, dev, th0, gen):
+        step = eps.to(dev) if isinstance(eps, torch.Tensor) else eps
+        (theta, _, _), infos = _run(target, th0.contiguous(), step, gen,
+                                    steps=steps, n_leaps=n_leaps,
+                                    integrator=integrator)
+        return theta, infos
+
+    return map_chain_shards(one, theta0, mesh, dev0, axis=axis, seed=seed,
+                            generator=generator, dim=(0, 1))
 
 
 def fused_target_chains(model, sampler, runner, n_chains, generator):

@@ -56,14 +56,18 @@ of the warmup's states (:func:`warmfused_chains`), and a resumed batch
 (``resume(list)``, through ``parallel.pchains.presume_serialmc``) runs
 them again from stored states: it has ``burnin=0``, so no adaptation fires
 and its frozen hyper-parameters are read back from the states with the
-same freeze rules.  Not ported yet: ``NUTS(warm_handoff=True)`` and its
-continuation (ROADMAP: the warm handoff), data-bearing targets (custom
-targets) and ``mesh=`` (the distributed drivers).
+same freeze rules.  Given a ``mesh``, the warmup's chains split over its
+chain axis on the generic engine and the sampling phase runs shard by
+shard (:func:`_mesh_phase`): each chain shard on its entry's device with
+its own stream, through the same kernels.  Not ported yet:
+``NUTS(warm_handoff=True)`` and its continuation (ROADMAP: the warm
+handoff) and data-bearing targets (custom targets).
 """
 from __future__ import annotations
 
 import logging
 import math
+import types
 
 import numpy as np
 import torch
@@ -130,16 +134,17 @@ def warm_eligible(task):
     return ok
 
 
-def _warmup(model, sampler, runner, n_chains, generator):
+def _warmup(model, sampler, runner, n_chains, generator, mesh=None):
     """Phase 1: the adaptive warmup on the generic engine (the sampler's own
-    per-chain adaptation, identical to a non-fused run).
+    per-chain adaptation, identical to a non-fused run); chains split over
+    ``mesh``'s chain axis when one is given.
     Returns (states, infos over the burn-in)."""
     from ..parallel.pchains import _scan_chains, init_chains
     from ..samplers.base import RunCtx
 
-    states0 = init_chains(model, sampler, n_chains, generator)
+    states0 = init_chains(model, sampler, n_chains, generator, mesh=mesh)
     return _scan_chains(model, sampler, RunCtx(burnin=runner.burnin),
-                        states0, generator, runner.burnin)
+                        states0, generator, runner.burnin, mesh=mesh)
 
 
 def _pool_mass(kind, states_w):
@@ -388,20 +393,22 @@ def _chees_target_run(target, theta0, eps_in, eps, T, generator, *, steps,
                        generator, steps=steps, i0=i0, max_leaps=max_leaps)
 
 
-def dense_target_setup(model, s):
+def dense_target_setup(model, s, device=None):
     """The kernels' target under a frozen metric ``s`` (None, a (d,)
     diagonal or a (d, d) dense Cholesky factor) (warmstart.py
-    ``dense_target_setup``).  Returns ``(target, fold_s)``: for the dense
-    kind the z-space target ``z -> target(z L')`` and ``fold_s = s``
-    (positions fold through :func:`_fold_theta` and unfold through
-    :func:`_unfold`, and the step is the scalar ``eps``); otherwise the
-    model's catalog target and None (a diagonal metric rides the step row,
-    positions stay in model coordinates)."""
+    ``dense_target_setup``), on ``device`` (default: the model's).
+    Returns ``(target, fold_s)``: for the dense kind the z-space target
+    ``z -> target(z L')`` and ``fold_s = s`` (positions fold through
+    :func:`_fold_theta` and unfold through :func:`_unfold`, and the step is
+    the scalar ``eps``); otherwise the model's catalog target and None (a
+    diagonal metric rides the step row, positions stay in model
+    coordinates)."""
     from ..models.distributions import DenseTarget
 
     if s is None or s.ndim != 2:
         return model.target_spec, None
-    return DenseTarget(model.target_spec, s.to(model.device)), s
+    return DenseTarget(model.target_spec,
+                       s.to(device if device is not None else model.device)), s
 
 
 def _target_step(eps, s, fold_s):
@@ -413,13 +420,16 @@ def _target_step(eps, s, fold_s):
 def _dyn_target_phase(model, integrator, eps, T, max_leaps, s, states_w,
                       steps2, i0, generator):
     """The dynamic-length sampling phase on a catalog target of the
-    HMC/HMCDA/MALA and ChEES families (warmstart.py ``_dyn_target_phase``):
-    under a unit or diagonal metric positions stay in model coordinates and
-    the metric rides the step row; under a dense one they fold into ``z``
-    through :func:`dense_target_setup`, and the outputs stay in ``z`` (the
-    caller unfolds them through the same factor).
+    HMC/HMCDA/MALA and ChEES families (warmstart.py ``_dyn_target_phase``),
+    on the device of ``states_w.pars``: under a unit or diagonal metric
+    positions stay in model coordinates and the metric rides the step row;
+    under a dense one they fold into ``z`` through
+    :func:`dense_target_setup`, and the outputs stay in ``z`` (the caller
+    unfolds them through the same factor).
     Returns ((theta, lp, grad), rows)."""
-    target, fold_s = dense_target_setup(model, s)
+    dev = states_w.pars.device
+    s = None if s is None else s.to(dev)
+    target, fold_s = dense_target_setup(model, s, dev)
     return _chees_target_run(target, _fold_theta(states_w.pars, fold_s),
                              _target_step(eps, s, fold_s), eps, T, generator,
                              steps=steps2, i0=i0, max_leaps=max_leaps,
@@ -514,7 +524,7 @@ def continue_eligible(task, states=None):
     return _continue_refusal(task, states) is None
 
 
-def make_fused_continuation(model, sampler, states0):
+def make_fused_continuation(model, sampler, states0, mesh=None):
     """Freeze and fold once from ``states0``; returns ``continue_fn(states,
     steps, generator, i0=None) -> (infos, new_states)``, which reuses the
     folded design, prior and frozen hyper-parameters across segments of the
@@ -545,7 +555,9 @@ def make_fused_continuation(model, sampler, states0):
     kernel (3b) or the NUTS kernels (9 when ``steps`` has a divisor in
     [2, 8] on the card, else 8), above it the N-tiled gradient kernel (4);
     on a catalog target the trajectory kernel (5) or target-mode NUTS (8b).
-    ``mesh=`` is not ported (ROADMAP: the distributed drivers)."""
+    Given a ``mesh`` every segment runs shard by shard (:func:`_mesh_phase`),
+    the folded design and the target copied once to each device."""
+    from ..parallel.mesh import on_devices
     from ..samplers.chees import ChEESHMC
     from ..samplers.mala import MALA
     from ..samplers.nuts import NUTS
@@ -574,45 +586,51 @@ def make_fused_continuation(model, sampler, states0):
         extras = ()
     nuts_kw = (dict(maxdoublings=sampler.maxdoublings,
                     multinomial=sampler.multinomial) if nuts else {})
+    put = on_devices()  # the replicated inputs, one copy a device
 
     if spec is not None:
         XT, Y, lam, W, O = _fold(spec, s)
-        kw = dict(kind=spec.kind, W=W, O=O, lam=lam)
+        fold_s = s
 
-        def run_phase(states, steps, i0, generator):
-            theta0 = _fold_theta(states.pars, s)
+        def run_phase(pars, steps, i0, generator, dev):
+            theta0 = _fold_theta(pars, put(s, dev))
+            XTd, Yd = put(XT, dev), put(Y, dev)
+            kw = dict(kind=spec.kind, W=put(W, dev), O=put(O, dev),
+                      lam=put(lam, dev))
             if nuts:
                 use_hw, kt = _nuts_hw_route(model, steps)
                 if use_hw:
-                    return _nuts_run_hw(XT, Y, theta0, eps, generator,
+                    return _nuts_run_hw(XTd, Yd, theta0, eps, generator,
                                         steps=steps, k_trans=kt, **nuts_kw,
                                         **kw)
-                return _nuts_run(XT, Y, theta0, eps, generator, steps=steps,
-                                 **nuts_kw, **kw)
+                return _nuts_run(XTd, Yd, theta0, eps, generator,
+                                 steps=steps, **nuts_kw, **kw)
             hkw = dict(steps=steps, i0=i0, max_leaps=max_leaps,
                        integrator=integrator, **kw)
             use_ms, kt = _ms_route(spec, steps)
             if use_ms:
-                return _chees_run_ms(XT, Y, theta0, eps, T, generator,
+                return _chees_run_ms(XTd, Yd, theta0, eps, T, generator,
                                      k_trans=kt, **hkw)
-            return _chees_run_bign(XT, Y, theta0, eps, T, generator, **hkw)
-
-        fold_s = s
+            return _chees_run_bign(XTd, Yd, theta0, eps, T, generator, **hkw)
     else:
-        target, fold_s = dense_target_setup(model, s)
+        _, fold_s = dense_target_setup(model, s)
         eps_in = _target_step(eps, s, fold_s)
 
-        def run_phase(states, steps, i0, generator):
+        def run_phase(pars, steps, i0, generator, dev):
             if nuts:
+                target, _ = dense_target_setup(model, put(s, dev), dev)
                 return _nuts_target_run(
-                    target, _fold_theta(states.pars, fold_s), eps_in,
-                    generator, steps=steps, **nuts_kw)
+                    target, _fold_theta(pars, put(fold_s, dev)),
+                    put(eps_in, dev), generator, steps=steps, **nuts_kw)
             return _dyn_target_phase(model, integrator, eps, T, max_leaps, s,
-                                     states, steps, i0, generator)
+                                     types.SimpleNamespace(pars=pars), steps,
+                                     i0, generator)
 
     def continue_fn(states, steps, generator, i0=None):
         i0 = int(states.i.max()) if i0 is None else i0
-        (thetaF, _, _), infos2 = run_phase(states, steps, i0, generator)
+        (thetaF, _, _), infos2 = _mesh_phase(
+            lambda pars, gen, dev: run_phase(pars, steps, i0, gen, dev),
+            states.pars, generator, mesh, model.device)
         if chees:
             infos2["epsilon"] = torch.full_like(infos2["plogtarget"], eps)
         infos, theta = _unfold(infos2, thetaF, fold_s, extra_keys=extras)
@@ -630,29 +648,56 @@ def make_fused_continuation(model, sampler, states0):
     return continue_fn
 
 
-def fused_continue_chains(model, sampler, states, steps, generator):
+def _mesh_phase(run_phase, theta0, generator, mesh, device):
+    """Run ``run_phase(theta0, generator, device) -> ((theta, lp, grad),
+    infos)`` on the positions ``theta0`` (C, d) over an optional mesh
+    (warmstart.py ``_mesh_phase``): with more than one entry, chain shard
+    ``i`` of the mesh's first axis runs on its entry's device from its own
+    generator (:func:`~..parallel.mesh.map_chain_shards`), the shards
+    never meet, and their outputs are joined on ``device``; else the whole
+    batch runs on ``device``."""
+    from ..parallel.mesh import map_chain_shards
+
+    if mesh is None or mesh.devices.size == 1:
+        return run_phase(theta0, generator, device)
+    axis = mesh.axis_names[0]
+    n_chains, n_dev = theta0.shape[0], mesh.shape[axis]
+    assert n_chains % n_dev == 0, (
+        f"n_chains ({n_chains}) must divide the '{axis}' mesh axis "
+        f"({n_dev}) for the sharded sampling phase")
+    return map_chain_shards(
+        lambda i, dev, th0, gen: run_phase(th0.contiguous(), gen, dev),
+        theta0, mesh, device, axis=axis, generator=generator, dim=(0, 1))
+
+
+def fused_continue_chains(model, sampler, states, steps, generator,
+                          mesh=None):
     """One fused continuation of a batch of ``steps`` transitions from
     ``states`` on ``generator`` (warmstart.py ``fused_continue_chains``):
-    :func:`make_fused_continuation` applied once.  Returns ``(infos,
-    final_states)`` in :func:`~..parallel.pchains.run_chains`'s protocol."""
-    return make_fused_continuation(model, sampler, states)(states, steps,
-                                                           generator)
+    :func:`make_fused_continuation` applied once, shard by shard over
+    ``mesh`` when one is given.  Returns ``(infos, final_states)`` in
+    :func:`~..parallel.pchains.run_chains`'s protocol."""
+    return make_fused_continuation(model, sampler, states, mesh=mesh)(
+        states, steps, generator)
 
 
-def warmfused_chains(model, sampler, runner, n_chains, generator):
+def warmfused_chains(model, sampler, runner, n_chains, generator, mesh=None):
     """The warm pipeline of every family :func:`warm_eligible` admits
     (warmstart.py ``warmfused_hmc_chains``, ``warmfused_target_chains``,
     ``warmfused_chees_chains`` and ``warmfused_nuts_exact_chains``): the
     adaptive warmup on the generic engine for the burn-in, then the
     sampling phase at the frozen hyper-parameters through the fused
     kernels, :func:`make_fused_continuation` of the warmup's states with
-    the Halton index starting at ``runner.burnin + 1``.  Returns ``(infos,
+    the Halton index starting at ``runner.burnin + 1``.  ``mesh`` splits
+    both phases' chains over its chain axis.  Returns ``(infos,
     final_states)`` in the protocol of
     :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`: infos cover all
     ``runner.len`` transitions, the warmup's rows and then the sampling
     phase's, in the warmup's types."""
-    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator)
-    infos2, states = make_fused_continuation(model, sampler, states_w)(
+    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator,
+                                mesh=mesh)
+    infos2, states = make_fused_continuation(model, sampler, states_w,
+                                             mesh=mesh)(
         states_w, runner.len - runner.burnin, generator,
         i0=runner.burnin + 1)
     infos = {k: torch.cat([infos_w[k], v.to(infos_w[k].dtype)])

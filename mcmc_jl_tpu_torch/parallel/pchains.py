@@ -3,9 +3,13 @@
 Replaces the reference's distributed backend — Julia ``pmap`` of whole
 chains over worker processes (reference: src/runners/runners.jl:35-42) —
 with chains on a leading tensor dimension, advanced together by one Python
-loop of batched tensor ops on one device.  Chains are independent, so the
-batch is embarrassingly parallel.  Multi-GPU meshes are the ROADMAP item
-"the distributed drivers".
+loop of batched tensor ops.  Chains are independent, so the batch is
+embarrassingly parallel.  Given a ``mesh`` (:mod:`.mesh`), the chain axis
+splits over the mesh's ``'chains'`` axis: each shard runs on its entry's
+device with its own stream, and shards on distinct devices run
+concurrently; only pooled adaptation (``pool_adaptation=True``) and a
+sampler's cross-chain ``pool`` hook join them every step, through
+:mod:`.collectives`.
 
 ``run_chains`` is the engine (returns stacked tensors, kept on the device);
 ``prun_serialmc`` adapts it to the reference's ``prun`` surface (a list of
@@ -22,7 +26,9 @@ cross-chain statistics (ChEES-HMC) expose ``pool``, which the engine calls
 after every step.  ``presume_serialmc`` is the batched resume: a list of
 chains re-batches by group, and frozen HMC-family and exact-NUTS groups
 continue through the same kernels (``continuation_route``,
-ops/warmstart.py ``fused_continue_chains``).
+ops/warmstart.py ``fused_continue_chains``).  With a mesh the warm-start
+pipeline and the generic engine shard their chains; the plain fused HMC,
+MALA and custom-target routes ignore it, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -37,17 +43,42 @@ from ..core.task import MCMCTask
 from ..samplers.base import RunCtx, make_generator, tree_map
 from ..ops import glm_bign
 from ..utils.table import Table
+from .collectives import (all_gather, get_field, pool_tuner_states,
+                          pooled_fields)
+from .mesh import (CHAIN_AXIS, chain_axis, concat_chains, default_mesh,
+                   gather, group_entries, local_groups, map_chain_shards,
+                   model_on, shard_generators, split_chains, to_device)
 
 log = logging.getLogger(__name__)
 
+__all__ = ["run_chains", "init_chains", "prun_serialmc", "default_mesh",
+           "CHAIN_AXIS"]
+
+
+def _sharded(mesh, n_chains):
+    """Whether a batch of ``n_chains`` splits over ``mesh``: not without a
+    mesh, nor when its chain axis does not divide the batch (the JAX
+    package then leaves the batch unsharded too)."""
+    if mesh is None:
+        return False
+    axis = chain_axis(mesh)
+    if n_chains % mesh.shape[axis]:
+        log.info("mesh: %d chains do not divide the %r axis (%d); the batch "
+                 "runs unsharded", n_chains, axis, mesh.shape[axis])
+        return False
+    return True
+
 
 def init_chains(model, sampler, n_chains, generator, inits=None,
-                jitter=0.0):
+                jitter=0.0, mesh=None):
     """Batched sampler state for ``n_chains`` chains.
 
     ``inits``: (n_chains, size) initial positions; default: model.init
     broadcast, plus ``jitter`` times standard normals when ``jitter > 0``
-    (drawn from ``generator`` before the sampler's init)."""
+    (drawn from ``generator`` before the sampler's init).  With a ``mesh``
+    each chain shard initializes on its device from its own generator
+    (seeds drawn from ``generator``); the states are joined on the model's
+    device."""
     if inits is None:
         inits = model.init.expand(n_chains, model.size).clone()
         if jitter > 0:
@@ -56,41 +87,129 @@ def init_chains(model, sampler, n_chains, generator, inits=None,
                 device=inits.device)
     else:
         inits = torch.as_tensor(inits, dtype=model.dtype, device=model.device)
-    return sampler.init(model, inits, generator)
+    if not _sharded(mesh, n_chains):
+        return sampler.init(model, inits, generator)
+    return map_chain_shards(
+        lambda i, dev, th, gen: sampler.init(model_on(model, dev), th, gen),
+        inits, mesh, model.device, generator=generator)
 
 
 def run_chains(model, sampler, runner, n_chains, generator=None, seed=0,
-               inits=None, states=None):
+               inits=None, states=None, jitter=0.0, mesh=None,
+               pool_adaptation=False):
     """Run ``n_chains`` identical chains; returns (infos, final_states,
     generator).
 
     ``infos`` tensors have shape (steps, n_chains, ...) and stay on the
-    model's device until the caller copies them."""
+    model's device until the caller copies them.  ``mesh`` splits the
+    chains over its ``'chains'`` axis (:func:`_scan_chains`);
+    ``pool_adaptation=True`` replaces the adapted step sizes and
+    dual-averaging statistics by their cross-chain pool after every step
+    (:func:`~.collectives.pool_tuner_states`)."""
     sampler.check(model)
     if generator is None:
         generator = make_generator(model.device, seed)
     if states is None:
         states = init_chains(model, sampler, n_chains, generator,
-                             inits=inits)
+                             inits=inits, jitter=jitter, mesh=mesh)
     states, infos = _scan_chains(model, sampler, RunCtx(burnin=runner.burnin),
-                                 states, generator, runner.len)
+                                 states, generator, runner.len,
+                                 pool_adaptation=pool_adaptation, mesh=mesh)
     return infos, states, generator
 
 
-def _scan_chains(model, sampler, ctx, states, generator, steps):
+def _scan_chains(model, sampler, ctx, states, generator, steps,
+                 pool_adaptation=False, mesh=None):
     """``steps`` transitions of a batched state; returns (final states,
     infos stacked over steps).  A sampler with a ``pool(ctx, states,
     info)`` hook (cross-chain adaptation, e.g. ChEES-HMC) has it called
-    after every step: it is the sampler's adaptation, not an option."""
+    after every step: it is the sampler's adaptation, not an option; with
+    ``pool_adaptation`` the adapted scalars are pooled after it.
+
+    With a ``mesh`` the chains split over its chain axis: each shard runs on
+    its entry's device from its own generator (seeds drawn from
+    ``generator``).  Without pooling the shards never meet
+    (:func:`~.mesh.for_each`); with it they advance step by step together
+    and the pool reads every shard's values through
+    :func:`~.collectives.all_gather`."""
     pool = getattr(sampler, "pool", None)
+    if _sharded(mesh, states.pars.shape[0]):
+        return _scan_mesh(model, sampler, ctx, states, generator, steps,
+                          pool_adaptation, mesh)
     rows = {}
     for _ in range(steps):
         states, info = sampler.step(model, ctx, states, generator)
         if pool is not None:
             states = pool(ctx, states, info)
+        if pool_adaptation:
+            states = pool_tuner_states(states)
         for k, v in info.items():
             rows.setdefault(k, []).append(v)
     return states, {k: torch.stack(v) for k, v in rows.items()}
+
+
+def _gather_tree(parts, mesh, axis, entries):
+    """Every leaf of the per-shard trees ``parts`` ({i: state dataclass or
+    dict of tensors}) gathered over the chain axis: the whole batch's tree,
+    as the first shard of this process holds it."""
+    from ..samplers.base import tree_map
+
+    order = sorted(parts)
+    first = entries[order[0]]
+
+    def leaf(*xs):
+        return all_gather({entries[i]: x for i, x in zip(order, xs)}, mesh,
+                          axis)[first]
+
+    if isinstance(parts[order[0]], dict):
+        return {k: leaf(*(parts[i][k] for i in order))
+                for k in parts[order[0]]}
+    return tree_map(leaf, *(parts[i] for i in order))
+
+
+def _scan_mesh(model, sampler, ctx, states, generator, steps,
+               pool_adaptation, mesh):
+    pool = getattr(sampler, "pool", None)
+    if pool is None and not pool_adaptation:
+        return map_chain_shards(
+            lambda i, dev, st, gen: _scan_chains(model_on(model, dev),
+                                                 sampler, ctx, st, gen,
+                                                 steps),
+            states, mesh, model.device, generator=generator, dim=(0, 1))
+    axis = chain_axis(mesh)
+    n = mesh.shape[axis]
+    items = local_groups(mesh, axis)
+    gens = shard_generators(items, generator=generator)
+    shard = {i: to_device(split_chains(states, n, i), dev)
+             for i, dev in items}
+    models = {i: model_on(model, dev) for i, dev in items}
+    entries = group_entries(mesh, axis, items)
+    fields = pooled_fields(states) if pool_adaptation else ()
+    rows = {i: {} for i, _ in items}
+    for _ in range(steps):
+        infos = {}
+        for i, _dev in items:
+            shard[i], infos[i] = sampler.step(models[i], ctx, shard[i],
+                                              gens[i])
+        if pool is not None:
+            full = pool(ctx, _gather_tree(shard, mesh, axis, entries),
+                        _gather_tree(infos, mesh, axis, entries))
+            shard = {i: to_device(split_chains(full, n, i), dev)
+                     for i, dev in items}
+        if fields:
+            full = {path: all_gather(
+                {entries[i]: get_field(shard[i], path) for i, _ in items},
+                mesh, axis) for path, _ in fields}
+            shard = {i: pool_tuner_states(
+                shard[i], {p: v[entries[i]] for p, v in full.items()})
+                for i, _ in items}
+        for i, _dev in items:
+            for k, v in infos[i].items():
+                rows[i].setdefault(k, []).append(v)
+    parts = gather({i: (shard[i], {k: torch.stack(v)
+                                   for k, v in rows[i].items()})
+                    for i, _ in items}, n)
+    return concat_chains(parts, model.device, (0, 1))
 
 
 def _plain_hmc(task):
@@ -216,7 +335,7 @@ def _route(t, fused):
     return route
 
 
-def prun_serialmc(tasks, seed: int = 0, fused="auto"):
+def prun_serialmc(tasks, seed: int = 0, mesh=None, fused="auto"):
     """Reference-``prun`` surface: a list of SerialMC tasks -> list of chains.
 
     Tasks with identical (model, sampler, runner) are batched into one run;
@@ -227,7 +346,12 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
     to the fused CUDA kernels (see :func:`_route`); ``True`` forces the
     fused drivers (their plain versions on the CPU, for tests); ``False``
     always uses the generic engine.  A kernel that fails to build or launch
-    raises."""
+    raises.
+
+    ``mesh`` (:mod:`.mesh`) splits each group's chains over its chain axis
+    on the warm-start pipeline (warmup and sampling phase) and on the
+    generic engine; the plain fused HMC, MALA and custom-target routes
+    ignore it, as the JAX package's do (pchains.py:333-352)."""
     t0 = time.time()
 
     groups = {}
@@ -262,10 +386,11 @@ def prun_serialmc(tasks, seed: int = 0, fused="auto"):
             from ..ops.warmstart import warmfused_chains
 
             infos, final_states = warmfused_chains(t.model, t.sampler,
-                                                   t.runner, n, gen)
+                                                   t.runner, n, gen,
+                                                   mesh=mesh)
         else:
             infos, final_states, _ = run_chains(t.model, t.sampler, t.runner,
-                                                n, generator=gen)
+                                                n, generator=gen, mesh=mesh)
         _package_group(t, t.runner, idxs, infos, final_states, gen, results,
                        t0)
     return results
@@ -354,7 +479,8 @@ def continuation_route(model, sampler, n, fused="auto", states=None):
     return route
 
 
-def presume_serialmc(chains, steps: int = 100, seed: int = 0, fused="auto"):
+def presume_serialmc(chains, steps: int = 100, seed: int = 0, mesh=None,
+                     fused="auto"):
     """Batched resume of a list of SerialMC chains or tasks
     (pchains.py ``presume_serialmc``): the long-continuation workflow of
     the reference (runners.jl:48-68) at prun scale.
@@ -375,7 +501,8 @@ def presume_serialmc(chains, steps: int = 100, seed: int = 0, fused="auto"):
     resuming the result, whose tasks carry new states, draws a new stream.
     The other members' stored states are not used.  A group whose first
     task has no stored generator state takes one from ``seed`` and the
-    group's index."""
+    group's index.  ``mesh`` splits each group's chains as in
+    :func:`prun_serialmc`, the fused continuation's included."""
     from ..ops.warmstart import fused_continue_chains
     from ..runners.serialmc import SerialMC, resume_serialmc
 
@@ -411,11 +538,11 @@ def presume_serialmc(chains, steps: int = 100, seed: int = 0, fused="auto"):
                      "generic engine", n, type(t.sampler).__name__, route)
         if route:
             infos, final_states = fused_continue_chains(
-                t.model, t.sampler, states, steps, gen)
+                t.model, t.sampler, states, steps, gen, mesh=mesh)
         else:
             infos, final_states, _ = run_chains(t.model, t.sampler,
                                                 new_runner, n, generator=gen,
-                                                states=states)
+                                                states=states, mesh=mesh)
         _package_group(t, new_runner, idxs, infos, final_states, gen,
                        results, t0, pos_list=[tasks[i].pos for i in idxs])
     return results

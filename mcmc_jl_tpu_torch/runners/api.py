@@ -4,7 +4,8 @@ reference: src/runners/runners.jl).
 ``run`` dispatches on the runner type of a task (or array of tasks);
 ``resume`` continues a chain; ``prun`` is the multi-chain engine (the
 reference's Julia-``pmap`` backend, runners.jl:35-42, redesigned as chains
-on a leading tensor dimension — see :mod:`mcmc_jl_tpu_torch.parallel`).
+on a leading tensor dimension, split over a device mesh with ``mesh=`` —
+see :mod:`mcmc_jl_tpu_torch.parallel`).
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ def run(x, *rest, seed: int = 0, chains: Optional[int] = None, **kwargs):
     """Run a task / array of tasks / (model, sampler, runner) triple.
 
     ``chains=N`` runs N identical chains as one batch and returns a list of
-    N chains — sugar over :func:`prun`.  ``fused=`` is passed on to it.
+    N chains — sugar over :func:`prun`.  ``fused=`` and ``mesh=`` are
+    passed on to it; a PTMC or ASMC task takes ``mesh=`` too.
     An array of SerialTempMC or SeqMC tasks is one tempering ladder or one
     target ladder (``particles=`` for SeqMC); a PTMC, AIES or ASMC task
     runs its ensemble.
@@ -90,10 +92,10 @@ def resume(x, *, steps: int = 100, **kwargs):
     list of SerialMC chains re-batches by group and continues each group as
     one batch, through the fused kernels where the frozen state allows
     (:func:`mcmc_jl_tpu_torch.parallel.pchains.presume_serialmc`;
-    ``fused=`` and ``seed=`` are passed on to it); a SerialTempMC or SeqMC
-    ladder continues as one run; a list of PTMC chains (``walkers > 1``)
-    resumes one ladder a chain; a list of AIES walker chains resumes the
-    shared ensemble once."""
+    ``fused=``, ``mesh=`` and ``seed=`` are passed on to it); a
+    SerialTempMC or SeqMC ladder continues as one run; a list of PTMC
+    chains (``walkers > 1``) resumes one ladder a chain; a list of AIES
+    walker chains resumes the shared ensemble once."""
     if isinstance(x, MCMCChain):
         return resume(x.task, steps=steps, **kwargs)
     if isinstance(x, (list, tuple)):
@@ -128,9 +130,10 @@ def resume(x, *, steps: int = 100, **kwargs):
     raise TypeError(f"unknown runner type {type(x.runner).__name__}")
 
 
-def prun(tasks, seed: int = 0, **kwargs):
+def prun(tasks, seed: int = 0, mesh=None, **kwargs):
     """Parallel multi-chain run (reference runners.jl:35-42): identical
-    chains are batched on a leading dimension of one device — see
+    chains are batched on a leading dimension, split over ``mesh``'s chain
+    axis when one is given — see
     :func:`mcmc_jl_tpu_torch.parallel.pchains.prun_serialmc` (``fused=``).
     It takes SerialMC runners; the ensemble runners batch their own
     chains (``PTMC(walkers=)``, ``AIES(walkers=)``, ``ASMC(particles=)``)."""
@@ -142,4 +145,4 @@ def prun(tasks, seed: int = 0, **kwargs):
                         f"{type(first).__name__}")
     from ..parallel.pchains import prun_serialmc
 
-    return prun_serialmc(list(tasks), seed=seed, **kwargs)
+    return prun_serialmc(list(tasks), seed=seed, mesh=mesh, **kwargs)

@@ -15,7 +15,14 @@ JAX package.
 The telescoped normalizing-constant increments give the marginal-likelihood
 estimate ``log Z = Σ_t log Σ_i W_i^{t-1} exp(δ_t ll_i)``, a third evidence
 estimator beside stats/evidence.py's TI and stepping-stone.
-``mesh=`` is not taken (ROADMAP: the distributed drivers).
+
+With ``mesh=`` the particles split over the mesh's ``'chains'`` axis: the
+likelihoods and the moves stay on each shard's device (the moves from the
+shard's own generator), and only the stage's statistics cross shards
+through :mod:`~..parallel.collectives` (asmc.py:187-190): the
+likelihoods are gathered for the ESS bisection, the logZ increment and the
+resampling indices, the particles for the resampling gather, the
+acceptance counts summed.
 """
 from __future__ import annotations
 
@@ -120,19 +127,73 @@ def _stage_weights(logW, ll, beta, target):
     return delta, inc, logW, _ess_of(logW)
 
 
-def _asmc_loop(model, sampler, runner: ASMC, states, th, generator):
+def _asmc_loop(model, sampler, runner: ASMC, states, th, generator,
+               mesh=None):
+    """The annealing from the prior draws ``th`` (N, size): stages of
+    reweighting, resampling and ``moves`` rejuvenation steps until beta
+    reaches 1.  ``states``: the sampler's states at beta = 0 (None: made
+    here).  Without a mesh the particles form one group on their device
+    and every draw comes from ``generator``.  With one they split over its
+    ``'chains'`` axis: each group evaluates and moves its particles on its
+    entry's device with its own generator (seeds drawn from
+    ``generator``), and the stage's weights, bisection, logZ and
+    resampling run once on the gathered likelihoods on the particles'
+    device, from ``generator``."""
+    from ..parallel.collectives import all_gather, psum
+    from ..parallel.mesh import (for_each, group_entries, local_groups,
+                                 model_on, shard_generators, split_chains,
+                                 to_device)
+
     N, S = runner.particles, runner.max_stages
+    dtype, dev0 = th.dtype, th.device
+    if mesh is None:
+        n_dev, items, gens = 1, [(0, dev0)], {0: generator}
+        gathered = lambda parts: parts[0]  # noqa: E731
+        total = lambda parts: parts[0]  # noqa: E731
+    else:
+        n_dev = mesh.shape["chains"]
+        assert N % n_dev == 0, (
+            f"ASMC particles ({N}) must divide the mesh 'chains' axis "
+            f"({n_dev})"
+        )
+        items = local_groups(mesh, "chains")
+        entries = group_entries(mesh, "chains", items)
+        first = entries[items[0][0]]
+        gens = shard_generators(items, generator=generator)
+
+        def gathered(parts):
+            return all_gather({entries[i]: v for i, v in parts.items()},
+                              mesh, "chains")[first].to(dev0)
+
+        def total(parts):
+            return psum({entries[i]: v for i, v in parts.items()}, mesh,
+                        "chains")[first].to(dev0)
+
+    def scatter(full):
+        return {i: split_chains(full, n_dev, i).to(dev) for i, dev in items}
+
+    models = {i: model_on(model, dev) for i, dev in items}
     prior, _ = _prior_fns(runner.logprior)
     ctx = RunCtx(burnin=0)
-    dtype, dev = th.dtype, th.device
     target = runner.target_ess * N
-    uniform = torch.full((N,), -math.log(float(N)), dtype=dtype, device=dev)
+    uniform = torch.full((N,), -math.log(float(N)), dtype=dtype, device=dev0)
+    zero = torch.zeros((), dtype=dtype, device=dev0)
 
-    i, beta = 0, torch.zeros((), dtype=dtype, device=dev)
-    logW, logZ = uniform, torch.zeros((), dtype=dtype, device=dev)
+    ths = scatter(th)
+    if states is None:
+        states = for_each(lambda i, dev: sampler.init(_tempered_view(
+            models[i], zero.to(dev), runner.logprior), ths[i], gens[i]),
+            items)
+    else:
+        states = {i: to_device(split_chains(states, n_dev, i), dev)
+                  for i, dev in items}
+
+    i, beta = 0, zero
+    logW, logZ = uniform, zero
     betas_b, ess_b, acc_b = [], [], []
     while i < S and bool(beta < 1.0):
-        ll = model.eval(th) - prior(th)
+        ll = gathered(for_each(
+            lambda j, dev: models[j].eval(ths[j]) - prior(ths[j]), items))
         delta, inc, logW, ess_new = _stage_weights(logW, ll, beta, target)
         logZ = logZ + inc
         beta = beta + delta
@@ -140,36 +201,46 @@ def _asmc_loop(model, sampler, runner: ASMC, states, th, generator):
         # resample (skipped only when the clipped final jump kept ESS high)
         do_res = ess_new <= target + 1.0
         idx = _resample_idx(generator, logW, N, runner.resampling)
-        th = torch.where(do_res, th[idx], th)
+        full = gathered(ths)
+        ths = scatter(torch.where(do_res, full[idx], full))
         logW = torch.where(do_res, uniform, logW)
 
         # MCMC rejuvenation at the new power posterior
-        view = _tempered_view(model, beta, runner.logprior)
-        states = sampler.reset(view, states, th)
-        acc = torch.zeros((), dtype=dtype, device=dev)
-        for _ in range(runner.moves):
-            states, infos = sampler.step(view, ctx, states, generator)
-            th = infos["ppars"]
-            acc = acc + infos["accept"].to(dtype).mean()
+        def moves(j, dev):
+            view = _tempered_view(models[j], beta.to(dev), runner.logprior)
+            st = sampler.reset(view, states[j], ths[j])
+            acc = torch.zeros((1,), dtype=dtype, device=dev)
+            for _ in range(runner.moves):
+                st, infos = sampler.step(view, ctx, st, gens[j])
+                acc = acc + infos["accept"].to(dtype).sum()
+            return st, infos["ppars"], acc
 
+        out = for_each(moves, items)
+        states = {j: o[0] for j, o in out.items()}
+        ths = {j: o[1] for j, o in out.items()}
+        acc = total({j: o[2] for j, o in out.items()})[0]
         betas_b.append(beta)
         ess_b.append(ess_new)
-        acc_b.append(acc / runner.moves)
+        acc_b.append(acc / (N * runner.moves))
         i += 1
 
     # final equalization so returned particles are unweighted
+    full = gathered(ths)
     idx = _resample_idx(generator, logW, N, runner.resampling)
     uneven = _ess_of(logW) < N - 1e-6
-    th = torch.where(uneven, th[idx], th)
+    th = torch.where(uneven, full[idx], full)
     stack = lambda v: torch.stack(v).cpu().numpy() if v else np.zeros(0)  # noqa: E731
     return dict(n_stages=i, beta=float(beta), pars=th, logZ=float(logZ),
                 betas=stack(betas_b), ess=stack(ess_b), accept=stack(acc_b))
 
 
-def run_asmc(model, sampler, runner: ASMC, seed: int = 0, generator=None):
+def run_asmc(model, sampler, runner: ASMC, seed: int = 0, generator=None,
+             mesh=None):
     """Anneal prior -> posterior; returns an MCMCChain whose samples are the
     final (unweighted) particle ensemble, with diagnostics ``logz``,
-    ``betas`` (adaptive schedule), ``ess`` and ``accept`` per stage."""
+    ``betas`` (adaptive schedule), ``ess`` and ``accept`` per stage.
+    ``mesh``: split the particles over its ``'chains'`` axis (the axis size
+    must divide ``particles``)."""
     sampler.check(model)
     t0 = time.time()
     if generator is None:
@@ -178,11 +249,7 @@ def run_asmc(model, sampler, runner: ASMC, seed: int = 0, generator=None):
     th0 = torch.as_tensor(runner.prior_sample(generator, N),
                           dtype=model.dtype, device=model.device)
     th0 = th0.reshape(N, model.size)
-    zero = torch.zeros((), dtype=model.dtype, device=model.device)
-    states = sampler.init(_tempered_view(model, zero, runner.logprior), th0,
-                          generator)
-
-    out = _asmc_loop(model, sampler, runner, states, th0, generator)
+    out = _asmc_loop(model, sampler, runner, None, th0, generator, mesh)
     n_stages = out["n_stages"]
     assert out["beta"] >= 1.0 - 1e-9, (
         f"annealing did not reach beta=1 in max_stages={runner.max_stages} "

@@ -57,7 +57,7 @@ class ConvergenceResult:
 def run_until(model, sampler, n_chains=8, *, rhat_target=1.01, min_ess=400,
               check_every=500, max_steps=100_000, warmup=None,
               method="rank", seed=0, generator=None, inits=None, jitter=0.1,
-              verbose=False, fused="auto"):
+              mesh=None, verbose=False, fused="auto"):
     """Run ``n_chains`` chains until R-hat and pooled-ESS gates pass.
 
     Blocks of ``check_every`` steps are advanced on the model's device
@@ -79,7 +79,10 @@ def run_until(model, sampler, n_chains=8, *, rhat_target=1.01, min_ess=400,
     states of that moment ("auto": a float32 model on a CUDA device;
     ``True``: whenever the kernels take the shape, their plain versions on
     the CPU; ``False``: the generic engine throughout).
-    ``mesh=`` is not taken (ROADMAP: the distributed drivers)."""
+
+    ``mesh``: the chains split over its chain axis through the
+    initialization, the adaptive blocks and the fused continuation
+    (:mod:`~..parallel.mesh`); the gates read the joined draws."""
     from ..parallel.pchains import (continuation_route, init_chains,
                                     run_chains)
 
@@ -89,7 +92,7 @@ def run_until(model, sampler, n_chains=8, *, rhat_target=1.01, min_ess=400,
     if generator is None:
         generator = make_generator(model.device, seed)
     states = init_chains(model, sampler, n_chains, generator, inits=inits,
-                         jitter=jitter)
+                         jitter=jitter, mesh=mesh)
 
     class _Blk:  # minimal runner shim for run_chains
         len = check_every
@@ -110,12 +113,13 @@ def run_until(model, sampler, n_chains=8, *, rhat_target=1.01, min_ess=400,
                 # design, prior fold and frozen hyper-parameters
                 from ..ops.warmstart import make_fused_continuation
 
-                cont_fn = make_fused_continuation(model, sampler, states)
+                cont_fn = make_fused_continuation(model, sampler, states,
+                                                  mesh=mesh)
             infos, states = cont_fn(states, check_every, generator)
         else:
             infos, states, generator = run_chains(
                 model, sampler, _Blk, n_chains, generator=generator,
-                states=states)
+                states=states, mesh=mesh)
         blocks.append(infos["ppars"].cpu().numpy())
         steps_run += check_every
         if use_cont is None and steps_run >= warmup:

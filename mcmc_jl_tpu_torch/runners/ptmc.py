@@ -24,7 +24,11 @@ the per-rung log-likelihood draws (``diagnostics["replica_ll"]``) into the
 inputs of the evidence estimators in ``stats/evidence.py``.  ``logprior``
 is written for one parameter vector, as a callable model is, and lifted
 over rows with ``torch.func.vmap``; its gradient is ``torch.func.grad``.
-``mesh=`` is not taken (ROADMAP: the distributed drivers).
+
+With ``mesh=`` the walkers split over the mesh's ``'chains'`` axis: each
+shard advances its ladders on its entry's device from its own generator,
+and as every ladder lives on one shard, swaps stay local and the shards
+never meet.
 """
 from __future__ import annotations
 
@@ -262,12 +266,32 @@ def _ptmc_loop(model, sampler, ctx, states, generator, *, steps, swap_period,
     return states, {k: torch.stack(v, dim=1) for k, v in rows.items()}
 
 
+def _ptmc_mesh(model, sampler, ctx, states, generator, mesh, W, **kw):
+    """:func:`_ptmc_loop` shard by shard: the ``W`` ladders split over
+    ``mesh``'s ``'chains'`` axis, shard ``i`` on its entry's device from
+    its own generator (seeds drawn from ``generator``).  Returns the joined
+    (final states, per-step records) on the model's device."""
+    from ..parallel.mesh import map_chain_shards, model_on
+
+    n_dev = mesh.shape["chains"]
+    assert W % n_dev == 0, (
+        f"PTMC walkers ({W}) must divide the mesh 'chains' axis "
+        f"({n_dev}) to shard — a mesh with walkers=1 would be a silent "
+        f"no-op"
+    )
+    return map_chain_shards(
+        lambda i, dev, st, gen: _ptmc_loop(model_on(model, dev), sampler,
+                                           ctx, st, gen, **kw),
+        states, mesh, model.device, axis="chains", generator=generator)
+
+
 def run_ptmc(model, sampler, runner: PTMC, seed: int = 0, generator=None,
-             _carry_states=None, _pos=0):
+             mesh=None, _carry_states=None, _pos=0):
     """Run replica-exchange tempering; returns the cold-rung chain (or a
-    list of them with ``walkers > 1``, the ladders advanced as one batch).
-    ``_carry_states``: a (K,)-ladder state to continue from (the resume
-    path) instead of fresh initialization."""
+    list of them with ``walkers > 1``, the ladders advanced as one batch,
+    split over ``mesh``'s ``'chains'`` axis when one is given: the axis
+    size must divide ``walkers``).  ``_carry_states``: a (K,)-ladder state
+    to continue from (the resume path) instead of fresh initialization."""
     sampler.check(model)
     t0 = time.time()
     if generator is None:
@@ -284,10 +308,14 @@ def run_ptmc(model, sampler, runner: PTMC, seed: int = 0, generator=None,
                                              runner.logprior),
                               theta0, generator)
     ctx = RunCtx(burnin=runner.burnin)
-    final_states, ys = _ptmc_loop(
-        model, sampler, ctx, states, generator, steps=runner.steps,
-        swap_period=runner.swap_period, betas=runner.betas,
-        logprior=runner.logprior)
+    kw = dict(steps=runner.steps, swap_period=runner.swap_period,
+              betas=runner.betas, logprior=runner.logprior)
+    if mesh is not None:
+        final_states, ys = _ptmc_mesh(model, sampler, ctx, states,
+                                      generator, mesh, W, **kw)
+    else:
+        final_states, ys = _ptmc_loop(model, sampler, ctx, states,
+                                      generator, **kw)
 
     keep = slice(runner.burnin, None)
     cn = model.column_names()
