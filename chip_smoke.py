@@ -74,7 +74,14 @@ population.py``'s PTMC and ASMC and an AIES ensemble held against kernel
 1's HMC, ``examples/model_comparison.py``'s evidence by ASMC and by the
 prior-tempered PTMC against the exact logZ, ``SeqMC`` and
 ``SerialTempMC`` on their test gates, and a PTMC ladder on a catalog
-model through the gradient pass.  It also runs the HMC step
+model through the gradient pass; the distributed drivers on meshes of
+virtual shards of the card (``phase_mesh_paths``); the NUTS warm handoff,
+``NUTS(6, warm_handoff=True)``, through kernels 3b (and two resumes), 5
+and 4 (``phase_warm_handoff``); and ``examples_torch/
+warmstart_logistic.py``'s ``main`` at 4096 chains and its continuation,
+with ``utils.profiling.throughput_report``'s leapfrog/s and min-ESS/s, and
+one kernel-1 run under ``utils.profiling.trace``, whose Chrome trace must
+name the kernel (``phase_examples``).  It also runs the HMC step
 and multi-transition kernels through their drivers, times drivers and
 kernels beside their plain versions and the least time the card could take
 for the same work, and prints one JSON line per phase.
@@ -1003,19 +1010,21 @@ def _spans():
             setattr(mod, fn, orig)
 
 
-def _hmc_reference(hmc_final, hmc_steps=2000):
+def _hmc_reference(hmc_final, hmc_steps=2000, data=None, eps=0.05, seed=4):
     """Per-chain means (chains, d) of the HMC main path continued from its
     final states ``hmc_final`` for ``hmc_steps`` more transitions: the
     reference the NUTS and warm-start runs at N = 1000 are held against.
     The main path's own kept draws still carry the transient of its start
-    at 0 (chain 0's autocorrelation times reach 190 of 1000 transitions)."""
+    at 0 (chain 0's autocorrelation times reach 190 of 1000 transitions).
+    ``data`` (X, Y) and ``eps`` give kernel 1's HMC(10, eps) on other data
+    (default: bench_data())."""
     import torch
 
     from mcmc_jl_tpu_torch.ops.glm_hmc import _run
 
-    X, Y = bench_data()
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    _, hmc = _run(_cuda(X.T), _cuda(Y), _cuda(hmc_final), 0.05, gen,
+    X, Y = bench_data() if data is None else data
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, hmc = _run(_cuda(X.T), _cuda(Y), _cuda(hmc_final), eps, gen,
                   steps=hmc_steps, n_leaps=10, collect=True)
     return hmc["ppars"].mean(0).double().cpu().numpy()
 
@@ -5676,6 +5685,12 @@ def main():
     # kernels 1, 5 and 4 sharded, run (3b, 9, 8 and 8b a shard), PTMC,
     # ASMC and run_until with mesh=
     mesh_launches = step("mesh_paths", phase_mesh_paths, hmc_means)
+    # NUTS(warm_handoff=True): its sampling phase on kernels 3b, 5 and 4,
+    # and two resumes on 3b
+    step("warm_handoff", phase_warm_handoff, hmc_means)
+    # examples_torch/warmstart_logistic.py at 4096 chains and its
+    # continuation through throughput_report; a traced kernel-1 call
+    step("examples", phase_examples)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     step("timing", phase_timing, steps=200, reps=2)
@@ -6551,6 +6566,291 @@ def phase_mesh_paths(hmc_means, chains=4096):
         f"{k} {v:.2f} s" for k, v in seconds.items()) + f"; {CARD['card']}",
         flush=True)
     return mesh_launches
+
+
+def phase_warm_handoff(hmc_means, chains=4096, chains_bign=512):
+    """The NUTS warm handoff, ``NUTS(6, warm_handoff=True)``: the exact-NUTS
+    warmup on the generic engine, then dynamic-length HMC at the frozen
+    step and the warmup's own trajectory time through run(...,
+    chains=N), each run with every count zeroed just before it and read
+    just after, no plain call:
+
+    1. on the main path's logistic 10 x 1000 with the exact-NUTS main
+       path's runner, SerialMC(580, 80), 4096 chains: kernel 3b, 100
+       launches of 5; per-chain means within Z_MAX of ``hmc_means``;
+       ``epsilon`` one value over the sampling rows, ``nleaps`` varying;
+    2. ``resume(chains, steps=120)`` twice: 15 launches of 8 of kernel 3b
+       each, ``tlen`` kept;
+    3. on ``x ~ Gamma(3, 0.2)``, d 10, SerialMC(250, 50), 4096 chains:
+       kernel 5, one launch a sampling transition; the per-chain first and
+       second moments within Z_MAX of the exact ones;
+    4. kernel 4: logistic 10 x 2000 with ``glm_bign.BIGN_THRESHOLD``
+       lowered to 1000 for the call, from the posterior mode,
+       SerialMC(120, 40), 512 chains: 1 + sum(nleaps) launches; per-chain
+       means within Z_MAX of kernel 1's HMC on the same data.
+    After each arm, one launch of its kernel at the arm's shape from its
+    final positions (3b: 5 transitions at the frozen (eps, T) from the
+    first sampling index; 5: the mean leap count at the frozen eps; 4: one
+    gradient), timed beside its plain version and its bound
+    (:func:`_handoff_kernel_time`).
+    Returns {kernel: (launches, origin)} of the three handoff paths."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops import glm_bign
+    from mcmc_jl_tpu_torch.samplers.base import tree_map
+
+    counts, gates, seconds = {}, {}, {}
+    s = mt.NUTS(maxdoublings=6, warm_handoff=True)
+
+    # 1. the GLM arm on kernel 3b
+    X, Y = bench_data()
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    task = m * s * mt.SerialMC(steps=580, burnin=80)
+    origin = _origin(m, task, chains)
+    cs, samples, launches, dt, _ = _path(origin, task, chains,
+                                         {"glm_multistep_rows": 100})
+    seconds["glm"] = dt
+    counts["glm_multistep_rows"] = (launches["glm_multistep_rows"], origin)
+    eps = np.stack([c.diagnostics["epsilon"] for c in cs[:64]])
+    nl = np.stack([c.diagnostics["nleaps"] for c in cs[:64]])
+    st = cs[0].task.state
+    z = _z_means(samples.mean(1), hmc_means)
+    gates["glm"] = {"z_max_vs_hmc_reference": z,
+                    "frozen_eps": float(st.epsilon),
+                    "tlen": float(st.tlen),
+                    "mean_nleaps": float(nl.mean()),
+                    "accept_rate": float(np.mean(
+                        [mt.acceptance(c) for c in cs[:256]])) / 100}
+    assert z < Z_MAX, (origin, gates["glm"])
+    assert np.ptp(eps) == 0 and np.ptp(nl) > 0, "handoff rows"
+    assert float(st.tlen) > 0
+    pars = lambda cs: torch.stack(  # noqa: E731
+        [c.task.state.pars for c in cs]).contiguous()
+    times = {"glm_multistep_rows": _handoff_kernel_time(
+        "glm_multistep_rows", X, Y, pars(cs), float(st.epsilon),
+        float(st.tlen), i0=81)}
+
+    # 2. two resumes, kernel 3b with tlen kept
+    for i in (1, 2):
+        t0 = time.perf_counter()
+        cs, launches = _counted(lambda c=cs: mt.resume(c, steps=120))
+        seconds[f"resume{i}"] = time.perf_counter() - t0
+        assert launches == {**{k: 0 for k in launches},
+                            "glm_multistep_rows": 15}, launches
+        tl = tree_map(lambda *xs: torch.stack(xs),
+                      *[c.task.state for c in cs[:64]]).tlen
+        assert torch.all(tl == float(st.tlen)), "tlen not kept"
+        rs = np.stack([c.samples.values for c in cs])
+        assert rs.shape == (chains, 120, m.size) and np.all(np.isfinite(rs))
+        gates[f"resume{i}"] = {"z_max_vs_hmc_reference":
+                               _z_means(rs.mean(1), hmc_means)}
+        assert gates[f"resume{i}"]["z_max_vs_hmc_reference"] < Z_MAX
+    del cs, samples
+
+    # 3. the catalog arm on kernel 5
+    gamma = mt.Gamma(3.0, 0.2)
+    mg = mt.model(lambda x: mt.tilde(x, gamma), x=np.full(10, 1.1),
+                  gradient=True, device="cuda")
+    task = mg * s * mt.SerialMC(steps=250, burnin=50)
+    origin = (f"run(model(x ~ Gamma(3,0.2), x=fill(1.1, 10)) * {s!r} * "
+              f"SerialMC(250, 50), chains={chains})")
+    cs, samples, launches, dt, _ = _path(
+        origin, task, chains, {"target_leapfrogs": 200,
+                               "target_logp_grad": lambda n: n > 0})
+    seconds["target"] = dt
+    counts["target_leapfrogs"] = (launches["target_leapfrogs"], origin)
+    z = _moments_z((samples.mean(1), (samples ** 2).mean(1)), gamma)
+    st = cs[0].task.state
+    gates["target"] = {"z_max_vs_exact": z,
+                       "pooled_mean": float(samples.mean()),
+                       "exact_mean": float(gamma.mean()),
+                       "tlen": float(st.tlen)}
+    assert z < Z_MAX, (origin, gates["target"])
+    n_leaps = int(round(float(cs[0].diagnostics["nleaps"].mean())))
+    times["target_leapfrogs"] = _traj_time(
+        "Gamma(3, 0.2), the handoff's frozen step", mg.target_spec,
+        pars(cs), float(st.epsilon), n_leaps, seed=91, plain=True)
+    del cs, samples
+
+    # 4. kernel 4, BIGN_THRESHOLD lowered for the call
+    X2, Y2, mode = _bench_mode(2000)
+    m2 = mt.model(glm=("logistic", X2, Y2), init=mode, device="cuda")
+    task = m2 * s * mt.SerialMC(steps=120, burnin=40)
+    saved = glm_bign.BIGN_THRESHOLD
+    glm_bign.BIGN_THRESHOLD = 1000
+    try:
+        origin = _origin(m2, task, chains_bign) + " (BIGN_THRESHOLD 1000)"
+        cs, samples, launches, dt, _ = _path(
+            origin, task, chains_bign,
+            {"glm_logp_grad_tiled": lambda n: n > 80})
+    finally:
+        glm_bign.BIGN_THRESHOLD = saved
+    seconds["bign"] = dt
+    nl = cs[0].diagnostics["nleaps"]
+    assert launches["glm_logp_grad_tiled"] == 1 + int(nl.sum()), launches
+    counts["glm_logp_grad_tiled"] = (launches["glm_logp_grad_tiled"], origin)
+    ref = _hmc_reference(np.tile(mode, (chains_bign, 1)).astype(np.float32),
+                         600, data=(X2, Y2), eps=0.035, seed=5)
+    z = _z_means(samples.mean(1), ref)
+    gates["bign"] = {"z_max_vs_kernel1_hmc": z,
+                     "tlen": float(cs[0].task.state.tlen)}
+    assert z < Z_MAX, (origin, gates["bign"])
+    times["glm_logp_grad_tiled"] = _handoff_kernel_time(
+        "glm_logp_grad_tiled", X2, Y2, pars(cs))
+
+    emit({"phase": "warm_handoff", "launches": {
+        k: v[0] for k, v in counts.items()},
+        "from": {k: v[1] for k, v in counts.items()},
+        "seconds": seconds, "total_s": sum(seconds.values()),
+        "gates": gates, "kernel_times": times, **CARD})
+    return counts
+
+
+def _handoff_kernel_time(name, X, Y, theta, eps=None, T=None, i0=None,
+                         k_trans=5, max_leaps=64):
+    """One launch of GLM kernel ``name`` at a handoff arm's shape from its
+    final positions ``theta`` (C, d) on the card: "glm_multistep_rows",
+    ``k_trans`` transitions at the frozen (eps, T) from absolute transition
+    ``i0``, or "glm_logp_grad_tiled", one (logp, gradient).  CUDA events
+    (median of 3), torch.profiler's device time, the plain version (2), the
+    bound (:func:`_bound`).  Returns a dict."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    C, d = theta.shape
+    XT, Yc = _cuda(X.T), _cuda(Y)
+    if name == "glm_multistep_rows":
+        gens = [torch.Generator(device="cuda").manual_seed(s)
+                for s in (93, 94)]
+        args = (XT, Yc, theta, eps, T, i0, max_leaps)
+        kern = lambda: gk.glm_multistep_rows(  # noqa: E731
+            *args, k_trans=k_trans, generator=gens[0])
+        plain = lambda: gk.glm_multistep_rows_ref(  # noqa: E731
+            *args, k_trans=k_trans, generator=gens[1])
+        symbol = ("rows_tile_kernel",)
+        out = kern()
+        leaps = int(out[3]["nleaps"][:, 0].sum())
+        evals = C * (1 + leaps)
+        shape = {"k_trans": k_trans, "eps": eps, "T": T, "i0": i0,
+                 "leapfrogs": leaps}
+    else:
+        kern = lambda: gb.glm_logp_grad_tiled(XT, Yc, theta)  # noqa: E731
+        plain = lambda: gb.glm_logp_grad_tiled_ref(  # noqa: E731
+            XT, Yc, theta)
+        symbol = ("reduce_kernel", "partial_tile_kernel")
+        out, evals, shape = kern(), C, {}
+    r = {"C": C, "N": X.shape[0], **shape, "ms": _event_ms(kern),
+         "device_ms": _device_ms(kern, symbol, reps=3),
+         "plain_ms": _event_ms(plain, reps=2),
+         **_bound(evals, d, X.shape[0], _nbytes((XT, Yc, theta), out))}
+    emit({"phase": "kernel_time", "name": name, "path": "warm handoff", **r,
+          **CARD})
+    return r
+
+
+def _load_example(name):
+    """``examples_torch/<name>.py`` of this checkout, as the module
+    ``examples_torch_<name>``."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(chains=4096, cont_steps=1000):
+    """``examples_torch/warmstart_logistic.py``'s ``main`` on the card at
+    4096 chains (its SerialMC(2000, 500): adaptive HMC with a diagonal
+    metric, 250 launches of 6 of kernel 3b), held to the generating
+    coefficients as tests/test_examples.py does, then ``resume(chains,
+    steps=1000)`` of all of them (kernel 3b, 125 launches of 8);
+    ``utils.profiling.throughput_report`` of each: leapfrog/s, steps/s and
+    min-ESS/s over the 4096 chains (the run's leapfrogs at its frozen
+    count; the continuation's at the mean Halton count of its transitions).
+    Then one kernel-1 main-path call, ``run(HMC(10, 0.05) * SerialMC(20),
+    chains=4096)``, under ``utils.profiling.trace``: the Chrome trace it
+    writes must name the kernel's symbol, ``leapfrogs_tile_kernel``.
+    Returns {kernel: launches} of the example's run."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.utils import profiling
+
+    ws = _load_example("warmstart_logistic")
+    t0 = time.perf_counter()
+    cs, launches = _counted(lambda: ws.main(chains=chains, device="cuda"))
+    dt = time.perf_counter() - t0
+    # 250 launches in the run, none in the one-chain resume of its main
+    assert launches == {**{k: 0 for k in launches},
+                        "glm_multistep_rows": 250}, launches
+    X, Y, beta0 = ws.make_data(1000, 10)
+    means = np.stack([c.samples.values.mean(0) for c in cs])
+    pooled = means.mean(0)
+    sd = np.sqrt(np.stack([mt.var(c) for c in cs[:64]]).mean(0))
+    assert np.all(np.abs(pooled - beta0) < 5 * sd + 0.5), (pooled, beta0)
+    st = cs[0].task.state
+    nl, eps = int(st.tune.n_leaps), float(st.tune.step_size)
+    rep = profiling.throughput_report(cs[0], n_chains=chains, n_leaps=nl)
+
+    t0 = time.perf_counter()
+    cont, c_launches = _counted(lambda: mt.resume(cs, steps=cont_steps))
+    c_dt = time.perf_counter() - t0
+    assert c_launches == {**{k: 0 for k in c_launches},
+                          "glm_multistep_rows": cont_steps // 8}, c_launches
+    i0 = int(st.i)
+    halton = np.mean([gk.halton_leaps(i0 + t, eps, 2.0 * nl * eps, 2 * nl)
+                      for t in range(cont_steps)])
+    c_rep = profiling.throughput_report(cont[0], n_chains=chains,
+                                        n_leaps=halton)
+    cm = np.stack([c.samples.values.mean(0) for c in cont])
+    z_cont = _z_means(cm, means)
+    assert z_cont < Z_MAX, z_cont
+    del cs, cont
+
+    # the trace of one kernel-1 call
+    X1, Y1 = bench_data()
+    m = mt.model(glm=("logistic", X1, Y1), device="cuda")
+    task = m * mt.HMC(10, 0.05) * mt.SerialMC(steps=20)
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "trace_examples")
+    with profiling.trace(logdir) as d:
+        _, t_launches = _counted(lambda: mt.run(task, chains=chains))
+    assert t_launches["glm_leapfrogs"] == 20, t_launches
+    with open(os.path.join(d, profiling.TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernel_events = sorted(n for n in names if "leapfrogs_tile_kernel" in n)
+    assert kernel_events, "the trace names no leapfrogs_tile_kernel"
+
+    keep = ("run_time_s", "steps_per_sec", "leapfrog_per_sec",
+            "ess_per_sec")
+    emit({"phase": "examples", "example": "warmstart_logistic",
+          "chains": chains, "seconds": dt, "launches": launches[
+              "glm_multistep_rows"], "frozen_step": eps,
+          "frozen_n_leaps": nl,
+          "run": {k: rep[k] for k in keep},
+          "min_ess_run": float(np.min(rep["ess_per_param"])),
+          "continuation": {"steps": cont_steps, "seconds": c_dt,
+                           "launches": c_launches["glm_multistep_rows"],
+                           "mean_halton_leaps": halton,
+                           "z_vs_run": z_cont,
+                           **{k: c_rep[k] for k in keep}},
+          "min_ess_continuation": float(np.min(c_rep["ess_per_param"])),
+          "trace": {"file": os.path.relpath(os.path.join(
+              d, profiling.TRACE_FILE), os.path.dirname(
+                  os.path.abspath(__file__))),
+              "kernel_events": kernel_events,
+              "launches": t_launches["glm_leapfrogs"]}, **CARD})
+    print(f"examples: warmstart_logistic run {rep['leapfrog_per_sec']:.4g} "
+          f"leapfrog/s, min-ESS/s {rep['ess_per_sec']:.4g}; continuation "
+          f"{c_rep['leapfrog_per_sec']:.4g} leapfrog/s, min-ESS/s "
+          f"{c_rep['ess_per_sec']:.4g}; {CARD['card']}", flush=True)
+    return {"glm_multistep_rows": launches["glm_multistep_rows"]}
 
 
 def phase_path_spans(chains=4096):

@@ -1,6 +1,5 @@
 """Warm-start pipeline for adaptive samplers on GLM posteriors and catalog
-targets (port of the HMC, HMCDA, MALA, ChEES and exact-NUTS parts of
-``mcmc_jl_tpu/ops/warmstart.py``).
+targets (port of ``mcmc_jl_tpu/ops/warmstart.py``).
 
 The adaptive samplers stop adapting at the end of burn-in anyway (the
 EmpMCTuner is burn-in gated, HMC.jl:167-173; dual averaging freezes its
@@ -32,7 +31,13 @@ two phases, and the second is what the fused kernels run:
    - adaptive MALA: one-leapfrog HMC at ``eps = sqrt(drift step)``
      (``T = eps`` pins every leap count to 1);
    - ChEES-HMC: the same Halton rule at the pooled ``eps`` and ``T`` and
-     the sampler's ``max_leaps``.
+     the sampler's ``max_leaps``;
+   - the NUTS warm handoff (``NUTS(warm_handoff=True)``): the same Halton
+     rule, leapfrog, at the dual-averaged ``eps`` and the warmup's own
+     trajectory time ``T = 2 median(max(2^j - 1, 1)) eps`` over the second
+     half of its ``ndoublings`` rows (:func:`_handoff_freeze`), with
+     ``max_leaps = 2^maxdoublings``; ``T`` rides the states
+     (``NUTSState.tlen``), so a resume continues on the same rule.
 
    On a GLM, up to ``BIGN_THRESHOLD`` observations the Halton multistep
    kernel runs the HMC-family phase, ``_pick_k_trans(steps)`` transitions
@@ -59,9 +64,8 @@ and its frozen hyper-parameters are read back from the states with the
 same freeze rules.  Given a ``mesh``, the warmup's chains split over its
 chain axis on the generic engine and the sampling phase runs shard by
 shard (:func:`_mesh_phase`): each chain shard on its entry's device with
-its own stream, through the same kernels.  Not ported yet:
-``NUTS(warm_handoff=True)`` and its continuation (ROADMAP: the warm
-handoff) and data-bearing targets (custom targets).
+its own stream, through the same kernels.  Not ported yet: data-bearing
+targets (custom targets).
 """
 from __future__ import annotations
 
@@ -80,14 +84,12 @@ _INTEGRATORS = ("leapfrog", "2stage", "3stage")
 def warm_eligible(task):
     """True when the task can take the warmup -> freeze -> fused pipeline:
     an adaptive HMC (EmpMCTuner and/or diagonal or dense mass adaptation),
-    an HMCDA, an adaptive MALA, a ChEES-HMC or an exact NUTS, with a
-    burn-in window, on a ``model(glm=...)`` posterior or on a model whose
-    ``target_spec`` is a catalog target of at most ``D_MAX`` parameters
-    (warmstart.py ``_warm_ok``), with a unit, diagonal or dense metric.
-    Other models, ``NUTS(warm_handoff=True)``, which the JAX package
-    also admits and the port does not yet, and subclasses of NUTS
-    (WALNUTS), which the JAX package refuses too, are refused with a logged
-    reason."""
+    an HMCDA, an adaptive MALA, a ChEES-HMC, an exact NUTS or a NUTS warm
+    handoff, with a burn-in window, on a ``model(glm=...)`` posterior or on
+    a model whose ``target_spec`` is a catalog target of at most ``D_MAX``
+    parameters (warmstart.py ``_warm_ok``), with a unit, diagonal or dense
+    metric.  Other models and subclasses of NUTS (WALNUTS), which the JAX
+    package refuses too, are refused with a logged reason."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
     from ..samplers.hmcda import HMCDA
@@ -109,11 +111,6 @@ def warm_eligible(task):
     elif isinstance(s, ChEESHMC):
         ok = s.integrator in _INTEGRATORS
     elif type(s) is NUTS:
-        if s.warm_handoff:
-            log.info("warm start: NUTS(warm_handoff=True) is not ported yet "
-                     "(ROADMAP: the warm handoff); running the generic "
-                     "engine")
-            return False
         ok = True
     elif isinstance(s, NUTS):
         log.info("warm start: %s; running the generic torch engine",
@@ -477,9 +474,9 @@ def _continue_refusal(task, states=None):
     again: the state is frozen and the run is the fixed kernel the fused
     drivers execute.  Every ``_kind`` the port's samplers take (None,
     "diag", "diag-win", "dense") continues, on a GLM and on a catalog
-    target, as in the JAX package.  ``states`` is the JAX package's hook
-    for the warm handoff's trajectory time, which the port does not
-    continue."""
+    target, as in the JAX package.  A NUTS warm handoff continues only
+    from ``states`` that carry its trajectory time (``min(tlen) > 0``);
+    other handoff states continue on the generic engine, as exact NUTS."""
     from ..samplers.chees import ChEESHMC
     from ..samplers.hmc import HMC
     from ..samplers.hmcda import HMCDA
@@ -496,9 +493,9 @@ def _continue_refusal(task, states=None):
     if isinstance(s, (HMC, HMCDA, ChEESHMC)) \
             and s.integrator not in _INTEGRATORS:
         return f"the {s.integrator!r} integrator has no kernel"
-    if type(s) is NUTS and s.warm_handoff:
-        return ("NUTS(warm_handoff=True) has no fused continuation in the "
-                "port (ROADMAP: the warm handoff)")
+    if type(s) is NUTS and s.warm_handoff and _handoff_time(s, states) <= 0:
+        return ("a NUTS(warm_handoff=True) batch continues fused only from "
+                "states that carry its trajectory time (NUTSState.tlen > 0)")
     if isinstance(s, NUTS) and type(s) is not NUTS:
         return _walnuts_refusal(s)
     if isinstance(s, (HMC, HMCDA, ChEESHMC)) or type(s) in (MALA, NUTS):
@@ -519,9 +516,31 @@ def continue_eligible(task, states=None):
     kernels (warmstart.py ``continue_eligible``): HMC (fixed or adapted,
     unit, diagonal or dense metric), HMCDA, MALA, ChEES-HMC or exact NUTS,
     without ``store_leaps`` and with a kernel integrator, on a GLM posterior
-    or a model of at most ``D_MAX`` parameters.  ``NUTS(warm_handoff=True)``
-    states are refused: the port has no handoff continuation."""
+    or a model of at most ``D_MAX`` parameters; a NUTS warm handoff only
+    with ``states`` whose ``tlen`` is positive."""
     return _continue_refusal(task, states) is None
+
+
+def _handoff_time(sampler, states):
+    """The smallest trajectory time that ``states`` carry for a NUTS warm
+    handoff (``min(tlen)``); 0 when the sampler is no handoff or no states
+    are given."""
+    if not getattr(sampler, "warm_handoff", False) or states is None:
+        return 0.0
+    return float(states.tlen.min())
+
+
+def _handoff_freeze(states_w, ndoublings):
+    """The NUTS warm handoff's frozen ``(eps, T)`` from its warmup
+    (warmstart.py ``warmfused_nuts_chains``), in float64: ``eps`` the median
+    over chains of the dual-averaged step ``exp(lebar)``; ``T`` twice the
+    median leap count ``max(2^j - 1, 1)`` over the second half of the
+    warmup's ``ndoublings`` rows ``j``, times ``eps`` (the Halton rule draws
+    ``nl`` uniform on ``(0, T / eps]``, so its mean sits at that median)."""
+    eps = float(np.median(np.exp(states_w.lebar.double().cpu().numpy())))
+    j = ndoublings.double().cpu().numpy()
+    leaps = np.maximum(2.0 ** j[j.shape[0] // 2:] - 1.0, 1.0)
+    return eps, 2.0 * float(np.median(leaps)) * eps
 
 
 def make_fused_continuation(model, sampler, states0, mesh=None):
@@ -544,6 +563,10 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
       the sampler's ``max_leaps``; rows ``alpha``/``epsilon``/``nleaps``.
     - exact NUTS: ``eps = median(exp(lebar))``; rows
       ``epsilon``/``ndoublings``/``diverging``.
+    - the NUTS warm handoff, when ``min(states0.tlen) > 0``: the same
+      ``eps``, ``T = median(tlen)``, ``max_leaps = 2^maxdoublings``, the
+      leapfrog integrator; rows ``epsilon``/``nleaps``.  The new states
+      keep ``tlen``, so the next segment continues on the same rule.
     A diagonal metric folds into the design on a GLM and rides the step row
     on a catalog target; a dense metric folds into the design and the
     matrix prior ``lam L' L`` on a GLM, and into the positions on a catalog
@@ -552,9 +575,10 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
     at ``i0``, by default ``max(states.i)``, so successive segments extend
     one sequence.  Routes:
     on a GLM up to ``BIGN_THRESHOLD`` observations the Halton multistep
-    kernel (3b) or the NUTS kernels (9 when ``steps`` has a divisor in
-    [2, 8] on the card, else 8), above it the N-tiled gradient kernel (4);
-    on a catalog target the trajectory kernel (5) or target-mode NUTS (8b).
+    kernel (3b) or, for exact NUTS, the NUTS kernels (9 when ``steps`` has
+    a divisor in [2, 8] on the card, else 8), above it the N-tiled gradient
+    kernel (4); on a catalog target the trajectory kernel (5) or, for exact
+    NUTS, target-mode NUTS (8b).
     Given a ``mesh`` every segment runs shard by shard (:func:`_mesh_phase`),
     the folded design and the target copied once to each device."""
     from ..parallel.mesh import on_devices
@@ -567,6 +591,9 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
     integrator = getattr(sampler, "integrator", "leapfrog")
     chees = isinstance(sampler, ChEESHMC)
     nuts = type(sampler) is NUTS
+    # the warm handoff: NUTS states, the Halton rule's dynamic-length HMC
+    handoff = nuts and _handoff_time(sampler, states0) > 0
+    exact = nuts and not handoff
     nl = T = max_leaps = None
     if chees:
         eps = _median(states0.dual_leap_step)
@@ -578,6 +605,10 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
         eps = float(np.median(np.exp(states0.lebar.double().cpu().numpy())))
         s = _pool_mass(sampler._kind, states0)
         extras = ("epsilon", "ndoublings", "diverging")
+        if handoff:
+            T = _median(states0.tlen)
+            max_leaps = 2 ** sampler.maxdoublings
+            extras = ("epsilon", "nleaps")
     else:
         eps, nl, s = _freeze(sampler, states0)
         mala = type(sampler) is MALA
@@ -585,7 +616,7 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
         max_leaps = 1 if mala else max(2 * nl, 2)
         extras = ()
     nuts_kw = (dict(maxdoublings=sampler.maxdoublings,
-                    multinomial=sampler.multinomial) if nuts else {})
+                    multinomial=sampler.multinomial) if exact else {})
     put = on_devices()  # the replicated inputs, one copy a device
 
     if spec is not None:
@@ -597,7 +628,7 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
             XTd, Yd = put(XT, dev), put(Y, dev)
             kw = dict(kind=spec.kind, W=put(W, dev), O=put(O, dev),
                       lam=put(lam, dev))
-            if nuts:
+            if exact:
                 use_hw, kt = _nuts_hw_route(model, steps)
                 if use_hw:
                     return _nuts_run_hw(XTd, Yd, theta0, eps, generator,
@@ -617,7 +648,7 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
         eps_in = _target_step(eps, s, fold_s)
 
         def run_phase(pars, steps, i0, generator, dev):
-            if nuts:
+            if exact:
                 target, _ = dense_target_setup(model, put(s, dev), dev)
                 return _nuts_target_run(
                     target, _fold_theta(pars, put(fold_s, dev)),
@@ -631,7 +662,7 @@ def make_fused_continuation(model, sampler, states0, mesh=None):
         (thetaF, _, _), infos2 = _mesh_phase(
             lambda pars, gen, dev: run_phase(pars, steps, i0, gen, dev),
             states.pars, generator, mesh, model.device)
-        if chees:
+        if chees or handoff:
             infos2["epsilon"] = torch.full_like(infos2["plogtarget"], eps)
         infos, theta = _unfold(infos2, thetaF, fold_s, extra_keys=extras)
         theta = theta.to(model.device, states.pars.dtype)
@@ -684,7 +715,8 @@ def fused_continue_chains(model, sampler, states, steps, generator,
 def warmfused_chains(model, sampler, runner, n_chains, generator, mesh=None):
     """The warm pipeline of every family :func:`warm_eligible` admits
     (warmstart.py ``warmfused_hmc_chains``, ``warmfused_target_chains``,
-    ``warmfused_chees_chains`` and ``warmfused_nuts_exact_chains``): the
+    ``warmfused_chees_chains`` and ``warmfused_nuts_exact_chains``; the
+    NUTS warm handoff goes to :func:`warmfused_nuts_chains`): the
     adaptive warmup on the generic engine for the burn-in, then the
     sampling phase at the frozen hyper-parameters through the fused
     kernels, :func:`make_fused_continuation` of the warmup's states with
@@ -694,8 +726,20 @@ def warmfused_chains(model, sampler, runner, n_chains, generator, mesh=None):
     :func:`mcmc_jl_tpu_torch.parallel.pchains.run_chains`: infos cover all
     ``runner.len`` transitions, the warmup's rows and then the sampling
     phase's, in the warmup's types."""
+    if getattr(sampler, "warm_handoff", False):
+        return warmfused_nuts_chains(model, sampler, runner, n_chains,
+                                     generator, mesh=mesh)
     states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator,
                                 mesh=mesh)
+    return _sampling_phase(model, sampler, runner, states_w, infos_w,
+                           generator, mesh)
+
+
+def _sampling_phase(model, sampler, runner, states_w, infos_w, generator,
+                    mesh):
+    """The warm pipeline after its warmup: :func:`make_fused_continuation`
+    of the warmup's states for ``len - burnin`` transitions from Halton
+    index ``burnin + 1``, its rows after the warmup's."""
     infos2, states = make_fused_continuation(model, sampler, states_w,
                                              mesh=mesh)(
         states_w, runner.len - runner.burnin, generator,
@@ -703,3 +747,30 @@ def warmfused_chains(model, sampler, runner, n_chains, generator, mesh=None):
     infos = {k: torch.cat([infos_w[k], v.to(infos_w[k].dtype)])
              for k, v in infos2.items()}
     return infos, states
+
+
+def warmfused_nuts_chains(model, sampler, runner, n_chains, generator,
+                          mesh=None):
+    """The NUTS warm handoff, ``NUTS(warm_handoff=True)`` (warmstart.py
+    ``warmfused_nuts_chains``): exact NUTS with its dual averaging and
+    metric adaptation for the burn-in on the generic engine, then
+    :func:`_handoff_freeze`'s ``(eps, T)`` written into every chain's
+    ``tlen`` and the sampling phase as dynamic-length HMC on the Halton rule
+    (:func:`make_fused_continuation`'s handoff arm): kernel 3b (or its
+    ``_mat`` variant under a dense metric) up to ``BIGN_THRESHOLD``
+    observations, kernel 4 above, kernel 5 (or 5 dense) on a catalog
+    target.  What it gives up against exact NUTS is the per-transition
+    U-turn rule.  Rows ``ppars``, ``pgrads``, ``plogtarget``, ``accept``,
+    ``epsilon`` and ``nleaps``, the warmup's ``nleaps`` being ``2^j - 1``
+    of its ``ndoublings`` ``j``; the final states carry ``epsilon`` and
+    ``lebar`` frozen at ``eps`` and ``log(eps)``, and ``tlen = T``."""
+    states_w, infos_w = _warmup(model, sampler, runner, n_chains, generator,
+                                mesh=mesh)
+    _, T = _handoff_freeze(states_w, infos_w["ndoublings"])
+    states_w = states_w.replace(tlen=torch.full_like(states_w.tlen, T))
+    nd = infos_w["ndoublings"].to(torch.int32)
+    infos_w = {k: infos_w[k] for k in ("ppars", "pgrads", "plogtarget",
+                                       "accept", "epsilon")}
+    infos_w["nleaps"] = (torch.ones_like(nd) << nd) - 1
+    return _sampling_phase(model, sampler, runner, states_w, infos_w,
+                           generator, mesh)

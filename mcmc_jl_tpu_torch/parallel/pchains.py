@@ -16,19 +16,20 @@ sampler's cross-chain ``pool`` hook join them every step, through
 per-task chains) and routes groups on GLM posteriors to the fused CUDA
 kernels: plain HMC and plain MALA to the HMC drivers (ops/glm_hmc.py; above
 ``BIGN_THRESHOLD`` observations the N-tiled kernel, ops/glm_bign.py),
-adaptive HMC, HMCDA, adaptive MALA, ChEES-HMC and exact NUTS to the
-warm-start pipeline (ops/warmstart.py).  On a custom target that is a
-product of catalog densities (``model.target_spec``) plain HMC and plain
-MALA go to the custom-target kernels (ops/target_kernels.py), and the
-adaptive samplers and exact NUTS to the warm-start pipeline's target arms;
-other custom targets run on the generic engine.  Samplers that adapt from
-cross-chain statistics (ChEES-HMC) expose ``pool``, which the engine calls
-after every step.  ``presume_serialmc`` is the batched resume: a list of
-chains re-batches by group, and frozen HMC-family and exact-NUTS groups
-continue through the same kernels (``continuation_route``,
-ops/warmstart.py ``fused_continue_chains``).  With a mesh the warm-start
-pipeline and the generic engine shard their chains; the plain fused HMC,
-MALA and custom-target routes ignore it, as the JAX package's do.
+adaptive HMC, HMCDA, adaptive MALA, ChEES-HMC, exact NUTS and the NUTS
+warm handoff to the warm-start pipeline (ops/warmstart.py).  On a custom
+target that is a product of catalog densities (``model.target_spec``) plain
+HMC and plain MALA go to the custom-target kernels (ops/target_kernels.py),
+and the adaptive samplers, exact NUTS and the warm handoff to the
+warm-start pipeline's target arms; other custom targets run on the generic
+engine.  Samplers that adapt from cross-chain statistics (ChEES-HMC)
+expose ``pool``, which the engine calls after every step.
+``presume_serialmc`` is the batched resume: a list of chains re-batches by
+group, and frozen HMC-family, exact-NUTS and warm-handoff groups continue
+through the same kernels (``continuation_route``, ops/warmstart.py
+``fused_continue_chains``).  With a mesh the warm-start pipeline and the
+generic engine shard their chains; the plain fused HMC, MALA and
+custom-target routes ignore it, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -291,24 +292,33 @@ def _kernel_shape_ok(model, route, sampler):
     return None
 
 
+def _nuts_or_warm(sampler):
+    """"nuts" for exact NUTS, whose sampling phase runs the NUTS kernels;
+    "warm" for every other warm-start family, the NUTS warm handoff
+    included (the Halton rule's dynamic-length HMC)."""
+    from ..samplers.nuts import NUTS
+
+    exact = type(sampler) is NUTS and not sampler.warm_handoff
+    return "nuts" if exact else "warm"
+
+
 def _route(t, fused):
     """Decide before any launch which route a group takes: "hmc" (plain
     HMC or plain MALA through the fused GLM-HMC drivers), "target" (plain
     HMC or plain MALA on a catalog target through the custom-target
-    trajectory kernel), "warm" (adaptive HMC, HMCDA, adaptive MALA or
-    ChEES-HMC: generic warmup, then the Halton multistep or the N-tiled
-    kernel on a GLM, the custom-target trajectory kernel on a catalog
-    target), "nuts" (generic warmup, then the exact-NUTS kernels, GLM or
-    target mode) or False (the generic engine).  Above ``BIGN_THRESHOLD``
-    observations the "hmc" and "warm" routes run the N-tiled gradient
-    kernel.
+    trajectory kernel), "warm" (adaptive HMC, HMCDA, adaptive MALA,
+    ChEES-HMC or the NUTS warm handoff: generic warmup, then the Halton
+    multistep or the N-tiled kernel on a GLM, the custom-target trajectory
+    kernel on a catalog target), "nuts" (exact NUTS: generic warmup, then
+    the exact-NUTS kernels, GLM or target mode) or False (the generic
+    engine).  Above ``BIGN_THRESHOLD`` observations the "hmc" and "warm"
+    routes run the N-tiled gradient kernel.
 
     ``fused=False``: never fused.  ``"auto"``: when the model lives on a
     CUDA device in float32 and the kernels take its shape.  ``True``:
     whenever the kernels take its shape (on the CPU the wrappers then run
     their plain versions)."""
     from ..ops.warmstart import warm_eligible
-    from ..samplers.nuts import NUTS
 
     if fused is False:
         return False
@@ -322,8 +332,9 @@ def _route(t, fused):
         route = "target"
     elif warm_eligible(t):
         # NUTS itself, not a subclass: WALNUTS's adaptive micro-steps are
-        # not what the NUTS kernels integrate (warm_eligible refuses it)
-        route = "nuts" if type(t.sampler) is NUTS else "warm"
+        # not what the NUTS kernels integrate (warm_eligible refuses it);
+        # the warm handoff samples as dynamic-length HMC, not on them
+        route = _nuts_or_warm(t.sampler)
     else:
         log.info("prun: no fused CUDA route takes %s on this model; running "
                  "the generic torch engine", type(t.sampler).__name__)
@@ -447,15 +458,16 @@ def _package_group(t, runner, idxs, infos, final_states, generator, results,
 def continuation_route(model, sampler, n, fused="auto", states=None):
     """Decide before any launch how a batch of ``n`` stored states
     continues (pchains.py ``continuation_route``): "warm" (HMC, HMCDA,
-    MALA or ChEES through the Halton multistep kernel, the N-tiled kernel
-    or the custom-target trajectory kernel), "nuts" (exact NUTS through the
-    GLM or target-mode NUTS kernels) or False (the generic engine), with the
-    reason logged.  ``fused`` as in :func:`prun_serialmc`: False never
-    fuses, "auto" fuses a model held in float32 on a CUDA device, True
-    whenever the kernels take the shape (their plain versions on the CPU).
+    MALA, ChEES or a NUTS warm handoff whose ``states`` carry its
+    trajectory time, through the Halton multistep kernel, the N-tiled
+    kernel or the custom-target trajectory kernel), "nuts" (exact NUTS
+    through the GLM or target-mode NUTS kernels) or False (the generic
+    engine), with the reason logged.  ``fused`` as in
+    :func:`prun_serialmc`: False never fuses, "auto" fuses a model held in
+    float32 on a CUDA device, True whenever the kernels take the shape
+    (their plain versions on the CPU).
     Nothing is probed: a kernel that fails to build or launch raises."""
     from ..ops.warmstart import _continue_refusal
-    from ..samplers.nuts import NUTS
 
     def generic(why):
         log.info("resume: %s; continuing %d %s chains on the generic torch "
@@ -472,7 +484,7 @@ def continuation_route(model, sampler, n, fused="auto", states=None):
         return generic(f"the model is held in {model.dtype} on "
                        f"{model.device.type}, and fused='auto' takes CUDA "
                        f"float32 models")
-    route = "nuts" if type(sampler) is NUTS else "warm"
+    route = _nuts_or_warm(sampler)
     why = _kernel_shape_ok(model, route, sampler)
     if why is not None:
         return generic(why)

@@ -58,8 +58,8 @@ class NUTSState:
     mu: torch.Tensor
     hbar: torch.Tensor
     lebar: torch.Tensor
-    #: frozen trajectory time of a warm handoff (0 = none has run); carried
-    #: for the JAX package's layout
+    #: frozen trajectory time of a warm handoff (0 = none has run); a
+    #: resume continues the handoff's sampling phase from it
     tlen: torch.Tensor
     i: torch.Tensor
     mass: MassAccum
@@ -106,9 +106,11 @@ class NUTS(Sampler):
     #: by exp(-H), subtree merges by logsumexp-weighted reservoir, outer
     #: merge biased toward the new subtree
     multinomial: bool = False
-    #: opt-in warm handoff of the JAX package (frozen eps + empirical
-    #: trajectory lengths through the Halton multistep kernel).  That kernel
-    #: is not ported: such a sampler runs as exact NUTS on the generic engine
+    #: opt-in warm handoff (ops/warmstart.py ``warmfused_nuts_chains``):
+    #: through ``run(..., chains=N)`` the burn-in runs exact NUTS, then the
+    #: sampling phase runs dynamic-length HMC at the frozen eps and the
+    #: warmup's own trajectory time (kernels 3b, 4 or 5).  Elsewhere, and
+    #: on the generic engine, it is exact NUTS
     warm_handoff: bool = False
 
     needs_gradient = True

@@ -79,8 +79,10 @@ def _geyer(x, maxlag=None, monotone=True):
     k = int(np.floor((maxlag - 1) / 2))
     g = acv[0:2 * k + 1:2] + acv[1:2 * k + 2:2]  # (k+1, p)
     pos = g > 0
-    # m: the number of leading positive pair sums in each column
-    m = np.where(pos.all(axis=0), k + 1, np.argmin(pos, axis=0))
+    # m: the number of leading positive pair sums in each column (none for a
+    # single row, maxlag 0)
+    m = (np.where(pos.all(axis=0), k + 1, np.argmin(pos, axis=0))
+         if k >= 0 else np.zeros(p, dtype=int))
     if monotone:
         g = np.minimum.accumulate(g, axis=0)
     keep = np.arange(k + 1)[:, None] < m[None, :]

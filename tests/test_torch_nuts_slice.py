@@ -14,6 +14,7 @@ import mcmc_jl_tpu as mc
 from mcmc_jl_tpu.parallel import run_chains as jax_run_chains
 import mcmc_jl_tpu_torch as mt
 from mcmc_jl_tpu_torch.core.task import MCMCTask
+from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 from mcmc_jl_tpu_torch.ops import warmstart
 from mcmc_jl_tpu_torch.parallel import pchains
@@ -103,9 +104,10 @@ def test_generic_route_and_resume():
 
 def test_routing():
     """Routes are decided up front: "nuts" for an exact NUTS with a burn-in
-    on a GLM the kernels take; the generic engine for the warm handoff, no
-    burn-in, a custom link, too deep a tree, or "auto" off the card; the
-    dense metric raises at construction."""
+    on a GLM the kernels take; "warm" for the warm handoff, as in the JAX
+    package (pchains.py:283); the generic engine for no burn-in, a custom
+    link, too deep a tree, or "auto" off the card; the dense metric folds
+    into the NUTS kernels' matrix prior."""
     X, Y = _data()
     m = mt.model(glm=("logistic", X, Y), device="cpu")
     r = mt.SerialMC(steps=30, burnin=10)
@@ -116,7 +118,7 @@ def test_routing():
     assert route(mt.HMC(3, 0.1)) == "hmc"
     assert not route(mt.NUTS(), f="auto")  # CPU model
     assert not route(mt.NUTS(), f=False)
-    assert not route(mt.NUTS(warm_handoff=True))
+    assert route(mt.NUTS(warm_handoff=True)) == "warm"
     assert not route(mt.NUTS(), rr=mt.SerialMC(steps=30))
     assert not route(mt.NUTS(maxdoublings=nk.MAX_DOUBLINGS + 1))
     custom = (lambda z, y: z * y - torch.logaddexp(z, torch.zeros_like(z)),
@@ -131,11 +133,15 @@ def test_routing():
     assert warmstart._nuts_hw_route(m, 1000) == (False, 1)  # CPU model
     # the dense metric folds into the NUTS kernels' matrix prior
     assert route(mt.NUTS(mass_adapt="dense")) == "nuts"
-    # the warm handoff still samples, as exact NUTS on the generic engine
+    # the warm handoff samples through the Halton multistep kernel (3b's
+    # plain version here), never the NUTS kernels
     nk.reset_counts()
+    gk.reset_counts()
     cs = mt.run(m * mt.NUTS(maxdoublings=3, warm_handoff=True)
                 * mt.SerialMC(steps=20, burnin=5), chains=2, fused=True)
     assert not any(nk.PLAIN_CALLS.values()) and len(cs) == 2
+    assert gk.PLAIN_CALLS["glm_multistep_rows"] == 3  # 15 = 3 launches of 5
+    assert "nleaps" in cs[0].diagnostics
 
 
 def _as_dict(state):

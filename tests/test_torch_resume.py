@@ -14,6 +14,7 @@ CPU, where the kernels' wrappers run their plain versions:
 - two resumes of one list give the same bits, on both engines."""
 import dataclasses
 import logging
+import types
 
 import jax
 import numpy as np
@@ -355,7 +356,7 @@ def test_continuation_routes_and_reasons(caplog, monkeypatch):
     refused = [
         (gm, mt.RWM(0.1), "RWM has no fused continuation"),
         (gm, mt.HMC(5, 0.1, store_leaps=True), "store_leaps=True"),
-        (tm, mt.NUTS(warm_handoff=True), "warm handoff"),
+        (tm, mt.NUTS(warm_handoff=True), "NUTSState.tlen > 0"),
         (gm, mt.NUTS(4), "N = 90 > 50"),
         (tm, mt.NUTS(nk.MAX_DOUBLINGS + 1),
          f"maxdoublings = {nk.MAX_DOUBLINGS + 1} > {nk.MAX_DOUBLINGS}"),
@@ -376,12 +377,19 @@ def test_continuation_routes_and_reasons(caplog, monkeypatch):
     assert "fused=False" in caplog.text
     # above the threshold the HMC family still continues (the tiled kernel)
     assert pchains.continuation_route(gm, mt.HMC(5, 0.1), 8, True) == "warm"
+    # so do warm-handoff states that carry their trajectory time, on a GLM
+    # (the tiled kernel) and on a catalog target, as in the JAX package
+    timed = types.SimpleNamespace(tlen=torch.full((8,), 1.5, dtype=F64))
+    for m in (gm, tm):
+        assert pchains.continuation_route(m, mt.NUTS(warm_handoff=True), 8,
+                                          True, states=timed) == "warm"
 
 
 def test_continue_eligible_matches_jax():
     """continue_eligible agrees with the JAX package's on the GLM and a
-    catalog target for every sampler both packages build, except the warm
-    handoff, which the port refuses whatever the states."""
+    catalog target for every sampler both packages build; for the warm
+    handoff, with states that carry no trajectory time and with states
+    that do."""
     X, Y = _data()
     jg, tg = mc.model(glm=("logistic", X, Y)), mt.model(
         glm=("logistic", X, Y), dtype=F64, device="cpu")
@@ -404,8 +412,18 @@ def test_continue_eligible_matches_jax():
             want = jws.continue_eligible(JTask(jm, make(mc), None))
             assert tws.continue_eligible(MCMCTask(tm, make(mt), None)) \
                 == want, make(mt)
-    assert not tws.continue_eligible(MCMCTask(tt, mt.NUTS(warm_handoff=True),
-                                              None))
+    for tlen in (0.0, 1.5):
+        jstates = types.SimpleNamespace(tlen=np.full(8, tlen))
+        tstates = types.SimpleNamespace(tlen=torch.full((8,), tlen))
+        for jm, tm in ((jg, tg), (jt, tt)):
+            want = jws.continue_eligible(JTask(jm, mc.NUTS(warm_handoff=True),
+                                               None), states=jstates)
+            assert want == (tlen > 0)
+            assert tws.continue_eligible(MCMCTask(
+                tm, mt.NUTS(warm_handoff=True), None), states=tstates) \
+                == want
+            assert not tws.continue_eligible(MCMCTask(
+                tm, mt.NUTS(warm_handoff=True), None))
 
 
 # ---- determinism ------------------------------------------------------------

@@ -212,7 +212,9 @@ def test_warm_eligibility_matches_jax():
     gen = mt.model(lambda v: -(v * v).sum(), gradient=True, init=np.zeros(2),
                    device="cpu")
     assert not tws.warm_eligible(MCMCTask(gen, mt.HMC(5, 0.1, ttun), tr))
-    assert not tws.warm_eligible(MCMCTask(tm, mt.NUTS(warm_handoff=True), tr))
+    # the warm handoff: admitted by both packages
+    assert jws.warm_eligible(JTask(jm, mc.NUTS(warm_handoff=True), r))
+    assert tws.warm_eligible(MCMCTask(tm, mt.NUTS(warm_handoff=True), tr))
     # the routes
     route = lambda s: pchains._route(MCMCTask(tm, s, tr), True)  # noqa: E731
     assert route(mt.HMC(5, 0.1, ttun)) == "warm"

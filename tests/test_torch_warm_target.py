@@ -50,8 +50,8 @@ def _models():
 def test_warm_eligibility_and_routes_match_jax():
     """warm_eligible agrees with the JAX package's on a catalog DSL model
     for every sampler both admit or refuse; the routes are "nuts" for exact
-    NUTS and "warm" for the adaptive samplers and ChEES, "target" for plain
-    HMC and MALA."""
+    NUTS and "warm" for the adaptive samplers, ChEES and the warm handoff,
+    "target" for plain HMC and MALA."""
     jm, tm = _models()
     assert tm.target_spec is not None and tm.target_spec.has_rows
     tun, ttun = mc.EmpMCTuner(0.8, adapt_step=50), mt.EmpMCTuner(0.8,
@@ -83,11 +83,14 @@ def test_warm_eligibility_and_routes_match_jax():
         want = jws.warm_eligible(JTask(jm, js, r))
         assert tws.warm_eligible(MCMCTask(tm, ts, tr)) == want, ts
         assert pchains._route(MCMCTask(tm, ts, tr), True) == route, ts
-    # no burn-in window; what the port does not take yet
+    # no burn-in window; the warm handoff, admitted by both packages, takes
+    # the warm route (kernel 5), not the NUTS kernels
     assert not tws.warm_eligible(MCMCTask(tm, mt.NUTS(),
                                           mt.SerialMC(steps=100)))
     assert jws.warm_eligible(JTask(jm, mc.NUTS(warm_handoff=True), r))
-    assert not tws.warm_eligible(MCMCTask(tm, mt.NUTS(warm_handoff=True), tr))
+    assert tws.warm_eligible(MCMCTask(tm, mt.NUTS(warm_handoff=True), tr))
+    assert pchains._route(MCMCTask(tm, mt.NUTS(warm_handoff=True), tr),
+                          True) == "warm"
     assert not pchains._route(MCMCTask(tm, mt.NUTS(nk.MAX_DOUBLINGS + 1),
                                        tr), True)
     assert not pchains._route(MCMCTask(tm, mt.NUTS(), tr), "auto")  # CPU
