@@ -44,7 +44,15 @@ against their plain versions at d 33, 64, 150 and 256
 (``phase_wide_nuts_kernels``), and the d 150 model drives ``NUTS(6)``
 with the unit, diagonal and dense metrics and two resumes, each held
 against the generic engine; NUTS at d 257 takes the generic engine with
-its reason (``phase_wide_nuts_paths``).  The dense metric on catalog
+its reason (``phase_wide_nuts_paths``).  GLMs of 257 to 1024 parameters
+run kernels 1, 2, 3, 3b and 4 (and the _mat variants) on the very-wide
+chain tile: each is held against its plain version at d 257, 512 and 1024
+with the scalar, row and matrix priors (``phase_xwide_kernels``), and a
+logistic regression of d 1024 drives plain HMC, the drivers of 2 and 3,
+and adaptive HMC with a diagonal and a dense metric at N 1000 and N
+20,000, each held against the generic engine (``phase_xwide_paths``);
+``phase_xwide_times`` times them at d 512 and 1024 beside the generic
+engine.  The dense metric on catalog
 targets runs kernels 5 and 8b on the z-space target ``z -> target(z L')``
 (their DENSE instantiations): each is held against its plain version at d
 1-1024 (``phase_dense_target_kernels``), and dense ``NUTS(6)`` on the ten
@@ -78,7 +86,7 @@ model through the gradient pass; the distributed drivers on meshes of
 virtual shards of the card (``phase_mesh_paths``); the NUTS warm handoff,
 ``NUTS(6, warm_handoff=True)``, through kernels 3b (and two resumes), 5
 and 4 (``phase_warm_handoff``); and ``examples_torch/
-warmstart_logistic.py``'s ``main`` at 4096 chains and its continuation,
+warmstart_logistic.py``'s ``main`` at 2048 chains and its continuation,
 with ``utils.profiling.throughput_report``'s leapfrog/s and min-ESS/s, and
 one kernel-1 run under ``utils.profiling.trace``, whose Chrome trace must
 name the kernel (``phase_examples``).  It also runs the HMC step
@@ -100,7 +108,9 @@ libraries that the named timing groups need (TIME_GROUPS; default all)
 from the package under ROOT and times their kernels (1-4, 8, 9, 3b, 8b
 and 5-7; the wide tile's at d 150 and 256 with the group ``wide``, its
 paths against the generic engine with ``wide_paths``, the wide NUTS
-kernels with ``wide_nuts`` and their paths with ``wide_nuts_paths``) at
+kernels with ``wide_nuts`` and their paths with ``wide_nuts_paths``, the
+very-wide tile's at d 512 and 1024 and its paths' fused and generic
+seconds with ``xwide``) at
 pinned shapes, the paths that run them and bench.py's drivers, to compare
 two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
@@ -176,6 +186,19 @@ REPLACES = {
                                      "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
     "glm_nuts_multistep_mat_wide": ("glm_nuts",
                                     "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    # the HMC-family kernels on the very-wide tile (256 < d <= 1024), counted
+    # apart
+    "glm_leapfrogs_xwide": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
+    "glm_step_xwide": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:282"),
+    "glm_multistep_xwide": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_multistep_rows_xwide": ("glm_hmc",
+                                 "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_multistep_rows_mat_xwide": ("glm_hmc",
+                                     "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_logp_grad_tiled_xwide": ("glm_bign",
+                                  "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    "glm_logp_grad_tiled_mat_xwide": ("glm_bign",
+                                      "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
     # kernels 5 and 8b on the z-space target of a frozen dense metric (the
     # JAX package's _dense_wrap, mcmc_jl_tpu/ops/warmstart.py:581-624, which
     # feeds the same two Pallas kernels): the DENSE instantiations, counted
@@ -1029,11 +1052,11 @@ def _hmc_reference(hmc_final, hmc_steps=2000, data=None, eps=0.05, seed=4):
     return hmc["ppars"].mean(0).double().cpu().numpy()
 
 
-def phase_nuts_main_path(hmc_means, burnin=80):
+def phase_nuts_main_path(hmc_means, burnin=60):
     """Exact NUTS through ``run``: the multistep kernel serves
-    SerialMC(580, 80) (500 = 100 launches of 5), the per-transition
-    kernel the diagonal-metric run with SerialMC(579, 80) (499 is prime);
-    the burn-in is cut from the benchmark's 500 to 80 for the script's
+    SerialMC(560, 60) (500 = 100 launches of 5), the per-transition
+    kernel the diagonal-metric run with SerialMC(559, 60) (499 is prime);
+    the burn-in is cut from the benchmark's 500 to 60 for the script's
     time.
 
     Each run's per-chain means must agree with ``hmc_means``, the per-chain
@@ -3757,8 +3780,8 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
     - bench.py's logistic GLM (d 10, N 1000, from the mode), 4096 chains:
       ``HMC(10, 0.02, EmpMCTuner(0.8, 50), mass_adapt="dense") *
       SerialMC(2000, 500)`` (3b: 250 launches of 6) and ``NUTS(6,
-      mass_adapt="dense") * SerialMC(579, 80)`` (8: 499; the burn-in cut
-      to 80 for the script's time), both held
+      mass_adapt="dense") * SerialMC(559, 60)`` (8: 499; the burn-in cut
+      to 80, then 60, for the script's time), both held
       against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
       (9: 15 launches of 8) with _resume_path's checks;
     - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
@@ -3787,7 +3810,7 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
             (mt.HMC(10, 0.02, mt.EmpMCTuner(0.8, adapt_step=50),
                     mass_adapt="dense"), 2000, 500,
              "glm_multistep_rows_mat", 250),
-            (mt.NUTS(6, mass_adapt="dense"), 579, 80,
+            (mt.NUTS(6, mass_adapt="dense"), 559, 60,
              "glm_nuts_transition_mat", 499)):
         task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
         origin = _origin(m, task, chains)
@@ -4574,7 +4597,7 @@ def _device_ms(fn, symbol, reps=10):
 
 # the wide paths' width (tests/test_pallas_glm.py's wide case) and the widths
 # the kernel checks take: the narrow tile's edge + 1, two wide tiles, the
-# paths', and the bound (glm_kernels.D_MAX)
+# paths', and the wide tile's bound (glm_kernels.WIDE_D_MAX)
 WIDE_D = 150
 WIDE_CHECK_D = (33, 64, 150, 256)
 # HMC step of the wide paths at N 1000 (posterior sds about 0.6) and of the
@@ -4641,7 +4664,7 @@ def _wide_folds(n, d, C, seed, spread=0.1):
 
 
 def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
-                       k=8, i0=501):
+                       k=4, i0=501):
     """Kernels 1, 2, 3, 3b (and _mat) and 4 (and _mat) on the wide tile
     against their plain versions at d 33, 64, 150 and 256 (WIDE_CHECK_D):
     at d 150 at the wide paths' shapes (4096 chains at N 1000, 512 at N
@@ -4649,7 +4672,9 @@ def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
     for kernel 4) and a ragged N (100,003 for kernel 4); rows streamed at
     N 1000 at every width, resident at d 33, N 300.  Chains start near
     the posterior mode of wide_data; 2, 3 and 3b at WIDE_STEP_EPS, where
-    the plain versions both accept and reject; 3b with the diagonal fold's
+    the plain versions both accept and reject, 3 and 3b over k = 4
+    transitions (the host replays their draws: about 1 s for 8 at 4096
+    chains and d 150); 3b with the diagonal fold's
     (d,) row and the dense fold's (d, d) matrix; kernel 1 also on every
     link with weights and offsets at d 64.  The tolerances are the narrow
     kernels' (phase_kernels, phase_tile_kernels, _tiled_case).  Returns
@@ -4717,7 +4742,7 @@ def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
 
 
 def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
-                     steps=600, burnin=200, bign_steps=(80, 50),
+                     steps=600, burnin=200, bign_steps=(70, 50),
                      thin=200, n=1000, n_bign=100_000):
     """A logistic regression of d = 150 (wide_data) through the port's entry
     points, every launch counted from zero over one run and every run held
@@ -4737,10 +4762,10 @@ def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
       launches of 8), against the generic run; ``resume(chains, steps=120)``
       of the diagonal run (3b: 15 launches of 8);
     - N 100,000 from the posterior mode: ``HMC(10, WIDE_BIGN_EPS,
-      EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(80, 50)`` at 512
+      EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(70, 50)`` at 512
       chains, diagonal and dense (4, 4_mat; phase_large_n_paths'
-      SerialMC(200, 50) cut to 30 sampling transitions, for the script's
-      600 s), against plain ``HMC(10, WIDE_BIGN_EPS)`` on
+      SerialMC(200, 50) cut to 20 sampling transitions, for the script's
+      time), against plain ``HMC(10, WIDE_BIGN_EPS)`` on
       512 generic-engine chains from the same start.
 
     The generic reference runs are timed in full at 512 chains
@@ -4917,28 +4942,28 @@ def phase_wide_path_times(chains=4096, chains_bign=512, steps=60, burnin=20,
     return out
 
 
-def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
-                     i0=501):
-    """Per-call time of each wide kernel at d 150 (WIDE_D) and at the bound
-    (256), at the wide paths' shapes: kernels 1, 2, 3 (k_trans 8) and 3b
-    (and _mat; 8 transitions from i0 at WIDE_STEP_EPS and T 10 eps, so
-    about 10 leaps each) at N 1000 and 4096 chains, kernel 4 (and _mat) at
-    N 100,000 and 512 chains; with CUDA events (the wrapper's host work
+def _tier_times(tier, ds, at_d, N, Nb, C=4096, Cb=512, n_leaps=10, kt=8,
+                i0=501, reps=3):
+    """Per-call time of each kernel of ``tier`` ("wide" or "xwide": the
+    launch counters ``<name>_<tier>``, the kernels ``hmc_<tier>_kernel`` and
+    ``partial_<tier>_kernel``) at each d of ``ds``: kernels 1, 2, 3 (k_trans
+    ``kt``) and 3b (and _mat; ``kt`` transitions from i0 at WIDE_STEP_EPS
+    and T 10 eps, so about 10 leaps each) at N and C chains, kernel 4 (and
+    _mat) at Nb and Cb chains; with CUDA events (the wrapper's host work
     included), torch.profiler's device time, the plain version on the card,
     the bound (the repo's: 4 d N FP32 operations a chain-gradient, or the
     bytes) and the padding waste D / d.  Returns ({kernel: (ms, plain
-    ms)}, {kernel: bound}) at d 150."""
+    ms)}, {kernel: bound}) at d ``at_d``."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_bign as gb
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 
     ms, work = {}, {}
-    for d in (WIDE_D, gk.D_MAX):
+    for d in ds:
         D = -(-d // 32) * 32
-        f = _wide_folds(Ns[0], d, C, seed=d + 9)
+        f = _wide_folds(N, d, C, seed=d + 9)
         XT, Yc, th, _ = f["scalar"]
-        N = XT.shape[1]
         rng = np.random.default_rng(d)
         m0 = _cuda(rng.standard_normal((C, d)))
         logu = _cuda(np.log(rng.random(C)))
@@ -4949,19 +4974,19 @@ def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
         T, ml = 10 * eps, 20
         nls = sum(_np_leaps(i, eps, T, ml) for i in range(i0, i0 + kt))
         calls = {
-            "glm_leapfrogs_wide": (
+            f"glm_leapfrogs_{tier}": (
                 lambda: gk.glm_leapfrogs(XT, Yc, th, m0, g, eps,
                                          n_leaps=n_leaps),
                 lambda: gk.glm_leapfrogs_ref(XT, Yc, th, m0, g, eps,
                                              n_leaps=n_leaps),
                 (XT, Yc, th, m0, g), C * n_leaps),
-            "glm_step_wide": (
+            f"glm_step_{tier}": (
                 lambda: gk.glm_step(XT, Yc, th, g, lp, m0, logu[:, None],
                                     eps, n_leaps=n_leaps),
                 lambda: gk.glm_step_ref(XT, Yc, th, g, lp, m0,
                                         logu[:, None], eps, n_leaps=n_leaps),
                 (XT, Yc, th, g, lp, m0, logu), C * n_leaps),
-            "glm_multistep_wide": (
+            f"glm_multistep_{tier}": (
                 lambda: gk.glm_multistep(XT, Yc, th, eps, k_trans=kt,
                                          n_leaps=n_leaps, generator=gen()),
                 lambda: gk.glm_multistep_ref(XT, Yc, th, eps, k_trans=kt,
@@ -4969,8 +4994,8 @@ def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
                                              generator=gen()),
                 (XT, Yc, th), C * (1 + kt * n_leaps)),
         }
-        for prior, name in (("row", "glm_multistep_rows_wide"),
-                            ("matrix", "glm_multistep_rows_mat_wide")):
+        for prior, name in (("row", f"glm_multistep_rows_{tier}"),
+                            ("matrix", f"glm_multistep_rows_mat_{tier}")):
             XTf, _, thf, lam = f[prior]
             calls[name] = (
                 lambda XTf=XTf, thf=thf, lam=lam: gk.glm_multistep_rows(
@@ -4980,9 +5005,9 @@ def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
                     XTf, Yc, thf, eps, T, i0, ml, k_trans=kt,
                     generator=gen(), prior_prec=lam),
                 (XTf, Yc, thf, lam), C * (1 + nls))
-        fb = _wide_folds(Ns[1], d, Cb, seed=d + 11, spread=0.3)
-        for prior, name in (("scalar", "glm_logp_grad_tiled_wide"),
-                            ("matrix", "glm_logp_grad_tiled_mat_wide")):
+        fb = _wide_folds(Nb, d, Cb, seed=d + 11, spread=0.3)
+        for prior, name in (("scalar", f"glm_logp_grad_tiled_{tier}"),
+                            ("matrix", f"glm_logp_grad_tiled_mat_{tier}")):
             XTb, Yb, thb, lam = fb[prior]
             calls[name] = (
                 lambda XTb=XTb, Yb=Yb, thb=thb, lam=lam:
@@ -4991,25 +5016,37 @@ def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
                     gb.glm_logp_grad_tiled_ref(XTb, Yb, thb, prior_prec=lam),
                 (XTb, Yb, thb, lam), Cb)
         for name, (kern, plain, inputs, evals) in calls.items():
-            n_obs = Ns[1] if "tiled" in name else N
+            n_obs = Nb if "tiled" in name else N
             nbytes = _nbytes(inputs, kern())
             bound = _bound(evals, d, n_obs, nbytes)
-            t = (_event_ms(kern), _event_ms(plain, reps=2))
-            symbols = (("partial_wide_kernel", "reduce_kernel")
-                       if "tiled" in name else ("hmc_wide_kernel",))
-            emit({"phase": "wide_time", "name": name, "d": d, "D": D,
+            t = (_event_ms(kern, reps=reps), _event_ms(plain, reps=2))
+            symbols = ((f"partial_{tier}_kernel", "reduce_kernel")
+                       if "tiled" in name else (f"hmc_{tier}_kernel",))
+            emit({"phase": f"{tier}_time", "name": name, "d": d, "D": D,
                   "padding_waste": D / d, "N": n_obs,
                   "C": Cb if "tiled" in name else C, "evals": evals,
                   "ms": t[0], "plain_ms": t[1], **bound,
                   "share_of_bound": bound["bound_ms"] / t[0],
-                  "device_ms": _device_ms(kern, symbols, reps=3),
+                  "device_ms": _device_ms(kern, symbols, reps=reps),
                   "plan": (_plan(gb, "glm_tiled_plan", d) if "tiled" in name
                            else _plan(gk, "glm_leapfrogs_plan", d, n_obs)),
                   **CARD})
-            if d == WIDE_D:
+            if d == at_d:
                 ms[name], work[name] = t, bound
         del f, fb, calls
     return ms, work
+
+
+def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
+                     i0=501):
+    """_tier_times of the wide kernels at d 150 (WIDE_D) and at the wide
+    tile's bound (256), at the wide paths' shapes: 1-3b at N 1000 and
+    4096 chains, 4 at N 100,000 and 512 chains.  Returns ({kernel: (ms,
+    plain ms)}, {kernel: bound}) at d 150."""
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    return _tier_times("wide", (WIDE_D, gk.WIDE_D_MAX), WIDE_D, Ns[0], Ns[1],
+                       C, Cb, n_leaps, kt, i0)
 
 
 # ---- exact NUTS on the wide tile (kernels 8 and 9, 32 < d <= 256) ----------
@@ -5026,7 +5063,7 @@ WIDE_NUTS_EPS, WIDE_NUTS_DEEP_EPS = 0.1, 0.002
 # the wide NUTS paths: SerialMC(steps, burnin) for kernel 9 (the sampling
 # transitions split into launches of WIDE_NUTS_K) and steps - 3 for kernel
 # 8 (a prime count of sampling transitions: one launch a transition)
-WIDE_NUTS_RUN = (116, 40)
+WIDE_NUTS_RUN = (106, 30)
 
 
 def _wide_nuts_inputs(XT, Y, th, md, seed, **kw):
@@ -5087,7 +5124,7 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
                 kw = dict(maxdoublings=md, prior_prec=lam,
                           multinomial=multinomial)
                 check(label, args, noise, WIDE_NUTS_EPS, kw, seed=d + 22)
-        if d == gk.D_MAX:  # the deepest trees: md 10, the largest scratch
+        if d == gk.WIDE_D_MAX:  # the deepest trees: md 10, most scratch
             XT, Yc, th, _ = f["scalar"]
             args, noise = _wide_nuts_inputs(XT, Yc, th, 10, d + 23)
             check(f"wide tile, d {d}, C {Cd}, slice, md 10, eps "
@@ -5110,8 +5147,9 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
 def _wide_nuts_routes(n=1000):
     """The route of NUTS on wide_data at d 150 and 256 (the exact-NUTS
     kernels, "nuts", for a run and a continuation) and at d 257 (the
-    generic engine, with the reason naming the item that lifts the GLM
-    kernels' bound, for both).  Returns {d: (route, reason or None)}."""
+    generic engine, with the reason naming the item that lifts the NUTS
+    kernels' bound, exact NUTS on GLMs wider than 256 parameters, for
+    both).  Returns {d: (route, reason or None)}."""
     import logging
 
     import mcmc_jl_tpu_torch as mt
@@ -5135,7 +5173,8 @@ def _wide_nuts_routes(n=1000):
             route = pchains._route(MCMCTask(m, sampler, mt.SerialMC(
                 steps=WIDE_NUTS_RUN[0], burnin=WIDE_NUTS_RUN[1])), "auto")
             cont = pchains.continuation_route(m, sampler, 4, "auto")
-            why = [t for t in seen if "GLMs wider than 256 parameters" in t]
+            why = [t for t in seen
+                   if "exact NUTS on GLMs wider than 256 parameters" in t]
             assert route == cont == want, (d, route, cont, seen)
             assert bool(why) == (want is False) and len(why) in (0, 2), seen
             out[d] = (route or "generic engine", why[0] if why else None)
@@ -5160,7 +5199,8 @@ def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
     ``resume(chains, steps=120)`` of the unit-metric run (9) and
     ``resume(chains, steps=101)`` of the dense run (8 mat), with
     _resume_path's checks.  The warmups run on the generic engine (cut to
-    40 transitions, and the runs to (116, 40), for the script's time).  First the routes at d 150,
+    30 transitions, and the runs to (106, 30), for the script's time).
+    First the routes at d 150,
     256 and 257 (_wide_nuts_routes).  Returns the wide NUTS kernels'
     launches {name: (count, origin)}."""
     import mcmc_jl_tpu_torch as mt
@@ -5229,7 +5269,7 @@ def phase_wide_nuts_times(C=4096, N=1000, md=6, k_trans=5, ds=None):
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 
     ms, work = {}, {}
-    for d in (WIDE_D, gk.D_MAX) if ds is None else ds:
+    for d in (WIDE_D, gk.WIDE_D_MAX) if ds is None else ds:
         f = _wide_folds(N, d, C, seed=d + 31, spread=1.0)
         for prior in ("scalar", "matrix"):
             XT, Yc, th, lam = f[prior]
@@ -5241,7 +5281,7 @@ def phase_wide_nuts_times(C=4096, N=1000, md=6, k_trans=5, ds=None):
                 for name, t in lines.items():
                     ms[name] = (t["ms"], t["plain_ms"])
                     work[name] = {k: t[k] for k in ("bound_ms", "bound_by")}
-        if d == gk.D_MAX:
+        if d == gk.WIDE_D_MAX:
             XT, Yc, th, _ = f["scalar"]
             lp, g = _lp_grad(XT, Yc, th)
             _nuts_kernel_times(XT, Yc, th, lp, g, WIDE_NUTS_DEEP_EPS, 10, 1,
@@ -5285,6 +5325,289 @@ def phase_wide_nuts_path_times(chains=4096, steps=60, burnin=20, n=1000):
               "task": _origin(m, task, chains), "d": m.size, **row,
               **CARD})
     return out
+
+
+# ---- GLMs wider than 256 parameters: the very-wide tile's kernels, paths --
+
+# the very-wide paths' width (the kernels' bound D_MAX) and the widths the
+# kernel checks take: the wide tile's bound + 1, a middle width, the bound
+XWIDE_D = 1024
+XWIDE_CHECK_D = (257, 512, 1024)
+# the widths the very-wide kernels are timed at
+XWIDE_TIME_D = (512, 1024)
+# observations of the large-N path (above BIGN_THRESHOLD: kernel 4; X is
+# 82 MB at d 1024)
+XWIDE_N_BIGN = 20_000
+# HMC step of the very-wide paths at N 1000 (posterior sds about 0.9) and at
+# N 20,000 (about 0.4)
+XWIDE_EPS, XWIDE_BIGN_EPS = 0.1, 0.05
+# the very-wide kernels' launch counters
+XWIDE_KERNELS = tuple(n.replace("_wide", "_xwide") for n in WIDE_KERNELS)
+
+
+def phase_xwide_kernels(ragged=1027, N=1000, Cb=512, Nb=XWIDE_N_BIGN, k=4,
+                        i0=501):
+    """Kernels 1, 2, 3, 3b (and _mat) and 4 (and _mat) on the very-wide
+    tile against their plain versions at d 257, 512 and 1024
+    (XWIDE_CHECK_D), on a ragged chain count (1027; the host replays the
+    Philox draws of 3 and 3b, 1 s for 4 transitions of 1027 chains at d
+    1024, 4 s at 4096 chains, so they run k = 4 transitions, and
+    phase_xwide_times and phase_xwide_paths take the paths' 4096), kernel
+    4 at d 1024 at its path's shape (512 chains, N 20,000), elsewhere on
+    300 chains and a ragged N (20,003); every streamed tile count ragged
+    (R 64, 32 and 16 rows do not divide N).  Chains start near the
+    posterior mode of wide_data; 2, 3 and 3b at WIDE_STEP_EPS, where the
+    plain versions both accept and reject; 3b and 4 with the scalar
+    prior, the diagonal fold's (d,) row
+    and the dense fold's (d, d) matrix; kernel 1 also on every link with
+    weights and offsets at d 512.  The tolerances are the narrow and wide
+    kernels' (phase_kernels, phase_tile_kernels, _tiled_case).  Returns
+    the largest absolute error of each very-wide kernel."""
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    err = dict.fromkeys(XWIDE_KERNELS, 0.0)
+
+    def keep(name, e):
+        err[name] = max(err[name], e)
+
+    for d in XWIDE_CHECK_D:
+        f = _wide_folds(N, d, ragged, seed=d)
+        XT, Yc, th, _ = f["scalar"]
+        rng = np.random.default_rng(d + 1)
+        m0 = _cuda(rng.standard_normal((ragged, d)))
+        logu = _cuda(np.log(rng.random(ragged)))
+        label = f"very-wide tile, d {d}, N {N}, C {ragged}"
+        keep("glm_leapfrogs_xwide", _traj_check(label, XT, Yc, th, m0,
+                                                XWIDE_EPS, n_leaps=10))
+        keep("glm_step_xwide", _step_check(label, XT, Yc, th, m0, logu,
+                                           WIDE_STEP_EPS, mix=True,
+                                           n_leaps=10))
+        keep("glm_multistep_xwide", _multistep_check(
+            label, XT, Yc, th, WIDE_STEP_EPS, k=k, seed=d, mix=True,
+            n_leaps=10))
+        for prior, name in (("scalar", "glm_multistep_rows_xwide"),
+                            ("row", "glm_multistep_rows_xwide"),
+                            ("matrix", "glm_multistep_rows_mat_xwide")):
+            XTf, _, thf, lam = f[prior]
+            keep(name, _rows_check(f"{label}, {prior} prior", XTf, Yc, thf,
+                                   WIDE_STEP_EPS, 10 * WIDE_STEP_EPS, i0,
+                                   20, k, seed=d + 2, mix=True,
+                                   prior_prec=lam))
+        del f, XT, th, m0
+    # kernel 1: every link with weights and offsets at d 512, the design
+    # scaled as the wide phase's d 64 case (0.3 sqrt(7 / d))
+    for kind in gk.KIND_CODES:
+        XT, Yc, W, O, th, m = _glm_case(kind, N, 512, 300, seed=8,
+                                        scale=0.3 * np.sqrt(7 / 512))
+        keep("glm_leapfrogs_xwide", _traj_check(
+            f"very-wide tile, {kind}, weights+offsets, d 512", XT, Yc, th, m,
+            0.01, n_leaps=3, kind=kind, weights=W, offsets=O, prior_prec=1.5,
+            integrator="2stage"))
+    # kernel 4
+    for d in XWIDE_CHECK_D:
+        n4, c4 = (Nb, Cb) if d == XWIDE_D else (Nb + 3, 300)
+        f = _wide_folds(n4, d, c4, seed=d + 5, spread=0.3)
+        for prior, name in (("scalar", "glm_logp_grad_tiled_xwide"),
+                            ("row", "glm_logp_grad_tiled_xwide"),
+                            ("matrix", "glm_logp_grad_tiled_mat_xwide")):
+            XT, Yc, th, lam = f[prior]
+            keep(name, _tiled_case(f"very-wide tile, d {d}, {prior} prior, "
+                                   f"N {n4}, C {c4}", XT, Yc, th, lam=lam))
+        del f
+    return err
+
+
+def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
+                      generic_chains=512, steps=146, burnin=50,
+                      bign_steps=(50, 30), thin=73, n=1000,
+                      n_bign=XWIDE_N_BIGN):
+    """A logistic regression of d = 1024 (wide_data) through the port's
+    entry points, every launch counted from zero over one run (a run that
+    fell back to the generic engine would launch none) and every run held
+    within Z_MAX standard errors of per-chain means against the generic
+    engine (the route such a GLM took before the very-wide tile):
+
+    - N 1000 from the model's init: ``run(HMC(10, XWIDE_EPS) *
+      SerialMC(146, 50), chains=4096)`` (kernel 1, once a transition),
+      against the same task on 512 generic-engine chains;
+      ``run_glm_hmc(fused_step=True)`` (2) and
+      ``run_glm_hmc_multistep(thin=73)`` (3) from the same start for as
+      many transitions, against that run's final states; adaptive HMC
+      with a diagonal metric at 4096 chains and a dense one at 512,
+      ``HMC(10, XWIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) *
+      SerialMC(146, 50)`` (3b, 3b_mat: 96 sampling transitions as 12
+      launches of 8), against the generic run (the dense run's generic
+      warmup keeps a (d, d) factor and accumulator a chain: 4 GB each at
+      4096 chains, so it runs 512);
+    - N 20,000 from the posterior mode: ``HMC(10, XWIDE_BIGN_EPS,
+      EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(50, 30)`` at 512
+      chains, diagonal and dense (4, 4_mat), against plain ``HMC(10,
+      XWIDE_BIGN_EPS)`` on 512 generic-engine chains from the same start.
+
+    Returns the very-wide kernels' launches {name: (count, origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_hmc import (run_glm_hmc,
+                                              run_glm_hmc_multistep)
+
+    X, Y, _, _ = _wide_mode(n, XWIDE_D)
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    d = m.size
+    counts = {}
+    task = m * mt.HMC(10, XWIDE_EPS) * mt.SerialMC(steps=steps,
+                                                   burnin=burnin)
+    origin = _origin(m, task, chains)
+    cs, samples, launches, dt, spans = _path(
+        origin, task, chains, {"glm_leapfrogs_xwide": steps})
+    acc = float(np.mean([mt.acceptance(c) for c in cs[:512]])) / 100
+    final = samples[:, -1]
+    del cs
+    t0 = time.perf_counter()
+    cg = mt.run(task, chains=generic_chains, seed=1, fused=False)
+    gen_s = time.perf_counter() - t0
+    gmeans = np.stack([c.samples.values for c in cg]).mean(1)
+    del cg
+    z = _z_means(samples.mean(1), gmeans)
+    emit({"phase": "xwide_path", "kernel": "glm_leapfrogs_xwide",
+          "from": origin, "d": d, "chains": chains, "seconds": dt,
+          "spans_s": spans, "launches": launches["glm_leapfrogs_xwide"],
+          "accept_rate": acc, "generic": {"chains": generic_chains,
+                                          "seconds": gen_s},
+          "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+    counts["glm_leapfrogs_xwide"] = (launches["glm_leapfrogs_xwide"], origin)
+    del samples
+
+    inits = np.zeros_like(final)
+    for name, origin_d, want, fn in (
+            ("glm_step_xwide", "run_glm_hmc(fused_step=True)", steps,
+             lambda: run_glm_hmc(X, Y, chains, steps, n_leaps=10,
+                                 eps=XWIDE_EPS, seed=2, inits=inits,
+                                 device="cuda", fused_step=True)),
+            ("glm_multistep_xwide", f"run_glm_hmc_multistep(thin={thin})",
+             steps // thin,
+             lambda: run_glm_hmc_multistep(X, Y, chains, steps, thin=thin,
+                                           n_leaps=10, eps=XWIDE_EPS, seed=3,
+                                           inits=inits, device="cuda"))):
+        t0 = time.perf_counter()
+        (theta, _), launches = _counted(fn)
+        dt = time.perf_counter() - t0
+        assert launches == {**{k: 0 for k in launches}, name: want}, launches
+        th = theta.double().cpu().numpy()
+        assert th.shape == final.shape and np.all(np.isfinite(th))
+        z = _z_means(th, final)
+        origin_d = f"{origin_d} at d {d}, N {n}, {chains} chains"
+        emit({"phase": "xwide_driver", "kernel": name, "from": origin_d,
+              "transitions": steps, "seconds": dt,
+              "launches": launches[name], "z_max_vs_main_path": z,
+              "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin_d} disagrees with the main path"
+        counts[name] = (launches[name], origin_d)
+
+    for ma, name, C in (("diag", "glm_multistep_rows_xwide", chains),
+                        ("dense", "glm_multistep_rows_mat_xwide",
+                         chains_dense)):
+        sampler = mt.HMC(10, XWIDE_EPS, mt.EmpMCTuner(0.8, adapt_step=50),
+                         mass_adapt=ma)
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin)
+        origin = _origin(m, task, C)
+        cs, samples, launches, dt, spans = _path(
+            origin, task, C, {name: (steps - burnin) // 8})
+        st = cs[0].task.state
+        z = _z_means(samples.mean(1), gmeans)
+        emit({"phase": "xwide_path", "kernel": name, "from": origin, "d": d,
+              "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_step": st.tune.step_size.item(),
+              "frozen_n_leaps": st.tune.n_leaps.item(),
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs[:512]])) / 100,
+              "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+        counts[name] = (launches[name], origin)
+        del cs, samples
+
+    nb, bb = bign_steps
+    Xb, Yb, mode_b, _ = _wide_mode(n_bign, XWIDE_D)
+    mb = mt.model(glm=("logistic", Xb, Yb), init=mode_b, device="cuda")
+    ref_task = mb * mt.HMC(10, XWIDE_BIGN_EPS) * mt.SerialMC(steps=nb,
+                                                             burnin=bb)
+    t0 = time.perf_counter()
+    cg = mt.run(ref_task, chains=generic_chains, seed=1, fused=False)
+    gen_b = time.perf_counter() - t0
+    bmeans = np.stack([c.samples.values for c in cg]).mean(1)
+    del cg
+    for ma, name in (("diag", "glm_logp_grad_tiled_xwide"),
+                     ("dense", "glm_logp_grad_tiled_mat_xwide")):
+        task = mb * mt.HMC(10, XWIDE_BIGN_EPS,
+                           mt.EmpMCTuner(0.8, adapt_step=50),
+                           mass_adapt=ma) * mt.SerialMC(steps=nb, burnin=bb)
+        origin = _origin(mb, task, chains_bign)
+        cs, samples, launches, dt, spans = _path(
+            origin, task, chains_bign,
+            {name: lambda n: n >= nb - bb + 1})
+        st = cs[0].task.state
+        z = _z_means(samples.mean(1), bmeans)
+        emit({"phase": "xwide_path", "kernel": name, "from": origin, "d": d,
+              "chains": chains_bign, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_step": st.tune.step_size.item(),
+              "frozen_n_leaps": st.tune.n_leaps.item(),
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs])) / 100,
+              "generic_reference": {"task": _origin(mb, ref_task,
+                                                    generic_chains),
+                                    "seconds": gen_b},
+              "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+        counts[name] = (launches[name], origin)
+        del cs, samples
+    return counts
+
+
+def phase_xwide_times(C=4096, Cb=512, N=1000, Nb=XWIDE_N_BIGN, n_leaps=10,
+                      kt=8, i0=501, path_steps=(12, 4)):
+    """_tier_times of the very-wide kernels at d 512 and 1024
+    (XWIDE_TIME_D) at the very-wide paths' shapes: 1-3b at N 1000 and 4096
+    chains, 4 at N 20,000 and 512 chains (events and device ms over 2
+    launches).  Then the host seconds (to a synchronize) of plain HMC(10)
+    over SerialMC(12, 4) at 4096 chains and N 1000 (kernel 1) at both
+    widths, and of adaptive HMC diag over the same runner at N 20,000 and
+    512 chains (kernel 4) at d 1024, through the kernels and through the
+    generic engine at the same chains.  Returns ({kernel: (ms, plain
+    ms)}, {kernel: bound}) at d 1024."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    ms, work = _tier_times("xwide", XWIDE_TIME_D, XWIDE_D, N, Nb, C, Cb,
+                           n_leaps, kt, i0, reps=2)
+    steps, burnin = path_steps
+    runner = mt.SerialMC(steps=steps, burnin=burnin)
+    runs = []
+    for d in XWIDE_TIME_D:
+        X, Y, _, _ = _wide_mode(N, d)
+        runs.append((f"HMC(10), d {d}, N {N}, kernel 1",
+                     mt.model(glm=("logistic", X, Y), device="cuda"),
+                     mt.HMC(10, XWIDE_EPS), C))
+    Xb, Yb, mode_b, _ = _wide_mode(Nb, XWIDE_D)
+    runs.append((f"adaptive HMC diag, d {XWIDE_D}, N {Nb}, kernel 4",
+                 mt.model(glm=("logistic", Xb, Yb), init=mode_b,
+                          device="cuda"),
+                 mt.HMC(10, XWIDE_BIGN_EPS, mt.EmpMCTuner(0.8, adapt_step=50),
+                        mass_adapt="diag"), Cb))
+    for label, model, sampler, chains in runs:
+        task = model * sampler * runner
+        row = {}
+        for key, fused in (("fused_s", "auto"), ("generic_s", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mt.run(task, chains=chains, seed=0, fused=fused)
+            torch.cuda.synchronize()
+            row[key] = time.perf_counter() - t0
+        emit({"phase": "xwide_path_time", "path": label,
+              "task": _origin(model, task, chains), "d": model.size, **row,
+              **CARD})
+    return ms, work
 
 
 # ---- the dense metric on catalog targets: kernels 5 and 8b in z-space -----
@@ -5631,6 +5954,7 @@ def main():
     errors.update(step("target_nuts_kernels", phase_target_nuts_kernels))
     errors.update(step("wide_kernels", phase_wide_kernels))
     errors.update(step("wide_nuts_kernels", phase_wide_nuts_kernels))
+    errors.update(step("xwide_kernels", phase_xwide_kernels))
     errors.update(step("dense_target_kernels", phase_dense_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
@@ -5668,6 +5992,7 @@ def main():
     launches.update(wide_launches)
     launches.update(step("wide_nuts_paths", phase_wide_nuts_paths, gmeans))
     del gmeans
+    launches.update(step("xwide_paths", phase_xwide_paths))
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
@@ -5688,7 +6013,7 @@ def main():
     # NUTS(warm_handoff=True): its sampling phase on kernels 3b, 5 and 4,
     # and two resumes on 3b
     step("warm_handoff", phase_warm_handoff, hmc_means)
-    # examples_torch/warmstart_logistic.py at 4096 chains and its
+    # examples_torch/warmstart_logistic.py at 2048 chains and its
     # continuation through throughput_report; a traced kernel-1 call
     step("examples", phase_examples)
     missing = [k for k in REPLACES if launches.get(k, (0,))[0] == 0]
@@ -5706,7 +6031,8 @@ def main():
                       dense_t_folds, ds=()),
                  step("wide_times", phase_wide_times),
                  step("wide_nuts_times", phase_wide_nuts_times,
-                      ds=(WIDE_D,))):
+                      ds=(WIDE_D,)),
+                 step("xwide_times", phase_xwide_times)):
         ms.update(more[0])
         work.update(more[1])
     # the wide paths' generic-against-fused seconds (phase_wide_path_times,
@@ -6765,17 +7091,18 @@ def _load_example(name):
     return mod
 
 
-def phase_examples(chains=4096, cont_steps=1000):
+def phase_examples(chains=2048, cont_steps=1000):
     """``examples_torch/warmstart_logistic.py``'s ``main`` on the card at
-    4096 chains (its SerialMC(2000, 500): adaptive HMC with a diagonal
+    2048 chains (its host ESS report is a Geyer call a chain; its
+    SerialMC(2000, 500): adaptive HMC with a diagonal
     metric, 250 launches of 6 of kernel 3b), held to the generating
     coefficients as tests/test_examples.py does, then ``resume(chains,
     steps=1000)`` of all of them (kernel 3b, 125 launches of 8);
     ``utils.profiling.throughput_report`` of each: leapfrog/s, steps/s and
-    min-ESS/s over the 4096 chains (the run's leapfrogs at its frozen
+    min-ESS/s over the 2048 chains (the run's leapfrogs at its frozen
     count; the continuation's at the mean Halton count of its transitions).
     Then one kernel-1 main-path call, ``run(HMC(10, 0.05) * SerialMC(20),
-    chains=4096)``, under ``utils.profiling.trace``: the Chrome trace it
+    chains=2048)``, under ``utils.profiling.trace``: the Chrome trace it
     writes must name the kernel's symbol, ``leapfrogs_tile_kernel``.
     Returns {kernel: launches} of the example's run."""
     import mcmc_jl_tpu_torch as mt
@@ -6991,6 +7318,7 @@ TIME_GROUPS = {
     "wide_nuts_paths": (("glm_nuts",), ("phase_wide_nuts_path_times",)),
     "dense_target": (("target_hmc", "target_nuts"),
                      ("phase_dense_target_times",)),
+    "xwide": (("glm_hmc", "glm_bign"), ("phase_xwide_times",)),
 }
 
 

@@ -51,7 +51,8 @@
 // Above d = 32 partial_wide_kernel runs the same sums on the wide tile of
 // glm_tile.cuh.  At d 150, N 100,000, 512 chains: 3.1e10 FLOP, 0.46 ms at
 // the FP32 peak; X (60 MB) is read by the 32 chain tiles of a split while
-// they run together, so mostly once from memory (0.018 ms).
+// they run together, so mostly once from memory (0.018 ms).  Above d = 256
+// partial_xwide_kernel runs them on the very-wide tile, up to d = 1024.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -175,6 +176,54 @@ partial_wide_kernel(Glm p, int C, int rows_per_split,
   if (lane == 0) out[p.d] = sum_ll(w.pll, ct, kTrajWarps);
 }
 
+// Above kWideMax: the very-wide tile of glm_tile.cuh on one tile of 16
+// chains and one contiguous range of observations a CTA (the wide kernel's
+// grid), streamed in tiles of the very-wide plan's R rows (16 at d 1024):
+// stage 1 split over k, the link, stage 2 over all 16 warps' n-blocks
+// (xwide_rows).  Each G element has one owner lane, which adds its float
+// sums of kXFlushRows rows into the chain's double partial in place (the
+// CTA's own rows of part: no atomics, the same bits on every launch).  At
+// d 1024, N 20,000, 512 chains: 4.2e10 operations, 0.63 ms at the FP32
+// peak; X (82 MB) is read by the 32 chain tiles of a split while they run
+// together, once from memory (0.025 ms) and 32 times from L2.
+__global__ void __launch_bounds__(kTrajThreads, 1)
+partial_xwide_kernel(Glm p, int C, int rows_per_split,
+                     const float* __restrict__ th_in,
+                     double* __restrict__ part) {
+  const XWide x = xwide_at(p);
+  xwide_init(p, x);
+  const int ct = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, NB = x.D / 8;
+  const int c0 = blockIdx.x * kTileChains;
+  const int n0 = blockIdx.y * rows_per_split;
+  const int n1 = min(p.N, n0 + rows_per_split);
+  // a warp past C shadows chain C - 1
+  xw_load(x.sth + ct * (x.D + 4), x.D, th_in, min(c0 + ct, C - 1), p.d);
+  float ga[kXUnits][4];
+  double ll[2] = {0.0, 0.0};
+  for (int f0 = n0; f0 < n1; f0 += kXFlushRows) {
+    xwide_zero(ga);
+    xwide_rows<true>(p, x, f0, min(n1, f0 + kXFlushRows), ga, ll);
+#pragma unroll
+    for (int i = 0; i < kXUnits; ++i) {
+      const int nb = ct + kTrajWarps * i;
+      if (nb >= NB) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + g + 8 * (e >> 1), j = 8 * nb + 2 * q + (e & 1);
+        if (c >= C || j >= p.d) continue;
+        double* out = part + ((size_t)blockIdx.y * C + c) * (p.d + 1) + j;
+        *out = (f0 == n0 ? 0.0 : *out) + (double)ga[i][e];
+      }
+    }
+  }
+  put_ll(x.pll, ll);
+  __syncthreads();
+  if (c0 + ct < C && lane == 0)
+    part[((size_t)blockIdx.y * C + c0 + ct) * (p.d + 1) + p.d] =
+        sum_ll(x.pll, ct, kTrajWarps);
+}
+
 // Sum each chain's partials over the splits in split order, then apply the
 // prior as the HMC kernels do: g = acc - pg, lp = ll - 1/2 sum pg theta with
 // pg = lam theta, or (theta A)_j = sum_k theta_k A[k, j] with the matrix.
@@ -218,18 +267,29 @@ reduce_kernel(int C, int d, int splits, float lam,
 
 extern "C" {
 
-int bign_max_dim() { return kWideMax; }
+int bign_max_dim() { return kXWideMax; }
 
 const char* bign_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// How partial_tile_kernel (d <= 32) or partial_wide_kernel runs at d:
-// blocks resident per SM (from the occupancy calculator) and dynamic shared
-// memory per block.  Returns a CUDA error code.
+// How partial_tile_kernel (d <= 32), partial_wide_kernel or
+// partial_xwide_kernel (d > kWideMax) runs at d: blocks resident per SM
+// (from the occupancy calculator) and dynamic shared memory per block.
+// Returns a CUDA error code.
 int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
-  const int D = tile_bound_for(d);
+  const int D = hmc_bound_for(d);
   if (!D) return (int)cudaErrorInvalidValue;
+  if (D > kWideMax) {
+    const TrajPlan tp = xwide_plan(D);
+    if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
+    *smem = (int)tp.smem;
+    cudaError_t e = prepare(partial_xwide_kernel, tp.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, partial_xwide_kernel, kTrajThreads, tp.smem);
+    return (int)e;
+  }
   if (D > kNarrowMax) {
     const TrajPlan tp = wide_plan(D, 0, false);
     if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
@@ -258,20 +318,30 @@ int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
 // part: (splits, C, d + 1) doubles of scratch.  Every split must hold at
 // least one observation: ceil(N / ceil(N / splits)) == splits.  The grid
 // takes chains 128 a CTA for d <= 32, 16 above (ops/glm_bign.py
-// splits_for).
+// splits_for).  The prior's reduce_kernel takes every d (its matrix term
+// d^2 a chain, A's rows read coalesced).
 int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
                         const float* o, const float* lamv, const float* lamm,
                         int N, int d, int C, const float* th_in, float* g_out,
                         float* lp_out, double* part, int splits, float lam,
                         int kind, void* stream) {
-  const int D = tile_bound_for(d);
+  const int D = hmc_bound_for(d);
   if (!D || C < 1 || N < 1 || kind < 0 || kind > 3 || splits < 1 ||
       splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int rows = (N + splits - 1) / splits;
   if ((N + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D > kNarrowMax) {
+  if (D > kWideMax) {
+    const TrajPlan tp = xwide_plan(D);
+    if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
+    const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows, false};
+    const dim3 grid((C + kTileChains - 1) / kTileChains, splits);
+    cudaError_t e = prepare(partial_xwide_kernel, tp.smem);
+    if (e != cudaSuccess) return (int)e;
+    partial_xwide_kernel<<<grid, kTrajThreads, tp.smem, st>>>(p, C, rows,
+                                                              th_in, part);
+  } else if (D > kNarrowMax) {
     const TrajPlan tp = wide_plan(D, N, false);
     if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
     const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows, false};

@@ -71,6 +71,13 @@
 // N = 1000 one gradient of a chain is 4 d N = 6e5 operations, the rows
 // (600 KB) stream through shared memory from L2 at every gradient, and
 // theta's fragments are read from shared memory for every row group.
+// Above kWideMax, up to kXWideMax = 1024, they run on the very-wide tile
+// (hmc_xwide): the chain state in a slot of the caller's scratch in device
+// memory, stage 1 split over k, stage 2 over all 16 warps' n-blocks.  At d
+// = 1024, N = 1000 one gradient of a chain is 4.1e6 operations and the
+// rows (4 MB) stream from L2 in tiles of 16 at every gradient: 16 chains
+// a pass over X, 16 operations a byte of L2, so the L2's bandwidth and the
+// tensor cores bound it about alike.
 //
 // In every kernel the log-likelihood sum is carried in double, so lp keeps
 // full float precision after a 1000-term sum.
@@ -140,6 +147,8 @@ struct HmcArgs {
   int i0, max_leaps;
   float *r_th, *r_g, *r_lp, *r_acc, *r_alpha;
   int* r_nl;
+  // the very-wide tile: the blocks' slots (xwide_slot_bytes each)
+  float* scratch;
 };
 
 // The tile's shared memory (traj_plan's layout) and this thread's place in
@@ -550,6 +559,174 @@ hmc_wide_kernel(Glm p, Sched s, HmcArgs a) {
   hmc_wide<MODE>(p, s, a);
 }
 
+// ---- the four kernels on the very-wide tile (kWideMax < d <= kXWideMax) ---
+// The same transitions on glm_tile.cuh's very-wide layout: warp c holds
+// chain c of the tile, its theta, g and m and the proposal's g as rows of
+// the block's slot in device memory (a.scratch), the proposal's theta as
+// its row of sth in shared memory; lanes stride over the coordinates.  The
+// Metropolis decision is made from values that are the same bits in all
+// the chain's lanes (lp from xwide_grad, |m|^2 from xw_sq, log u from the
+// chain's own draw).
+
+// The slot arrays: (kXArrays, 16, D) floats of block b.
+enum XArray { kXTh = 0, kXG = 1, kXM = 2, kXGp = 3 };
+
+__device__ __forceinline__ float* xslot(const HmcArgs& a, const XWide& x,
+                                        int k) {
+  return a.scratch +
+         ((size_t)blockIdx.x * kXArrays + k) * kTileChains * x.D;
+}
+
+// tile_trajectory on the very-wide tile: theta in the warp's sth row, m in
+// its slot row, g in its row of the slot array gp (where each drift's
+// xwide_grad writes the gradient of all 16 chains).
+__device__ __forceinline__ float xw_trajectory(const Glm& p, const XWide& x,
+                                               const Sched& s, float eps,
+                                               int n_leaps, float* m,
+                                               float* gp) {
+  const int c = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* th = x.sth + c * (x.D + 4);
+  const float* g = gp + c * x.D;
+  float lp = 0.f;
+  for (int l = 0; l < n_leaps; ++l) {
+    const bool final = l == n_leaps - 1;
+    for (int k = 0; k < s.n; ++k) {
+      const float ce = s.c[k] * eps;
+      if (s.op[k] == 0) {
+        for (int j = lane; j < x.D; j += 32) m[j] = m[j] + ce * g[j];
+      } else {
+        for (int j = lane; j < x.D; j += 32) th[j] = th[j] + ce * m[j];
+        lp = xwide_grad(p, gp, final && k == s.last_a);
+      }
+    }
+  }
+  return lp;
+}
+
+// tile_transition on the very-wide tile: the proposal starts from the
+// chain's slot rows th and g (copied to its sth row and its gp row) and,
+// when accepted, is copied back.
+__device__ __forceinline__ bool xw_transition(const Glm& p, const XWide& x,
+                                              const Sched& s, float eps,
+                                              int n_leaps, float* th,
+                                              float* g, float& lp, float* m,
+                                              float* gp, float logu,
+                                              float& ratio) {
+  const int c = threadIdx.x >> 5;
+  float* sth = x.sth + c * (x.D + 4);
+  const float h0 = -lp + 0.5f * xw_sq(m, x.D);
+  xw_copy(sth, th, x.D);
+  xw_copy(gp + c * x.D, g, x.D);
+  const float lpp = xw_trajectory(p, x, s, eps, n_leaps, m, gp);
+  ratio = mh_ratio(h0, -lpp + 0.5f * xw_sq(m, x.D));
+  const bool acc = mh_accept(ratio, logu);
+  if (acc) {
+    xw_copy(th, sth, x.D);
+    xw_copy(g, gp + c * x.D, x.D);
+    lp = lpp;
+  }
+  return acc;
+}
+
+// hmc_tiles on the very-wide tile: the blocks are persistent (as many as
+// the scratch holds slots for) and walk the tiles blockIdx.x + k
+// gridDim.x; a ragged last tile's warps past C shadow chain C - 1 in their
+// own slot rows and write nothing.
+template <int MODE>
+__device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
+                                          const HmcArgs& a) {
+  const XWide x = xwide_at(p);
+  xwide_init(p, x);
+  const int ct = threadIdx.x >> 5, lane = threadIdx.x & 31, D = x.D;
+  float* th = xslot(a, x, kXTh) + ct * D;
+  float* gb = xslot(a, x, kXG);
+  float* g = gb + ct * D;
+  float* m = xslot(a, x, kXM) + ct * D;
+  float* gp = xslot(a, x, kXGp);
+  float* sth = x.sth + ct * (D + 4);
+  for (int c0 = blockIdx.x * kTileChains; c0 < a.C;
+       c0 += gridDim.x * kTileChains) {
+    const int c = c0 + ct, cs = min(c, a.C - 1);
+    const bool out = c < a.C, head = out && lane == 0;
+    float lp = 0.f;
+    if constexpr (MODE == kTraj) {
+      xw_load(sth, D, a.th_in, cs, p.d);
+      xw_load(m, D, a.m_in, cs, p.d);
+      xw_load(gp + ct * D, D, a.g_in, cs, p.d);
+      lp = xw_trajectory(p, x, s, a.eps, a.n_leaps, m, gp);
+      if (out) {
+        xw_store(a.th_out, c, p.d, sth);
+        xw_store(a.m_out, c, p.d, m);
+        xw_store(a.g_out, c, p.d, gp + ct * D);
+      }
+      if (head) a.lp_out[c] = lp;
+    } else if constexpr (MODE == kStep) {
+      xw_load(th, D, a.th_in, cs, p.d);
+      xw_load(g, D, a.g_in, cs, p.d);
+      xw_load(m, D, a.m_in, cs, p.d);
+      lp = a.lp_in[cs];
+      float ratio;
+      const bool acc = xw_transition(p, x, s, a.eps, a.n_leaps, th, g, lp,
+                                     m, gp, a.logu_in[cs], ratio);
+      if (out) {
+        xw_store(a.th_out, c, p.d, th);
+        xw_store(a.g_out, c, p.d, g);
+      }
+      if (head) {
+        a.lp_out[c] = lp;
+        a.acc_out[c] = acc ? 1.f : 0.f;
+      }
+    } else {
+      xw_load(th, D, a.th_in, cs, p.d);
+      xw_copy(sth, th, D);
+      lp = xwide_grad(p, gb, true);  // lp and g at the start
+      float n_acc = 0.f;
+      for (int t = 0; t < a.k_trans; ++t) {
+        // draws by the launch's transition (3) or the absolute one (3b),
+        // which also sets the shared Halton leap count
+        const int ti = MODE == kRows ? a.i0 + t : t;
+        const int nl = MODE == kRows
+                           ? halton_leaps((uint32_t)ti, a.T, a.eps,
+                                          a.max_leaps)
+                           : a.n_leaps;
+        for (int j = lane; j < D; j += 32)
+          m[j] = j < p.d ? momentum(a.key, cs, ti, j) : 0.f;
+        float ratio;
+        const bool acc = xw_transition(p, x, s, a.eps, nl, th, g, lp, m, gp,
+                                       log_uniform(a.key, cs, ti), ratio);
+        if (acc) n_acc += 1.f;
+        if constexpr (MODE == kRows) {  // the rows after the test
+          const size_t rt = (size_t)t * a.C;
+          if (out) {
+            xw_store(a.r_th, rt + c, p.d, th);
+            xw_store(a.r_g, rt + c, p.d, g);
+          }
+          if (head) {
+            a.r_lp[rt + c] = lp;
+            a.r_acc[rt + c] = acc ? 1.f : 0.f;
+            a.r_alpha[rt + c] = expf(fminf(ratio, 0.f));
+            a.r_nl[rt + c] = nl;
+          }
+        }
+      }
+      if (out) {
+        xw_store(a.th_out, c, p.d, th);
+        xw_store(a.g_out, c, p.d, g);
+      }
+      if (head) {
+        a.lp_out[c] = lp;
+        if constexpr (MODE == kMulti) a.acc_out[c] = n_acc / (float)a.k_trans;
+      }
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+hmc_xwide_kernel(Glm p, Sched s, HmcArgs a) {
+  hmc_xwide<MODE>(p, s, a);
+}
+
 // ---- host side -------------------------------------------------------------
 
 bool make_sched(const int* ops, const float* cs, int n, Sched* s) {
@@ -575,13 +752,19 @@ HmcKernel hmc_kernel(int mode) {
 }
 
 // The kernel of `mode` at bound D: the narrow tile's instantiation for D
-// <= 32, the wide tile's above (D a run-time value there).
+// <= 32, the wide tile's up to kWideMax and the very-wide tile's above (D a
+// run-time value on both).
 HmcKernel hmc_kernel_for(int mode, int D) {
   switch (D) {
     case 8: return hmc_kernel<8>(mode);
     case 16: return hmc_kernel<16>(mode);
     case 32: return hmc_kernel<32>(mode);
     default:
+      if (D > kWideMax)
+        return mode == kTraj    ? hmc_xwide_kernel<kTraj>
+               : mode == kStep  ? hmc_xwide_kernel<kStep>
+               : mode == kMulti ? hmc_xwide_kernel<kMulti>
+                                : hmc_xwide_kernel<kRows>;
       return mode == kTraj    ? hmc_wide_kernel<kTraj>
              : mode == kStep  ? hmc_wide_kernel<kStep>
              : mode == kMulti ? hmc_wide_kernel<kMulti>
@@ -590,9 +773,12 @@ HmcKernel hmc_kernel_for(int mode, int D) {
 }
 
 // The shared-memory plan at (D, N): traj_plan's for the narrow tile,
-// wide_plan's for the wide one.
+// wide_plan's for the wide one, xwide_plan's (rows always streamed) for the
+// very-wide one.
 TrajPlan hmc_plan(int D, int N) {
-  return D <= kNarrowMax ? traj_plan(D, N) : wide_plan(D, N);
+  return D <= kNarrowMax ? traj_plan(D, N)
+         : D <= kWideMax ? wide_plan(D, N)
+                         : xwide_plan(D);
 }
 
 // How the tile kernel of `mode` runs at (d, N): blocks resident per SM
@@ -600,7 +786,7 @@ TrajPlan hmc_plan(int D, int N) {
 // whether all rows stay resident.  Returns a CUDA error code.
 int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
              int* resident) {
-  const int D = tile_bound_for(d);
+  const int D = hmc_bound_for(d);
   if (!D || N < 1) return (int)cudaErrorInvalidValue;
   const TrajPlan tp = hmc_plan(D, N);
   if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
@@ -616,14 +802,17 @@ int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
 
 // Launch the tile kernel of `mode` on persistent blocks, as many as fit at
 // once: the resident rows are staged once per block, not once per tile.
+// On the very-wide tile also no more blocks than the scratch of
+// scratch_bytes holds slots for (xwide_slot_bytes each; at least one).
 // lamv, lamm: the (d,) prior row or the (d, d) prior matrix of kernel 3b,
 // or null (the scalar lam).
 int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                const float* o, const float* lamv, const float* lamm, int N,
                int d, int kind,
                float lam, const int* sched_ops, const float* sched_c,
-               int n_ops, const HmcArgs& a, void* stream) {
-  const int D = tile_bound_for(d);
+               int n_ops, const HmcArgs& a, long long scratch_bytes,
+               void* stream) {
+  const int D = hmc_bound_for(d);
   Sched s;
   if (!D || a.C < 1 || N < 1 || a.k_trans < 1 || kind < 0 || kind > 3 ||
       !make_sched(sched_ops, sched_c, n_ops, &s))
@@ -647,8 +836,14 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                                                       kTrajThreads, tp.smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (a.C + kTileChains - 1) / kTileChains;
-  kernel<<<min(tiles, sms * max(per_sm, 1)), kTrajThreads, tp.smem,
-           (cudaStream_t)stream>>>(p, s, a);
+  int blocks = min(tiles, sms * max(per_sm, 1));
+  if (D > kWideMax) {
+    const long long slots =
+        a.scratch ? scratch_bytes / (long long)xwide_slot_bytes(D) : 0;
+    if (slots < 1) return (int)cudaErrorInvalidValue;
+    if (slots < blocks) blocks = (int)slots;
+  }
+  kernel<<<blocks, kTrajThreads, tp.smem, (cudaStream_t)stream>>>(p, s, a);
   return (int)cudaGetLastError();
 }
 
@@ -656,7 +851,14 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
 
 extern "C" {
 
-int glm_max_dim() { return kWideMax; }
+int glm_max_dim() { return kXWideMax; }
+
+// Bytes of one block's slot of the very-wide tile at d (0 at d <= kWideMax,
+// where no scratch is read): the scratch of a launch holds one a block.
+long long glm_slot_bytes(int d) {
+  const int D = hmc_bound_for(d);
+  return D > kWideMax ? (long long)xwide_slot_bytes(D) : 0;
+}
 
 const char* glm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -667,8 +869,10 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
                   const float* m_in, const float* g_in, float* th_out,
                   float* m_out, float* g_out, float* lp_out, float eps,
                   float lam, int n_leaps, int kind, const int* sched_ops,
-                  const float* sched_c, int n_ops, void* stream) {
+                  const float* sched_c, int n_ops, float* scratch,
+                  long long scratch_bytes, void* stream) {
   HmcArgs a{};
+  a.scratch = scratch;
   a.C = C;
   a.n_leaps = n_leaps;
   a.k_trans = 1;
@@ -681,7 +885,7 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
   a.g_out = g_out;
   a.lp_out = lp_out;
   return launch_hmc(kTraj, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
-                    sched_ops, sched_c, n_ops, a, stream);
+                    sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 
 // The occupancy plans of kernels 1, 2, 3 and 3b at (d, N) (plan_hmc).
@@ -711,8 +915,9 @@ int glm_step(const float* xt, const float* y, const float* w, const float* o,
              float* th_out, float* g_out, float* lp_out, float* acc_out,
              float eps, float lam, int n_leaps, int kind,
              const int* sched_ops, const float* sched_c, int n_ops,
-             void* stream) {
+             float* scratch, long long scratch_bytes, void* stream) {
   HmcArgs a{};
+  a.scratch = scratch;
   a.C = C;
   a.n_leaps = n_leaps;
   a.k_trans = 1;
@@ -727,7 +932,7 @@ int glm_step(const float* xt, const float* y, const float* w, const float* o,
   a.lp_out = lp_out;
   a.acc_out = acc_out;
   return launch_hmc(kStep, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
-                    sched_ops, sched_c, n_ops, a, stream);
+                    sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 
 int glm_multistep(const float* xt, const float* y, const float* w,
@@ -735,8 +940,10 @@ int glm_multistep(const float* xt, const float* y, const float* w,
                   float* th_out, float* g_out, float* lp_out, float* acc_out,
                   float eps, float lam, int n_leaps, int k_trans, int kind,
                   unsigned long long seed, const int* sched_ops,
-                  const float* sched_c, int n_ops, void* stream) {
+                  const float* sched_c, int n_ops, float* scratch,
+                  long long scratch_bytes, void* stream) {
   HmcArgs a{};
+  a.scratch = scratch;
   a.C = C;
   a.n_leaps = n_leaps;
   a.k_trans = k_trans;
@@ -748,7 +955,7 @@ int glm_multistep(const float* xt, const float* y, const float* w,
   a.lp_out = lp_out;
   a.acc_out = acc_out;
   return launch_hmc(kMulti, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
-                    sched_ops, sched_c, n_ops, a, stream);
+                    sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 
 int glm_multistep_rows(const float* xt, const float* y, const float* w,
@@ -759,8 +966,10 @@ int glm_multistep_rows(const float* xt, const float* y, const float* w,
                        float* r_acc, float* r_alpha, int* r_nl, float eps,
                        float T, float lam, int i0, int max_leaps, int k_trans,
                        int kind, unsigned long long seed, const int* sched_ops,
-                       const float* sched_c, int n_ops, void* stream) {
+                       const float* sched_c, int n_ops, float* scratch,
+                       long long scratch_bytes, void* stream) {
   HmcArgs a{};
+  a.scratch = scratch;
   a.C = C;
   a.k_trans = k_trans;
   a.eps = eps;
@@ -779,7 +988,7 @@ int glm_multistep_rows(const float* xt, const float* y, const float* w,
   a.r_alpha = r_alpha;
   a.r_nl = r_nl;
   return launch_hmc(kRows, xt, y, w, o, lamv, lamm, N, d, kind, lam,
-                    sched_ops, sched_c, n_ops, a, stream);
+                    sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 
 }  // extern "C"

@@ -41,13 +41,16 @@
 // in tiles: cp.async copies the next tile (4 bytes a thread, any N and any
 // alignment) into one of two raw buffers while the current tile, already
 // split, is computed.  Everything here is inlined into the kernels (no
-// lambdas, no calls): a routine left out of line would take the staged
-// rows through generic pointers and the fragments through local memory.
+// lambdas, no calls, but for the very-wide tile's xwide_grad): a routine
+// left out of line would take the staged rows through generic pointers
+// and the fragments through local memory.
 //
 // That layout holds for d <= 32 (the narrow tile, D = 8, 16 or 32, a
-// template parameter).  Above 32 the wide tile at the end of this file
-// takes d up to kWideMax with D, d padded to a multiple of 32, a run-time
-// value: one instantiation serves every width.
+// template parameter).  Above 32 the wide tile takes d up to kWideMax with
+// D, d padded to a multiple of 32, a run-time value: one instantiation
+// serves every width.  Above kWideMax the very-wide tile at the end of this
+// file takes the HMC and N-tiled kernels up to kXWideMax, the chain state
+// in device memory.
 #pragma once
 
 #include "glm_common.cuh"
@@ -60,6 +63,7 @@ constexpr int kTileSmemCap = 220 * 1024;
 
 constexpr int kNarrowMax = 32;   // the narrow tile: D = 8, 16, 32
 constexpr int kWideMax = 256;    // the wide tile: D = 64, 96, ..., 256
+constexpr int kXWideMax = 1024;  // the very-wide tile: D = 288, ..., 1024
 
 // Parameter bound of the tile kernels: d padded to 8, 16 or 32 (the narrow
 // tile), above 32 to a multiple of 32 up to kWideMax (the wide tile); 0
@@ -726,12 +730,13 @@ __device__ __forceinline__ float* wide_buffer(const Wide& w, int b) {
   return w.buf + (size_t)b * w.R * wide_row_floats(w.D);
 }
 
-// Start copying rows [n0, n0 + nt) into buffer dst: warp w takes the
-// column blocks w, w + 16, ... of 4 columns, 8 rows a copy.
-__device__ __forceinline__ void wide_issue(const Glm& p, const Wide& w,
+// Start copying rows [n0, n0 + nt) into buffer dst of R rows at width D
+// (the wide and the very-wide tile's layout): warp w takes the column
+// blocks w, w + 16, ... of 4 columns, 8 rows a copy.
+__device__ __forceinline__ void wide_issue(const Glm& p, int D, int R,
                                            float* dst, int n0, int nt) {
-  const int XS = w.D + 4, lane = threadIdx.x & 31;
-  float* yb = dst + w.R * XS;
+  const int XS = D + 4, lane = threadIdx.x & 31;
+  float* yb = dst + R * XS;
   for (int j = 4 * (threadIdx.x >> 5) + (lane >> 3); j < (p.d + 3) / 4 * 4;
        j += 4 * (blockDim.x >> 5)) {
     if (j >= p.d) continue;
@@ -740,9 +745,14 @@ __device__ __forceinline__ void wide_issue(const Glm& p, const Wide& w,
   }
   for (int i = threadIdx.x; i < nt; i += blockDim.x) {
     cp_async4(yb + i, p.y + n0 + i);
-    if (p.w) cp_async4(yb + w.R + i, p.w + n0 + i);
-    if (p.o) cp_async4(yb + 2 * w.R + i, p.o + n0 + i);
+    if (p.w) cp_async4(yb + R + i, p.w + n0 + i);
+    if (p.o) cp_async4(yb + 2 * R + i, p.o + n0 + i);
   }
+}
+
+__device__ __forceinline__ void wide_issue(const Glm& p, const Wide& w,
+                                           float* dst, int n0, int nt) {
+  wide_issue(p, w.D, w.R, dst, n0, nt);
 }
 
 // Zero the buffers (w = 1 without weights), then, resident, stage all rows.
@@ -1071,6 +1081,435 @@ __device__ __forceinline__ void wide_prior_grad(const Glm& p, const Wide& w,
         if (lane + 32 * i < p.d) pg[i] = fmaf(tk, __ldg(ak + 32 * i), pg[i]);
     }
   }
+}
+
+// ---- the very-wide tile: kWideMax < d <= kXWideMax --------------------------
+// Replaces the same Pallas bodies as the wide tile (pallas_glm.py _kernel,
+// _step_kernel, _multistep_kernel; pallas_glm_bign.py _grad_kernel), which
+// bound d only by their 100 MiB of VMEM.  Above 256 parameters the wide
+// tile breaks in four places: the chain state in registers (theta, m, g
+// and the proposal's theta and g, D / 32 registers each: 160 a lane at D
+// 1024), theta's split A fragments in shared memory (128 KB at D 1024),
+// stage 2's n-blocks (D / 8 = 128 over 16 warps, more than kWideUnits) and
+// the rows (4.1 KB each at D 1024, two streamed buffers beside the rest).
+// The very-wide tile keeps the block (16 warps, a tile of 16 chains,
+// persistent blocks) and changes all four:
+//
+// - Chain state in device memory: the HMC kernels keep a chain's theta, g,
+//   m and the proposal's g in a slot of kXArrays x 16 x D floats a block
+//   (the wrapper's scratch), the proposal's theta (the theta of the
+//   gradient in flight) in shared memory as plain float32 rows of stride
+//   D + 4 (sth: 64 KB at D 1024).  Warp c owns chain c's rows and its lanes
+//   stride over the coordinates, so every access is coalesced; the kicks,
+//   drifts, the kinetic energy and the MH copies loop over D in passes of
+//   32.  At 132 blocks and D 1024 the slots take 34 MB, which L2 holds.
+// - Stage 1, Z = Theta X^T + o, split over k: a streamed tile of R rows
+//   has R / 8 row groups and the 16 warps take (row group, k-slice) units,
+//   KS = 128 / R k-slices of the D / 8 k-blocks; theta's and x's fragments
+//   are split into TF32 hi and lo where they are loaded.  Each warp leaves
+//   its partial Z (16 x 8) in zbuf; after a barrier warp rg sums its row
+//   group's KS partials onto o in slice order, applies the link and writes
+//   R to rbuf, its ll into its double registers.
+// - Stage 2, G += R X: warp w takes the n-blocks w + 16 i (i < kXUnits: 8
+//   at D 1024) over all the tile's row groups, one float32 accumulator a
+//   unit (the three 3xTF32 products into one sum: 32 registers where two
+//   would take 64).  No row splits, so each G element has one owner: no
+//   partial sums in shared memory, no atomics, the same bits on every
+//   launch.  At the end of a gradient the owners apply the prior in their
+//   fragment layout (with a (d, d) matrix A one more block product on the
+//   tensor cores, Theta A, A's fragments read from device memory: d^2 a
+//   chain and gradient) and write g = G - prior to the slot.
+// - Rows: the wide tile's buffers (plain float32, stride D + 4, split where
+//   loaded), always streamed: the largest R in {128, 64, 32, 16, 8} whose
+//   two buffers fit beside sth (R 64 at D 288, 32 at D 512, 16 at D 1024).
+//   The next tile's cp.async copy starts right after the barrier that
+//   lands the current one and overlaps its whole computation.
+//
+// Each tile costs three barriers (copy landed, Z partials written, R
+// written).  The N-tiled kernel (glm_bign.cu partial_xwide_kernel) runs the
+// same pass over its split of N for the theta of 16 chains and adds the
+// float sums into its double partials every kXFlushRows rows.
+constexpr int kXUnits = kXWideMax / 8 / kTrajWarps;  // stage-2 n-blocks a warp
+constexpr int kXArrays = 4;       // theta, g, m, g': a chain's slot rows
+constexpr int kXFlushRows = 256;  // N-tiled kernel: rows between flushes
+
+// Parameter bound of the HMC and N-tiled kernels: tile_bound_for's up to
+// kWideMax, above it d padded to a multiple of 32 up to kXWideMax; 0 where
+// no tile takes d.  (The NUTS kernels keep tile_bound_for.)
+int hmc_bound_for(int d) {
+  return d > kWideMax && d <= kXWideMax ? (d + 31) & ~31 : tile_bound_for(d);
+}
+
+// Bytes of the HMC kernels' device-memory slot of one block at width D.
+size_t xwide_slot_bytes(int D) {
+  return sizeof(float) * (size_t)kXArrays * kTileChains * D;
+}
+
+// Shared memory of a very-wide-tile kernel, in this order: the warps' ll
+// partials (kTrajWarps x 16 doubles), sth (16 x (D + 4)), zbuf (16 units x
+// 128 floats), rbuf (16 x RS), two buffers of R rows.
+size_t xwide_smem(int D, int R) {
+  return sizeof(double) * kTrajWarps * kTileChains +
+         sizeof(float) * ((size_t)kTileChains * (D + 4) +
+                          (size_t)kTrajWarps * 128 +
+                          (size_t)kTileChains * wide_rstride(R) +
+                          (size_t)2 * R * wide_row_floats(D));
+}
+
+// The plan at D: the largest streamed tile R in {128, ..., 8} that fits
+// (R / 8 row groups times 128 / R k-slices make the 16 warps' units).
+TrajPlan xwide_plan(int D) {
+  for (int R = 128; R >= 8; R >>= 1)
+    if (xwide_smem(D, R) <= (size_t)kTileSmemCap)
+      return {R, false, xwide_smem(D, R)};
+  return {0, false, 0};
+}
+
+// The block's view of that shared memory.
+struct XWide {
+  int D, R, KS, RS;  // width, rows a buffer, stage-1 k-slices, rbuf stride
+  double* pll;       // (kTrajWarps, 16)
+  float* sth;        // (16, D + 4): theta of the gradient in flight
+  float* zbuf;       // (16 units, 32 lanes, 4): stage 1's partial Z; at the
+                     // end of a gradient the warps' prior quad partials
+  float* rbuf;       // (16, RS): R of the tile in flight
+  float* buf;        // two buffers of R rows
+};
+
+__device__ __forceinline__ XWide xwide_at(const Glm& p) {
+  extern __shared__ double tile_sm[];
+  XWide x;
+  x.D = (p.d + 31) & ~31;
+  x.R = p.tile;
+  x.KS = 128 / p.tile;
+  x.RS = wide_rstride(p.tile);
+  x.pll = tile_sm;
+  x.sth = reinterpret_cast<float*>(x.pll + kTrajWarps * kTileChains);
+  x.zbuf = x.sth + kTileChains * (x.D + 4);
+  x.rbuf = x.zbuf + kTrajWarps * 128;
+  x.buf = x.rbuf + kTileChains * x.RS;
+  return x;
+}
+
+__device__ __forceinline__ float* xwide_buffer(const XWide& x, int b) {
+  return x.buf + (size_t)b * x.R * wide_row_floats(x.D);
+}
+
+// Zero both buffers (w = 1 without weights): columns past d stay exact
+// zeros, rows past a ragged tile's end finite.  Every thread calls it,
+// once a launch; ends on a barrier.
+__device__ __forceinline__ void xwide_init(const Glm& p, const XWide& x) {
+  const int per = x.R * wide_row_floats(x.D), wat = x.R * (x.D + 5);
+  for (int e = threadIdx.x; e < 2 * per; e += blockDim.x) {
+    const int k = e % per;
+    x.buf[e] = (!p.w && k >= wat && k < wat + x.R) ? 1.f : 0.f;
+  }
+  __syncthreads();
+}
+
+// One k-block of the partial Z: theta's A fragment from the sth rows of
+// chains g (t0) and g + 8 (t8) and x's B fragment from row r0 + g (xr),
+// columns 8 kb + q and + 4 (q already in the pointers), split where loaded.
+__device__ __forceinline__ void xwide_kblock(const float* t0, const float* t8,
+                                             const float* xr, int kb,
+                                             float (&zb)[4], float (&zs)[4]) {
+  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+  split_tf32(t0[8 * kb], ah[0], al[0]);
+  split_tf32(t8[8 * kb], ah[1], al[1]);
+  split_tf32(t0[8 * kb + 4], ah[2], al[2]);
+  split_tf32(t8[8 * kb + 4], ah[3], al[3]);
+  split_tf32(xr[8 * kb], bh0, bl0);
+  split_tf32(xr[8 * kb + 4], bh1, bl1);
+  mma_tf32(zs, al, bh0, bh1);
+  mma_tf32(zs, ah, bl0, bl1);
+  mma_tf32(zb, ah, bh0, bh1);
+}
+
+// Stage 1 of a tile of nt rows in buffer xb: warp w's unit is row group
+// w / KS and the k-blocks w % KS, + KS, ...; its partial Z (lane 4g + q:
+// chains g, g + 8 at rows 2q, 2q + 1, as row_group's accumulator) goes to
+// zbuf unit w.  Row groups past nt are skipped.  Both loads of a k-block
+// hit 32 distinct banks (4 g + q for stride D + 4).
+__device__ __forceinline__ void xwide_stage1(const XWide& x, const float* xb,
+                                             int nt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = 8 * (warp / x.KS), NKB = x.D / 8;
+  if (r0 >= nt) return;
+  const int TS = x.D + 4;
+  const float* t0 = x.sth + g * TS + q;
+  const float* t8 = t0 + 8 * TS;
+  const float* xr = xb + (r0 + g) * TS + q;
+  float zb[4] = {0.f, 0.f, 0.f, 0.f}, zs[4] = {0.f, 0.f, 0.f, 0.f};
+  float zb1[4] = {0.f, 0.f, 0.f, 0.f}, zs1[4] = {0.f, 0.f, 0.f, 0.f};
+  int kb = warp % x.KS;
+  // two k-blocks a step into two accumulator pairs: their mma chains overlap
+  for (; kb + x.KS < NKB; kb += 2 * x.KS) {
+    xwide_kblock(t0, t8, xr, kb, zb, zs);
+    xwide_kblock(t0, t8, xr, kb + x.KS, zb1, zs1);
+  }
+  if (kb < NKB) xwide_kblock(t0, t8, xr, kb, zb, zs);
+  reinterpret_cast<float4*>(x.zbuf)[warp * 32 + lane] =
+      make_float4((zb[0] + zb1[0]) + (zs[0] + zs1[0]),
+                  (zb[1] + zb1[1]) + (zs[1] + zs1[1]),
+                  (zb[2] + zb1[2]) + (zs[2] + zs1[2]),
+                  (zb[3] + zb1[3]) + (zs[3] + zs1[3]));
+}
+
+// The link of a tile (after stage 1's barrier): warp rg < R / 8 takes row
+// group rg, Z = o + its KS partials in slice order, R into rbuf (as
+// wide_z) and with LL the w ll terms into ll.
+template <int KIND, bool LL>
+__device__ __forceinline__ void xwide_link_k(const XWide& x, const float* xb,
+                                             int nt, double (&ll)[2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, r0 = 8 * warp;
+  if (warp >= x.R / 8 || r0 >= nt) return;
+  const float* yb = xb + x.R * (x.D + 4);
+  const float2 o2 = *reinterpret_cast<const float2*>(yb + 2 * x.R + r0 + 2 * q);
+  float z[4] = {o2.x, o2.y, o2.x, o2.y};
+  const float4* zp = reinterpret_cast<const float4*>(x.zbuf) +
+                     warp * x.KS * 32 + lane;
+  for (int ks = 0; ks < x.KS; ++ks) {
+    const float4 v = zp[32 * ks];
+    z[0] += v.x;
+    z[1] += v.y;
+    z[2] += v.z;
+    z[3] += v.w;
+  }
+  float r[4];
+  if (r0 + 8 <= nt)
+    group_link<KIND, LL, true>(z, yb, yb + x.R, nt, r0, r, ll);
+  else  // the ragged last group: rows past nt masked
+    group_link<KIND, LL, false>(z, yb, yb + x.R, nt, r0, r, ll);
+  float* rp = x.rbuf + g * x.RS + r0 + 2 * q;
+  *reinterpret_cast<float2*>(rp) = make_float2(r[0], r[1]);
+  *reinterpret_cast<float2*>(rp + 8 * x.RS) = make_float2(r[2], r[3]);
+}
+
+template <bool LL>
+__device__ __forceinline__ void xwide_link(int kind, const XWide& x,
+                                           const float* xb, int nt,
+                                           double (&ll)[2]) {
+  switch (kind) {
+    case kLogistic: xwide_link_k<kLogistic, LL>(x, xb, nt, ll); break;
+    case kLinear: xwide_link_k<kLinear, LL>(x, xb, nt, ll); break;
+    case kPoisson: xwide_link_k<kPoisson, LL>(x, xb, nt, ll); break;
+    default: xwide_link_k<kProbit, LL>(x, xb, nt, ll); break;
+  }
+}
+
+// Stage 2 of a tile (after the link's barrier): G += R X for the warp's
+// n-blocks w + 16 i over all the tile's row groups, with the A fragment
+// and the row order of wide_stage2; ga[i] holds G(g, 8 nb + 2q (+1)),
+// G(g + 8, 8 nb + 2q (+1)).
+__device__ __forceinline__ void xwide_stage2(const XWide& x, const float* xb,
+                                             int nt,
+                                             float (&ga)[kXUnits][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int NB = x.D / 8, XS = x.D + 4, groups = (nt + 7) >> 3;
+  for (int rg = 0; rg < groups; ++rg) {
+    const int r0 = 8 * rg;
+    const float2 a = *reinterpret_cast<const float2*>(x.rbuf + g * x.RS + r0 +
+                                                      2 * q);
+    const float2 b = *reinterpret_cast<const float2*>(
+        x.rbuf + (g + 8) * x.RS + r0 + 2 * q);
+    uint32_t rh[4], rl[4];
+    split_tf32(a.x, rh[0], rl[0]);
+    split_tf32(b.x, rh[1], rl[1]);
+    split_tf32(a.y, rh[2], rl[2]);
+    split_tf32(b.y, rh[3], rl[3]);
+    const float* x0 = xb + (r0 + 2 * q) * XS + g;
+#pragma unroll
+    for (int i = 0; i < kXUnits; ++i) {
+      const int nb = warp + kTrajWarps * i;
+      if (nb < NB) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(x0[8 * nb], bh0, bl0);
+        split_tf32(x0[XS + 8 * nb], bh1, bl1);
+        mma_tf32(ga[i], rl, bh0, bh1);
+        mma_tf32(ga[i], rh, bl0, bl1);
+        mma_tf32(ga[i], rh, bh0, bh1);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void xwide_zero(float (&ga)[kXUnits][4]) {
+#pragma unroll
+  for (int i = 0; i < kXUnits; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ga[i][e] = 0.f;
+}
+
+// One pass over rows [n0, n1) for the block's 16 chains at the theta in sth
+// (written before the call): G += R X into ga and, with LL, the w ll terms
+// into ll.  Every thread calls it; starts on a barrier (sth written, every
+// warp done with both buffers), and leaves zbuf and rbuf free once every
+// warp is past stage 2 of the last tile.
+template <bool LL>
+__device__ __forceinline__ void xwide_rows(const Glm& p, const XWide& x,
+                                           int n0, int n1,
+                                           float (&ga)[kXUnits][4],
+                                           double (&ll)[2]) {
+  __syncthreads();
+  wide_issue(p, x.D, x.R, x.buf, n0, min(x.R, n1 - n0));
+  cp_async_commit();
+  for (int t0 = n0, b = 0; t0 < n1; t0 += x.R, b ^= 1) {
+    const int nt = min(x.R, n1 - t0), t1 = t0 + x.R;
+    const float* xb = xwide_buffer(x, b);
+    cp_async_wait<0>();
+    __syncthreads();  // this tile landed; every warp done with the last one
+    if (t1 < n1) {    // the next tile copies while this one is computed
+      wide_issue(p, x.D, x.R, xwide_buffer(x, b ^ 1), t1, min(x.R, n1 - t1));
+      cp_async_commit();
+    }
+    xwide_stage1(x, xb, nt);
+    __syncthreads();  // the partial Z written
+    xwide_link<LL>(p.kind, x, xb, nt, ll);
+    __syncthreads();  // R written
+    xwide_stage2(x, xb, nt, ga);
+  }
+}
+
+// The prior's gradient term of the warp's units in ga's layout (0 past d):
+// lam theta with lam the (d,) row's or the scalar, theta from sth; with a
+// (d, d) matrix A, PG = Theta A as one more block product on the tensor
+// cores, K = d in k-blocks of 8 with the k order of stage 2 (k = q <-> row
+// 8 kb + 2q, k = q + 4 <-> row 8 kb + 2q + 1), Theta's A fragment from sth
+// and A's B fragment A[8 kb + 2q (+1), 8 nb + g] through the read-only
+// path from device memory (4 MB at d 1024, read once a block and
+// gradient).
+__device__ __forceinline__ void xwide_prior(const Glm& p, const XWide& x,
+                                            float (&pa)[kXUnits][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int NB = x.D / 8, TS = x.D + 4;
+  const float* t0 = x.sth + g * TS;
+  const float* t8 = t0 + 8 * TS;
+  xwide_zero(pa);
+  if (!p.lamm) {
+#pragma unroll
+    for (int i = 0; i < kXUnits; ++i) {
+      const int j = 8 * (warp + kTrajWarps * i) + 2 * q;
+      if (warp + kTrajWarps * i < NB) {
+        const float l0 = j < p.d ? (p.lamv ? __ldg(p.lamv + j) : p.lam) : 0.f;
+        const float l1 =
+            j + 1 < p.d ? (p.lamv ? __ldg(p.lamv + j + 1) : p.lam) : 0.f;
+        pa[i][0] = l0 * t0[j];
+        pa[i][1] = l1 * t0[j + 1];
+        pa[i][2] = l0 * t8[j];
+        pa[i][3] = l1 * t8[j + 1];
+      }
+    }
+    return;
+  }
+  for (int kb = 0; 8 * kb < p.d; ++kb) {
+    const int k0 = 8 * kb + 2 * q, k1 = k0 + 1;
+    uint32_t ah[4], al[4];
+    split_tf32(t0[k0], ah[0], al[0]);
+    split_tf32(t8[k0], ah[1], al[1]);
+    split_tf32(t0[k1], ah[2], al[2]);
+    split_tf32(t8[k1], ah[3], al[3]);
+    const float* a0 = p.lamm + (size_t)k0 * p.d;
+#pragma unroll
+    for (int i = 0; i < kXUnits; ++i) {
+      const int nb = warp + kTrajWarps * i, col = 8 * nb + g;
+      if (nb < NB) {
+        const bool cin = col < p.d;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(cin && k0 < p.d ? __ldg(a0 + col) : 0.f, bh0, bl0);
+        split_tf32(cin && k1 < p.d ? __ldg(a0 + p.d + col) : 0.f, bh1, bl1);
+        mma_tf32(pa[i], al, bh0, bh1);
+        mma_tf32(pa[i], ah, bl0, bl1);
+        mma_tf32(pa[i], ah, bh0, bh1);
+      }
+    }
+  }
+}
+
+// One gradient of the block's 16 chains at the theta in sth: g = G - prior
+// term into the (16, D) slot array gdst (0 past d) and, with want_ll, lp,
+// the same bits in all the chain's lanes (the warps' ll partials in warp
+// order; the prior term 1/2 theta . pg from the owners' partials, summed
+// over each quad, then over the warps in order).  Every thread calls it;
+// ends on a barrier, after which warp c reads its row of gdst.  The one
+// routine of this file left out of line: the HMC kernels call it from six
+// places, which inlined took nvcc about 100 s more; it takes the model by
+// value and finds the block's shared memory itself (xwide_at), so its
+// loads stay shared-memory loads.
+__device__ __noinline__ float xwide_grad(const Glm p, float* gdst,
+                                         bool want_ll) {
+  const XWide x = xwide_at(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int NB = x.D / 8, TS = x.D + 4;
+  float ga[kXUnits][4];
+  xwide_zero(ga);
+  double ll[2] = {0.0, 0.0};
+  if (want_ll)
+    xwide_rows<true>(p, x, 0, p.N, ga, ll);
+  else
+    xwide_rows<false>(p, x, 0, p.N, ga, ll);
+  float pa[kXUnits][4];
+  xwide_prior(p, x, pa);
+  const float* t0 = x.sth + g * TS;
+  const float* t8 = t0 + 8 * TS;
+  float qa = 0.f, qb = 0.f;
+#pragma unroll
+  for (int i = 0; i < kXUnits; ++i) {
+    const int nb = warp + kTrajWarps * i, j = 8 * nb + 2 * q;
+    if (nb < NB) {
+      *reinterpret_cast<float2*>(gdst + g * x.D + j) =
+          make_float2(ga[i][0] - pa[i][0], ga[i][1] - pa[i][1]);
+      *reinterpret_cast<float2*>(gdst + (g + 8) * x.D + j) =
+          make_float2(ga[i][2] - pa[i][2], ga[i][3] - pa[i][3]);
+      qa = fmaf(t0[j + 1], pa[i][1], fmaf(t0[j], pa[i][0], qa));
+      qb = fmaf(t8[j + 1], pa[i][3], fmaf(t8[j], pa[i][2], qb));
+    }
+  }
+  if (want_ll) {
+    put_ll(x.pll, ll);
+    const float sa = (float)quad_sum(qa), sb = (float)quad_sum(qb);
+    if (q == 0) {  // zbuf is free: every warp is past the last link
+      x.zbuf[warp * kTileChains + g] = sa;
+      x.zbuf[warp * kTileChains + g + 8] = sb;
+    }
+  }
+  __syncthreads();
+  if (!want_ll) return 0.f;
+  float quad = 0.f;
+  for (int w = 0; w < kTrajWarps; ++w) quad += x.zbuf[w * kTileChains + warp];
+  return (float)(sum_ll(x.pll, warp, kTrajWarps) - 0.5 * (double)quad);
+}
+
+// Row `row` of a (rows, d) array into a chain's row dst of width D (0 past
+// d), and back; the warp's lanes stride over the coordinates.
+__device__ __forceinline__ void xw_load(float* dst, int D, const float* src,
+                                        size_t row, int d) {
+  for (int j = threadIdx.x & 31; j < D; j += 32)
+    dst[j] = j < d ? src[row * d + j] : 0.f;
+}
+
+__device__ __forceinline__ void xw_store(float* dst, size_t row, int d,
+                                         const float* src) {
+  for (int j = threadIdx.x & 31; j < d; j += 32) dst[row * d + j] = src[j];
+}
+
+__device__ __forceinline__ void xw_copy(float* dst, const float* src, int D) {
+  for (int j = threadIdx.x & 31; j < D; j += 32) dst[j] = src[j];
+}
+
+// |v|^2 of a chain's row: the lane's coordinates in order, then the
+// full-warp butterfly, so every lane gets the same bits.  Every lane of the
+// warp must call it.
+__device__ __forceinline__ float xw_sq(const float* v, int D) {
+  float s = 0.f;
+  for (int j = threadIdx.x & 31; j < D; j += 32) s = fmaf(v[j], v[j], s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
 }  // namespace

@@ -35,6 +35,20 @@ def count(counts, name):
         counts[name] += 1
 
 
+def scratch_buffer(cache, key, nbytes, device):
+    """(buffer, bytes) of a kernel's scratch in device memory: one float32
+    buffer for each ``key`` of ``cache``, allocated once and grown when a
+    launch needs more than it holds (the kernels check the size they are
+    given)."""
+    import torch
+
+    buf = cache.get(key)
+    if buf is None or 4 * buf.numel() < nbytes:
+        buf = cache[key] = torch.empty(-(-nbytes // 4), dtype=torch.float32,
+                                       device=device)
+    return buf, 4 * buf.numel()
+
+
 def find_nvcc():
     """The ``nvcc`` on PATH, else the one under PyTorch's CUDA_HOME."""
     nvcc = shutil.which("nvcc")

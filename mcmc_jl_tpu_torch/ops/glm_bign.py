@@ -23,7 +23,9 @@ JAX package nothing pads N (a padded row would need weight 0: the logistic
 ``resid(0, 0)`` is -0.5, not 0) and nothing pads d.  It takes d up to
 ``glm_kernels.D_MAX``: 128 chains a CTA on the narrow chain tile (d <= 32),
 16 a CTA on the wide tile above, whose launches count as
-``glm_logp_grad_tiled_wide`` (``_mat_wide`` with a matrix prior).
+``glm_logp_grad_tiled_wide`` (``_mat_wide`` with a matrix prior), and 16 a
+CTA on the very-wide tile above ``glm_kernels.WIDE_D_MAX``
+(``glm_logp_grad_tiled_xwide``, ``_mat_xwide``).
 """
 from __future__ import annotations
 
@@ -41,16 +43,19 @@ from .cuda_build import count
 BIGN_THRESHOLD = 16384
 
 #: launches with a (d, d) prior (the dense fold) count as "..._mat", and
-#: launches on the wide tile (d > 32) with "_wide" appended
+#: launches on the wide tile (32 < d <= 256) with "_wide" appended, on the
+#: very-wide tile (d > 256) with "_xwide"
 LAUNCHES = {"glm_logp_grad_tiled": 0, "glm_logp_grad_tiled_mat": 0,
-            "glm_logp_grad_tiled_wide": 0, "glm_logp_grad_tiled_mat_wide": 0}
+            "glm_logp_grad_tiled_wide": 0, "glm_logp_grad_tiled_mat_wide": 0,
+            "glm_logp_grad_tiled_xwide": 0,
+            "glm_logp_grad_tiled_mat_xwide": 0}
 PLAIN_CALLS = {"glm_logp_grad_tiled": 0}
 
 #: the kernel's grid aims at up to this many CTAs, two full waves of the two
 #: 256-thread blocks each of the 132 SMs holds (never a third wave of a few
 #: blocks, which costs nearly a wave), splitting N into ranges of at least
-#: SPLIT_MIN_ROWS observations; on the wide tile (d > 32) two waves of the
-#: one 512-thread block an SM holds
+#: SPLIT_MIN_ROWS observations; on the wide and very-wide tiles (d > 32)
+#: two waves of the one 512-thread block an SM holds
 SPLIT_CTAS = 528
 SPLIT_CTAS_WIDE = 264
 SPLIT_MIN_ROWS = 1024

@@ -35,11 +35,13 @@ dense-metric fold ``lam L' L``: prior gradient ``-theta A``, prior term
 the plain versions also take a custom ``(ll, resid)`` pair.
 
 The kernels take d up to :data:`D_MAX`: up to :data:`NARROW_D_MAX` on the
-narrow chain tile (one thread a coordinate), above it on the wide tile (one
-warp a chain, the columns of the gradient split over the warps;
-csrc/glm_tile.cuh).  A launch on the wide tile counts under
-``<name>_wide`` (``<name>_mat_wide`` with a matrix), so a run shows which
-tile it went through.
+narrow chain tile (one thread a coordinate), up to :data:`WIDE_D_MAX` on the
+wide tile (one warp a chain, the columns of the gradient split over the
+warps), above it on the very-wide tile (the chain state in device memory,
+in a scratch buffer :func:`_slots` allocates; csrc/glm_tile.cuh).  A
+launch on the wide tile counts under ``<name>_wide`` (``<name>_mat_wide``
+with a matrix), one on the very-wide tile under ``<name>_xwide``
+(``<name>_mat_xwide``), so a run shows which tile it went through.
 """
 from __future__ import annotations
 
@@ -53,15 +55,19 @@ import torch
 from ..samplers.chees import halton2
 from ..samplers.integrators import SCHEDULES
 from . import philox
-from .cuda_build import count
+from .cuda_build import count, scratch_buffer
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
-#: kernel (4) take (csrc/glm_tile.cuh kWideMax: the wide tile's bound)
-D_MAX = 256
+#: kernel (4) take (csrc/glm_tile.cuh kXWideMax: the very-wide tile's bound)
+D_MAX = 1024
 #: largest parameter count of the narrow chain tile (csrc/glm_tile.cuh
-#: kNarrowMax), which is also the exact-NUTS kernels' bound
+#: kNarrowMax)
 NARROW_D_MAX = 32
+#: largest parameter count of the wide chain tile (csrc/glm_tile.cuh
+#: kWideMax), which is also the exact-NUTS kernels' bound
+#: (nuts_kernels.NUTS_D_MAX); above it the very-wide tile
+WIDE_D_MAX = 256
 #: Philox draw number of the MH (or slice) uniform of one (chain,
 #: transition) of the multistep kernels (csrc/glm_tile.cuh kSliceDraw); the
 #: momenta take draws 0 .. d/2 - 1
@@ -69,10 +75,12 @@ SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
 #: launches of the Halton multistep kernel with a (d, d) prior, and launches
-#: on the wide tile (d > NARROW_D_MAX), counted apart
+#: on the wide tile (d > NARROW_D_MAX) and the very-wide tile (d >
+#: WIDE_D_MAX), counted apart
 LAUNCHES = dict.fromkeys(
     _NAMES + ("glm_multistep_rows_mat",)
-    + tuple(n + "_wide" for n in _NAMES + ("glm_multistep_rows_mat",)), 0)
+    + tuple(n + t for t in ("_wide", "_xwide")
+            for n in _NAMES + ("glm_multistep_rows_mat",)), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -322,10 +330,12 @@ def glm_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
     ulps of the kernel's values."""
     c = np.arange(C, dtype=np.uint32)[None, :, None]
     t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
-    j = np.arange(d, dtype=np.uint32)
-    b = philox.philox4x32((c, t, j // 2, 0), seed)
-    m0 = np.where(j % 2 == 0, philox.box_muller(b[0], b[1]),
-                  philox.box_muller(b[2], b[3]))
+    b = philox.philox4x32(
+        (c, t, np.arange((d + 1) // 2, dtype=np.uint32), 0), seed)
+    # one draw a pair of coordinates: 2 jh from words 0, 1, 2 jh + 1 from 2, 3
+    m0 = np.stack([philox.box_muller(b[0], b[1]),
+                   philox.box_muller(b[2], b[3])], axis=-1).reshape(
+        k_trans, C, -1)[..., :d]
     logu = philox.log1m_u01(philox.philox4x32(
         (c[..., 0], t[..., 0], SLICE_DRAW, 0), seed)[0])
     return tuple(torch.from_numpy(a).to(device) for a in (m0, logu))
@@ -388,17 +398,20 @@ def glm_multistep_rows_ref(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I]
+_LL = ctypes.c_longlong
+# the schedule, then the very-wide tile's scratch (pointer, bytes) and the
+# stream
+_SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I,
+          _P, _LL, _P]
 _ARGTYPES = {
     "glm_leapfrogs": [_P] * 4 + [_I] * 3 + [_P] * 7 + [_F, _F, _I, _I]
-    + _SCHED + [_P],
-    "glm_step": [_P] * 4 + [_I] * 3 + [_P] * 9 + [_F, _F, _I, _I]
-    + _SCHED + [_P],
+    + _SCHED,
+    "glm_step": [_P] * 4 + [_I] * 3 + [_P] * 9 + [_F, _F, _I, _I] + _SCHED,
     "glm_multistep": [_P] * 4 + [_I] * 3 + [_P] * 5 + [_F, _F, _I, _I, _I,
                                                        ctypes.c_ulonglong]
-    + _SCHED + [_P],
+    + _SCHED,
     "glm_multistep_rows": [_P] * 6 + [_I] * 3 + [_P] * 10 + [_F] * 3
-    + [_I] * 4 + [ctypes.c_ulonglong] + _SCHED + [_P],
+    + [_I] * 4 + [ctypes.c_ulonglong] + _SCHED,
 }
 
 
@@ -415,10 +428,32 @@ def load_kernels():
         lib.glm_error_string.argtypes = [ctypes.c_int]
         lib.glm_error_string.restype = ctypes.c_char_p
         lib.glm_max_dim.restype = ctypes.c_int
+        lib.glm_slot_bytes.argtypes = [ctypes.c_int]
+        lib.glm_slot_bytes.restype = _LL
         if lib.glm_max_dim() != D_MAX:
             raise RuntimeError("csrc/glm_hmc.cu and glm_kernels.D_MAX disagree")
         lib._bound = True
     return lib
+
+
+_SLOTS = {}
+
+
+def _slots(dev, d, C):
+    """(buffer, bytes) of the very-wide tile's chain state for C chains of d
+    parameters on ``dev``'s current stream: one slot of theta, g, m and the
+    proposal's g (4 x 16 x D float32, csrc/glm_tile.cuh xwide_slot_bytes)
+    for each block a launch runs at once, at most one an SM (the tile's
+    plan takes more than half an SM's shared memory).  One buffer for each
+    (device, stream, D), allocated once and grown when a launch needs more;
+    the kernel runs no more blocks than it holds slots for.  (None, 0) at d
+    <= WIDE_D_MAX, where the chain state stays in registers."""
+    if d <= WIDE_D_MAX:
+        return None, 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    need = load_kernels().glm_slot_bytes(d) * min(-(-C // 16), sms)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, (d + 31) // 32)
+    return scratch_buffer(_SLOTS, key, need, dev)
 
 
 @functools.cache
@@ -486,14 +521,19 @@ def _seed(generator):
 def _counted(name, lamm, d=0):
     """The launch counter of kernel ``name``: its own, ``<name>_mat`` for
     the variant with a (d, d) prior, and either with ``_wide`` appended for
-    a launch on the wide tile (d > NARROW_D_MAX)."""
-    return (name + ("" if lamm is None else "_mat")
-            + ("_wide" if d > NARROW_D_MAX else ""))
+    a launch on the wide tile (NARROW_D_MAX < d <= WIDE_D_MAX) or
+    ``_xwide`` on the very-wide tile (d > WIDE_D_MAX)."""
+    tier = ("_xwide" if d > WIDE_D_MAX else "_wide" if d > NARROW_D_MAX
+            else "")
+    return name + ("" if lamm is None else "_mat") + tier
 
 
-def _launch(name, *args, counted=None):
+def _launch(name, d, C, *args, counted=None):
+    """Launch ``name`` on the current stream with ``args``, then the
+    very-wide tile's scratch for (d, C) (none at d <= WIDE_D_MAX)."""
     lib = load_kernels()
-    code = getattr(lib, name)(*args,
+    scratch, nbytes = _slots(torch.cuda.current_device(), d, C)
+    code = getattr(lib, name)(*args, _ptr(scratch), nbytes,
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
@@ -527,9 +567,9 @@ def glm_leapfrogs(XT, Y, theta, m, grad, eps, *, n_leaps=10, kind="logistic",
     th_o, m_o, g_o = (torch.empty_like(theta) for _ in range(3))
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch("glm_leapfrogs", _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
-                N, d, C, _ptr(theta), _ptr(m), _ptr(grad), _ptr(th_o),
-                _ptr(m_o), _ptr(g_o), _ptr(lp_o), float(eps),
+        _launch("glm_leapfrogs", d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W),
+                _ptr(O), N, d, C, _ptr(theta), _ptr(m), _ptr(grad),
+                _ptr(th_o), _ptr(m_o), _ptr(g_o), _ptr(lp_o), float(eps),
                 _scalar_prior(prior_prec), int(n_leaps), KIND_CODES[kind],
                 *_sched(integrator),
                 counted=_counted("glm_leapfrogs", None, d))
@@ -556,9 +596,10 @@ def glm_step(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
     lp_o = torch.empty(C, 1, dtype=theta.dtype, device=theta.device)
     acc_o = torch.empty(C, 1, dtype=theta.dtype, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch("glm_step", _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
-                N, d, C, _ptr(theta), _ptr(grad), _ptr(lp), _ptr(m0),
-                _ptr(logu), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(acc_o),
+        _launch("glm_step", d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W),
+                _ptr(O), N, d, C, _ptr(theta), _ptr(grad), _ptr(lp),
+                _ptr(m0), _ptr(logu), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
+                _ptr(acc_o),
                 float(eps), _scalar_prior(prior_prec), int(n_leaps),
                 KIND_CODES[kind], *_sched(integrator),
                 counted=_counted("glm_step", None, d))
@@ -586,9 +627,9 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch("glm_multistep", _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
-                N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
-                _ptr(acc_o), float(eps), _scalar_prior(prior_prec),
+        _launch("glm_multistep", d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W),
+                _ptr(O), N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o),
+                _ptr(lp_o), _ptr(acc_o), float(eps), _scalar_prior(prior_prec),
                 int(n_leaps), int(k_trans), KIND_CODES[kind], int(seed),
                 *_sched(integrator),
                 counted=_counted("glm_multistep", None, d))
@@ -627,9 +668,10 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
     r_lp, r_acc, r_alpha = (f32(k_trans, C) for _ in range(3))
     r_nl = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch(name, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O), _ptr(lamv),
-                _ptr(lamm), N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
-                _ptr(r_th), _ptr(r_g), _ptr(r_lp), _ptr(r_acc), _ptr(r_alpha),
+        _launch(name, d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(th_o),
+                _ptr(g_o), _ptr(lp_o), _ptr(r_th), _ptr(r_g), _ptr(r_lp),
+                _ptr(r_acc), _ptr(r_alpha),
                 _ptr(r_nl), float(eps), float(T), lam, int(i0),
                 int(max_leaps), int(k_trans), KIND_CODES[kind], int(seed),
                 *_sched(integrator), counted=_counted(name, lamm, d))

@@ -37,7 +37,7 @@ uniforms are (C, 2^maxdoublings), column ``(1 << j) - 1 + k`` for leaf k of
 doubling j.  The GLM prior precision is a scalar, a (d,) row (the diagonal
 metric fold of the warm-start pipeline) or a symmetric (d, d) matrix (the
 dense fold; such launches count as ``<name>_mat``).  The GLM kernels take
-d up to ``glm_kernels.D_MAX``: on the narrow tile up to ``NARROW_D_MAX``,
+d up to :data:`NUTS_D_MAX`: on the narrow tile up to ``NARROW_D_MAX``,
 above it on the wide tile, whose launches count as ``<name>_wide`` (and
 ``<name>_mat_wide``) and keep the tree's state in a scratch buffer that
 :func:`_scratch` allocates once for each device, stream, width and depth.
@@ -64,15 +64,20 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
+from .glm_kernels import (KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
                           _check, _counted, _device_branch, _prior,
                           _prior_args, _ptr, _row, glm_funcs,
                           glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
-from .cuda_build import count
+from .cuda_build import count, scratch_buffer
 
+#: largest parameter count of the GLM NUTS kernels (8, 9): the wide tile's
+#: bound (csrc/glm_nuts.cu nuts_max_dim, csrc/glm_tile.cuh kWideMax); the
+#: HMC kernels take GLMs up to glm_kernels.D_MAX on the very-wide tile,
+#: which the NUTS kernels do not run on yet
+NUTS_D_MAX = 256
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10
@@ -339,9 +344,9 @@ def load_kernels():
         lib.nuts_max_doublings.restype = ctypes.c_int
         lib.nuts_max_dim.restype = ctypes.c_int
         if (lib.nuts_max_doublings() != MAX_DOUBLINGS
-                or lib.nuts_max_dim() != D_MAX):
+                or lib.nuts_max_dim() != NUTS_D_MAX):
             raise RuntimeError("csrc/glm_nuts.cu and nuts_kernels disagree "
-                               "on MAX_DOUBLINGS or glm_kernels.D_MAX")
+                               "on MAX_DOUBLINGS or NUTS_D_MAX")
         lib._bound = True
     return lib
 
@@ -379,14 +384,10 @@ def _scratch(dev, d, N, md):
     (None, 0) on the narrow tile, which keeps the tree in shared memory."""
     if d <= NARROW_D_MAX:
         return None, 0
-    need = nuts_plan(d, N, md)["scratch_bytes"]
     key = (dev, torch.cuda.current_stream(dev).cuda_stream, (d + 31) // 32,
            md)
-    buf = _SCRATCH.get(key)
-    if buf is None or 4 * buf.numel() < need:
-        buf = _SCRATCH[key] = torch.empty(-(-need // 4), dtype=torch.float32,
-                                          device=dev)
-    return buf, 4 * buf.numel()
+    return scratch_buffer(_SCRATCH, key, nuts_plan(d, N, md)["scratch_bytes"],
+                          dev)
 
 
 def nuts_plan(d, N, maxdoublings):
@@ -437,7 +438,7 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     lp, logu = lp.reshape(-1), logu.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad, "m0": m0},
-                           {"lp": lp, "logu": logu})
+                           {"lp": lp, "logu": logu}, d_max=NUTS_D_MAX)
     _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
                  leaf_u=leaf_u)
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
@@ -566,7 +567,8 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
         raise ValueError(f"{name}: k_trans must be >= 1, got {k_trans}")
     lp = lp.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
-                           {"theta": theta, "grad": grad}, {"lp": lp})
+                           {"theta": theta, "grad": grad}, {"lp": lp},
+                           d_max=NUTS_D_MAX)
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     dev = theta.device
