@@ -43,16 +43,22 @@ runs there too: kernels 8 and 9 (and _mat) on the wide tile are held
 against their plain versions at d 33, 64, 150 and 256
 (``phase_wide_nuts_kernels``), and the d 150 model drives ``NUTS(6)``
 with the unit, diagonal and dense metrics and two resumes, each held
-against the generic engine; NUTS at d 257 takes the generic engine with
-its reason (``phase_wide_nuts_paths``).  GLMs of 257 to 1024 parameters
-run kernels 1, 2, 3, 3b and 4 (and the _mat variants) on the very-wide
-chain tile: each is held against its plain version at d 257, 512 and 1024
-with the scalar, row and matrix priors (``phase_xwide_kernels``), and a
-logistic regression of d 1024 drives plain HMC, the drivers of 2 and 3,
-and adaptive HMC with a diagonal and a dense metric at N 1000 and N
-20,000, each held against the generic engine (``phase_xwide_paths``);
-``phase_xwide_times`` times them at d 512 and 1024 beside the generic
-engine.  The dense metric on catalog
+against the generic engine (``phase_wide_nuts_paths``).  GLMs of 257 to
+1024 parameters run kernels 1, 2, 3, 3b and 4 (and the _mat variants) on
+the very-wide chain tile: each is held against its plain version at d
+257, 512 and 1024 with the scalar, row and matrix priors
+(``phase_xwide_kernels``), and a logistic regression of d 1024 drives
+plain HMC, the drivers of 2 and 3, and adaptive HMC with a diagonal and a
+dense metric at N 1000 and N 20,000, each held against the generic engine
+(``phase_xwide_paths``); ``phase_xwide_times`` times them at d 512 and
+1024 beside the generic engine.  Exact NUTS runs there too: kernels 8 and
+9 (and _mat) on the very-wide tile are held against their plain versions
+at d 257, 512 and 1024, kernel 9's five draw ranges disjoint at d 1024
+(``phase_xwide_nuts_kernels``); the d 1024 model drives ``NUTS(6)`` with
+the unit, diagonal and dense metrics and a resume, each held against
+kernel 1's HMC run; NUTS at d 1025 takes the generic engine with its
+reason (``phase_xwide_nuts_paths``); ``phase_xwide_nuts_times`` times
+the kernels at d 512 and 1024.  The dense metric on catalog
 targets runs kernels 5 and 8b on the z-space target ``z -> target(z L')``
 (their DENSE instantiations): each is held against its plain version at d
 1-1024 (``phase_dense_target_kernels``), and dense ``NUTS(6)`` on the ten
@@ -110,7 +116,7 @@ and 5-7; the wide tile's at d 150 and 256 with the group ``wide``, its
 paths against the generic engine with ``wide_paths``, the wide NUTS
 kernels with ``wide_nuts`` and their paths with ``wide_nuts_paths``, the
 very-wide tile's at d 512 and 1024 and its paths' fused and generic
-seconds with ``xwide``) at
+seconds with ``xwide``, the very-wide NUTS kernels with ``xwide_nuts``) at
 pinned shapes, the paths that run them and bench.py's drivers, to compare
 two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
@@ -199,6 +205,16 @@ REPLACES = {
                                   "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
     "glm_logp_grad_tiled_mat_xwide": ("glm_bign",
                                       "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    # the exact-NUTS kernels on the very-wide tile (256 < d <= 1024),
+    # counted apart
+    "glm_nuts_transition_xwide": ("glm_nuts",
+                                  "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_xwide": ("glm_nuts",
+                                 "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    "glm_nuts_transition_mat_xwide": ("glm_nuts",
+                                      "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_mat_xwide": ("glm_nuts",
+                                     "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
     # kernels 5 and 8b on the z-space target of a frozen dense metric (the
     # JAX package's _dense_wrap, mcmc_jl_tpu/ops/warmstart.py:581-624, which
     # feeds the same two Pallas kernels): the DENSE instantiations, counted
@@ -294,9 +310,12 @@ PHILOX_IMAD, IMAD_PER_CLOCK = 40, 64
 RWM_SFU_COORD, RWM_SFU_CHAIN = 2, 0.25
 LEAP_SFU_COORD, LP_SFU_COORD = 2, 2
 # the card's published peaks (one H100 SXM at 700 W): FP32 outside the
-# tensor cores, and HBM bandwidth; a kernel's bound is the larger of its
-# operations and its bytes over these
-FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# tensor cores, dense TF32 on them, and HBM bandwidth; a kernel's bound is
+# the larger of its operations and its bytes over these
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+# float32 products on the tensor cores: the GLM tile kernels issue three
+# TF32 products (3xTF32) for each float32 one
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 # the NUTS kernels' pinned timing shapes (phase_nuts_times): the step that
 # the unit-metric NUTS main path froze at (phase_nuts_main_path's
@@ -883,11 +902,66 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
     return rep["theta"]["max_abs"]
 
 
+def _f64_witness(label, args, eps, kw, seed, k=3):
+    """Kernel 9's drift from float64 beside its plain version's: k
+    transitions of the kernel on its own Philox draws (a generator seeded
+    ``seed``) and of its plain version on those draws replayed, in float32
+    and in float64 (inputs, prior and draws widened).  On the chains whose
+    discrete path (ndoublings, diverging, theta within LEAF_ATOL at every
+    transition) is float64's, the largest theta error of each against
+    float64 at each transition and of the final gradient.  Emitted, not
+    gated (_nuts_ms_check holds the kernel to the float32 plain version);
+    returns the line."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    XT, Y, th = args[:3]
+    C, d = th.shape
+    md = kw["maxdoublings"]
+    out_k = nk.glm_nuts_multistep(*args, eps, gen(), k_trans=k, **kw)
+    draws = nk.glm_nuts_multistep_draws(tk._seed(gen()), C, d, k, md,
+                                        device="cuda")
+    out_32 = nk.glm_nuts_multistep_ref(*args, eps, None, k_trans=k,
+                                       draws=draws, **kw)
+    kw64 = {n: v.double() if torch.is_tensor(v) else v for n, v in kw.items()}
+    XT64, Y64, th64 = (a.double() for a in (XT, Y, th))
+    out_64 = nk.glm_nuts_multistep_ref(
+        XT64, Y64, th64, *_lp_grad(XT64, Y64, th64, **kw64), eps, None,
+        k_trans=k, draws=[a.double() for a in draws], **kw64)
+    r64 = out_64[3]
+    line = {"phase": "f64_witness", "name": nk._counted(
+        "glm_nuts_multistep", _mat_or_none(kw.get("prior_prec")), d),
+        "case": label, "C": C, "k_trans": k, "eps": eps}
+    for who, out in (("kernel", out_k), ("plain_float32", out_32)):
+        r = out[3]
+        same = ((r["ndoublings"] == r64["ndoublings"]).all(0)
+                & (r["diverging"] == r64["diverging"]).all(0)
+                & ((r["ppars"].double() - r64["ppars"]).abs().amax((0, 2))
+                   <= LEAF_ATOL))
+        ok = bool(same.any())
+        line[who] = {
+            "path_differ": int(C - same.sum()),
+            "theta_by_transition": [
+                float((r["ppars"][t].double() - r64["ppars"][t])[same]
+                      .abs().max()) if ok else None for t in range(k)],
+            "g_final": float((out[1].double() - out_64[1])[same].abs().max())
+            if ok else None,
+            "max_abs_g": float(out_64[1].abs().max())}
+    emit(line)
+    return line
+
+
 def phase_nuts_kernels(C=4096, md=6):
     """Both NUTS kernels against their plain versions on the card: kernel
     8 on the same pre-drawn noise, kernel 9 on its own draws replayed
     (chain by chain) and statistically against the plain version and the
-    per-transition driver on other streams."""
+    per-transition driver on other streams; kernel 9's float64 witness
+    (_f64_witness) on a Poisson GLM started at 0."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
@@ -938,6 +1012,14 @@ def phase_nuts_kernels(C=4096, md=6):
                                    scale=N / 1000))
         ms_err = max(ms_err, _nuts_ms_check(label, args, 0.03, kw, seed=33,
                                             scale=N / 1000))
+    # kernel 9 against float64 where its sums are largest: a Poisson GLM
+    # (weights, offsets, d 32) started at 0, gradients to about 1e4
+    XT, Yc, W, O, th, _ = _glm_case("poisson", 1000, 32, 17, seed=62)
+    kwp = dict(kind="poisson", weights=W, offsets=O, prior_prec=1.5,
+               maxdoublings=10, multinomial=False)
+    _f64_witness("narrow tile, poisson from 0, d 32, C 17, md 10",
+                 (XT, Yc, th, *_lp_grad(XT, Yc, th, **kwp)), 0.005, kwp,
+                 seed=82)
 
     # multistep: bitwise repeat from one generator state; then held against
     # its plain version from the same start, K transitions each (Philox
@@ -1197,31 +1279,35 @@ def _nuts_leaves(XT, Y, th, lp, g, eps, md, noise_sets, prior=1.0):
 
 
 def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
-                       plain=True, prior=1.0, multistep=True, device_reps=10):
+                       plain=True, prior=1.0, multistep=True, device_reps=10,
+                       event_reps=3):
     """Per-launch time of kernels 8 (one transition on draw_noise from a
     generator seeded ``seed``) and 9 (``k_trans`` transitions, its launch
     seed from a generator seeded ``seed + 1``) on the logistic GLM with
     prior ``prior`` (a matrix runs the _mat variants) from (th, lp, g) at
     step ``eps``: CUDA events (the wrapper's host work included) and
-    torch.profiler's device time (the narrow tile's kernel, or the wide
-    one's above d 32: the line's phase says which), beside the plain
+    torch.profiler's device time (the narrow tile's kernel, the wide one's
+    above d 32 or the very-wide one's above d 256: the line's phase says
+    which), beside the plain
     version's (with ``plain``), the mean depth, the leaves the trees
     need (from the plain version's tree build on the same draws) and the
     tile passes (per tile of 16 chains the most leaves of one chain), the
     bound and the special-function floor of those leaves, and the occupancy
-    plan; kernel 9 only with ``multistep``.  Emits one line per kernel;
+    plan; kernel 9 only with ``multistep``; no device time with
+    ``device_reps`` 0.  Emits one line per kernel;
     returns {counted name: that line}."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
-    from mcmc_jl_tpu_torch.ops.glm_kernels import NARROW_D_MAX
+    from mcmc_jl_tpu_torch.ops.glm_kernels import NARROW_D_MAX, WIDE_D_MAX
 
     C, d = th.shape
     N = XT.shape[1]
     lp = lp.reshape(-1)
-    wide = d > NARROW_D_MAX
-    symbol = "nuts_wide_kernel" if wide else "nuts_tile_kernel"
+    tier = ("xwide_" if d > WIDE_D_MAX else "wide_" if d > NARROW_D_MAX
+            else "")
+    symbol = f"nuts_{tier or 'tile_'}kernel"
 
     def gen(k):
         return torch.Generator(device="cuda").manual_seed(seed + k)
@@ -1259,11 +1345,13 @@ def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
         per_tile[:C] = leaves
         per_tile = per_tile.reshape(-1, 16).amax(1)
         counted = nk._counted(name, _mat_or_none(prior), d)
-        line = {"phase": "wide_nuts_time" if wide else "nuts_time",
+        line = {"phase": f"{tier}nuts_time",
                 "name": counted, "C": C, "N": N, "d": d,
                 "k_trans": k_trans if name == "glm_nuts_multistep" else 1,
-                "eps": eps, "maxdoublings": md, "ms": _event_ms(kern),
-                "device_ms": _device_ms(kern, symbol, reps=device_reps),
+                "eps": eps, "maxdoublings": md,
+                "ms": _event_ms(kern, reps=event_reps),
+                "device_ms": _device_ms(kern, symbol, reps=device_reps)
+                if device_reps else None,
                 "plain_ms": _event_ms(ref, reps=2) if plain else None,
                 "mean_ndoublings": float(nd.mean()), "leaves": n_leaves,
                 "leaves_per_chain": n_leaves / C,
@@ -1316,16 +1404,18 @@ def _nbytes(*objs):
 def _bound(evals, d, N, nbytes):
     """The least time (ms) the card could take for ``evals`` GLM gradient
     evaluations (summed over chains) at (d, N) that move ``nbytes``: the
-    4 d N FP32 operations of each evaluation's two products (theta . x_n
-    and r_n x_n; the link's special functions are not counted) over the
-    FP32 peak, or the bytes over the HBM bandwidth, whichever is larger."""
-    return _bound_ops(4.0 * d * N * float(evals), nbytes)
+    4 d N float32 operations of each evaluation's two products (theta . x_n
+    and r_n x_n; the link's special functions are not counted) at the
+    tensor cores' 3xTF32 rate, where the tile kernels compute them, or the
+    bytes over the HBM bandwidth, whichever is larger."""
+    return _bound_ops(4.0 * d * N * float(evals), nbytes, TF32X3_FLOPS)
 
 
-def _bound_ops(ops, nbytes):
-    """The least time (ms) for ``ops`` FP32 operations that move ``nbytes``:
-    the larger of the two over the card's peaks."""
-    t_ops = float(ops) / FP32_FLOPS
+def _bound_ops(ops, nbytes, rate=FP32_FLOPS):
+    """The least time (ms) for ``ops`` operations that move ``nbytes``:
+    the larger of the operations over ``rate`` (FP32 outside the tensor
+    cores unless given) and the bytes over the HBM bandwidth."""
+    t_ops = float(ops) / rate
     t_bytes = nbytes / HBM_BYTES_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -3770,7 +3860,7 @@ def _min_ess_per_s(cs, seconds):
 
 
 def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
-                      gauss_chains=4096, gauss_steps=(1200, 400)):
+                      gauss_chains=4096, gauss_steps=(900, 300)):
     """The dense metric through ``run(..., chains=N)``: the adaptive warmup
     on the generic engine, then the pooled factor L frozen and folded into
     the design (X L, prior matrix lam L'L), the sampling phase on the
@@ -3785,9 +3875,9 @@ def phase_dense_paths(hmc_means, bign_ref, chains=4096, chains_bign=512,
       against ``hmc_means``; the NUTS run's ``resume(tasks, steps=120)``
       (9: 15 launches of 8) with _resume_path's checks;
     - mass_metric.py's correlated Gaussian as a linear GLM (d 4), 4096
-      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(1200, 400)``
-      (mass_metric.py's SerialMC(6000, 2000) cut to a fifth to keep the
-      script under 600 s; 3b): the chains' means
+      chains, ``HMC(10, 0.25, mass_adapt="dense") * SerialMC(900, 300)``
+      (mass_metric.py's SerialMC(6000, 2000) cut to a fifth, then to
+      (900, 300), for the script's time; 3b): the chains' means
       held to 0 and their
       second moments (the
       variances and the rho = 0.95 covariances) to the known Sigma by |z|
@@ -4032,7 +4122,8 @@ def phase_dense_times(folds, C=4096, C_bign=512, kt=6, i0=501, md=6,
         return float(np.median(runs)) if runs else None
 
     def bound(evals, d, N, nbytes):
-        return _bound_ops((4.0 * d * N + 2.0 * d * d) * evals, nbytes)
+        return _bound_ops((4.0 * d * N + 2.0 * d * d) * evals, nbytes,
+                          TF32X3_FLOPS)
 
     def line(name, kern, row_kern, plain, symbol, evals, d, N, nbytes,
              **extra):
@@ -4742,23 +4833,23 @@ def phase_wide_kernels(C=4096, ragged=1027, N=1000, Cb=512, Nb=100_000,
 
 
 def phase_wide_paths(chains=4096, chains_bign=512, generic_chains=512,
-                     steps=600, burnin=200, bign_steps=(70, 50),
-                     thin=200, n=1000, n_bign=100_000):
+                     steps=300, burnin=100, bign_steps=(70, 50),
+                     thin=150, n=1000, n_bign=100_000):
     """A logistic regression of d = 150 (wide_data) through the port's entry
     points, every launch counted from zero over one run and every run held
     within Z_MAX standard errors of per-chain means against the generic
     engine (the route such a GLM took before the wide tile):
 
     - N 1000 from the model's init: ``run(HMC(10, WIDE_EPS) *
-      SerialMC(600, 200), chains=4096)`` (kernel 1, once a transition;
-      the sampling cut to 400 transitions for the script's 600 s),
-      against the same task on 512 generic-engine chains;
+      SerialMC(300, 100), chains=4096)`` (kernel 1, once a transition;
+      SerialMC(1000, 200) cut to (600, 200), then (300, 100), for the
+      script's time), against the same task on 512 generic-engine chains;
       ``run_glm_hmc(fused_step=True)`` (2) and
-      ``run_glm_hmc_multistep(thin=200)`` (3) from the same start for as
+      ``run_glm_hmc_multistep(thin=150)`` (3) from the same start for as
       many transitions, against that run's final states (phase_drivers);
       adaptive HMC with a diagonal and with a dense metric, ``HMC(10,
-      WIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(600,
-      200)`` at 4096 chains (3b, 3b_mat: 400 sampling transitions as 50
+      WIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) * SerialMC(300,
+      100)`` at 4096 chains (3b, 3b_mat: 200 sampling transitions as 25
       launches of 8), against the generic run; ``resume(chains, steps=120)``
       of the diagonal run (3b: 15 launches of 8);
     - N 100,000 from the posterior mode: ``HMC(10, WIDE_BIGN_EPS,
@@ -4951,9 +5042,9 @@ def _tier_times(tier, ds, at_d, N, Nb, C=4096, Cb=512, n_leaps=10, kt=8,
     and T 10 eps, so about 10 leaps each) at N and C chains, kernel 4 (and
     _mat) at Nb and Cb chains; with CUDA events (the wrapper's host work
     included), torch.profiler's device time, the plain version on the card,
-    the bound (the repo's: 4 d N FP32 operations a chain-gradient, or the
-    bytes) and the padding waste D / d.  Returns ({kernel: (ms, plain
-    ms)}, {kernel: bound}) at d ``at_d``."""
+    the bound (the repo's: 4 d N operations a chain-gradient at 3xTF32,
+    or the bytes) and the padding waste D / d.  Returns ({kernel: (ms,
+    plain ms)}, {kernel: bound}) at d ``at_d``."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_bign as gb
@@ -5063,7 +5154,10 @@ WIDE_NUTS_EPS, WIDE_NUTS_DEEP_EPS = 0.1, 0.002
 # the wide NUTS paths: SerialMC(steps, burnin) for kernel 9 (the sampling
 # transitions split into launches of WIDE_NUTS_K) and steps - 3 for kernel
 # 8 (a prime count of sampling transitions: one launch a transition)
-WIDE_NUTS_RUN = (106, 30)
+WIDE_NUTS_RUN = (82, 26)
+# the wide NUTS runs' resumes: kernel 9 (launches of 8) and kernel 8 (a
+# prime count)
+WIDE_NUTS_RESUME = (40, 37)
 
 
 def _wide_nuts_inputs(XT, Y, th, md, seed, **kw):
@@ -5144,16 +5238,17 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
     return err
 
 
-def _wide_nuts_routes(n=1000):
-    """The route of NUTS on wide_data at d 150 and 256 (the exact-NUTS
-    kernels, "nuts", for a run and a continuation) and at d 257 (the
-    generic engine, with the reason naming the item that lifts the NUTS
-    kernels' bound, exact NUTS on GLMs wider than 256 parameters, for
-    both).  Returns {d: (route, reason or None)}."""
+def _nuts_routes(ds, n=1000):
+    """The route of NUTS on wide_data at each d of ``ds``: the exact-NUTS
+    kernels, "nuts", for a run and a continuation, up to the kernels'
+    bound NUTS_D_MAX (1024); above it the generic engine, with the reason
+    naming the item that would lift the bound, GLMs wider than 1024
+    parameters, for both.  Returns {d: (route, reason or None)}."""
     import logging
 
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.core.task import MCMCTask
+    from mcmc_jl_tpu_torch.ops.nuts_kernels import NUTS_D_MAX
     from mcmc_jl_tpu_torch.parallel import pchains
 
     seen = []
@@ -5165,7 +5260,8 @@ def _wide_nuts_routes(n=1000):
     log.setLevel(logging.INFO)
     out = {}
     try:
-        for d, want in ((WIDE_D, "nuts"), (256, "nuts"), (257, False)):
+        for d in ds:
+            want = "nuts" if d <= NUTS_D_MAX else False
             X, Y = wide_data(n, d)
             m = mt.model(glm=("logistic", X, Y), device="cuda")
             sampler = mt.NUTS(6)
@@ -5174,11 +5270,12 @@ def _wide_nuts_routes(n=1000):
                 steps=WIDE_NUTS_RUN[0], burnin=WIDE_NUTS_RUN[1])), "auto")
             cont = pchains.continuation_route(m, sampler, 4, "auto")
             why = [t for t in seen
-                   if "exact NUTS on GLMs wider than 256 parameters" in t]
+                   if "GLMs wider than 1024 parameters" in t]
             assert route == cont == want, (d, route, cont, seen)
             assert bool(why) == (want is False) and len(why) in (0, 2), seen
+            assert not any("wider than 256" in t for t in seen), seen
             out[d] = (route or "generic engine", why[0] if why else None)
-            emit({"phase": "wide_nuts_route", "d": d, "route": out[d][0],
+            emit({"phase": "nuts_route", "d": d, "route": out[d][0],
                   "continuation_route": cont or "generic engine",
                   "reason": out[d][1]})
     finally:
@@ -5196,17 +5293,17 @@ def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
     tile), ``NUTS(6, mass_adapt="diag")`` with three steps fewer (a prime
     count of sampling transitions: kernel 8), ``NUTS(6,
     mass_adapt="dense") * SerialMC(*run)`` (9 mat), then
-    ``resume(chains, steps=120)`` of the unit-metric run (9) and
-    ``resume(chains, steps=101)`` of the dense run (8 mat), with
+    ``resume(chains, steps=40)`` of the unit-metric run (9) and
+    ``resume(chains, steps=37)`` of the dense run (8 mat), with
     _resume_path's checks.  The warmups run on the generic engine (cut to
-    30 transitions, and the runs to (106, 30), for the script's time).
-    First the routes at d 150,
-    256 and 257 (_wide_nuts_routes).  Returns the wide NUTS kernels'
-    launches {name: (count, origin)}."""
+    26 transitions, and the runs to (82, 26), for the script's time).
+    First the routes at d 150, 256 and 257 (_nuts_routes: the kernels
+    since d 257 runs on the very-wide tile).  Returns the wide NUTS
+    kernels' launches {name: (count, origin)}."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
 
-    _wide_nuts_routes(n)
+    _nuts_routes((WIDE_D, 256, 257), n)
     X, Y, _, _ = _wide_mode(n)
     m = mt.model(glm=("logistic", X, Y), device="cuda")
     d = m.size
@@ -5244,8 +5341,8 @@ def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
         del cs, samples
     moments = lambda s: _z_means(s.mean(1), gmeans)  # noqa: E731
     for label, name, S in (
-            ("unit", "glm_nuts_multistep_wide", RESUME_STEPS),
-            ("dense", "glm_nuts_transition_mat_wide", RESUME_STEPS_PRIME)):
+            ("unit", "glm_nuts_multistep_wide", WIDE_NUTS_RESUME[0]),
+            ("dense", "glm_nuts_transition_mat_wide", WIDE_NUTS_RESUME[1])):
         want = S // _pick_k_trans(S) if "multistep" in name else S
         origin = f"resume(NUTS(6{', dense' if label == 'dense' else ''}) " \
                  f"chains of d {d}, steps={S})"
@@ -5418,8 +5515,8 @@ def phase_xwide_kernels(ragged=1027, N=1000, Cb=512, Nb=XWIDE_N_BIGN, k=4,
 
 
 def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
-                      generic_chains=512, steps=146, burnin=50,
-                      bign_steps=(50, 30), thin=73, n=1000,
+                      generic_chains=512, steps=106, burnin=50,
+                      bign_steps=(50, 30), thin=53, n=1000,
                       n_bign=XWIDE_N_BIGN):
     """A logistic regression of d = 1024 (wide_data) through the port's
     entry points, every launch counted from zero over one run (a run that
@@ -5428,14 +5525,14 @@ def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
     engine (the route such a GLM took before the very-wide tile):
 
     - N 1000 from the model's init: ``run(HMC(10, XWIDE_EPS) *
-      SerialMC(146, 50), chains=4096)`` (kernel 1, once a transition),
+      SerialMC(106, 50), chains=4096)`` (kernel 1, once a transition),
       against the same task on 512 generic-engine chains;
       ``run_glm_hmc(fused_step=True)`` (2) and
-      ``run_glm_hmc_multistep(thin=73)`` (3) from the same start for as
+      ``run_glm_hmc_multistep(thin=53)`` (3) from the same start for as
       many transitions, against that run's final states; adaptive HMC
       with a diagonal metric at 4096 chains and a dense one at 512,
       ``HMC(10, XWIDE_EPS, EmpMCTuner(0.8, 50), mass_adapt=...) *
-      SerialMC(146, 50)`` (3b, 3b_mat: 96 sampling transitions as 12
+      SerialMC(106, 50)`` (3b, 3b_mat: 56 sampling transitions as 7
       launches of 8), against the generic run (the dense run's generic
       warmup keeps a (d, d) factor and accumulator a chain: 4 GB each at
       4096 chains, so it runs 512);
@@ -5444,7 +5541,9 @@ def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
       chains, diagonal and dense (4, 4_mat), against plain ``HMC(10,
       XWIDE_BIGN_EPS)`` on 512 generic-engine chains from the same start.
 
-    Returns the very-wide kernels' launches {name: (count, origin)}."""
+    Returns the very-wide kernels' launches {name: (count, origin)} and
+    the kernel-1 run's per-chain means (4096, d), phase_xwide_nuts_paths'
+    reference."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.glm_hmc import (run_glm_hmc,
                                               run_glm_hmc_multistep)
@@ -5475,6 +5574,7 @@ def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
           "z_max_vs_generic": z, "ok": z < Z_MAX, **CARD})
     assert z < Z_MAX, f"{origin} disagrees with the generic engine"
     counts["glm_leapfrogs_xwide"] = (launches["glm_leapfrogs_xwide"], origin)
+    hmc_means = samples.mean(1)
     del samples
 
     inits = np.zeros_like(final)
@@ -5561,16 +5661,16 @@ def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
         assert z < Z_MAX, f"{origin} disagrees with the generic engine"
         counts[name] = (launches[name], origin)
         del cs, samples
-    return counts
+    return counts, hmc_means
 
 
 def phase_xwide_times(C=4096, Cb=512, N=1000, Nb=XWIDE_N_BIGN, n_leaps=10,
-                      kt=8, i0=501, path_steps=(12, 4)):
+                      kt=8, i0=501, path_steps=(8, 4)):
     """_tier_times of the very-wide kernels at d 512 and 1024
     (XWIDE_TIME_D) at the very-wide paths' shapes: 1-3b at N 1000 and 4096
     chains, 4 at N 20,000 and 512 chains (events and device ms over 2
     launches).  Then the host seconds (to a synchronize) of plain HMC(10)
-    over SerialMC(12, 4) at 4096 chains and N 1000 (kernel 1) at both
+    over SerialMC(8, 4) at 4096 chains and N 1000 (kernel 1) at both
     widths, and of adaptive HMC diag over the same runner at N 20,000 and
     512 chains (kernel 4) at d 1024, through the kernels and through the
     generic engine at the same chains.  Returns ({kernel: (ms, plain
@@ -5607,6 +5707,216 @@ def phase_xwide_times(C=4096, Cb=512, N=1000, Nb=XWIDE_N_BIGN, n_leaps=10,
         emit({"phase": "xwide_path_time", "path": label,
               "task": _origin(model, task, chains), "d": model.size, **row,
               **CARD})
+    return ms, work
+
+
+# ---- exact NUTS on GLMs wider than 256 parameters (kernels 8 and 9) -------
+
+# the very-wide NUTS kernels' launch counters
+XWIDE_NUTS_KERNELS = tuple(n.replace("_wide", "_xwide")
+                           for n in WIDE_NUTS_KERNELS)
+# the very-wide NUTS paths: SerialMC(steps, burnin) for kernel 9 (the kept
+# transitions split into launches of 8) and steps - 3 for kernel 8 (a prime
+# count of kept transitions: one launch a transition); the dense run's
+# resume takes a prime step count too (kernel 8 mat)
+XWIDE_NUTS_RUN = (60, 20)
+XWIDE_NUTS_RESUME = 13
+# the deep check and time: md 10 at WIDE_NUTS_DEEP_EPS on chains that fill
+# every resident block once (132 SMs x 16 chains)
+XWIDE_NUTS_DEEP_C = 2112
+
+
+def phase_xwide_nuts_kernels(ragged=1027, N=1000, md=6, k=3):
+    """Kernels 8 and 9 (and their _mat forms) on the very-wide tile against
+    their plain versions, held to the wide checks' rules (_nuts_check,
+    _nuts_ms_check: PATH_AGREE of the chains on the plain version's
+    discrete path, theta, g and lp within the narrow tolerances there,
+    bitwise repeats): kernel 8 on shared pre-drawn noise, kernel 9 over k
+    transitions chain by chain on its own Philox draws replayed by
+    glm_nuts_multistep_draws.  On a ragged 1027 chains near the posterior
+    mode of wide_data at N 1000 (rows streamed), WIDE_NUTS_EPS, md 6, the
+    slice: at d 257 the scalar prior; at d 512 the diagonal fold's (d,)
+    row; at d 1024 the scalar prior and the dense fold's (d, d) matrix
+    (also multinomial);
+    at d 1024 also md 10 at WIDE_NUTS_DEEP_EPS (trees to the bound, the
+    largest scratch slice and the last draw numbers of every range, whose
+    five ranges are asserted disjoint first); and the Poisson link with
+    weights and offsets at d 512 (300 chains, multinomial;
+    phase_xwide_kernels' design scale).  At d 1024 (scalar and matrix
+    priors, slice) kernel 9's float64 witness (_f64_witness).  Returns the
+    largest theta error of each very-wide NUTS kernel."""
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    err = dict.fromkeys(XWIDE_NUTS_KERNELS, 0.0)
+
+    def check(label, args, noise, eps, kw, seed, k=k, full_depth=False):
+        suffix = "_mat_xwide" if _mat_or_none(kw.get("prior_prec")) is not \
+            None else "_xwide"
+        e8 = _nuts_check(label, args, noise, eps, kw, full_depth=full_depth)
+        e9 = _nuts_ms_check(label, args, eps, kw, seed=seed, k=k,
+                            full_depth=full_depth)
+        for name, e in (("glm_nuts_transition", e8),
+                        ("glm_nuts_multistep", e9)):
+            err[name + suffix] = max(err[name + suffix], e)
+
+    # kernel 9's five draw ranges [lo, hi) of one (chain, transition) at
+    # the widest d and the deepest tree, in draw order: momenta,
+    # directions, merge uniforms, leaves, the slice uniform
+    d, md10 = nk.NUTS_D_MAX, nk.MAX_DOUBLINGS
+    ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md10),
+              (nk.MERGE_DRAW, nk.MERGE_DRAW + md10),
+              (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md10)),
+              (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)]
+    disjoint = all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    emit({"phase": "xwide_nuts_draw_ranges", "d": nk.NUTS_D_MAX,
+          "maxdoublings": nk.MAX_DOUBLINGS,
+          "ranges": [[int(lo), int(hi)] for lo, hi in ranges],
+          "disjoint": disjoint})
+    assert disjoint, ranges
+    cases = {257: (("scalar", (False,)),),
+             512: (("row", (False,)),),
+             XWIDE_D: (("scalar", (False,)), ("matrix", (False, True)))}
+    for d, priors in cases.items():
+        f = _wide_folds(N, d, ragged, seed=d + 40)
+        for prior, modes in priors:
+            XT, Yc, th, lam = f[prior]
+            args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + 41,
+                                            prior_prec=lam)
+            for multinomial in modes:
+                label = (f"very-wide tile, d {d}, C {ragged}, {prior} prior, "
+                         f"{'multinomial' if multinomial else 'slice'}, "
+                         f"md {md}")
+                kw = dict(maxdoublings=md, prior_prec=lam,
+                          multinomial=multinomial)
+                check(label, args, noise, WIDE_NUTS_EPS, kw, seed=d + 42)
+                if d == XWIDE_D and not multinomial:
+                    _f64_witness(label, args, WIDE_NUTS_EPS, kw, seed=d + 42,
+                                 k=k)
+        if d == XWIDE_D:  # the deepest trees: md 10, the most scratch
+            XT, Yc, th, _ = f["scalar"]
+            args, noise = _wide_nuts_inputs(XT, Yc, th, 10, d + 43)
+            draws = nk.glm_nuts_multistep_draws(7, 3, d, 2, 10,
+                                                device="cuda")
+            assert [tuple(a.shape) for a in draws] == [
+                (2, 3, d), (2, 3), (2, 3, 10), (2, 3, 10), (2, 3, 1024)]
+            check(f"very-wide tile, d {d}, C {ragged}, slice, md 10, eps "
+                  f"{WIDE_NUTS_DEEP_EPS}", args, noise, WIDE_NUTS_DEEP_EPS,
+                  dict(maxdoublings=10), seed=d + 44, k=2, full_depth=True)
+        del f
+    XT, Yc, W, O, th, _ = _glm_case("poisson", N, 512, 300, seed=9,
+                                    scale=0.3 * np.sqrt(7 / 512))
+    kw = dict(kind="poisson", weights=W, offsets=O, prior_prec=1.5)
+    args, noise = _wide_nuts_inputs(XT, Yc, th, md, 45, **kw)
+    check("very-wide tile, poisson, weights+offsets, d 512, C 300, "
+          "multinomial", args, noise, 0.02,
+          dict(kw, maxdoublings=md, multinomial=True), seed=46)
+    return err
+
+
+def phase_xwide_nuts_paths(hmc_means, chains=1024, chains_dense=512,
+                           run=XWIDE_NUTS_RUN, n=1000):
+    """Exact NUTS on the d 1024 logistic regression (wide_data, N 1000,
+    from the model's init) through the port's entry points, every launch
+    counted from zero over one run (a run that fell back to the generic
+    engine would launch none), each run's per-chain means held within
+    Z_MAX standard errors of ``hmc_means`` (kernel 1's HMC run of
+    phase_xwide_paths, 4096 chains: cheaper than a generic run):
+    ``NUTS(6) * SerialMC(*run)`` at 1024 chains (kernel 9 on the very-wide
+    tile), ``NUTS(6, mass_adapt="diag")`` with three steps fewer (a prime
+    count of kept transitions: kernel 8), ``NUTS(6, mass_adapt="dense") *
+    SerialMC(*run)`` at 512 chains (9 mat; the generic warmup keeps a (d,
+    d) factor and accumulator a chain, 2 GB each), then
+    ``resume(chains, steps=13)`` of the dense run (8 mat) with
+    _resume_path's checks.  The warmups run on the generic engine.  First
+    the routes at d 1024 and 1025 (_nuts_routes).  Returns the very-wide
+    NUTS kernels' launches {name: (count, origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
+
+    _nuts_routes((XWIDE_D, XWIDE_D + 1), n)
+    X, Y, _, _ = _wide_mode(n, XWIDE_D)
+    m = mt.model(glm=("logistic", X, Y), device="cuda")
+    d = m.size
+    steps, burnin = run
+    kept = steps - burnin
+    counts, held = {}, {}
+    for label, sampler, S, C, name, want in (
+            ("unit", mt.NUTS(6), steps, chains, "glm_nuts_multistep_xwide",
+             kept // _pick_k_trans(kept)),
+            ("diag", mt.NUTS(6, mass_adapt="diag"), steps - 3, chains,
+             "glm_nuts_transition_xwide", kept - 3),
+            ("dense", mt.NUTS(6, mass_adapt="dense"), steps, chains_dense,
+             "glm_nuts_multistep_mat_xwide", kept // _pick_k_trans(kept))):
+        assert name != "glm_nuts_transition_xwide" or \
+            _pick_k_trans(kept - 3) == 1
+        task = m * sampler * mt.SerialMC(steps=S, burnin=burnin)
+        origin = _origin(m, task, C)
+        cs, samples, launches, dt, spans = _path(origin, task, C,
+                                                 {name: want})
+        dg = {k: np.stack([c.diagnostics[k] for c in cs])
+              for k in ("accept", "ndoublings", "diverging", "epsilon")}
+        z = _z_means(samples.mean(1), hmc_means)
+        emit({"phase": "xwide_nuts_path", "kernel": name, "from": origin,
+              "d": d, "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_eps": float(dg["epsilon"][0, -1]),
+              "accept_rate": float(dg["accept"].mean()),
+              "mean_ndoublings": float(dg["ndoublings"].mean()),
+              "diverging_share": float(dg["diverging"].mean()),
+              "z_max_vs_hmc": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with kernel 1's HMC"
+        counts[name] = (launches[name], origin)
+        if label == "dense":
+            held[label] = [c.task for c in cs]
+        del cs, samples
+    S = XWIDE_NUTS_RESUME
+    assert _pick_k_trans(S) == 1
+    origin = f"resume(NUTS(6, dense) chains of d {d}, steps={S})"
+    _resume_path(origin, held.pop("dense"), S,
+                 {"glm_nuts_transition_mat_xwide": S},
+                 lambda s: _z_means(s.mean(1), hmc_means), by_chain=False)
+    counts["glm_nuts_transition_mat_xwide"] = (S, origin)
+    return counts
+
+
+def phase_xwide_nuts_times(C=4096, N=1000, md=6, k_trans=2,
+                           ds=XWIDE_TIME_D, deep_C=XWIDE_NUTS_DEEP_C):
+    """Per-launch time of kernels 8 and 9 (k_trans 2) on the very-wide tile
+    at d 512 and 1024 (XWIDE_TIME_D), N 1000, 4096 chains drawn from the
+    Laplace approximation at the mode (numpy seed d + 51), at WIDE_NUTS_EPS
+    and md 6, with _nuts_kernel_times' columns (events, device ms, plain
+    version, leaves, tile passes, bound, occupancy and scratch plan; events
+    over 2 launches, device ms over 1 with the scalar prior at d 1024: a
+    torch.profiler session costs about 2 s, and at 16 ms a launch and more
+    the two agree within 3%), the _mat forms at d 1024 on the dense fold
+    (chains in z); then kernel 8 at d 1024 and md 10 at
+    WIDE_NUTS_DEEP_EPS on 2112 chains (every resident block's scratch
+    slice once, 277 MB: what L2 misses cost a tile pass), events alone,
+    without its plain version (phase_build prints nuts_xwide_kernel's
+    registers and spills).  Returns ({kernel: (ms, plain ms)}, {kernel:
+    bound}) at d 1024."""
+    ms, work = {}, {}
+    for d in ds:
+        f = _wide_folds(N, d, C, seed=d + 51, spread=1.0)
+        for prior in ("scalar", "matrix") if d == XWIDE_D else ("scalar",):
+            XT, Yc, th, lam = f[prior]
+            lp, g = _lp_grad(XT, Yc, th, prior_prec=lam)
+            lines = _nuts_kernel_times(
+                XT, Yc, th, lp, g, WIDE_NUTS_EPS, md, k_trans, seed=d + 52,
+                prior=lam, event_reps=2,
+                device_reps=int(d == XWIDE_D and prior == "scalar"))
+            if d == XWIDE_D:
+                for name, t in lines.items():
+                    ms[name] = (t["ms"], t["plain_ms"])
+                    work[name] = {k: t[k] for k in ("bound_ms", "bound_by")}
+        if d == XWIDE_D:
+            XT, Yc, th, _ = f["scalar"]
+            th = th[:deep_C].contiguous()
+            lp, g = _lp_grad(XT, Yc, th)
+            _nuts_kernel_times(XT, Yc, th, lp, g, WIDE_NUTS_DEEP_EPS, 10, 1,
+                               seed=d + 53, plain=False, multistep=False,
+                               device_reps=0, event_reps=2)
+        del f
     return ms, work
 
 
@@ -5955,6 +6265,7 @@ def main():
     errors.update(step("wide_kernels", phase_wide_kernels))
     errors.update(step("wide_nuts_kernels", phase_wide_nuts_kernels))
     errors.update(step("xwide_kernels", phase_xwide_kernels))
+    errors.update(step("xwide_nuts_kernels", phase_xwide_nuts_kernels))
     errors.update(step("dense_target_kernels", phase_dense_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
@@ -5992,7 +6303,11 @@ def main():
     launches.update(wide_launches)
     launches.update(step("wide_nuts_paths", phase_wide_nuts_paths, gmeans))
     del gmeans
-    launches.update(step("xwide_paths", phase_xwide_paths))
+    xwide_launches, xwide_means = step("xwide_paths", phase_xwide_paths)
+    launches.update(xwide_launches)
+    launches.update(step("xwide_nuts_paths", phase_xwide_nuts_paths,
+                         xwide_means))
+    del xwide_means
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
@@ -6032,7 +6347,8 @@ def main():
                  step("wide_times", phase_wide_times),
                  step("wide_nuts_times", phase_wide_nuts_times,
                       ds=(WIDE_D,)),
-                 step("xwide_times", phase_xwide_times)):
+                 step("xwide_times", phase_xwide_times),
+                 step("xwide_nuts_times", phase_xwide_nuts_times)):
         ms.update(more[0])
         work.update(more[1])
     # the wide paths' generic-against-fused seconds (phase_wide_path_times,
@@ -7319,6 +7635,7 @@ TIME_GROUPS = {
     "dense_target": (("target_hmc", "target_nuts"),
                      ("phase_dense_target_times",)),
     "xwide": (("glm_hmc", "glm_bign"), ("phase_xwide_times",)),
+    "xwide_nuts": (("glm_nuts",), ("phase_xwide_nuts_times",)),
 }
 
 

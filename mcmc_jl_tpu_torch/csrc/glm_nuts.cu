@@ -11,7 +11,10 @@
 // trajectory kernel (glm_hmc.cu, kernel 1).  That is the narrow tile, d <=
 // 32; above it, up to kWideMax = 256, nuts_wide_kernel builds the same tree
 // on the wide tile (glm_tile.cuh wide_rows), with the tree's state out of
-// shared memory (see its own note).  The launcher picks one from d alone.
+// shared memory, and above that, up to kXWideMax = 1024, nuts_xwide_kernel
+// on the very-wide tile (glm_tile.cuh xwide_grad), with the walker out of
+// registers too (see their own notes).  The launcher picks one from d
+// alone.
 //
 // What bounds them on the H100: every leaf of a tree is one leapfrog, i.e.
 // one gradient and log-target pass over the N observations: 4 d N
@@ -75,9 +78,11 @@ constexpr int kMaxDoublings = 10;    // leaf uniforms: 2^md columns per chain
 constexpr float kDeltaMax = 100.f;   // divergence gate (NUTS.jl:90-95)
 
 // Philox draw numbers inside one (chain, transition) beside the momenta
-// and the slice uniform (glm_tile.cuh momentum, log_uniform).
-constexpr uint32_t kDirDraw = 0x100u;      // + doubling j
-constexpr uint32_t kMergeDraw = 0x200u;    // + doubling j
+// (0 .. d/2 - 1: below 512 up to d 1024) and the slice uniform (kSliceDraw;
+// glm_tile.cuh momentum, log_uniform): five disjoint ranges at every width
+// the kernels take.
+constexpr uint32_t kDirDraw = 0x400u;      // + doubling j
+constexpr uint32_t kMergeDraw = 0x500u;    // + doubling j
 constexpr uint32_t kLeafDraw = 0x10000u;   // + leaf (1 << j) - 1 + k
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
@@ -801,22 +806,360 @@ nuts_wide_kernel(Glm p, NutsArgs a) {
   }
 }
 
-// ---- host side -------------------------------------------------------------
+// ---- the very-wide tile: kWideMax < d <= kXWideMax --------------------------
+// The same tree on glm_tile.cuh's very-wide layout, as hmc_xwide
+// (glm_hmc.cu) runs the HMC transitions: warp c holds chain c of the tile
+// and its lanes stride over the coordinates; each leaf's gradient is one
+// xwide_grad of the whole block (left out of line there).  Above 256
+// parameters the wide kernel's walker (3 D / 32 registers a lane, 96 at D
+// 1024) no longer fits beside the very-wide gradient, so no array of a
+// chain stays in registers:
+//
+// - the walker's position is the warp's row of sth in shared memory, where
+//   xwide_grad reads theta (a chain without a leaf to take copies its
+//   chosen state there);
+// - every other array of D floats (the walker's momentum and gradient, the
+//   chosen state, both edges, the proposal and the two checkpoint stacks:
+//   12 + 2 md of them) is a row of the block's slice of the scratch buffer,
+//   laid out [array][chain of the tile][coordinate], so that a warp's
+//   access of 32 coordinates is one 128-byte line and xwide_grad writes
+//   the gradient of all 16 chains into the walker's gradient array.  Only
+//   the warp that owns a row touches it, apart from that gradient, which
+//   the barrier at the end of xwide_grad hands over.
+//
+// Every per-chain scalar comes from values that are the same bits in all
+// 32 lanes: lp from xwide_grad, |m|^2 and the dot products of the span
+// checks and the u-turn from a loop over D in passes of 32 and a butterfly
+// (xw_sum, as xw_sq), the draws from the chain's own counters; so a warp
+// takes every branch of its chain together.  A leaf's bookkeeping moves a
+// few rows (a copy is 2 D floats a lane's pass; at most md span checks of
+// 3 D reads), against the gradient's 4 d N multiply-adds a chain.  The
+// slice is 2 MB a block at D 1024 and md 10 (277 MB over 132 blocks).
+enum XNutsArray { kWm = kWideFixed, kWg, kXNutsFixed };
 
-// Parameter bound of the NUTS kernels: the tile's (glm_tile.cuh), the
-// narrow tile up to d 32, the wide one up to kWideMax.
-int nuts_bound_for(int d) { return tile_bound_for(d); }
+size_t xwide_scratch_per_block(int D, int md) {
+  return sizeof(float) * kTileChains * (size_t)(kXNutsFixed + 2 * md) * D;
+}
+
+// The rows of the block's slice as warp c sees them: array k's row of
+// chain c.
+struct XRows {
+  float* slice;
+  int D, c;
+  __device__ __forceinline__ float* operator()(int k) const {
+    return slice + ((size_t)k * kTileChains + c) * D;
+  }
+  __device__ __forceinline__ float* ckp(int s) const {
+    return (*this)(kXNutsFixed + s);
+  }
+  __device__ __forceinline__ float* ckm(int s, int md) const {
+    return (*this)(kXNutsFixed + md + s);
+  }
+};
+
+// The sum of the lanes' partials s: the full-warp butterfly, the same bits
+// in every lane.  Every lane of the warp must call it.
+__device__ __forceinline__ float xw_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// Doubling T.j starts from the edge its direction points to (NUTS.jl:150):
+// the walker (wp, the momentum and gradient rows) loads it, and the
+// proposal seed is the walker.
+template <bool MS>
+__device__ __forceinline__ void xw_begin_doubling(WideTree& T,
+                                                  const NutsArgs& a,
+                                                  const XRows& S, float* wp,
+                                                  int c) {
+  T.dirn = direction<MS>(a, c, T.t, T.j);
+  const bool plus = T.dirn > 0.f;
+  const float* ep = S(plus ? kEp1 : kEp0);
+  const float* em = S(plus ? kEm1 : kEm0);
+  const float* eg = S(plus ? kEg1 : kEg0);
+  float *wm = S(kWm), *wg = S(kWg), *sp = S(kSp), *sg = S(kSg);
+  for (int j = threadIdx.x & 31; j < S.D; j += 32) {
+    const float pj = ep[j], gj = eg[j];
+    wp[j] = pj;
+    sp[j] = pj;
+    wm[j] = em[j];
+    wg[j] = gj;
+    sg[j] = gj;
+  }
+  T.wlp = plus ? T.elp1 : T.elp0;
+  T.slp = T.wlp;
+  T.n1 = 0.f;
+  T.lw1 = -CUDART_INF_F;
+  T.ok = true;
+  T.sdv = false;
+  T.k = 0;
+}
+
+// A new tree at the chosen state (rows kTh, kG, T.lp) with the momentum in
+// row kWm and the slice's log-uniform.  Every lane of the warp calls it.
+template <bool MS>
+__device__ __forceinline__ void xw_start_tree(WideTree& T, const NutsArgs& a,
+                                              const XRows& S, float logu,
+                                              float* wp, int c) {
+  const float *m = S(kWm), *th = S(kTh), *g = S(kG);
+  float *ep0 = S(kEp0), *ep1 = S(kEp1), *em0 = S(kEm0), *em1 = S(kEm1);
+  float *eg0 = S(kEg0), *eg1 = S(kEg1);
+  float s = 0.f;
+  for (int j = threadIdx.x & 31; j < S.D; j += 32) {
+    const float mj = m[j], tj = th[j], gj = g[j];
+    s = fmaf(mj, mj, s);
+    ep0[j] = tj;
+    ep1[j] = tj;
+    em0[j] = mj;
+    em1[j] = mj;
+    eg0[j] = gj;
+    eg1[j] = gj;
+  }
+  T.H0 = -T.lp + 0.5f * xw_sum(s);
+  T.u_slice = a.multinomial ? -T.H0 : logu - T.H0;  // NUTS.jl:141
+  T.elp0 = T.elp1 = T.lp;
+  T.ntot = 1.f;  // the initial point, weight exp(H0 - H0)
+  T.lwtot = 0.f;
+  T.nd = 0;
+  T.dv = false;
+  T.j = 0;
+  xw_begin_doubling<MS>(T, a, S, wp, c);
+}
+
+// Kernel 9's draws of transition t of chain c: the momenta into m (0 past
+// d) and the slice's log-uniform.
+__device__ __forceinline__ float xw_draw(const NutsArgs& a, int d, int D,
+                                         int c, int t, float* m) {
+  for (int j = threadIdx.x & 31; j < D; j += 32)
+    m[j] = j < d ? momentum(a.key, c, t, j) : 0.f;
+  return log_uniform(a.key, c, t);
+}
+
+// nuts_tile_kernel on the very-wide tile.  a.scratch holds gridDim.x
+// slices of xwide_scratch_per_block(D, md) bytes.
+template <bool MS>
+__global__ void __launch_bounds__(kTrajThreads, 1)
+nuts_xwide_kernel(Glm p, NutsArgs a) {
+  __shared__ int next_tile;
+  const XWide x = xwide_at(p);
+  const int oc = threadIdx.x >> 5, lane = threadIdx.x & 31, D = x.D;
+  float* const slice = a.scratch + (size_t)blockIdx.x *
+                                       (kXNutsFixed + 2 * a.md) *
+                                       kTileChains * D;
+  const XRows S{slice, D, oc};
+  float* const wp = x.sth + oc * (D + 4);  // the walker's position
+  float* const wm = S(kWm);
+  const float* const wg = S(kWg);
+  float* const gall = slice + (size_t)kWg * kTileChains * D;  // all 16 rows
+  xwide_init(p, x);
+  const int tiles = (a.C + kTileChains - 1) / kTileChains;
+  for (int tile = blockIdx.x; tile < tiles;) {
+    const int c = tile * kTileChains + oc;
+    const bool real = c < a.C;
+    const int cs = min(c, a.C - 1);  // warps past C shadow the last chain
+    WideTree T;
+    xw_load(S(kTh), D, a.th_in, cs, p.d);
+    xw_load(S(kG), D, a.g_in, cs, p.d);
+    T.lp = a.lp_in[cs];
+    T.t = 0;
+    float logu;
+    if (MS) {
+      logu = xw_draw(a, p.d, D, cs, 0, wm);
+    } else {
+      xw_load(wm, D, a.m0, cs, p.d);
+      logu = a.logu[cs];
+    }
+    xw_start_tree<MS>(T, a, S, logu, wp, cs);
+    T.run = real;
+
+    for (;;) {
+      if (!__syncthreads_or(T.run)) break;
+      // a half kick and a drift of the walker; a chain without a leaf to
+      // take puts its chosen state in the tile
+      const float es = T.dirn * a.eps;
+      if (T.run) {
+        for (int j = lane; j < D; j += 32) {
+          const float m = wm[j] + 0.5f * es * wg[j];
+          wm[j] = m;
+          wp[j] = wp[j] + es * m;
+        }
+      } else {
+        xw_copy(wp, S(kTh), D);
+      }
+      const float lp = xwide_grad(p, gall, true);
+      if (!T.run) continue;  // the warp's chain: uniform
+
+      T.wlp = lp;
+      float s = 0.f;
+      for (int j = lane; j < D; j += 32) {
+        const float m = wm[j] + 0.5f * es * wg[j];
+        wm[j] = m;
+        s = fmaf(m, m, s);
+      }
+      float H = -T.wlp + 0.5f * xw_sum(s);
+      if (isnan(H)) H = CUDART_INF_F;
+      const bool diverged = T.u_slice >= kDeltaMax - H;  // NUTS.jl:92
+      // reservoir draw, indexed by the transition-global leaf number
+      const float u_leaf = leaf_u<MS>(a, c, T.t, (1 << T.j) - 1 + T.k);
+      bool take;
+      if (a.multinomial) {
+        const float lw_leaf = diverged ? -CUDART_INF_F : T.H0 - H;
+        const float lw_new = logaddexp(T.lw1, lw_leaf);
+        take = !diverged && logf(u_leaf) < lw_leaf - lw_new;
+        T.lw1 = lw_new;
+        if (!diverged) T.n1 += 1.f;
+      } else {
+        const bool valid = T.u_slice <= -H;  // NUTS.jl:91
+        const float nf = T.n1 + (valid ? 1.f : 0.f);
+        take = valid && u_leaf * nf < 1.f;
+        T.n1 = nf;
+      }
+      if (take) {
+        xw_copy(S(kSp), wp, D);
+        xw_copy(S(kSg), wg, D);
+        T.slp = T.wlp;
+      }
+      if (diverged) {
+        T.sdv = true;
+        T.ok = false;
+      }
+      if ((T.k & 1) == 0) {  // checkpoint store at slot popcount(k)
+        const int sl = __popc(T.k);
+        xw_copy(S.ckp(sl), wp, D);
+        xw_copy(S.ckm(sl, a.md), wm, D);
+      } else {  // spans ending at odd k: slots popc(k >> 1) -
+                // trailing_ones(k) + 1 .. popc(k >> 1) (NUTS.jl:50)
+        const int hi = __popc(T.k >> 1);
+        for (int sl = hi - (__ffs(~T.k) - 1) + 1; sl <= hi; ++sl) {
+          const float *cp = S.ckp(sl), *cm = S.ckm(sl, a.md);
+          float da = 0.f, db = 0.f;
+          for (int j = lane; j < D; j += 32) {
+            const float dl = T.dirn * (wp[j] - cp[j]);
+            da = fmaf(dl, cm[j], da);
+            db = fmaf(dl, wm[j], db);
+          }
+          if (xw_sum(da) < 0.f || xw_sum(db) < 0.f) T.ok = false;
+        }
+      }
+      ++T.k;
+      if (T.ok && T.k < (1 << T.j)) continue;
+
+      // the doubling ends: the walker's end is the new edge, then the outer
+      // merge (NUTS.jl:160; biased progressive for multinomial) and the
+      // overall u-turn between the extreme states (NUTS.jl:165), whose dot
+      // products run in the same pass as the edge's store
+      const bool plus = T.dirn > 0.f;
+      float* ep = S(plus ? kEp1 : kEp0);
+      float* em = S(plus ? kEm1 : kEm0);
+      float* eg = S(plus ? kEg1 : kEg0);
+      const float* op = S(plus ? kEp0 : kEp1);
+      const float* om = S(plus ? kEm0 : kEm1);
+      float ua = 0.f, ub = 0.f;
+      for (int j = lane; j < D; j += 32) {
+        const float pj = wp[j], mj = wm[j], oj = op[j], omj = om[j];
+        ep[j] = pj;
+        em[j] = mj;
+        eg[j] = wg[j];
+        const float dp = plus ? pj - oj : oj - pj;
+        ua = fmaf(dp, plus ? omj : mj, ua);
+        ub = fmaf(dp, plus ? mj : omj, ub);
+      }
+      (plus ? T.elp1 : T.elp0) = T.wlp;
+      const float u = merge_u<MS>(a, c, T.t, T.j);
+      bool merge;
+      if (a.multinomial) {
+        merge = T.ok && logf(u) < T.lw1 - T.lwtot;
+        if (T.ok) T.lwtot = logaddexp(T.lwtot, T.lw1);
+      } else {
+        merge = T.ok && u * T.ntot < T.n1;
+      }
+      if (merge) {
+        xw_copy(S(kTh), S(kSp), D);
+        xw_copy(S(kG), S(kSg), D);
+        T.lp = T.slp;
+      }
+      T.ntot += T.n1;
+      const bool turned = xw_sum(ua) < 0.f || xw_sum(ub) < 0.f;
+      T.nd += 1;
+      T.dv = T.dv || T.sdv;
+      ++T.j;
+      if (T.ok && !turned && T.j < a.md) {
+        xw_begin_doubling<MS>(T, a, S, wp, c);
+        continue;
+      }
+      T.run = false;
+      if (!MS) continue;
+
+      // kernel 9: the tree ended; write its transition's rows and, while
+      // transitions remain, start the next one at once.  The transition
+      // started where the last one's row (or th_in) stands.
+      const size_t row = (size_t)T.t * a.C + c;
+      const float* th0 =
+          T.t ? a.r_th + (row - a.C) * p.d : a.th_in + (size_t)c * p.d;
+      const float* th = S(kTh);
+      bool moved = false;
+      for (int j = lane; j < p.d; j += 32) moved = moved || th[j] != th0[j];
+      moved = __any_sync(0xffffffffu, moved);
+      xw_store(a.r_th, row, p.d, th);
+      xw_store(a.r_g, row, p.d, S(kG));
+      if (lane == 0) {
+        a.r_lp[row] = T.lp;
+        a.r_acc[row] = moved ? 1 : 0;
+        a.r_nd[row] = T.nd;
+        a.r_div[row] = T.dv ? 1 : 0;
+      }
+      if (++T.t < a.k_trans) {
+        logu = xw_draw(a, p.d, D, c, T.t, wm);
+        xw_start_tree<MS>(T, a, S, logu, wp, c);
+        T.run = true;
+      }
+    }
+
+    if (real) {
+      xw_store(a.th_out, c, p.d, S(kTh));
+      xw_store(a.g_out, c, p.d, S(kG));
+      if (lane == 0) {
+        a.lp_out[c] = T.lp;
+        if (!MS) {
+          a.nd_out[c] = T.nd;
+          a.div_out[c] = T.dv ? 1 : 0;
+        }
+      }
+    }
+    // the tile queue, as nuts_tile_kernel takes it
+    if (threadIdx.x == 0) {
+      const int ticket = atomicAdd(a.queue, 1);
+      if (ticket == tiles - 1) *a.queue = 0;
+      next_tile = gridDim.x + ticket;
+    }
+    __syncthreads();
+    tile = next_tile;
+  }
+}
+
+// ---- host side -------------------------------------------------------------
 
 // The shared-memory plan at (D, N, md): on the narrow tile traj_grad's,
 // with the two checkpoint stacks of md slots as the kernel's own; on the
-// wide tile wide_plan's (the stacks live in the scratch buffer).
+// wide tile wide_plan's and on the very-wide one xwide_plan's (the stacks
+// live in the scratch buffer).
 TrajPlan nuts_plan(int D, int N, int md) {
+  if (D > kWideMax) return xwide_plan(D);
   if (D > kNarrowMax) return wide_plan(D, N);
   return traj_plan(D, N, 2 * sizeof(float) * (size_t)md * kTileChains * D);
 }
 
+// Bytes of one block's slice of the tree's scratch at (D, md): none on the
+// narrow tile.
+size_t nuts_scratch_per_block(int D, int md) {
+  return D > kWideMax     ? xwide_scratch_per_block(D, md)
+         : D > kNarrowMax ? wide_scratch_per_block(D, md)
+                          : 0;
+}
+
 bool nuts_args_ok(int d, int N, int kind, const NutsArgs& a) {
-  return nuts_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
+  return hmc_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
          a.md >= 1 && a.md <= kMaxDoublings && a.k_trans >= 1;
 }
 
@@ -824,14 +1167,16 @@ template <bool MS>
 using NutsKernel = void (*)(Glm, NutsArgs);
 
 // The kernel at bound D: the narrow tile's instantiation for D <= 32, the
-// wide tile's above (D a run-time value there).
+// wide tile's up to kWideMax and the very-wide tile's above (D a run-time
+// value on both).
 template <bool MS>
 NutsKernel<MS> nuts_kernel_for(int D) {
   switch (D) {
     case 8: return nuts_tile_kernel<8, MS>;
     case 16: return nuts_tile_kernel<16, MS>;
     case 32: return nuts_tile_kernel<32, MS>;
-    default: return nuts_wide_kernel<MS>;
+    default:
+      return D > kWideMax ? nuts_xwide_kernel<MS> : nuts_wide_kernel<MS>;
   }
 }
 
@@ -855,15 +1200,15 @@ cudaError_t sm_count(int* sms) {
 }
 
 // Launch the kernel of bound D: persistent blocks, as many as fit at once
-// (and, on the wide tile, as many as the scratch buffer of scratch_bytes
-// holds slices for).
+// (and, on the wide and very-wide tiles, the scratch buffer of
+// scratch_bytes must hold a slice for each).
 template <bool MS>
 int launch_nuts(const float* xt, const float* y, const float* w,
                 const float* o, const float* lamv, const float* lamm, int N,
                 int d, int kind, float lam, const NutsArgs& a,
                 long long scratch_bytes, void* stream) {
   if (!nuts_args_ok(d, N, kind, a)) return (int)cudaErrorInvalidValue;
-  const int D = nuts_bound_for(d);
+  const int D = hmc_bound_for(d);
   const TrajPlan tp = nuts_plan(D, N, a.md);
   if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
@@ -876,7 +1221,7 @@ int launch_nuts(const float* xt, const float* y, const float* w,
   const int blocks = min(tiles, sms * max(per_sm, 1));
   if (D > kNarrowMax &&
       (!a.scratch || (size_t)scratch_bytes <
-                         blocks * wide_scratch_per_block(D, a.md)))
+                         blocks * nuts_scratch_per_block(D, a.md)))
     return (int)cudaErrorInvalidValue;
   nuts_kernel_for<MS>(D)<<<blocks, kTrajThreads, tp.smem,
                            (cudaStream_t)stream>>>(p, a);
@@ -889,7 +1234,7 @@ extern "C" {
 
 int nuts_max_doublings() { return kMaxDoublings; }
 
-int nuts_max_dim() { return kWideMax; }
+int nuts_max_dim() { return kXWideMax; }
 
 const char* nuts_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -974,7 +1319,7 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
 // CUDA error code.
 int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
                   int* resident, long long* scratch_bytes) {
-  const int D = nuts_bound_for(d);
+  const int D = hmc_bound_for(d);
   if (!D || N < 1 || md < 1 || md > kMaxDoublings)
     return (int)cudaErrorInvalidValue;
   const TrajPlan tp = nuts_plan(D, N, md);
@@ -986,10 +1331,8 @@ int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
   if (e == cudaSuccess) e = nuts_occupancy<false>(D, tp, blocks_per_sm);
   if (e == cudaSuccess) e = nuts_occupancy<true>(D, tp, &per_ms);
   if (e != cudaSuccess) return (int)e;
-  *scratch_bytes =
-      D > kNarrowMax ? (long long)sms * max(max(*blocks_per_sm, per_ms), 1) *
-                           (long long)wide_scratch_per_block(D, md)
-                     : 0;
+  *scratch_bytes = (long long)sms * max(max(*blocks_per_sm, per_ms), 1) *
+                   (long long)nuts_scratch_per_block(D, md);
   return 0;
 }
 

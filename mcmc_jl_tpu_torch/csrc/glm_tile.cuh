@@ -2,7 +2,8 @@
 // kernels (glm_hmc.cu: trajectory, step, multistep and the Halton
 // multistep rows), the N-tiled kernel
 // (glm_bign.cu partial_tile_kernel) and the two NUTS kernels (glm_nuts.cu
-// nuts_tile_kernel; above d 32 nuts_wide_kernel on the wide tile).
+// nuts_tile_kernel; above d 32 nuts_wide_kernel on the wide tile, above d
+// 256 nuts_xwide_kernel on the very-wide tile).
 // traj_grad is one gradient of a tile's 16 chains with the rows split over
 // 16 warps: the HMC kernels take one per drift, the NUTS kernels one per
 // leaf.  After it come the per-chain helpers of those
@@ -23,11 +24,15 @@
 // fragment of that order.  No shuffle, no trip through shared memory.
 //
 // Float32 accuracy from TF32 tensor cores (3xTF32): every operand is split
-// a = a_hi + a_lo with both parts truncated to TF32, and a product is
-// a_hi b_hi + a_hi b_lo + a_lo b_hi with float32 accumulators; the dropped
-// a_lo b_lo is about 2^-22 of the product, below float32 rounding of the
-// sums.  The small terms accumulate apart from the large one (two
-// accumulators), which also halves the dependent chain of mma latencies.
+// a = a_hi + a_lo with both parts rounded to the nearest TF32, and a
+// product is a_hi b_hi + a_hi b_lo + a_lo b_hi with float32 accumulators;
+// the dropped a_lo b_lo is at most 2^-22 of the product and of either
+// sign, below float32 rounding of the sums.  (Truncated parts would drop
+// terms of the product's own sign: every product shrinks by about 2^-21,
+// a bias that exp() of a Poisson link turns into gradient errors several
+// times float32's.)  The small terms accumulate apart from the large one
+// (two accumulators), which also halves the dependent chain of mma
+// latencies.
 // X is split once, when it is staged in shared memory, into hi and lo rows
 // of stride D + 4 floats: with that stride the fragment loads of both
 // products hit 32 distinct banks.  d is padded to D = 8, 16 or 32 with zero
@@ -84,7 +89,7 @@ __host__ __device__ constexpr int raw_row_floats(int D) { return D + 3; }
 // A staged tile of `cap` rows (cap a multiple of 8) in shared memory.
 struct Rows {
   float* xh;  // (cap, D + 4): TF32 high part of x
-  float* xl;  // (cap, D + 4): TF32 low part, x - hi truncated to TF32
+  float* xl;  // (cap, D + 4): TF32 low part, x - hi rounded to TF32
   float* y;   // (cap,)
   float* w;   // (cap,)  1 without weights, 0 past the tile's end
   float* o;   // (cap,)  0 without offsets
@@ -97,13 +102,24 @@ __device__ __forceinline__ Rows rows_at(float* base, int cap) {
   return Rows{base, base + cap * S, v, v + cap, v + 2 * cap};
 }
 
-// x = hi + lo + O(2^-22 |x|): hi is x truncated to TF32 (its 10 leading
-// mantissa bits), lo the exact remainder x - hi truncated the same way.
-// Two bit masks and a subtraction, where cvt.rna.tf32 costs more.
+// x rounded to the nearest TF32 (its 10 leading mantissa bits), ties away
+// from zero, as cvt.rna.tf32.f32 rounds: add half of the dropped bits'
+// weight to the magnitude and clear them.  Two integer operations: on an
+// H100, cvt.rna.tf32 made the very-wide kernels 18% slower and a guard
+// that keeps infinities 35% (a non-finite x gives a NaN product either
+// way).
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + e with |e| <= 2^-22 |x| of either sign: hi is x rounded to
+// TF32, lo the exact remainder x - hi rounded the same way (left unrounded,
+// the tensor cores would truncate it: an error twice as large, which the
+// narrow tile's Poisson gradients show).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
 }
 
 // c += a b on one m16n8k8 TF32 tile, float32 accumulators.
@@ -114,6 +130,30 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32 through a zeroed accumulator: the three products
+// (small ones first) summed on the tensor cores, then added to c by one
+// float32 addition a element, which rounds to nearest.  The tensor cores
+// round their sums toward zero, so a long chain of mma into one
+// accumulator loses about half an ulp of the running sum a step, all of
+// one sign; here each step loses that only on its own terms.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  float t[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+      : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh0), "r"(bh1),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+  mma_tf32(t, ah, bl0, bl1);
+  mma_tf32(t, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
 }
 
 // Split x into the hi and lo rows of a staged tile.
@@ -1112,8 +1152,10 @@ __device__ __forceinline__ void wide_prior_grad(const Glm& p, const Wide& w,
 //   R to rbuf, its ll into its double registers.
 // - Stage 2, G += R X: warp w takes the n-blocks w + 16 i (i < kXUnits: 8
 //   at D 1024) over all the tile's row groups, one float32 accumulator a
-//   unit (the three 3xTF32 products into one sum: 32 registers where two
-//   would take 64).  No row splits, so each G element has one owner: no
+//   unit (32 registers where a big and a small one would take 64); each
+//   row group's three 3xTF32 products are summed apart and added to it
+//   rounded to nearest (mma_3xtf32), as the matrix prior's k-blocks are.
+//   No row splits, so each G element has one owner: no
 //   partial sums in shared memory, no atomics, the same bits on every
 //   launch.  At the end of a gradient the owners apply the prior in their
 //   fragment layout (with a (d, d) matrix A one more block product on the
@@ -1133,9 +1175,9 @@ constexpr int kXUnits = kXWideMax / 8 / kTrajWarps;  // stage-2 n-blocks a warp
 constexpr int kXArrays = 4;       // theta, g, m, g': a chain's slot rows
 constexpr int kXFlushRows = 256;  // N-tiled kernel: rows between flushes
 
-// Parameter bound of the HMC and N-tiled kernels: tile_bound_for's up to
-// kWideMax, above it d padded to a multiple of 32 up to kXWideMax; 0 where
-// no tile takes d.  (The NUTS kernels keep tile_bound_for.)
+// Parameter bound of the HMC, N-tiled and NUTS kernels: tile_bound_for's
+// up to kWideMax, above it d padded to a multiple of 32 up to kXWideMax; 0
+// where no tile takes d.
 int hmc_bound_for(int d) {
   return d > kWideMax && d <= kXWideMax ? (d + 31) & ~31 : tile_bound_for(d);
 }
@@ -1328,9 +1370,7 @@ __device__ __forceinline__ void xwide_stage2(const XWide& x, const float* xb,
         uint32_t bh0, bl0, bh1, bl1;
         split_tf32(x0[8 * nb], bh0, bl0);
         split_tf32(x0[XS + 8 * nb], bh1, bl1);
-        mma_tf32(ga[i], rl, bh0, bh1);
-        mma_tf32(ga[i], rh, bl0, bl1);
-        mma_tf32(ga[i], rh, bh0, bh1);
+        mma_3xtf32(ga[i], rh, rl, bh0, bh1, bl0, bl1);
       }
     }
   }
@@ -1421,9 +1461,7 @@ __device__ __forceinline__ void xwide_prior(const Glm& p, const XWide& x,
         uint32_t bh0, bl0, bh1, bl1;
         split_tf32(cin && k0 < p.d ? __ldg(a0 + col) : 0.f, bh0, bl0);
         split_tf32(cin && k1 < p.d ? __ldg(a0 + p.d + col) : 0.f, bh1, bl1);
-        mma_tf32(pa[i], al, bh0, bh1);
-        mma_tf32(pa[i], ah, bl0, bl1);
-        mma_tf32(pa[i], ah, bh0, bh1);
+        mma_3xtf32(pa[i], ah, al, bh0, bh1, bl0, bl1);
       }
     }
   }

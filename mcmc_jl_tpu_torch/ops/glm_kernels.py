@@ -49,7 +49,6 @@ import ctypes
 import functools
 import math
 
-import numpy as np
 import torch
 
 from ..samplers.chees import halton2
@@ -58,15 +57,15 @@ from . import philox
 from .cuda_build import count, scratch_buffer
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
-#: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
-#: kernel (4) take (csrc/glm_tile.cuh kXWideMax: the very-wide tile's bound)
+#: largest parameter count the HMC kernels (1, 2, 3, 3b), the N-tiled
+#: kernel (4) and the exact-NUTS kernels (8, 9; nuts_kernels.NUTS_D_MAX)
+#: take (csrc/glm_tile.cuh kXWideMax: the very-wide tile's bound)
 D_MAX = 1024
 #: largest parameter count of the narrow chain tile (csrc/glm_tile.cuh
 #: kNarrowMax)
 NARROW_D_MAX = 32
 #: largest parameter count of the wide chain tile (csrc/glm_tile.cuh
-#: kWideMax), which is also the exact-NUTS kernels' bound
-#: (nuts_kernels.NUTS_D_MAX); above it the very-wide tile
+#: kWideMax); above it the very-wide tile
 WIDE_D_MAX = 256
 #: Philox draw number of the MH (or slice) uniform of one (chain,
 #: transition) of the multistep kernels (csrc/glm_tile.cuh kSliceDraw); the
@@ -327,18 +326,23 @@ def glm_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
     of draw j // 2, log u is log(1 - u) of draw ``SLICE_DRAW``
     (csrc/glm_tile.cuh ``momentum``, ``log_uniform``; the multistep NUTS
     kernel draws its momenta and slice the same way).  Within a few float32
-    ulps of the kernel's values."""
-    c = np.arange(C, dtype=np.uint32)[None, :, None]
-    t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
-    b = philox.philox4x32(
-        (c, t, np.arange((d + 1) // 2, dtype=np.uint32), 0), seed)
+    ulps of the kernel's values.  The replay runs on ``device``."""
+    ar = _arange_for(device)
+    c, t = ar(0, C)[None, :, None], ar(i0, i0 + k_trans)[:, None, None]
+    b = philox.philox4x32((c, t, ar(0, (d + 1) // 2), 0), seed)
     # one draw a pair of coordinates: 2 jh from words 0, 1, 2 jh + 1 from 2, 3
-    m0 = np.stack([philox.box_muller(b[0], b[1]),
-                   philox.box_muller(b[2], b[3])], axis=-1).reshape(
+    m0 = torch.stack([philox.box_muller(b[0], b[1]),
+                      philox.box_muller(b[2], b[3])], -1).reshape(
         k_trans, C, -1)[..., :d]
     logu = philox.log1m_u01(philox.philox4x32(
         (c[..., 0], t[..., 0], SLICE_DRAW, 0), seed)[0])
-    return tuple(torch.from_numpy(a).to(device) for a in (m0, logu))
+    return m0.contiguous(), logu.contiguous()
+
+
+def _arange_for(device):
+    """The int64 arange of a replay's counters on ``device``."""
+    return lambda lo, hi: torch.arange(lo, hi, dtype=torch.int64,
+                                       device=device)
 
 
 def _draw(theta, generator):
@@ -468,11 +472,10 @@ def _sched(integrator):
     return ops, cs, len(schedule)
 
 
-def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None,
-           d_max=D_MAX):
+def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
     """Validate what the kernel takes: ``states`` (name -> tensor) must be
     (C, d) and ``per_chain`` ones (C,), with C from ``theta``, and d at most
-    the kernel's bound ``d_max``.
+    the kernels' bound :data:`D_MAX`.
     Returns (N, d, C, flat W, flat O)."""
     if kind not in KIND_CODES:
         raise ValueError(f"{name}: the CUDA kernel takes the links "
@@ -481,8 +484,8 @@ def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None,
     if XT.ndim != 2:
         raise ValueError(f"{name}: XT must be (d, N), got {tuple(XT.shape)}")
     d, N = XT.shape
-    if not 1 <= d <= d_max:
-        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{d_max}")
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{D_MAX}")
     C = states["theta"].shape[0] if states["theta"].ndim else 0
     per_chain = per_chain or {}
     obs = {"Y": _row(Y), "weights": _row(weights), "offsets": _row(offsets)}

@@ -38,8 +38,11 @@ doubling j.  The GLM prior precision is a scalar, a (d,) row (the diagonal
 metric fold of the warm-start pipeline) or a symmetric (d, d) matrix (the
 dense fold; such launches count as ``<name>_mat``).  The GLM kernels take
 d up to :data:`NUTS_D_MAX`: on the narrow tile up to ``NARROW_D_MAX``,
-above it on the wide tile, whose launches count as ``<name>_wide`` (and
-``<name>_mat_wide``) and keep the tree's state in a scratch buffer that
+above it on the wide tile up to ``WIDE_D_MAX``, whose launches count as
+``<name>_wide`` (and ``<name>_mat_wide``), and above that on the very-wide
+tile, counted as ``<name>_xwide`` (and ``<name>_mat_xwide``).  The wide
+and very-wide kernels keep the tree's state (on the very-wide tile the
+walker's momentum and gradient too) in a scratch buffer that
 :func:`_scratch` allocates once for each device, stream, width and depth.
 On a catalog target the frozen diagonal metric rides the step instead, as a
 (d,) row ``eps * s``, and a dense one is the factor of a
@@ -59,25 +62,23 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
-                          _check, _counted, _device_branch, _prior,
-                          _prior_args, _ptr, _row, glm_funcs,
+from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
+                          _arange_for, _check, _counted, _device_branch,
+                          _prior, _prior_args, _ptr, _row, glm_funcs,
                           glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
 from .cuda_build import count, scratch_buffer
 
-#: largest parameter count of the GLM NUTS kernels (8, 9): the wide tile's
-#: bound (csrc/glm_nuts.cu nuts_max_dim, csrc/glm_tile.cuh kWideMax); the
-#: HMC kernels take GLMs up to glm_kernels.D_MAX on the very-wide tile,
-#: which the NUTS kernels do not run on yet
-NUTS_D_MAX = 256
+#: largest parameter count of the GLM NUTS kernels (8, 9): the HMC
+#: kernels' glm_kernels.D_MAX, the very-wide tile's bound (csrc/glm_nuts.cu
+#: nuts_max_dim, csrc/glm_tile.cuh kXWideMax)
+NUTS_D_MAX = D_MAX
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10
@@ -86,17 +87,19 @@ MAX_DOUBLINGS = 10
 LANE_D_MAX = 32
 #: Philox draw numbers of one (chain, transition) in
 #: :func:`glm_nuts_multistep` (csrc/glm_nuts.cu): the momenta take
-#: 0 .. d/2 - 1 (two normals a draw) and the slice uniform ``SLICE_DRAW``,
-#: as in :func:`.glm_kernels.glm_multistep_draws`; doubling j's direction
-#: and merge uniform ``DIR_DRAW + j`` and ``MERGE_DRAW + j``; leaf
-#: ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that
-DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x100, 0x200, 0x10000
+#: 0 .. d/2 - 1 (two normals a draw; below 512 up to NUTS_D_MAX) and the
+#: slice uniform ``SLICE_DRAW``, as in
+#: :func:`.glm_kernels.glm_multistep_draws`; doubling j's direction and
+#: merge uniform ``DIR_DRAW + j`` and ``MERGE_DRAW + j``; leaf
+#: ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that: five disjoint ranges at
+#: every d the kernels take
+DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x400, 0x500, 0x10000
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition", "target_nuts_transition_dense")
 _GLM = ("glm_nuts_transition", "glm_nuts_multistep")
 LAUNCHES = dict.fromkeys(_NAMES + tuple(n + v for n in _GLM for v in (
-    "_mat", "_wide", "_mat_wide")), 0)
+    "_mat", "_wide", "_mat_wide", "_xwide", "_mat_xwide")), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -271,19 +274,18 @@ def glm_nuts_multistep_draws(seed, C, d, k_trans, maxdoublings, i0=0,
     normals and log-uniforms lie within a few float32 ulps of the
     kernel's."""
     md = _check_md(maxdoublings)
-    c = np.arange(C, dtype=np.uint32)[None, :, None]
-    t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
+    ar = _arange_for(device)
+    c, t = ar(0, C)[None, :, None], ar(i0, i0 + k_trans)[:, None, None]
 
-    def u(draws):  # 1 - U[0, 1): the kernel's uniform in (0, 1]
-        b = philox.philox4x32((c, t, np.asarray(draws, np.uint32), 0), seed)
-        return (1.0 - philox.u01(b[0])).astype(np.float32)
+    def u(lo, n):  # draws lo .. lo + n - 1: the kernel's uniform in (0, 1]
+        return philox.uniform(philox.philox4x32((c, t, ar(lo, lo + n), 0),
+                                                seed)[0])
 
-    steps = np.arange(md, dtype=np.uint32)
-    dirn = np.where(u(DIR_DRAW + steps) < 0.5, -1.0, 1.0).astype(np.float32)
-    out = (dirn, u(MERGE_DRAW + steps),
-           u(LEAF_DRAW + np.arange(1 << md, dtype=np.uint32)))
+    merge = u(MERGE_DRAW, md)
+    dirn = (u(DIR_DRAW, md) < 0.5) * -2.0 + 1.0  # -1 where u < 0.5, else 1
+    out = (dirn, merge, u(LEAF_DRAW, 1 << md))
     return (glm_multistep_draws(seed, C, d, k_trans, i0, device)
-            + tuple(torch.from_numpy(a).to(device) for a in out))
+            + tuple(a.float().contiguous() for a in out))
 
 
 def glm_nuts_multistep_ref(XT, Y, theta, lp, grad, eps, generator, *,
@@ -378,9 +380,10 @@ _SCRATCH = {}
 
 
 def _scratch(dev, d, N, md):
-    """(buffer, bytes) of the wide tile's tree state on ``dev``'s current
-    stream: one float32 buffer for each (device, stream, D, md), allocated
-    once and grown when a plan needs more (the kernel checks its size).
+    """(buffer, bytes) of the wide and very-wide tiles' tree state on
+    ``dev``'s current stream: one float32 buffer for each (device, stream,
+    D, md), allocated once and grown when a plan needs more (the kernel
+    checks its size; 277 MB at d 1024 and md 10 on an H100's 132 SMs).
     (None, 0) on the narrow tile, which keeps the tree in shared memory."""
     if d <= NARROW_D_MAX:
         return None, 0
@@ -393,9 +396,9 @@ def _scratch(dev, d, N, md):
 def nuts_plan(d, N, maxdoublings):
     """How the NUTS kernels run at (d, N, maxdoublings) on the card:
     {"blocks_per_sm", "smem_bytes", "resident", "scratch_bytes"} (resident:
-    every row stays in shared memory; scratch_bytes: the wide tile's tree
-    state for as many blocks as a launch runs at once, 0 on the narrow
-    tile)."""
+    every row stays in shared memory, never on the very-wide tile;
+    scratch_bytes: the wide and very-wide tiles' tree state for as many
+    blocks as a launch runs at once, 0 on the narrow tile)."""
     outs = [ctypes.c_int() for _ in range(3)] + [_LL()]
     code = load_kernels().glm_nuts_plan(d, N, _check_md(maxdoublings),
                                         *[ctypes.byref(o) for o in outs])
@@ -438,7 +441,7 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     lp, logu = lp.reshape(-1), logu.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad, "m0": m0},
-                           {"lp": lp, "logu": logu}, d_max=NUTS_D_MAX)
+                           {"lp": lp, "logu": logu})
     _check_noise(name, C, md, theta.device, dirn=dirn, merge_u=merge_u,
                  leaf_u=leaf_u)
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
@@ -567,8 +570,7 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
         raise ValueError(f"{name}: k_trans must be >= 1, got {k_trans}")
     lp = lp.reshape(-1)
     N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
-                           {"theta": theta, "grad": grad}, {"lp": lp},
-                           d_max=NUTS_D_MAX)
+                           {"theta": theta, "grad": grad}, {"lp": lp})
     lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     dev = theta.device

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import philox
@@ -189,19 +188,19 @@ def rwm_draws(seed, C, d, k_steps, i0=0, device="cpu"):
     words 2 and 3 for {2, 3}, the cosine branch at even t and the sine
     branch at odd t; its log-uniform from word t % 4 of counter (chain,
     t // 4, 0, 3)."""
-    c = np.arange(C, dtype=np.uint32)[:, None, None]
-    t = np.arange(i0, i0 + k_steps, dtype=np.uint32)[None, :, None]
-    j = np.arange(d, dtype=np.uint32)
-    b = philox.philox4x32((c, t >> 2, j, 2), seed)
+    def ar(lo, hi):
+        return torch.arange(lo, hi, dtype=torch.int64, device=device)
+
+    c, t = ar(0, C)[:, None, None], ar(i0, i0 + k_steps)[None, :, None]
+    b = philox.philox4x32((c, t >> 2, ar(0, d), 2), seed)
     hi = (t & 2) != 0
-    cos, sin = philox.box_muller_pair(np.where(hi, b[2], b[0]),
-                                      np.where(hi, b[3], b[1]))
-    z = np.where((t & 1) != 0, sin, cos)
+    cos, sin = philox.box_muller_pair(torch.where(hi, b[2], b[0]),
+                                      torch.where(hi, b[3], b[1]))
+    z = torch.where((t & 1) != 0, sin, cos)
     tu = t[..., 0]
-    bu = philox.philox4x32((c[..., 0], tu >> 2, 0, 3), seed)
-    u = np.choose((tu & 3).astype(np.intp), bu)
-    return (torch.from_numpy(np.ascontiguousarray(z)).to(device),
-            torch.from_numpy(philox.log1m_u01(u)).to(device))
+    bu = torch.stack(philox.philox4x32((c[..., 0], tu >> 2, 0, 3), seed))
+    u = bu.gather(0, (tu & 3).expand(bu.shape[1:])[None])[0]
+    return z.contiguous(), philox.log1m_u01(u)
 
 
 def _run(target, theta0, scale_row, generator, *, n_launches, k_steps,

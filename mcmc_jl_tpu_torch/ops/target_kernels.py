@@ -65,7 +65,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from ..models.distributions import (FAMILY_CODES, CatalogTarget, DenseTarget,
@@ -648,13 +647,13 @@ def target_multistep_draws(seed, C, d, k_trans, i0=0, device="cpu"):
     """The momenta (k, C, d) and MH log-uniforms (k, C) that
     :func:`target_multistep` draws under the launch seed ``seed``, replayed
     by :mod:`.philox` as ``noise`` for :func:`target_multistep_ref`."""
-    c = np.arange(C, dtype=np.uint32)[None, :, None]
-    t = np.arange(i0, i0 + k_trans, dtype=np.uint32)[:, None, None]
-    j = np.arange(d, dtype=np.uint32)
-    b = philox.philox4x32((c, t, j, 0), seed)
+    def ar(lo, hi):
+        return torch.arange(lo, hi, dtype=torch.int64, device=device)
+
+    c, t = ar(0, C)[None, :, None], ar(i0, i0 + k_trans)[:, None, None]
+    b = philox.philox4x32((c, t, ar(0, d), 0), seed)
     bu = philox.philox4x32((c[..., 0], t[..., 0], 0, 1), seed)
-    return (torch.from_numpy(philox.box_muller(b[0], b[1])).to(device),
-            torch.from_numpy(philox.log1m_u01(bu[0])).to(device))
+    return philox.box_muller(b[0], b[1]), philox.log1m_u01(bu[0])
 
 
 # ---- drivers ---------------------------------------------------------------

@@ -257,15 +257,14 @@ def _target_eligible(task):
 
 
 def _kernel_shape_ok(model, route, sampler):
-    """What the ported kernels take on ``route``: on a GLM a built-in link,
-    d <= D_MAX on the "hmc" and "warm" routes (kernels 1-4: the narrow tile
-    up to NARROW_D_MAX, the wide tile up to WIDE_D_MAX, the very-wide tile
-    above), and for exact NUTS d <= NUTS_D_MAX (kernels 8 and 9, on the
-    narrow and wide tiles) and N <= BIGN_THRESHOLD; on a catalog target d
+    """What the ported kernels take on ``route``: on a GLM a built-in link
+    and d <= D_MAX (kernels 1-4, 8 and 9: the narrow tile up to
+    NARROW_D_MAX, the wide tile up to WIDE_D_MAX, the very-wide tile
+    above), and for exact NUTS N <= BIGN_THRESHOLD; on a catalog target d
     <= the target kernels' D_MAX; for exact NUTS maxdoublings <=
     MAX_DOUBLINGS.  None when they do, else the reason."""
     from ..ops.glm_kernels import D_MAX, KIND_CODES
-    from ..ops.nuts_kernels import MAX_DOUBLINGS, NUTS_D_MAX
+    from ..ops.nuts_kernels import MAX_DOUBLINGS
 
     if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
         return (f"maxdoublings = {sampler.maxdoublings} > {MAX_DOUBLINGS}, "
@@ -290,9 +289,6 @@ def _kernel_shape_ok(model, route, sampler):
     if d > D_MAX:
         return (f"d = {d} > {D_MAX}, the GLM kernels' bound (ROADMAP: GLMs "
                 f"wider than {D_MAX} parameters)")
-    if route == "nuts" and d > NUTS_D_MAX:
-        return (f"d = {d} > {NUTS_D_MAX}, the NUTS kernels' bound (ROADMAP: "
-                f"exact NUTS on GLMs wider than {NUTS_D_MAX} parameters)")
     return None
 
 

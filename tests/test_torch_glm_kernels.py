@@ -318,9 +318,8 @@ def test_wrapper_refuses_other_devices():
 def test_kernel_input_checks(bad):
     """What the CUDA wrappers refuse, checked before any launch: a state
     that is not (C, d) would make the kernel read past its end; d past the
-    kernel's bound (1024 for kernels 1-4, whose very-wide tile takes d 257
-    to 1024; 256 for kernels 8 and 9, whose wide tile takes d 33 to 256)
-    has no instantiation."""
+    kernel's bound (1024 for kernels 1-4, 8 and 9, whose very-wide tile
+    takes d 257 to 1024) has no instantiation."""
     N, d, C = 20, 3, 4
     XT, Y = torch.zeros(d, N), torch.zeros(N)
     th, m, lp = torch.zeros(C, d), torch.zeros(C, d), torch.zeros(C)
@@ -339,13 +338,13 @@ def test_kernel_input_checks(bad):
                    "m0": torch.zeros(C, gk.D_MAX)}, {"lp": lp})
         XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
         m = torch.zeros(C, gk.D_MAX + 1)
-    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33, refuses 257
+    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33-1024, not 1025
         name, d_max = "glm_nuts_transition", nk.NUTS_D_MAX
-        assert d_max == 256
-        for dd in (33, d_max):
+        assert d_max == gk.D_MAX == 1024
+        for dd in (33, 257, d_max):
             gk._check(name, torch.zeros(dd, N), Y, None, None, kind,
                       {"theta": torch.zeros(C, dd), "m0": torch.zeros(C, dd)},
-                      {"lp": lp}, d_max=d_max)
+                      {"lp": lp})
         XT, th = torch.zeros(d_max + 1, N), torch.zeros(C, d_max + 1)
         m = torch.zeros(C, d_max + 1)
     elif bad == "link":
@@ -362,7 +361,7 @@ def test_kernel_input_checks(bad):
         lp = torch.zeros(C, d)
     with pytest.raises(ValueError):
         gk._check(name, XT, Y, None, None, kind, {"theta": th, "m0": m},
-                  {"lp": lp}, d_max=d_max)
+                  {"lp": lp})
 
 
 def test_kernels_match_plain_on_card():

@@ -4,7 +4,7 @@ package's Pallas kernels (mcmc_jl_tpu/ops/pallas_glm.py,
 pallas_glm_bign.py) in interpret mode on the CPU, at d 257, 300 and 1024,
 on the same numpy inputs and injected or replayed noise; the routes that
 take such a GLM through ``run(..., chains=N)`` and ``resume(list)`` (the
-HMC family up to 1024 parameters, exact NUTS only up to 256); and one
+HMC family and exact NUTS up to 1024 parameters); and one
 continuation from the JAX package's adapted states carried over with
 ``utils.convert``.
 
@@ -239,12 +239,12 @@ def test_tiled_ref_matches_pallas_xwide(case, d):
 
 
 def test_xwide_bounds_and_counters():
-    """The HMC and N-tiled kernels take d up to 1024 (D_MAX), the exact-NUTS
-    kernels up to 256 (their own NUTS_D_MAX); a launch above 256 counts
-    under ``<name>_xwide`` (``<name>_mat_xwide`` with a matrix prior); the
-    very-wide tile's scratch is allocated only above 256; the tiled
-    kernel's grid takes 16 chains a CTA there, as on the wide tile."""
-    assert gk.D_MAX == 1024 and gk.WIDE_D_MAX == nk.NUTS_D_MAX == 256
+    """The HMC, N-tiled and exact-NUTS kernels take d up to 1024 (D_MAX,
+    NUTS_D_MAX); a launch above 256 counts under ``<name>_xwide``
+    (``<name>_mat_xwide`` with a matrix prior); the very-wide tile's
+    scratch is allocated only above 256; the tiled kernel's grid takes 16
+    chains a CTA there, as on the wide tile."""
+    assert gk.D_MAX == nk.NUTS_D_MAX == 1024 and gk.WIDE_D_MAX == 256
     assert gk._counted("glm_step", None, 256) == "glm_step_wide"
     assert gk._counted("glm_step", None, 257) == "glm_step_xwide"
     assert (gk._counted("glm_multistep_rows", object(), 1024)
@@ -256,6 +256,10 @@ def test_xwide_bounds_and_counters():
         assert name + "_xwide" in gk.LAUNCHES
     assert {"glm_logp_grad_tiled_xwide",
             "glm_logp_grad_tiled_mat_xwide"} <= set(glm_bign.LAUNCHES)
+    for name in ("glm_nuts_transition", "glm_nuts_multistep"):
+        assert {name + "_xwide", name + "_mat_xwide"} <= set(nk.LAUNCHES)
+        assert gk._counted(name, object(), 1024) == name + "_mat_xwide"
+    assert nk._scratch("cpu", 32, 1000, 6) == (None, 0)
     assert gk._slots("cpu", 256, 4096) == (None, 0)
     assert glm_bign.splits_for(20_000, 512, 1024) == 8
     assert glm_bign.splits_for(20_000, 512, 1024) == \
@@ -264,13 +268,12 @@ def test_xwide_bounds_and_counters():
     for d in (257, 1024):
         gk._check("glm_step", torch.zeros(d, N), torch.zeros(N), None, None,
                   "logistic", {"theta": torch.zeros(C, d)})
-        with pytest.raises(ValueError, match="outside the kernel's 1..256"):
-            gk._check("glm_nuts_transition", torch.zeros(d, N),
-                      torch.zeros(N), None, None, "logistic",
-                      {"theta": torch.zeros(C, d)}, d_max=nk.NUTS_D_MAX)
-    with pytest.raises(ValueError, match="outside the kernel's 1..1024"):
-        gk._check("glm_step", torch.zeros(1025, N), torch.zeros(N), None,
-                  None, "logistic", {"theta": torch.zeros(C, 1025)})
+        gk._check("glm_nuts_transition", torch.zeros(d, N), torch.zeros(N),
+                  None, None, "logistic", {"theta": torch.zeros(C, d)})
+    for name in ("glm_step", "glm_nuts_transition"):
+        with pytest.raises(ValueError, match="outside the kernel's 1..1024"):
+            gk._check(name, torch.zeros(1025, N), torch.zeros(N), None,
+                      None, "logistic", {"theta": torch.zeros(C, 1025)})
 
 
 # ---- routes through run(..., chains=N) and resume(list) ---------------------
@@ -283,14 +286,13 @@ def _xwide_model(n=40, d=300, seed=90):
 def test_xwide_routes_and_reasons(caplog):
     """At d 257 and 1024 plain HMC routes to "hmc" (kernel 1's driver),
     adaptive HMC and the NUTS warm handoff to "warm" (3b, or 4 above
-    BIGN_THRESHOLD), and their continuations to "warm"; exact NUTS takes
-    the generic engine with the reason naming its item (exact NUTS on GLMs
-    wider than 256 parameters), its continuation too; at d 1025 every
-    route takes the generic engine with the reason naming GLMs wider than
-    1024 parameters."""
+    BIGN_THRESHOLD), and their continuations to "warm"; exact NUTS to
+    "nuts" (kernels 8 and 9 on the very-wide tile), its continuation too,
+    with no reason logged (none names exact NUTS on GLMs wider than 256
+    parameters any more); at d 1025 every route takes the generic engine
+    with the reason naming GLMs wider than 1024 parameters."""
     runner = mt.SerialMC(steps=60, burnin=20)
-    nuts_why = ("the NUTS kernels' bound (ROADMAP: exact NUTS on GLMs wider "
-                "than 256 parameters)")
+    nuts_why = "exact NUTS on GLMs wider than 256 parameters"
     wide_why = ("d = 1025 > 1024, the GLM kernels' bound (ROADMAP: GLMs "
                 "wider than 1024 parameters)")
     adaptive = mt.HMC(5, 0.1, mt.EmpMCTuner(0.8, adapt_step=20),
@@ -309,15 +311,16 @@ def test_xwide_routes_and_reasons(caplog):
             assert pchains.continuation_route(m, adaptive, 4, True) == (
                 "warm" if ok else False)
             assert pchains._route(MCMCTask(m, mt.NUTS(), runner),
-                                  True) is False
-            assert pchains.continuation_route(m, mt.NUTS(), 4, True) is False
+                                  True) == ("nuts" if ok else False)
+            assert pchains.continuation_route(m, mt.NUTS(), 4, True) == (
+                "nuts" if ok else False)
         text = [r.getMessage() for r in caplog.records]
+        assert nuts_why not in caplog.text
         if ok:
-            assert sum(nuts_why in t for t in text) == 2
-            assert f"d = {d} > 256" in caplog.text
+            assert f"d = {d} > 256" not in caplog.text
+            assert "generic torch engine" not in caplog.text
         else:
             assert sum(wide_why in t for t in text) == 6
-            assert nuts_why not in caplog.text
 
 
 def test_xwide_plain_and_adaptive_hmc_run_fused():
