@@ -58,7 +58,15 @@ at d 257, 512 and 1024, kernel 9's five draw ranges disjoint at d 1024
 the unit, diagonal and dense metrics and a resume, each held against
 kernel 1's HMC run; NUTS at d 1025 takes the generic engine with its
 reason (``phase_xwide_nuts_paths``); ``phase_xwide_nuts_times`` times
-the kernels at d 512 and 1024.  The dense metric on catalog
+the kernels at d 512 and 1024.  GLMs of 1025 to 16384 parameters run
+kernels 1, 2, 3, 3b and 4 (and the _mat variants) on the chunked tier:
+each is held against its plain version at d 1056, 2048 and 4096 (1 and 4
+also at 8192 and 16384; ``phase_chunked_kernels``), and logistic
+regressions of d 4096 (N 1000 and 20,000; the dense metric at d 2048)
+drive plain HMC, the drivers of 2 and 3, adaptive HMC with a diagonal and
+a dense metric and a resume, each held against the generic engine
+(``phase_chunked_paths``); ``phase_chunked_times`` times the kernels at
+d 4096.  The dense metric on catalog
 targets runs kernels 5 and 8b on the z-space target ``z -> target(z L')``
 (their DENSE instantiations): each is held against its plain version at d
 1-1024 (``phase_dense_target_kernels``), and dense ``NUTS(6)`` on the ten
@@ -116,7 +124,9 @@ and 5-7; the wide tile's at d 150 and 256 with the group ``wide``, its
 paths against the generic engine with ``wide_paths``, the wide NUTS
 kernels with ``wide_nuts`` and their paths with ``wide_nuts_paths``, the
 very-wide tile's at d 512 and 1024 and its paths' fused and generic
-seconds with ``xwide``, the very-wide NUTS kernels with ``xwide_nuts``) at
+seconds with ``xwide``, the very-wide NUTS kernels with ``xwide_nuts``,
+the chunked tier's at d 2048 and 4096 and its paths' fused and generic
+seconds with ``chunked``) at
 pinned shapes, the paths that run them and bench.py's drivers, to compare
 two trees on one card; ``python3 chip_smoke.py --sass`` prints the
 instruction mix of the HMC tile kernels' row loops.
@@ -205,6 +215,19 @@ REPLACES = {
                                   "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
     "glm_logp_grad_tiled_mat_xwide": ("glm_bign",
                                       "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    # the HMC-family kernels on the chunked tier (1024 < d <= 16384),
+    # counted apart
+    "glm_leapfrogs_chunked": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:244"),
+    "glm_step_chunked": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:282"),
+    "glm_multistep_chunked": ("glm_hmc", "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_multistep_rows_chunked": ("glm_hmc",
+                                   "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_multistep_rows_mat_chunked": ("glm_hmc",
+                                       "mcmc_jl_tpu/ops/pallas_glm.py:344"),
+    "glm_logp_grad_tiled_chunked": ("glm_bign",
+                                    "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
+    "glm_logp_grad_tiled_mat_chunked": (
+        "glm_bign", "mcmc_jl_tpu/ops/pallas_glm_bign.py:44"),
     # the exact-NUTS kernels on the very-wide tile (256 < d <= 1024),
     # counted apart
     "glm_nuts_transition_xwide": ("glm_nuts",
@@ -3384,7 +3407,8 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
       mass_adapt="diag") * SerialMC(1500, 500)`` at 4096 chains
       (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner, the
       unit-metric run's burn-in cut to 200, then 100, for the script's
-      time;
+      time; the diagonal run's burn-in cut to 250 froze eps 0.119, not
+      0.161, and missed the exact moments by |z| 5.75 on an H100;
       the diagonal metric needs its 500: at 300 it missed the exact
       moments at z 6.3): 1000 launches of kernel 8b each;
     - ``HMC(10, 0.02, EmpMCTuner(0.8, adapt_step=50), mass_adapt="diag") *
@@ -5034,26 +5058,36 @@ def phase_wide_path_times(chains=4096, chains_bign=512, steps=60, burnin=20,
 
 
 def _tier_times(tier, ds, at_d, N, Nb, C=4096, Cb=512, n_leaps=10, kt=8,
-                i0=501, reps=3):
-    """Per-call time of each kernel of ``tier`` ("wide" or "xwide": the
-    launch counters ``<name>_<tier>``, the kernels ``hmc_<tier>_kernel`` and
-    ``partial_<tier>_kernel``) at each d of ``ds``: kernels 1, 2, 3 (k_trans
-    ``kt``) and 3b (and _mat; ``kt`` transitions from i0 at WIDE_STEP_EPS
-    and T 10 eps, so about 10 leaps each) at N and C chains, kernel 4 (and
-    _mat) at Nb and Cb chains; with CUDA events (the wrapper's host work
-    included), torch.profiler's device time, the plain version on the card,
-    the bound (the repo's: 4 d N operations a chain-gradient at 3xTF32,
-    or the bytes) and the padding waste D / d.  Returns ({kernel: (ms,
-    plain ms)}, {kernel: bound}) at d ``at_d``."""
+                i0=501, reps=3, folds=None, symbols=None, width=None,
+                x_passes=None):
+    """Per-call time of each kernel of ``tier`` ("wide", "xwide" or
+    "chunked": the launch counters ``<name>_<tier>``, the kernels
+    ``hmc_<tier>_kernel`` and ``partial_<tier>_kernel`` unless ``symbols``
+    = (HMC kernel, N-tiled kernel) names them) at each d of ``ds``: kernels
+    1, 2, 3 (k_trans ``kt``) and 3b (and _mat; ``kt`` transitions from i0
+    at WIDE_STEP_EPS and T 10 eps, so about 10 leaps each) at N and C
+    chains, kernel 4 (and _mat) at Nb and Cb chains, on the designs of
+    ``folds`` (_wide_folds unless given); with CUDA events (the wrapper's
+    host work included), torch.profiler's device time, the plain version
+    on the card, the bound (the repo's: 4 d N operations a chain-gradient
+    at 3xTF32, or the bytes), the padding waste D / d (D = ``width(d)``, d
+    rounded up to 32 unless given) and, with ``x_passes``, the bytes of X
+    the tiles read a gradient (``x_passes`` reads of the N x D design by
+    each tile of 16 chains).  Returns ({kernel: (ms, plain ms)}, {kernel:
+    bound}) at d ``at_d``."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_bign as gb
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 
+    folds = folds or _wide_folds
+    hmc_sym, tiled_sym = symbols or (f"hmc_{tier}_kernel",
+                                     f"partial_{tier}_kernel")
+    width = width or (lambda d: -(-d // 32) * 32)
     ms, work = {}, {}
     for d in ds:
-        D = -(-d // 32) * 32
-        f = _wide_folds(N, d, C, seed=d + 9)
+        D = width(d)
+        f = folds(N, d, C, seed=d + 9)
         XT, Yc, th, _ = f["scalar"]
         rng = np.random.default_rng(d)
         m0 = _cuda(rng.standard_normal((C, d)))
@@ -5096,7 +5130,7 @@ def _tier_times(tier, ds, at_d, N, Nb, C=4096, Cb=512, n_leaps=10, kt=8,
                     XTf, Yc, thf, eps, T, i0, ml, k_trans=kt,
                     generator=gen(), prior_prec=lam),
                 (XTf, Yc, thf, lam), C * (1 + nls))
-        fb = _wide_folds(Nb, d, Cb, seed=d + 11, spread=0.3)
+        fb = folds(Nb, d, Cb, seed=d + 11, spread=0.3)
         for prior, name in (("scalar", f"glm_logp_grad_tiled_{tier}"),
                             ("matrix", f"glm_logp_grad_tiled_mat_{tier}")):
             XTb, Yb, thb, lam = fb[prior]
@@ -5111,12 +5145,15 @@ def _tier_times(tier, ds, at_d, N, Nb, C=4096, Cb=512, n_leaps=10, kt=8,
             nbytes = _nbytes(inputs, kern())
             bound = _bound(evals, d, n_obs, nbytes)
             t = (_event_ms(kern, reps=reps), _event_ms(plain, reps=2))
-            symbols = ((f"partial_{tier}_kernel", "reduce_kernel")
-                       if "tiled" in name else (f"hmc_{tier}_kernel",))
+            symbols = ((tiled_sym, "reduce_kernel")
+                       if "tiled" in name else (hmc_sym,))
+            chains = Cb if "tiled" in name else C
+            x_bytes = ({"x_bytes_a_gradient": x_passes * -(-chains // 16)
+                        * 4 * n_obs * D} if x_passes else {})
             emit({"phase": f"{tier}_time", "name": name, "d": d, "D": D,
                   "padding_waste": D / d, "N": n_obs,
-                  "C": Cb if "tiled" in name else C, "evals": evals,
-                  "ms": t[0], "plain_ms": t[1], **bound,
+                  "C": chains, "evals": evals,
+                  "ms": t[0], "plain_ms": t[1], **bound, **x_bytes,
                   "share_of_bound": bound["bound_ms"] / t[0],
                   "device_ms": _device_ms(kern, symbols, reps=reps),
                   "plan": (_plan(gb, "glm_tiled_plan", d) if "tiled" in name
@@ -5129,15 +5166,14 @@ def _tier_times(tier, ds, at_d, N, Nb, C=4096, Cb=512, n_leaps=10, kt=8,
 
 
 def phase_wide_times(Ns=(1000, 100_000), C=4096, Cb=512, n_leaps=10, kt=8,
-                     i0=501):
+                     i0=501, ds=(WIDE_D, 256)):
     """_tier_times of the wide kernels at d 150 (WIDE_D) and at the wide
-    tile's bound (256), at the wide paths' shapes: 1-3b at N 1000 and
-    4096 chains, 4 at N 100,000 and 512 chains.  Returns ({kernel: (ms,
-    plain ms)}, {kernel: bound}) at d 150."""
-    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
-
-    return _tier_times("wide", (WIDE_D, gk.WIDE_D_MAX), WIDE_D, Ns[0], Ns[1],
-                       C, Cb, n_leaps, kt, i0)
+    tile's bound (256) unless ``ds`` says otherwise, at the wide paths'
+    shapes: 1-3b at N 1000 and 4096 chains, 4 at N 100,000 and 512
+    chains.  Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at d
+    150."""
+    return _tier_times("wide", ds, WIDE_D, Ns[0], Ns[1], C, Cb, n_leaps, kt,
+                       i0)
 
 
 # ---- exact NUTS on the wide tile (kernels 8 and 9, 32 < d <= 256) ----------
@@ -5242,8 +5278,9 @@ def _nuts_routes(ds, n=1000):
     """The route of NUTS on wide_data at each d of ``ds``: the exact-NUTS
     kernels, "nuts", for a run and a continuation, up to the kernels'
     bound NUTS_D_MAX (1024); above it the generic engine, with the reason
-    naming the item that would lift the bound, GLMs wider than 1024
-    parameters, for both.  Returns {d: (route, reason or None)}."""
+    naming the item that would lift the bound, exact NUTS on GLMs wider
+    than 1024 parameters, for both.  Returns {d: (route, reason or
+    None)}."""
     import logging
 
     import mcmc_jl_tpu_torch as mt
@@ -5270,7 +5307,7 @@ def _nuts_routes(ds, n=1000):
                 steps=WIDE_NUTS_RUN[0], burnin=WIDE_NUTS_RUN[1])), "auto")
             cont = pchains.continuation_route(m, sampler, 4, "auto")
             why = [t for t in seen
-                   if "GLMs wider than 1024 parameters" in t]
+                   if "exact NUTS on GLMs wider than 1024 parameters" in t]
             assert route == cont == want, (d, route, cont, seen)
             assert bool(why) == (want is False) and len(why) in (0, 2), seen
             assert not any("wider than 256" in t for t in seen), seen
@@ -5665,26 +5702,30 @@ def phase_xwide_paths(chains=4096, chains_dense=512, chains_bign=512,
 
 
 def phase_xwide_times(C=4096, Cb=512, N=1000, Nb=XWIDE_N_BIGN, n_leaps=10,
-                      kt=8, i0=501, path_steps=(8, 4)):
+                      kt=8, i0=501, path_steps=(8, 4), ds=XWIDE_TIME_D,
+                      paths=True):
     """_tier_times of the very-wide kernels at d 512 and 1024
-    (XWIDE_TIME_D) at the very-wide paths' shapes: 1-3b at N 1000 and 4096
-    chains, 4 at N 20,000 and 512 chains (events and device ms over 2
-    launches).  Then the host seconds (to a synchronize) of plain HMC(10)
-    over SerialMC(8, 4) at 4096 chains and N 1000 (kernel 1) at both
-    widths, and of adaptive HMC diag over the same runner at N 20,000 and
-    512 chains (kernel 4) at d 1024, through the kernels and through the
-    generic engine at the same chains.  Returns ({kernel: (ms, plain
-    ms)}, {kernel: bound}) at d 1024."""
+    (XWIDE_TIME_D; or the widths ``ds``) at the very-wide paths' shapes:
+    1-3b at N 1000 and 4096 chains, 4 at N 20,000 and 512 chains (events
+    and device ms over 2 launches).  Then, with ``paths``, the host
+    seconds (to a synchronize) of plain HMC(10) over SerialMC(8, 4) at
+    4096 chains and N 1000 (kernel 1) at those widths, and of adaptive HMC
+    diag over the same runner at N 20,000 and 512 chains (kernel 4) at d
+    1024, through the kernels and through the generic engine at the same
+    chains.  Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at d
+    1024."""
     import torch
 
     import mcmc_jl_tpu_torch as mt
 
-    ms, work = _tier_times("xwide", XWIDE_TIME_D, XWIDE_D, N, Nb, C, Cb,
+    ms, work = _tier_times("xwide", ds, XWIDE_D, N, Nb, C, Cb,
                            n_leaps, kt, i0, reps=2)
+    if not paths:
+        return ms, work
     steps, burnin = path_steps
     runner = mt.SerialMC(steps=steps, burnin=burnin)
     runs = []
-    for d in XWIDE_TIME_D:
+    for d in ds:
         X, Y, _, _ = _wide_mode(N, d)
         runs.append((f"HMC(10), d {d}, N {N}, kernel 1",
                      mt.model(glm=("logistic", X, Y), device="cuda"),
@@ -5917,6 +5958,448 @@ def phase_xwide_nuts_times(C=4096, N=1000, md=6, k_trans=2,
                                seed=d + 53, plain=False, multistep=False,
                                device_reps=0, event_reps=2)
         del f
+    return ms, work
+
+
+# ---- GLMs wider than 1024 parameters: the chunked tier (kernels 1-4) ------
+
+# the chunked paths' width (wide_data at d 4096 and N 1000: a p > n
+# regression, as on text, hashed or genomic features) and the dense paths'
+# (their generic warmup keeps a (d, d) factor and accumulator a chain: 16 MB
+# each at d 2048)
+CHUNKED_D, CHUNKED_DENSE_D = 4096, 2048
+# the widths the kernel checks take: the very-wide tile's bound + 32 (three
+# chunks of 352 columns), two and eight chunks of 512; kernels 1 and 4 also
+# at 8192 and at the tier's bound, 16384 (glm_kernels.D_MAX)
+CHUNKED_CHECK_D = (1056, 2048, 4096)
+CHUNKED_EDGE_D = (8192, 16384)
+# the widths the chunked kernels are timed at
+CHUNKED_TIME_D = (2048, 4096)
+# observations of the large-N paths (above BIGN_THRESHOLD: kernel 4; X is
+# 328 MB at d 4096)
+CHUNKED_N_BIGN = 20_000
+# HMC step of the chunked paths at N 1000 (posterior sds 0.8-1 at d 4096;
+# from a standard normal start an acceptance of 0.765 at 4096 chains on an
+# H100) and the adaptive runs' initial step at N 20,000 (sds 0.5-1).  From
+# the mode or from zeros every coordinate's momentum is kinetic energy the
+# trajectory cannot keep: at d 4096 and eps 0.2 the energy error is about
+# d eps^2 / 8 = 20 and every proposal is rejected (on either engine), so
+# the fixed-step N 1000 runs start at one standard
+# normal vector (seed CHUNKED_INIT_SEED).  The adaptive runs start at the
+# posterior mode (their first steps are 0.02, and the diagonal metric is
+# estimated from the burn-in): a start shared by all chains and away from
+# the posterior mean leaves its trace in short runs' per-chain means
+# (|z| 18 against the generic engine's plain HMC after 90 transitions from
+# the standard normal start, 7.7 from zeros, at 4096 chains).
+CHUNKED_EPS, CHUNKED_BIGN_EPS = 0.2, 0.1
+CHUNKED_INIT_SEED = 3
+# SerialMC(steps, burnin, thinning) of the chunked paths at N 1000: 4096
+# chains of 4096 coordinates are 64 MB a kept row, so every 8th is kept
+CHUNKED_RUN = (66, 26, 8)
+# the adaptive runs' SerialMC at N 1000: the tuner adapts once, at step 50
+CHUNKED_ADAPTIVE_RUN = (66, 50, 8)
+# the chunked kernels' launch counters
+CHUNKED_KERNELS = tuple(n.replace("_wide", "_chunked") for n in WIDE_KERNELS)
+
+
+def _chunked_model(n, d):
+    """wide_data(n, d) as a model on the card whose init is one standard
+    normal vector (numpy seed CHUNKED_INIT_SEED, the prior's typical set):
+    (X, Y, init, model)."""
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, _, _ = _wide_mode(n, d)
+    init = np.random.default_rng(CHUNKED_INIT_SEED).standard_normal(d)
+    return X, Y, init, mt.model(glm=("logistic", X, Y), init=init,
+                                device="cuda")
+
+
+def _chunked_folds(n, d, C, seed, spread=0.1):
+    """_wide_folds computed on the card (numpy's products of the (d, d)
+    factor take seconds at d 4096): the scalar prior on X, the diagonal
+    fold (X s, row s^2) and the dense fold (X L, matrix L'L), C chains near
+    the mode of wide_data(n, d).  {name: (XT, Y, theta, prior)}, float32 on
+    the card."""
+    import torch
+
+    X, Y, mode, L = _wide_mode(n, d)
+    dev = "cuda"
+    Xt = torch.as_tensor(X, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    rng = np.random.default_rng(seed)
+    s = Lt.square().sum(1).sqrt()
+    theta = torch.as_tensor(mode, device=dev) + spread * s * torch.as_tensor(
+        rng.standard_normal((C, d)), device=dev)
+    f32 = lambda a: a.float().contiguous()  # noqa: E731
+    Yc = _cuda(Y)
+    z = torch.linalg.solve_triangular(Lt, theta.T, upper=False).T
+    return {"scalar": (f32(Xt.T), Yc, f32(theta), 1.0),
+            "row": (f32((Xt * s).T), Yc, f32(theta / s), f32(s * s)),
+            "matrix": (f32((Xt @ Lt).T), Yc, f32(z), f32(Lt.T @ Lt))}
+
+
+def _chunked_case(kind, N, d, C, seed, extras=False):
+    """A GLM of link ``kind`` at width d drawn on the card (a numpy design
+    of N x 16384 takes seconds): wide_data's scaling (an intercept and
+    standard normal columns over sqrt(d)), a response at standard normal
+    coefficients, C chains at 0.3 standard normals and standard normal
+    momenta; with ``extras`` weights in [0.5, 2) and offsets of sd 0.1.
+    (XT, Y, W, O, theta, m), float32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.float64)
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda",
+                          dtype=torch.float64)
+
+    XT = normal(d, N)
+    XT[0] = 1.0
+    XT /= d ** 0.5
+    z = normal(d) @ XT
+    if kind == "linear":
+        Y = z + normal(N)
+    elif kind == "poisson":
+        Y = torch.poisson(torch.exp(z), generator=gen)
+    else:
+        Y = (uniform(N) < torch.sigmoid(z)).double()
+    W = 0.5 + 1.5 * uniform(N) if extras else None
+    O = 0.1 * normal(N) if extras else None
+    f32 = lambda a: None if a is None else a.float().contiguous()  # noqa: E731
+    return (f32(XT), f32(Y), f32(W), f32(O), f32(0.3 * normal(C, d)),
+            f32(normal(C, d)))
+
+
+def phase_chunked_kernels(ragged=1027, N=1000, Cb=512, Nb=CHUNKED_N_BIGN,
+                          k=4, i0=501, edge=(67, 1100), edge_b=(37, 2600)):
+    """Kernels 1, 2, 3, 3b (and _mat) and 4 (and _mat) on the chunked tier
+    against their plain versions, with the very-wide checks' rules and
+    tolerances (_traj_check, _step_check, _multistep_check, _rows_check,
+    _tiled_case): at d 1056, 2048 and 4096 (CHUNKED_CHECK_D: 3 chunks of
+    352 columns, 4 and 8 of 512) on a ragged 1027 chains near the posterior
+    mode of wide_data at N 1000 (two row blocks, the second ragged), 2, 3
+    and 3b at WIDE_STEP_EPS, where the plain versions both accept and
+    reject, 3 and 3b over k transitions chain by chain on their own Philox
+    draws replayed on the card, 3b with the scalar prior, the diagonal
+    fold's (d,) row and the dense fold's (d, d) matrix; kernel 1 on every
+    link with weights and offsets at d 2048; kernel 1 at d 8192 and 16384
+    (CHUNKED_EDGE_D; 67 chains, N 1100) on a design drawn on the card;
+    kernel 4 at d 4096 at its path's shape (512 chains, N 20,000), at d
+    1056 and 2048 on 300 chains and a ragged N 6003 (6 splits of two row
+    blocks, the second ragged), each with the scalar prior, the row and the
+    matrix, probit with weights, offsets and a row at d 2048, and at d 8192
+    and 16384 (37 chains, N 2600) with the scalar prior and a row.  The
+    draw ranges of kernels 3 and 3b (momenta 0 .. d/2 - 1, the MH uniform
+    SLICE_DRAW) are disjoint at the bound.  Returns the largest absolute
+    error of each chunked kernel."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    assert (gk.D_MAX + 1) // 2 - 1 < gk.SLICE_DRAW
+    err = dict.fromkeys(CHUNKED_KERNELS, 0.0)
+
+    def keep(name, e):
+        err[name] = max(err[name], e)
+
+    for d in CHUNKED_CHECK_D:
+        f = _chunked_folds(N, d, ragged, seed=d)
+        XT, Yc, th, _ = f["scalar"]
+        rng = np.random.default_rng(d + 1)
+        m0 = _cuda(rng.standard_normal((ragged, d)))
+        logu = _cuda(np.log(rng.random(ragged)))
+        label = f"chunked tier, d {d}, N {N}, C {ragged}"
+        keep("glm_leapfrogs_chunked", _traj_check(label, XT, Yc, th, m0,
+                                                  CHUNKED_EPS, n_leaps=10))
+        keep("glm_step_chunked", _step_check(label, XT, Yc, th, m0, logu,
+                                             WIDE_STEP_EPS, mix=True,
+                                             n_leaps=10))
+        keep("glm_multistep_chunked", _multistep_check(
+            label, XT, Yc, th, WIDE_STEP_EPS, k=k, seed=d, mix=True,
+            n_leaps=10))
+        for prior, name in (("scalar", "glm_multistep_rows_chunked"),
+                            ("row", "glm_multistep_rows_chunked"),
+                            ("matrix", "glm_multistep_rows_mat_chunked")):
+            XTf, _, thf, lam = f[prior]
+            keep(name, _rows_check(f"{label}, {prior} prior", XTf, Yc, thf,
+                                   WIDE_STEP_EPS, 10 * WIDE_STEP_EPS, i0,
+                                   20, k, seed=d + 2, mix=True,
+                                   prior_prec=lam))
+        del f, XT, th, m0
+    # kernel 1: every link with weights and offsets at d 2048 (the design
+    # scaled as the very-wide phase's d 512 case), then the edge widths
+    for kind in gk.KIND_CODES:
+        XT, Yc, W, O, th, m = _glm_case(kind, N, 2048, 300, seed=8,
+                                        scale=0.3 * np.sqrt(7 / 2048))
+        keep("glm_leapfrogs_chunked", _traj_check(
+            f"chunked tier, {kind}, weights+offsets, d 2048", XT, Yc, th, m,
+            0.01, n_leaps=3, kind=kind, weights=W, offsets=O, prior_prec=1.5,
+            integrator="2stage"))
+    C1, N1 = edge
+    for d in CHUNKED_EDGE_D:
+        XT, Yc, _, _, th, m = _chunked_case("logistic", N1, d, C1, seed=d)
+        keep("glm_leapfrogs_chunked", _traj_check(
+            f"chunked tier, d {d}, N {N1}, C {C1}", XT, Yc, th, m,
+            CHUNKED_EPS, n_leaps=4))
+        del XT, th, m
+    # kernel 4
+    for d in CHUNKED_CHECK_D:
+        n4, c4 = (Nb, Cb) if d == CHUNKED_D else (6003, 300)
+        f = _chunked_folds(n4, d, c4, seed=d + 5, spread=0.3)
+        for prior, name in (("scalar", "glm_logp_grad_tiled_chunked"),
+                            ("row", "glm_logp_grad_tiled_chunked"),
+                            ("matrix", "glm_logp_grad_tiled_mat_chunked")):
+            XT, Yc, th, lam = f[prior]
+            keep(name, _tiled_case(f"chunked tier, d {d}, {prior} prior, "
+                                   f"N {n4}, C {c4}", XT, Yc, th, lam=lam))
+        del f
+        torch.cuda.empty_cache()
+    XT, Yc, W, O, th, _ = _chunked_case("probit", Nb + 3, 2048, 300, seed=9,
+                                        extras=True)
+    lam = _cuda(np.random.default_rng(9).uniform(0.5, 2.0, 2048))
+    keep("glm_logp_grad_tiled_chunked", _tiled_case(
+        f"chunked tier, probit, weights+offsets, row prior, d 2048, "
+        f"N {Nb + 3}, C 300", XT, Yc, th, kind="probit", W=W, O=O, lam=lam))
+    Cb4, Nb4 = edge_b
+    for d in CHUNKED_EDGE_D:
+        XT, Yc, _, _, th, _ = _chunked_case("logistic", Nb4, d, Cb4,
+                                            seed=d + 1)
+        lam = _cuda(np.random.default_rng(d).uniform(0.5, 2.0, d))
+        for prior, lam_d in (("scalar", 1.0), ("row", lam)):
+            keep("glm_logp_grad_tiled_chunked", _tiled_case(
+                f"chunked tier, d {d}, {prior} prior, N {Nb4}, C {Cb4}", XT,
+                Yc, th, lam=lam_d))
+        del XT, th
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_chunked_paths(chains=4096, chains_dense=256, chains_bign=512,
+                        chains_dense_bign=128, generic_chains=512,
+                        run=CHUNKED_RUN,
+                        adaptive_run=CHUNKED_ADAPTIVE_RUN, bign_run=(44, 30),
+                        driver_steps=20, resume_chains=512, resume_steps=16,
+                        n=1000, n_bign=CHUNKED_N_BIGN):
+    """Logistic regressions wider than 1024 parameters (wide_data) through
+    the port's entry points, every launch counted from zero over one run (a
+    run that fell back to the generic engine would launch none) and every
+    run held within Z_MAX standard errors of per-chain means against the
+    generic engine on the same task (the route such a GLM took before the
+    chunked tier):
+
+    - d 4096, N 1000, from a standard normal init (_chunked_model):
+      ``run(HMC(10, CHUNKED_EPS) * SerialMC(66, 26, 8), chains=4096)``
+      (kernel 1, once a transition), against the same task on 512
+      generic-engine chains; ``run_glm_hmc(fused_step=True)`` (2) and
+      ``run_glm_hmc_multistep(thin=20)`` (3) from the same init for 20
+      transitions, against that run's final states; from the posterior
+      mode, adaptive HMC diag, ``HMC(10, 0.02, EmpMCTuner(0.8, 50),
+      mass_adapt="diag") * SerialMC(66, 50, 8)`` at 4096 chains (3b),
+      against the generic run, and ``resume(steps=16)`` of 512 of its
+      chains (3b; every 8th step kept, as the run's), against the same;
+    - d 2048, N 1000, from the mode: the same adaptive HMC with
+      ``mass_adapt="dense"`` at 256 chains (3b mat), against plain HMC
+      from the standard normal start on 512 generic chains;
+    - N 20,000 from the posterior mode: adaptive HMC diag at d 4096, 512
+      chains, and dense at d 2048, 128 chains (its generic warmup's (d, d)
+      arrays), ``HMC(10, CHUNKED_BIGN_EPS, EmpMCTuner(0.8, 50), mass_adapt
+      =...) * SerialMC(44, 30)`` (4, 4 mat), each against plain
+      ``HMC(10, CHUNKED_BIGN_EPS)`` on as many generic-engine chains from
+      the mode.
+
+    Returns the chunked kernels' launches {name: (count, origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_hmc import (run_glm_hmc,
+                                              run_glm_hmc_multistep)
+
+    steps, burnin, thin = run
+    runner = mt.SerialMC(steps=steps, burnin=burnin, thinning=thin)
+    ra = mt.SerialMC(steps=adaptive_run[0], burnin=adaptive_run[1],
+                     thinning=adaptive_run[2])
+    counts = {}
+
+    def reference(model, sampler, C, r=runner):
+        """Per-chain means of the same task on the generic engine."""
+        task = model * sampler * r
+        t0 = time.perf_counter()
+        cg = mt.run(task, chains=C, seed=1, fused=False)
+        dt = time.perf_counter() - t0
+        means = np.stack([c.samples.values for c in cg]).mean(1)
+        return means, {"task": _origin(model, task, C), "seconds": dt}
+
+    def fused(model, sampler, C, name, want, ref, r=runner, **extra):
+        task = model * sampler * r
+        origin = _origin(model, task, C)
+        cs, samples, launches, dt, spans = _path(origin, task, C,
+                                                 {name: want})
+        z = _z_means(samples.mean(1), ref[0])
+        st = cs[0].task.state
+        frozen = ({"frozen_step": st.tune.step_size.item(),
+                   "frozen_n_leaps": st.tune.n_leaps.item()}
+                  if hasattr(st, "tune") else {})
+        emit({"phase": "chunked_path", "kernel": name, "from": origin,
+              "d": model.size, "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches[name], **frozen,
+              "accept_rate": float(np.mean([mt.acceptance(c)
+                                            for c in cs[:512]])) / 100,
+              "generic": ref[1], "z_max_vs_generic": z, "ok": z < Z_MAX,
+              **extra, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with the generic engine"
+        counts[name] = (launches[name], origin)
+        return cs, samples
+
+    def adaptive(eps, ma):
+        return mt.HMC(10, eps, mt.EmpMCTuner(0.8, adapt_step=50),
+                      mass_adapt=ma)
+
+    X, Y, init, m = _chunked_model(n, CHUNKED_D)
+    ref = reference(m, mt.HMC(10, CHUNKED_EPS), generic_chains)
+    cs, samples = fused(m, mt.HMC(10, CHUNKED_EPS), chains,
+                        "glm_leapfrogs_chunked", steps, ref)
+    final = samples[:, -1]
+    del cs, samples
+    inits = np.tile(init, (chains, 1))
+    for name, origin_d, want, fn in (
+            ("glm_step_chunked", "run_glm_hmc(fused_step=True)",
+             driver_steps,
+             lambda: run_glm_hmc(X, Y, chains, driver_steps, n_leaps=10,
+                                 eps=CHUNKED_EPS, seed=2, inits=inits,
+                                 device="cuda", fused_step=True)),
+            ("glm_multistep_chunked", "run_glm_hmc_multistep(thin=20)",
+             driver_steps // 20,
+             lambda: run_glm_hmc_multistep(X, Y, chains, driver_steps,
+                                           thin=20, n_leaps=10,
+                                           eps=CHUNKED_EPS, seed=3,
+                                           inits=inits, device="cuda"))):
+        t0 = time.perf_counter()
+        (theta, _), launches = _counted(fn)
+        dt = time.perf_counter() - t0
+        assert launches == {**{k: 0 for k in launches}, name: want}, launches
+        th = theta.double().cpu().numpy()
+        assert th.shape == final.shape and np.all(np.isfinite(th))
+        z = _z_means(th, final)
+        origin_d = (f"{origin_d} at d {CHUNKED_D}, N {n}, {chains} chains, "
+                    f"{driver_steps} transitions")
+        emit({"phase": "chunked_driver", "kernel": name, "from": origin_d,
+              "seconds": dt, "launches": launches[name],
+              "z_max_vs_main_path": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin_d} disagrees with the main path"
+        counts[name] = (launches[name], origin_d)
+    del final, inits
+    m_mode = mt.model(glm=("logistic", X, Y),
+                      init=_wide_mode(n, CHUNKED_D)[2], device="cuda")
+    cs, samples = fused(m_mode, adaptive(0.02, "diag"), chains,
+                        "glm_multistep_rows_chunked", lambda k: k > 0, ref,
+                        ra)
+    del samples
+    # resume(list) of part of the adaptive run: 3b from its frozen state
+    tasks = cs[:resume_chains]
+    del cs
+    label = f"resume(steps={resume_steps}) of {resume_chains} of those chains"
+    t0 = time.perf_counter()
+    rs, launches = _counted(lambda: mt.resume(tasks, steps=resume_steps))
+    dt = time.perf_counter() - t0
+    name = "glm_multistep_rows_chunked"
+    assert launches[name] > 0 and sum(launches.values()) == launches[name], \
+        launches
+    rsamp = np.stack([c.samples.values for c in rs])
+    kept = len(range(1, resume_steps + 1, adaptive_run[2]))  # its thinning
+    assert rsamp.shape == (resume_chains, kept, CHUNKED_D)
+    assert np.all(np.isfinite(rsamp))
+    assert all(c.task.pos == t.task.pos + resume_steps
+               for c, t in zip(rs, tasks))
+    z = _z_means(rsamp.mean(1), ref[0])
+    emit({"phase": "chunked_path", "kernel": name, "from": label,
+          "d": CHUNKED_D, "chains": resume_chains, "seconds": dt,
+          "launches": launches[name], "z_max_vs_generic": z,
+          "ok": z < Z_MAX, **CARD})
+    assert z < Z_MAX, f"{label} disagrees with the generic engine"
+    del rs, rsamp, tasks
+
+    X2, Y2, _, m2 = _chunked_model(n, CHUNKED_DENSE_D)
+    ref2 = reference(m2, mt.HMC(10, CHUNKED_EPS), generic_chains)
+    fused(mt.model(glm=("logistic", X2, Y2),
+                   init=_wide_mode(n, CHUNKED_DENSE_D)[2], device="cuda"),
+          adaptive(0.02, "dense"), chains_dense,
+          "glm_multistep_rows_mat_chunked", lambda k: k > 0, ref2, ra)
+
+    nb, bb = bign_run
+    rb = mt.SerialMC(steps=nb, burnin=bb)
+    for d, ma, name, C in (
+            (CHUNKED_D, "diag", "glm_logp_grad_tiled_chunked", chains_bign),
+            (CHUNKED_DENSE_D, "dense", "glm_logp_grad_tiled_mat_chunked",
+             chains_dense_bign)):
+        Xb, Yb, mode_b, _ = _wide_mode(n_bign, d)
+        mb = mt.model(glm=("logistic", Xb, Yb), init=mode_b, device="cuda")
+        refb = reference(mb, mt.HMC(10, CHUNKED_BIGN_EPS), C, rb)
+        fused(mb, adaptive(CHUNKED_BIGN_EPS, ma), C, name,
+              lambda k: k >= nb - bb + 1, refb, rb)
+        del mb
+    return counts
+
+
+def phase_chunked_times(C=4096, Cb=512, N=1000, Nb=CHUNKED_N_BIGN,
+                        n_leaps=10, kt=4, i0=501, path_steps=(12, 4),
+                        ds=CHUNKED_TIME_D, paths=True):
+    """_tier_times of the chunked kernels at d 2048 and 4096
+    (CHUNKED_TIME_D; or the widths ``ds``) at the chunked paths' shapes:
+    1-3b at N 1000 and 4096 chains (3 and 3b over 4 transitions), 4 at N
+    20,000 and 512 chains (events and device ms over 2 launches), each
+    with the bytes of X its tiles read a gradient (two passes,
+    ``x_bytes_a_gradient``).  Then, with ``paths``, the host seconds (to a
+    synchronize) of plain HMC(10) over SerialMC(12, 4) at 4096 chains and
+    N 1000 (kernel 1) at d 4096 and of adaptive HMC diag over the same
+    runner at N 20,000 and 512 chains (kernel 4), through the kernels and
+    through the generic engine at the same chains, each also less its
+    packaging (which costs both routes alike: 2-3 s for 4096 chains of
+    4096 coordinates).  Returns ({kernel: (ms, plain ms)}, {kernel:
+    bound}) at d 4096."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    def width(d):  # csrc/glm_tile.cuh glm_bound_for: n chunks of DC
+        n = -(-d // 512)
+        return n * ((-(-d // n) + 31) // 32 * 32)
+
+    ms, work = _tier_times("chunked", ds, CHUNKED_D, N, Nb, C,
+                           Cb, n_leaps, kt, i0, reps=2,
+                           folds=_chunked_folds,
+                           symbols=("hmc_xwide_kernel",
+                                    "partial_xchunk_kernel"),
+                           width=width, x_passes=2)
+    if not paths:
+        return ms, work
+    steps, burnin = path_steps
+    runner = mt.SerialMC(steps=steps, burnin=burnin)
+    runs = [(f"HMC(10), d {CHUNKED_D}, N {N}, kernel 1",
+             _chunked_model(N, CHUNKED_D)[3], mt.HMC(10, CHUNKED_EPS), C)]
+    Xb, Yb, mode_b, _ = _wide_mode(Nb, CHUNKED_D)
+    runs.append((f"adaptive HMC diag, d {CHUNKED_D}, N {Nb}, kernel 4",
+                 mt.model(glm=("logistic", Xb, Yb), init=mode_b,
+                          device="cuda"),
+                 mt.HMC(10, CHUNKED_BIGN_EPS,
+                        mt.EmpMCTuner(0.8, adapt_step=50),
+                        mass_adapt="diag"), Cb))
+    for label, model, sampler, chains in runs:
+        task = model * sampler * runner
+        row = {}
+        for key, fused in (("fused", "auto"), ("generic", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _spans() as spans:
+                mt.run(task, chains=chains, seed=0, fused=fused)
+            torch.cuda.synchronize()
+            row[key + "_s"] = time.perf_counter() - t0
+            row[key + "_less_packaging_s"] = (row[key + "_s"]
+                                             - spans.get("packaging", 0.0))
+        emit({"phase": "chunked_path_time", "path": label,
+              "task": _origin(model, task, chains), "d": model.size, **row,
+              **CARD})
     return ms, work
 
 
@@ -6266,6 +6749,7 @@ def main():
     errors.update(step("wide_nuts_kernels", phase_wide_nuts_kernels))
     errors.update(step("xwide_kernels", phase_xwide_kernels))
     errors.update(step("xwide_nuts_kernels", phase_xwide_nuts_kernels))
+    errors.update(step("chunked_kernels", phase_chunked_kernels))
     errors.update(step("dense_target_kernels", phase_dense_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
@@ -6308,6 +6792,7 @@ def main():
     launches.update(step("xwide_nuts_paths", phase_xwide_nuts_paths,
                          xwide_means))
     del xwide_means
+    launches.update(step("chunked_paths", phase_chunked_paths))
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
@@ -6344,18 +6829,25 @@ def main():
                  step("dense_times", phase_dense_times, folds),
                  step("dense_target_times", phase_dense_target_times,
                       dense_t_folds, ds=()),
-                 step("wide_times", phase_wide_times),
+                 step("wide_times", phase_wide_times, ds=(WIDE_D,)),
                  step("wide_nuts_times", phase_wide_nuts_times,
                       ds=(WIDE_D,)),
-                 step("xwide_times", phase_xwide_times),
-                 step("xwide_nuts_times", phase_xwide_nuts_times)):
+                 step("xwide_times", phase_xwide_times, ds=(XWIDE_D,),
+                      paths=False),
+                 step("xwide_nuts_times", phase_xwide_nuts_times,
+                      ds=(XWIDE_D,)),
+                 step("chunked_times", phase_chunked_times,
+                      ds=(CHUNKED_D,), paths=False)):
         ms.update(more[0])
         work.update(more[1])
     # the wide paths' generic-against-fused seconds (phase_wide_path_times,
     # phase_wide_nuts_path_times) run in the --times groups wide_paths and
-    # wide_nuts_paths, the wide NUTS kernels at d 256 in wide_nuts and the
-    # dense catalog kernels across d in dense_target, out of this run for
-    # its 600 s
+    # wide_nuts_paths, the wide NUTS kernels at d 256 in wide_nuts, the
+    # dense catalog kernels across d in dense_target, the wide kernels at d
+    # 256 in wide, the very-wide ones at d 512 in xwide and xwide_nuts, the
+    # chunked ones at d 2048 in chunked, and the very-wide and chunked
+    # paths' fused-against-generic seconds in xwide and chunked, out of
+    # this run for its time
     emit({"resume": resume_rows})
     # no single PyTorch call computes any of these functions: library_ms
     # is null (the two products alone are timed in new_kernel_times)
@@ -7636,6 +8128,7 @@ TIME_GROUPS = {
                      ("phase_dense_target_times",)),
     "xwide": (("glm_hmc", "glm_bign"), ("phase_xwide_times",)),
     "xwide_nuts": (("glm_nuts",), ("phase_xwide_nuts_times",)),
+    "chunked": (("glm_hmc", "glm_bign"), ("phase_chunked_times",)),
 }
 
 

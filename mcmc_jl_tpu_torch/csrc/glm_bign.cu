@@ -52,7 +52,9 @@
 // glm_tile.cuh.  At d 150, N 100,000, 512 chains: 3.1e10 FLOP, 0.46 ms at
 // the FP32 peak; X (60 MB) is read by the 32 chain tiles of a split while
 // they run together, so mostly once from memory (0.018 ms).  Above d = 256
-// partial_xwide_kernel runs them on the very-wide tile, up to d = 1024.
+// partial_xwide_kernel runs them on the very-wide tile, up to d = 1024,
+// and above that partial_xchunk_kernel on the chunked tier, up to d =
+// 16384.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -224,6 +226,59 @@ partial_xwide_kernel(Glm p, int C, int rows_per_split,
         sum_ll(x.pll, ct, kTrajWarps);
 }
 
+// Above kXWideMax: the chunked tier of glm_tile.cuh on the same grid (a
+// tile of 16 chains and one contiguous range of observations a CTA): the
+// range in row blocks of kXBlockRows, each pass A (Z over d's column chunks,
+// then the link) and pass B (R X_c chunk by chunk).  The owner of each G
+// element adds a row block's float sums into the chain's double partial in
+// place, as partial_xwide_kernel does every kXFlushRows rows: no atomics,
+// the same bits on every launch.  At d 4096, N 20,000, 512 chains: 1.7e11
+// operations, 1.0 ms at the 3xTF32 rate (a third of the tensor cores' 495
+// TFLOP/s); X (328 MB) no longer fits in L2, and each split's 32 chain
+// tiles read their rows twice a gradient, 21 GB in all, 6.3 ms at the
+// memory's 3.35 TB/s if nothing of it stayed in L2: bytes bound it.
+__global__ void __launch_bounds__(kTrajThreads, 1)
+partial_xchunk_kernel(Glm p, int C, int rows_per_split,
+                      const float* __restrict__ th_in,
+                      double* __restrict__ part) {
+  const XChunk xc = xchunk_at(p);
+  xwide_init(p, xc.x);
+  const int ct = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, NB = xc.x.D / 8;
+  const int c0 = blockIdx.x * kTileChains;
+  const int n0 = blockIdx.y * rows_per_split;
+  const int n1 = min(p.N, n0 + rows_per_split);
+  // a warp past C shadows chain C - 1
+  const float* src = th_in + (size_t)min(c0 + ct, C - 1) * p.d;
+  double ll[2] = {0.0, 0.0};
+  for (int f0 = n0; f0 < n1; f0 += kXBlockRows) {
+    const int f1 = min(n1, f0 + kXBlockRows);
+    xchunk_pass_a(p, xc, src, f0, f1, ll);
+    for (int k = 0; k < xc.n; ++k) {
+      float ga[kXChunkUnits][4];
+      xchunk_pass_b(p, xc, k, f0, f1, ga);
+#pragma unroll
+      for (int i = 0; i < kXChunkUnits; ++i) {
+        const int nb = ct + kTrajWarps * i;
+        if (nb >= NB) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + g + 8 * (e >> 1);
+          const int j = k * xc.x.D + 8 * nb + 2 * q + (e & 1);
+          if (c >= C || j >= p.d) continue;
+          double* out = part + ((size_t)blockIdx.y * C + c) * (p.d + 1) + j;
+          *out = (f0 == n0 ? 0.0 : *out) + (double)ga[i][e];
+        }
+      }
+    }
+  }
+  put_ll(xc.x.pll, ll);
+  __syncthreads();
+  if (c0 + ct < C && lane == 0)
+    part[((size_t)blockIdx.y * C + c0 + ct) * (p.d + 1) + p.d] =
+        sum_ll(xc.x.pll, ct, kTrajWarps);
+}
+
 // Sum each chain's partials over the splits in split order, then apply the
 // prior as the HMC kernels do: g = acc - pg, lp = ll - 1/2 sum pg theta with
 // pg = lam theta, or (theta A)_j = sum_k theta_k A[k, j] with the matrix.
@@ -267,19 +322,30 @@ reduce_kernel(int C, int d, int splits, float lam,
 
 extern "C" {
 
-int bign_max_dim() { return kXWideMax; }
+int bign_max_dim() { return kXChunkDMax; }
 
 const char* bign_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// How partial_tile_kernel (d <= 32), partial_wide_kernel or
-// partial_xwide_kernel (d > kWideMax) runs at d: blocks resident per SM
-// (from the occupancy calculator) and dynamic shared memory per block.
-// Returns a CUDA error code.
+// How partial_tile_kernel (d <= 32), partial_wide_kernel,
+// partial_xwide_kernel (d > kWideMax) or partial_xchunk_kernel (d >
+// kXWideMax) runs at d: blocks resident per SM (from the occupancy
+// calculator) and dynamic shared memory per block.  Returns a CUDA error
+// code.
 int glm_tiled_plan(int d, int* blocks_per_sm, int* smem) {
-  const int D = hmc_bound_for(d);
+  const int D = glm_bound_for(d);
   if (!D) return (int)cudaErrorInvalidValue;
+  if (D > kXWideMax) {
+    const TrajPlan tp = xchunk_plan(d);
+    if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
+    *smem = (int)tp.smem;
+    cudaError_t e = prepare(partial_xchunk_kernel, tp.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, partial_xchunk_kernel, kTrajThreads, tp.smem);
+    return (int)e;
+  }
   if (D > kWideMax) {
     const TrajPlan tp = xwide_plan(D);
     if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
@@ -325,14 +391,23 @@ int glm_logp_grad_tiled(const float* xt, const float* y, const float* w,
                         int N, int d, int C, const float* th_in, float* g_out,
                         float* lp_out, double* part, int splits, float lam,
                         int kind, void* stream) {
-  const int D = hmc_bound_for(d);
+  const int D = glm_bound_for(d);
   if (!D || C < 1 || N < 1 || kind < 0 || kind > 3 || splits < 1 ||
       splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int rows = (N + splits - 1) / splits;
   if ((N + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D > kWideMax) {
+  if (D > kXWideMax) {
+    const TrajPlan tp = xchunk_plan(d);
+    if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
+    const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows, false};
+    const dim3 grid((C + kTileChains - 1) / kTileChains, splits);
+    cudaError_t e = prepare(partial_xchunk_kernel, tp.smem);
+    if (e != cudaSuccess) return (int)e;
+    partial_xchunk_kernel<<<grid, kTrajThreads, tp.smem, st>>>(p, C, rows,
+                                                               th_in, part);
+  } else if (D > kWideMax) {
     const TrajPlan tp = xwide_plan(D);
     if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
     const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows, false};

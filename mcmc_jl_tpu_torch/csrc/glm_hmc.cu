@@ -77,7 +77,13 @@
 // = 1024, N = 1000 one gradient of a chain is 4.1e6 operations and the
 // rows (4 MB) stream from L2 in tiles of 16 at every gradient: 16 chains
 // a pass over X, 16 operations a byte of L2, so the L2's bandwidth and the
-// tensor cores bound it about alike.
+// tensor cores bound it about alike.  Above kXWideMax, up to kXChunkDMax =
+// 16384, the same body runs on glm_tile.cuh's chunked tier (hmc_xwide<MODE,
+// true>): the proposal's theta in the slot too, each gradient two passes
+// over X in column chunks of at most 512 (xchunk_grad).  At d = 4096, N =
+// 1000 a gradient of the tile reads X twice (33 MB from L2) for 16 chains'
+// 2.6e8 operations: 8 operations a byte of L2, so L2's bandwidth bounds it
+// before the tensor cores do.
 //
 // In every kernel the log-likelihood sum is carried in double, so lp keeps
 // full float precision after a 1000-term sum.
@@ -147,7 +153,8 @@ struct HmcArgs {
   int i0, max_leaps;
   float *r_th, *r_g, *r_lp, *r_acc, *r_alpha;
   int* r_nl;
-  // the very-wide tile: the blocks' slots (xwide_slot_bytes each)
+  // the very-wide tile and the chunked tier: the blocks' slots (slot_bytes
+  // each)
   float* scratch;
 };
 
@@ -566,37 +573,55 @@ hmc_wide_kernel(Glm p, Sched s, HmcArgs a) {
 // its row of sth in shared memory; lanes stride over the coordinates.  The
 // Metropolis decision is made from values that are the same bits in all
 // the chain's lanes (lp from xwide_grad, |m|^2 from xw_sq, log u from the
-// chain's own draw).
+// chain's own draw).  Above kXWideMax the same code runs on the chunked
+// tier (CH): the proposal's theta moves to a fifth slot array and each
+// gradient is xchunk_grad's, which walks d in chunks.
 
-// The slot arrays: (kXArrays, 16, D) floats of block b.
-enum XArray { kXTh = 0, kXG = 1, kXM = 2, kXGp = 3 };
+// The slot arrays: (kXArrays, 16, D) floats of block b, (kXChunkArrays,
+// 16, D) on the chunked tier.
+enum XArray { kXTh = 0, kXG = 1, kXM = 2, kXGp = 3, kXThp = 4 };
 
-__device__ __forceinline__ float* xslot(const HmcArgs& a, const XWide& x,
-                                        int k) {
+template <bool CH>
+__device__ __forceinline__ float* xslot(const HmcArgs& a, int D, int k) {
   return a.scratch +
-         ((size_t)blockIdx.x * kXArrays + k) * kTileChains * x.D;
+         ((size_t)blockIdx.x * (CH ? kXChunkArrays : kXArrays) + k) *
+             kTileChains * D;
 }
 
-// tile_trajectory on the very-wide tile: theta in the warp's sth row, m in
+// One gradient of the tile at the proposal rows thp: xwide_grad's, or on
+// the chunked tier xchunk_grad's.
+template <bool CH>
+__device__ __forceinline__ float xw_grad(const Glm& p, const float* thp,
+                                         float* gp, bool want_ll) {
+  if constexpr (CH)
+    return xchunk_grad(p, thp, gp, want_ll);
+  else
+    return xwide_grad(p, gp, want_ll);
+}
+
+// tile_trajectory on the very-wide tile: theta in the warp's row of thp
+// (sth, stride D + 4; on the chunked tier the slot array, stride D), m in
 // its slot row, g in its row of the slot array gp (where each drift's
-// xwide_grad writes the gradient of all 16 chains).
-__device__ __forceinline__ float xw_trajectory(const Glm& p, const XWide& x,
+// gradient writes the gradient of all 16 chains).
+template <bool CH>
+__device__ __forceinline__ float xw_trajectory(const Glm& p, int D,
+                                               float* thp, int TS,
                                                const Sched& s, float eps,
                                                int n_leaps, float* m,
                                                float* gp) {
   const int c = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* th = x.sth + c * (x.D + 4);
-  const float* g = gp + c * x.D;
+  float* th = thp + c * TS;
+  const float* g = gp + c * D;
   float lp = 0.f;
   for (int l = 0; l < n_leaps; ++l) {
     const bool final = l == n_leaps - 1;
     for (int k = 0; k < s.n; ++k) {
       const float ce = s.c[k] * eps;
       if (s.op[k] == 0) {
-        for (int j = lane; j < x.D; j += 32) m[j] = m[j] + ce * g[j];
+        for (int j = lane; j < D; j += 32) m[j] = m[j] + ce * g[j];
       } else {
-        for (int j = lane; j < x.D; j += 32) th[j] = th[j] + ce * m[j];
-        lp = xwide_grad(p, gp, final && k == s.last_a);
+        for (int j = lane; j < D; j += 32) th[j] = th[j] + ce * m[j];
+        lp = xw_grad<CH>(p, thp, gp, final && k == s.last_a);
       }
     }
   }
@@ -604,46 +629,60 @@ __device__ __forceinline__ float xw_trajectory(const Glm& p, const XWide& x,
 }
 
 // tile_transition on the very-wide tile: the proposal starts from the
-// chain's slot rows th and g (copied to its sth row and its gp row) and,
+// chain's slot rows th and g (copied to its thp row and its gp row) and,
 // when accepted, is copied back.
-__device__ __forceinline__ bool xw_transition(const Glm& p, const XWide& x,
-                                              const Sched& s, float eps,
-                                              int n_leaps, float* th,
-                                              float* g, float& lp, float* m,
-                                              float* gp, float logu,
+template <bool CH>
+__device__ __forceinline__ bool xw_transition(const Glm& p, int D, float* thp,
+                                              int TS, const Sched& s,
+                                              float eps, int n_leaps,
+                                              float* th, float* g, float& lp,
+                                              float* m, float* gp, float logu,
                                               float& ratio) {
   const int c = threadIdx.x >> 5;
-  float* sth = x.sth + c * (x.D + 4);
-  const float h0 = -lp + 0.5f * xw_sq(m, x.D);
-  xw_copy(sth, th, x.D);
-  xw_copy(gp + c * x.D, g, x.D);
-  const float lpp = xw_trajectory(p, x, s, eps, n_leaps, m, gp);
-  ratio = mh_ratio(h0, -lpp + 0.5f * xw_sq(m, x.D));
+  float* sth = thp + c * TS;
+  const float h0 = -lp + 0.5f * xw_sq(m, D);
+  xw_copy(sth, th, D);
+  xw_copy(gp + c * D, g, D);
+  const float lpp = xw_trajectory<CH>(p, D, thp, TS, s, eps, n_leaps, m, gp);
+  ratio = mh_ratio(h0, -lpp + 0.5f * xw_sq(m, D));
   const bool acc = mh_accept(ratio, logu);
   if (acc) {
-    xw_copy(th, sth, x.D);
-    xw_copy(g, gp + c * x.D, x.D);
+    xw_copy(th, sth, D);
+    xw_copy(g, gp + c * D, D);
     lp = lpp;
   }
   return acc;
 }
 
-// hmc_tiles on the very-wide tile: the blocks are persistent (as many as
-// the scratch holds slots for) and walk the tiles blockIdx.x + k
-// gridDim.x; a ragged last tile's warps past C shadow chain C - 1 in their
-// own slot rows and write nothing.
-template <int MODE>
+// hmc_tiles on the very-wide tile (or the chunked tier): the blocks are
+// persistent (as many as the scratch holds slots for) and walk the tiles
+// blockIdx.x + k gridDim.x; a ragged last tile's warps past C shadow chain
+// C - 1 in their own slot rows and write nothing.
+template <int MODE, bool CH>
 __device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
                                           const HmcArgs& a) {
-  const XWide x = xwide_at(p);
-  xwide_init(p, x);
-  const int ct = threadIdx.x >> 5, lane = threadIdx.x & 31, D = x.D;
-  float* th = xslot(a, x, kXTh) + ct * D;
-  float* gb = xslot(a, x, kXG);
+  int D, TS;
+  float* thp;
+  if constexpr (CH) {
+    const XChunk xc = xchunk_at(p);
+    xwide_init(p, xc.x);
+    D = xc.D;
+    TS = D;
+    thp = xslot<CH>(a, D, kXThp);
+  } else {
+    const XWide x = xwide_at(p);
+    xwide_init(p, x);
+    D = x.D;
+    TS = D + 4;
+    thp = x.sth;
+  }
+  const int ct = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* th = xslot<CH>(a, D, kXTh) + ct * D;
+  float* gb = xslot<CH>(a, D, kXG);
   float* g = gb + ct * D;
-  float* m = xslot(a, x, kXM) + ct * D;
-  float* gp = xslot(a, x, kXGp);
-  float* sth = x.sth + ct * (D + 4);
+  float* m = xslot<CH>(a, D, kXM) + ct * D;
+  float* gp = xslot<CH>(a, D, kXGp);
+  float* sth = thp + ct * TS;
   for (int c0 = blockIdx.x * kTileChains; c0 < a.C;
        c0 += gridDim.x * kTileChains) {
     const int c = c0 + ct, cs = min(c, a.C - 1);
@@ -653,7 +692,7 @@ __device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
       xw_load(sth, D, a.th_in, cs, p.d);
       xw_load(m, D, a.m_in, cs, p.d);
       xw_load(gp + ct * D, D, a.g_in, cs, p.d);
-      lp = xw_trajectory(p, x, s, a.eps, a.n_leaps, m, gp);
+      lp = xw_trajectory<CH>(p, D, thp, TS, s, a.eps, a.n_leaps, m, gp);
       if (out) {
         xw_store(a.th_out, c, p.d, sth);
         xw_store(a.m_out, c, p.d, m);
@@ -666,8 +705,9 @@ __device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
       xw_load(m, D, a.m_in, cs, p.d);
       lp = a.lp_in[cs];
       float ratio;
-      const bool acc = xw_transition(p, x, s, a.eps, a.n_leaps, th, g, lp,
-                                     m, gp, a.logu_in[cs], ratio);
+      const bool acc = xw_transition<CH>(p, D, thp, TS, s, a.eps, a.n_leaps,
+                                         th, g, lp, m, gp, a.logu_in[cs],
+                                         ratio);
       if (out) {
         xw_store(a.th_out, c, p.d, th);
         xw_store(a.g_out, c, p.d, g);
@@ -679,7 +719,7 @@ __device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
     } else {
       xw_load(th, D, a.th_in, cs, p.d);
       xw_copy(sth, th, D);
-      lp = xwide_grad(p, gb, true);  // lp and g at the start
+      lp = xw_grad<CH>(p, thp, gb, true);  // lp and g at the start
       float n_acc = 0.f;
       for (int t = 0; t < a.k_trans; ++t) {
         // draws by the launch's transition (3) or the absolute one (3b),
@@ -692,8 +732,9 @@ __device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
         for (int j = lane; j < D; j += 32)
           m[j] = j < p.d ? momentum(a.key, cs, ti, j) : 0.f;
         float ratio;
-        const bool acc = xw_transition(p, x, s, a.eps, nl, th, g, lp, m, gp,
-                                       log_uniform(a.key, cs, ti), ratio);
+        const bool acc = xw_transition<CH>(p, D, thp, TS, s, a.eps, nl, th,
+                                           g, lp, m, gp,
+                                           log_uniform(a.key, cs, ti), ratio);
         if (acc) n_acc += 1.f;
         if constexpr (MODE == kRows) {  // the rows after the test
           const size_t rt = (size_t)t * a.C;
@@ -721,10 +762,10 @@ __device__ __forceinline__ void hmc_xwide(const Glm& p, const Sched& s,
   }
 }
 
-template <int MODE>
+template <int MODE, bool CH>
 __global__ void __launch_bounds__(kTrajThreads, 1)
 hmc_xwide_kernel(Glm p, Sched s, HmcArgs a) {
-  hmc_xwide<MODE>(p, s, a);
+  hmc_xwide<MODE, CH>(p, s, a);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -752,19 +793,24 @@ HmcKernel hmc_kernel(int mode) {
 }
 
 // The kernel of `mode` at bound D: the narrow tile's instantiation for D
-// <= 32, the wide tile's up to kWideMax and the very-wide tile's above (D a
-// run-time value on both).
+// <= 32, the wide tile's up to kWideMax, the very-wide tile's up to
+// kXWideMax and the chunked tier's above (D a run-time value on all three).
 HmcKernel hmc_kernel_for(int mode, int D) {
   switch (D) {
     case 8: return hmc_kernel<8>(mode);
     case 16: return hmc_kernel<16>(mode);
     case 32: return hmc_kernel<32>(mode);
     default:
+      if (D > kXWideMax)
+        return mode == kTraj    ? hmc_xwide_kernel<kTraj, true>
+               : mode == kStep  ? hmc_xwide_kernel<kStep, true>
+               : mode == kMulti ? hmc_xwide_kernel<kMulti, true>
+                                : hmc_xwide_kernel<kRows, true>;
       if (D > kWideMax)
-        return mode == kTraj    ? hmc_xwide_kernel<kTraj>
-               : mode == kStep  ? hmc_xwide_kernel<kStep>
-               : mode == kMulti ? hmc_xwide_kernel<kMulti>
-                                : hmc_xwide_kernel<kRows>;
+        return mode == kTraj    ? hmc_xwide_kernel<kTraj, false>
+               : mode == kStep  ? hmc_xwide_kernel<kStep, false>
+               : mode == kMulti ? hmc_xwide_kernel<kMulti, false>
+                                : hmc_xwide_kernel<kRows, false>;
       return mode == kTraj    ? hmc_wide_kernel<kTraj>
              : mode == kStep  ? hmc_wide_kernel<kStep>
              : mode == kMulti ? hmc_wide_kernel<kMulti>
@@ -772,13 +818,22 @@ HmcKernel hmc_kernel_for(int mode, int D) {
   }
 }
 
-// The shared-memory plan at (D, N): traj_plan's for the narrow tile,
-// wide_plan's for the wide one, xwide_plan's (rows always streamed) for the
-// very-wide one.
-TrajPlan hmc_plan(int D, int N) {
-  return D <= kNarrowMax ? traj_plan(D, N)
-         : D <= kWideMax ? wide_plan(D, N)
-                         : xwide_plan(D);
+// The shared-memory plan at (d, N), D = glm_bound_for(d): traj_plan's for
+// the narrow tile, wide_plan's for the wide one, xwide_plan's (rows always
+// streamed) for the very-wide one, xchunk_plan's for the chunked tier.
+TrajPlan hmc_plan(int d, int D, int N) {
+  return D <= kNarrowMax  ? traj_plan(D, N)
+         : D <= kWideMax  ? wide_plan(D, N)
+         : D <= kXWideMax ? xwide_plan(D)
+                          : xchunk_plan(d);
+}
+
+// Bytes of one block's slot at bound D (0 at D <= kWideMax, where no
+// scratch is read).
+size_t slot_bytes(int D) {
+  return D > kXWideMax  ? xchunk_slot_bytes(D)
+         : D > kWideMax ? xwide_slot_bytes(D)
+                        : 0;
 }
 
 // How the tile kernel of `mode` runs at (d, N): blocks resident per SM
@@ -786,9 +841,9 @@ TrajPlan hmc_plan(int D, int N) {
 // whether all rows stay resident.  Returns a CUDA error code.
 int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
              int* resident) {
-  const int D = hmc_bound_for(d);
+  const int D = glm_bound_for(d);
   if (!D || N < 1) return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = hmc_plan(D, N);
+  const TrajPlan tp = hmc_plan(d, D, N);
   if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   *smem = (int)tp.smem;
   *resident = tp.resident ? 1 : 0;
@@ -802,8 +857,8 @@ int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
 
 // Launch the tile kernel of `mode` on persistent blocks, as many as fit at
 // once: the resident rows are staged once per block, not once per tile.
-// On the very-wide tile also no more blocks than the scratch of
-// scratch_bytes holds slots for (xwide_slot_bytes each; at least one).
+// On the very-wide tile and the chunked tier also no more blocks than the
+// scratch of scratch_bytes holds slots for (slot_bytes each; at least one).
 // lamv, lamm: the (d,) prior row or the (d, d) prior matrix of kernel 3b,
 // or null (the scalar lam).
 int launch_hmc(int mode, const float* xt, const float* y, const float* w,
@@ -812,7 +867,7 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                float lam, const int* sched_ops, const float* sched_c,
                int n_ops, const HmcArgs& a, long long scratch_bytes,
                void* stream) {
-  const int D = hmc_bound_for(d);
+  const int D = glm_bound_for(d);
   Sched s;
   if (!D || a.C < 1 || N < 1 || a.k_trans < 1 || kind < 0 || kind > 3 ||
       !make_sched(sched_ops, sched_c, n_ops, &s))
@@ -821,7 +876,7 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                           !(a.T >= 0.f)
                     : a.n_leaps < 1)
     return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = hmc_plan(D, N);
+  const TrajPlan tp = hmc_plan(d, D, N);
   if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
               tp.resident};
@@ -839,7 +894,7 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
   int blocks = min(tiles, sms * max(per_sm, 1));
   if (D > kWideMax) {
     const long long slots =
-        a.scratch ? scratch_bytes / (long long)xwide_slot_bytes(D) : 0;
+        a.scratch ? scratch_bytes / (long long)slot_bytes(D) : 0;
     if (slots < 1) return (int)cudaErrorInvalidValue;
     if (slots < blocks) blocks = (int)slots;
   }
@@ -851,13 +906,13 @@ int launch_hmc(int mode, const float* xt, const float* y, const float* w,
 
 extern "C" {
 
-int glm_max_dim() { return kXWideMax; }
+int glm_max_dim() { return kXChunkDMax; }
 
-// Bytes of one block's slot of the very-wide tile at d (0 at d <= kWideMax,
-// where no scratch is read): the scratch of a launch holds one a block.
+// Bytes of one block's slot of the very-wide tile or the chunked tier at d
+// (0 at d <= kWideMax, where no scratch is read): the scratch of a launch
+// holds one a block.
 long long glm_slot_bytes(int d) {
-  const int D = hmc_bound_for(d);
-  return D > kWideMax ? (long long)xwide_slot_bytes(D) : 0;
+  return (long long)slot_bytes(glm_bound_for(d));
 }
 
 const char* glm_error_string(int code) {

@@ -46,16 +46,18 @@
 // in tiles: cp.async copies the next tile (4 bytes a thread, any N and any
 // alignment) into one of two raw buffers while the current tile, already
 // split, is computed.  Everything here is inlined into the kernels (no
-// lambdas, no calls, but for the very-wide tile's xwide_grad): a routine
+// lambdas, no calls, but for the very-wide tile's xwide_grad and the
+// chunked tier's xchunk_grad): a routine
 // left out of line would take the staged rows through generic pointers
 // and the fragments through local memory.
 //
 // That layout holds for d <= 32 (the narrow tile, D = 8, 16 or 32, a
 // template parameter).  Above 32 the wide tile takes d up to kWideMax with
 // D, d padded to a multiple of 32, a run-time value: one instantiation
-// serves every width.  Above kWideMax the very-wide tile at the end of this
-// file takes the HMC and N-tiled kernels up to kXWideMax, the chain state
-// in device memory.
+// serves every width.  Above kWideMax the very-wide tile near the end of
+// this file takes the HMC and N-tiled kernels up to kXWideMax, the chain
+// state in device memory; above kXWideMax the chunked tier at the end takes
+// them up to kXChunkDMax, walking d in column chunks.
 #pragma once
 
 #include "glm_common.cuh"
@@ -185,6 +187,16 @@ __device__ void stage_rows(const Glm& p, const Rows& t, int n0, int nt) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+// cp_async4, or with `valid` false four zero bytes written in its place
+// (src-size 0: nothing is read from src)
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
+                                                bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -1175,9 +1187,9 @@ constexpr int kXUnits = kXWideMax / 8 / kTrajWarps;  // stage-2 n-blocks a warp
 constexpr int kXArrays = 4;       // theta, g, m, g': a chain's slot rows
 constexpr int kXFlushRows = 256;  // N-tiled kernel: rows between flushes
 
-// Parameter bound of the HMC, N-tiled and NUTS kernels: tile_bound_for's
-// up to kWideMax, above it d padded to a multiple of 32 up to kXWideMax; 0
-// where no tile takes d.
+// Parameter bound of the NUTS kernels, and of the HMC and N-tiled kernels
+// up to kXWideMax (glm_bound_for): tile_bound_for's up to kWideMax, above
+// it d padded to a multiple of 32 up to kXWideMax; 0 where no tile takes d.
 int hmc_bound_for(int d) {
   return d > kWideMax && d <= kXWideMax ? (d + 31) & ~31 : tile_bound_for(d);
 }
@@ -1548,6 +1560,444 @@ __device__ __forceinline__ float xw_sq(const float* v, int D) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
+}
+
+// ---- the chunked tier: kXWideMax < d <= kXChunkDMax ------------------------
+// Replaces the same Pallas bodies once more (pallas_glm.py _kernel,
+// _step_kernel, _multistep_kernel; pallas_glm_bign.py _grad_kernel), whose
+// only bound on d is their 100 MiB of VMEM.  Above 1024 parameters the
+// very-wide tile breaks: sth, the theta of the gradient in flight, takes 16
+// (D + 4) floats of shared memory (256 KB at D 4096, more than a block
+// has); the rows' two buffers no longer fit beside it; stage 2's
+// accumulators are sized by kXWideMax at compile time; and stage 2 needs
+// the residual of a row, which needs Z over all of d first.  The chunked
+// tier keeps the very-wide block (16 warps, a tile of 16 chains, persistent
+// blocks, the chain state in a device-memory slot) and walks d in n chunks
+// of DC <= kXChunk columns (d padded to D = n DC) and N in blocks of
+// kXBlockRows rows, with two passes over each row block:
+//
+// - Pass A, for each chunk: the chunk's columns of the 16 chains' theta are
+//   staged in sth (16 rows of stride DC + 4), the row block's tiles of the
+//   chunk's columns stream through the two buffers, stage 1 leaves each
+//   unit's partial Z in zbuf (xwide_stage1 on the chunk), and the warp of
+//   each row group adds the k-slices' partials in slice order onto the
+//   group's Z in zres (shared memory, 16 x kXBlockRows floats in the lane
+//   order of stage 2's A fragments; the first chunk starts from o).  After
+//   the last chunk that warp applies the link: R = w resid replaces Z in
+//   zres and the w ll terms go to its double registers.
+// - Pass B, for each chunk: the row block's tiles of the chunk's columns
+//   stream again and stage 2 adds R X_c to the chunk's float accumulators
+//   (n-blocks w + 16 i of the chunk, kXChunkUnits a warp, R's fragments
+//   read from zres), which their owner hands on: the HMC kernels add them
+//   to g's row in the slot (the first row block writes it), the N-tiled
+//   kernel to its double partials.
+//
+// X is read twice a gradient (8 N d bytes for the tile's 16 chains, from
+// L2 while X fits there), theta once a row block (64 d bytes a 512 rows).
+// Every G element keeps one owner lane and one order of sums: the same bits
+// on every launch.  The HMC kernels keep the proposal's theta in a fifth
+// slot array (sth holds only a chunk of it) and apply the prior after the
+// last row block, chunk by chunk, in the owners' layout (xchunk_prior: lam
+// theta, or Theta A on the tensor cores with Theta's fragments read from
+// the slot).  Shared memory at DC 512: sth 33 KB, zbuf 8 KB, zres 32 KB, two
+// buffers of 32 rows 130 KB: 204 KB, one block an SM.  Nothing depends on
+// d but the slot (320 D bytes a block) and the loops' trip counts.
+constexpr int kXChunk = 512;         // columns of a chunk, at most
+constexpr int kXBlockRows = 512;     // rows whose Z, then R, stay in zres
+constexpr int kXChunkDMax = 16384;   // the chunked tier's bound
+constexpr int kXChunkArrays = 5;     // theta, g, m, g', theta': slot rows
+constexpr int kXChunkUnits = kXChunk / 8 / kTrajWarps;  // stage-2 n-blocks
+
+// The chunks of width d: n = ceil(d / kXChunk) of DC = ceil(d / n) rounded
+// up to 32 columns (352 at d 1025-1056, 512 at d 2048 and 4096).
+__host__ __device__ inline int xchunk_n(int d) {
+  return (d + kXChunk - 1) / kXChunk;
+}
+__host__ __device__ inline int xchunk_dc(int d) {
+  const int n = xchunk_n(d);
+  return ((d + n - 1) / n + 31) & ~31;
+}
+
+// Parameter bound of the HMC and N-tiled kernels: hmc_bound_for's up to
+// kXWideMax, above it n DC up to kXChunkDMax; 0 where no tile takes d.
+int glm_bound_for(int d) {
+  return d > kXWideMax && d <= kXChunkDMax ? xchunk_n(d) * xchunk_dc(d)
+                                           : hmc_bound_for(d);
+}
+
+// Bytes of the HMC kernels' device-memory slot of one block at width D.
+size_t xchunk_slot_bytes(int D) {
+  return sizeof(float) * (size_t)kXChunkArrays * kTileChains * D;
+}
+
+// Shared memory of a chunked-tier kernel, in this order: the warps' ll
+// partials (kTrajWarps x 16 doubles), sth (16 x (DC + 4)), zbuf (16 units
+// x 128 floats), zres (16 x kXBlockRows), two buffers of R rows of DC
+// columns.
+size_t xchunk_smem(int DC, int R) {
+  return sizeof(double) * kTrajWarps * kTileChains +
+         sizeof(float) * ((size_t)kTileChains * (DC + 4) +
+                          (size_t)kTrajWarps * 128 +
+                          (size_t)kTileChains * kXBlockRows +
+                          (size_t)2 * R * wide_row_floats(DC));
+}
+
+// The plan at d: the largest streamed tile R in {128, ..., 8} that fits
+// (R / 8 row groups times 128 / R k-slices make stage 1's 16 units; R
+// divides kXBlockRows).  R 32 at every DC up to 512.
+TrajPlan xchunk_plan(int d) {
+  const int DC = xchunk_dc(d);
+  for (int R = 128; R >= 8; R >>= 1)
+    if (xchunk_smem(DC, R) <= (size_t)kTileSmemCap)
+      return {R, false, xchunk_smem(DC, R)};
+  return {0, false, 0};
+}
+
+// The block's view of that shared memory: x is the very-wide tile's view of
+// one chunk (x.D = DC, no rbuf), so that xwide_init, xwide_buffer and
+// xwide_stage1 serve the chunks as they are.
+struct XChunk {
+  XWide x;
+  int n, D;     // chunks, padded width n DC
+  float* zres;  // (kXBlockRows / 8 groups, 32 lanes, 4): Z, then R
+};
+
+__device__ __forceinline__ XChunk xchunk_at(const Glm& p) {
+  extern __shared__ double tile_sm[];
+  XChunk c;
+  c.n = xchunk_n(p.d);
+  c.x.D = xchunk_dc(p.d);
+  c.D = c.n * c.x.D;
+  c.x.R = p.tile;
+  c.x.KS = 128 / p.tile;
+  c.x.RS = 0;
+  c.x.pll = tile_sm;
+  c.x.sth = reinterpret_cast<float*>(c.x.pll + kTrajWarps * kTileChains);
+  c.x.zbuf = c.x.sth + kTileChains * (c.x.D + 4);
+  c.zres = c.x.zbuf + kTrajWarps * 128;
+  c.x.rbuf = nullptr;
+  c.x.buf = c.zres + kTileChains * kXBlockRows;
+  return c;
+}
+
+// Start copying rows [n0, n0 + nt) of columns [c0, c0 + DC) into buffer
+// dst, with wide_issue's layout and split of the work; the columns past d
+// (the last chunk's padding) are zero-filled, so that no other chunk's
+// columns linger there.
+__device__ __forceinline__ void xchunk_issue(const Glm& p, const XWide& x,
+                                             float* dst, int c0, int n0,
+                                             int nt) {
+  const int XS = x.D + 4, lane = threadIdx.x & 31;
+  float* yb = dst + x.R * XS;
+  for (int j = 4 * (threadIdx.x >> 5) + (lane >> 3); j < x.D;
+       j += 4 * (blockDim.x >> 5)) {
+    const bool in = c0 + j < p.d;
+    const float* src = p.xt + (size_t)(in ? c0 + j : 0) * p.N + n0;
+    for (int i = lane & 7; i < nt; i += 8)
+      cp_async4_zfill(dst + i * XS + j, src + i, in);
+  }
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    cp_async4(yb + i, p.y + n0 + i);
+    if (p.w) cp_async4(yb + x.R + i, p.w + n0 + i);
+    if (p.o) cp_async4(yb + 2 * x.R + i, p.o + n0 + i);
+  }
+}
+
+// Columns [c0, c0 + DC) of the warp's chain row src (0 past d) into its
+// sth row.
+__device__ __forceinline__ void xchunk_theta(const XWide& x, const float* src,
+                                             int c0, int d) {
+  float* dst = x.sth + (threadIdx.x >> 5) * (x.D + 4);
+  for (int j = threadIdx.x & 31; j < x.D; j += 32)
+    dst[j] = c0 + j < d ? src[c0 + j] : 0.f;
+}
+
+// After stage 1 of a tile of nt rows whose first row group is group g0 of
+// the row block: warp rg < R / 8 adds its row group's KS partials in slice
+// order onto the group's Z in zres (onto o for the first chunk) and, after
+// the last chunk, applies the link (as xwide_link_k): R replaces Z, and
+// the w ll terms go into ll.  One instantiation a link, the rows past nt
+// masked and ll summed in every group (the very-wide tile's four a link
+// add nothing here but nvcc's time: a row's link is 1 / d of its work).
+template <int KIND>
+__device__ __forceinline__ void xchunk_link_k(const XChunk& c, const float* xb,
+                                              int nt, int g0, bool first,
+                                              bool last, double (&ll)[2]) {
+  const XWide& x = c.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane & 3, r0 = 8 * warp;
+  if (warp >= x.R / 8 || r0 >= nt) return;
+  const float* yb = xb + x.R * (x.D + 4);
+  float4* zp = reinterpret_cast<float4*>(c.zres) + (g0 + warp) * 32 + lane;
+  float z[4];
+  if (first) {
+    const float2 o2 =
+        *reinterpret_cast<const float2*>(yb + 2 * x.R + r0 + 2 * q);
+    z[0] = z[2] = o2.x;
+    z[1] = z[3] = o2.y;
+  } else {
+    const float4 v = *zp;
+    z[0] = v.x;
+    z[1] = v.y;
+    z[2] = v.z;
+    z[3] = v.w;
+  }
+  const float4* pp = reinterpret_cast<const float4*>(x.zbuf) +
+                     warp * x.KS * 32 + lane;
+  for (int ks = 0; ks < x.KS; ++ks) {
+    const float4 v = pp[32 * ks];
+    z[0] += v.x;
+    z[1] += v.y;
+    z[2] += v.z;
+    z[3] += v.w;
+  }
+  if (!last) {
+    *zp = make_float4(z[0], z[1], z[2], z[3]);
+    return;
+  }
+  float r[4];
+  group_link<KIND, true, false>(z, yb, yb + x.R, nt, r0, r, ll);
+  *zp = make_float4(r[0], r[1], r[2], r[3]);
+}
+
+__device__ __forceinline__ void xchunk_link(int kind, const XChunk& c,
+                                            const float* xb, int nt, int g0,
+                                            bool first, bool last,
+                                            double (&ll)[2]) {
+  switch (kind) {
+    case kLogistic:
+      xchunk_link_k<kLogistic>(c, xb, nt, g0, first, last, ll);
+      break;
+    case kLinear:
+      xchunk_link_k<kLinear>(c, xb, nt, g0, first, last, ll);
+      break;
+    case kPoisson:
+      xchunk_link_k<kPoisson>(c, xb, nt, g0, first, last, ll);
+      break;
+    default:
+      xchunk_link_k<kProbit>(c, xb, nt, g0, first, last, ll);
+      break;
+  }
+}
+
+// Pass A over rows [b0, b1) (at most kXBlockRows) for the warps' chain rows
+// src (each warp its own, width d): R of the row block into zres and the w
+// ll terms into ll.  Every thread calls it; starts on a barrier.
+__device__ __forceinline__ void xchunk_pass_a(const Glm& p, const XChunk& c,
+                                              const float* src, int b0,
+                                              int b1, double (&ll)[2]) {
+  const XWide& x = c.x;
+  for (int k = 0; k < c.n; ++k) {
+    const int c0 = k * x.D;
+    __syncthreads();  // every warp done with sth, zbuf and both buffers
+    xchunk_theta(x, src, c0, p.d);
+    xchunk_issue(p, x, x.buf, c0, b0, min(x.R, b1 - b0));
+    cp_async_commit();
+    for (int t0 = b0, b = 0; t0 < b1; t0 += x.R, b ^= 1) {
+      const int nt = min(x.R, b1 - t0), t1 = t0 + x.R;
+      const float* xb = xwide_buffer(x, b);
+      cp_async_wait<0>();
+      __syncthreads();  // this tile and sth landed; every warp done with the
+                        // last tile
+      if (t1 < b1) {
+        xchunk_issue(p, x, xwide_buffer(x, b ^ 1), c0, t1, min(x.R, b1 - t1));
+        cp_async_commit();
+      }
+      xwide_stage1(x, xb, nt);
+      __syncthreads();  // the partial Z written
+      xchunk_link(p.kind, c, xb, nt, (t0 - b0) >> 3, k == 0, k == c.n - 1,
+                  ll);
+    }
+  }
+}
+
+// Stage 2 of a tile of nt rows whose first row group is group g0 of the row
+// block: G_c += R X_c for the warp's n-blocks w + 16 i of the chunk, R's A
+// fragment (xwide_stage2's) from zres.
+__device__ __forceinline__ void xchunk_stage2(const XChunk& c, const float* xb,
+                                              int nt, int g0,
+                                              float (&ga)[kXChunkUnits][4]) {
+  const XWide& x = c.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int NB = x.D / 8, XS = x.D + 4, groups = (nt + 7) >> 3;
+  const float4* rz = reinterpret_cast<const float4*>(c.zres) + g0 * 32 + lane;
+  for (int rg = 0; rg < groups; ++rg) {
+    // (chain g: rows 2q, 2q + 1; chain g + 8: rows 2q, 2q + 1)
+    const float4 r = rz[32 * rg];
+    uint32_t rh[4], rl[4];
+    split_tf32(r.x, rh[0], rl[0]);
+    split_tf32(r.z, rh[1], rl[1]);
+    split_tf32(r.y, rh[2], rl[2]);
+    split_tf32(r.w, rh[3], rl[3]);
+    const float* x0 = xb + (8 * rg + 2 * q) * XS + g;
+#pragma unroll
+    for (int i = 0; i < kXChunkUnits; ++i) {
+      const int nb = warp + kTrajWarps * i;
+      if (nb < NB) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(x0[8 * nb], bh0, bl0);
+        split_tf32(x0[XS + 8 * nb], bh1, bl1);
+        mma_3xtf32(ga[i], rh, rl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// Pass B of chunk k over rows [b0, b1) (after pass A): G_c of the row block
+// into ga, zeroed here.  Every thread calls it; starts on a barrier.
+__device__ __forceinline__ void xchunk_pass_b(const Glm& p, const XChunk& c,
+                                              int k, int b0, int b1,
+                                              float (&ga)[kXChunkUnits][4]) {
+  const XWide& x = c.x;
+  const int c0 = k * x.D;
+#pragma unroll
+  for (int i = 0; i < kXChunkUnits; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ga[i][e] = 0.f;
+  __syncthreads();  // every warp done with both buffers; zres written
+  xchunk_issue(p, x, x.buf, c0, b0, min(x.R, b1 - b0));
+  cp_async_commit();
+  for (int t0 = b0, b = 0; t0 < b1; t0 += x.R, b ^= 1) {
+    const int nt = min(x.R, b1 - t0), t1 = t0 + x.R;
+    const float* xb = xwide_buffer(x, b);
+    cp_async_wait<0>();
+    __syncthreads();  // this tile landed; every warp done with the last one
+    if (t1 < b1) {
+      xchunk_issue(p, x, xwide_buffer(x, b ^ 1), c0, t1, min(x.R, b1 - t1));
+      cp_async_commit();
+    }
+    xchunk_stage2(c, xb, nt, (t0 - b0) >> 3, ga);
+  }
+}
+
+// The prior's gradient term of chunk k in the owners' layout (xwide_prior's,
+// 0 past d), theta from the slot rows thp (16, D): lam theta, or with a (d,
+// d) matrix A, PG_c = Theta A[:, c] on the tensor cores, K = d in k-blocks
+// of 8, Theta's A fragment from thp, A's B fragment from device memory.
+__device__ __forceinline__ void xchunk_prior(const Glm& p, const XChunk& c,
+                                             const float* thp, int k,
+                                             float (&pa)[kXChunkUnits][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int NB = c.x.D / 8, c0 = k * c.x.D;
+  const float* t0 = thp + (size_t)g * c.D;
+  const float* t8 = t0 + (size_t)8 * c.D;
+#pragma unroll
+  for (int i = 0; i < kXChunkUnits; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[i][e] = 0.f;
+  if (!p.lamm) {
+#pragma unroll
+    for (int i = 0; i < kXChunkUnits; ++i) {
+      const int j = c0 + 8 * (warp + kTrajWarps * i) + 2 * q;
+      if (warp + kTrajWarps * i < NB) {
+        const float l0 = j < p.d ? (p.lamv ? __ldg(p.lamv + j) : p.lam) : 0.f;
+        const float l1 =
+            j + 1 < p.d ? (p.lamv ? __ldg(p.lamv + j + 1) : p.lam) : 0.f;
+        pa[i][0] = l0 * t0[j];
+        pa[i][1] = l1 * t0[j + 1];
+        pa[i][2] = l0 * t8[j];
+        pa[i][3] = l1 * t8[j + 1];
+      }
+    }
+    return;
+  }
+  for (int kb = 0; 8 * kb < p.d; ++kb) {
+    const int k0 = 8 * kb + 2 * q, k1 = k0 + 1;
+    uint32_t ah[4], al[4];
+    split_tf32(t0[k0], ah[0], al[0]);
+    split_tf32(t8[k0], ah[1], al[1]);
+    split_tf32(t0[k1], ah[2], al[2]);
+    split_tf32(t8[k1], ah[3], al[3]);
+    const float* a0 = p.lamm + (size_t)k0 * p.d;
+#pragma unroll
+    for (int i = 0; i < kXChunkUnits; ++i) {
+      const int nb = warp + kTrajWarps * i, col = c0 + 8 * nb + g;
+      if (nb < NB) {
+        const bool cin = col < p.d;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(cin && k0 < p.d ? __ldg(a0 + col) : 0.f, bh0, bl0);
+        split_tf32(cin && k1 < p.d ? __ldg(a0 + p.d + col) : 0.f, bh1, bl1);
+        mma_3xtf32(pa[i], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// One gradient of the block's 16 chains at the theta rows thp (16, D) of
+// the slot: g = G - prior term into the (16, D) slot array gdst (0 past d)
+// and, with want_ll, lp as xwide_grad gives it (the warps' ll partials in
+// warp order, the prior term 1/2 theta . pg from the owners' partials).
+// G of each row block is added to gdst by its owner, so gdst's rows hold
+// G's partial sums until the prior is applied; ll is summed in every pass
+// A and used only with want_ll.  Every thread calls it;
+// ends on a barrier, after which warp c reads its row of gdst.  Left out of
+// line, as xwide_grad.
+__device__ __noinline__ float xchunk_grad(const Glm p, const float* thp,
+                                          float* gdst, bool want_ll) {
+  const XChunk c = xchunk_at(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int NB = c.x.D / 8, D = c.D;
+  double ll[2] = {0.0, 0.0};
+  for (int b0 = 0; b0 < p.N; b0 += kXBlockRows) {
+    const int b1 = min(p.N, b0 + kXBlockRows);
+    xchunk_pass_a(p, c, thp + (size_t)warp * D, b0, b1, ll);
+    for (int k = 0; k < c.n; ++k) {
+      float ga[kXChunkUnits][4];
+      xchunk_pass_b(p, c, k, b0, b1, ga);
+#pragma unroll
+      for (int i = 0; i < kXChunkUnits; ++i) {
+        const int nb = warp + kTrajWarps * i;
+        if (nb >= NB) continue;
+        const int j = k * c.x.D + 8 * nb + 2 * q;
+        float2* r0 = reinterpret_cast<float2*>(gdst + g * D + j);
+        float2* r8 = reinterpret_cast<float2*>(gdst + (g + 8) * D + j);
+        if (b0 == 0) {
+          *r0 = make_float2(ga[i][0], ga[i][1]);
+          *r8 = make_float2(ga[i][2], ga[i][3]);
+        } else {
+          const float2 u = *r0, v = *r8;
+          *r0 = make_float2(u.x + ga[i][0], u.y + ga[i][1]);
+          *r8 = make_float2(v.x + ga[i][2], v.y + ga[i][3]);
+        }
+      }
+    }
+  }
+  const float* t0 = thp + g * D;
+  const float* t8 = t0 + 8 * D;
+  float qa = 0.f, qb = 0.f;
+  for (int k = 0; k < c.n; ++k) {
+    float pa[kXChunkUnits][4];
+    xchunk_prior(p, c, thp, k, pa);
+#pragma unroll
+    for (int i = 0; i < kXChunkUnits; ++i) {
+      const int nb = warp + kTrajWarps * i;
+      if (nb >= NB) continue;
+      const int j = k * c.x.D + 8 * nb + 2 * q;
+      float2* r0 = reinterpret_cast<float2*>(gdst + g * D + j);
+      float2* r8 = reinterpret_cast<float2*>(gdst + (g + 8) * D + j);
+      const float2 u = *r0, v = *r8;
+      *r0 = make_float2(u.x - pa[i][0], u.y - pa[i][1]);
+      *r8 = make_float2(v.x - pa[i][2], v.y - pa[i][3]);
+      qa = fmaf(t0[j + 1], pa[i][1], fmaf(t0[j], pa[i][0], qa));
+      qb = fmaf(t8[j + 1], pa[i][3], fmaf(t8[j], pa[i][2], qb));
+    }
+  }
+  if (want_ll) {
+    put_ll(c.x.pll, ll);
+    const float sa = (float)quad_sum(qa), sb = (float)quad_sum(qb);
+    if (q == 0) {  // zbuf is free: every warp is past the last link
+      c.x.zbuf[warp * kTileChains + g] = sa;
+      c.x.zbuf[warp * kTileChains + g + 8] = sb;
+    }
+  }
+  __syncthreads();
+  if (!want_ll) return 0.f;
+  float quad = 0.f;
+  for (int w = 0; w < kTrajWarps; ++w) quad += c.x.zbuf[w * kTileChains + warp];
+  return (float)(sum_ll(c.x.pll, warp, kTrajWarps) - 0.5 * (double)quad);
 }
 
 }  // namespace

@@ -25,7 +25,12 @@ JAX package nothing pads N (a padded row would need weight 0: the logistic
 16 a CTA on the wide tile above, whose launches count as
 ``glm_logp_grad_tiled_wide`` (``_mat_wide`` with a matrix prior), and 16 a
 CTA on the very-wide tile above ``glm_kernels.WIDE_D_MAX``
-(``glm_logp_grad_tiled_xwide``, ``_mat_xwide``).
+(``glm_logp_grad_tiled_xwide``, ``_mat_xwide``), and 16 a CTA on the
+chunked tier above ``glm_kernels.XWIDE_D_MAX``, which walks d in column
+chunks (``glm_logp_grad_tiled_chunked``, ``_mat_chunked``).  The per-split
+double partials take ``splits x C x (d + 1)`` doubles, and the grid keeps
+``splits x ceil(C / 16)`` at most :data:`SPLIT_CTAS_WIDE`: at d 8192 at
+most 264 x 16 x 8193 doubles, 277 MB.
 """
 from __future__ import annotations
 
@@ -44,11 +49,14 @@ BIGN_THRESHOLD = 16384
 
 #: launches with a (d, d) prior (the dense fold) count as "..._mat", and
 #: launches on the wide tile (32 < d <= 256) with "_wide" appended, on the
-#: very-wide tile (d > 256) with "_xwide"
+#: very-wide tile (256 < d <= 1024) with "_xwide", on the chunked tier (d >
+#: 1024) with "_chunked"
 LAUNCHES = {"glm_logp_grad_tiled": 0, "glm_logp_grad_tiled_mat": 0,
             "glm_logp_grad_tiled_wide": 0, "glm_logp_grad_tiled_mat_wide": 0,
             "glm_logp_grad_tiled_xwide": 0,
-            "glm_logp_grad_tiled_mat_xwide": 0}
+            "glm_logp_grad_tiled_mat_xwide": 0,
+            "glm_logp_grad_tiled_chunked": 0,
+            "glm_logp_grad_tiled_mat_chunked": 0}
 PLAIN_CALLS = {"glm_logp_grad_tiled": 0}
 
 #: the kernel's grid aims at up to this many CTAs, two full waves of the two

@@ -37,11 +37,22 @@ the plain versions also take a custom ``(ll, resid)`` pair.
 The kernels take d up to :data:`D_MAX`: up to :data:`NARROW_D_MAX` on the
 narrow chain tile (one thread a coordinate), up to :data:`WIDE_D_MAX` on the
 wide tile (one warp a chain, the columns of the gradient split over the
-warps), above it on the very-wide tile (the chain state in device memory,
-in a scratch buffer :func:`_slots` allocates; csrc/glm_tile.cuh).  A
+warps), up to :data:`XWIDE_D_MAX` on the very-wide tile (the chain state in
+device memory, in a scratch buffer :func:`_slots` allocates;
+csrc/glm_tile.cuh), and above it on the chunked tier, which walks d in
+column chunks of at most 512 (the proposal's theta in the scratch too).  A
 launch on the wide tile counts under ``<name>_wide`` (``<name>_mat_wide``
 with a matrix), one on the very-wide tile under ``<name>_xwide``
-(``<name>_mat_xwide``), so a run shows which tile it went through.
+(``<name>_mat_xwide``), one on the chunked tier under ``<name>_chunked``
+(``<name>_mat_chunked``), so a run shows which tile it went through.
+
+:data:`D_MAX` is 16384, a constant although nothing in the chunked tier
+depends on d but memory and indexing (its shared memory and registers are
+sized by the 512-column chunk; every index that can pass 2^31 is a
+``size_t``): it is the widest d at which the kernels are held against
+their plain versions on the card.  At d 8192 a block's slot is 5 x 16 x
+8192 float32 = 2.6 MB, 346 MB for the 132 blocks of an H100; the exact-NUTS
+kernels (8, 9) stop at :data:`XWIDE_D_MAX` (``nuts_kernels.NUTS_D_MAX``).
 """
 from __future__ import annotations
 
@@ -57,10 +68,13 @@ from . import philox
 from .cuda_build import count, scratch_buffer
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
-#: largest parameter count the HMC kernels (1, 2, 3, 3b), the N-tiled
-#: kernel (4) and the exact-NUTS kernels (8, 9; nuts_kernels.NUTS_D_MAX)
-#: take (csrc/glm_tile.cuh kXWideMax: the very-wide tile's bound)
-D_MAX = 1024
+#: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
+#: kernel (4) take (csrc/glm_tile.cuh kXChunkDMax: the chunked tier's bound)
+D_MAX = 16384
+#: largest parameter count of the very-wide tile (csrc/glm_tile.cuh
+#: kXWideMax), and of the exact-NUTS kernels (8, 9;
+#: nuts_kernels.NUTS_D_MAX); above it the HMC family's chunked tier
+XWIDE_D_MAX = 1024
 #: largest parameter count of the narrow chain tile (csrc/glm_tile.cuh
 #: kNarrowMax)
 NARROW_D_MAX = 32
@@ -74,11 +88,11 @@ SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
 #: launches of the Halton multistep kernel with a (d, d) prior, and launches
-#: on the wide tile (d > NARROW_D_MAX) and the very-wide tile (d >
-#: WIDE_D_MAX), counted apart
+#: on the wide tile (d > NARROW_D_MAX), the very-wide tile (d >
+#: WIDE_D_MAX) and the chunked tier (d > XWIDE_D_MAX), counted apart
 LAUNCHES = dict.fromkeys(
     _NAMES + ("glm_multistep_rows_mat",)
-    + tuple(n + t for t in ("_wide", "_xwide")
+    + tuple(n + t for t in ("_wide", "_xwide", "_chunked")
             for n in _NAMES + ("glm_multistep_rows_mat",)), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
@@ -446,12 +460,14 @@ _SLOTS = {}
 def _slots(dev, d, C):
     """(buffer, bytes) of the very-wide tile's chain state for C chains of d
     parameters on ``dev``'s current stream: one slot of theta, g, m and the
-    proposal's g (4 x 16 x D float32, csrc/glm_tile.cuh xwide_slot_bytes)
-    for each block a launch runs at once, at most one an SM (the tile's
-    plan takes more than half an SM's shared memory).  One buffer for each
-    (device, stream, D), allocated once and grown when a launch needs more;
-    the kernel runs no more blocks than it holds slots for.  (None, 0) at d
-    <= WIDE_D_MAX, where the chain state stays in registers."""
+    proposal's g (4 x 16 x D float32, csrc/glm_tile.cuh xwide_slot_bytes;
+    on the chunked tier also the proposal's theta, 5 x 16 x D,
+    xchunk_slot_bytes: 2.6 MB at d 8192) for each block a launch runs at
+    once, at most one an SM (the tiles' plans take more than half an SM's
+    shared memory).  One buffer for each (device, stream, D), allocated once
+    and grown when a launch needs more; the kernel runs no more blocks than
+    it holds slots for.  (None, 0) at d <= WIDE_D_MAX, where the chain state
+    stays in registers."""
     if d <= WIDE_D_MAX:
         return None, 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -475,7 +491,8 @@ def _sched(integrator):
 def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
     """Validate what the kernel takes: ``states`` (name -> tensor) must be
     (C, d) and ``per_chain`` ones (C,), with C from ``theta``, and d at most
-    the kernels' bound :data:`D_MAX`.
+    the kernel's bound: :data:`D_MAX`, or :data:`XWIDE_D_MAX` for the
+    exact-NUTS kernels (``glm_nuts_*``).
     Returns (N, d, C, flat W, flat O)."""
     if kind not in KIND_CODES:
         raise ValueError(f"{name}: the CUDA kernel takes the links "
@@ -484,8 +501,9 @@ def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
     if XT.ndim != 2:
         raise ValueError(f"{name}: XT must be (d, N), got {tuple(XT.shape)}")
     d, N = XT.shape
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{D_MAX}")
+    d_max = XWIDE_D_MAX if name.startswith("glm_nuts") else D_MAX
+    if not 1 <= d <= d_max:
+        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{d_max}")
     C = states["theta"].shape[0] if states["theta"].ndim else 0
     per_chain = per_chain or {}
     obs = {"Y": _row(Y), "weights": _row(weights), "offsets": _row(offsets)}
@@ -524,10 +542,11 @@ def _seed(generator):
 def _counted(name, lamm, d=0):
     """The launch counter of kernel ``name``: its own, ``<name>_mat`` for
     the variant with a (d, d) prior, and either with ``_wide`` appended for
-    a launch on the wide tile (NARROW_D_MAX < d <= WIDE_D_MAX) or
-    ``_xwide`` on the very-wide tile (d > WIDE_D_MAX)."""
-    tier = ("_xwide" if d > WIDE_D_MAX else "_wide" if d > NARROW_D_MAX
-            else "")
+    a launch on the wide tile (NARROW_D_MAX < d <= WIDE_D_MAX), ``_xwide``
+    on the very-wide tile (WIDE_D_MAX < d <= XWIDE_D_MAX) or ``_chunked``
+    on the chunked tier (d > XWIDE_D_MAX)."""
+    tier = ("_chunked" if d > XWIDE_D_MAX else "_xwide" if d > WIDE_D_MAX
+            else "_wide" if d > NARROW_D_MAX else "")
     return name + ("" if lamm is None else "_mat") + tier
 
 

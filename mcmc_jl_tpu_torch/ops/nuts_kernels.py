@@ -66,19 +66,19 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
-                          _arange_for, _check, _counted, _device_branch,
-                          _prior, _prior_args, _ptr, _row, glm_funcs,
-                          glm_multistep_draws)
+from .glm_kernels import (KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
+                          XWIDE_D_MAX, _arange_for, _check, _counted,
+                          _device_branch, _prior, _prior_args, _ptr, _row,
+                          glm_funcs, glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
 from .cuda_build import count, scratch_buffer
 
-#: largest parameter count of the GLM NUTS kernels (8, 9): the HMC
-#: kernels' glm_kernels.D_MAX, the very-wide tile's bound (csrc/glm_nuts.cu
-#: nuts_max_dim, csrc/glm_tile.cuh kXWideMax)
-NUTS_D_MAX = D_MAX
+#: largest parameter count of the GLM NUTS kernels (8, 9): the very-wide
+#: tile's bound glm_kernels.XWIDE_D_MAX (csrc/glm_nuts.cu nuts_max_dim,
+#: csrc/glm_tile.cuh kXWideMax); the HMC kernels go on to glm_kernels.D_MAX
+NUTS_D_MAX = XWIDE_D_MAX
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10

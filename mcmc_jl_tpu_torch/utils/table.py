@@ -1,5 +1,6 @@
 """A minimal column table for chain output (port of
-``mcmc_jl_tpu/utils/table.py``, unchanged: it is host-side numpy).
+``mcmc_jl_tpu/utils/table.py``: host-side numpy, its column index built on
+the first lookup by name).
 
 The reference stores samples/gradients in ``DataFrames.DataFrame`` objects
 (reference: src/MCMC.jl:58-80, src/runners/SerialMC.jl:70-84).  We keep the
@@ -26,7 +27,10 @@ class Table:
         )
         self.values = data
         self.columns = list(columns)
-        self._index = {c: i for i, c in enumerate(self.columns)}
+        # name -> column, built on the first lookup by name: a run packages
+        # two tables a chain, and at 4096 chains of 4096 coordinates
+        # building it up front took most of the packaging's seconds
+        self._index = None
 
     # -- basic protocol ----------------------------------------------------
     def __len__(self):
@@ -58,6 +62,8 @@ class Table:
 
     def _col(self, key):
         if isinstance(key, str):
+            if self._index is None:
+                self._index = {c: i for i, c in enumerate(self.columns)}
             return self.values[:, self._index[key]]
         return self.values[:, key]
 

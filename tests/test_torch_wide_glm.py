@@ -309,7 +309,7 @@ def test_wide_counters_and_splits():
     ``<name>_mat_wide`` with a matrix prior) up to the wide tile's bound
     256, under ``<name>_xwide`` above it; the tiled kernel's grid takes 16
     chains a CTA there, in two waves of one block an SM."""
-    assert gk.D_MAX == 1024 and gk.WIDE_D_MAX == 256
+    assert gk.XWIDE_D_MAX == 1024 and gk.WIDE_D_MAX == 256
     assert gk.NARROW_D_MAX == 32
     assert gk._counted("glm_leapfrogs", None, 32) == "glm_leapfrogs"
     assert gk._counted("glm_leapfrogs", None, 33) == "glm_leapfrogs_wide"

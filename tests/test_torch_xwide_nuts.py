@@ -256,7 +256,8 @@ def test_xwide_nuts_routes_and_reasons(d, caplog):
     """At d 257 and 1024 exact NUTS with the unit, diagonal and dense
     metrics routes to "nuts" (kernels 8 and 9) for a run and for its
     continuation, with no reason logged; at d 1025 each takes the generic
-    engine with the reason naming GLMs wider than 1024 parameters.  The
+    engine with the reason naming exact NUTS on GLMs wider than 1024
+    parameters.  The
     reason that named exact NUTS on GLMs wider than 256 parameters appears
     nowhere."""
     runner = mt.SerialMC(steps=60, burnin=20)
@@ -271,8 +272,8 @@ def test_xwide_nuts_routes_and_reasons(d, caplog):
             assert pchains.continuation_route(m, s, 4, True) == (
                 "nuts" if ok else False)
     text = [r.getMessage() for r in caplog.records]
-    why = ("d = 1025 > 1024, the GLM kernels' bound (ROADMAP: GLMs wider "
-           "than 1024 parameters)")
+    why = ("d = 1025 > 1024, the GLM NUTS kernels' width (ROADMAP: exact "
+           "NUTS on GLMs wider than 1024 parameters)")
     assert sum(why in t for t in text) == (0 if ok else 6)
     assert "wider than 256" not in caplog.text
     assert "NUTS kernels' bound" not in caplog.text
