@@ -56,8 +56,8 @@ dense metric at N 1000 and N 20,000, each held against the generic engine
 at d 257, 512 and 1024, kernel 9's five draw ranges disjoint at d 1024
 (``phase_xwide_nuts_kernels``); the d 1024 model drives ``NUTS(6)`` with
 the unit, diagonal and dense metrics and a resume, each held against
-kernel 1's HMC run; NUTS at d 1025 takes the generic engine with its
-reason (``phase_xwide_nuts_paths``); ``phase_xwide_nuts_times`` times
+kernel 1's HMC run; NUTS at d 1025 takes the chunked tier with no reason
+logged (``phase_xwide_nuts_paths``); ``phase_xwide_nuts_times`` times
 the kernels at d 512 and 1024.  GLMs of 1025 to 16384 parameters run
 kernels 1, 2, 3, 3b and 4 (and the _mat variants) on the chunked tier:
 each is held against its plain version at d 1056, 2048 and 4096 (1 and 4
@@ -66,7 +66,16 @@ regressions of d 4096 (N 1000 and 20,000; the dense metric at d 2048)
 drive plain HMC, the drivers of 2 and 3, adaptive HMC with a diagonal and
 a dense metric and a resume, each held against the generic engine
 (``phase_chunked_paths``); ``phase_chunked_times`` times the kernels at
-d 4096.  The dense metric on catalog
+d 4096.  Exact NUTS runs there too: kernels 8 and 9 (and _mat) on the
+chunked tier are held against their plain versions at d 1056, 2048 and
+4096 (8 also at 16384), kernel 9's five draw ranges disjoint at d 16384
+(``phase_chunked_nuts_kernels``); from the posterior mode, the d 4096
+model drives ``NUTS(6)`` with the unit and diagonal metrics, and the d
+2048 one the dense metric and a resume, each held against the adaptive
+HMC run from the same mode; NUTS at d 16385 takes the generic engine with
+the GLM kernels' bound as its reason (``phase_chunked_nuts_paths``);
+``phase_chunked_nuts_times`` times the kernels at d 4096.  The dense
+metric on catalog
 targets runs kernels 5 and 8b on the z-space target ``z -> target(z L')``
 (their DENSE instantiations): each is held against its plain version at d
 1-1024 (``phase_dense_target_kernels``), and dense ``NUTS(6)`` on the ten
@@ -126,12 +135,15 @@ kernels with ``wide_nuts`` and their paths with ``wide_nuts_paths``, the
 very-wide tile's at d 512 and 1024 and its paths' fused and generic
 seconds with ``xwide``, the very-wide NUTS kernels with ``xwide_nuts``,
 the chunked tier's at d 2048 and 4096 and its paths' fused and generic
-seconds with ``chunked``) at
+seconds with ``chunked``, the chunked NUTS kernels and their paths' with
+``chunked_nuts``) at
 pinned shapes, the paths that run them and bench.py's drivers, to compare
-two trees on one card; ``python3 chip_smoke.py --sass`` prints the
-instruction mix of the HMC tile kernels' row loops.
+two trees on one card; ``python3 chip_smoke.py --only chunked_nuts`` runs
+the chunked NUTS phases alone (ONLY_GROUPS); ``python3 chip_smoke.py
+--sass`` prints the instruction mix of the HMC tile kernels' row loops.
 """
 import contextlib
+import functools
 import json
 import os
 import re
@@ -238,6 +250,16 @@ REPLACES = {
                                       "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
     "glm_nuts_multistep_mat_xwide": ("glm_nuts",
                                      "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    # the exact-NUTS kernels on the chunked tier (1024 < d <= 16384),
+    # counted apart
+    "glm_nuts_transition_chunked": ("glm_nuts",
+                                    "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_chunked": ("glm_nuts",
+                                   "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    "glm_nuts_transition_mat_chunked": ("glm_nuts",
+                                        "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
+    "glm_nuts_multistep_mat_chunked": ("glm_nuts",
+                                       "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
     # kernels 5 and 8b on the z-space target of a frozen dense metric (the
     # JAX package's _dense_wrap, mcmc_jl_tpu/ops/warmstart.py:581-624, which
     # feeds the same two Pallas kernels): the DENSE instantiations, counted
@@ -925,6 +947,23 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
     return rep["theta"]["max_abs"]
 
 
+def _nuts_checks(err, tier, label, args, noise, eps, kw, seed, k,
+                 full_depth=False, multistep=True):
+    """Kernel 8 (_nuts_check) and, with ``multistep``, kernel 9
+    (_nuts_ms_check over k transitions) on one case of a tile above the
+    narrow one; each largest theta error into ``err`` under its counter on
+    ``tier`` ("_wide", "_xwide" or "_chunked", after "_mat" with a matrix
+    prior)."""
+    e = {"glm_nuts_transition": _nuts_check(label, args, noise, eps, kw,
+                                            full_depth=full_depth)}
+    if multistep:
+        e["glm_nuts_multistep"] = _nuts_ms_check(
+            label, args, eps, kw, seed=seed, k=k, full_depth=full_depth)
+    mat = "_mat" if _mat_or_none(kw.get("prior_prec")) is not None else ""
+    for name, v in e.items():
+        err[name + mat + tier] = max(err[name + mat + tier], v)
+
+
 def _f64_witness(label, args, eps, kw, seed, k=3):
     """Kernel 9's drift from float64 beside its plain version's: k
     transitions of the kernel on its own Philox draws (a generator seeded
@@ -1323,14 +1362,16 @@ def _nuts_kernel_times(XT, Y, th, lp, g, eps, md, k_trans, seed,
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
     from mcmc_jl_tpu_torch.ops import target_kernels as tk
-    from mcmc_jl_tpu_torch.ops.glm_kernels import NARROW_D_MAX, WIDE_D_MAX
+    from mcmc_jl_tpu_torch.ops.glm_kernels import (NARROW_D_MAX, WIDE_D_MAX,
+                                                   XWIDE_D_MAX)
 
     C, d = th.shape
     N = XT.shape[1]
     lp = lp.reshape(-1)
-    tier = ("xwide_" if d > WIDE_D_MAX else "wide_" if d > NARROW_D_MAX
-            else "")
-    symbol = f"nuts_{tier or 'tile_'}kernel"
+    tier = ("chunked_" if d > XWIDE_D_MAX else "xwide_" if d > WIDE_D_MAX
+            else "wide_" if d > NARROW_D_MAX else "")
+    # the chunked tier runs the very-wide kernel's CH instantiation
+    symbol = f"nuts_{(tier or 'tile_').replace('chunked_', 'xwide_')}kernel"
 
     def gen(k):
         return torch.Generator(device="cuda").manual_seed(seed + k)
@@ -5193,7 +5234,7 @@ WIDE_NUTS_EPS, WIDE_NUTS_DEEP_EPS = 0.1, 0.002
 WIDE_NUTS_RUN = (82, 26)
 # the wide NUTS runs' resumes: kernel 9 (launches of 8) and kernel 8 (a
 # prime count)
-WIDE_NUTS_RESUME = (40, 37)
+WIDE_NUTS_RESUME = (24, 23)
 
 
 def _wide_nuts_inputs(XT, Y, th, md, seed, **kw):
@@ -5227,16 +5268,7 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
 
     err = dict.fromkeys(WIDE_NUTS_KERNELS, 0.0)
-
-    def check(label, args, noise, eps, kw, seed, k=k, full_depth=False):
-        suffix = "_mat_wide" if _mat_or_none(kw.get("prior_prec")) is not \
-            None else "_wide"
-        e8 = _nuts_check(label, args, noise, eps, kw, full_depth=full_depth)
-        e9 = _nuts_ms_check(label, args, eps, kw, seed=seed, k=k,
-                            full_depth=full_depth)
-        for name, e in (("glm_nuts_transition", e8),
-                        ("glm_nuts_multistep", e9)):
-            err[name + suffix] = max(err[name + suffix], e)
+    check = functools.partial(_nuts_checks, err, "_wide", k=k)
 
     for d in WIDE_CHECK_D:
         Cd = C if d == WIDE_D else ragged
@@ -5277,9 +5309,9 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
 def _nuts_routes(ds, n=1000):
     """The route of NUTS on wide_data at each d of ``ds``: the exact-NUTS
     kernels, "nuts", for a run and a continuation, up to the kernels'
-    bound NUTS_D_MAX (1024); above it the generic engine, with the reason
-    naming the item that would lift the bound, exact NUTS on GLMs wider
-    than 1024 parameters, for both.  Returns {d: (route, reason or
+    bound NUTS_D_MAX (16384, the GLM kernels' D_MAX); above it the generic
+    engine, with the reason naming the GLM kernels' bound, for both; no
+    reason that names a NUTS width.  Returns {d: (route, reason or
     None)}."""
     import logging
 
@@ -5306,11 +5338,11 @@ def _nuts_routes(ds, n=1000):
             route = pchains._route(MCMCTask(m, sampler, mt.SerialMC(
                 steps=WIDE_NUTS_RUN[0], burnin=WIDE_NUTS_RUN[1])), "auto")
             cont = pchains.continuation_route(m, sampler, 4, "auto")
-            why = [t for t in seen
-                   if "exact NUTS on GLMs wider than 1024 parameters" in t]
+            why = [t for t in seen if "the GLM kernels' bound" in t]
             assert route == cont == want, (d, route, cont, seen)
             assert bool(why) == (want is False) and len(why) in (0, 2), seen
-            assert not any("wider than 256" in t for t in seen), seen
+            assert not any("NUTS on GLMs wider than" in t or
+                           "NUTS kernels' width" in t for t in seen), seen
             out[d] = (route or "generic engine", why[0] if why else None)
             emit({"phase": "nuts_route", "d": d, "route": out[d][0],
                   "continuation_route": cont or "generic engine",
@@ -5330,8 +5362,8 @@ def phase_wide_nuts_paths(gmeans, chains=4096, run=WIDE_NUTS_RUN, n=1000):
     tile), ``NUTS(6, mass_adapt="diag")`` with three steps fewer (a prime
     count of sampling transitions: kernel 8), ``NUTS(6,
     mass_adapt="dense") * SerialMC(*run)`` (9 mat), then
-    ``resume(chains, steps=40)`` of the unit-metric run (9) and
-    ``resume(chains, steps=37)`` of the dense run (8 mat), with
+    ``resume(chains, steps=24)`` of the unit-metric run (9) and
+    ``resume(chains, steps=23)`` of the dense run (8 mat), with
     _resume_path's checks.  The warmups run on the generic engine (cut to
     26 transitions, and the runs to (82, 26), for the script's time).
     First the routes at d 150, 256 and 257 (_nuts_routes: the kernels
@@ -5789,27 +5821,18 @@ def phase_xwide_nuts_kernels(ragged=1027, N=1000, md=6, k=3):
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
 
     err = dict.fromkeys(XWIDE_NUTS_KERNELS, 0.0)
-
-    def check(label, args, noise, eps, kw, seed, k=k, full_depth=False):
-        suffix = "_mat_xwide" if _mat_or_none(kw.get("prior_prec")) is not \
-            None else "_xwide"
-        e8 = _nuts_check(label, args, noise, eps, kw, full_depth=full_depth)
-        e9 = _nuts_ms_check(label, args, eps, kw, seed=seed, k=k,
-                            full_depth=full_depth)
-        for name, e in (("glm_nuts_transition", e8),
-                        ("glm_nuts_multistep", e9)):
-            err[name + suffix] = max(err[name + suffix], e)
+    check = functools.partial(_nuts_checks, err, "_xwide", k=k)
 
     # kernel 9's five draw ranges [lo, hi) of one (chain, transition) at
-    # the widest d and the deepest tree, in draw order: momenta,
+    # the tile's widest d and the deepest tree, in draw order: momenta,
     # directions, merge uniforms, leaves, the slice uniform
-    d, md10 = nk.NUTS_D_MAX, nk.MAX_DOUBLINGS
+    d, md10 = XWIDE_D, nk.MAX_DOUBLINGS
     ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md10),
               (nk.MERGE_DRAW, nk.MERGE_DRAW + md10),
               (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md10)),
               (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)]
     disjoint = all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
-    emit({"phase": "xwide_nuts_draw_ranges", "d": nk.NUTS_D_MAX,
+    emit({"phase": "xwide_nuts_draw_ranges", "d": d,
           "maxdoublings": nk.MAX_DOUBLINGS,
           "ranges": [[int(lo), int(hi)] for lo, hi in ranges],
           "disjoint": disjoint})
@@ -5869,8 +5892,9 @@ def phase_xwide_nuts_paths(hmc_means, chains=1024, chains_dense=512,
     d) factor and accumulator a chain, 2 GB each), then
     ``resume(chains, steps=13)`` of the dense run (8 mat) with
     _resume_path's checks.  The warmups run on the generic engine.  First
-    the routes at d 1024 and 1025 (_nuts_routes).  Returns the very-wide
-    NUTS kernels' launches {name: (count, origin)}."""
+    the routes at d 1024 and 1025 (_nuts_routes: both "nuts", the second on
+    the chunked tier).  Returns the very-wide NUTS kernels' launches {name:
+    (count, origin)}."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
 
@@ -5934,8 +5958,9 @@ def phase_xwide_nuts_times(C=4096, N=1000, md=6, k_trans=2,
     WIDE_NUTS_DEEP_EPS on 2112 chains (every resident block's scratch
     slice once, 277 MB: what L2 misses cost a tile pass), events alone,
     without its plain version (phase_build prints nuts_xwide_kernel's
-    registers and spills).  Returns ({kernel: (ms, plain ms)}, {kernel:
-    bound}) at d 1024."""
+    registers and spills; ``deep_C`` 0, as in the full run, leaves it to
+    ``--times``).  Returns ({kernel: (ms, plain ms)}, {kernel: bound}) at
+    d 1024."""
     ms, work = {}, {}
     for d in ds:
         f = _wide_folds(N, d, C, seed=d + 51, spread=1.0)
@@ -5950,7 +5975,7 @@ def phase_xwide_nuts_times(C=4096, N=1000, md=6, k_trans=2,
                 for name, t in lines.items():
                     ms[name] = (t["ms"], t["plain_ms"])
                     work[name] = {k: t[k] for k in ("bound_ms", "bound_by")}
-        if d == XWIDE_D:
+        if d == XWIDE_D and deep_C:
             XT, Yc, th, _ = f["scalar"]
             th = th[:deep_C].contiguous()
             lp, g = _lp_grad(XT, Yc, th)
@@ -6211,7 +6236,10 @@ def phase_chunked_paths(chains=4096, chains_dense=256, chains_bign=512,
       ``HMC(10, CHUNKED_BIGN_EPS)`` on as many generic-engine chains from
       the mode.
 
-    Returns the chunked kernels' launches {name: (count, origin)}."""
+    Returns the chunked kernels' launches {name: (count, origin)} and the
+    per-chain means of the two adaptive runs from the mode at N 1000, {d
+    4096: diagonal metric, d 2048: dense}, against which
+    phase_chunked_nuts_paths holds NUTS from the same mode."""
     import mcmc_jl_tpu_torch as mt
     from mcmc_jl_tpu_torch.ops.glm_hmc import (run_glm_hmc,
                                               run_glm_hmc_multistep)
@@ -6295,6 +6323,7 @@ def phase_chunked_paths(chains=4096, chains_dense=256, chains_bign=512,
     cs, samples = fused(m_mode, adaptive(0.02, "diag"), chains,
                         "glm_multistep_rows_chunked", lambda k: k > 0, ref,
                         ra)
+    means = {CHUNKED_D: samples.mean(1)}
     del samples
     # resume(list) of part of the adaptive run: 3b from its frozen state
     tasks = cs[:resume_chains]
@@ -6322,10 +6351,14 @@ def phase_chunked_paths(chains=4096, chains_dense=256, chains_bign=512,
 
     X2, Y2, _, m2 = _chunked_model(n, CHUNKED_DENSE_D)
     ref2 = reference(m2, mt.HMC(10, CHUNKED_EPS), generic_chains)
-    fused(mt.model(glm=("logistic", X2, Y2),
-                   init=_wide_mode(n, CHUNKED_DENSE_D)[2], device="cuda"),
-          adaptive(0.02, "dense"), chains_dense,
-          "glm_multistep_rows_mat_chunked", lambda k: k > 0, ref2, ra)
+    _, samples = fused(mt.model(glm=("logistic", X2, Y2),
+                                init=_wide_mode(n, CHUNKED_DENSE_D)[2],
+                                device="cuda"),
+                       adaptive(0.02, "dense"), chains_dense,
+                       "glm_multistep_rows_mat_chunked", lambda k: k > 0,
+                       ref2, ra)
+    means[CHUNKED_DENSE_D] = samples.mean(1)
+    del samples
 
     nb, bb = bign_run
     rb = mt.SerialMC(steps=nb, burnin=bb)
@@ -6339,7 +6372,7 @@ def phase_chunked_paths(chains=4096, chains_dense=256, chains_bign=512,
         fused(mb, adaptive(CHUNKED_BIGN_EPS, ma), C, name,
               lambda k: k >= nb - bb + 1, refb, rb)
         del mb
-    return counts
+    return counts, means
 
 
 def phase_chunked_times(C=4096, Cb=512, N=1000, Nb=CHUNKED_N_BIGN,
@@ -6361,17 +6394,14 @@ def phase_chunked_times(C=4096, Cb=512, N=1000, Nb=CHUNKED_N_BIGN,
     import torch
 
     import mcmc_jl_tpu_torch as mt
-
-    def width(d):  # csrc/glm_tile.cuh glm_bound_for: n chunks of DC
-        n = -(-d // 512)
-        return n * ((-(-d // n) + 31) // 32 * 32)
+    from mcmc_jl_tpu_torch.ops.glm_kernels import _padded
 
     ms, work = _tier_times("chunked", ds, CHUNKED_D, N, Nb, C,
                            Cb, n_leaps, kt, i0, reps=2,
                            folds=_chunked_folds,
                            symbols=("hmc_xwide_kernel",
                                     "partial_xchunk_kernel"),
-                           width=width, x_passes=2)
+                           width=_padded, x_passes=2)
     if not paths:
         return ms, work
     steps, burnin = path_steps
@@ -6401,6 +6431,276 @@ def phase_chunked_times(C=4096, Cb=512, N=1000, Nb=CHUNKED_N_BIGN,
               "task": _origin(model, task, chains), "d": model.size, **row,
               **CARD})
     return ms, work
+
+
+# ---- GLMs wider than 1024 parameters: exact NUTS on the chunked tier -------
+
+# the chunked NUTS kernels' launch counters
+CHUNKED_NUTS_KERNELS = tuple(n.replace("_wide", "_chunked")
+                             for n in WIDE_NUTS_KERNELS)
+# kernel 8 at the tier's bound (glm_kernels.D_MAX): (d, chains, N) on a
+# design drawn on the card; 211 chains, so that PATH_AGREE lets one chain
+# leave the plain version's path, as at every other width
+CHUNKED_NUTS_EDGE = (16384, 211, 1100)
+# the chunked NUTS paths at d 4096: SerialMC(steps, burnin, thinning) for
+# kernel 9 (the kept transitions split into launches of 8) and steps - 3
+# for kernel 8 (a prime count: one launch a transition), every 4th row kept
+# (a row of 1024 chains of 4096 coordinates is 16 MB); the dense run at d
+# 2048, SerialMC(steps, burnin), keeps every row, and its resume (8 mat)
+# takes a prime step count
+CHUNKED_NUTS_RUN = (60, 20, 4)
+CHUNKED_NUTS_DENSE_RUN = (36, 20)
+CHUNKED_NUTS_RESUME = 11
+
+
+def phase_chunked_nuts_kernels(ragged=1027, N=1000, md=6, k=3,
+                               edge=CHUNKED_NUTS_EDGE):
+    """Kernels 8 and 9 (and their _mat forms) on the chunked tier against
+    their plain versions, held to the very-wide NUTS checks' rules
+    (_nuts_check, _nuts_ms_check: PATH_AGREE of the chains on the plain
+    version's discrete path, theta, g and lp within the narrow tolerances
+    there, bitwise repeats): kernel 8 on shared pre-drawn noise, kernel 9
+    over k transitions chain by chain on its own Philox draws replayed by
+    glm_nuts_multistep_draws.  Kernel 9's five draw ranges are asserted
+    disjoint first at the bound (d 16384, md 10).  On a ragged 1027 chains
+    near the posterior mode of wide_data at N 1000 (two row blocks, the
+    second ragged), WIDE_NUTS_EPS, md 6 (_chunked_folds): at d 1056 (three
+    chunks of 352) the scalar prior, slice and multinomial, and the
+    diagonal fold's (d,) row, then md 10 at WIDE_NUTS_DEEP_EPS (trees to
+    the bound: the deepest checkpoint slots and the last draw numbers of
+    every range; kernel 9 over 2 transitions); at d 2048 the dense fold's
+    (d, d) matrix; at d 4096 the scalar prior and the matrix, multinomial
+    (kernel 9 over 2 transitions).  Probit (slice) and Poisson
+    (multinomial) with weights and offsets at d 2048 on 300 chains
+    (_chunked_case's design), and kernel 8 alone at the tier's bound
+    (CHUNKED_NUTS_EDGE: d 16384, 211 chains, N 1100).  Returns the largest
+    theta error of each chunked NUTS kernel."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    err = dict.fromkeys(CHUNKED_NUTS_KERNELS, 0.0)
+    check = functools.partial(_nuts_checks, err, "_chunked", k=k)
+
+    # kernel 9's five draw ranges [lo, hi) of one (chain, transition) at
+    # the widest d and the deepest tree, in draw order: momenta,
+    # directions, merge uniforms, leaves, the slice uniform
+    d, md10 = nk.NUTS_D_MAX, nk.MAX_DOUBLINGS
+    ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md10),
+              (nk.MERGE_DRAW, nk.MERGE_DRAW + md10),
+              (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md10)),
+              (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)]
+    disjoint = all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    emit({"phase": "chunked_nuts_draw_ranges", "d": d,
+          "maxdoublings": md10,
+          "ranges": [[int(lo), int(hi)] for lo, hi in ranges],
+          "disjoint": disjoint})
+    assert disjoint, ranges
+    cases = {1056: (("scalar", (False, True)), ("row", (False,))),
+             2048: (("matrix", (False,)),),
+             CHUNKED_D: (("scalar", (False,)), ("matrix", (True,)))}
+    for d, priors in cases.items():
+        f = _chunked_folds(N, d, ragged, seed=d + 60)
+        for prior, modes in priors:
+            XT, Yc, th, lam = f[prior]
+            args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + 61,
+                                            prior_prec=lam)
+            for multinomial in modes:
+                label = (f"chunked tier, d {d}, C {ragged}, {prior} prior, "
+                         f"{'multinomial' if multinomial else 'slice'}, "
+                         f"md {md}")
+                # the matrix at d 4096 reads A (64 MB) every leaf: 2
+                # transitions of kernel 9
+                check(label, args, noise, WIDE_NUTS_EPS,
+                      dict(maxdoublings=md, prior_prec=lam,
+                           multinomial=multinomial), seed=d + 62,
+                      k=2 if d == CHUNKED_D and prior == "matrix" else k)
+        if d == 1056:  # the deepest trees: md 10
+            XT, Yc, th, _ = f["scalar"]
+            args, noise = _wide_nuts_inputs(XT, Yc, th, 10, d + 63)
+            check(f"chunked tier, d {d}, C {ragged}, slice, md 10, eps "
+                  f"{WIDE_NUTS_DEEP_EPS}", args, noise, WIDE_NUTS_DEEP_EPS,
+                  dict(maxdoublings=10), seed=d + 64, k=2, full_depth=True)
+        del f, args, noise
+        torch.cuda.empty_cache()
+    for i, (kind, multinomial) in enumerate((("probit", False),
+                                             ("poisson", True))):
+        XT, Yc, W, O, th, _ = _chunked_case(kind, N, 2048, 300, seed=10 + i,
+                                            extras=True)
+        kw = dict(kind=kind, weights=W, offsets=O, prior_prec=1.5)
+        args, noise = _wide_nuts_inputs(XT, Yc, th, md, 47 + i, **kw)
+        check(f"chunked tier, {kind}, weights+offsets, d 2048, C 300, "
+              f"{'multinomial' if multinomial else 'slice'}", args, noise,
+              0.02, dict(kw, maxdoublings=md, multinomial=multinomial),
+              seed=49 + i)
+    d, C8, N8 = edge
+    XT, Yc, _, _, th, _ = _chunked_case("logistic", N8, d, C8, seed=d + 2)
+    args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + 3)
+    check(f"chunked tier, d {d}, N {N8}, C {C8}, slice, md {md}", args,
+          noise, WIDE_NUTS_EPS, dict(maxdoublings=md), seed=d + 4,
+          multistep=False)
+    del XT, th, args, noise
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_chunked_nuts_paths(means, chains=1024, chains_dense=256,
+                             run=CHUNKED_NUTS_RUN,
+                             dense_run=CHUNKED_NUTS_DENSE_RUN, n=1000):
+    """Exact NUTS on the logistic regressions wider than 1024 parameters
+    (wide_data, N 1000, from the posterior mode: phase_chunked_paths
+    found a start shared by all chains away from the posterior mean kept
+    in short runs' per-chain means) through the port's entry points, every
+    launch counted from zero over one run (a run that fell back to the
+    generic engine would launch none), each run's per-chain means held
+    within Z_MAX standard errors of ``means`` (phase_chunked_paths'
+    adaptive HMC runs from the same mode: {d: per-chain means}, the
+    diagonal metric's at d 4096 through 3b, the dense metric's at d 2048
+    through 3b mat): ``NUTS(6) * SerialMC(*run)`` at d 4096 and 1024
+    chains (kernel 9 on the chunked tier), ``NUTS(6, mass_adapt="diag")``
+    with three steps fewer (a prime count of kept transitions: kernel 8),
+    ``NUTS(6, mass_adapt="dense") * SerialMC(*dense_run)`` at d 2048 and
+    256 chains (9 mat; the generic warmup keeps a (d, d) factor and
+    accumulator a chain, 4 GB each at 256), then ``resume(chains,
+    steps=11)`` of the dense run (8 mat) with _resume_path's checks.  The
+    warmups run on the generic engine.  First the routes at d 4096 and
+    16385 (_nuts_routes).  Returns the chunked NUTS kernels' launches
+    {name: (count, origin)}."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.ops.glm_kernels import D_MAX
+    from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
+
+    _nuts_routes((CHUNKED_D, D_MAX + 1), n)
+    steps, burnin, thin = run
+    kept, kept_dense = steps - burnin, dense_run[0] - dense_run[1]
+    counts, held = {}, {}
+    for label, d, sampler, S, B, thinning, C, name, want in (
+            ("unit", CHUNKED_D, mt.NUTS(6), steps, burnin, thin, chains,
+             "glm_nuts_multistep_chunked", kept // _pick_k_trans(kept)),
+            ("diag", CHUNKED_D, mt.NUTS(6, mass_adapt="diag"), steps - 3,
+             burnin, thin, chains, "glm_nuts_transition_chunked", kept - 3),
+            ("dense", CHUNKED_DENSE_D, mt.NUTS(6, mass_adapt="dense"),
+             *dense_run, 1, chains_dense, "glm_nuts_multistep_mat_chunked",
+             kept_dense // _pick_k_trans(kept_dense))):
+        assert name != "glm_nuts_transition_chunked" or \
+            _pick_k_trans(kept - 3) == 1
+        X, Y, mode, _ = _wide_mode(n, d)
+        m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+        task = m * sampler * mt.SerialMC(steps=S, burnin=B,
+                                         thinning=thinning)
+        origin = _origin(m, task, C) + (f", thinning={thinning}"
+                                        if thinning > 1 else "")
+        cs, samples, launches, dt, spans = _path(origin, task, C,
+                                                 {name: want})
+        dg = {k: np.stack([c.diagnostics[k] for c in cs])
+              for k in ("accept", "ndoublings", "diverging", "epsilon")}
+        z = _z_means(samples.mean(1), means[d])
+        emit({"phase": "chunked_nuts_path", "kernel": name, "from": origin,
+              "d": d, "chains": C, "seconds": dt, "spans_s": spans,
+              "launches": launches[name],
+              "frozen_eps": float(dg["epsilon"][0, -1]),
+              "accept_rate": float(dg["accept"].mean()),
+              "mean_ndoublings": float(dg["ndoublings"].mean()),
+              "diverging_share": float(dg["diverging"].mean()),
+              "z_max_vs_adaptive_hmc": z, "ok": z < Z_MAX, **CARD})
+        assert z < Z_MAX, f"{origin} disagrees with adaptive HMC"
+        counts[name] = (launches[name], origin)
+        if label == "dense":
+            held[label] = [c.task for c in cs]
+        del cs, samples
+    S = CHUNKED_NUTS_RESUME
+    assert _pick_k_trans(S) == 1
+    origin = f"resume(NUTS(6, dense) chains of d {CHUNKED_DENSE_D}, steps={S})"
+    _resume_path(origin, held.pop("dense"), S,
+                 {"glm_nuts_transition_mat_chunked": S},
+                 lambda s: _z_means(s.mean(1), means[CHUNKED_DENSE_D]),
+                 by_chain=False)
+    counts["glm_nuts_transition_mat_chunked"] = (S, origin)
+    return counts
+
+
+def phase_chunked_nuts_times(C=4096, N=1000, md=6, k_trans=2,
+                             ds=CHUNKED_TIME_D, device_reps=1):
+    """Per-launch time of kernels 8 and 9 (k_trans 2) on the chunked tier
+    at the pinned shape: wide_data at N 1000, 4096 chains drawn from the
+    Laplace approximation at the mode (seed d + 71), WIDE_NUTS_EPS (0.1)
+    and md 6, with _nuts_kernel_times' columns (events over 2 launches,
+    device ms over ``device_reps`` (1; the full run 0, a profiler session
+    costs about 2 s) with the scalar prior at d 4096, the plain version,
+    leaves, tile passes,
+    bound at the 3xTF32 rate, occupancy and scratch plan) and the bytes of
+    X the tiles read a leaf (two passes of the N x D design by every tile
+    of 16 chains, ``x_bytes_a_leaf``): the scalar prior at d 2048 and 4096
+    (CHUNKED_TIME_D, or ``ds``), the _mat forms on the dense fold (chains
+    in z) at d 2048, the dense path's width, and (``ds`` with both) at
+    4096.  The full run times d 4096 alone (the _mat forms at 2048).
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound}) for the scalar
+    forms at d 4096 and the _mat forms at their widest d timed."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops.glm_kernels import _padded
+
+    ms, work = {}, {}
+    for d in sorted(set(ds) | {CHUNKED_DENSE_D}):
+        f = _chunked_folds(N, d, C, seed=d + 71, spread=1.0)
+        priors = (("scalar",) if d in ds else ()) + (
+            ("matrix",) if d == CHUNKED_DENSE_D or len(ds) > 1 else ())
+        for prior in priors:
+            XT, Yc, th, lam = f[prior]
+            lp, g = _lp_grad(XT, Yc, th, prior_prec=lam)
+            lines = _nuts_kernel_times(
+                XT, Yc, th, lp, g, WIDE_NUTS_EPS, md, k_trans, seed=d + 72,
+                prior=lam, event_reps=2,
+                device_reps=device_reps if (d == CHUNKED_D
+                                            and prior == "scalar") else 0)
+            x_tile = 8.0 * N * _padded(d)  # a tile's two passes
+            for name, t in lines.items():
+                emit({"phase": "chunked_nuts_x_reads", "name": name, "d": d,
+                      "x_bytes_a_leaf": x_tile * -(-C // 16),
+                      "x_bytes_launch": x_tile * t["tile_passes"], **CARD})
+                if d == CHUNKED_D or name.startswith(
+                        ("glm_nuts_transition_mat", "glm_nuts_multistep_mat")):
+                    ms[name] = (t["ms"], t["plain_ms"])
+                    work[name] = {k: t[k] for k in ("bound_ms", "bound_by")}
+        del f
+        torch.cuda.empty_cache()
+    return ms, work
+
+
+def phase_chunked_nuts_path_times(chains=1024, steps=12, burnin=4, n=1000):
+    """Host seconds (to a synchronize) of NUTS(6) and NUTS(6, diag) on
+    wide_data at d 4096, N 1000, from the posterior mode, over a shortened
+    SerialMC(12, 4) (diag: 11, a prime count of kept transitions, kernel
+    8), through the chunked kernels and through the generic engine at the
+    same 1024 chains, each also less its packaging: what the width cost
+    before kernels 8 and 9 took the chunked tier (every such GLM under
+    NUTS ran the generic engine).  Returns {path: row}."""
+    import torch
+
+    import mcmc_jl_tpu_torch as mt
+
+    X, Y, mode, _ = _wide_mode(n, CHUNKED_D)
+    m = mt.model(glm=("logistic", X, Y), init=mode, device="cuda")
+    out = {}
+    for label, sampler, S in (
+            ("NUTS(6), kernel 9", mt.NUTS(6), steps),
+            ("NUTS(6, diag), kernel 8", mt.NUTS(6, mass_adapt="diag"),
+             steps - 1)):
+        task = m * sampler * mt.SerialMC(steps=S, burnin=burnin)
+        row = {}
+        for key, fused in (("fused", "auto"), ("generic", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _spans() as spans:
+                mt.run(task, chains=chains, seed=0, fused=fused)
+            torch.cuda.synchronize()
+            row[key + "_s"] = time.perf_counter() - t0
+            row[key + "_less_packaging_s"] = (row[key + "_s"]
+                                             - spans.get("packaging", 0.0))
+        out[label] = row
+        emit({"phase": "chunked_nuts_path_time", "path": label,
+              "task": _origin(m, task, chains), "d": m.size, **row, **CARD})
+    return out
 
 
 # ---- the dense metric on catalog targets: kernels 5 and 8b in z-space -----
@@ -6721,16 +7021,18 @@ def phase_dense_target_times(folds=None, C=4096, md=6,
     return ms, work
 
 
+def step(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit({"phase": "seconds", "of": name,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
     phase_device()
     import torch
-
-    def step(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        emit({"phase": "seconds", "of": name,
-              "seconds": time.perf_counter() - t0})
-        return out
 
     step("build", phase_build)
     errors = step("kernels", phase_kernels)
@@ -6750,6 +7052,7 @@ def main():
     errors.update(step("xwide_kernels", phase_xwide_kernels))
     errors.update(step("xwide_nuts_kernels", phase_xwide_nuts_kernels))
     errors.update(step("chunked_kernels", phase_chunked_kernels))
+    errors.update(step("chunked_nuts_kernels", phase_chunked_nuts_kernels))
     errors.update(step("dense_target_kernels", phase_dense_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
@@ -6792,7 +7095,12 @@ def main():
     launches.update(step("xwide_nuts_paths", phase_xwide_nuts_paths,
                          xwide_means))
     del xwide_means
-    launches.update(step("chunked_paths", phase_chunked_paths))
+    chunked_launches, chunked_means = step("chunked_paths",
+                                           phase_chunked_paths)
+    launches.update(chunked_launches)
+    launches.update(step("chunked_nuts_paths", phase_chunked_nuts_paths,
+                         chunked_means))
+    del chunked_means
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
@@ -6835,9 +7143,11 @@ def main():
                  step("xwide_times", phase_xwide_times, ds=(XWIDE_D,),
                       paths=False),
                  step("xwide_nuts_times", phase_xwide_nuts_times,
-                      ds=(XWIDE_D,)),
+                      ds=(XWIDE_D,), deep_C=0),
                  step("chunked_times", phase_chunked_times,
-                      ds=(CHUNKED_D,), paths=False)):
+                      ds=(CHUNKED_D,), paths=False),
+                 step("chunked_nuts_times", phase_chunked_nuts_times,
+                      ds=(CHUNKED_D,), device_reps=0)):
         ms.update(more[0])
         work.update(more[1])
     # the wide paths' generic-against-fused seconds (phase_wide_path_times,
@@ -6845,9 +7155,9 @@ def main():
     # wide_nuts_paths, the wide NUTS kernels at d 256 in wide_nuts, the
     # dense catalog kernels across d in dense_target, the wide kernels at d
     # 256 in wide, the very-wide ones at d 512 in xwide and xwide_nuts, the
-    # chunked ones at d 2048 in chunked, and the very-wide and chunked
-    # paths' fused-against-generic seconds in xwide and chunked, out of
-    # this run for its time
+    # chunked ones at d 2048 in chunked and chunked_nuts, and the very-wide
+    # and chunked paths' fused-against-generic seconds in xwide, chunked
+    # and chunked_nuts, out of this run for its time
     emit({"resume": resume_rows})
     # no single PyTorch call computes any of these functions: library_ms
     # is null (the two products alone are timed in new_kernel_times)
@@ -8129,7 +8439,27 @@ TIME_GROUPS = {
     "xwide": (("glm_hmc", "glm_bign"), ("phase_xwide_times",)),
     "xwide_nuts": (("glm_nuts",), ("phase_xwide_nuts_times",)),
     "chunked": (("glm_hmc", "glm_bign"), ("phase_chunked_times",)),
+    "chunked_nuts": (("glm_nuts",), ("phase_chunked_nuts_times",
+                                     "phase_chunked_nuts_path_times")),
 }
+
+
+def chunked_nuts_main():
+    """``python3 chip_smoke.py --only chunked_nuts``: the chunked NUTS
+    phases alone, on the libraries they need (glm_hmc, glm_bign, glm_nuts):
+    the kernel checks, phase_chunked_paths (whose adaptive runs from the
+    mode are the NUTS paths' reference), the NUTS paths and the kernels'
+    times at d 4096."""
+    phase_device()
+    step("build", phase_build, ("glm_hmc", "glm_bign", "glm_nuts"))
+    step("chunked_nuts_kernels", phase_chunked_nuts_kernels)
+    _, means = step("chunked_paths", phase_chunked_paths)
+    step("chunked_nuts_paths", phase_chunked_nuts_paths, means)
+    step("chunked_nuts_times", phase_chunked_nuts_times, ds=(CHUNKED_D,))
+
+
+# the phase groups ``--only`` runs alone
+ONLY_GROUPS = {"chunked_nuts": chunked_nuts_main}
 
 
 def phase_rows_times():
@@ -8165,6 +8495,9 @@ def times_main(groups=tuple(TIME_GROUPS)):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sass"]:
         phase_sass()
+    elif sys.argv[1:2] == ["--only"]:
+        for g in sys.argv[2].split(","):
+            ONLY_GROUPS[g]()
     elif sys.argv[1:2] == ["--times"]:
         args = sys.argv[2:]
         only = tuple(TIME_GROUPS)

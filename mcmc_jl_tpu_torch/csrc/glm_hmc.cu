@@ -588,17 +588,6 @@ __device__ __forceinline__ float* xslot(const HmcArgs& a, int D, int k) {
              kTileChains * D;
 }
 
-// One gradient of the tile at the proposal rows thp: xwide_grad's, or on
-// the chunked tier xchunk_grad's.
-template <bool CH>
-__device__ __forceinline__ float xw_grad(const Glm& p, const float* thp,
-                                         float* gp, bool want_ll) {
-  if constexpr (CH)
-    return xchunk_grad(p, thp, gp, want_ll);
-  else
-    return xwide_grad(p, gp, want_ll);
-}
-
 // tile_trajectory on the very-wide tile: theta in the warp's row of thp
 // (sth, stride D + 4; on the chunked tier the slot array, stride D), m in
 // its slot row, g in its row of the slot array gp (where each drift's

@@ -11,10 +11,12 @@
 // trajectory kernel (glm_hmc.cu, kernel 1).  That is the narrow tile, d <=
 // 32; above it, up to kWideMax = 256, nuts_wide_kernel builds the same tree
 // on the wide tile (glm_tile.cuh wide_rows), with the tree's state out of
-// shared memory, and above that, up to kXWideMax = 1024, nuts_xwide_kernel
-// on the very-wide tile (glm_tile.cuh xwide_grad), with the walker out of
-// registers too (see their own notes).  The launcher picks one from d
-// alone.
+// shared memory, above that, up to kXWideMax = 1024, nuts_xwide_kernel on
+// the very-wide tile (glm_tile.cuh xwide_grad), with the walker out of
+// registers too, and above that, up to kXChunkDMax = 16384, the same
+// kernel on the chunked tier (glm_tile.cuh xchunk_grad), with the walker's
+// position out of shared memory as well (see their own notes).  The
+// launcher picks one from d alone.
 //
 // What bounds them on the H100: every leaf of a tree is one leapfrog, i.e.
 // one gradient and log-target pass over the N observations: 4 d N
@@ -78,11 +80,11 @@ constexpr int kMaxDoublings = 10;    // leaf uniforms: 2^md columns per chain
 constexpr float kDeltaMax = 100.f;   // divergence gate (NUTS.jl:90-95)
 
 // Philox draw numbers inside one (chain, transition) beside the momenta
-// (0 .. d/2 - 1: below 512 up to d 1024) and the slice uniform (kSliceDraw;
-// glm_tile.cuh momentum, log_uniform): five disjoint ranges at every width
-// the kernels take.
-constexpr uint32_t kDirDraw = 0x400u;      // + doubling j
-constexpr uint32_t kMergeDraw = 0x500u;    // + doubling j
+// (0 .. d/2 - 1: below 0x2000 up to d kXChunkDMax = 16384) and the slice
+// uniform (kSliceDraw; glm_tile.cuh momentum, log_uniform): five disjoint
+// ranges at every width the kernels take.
+constexpr uint32_t kDirDraw = 0x2000u;     // + doubling j
+constexpr uint32_t kMergeDraw = 0x2100u;   // + doubling j
 constexpr uint32_t kLeafDraw = 0x10000u;   // + leaf (1 << j) - 1 + k
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
@@ -107,7 +109,7 @@ struct NutsArgs {
   unsigned char *r_acc, *r_div;
   int* r_nd;
   int* queue;  // tile queue: one int, 0 between launches
-  float* scratch;  // the wide tile's tree state (nuts_wide_kernel)
+  float* scratch;  // the tree state above the narrow tile
 };
 
 // Uniform in (0, 1] of draw `draw` of (chain c, transition t).
@@ -806,7 +808,7 @@ nuts_wide_kernel(Glm p, NutsArgs a) {
   }
 }
 
-// ---- the very-wide tile: kWideMax < d <= kXWideMax --------------------------
+// ---- the very-wide tile and the chunked tier: kWideMax < d <= kXChunkDMax ---
 // The same tree on glm_tile.cuh's very-wide layout, as hmc_xwide
 // (glm_hmc.cu) runs the HMC transitions: warp c holds chain c of the tile
 // and its lanes stride over the coordinates; each leaf's gradient is one
@@ -835,10 +837,22 @@ nuts_wide_kernel(Glm p, NutsArgs a) {
 // few rows (a copy is 2 D floats a lane's pass; at most md span checks of
 // 3 D reads), against the gradient's 4 d N multiply-adds a chain.  The
 // slice is 2 MB a block at D 1024 and md 10 (277 MB over 132 blocks).
+//
+// Above kXWideMax the same kernel runs on the chunked tier (CH), whose
+// gradient xchunk_grad walks d in column chunks of at most 512 and reads
+// the 16 chains' theta from a (16, D) array in device memory: sth holds
+// one chunk of it (33 KB), where a whole row set would take 16 (D + 4)
+// floats (256 KB at D 4096, more than a block has).  So the walker's
+// position moves to one more array of the slice, after the two stacks
+// (13 + 2 md rows a chain), which the gradient reads as thp; the rest is
+// the very-wide kernel's, line for line.  The slice is 8.7 MB a block at
+// D 4096 and md 10 (1.14 GB over 132 blocks), 34.6 MB at D 16384.
 enum XNutsArray { kWm = kWideFixed, kWg, kXNutsFixed };
 
-size_t xwide_scratch_per_block(int D, int md) {
-  return sizeof(float) * kTileChains * (size_t)(kXNutsFixed + 2 * md) * D;
+__host__ __device__ inline size_t xwide_scratch_per_block(int D, int md,
+                                                          bool chunked) {
+  return sizeof(float) * kTileChains *
+         (size_t)(kXNutsFixed + 2 * md + (chunked ? 1 : 0)) * D;
 }
 
 // The rows of the block's slice as warp c sees them: array k's row of
@@ -854,6 +868,10 @@ struct XRows {
   }
   __device__ __forceinline__ float* ckm(int s, int md) const {
     return (*this)(kXNutsFixed + md + s);
+  }
+  // the walker's position on the chunked tier, after the two stacks
+  __device__ __forceinline__ float* wpos(int md) const {
+    return (*this)(kXNutsFixed + 2 * md);
   }
 };
 
@@ -936,23 +954,39 @@ __device__ __forceinline__ float xw_draw(const NutsArgs& a, int d, int D,
   return log_uniform(a.key, c, t);
 }
 
-// nuts_tile_kernel on the very-wide tile.  a.scratch holds gridDim.x
-// slices of xwide_scratch_per_block(D, md) bytes.
-template <bool MS>
+// nuts_tile_kernel on the very-wide tile (CH false) or the chunked tier
+// (CH true).  a.scratch holds gridDim.x slices of
+// xwide_scratch_per_block(D, md, CH) bytes.
+template <bool MS, bool CH>
 __global__ void __launch_bounds__(kTrajThreads, 1)
 nuts_xwide_kernel(Glm p, NutsArgs a) {
   __shared__ int next_tile;
-  const XWide x = xwide_at(p);
-  const int oc = threadIdx.x >> 5, lane = threadIdx.x & 31, D = x.D;
-  float* const slice = a.scratch + (size_t)blockIdx.x *
-                                       (kXNutsFixed + 2 * a.md) *
-                                       kTileChains * D;
+  int D;
+  float* sth;
+  if constexpr (CH) {
+    const XChunk xc = xchunk_at(p);
+    xwide_init(p, xc.x);
+    D = xc.D;
+    sth = nullptr;
+  } else {
+    const XWide x = xwide_at(p);
+    xwide_init(p, x);
+    D = x.D;
+    sth = x.sth;
+  }
+  const int oc = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const slice =
+      a.scratch + (size_t)blockIdx.x * xwide_scratch_per_block(D, a.md, CH) /
+                      sizeof(float);
   const XRows S{slice, D, oc};
-  float* const wp = x.sth + oc * (D + 4);  // the walker's position
+  // the walker's position: the warp's row of sth, or of the slice's array
+  // after the stacks, whose 16 rows the chunked gradient reads
+  float* const thp =
+      CH ? slice + (size_t)(kXNutsFixed + 2 * a.md) * kTileChains * D : sth;
+  float* const wp = CH ? S.wpos(a.md) : sth + oc * (D + 4);
   float* const wm = S(kWm);
   const float* const wg = S(kWg);
   float* const gall = slice + (size_t)kWg * kTileChains * D;  // all 16 rows
-  xwide_init(p, x);
   const int tiles = (a.C + kTileChains - 1) / kTileChains;
   for (int tile = blockIdx.x; tile < tiles;) {
     const int c = tile * kTileChains + oc;
@@ -987,7 +1021,7 @@ nuts_xwide_kernel(Glm p, NutsArgs a) {
       } else {
         xw_copy(wp, S(kTh), D);
       }
-      const float lp = xwide_grad(p, gall, true);
+      const float lp = xw_grad<CH>(p, thp, gall, true);
       if (!T.run) continue;  // the warp's chain: uniform
 
       T.wlp = lp;
@@ -1140,11 +1174,13 @@ nuts_xwide_kernel(Glm p, NutsArgs a) {
 
 // ---- host side -------------------------------------------------------------
 
-// The shared-memory plan at (D, N, md): on the narrow tile traj_grad's,
-// with the two checkpoint stacks of md slots as the kernel's own; on the
-// wide tile wide_plan's and on the very-wide one xwide_plan's (the stacks
-// live in the scratch buffer).
-TrajPlan nuts_plan(int D, int N, int md) {
+// The shared-memory plan at (d, N, md), D = glm_bound_for(d): on the
+// narrow tile traj_grad's, with the two checkpoint stacks of md slots as
+// the kernel's own; on the wide tile wide_plan's, on the very-wide one
+// xwide_plan's and on the chunked tier xchunk_plan's (the stacks live in
+// the scratch buffer).
+TrajPlan nuts_plan(int d, int D, int N, int md) {
+  if (D > kXWideMax) return xchunk_plan(d);
   if (D > kWideMax) return xwide_plan(D);
   if (D > kNarrowMax) return wide_plan(D, N);
   return traj_plan(D, N, 2 * sizeof(float) * (size_t)md * kTileChains * D);
@@ -1153,13 +1189,13 @@ TrajPlan nuts_plan(int D, int N, int md) {
 // Bytes of one block's slice of the tree's scratch at (D, md): none on the
 // narrow tile.
 size_t nuts_scratch_per_block(int D, int md) {
-  return D > kWideMax     ? xwide_scratch_per_block(D, md)
+  return D > kWideMax     ? xwide_scratch_per_block(D, md, D > kXWideMax)
          : D > kNarrowMax ? wide_scratch_per_block(D, md)
                           : 0;
 }
 
 bool nuts_args_ok(int d, int N, int kind, const NutsArgs& a) {
-  return hmc_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
+  return glm_bound_for(d) && N >= 1 && kind >= 0 && kind <= 3 && a.C >= 1 &&
          a.md >= 1 && a.md <= kMaxDoublings && a.k_trans >= 1;
 }
 
@@ -1167,8 +1203,8 @@ template <bool MS>
 using NutsKernel = void (*)(Glm, NutsArgs);
 
 // The kernel at bound D: the narrow tile's instantiation for D <= 32, the
-// wide tile's up to kWideMax and the very-wide tile's above (D a run-time
-// value on both).
+// wide tile's up to kWideMax, the very-wide tile's up to kXWideMax and the
+// chunked tier's above (D a run-time value on all three).
 template <bool MS>
 NutsKernel<MS> nuts_kernel_for(int D) {
   switch (D) {
@@ -1176,7 +1212,9 @@ NutsKernel<MS> nuts_kernel_for(int D) {
     case 16: return nuts_tile_kernel<16, MS>;
     case 32: return nuts_tile_kernel<32, MS>;
     default:
-      return D > kWideMax ? nuts_xwide_kernel<MS> : nuts_wide_kernel<MS>;
+      return D > kXWideMax  ? nuts_xwide_kernel<MS, true>
+             : D > kWideMax ? nuts_xwide_kernel<MS, false>
+                            : nuts_wide_kernel<MS>;
   }
 }
 
@@ -1200,16 +1238,16 @@ cudaError_t sm_count(int* sms) {
 }
 
 // Launch the kernel of bound D: persistent blocks, as many as fit at once
-// (and, on the wide and very-wide tiles, the scratch buffer of
-// scratch_bytes must hold a slice for each).
+// (and, above the narrow tile, the scratch buffer of scratch_bytes must
+// hold a slice for each).
 template <bool MS>
 int launch_nuts(const float* xt, const float* y, const float* w,
                 const float* o, const float* lamv, const float* lamm, int N,
                 int d, int kind, float lam, const NutsArgs& a,
                 long long scratch_bytes, void* stream) {
   if (!nuts_args_ok(d, N, kind, a)) return (int)cudaErrorInvalidValue;
-  const int D = hmc_bound_for(d);
-  const TrajPlan tp = nuts_plan(D, N, a.md);
+  const int D = glm_bound_for(d);
+  const TrajPlan tp = nuts_plan(d, D, N, a.md);
   if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   const Glm p{xt, y, w, o, lamv, lamm, N, d, kind, lam, tp.rows,
               tp.resident};
@@ -1234,7 +1272,7 @@ extern "C" {
 
 int nuts_max_doublings() { return kMaxDoublings; }
 
-int nuts_max_dim() { return kXWideMax; }
+int nuts_max_dim() { return kXChunkDMax; }
 
 const char* nuts_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -1319,10 +1357,10 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
 // CUDA error code.
 int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
                   int* resident, long long* scratch_bytes) {
-  const int D = hmc_bound_for(d);
+  const int D = glm_bound_for(d);
   if (!D || N < 1 || md < 1 || md > kMaxDoublings)
     return (int)cudaErrorInvalidValue;
-  const TrajPlan tp = nuts_plan(D, N, md);
+  const TrajPlan tp = nuts_plan(d, D, N, md);
   if (!tp.rows) return (int)cudaErrorInvalidConfiguration;
   *smem = (int)tp.smem;
   *resident = tp.resident ? 1 : 0;

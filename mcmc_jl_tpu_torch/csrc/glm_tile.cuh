@@ -2000,6 +2000,18 @@ __device__ __noinline__ float xchunk_grad(const Glm p, const float* thp,
   return (float)(sum_ll(c.x.pll, warp, kTrajWarps) - 0.5 * (double)quad);
 }
 
+// One gradient of the tile at the theta rows thp: xwide_grad's (theta in
+// sth, thp unread), or on the chunked tier (CH) xchunk_grad's; the
+// very-wide HMC and NUTS kernels take their tier from CH.
+template <bool CH>
+__device__ __forceinline__ float xw_grad(const Glm& p, const float* thp,
+                                         float* gp, bool want_ll) {
+  if constexpr (CH)
+    return xchunk_grad(p, thp, gp, want_ll);
+  else
+    return xwide_grad(p, gp, want_ll);
+}
+
 }  // namespace
 
 #define TILE_DISPATCH(D_, CALL)                        \

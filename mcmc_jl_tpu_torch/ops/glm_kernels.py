@@ -52,7 +52,7 @@ sized by the 512-column chunk; every index that can pass 2^31 is a
 ``size_t``): it is the widest d at which the kernels are held against
 their plain versions on the card.  At d 8192 a block's slot is 5 x 16 x
 8192 float32 = 2.6 MB, 346 MB for the 132 blocks of an H100; the exact-NUTS
-kernels (8, 9) stop at :data:`XWIDE_D_MAX` (``nuts_kernels.NUTS_D_MAX``).
+kernels (8, 9) take the same bound (``nuts_kernels.NUTS_D_MAX``).
 """
 from __future__ import annotations
 
@@ -72,8 +72,7 @@ KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: kernel (4) take (csrc/glm_tile.cuh kXChunkDMax: the chunked tier's bound)
 D_MAX = 16384
 #: largest parameter count of the very-wide tile (csrc/glm_tile.cuh
-#: kXWideMax), and of the exact-NUTS kernels (8, 9;
-#: nuts_kernels.NUTS_D_MAX); above it the HMC family's chunked tier
+#: kXWideMax); above it the chunked tier
 XWIDE_D_MAX = 1024
 #: largest parameter count of the narrow chain tile (csrc/glm_tile.cuh
 #: kNarrowMax)
@@ -491,8 +490,7 @@ def _sched(integrator):
 def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
     """Validate what the kernel takes: ``states`` (name -> tensor) must be
     (C, d) and ``per_chain`` ones (C,), with C from ``theta``, and d at most
-    the kernel's bound: :data:`D_MAX`, or :data:`XWIDE_D_MAX` for the
-    exact-NUTS kernels (``glm_nuts_*``).
+    the kernels' bound :data:`D_MAX` (the exact-NUTS kernels' too).
     Returns (N, d, C, flat W, flat O)."""
     if kind not in KIND_CODES:
         raise ValueError(f"{name}: the CUDA kernel takes the links "
@@ -501,9 +499,8 @@ def _check(name, XT, Y, weights, offsets, kind, states, per_chain=None):
     if XT.ndim != 2:
         raise ValueError(f"{name}: XT must be (d, N), got {tuple(XT.shape)}")
     d, N = XT.shape
-    d_max = XWIDE_D_MAX if name.startswith("glm_nuts") else D_MAX
-    if not 1 <= d <= d_max:
-        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{d_max}")
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"{name}: d = {d} outside the kernel's 1..{D_MAX}")
     C = states["theta"].shape[0] if states["theta"].ndim else 0
     per_chain = per_chain or {}
     obs = {"Y": _row(Y), "weights": _row(weights), "offsets": _row(offsets)}
@@ -537,6 +534,17 @@ def _seed(generator):
                          "on the card for its launch seed")
     return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                              device=generator.device).item())
+
+
+def _padded(d):
+    """The kernels' padded width at d (csrc/glm_tile.cuh glm_bound_for)
+    above the narrow tile: d to a multiple of 32 up to XWIDE_D_MAX, above
+    it n chunks of DC columns, n = ceil(d / 512) and DC = ceil(d / n) to a
+    multiple of 32."""
+    if d <= XWIDE_D_MAX:
+        return -(-d // 32) * 32
+    n = -(-d // 512)
+    return n * ((-(-d // n) + 31) // 32 * 32)
 
 
 def _counted(name, lamm, d=0):

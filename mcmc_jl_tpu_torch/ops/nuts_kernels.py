@@ -39,11 +39,15 @@ metric fold of the warm-start pipeline) or a symmetric (d, d) matrix (the
 dense fold; such launches count as ``<name>_mat``).  The GLM kernels take
 d up to :data:`NUTS_D_MAX`: on the narrow tile up to ``NARROW_D_MAX``,
 above it on the wide tile up to ``WIDE_D_MAX``, whose launches count as
-``<name>_wide`` (and ``<name>_mat_wide``), and above that on the very-wide
-tile, counted as ``<name>_xwide`` (and ``<name>_mat_xwide``).  The wide
-and very-wide kernels keep the tree's state (on the very-wide tile the
-walker's momentum and gradient too) in a scratch buffer that
-:func:`_scratch` allocates once for each device, stream, width and depth.
+``<name>_wide`` (and ``<name>_mat_wide``), above that on the very-wide
+tile up to ``XWIDE_D_MAX``, counted as ``<name>_xwide`` (and
+``<name>_mat_xwide``), and above that on the chunked tier, which walks d
+in column chunks of at most 512, counted as ``<name>_chunked`` (and
+``<name>_mat_chunked``).  The kernels above the narrow tile keep the
+tree's state (on the very-wide tile the walker's momentum and gradient
+too, on the chunked tier its position as well) in a scratch buffer that
+:func:`_scratch` allocates once for each device, stream, padded width and
+depth.
 On a catalog target the frozen diagonal metric rides the step instead, as a
 (d,) row ``eps * s``, and a dense one is the factor of a
 :class:`~..models.distributions.DenseTarget`, whose launches count as
@@ -66,19 +70,19 @@ import torch
 
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
-from .glm_kernels import (KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
-                          XWIDE_D_MAX, _arange_for, _check, _counted,
-                          _device_branch, _prior, _prior_args, _ptr, _row,
+from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
+                          _arange_for, _check, _counted, _device_branch,
+                          _padded, _prior, _prior_args, _ptr, _row,
                           glm_funcs, glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
 from .cuda_build import count, scratch_buffer
 
-#: largest parameter count of the GLM NUTS kernels (8, 9): the very-wide
-#: tile's bound glm_kernels.XWIDE_D_MAX (csrc/glm_nuts.cu nuts_max_dim,
-#: csrc/glm_tile.cuh kXWideMax); the HMC kernels go on to glm_kernels.D_MAX
-NUTS_D_MAX = XWIDE_D_MAX
+#: largest parameter count of the GLM NUTS kernels (8, 9): the chunked
+#: tier's bound glm_kernels.D_MAX, as the HMC kernels' (csrc/glm_nuts.cu
+#: nuts_max_dim, csrc/glm_tile.cuh kXChunkDMax)
+NUTS_D_MAX = D_MAX
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
 MAX_DOUBLINGS = 10
@@ -87,19 +91,20 @@ MAX_DOUBLINGS = 10
 LANE_D_MAX = 32
 #: Philox draw numbers of one (chain, transition) in
 #: :func:`glm_nuts_multistep` (csrc/glm_nuts.cu): the momenta take
-#: 0 .. d/2 - 1 (two normals a draw; below 512 up to NUTS_D_MAX) and the
+#: 0 .. d/2 - 1 (two normals a draw; below 0x2000 up to NUTS_D_MAX) and the
 #: slice uniform ``SLICE_DRAW``, as in
 #: :func:`.glm_kernels.glm_multistep_draws`; doubling j's direction and
 #: merge uniform ``DIR_DRAW + j`` and ``MERGE_DRAW + j``; leaf
 #: ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that: five disjoint ranges at
 #: every d the kernels take
-DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x400, 0x500, 0x10000
+DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x2000, 0x2100, 0x10000
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition", "target_nuts_transition_dense")
 _GLM = ("glm_nuts_transition", "glm_nuts_multistep")
 LAUNCHES = dict.fromkeys(_NAMES + tuple(n + v for n in _GLM for v in (
-    "_mat", "_wide", "_mat_wide", "_xwide", "_mat_xwide")), 0)
+    "_mat", "_wide", "_mat_wide", "_xwide", "_mat_xwide", "_chunked",
+    "_mat_chunked")), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -380,15 +385,16 @@ _SCRATCH = {}
 
 
 def _scratch(dev, d, N, md):
-    """(buffer, bytes) of the wide and very-wide tiles' tree state on
+    """(buffer, bytes) of the tree state above the narrow tile on
     ``dev``'s current stream: one float32 buffer for each (device, stream,
-    D, md), allocated once and grown when a plan needs more (the kernel
-    checks its size; 277 MB at d 1024 and md 10 on an H100's 132 SMs).
-    (None, 0) on the narrow tile, which keeps the tree in shared memory."""
+    padded width, md), so that two widths of one chunk layout share it,
+    allocated once and grown when a plan needs more (the kernel checks its
+    size; on an H100's 132 SMs 277 MB at d 1024 and md 10, 1.14 GB at d
+    4096 and 4.6 GB at d 16384).  (None, 0) on the narrow tile, which keeps
+    the tree in shared memory."""
     if d <= NARROW_D_MAX:
         return None, 0
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream, (d + 31) // 32,
-           md)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, _padded(d), md)
     return scratch_buffer(_SCRATCH, key, nuts_plan(d, N, md)["scratch_bytes"],
                           dev)
 
@@ -396,9 +402,9 @@ def _scratch(dev, d, N, md):
 def nuts_plan(d, N, maxdoublings):
     """How the NUTS kernels run at (d, N, maxdoublings) on the card:
     {"blocks_per_sm", "smem_bytes", "resident", "scratch_bytes"} (resident:
-    every row stays in shared memory, never on the very-wide tile;
-    scratch_bytes: the wide and very-wide tiles' tree state for as many
-    blocks as a launch runs at once, 0 on the narrow tile)."""
+    every row stays in shared memory, never on the very-wide tile or the
+    chunked tier; scratch_bytes: the tree state above the narrow tile for
+    as many blocks as a launch runs at once, 0 on the narrow tile)."""
     outs = [ctypes.c_int() for _ in range(3)] + [_LL()]
     code = load_kernels().glm_nuts_plan(d, N, _check_md(maxdoublings),
                                         *[ctypes.byref(o) for o in outs])

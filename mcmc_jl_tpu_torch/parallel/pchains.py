@@ -258,14 +258,14 @@ def _target_eligible(task):
 
 def _kernel_shape_ok(model, route, sampler):
     """What the ported kernels take on ``route``: on a GLM a built-in link
-    and d <= D_MAX (kernels 1-4: the narrow tile up to NARROW_D_MAX, the
-    wide tile up to WIDE_D_MAX, the very-wide tile up to XWIDE_D_MAX, the
-    chunked tier above), for exact NUTS d <= NUTS_D_MAX (kernels 8 and 9,
-    which stop at the very-wide tile) and N <= BIGN_THRESHOLD; on a catalog
-    target d <= the target kernels' D_MAX; for exact NUTS maxdoublings <=
-    MAX_DOUBLINGS.  None when they do, else the reason."""
+    and d <= D_MAX (kernels 1-4, 8 and 9: the narrow tile up to
+    NARROW_D_MAX, the wide tile up to WIDE_D_MAX, the very-wide tile up to
+    XWIDE_D_MAX, the chunked tier above), for exact NUTS also N <=
+    BIGN_THRESHOLD; on a catalog target d <= the target kernels' D_MAX; for
+    exact NUTS maxdoublings <= MAX_DOUBLINGS.  None when they do, else the
+    reason."""
     from ..ops.glm_kernels import D_MAX, KIND_CODES
-    from ..ops.nuts_kernels import MAX_DOUBLINGS, NUTS_D_MAX
+    from ..ops.nuts_kernels import MAX_DOUBLINGS
 
     if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
         return (f"maxdoublings = {sampler.maxdoublings} > {MAX_DOUBLINGS}, "
@@ -287,10 +287,6 @@ def _kernel_shape_ok(model, route, sampler):
         return (f"exact NUTS at N = {N} > {glm_bign.BIGN_THRESHOLD} needs a "
                 f"large-N NUTS route, not ported yet (ROADMAP: exact NUTS "
                 f"above BIGN_THRESHOLD)")
-    if route == "nuts" and d > NUTS_D_MAX:
-        return (f"d = {d} > {NUTS_D_MAX}, the GLM NUTS kernels' width "
-                f"(ROADMAP: exact NUTS on GLMs wider than {NUTS_D_MAX} "
-                f"parameters)")
     if d > D_MAX:
         return (f"d = {d} > {D_MAX}, the GLM kernels' bound (ROADMAP: GLMs "
                 f"wider than {D_MAX} parameters)")

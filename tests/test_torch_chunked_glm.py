@@ -4,10 +4,11 @@ package's Pallas kernels (mcmc_jl_tpu/ops/pallas_glm.py,
 pallas_glm_bign.py) in interpret mode on the CPU, at d 1056, 2048 and
 4096, on the same numpy inputs and injected or replayed noise; the bounds
 and counters of the chunked tier; the routes that take such a GLM through
-``run(..., chains=N)`` (the HMC family up to 16384 parameters, exact NUTS
-generic above 1024); the Philox draw ranges of kernels 3 and 3b at the
-bound; and one continuation from the JAX package's adapted states carried
-over with ``utils.convert``.
+``run(..., chains=N)`` (the HMC family and exact NUTS up to 16384
+parameters; tests/test_torch_chunked_nuts.py holds the NUTS kernels); the
+Philox draw ranges of kernels 3 and 3b at the bound; and one continuation
+from the JAX package's adapted states carried over with
+``utils.convert``.
 
 On the CPU the wrappers run their plain versions.  Above d = 1024 the CUDA
 kernels run on the chunked tier (csrc/glm_tile.cuh: the very-wide block
@@ -242,13 +243,13 @@ def test_tiled_ref_matches_pallas_chunked(case, d):
 
 def test_chunked_bounds_and_counters():
     """The HMC and N-tiled kernels take d up to D_MAX = 16384 on the chunked
-    tier; the exact-NUTS kernels stop at NUTS_D_MAX = 1024, the very-wide
-    tile's bound (XWIDE_D_MAX); a launch above 1024 counts under
+    tier, and so do the exact-NUTS kernels (NUTS_D_MAX); the very-wide
+    tile's bound is XWIDE_D_MAX = 1024; a launch above 1024 counts under
     ``<name>_chunked`` (``<name>_mat_chunked`` with a matrix prior), at
     1024 still under ``_xwide``; the tiled kernel's grid takes 16 chains a
     CTA there, as on the wide and very-wide tiles."""
-    assert gk.D_MAX == 16384
-    assert nk.NUTS_D_MAX == gk.XWIDE_D_MAX == 1024
+    assert gk.D_MAX == nk.NUTS_D_MAX == 16384
+    assert gk.XWIDE_D_MAX == 1024
     for name in ("glm_leapfrogs", "glm_step", "glm_multistep",
                  "glm_multistep_rows"):
         assert gk._counted(name, None, 1024) == name + "_xwide"
@@ -264,14 +265,17 @@ def test_chunked_bounds_and_counters():
             == "glm_logp_grad_tiled_mat_chunked")
     assert {"glm_logp_grad_tiled_chunked",
             "glm_logp_grad_tiled_mat_chunked"} <= set(glm_bign.LAUNCHES)
-    assert not any(k.endswith("_chunked") for k in nk.LAUNCHES)
+    for name in ("glm_nuts_transition", "glm_nuts_multistep"):
+        assert gk._counted(name, None, 1025) == name + "_chunked"
+        assert gk._counted(name, object(), gk.D_MAX) == name + "_mat_chunked"
+        assert {name + "_chunked", name + "_mat_chunked"} <= set(nk.LAUNCHES)
     assert gk._slots("cpu", 256, 4096) == (None, 0)
     assert glm_bign.splits_for(20_000, 512, 4096) == \
         glm_bign.splits_for(20_000, 512, 1024) == 8
     N, C = 20, 3
     for name, d_ok, d_max in (("glm_leapfrogs", 1025, gk.D_MAX),
                               ("glm_logp_grad_tiled", 4096, gk.D_MAX),
-                              ("glm_nuts_multistep", 1024, 1024)):
+                              ("glm_nuts_multistep", 1025, gk.D_MAX)):
         for d in (d_ok, d_max):
             gk._check(name, torch.zeros(d, N), torch.zeros(N), None, None,
                       "logistic", {"theta": torch.zeros(C, d)})
@@ -311,10 +315,10 @@ def _chunked_model(n=40, d=2048, seed=90):
 def test_chunked_routes_and_reasons(caplog):
     """At d 2048 plain HMC routes to "hmc", adaptive HMC and the NUTS warm
     handoff to "warm", and adaptive HMC's continuation to "warm", with no
-    reason logged; exact NUTS and its continuation take the generic engine
-    with the reason naming exact NUTS on GLMs wider than 1024 parameters;
-    above D_MAX every route is generic, with the reason naming the GLM
-    kernels' bound."""
+    reason logged; exact NUTS (unit and diagonal metrics) and its
+    continuation route to "nuts" (kernels 8 and 9 on the chunked tier),
+    with no reason logged either; above D_MAX every route is generic,
+    exact NUTS's too, with the reason naming the GLM kernels' bound."""
     runner = mt.SerialMC(steps=60, burnin=20)
     adaptive = mt.HMC(5, 0.1, mt.EmpMCTuner(0.8, adapt_step=20),
                       mass_adapt="diag")
@@ -332,11 +336,10 @@ def test_chunked_routes_and_reasons(caplog):
     with caplog.at_level(logging.INFO):
         for ma in (None, "diag"):
             s = mt.NUTS(6) if ma is None else mt.NUTS(6, mass_adapt=ma)
-            assert pchains._route(MCMCTask(m, s, runner), True) is False
-            assert pchains.continuation_route(m, s, 4, True) is False
-    why = ("d = 2048 > 1024, the GLM NUTS kernels' width (ROADMAP: exact "
-           "NUTS on GLMs wider than 1024 parameters)")
-    assert sum(why in r.getMessage() for r in caplog.records) == 4
+            assert pchains._route(MCMCTask(m, s, runner), True) == "nuts"
+            assert pchains.continuation_route(m, s, 4, True) == "nuts"
+    assert "generic torch engine" not in caplog.text
+    assert "wider than" not in caplog.text
     wide = _chunked_model(n=4, d=gk.D_MAX + 1)
     caplog.clear()
     with caplog.at_level(logging.INFO):
@@ -344,15 +347,17 @@ def test_chunked_routes_and_reasons(caplog):
             assert pchains._route(MCMCTask(wide, s, runner), True) is False
     why = (f"d = {gk.D_MAX + 1} > {gk.D_MAX}, the GLM kernels' bound "
            f"(ROADMAP: GLMs wider than {gk.D_MAX} parameters)")
-    assert sum(why in r.getMessage() for r in caplog.records) == 2
-    assert "exact NUTS on GLMs wider than 1024" in caplog.text
+    assert sum(why in r.getMessage() for r in caplog.records) == 3
+    assert "exact NUTS on GLMs wider than" not in caplog.text
 
 
 def test_chunked_hmc_family_runs_fused():
     """At d 2048 ``run(..., fused=True)``: plain HMC through kernel 1's
     plain version once a transition, adaptive HMC diag's and the NUTS warm
-    handoff's sampling phases through 3b's; exact NUTS through none (the
-    generic engine); every sample finite."""
+    handoff's sampling phases through 3b's; exact NUTS's sampling phase
+    through kernel 8's plain version once a transition (the CPU's route:
+    the card takes kernel 9 when the steps split into launches of 2-8) and
+    through no HMC kernel; every sample finite."""
     m = _chunked_model(n=32)
     C = 3
     for sampler, runner, name, calls in (
@@ -369,7 +374,9 @@ def test_chunked_hmc_family_runs_fused():
         cs = mt.run(m * sampler * runner, chains=C, seed=0, fused=True)
         plain = {k: v for k, v in gk.PLAIN_CALLS.items() if v}
         if name is None:
-            assert not plain and not any(nk.PLAIN_CALLS.values())
+            assert not plain
+            assert nk.PLAIN_CALLS == {**dict.fromkeys(nk.PLAIN_CALLS, 0),
+                                      "glm_nuts_transition": 3}
         else:
             assert set(plain) == {name}
             assert calls is None or plain[name] == calls
@@ -379,10 +386,11 @@ def test_chunked_hmc_family_runs_fused():
 
 def test_chunked_run_until_nuts_blocks_generic(caplog):
     """``run_until(NUTS(3), ...)`` on the d 2048 GLM with ``fused=True``:
-    its blocks continue on the generic engine (no kernel's plain version
-    runs), with the reason naming exact NUTS on GLMs wider than 1024
-    parameters, to max_steps; the same with adaptive HMC continues through
-    3b's plain version.  The draws are finite."""
+    past the warmup its blocks continue through kernel 8's plain version
+    once a transition (the CPU's route; no HMC kernel, no reason logged),
+    to max_steps; the same with adaptive HMC continues through 3b's plain
+    version.  The draws are finite.  (Named for the generic blocks NUTS
+    took here before the chunked tier ran kernels 8 and 9.)"""
     m = _chunked_model(n=24)
     for sampler, name in ((mt.NUTS(3), None),
                           (mt.HMC(3, 0.1, mt.EmpMCTuner(0.8, adapt_step=4),
@@ -395,11 +403,13 @@ def test_chunked_run_until_nuts_blocks_generic(caplog):
                                min_ess=1, check_every=4, warmup=4,
                                max_steps=12, seed=0, fused=True)
         assert res.steps_run == 12 and not res.converged
-        assert not any(nk.PLAIN_CALLS.values())
+        assert nk.PLAIN_CALLS == {**dict.fromkeys(nk.PLAIN_CALLS, 0),
+                                  **({"glm_nuts_transition": 8}
+                                     if name is None else {})}
         plain = {k for k, v in gk.PLAIN_CALLS.items() if v}
         assert plain == (set() if name is None else {name})
-        assert ("exact NUTS on GLMs wider than 1024 parameters"
-                in caplog.text) == (name is None)
+        assert "generic torch engine" not in caplog.text
+        assert "wider than" not in caplog.text
         assert np.all(np.isfinite(res.samples))
 
 

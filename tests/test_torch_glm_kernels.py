@@ -318,9 +318,8 @@ def test_wrapper_refuses_other_devices():
 def test_kernel_input_checks(bad):
     """What the CUDA wrappers refuse, checked before any launch: a state
     that is not (C, d) would make the kernel read past its end; d past the
-    kernel's bound (16384 for kernels 1-4, whose chunked tier takes d 1025
-    to 16384; 1024 for kernels 8 and 9, whose very-wide tile takes d 257 to
-    1024) has no instantiation."""
+    kernels' bound (16384 for kernels 1-4, 8 and 9, whose chunked tier
+    takes d 1025 to 16384) has no instantiation."""
     N, d, C = 20, 3, 4
     XT, Y = torch.zeros(d, N), torch.zeros(N)
     th, m, lp = torch.zeros(C, d), torch.zeros(C, d), torch.zeros(C)
@@ -339,10 +338,10 @@ def test_kernel_input_checks(bad):
                    "m0": torch.zeros(C, gk.D_MAX)}, {"lp": lp})
         XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
         m = torch.zeros(C, gk.D_MAX + 1)
-    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33-1024, not 1025
+    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33-16384, not 16385
         name, d_max = "glm_nuts_transition", nk.NUTS_D_MAX
-        assert d_max == gk.XWIDE_D_MAX == 1024
-        for dd in (33, 257, d_max):
+        assert d_max == gk.D_MAX == 16384
+        for dd in (33, 257, 1025, d_max):
             gk._check(name, torch.zeros(dd, N), Y, None, None, kind,
                       {"theta": torch.zeros(C, dd), "m0": torch.zeros(C, dd)},
                       {"lp": lp})

@@ -208,8 +208,8 @@ def test_multistep_draws_follow_the_kernel_counters(d, md, i0):
     draws as draw_noise does, one set per transition, each at its counter
     (chain, transition, draw) as csrc/glm_nuts.cu forms it: momenta two
     normals a draw at draw j // 2, the slice's log-uniform at 0xFFFFFFFF,
-    doubling j's direction (u < 0.5 -> -1) and merge uniform at 0x100 + j
-    and 0x200 + j, leaf l's at 0x10000 + l; uniforms are 1 - U[0, 1).  At
+    doubling j's direction (u < 0.5 -> -1) and merge uniform at 0x2000 + j
+    and 0x2100 + j, leaf l's at 0x10000 + l; uniforms are 1 - U[0, 1).  At
     d 256 and md 10 (the wide kernel's bounds) the momenta's draw numbers
     stay below the directions' and the five ranges are disjoint."""
     assert (d - 1) // 2 < nk.DIR_DRAW
