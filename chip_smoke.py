@@ -58,7 +58,7 @@ at d 257, 512 and 1024, kernel 9's five draw ranges disjoint at d 1024
 the unit, diagonal and dense metrics and a resume, each held against
 kernel 1's HMC run; NUTS at d 1025 takes the chunked tier with no reason
 logged (``phase_xwide_nuts_paths``); ``phase_xwide_nuts_times`` times
-the kernels at d 512 and 1024.  GLMs of 1025 to 16384 parameters run
+the kernels at d 512 and 1024.  GLMs of 1025 to 131072 parameters run
 kernels 1, 2, 3, 3b and 4 (and the _mat variants) on the chunked tier:
 each is held against its plain version at d 1056, 2048 and 4096 (1 and 4
 also at 8192 and 16384; ``phase_chunked_kernels``), and logistic
@@ -72,9 +72,23 @@ chunked tier are held against their plain versions at d 1056, 2048 and
 (``phase_chunked_nuts_kernels``); from the posterior mode, the d 4096
 model drives ``NUTS(6)`` with the unit and diagonal metrics, and the d
 2048 one the dense metric and a resume, each held against the adaptive
-HMC run from the same mode; NUTS at d 16385 takes the generic engine with
-the GLM kernels' bound as its reason (``phase_chunked_nuts_paths``);
-``phase_chunked_nuts_times`` times the kernels at d 4096.  The dense
+HMC run from the same mode (``phase_chunked_nuts_paths``);
+``phase_chunked_nuts_times`` times the kernels at d 4096.  Kernels 1, 2
+and 3 take a (d,) prior row and a (d, d) prior matrix on every tier: each
+is held against its plain version at d 10, 150, 1024 and 2048, a row of
+ones gives the scalar kernel's bits (``phase_prior_kernels``), and
+``run_glm_hmc`` and ``run_glm_hmc_multistep`` with the dense fold's
+matrix drive the ``_mat`` forms at those widths, held against the
+diagonal fold's runs (``phase_prior_paths``; ``phase_prior_times``).
+Past the old bound 16384, kernels 1, 3b, 4, 8 and 9 are held against
+their plain versions at d 32768 and 131072, 1 and 8 ``_mat`` at d 16416,
+and one launch of kernel 9 whose scratch passes 2^31 floats
+(``phase_huge_width``); a d 32768 logistic regression drives HMC and
+NUTS (and a resume) through kernels 1 and 9 against the generic engine,
+GLMs of 131072 parameters route to the kernels and 131073 to the
+generic engine with the GLM kernels' bound as its reason
+(``phase_huge_width_paths``), and ``phase_huge_width_times`` times 1
+and 9 at d 131072.  The dense
 metric on catalog
 targets runs kernels 5 and 8b on the z-space target ``z -> target(z L')``
 (their DENSE instantiations): each is held against its plain version at d
@@ -136,10 +150,14 @@ very-wide tile's at d 512 and 1024 and its paths' fused and generic
 seconds with ``xwide``, the very-wide NUTS kernels with ``xwide_nuts``,
 the chunked tier's at d 2048 and 4096 and its paths' fused and generic
 seconds with ``chunked``, the chunked NUTS kernels and their paths' with
-``chunked_nuts``) at
+``chunked_nuts``, kernels 1 and 9 at d 131072 with ``huge``) at
 pinned shapes, the paths that run them and bench.py's drivers, to compare
 two trees on one card; ``python3 chip_smoke.py --only chunked_nuts`` runs
-the chunked NUTS phases alone (ONLY_GROUPS); ``python3 chip_smoke.py
+the chunked NUTS phases alone, ``--only prior_huge`` the prior and width
+phases (ONLY_GROUPS); ``python3 chip_smoke.py --bits ROOT OUT`` saves
+the GLM kernels' outputs on fixed inputs from the package under ROOT and
+``--bits-compare A B`` compares two such files bit for bit; ``python3
+chip_smoke.py
 --sass`` prints the instruction mix of the HMC tile kernels' row loops.
 """
 import contextlib
@@ -260,6 +278,14 @@ REPLACES = {
                                         "mcmc_jl_tpu/ops/pallas_nuts.py:76"),
     "glm_nuts_multistep_mat_chunked": ("glm_nuts",
                                        "mcmc_jl_tpu/ops/pallas_nuts.py:821"),
+    # kernels 1, 2 and 3 with a (d, d) prior (the Pallas kernels' prior
+    # input, pallas_glm.py:40-69 _lam_input; a (d,) row counts as the
+    # kernel itself): one kernel each, selected by a non-null matrix, on
+    # every tier, counted apart
+    **{n + "_mat" + t: ("glm_hmc", f"mcmc_jl_tpu/ops/pallas_glm.py:{line}")
+       for t in ("", "_wide", "_xwide", "_chunked")
+       for n, line in (("glm_leapfrogs", 244), ("glm_step", 282),
+                       ("glm_multistep", 344))},
     # kernels 5 and 8b on the z-space target of a frozen dense metric (the
     # JAX package's _dense_wrap, mcmc_jl_tpu/ops/warmstart.py:581-624, which
     # feeds the same two Pallas kernels): the DENSE instantiations, counted
@@ -945,6 +971,25 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
     assert ok, (f"glm_nuts_multistep ({label}) disagrees with its plain "
                 f"version on its own draws")
     return rep["theta"]["max_abs"]
+
+
+def _draw_ranges(phase, d):
+    """Kernel 9's five Philox draw ranges [lo, hi) of one (chain,
+    transition) at width d and the deepest tree (md 10), in number order:
+    the momenta 0 .. d/2 - 1, the leaves, the directions, the merge
+    uniforms and the slice uniform; asserts them disjoint and emits them."""
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    md = nk.MAX_DOUBLINGS
+    ranges = sorted([(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md),
+                     (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
+                     (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
+                     (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)])
+    disjoint = all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    emit({"phase": phase, "d": d, "maxdoublings": md,
+          "ranges": [[int(lo), int(hi)] for lo, hi in ranges],
+          "disjoint": disjoint})
+    assert disjoint, ranges
 
 
 def _nuts_checks(err, tier, label, args, noise, eps, kw, seed, k,
@@ -3444,7 +3489,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     every count zeroed just before it and read just after, no plain call,
     and held against the target's exact first and second moments:
 
-    - ``NUTS(maxdoublings=6) * SerialMC(1100, 100)`` and ``NUTS(6,
+    - ``NUTS(maxdoublings=6) * SerialMC(900, 100)`` and ``NUTS(6,
       mass_adapt="diag") * SerialMC(1500, 500)`` at 4096 chains
       (benchmarks/benchunits/nuts_fused.py:52-60's sampler and runner, the
       unit-metric run's burn-in cut to 200, then 100, for the script's
@@ -3495,7 +3540,7 @@ def phase_warm_target_paths(chains=4096, chains_small=1024):
     narrow = [j for j, (_, dist, _) in enumerate(bare)
               if float(dist.std()) <= NARROW_SD]
     runs = (
-        (mt.NUTS(maxdoublings=6), 1100, 100, chains,
+        (mt.NUTS(maxdoublings=6), 900, 100, chains,
          "target_nuts_transition", narrow),
         (mt.NUTS(maxdoublings=6, mass_adapt="diag"), 1500, 500, chains,
          "target_nuts_transition", None),
@@ -5309,7 +5354,7 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
 def _nuts_routes(ds, n=1000):
     """The route of NUTS on wide_data at each d of ``ds``: the exact-NUTS
     kernels, "nuts", for a run and a continuation, up to the kernels'
-    bound NUTS_D_MAX (16384, the GLM kernels' D_MAX); above it the generic
+    bound NUTS_D_MAX (131072, the GLM kernels' D_MAX); above it the generic
     engine, with the reason naming the GLM kernels' bound, for both; no
     reason that names a NUTS width.  Returns {d: (route, reason or
     None)}."""
@@ -5823,20 +5868,7 @@ def phase_xwide_nuts_kernels(ragged=1027, N=1000, md=6, k=3):
     err = dict.fromkeys(XWIDE_NUTS_KERNELS, 0.0)
     check = functools.partial(_nuts_checks, err, "_xwide", k=k)
 
-    # kernel 9's five draw ranges [lo, hi) of one (chain, transition) at
-    # the tile's widest d and the deepest tree, in draw order: momenta,
-    # directions, merge uniforms, leaves, the slice uniform
-    d, md10 = XWIDE_D, nk.MAX_DOUBLINGS
-    ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md10),
-              (nk.MERGE_DRAW, nk.MERGE_DRAW + md10),
-              (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md10)),
-              (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)]
-    disjoint = all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
-    emit({"phase": "xwide_nuts_draw_ranges", "d": d,
-          "maxdoublings": nk.MAX_DOUBLINGS,
-          "ranges": [[int(lo), int(hi)] for lo, hi in ranges],
-          "disjoint": disjoint})
-    assert disjoint, ranges
+    _draw_ranges("xwide_nuts_draw_ranges", XWIDE_D)
     cases = {257: (("scalar", (False,)),),
              512: (("row", (False,)),),
              XWIDE_D: (("scalar", (False,)), ("matrix", (False, True)))}
@@ -6462,7 +6494,7 @@ def phase_chunked_nuts_kernels(ragged=1027, N=1000, md=6, k=3,
     there, bitwise repeats): kernel 8 on shared pre-drawn noise, kernel 9
     over k transitions chain by chain on its own Philox draws replayed by
     glm_nuts_multistep_draws.  Kernel 9's five draw ranges are asserted
-    disjoint first at the bound (d 16384, md 10).  On a ragged 1027 chains
+    disjoint first at d 16384 and md 10.  On a ragged 1027 chains
     near the posterior mode of wide_data at N 1000 (two row blocks, the
     second ragged), WIDE_NUTS_EPS, md 6 (_chunked_folds): at d 1056 (three
     chunks of 352) the scalar prior, slice and multinomial, and the
@@ -6482,20 +6514,7 @@ def phase_chunked_nuts_kernels(ragged=1027, N=1000, md=6, k=3,
     err = dict.fromkeys(CHUNKED_NUTS_KERNELS, 0.0)
     check = functools.partial(_nuts_checks, err, "_chunked", k=k)
 
-    # kernel 9's five draw ranges [lo, hi) of one (chain, transition) at
-    # the widest d and the deepest tree, in draw order: momenta,
-    # directions, merge uniforms, leaves, the slice uniform
-    d, md10 = nk.NUTS_D_MAX, nk.MAX_DOUBLINGS
-    ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md10),
-              (nk.MERGE_DRAW, nk.MERGE_DRAW + md10),
-              (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md10)),
-              (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)]
-    disjoint = all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
-    emit({"phase": "chunked_nuts_draw_ranges", "d": d,
-          "maxdoublings": md10,
-          "ranges": [[int(lo), int(hi)] for lo, hi in ranges],
-          "disjoint": disjoint})
-    assert disjoint, ranges
+    _draw_ranges("chunked_nuts_draw_ranges", 16384)
     cases = {1056: (("scalar", (False, True)), ("row", (False,))),
              2048: (("matrix", (False,)),),
              CHUNKED_D: (("scalar", (False,)), ("matrix", (True,)))}
@@ -6563,14 +6582,13 @@ def phase_chunked_nuts_paths(means, chains=1024, chains_dense=256,
     256 chains (9 mat; the generic warmup keeps a (d, d) factor and
     accumulator a chain, 4 GB each at 256), then ``resume(chains,
     steps=11)`` of the dense run (8 mat) with _resume_path's checks.  The
-    warmups run on the generic engine.  First the routes at d 4096 and
-    16385 (_nuts_routes).  Returns the chunked NUTS kernels' launches
-    {name: (count, origin)}."""
+    warmups run on the generic engine.  First the route at d 4096
+    (_nuts_routes; phase_huge_width_paths takes the bound's).  Returns the
+    chunked NUTS kernels' launches {name: (count, origin)}."""
     import mcmc_jl_tpu_torch as mt
-    from mcmc_jl_tpu_torch.ops.glm_kernels import D_MAX
     from mcmc_jl_tpu_torch.ops.warmstart import _pick_k_trans
 
-    _nuts_routes((CHUNKED_D, D_MAX + 1), n)
+    _nuts_routes((CHUNKED_D,), n)
     steps, burnin, thin = run
     kept, kept_dense = steps - burnin, dense_run[0] - dense_run[1]
     counts, held = {}, {}
@@ -6702,6 +6720,676 @@ def phase_chunked_nuts_path_times(chains=1024, steps=12, burnin=4, n=1000):
               "task": _origin(m, task, chains), "d": m.size, **row, **CARD})
     return out
 
+
+# ---- the prior forms of kernels 1, 2 and 3, and GLMs of up to 131072
+# parameters on every GLM kernel ---------------------------------------------
+
+# one width a tier for kernels 1, 2 and 3 with a row and a matrix prior: the
+# narrow tile, the wide tile (the wide paths' width), the very-wide tile's
+# bound and the chunked tier
+PRIOR_D = (10, WIDE_D, 1024, 2048)
+# kernels 1, 2 and 3 with a (d, d) prior, on every tier: counted apart
+PRIOR_MAT_KERNELS = tuple(n + "_mat" + t
+                          for t in ("", "_wide", "_xwide", "_chunked")
+                          for n in ("glm_leapfrogs", "glm_step",
+                                    "glm_multistep"))
+# the prior paths at each width of PRIOR_D: chains, transitions of 10
+# leapfrogs, and the transitions of one launch of kernel 3
+PRIOR_RUN = (512, 20, 10)
+# the step of the prior paths in the folds' z (posterior sds about 1), and
+# of the kernel checks that want both accepts and rejects on the narrow
+# tile (d 10: 0.3 accepts 99.4%) and above (d 150: 0.5 accepts 4%)
+PRIOR_EPS, PRIOR_STEP_EPS = 0.2, (0.5, 0.3)
+# the width checks: (d, N) at the JAX kernels' VMEM bound (d N about 2.5e7
+# floats of the design: d 32768 up to N 750, d 131072 at N 190)
+HUGE_D = ((32768, 500), (131072, 160))
+# the NUTS checks' step there (chains at 0.3 standard normals): past d
+# 16384 the energy H sits near d / 2, whose float32 rounding (2e-3 at d
+# 32768) can decide a slice test whose margin lies below it (at eps 0.02
+# 3 of 211 chains left the plain version's path before the NUTS kernels
+# summed in double above 16384); at 0.1 the energy errors of coordinates
+# that start in phase put every leaf far outside the slice (and past the
+# divergence gate at d 131072), so no slice test lies within that
+# rounding, and _f64_witness reports HUGE_WITNESS_EPS; the times take
+# HUGE_WITNESS_EPS, where every tree runs to md 4
+HUGE_EPS, HUGE_WITNESS_EPS = 0.1, 0.02
+# kernel 9's launch whose scratch passes 2^31 floats: (d, N, chains, md), a
+# tile of 16 chains for every one of the H100's 132 blocks
+HUGE_DEEP = (131072, 160, 2112, 4)
+# the d 32768 paths (N 500): chains, HMC SerialMC(steps, burnin, thinning)
+# and NUTS SerialMC(steps, burnin, thinning) (kept transitions in launches
+# of 8 for kernel 9), the NUTS run's resume, and the HMC step (posterior
+# sds about 1: an acceptance near 0.8)
+HUGE_PATH = (256, (30, 10, 5), (38, 30, 4), 8, 0.12)
+
+
+def _prior_bits(label, XT, Y, theta, m0, logu, eps, seed, k=2):
+    """Kernels 1, 2 and 3 at one input under the scalar prior 1, a (d,) row
+    of ones and the (d, d) identity: the row gives the scalar kernel's bits
+    (it reads 1 where the scalar is 1); the identity (Theta A on the tensor
+    cores) agrees with it within phase_kernels' tolerances, kernels 2 and 3
+    on the chains whose accepts agree and whose theta lies within LEAF_ATOL
+    (PATH_AGREE of them at least)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    C, d = theta.shape
+    lp, g = _lp_grad(XT, Y, theta)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    calls = {  # name: (call, index of g, index of lp)
+        "glm_leapfrogs": (lambda p: gk.glm_leapfrogs(
+            XT, Y, theta, m0, g, eps, n_leaps=10, prior_prec=p), 2, 3),
+        "glm_step": (lambda p: gk.glm_step(
+            XT, Y, theta, g, lp[:, None].contiguous(), m0,
+            logu[:, None].contiguous(), eps, n_leaps=10, prior_prec=p), 1, 2),
+        "glm_multistep": (lambda p: gk.glm_multistep(
+            XT, Y, theta, eps, k_trans=k, n_leaps=10, generator=gen(),
+            prior_prec=p), 1, 2)}
+    ones = torch.ones(d, device="cuda")
+    eye = torch.eye(d, device="cuda")
+    scale = max(1.0, XT.shape[1] / 1000)
+    for name, (call, ig, il) in calls.items():
+        sc, row, mat = call(1.0), call(ones), call(eye)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(sc, row))
+        same = (torch.ones(C, dtype=torch.bool, device="cuda")
+                if name == "glm_leapfrogs" else
+                (sc[3].reshape(-1) == mat[3].reshape(-1))
+                & ((sc[0] - mat[0]).abs().amax(-1) <= LEAF_ATOL))
+        ok = (bitwise and float(same.float().mean()) >= PATH_AGREE
+              and _close(mat[0][same], sc[0][same], RTOL, ATOL)
+              and _close(mat[ig][same], sc[ig][same], RTOL, G_ATOL * scale)
+              and _close(mat[il][same], sc[il][same], LP_RTOL,
+                         LP_ATOL * scale))
+        emit({"phase": "prior_bits", "name": gk._counted(name, None, d),
+              "case": label, "C": C, "d": d, "row_of_ones_bitwise": bitwise,
+              "identity_path_differ": int(C - same.sum()),
+              "identity_theta": _err(mat[0][same], sc[0][same]), "ok": ok})
+        assert ok, (f"{name} ({label}): a row of ones or the identity "
+                    f"parts from the scalar prior")
+
+
+def phase_prior_kernels(ragged=1027, N=1000, k=3):
+    """Kernels 1, 2 and 3 with a (d,) prior row and a (d, d) prior matrix
+    against their plain versions, one width a tier (PRIOR_D: d 10 on the
+    narrow tile, 150 wide, 1024 very-wide, 2048 chunked), with the other
+    kernel phases' rules and tolerances (_traj_check; _step_check on shared
+    pre-drawn noise; _multistep_check over k transitions chain by chain on
+    the kernel's own Philox draws replayed by glm_multistep_draws): on a
+    ragged 1027 chains near the posterior mode of wide_data at N 1000 (two
+    row blocks, the second ragged), the diagonal fold's row and the dense
+    fold's matrix (_wide_folds; _chunked_folds at d 2048), 2 and 3 at
+    PRIOR_STEP_EPS, where the plain versions both accept and reject; kernel
+    1 also on Poisson with weights and offsets (_glm_case's design) under
+    a row and a matrix of its own.  Each launch counts under its name, a
+    row under the kernel's own, a matrix under ``_mat``.  A row of ones
+    gives the scalar kernel's bits, and the identity matrix agrees with it
+    (_prior_bits).  Returns the largest absolute error of each kernel."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    err = {}
+
+    def keep(name, e):
+        err[name] = max(err.get(name, 0.0), e)
+
+    for d in PRIOR_D:
+        tier = gk._counted("", None, d)
+        folds = _chunked_folds if d > gk.XWIDE_D_MAX else _wide_folds
+        f = folds(N, d, ragged, seed=d + 80)
+        rng = np.random.default_rng(d + 81)
+        m0 = _cuda(rng.standard_normal((ragged, d)))
+        logu = _cuda(np.log(rng.random(ragged)))
+        step_eps = PRIOR_STEP_EPS[d > gk.NARROW_D_MAX]
+        for prior in ("row", "matrix"):
+            XT, Yc, th, lam = f[prior]
+            mat = "_mat" if prior == "matrix" else ""
+            label = f"d {d}, N {N}, C {ragged}, {prior} prior"
+            gk.reset_counts()
+            keep("glm_leapfrogs" + mat + tier, _traj_check(
+                label, XT, Yc, th, m0, PRIOR_EPS / 2, n_leaps=10,
+                prior_prec=lam))
+            keep("glm_step" + mat + tier, _step_check(
+                label, XT, Yc, th, m0, logu, step_eps, mix=True,
+                n_leaps=10, prior_prec=lam))
+            keep("glm_multistep" + mat + tier, _multistep_check(
+                label, XT, Yc, th, step_eps, k=k, seed=d + 82, mix=True,
+                n_leaps=10, prior_prec=lam))
+            got = {n: gk.LAUNCHES[n + mat + tier]
+                   for n in ("glm_leapfrogs", "glm_step", "glm_multistep")}
+            assert got == {"glm_leapfrogs": 1, "glm_step": 1,
+                           "glm_multistep": 2}, (label, got)
+        XT, Yc, W, O, th, m = _glm_case("poisson", N, d, 300, seed=d + 83,
+                                        scale=0.3 * np.sqrt(min(1.0, 7 / d)))
+        row = _cuda(rng.uniform(0.5, 2.0, d))
+        B = _cuda(rng.standard_normal((d, 8)) / np.sqrt(d))
+        A = torch.diag(row) + B @ B.T
+        A = (0.5 * (A + A.T)).contiguous()
+        for prior, lam in (("row", row), ("matrix", A)):
+            mat = "_mat" if prior == "matrix" else ""
+            keep("glm_leapfrogs" + mat + tier, _traj_check(
+                f"d {d}, poisson, weights+offsets, {prior} prior, C 300", XT,
+                Yc, th, m, 0.01, n_leaps=3, kind="poisson", weights=W,
+                offsets=O, prior_prec=lam))
+        XT, Yc, th, _ = f["scalar"]
+        _prior_bits(f"d {d}, N {N}, C {ragged}", XT, Yc, th, m0, logu,
+                    step_eps, seed=d + 84)
+        del f, XT, th, m0, A, B
+        torch.cuda.empty_cache()
+    return err
+
+
+def _prior_path_data(d, N, C, seed):
+    """The dense fold of wide_data(N, d) at its mode (Laplace factor L):
+    the design X L, the prior A = L'L, the diagonal fold X s and its row
+    s^2 (s the Laplace sds), and C draws of the Laplace approximation,
+    theta0 = mode + L z and in each fold's coordinates: (X L, A, z0, X s,
+    s^2, theta0 / s, L), float32 on the card but L (float64)."""
+    import torch
+
+    X, _, mode, L = _wide_mode(N, d)
+    dev = "cuda"
+    Xt = torch.as_tensor(X, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    s = Lt.square().sum(1).sqrt()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z0 = torch.linalg.solve_triangular(
+        Lt, torch.as_tensor(mode, device=dev)[:, None], upper=False).T \
+        + torch.randn((C, d), generator=gen, dtype=torch.float64, device=dev)
+    theta0 = z0 @ Lt.T
+    f32 = lambda a: a.float().contiguous()  # noqa: E731
+    return (f32(Xt @ Lt), f32(Lt.T @ Lt), f32(z0), f32(Xt * s), f32(s * s),
+            f32(theta0 / s), Lt)
+
+
+def phase_prior_paths(run=PRIOR_RUN, N=1000, eps=PRIOR_EPS):
+    """Kernels 1, 2 and 3 with a (d, d) prior through the drivers a user
+    calls with one, one width a tier (PRIOR_D), every launch counted from
+    zero over one run: ``run_glm_hmc(X L, Y, C, S, prior_prec=A)`` (kernel
+    1; with ``fused_step=True`` kernel 2) and ``run_glm_hmc_multistep(X L,
+    Y, C, S, thin=k, prior_prec=A)`` (kernel 3) on the dense fold of
+    wide_data at N 1000 (_prior_path_data: design X L, prior A = L'L, L the
+    Laplace factor at the mode: the posterior in z with theta = L z), from
+    C draws of the Laplace approximation; each run's final theta = L z held
+    within Z_MAX standard errors of the final theta = s z of
+    ``run_glm_hmc(X s, Y, C, S, prior_prec=s^2)`` (the diagonal fold's row
+    through kernel 1, from the same draws; the chains' final states are
+    independent draws of one law), with an acceptance above 0.5.  Returns
+    ({kernel: (launches, origin)}, {d: (XT, Y, z0, A, the diagonal fold's
+    XT, its z0 and its row)} for phase_prior_times)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_hmc
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    C, S, k = run
+    launches, shapes = {}, {}
+    for d in PRIOR_D:
+        tier = gk._counted("", None, d)
+        _, Y, _, _ = _wide_mode(N, d)
+        XL, A, z0, Xs, s2, zs, Lt = _prior_path_data(d, N, C, seed=d + 85)
+        kw = dict(n_leaps=10, eps=eps, seed=d, device="cuda")
+        # the reference on its own stream: independent of the runs it holds
+        ref, ref_infos = glm_hmc.run_glm_hmc(Xs, Y, C, S, inits=zs,
+                                             prior_prec=s2, fused_step=False,
+                                             **dict(kw, seed=d + 1))
+        ref_theta = (ref.double() * s2.double().sqrt()).cpu().numpy()
+        runs = {
+            "glm_leapfrogs": (
+                lambda: glm_hmc.run_glm_hmc(XL, Y, C, S, inits=z0,
+                                            prior_prec=A, fused_step=False,
+                                            **kw),
+                S, f"run_glm_hmc(X L, Y, {C}, {S}, prior_prec=A)"),
+            "glm_step": (
+                lambda: glm_hmc.run_glm_hmc(XL, Y, C, S, inits=z0,
+                                            prior_prec=A, fused_step=True,
+                                            **kw),
+                S, f"run_glm_hmc(X L, Y, {C}, {S}, prior_prec=A, "
+                   f"fused_step=True)"),
+            "glm_multistep": (
+                lambda: glm_hmc.run_glm_hmc_multistep(
+                    XL, Y, C, S, thin=k, inits=z0, prior_prec=A, **kw),
+                S // k, f"run_glm_hmc_multistep(X L, Y, {C}, {S}, thin={k}, "
+                        f"prior_prec=A)")}
+        for name, (fn, want, origin) in runs.items():
+            t0 = time.perf_counter()
+            (z, infos), counts = _counted(fn)
+            dt = time.perf_counter() - t0
+            key = name + "_mat" + tier
+            assert counts == {**dict.fromkeys(counts, 0), key: want}, (
+                key, {n: v for n, v in counts.items() if v})
+            theta = (z.double() @ Lt.T).cpu().numpy()
+            z_max = _z_means(theta, ref_theta)
+            acc = float(infos["accept_rate" if "accept_rate" in infos
+                              else "accept"].float().mean())
+            ok = (bool(torch.isfinite(z).all()) and z.shape == (C, d)
+                  and z_max < Z_MAX and acc > 0.5)
+            emit({"phase": "prior_path", "name": key, "task": origin,
+                  "d": d, "N": N, "C": C, "eps": eps, "seconds": dt,
+                  "launches": counts[key], "acceptance": acc,
+                  "reference_acceptance": float(
+                      ref_infos["accept"].float().mean()),
+                  "z_max_vs_row_prior": z_max, "ok": ok, **CARD})
+            assert ok, f"{origin} at d {d} disagrees with the row prior's run"
+            launches[key] = (counts[key], origin + f" at d {d}, N {N}")
+        shapes[d] = (XL.T.contiguous(), _cuda(Y), z0, A, Xs.T.contiguous(),
+                     zs, s2)
+        del XL, Xs, Lt
+    return launches, shapes
+
+
+def phase_prior_times(shapes, run=PRIOR_RUN, eps=PRIOR_EPS, n_leaps=10,
+                      reps=3):
+    """Kernels 1, 2 and 3 with the (d, d) prior at their paths' shapes
+    (phase_prior_paths' dense folds: C chains at d 10, 150, 1024 and 2048,
+    N 1000, 10 leapfrogs, kernel 3 at k transitions a launch): CUDA events,
+    the plain version on the card, the bound (4 d N + 2 d^2 operations a
+    chain-gradient, the two products and Theta A, at the 3xTF32 rate, or
+    the bytes) and its share; beside each, the same kernel with the
+    diagonal fold's row at the same shape (emitted: the matrix's cost).
+    Returns ({kernel: (ms, plain ms)}, {kernel: bound}) of the matrix
+    forms."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+
+    C, _, k = run
+    ms, work = {}, {}
+    for d, (XT, Yc, z0, A, XTs, zs, s2) in shapes.items():
+        tier = gk._counted("", None, d)
+        N = XT.shape[1]
+        rng = np.random.default_rng(d + 86)
+        m0 = _cuda(rng.standard_normal((C, d)))
+        logu = _cuda(np.log(rng.random((C, 1))))
+        row_ms = {}
+        for name, kern in (
+                ("glm_leapfrogs", lambda: gk.glm_leapfrogs(
+                    XTs, Yc, zs, m0, g_s, eps, n_leaps=n_leaps,
+                    prior_prec=s2)),
+                ("glm_step", lambda: gk.glm_step(
+                    XTs, Yc, zs, g_s, lp_s, m0, logu, eps, n_leaps=n_leaps,
+                    prior_prec=s2)),
+                ("glm_multistep", lambda: gk.glm_multistep(
+                    XTs, Yc, zs, eps, k_trans=k, n_leaps=n_leaps,
+                    generator=torch.Generator(device="cuda").manual_seed(d),
+                    prior_prec=s2))):
+            lp_s, g_s = _lp_grad(XTs, Yc, zs, prior_prec=s2)
+            lp_s = lp_s[:, None].contiguous()
+            row_ms[name] = _event_ms(kern, reps=reps)
+        lp, g = _lp_grad(XT, Yc, z0, prior_prec=A)
+        lp = lp[:, None].contiguous()
+        gen = lambda: torch.Generator(device="cuda").manual_seed(d)  # noqa: E731
+        calls = {
+            "glm_leapfrogs": (
+                lambda: gk.glm_leapfrogs(XT, Yc, z0, m0, g, eps,
+                                         n_leaps=n_leaps, prior_prec=A),
+                lambda: gk.glm_leapfrogs_ref(XT, Yc, z0, m0, g, eps,
+                                             n_leaps=n_leaps, prior_prec=A),
+                (XT, Yc, z0, m0, g, A), C * n_leaps),
+            "glm_step": (
+                lambda: gk.glm_step(XT, Yc, z0, g, lp, m0, logu, eps,
+                                    n_leaps=n_leaps, prior_prec=A),
+                lambda: gk.glm_step_ref(XT, Yc, z0, g, lp, m0, logu, eps,
+                                        n_leaps=n_leaps, prior_prec=A),
+                (XT, Yc, z0, g, lp, m0, logu, A), C * n_leaps),
+            "glm_multistep": (
+                lambda: gk.glm_multistep(XT, Yc, z0, eps, k_trans=k,
+                                         n_leaps=n_leaps, generator=gen(),
+                                         prior_prec=A),
+                lambda: gk.glm_multistep_ref(XT, Yc, z0, eps, k_trans=k,
+                                             n_leaps=n_leaps,
+                                             generator=gen(), prior_prec=A),
+                (XT, Yc, z0, A), C * (1 + k * n_leaps))}
+        for name, (kern, plain, inputs, evals) in calls.items():
+            key = name + "_mat" + tier
+            nbytes = _nbytes(inputs, kern())
+            bound = _bound_ops((4.0 * d * N + 2.0 * d * d) * evals, nbytes,
+                               TF32X3_FLOPS)
+            t = (_event_ms(kern, reps=reps), _event_ms(plain, reps=2))
+            emit({"phase": "prior_time", "name": key, "d": d, "N": N, "C": C,
+                  "evals": evals, "ms": t[0], "plain_ms": t[1], **bound,
+                  "share_of_bound": bound["bound_ms"] / t[0],
+                  "row_prior_ms": row_ms[name],
+                  "matrix_over_row": t[0] / row_ms[name], **CARD})
+            ms[key], work[key] = t, bound
+    return ms, work
+
+
+def _huge_case(kind, N, d, C, seed, weights=False):
+    """_chunked_case's design at width d drawn on the card in float32 (the
+    float64 draws of a (C, d) state take GBs at d 131072): XT (d, N), Y,
+    weights in [0.5, 2) or None, C chains at 0.3 standard normals and
+    standard normal momenta."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    XT = normal(d, N)
+    XT[0] = 1.0
+    XT /= d ** 0.5
+    z = normal(d) @ XT
+    Y = (torch.poisson(torch.exp(z), generator=gen) if kind == "poisson"
+         else (torch.rand(N, generator=gen, device="cuda")
+               < torch.sigmoid(z)).float())
+    W = (0.5 + 1.5 * torch.rand(N, generator=gen, device="cuda")
+         if weights else None)
+    return (XT.contiguous(), Y.contiguous(), W, (0.3 * normal(C, d)),
+            normal(C, d))
+
+
+def _release_scratch():
+    """Drop the kernels' scratch buffers and the allocator's cache (the
+    widest d holds tens of GB there)."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    gk._SLOTS.clear()
+    nk._SCRATCH.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_huge_width(C=211, md=4, k=2, mat=(16416, 16, 300),
+                     deep=HUGE_DEEP, eps=HUGE_EPS,
+                     witness=HUGE_WITNESS_EPS):
+    """Kernels 1, 3b, 4, 8 and 9 on the chunked tier past its old bound
+    16384, at d 32768 (N 500) and 131072 (N 160; HUGE_D), against their
+    plain versions with the chunked checks' rules and tolerances, on 211
+    chains (14 tiles, the last ragged, so that PATH_AGREE lets one chain
+    leave the plain version's path) of _huge_case's design: the logistic
+    link, and Poisson with weights; 1 over 4 leapfrogs, 3b over k
+    transitions chain by chain on its own draws replayed by
+    glm_multistep_draws, 4 against float64, 8 on shared pre-drawn noise, 9
+    over k transitions chain by chain on its own draws replayed by
+    glm_nuts_multistep_draws (its five draw ranges asserted disjoint first
+    at d 131072 and md 10), both at HUGE_EPS; at d 32768 kernel 9's and
+    its float32 plain version's drift from float64 at HUGE_WITNESS_EPS, by
+    path (_f64_witness, emitted, not gated).  Then kernels 1 and 8 with a
+    (d, d) prior at d
+    16416 (A 1.08 GB) on 16 chains, and one launch of kernel 9 at d 131072,
+    N 160, md 4 on 2112 chains (HUGE_DEEP: a tile for each of the 132
+    blocks) whose scratch passes 2^31 floats (132 slices of 176 MB): the
+    plan's blocks and scratch bytes logged beside torch.cuda.mem_get_info(),
+    the last block's 16 chains, whose slice lies past 2^31 floats, held
+    against the plain version on their replayed draws.  Returns the largest
+    error of each kernel it checks."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+    from mcmc_jl_tpu_torch.ops import target_kernels as tk
+
+    _draw_ranges("huge_nuts_draw_ranges", gk.D_MAX)
+    err = {}
+
+    def keep(name, e):
+        err[name] = max(err.get(name, 0.0), e)
+
+    check = functools.partial(_nuts_checks, err, "_chunked", k=k)
+    err.update(dict.fromkeys(CHUNKED_NUTS_KERNELS, 0.0))
+    for d, N in HUGE_D:
+        for i, kind in enumerate(("logistic", "poisson")):
+            XT, Yc, W, th, m = _huge_case(kind, N, d, C, seed=d + i,
+                                          weights=kind == "poisson")
+            kw = dict(kind=kind, weights=W)
+            label = (f"d {d}, N {N}, C {C}, {kind}"
+                     f"{', weights' if W is not None else ''}")
+            keep("glm_leapfrogs_chunked", _traj_check(
+                label, XT, Yc, th, m, 0.1, n_leaps=4, **kw))
+            keep("glm_multistep_rows_chunked", _rows_check(
+                label, XT, Yc, th, witness / 4, 2.5 * witness, 501, 20, k,
+                seed=d + i, **kw))
+            keep("glm_logp_grad_tiled_chunked", _tiled_case(
+                label, XT, Yc, th, kind=kind, W=W))
+            args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + i, **kw)
+            check(f"{label}, md {md}", args, noise, eps,
+                  dict(kw, maxdoublings=md), seed=d + i + 2)
+            if d == HUGE_D[0][0] and kind == "logistic":
+                _f64_witness(f"{label}, md {md}, eps {witness}", args,
+                             witness, dict(kw, maxdoublings=md),
+                             seed=d + 3, k=k)
+            del XT, th, m, args, noise
+            _release_scratch()
+    d, Cm, Nm = mat
+    XT, Yc, _, th, m = _huge_case("logistic", Nm, d, Cm, seed=d)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    row = 0.5 + 1.5 * torch.rand(d, generator=gen, device="cuda")
+    B = torch.randn(d, 8, generator=gen, device="cuda") / d ** 0.5
+    A = torch.diag(row) + B @ B.T
+    A = (0.5 * (A + A.T)).contiguous()
+    label = f"d {d}, N {Nm}, C {Cm}, (d, d) prior"
+    keep("glm_leapfrogs_mat_chunked", _traj_check(
+        label, XT, Yc, th, m, 0.1, n_leaps=4, prior_prec=A))
+    args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + 5, prior_prec=A)
+    check(label, args, noise, eps, dict(maxdoublings=md, prior_prec=A),
+          seed=d + 6, multistep=False)
+    del XT, th, m, A, B, args, noise
+    _release_scratch()
+    # kernel 9 with a scratch past 2^31 floats
+    d, N, Cd, mdd = deep
+    XT, Yc, _, th, m = _huge_case("logistic", N, d, 16, seed=d + 7)
+    del th, m
+    gen = torch.Generator(device="cuda").manual_seed(d + 8)
+    th = (0.3 * torch.randn((Cd, d), generator=gen, device="cuda"))
+    lp, g = _lp_grad(XT, Yc, th)
+    plan = nk.nuts_plan(d, N, mdd)
+    per = nk.slice_bytes(d, mdd)
+
+    def gen9():
+        return torch.Generator(device="cuda").manual_seed(d + 9)
+
+    free0 = torch.cuda.mem_get_info()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = nk.glm_nuts_multistep(XT, Yc, th, lp, g, eps, gen9(), k_trans=1,
+                                maxdoublings=mdd)
+    t1.record()
+    torch.cuda.synchronize()
+    scratch = max(4 * b.numel() for b in nk._SCRATCH.values())
+    blocks = min(-(-Cd // 16), plan["scratch_bytes"] // per, scratch // per)
+    last = slice(Cd - 16, Cd)
+    draws = nk.glm_nuts_multistep_draws(tk._seed(gen9()), Cd, d, 1, mdd,
+                                        device="cuda")
+    ref = nk.glm_nuts_multistep_ref(
+        XT, Yc, th[last], lp[last], g[last], eps, None, k_trans=1,
+        maxdoublings=mdd, draws=[a[:, last] for a in draws])
+    del draws
+    rk, rr = out[3], ref[3]
+    same = ((rk["ndoublings"][:, last] == rr["ndoublings"]).all(0)
+            & (rk["diverging"][:, last] == rr["diverging"]).all(0)
+            & ((out[0][last] - ref[0]).abs().amax(-1) <= LEAF_ATOL))
+    rep = ({n: _err(a[last][same], b[same]) for n, a, b in
+            zip(("theta", "g", "lp"), out[:3], ref[:3])}
+           if bool(same.any()) else {"theta": {"max_abs": float("inf")}})
+    floats = blocks * per // 4
+    # the last block's slice starts past 2^31 floats
+    ok = ((blocks - 1) * per // 4 > 2 ** 31 and bool(same.all())
+          and _close(out[0][last][same], ref[0][same], RTOL, ATOL)
+          and _close(out[1][last][same], ref[1][same], RTOL, G_ATOL)
+          and _close(out[2][last][same], ref[2][same], LP_RTOL, LP_ATOL)
+          and all(bool(torch.isfinite(a).all()) for a in out[:3]))
+    emit({"phase": "kernel", "name": "glm_nuts_multistep_chunked",
+          "case": f"d {d}, N {N}, C {Cd}, md {mdd}: scratch past 2^31 "
+                  f"floats, the last block's chains",
+          "ms": t0.elapsed_time(t1), "plan": plan, "slice_bytes": per,
+          "blocks": blocks,
+          "scratch_bytes": scratch, "scratch_floats": floats,
+          "mem_get_info_before": list(free0),
+          "mem_get_info_after": list(torch.cuda.mem_get_info()),
+          "mean_ndoublings": float(rk["ndoublings"].float().mean()),
+          "diverging": int(rk["diverging"].sum()),
+          "path_differ": int(16 - same.sum()), "ok": ok, **rep})
+    assert ok, "kernel 9 past 2^31 floats of scratch disagrees"
+    keep("glm_nuts_multistep_chunked", rep["theta"]["max_abs"])
+    del XT, th, lp, g, out, ref
+    _release_scratch()
+    return err
+
+
+def _huge_mode(n, d, iters=12):
+    """wide_data(n, d) and its posterior mode, by Newton steps in float64
+    on the card through the n x n dual (Woodbury: with H = I + X' W X,
+    H^-1 v = v - X' (W^-1 + X X')^-1 X v; the d x d Hessian is 8.6 GB at d
+    32768)."""
+    import torch
+
+    X, Y = wide_data(n, d)
+    Xt = torch.as_tensor(X, device="cuda")
+    Yt = torch.as_tensor(Y, device="cuda")
+    K = Xt @ Xt.T
+    b = torch.zeros(d, dtype=torch.float64, device="cuda")
+    for _ in range(iters):
+        p = torch.sigmoid(Xt @ b)
+        v = Xt.T @ (Yt - p) - b
+        b = b + v - Xt.T @ torch.linalg.solve(
+            torch.diag(1.0 / (p * (1 - p))) + K, Xt @ v)
+    return X, Y, b.cpu().numpy()
+
+
+def phase_huge_width_paths(path=HUGE_PATH, n=500, d=32768,
+                           route_n=160):
+    """The routes at the new bound, then a logistic regression of d 32768 at
+    N 500 (wide_data, X 65 MB) through the port's entry points, every
+    launch counted from zero over one run: ``run(HMC(10, eps) *
+    SerialMC(30, 10, 5), chains=256)`` on kernel 1 from one standard normal
+    init (CHUNKED_INIT_SEED, the prior's typical set, as the chunked HMC
+    path: from the mode, where every chain starts in phase, the energy
+    errors of 10 leapfrogs at eps 0.12 add to about d eps^2 / 8 = 59 and
+    no proposal is taken, on either engine) and ``run(NUTS(6) *
+    SerialMC(38, 30, 4), chains=256)`` on kernel 9 from the posterior mode
+    (_huge_mode; its warmup on the generic engine), and
+    ``resume(chains, steps=8)`` of the
+    NUTS run (kernel 9 again); each run's per-chain means held within Z_MAX
+    standard errors of the generic engine's on the same task (fused=False,
+    the same chains), the resume's of the generic run's own resume over
+    the same transitions.  The routes: at d 131072 (N 160)
+    plain HMC takes "hmc" and NUTS "nuts" for a run and a continuation with
+    no reason logged; at 131073 both take the generic engine with the GLM
+    kernels' bound as the reason (_nuts_routes).  Returns the routes."""
+    import mcmc_jl_tpu_torch as mt
+    from mcmc_jl_tpu_torch.core.task import MCMCTask
+    from mcmc_jl_tpu_torch.ops.glm_kernels import D_MAX
+    from mcmc_jl_tpu_torch.parallel import pchains
+
+    routes = _nuts_routes((D_MAX, D_MAX + 1), route_n)
+    for dd in (D_MAX, D_MAX + 1):
+        X, Y = wide_data(route_n, dd)
+        m = mt.model(glm=("logistic", X, Y), device="cuda")
+        route = pchains._route(MCMCTask(m, mt.HMC(10, 0.1), mt.SerialMC(
+            steps=20, burnin=10)), "auto", 256)
+        assert route == ("hmc" if dd <= D_MAX else False), (dd, route)
+        emit({"phase": "hmc_route", "d": dd, "route": route or
+              "generic engine"})
+        del m, X
+    chains, hmc_run, nuts_run, resume_steps, eps = path
+    X, Y, mode = _huge_mode(n, d)
+    init = np.random.default_rng(CHUNKED_INIT_SEED).standard_normal(d)
+    counts = {}
+    for label, sampler, (steps, burnin, thin), key, start in (
+            ("HMC", mt.HMC(10, eps), hmc_run, "glm_leapfrogs_chunked",
+             init),
+            ("NUTS", mt.NUTS(6), nuts_run, "glm_nuts_multistep_chunked",
+             mode)):
+        m = mt.model(glm=("logistic", X, Y), init=start, device="cuda")
+        task = m * sampler * mt.SerialMC(steps=steps, burnin=burnin,
+                                         thinning=thin)
+        t0 = time.perf_counter()
+        with _spans() as spans:
+            cs, launches = _counted(lambda: mt.run(task, chains=chains,
+                                                   seed=0))
+        dt = time.perf_counter() - t0
+        want = (steps if label == "HMC"
+                else (steps - burnin) // 8)
+        assert launches[key] == want, (label, {k: v for k, v in
+                                               launches.items() if v})
+        cg = mt.run(task, chains=chains, seed=1, fused=False)
+        a = np.stack([c.samples.values for c in cs])
+        b = np.stack([c.samples.values for c in cg])
+        z = _z_means(a.mean(1), b.mean(1))
+        ok = bool(np.all(np.isfinite(a))) and z < Z_MAX
+        emit({"phase": "huge_width_path", "path": label,
+              "task": _origin(m, task, chains), "d": d, "seconds": dt,
+              "spans_s": spans, "launches": {key: launches[key]},
+              "acceptance": float(np.mean([mt.acceptance(c) for c in cs])),
+              "z_max_vs_generic": z, "ok": ok, **CARD})
+        assert ok, f"{label} at d {d} disagrees with the generic engine"
+        counts[key] = (launches[key], _origin(m, task, chains))
+        if label == "NUTS":
+            c2, rl = _counted(lambda: mt.resume(cs, steps=resume_steps))
+            assert rl[key] == resume_steps // 8, rl
+            g2 = mt.resume(cg, steps=resume_steps, fused=False)
+            a2 = np.stack([c.samples.values for c in c2])
+            b2 = np.stack([c.samples.values for c in g2])
+            z2 = _z_means(a2.mean(1), b2.mean(1))
+            ok = bool(np.all(np.isfinite(a2))) and z2 < Z_MAX
+            emit({"phase": "huge_width_path", "path": "NUTS resume",
+                  "task": f"resume(chains, steps={resume_steps})",
+                  "launches": {key: rl[key]}, "z_max_vs_generic": z2,
+                  "ok": ok})
+            assert ok, "the NUTS resume at d 32768 disagrees"
+            del c2, g2
+        del cs, cg
+    return counts, routes
+
+
+def phase_huge_width_times(C=64, n_leaps=10, md=4, k=2, reps=3,
+                           eps=HUGE_WITNESS_EPS):
+    """Kernels 1 and 9 at d 131072, N 160 (HUGE_D's widest) on 64 chains:
+    1 over 10 leapfrogs, 9 over k transitions at md 4 (HUGE_WITNESS_EPS:
+    every tree of 15 leaves), CUDA events,
+    torch.profiler's device time, the plain version on the card, the bound
+    (4 d N operations a chain-gradient at the 3xTF32 rate; kernel 9 over
+    the plain version's leaves, or the bytes), its share, and the bytes of
+    X the tiles read a gradient (two passes of the N x D design by each
+    tile of 16 chains).  Emitted only: the kernels line times each kernel
+    at the shape of the path that counts its launches."""
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    d, N = HUGE_D[-1]
+    XT, Yc, _, th, m = _huge_case("logistic", N, d, C, seed=d + 11)
+    lp, g = _lp_grad(XT, Yc, th)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(d)  # noqa: E731
+    _, _, _, rows = nk.glm_nuts_multistep_ref(XT, Yc, th, lp, g, eps, gen(),
+                                              k_trans=k, maxdoublings=md)
+    leaves = int(((1 << rows["ndoublings"].long()) - 1).sum())
+    x_bytes = 2 * -(-C // 16) * 4 * N * d
+    out = {}
+    for name, kern, plain, evals, sym in (
+            ("glm_leapfrogs_chunked",
+             lambda: gk.glm_leapfrogs(XT, Yc, th, m, g, eps, n_leaps=n_leaps),
+             lambda: gk.glm_leapfrogs_ref(XT, Yc, th, m, g, eps,
+                                          n_leaps=n_leaps),
+             C * n_leaps, "hmc_xwide_kernel"),
+            ("glm_nuts_multistep_chunked",
+             lambda: nk.glm_nuts_multistep(XT, Yc, th, lp, g, eps, gen(),
+                                           k_trans=k, maxdoublings=md),
+             lambda: nk.glm_nuts_multistep_ref(XT, Yc, th, lp, g, eps,
+                                               gen(), k_trans=k,
+                                               maxdoublings=md),
+             leaves, "nuts_xwide_kernel")):
+        nbytes = _nbytes((XT, Yc, th, m, g, lp), kern())
+        bound = _bound(evals, d, N, nbytes)
+        t = (_event_ms(kern, reps=reps), _event_ms(plain, reps=2))
+        out[name] = {"d": d, "N": N, "C": C, "evals": evals, "ms": t[0],
+                     "plain_ms": t[1], **bound,
+                     "share_of_bound": bound["bound_ms"] / t[0],
+                     "device_ms": _device_ms(kern, sym, reps=reps),
+                     "x_bytes_a_gradient": x_bytes}
+        emit({"phase": "huge_width_time", "name": name, **out[name], **CARD})
+    _release_scratch()
+    return out
 
 # ---- the dense metric on catalog targets: kernels 5 and 8b in z-space -----
 
@@ -7053,6 +7741,9 @@ def main():
     errors.update(step("xwide_nuts_kernels", phase_xwide_nuts_kernels))
     errors.update(step("chunked_kernels", phase_chunked_kernels))
     errors.update(step("chunked_nuts_kernels", phase_chunked_nuts_kernels))
+    errors.update(step("prior_kernels", phase_prior_kernels))
+    for name, e in step("huge_width", phase_huge_width).items():
+        errors[name] = max(errors.get(name, 0.0), e)
     errors.update(step("dense_target_kernels", phase_dense_target_kernels))
     # each kernel's launches, counted from zero over one run of the entry
     # point that reaches it: run(..., chains=N) for the trajectory kernel,
@@ -7101,6 +7792,13 @@ def main():
     launches.update(step("chunked_nuts_paths", phase_chunked_nuts_paths,
                          chunked_means))
     del chunked_means
+    # kernels 1, 2 and 3 with a (d, d) prior through run_glm_hmc and
+    # run_glm_hmc_multistep, one width a tier; then the d 32768 paths
+    # through kernels 1 and 9 (their launches emitted there: the kernels
+    # line counts the chunked kernels on their d 4096 paths)
+    prior_launches, prior_shapes = step("prior_paths", phase_prior_paths)
+    launches.update(prior_launches)
+    step("huge_width_paths", phase_huge_width_paths)
     resume_rows = step("resume_paths", phase_resume_paths, held, hmc_means)
     del held
     # Barker, WALNUTS, IMH, RAM, slice_sample and the information criteria
@@ -7147,9 +7845,13 @@ def main():
                  step("chunked_times", phase_chunked_times,
                       ds=(CHUNKED_D,), paths=False),
                  step("chunked_nuts_times", phase_chunked_nuts_times,
-                      ds=(CHUNKED_D,), device_reps=0)):
+                      ds=(CHUNKED_D,), device_reps=0),
+                 step("prior_times", phase_prior_times, prior_shapes)):
         ms.update(more[0])
         work.update(more[1])
+    del prior_shapes
+    # kernels 1 and 9 at d 131072 (emitted, not in the kernels line)
+    step("huge_width_times", phase_huge_width_times)
     # the wide paths' generic-against-fused seconds (phase_wide_path_times,
     # phase_wide_nuts_path_times) run in the --times groups wide_paths and
     # wide_nuts_paths, the wide NUTS kernels at d 256 in wide_nuts, the
@@ -8441,6 +9143,7 @@ TIME_GROUPS = {
     "chunked": (("glm_hmc", "glm_bign"), ("phase_chunked_times",)),
     "chunked_nuts": (("glm_nuts",), ("phase_chunked_nuts_times",
                                      "phase_chunked_nuts_path_times")),
+    "huge": (("glm_hmc", "glm_nuts"), ("phase_huge_width_times",)),
 }
 
 
@@ -8458,8 +9161,97 @@ def chunked_nuts_main():
     step("chunked_nuts_times", phase_chunked_nuts_times, ds=(CHUNKED_D,))
 
 
+def prior_huge_main():
+    """``python3 chip_smoke.py --only prior_huge``: the phases of kernels
+    1, 2 and 3's row and matrix priors and of the widths up to 131072
+    alone, on the libraries they need (glm_hmc, glm_bign, glm_nuts): the
+    kernel checks, the paths and the times."""
+    phase_device()
+    step("build", phase_build, ("glm_hmc", "glm_bign", "glm_nuts"))
+    step("prior_kernels", phase_prior_kernels)
+    step("huge_width", phase_huge_width)
+    _, shapes = step("prior_paths", phase_prior_paths)
+    step("huge_width_paths", phase_huge_width_paths)
+    step("prior_times", phase_prior_times, shapes)
+    step("huge_width_times", phase_huge_width_times)
+
+
 # the phase groups ``--only`` runs alone
-ONLY_GROUPS = {"chunked_nuts": chunked_nuts_main}
+ONLY_GROUPS = {"chunked_nuts": chunked_nuts_main,
+               "prior_huge": prior_huge_main}
+
+
+def kernel_bits(root, out):
+    """``python3 chip_smoke.py --bits ROOT OUT``: the outputs of GLM kernels
+    1, 2, 3, 3b (a prior row) 4 (a row) and 8 on fixed inputs at d 10, 150,
+    1024, 4096 and 16384, from the package under ROOT (its libraries built
+    first, in parallel), saved to OUT; ``--bits-compare A B`` then says
+    which differ, so that two trees can be held to the same bits (kernel 9,
+    whose draws changed at every width in PR 26, is left out)."""
+    sys.path.insert(0, os.path.abspath(root))
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mcmc_jl_tpu_torch.ops import cuda_build
+    from mcmc_jl_tpu_torch.ops import glm_bign as gb
+    from mcmc_jl_tpu_torch.ops import glm_kernels as gk
+    from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
+
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(cuda_build.build, ("glm_hmc", "glm_bign", "glm_nuts")))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for d, N, C in ((10, 1000, 300), (150, 1000, 300), (1024, 600, 67),
+                    (4096, 600, 67), (16384, 300, 37)):
+        g = torch.Generator(device="cuda").manual_seed(d)
+
+        def rand(*shape):
+            return torch.rand(*shape, generator=g, device="cuda")
+
+        XT = (torch.randn(d, N, generator=g, device="cuda")
+              / d ** 0.5).contiguous()
+        Y = (rand(N) < 0.5).float()
+        th = 0.3 * torch.randn(C, d, generator=g, device="cuda")
+        m = torch.randn(C, d, generator=g, device="cuda")
+        row = 0.5 + rand(d)
+        lp, gr = gk.glm_funcs(XT, Y, None, None, 1.0, "logistic")[1](th)
+        lp, gr = lp.contiguous(), gr.contiguous()
+        logu = torch.log(rand(C))
+
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(7)
+
+        res[f"k1_{d}"] = gk.glm_leapfrogs(XT, Y, th, m, gr, 0.05, n_leaps=4)
+        res[f"k2_{d}"] = gk.glm_step(XT, Y, th, gr, lp[:, None].contiguous(),
+                                     m, logu[:, None].contiguous(), 0.2,
+                                     n_leaps=4)
+        res[f"k3_{d}"] = gk.glm_multistep(XT, Y, th, 0.2, k_trans=2,
+                                          n_leaps=4, generator=gen())
+        r = gk.glm_multistep_rows(XT, Y, th, 0.2, 1.0, 11, 10, k_trans=2,
+                                  generator=gen(), prior_prec=row)
+        res[f"k3b_{d}"] = r[:3] + (r[3]["ppars"],)
+        res[f"k4_{d}"] = gb.glm_logp_grad_tiled(XT, Y, th, prior_prec=row)
+        md = 4
+        noise = (torch.randn(C, d, generator=g, device="cuda"), logu,
+                 torch.where(rand(C, md) < 0.5, -1.0, 1.0).contiguous(),
+                 rand(C, md), rand(C, 1 << md))
+        res[f"k8_{d}"] = nk.glm_nuts_transition(XT, Y, th, lp, gr, 0.1,
+                                                *noise, maxdoublings=md)
+    torch.cuda.synchronize()
+    torch.save({k: [t.cpu() for t in v] for k, v in res.items()}, out)
+    print("saved", len(res), flush=True)
+
+
+def compare_bits(a, b):
+    """``--bits-compare A B``: the kernel outputs of two ``--bits`` files
+    that differ in any bit."""
+    import torch
+
+    x, y = torch.load(a), torch.load(b)
+    bad = [k for k in x if not all(torch.equal(u, v)
+                                   for u, v in zip(x[k], y[k]))]
+    print("bitwise equal:", len(x) - len(bad), "of", len(x), "differ:", bad)
 
 
 def phase_rows_times():
@@ -8495,6 +9287,10 @@ def times_main(groups=tuple(TIME_GROUPS)):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sass"]:
         phase_sass()
+    elif sys.argv[1:2] == ["--bits"]:
+        kernel_bits(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--bits-compare"]:
+        compare_bits(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--only"]:
         for g in sys.argv[2].split(","):
             ONLY_GROUPS[g]()

@@ -54,7 +54,7 @@
 // they run together, so mostly once from memory (0.018 ms).  Above d = 256
 // partial_xwide_kernel runs them on the very-wide tile, up to d = 1024,
 // and above that partial_xchunk_kernel on the chunked tier, up to d =
-// 16384.
+// 131072.
 //
 // Every entry launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().

@@ -16,9 +16,10 @@
 //
 // Model: logp(theta) = sum_n w_n ll(z_n, y_n) - 1/2 sum_j lam_j theta_j^2
 // with z_n = x_n . theta + o_n, and grad = sum_n w_n resid(z_n, y_n) x_n -
-// lam theta; lam is a scalar, or for glm_multistep_rows a (d,) row (the
-// diagonal-metric fold of the warm-start pipeline) or a (d, d) matrix A
-// (the dense-metric fold: prior gradient theta A, glm_tile.cuh prior_grad).
+// lam theta; lam is a scalar, a (d,) row (the diagonal-metric fold of the
+// warm-start pipeline) or a (d, d) matrix A (the dense-metric fold: prior
+// gradient theta A, glm_tile.cuh prior_grad), in every kernel, as the
+// Pallas kernels take them (pallas_glm.py _lam_input).
 //
 // What bounds them on the H100: at the main-path shape (d = 10, N = 1000)
 // one gradient is d*N = 10k multiply-adds for z plus 10k for r x per chain,
@@ -55,11 +56,12 @@
 // own momentum coordinate and the chain's uniform, from Philox counted by
 // (chain, transition, draw) (glm_tile.cuh momentum, log_uniform, which the
 // multistep NUTS kernel draws through too): one Philox per lane and
-// transition beside ten tile gradients.  Kernel 3b counts by the absolute
+// transition beside ten tile gradients.  Every kernel takes each lane's
+// prior precision from the (d,) row when one is given (or, with the (d, d)
+// matrix, the lane's coordinate of theta A from its chain's lanes by
+// shuffle).  Kernel 3b counts by the absolute
 // transition i0 + t, whose Halton leap count is the same for every chain
-// of the launch, takes each lane's prior precision from the (d,) row when
-// one is given (or, with the (d, d) matrix, the lane's coordinate of theta A
-// from its chain's lanes by shuffle), and writes every transition's rows
+// of the launch, and writes every transition's rows
 // after its test: theta
 // and g one coordinate per lane, lp, accept, alpha and the leap count from
 // the chain's head lane (alpha from the MH log-ratio, the same bits in all
@@ -78,7 +80,7 @@
 // rows (4 MB) stream from L2 in tiles of 16 at every gradient: 16 chains
 // a pass over X, 16 operations a byte of L2, so the L2's bandwidth and the
 // tensor cores bound it about alike.  Above kXWideMax, up to kXChunkDMax =
-// 16384, the same body runs on glm_tile.cuh's chunked tier (hmc_xwide<MODE,
+// 131072, the same body runs on glm_tile.cuh's chunked tier (hmc_xwide<MODE,
 // true>): the proposal's theta in the slot too, each gradient two passes
 // over X in column chunks of at most 512 (xchunk_grad).  At d = 4096, N =
 // 1000 a gradient of the tile reads X twice (33 MB from L2) for 16 chains'
@@ -848,8 +850,8 @@ int plan_hmc(int mode, int d, int N, int* blocks_per_sm, int* smem,
 // once: the resident rows are staged once per block, not once per tile.
 // On the very-wide tile and the chunked tier also no more blocks than the
 // scratch of scratch_bytes holds slots for (slot_bytes each; at least one).
-// lamv, lamm: the (d,) prior row or the (d, d) prior matrix of kernel 3b,
-// or null (the scalar lam).
+// lamv, lamm: the (d,) prior row or the (d, d) prior matrix, or null (the
+// scalar lam); every mode takes them.
 int launch_hmc(int mode, const float* xt, const float* y, const float* w,
                const float* o, const float* lamv, const float* lamm, int N,
                int d, int kind,
@@ -909,7 +911,8 @@ const char* glm_error_string(int code) {
 }
 
 int glm_leapfrogs(const float* xt, const float* y, const float* w,
-                  const float* o, int N, int d, int C, const float* th_in,
+                  const float* o, const float* lamv, const float* lamm,
+                  int N, int d, int C, const float* th_in,
                   const float* m_in, const float* g_in, float* th_out,
                   float* m_out, float* g_out, float* lp_out, float eps,
                   float lam, int n_leaps, int kind, const int* sched_ops,
@@ -928,7 +931,7 @@ int glm_leapfrogs(const float* xt, const float* y, const float* w,
   a.m_out = m_out;
   a.g_out = g_out;
   a.lp_out = lp_out;
-  return launch_hmc(kTraj, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
+  return launch_hmc(kTraj, xt, y, w, o, lamv, lamm, N, d, kind, lam,
                     sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 
@@ -954,7 +957,8 @@ int glm_multistep_rows_plan(int d, int N, int* blocks_per_sm, int* smem,
 }
 
 int glm_step(const float* xt, const float* y, const float* w, const float* o,
-             int N, int d, int C, const float* th_in, const float* g_in,
+             const float* lamv, const float* lamm, int N, int d, int C,
+             const float* th_in, const float* g_in,
              const float* lp_in, const float* m0, const float* logu,
              float* th_out, float* g_out, float* lp_out, float* acc_out,
              float eps, float lam, int n_leaps, int kind,
@@ -975,12 +979,13 @@ int glm_step(const float* xt, const float* y, const float* w, const float* o,
   a.g_out = g_out;
   a.lp_out = lp_out;
   a.acc_out = acc_out;
-  return launch_hmc(kStep, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
+  return launch_hmc(kStep, xt, y, w, o, lamv, lamm, N, d, kind, lam,
                     sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 
 int glm_multistep(const float* xt, const float* y, const float* w,
-                  const float* o, int N, int d, int C, const float* th_in,
+                  const float* o, const float* lamv, const float* lamm,
+                  int N, int d, int C, const float* th_in,
                   float* th_out, float* g_out, float* lp_out, float* acc_out,
                   float eps, float lam, int n_leaps, int k_trans, int kind,
                   unsigned long long seed, const int* sched_ops,
@@ -998,7 +1003,7 @@ int glm_multistep(const float* xt, const float* y, const float* w,
   a.g_out = g_out;
   a.lp_out = lp_out;
   a.acc_out = acc_out;
-  return launch_hmc(kMulti, xt, y, w, o, nullptr, nullptr, N, d, kind, lam,
+  return launch_hmc(kMulti, xt, y, w, o, lamv, lamm, N, d, kind, lam,
                     sched_ops, sched_c, n_ops, a, scratch_bytes, stream);
 }
 

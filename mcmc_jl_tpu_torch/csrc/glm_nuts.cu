@@ -13,7 +13,7 @@
 // on the wide tile (glm_tile.cuh wide_rows), with the tree's state out of
 // shared memory, above that, up to kXWideMax = 1024, nuts_xwide_kernel on
 // the very-wide tile (glm_tile.cuh xwide_grad), with the walker out of
-// registers too, and above that, up to kXChunkDMax = 16384, the same
+// registers too, and above that, up to kXChunkDMax = 131072, the same
 // kernel on the chunked tier (glm_tile.cuh xchunk_grad), with the walker's
 // position out of shared memory as well (see their own notes).  The
 // launcher picks one from d alone.
@@ -80,12 +80,15 @@ constexpr int kMaxDoublings = 10;    // leaf uniforms: 2^md columns per chain
 constexpr float kDeltaMax = 100.f;   // divergence gate (NUTS.jl:90-95)
 
 // Philox draw numbers inside one (chain, transition) beside the momenta
-// (0 .. d/2 - 1: below 0x2000 up to d kXChunkDMax = 16384) and the slice
-// uniform (kSliceDraw; glm_tile.cuh momentum, log_uniform): five disjoint
-// ranges at every width the kernels take.
-constexpr uint32_t kDirDraw = 0x2000u;     // + doubling j
-constexpr uint32_t kMergeDraw = 0x2100u;   // + doubling j
-constexpr uint32_t kLeafDraw = 0x10000u;   // + leaf (1 << j) - 1 + k
+// (0 .. d/2 - 1, from the bottom: 0xFFFF at d kXChunkDMax = 131072) and
+// the slice uniform (kSliceDraw = 0xFFFFFFFF; glm_tile.cuh momentum,
+// log_uniform).  The tree's draws sit just below the slice's, laid out
+// apart from d: the momenta would reach them only at d 2^33, so no width
+// moves them.  Five disjoint ranges at every width up to md
+// kMaxDoublings.
+constexpr uint32_t kLeafDraw = 0xFFFE0000u;   // + leaf (1 << j) - 1 + k
+constexpr uint32_t kDirDraw = 0xFFFF0000u;    // + doubling j
+constexpr uint32_t kMergeDraw = 0xFFFF0100u;  // + doubling j
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
@@ -832,7 +835,8 @@ nuts_wide_kernel(Glm p, NutsArgs a) {
 // Every per-chain scalar comes from values that are the same bits in all
 // 32 lanes: lp from xwide_grad, |m|^2 and the dot products of the span
 // checks and the u-turn from a loop over D in passes of 32 and a butterfly
-// (xw_sum, as xw_sq), the draws from the chain's own counters; so a warp
+// (XwAcc; in double above kXSumFloatMax = 16384), the draws from
+// the chain's own counters; so a warp
 // takes every branch of its chain together.  A leaf's bookkeeping moves a
 // few rows (a copy is 2 D floats a lane's pass; at most md span checks of
 // 3 D reads), against the gradient's 4 d N multiply-adds a chain.  The
@@ -846,7 +850,10 @@ nuts_wide_kernel(Glm p, NutsArgs a) {
 // position moves to one more array of the slice, after the two stacks
 // (13 + 2 md rows a chain), which the gradient reads as thp; the rest is
 // the very-wide kernel's, line for line.  The slice is 8.7 MB a block at
-// D 4096 and md 10 (1.14 GB over 132 blocks), 34.6 MB at D 16384.
+// D 4096 and md 10 (1.14 GB over 132 blocks), 34.6 MB at D 16384 and
+// 277 MB at D 131072 (36.6 GB over 132 blocks: the launcher runs no more
+// blocks than the caller's scratch holds slices for, and the blocks take
+// the tiles from the queue, so fewer blocks give the same bits).
 enum XNutsArray { kWm = kWideFixed, kWg, kXNutsFixed };
 
 __host__ __device__ inline size_t xwide_scratch_per_block(int D, int md,
@@ -875,13 +882,35 @@ struct XRows {
   }
 };
 
-// The sum of the lanes' partials s: the full-warp butterfly, the same bits
-// in every lane.  Every lane of the warp must call it.
-__device__ __forceinline__ float xw_sum(float s) {
+// A chain's sum of products a b over its lanes' coordinates: each lane its
+// own in order, float32 or, past kXSumFloatMax (glm_tile.cuh), double,
+// then the full-warp butterfly, so every lane gets the same bits.  Every
+// lane of the warp must call sum().
+struct XwAcc {
+  bool wide;
+  float f = 0.f;
+  double x = 0.0;
+  __device__ __forceinline__ explicit XwAcc(int D)
+      : wide(D > kXSumFloatMax) {}
+  __device__ __forceinline__ void add(float a, float b) {
+    if (wide)
+      x = fma((double)a, (double)b, x);
+    else
+      f = fmaf(a, b, f);
+  }
+  __device__ __forceinline__ float sum() const {
+    if (wide) {
+      double s = x;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      return (float)s;
+    }
+    float s = f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  }
+};
 
 // Doubling T.j starts from the edge its direction points to (NUTS.jl:150):
 // the walker (wp, the momentum and gradient rows) loads it, and the
@@ -923,10 +952,10 @@ __device__ __forceinline__ void xw_start_tree(WideTree& T, const NutsArgs& a,
   const float *m = S(kWm), *th = S(kTh), *g = S(kG);
   float *ep0 = S(kEp0), *ep1 = S(kEp1), *em0 = S(kEm0), *em1 = S(kEm1);
   float *eg0 = S(kEg0), *eg1 = S(kEg1);
-  float s = 0.f;
+  XwAcc s(S.D);
   for (int j = threadIdx.x & 31; j < S.D; j += 32) {
     const float mj = m[j], tj = th[j], gj = g[j];
-    s = fmaf(mj, mj, s);
+    s.add(mj, mj);
     ep0[j] = tj;
     ep1[j] = tj;
     em0[j] = mj;
@@ -934,7 +963,7 @@ __device__ __forceinline__ void xw_start_tree(WideTree& T, const NutsArgs& a,
     eg0[j] = gj;
     eg1[j] = gj;
   }
-  T.H0 = -T.lp + 0.5f * xw_sum(s);
+  T.H0 = -T.lp + 0.5f * s.sum();
   T.u_slice = a.multinomial ? -T.H0 : logu - T.H0;  // NUTS.jl:141
   T.elp0 = T.elp1 = T.lp;
   T.ntot = 1.f;  // the initial point, weight exp(H0 - H0)
@@ -1025,13 +1054,13 @@ nuts_xwide_kernel(Glm p, NutsArgs a) {
       if (!T.run) continue;  // the warp's chain: uniform
 
       T.wlp = lp;
-      float s = 0.f;
+      XwAcc s(D);
       for (int j = lane; j < D; j += 32) {
         const float m = wm[j] + 0.5f * es * wg[j];
         wm[j] = m;
-        s = fmaf(m, m, s);
+        s.add(m, m);
       }
-      float H = -T.wlp + 0.5f * xw_sum(s);
+      float H = -T.wlp + 0.5f * s.sum();
       if (isnan(H)) H = CUDART_INF_F;
       const bool diverged = T.u_slice >= kDeltaMax - H;  // NUTS.jl:92
       // reservoir draw, indexed by the transition-global leaf number
@@ -1067,13 +1096,13 @@ nuts_xwide_kernel(Glm p, NutsArgs a) {
         const int hi = __popc(T.k >> 1);
         for (int sl = hi - (__ffs(~T.k) - 1) + 1; sl <= hi; ++sl) {
           const float *cp = S.ckp(sl), *cm = S.ckm(sl, a.md);
-          float da = 0.f, db = 0.f;
+          XwAcc da(D), db(D);
           for (int j = lane; j < D; j += 32) {
             const float dl = T.dirn * (wp[j] - cp[j]);
-            da = fmaf(dl, cm[j], da);
-            db = fmaf(dl, wm[j], db);
+            da.add(dl, cm[j]);
+            db.add(dl, wm[j]);
           }
-          if (xw_sum(da) < 0.f || xw_sum(db) < 0.f) T.ok = false;
+          if (da.sum() < 0.f || db.sum() < 0.f) T.ok = false;
         }
       }
       ++T.k;
@@ -1089,15 +1118,15 @@ nuts_xwide_kernel(Glm p, NutsArgs a) {
       float* eg = S(plus ? kEg1 : kEg0);
       const float* op = S(plus ? kEp0 : kEp1);
       const float* om = S(plus ? kEm0 : kEm1);
-      float ua = 0.f, ub = 0.f;
+      XwAcc ua(D), ub(D);
       for (int j = lane; j < D; j += 32) {
         const float pj = wp[j], mj = wm[j], oj = op[j], omj = om[j];
         ep[j] = pj;
         em[j] = mj;
         eg[j] = wg[j];
         const float dp = plus ? pj - oj : oj - pj;
-        ua = fmaf(dp, plus ? omj : mj, ua);
-        ub = fmaf(dp, plus ? mj : omj, ub);
+        ua.add(dp, plus ? omj : mj);
+        ub.add(dp, plus ? mj : omj);
       }
       (plus ? T.elp1 : T.elp0) = T.wlp;
       const float u = merge_u<MS>(a, c, T.t, T.j);
@@ -1114,7 +1143,7 @@ nuts_xwide_kernel(Glm p, NutsArgs a) {
         T.lp = T.slp;
       }
       T.ntot += T.n1;
-      const bool turned = xw_sum(ua) < 0.f || xw_sum(ub) < 0.f;
+      const bool turned = ua.sum() < 0.f || ub.sum() < 0.f;
       T.nd += 1;
       T.dv = T.dv || T.sdv;
       ++T.j;
@@ -1238,8 +1267,9 @@ cudaError_t sm_count(int* sms) {
 }
 
 // Launch the kernel of bound D: persistent blocks, as many as fit at once
-// (and, above the narrow tile, the scratch buffer of scratch_bytes must
-// hold a slice for each).
+// and, above the narrow tile, no more than the scratch of scratch_bytes
+// holds slices for (nuts_scratch_per_block each; at least one).  The
+// blocks take the tiles from the queue, so their number changes no bit.
 template <bool MS>
 int launch_nuts(const float* xt, const float* y, const float* w,
                 const float* o, const float* lamv, const float* lamm, int N,
@@ -1256,11 +1286,14 @@ int launch_nuts(const float* xt, const float* y, const float* w,
   cudaError_t e = sm_count(&sms);
   if (e == cudaSuccess) e = nuts_occupancy<MS>(D, tp, &per_sm);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = min(tiles, sms * max(per_sm, 1));
-  if (D > kNarrowMax &&
-      (!a.scratch || (size_t)scratch_bytes <
-                         blocks * nuts_scratch_per_block(D, a.md)))
-    return (int)cudaErrorInvalidValue;
+  int blocks = min(tiles, sms * max(per_sm, 1));
+  if (D > kNarrowMax) {
+    const long long slices =
+        a.scratch ? scratch_bytes / (long long)nuts_scratch_per_block(D, a.md)
+                  : 0;
+    if (slices < 1) return (int)cudaErrorInvalidValue;
+    if (slices < blocks) blocks = (int)slices;
+  }
   nuts_kernel_for<MS>(D)<<<blocks, kTrajThreads, tp.smem,
                            (cudaStream_t)stream>>>(p, a);
   return (int)cudaGetLastError();
@@ -1273,6 +1306,16 @@ extern "C" {
 int nuts_max_doublings() { return kMaxDoublings; }
 
 int nuts_max_dim() { return kXChunkDMax; }
+
+// Bytes of one block's slice of the tree's scratch at (d, md): 0 on the
+// narrow tile, which keeps the tree in shared memory; -1 where no tile
+// takes d or md.  A launch needs one slice at least and runs no more
+// blocks than its scratch holds slices for.
+long long glm_nuts_slice_bytes(int d, int md) {
+  const int D = glm_bound_for(d);
+  if (!D || md < 1 || md > kMaxDoublings) return -1;
+  return (long long)nuts_scratch_per_block(D, md);
+}
 
 const char* nuts_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -1352,9 +1395,10 @@ int glm_nuts_multistep(const float* xt, const float* y, const float* w,
 
 // How the kernels run at (d, N, md): blocks of kernel 8 resident per SM
 // (from the occupancy calculator), dynamic shared memory per block, whether
-// all rows stay resident, and the bytes of scratch a launch of either
-// kernel needs on this device at most (0 on the narrow tile).  Returns a
-// CUDA error code.
+// all rows stay resident, and the bytes of scratch that lets a launch of
+// either kernel run every block it can hold at once on this device (0 on
+// the narrow tile; a smaller scratch runs fewer blocks).  Returns a CUDA
+// error code.
 int glm_nuts_plan(int d, int N, int md, int* blocks_per_sm, int* smem,
                   int* resident, long long* scratch_bytes) {
   const int D = glm_bound_for(d);

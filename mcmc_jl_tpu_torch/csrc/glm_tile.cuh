@@ -1551,10 +1551,31 @@ __device__ __forceinline__ void xw_copy(float* dst, const float* src, int D) {
   for (int j = threadIdx.x & 31; j < D; j += 32) dst[j] = src[j];
 }
 
+// Above kXSumFloatMax parameters a chain's sums over its coordinates (|m|^2
+// in H, the NUTS span and u-turn dot products) are carried in double: D /
+// 32 float32 terms a lane, summed in order, drift by about 1e-2 of H at d
+// 32768 and 3e-2 at 131072, ten times the plain version's blocked sum,
+// enough to part a percent of the chains' accept, slice and u-turn
+// decisions from it.  Up to it they stay float32, with the bits they had.
+constexpr int kXSumFloatMax = 16384;
+
+// |v|^2 of a chain's row in double, then the full-warp butterfly: xw_sq
+// past kXSumFloatMax, out of line (every very-wide HMC instantiation calls
+// it, and inlined its double path slowed their build).
+__device__ __noinline__ float xw_sq_wide(const float* v, int D) {
+  double s = 0.0;
+  for (int j = threadIdx.x & 31; j < D; j += 32)
+    s = fma((double)v[j], (double)v[j], s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return (float)s;
+}
+
 // |v|^2 of a chain's row: the lane's coordinates in order, then the
-// full-warp butterfly, so every lane gets the same bits.  Every lane of the
-// warp must call it.
+// full-warp butterfly, so every lane gets the same bits (in double past
+// kXSumFloatMax).  Every lane of the warp must call it.
 __device__ __forceinline__ float xw_sq(const float* v, int D) {
+  if (D > kXSumFloatMax) return xw_sq_wide(v, D);
   float s = 0.f;
   for (int j = threadIdx.x & 31; j < D; j += 32) s = fmaf(v[j], v[j], s);
 #pragma unroll
@@ -1601,10 +1622,14 @@ __device__ __forceinline__ float xw_sq(const float* v, int D) {
 // theta, or Theta A on the tensor cores with Theta's fragments read from
 // the slot).  Shared memory at DC 512: sth 33 KB, zbuf 8 KB, zres 32 KB, two
 // buffers of 32 rows 130 KB: 204 KB, one block an SM.  Nothing depends on
-// d but the slot (320 D bytes a block) and the loops' trip counts.
+// d but the slot (320 D bytes a block: 42 MB at D 131072) and the loops'
+// trip counts.  kXChunkDMax is 2^17, the width at which the Pallas
+// kernels' VMEM still holds the design of a small-N GLM (N about 190);
+// every index that can pass 2^31 (a chain row of a (C, d) array, a block's
+// slot, a (d, d) matrix's row, a column of X) is a size_t.
 constexpr int kXChunk = 512;         // columns of a chunk, at most
 constexpr int kXBlockRows = 512;     // rows whose Z, then R, stay in zres
-constexpr int kXChunkDMax = 16384;   // the chunked tier's bound
+constexpr int kXChunkDMax = 131072;  // the chunked tier's bound: 2^17
 constexpr int kXChunkArrays = 5;     // theta, g, m, g', theta': slot rows
 constexpr int kXChunkUnits = kXChunk / 8 / kTrajWarps;  // stage-2 n-blocks
 

@@ -35,17 +35,44 @@ def count(counts, name):
         counts[name] += 1
 
 
-def scratch_buffer(cache, key, nbytes, device):
+def free_bytes(device):
+    """Bytes the card of ``device`` can still give: the driver's free memory
+    and what PyTorch's allocator holds unused; None off the card."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def scratch_buffer(cache, key, nbytes, device, slice_bytes):
     """(buffer, bytes) of a kernel's scratch in device memory: one float32
     buffer for each ``key`` of ``cache``, allocated once and grown when a
-    launch needs more than it holds (the kernels check the size they are
-    given)."""
+    launch needs more than it holds.  The kernels run no more blocks than
+    the buffer holds slices of ``slice_bytes`` for (they check the size they
+    are given), so a growth takes whole slices, at most half of what the
+    card can give besides the buffer itself (the run's own arrays need the
+    rest) and one slice at least; the old buffer goes before the new one is
+    made."""
     import torch
 
     buf = cache.get(key)
-    if buf is None or 4 * buf.numel() < nbytes:
-        buf = cache[key] = torch.empty(-(-nbytes // 4), dtype=torch.float32,
-                                       device=device)
+    have = 0 if buf is None else 4 * buf.numel()
+    if have >= nbytes:
+        return buf, have
+    free = free_bytes(device)
+    if free is not None:
+        fit = (free + have) // 2 // slice_bytes * slice_bytes
+        nbytes = max(min(nbytes, fit), slice_bytes)
+        if have >= nbytes:
+            return buf, have
+    cache.pop(key, None)
+    del buf
+    buf = cache[key] = torch.empty(-(-nbytes // 4), dtype=torch.float32,
+                                   device=device)
     return buf, 4 * buf.numel()
 
 

@@ -30,7 +30,8 @@ chunked tier above ``glm_kernels.XWIDE_D_MAX``, which walks d in column
 chunks (``glm_logp_grad_tiled_chunked``, ``_mat_chunked``).  The per-split
 double partials take ``splits x C x (d + 1)`` doubles, and the grid keeps
 ``splits x ceil(C / 16)`` at most :data:`SPLIT_CTAS_WIDE`: at d 8192 at
-most 264 x 16 x 8193 doubles, 277 MB.
+most 264 x 16 x 8193 doubles, 277 MB, and 4.4 GB at d 131072.  The kernel
+keeps no scratch of its own, so its width needs no block cap.
 """
 from __future__ import annotations
 

@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from .glm_kernels import (_draw, accept_test, glm_funcs, glm_leapfrogs,
-                          glm_multistep, glm_step)
+from .glm_kernels import (_draw, _prior, accept_test, glm_funcs,
+                          glm_leapfrogs, glm_multistep, glm_step)
 
 
 def _run(XT, Y, theta0, eps, generator, *, steps, n_leaps, kind="logistic",
@@ -114,6 +114,15 @@ def _prepare(X, Y, n_chains, seed, generator, inits, device, weights,
     return XT, f32(Y), theta0, gen, f32(weights), f32(offsets)
 
 
+def _lam(prior_prec, XT):
+    """The prior precision as the kernels take it: a float, or a (d,) row or
+    a (d, d) matrix in float32 on the design's device."""
+    lam = _prior(prior_prec)
+    if isinstance(lam, float):
+        return lam
+    return lam.to(device=XT.device, dtype=torch.float32).contiguous()
+
+
 def run_glm_hmc(X, Y, n_chains, steps, n_leaps=10, eps=0.05, seed=0,
                 generator=None, inits=None, device=None, kind="logistic",
                 weights=None, offsets=None, prior_prec=1.0,
@@ -121,13 +130,15 @@ def run_glm_hmc(X, Y, n_chains, steps, n_leaps=10, eps=0.05, seed=0,
     """Sample a GLM posterior with the fused kernels.
 
     ``X`` (N, d), ``Y`` (N,); ``weights``/``offsets`` optional (N,);
-    ``prior_prec`` is the N(0, 1/lam I) prior precision.
+    ``prior_prec`` is the prior precision, as the kernels take it: a scalar
+    lam (the prior N(0, 1/lam I)), a (d,) row or a symmetric (d, d) matrix
+    A (the prior N(0, A^-1)).
     Returns (theta (C, d), infos {plogtarget, accept} stacked over steps)."""
     XT, Y2, theta0, gen, W, O = _prepare(X, Y, n_chains, seed, generator,
                                          inits, device, weights, offsets)
     (theta, _, _), infos = _run(
         XT, Y2, theta0, float(eps), gen, steps=steps, n_leaps=n_leaps,
-        kind=kind, W=W, O=O, lam=float(prior_prec), integrator=integrator,
+        kind=kind, W=W, O=O, lam=_lam(prior_prec, XT), integrator=integrator,
         fused_step=_choose_fused_step(fused_step))
     return theta, infos
 
@@ -139,7 +150,8 @@ def run_glm_hmc_multistep(X, Y, n_chains, steps, thin=10, n_leaps=10,
                           integrator="leapfrog", collect=False):
     """Sample a GLM posterior with the multi-transition kernel: ``steps``
     transitions as ``steps // thin`` launches of ``thin``; infos carry one
-    row per launch (thinned chain)."""
+    row per launch (thinned chain).  ``prior_prec`` as in
+    :func:`run_glm_hmc`."""
     if steps % thin != 0:
         raise ValueError("steps must be divisible by thin")
     XT, Y2, theta0, gen, W, O = _prepare(X, Y, n_chains, seed, generator,
@@ -147,7 +159,7 @@ def run_glm_hmc_multistep(X, Y, n_chains, steps, thin=10, n_leaps=10,
     return _run_multistep(
         XT, Y2, theta0, float(eps), gen, n_launches=steps // thin,
         k_trans=thin, n_leaps=n_leaps, kind=kind, W=W, O=O,
-        lam=float(prior_prec), integrator=integrator, collect=collect)
+        lam=_lam(prior_prec, XT), integrator=integrator, collect=collect)
 
 
 def run_glm_hmc_sharded(X, Y, n_chains, steps, mesh=None, axis="chains",

@@ -26,13 +26,15 @@ that its plain version can take them.
 
 Layouts follow the JAX package at the public functions, minus its TPU
 padding: the transposed design ``XT`` is (d, N), ``Y``/weights/offsets are
-(N,) or (1, N), chain states are unpadded (C, d).  The prior is N(0, 1/lam I)
-with a scalar ``lam``; :func:`glm_multistep_rows` also takes a (d,) row (the
-diagonal-metric fold) or a symmetric (d, d) precision matrix ``A`` (the
-dense-metric fold ``lam L' L``: prior gradient ``-theta A``, prior term
-``-1/2 theta' A theta``).  A launch with a matrix counts under
-``<name>_mat`` in ``LAUNCHES``.  The kernels take the four built-in links;
-the plain versions also take a custom ``(ll, resid)`` pair.
+(N,) or (1, N), chain states are unpadded (C, d).  The prior precision is,
+in every kernel as in the Pallas kernels (``pallas_glm.py _lam_input``), a
+scalar ``lam`` (the prior N(0, 1/lam I)), a (d,) row (the diagonal-metric
+fold) or a symmetric (d, d) precision matrix ``A`` (the dense-metric fold
+``lam L' L``: prior gradient ``-theta A``, prior term ``-1/2 theta' A
+theta``).  A launch with a row counts under the kernel's own name, one with
+a matrix under ``<name>_mat`` in ``LAUNCHES``.  The kernels take the four
+built-in links; the plain versions also take a custom ``(ll, resid)``
+pair.
 
 The kernels take d up to :data:`D_MAX`: up to :data:`NARROW_D_MAX` on the
 narrow chain tile (one thread a coordinate), up to :data:`WIDE_D_MAX` on the
@@ -46,13 +48,19 @@ with a matrix), one on the very-wide tile under ``<name>_xwide``
 (``<name>_mat_xwide``), one on the chunked tier under ``<name>_chunked``
 (``<name>_mat_chunked``), so a run shows which tile it went through.
 
-:data:`D_MAX` is 16384, a constant although nothing in the chunked tier
-depends on d but memory and indexing (its shared memory and registers are
-sized by the 512-column chunk; every index that can pass 2^31 is a
-``size_t``): it is the widest d at which the kernels are held against
-their plain versions on the card.  At d 8192 a block's slot is 5 x 16 x
-8192 float32 = 2.6 MB, 346 MB for the 132 blocks of an H100; the exact-NUTS
-kernels (8, 9) take the same bound (``nuts_kernels.NUTS_D_MAX``).
+:data:`D_MAX` is 2^17 = 131072, the width at which the Pallas kernels'
+100 MiB of VMEM still holds the design of a small-N GLM (N about 190).
+Nothing in the chunked tier depends on d but memory and indexing (its
+shared memory and registers are sized by the 512-column chunk; every index
+that can pass 2^31 is a ``size_t``).  A block's slot is 5 x 16 x D float32
+(:func:`slot_bytes`: 2.6 MB at d 8192, 42 MB at d 131072); the kernel runs
+no more blocks than its scratch holds slots for, and :func:`_slots` grows
+that scratch to at most half of what the card can give
+(``cuda_build.scratch_buffer``), so at the widest d fewer blocks walk the
+tiles in turn, with the same bits.  The exact-NUTS kernels (8, 9) take the
+same bound (``nuts_kernels.NUTS_D_MAX``).  :func:`memory_reason` says when
+not even one block's scratch and the chain state fit; the route then
+takes the generic engine.
 """
 from __future__ import annotations
 
@@ -70,7 +78,7 @@ from .cuda_build import count, scratch_buffer
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
 #: kernel (4) take (csrc/glm_tile.cuh kXChunkDMax: the chunked tier's bound)
-D_MAX = 16384
+D_MAX = 131072
 #: largest parameter count of the very-wide tile (csrc/glm_tile.cuh
 #: kXWideMax); above it the chunked tier
 XWIDE_D_MAX = 1024
@@ -86,13 +94,16 @@ WIDE_D_MAX = 256
 SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
-#: launches of the Halton multistep kernel with a (d, d) prior, and launches
-#: on the wide tile (d > NARROW_D_MAX), the very-wide tile (d >
-#: WIDE_D_MAX) and the chunked tier (d > XWIDE_D_MAX), counted apart
+#: float32 arrays of a (C, d) chain state that a launch holds besides its
+#: scratch (theta, momentum and gradient in and out, and one transition's
+#: rows of theta and gradient): :func:`memory_reason`'s chain state
+CHAIN_ARRAYS = 8
+#: launches with a (d, d) prior, and launches on the wide tile (d >
+#: NARROW_D_MAX), the very-wide tile (d > WIDE_D_MAX) and the chunked tier
+#: (d > XWIDE_D_MAX), counted apart
 LAUNCHES = dict.fromkeys(
-    _NAMES + ("glm_multistep_rows_mat",)
-    + tuple(n + t for t in ("_wide", "_xwide", "_chunked")
-            for n in _NAMES + ("glm_multistep_rows_mat",)), 0)
+    (n + v + t for t in ("", "_wide", "_xwide", "_chunked")
+     for n in _NAMES for v in ("", "_mat")), 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
@@ -146,18 +157,6 @@ def link_terms(kind):
 
         return _ll, _resid
     raise ValueError(f"unknown GLM link {kind!r}")
-
-
-def _scalar_prior(prior_prec):
-    """The scalar prior of kernels 1, 2 and 3: the warm pipeline's metric
-    folds run kernels 3b, 4 and 8-9, so these take none."""
-    if isinstance(prior_prec, torch.Tensor) and prior_prec.numel() != 1:
-        raise NotImplementedError(
-            "kernels 1, 2 and 3 take a scalar prior precision; the row and "
-            "matrix priors of the metric folds run on the Halton multistep, "
-            "tiled and NUTS kernels (ROADMAP: matrix prior on kernels "
-            "1-3)")
-    return float(prior_prec)
 
 
 def _is_mat(prior_prec):
@@ -272,7 +271,7 @@ def glm_leapfrogs_ref(XT, Y, theta, m, grad, eps, *, n_leaps=10,
     """Plain version of :func:`glm_leapfrogs`."""
     PLAIN_CALLS["glm_leapfrogs"] += 1
     grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
-                                     _scalar_prior(prior_prec), kind)
+                                     _prior(prior_prec), kind)
     return _trajectory(theta, m, grad, eps, grad_only, logp_grad, n_leaps,
                        integrator)
 
@@ -283,7 +282,7 @@ def glm_step_ref(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
     """Plain version of :func:`glm_step`."""
     PLAIN_CALLS["glm_step"] += 1
     grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
-                                     _scalar_prior(prior_prec), kind)
+                                     _prior(prior_prec), kind)
     lp0, logu = lp.reshape(-1), logu.reshape(-1)
     h0 = -lp0 + 0.5 * (m0 * m0).sum(-1)
     th, m, g, lp1 = _trajectory(theta, m0, grad, eps, grad_only, logp_grad,
@@ -306,7 +305,7 @@ def glm_multistep_ref(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
     Returns (theta, grad, lp (C,), accept rate (C,))."""
     PLAIN_CALLS["glm_multistep"] += 1
     grad_only, logp_grad = glm_funcs(XT, Y, weights, offsets,
-                                     _scalar_prior(prior_prec), kind)
+                                     _prior(prior_prec), kind)
     lp, g = logp_grad(theta)
     n_acc = torch.zeros_like(lp)
     for t in range(k_trans):
@@ -421,10 +420,10 @@ _LL = ctypes.c_longlong
 _SCHED = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _I,
           _P, _LL, _P]
 _ARGTYPES = {
-    "glm_leapfrogs": [_P] * 4 + [_I] * 3 + [_P] * 7 + [_F, _F, _I, _I]
+    "glm_leapfrogs": [_P] * 6 + [_I] * 3 + [_P] * 7 + [_F, _F, _I, _I]
     + _SCHED,
-    "glm_step": [_P] * 4 + [_I] * 3 + [_P] * 9 + [_F, _F, _I, _I] + _SCHED,
-    "glm_multistep": [_P] * 4 + [_I] * 3 + [_P] * 5 + [_F, _F, _I, _I, _I,
+    "glm_step": [_P] * 6 + [_I] * 3 + [_P] * 9 + [_F, _F, _I, _I] + _SCHED,
+    "glm_multistep": [_P] * 6 + [_I] * 3 + [_P] * 5 + [_F, _F, _I, _I, _I,
                                                        ctypes.c_ulonglong]
     + _SCHED,
     "glm_multistep_rows": [_P] * 6 + [_I] * 3 + [_P] * 10 + [_F] * 3
@@ -449,30 +448,69 @@ def load_kernels():
         lib.glm_slot_bytes.restype = _LL
         if lib.glm_max_dim() != D_MAX:
             raise RuntimeError("csrc/glm_hmc.cu and glm_kernels.D_MAX disagree")
+        if any(lib.glm_slot_bytes(d) != slot_bytes(d)
+               for d in (WIDE_D_MAX, 300, XWIDE_D_MAX, 1025, D_MAX)):
+            raise RuntimeError("csrc/glm_hmc.cu and glm_kernels.slot_bytes "
+                               "disagree")
         lib._bound = True
     return lib
+
+
+def slot_bytes(d):
+    """Bytes of one block's slot of kernels 1, 2, 3 and 3b at d
+    (csrc/glm_hmc.cu glm_slot_bytes, which :func:`load_kernels` holds it
+    to): theta, g, m and the proposal's g, 4 x 16 x D float32, on the
+    very-wide tile (xwide_slot_bytes), and the proposal's theta too, 5 x 16 x
+    D, on the chunked tier (xchunk_slot_bytes); 0 at d <= WIDE_D_MAX, where
+    the chain state stays in registers."""
+    if d <= WIDE_D_MAX:
+        return 0
+    return 4 * 16 * _padded(d) * (5 if d > XWIDE_D_MAX else 4)
+
+
+def memory_reason(slice_bytes, d, C, free):
+    """Why a launch at d on C chains cannot run in ``free`` bytes of device
+    memory: one block's scratch ``slice_bytes`` (:func:`slot_bytes`, or the
+    NUTS kernels' ``nuts_kernels.slice_bytes``) and the chain state
+    (:data:`CHAIN_ARRAYS` float32 (C, d) arrays) must fit, else None.  A
+    scratch of fewer slices than blocks only runs fewer blocks at once."""
+    state = 4 * CHAIN_ARRAYS * C * d
+    if free is None or slice_bytes + state <= free:
+        return None
+    return (f"one block's scratch ({slice_bytes} bytes) and the chain state "
+            f"of {C} chains at d = {d} ({state} bytes) need "
+            f"{slice_bytes + state} bytes, more than the {free} bytes free "
+            f"on the card (ROADMAP: GLMs wider than the card's memory)")
 
 
 _SLOTS = {}
 
 
+def _stream_key(dev):
+    """The scratch buffers' key: (device, its current stream).  Launches on
+    one stream run in turn, so its kernels share one buffer."""
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _slots(dev, d, C):
-    """(buffer, bytes) of the very-wide tile's chain state for C chains of d
-    parameters on ``dev``'s current stream: one slot of theta, g, m and the
-    proposal's g (4 x 16 x D float32, csrc/glm_tile.cuh xwide_slot_bytes;
-    on the chunked tier also the proposal's theta, 5 x 16 x D,
-    xchunk_slot_bytes: 2.6 MB at d 8192) for each block a launch runs at
-    once, at most one an SM (the tiles' plans take more than half an SM's
-    shared memory).  One buffer for each (device, stream, D), allocated once
-    and grown when a launch needs more; the kernel runs no more blocks than
-    it holds slots for.  (None, 0) at d <= WIDE_D_MAX, where the chain state
-    stays in registers."""
-    if d <= WIDE_D_MAX:
+    """(buffer, bytes) of the very-wide tile's and the chunked tier's chain
+    state for C chains of d parameters on ``dev``'s current stream: a slot
+    of :func:`slot_bytes` for each block a launch runs at once, at most one
+    an SM (the tiles' plans take more than half an SM's shared memory).  One
+    buffer for each (device, stream), whatever d, allocated once and grown
+    when a launch needs more, to at most half of what the card can give and
+    one slot at least (``cuda_build.scratch_buffer``); the kernel runs no
+    more blocks than it holds slots for.  (None, 0) at d <= WIDE_D_MAX,
+    where the chain state stays in registers."""
+    per = slot_bytes(d)
+    if not per:
         return None, 0
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    need = load_kernels().glm_slot_bytes(d) * min(-(-C // 16), sms)
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream, (d + 31) // 32)
-    return scratch_buffer(_SLOTS, key, need, dev)
+    need = per * min(-(-C // 16), _sm_count(dev))
+    return scratch_buffer(_SLOTS, _stream_key(dev), need, dev, per)
 
 
 @functools.cache
@@ -592,17 +630,18 @@ def glm_leapfrogs(XT, Y, theta, m, grad, eps, *, n_leaps=10, kind="logistic",
         return glm_leapfrogs_ref(XT, Y, theta, m, grad, eps, n_leaps=n_leaps,
                                  kind=kind, weights=weights, offsets=offsets,
                                  prior_prec=prior_prec, integrator=integrator)
-    N, d, C, W, O = _check("glm_leapfrogs", XT, Y, weights, offsets, kind,
+    name = "glm_leapfrogs"
+    N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "m": m, "grad": grad})
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     th_o, m_o, g_o = (torch.empty_like(theta) for _ in range(3))
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch("glm_leapfrogs", d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W),
-                _ptr(O), N, d, C, _ptr(theta), _ptr(m), _ptr(grad),
-                _ptr(th_o), _ptr(m_o), _ptr(g_o), _ptr(lp_o), float(eps),
-                _scalar_prior(prior_prec), int(n_leaps), KIND_CODES[kind],
-                *_sched(integrator),
-                counted=_counted("glm_leapfrogs", None, d))
+        _launch(name, d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(m),
+                _ptr(grad), _ptr(th_o), _ptr(m_o), _ptr(g_o), _ptr(lp_o),
+                float(eps), lam, int(n_leaps), KIND_CODES[kind],
+                *_sched(integrator), counted=_counted(name, lamm, d))
     return th_o, m_o, g_o, lp_o
 
 
@@ -618,21 +657,22 @@ def glm_step(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
                             n_leaps=n_leaps, kind=kind, weights=weights,
                             offsets=offsets, prior_prec=prior_prec,
                             integrator=integrator)
+    name = "glm_step"
     lp, logu = lp.reshape(-1), logu.reshape(-1)
-    N, d, C, W, O = _check("glm_step", XT, Y, weights, offsets, kind,
+    N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta, "grad": grad, "m0": m0},
                            {"lp": lp, "logu": logu})
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, 1, dtype=theta.dtype, device=theta.device)
     acc_o = torch.empty(C, 1, dtype=theta.dtype, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch("glm_step", d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W),
-                _ptr(O), N, d, C, _ptr(theta), _ptr(grad), _ptr(lp),
-                _ptr(m0), _ptr(logu), _ptr(th_o), _ptr(g_o), _ptr(lp_o),
-                _ptr(acc_o),
-                float(eps), _scalar_prior(prior_prec), int(n_leaps),
+        _launch(name, d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(grad),
+                _ptr(lp), _ptr(m0), _ptr(logu), _ptr(th_o), _ptr(g_o),
+                _ptr(lp_o), _ptr(acc_o), float(eps), lam, int(n_leaps),
                 KIND_CODES[kind], *_sched(integrator),
-                counted=_counted("glm_step", None, d))
+                counted=_counted(name, lamm, d))
     return th_o, g_o, lp_o, acc_o
 
 
@@ -650,19 +690,20 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
                                  n_leaps=n_leaps, generator=generator,
                                  kind=kind, weights=weights, offsets=offsets,
                                  prior_prec=prior_prec, integrator=integrator)
-    N, d, C, W, O = _check("glm_multistep", XT, Y, weights, offsets, kind,
+    name = "glm_multistep"
+    N, d, C, W, O = _check(name, XT, Y, weights, offsets, kind,
                            {"theta": theta})
+    lam, lamv, lamm = _prior_args(name, prior_prec, d, theta.device)
     seed = _seed(generator)
     th_o, g_o = torch.empty_like(theta), torch.empty_like(theta)
     lp_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     acc_o = torch.empty(C, dtype=theta.dtype, device=theta.device)
     with torch.cuda.device(theta.device):
-        _launch("glm_multistep", d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W),
-                _ptr(O), N, d, C, _ptr(theta), _ptr(th_o), _ptr(g_o),
-                _ptr(lp_o), _ptr(acc_o), float(eps), _scalar_prior(prior_prec),
+        _launch(name, d, C, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
+                _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(th_o),
+                _ptr(g_o), _ptr(lp_o), _ptr(acc_o), float(eps), lam,
                 int(n_leaps), int(k_trans), KIND_CODES[kind], int(seed),
-                *_sched(integrator),
-                counted=_counted("glm_multistep", None, d))
+                *_sched(integrator), counted=_counted(name, lamm, d))
     return th_o, g_o, lp_o, acc_o
 
 

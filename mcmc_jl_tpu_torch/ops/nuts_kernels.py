@@ -45,9 +45,11 @@ tile up to ``XWIDE_D_MAX``, counted as ``<name>_xwide`` (and
 in column chunks of at most 512, counted as ``<name>_chunked`` (and
 ``<name>_mat_chunked``).  The kernels above the narrow tile keep the
 tree's state (on the very-wide tile the walker's momentum and gradient
-too, on the chunked tier its position as well) in a scratch buffer that
-:func:`_scratch` allocates once for each device, stream, padded width and
-depth.
+too, on the chunked tier its position as well) in a scratch buffer, a
+slice of :func:`slice_bytes` a block, that :func:`_scratch` allocates once
+for each device and stream and grows to at most half of what the card can
+give; a launch runs no more blocks than the buffer holds slices for (277
+MB a block at d 131072 and md 10).
 On a catalog target the frozen diagonal metric rides the step instead, as a
 (d,) row ``eps * s``, and a dense one is the factor of a
 :class:`~..models.distributions.DenseTarget`, whose launches count as
@@ -71,17 +73,18 @@ import torch
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
 from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
-                          _arange_for, _check, _counted, _device_branch,
-                          _padded, _prior, _prior_args, _ptr, _row,
-                          glm_funcs, glm_multistep_draws)
+                          WIDE_D_MAX, XWIDE_D_MAX, _arange_for, _check,
+                          _counted, _device_branch, _padded, _prior,
+                          _prior_args, _ptr, _row, _stream_key, glm_funcs,
+                          glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
 from .cuda_build import count, scratch_buffer
 
 #: largest parameter count of the GLM NUTS kernels (8, 9): the chunked
-#: tier's bound glm_kernels.D_MAX, as the HMC kernels' (csrc/glm_nuts.cu
-#: nuts_max_dim, csrc/glm_tile.cuh kXChunkDMax)
+#: tier's bound glm_kernels.D_MAX = 131072, as the HMC kernels' (csrc/
+#: glm_nuts.cu nuts_max_dim, csrc/glm_tile.cuh kXChunkDMax)
 NUTS_D_MAX = D_MAX
 #: deepest tree the kernels build (csrc/glm_nuts.cu kMaxDoublings): the leaf
 #: buffer has 2^maxdoublings columns per chain
@@ -91,13 +94,15 @@ MAX_DOUBLINGS = 10
 LANE_D_MAX = 32
 #: Philox draw numbers of one (chain, transition) in
 #: :func:`glm_nuts_multistep` (csrc/glm_nuts.cu): the momenta take
-#: 0 .. d/2 - 1 (two normals a draw; below 0x2000 up to NUTS_D_MAX) and the
-#: slice uniform ``SLICE_DRAW``, as in
-#: :func:`.glm_kernels.glm_multistep_draws`; doubling j's direction and
-#: merge uniform ``DIR_DRAW + j`` and ``MERGE_DRAW + j``; leaf
-#: ``(1 << j) - 1 + k`` ``LEAF_DRAW`` plus that: five disjoint ranges at
-#: every d the kernels take
-DIR_DRAW, MERGE_DRAW, LEAF_DRAW = 0x2000, 0x2100, 0x10000
+#: 0 .. d/2 - 1 (two normals a draw; up to 0xFFFF at NUTS_D_MAX) and the
+#: slice uniform ``SLICE_DRAW`` = 0xFFFFFFFF, as in
+#: :func:`.glm_kernels.glm_multistep_draws`; the tree's draws lie just
+#: below the slice's, apart from d (the momenta would reach them at d
+#: 2^33): leaf ``(1 << j) - 1 + k`` of doubling j ``LEAF_DRAW`` plus that,
+#: doubling j's direction and merge uniform ``DIR_DRAW + j`` and
+#: ``MERGE_DRAW + j``; five disjoint ranges at every d and md the kernels
+#: take
+LEAF_DRAW, DIR_DRAW, MERGE_DRAW = 0xFFFE0000, 0xFFFF0000, 0xFFFF0100
 
 _NAMES = ("glm_nuts_transition", "glm_nuts_multistep",
           "target_nuts_transition", "target_nuts_transition_dense")
@@ -336,6 +341,19 @@ _ARGTYPES = {
 }
 
 
+def slice_bytes(d, md):
+    """Bytes of one block's slice of the tree's scratch at (d, md)
+    (csrc/glm_nuts.cu glm_nuts_slice_bytes, which :func:`load_kernels` holds
+    it to): 16 chains' rows of D float32, 10 + 2 md of them on the wide
+    tile, 12 + 2 md on the very-wide tile (the walker's momentum and
+    gradient) and 13 + 2 md on the chunked tier (its position); 0 on the
+    narrow tile, which keeps the tree in shared memory."""
+    if d <= NARROW_D_MAX:
+        return 0
+    rows = 10 if d <= WIDE_D_MAX else 13 if d > XWIDE_D_MAX else 12
+    return 4 * 16 * _padded(d) * (rows + 2 * md)
+
+
 def load_kernels():
     """Build (first use) and bind ``csrc/glm_nuts.cu``; returns the library."""
     from .cuda_build import load
@@ -350,10 +368,15 @@ def load_kernels():
         lib.nuts_error_string.restype = ctypes.c_char_p
         lib.nuts_max_doublings.restype = ctypes.c_int
         lib.nuts_max_dim.restype = ctypes.c_int
+        lib.glm_nuts_slice_bytes.argtypes = [_I, _I]
+        lib.glm_nuts_slice_bytes.restype = _LL
         if (lib.nuts_max_doublings() != MAX_DOUBLINGS
-                or lib.nuts_max_dim() != NUTS_D_MAX):
+                or lib.nuts_max_dim() != NUTS_D_MAX
+                or any(lib.glm_nuts_slice_bytes(d, md) != slice_bytes(d, md)
+                       for d in (NARROW_D_MAX, 40, 300, 1025, NUTS_D_MAX)
+                       for md in (1, MAX_DOUBLINGS))):
             raise RuntimeError("csrc/glm_nuts.cu and nuts_kernels disagree "
-                               "on MAX_DOUBLINGS or NUTS_D_MAX")
+                               "on MAX_DOUBLINGS, NUTS_D_MAX or slice_bytes")
         lib._bound = True
     return lib
 
@@ -375,7 +398,7 @@ def _queue(dev):
     """The kernels' tile queue on ``dev``'s current stream: one int that
     the blocks take their tiles from, zeroed once here and put back to 0 by
     every launch (launches on one stream run in turn)."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    key = _stream_key(dev)
     if key not in _QUEUES:
         _QUEUES[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return _QUEUES[key]
@@ -384,19 +407,23 @@ def _queue(dev):
 _SCRATCH = {}
 
 
-def _scratch(dev, d, N, md):
+def _scratch(dev, d, N, md, C):
     """(buffer, bytes) of the tree state above the narrow tile on
-    ``dev``'s current stream: one float32 buffer for each (device, stream,
-    padded width, md), so that two widths of one chunk layout share it,
-    allocated once and grown when a plan needs more (the kernel checks its
-    size; on an H100's 132 SMs 277 MB at d 1024 and md 10, 1.14 GB at d
-    4096 and 4.6 GB at d 16384).  (None, 0) on the narrow tile, which keeps
-    the tree in shared memory."""
-    if d <= NARROW_D_MAX:
+    ``dev``'s current stream: a slice of :func:`slice_bytes` for each block
+    a launch of C chains runs at once (one a tile of 16, at most the plan's
+    blocks).  One float32 buffer for each (device, stream), whatever d and
+    md, allocated once and grown when a launch needs more, to at most half
+    of what the card can give and one slice at least
+    (``cuda_build.scratch_buffer``); the kernel runs no more blocks than it
+    holds slices for (on an H100's 132 SMs at md 10: 277 MB at d 1024, 4.6
+    GB at d 16384, 36.6 GB at d 131072).  (None, 0) on the narrow tile,
+    which keeps the tree in shared memory."""
+    per = slice_bytes(d, md)
+    if not per:
         return None, 0
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream, _padded(d), md)
-    return scratch_buffer(_SCRATCH, key, nuts_plan(d, N, md)["scratch_bytes"],
-                          dev)
+    blocks = nuts_plan(d, N, md)["scratch_bytes"] // per
+    return scratch_buffer(_SCRATCH, _stream_key(dev),
+                          per * min(-(-C // 16), blocks), dev, per)
 
 
 def nuts_plan(d, N, maxdoublings):
@@ -456,7 +483,7 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     nd_o = torch.empty(C, dtype=torch.int32, device=theta.device)
     dv_o = torch.empty(C, dtype=torch.bool, device=theta.device)
     with torch.cuda.device(theta.device):
-        scratch, nbytes = _scratch(theta.device, d, N, md)
+        scratch, nbytes = _scratch(theta.device, d, N, md, C)
         _launch(name, lamm, d, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
                 _ptr(grad), _ptr(m0), _ptr(logu), _ptr(dirn), _ptr(merge_u),
@@ -589,7 +616,7 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     r_nd = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
     r_dv = torch.empty((k_trans, C), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        scratch, nbytes = _scratch(dev, d, N, md)
+        scratch, nbytes = _scratch(dev, d, N, md, C)
         _launch(name, lamm, d, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
                 _ptr(grad), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(r_th),

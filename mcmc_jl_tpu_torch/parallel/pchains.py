@@ -256,15 +256,18 @@ def _target_eligible(task):
             and task.model.size <= D_MAX)
 
 
-def _kernel_shape_ok(model, route, sampler):
+def _kernel_shape_ok(model, route, sampler, n=1):
     """What the ported kernels take on ``route``: on a GLM a built-in link
     and d <= D_MAX (kernels 1-4, 8 and 9: the narrow tile up to
     NARROW_D_MAX, the wide tile up to WIDE_D_MAX, the very-wide tile up to
     XWIDE_D_MAX, the chunked tier above), for exact NUTS also N <=
-    BIGN_THRESHOLD; on a catalog target d <= the target kernels' D_MAX; for
-    exact NUTS maxdoublings <= MAX_DOUBLINGS.  None when they do, else the
-    reason."""
-    from ..ops.glm_kernels import D_MAX, KIND_CODES
+    BIGN_THRESHOLD, and on the card one block's scratch and the chain state
+    of ``n`` chains within its free memory (``glm_kernels.memory_reason``);
+    on a catalog target d <= the target kernels' D_MAX; for exact NUTS
+    maxdoublings <= MAX_DOUBLINGS.  None when they do, else the reason."""
+    from ..ops import nuts_kernels
+    from ..ops.cuda_build import free_bytes
+    from ..ops.glm_kernels import D_MAX, KIND_CODES, memory_reason, slot_bytes
     from ..ops.nuts_kernels import MAX_DOUBLINGS
 
     if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
@@ -290,7 +293,11 @@ def _kernel_shape_ok(model, route, sampler):
     if d > D_MAX:
         return (f"d = {d} > {D_MAX}, the GLM kernels' bound (ROADMAP: GLMs "
                 f"wider than {D_MAX} parameters)")
-    return None
+    # kernel 4 (above BIGN_THRESHOLD on the HMC routes) keeps no slot
+    per = (nuts_kernels.slice_bytes(d, sampler.maxdoublings)
+           if route == "nuts" else
+           0 if N > glm_bign.BIGN_THRESHOLD else slot_bytes(d))
+    return memory_reason(per, d, n, free_bytes(model.device))
 
 
 def _nuts_or_warm(sampler):
@@ -303,7 +310,7 @@ def _nuts_or_warm(sampler):
     return "nuts" if exact else "warm"
 
 
-def _route(t, fused):
+def _route(t, fused, n=1):
     """Decide before any launch which route a group takes: "hmc" (plain
     HMC or plain MALA through the fused GLM-HMC drivers), "target" (plain
     HMC or plain MALA on a catalog target through the custom-target
@@ -340,7 +347,7 @@ def _route(t, fused):
         log.info("prun: no fused CUDA route takes %s on this model; running "
                  "the generic torch engine", type(t.sampler).__name__)
         return False
-    why = _kernel_shape_ok(m, route, t.sampler)
+    why = _kernel_shape_ok(m, route, t.sampler, n)
     if why is not None:
         log.info("prun: %s; running the generic torch engine", why)
         return False
@@ -377,7 +384,7 @@ def prun_serialmc(tasks, seed: int = 0, mesh=None, fused="auto"):
         n = len(idxs)
         # one generator per group, derived from (seed, group index)
         gen = make_generator(t.model.device, seed * 1_000_003 + gi)
-        route = _route(t, fused)
+        route = _route(t, fused, n)
         if route and fused == "auto":
             log.info("prun: routing %d %s chains to the fused CUDA "
                      "kernels (f32, %s route); pass fused=False for the "
@@ -486,7 +493,7 @@ def continuation_route(model, sampler, n, fused="auto", states=None):
                        f"{model.device.type}, and fused='auto' takes CUDA "
                        f"float32 models")
     route = _nuts_or_warm(sampler)
-    why = _kernel_shape_ok(model, route, sampler)
+    why = _kernel_shape_ok(model, route, sampler, n)
     if why is not None:
         return generic(why)
     return route

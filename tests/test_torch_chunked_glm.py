@@ -242,13 +242,13 @@ def test_tiled_ref_matches_pallas_chunked(case, d):
 # ---- bounds, counters and draws ---------------------------------------------
 
 def test_chunked_bounds_and_counters():
-    """The HMC and N-tiled kernels take d up to D_MAX = 16384 on the chunked
+    """The HMC and N-tiled kernels take d up to D_MAX = 131072 on the chunked
     tier, and so do the exact-NUTS kernels (NUTS_D_MAX); the very-wide
     tile's bound is XWIDE_D_MAX = 1024; a launch above 1024 counts under
     ``<name>_chunked`` (``<name>_mat_chunked`` with a matrix prior), at
     1024 still under ``_xwide``; the tiled kernel's grid takes 16 chains a
     CTA there, as on the wide and very-wide tiles."""
-    assert gk.D_MAX == nk.NUTS_D_MAX == 16384
+    assert gk.D_MAX == nk.NUTS_D_MAX == 131072
     assert gk.XWIDE_D_MAX == 1024
     for name in ("glm_leapfrogs", "glm_step", "glm_multistep",
                  "glm_multistep_rows"):
@@ -289,9 +289,10 @@ def test_chunked_draw_ranges_disjoint():
     """Kernels 3 and 3b draw coordinate j of a momentum from Philox draw j
     // 2 (words 0, 1 for even j, 2, 3 for odd) and the MH uniform from
     draw SLICE_DRAW, counted by (chain, transition): at the bound D_MAX
-    the momenta take draws 0 .. 8191, below SLICE_DRAW, so no coordinate
-    shares a draw with the uniform; the replay at d = D_MAX gives
-    coordinates 0, 8193 and 16383 the normals of their own draws."""
+    (131072) the momenta take draws 0 .. 65535, below SLICE_DRAW, so no
+    coordinate shares a draw with the uniform; the replay at d = D_MAX
+    gives coordinates 0, 65537 and 131071 the normals of their own
+    draws."""
     d, C, k, i0, seed = gk.D_MAX, 2, 2, 7, 0xC0FFEE
     assert (d + 1) // 2 - 1 < gk.SLICE_DRAW
     m0, logu = gk.glm_multistep_draws(seed, C, d, k, i0=i0)

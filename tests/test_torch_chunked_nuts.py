@@ -175,25 +175,26 @@ def test_chunked_multistep_ref_matches_jax_driver():
 @pytest.mark.parametrize("d", [2049, 4096, gk.D_MAX])
 def test_chunked_draw_ranges_disjoint(d):
     """Kernel 9's five Philox draw ranges within one (chain, transition) at
-    the deepest tree (md 10): the momenta take 0 .. d/2 - 1 (up to 0x1FFF
-    at D_MAX), then the directions DIR_DRAW + j, the merge uniforms
-    MERGE_DRAW + j, the leaves and the slice uniform, disjoint at d 2049
-    (where the momenta first reach the directions' old 0x400), 4096 and the
-    bound D_MAX = NUTS_D_MAX = 16384."""
+    the deepest tree (md 10): the momenta take 0 .. d/2 - 1 (up to 0xFFFF
+    at D_MAX), the leaves LEAF_DRAW + l, the directions DIR_DRAW + j, the
+    merge uniforms MERGE_DRAW + j and the slice uniform, disjoint at d 2049
+    (where the momenta first reached the directions' layout before the
+    last), 4096 and the bound D_MAX = NUTS_D_MAX = 131072."""
     md = nk.MAX_DOUBLINGS
-    assert nk.NUTS_D_MAX == gk.D_MAX == 16384
-    ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md),
-              (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
-              (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
-              (gk.SLICE_DRAW, gk.SLICE_DRAW + 1)]
+    assert nk.NUTS_D_MAX == gk.D_MAX == 131072
+    ranges = sorted([(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md),
+                     (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
+                     (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
+                     (gk.SLICE_DRAW, gk.SLICE_DRAW + 1)])
     for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
         assert lo < hi <= lo2, ranges
     assert (d + 1) // 2 > 0x400  # the old layout's first direction collides
 
 
 def test_chunked_draw_replay_at_the_bound():
-    """The host replay of kernel 9's draws at d 16384 and md 10: coordinates
-    0, 8193 and 16383 take the normals of their own momentum draws (j // 2,
+    """The host replay of kernel 9's draws at the bound (d 131072) and md
+    10: coordinates 0, 8193 and 131071 take the normals of their own
+    momentum draws (j // 2,
     words 0, 1 for even j, 2, 3 for odd), the directions and merge uniforms
     their draws at DIR_DRAW + j and MERGE_DRAW + j (the kernel's uniform
     1 - U[0, 1); a direction -1 where it is below 0.5), the last leaf its
@@ -232,9 +233,9 @@ def _chunked_model(n=32, d=2048, seed=90):
 
 @pytest.mark.parametrize("d", [2048, gk.D_MAX, gk.D_MAX + 1])
 def test_chunked_nuts_routes_and_reasons(d, caplog):
-    """At d 2048 and 16384 (the chunked tier's bound) exact NUTS with the
+    """At d 2048 and 131072 (the chunked tier's bound) exact NUTS with the
     unit, diagonal and dense metrics routes to "nuts" (kernels 8 and 9)
-    for a run and for its continuation, with no reason logged; at 16385
+    for a run and for its continuation, with no reason logged; at 131073
     each takes the generic engine with the reason naming the GLM kernels'
     bound, and no reason names a NUTS width."""
     runner = mt.SerialMC(steps=60, burnin=20)

@@ -441,7 +441,7 @@ def test_nuts_multistep_mat_prior_matches_jax_driver(multinomial):
 def test_prior_shapes_the_wrappers_take():
     """The kernels' prior arguments: a scalar, a (d,) row or a (d, d)
     matrix, anything else refused; a (1, 1) matrix is a scalar.  Kernels 1-3
-    take a scalar only."""
+    take all three too (their plain versions here)."""
     d = 3
     assert gk._prior_args("k", 2.0, d, "cpu")[1:] == (None, None)
     lam, row, mat = gk._prior_args("k", torch.ones(d), d, "cpu")
@@ -451,5 +451,8 @@ def test_prior_shapes_the_wrappers_take():
     assert gk._prior(torch.ones(1, 1) * 3) == 3.0
     with pytest.raises(ValueError, match=r"want \(3, 3\)"):
         gk._prior_args("k", torch.eye(4), d, "cpu")
-    with pytest.raises(NotImplementedError, match="scalar prior"):
-        gk._scalar_prior(torch.eye(d))
+    out = gk.glm_leapfrogs_ref(torch.ones(d, 4), torch.ones(4),
+                               torch.ones(2, d), torch.zeros(2, d),
+                               torch.zeros(2, d), 0.1, n_leaps=1,
+                               prior_prec=2.0 * torch.eye(d))
+    assert all(bool(torch.isfinite(t).all()) for t in out)

@@ -318,8 +318,8 @@ def test_wrapper_refuses_other_devices():
 def test_kernel_input_checks(bad):
     """What the CUDA wrappers refuse, checked before any launch: a state
     that is not (C, d) would make the kernel read past its end; d past the
-    kernels' bound (16384 for kernels 1-4, 8 and 9, whose chunked tier
-    takes d 1025 to 16384) has no instantiation."""
+    kernels' bound (131072 for kernels 1-4, 8 and 9, whose chunked tier
+    takes d 1025 to 131072) has no instantiation."""
     N, d, C = 20, 3, 4
     XT, Y = torch.zeros(d, N), torch.zeros(N)
     th, m, lp = torch.zeros(C, d), torch.zeros(C, d), torch.zeros(C)
@@ -332,15 +332,15 @@ def test_kernel_input_checks(bad):
     elif bad == "noncontig":
         th = torch.zeros(d, C).T
     elif bad == "wide":
-        assert gk.D_MAX == 16384
+        assert gk.D_MAX == 131072
         gk._check(name, torch.zeros(gk.D_MAX, N), Y, None, None, kind,
                   {"theta": torch.zeros(C, gk.D_MAX),
                    "m0": torch.zeros(C, gk.D_MAX)}, {"lp": lp})
         XT, th = torch.zeros(gk.D_MAX + 1, N), torch.zeros(C, gk.D_MAX + 1)
         m = torch.zeros(C, gk.D_MAX + 1)
-    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33-16384, not 16385
+    elif bad == "nuts_wide":  # the NUTS wrapper takes d 33-131072, not more
         name, d_max = "glm_nuts_transition", nk.NUTS_D_MAX
-        assert d_max == gk.D_MAX == 16384
+        assert d_max == gk.D_MAX == 131072
         for dd in (33, 257, 1025, d_max):
             gk._check(name, torch.zeros(dd, N), Y, None, None, kind,
                       {"theta": torch.zeros(C, dd), "m0": torch.zeros(C, dd)},

@@ -193,18 +193,19 @@ def test_wide_multistep_ref_matches_jax_driver(multinomial):
 
 def test_draw_ranges_are_disjoint_up_to_d_512():
     """Kernel 9's Philox draw numbers within one (chain, transition): the
-    momenta take 0 .. d/2 - 1, below the directions at DIR_DRAW at d 512,
-    at the very-wide tile's 1024 and up to the kernels' bound NUTS_D_MAX
-    (16384; the draw layout moved the directions and merge uniforms above
-    0x1FFF for it); directions, merge uniforms, leaves and the slice
-    uniform take five disjoint ranges at the deepest tree."""
+    momenta take 0 .. d/2 - 1, below the leaves at LEAF_DRAW at d 512, at
+    the very-wide tile's 1024 and up to the kernels' bound NUTS_D_MAX
+    (131072; the tree's draws lie just below the slice uniform's, apart
+    from d); leaves, directions, merge uniforms and the slice uniform take
+    five disjoint ranges at the deepest tree."""
     md = nk.MAX_DOUBLINGS
-    assert nk.NUTS_D_MAX == 16384
+    assert nk.NUTS_D_MAX == 131072
     for d in (512, 1024, nk.NUTS_D_MAX):
-        ranges = [(0, (d - 1) // 2 + 1), (nk.DIR_DRAW, nk.DIR_DRAW + md),
-                  (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
-                  (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
-                  (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)]
+        ranges = sorted([(0, (d - 1) // 2 + 1),
+                         (nk.DIR_DRAW, nk.DIR_DRAW + md),
+                         (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
+                         (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
+                         (nk.SLICE_DRAW, nk.SLICE_DRAW + 1)])
         for (_, hi), (lo, _) in zip(ranges, ranges[1:]):
             assert hi <= lo, ranges
     m0, logu, dirn, merge, leaf = nk.glm_nuts_multistep_draws(7, 3, 256, 2,

@@ -188,10 +188,10 @@ def test_xwide_draw_ranges_and_replay():
     glm_multistep_draws', and its directions are +-1."""
     md, d = nk.MAX_DOUBLINGS, gk.XWIDE_D_MAX
     assert d == 1024
-    ranges = [(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md),
-              (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
-              (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
-              (gk.SLICE_DRAW, gk.SLICE_DRAW + 1)]
+    ranges = sorted([(0, (d + 1) // 2), (nk.DIR_DRAW, nk.DIR_DRAW + md),
+                     (nk.MERGE_DRAW, nk.MERGE_DRAW + md),
+                     (nk.LEAF_DRAW, nk.LEAF_DRAW + (1 << md)),
+                     (gk.SLICE_DRAW, gk.SLICE_DRAW + 1)])
     for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
         assert lo < hi <= lo2, ranges
     draws = nk.glm_nuts_multistep_draws(11, 3, d, 2, md, i0=4)
