@@ -771,8 +771,15 @@ def _time(fn, reps=3):
     return float(np.median(ts))
 
 
+# a call at least this long (ms) is timed once by _event_ms: its spread
+# across calls is small against its length
+LONG_CALL_MS = 250.0
+
+
 def _event_ms(fn, reps=3):
-    """Median device milliseconds of one call of ``fn`` (CUDA events)."""
+    """Median device milliseconds of one call of ``fn`` (CUDA events) over
+    ``reps`` calls after one warm-up, or over the first when it took
+    LONG_CALL_MS or more."""
     import torch
 
     fn()
@@ -785,6 +792,8 @@ def _event_ms(fn, reps=3):
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+        if ts[-1] >= LONG_CALL_MS:
+            break
     return float(np.median(ts))
 
 
@@ -875,12 +884,83 @@ def _nuts_inputs(C, md, seed, X, Y, W=None, O=None, lam=1.0, spread=0.05):
     return args, tuple(_cuda(a) for a in noise), kw
 
 
-def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
+def _widened(args, kw):
+    """A NUTS check's (XT, Y, theta, lp, grad) and keywords in float64: the
+    design, response, chains, weights, offsets and prior widened, lp and
+    grad recomputed."""
+    import torch
+
+    kw64 = {n: v.double() if torch.is_tensor(v) else v for n, v in kw.items()}
+    XT, Y, th = (a.double() for a in args[:3])
+    return (XT, Y, th, *_lp_grad(XT, Y, th, **kw64)), kw64
+
+
+def _consistent(a64, kw64, theta, g, lp, scale=1.0):
+    """(C,) bools: a kernel's gradient and lp agree with float64's at the
+    kernel's own theta (``a64``, ``kw64``: _widened's design, response and
+    keywords) within the transition check's tolerances, whatever path the
+    chain took."""
+    lp64, g64 = _lp_grad(a64[0], a64[1], theta.double(), **kw64)
+    return (((g.double() - g64).abs() <= G_ATOL * scale + RTOL * g64.abs())
+            .all(-1)
+            & ((lp.double() - lp64).abs()
+               <= LP_ATOL * scale + LP_RTOL * lp64.abs()))
+
+
+def _witness_rule(kernel_on, plain_on, moved, diverging, consistent,
+                  first=0):
+    """The width checks' path rule, where float64's path settles the chains
+    on which the kernel and its float32 plain version part.  Both sum lp in
+    another order, a few float32 ulps from float64's (2e-3 at d 32768), so
+    a slice test within that of its margin can part either of them from
+    float64: the chains that leave float64's path in the kernel alone and
+    those that leave it in plain alone are, without a fault, a fair coin's
+    split of the chains where the two part.  So the kernel may not leave it
+    alone on more of them than a one-sided sign test allows at
+    WITNESS_SIGN_P, nor on more than WITNESS_TILE_MAX chains of one tile of
+    16 (a fault in one block's scratch, such as its 64-bit offsets, takes
+    whole tiles; ``first``: the global index of the first chain); chains
+    off it in both are float32's own and only reported.  Every chain's
+    gradient and lp must agree with float64's at its own theta
+    (``consistent``: _consistent), at least HUGE_MOVED_MIN of the chains
+    must have moved, and at most HUGE_DIVERGE_MAX of the transitions
+    diverged (a step at which the trees take leaves).  ``kernel_on``,
+    ``plain_on``: (C,) bools, on float64's path.  Returns the counts and
+    ok."""
+    import math
+
+    import torch
+
+    C = kernel_on.numel()
+    alone = ~kernel_on & plain_on
+    k, n = int(alone.sum()), int((kernel_on != plain_on).sum())
+    tile = (torch.arange(C, device=alone.device) + first)[alone] // 16
+    rep = {"kernel_alone_off_f64": k,
+           "plain_alone_off_f64": n - k,
+           "both_off_f64": int((~kernel_on & ~plain_on).sum()),
+           "sign_p": sum(math.comb(n, i) for i in range(k, n + 1)) / 2 ** n,
+           "kernel_alone_in_one_tile": (int(torch.bincount(tile).max())
+                                        if k else 0),
+           "inconsistent": int((~consistent).sum()),
+           "moved_share": float(moved.float().mean()),
+           "diverging_share": float(diverging.float().mean())}
+    rep["ok"] = (rep["sign_p"] >= WITNESS_SIGN_P
+                 and rep["kernel_alone_in_one_tile"] <= WITNESS_TILE_MAX
+                 and rep["inconsistent"] == 0
+                 and rep["moved_share"] >= HUGE_MOVED_MIN
+                 and rep["diverging_share"] <= HUGE_DIVERGE_MAX)
+    return rep
+
+
+def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False,
+                witness=False):
     """The transition kernel against its plain version on the same inputs;
     ``full_depth``: some chain must build a tree of all maxdoublings
     doublings (the deepest checkpoint slots and span checks).  The kernel
-    also repeats bitwise.  Returns the max abs error of theta on the
-    chains on the same path."""
+    also repeats bitwise.  PATH_AGREE of the chains must be on the plain
+    version's path, or with ``witness`` the plain version in float64
+    settles the chains where the two part (_witness_rule).  Returns the
+    max abs error of theta on the chains on the same path."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
@@ -897,7 +977,22 @@ def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
     rep = {n: _err(a[same], b[same]) for n, a, b in
            zip(("theta", "g", "lp"), (thk, gk_, lpk), (thr, gr, lpr))}
     md = kw["maxdoublings"]
-    ok = (bitwise and float(same.float().mean()) >= PATH_AGREE
+    path_ok, witnessed = float(same.float().mean()) >= PATH_AGREE, {}
+    if witness:
+        a64, kw64 = _widened(args, kw)
+        o64 = nk.glm_nuts_transition_ref(
+            *a64, eps, *(a.double() for a in noise), **kw64)
+
+        def on64(o):
+            return ((o[3] == o64[3]) & (o[4] == o64[4])
+                    & ((o[0].double() - o64[0]).abs().amax(-1) <= LEAF_ATOL))
+
+        witnessed = {"f64": _witness_rule(
+            on64(out_k), on64(out_r), (thr != args[2]).any(-1), dvr,
+            _consistent(a64, kw64, thk, gk_, lpk, scale))}
+        path_ok = witnessed["f64"]["ok"]
+        del a64, o64
+    ok = (bitwise and path_ok
           and (not full_depth or int(ndr.max()) == md)
           and _close(thk[same], thr[same], RTOL, ATOL)
           and _close(gk_[same], gr[same], RTOL, G_ATOL * scale)
@@ -910,21 +1005,24 @@ def _nuts_check(label, args, noise, eps, kw, scale=1.0, full_depth=False):
           "path_differ": int(C - same.sum()),
           "mean_ndoublings": float(ndr.float().mean()),
           "chains_at_maxdoublings": int((ndr == md).sum()),
-          "diverging": int(dvr.sum()), **rep})
+          "diverging": int(dvr.sum()), **witnessed, **rep})
     assert ok, f"glm_nuts_transition ({label}) disagrees with its plain version"
     return rep["theta"]["max_abs"]
 
 
 def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
-                   full_depth=False):
+                   full_depth=False, witness=False):
     """The multistep kernel against its plain version chain by chain, on
     the kernel's own Philox draws (the launch seed a generator seeded
     ``seed`` gives, replayed by ``glm_nuts_multistep_draws``) over ``k``
     transitions: a chain is on the same path when every transition has
     the same ndoublings and diverging and theta within LEAF_ATOL; on those
     chains the final theta, gradient and lp are held to the transition
-    kernel's tolerances.  The kernel also repeats bitwise.  Returns the
-    max abs error of theta on the chains on the same path."""
+    kernel's tolerances.  The kernel also repeats bitwise.  PATH_AGREE of
+    the chains must be on the plain version's path, or with ``witness``
+    the plain version in float64 on the same draws settles the chains
+    where the two part (_witness_rule).  Returns the max abs error of
+    theta on the chains on the same path."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import nuts_kernels as nk
@@ -952,7 +1050,26 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
     rep = {n: _err(a[same], b[same]) for n, a, b in
            zip(("theta", "g", "lp"), out_k[:3], out_r[:3])}
     nd = rr["ndoublings"]
-    ok = (bitwise and float(same.float().mean()) >= PATH_AGREE
+    path_ok, witnessed = float(same.float().mean()) >= PATH_AGREE, {}
+    if witness:
+        a64, kw64 = _widened(args, kw)
+        r64 = nk.glm_nuts_multistep_ref(
+            *a64, eps, None, k_trans=k, draws=[a.double() for a in draws],
+            **kw64)[3]
+
+        def on64(r):
+            return ((r["ndoublings"] == r64["ndoublings"]).all(0)
+                    & (r["diverging"] == r64["diverging"]).all(0)
+                    & ((r["ppars"].double() - r64["ppars"]).abs()
+                       .amax((0, 2)) <= LEAF_ATOL))
+
+        witnessed = {"f64": _witness_rule(
+            on64(rk), on64(rr), (out_r[0] != args[2]).any(-1),
+            rr["diverging"], _consistent(a64, kw64, *out_k[:3], scale))}
+        path_ok = witnessed["f64"]["ok"]
+        del a64, r64
+    del draws
+    ok = (bitwise and path_ok
           and (not full_depth or int(nd.max()) == md)
           and _close(out_k[0][same], out_r[0][same], RTOL, ATOL)
           and _close(out_k[1][same], out_r[1][same], RTOL, G_ATOL * scale)
@@ -967,7 +1084,7 @@ def _nuts_ms_check(label, args, eps, kw, seed, k=5, scale=1.0,
           "path_differ": int(C - same.sum()),
           "mean_ndoublings": float(nd.float().mean()),
           "chains_at_maxdoublings": int((nd == md).any(0).sum()),
-          "diverging": int(rr["diverging"].sum()), **rep})
+          "diverging": int(rr["diverging"].sum()), **witnessed, **rep})
     assert ok, (f"glm_nuts_multistep ({label}) disagrees with its plain "
                 f"version on its own draws")
     return rep["theta"]["max_abs"]
@@ -993,17 +1110,19 @@ def _draw_ranges(phase, d):
 
 
 def _nuts_checks(err, tier, label, args, noise, eps, kw, seed, k,
-                 full_depth=False, multistep=True):
+                 full_depth=False, multistep=True, witness=False):
     """Kernel 8 (_nuts_check) and, with ``multistep``, kernel 9
     (_nuts_ms_check over k transitions) on one case of a tile above the
-    narrow one; each largest theta error into ``err`` under its counter on
-    ``tier`` ("_wide", "_xwide" or "_chunked", after "_mat" with a matrix
-    prior)."""
+    narrow one (``witness``: float64 settles the paths); each largest theta
+    error into ``err`` under its counter on ``tier`` ("_wide", "_xwide" or
+    "_chunked", after "_mat" with a matrix prior)."""
     e = {"glm_nuts_transition": _nuts_check(label, args, noise, eps, kw,
-                                            full_depth=full_depth)}
+                                            full_depth=full_depth,
+                                            witness=witness)}
     if multistep:
         e["glm_nuts_multistep"] = _nuts_ms_check(
-            label, args, eps, kw, seed=seed, k=k, full_depth=full_depth)
+            label, args, eps, kw, seed=seed, k=k, full_depth=full_depth,
+            witness=witness)
     mat = "_mat" if _mat_or_none(kw.get("prior_prec")) is not None else ""
     for name, v in e.items():
         err[name + mat + tier] = max(err[name + mat + tier], v)
@@ -1027,19 +1146,17 @@ def _f64_witness(label, args, eps, kw, seed, k=3):
     def gen():
         return torch.Generator(device="cuda").manual_seed(seed)
 
-    XT, Y, th = args[:3]
-    C, d = th.shape
+    C, d = args[2].shape
     md = kw["maxdoublings"]
     out_k = nk.glm_nuts_multistep(*args, eps, gen(), k_trans=k, **kw)
     draws = nk.glm_nuts_multistep_draws(tk._seed(gen()), C, d, k, md,
                                         device="cuda")
     out_32 = nk.glm_nuts_multistep_ref(*args, eps, None, k_trans=k,
                                        draws=draws, **kw)
-    kw64 = {n: v.double() if torch.is_tensor(v) else v for n, v in kw.items()}
-    XT64, Y64, th64 = (a.double() for a in (XT, Y, th))
+    a64, kw64 = _widened(args, kw)
     out_64 = nk.glm_nuts_multistep_ref(
-        XT64, Y64, th64, *_lp_grad(XT64, Y64, th64, **kw64), eps, None,
-        k_trans=k, draws=[a.double() for a in draws], **kw64)
+        *a64, eps, None, k_trans=k, draws=[a.double() for a in draws],
+        **kw64)
     r64 = out_64[3]
     line = {"phase": "f64_witness", "name": nk._counted(
         "glm_nuts_multistep", _mat_or_none(kw.get("prior_prec")), d),
@@ -5351,13 +5468,13 @@ def phase_wide_nuts_kernels(C=4096, ragged=1027, N=1000, md=6, k=3):
     return err
 
 
-def _nuts_routes(ds, n=1000):
+def _nuts_routes(ds, n=1000, also=None):
     """The route of NUTS on wide_data at each d of ``ds``: the exact-NUTS
     kernels, "nuts", for a run and a continuation, up to the kernels'
     bound NUTS_D_MAX (131072, the GLM kernels' D_MAX); above it the generic
     engine, with the reason naming the GLM kernels' bound, for both; no
-    reason that names a NUTS width.  Returns {d: (route, reason or
-    None)}."""
+    reason that names a NUTS width.  ``also(model, d)``, when given, checks
+    more on each d's model.  Returns {d: (route, reason or None)}."""
     import logging
 
     import mcmc_jl_tpu_torch as mt
@@ -5392,6 +5509,9 @@ def _nuts_routes(ds, n=1000):
             emit({"phase": "nuts_route", "d": d, "route": out[d][0],
                   "continuation_route": cont or "generic engine",
                   "reason": out[d][1]})
+            if also is not None:
+                also(m, d)
+            del m, X
     finally:
         log.removeHandler(handler)
         log.setLevel(level)
@@ -6743,16 +6863,26 @@ PRIOR_EPS, PRIOR_STEP_EPS = 0.2, (0.5, 0.3)
 # the width checks: (d, N) at the JAX kernels' VMEM bound (d N about 2.5e7
 # floats of the design: d 32768 up to N 750, d 131072 at N 190)
 HUGE_D = ((32768, 500), (131072, 160))
-# the NUTS checks' step there (chains at 0.3 standard normals): past d
-# 16384 the energy H sits near d / 2, whose float32 rounding (2e-3 at d
-# 32768) can decide a slice test whose margin lies below it (at eps 0.02
-# 3 of 211 chains left the plain version's path before the NUTS kernels
-# summed in double above 16384); at 0.1 the energy errors of coordinates
-# that start in phase put every leaf far outside the slice (and past the
-# divergence gate at d 131072), so no slice test lies within that
-# rounding, and _f64_witness reports HUGE_WITNESS_EPS; the times take
-# HUGE_WITNESS_EPS, where every tree runs to md 4
-HUGE_EPS, HUGE_WITNESS_EPS = 0.1, 0.02
+# the links of the width checks at each d: logistic at both, Poisson with
+# weights at d 32768 (at 131072 it was cut for the script's time)
+HUGE_KINDS = {32768: ("logistic", "poisson"), 131072: ("logistic",)}
+# the NUTS checks' step there (chains at 0.3 standard normals), at which
+# every tree of md 4 takes its 15 leaves and the chains move (at 0.1, 156
+# of 211 chains diverged at d 131072 and most outputs were the start on
+# both sides).  Past d 16384 the energy H sits near d / 2, whose float32
+# rounding (2e-3 at d 32768) can decide a slice test whose margin lies
+# below it, so the plain version in float64 settles the chains on which
+# the kernel and its float32 plain version part (_witness_rule); the times
+# take it too
+HUGE_EPS = 0.02
+# _witness_rule's floor on the share of chains that moved and bound on the
+# share of transitions that diverged
+HUGE_MOVED_MIN, HUGE_DIVERGE_MAX = 0.5, 0.05
+# _witness_rule's one-sided sign test level, and the most chains of one
+# tile of 16 that may leave float64's path in the kernel alone (without a
+# fault 0-4 of 211 chains did in each check at d 32768 and 131072 on an
+# H100, with 0-3 off it in plain alone)
+WITNESS_SIGN_P, WITNESS_TILE_MAX = 1e-2, 4
 # kernel 9's launch whose scratch passes 2^31 floats: (d, N, chains, md), a
 # tile of 16 chains for every one of the H100's 132 blocks
 HUGE_DEEP = (131072, 160, 2112, 4)
@@ -7099,29 +7229,34 @@ def _release_scratch():
 
 
 def phase_huge_width(C=211, md=4, k=2, mat=(16416, 16, 300),
-                     deep=HUGE_DEEP, eps=HUGE_EPS,
-                     witness=HUGE_WITNESS_EPS):
+                     deep=HUGE_DEEP, eps=HUGE_EPS):
     """Kernels 1, 3b, 4, 8 and 9 on the chunked tier past its old bound
     16384, at d 32768 (N 500) and 131072 (N 160; HUGE_D), against their
     plain versions with the chunked checks' rules and tolerances, on 211
-    chains (14 tiles, the last ragged, so that PATH_AGREE lets one chain
-    leave the plain version's path) of _huge_case's design: the logistic
-    link, and Poisson with weights; 1 over 4 leapfrogs, 3b over k
-    transitions chain by chain on its own draws replayed by
-    glm_multistep_draws, 4 against float64, 8 on shared pre-drawn noise, 9
-    over k transitions chain by chain on its own draws replayed by
-    glm_nuts_multistep_draws (its five draw ranges asserted disjoint first
-    at d 131072 and md 10), both at HUGE_EPS; at d 32768 kernel 9's and
-    its float32 plain version's drift from float64 at HUGE_WITNESS_EPS, by
-    path (_f64_witness, emitted, not gated).  Then kernels 1 and 8 with a
-    (d, d) prior at d
-    16416 (A 1.08 GB) on 16 chains, and one launch of kernel 9 at d 131072,
-    N 160, md 4 on 2112 chains (HUGE_DEEP: a tile for each of the 132
-    blocks) whose scratch passes 2^31 floats (132 slices of 176 MB): the
-    plan's blocks and scratch bytes logged beside torch.cuda.mem_get_info(),
-    the last block's 16 chains, whose slice lies past 2^31 floats, held
-    against the plain version on their replayed draws.  Returns the largest
-    error of each kernel it checks."""
+    chains (14 tiles, the last ragged) of _huge_case's design: the links
+    of HUGE_KINDS (logistic, and Poisson with weights at d 32768); 1 over 4
+    leapfrogs, 3b over k transitions chain by chain on its own draws
+    replayed by glm_multistep_draws, 4 against float64, 8 on shared
+    pre-drawn noise, 9 over k transitions chain by chain on its own draws
+    replayed by glm_nuts_multistep_draws (its five draw ranges asserted
+    disjoint first at d 131072 and md 10), both at HUGE_EPS, where the
+    trees take leaves, with the plain version in float64 settling the
+    chains where the kernel and its float32 plain version part
+    (_witness_rule: the chains off float64's path in the kernel alone no
+    more than a sign test allows against those off it in plain alone, at
+    most 4 of them in one tile, every chain's gradient and lp float64's at
+    its own theta, half the chains moved at least, 5% of the transitions
+    diverging at most).  Then
+    kernels 1 and 8 with a (d, d) prior at d 16416 (A 1.08 GB) on 16
+    chains, and one launch of kernel 9 at d 131072, N 160, md 4 on 2112
+    chains (HUGE_DEEP: a tile for each of the 132 blocks) whose scratch
+    passes 2^31 floats (132 slices of 176 MB, those of 100 blocks past
+    it): the plan's blocks and scratch bytes logged beside
+    torch.cuda.mem_get_info(), the last C chains (14 tiles, which the
+    blocks take from the queue) held against the plain version on their
+    replayed draws under the same rule (the moved and diverging shares
+    over the launch's 2112 chains).  Returns the largest error of each
+    kernel it checks."""
     import torch
 
     from mcmc_jl_tpu_torch.ops import glm_kernels as gk
@@ -7134,10 +7269,12 @@ def phase_huge_width(C=211, md=4, k=2, mat=(16416, 16, 300),
     def keep(name, e):
         err[name] = max(err.get(name, 0.0), e)
 
-    check = functools.partial(_nuts_checks, err, "_chunked", k=k)
+    check = functools.partial(_nuts_checks, err, "_chunked", k=k,
+                              witness=True)
     err.update(dict.fromkeys(CHUNKED_NUTS_KERNELS, 0.0))
     for d, N in HUGE_D:
-        for i, kind in enumerate(("logistic", "poisson")):
+        for i, kind in enumerate(HUGE_KINDS[d]):
+            t0 = time.perf_counter()
             XT, Yc, W, th, m = _huge_case(kind, N, d, C, seed=d + i,
                                           weights=kind == "poisson")
             kw = dict(kind=kind, weights=W)
@@ -7146,19 +7283,18 @@ def phase_huge_width(C=211, md=4, k=2, mat=(16416, 16, 300),
             keep("glm_leapfrogs_chunked", _traj_check(
                 label, XT, Yc, th, m, 0.1, n_leaps=4, **kw))
             keep("glm_multistep_rows_chunked", _rows_check(
-                label, XT, Yc, th, witness / 4, 2.5 * witness, 501, 20, k,
+                label, XT, Yc, th, eps / 4, 2.5 * eps, 501, 20, k,
                 seed=d + i, **kw))
             keep("glm_logp_grad_tiled_chunked", _tiled_case(
                 label, XT, Yc, th, kind=kind, W=W))
             args, noise = _wide_nuts_inputs(XT, Yc, th, md, d + i, **kw)
             check(f"{label}, md {md}", args, noise, eps,
                   dict(kw, maxdoublings=md), seed=d + i + 2)
-            if d == HUGE_D[0][0] and kind == "logistic":
-                _f64_witness(f"{label}, md {md}, eps {witness}", args,
-                             witness, dict(kw, maxdoublings=md),
-                             seed=d + 3, k=k)
             del XT, th, m, args, noise
             _release_scratch()
+            emit({"phase": "huge_width_case", "case": label,
+                  "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     d, Cm, Nm = mat
     XT, Yc, _, th, m = _huge_case("logistic", Nm, d, Cm, seed=d)
     gen = torch.Generator(device="cuda").manual_seed(d)
@@ -7174,7 +7310,10 @@ def phase_huge_width(C=211, md=4, k=2, mat=(16416, 16, 300),
           seed=d + 6, multistep=False)
     del XT, th, m, A, B, args, noise
     _release_scratch()
+    emit({"phase": "huge_width_case", "case": label,
+          "seconds": time.perf_counter() - t0})
     # kernel 9 with a scratch past 2^31 floats
+    t0 = time.perf_counter()
     d, N, Cd, mdd = deep
     XT, Yc, _, th, m = _huge_case("logistic", N, d, 16, seed=d + 7)
     del th, m
@@ -7188,46 +7327,62 @@ def phase_huge_width(C=211, md=4, k=2, mat=(16416, 16, 300),
         return torch.Generator(device="cuda").manual_seed(d + 9)
 
     free0 = torch.cuda.mem_get_info()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
+    t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t1.record()
     out = nk.glm_nuts_multistep(XT, Yc, th, lp, g, eps, gen9(), k_trans=1,
                                 maxdoublings=mdd)
-    t1.record()
+    t2.record()
     torch.cuda.synchronize()
     scratch = max(4 * b.numel() for b in nk._SCRATCH.values())
     blocks = min(-(-Cd // 16), plan["scratch_bytes"] // per, scratch // per)
-    last = slice(Cd - 16, Cd)
-    draws = nk.glm_nuts_multistep_draws(tk._seed(gen9()), Cd, d, 1, mdd,
-                                        device="cuda")
+    last = slice(Cd - C, Cd)
+    draws = [a[:, last] for a in nk.glm_nuts_multistep_draws(
+        tk._seed(gen9()), Cd, d, 1, mdd, device="cuda")]
     ref = nk.glm_nuts_multistep_ref(
         XT, Yc, th[last], lp[last], g[last], eps, None, k_trans=1,
-        maxdoublings=mdd, draws=[a[:, last] for a in draws])
-    del draws
+        maxdoublings=mdd, draws=draws)
+    a64, kw64 = _widened((XT, Yc, th[last]), {})
+    r64 = nk.glm_nuts_multistep_ref(
+        *a64, eps, None, k_trans=1, maxdoublings=mdd,
+        draws=[a.double() for a in draws], **kw64)[3]
+    consistent = _consistent(a64, kw64, *(a[last] for a in out[:3]))
+    del draws, a64
     rk, rr = out[3], ref[3]
-    same = ((rk["ndoublings"][:, last] == rr["ndoublings"]).all(0)
-            & (rk["diverging"][:, last] == rr["diverging"]).all(0)
-            & ((out[0][last] - ref[0]).abs().amax(-1) <= LEAF_ATOL))
+
+    def on_path(r, r2, cols=slice(None)):
+        return ((r["ndoublings"][:, cols] == r2["ndoublings"]).all(0)
+                & (r["diverging"][:, cols] == r2["diverging"]).all(0)
+                & ((r["ppars"][:, cols].double() - r2["ppars"]).abs()
+                   .amax((0, 2)) <= LEAF_ATOL))
+
+    same = on_path(rk, rr, last)
+    paths = _witness_rule(on_path(rk, r64, last), on_path(rr, r64),
+                          (out[0] != th).any(-1), rk["diverging"],
+                          consistent, first=Cd - C)
+    del r64
     rep = ({n: _err(a[last][same], b[same]) for n, a, b in
             zip(("theta", "g", "lp"), out[:3], ref[:3])}
            if bool(same.any()) else {"theta": {"max_abs": float("inf")}})
     floats = blocks * per // 4
-    # the last block's slice starts past 2^31 floats
-    ok = ((blocks - 1) * per // 4 > 2 ** 31 and bool(same.all())
+    # the slices of the last blocks start past 2^31 floats
+    ok = ((blocks - 1) * per // 4 > 2 ** 31 and paths["ok"]
+          and bool(same.any())
           and _close(out[0][last][same], ref[0][same], RTOL, ATOL)
           and _close(out[1][last][same], ref[1][same], RTOL, G_ATOL)
           and _close(out[2][last][same], ref[2][same], LP_RTOL, LP_ATOL)
           and all(bool(torch.isfinite(a).all()) for a in out[:3]))
     emit({"phase": "kernel", "name": "glm_nuts_multistep_chunked",
-          "case": f"d {d}, N {N}, C {Cd}, md {mdd}: scratch past 2^31 "
-                  f"floats, the last block's chains",
-          "ms": t0.elapsed_time(t1), "plan": plan, "slice_bytes": per,
+          "case": f"d {d}, N {N}, C {Cd}, md {mdd}, eps {eps}: scratch "
+                  f"past 2^31 floats, the last {C} chains",
+          "ms": t1.elapsed_time(t2), "plan": plan, "slice_bytes": per,
           "blocks": blocks,
           "scratch_bytes": scratch, "scratch_floats": floats,
           "mem_get_info_before": list(free0),
           "mem_get_info_after": list(torch.cuda.mem_get_info()),
           "mean_ndoublings": float(rk["ndoublings"].float().mean()),
           "diverging": int(rk["diverging"].sum()),
-          "path_differ": int(16 - same.sum()), "ok": ok, **rep})
+          "path_differ": int(C - same.sum()), "f64": paths, "ok": ok,
+          "seconds": time.perf_counter() - t0, **rep})
     assert ok, "kernel 9 past 2^31 floats of scratch disagrees"
     keep("glm_nuts_multistep_chunked", rep["theta"]["max_abs"])
     del XT, th, lp, g, out, ref
@@ -7256,7 +7411,7 @@ def _huge_mode(n, d, iters=12):
 
 
 def phase_huge_width_paths(path=HUGE_PATH, n=500, d=32768,
-                           route_n=160):
+                           route_n=16):
     """The routes at the new bound, then a logistic regression of d 32768 at
     N 500 (wide_data, X 65 MB) through the port's entry points, every
     launch counted from zero over one run: ``run(HMC(10, eps) *
@@ -7271,7 +7426,8 @@ def phase_huge_width_paths(path=HUGE_PATH, n=500, d=32768,
     NUTS run (kernel 9 again); each run's per-chain means held within Z_MAX
     standard errors of the generic engine's on the same task (fused=False,
     the same chains), the resume's of the generic run's own resume over
-    the same transitions.  The routes: at d 131072 (N 160)
+    the same transitions, each with its seconds on both engines.  The
+    routes (N 16: the route reads d and the chains, not N): at d 131072
     plain HMC takes "hmc" and NUTS "nuts" for a run and a continuation with
     no reason logged; at 131073 both take the generic engine with the GLM
     kernels' bound as the reason (_nuts_routes).  Returns the routes."""
@@ -7280,16 +7436,14 @@ def phase_huge_width_paths(path=HUGE_PATH, n=500, d=32768,
     from mcmc_jl_tpu_torch.ops.glm_kernels import D_MAX
     from mcmc_jl_tpu_torch.parallel import pchains
 
-    routes = _nuts_routes((D_MAX, D_MAX + 1), route_n)
-    for dd in (D_MAX, D_MAX + 1):
-        X, Y = wide_data(route_n, dd)
-        m = mt.model(glm=("logistic", X, Y), device="cuda")
+    def hmc_route(m, dd):
         route = pchains._route(MCMCTask(m, mt.HMC(10, 0.1), mt.SerialMC(
             steps=20, burnin=10)), "auto", 256)
         assert route == ("hmc" if dd <= D_MAX else False), (dd, route)
         emit({"phase": "hmc_route", "d": dd, "route": route or
               "generic engine"})
-        del m, X
+
+    routes = _nuts_routes((D_MAX, D_MAX + 1), route_n, also=hmc_route)
     chains, hmc_run, nuts_run, resume_steps, eps = path
     X, Y, mode = _huge_mode(n, d)
     init = np.random.default_rng(CHUNKED_INIT_SEED).standard_normal(d)
@@ -7311,28 +7465,36 @@ def phase_huge_width_paths(path=HUGE_PATH, n=500, d=32768,
                 else (steps - burnin) // 8)
         assert launches[key] == want, (label, {k: v for k, v in
                                                launches.items() if v})
+        t0 = time.perf_counter()
         cg = mt.run(task, chains=chains, seed=1, fused=False)
+        g_dt = time.perf_counter() - t0
         a = np.stack([c.samples.values for c in cs])
         b = np.stack([c.samples.values for c in cg])
         z = _z_means(a.mean(1), b.mean(1))
         ok = bool(np.all(np.isfinite(a))) and z < Z_MAX
         emit({"phase": "huge_width_path", "path": label,
               "task": _origin(m, task, chains), "d": d, "seconds": dt,
-              "spans_s": spans, "launches": {key: launches[key]},
+              "spans_s": spans, "generic_seconds": g_dt,
+              "launches": {key: launches[key]},
               "acceptance": float(np.mean([mt.acceptance(c) for c in cs])),
               "z_max_vs_generic": z, "ok": ok, **CARD})
         assert ok, f"{label} at d {d} disagrees with the generic engine"
         counts[key] = (launches[key], _origin(m, task, chains))
         if label == "NUTS":
+            t0 = time.perf_counter()
             c2, rl = _counted(lambda: mt.resume(cs, steps=resume_steps))
+            r_dt = time.perf_counter() - t0
             assert rl[key] == resume_steps // 8, rl
+            t0 = time.perf_counter()
             g2 = mt.resume(cg, steps=resume_steps, fused=False)
+            rg_dt = time.perf_counter() - t0
             a2 = np.stack([c.samples.values for c in c2])
             b2 = np.stack([c.samples.values for c in g2])
             z2 = _z_means(a2.mean(1), b2.mean(1))
             ok = bool(np.all(np.isfinite(a2))) and z2 < Z_MAX
             emit({"phase": "huge_width_path", "path": "NUTS resume",
                   "task": f"resume(chains, steps={resume_steps})",
+                  "seconds": r_dt, "generic_seconds": rg_dt,
                   "launches": {key: rl[key]}, "z_max_vs_generic": z2,
                   "ok": ok})
             assert ok, "the NUTS resume at d 32768 disagrees"
@@ -7342,11 +7504,13 @@ def phase_huge_width_paths(path=HUGE_PATH, n=500, d=32768,
 
 
 def phase_huge_width_times(C=64, n_leaps=10, md=4, k=2, reps=3,
-                           eps=HUGE_WITNESS_EPS):
+                           eps=HUGE_EPS):
     """Kernels 1 and 9 at d 131072, N 160 (HUGE_D's widest) on 64 chains:
-    1 over 10 leapfrogs, 9 over k transitions at md 4 (HUGE_WITNESS_EPS:
-    every tree of 15 leaves), CUDA events,
-    torch.profiler's device time, the plain version on the card, the bound
+    1 over 10 leapfrogs, 9 over k transitions at md 4 (HUGE_EPS: every
+    tree of 15 leaves), CUDA events (at 0.2-0.8 s a launch the host's work
+    inside an event time is negligible, and torch.profiler recorded no
+    device time for these kernels on the card this was written on), the
+    plain version on the card, the bound
     (4 d N operations a chain-gradient at the 3xTF32 rate; kernel 9 over
     the plain version's leaves, or the bytes), its share, and the bytes of
     X the tiles read a gradient (two passes of the N x D design by each
@@ -7366,26 +7530,25 @@ def phase_huge_width_times(C=64, n_leaps=10, md=4, k=2, reps=3,
     leaves = int(((1 << rows["ndoublings"].long()) - 1).sum())
     x_bytes = 2 * -(-C // 16) * 4 * N * d
     out = {}
-    for name, kern, plain, evals, sym in (
+    for name, kern, plain, evals in (
             ("glm_leapfrogs_chunked",
              lambda: gk.glm_leapfrogs(XT, Yc, th, m, g, eps, n_leaps=n_leaps),
              lambda: gk.glm_leapfrogs_ref(XT, Yc, th, m, g, eps,
                                           n_leaps=n_leaps),
-             C * n_leaps, "hmc_xwide_kernel"),
+             C * n_leaps),
             ("glm_nuts_multistep_chunked",
              lambda: nk.glm_nuts_multistep(XT, Yc, th, lp, g, eps, gen(),
                                            k_trans=k, maxdoublings=md),
              lambda: nk.glm_nuts_multistep_ref(XT, Yc, th, lp, g, eps,
                                                gen(), k_trans=k,
                                                maxdoublings=md),
-             leaves, "nuts_xwide_kernel")):
+             leaves)):
         nbytes = _nbytes((XT, Yc, th, m, g, lp), kern())
         bound = _bound(evals, d, N, nbytes)
         t = (_event_ms(kern, reps=reps), _event_ms(plain, reps=2))
         out[name] = {"d": d, "N": N, "C": C, "evals": evals, "ms": t[0],
                      "plain_ms": t[1], **bound,
                      "share_of_bound": bound["bound_ms"] / t[0],
-                     "device_ms": _device_ms(kern, sym, reps=reps),
                      "x_bytes_a_gradient": x_bytes}
         emit({"phase": "huge_width_time", "name": name, **out[name], **CARD})
     _release_scratch()
@@ -8208,12 +8371,13 @@ def phase_manifold_samplers(chains=4096, heavy_chains=1024,
 
 
 #: examples/model_comparison.py's prior-tempered PTMC ladder (ten rungs
-#: (k/9)^5): its (steps, burnin) of (6000, 1000) cut to (400, 100) for the
-#: script's time: a step takes twelve vmapped gradients of the callable
-#: model, 20-31 ms on one H100 80GB HBM3 at 700 W (a gradient 1.45-2.6 ms
-#: a call from one host to another); CPU runs at (400, 100), seeds 0-3,
-#: came within 0.12 (TI) and 0.08 (SS) of the exact logZ
-EVIDENCE_PTMC = (400, 100)
+#: (k/9)^5): its (steps, burnin) of (6000, 1000) cut to (400, 100), then
+#: (300, 75), for the script's time: a step takes twelve vmapped gradients
+#: of the callable model, 20-31 ms on one H100 80GB HBM3 at 700 W (a
+#: gradient 1.45-2.6 ms a call from one host to another); CPU runs at
+#: (300, 75), seeds 0-3, came within 0.17 (TI) and 0.12 (SS) of the exact
+#: logZ (at (400, 100) 0.12 and 0.08)
+EVIDENCE_PTMC = (300, 75)
 
 
 def population_model():
@@ -9187,7 +9351,7 @@ def kernel_bits(root, out):
     1024, 4096 and 16384, from the package under ROOT (its libraries built
     first, in parallel), saved to OUT; ``--bits-compare A B`` then says
     which differ, so that two trees can be held to the same bits (kernel 9,
-    whose draws changed at every width in PR 26, is left out)."""
+    whose draw layout a tree may change at every width, is left out)."""
     sys.path.insert(0, os.path.abspath(root))
     from concurrent.futures import ThreadPoolExecutor
 

@@ -48,15 +48,23 @@ def free_bytes(device):
             - torch.cuda.memory_allocated(device))
 
 
-def scratch_buffer(cache, key, nbytes, device, slice_bytes):
+def nbytes_of(*tensors):
+    """Bytes of memory that ``tensors`` hold."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def scratch_buffer(cache, key, nbytes, device, slice_bytes, reserve):
     """(buffer, bytes) of a kernel's scratch in device memory: one float32
     buffer for each ``key`` of ``cache``, allocated once and grown when a
-    launch needs more than it holds.  The kernels run no more blocks than
-    the buffer holds slices of ``slice_bytes`` for (they check the size they
-    are given), so a growth takes whole slices, at most half of what the
-    card can give besides the buffer itself (the run's own arrays need the
-    rest) and one slice at least; the old buffer goes before the new one is
-    made."""
+    launch needs more than it holds; the old buffer goes before the new one
+    is made.  A growth takes the launch's whole request ``nbytes`` (a slice
+    of ``slice_bytes`` for each block it runs at once) when the card can
+    give it and ``reserve`` bytes besides: the launch's outputs and
+    collected rows, which the run's next launch allocates again while these
+    are still held.  Only when it cannot does the buffer take fewer whole
+    slices, as many as fit there and one at least; the kernels run no more
+    blocks than the buffer holds slices for (they check the size they are
+    given), so fewer blocks walk the same tiles in turn."""
     import torch
 
     buf = cache.get(key)
@@ -64,9 +72,9 @@ def scratch_buffer(cache, key, nbytes, device, slice_bytes):
     if have >= nbytes:
         return buf, have
     free = free_bytes(device)
-    if free is not None:
-        fit = (free + have) // 2 // slice_bytes * slice_bytes
-        nbytes = max(min(nbytes, fit), slice_bytes)
+    if free is not None and nbytes > free + have - reserve:
+        nbytes = max((free + have - reserve) // slice_bytes * slice_bytes,
+                     slice_bytes)
         if have >= nbytes:
             return buf, have
     cache.pop(key, None)

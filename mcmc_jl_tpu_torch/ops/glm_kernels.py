@@ -55,9 +55,9 @@ shared memory and registers are sized by the 512-column chunk; every index
 that can pass 2^31 is a ``size_t``).  A block's slot is 5 x 16 x D float32
 (:func:`slot_bytes`: 2.6 MB at d 8192, 42 MB at d 131072); the kernel runs
 no more blocks than its scratch holds slots for, and :func:`_slots` grows
-that scratch to at most half of what the card can give
-(``cuda_build.scratch_buffer``), so at the widest d fewer blocks walk the
-tiles in turn, with the same bits.  The exact-NUTS kernels (8, 9) take the
+that scratch to what the launch's blocks need, or when the card cannot give
+that, to the whole slots that fit (``cuda_build.scratch_buffer``), so that
+fewer blocks walk the tiles in turn, with the same bits.  The exact-NUTS kernels (8, 9) take the
 same bound (``nuts_kernels.NUTS_D_MAX``).  :func:`memory_reason` says when
 not even one block's scratch and the chain state fit; the route then
 takes the generic engine.
@@ -73,7 +73,7 @@ import torch
 from ..samplers.chees import halton2
 from ..samplers.integrators import SCHEDULES
 from . import philox
-from .cuda_build import count, scratch_buffer
+from .cuda_build import count, nbytes_of, scratch_buffer
 
 KIND_CODES = {"logistic": 0, "linear": 1, "poisson": 2, "probit": 3}
 #: largest parameter count the HMC kernels (1, 2, 3, 3b) and the N-tiled
@@ -95,9 +95,13 @@ SLICE_DRAW = 0xFFFFFFFF
 
 _NAMES = ("glm_leapfrogs", "glm_step", "glm_multistep", "glm_multistep_rows")
 #: float32 arrays of a (C, d) chain state that a launch holds besides its
-#: scratch (theta, momentum and gradient in and out, and one transition's
-#: rows of theta and gradient): :func:`memory_reason`'s chain state
-CHAIN_ARRAYS = 8
+#: scratch (theta, momentum and gradient in and out): :func:`memory_reason`'s
+#: chain state
+CHAIN_ARRAYS = 6
+#: float32 (C, d) rows that one launch of kernel 3b or 9 collects at most:
+#: theta and gradient after each of up to 8 transitions
+#: (``warmstart._pick_k_trans``)
+ROWS_A_LAUNCH = 16
 #: launches with a (d, d) prior, and launches on the wide tile (d >
 #: NARROW_D_MAX), the very-wide tile (d > WIDE_D_MAX) and the chunked tier
 #: (d > XWIDE_D_MAX), counted apart
@@ -448,34 +452,29 @@ def load_kernels():
         lib.glm_slot_bytes.restype = _LL
         if lib.glm_max_dim() != D_MAX:
             raise RuntimeError("csrc/glm_hmc.cu and glm_kernels.D_MAX disagree")
-        if any(lib.glm_slot_bytes(d) != slot_bytes(d)
-               for d in (WIDE_D_MAX, 300, XWIDE_D_MAX, 1025, D_MAX)):
-            raise RuntimeError("csrc/glm_hmc.cu and glm_kernels.slot_bytes "
-                               "disagree")
         lib._bound = True
     return lib
 
 
 def slot_bytes(d):
-    """Bytes of one block's slot of kernels 1, 2, 3 and 3b at d
-    (csrc/glm_hmc.cu glm_slot_bytes, which :func:`load_kernels` holds it
-    to): theta, g, m and the proposal's g, 4 x 16 x D float32, on the
-    very-wide tile (xwide_slot_bytes), and the proposal's theta too, 5 x 16 x
-    D, on the chunked tier (xchunk_slot_bytes); 0 at d <= WIDE_D_MAX, where
-    the chain state stays in registers."""
-    if d <= WIDE_D_MAX:
-        return 0
-    return 4 * 16 * _padded(d) * (5 if d > XWIDE_D_MAX else 4)
+    """Bytes of one block's slot of kernels 1, 2, 3 and 3b at d, as
+    csrc/glm_hmc.cu glm_slot_bytes counts them (the library is built on
+    first use): theta, g, m and the proposal's g, 4 x 16 x D float32, on
+    the very-wide tile, and the proposal's theta too, 5 x 16 x D, on the
+    chunked tier; 0 at d <= WIDE_D_MAX, where the chain state stays in
+    registers."""
+    return int(load_kernels().glm_slot_bytes(d))
 
 
-def memory_reason(slice_bytes, d, C, free):
+def memory_reason(slice_bytes, d, C, free, rows=0):
     """Why a launch at d on C chains cannot run in ``free`` bytes of device
     memory: one block's scratch ``slice_bytes`` (:func:`slot_bytes`, or the
     NUTS kernels' ``nuts_kernels.slice_bytes``) and the chain state
-    (:data:`CHAIN_ARRAYS` float32 (C, d) arrays) must fit, else None.  A
-    scratch of fewer slices than blocks only runs fewer blocks at once."""
-    state = 4 * CHAIN_ARRAYS * C * d
-    if free is None or slice_bytes + state <= free:
+    (:data:`CHAIN_ARRAYS` float32 (C, d) arrays, and ``rows`` more that the
+    launch collects) must fit, else None.  A scratch of fewer slices than
+    blocks only runs fewer blocks at once."""
+    state = 4 * (CHAIN_ARRAYS + rows) * C * d
+    if slice_bytes + state <= free:
         return None
     return (f"one block's scratch ({slice_bytes} bytes) and the chain state "
             f"of {C} chains at d = {d} ({state} bytes) need "
@@ -496,21 +495,21 @@ def _sm_count(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _slots(dev, d, C):
+def _slots(dev, d, C, reserve):
     """(buffer, bytes) of the very-wide tile's and the chunked tier's chain
     state for C chains of d parameters on ``dev``'s current stream: a slot
     of :func:`slot_bytes` for each block a launch runs at once, at most one
     an SM (the tiles' plans take more than half an SM's shared memory).  One
     buffer for each (device, stream), whatever d, allocated once and grown
-    when a launch needs more, to at most half of what the card can give and
-    one slot at least (``cuda_build.scratch_buffer``); the kernel runs no
-    more blocks than it holds slots for.  (None, 0) at d <= WIDE_D_MAX,
-    where the chain state stays in registers."""
-    per = slot_bytes(d)
-    if not per:
+    when a launch needs more (``cuda_build.scratch_buffer``, ``reserve`` the
+    bytes of the launch's outputs); the kernel runs no more blocks than it
+    holds slots for.  (None, 0) at d <= WIDE_D_MAX, where the chain state
+    stays in registers."""
+    if d <= WIDE_D_MAX:
         return None, 0
+    per = slot_bytes(d)
     need = per * min(-(-C // 16), _sm_count(dev))
-    return scratch_buffer(_SLOTS, _stream_key(dev), need, dev, per)
+    return scratch_buffer(_SLOTS, _stream_key(dev), need, dev, per, reserve)
 
 
 @functools.cache
@@ -596,11 +595,13 @@ def _counted(name, lamm, d=0):
     return name + ("" if lamm is None else "_mat") + tier
 
 
-def _launch(name, d, C, *args, counted=None):
+def _launch(name, d, C, *args, outputs, counted=None):
     """Launch ``name`` on the current stream with ``args``, then the
-    very-wide tile's scratch for (d, C) (none at d <= WIDE_D_MAX)."""
+    very-wide tile's scratch for (d, C) (none at d <= WIDE_D_MAX), sized
+    beside the launch's ``outputs``."""
     lib = load_kernels()
-    scratch, nbytes = _slots(torch.cuda.current_device(), d, C)
+    scratch, nbytes = _slots(torch.cuda.current_device(), d, C,
+                             nbytes_of(*outputs))
     code = getattr(lib, name)(*args, _ptr(scratch), nbytes,
                               _P(torch.cuda.current_stream().cuda_stream))
     if code != 0:
@@ -641,7 +642,8 @@ def glm_leapfrogs(XT, Y, theta, m, grad, eps, *, n_leaps=10, kind="logistic",
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(m),
                 _ptr(grad), _ptr(th_o), _ptr(m_o), _ptr(g_o), _ptr(lp_o),
                 float(eps), lam, int(n_leaps), KIND_CODES[kind],
-                *_sched(integrator), counted=_counted(name, lamm, d))
+                *_sched(integrator), outputs=(th_o, m_o, g_o, lp_o),
+                counted=_counted(name, lamm, d))
     return th_o, m_o, g_o, lp_o
 
 
@@ -672,6 +674,7 @@ def glm_step(XT, Y, theta, grad, lp, m0, logu, eps, *, n_leaps=10,
                 _ptr(lp), _ptr(m0), _ptr(logu), _ptr(th_o), _ptr(g_o),
                 _ptr(lp_o), _ptr(acc_o), float(eps), lam, int(n_leaps),
                 KIND_CODES[kind], *_sched(integrator),
+                outputs=(th_o, g_o, lp_o, acc_o),
                 counted=_counted(name, lamm, d))
     return th_o, g_o, lp_o, acc_o
 
@@ -703,7 +706,8 @@ def glm_multistep(XT, Y, theta, eps, *, k_trans=10, n_leaps=10,
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(th_o),
                 _ptr(g_o), _ptr(lp_o), _ptr(acc_o), float(eps), lam,
                 int(n_leaps), int(k_trans), KIND_CODES[kind], int(seed),
-                *_sched(integrator), counted=_counted(name, lamm, d))
+                *_sched(integrator), outputs=(th_o, g_o, lp_o, acc_o),
+                counted=_counted(name, lamm, d))
     return th_o, g_o, lp_o, acc_o
 
 
@@ -745,7 +749,9 @@ def glm_multistep_rows(XT, Y, theta, eps, T, i0, max_leaps, *, k_trans=8,
                 _ptr(r_acc), _ptr(r_alpha),
                 _ptr(r_nl), float(eps), float(T), lam, int(i0),
                 int(max_leaps), int(k_trans), KIND_CODES[kind], int(seed),
-                *_sched(integrator), counted=_counted(name, lamm, d))
+                *_sched(integrator), counted=_counted(name, lamm, d),
+                outputs=(th_o, g_o, lp_o, r_th, r_g, r_lp, r_acc, r_alpha,
+                         r_nl))
     return th_o, g_o, lp_o, {"ppars": r_th, "pgrads": r_g, "plogtarget": r_lp,
                              "accept": r_acc > 0.5, "alpha": r_alpha,
                              "nleaps": r_nl}

@@ -47,9 +47,10 @@ in column chunks of at most 512, counted as ``<name>_chunked`` (and
 tree's state (on the very-wide tile the walker's momentum and gradient
 too, on the chunked tier its position as well) in a scratch buffer, a
 slice of :func:`slice_bytes` a block, that :func:`_scratch` allocates once
-for each device and stream and grows to at most half of what the card can
-give; a launch runs no more blocks than the buffer holds slices for (277
-MB a block at d 131072 and md 10).
+for each device and stream and grows to what a launch's blocks need, or
+when the card cannot give that, to the whole slices that fit; a launch
+runs no more blocks than the buffer holds slices for (277 MB a block at d
+131072 and md 10).
 On a catalog target the frozen diagonal metric rides the step instead, as a
 (d,) row ``eps * s``, and a dense one is the factor of a
 :class:`~..models.distributions.DenseTarget`, whose launches count as
@@ -73,14 +74,13 @@ import torch
 from ..samplers.base import _where
 from ..samplers.nuts import DELTAMAX, _dot, _popcount, _trailing_ones
 from .glm_kernels import (D_MAX, KIND_CODES, NARROW_D_MAX, SLICE_DRAW,
-                          WIDE_D_MAX, XWIDE_D_MAX, _arange_for, _check,
-                          _counted, _device_branch, _padded, _prior,
-                          _prior_args, _ptr, _row, _stream_key, glm_funcs,
-                          glm_multistep_draws)
+                          _arange_for, _check, _counted, _device_branch,
+                          _prior, _prior_args, _ptr, _row, _stream_key,
+                          glm_funcs, glm_multistep_draws)
 from . import philox
 from .target_kernels import (_eps_args, _seed, dense_name, kernel_args,
                              launch, load_library, step_for, target_funcs)
-from .cuda_build import count, scratch_buffer
+from .cuda_build import count, nbytes_of, scratch_buffer
 
 #: largest parameter count of the GLM NUTS kernels (8, 9): the chunked
 #: tier's bound glm_kernels.D_MAX = 131072, as the HMC kernels' (csrc/
@@ -342,16 +342,13 @@ _ARGTYPES = {
 
 
 def slice_bytes(d, md):
-    """Bytes of one block's slice of the tree's scratch at (d, md)
-    (csrc/glm_nuts.cu glm_nuts_slice_bytes, which :func:`load_kernels` holds
-    it to): 16 chains' rows of D float32, 10 + 2 md of them on the wide
-    tile, 12 + 2 md on the very-wide tile (the walker's momentum and
+    """Bytes of one block's slice of the tree's scratch at (d, md), as
+    csrc/glm_nuts.cu glm_nuts_slice_bytes counts them (the library is built
+    on first use): 16 chains' rows of D float32, 10 + 2 md of them on the
+    wide tile, 12 + 2 md on the very-wide tile (the walker's momentum and
     gradient) and 13 + 2 md on the chunked tier (its position); 0 on the
     narrow tile, which keeps the tree in shared memory."""
-    if d <= NARROW_D_MAX:
-        return 0
-    rows = 10 if d <= WIDE_D_MAX else 13 if d > XWIDE_D_MAX else 12
-    return 4 * 16 * _padded(d) * (rows + 2 * md)
+    return int(load_kernels().glm_nuts_slice_bytes(d, md))
 
 
 def load_kernels():
@@ -371,12 +368,9 @@ def load_kernels():
         lib.glm_nuts_slice_bytes.argtypes = [_I, _I]
         lib.glm_nuts_slice_bytes.restype = _LL
         if (lib.nuts_max_doublings() != MAX_DOUBLINGS
-                or lib.nuts_max_dim() != NUTS_D_MAX
-                or any(lib.glm_nuts_slice_bytes(d, md) != slice_bytes(d, md)
-                       for d in (NARROW_D_MAX, 40, 300, 1025, NUTS_D_MAX)
-                       for md in (1, MAX_DOUBLINGS))):
+                or lib.nuts_max_dim() != NUTS_D_MAX):
             raise RuntimeError("csrc/glm_nuts.cu and nuts_kernels disagree "
-                               "on MAX_DOUBLINGS, NUTS_D_MAX or slice_bytes")
+                               "on MAX_DOUBLINGS or NUTS_D_MAX")
         lib._bound = True
     return lib
 
@@ -407,23 +401,23 @@ def _queue(dev):
 _SCRATCH = {}
 
 
-def _scratch(dev, d, N, md, C):
+def _scratch(dev, d, N, md, C, reserve):
     """(buffer, bytes) of the tree state above the narrow tile on
     ``dev``'s current stream: a slice of :func:`slice_bytes` for each block
     a launch of C chains runs at once (one a tile of 16, at most the plan's
     blocks).  One float32 buffer for each (device, stream), whatever d and
-    md, allocated once and grown when a launch needs more, to at most half
-    of what the card can give and one slice at least
-    (``cuda_build.scratch_buffer``); the kernel runs no more blocks than it
-    holds slices for (on an H100's 132 SMs at md 10: 277 MB at d 1024, 4.6
-    GB at d 16384, 36.6 GB at d 131072).  (None, 0) on the narrow tile,
-    which keeps the tree in shared memory."""
-    per = slice_bytes(d, md)
-    if not per:
+    md, allocated once and grown when a launch needs more
+    (``cuda_build.scratch_buffer``, ``reserve`` the bytes of the launch's
+    outputs); the kernel runs no more blocks than it holds slices for (on
+    an H100's 132 SMs at md 10: 277 MB at d 1024, 4.6 GB at d 16384, 36.5
+    GB at d 131072).  (None, 0) on the narrow tile, which keeps the tree in
+    shared memory."""
+    if d <= NARROW_D_MAX:
         return None, 0
+    per = slice_bytes(d, md)
     blocks = nuts_plan(d, N, md)["scratch_bytes"] // per
     return scratch_buffer(_SCRATCH, _stream_key(dev),
-                          per * min(-(-C // 16), blocks), dev, per)
+                          per * min(-(-C // 16), blocks), dev, per, reserve)
 
 
 def nuts_plan(d, N, maxdoublings):
@@ -483,7 +477,8 @@ def glm_nuts_transition(XT, Y, theta, lp, grad, eps, m0, logu, dirn,
     nd_o = torch.empty(C, dtype=torch.int32, device=theta.device)
     dv_o = torch.empty(C, dtype=torch.bool, device=theta.device)
     with torch.cuda.device(theta.device):
-        scratch, nbytes = _scratch(theta.device, d, N, md, C)
+        scratch, nbytes = _scratch(theta.device, d, N, md, C,
+                                   nbytes_of(th_o, g_o, lp_o, nd_o, dv_o))
         _launch(name, lamm, d, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
                 _ptr(grad), _ptr(m0), _ptr(logu), _ptr(dirn), _ptr(merge_u),
@@ -616,7 +611,8 @@ def glm_nuts_multistep(XT, Y, theta, lp, grad, eps, generator, *, k_trans=8,
     r_nd = torch.empty((k_trans, C), dtype=torch.int32, device=dev)
     r_dv = torch.empty((k_trans, C), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        scratch, nbytes = _scratch(dev, d, N, md, C)
+        scratch, nbytes = _scratch(dev, d, N, md, C, nbytes_of(
+            th_o, g_o, lp_o, r_th, r_g, r_lp, r_acc, r_nd, r_dv))
         _launch(name, lamm, d, _ptr(XT), _ptr(_row(Y)), _ptr(W), _ptr(O),
                 _ptr(lamv), _ptr(lamm), N, d, C, _ptr(theta), _ptr(lp),
                 _ptr(grad), _ptr(th_o), _ptr(g_o), _ptr(lp_o), _ptr(r_th),

@@ -256,7 +256,7 @@ def _target_eligible(task):
             and task.model.size <= D_MAX)
 
 
-def _kernel_shape_ok(model, route, sampler, n=1):
+def _kernel_shape_ok(model, route, sampler, n):
     """What the ported kernels take on ``route``: on a GLM a built-in link
     and d <= D_MAX (kernels 1-4, 8 and 9: the narrow tile up to
     NARROW_D_MAX, the wide tile up to WIDE_D_MAX, the very-wide tile up to
@@ -267,7 +267,8 @@ def _kernel_shape_ok(model, route, sampler, n=1):
     maxdoublings <= MAX_DOUBLINGS.  None when they do, else the reason."""
     from ..ops import nuts_kernels
     from ..ops.cuda_build import free_bytes
-    from ..ops.glm_kernels import D_MAX, KIND_CODES, memory_reason, slot_bytes
+    from ..ops.glm_kernels import (D_MAX, KIND_CODES, ROWS_A_LAUNCH,
+                                   memory_reason, slot_bytes)
     from ..ops.nuts_kernels import MAX_DOUBLINGS
 
     if route == "nuts" and sampler.maxdoublings > MAX_DOUBLINGS:
@@ -293,11 +294,16 @@ def _kernel_shape_ok(model, route, sampler, n=1):
     if d > D_MAX:
         return (f"d = {d} > {D_MAX}, the GLM kernels' bound (ROADMAP: GLMs "
                 f"wider than {D_MAX} parameters)")
-    # kernel 4 (above BIGN_THRESHOLD on the HMC routes) keeps no slot
+    free = free_bytes(model.device)
+    if free is None:  # off the card nothing is launched
+        return None
+    # kernel 4 (above BIGN_THRESHOLD on the HMC routes) keeps no slot;
+    # kernels 3b ("warm") and 9 ("nuts") collect rows
     per = (nuts_kernels.slice_bytes(d, sampler.maxdoublings)
            if route == "nuts" else
            0 if N > glm_bign.BIGN_THRESHOLD else slot_bytes(d))
-    return memory_reason(per, d, n, free_bytes(model.device))
+    rows = ROWS_A_LAUNCH if route in ("nuts", "warm") else 0
+    return memory_reason(per, d, n, free, rows)
 
 
 def _nuts_or_warm(sampler):

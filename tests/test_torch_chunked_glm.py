@@ -269,7 +269,7 @@ def test_chunked_bounds_and_counters():
         assert gk._counted(name, None, 1025) == name + "_chunked"
         assert gk._counted(name, object(), gk.D_MAX) == name + "_mat_chunked"
         assert {name + "_chunked", name + "_mat_chunked"} <= set(nk.LAUNCHES)
-    assert gk._slots("cpu", 256, 4096) == (None, 0)
+    assert gk._slots("cpu", 256, 4096, 0) == (None, 0)
     assert glm_bign.splits_for(20_000, 512, 4096) == \
         glm_bign.splits_for(20_000, 512, 1024) == 8
     N, C = 20, 3

@@ -224,21 +224,49 @@ def test_routes_at_the_new_bound(caplog):
     assert sum(why in r.getMessage() for r in caplog.records) == 2
 
 
+def _slot_bytes(d):
+    """csrc/glm_hmc.cu glm_slot_bytes, as a stand-in where the library is
+    not built: 4 rows of 16 chains' D float32 a block on the very-wide tile,
+    5 on the chunked tier, none at d <= 256 (test_slot_and_slice_bytes
+    holds the library to it on a card)."""
+    if d <= gk.WIDE_D_MAX:
+        return 0
+    return 4 * 16 * gk._padded(d) * (5 if d > gk.XWIDE_D_MAX else 4)
+
+
+def _slice_bytes(d, md):
+    """csrc/glm_nuts.cu glm_nuts_slice_bytes, as a stand-in where the
+    library is not built: 10 + 2 md rows (wide), 12 + 2 md (very-wide) or
+    13 + 2 md (chunked) of 16 chains' D float32, none at d <= 32."""
+    if d <= gk.NARROW_D_MAX:
+        return 0
+    rows = 10 if d <= gk.WIDE_D_MAX else 13 if d > gk.XWIDE_D_MAX else 12
+    return 4 * 16 * gk._padded(d) * (rows + 2 * md)
+
+
+def _stand_in_bytes(monkeypatch):
+    monkeypatch.setattr(gk, "slot_bytes", _slot_bytes)
+    monkeypatch.setattr(nk, "slice_bytes", _slice_bytes)
+
+
 def test_memory_reason_names_the_bytes(monkeypatch, caplog):
     """A plan that does not hold one block's scratch and the chain state
-    sends the run to the generic engine with a reason that names the
-    bytes: ``memory_reason`` alone, and through the route with the card's
-    free memory given as too few bytes; with enough, no reason."""
+    (with the rows that kernels 3b and 9 collect) sends the run to the
+    generic engine with a reason that names the bytes: ``memory_reason``
+    alone, and through the route with the card's free memory given as too
+    few bytes; with enough, no reason."""
+    _stand_in_bytes(monkeypatch)
     d, C = gk.D_MAX, 64
     per = nk.slice_bytes(d, 6)
     assert per == 4 * 16 * d * (13 + 12)
-    state = 4 * gk.CHAIN_ARRAYS * C * d
-    assert gk.memory_reason(per, d, C, None) is None
-    assert gk.memory_reason(per, d, C, per + state) is None
-    why = gk.memory_reason(per, d, C, per + state - 1)
+    rows = gk.ROWS_A_LAUNCH
+    state = 4 * (gk.CHAIN_ARRAYS + rows) * C * d
+    assert gk.memory_reason(per, d, C, per + state, rows) is None
+    why = gk.memory_reason(per, d, C, per + state - 1, rows)
     assert f"({per} bytes)" in why and f"({state} bytes)" in why
     assert f"{per + state - 1} bytes free" in why
     assert "GLMs wider than the card's memory" in why
+    assert gk.memory_reason(per, d, C, per + state - 1) is None
     m = _wide_model(d)
     runner = mt.SerialMC(steps=20, burnin=10)
     monkeypatch.setattr(cuda_build, "free_bytes", lambda dev: 10 ** 6)
@@ -253,21 +281,39 @@ def test_memory_reason_names_the_bytes(monkeypatch, caplog):
     assert pchains._route(MCMCTask(m, mt.NUTS(6), runner), True, C) == "nuts"
 
 
+def test_routes_off_the_card_build_nothing(monkeypatch):
+    """Off the card the route asks no library for its bytes (nothing is
+    launched there, and the libraries build only where nvcc is): at d
+    131072 plain HMC and exact NUTS route with no memory check."""
+    def refuse():
+        raise AssertionError("a library was loaded for a CPU route")
+
+    monkeypatch.setattr(gk, "load_kernels", refuse)
+    monkeypatch.setattr(nk, "load_kernels", refuse)
+    m = _wide_model(gk.D_MAX)
+    runner = mt.SerialMC(steps=20, burnin=10)
+    assert pchains._route(MCMCTask(m, mt.HMC(5, 0.1), runner), True,
+                          64) == "hmc"
+    assert pchains._route(MCMCTask(m, mt.NUTS(6), runner), True,
+                          64) == "nuts"
+    assert pchains._kernel_shape_ok(m, "warm", mt.HMC(5, 0.1), 64) is None
+
+
 def test_slot_and_slice_bytes():
-    """The bytes of one block's scratch: kernels 1-3b's slot of 4 (very-wide)
-    or 5 (chunked) rows of 16 chains of D float32, none at d <= 256; the
-    NUTS kernels' slice of 10 + 2 md (wide), 12 + 2 md (very-wide) or
-    13 + 2 md (chunked) rows, none at d <= 32 (csrc/glm_hmc.cu
-    glm_slot_bytes and csrc/glm_nuts.cu glm_nuts_slice_bytes, which the
-    libraries' loaders hold them to); at d 131072 and md 10 132 blocks take
-    36.5 GB, past 2^31 floats from the 33rd block on."""
-    assert gk.slot_bytes(256) == 0 and nk.slice_bytes(32, 10) == 0
-    assert gk.slot_bytes(300) == 4 * 16 * 320 * 4
+    """The bytes of one block's scratch as the built libraries count them
+    (csrc/glm_hmc.cu glm_slot_bytes, csrc/glm_nuts.cu glm_nuts_slice_bytes)
+    at every tier, against the stand-ins above; at d 131072 and md 10 132
+    blocks take 36.5 GB, past 2^31 floats from the 33rd block on (skips
+    without a card: the libraries build only there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the libraries build only there")
+    for d in (gk.WIDE_D_MAX, 300, gk.XWIDE_D_MAX, 1025, 16416, gk.D_MAX):
+        assert gk.slot_bytes(d) == _slot_bytes(d), d
+    for d in (gk.NARROW_D_MAX, 40, 150, 300, 1024, 1025, gk.D_MAX):
+        for md in (1, 6, nk.MAX_DOUBLINGS):
+            assert nk.slice_bytes(d, md) == _slice_bytes(d, md), (d, md)
     assert gk.slot_bytes(gk.D_MAX) == 4 * 16 * gk.D_MAX * 5 == 41943040
-    assert nk.slice_bytes(150, 6) == 4 * 16 * 160 * 22
-    assert nk.slice_bytes(1024, 10) == 4 * 16 * 1024 * 32
     per = nk.slice_bytes(gk.D_MAX, 10)
-    assert per == 4 * 16 * gk.D_MAX * 33
     assert 132 * per == 36540776448
     assert 32 * per // 4 > 2 ** 31 > 31 * per // 4
     assert 132 * nk.slice_bytes(gk.D_MAX, 4) // 4 > 2 ** 31
@@ -276,10 +322,11 @@ def test_slot_and_slice_bytes():
 def test_scratch_buffers_one_a_device_and_stream(monkeypatch):
     """``_slots`` (kernels 1-3b) and ``_scratch`` (8, 9) keep one buffer for
     each (device, stream) whatever d and md, grown once a launch needs more
-    and never shrunk; a growth takes whole slices, at most half of what the
-    card can give besides the buffer, and one slice at least; off the card
-    nothing caps it."""
+    and never shrunk; a growth takes the whole request when the card can
+    give it beside the launch's outputs (``reserve``), else the whole
+    slices that fit there, one at least; off the card nothing caps it."""
     assert cuda_build.free_bytes("cpu") is None
+    _stand_in_bytes(monkeypatch)
     monkeypatch.setattr(gk, "_stream_key", lambda dev: (dev, 7))
     monkeypatch.setattr(gk, "_sm_count", lambda dev: 4)
     monkeypatch.setattr(nk, "_stream_key", lambda dev: (dev, 7))
@@ -289,7 +336,7 @@ def test_scratch_buffers_one_a_device_and_stream(monkeypatch):
     monkeypatch.setattr(nk, "_SCRATCH", {})
     sizes = []
     for d, C in ((2048, 64), (300, 64), (4096, 16), (1025, 4096)):
-        buf, nbytes = gk._slots("cpu", d, C)
+        buf, nbytes = gk._slots("cpu", d, C, 0)
         sizes.append(nbytes)
         assert nbytes >= gk.slot_bytes(d) * min(-(-C // 16), 4)
     assert list(gk._SLOTS) == [("cpu", 7)] and sizes == sorted(sizes)
@@ -297,26 +344,26 @@ def test_scratch_buffers_one_a_device_and_stream(monkeypatch):
     sizes = []
     for d, md, C in ((300, 6, 64), (4096, 10, 16), (40, 4, 4096),
                      (4096, 6, 64)):
-        buf, nbytes = nk._scratch("cpu", d, 100, md, C)
+        buf, nbytes = nk._scratch("cpu", d, 100, md, C, 0)
         sizes.append(nbytes)
         assert nbytes >= nk.slice_bytes(d, md) * min(-(-C // 16), 4)
     assert list(nk._SCRATCH) == [("cpu", 7)] and sizes == sorted(sizes)
-    # the card's memory caps a growth: half of it in whole slices, one at
-    # least, the old buffer counted as free
-    cache, per = {}, 1000
-    monkeypatch.setattr(cuda_build, "free_bytes", lambda dev: 4500)
-    assert cuda_build.scratch_buffer(cache, "k", 10 * per, "cpu", per)[1] \
-        == 2 * per
-    monkeypatch.setattr(cuda_build, "free_bytes", lambda dev: 100)
-    assert cuda_build.scratch_buffer(cache, "k", 10 * per, "cpu", per)[1] \
-        == 2 * per
-    monkeypatch.setattr(cuda_build, "free_bytes", lambda dev: 8000)
-    assert cuda_build.scratch_buffer(cache, "k", 10 * per, "cpu", per)[1] \
-        == 5 * per
-    assert cuda_build.scratch_buffer({}, "k", 10 * per, "cpu", per)[1] \
-        == 4 * per
-    monkeypatch.setattr(cuda_build, "free_bytes", lambda dev: 0)
-    assert cuda_build.scratch_buffer({}, "k", 10 * per, "cpu", per)[1] == per
+    # the whole request when it fits beside the reserve; else the whole
+    # slices that fit, the old buffer counted as free, one at least
+    cache, per, want = {}, 1000, 10_000
+
+    def grow(free, reserve=500, c=cache):
+        monkeypatch.setattr(cuda_build, "free_bytes", lambda dev: free)
+        return cuda_build.scratch_buffer(c, "k", want, "cpu", per,
+                                         reserve)[1]
+
+    assert grow(10 ** 6, c={}) == want
+    assert grow(want + 500, c={}) == want
+    assert grow(want + 499, c={}) == 9 * per
+    assert grow(4500) == 4 * per
+    assert grow(100) == 4 * per
+    assert grow(8000) == want
+    assert grow(0, c={}) == per
 
 
 # ---- ROADMAP's unsettled check: the chunked 3b against the generic engine

@@ -261,8 +261,8 @@ def test_xwide_bounds_and_counters():
     for name in ("glm_nuts_transition", "glm_nuts_multistep"):
         assert {name + "_xwide", name + "_mat_xwide"} <= set(nk.LAUNCHES)
         assert gk._counted(name, object(), 1024) == name + "_mat_xwide"
-    assert nk._scratch("cpu", 32, 1000, 6, 4096) == (None, 0)
-    assert gk._slots("cpu", 256, 4096) == (None, 0)
+    assert nk._scratch("cpu", 32, 1000, 6, 4096, 0) == (None, 0)
+    assert gk._slots("cpu", 256, 4096, 0) == (None, 0)
     assert glm_bign.splits_for(20_000, 512, 1024) == 8
     assert glm_bign.splits_for(20_000, 512, 1024) == \
         glm_bign.splits_for(20_000, 512, 150)
